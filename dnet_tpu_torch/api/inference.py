@@ -1,0 +1,361 @@
+"""The decode driver: chat request -> token loop -> SSE chunks.
+
+Counterpart of dnet_tpu/api/inference.py: template + encode, a nonce per
+request, the per-token send / await / detokenize loop, EOS, stop-sequence
+and length stops, logprobs, usage, and non-streaming aggregation, with the
+same chunk sequence the reference emits.  Admission is a plain bound on
+concurrent requests; resume, SLO tracking and the flight recorder are not
+part of this slice.
+"""
+
+from __future__ import annotations
+
+import asyncio
+import time
+from typing import AsyncIterator
+
+from dnet_tpu_torch.api.schemas import (
+    ChatChoice,
+    ChatChoiceDelta,
+    ChatCompletionChunk,
+    ChatCompletionRequest,
+    ChatCompletionResponse,
+    ChatMessage,
+    ChatStreamChoice,
+    ChoiceLogprobs,
+    CompletionChoice,
+    CompletionLogprobs,
+    CompletionResponse,
+    LogprobEntry,
+    RequestMetrics,
+    TopLogprob,
+    Usage,
+    new_request_id,
+)
+from dnet_tpu_torch.api.strategies import ApiAdapterBase
+from dnet_tpu_torch.core.types import DecodingParams
+from dnet_tpu_torch.utils.logger import get_logger
+from dnet_tpu_torch.utils.tokenizer import Detokenizer
+
+log = get_logger()
+
+
+class InferenceError(Exception):
+    pass
+
+
+class PromptTooLongError(InferenceError):
+    """Maps to HTTP 400 (client error) rather than 500."""
+
+
+def completion_logprobs(entries: list, offset0: int = 0) -> CompletionLogprobs:
+    """Chat-style LogprobEntry list -> the OpenAI text_completion logprobs
+    shape ({tokens, token_logprobs, top_logprobs, text_offset})."""
+    out = CompletionLogprobs()
+    offset = offset0
+    for e in entries:
+        out.tokens.append(e.token)
+        out.token_logprobs.append(e.logprob)
+        out.top_logprobs.append({t.token: t.logprob for t in e.top_logprobs})
+        out.text_offset.append(offset)
+        offset += len(e.token)
+    return out
+
+
+def _holdback_len(text: str, stop_seqs: list[str]) -> int:
+    """Length of the longest suffix of `text` that is a proper prefix of any
+    stop sequence (held back: the next token may complete a stop)."""
+    hold = 0
+    for s in stop_seqs:
+        for k in range(min(len(s) - 1, len(text)), 0, -1):
+            if text.endswith(s[:k]):
+                hold = max(hold, k)
+                break
+    return hold
+
+
+class InferenceManager:
+    def __init__(
+        self,
+        adapter: ApiAdapterBase,
+        request_timeout_s: float = 300.0,
+        max_concurrent: int = 8,
+    ) -> None:
+        self.adapter = adapter
+        self.tokenizer = None  # set by the model manager on load
+        self.model_id = None
+        self.request_timeout_s = request_timeout_s
+        self.max_concurrent = max_concurrent
+        self._slots = asyncio.Semaphore(max_concurrent)
+        self.active = 0  # admitted requests in flight
+
+    @property
+    def ready(self) -> bool:
+        return self.tokenizer is not None and self.model_id is not None
+
+    def _decoding(self, req: ChatCompletionRequest) -> DecodingParams:
+        return DecodingParams(
+            temperature=req.temperature,
+            top_p=req.top_p,
+            top_k=req.top_k,
+            min_p=req.min_p,
+            repetition_penalty=req.repetition_penalty,
+            min_tokens_to_keep=req.min_tokens_to_keep,
+            logprobs=req.logprobs_enabled,
+            top_logprobs=req.top_logprobs,
+            seed=req.seed,
+            logit_bias=req.logit_bias_ids(),
+            stop_token_ids=tuple(self.tokenizer.eos_token_ids),
+        )
+
+    def _logprob_entry(self, result, text: str) -> LogprobEntry:
+        top = [
+            TopLogprob(
+                token=self.tokenizer.decode([tid]),
+                logprob=lp,
+                bytes=list(self.tokenizer.decode([tid]).encode("utf-8")),
+            )
+            for tid, lp in (result.top_logprobs or [])
+        ]
+        return LogprobEntry(
+            token=text,
+            logprob=result.logprob or 0.0,
+            bytes=list(text.encode("utf-8")),
+            top_logprobs=top,
+        )
+
+    async def generate_stream(self, req) -> AsyncIterator[ChatCompletionChunk]:
+        """Per-token chunks; the final chunk carries finish_reason/usage."""
+        if not self.ready:
+            raise InferenceError("no model loaded")
+        async with self._slots:
+            self.active += 1
+            try:
+                async for chunk in self._run(req):
+                    yield chunk
+            finally:
+                self.active -= 1
+
+    async def _run(self, req) -> AsyncIterator[ChatCompletionChunk]:
+        rid = new_request_id()
+        nonce = rid
+        t_start = time.perf_counter()
+        t_first = None
+        generated = 0
+        finish_reason = "length"
+        tok = self.tokenizer
+        prompt_ids = tok.encode(req.render_prompt(tok))
+        decoding = self._decoding(req)
+        stop_seqs = req.stop_sequences()
+        eos = tok.eos_token_ids
+        detok = Detokenizer(tok)
+        max_new = req.completion_tokens_limit
+
+        capacity = self.adapter.max_seq()
+        if capacity is not None:
+            if len(prompt_ids) >= capacity:
+                raise PromptTooLongError(
+                    f"prompt is {len(prompt_ids)} tokens but the serving context is {capacity}"
+                )
+            max_new = min(max_new, capacity - len(prompt_ids))
+
+        pending = ""  # emitted-text buffer held back for stop-seq match
+        held_entries: list = []  # logprob entries for held-back tokens
+        emitted_ahead = 0  # emitted chars owned by the oldest held entry
+        first_chunk = True  # first streamed delta carries role=assistant
+        stopped_by_seq = False
+
+        await self.adapter.reset_cache(nonce)
+        try:
+            send_ids = list(prompt_ids)
+            for step in range(max_new):
+                await self.adapter.send_tokens(nonce, send_ids, decoding, step, budget=max_new - step)
+                result = await self.adapter.await_token(nonce, step, self.request_timeout_s)
+                if result.error:
+                    raise InferenceError(result.error)
+                if t_first is None:
+                    t_first = time.perf_counter()
+                generated += 1
+
+                if result.token_id in eos:
+                    finish_reason = "stop"
+                    break
+
+                delta = detok.add(result.token_id)
+                send_ids = [result.token_id]
+                if req.logprobs_enabled:
+                    held_entries.append(self._logprob_entry(result, delta))
+
+                # stop sequences: never emit text at or beyond a match, and
+                # hold back any suffix that could still become one
+                stopped = False
+                if stop_seqs:
+                    pending += delta
+                    delta = ""
+                    for s in stop_seqs:
+                        idx = pending.find(s)
+                        if idx != -1:
+                            pending = pending[:idx]
+                            stopped = True
+                            break
+                    if stopped:
+                        delta, pending = pending, ""
+                    else:
+                        hold = _holdback_len(pending, stop_seqs)
+                        emit_upto = len(pending) - hold
+                        delta, pending = pending[:emit_upto], pending[emit_upto:]
+
+                if delta or stopped:
+                    logprobs = None
+                    if req.logprobs_enabled and held_entries:
+                        # flush only entries whose token text is fully
+                        # emitted; one straddling the holdback stays held
+                        budget = emitted_ahead + len(delta)
+                        kept = []
+                        while held_entries and len(held_entries[0].token) <= budget:
+                            budget -= len(held_entries[0].token)
+                            kept.append(held_entries.pop(0))
+                        if stopped:
+                            held_entries = []
+                            emitted_ahead = 0
+                        else:
+                            emitted_ahead = budget
+                        if kept:
+                            logprobs = ChoiceLogprobs(content=kept)
+                    yield ChatCompletionChunk(
+                        id=rid,
+                        model=req.model,
+                        choices=[
+                            ChatStreamChoice(
+                                delta=ChatChoiceDelta(
+                                    role=("assistant" if first_chunk else None),
+                                    content=delta,
+                                ),
+                                logprobs=logprobs,
+                            )
+                        ],
+                    )
+                    first_chunk = False
+                if stopped:
+                    finish_reason = "stop"
+                    stopped_by_seq = True
+                    break
+
+            # on EOS/length the held-back text is real content: flush it;
+            # only a stop-sequence match discards its own matched text
+            tail = pending + detok.flush() if not stopped_by_seq else ""
+            if tail or (held_entries and not stopped_by_seq):
+                logprobs = (
+                    ChoiceLogprobs(content=held_entries)
+                    if req.logprobs_enabled and held_entries and not stopped_by_seq
+                    else None
+                )
+                yield ChatCompletionChunk(
+                    id=rid,
+                    model=req.model,
+                    choices=[
+                        ChatStreamChoice(
+                            delta=ChatChoiceDelta(
+                                role=("assistant" if first_chunk else None), content=tail
+                            ),
+                            logprobs=logprobs,
+                        )
+                    ],
+                )
+                first_chunk = False
+
+            t_end = time.perf_counter()
+            usage = Usage(
+                prompt_tokens=len(prompt_ids),
+                completion_tokens=generated,
+                total_tokens=len(prompt_ids) + generated,
+            )
+            metrics = None
+            if req.profile:
+                metrics = RequestMetrics.from_times(
+                    (t_end - t_start) * 1000,
+                    ((t_first or t_end) - t_start) * 1000,
+                    generated,
+                )
+            yield ChatCompletionChunk(
+                id=rid,
+                model=req.model,
+                choices=[
+                    ChatStreamChoice(
+                        # a stream with no content delta still owes the client
+                        # the initial role chunk
+                        delta=ChatChoiceDelta(role=("assistant" if first_chunk else None)),
+                        finish_reason=finish_reason,
+                    )
+                ],
+                usage=usage,
+                metrics=metrics,
+            )
+        finally:
+            # a finished or abandoned request (client disconnect closes this
+            # generator) frees its KV at once
+            await self.adapter.reset_cache(nonce)
+
+    async def _collect(self, req):
+        """Drain the decode stream into (rid, text, logprob entries,
+        finish_reason, usage, metrics)."""
+        parts: list[str] = []
+        logprob_entries: list[LogprobEntry] = []
+        usage = Usage()
+        metrics = None
+        finish_reason = "stop"
+        rid = new_request_id()
+        async for chunk in self.generate_stream(req):
+            rid = chunk.id
+            for choice in chunk.choices:
+                if choice.delta.content:
+                    parts.append(choice.delta.content)
+                if choice.logprobs:
+                    logprob_entries.extend(choice.logprobs.content)
+                if choice.finish_reason:
+                    finish_reason = choice.finish_reason
+            if chunk.usage:
+                usage = chunk.usage
+            if chunk.metrics:
+                metrics = chunk.metrics
+        return rid, "".join(parts), logprob_entries, finish_reason, usage, metrics
+
+    async def generate(self, req: ChatCompletionRequest) -> ChatCompletionResponse:
+        """Non-streaming chat: aggregate the stream."""
+        rid, text, logprob_entries, finish_reason, usage, metrics = await self._collect(req)
+        return ChatCompletionResponse(
+            id=rid,
+            model=req.model,
+            choices=[
+                ChatChoice(
+                    message=ChatMessage(role="assistant", content=text),
+                    logprobs=ChoiceLogprobs(content=logprob_entries) if req.logprobs_enabled else None,
+                    finish_reason=finish_reason,
+                )
+            ],
+            usage=usage,
+            metrics=metrics,
+        )
+
+    async def generate_completion(self, req) -> CompletionResponse:
+        """Legacy /v1/completions (non-streaming)."""
+        rid, text, logprob_entries, finish_reason, usage, metrics = await self._collect(req)
+        offset0 = 0
+        if req.echo:
+            text = req.prompt_text() + text
+            offset0 = len(req.prompt_text())
+        return CompletionResponse(
+            id=rid.replace("chatcmpl", "cmpl"),
+            model=req.model,
+            choices=[
+                CompletionChoice(
+                    text=text,
+                    logprobs=completion_logprobs(logprob_entries, offset0)
+                    if req.logprobs_enabled
+                    else None,
+                    finish_reason=finish_reason,
+                )
+            ],
+            usage=usage,
+            metrics=metrics,
+        )

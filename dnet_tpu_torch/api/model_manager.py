@@ -1,0 +1,86 @@
+"""Model lifecycle on the API node: builds a LocalEngine + tokenizer.
+
+Counterpart of dnet_tpu/api/model_manager.py (the single-sequence
+`LocalEngine` branch).  A model id is a filesystem path or a subdirectory
+of `models_dir` (repo id slashes replaced by `--`, HF-cache style); nothing
+is downloaded.
+"""
+
+from __future__ import annotations
+
+import asyncio
+import time
+from pathlib import Path
+from typing import Optional, Union
+
+from dnet_tpu_torch.api.strategies import LocalAdapter
+from dnet_tpu_torch.core.engine import LocalEngine
+from dnet_tpu_torch.utils.logger import get_logger
+from dnet_tpu_torch.utils.tokenizer import load_tokenizer
+
+log = get_logger()
+
+
+def resolve_model_dir(model_id: str, models_dir: Optional[Union[str, Path]] = None) -> Optional[Path]:
+    p = Path(model_id).expanduser()
+    if p.is_dir() and (p / "config.json").is_file():
+        return p
+    if models_dir:
+        base = Path(models_dir).expanduser()
+        for cand in (base / model_id, base / model_id.replace("/", "--"), base / model_id.split("/")[-1]):
+            if cand.is_dir() and (cand / "config.json").is_file():
+                return cand
+    return None
+
+
+class LocalModelManager:
+    """Owns the engine + tokenizer for single-process serving."""
+
+    def __init__(
+        self,
+        inference_manager,
+        models_dir: Optional[str] = None,
+        max_seq: int = 4096,
+        param_dtype: str = "bfloat16",
+        device: Optional[str] = None,
+    ) -> None:
+        self.inference = inference_manager
+        self.models_dir = models_dir
+        self.max_seq = max_seq
+        self.param_dtype = param_dtype
+        self.device = device
+        self.engine: Optional[LocalEngine] = None
+
+    @property
+    def current_model_id(self) -> Optional[str]:
+        return self.inference.model_id
+
+    async def load_model(self, model_id: str, max_seq: Optional[int] = None) -> float:
+        """Returns the load time in seconds; raises on failure."""
+        model_dir = resolve_model_dir(model_id, self.models_dir)
+        if model_dir is None:
+            raise FileNotFoundError(f"model {model_id!r} not found locally (models_dir={self.models_dir})")
+        t0 = time.perf_counter()
+
+        def _build():
+            engine = LocalEngine(
+                model_dir,
+                max_seq=max_seq or self.max_seq,
+                param_dtype=self.param_dtype,
+                device=self.device,
+            )
+            return engine, load_tokenizer(model_dir)
+
+        engine, tokenizer = await asyncio.get_running_loop().run_in_executor(None, _build)
+        old_adapter = self.inference.adapter
+        adapter = LocalAdapter(engine)
+        await adapter.start()
+        self.inference.adapter = adapter
+        self.inference.tokenizer = tokenizer
+        self.inference.model_id = model_id
+        self.engine = engine
+        if old_adapter is not None:
+            await old_adapter.shutdown()
+        dt = time.perf_counter() - t0
+        log.info("loaded model %s from %s in %.1fs", model_id, model_dir, dt)
+        return dt

@@ -1,0 +1,24 @@
+"""Model registry: HF `model_type` string -> RingModel subclass.
+
+Counterpart of dnet_tpu/models/__init__.py; this slice registers the llama
+family only.
+"""
+
+from __future__ import annotations
+
+from typing import Type
+
+from dnet_tpu_torch.models.base import ModelConfig, RingModel
+from dnet_tpu_torch.models.llama import LlamaRingModel
+
+_REGISTRY = {cls.model_type: cls for cls in (LlamaRingModel,)}
+
+
+def get_ring_model_cls(model_type: str) -> Type[RingModel]:
+    try:
+        return _REGISTRY[model_type]
+    except KeyError:
+        raise ValueError(f"unsupported model_type: {model_type!r}") from None
+
+
+__all__ = ["ModelConfig", "RingModel", "get_ring_model_cls"]

@@ -1,0 +1,96 @@
+"""Llama-family model (Llama 2/3.x and checkpoints that ship qkv biases).
+
+Counterpart of dnet_tpu/models/llama.py: each layer runs RMSNorm -> QKV ->
+RoPE -> cached attention (the CUDA kernels) -> o-proj -> SwiGLU, looping
+over per-layer params where the reference scans stacked ones.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, List, Tuple
+
+import torch
+import torch.nn.functional as F
+
+from dnet_tpu_torch.core.kvcache import layer_slices
+from dnet_tpu_torch.models.base import ModelConfig, RingModel
+from dnet_tpu_torch.ops.attention import cached_attend
+from dnet_tpu_torch.ops.norms import rms_norm
+from dnet_tpu_torch.ops.rope import apply_rope, rope_frequencies
+
+
+class LlamaRingModel(RingModel):
+    model_type = "llama"
+
+    def __init__(self, config: ModelConfig, layers, device):
+        super().__init__(config, layers, device)
+        inv_freq, self.rope_scale = rope_frequencies(
+            config.head_dim,
+            config.rope_theta,
+            config.rope_scaling,
+            config.max_position_embeddings,
+        )
+        self.inv_freq = torch.from_numpy(inv_freq).to(self.device)
+
+    def layer(self, p: dict, x: torch.Tensor, kvs: dict, pos: int) -> Tuple[torch.Tensor, dict]:
+        """One decoder layer; kvs is this layer's cache slices (written in
+        place)."""
+        cfg = self.config
+        B, T, _ = x.shape
+        Hd = cfg.head_dim
+        H = p["wq"].shape[1] // Hd
+        KVH = p["wk"].shape[1] // Hd
+
+        h = rms_norm(x, p["attn_norm"], cfg.rms_norm_eps)
+        q = h @ p["wq"]
+        k = h @ p["wk"]
+        v = h @ p["wv"]
+        if "bq" in p:
+            q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
+        q = q.reshape(B, T, H, Hd)
+        k = k.reshape(B, T, KVH, Hd)
+        v = v.reshape(B, T, KVH, Hd)
+        positions = pos + torch.arange(T, device=x.device)
+        q = apply_rope(q, positions, self.inv_freq, self.rope_scale)
+        k = apply_rope(k, positions, self.inv_freq, self.rope_scale)
+        attn, kvs = cached_attend(q, k, v, kvs, pos, None, causal=True)
+        x = x + attn.reshape(B, T, H * Hd) @ p["wo"]
+        return self._mlp_block(p, x), kvs
+
+    def _mlp_block(self, p: dict, x: torch.Tensor) -> torch.Tensor:
+        """Post-attention SwiGLU FFN incl. the residual add."""
+        h = rms_norm(x, p["mlp_norm"], self.config.rms_norm_eps)
+        return x + (F.silu(h @ p["w_gate"]) * (h @ p["w_up"])) @ p["w_down"]
+
+    def apply_window(
+        self, window_params: List[dict], x: torch.Tensor, kv: dict, pos: int
+    ) -> Tuple[torch.Tensor, dict]:
+        for li, p in enumerate(window_params):
+            x, _ = self.layer(p, x, layer_slices(kv, li), pos)
+        return x, kv
+
+    def normalize(self, edge_params: dict, x: torch.Tensor) -> torch.Tensor:
+        return rms_norm(x, edge_params["final_norm"]["weight"], self.config.rms_norm_eps)
+
+    def map_layer(self, raw: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+        def t(name: str) -> torch.Tensor:
+            return raw[name].T.contiguous()  # HF [out, in] -> (in, out)
+
+        out = {
+            "attn_norm": raw["input_layernorm.weight"],
+            "wq": t("self_attn.q_proj.weight"),
+            "wk": t("self_attn.k_proj.weight"),
+            "wv": t("self_attn.v_proj.weight"),
+            "wo": t("self_attn.o_proj.weight"),
+            "mlp_norm": raw["post_attention_layernorm.weight"],
+            "w_gate": t("mlp.gate_proj.weight"),
+            "w_up": t("mlp.up_proj.weight"),
+            "w_down": t("mlp.down_proj.weight"),
+        }
+        # keyed on checkpoint contents: llama checkpoints with
+        # attention_bias=true ship qkv biases
+        if "self_attn.q_proj.bias" in raw:
+            out["bq"] = raw["self_attn.q_proj.bias"]
+            out["bk"] = raw["self_attn.k_proj.bias"]
+            out["bv"] = raw["self_attn.v_proj.bias"]
+        return out

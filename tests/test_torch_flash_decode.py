@@ -1,0 +1,92 @@
+"""The decode kernel's plain version against dnet_tpu's Pallas kernel.
+
+On the CPU the port's wrapper runs its plain version; the reference runs
+its real split-K Pallas kernel in interpret mode.  Positions sit on and
+around tile edges of both (the port's 64-key tiles, the reference's
+256-key tiles at S=512) and at the cache's last slot.  Tolerance: f32 2e-5
+(tests/test_flash_decode.py:41).
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from dnet_tpu_torch.ops.flash_decode import flash_decode_attend, split_plan
+
+pytestmark = pytest.mark.core
+
+TOL = dict(atol=2e-5, rtol=2e-5)
+S = 512
+
+
+@pytest.fixture(autouse=True)
+def _interpret_mode(monkeypatch):
+    monkeypatch.setenv("DNET_FLASH_INTERPRET", "1")
+
+
+def _mk(rng, B, H, KVH, Hd, S):
+    return (
+        rng.normal(size=(B, 1, H, Hd)).astype(np.float32),
+        rng.normal(size=(B, S, KVH, Hd)).astype(np.float32),
+        rng.normal(size=(B, S, KVH, Hd)).astype(np.float32),
+    )
+
+
+def _ref(q, k, v, pos, sinks=None):
+    from dnet_tpu.ops.flash_decode import flash_decode_attend as ref_decode
+    from dnet_tpu.ops.flash_decode import flash_decode_eligible
+
+    assert flash_decode_eligible(jnp.asarray(q), jnp.asarray(k))
+    return np.asarray(ref_decode(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), jnp.int32(pos),
+        sinks=None if sinks is None else jnp.asarray(sinks),
+    ))
+
+
+@pytest.mark.parametrize("pos", [0, 63, 64, 255, 256, S - 1])
+@pytest.mark.parametrize("H,KVH", [(4, 2), (8, 2), (4, 4)])
+def test_matches_reference_kernel(rng, pos, H, KVH):
+    q, k, v = _mk(rng, 2, H, KVH, 16, S)
+    got = flash_decode_attend(torch.from_numpy(q), torch.from_numpy(k), torch.from_numpy(v), pos)
+    np.testing.assert_allclose(got.numpy(), _ref(q, k, v, pos), **TOL)
+
+
+def test_sinks_match_reference_kernel(rng):
+    q, k, v = _mk(rng, 1, 8, 2, 16, S)
+    sinks = rng.normal(size=(8,)).astype(np.float32)
+    got = flash_decode_attend(
+        torch.from_numpy(q), torch.from_numpy(k), torch.from_numpy(v), 300,
+        sinks=torch.from_numpy(sinks),
+    )
+    np.testing.assert_allclose(got.numpy(), _ref(q, k, v, 300, sinks), **TOL)
+
+
+def test_dead_slots_are_never_read(rng):
+    """Slots past pos are not attended: NaN garbage there changes nothing."""
+    q, k, v = (torch.from_numpy(a) for a in _mk(rng, 1, 4, 2, 16, 128))
+    want = flash_decode_attend(q, k, v, 70)
+    k[:, 71:] = float("nan")
+    v[:, 71:] = float("nan")
+    torch.testing.assert_close(flash_decode_attend(q, k, v, 70), want)
+
+
+@pytest.mark.parametrize("live,blocks,want", [
+    (1, 8, (1, 1)),  # one tile
+    (4096, 8, (2, 32)),  # 64 tiles over 33 wanted splits
+    (1025, 8, (1, 17)),
+    (4096, 264, (64, 1)),  # enough (KV head, batch) blocks already
+])
+def test_split_plan_covers_live_tiles(live, blocks, want):
+    tiles_per_split, n_split = split_plan(live, blocks)
+    assert (tiles_per_split, n_split) == want
+    n_tiles = -(-live // 64)
+    assert (n_split - 1) * tiles_per_split < n_tiles <= n_split * tiles_per_split
+
+
+def test_non_cpu_tensors_never_take_the_plain_version():
+    q = torch.empty(1, 1, 32, 64, device="meta")
+    k = torch.empty(1, 64, 8, 64, device="meta")
+    with pytest.raises(ValueError, match="CUDA"):
+        flash_decode_attend(q, k, k, 3)
+
