@@ -19,6 +19,8 @@ from aiohttp import web
 from pydantic import ValidationError
 
 from dnet_tpu_torch.api.inference import (
+    BackpressureError,
+    EngineCapabilityError,
     InferenceError,
     InferenceManager,
     PromptTooLongError,
@@ -38,8 +40,13 @@ from dnet_tpu_torch.utils.logger import get_logger
 log = get_logger()
 
 
-def _json_error(status: int, message: str, err_type: str = "invalid_request_error"):
-    return web.json_response({"error": {"message": message, "type": err_type}}, status=status)
+def _json_error(
+    status: int, message: str, err_type: str = "invalid_request_error",
+    headers: Optional[dict] = None,
+):
+    return web.json_response(
+        {"error": {"message": message, "type": err_type}}, status=status, headers=headers
+    )
 
 
 class ApiHTTPServer:
@@ -72,8 +79,14 @@ class ApiHTTPServer:
 
     @staticmethod
     def _map_inference_errors(exc: Exception):
+        if isinstance(exc, BackpressureError):
+            # no service-time estimate here: advertise the 1 s floor
+            return _json_error(429, str(exc), "rate_limit_exceeded", {"Retry-After": "1"})
         if isinstance(exc, PromptTooLongError):
             return _json_error(400, str(exc))
+        if isinstance(exc, EngineCapabilityError):
+            # the serving config asked the engine for something it cannot do
+            return _json_error(422, str(exc), "invalid_request_error")
         if isinstance(exc, InferenceError):
             return _json_error(500, str(exc), "server_error")
         raise exc
@@ -112,6 +125,10 @@ class ApiHTTPServer:
                 await resp.write(b"data: [DONE]\n\n")
             except PromptTooLongError as exc:
                 err = json.dumps({"error": {"message": str(exc), "type": "invalid_request_error"}})
+                await resp.write(f"data: {err}\n\n".encode())
+            except BackpressureError as exc:
+                # capacity shed mid-stream is not a server fault
+                err = json.dumps({"error": {"message": str(exc), "type": "rate_limit_exceeded"}})
                 await resp.write(f"data: {err}\n\n".encode())
             except InferenceError as exc:
                 err = json.dumps({"error": {"message": str(exc), "type": "server_error"}})
@@ -198,6 +215,9 @@ class ApiHTTPServer:
             dt = await self.model_manager.load_model(req.model, max_seq=req.max_seq_len)
         except FileNotFoundError as exc:
             return _json_error(404, str(exc), "model_not_found")
+        except EngineCapabilityError as exc:
+            # a configuration the port does not serve: 422, nothing half-loaded
+            return _json_error(422, str(exc), "invalid_request_error")
         except Exception as exc:
             log.exception("load_model failed")
             return _json_error(500, f"load failed: {exc}", "server_error")
@@ -209,4 +229,7 @@ class ApiHTTPServer:
             "active": self.inference.active,
             "capacity": self.inference.max_concurrent,
         }
+        stats = getattr(self.model_manager.engine, "stats", None)
+        if stats is not None:
+            body["engine"] = stats()
         return web.json_response(body)

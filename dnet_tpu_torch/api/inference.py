@@ -4,8 +4,9 @@ Counterpart of dnet_tpu/api/inference.py: template + encode, a nonce per
 request, the per-token send / await / detokenize loop, EOS, stop-sequence
 and length stops, logprobs, usage, and non-streaming aggregation, with the
 same chunk sequence the reference emits.  Admission is a plain bound on
-concurrent requests; resume, SLO tracking and the flight recorder are not
-part of this slice.
+concurrent requests; a step's capacity errors come back typed
+(`classify_result_error`: 429 backpressure).  Resume, deadlines, SLO
+tracking and the flight recorder are not part of the port yet.
 """
 
 from __future__ import annotations
@@ -46,6 +47,35 @@ class InferenceError(Exception):
 
 class PromptTooLongError(InferenceError):
     """Maps to HTTP 400 (client error) rather than 500."""
+
+
+class BackpressureError(InferenceError):
+    """A capacity limit refused the work (paged-KV pool exhausted, batch
+    slots full): maps to HTTP 429, never 500 -- the client should back off
+    and retry, nothing is broken."""
+
+
+class EngineCapabilityError(InferenceError):
+    """The engine cannot serve the requested configuration (raised at load,
+    e.g. by core/batch.py for what the port does not serve yet): maps to
+    HTTP 422, an operator/config error."""
+
+
+# capacity-exhaustion signatures that cross the compute boundary as error
+# strings (TokenResult.error); the one place turning them back into typed
+# backpressure
+_BACKPRESSURE_MARKERS = (
+    "paged KV pool exhausted",  # kv/paged.py KVPoolExhausted
+    "no free batch slots",  # core/batch.py slot-pool overflow
+)
+
+
+def classify_result_error(error: str) -> InferenceError:
+    """Map a step's error string to the typed exception the HTTP layer turns
+    into a status code (429 backpressure, 500 otherwise)."""
+    if any(marker in error for marker in _BACKPRESSURE_MARKERS):
+        return BackpressureError(error)
+    return InferenceError(error)
 
 
 def completion_logprobs(entries: list, offset0: int = 0) -> CompletionLogprobs:
@@ -172,7 +202,7 @@ class InferenceManager:
                 await self.adapter.send_tokens(nonce, send_ids, decoding, step, budget=max_new - step)
                 result = await self.adapter.await_token(nonce, step, self.request_timeout_s)
                 if result.error:
-                    raise InferenceError(result.error)
+                    raise classify_result_error(result.error)
                 if t_first is None:
                     t_first = time.perf_counter()
                 generated += 1

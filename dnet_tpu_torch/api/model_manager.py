@@ -1,7 +1,10 @@
-"""Model lifecycle on the API node: builds a LocalEngine + tokenizer.
+"""Model lifecycle on the API node: builds the engine + tokenizer.
 
-Counterpart of dnet_tpu/api/model_manager.py (the single-sequence
-`LocalEngine` branch).  A model id is a filesystem path or a subdirectory
+Counterpart of dnet_tpu/api/model_manager.py (its local branches):
+`batch_slots == 1` serves a single-sequence `LocalEngine` behind a
+`LocalAdapter`; `batch_slots > 1` a continuously batched `BatchedEngine`
+(paged + ragged KV) behind a `BatchedLocalAdapter`.  The scheduler
+(DNET_SCHED=1) is not ported and is refused at load.  A model id is a filesystem path or a subdirectory
 of `models_dir` (repo id slashes replaced by `--`, HF-cache style); nothing
 is downloaded.
 """
@@ -13,7 +16,10 @@ import time
 from pathlib import Path
 from typing import Optional, Union
 
-from dnet_tpu_torch.api.strategies import LocalAdapter
+from dnet_tpu_torch.api.inference import EngineCapabilityError
+from dnet_tpu_torch.api.strategies import BatchedLocalAdapter, LocalAdapter
+from dnet_tpu_torch.config import api_settings, sched_enabled
+from dnet_tpu_torch.core.batch import BatchedEngine
 from dnet_tpu_torch.core.engine import LocalEngine
 from dnet_tpu_torch.utils.logger import get_logger
 from dnet_tpu_torch.utils.tokenizer import load_tokenizer
@@ -43,13 +49,15 @@ class LocalModelManager:
         max_seq: int = 4096,
         param_dtype: str = "bfloat16",
         device: Optional[str] = None,
+        batch_slots: int = 1,
     ) -> None:
         self.inference = inference_manager
         self.models_dir = models_dir
         self.max_seq = max_seq
         self.param_dtype = param_dtype
         self.device = device
-        self.engine: Optional[LocalEngine] = None
+        self.batch_slots = batch_slots
+        self.engine: Optional[Union[LocalEngine, BatchedEngine]] = None
 
     @property
     def current_model_id(self) -> Optional[str]:
@@ -60,20 +68,27 @@ class LocalModelManager:
         model_dir = resolve_model_dir(model_id, self.models_dir)
         if model_dir is None:
             raise FileNotFoundError(f"model {model_id!r} not found locally (models_dir={self.models_dir})")
+        if sched_enabled():
+            raise EngineCapabilityError(
+                "DNET_SCHED=1: the iteration-level scheduler is not ported; unset it to serve "
+                "the legacy adapters"
+            )
         t0 = time.perf_counter()
+        kwargs = dict(max_seq=max_seq or self.max_seq, param_dtype=self.param_dtype, device=self.device)
 
         def _build():
-            engine = LocalEngine(
-                model_dir,
-                max_seq=max_seq or self.max_seq,
-                param_dtype=self.param_dtype,
-                device=self.device,
-            )
+            if self.batch_slots > 1:
+                engine = BatchedEngine(
+                    model_dir, slots=self.batch_slots,
+                    prefix_cache_size=api_settings().prefix_cache, **kwargs,
+                )
+            else:
+                engine = LocalEngine(model_dir, **kwargs)
             return engine, load_tokenizer(model_dir)
 
         engine, tokenizer = await asyncio.get_running_loop().run_in_executor(None, _build)
         old_adapter = self.inference.adapter
-        adapter = LocalAdapter(engine)
+        adapter = BatchedLocalAdapter(engine) if isinstance(engine, BatchedEngine) else LocalAdapter(engine)
         await adapter.start()
         self.inference.adapter = adapter
         self.inference.tokenizer = tokenizer

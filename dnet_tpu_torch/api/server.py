@@ -12,16 +12,21 @@ import signal
 from dnet_tpu_torch.api.http import ApiHTTPServer
 from dnet_tpu_torch.api.inference import InferenceManager
 from dnet_tpu_torch.api.model_manager import LocalModelManager
+from dnet_tpu_torch.config import batch_slots_default
 from dnet_tpu_torch.utils.logger import get_logger
 
 log = get_logger()
 
 
 async def serve_async(args) -> None:
+    batch_slots = batch_slots_default(getattr(args, "batch_slots", None))
+    # with continuous batching, admission must not exceed the slot pool: an
+    # over-admitted request would fail on prefill instead of queueing
+    max_concurrent = min(args.max_concurrent, batch_slots) if batch_slots > 1 else args.max_concurrent
     inference = InferenceManager(
         adapter=None,
         request_timeout_s=args.request_timeout_s,
-        max_concurrent=args.max_concurrent,
+        max_concurrent=max_concurrent,
     )
     model_manager = LocalModelManager(
         inference,
@@ -29,6 +34,7 @@ async def serve_async(args) -> None:
         max_seq=args.max_seq_len,
         param_dtype=args.param_dtype,
         device=args.device,
+        batch_slots=batch_slots,
     )
     http = ApiHTTPServer(inference, model_manager)
     await http.start(args.host, args.http_port)

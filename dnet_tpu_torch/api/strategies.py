@@ -3,7 +3,9 @@
 Counterpart of dnet_tpu/api/strategies.py: `ApiAdapterBase` is the
 contract the driver speaks; `LocalAdapter` runs the engine in this process
 on one compute thread, chunking decode steps with the same 2 -> 4 -> ...
-width ramp and the same one-chunk-ahead pipelining as the reference.
+width ramp and the same one-chunk-ahead pipelining as the reference;
+`BatchedLocalAdapter` coalesces concurrent requests' decode steps into one
+batched engine call (continuous batching).
 """
 
 from __future__ import annotations
@@ -35,6 +37,22 @@ async def _reap(task: Optional["asyncio.Task"], what: str) -> None:
         pass
     if not task.done():
         log.warning("%s ignored cancellation for %.0fs at shutdown; abandoning it", what, _REAP_TIMEOUT_S)
+
+
+async def _sweep_loop(adapter, interval_s: float = 60.0) -> None:
+    """Periodic TTL sweep on the adapter's compute thread: a client that
+    vanished without reset_cache must not pin its KV or slot forever."""
+    loop = asyncio.get_running_loop()
+    while True:
+        await asyncio.sleep(interval_s)
+        if adapter._executor is None:
+            return
+        try:
+            n = await loop.run_in_executor(adapter._executor, adapter.engine.sweep_sessions)
+            if n:
+                log.info("TTL sweep freed %d idle sessions", n)
+        except Exception:
+            log.exception("session sweep failed")
 
 
 class ApiAdapterBase(abc.ABC):
@@ -108,6 +126,148 @@ class _TokenFutures:
                 fut.cancel()
 
 
+class BatchedLocalAdapter(ApiAdapterBase):
+    """Continuous-batching strategy over a BatchedEngine (core/batch.py).
+
+    Decode steps from concurrent requests coalesce: send_tokens enqueues the
+    step and a loop task drains everything pending into ONE batched engine
+    call.  While a batched step runs on the compute thread, newly arriving
+    steps queue for the next round.  Prompts prefill in chunks of
+    PREFILL_CHUNK tokens, one executor job each, so queued batched steps run
+    between a long prompt's chunks.  One compute thread: no KV races."""
+
+    PREFILL_CHUNK = 256  # prompt tokens per executor job (interleave grain)
+
+    def __init__(self, engine) -> None:
+        self.engine = engine  # BatchedEngine
+        self._futures = _TokenFutures()
+        self._executor: Optional[ThreadPoolExecutor] = None
+        self._pending: Dict[str, tuple] = {}  # nonce -> (token, decoding, step, budget)
+        self._kick: Optional[asyncio.Event] = None
+        self._task: Optional[asyncio.Task] = None
+        self._sweep_task: Optional[asyncio.Task] = None
+        self._prefill_tasks: set = set()
+
+    async def start(self) -> None:
+        self._executor = ThreadPoolExecutor(max_workers=1, thread_name_prefix="compute")
+        self._kick = asyncio.Event()
+        self._task = asyncio.ensure_future(self._batch_loop())
+        self._sweep_task = asyncio.ensure_future(_sweep_loop(self))
+
+    async def shutdown(self) -> None:
+        task, self._task = self._task, None
+        await _reap(task, "batch loop")
+        sweep, self._sweep_task = self._sweep_task, None
+        await _reap(sweep, "session sweep")
+        for t in list(self._prefill_tasks):
+            t.cancel()
+        self._prefill_tasks.clear()
+        if self._executor:
+            self._executor.shutdown(wait=False, cancel_futures=True)
+            self._executor = None
+
+    async def reset_cache(self, nonce: str) -> None:
+        self._pending.pop(nonce, None)
+        # slot state belongs to the compute thread: freeing it from the event
+        # loop would race an in-flight batched step
+        if self._executor is not None:
+            await asyncio.get_running_loop().run_in_executor(
+                self._executor, self.engine.end_session, nonce
+            )
+        self._futures.cancel_nonce(nonce)
+
+    def max_seq(self) -> Optional[int]:
+        return self.engine.max_seq
+
+    async def send_tokens(
+        self,
+        nonce: str,
+        token_ids: List[int],
+        decoding: DecodingParams,
+        step: int,
+        budget: Optional[int] = None,
+    ) -> None:
+        if self._executor is None or self._kick is None:
+            raise RuntimeError("adapter not started")
+        self._futures.expect(nonce, step)
+        if step == 0:
+            task = asyncio.ensure_future(self._prefill_chunked(nonce, list(token_ids), decoding, step))
+            self._prefill_tasks.add(task)
+            task.add_done_callback(self._prefill_tasks.discard)
+        elif nonce not in self.engine.sessions:
+            # mid-generation session loss: fail fast instead of re-prefilling
+            # from the last sampled token alone
+            self._futures.resolve(
+                TokenResult(nonce=nonce, token_id=-1, error=f"session expired for request {nonce}", step=step)
+            )
+        else:
+            self._pending[nonce] = (token_ids[-1], decoding, step, budget)
+            self._kick.set()
+
+    def _cancelled(self, nonce: str, step: int) -> bool:
+        return (nonce, step) not in self._futures._futures
+
+    async def _prefill_chunked(self, nonce: str, ids: List[int], decoding: DecodingParams, step: int) -> None:
+        loop = asyncio.get_running_loop()
+        eng = self.engine
+        try:
+            # claim a batch slot BEFORE burning any prefill compute
+            await loop.run_in_executor(self._executor, eng.reserve_slot, nonce)
+            logits = None
+            for i in range(0, len(ids), self.PREFILL_CHUNK):
+                if self._cancelled(nonce, step):
+                    await loop.run_in_executor(self._executor, eng.abandon_prefill, nonce)
+                    return
+                chunk = ids[i : i + self.PREFILL_CHUNK]
+                logits = await loop.run_in_executor(
+                    self._executor, eng.prefill_chunk, nonce, chunk, decoding.seed
+                )
+            if self._cancelled(nonce, step):
+                await loop.run_in_executor(self._executor, eng.abandon_prefill, nonce)
+                return
+            res = await loop.run_in_executor(self._executor, eng.adopt_prefilled, nonce, logits, decoding)
+            self._futures.resolve(eng.token_result(nonce, res, step=step, decoding=decoding))
+        except Exception as exc:
+            log.exception("chunked batched prefill failed")
+            try:
+                await loop.run_in_executor(self._executor, eng.abandon_prefill, nonce)
+            except Exception as abandon_exc:  # executor already shut down
+                log.debug("abandon_prefill skipped for %s: %s", nonce, abandon_exc)
+            self._futures.resolve(TokenResult(nonce=nonce, token_id=-1, error=str(exc), step=step))
+
+    async def _batch_loop(self) -> None:
+        loop = asyncio.get_running_loop()
+        while True:
+            await self._kick.wait()
+            self._kick.clear()
+            await asyncio.sleep(0)  # coalesce: let concurrent senders enqueue
+            pending, self._pending = self._pending, {}
+            if pending:
+                await loop.run_in_executor(self._executor, self._batched_step, pending)
+
+    async def await_token(self, nonce: str, step: int, timeout: float) -> TokenResult:
+        return await self._futures.wait(nonce, step, timeout)
+
+    def _batched_step(self, pending: Dict[str, tuple]) -> None:
+        try:
+            reqs = {n: (tok, dec) for n, (tok, dec, _step, _b) in pending.items()}
+            # budgets widen the dispatch into R-step chunks: extras buffer
+            # engine-side and resolve later steps without a dispatch
+            budgets = {n: b for n, (_t, _d, _s, b) in pending.items()}
+            results, errors = self.engine.decode_batch(reqs, budgets=budgets)
+        except Exception as exc:
+            log.exception("batched decode step failed")
+            for nonce, (_tok, _dec, step, _b) in pending.items():
+                self._futures.resolve(TokenResult(nonce=nonce, token_id=-1, error=str(exc), step=step))
+            return
+        for nonce, res in results.items():
+            _tok, dec, step, _b = pending[nonce]
+            self._futures.resolve(self.engine.token_result(nonce, res, step=step, decoding=dec))
+        for nonce, msg in errors.items():
+            _tok, _dec, step, _b = pending[nonce]
+            self._futures.resolve(TokenResult(nonce=nonce, token_id=-1, error=msg, step=step))
+
+
 class LocalAdapter(ApiAdapterBase):
     """Single-process strategy: the engine runs on a dedicated one-thread
     executor, so the event loop never waits on the device.
@@ -120,7 +280,6 @@ class LocalAdapter(ApiAdapterBase):
     """
 
     MAX_BUFFERED_NONCES = 64  # aborted-mid-chunk leftovers cap (leak bound)
-    SWEEP_INTERVAL_S = 60.0
 
     def __init__(self, engine, chunk_size: int = 32) -> None:
         self.engine = engine
@@ -135,22 +294,7 @@ class LocalAdapter(ApiAdapterBase):
 
     async def start(self) -> None:
         self._executor = ThreadPoolExecutor(max_workers=1, thread_name_prefix="compute")
-        self._sweep_task = asyncio.ensure_future(self._sweep_loop())
-
-    async def _sweep_loop(self) -> None:
-        """Periodic TTL sweep on the compute thread: a client that vanished
-        without reset_cache must not pin its KV forever."""
-        loop = asyncio.get_running_loop()
-        while True:
-            await asyncio.sleep(self.SWEEP_INTERVAL_S)
-            if self._executor is None:
-                return
-            try:
-                n = await loop.run_in_executor(self._executor, self.engine.sweep_sessions)
-                if n:
-                    log.info("TTL sweep freed %d idle sessions", n)
-            except Exception:
-                log.exception("session sweep failed")
+        self._sweep_task = asyncio.ensure_future(_sweep_loop(self))
 
     async def shutdown(self) -> None:
         sweep, self._sweep_task = self._sweep_task, None

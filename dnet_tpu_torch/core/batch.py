@@ -1,0 +1,529 @@
+"""Continuous batching: N session slots share one batched decode step over a
+paged KV pool, decoded through the ragged paged-attention kernel.
+
+Counterpart of dnet_tpu/core/batch.py `BatchedEngine` in its paged + ragged
+mode (DNET_KV_PAGED=1 DNET_KV_RAGGED=1):
+
+- A request owns one slot from prefill to EOS; its KV lives in blocks of a
+  shared pool ([L, N_blocks, bt, KVH, Hd], kv/store.py) reached through its
+  page table (kv/paged.py).  Admission and growth are counted in free
+  blocks; a shortfall raises the typed `KVPoolExhausted`.
+- Prefill runs per request on the wrapped B=1 `LocalEngine` (the prefill
+  kernel, dense staging row), then the row commits into pool blocks.
+- A decode step is one forward over all slots with static [slots] shapes and
+  an active mask: each layer's attention reads the pool in place through the
+  page tables (ops/paged_attention.py) and the new K/V rows are appended to
+  their blocks afterwards, for active lanes only.  Inactive lanes attend
+  nothing (pos 0), are not written, and advance neither their counts nor
+  their random stream (core/sampler.py `sample_lanes`).
+- Budgets widen a dispatch into an R-step chunk (CHUNK_BUCKETS): sampled
+  tokens feed the next step on the device, and the chunk's results come back
+  in one device-to-host read; the extra tokens buffer here.
+
+Where the reference jits one vmapped program per step, this is eager
+PyTorch: a chunk is a Python loop whose launches queue on the current CUDA
+stream.  Not ported yet, and refused at load with `EngineCapabilityError`
+instead of serving something else: dense batched slots (paged off), the
+dense-gather paged decode (ragged off or a model the kernel refuses), and the
+paged prefix cache.
+"""
+
+from __future__ import annotations
+
+import time
+from pathlib import Path
+from typing import Dict, List, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from dnet_tpu_torch.core.engine import LocalEngine
+from dnet_tpu_torch.core.sampler import (
+    MAX_TOP_LOGPROBS,
+    LaneSampling,
+    SamplePlan,
+    SampleParams,
+    SampleResult,
+    pack_chunk_results,
+    sample_lanes,
+)
+from dnet_tpu_torch.core.types import DecodingParams
+from dnet_tpu_torch.kv import (
+    BlockPool,
+    BlockStore,
+    KVPoolExhausted,
+    PagedKVConfig,
+    PageTable,
+    paged_enabled,
+    ragged_enabled,
+)
+from dnet_tpu_torch.ops.paged_attention import paged_attend, ragged_refusal
+from dnet_tpu_torch.utils.logger import get_logger
+
+log = get_logger()
+
+
+def _bucket_pow2(n: int) -> int:
+    b = 1
+    while b < n:
+        b *= 2
+    return b
+
+
+class BatchedEngine:
+    """LocalEngine-compatible surface plus `decode_batch` for the adapter."""
+
+    token_result = staticmethod(LocalEngine.token_result)
+    # chunk widths tried largest-first
+    CHUNK_BUCKETS = (16, 8, 4, 2)
+
+    def __init__(
+        self, model_dir: str | Path, slots: int = 8, prefix_cache_size: int = 0, **engine_kwargs
+    ):
+        self._refuse_config(slots, prefix_cache_size)
+        self.eng = LocalEngine(model_dir, **engine_kwargs)
+        self._init_state(slots)
+
+    @classmethod
+    def from_params(
+        cls, config, window_params, edge_params, *, slots: int = 8, prefix_cache_size: int = 0, **kw
+    ) -> "BatchedEngine":
+        """Build around already-materialised params (mirrors
+        LocalEngine.from_params)."""
+        cls._refuse_config(slots, prefix_cache_size)
+        self = cls.__new__(cls)
+        self.eng = LocalEngine.from_params(config, window_params, edge_params, **kw)
+        self._init_state(slots)
+        return self
+
+    @staticmethod
+    def _refuse_config(slots: int, prefix_cache_size: int) -> None:
+        """Load-time refusals of what this port does not serve yet (the HTTP
+        layer maps EngineCapabilityError to 422).  Checked before any weight
+        is read."""
+        from dnet_tpu_torch.api.inference import EngineCapabilityError
+
+        if slots < 1:
+            raise ValueError(f"slots must be >= 1, got {slots}")
+        if not paged_enabled():
+            raise EngineCapabilityError(
+                "continuous batching serves the paged KV pool only: set DNET_KV_PAGED=1 "
+                "(dense batched slots are not ported)"
+            )
+        if not ragged_enabled():
+            raise EngineCapabilityError(
+                "continuous batching decodes through the ragged paged-attention kernel only: "
+                "set DNET_KV_RAGGED=1 (the dense-gather paged decode is not ported)"
+            )
+        if prefix_cache_size:
+            raise EngineCapabilityError(
+                f"prefix cache (size {prefix_cache_size}) is not ported to the batched engine"
+            )
+
+    def _init_state(self, slots: int) -> None:
+        from dnet_tpu_torch.api.inference import EngineCapabilityError
+
+        m = self.eng.model
+        why = ragged_refusal(m)
+        if why is not None:
+            raise EngineCapabilityError(f"ragged paged attention refused: {why}")
+        self.slots = slots
+        self.max_seq = self.eng.max_seq
+        self.config = self.eng.config
+        self.model = m
+        self.device = self.eng.device
+        try:
+            cfg = PagedKVConfig.from_settings(self.max_seq, slots=slots)
+        except ValueError as exc:
+            raise EngineCapabilityError(str(exc)) from None
+        self._kv_cfg = cfg
+        self.kv_pool = BlockPool(cfg)
+        self.kv_store = BlockStore(m, len(m.layers), cfg, self.eng.param_dtype_name)
+        self._tables: List[Optional[PageTable]] = [None] * slots
+        self.counts = torch.zeros(
+            (slots, self.config.vocab_size), dtype=torch.int32, device=self.device
+        )
+        # per-slot random streams, adopted from each request's prefill session
+        self.generators: List[Optional[torch.Generator]] = [None] * slots
+        self.pos = np.zeros(slots, dtype=np.int64)  # host-side per-slot length
+        self.last_used = np.zeros(slots, dtype=np.float64)
+        self.slot_of: Dict[str, int] = {}  # nonce -> slot
+        self._free: List[int] = list(range(slots))
+        # chunk results not yet handed to the decode loop (nonce -> FIFO)
+        self._buffer: Dict[str, List[SampleResult]] = {}
+        # forward steps the batched decode has run (an R-step chunk counts R)
+        # and the host time of the last dispatch before its one read
+        self.decode_steps = 0
+        self.last_dispatch_ms = 0.0
+        log.info(
+            "paged KV on: %d blocks x %d tokens serving %d slots; decode attends the "
+            "pool in place (ragged paged attention)",
+            cfg.pool_blocks, cfg.block_tokens, slots,
+        )
+
+    # ---- slot lifecycle ----------------------------------------------
+    def alloc_slot(self, nonce: str) -> int:
+        if nonce in self.slot_of:
+            return self.slot_of[nonce]
+        if not self._free:
+            raise RuntimeError(f"no free batch slots (capacity {self.slots})")
+        slot = self._free.pop(0)
+        self.slot_of[nonce] = slot
+        self.pos[slot] = 0
+        self.last_used[slot] = time.time()
+        return slot
+
+    def free_slot(self, nonce: str) -> None:
+        self._buffer.pop(nonce, None)
+        slot = self.slot_of.pop(nonce, None)
+        if slot is not None:
+            # a finished request's blocks return to the free list
+            tbl, self._tables[slot] = self._tables[slot], None
+            self.kv_pool.release_table(tbl)
+            self.counts[slot].zero_()
+            self.generators[slot] = None
+            self.pos[slot] = 0
+            self._free.append(slot)
+
+    def end_session(self, nonce: str) -> None:
+        self.free_slot(nonce)
+        self.eng.end_session(nonce)
+
+    def reset(self) -> None:
+        for nonce in list(self.slot_of):
+            self.free_slot(nonce)
+        self.eng.sessions.clear()
+
+    def sweep_sessions(self, ttl_s: float = 600.0) -> int:
+        now = time.time()
+        dead = [n for n, s in self.slot_of.items() if now - self.last_used[s] > ttl_s]
+        for n in dead:
+            self.free_slot(n)
+        return len(dead) + self.eng.sweep_sessions()
+
+    def close(self) -> None:
+        self.reset()
+
+    @property
+    def sessions(self):  # adapter compatibility (membership checks)
+        return self.slot_of
+
+    def stats(self) -> dict:
+        """Slot and pool occupancy and the decode-step count (for /health)."""
+        return {
+            "slots": self.slots,
+            "active": len(self.slot_of),
+            "decode_steps": self.decode_steps,
+            "kv_pool_blocks": self.kv_pool.total,
+            "kv_blocks_used": self.kv_pool.used,
+            "kv_blocks_free": self.kv_pool.free,
+            "kv_blocks_peak": self.kv_pool.peak_used,
+        }
+
+    # ---- prefill ------------------------------------------------------
+    def reserve_slot(self, nonce) -> None:
+        """Claim a batch slot before chunked prefill burns any compute."""
+        self.alloc_slot(nonce)
+
+    def prefill_chunk(self, nonce, ids, seed=None) -> torch.Tensor:
+        """One prompt chunk on the B=1 engine (continuing the session when it
+        exists); returns last-position logits.  The adapter interleaves these
+        with batched decode steps so a long prompt never stalls active lanes
+        for its whole prefill.  The pool must be able to cover the prompt so
+        far: a doomed long prompt stops before its remaining chunks."""
+        sess = self.eng.sessions.get(nonce)
+        pos = 0 if sess is None else int(sess.pos)
+        self.kv_pool.require(self._kv_cfg.blocks_for(min(pos + len(ids), self.max_seq)))
+        return self.eng.prefill(nonce, list(ids), seed)
+
+    def abandon_prefill(self, nonce) -> None:
+        """Drop a half-prefilled request (cancelled mid-chunks)."""
+        self.free_slot(nonce)
+        self.eng.end_session(nonce)
+
+    def _sample_session(self, sess, logits: torch.Tensor, decoding: DecodingParams) -> SampleResult:
+        return self.eng._sample_with_counts(
+            sess, logits, SampleParams.from_decoding(decoding, self.device),
+            SamplePlan.from_decoding(decoding),
+        )
+
+    def adopt_prefilled(self, nonce, logits, decoding: DecodingParams) -> SampleResult:
+        """Sample the first token from a fully chunk-prefilled session and
+        move its KV and sampling state into this request's batch slot."""
+        sess = self.eng.sessions[nonce]
+        res = self._sample_session(sess, logits, decoding)
+        self._move_to_slot(nonce, sess)
+        return res
+
+    def _commit_paged_slot(self, nonce: str, slot: int, sess) -> None:
+        """Turn a staged B=1 prefill into this slot's page table: the staged
+        dense row commits block by block into fresh pool blocks (all or
+        nothing)."""
+        nb = self._kv_cfg.blocks_for(int(sess.pos))
+        own = self.kv_pool.alloc(nb)
+        self.kv_store.commit_row(sess.kv, list(range(nb)), own)
+        # a re-prefilled nonce keeps its slot: drop the superseded table
+        self.kv_pool.release_table(self._tables[slot])
+        self._tables[slot] = PageTable(blocks=own)
+
+    def _move_to_slot(self, nonce: str, sess) -> None:
+        slot = self.alloc_slot(nonce)
+        self._commit_paged_slot(nonce, slot, sess)
+        self.counts[slot] = sess.counts[0]
+        self.generators[slot] = sess.generator
+        self.pos[slot] = sess.pos
+        self.last_used[slot] = time.time()
+        self.eng.end_session(nonce)  # the staging row is no longer needed
+
+    def prefill_and_sample(
+        self, nonce: str, prompt_ids: Sequence[int], decoding: DecodingParams
+    ) -> SampleResult:
+        """Prefill on the B=1 engine, then move the session's KV row and
+        sampling state into this request's batch slot."""
+        self.alloc_slot(nonce)  # fail on a full slot pool BEFORE burning prefill
+        full = list(prompt_ids)
+        try:
+            # admission: the pool must cover the prompt before prefill burns
+            self.kv_pool.require(self._kv_cfg.blocks_for(min(len(full), self.max_seq)))
+            logits = self.eng.prefill(nonce, full, decoding.seed)
+            res = self._sample_session(self.eng.sessions[nonce], logits, decoding)
+            self._move_to_slot(nonce, self.eng.sessions[nonce])
+        except Exception:
+            self.abandon_prefill(nonce)
+            raise
+        return res
+
+    # ---- decode -------------------------------------------------------
+    def decode_batch(
+        self,
+        requests: Dict[str, Tuple[int, DecodingParams]],
+        budgets: Optional[Dict[str, Optional[int]]] = None,
+    ) -> Tuple[Dict[str, SampleResult], Dict[str, str]]:
+        """One batched decode step for every (nonce -> last token) request.
+        Slots not in `requests` stay frozen.  Returns (results, per-nonce
+        errors): a request whose slot vanished, hit max_seq or cannot get a
+        block fails alone.
+
+        `budgets` (nonce -> tokens the request will still accept) widen the
+        dispatch into an R-step chunk: active lanes chain their sampled
+        tokens on the device and the extra results buffer here, resolving
+        later calls at once.  The active set is fixed across a chunk, so the
+        stream equals R serial steps with the same request set."""
+        errors: Dict[str, str] = {}
+        if not requests:
+            return {}, errors
+        # buffered tokens from an earlier chunk resolve first
+        out: Dict[str, SampleResult] = {}
+        now = time.time()
+        for nonce in list(requests):
+            buf = self._buffer.get(nonce)
+            if buf:
+                out[nonce] = buf.pop(0)
+                slot = self.slot_of.get(nonce)
+                if slot is not None:
+                    self.last_used[slot] = now
+        requests = {n: r for n, r in requests.items() if n not in out}
+        if not requests:
+            return out, errors
+        token = np.zeros((self.slots, 1), dtype=np.int64)
+        active = np.zeros(self.slots, dtype=bool)
+        decs: Dict[int, DecodingParams] = {}
+        order: Dict[str, int] = {}
+        for nonce, (tok, dec) in requests.items():
+            slot = self.slot_of.get(nonce)
+            if slot is None:
+                errors[nonce] = f"request {nonce!r} has no batch slot (cancelled?)"
+                continue
+            if self.pos[slot] >= self.max_seq:
+                errors[nonce] = f"sequence length {self.pos[slot]} reached max_seq {self.max_seq}"
+                continue
+            token[slot, 0] = tok
+            active[slot] = True
+            decs[slot] = dec
+            order[nonce] = slot
+        if not order:
+            return out, errors
+        # chunk width: bounded by the smallest remaining budget and by every
+        # active lane's sequence capacity
+        R = 1
+        if budgets:
+            cap = min((budgets.get(n) or 1) for n in order)
+            cap = min(cap, *(int(self.max_seq - self.pos[s]) for s in order.values()))
+            R = next((r for r in self.CHUNK_BUCKETS if r <= cap), 1)
+        # block-table extension is admission: a lane the pool cannot cover
+        # fails alone with the typed backpressure message
+        R = self._paged_extend(order, errors, active, R)
+        if not order:
+            return out, errors
+        t0 = time.perf_counter()
+        lanes = sorted(order.values())
+        packed, with_lp = self._dispatch_ragged(order, lanes, active, R, token, decs)
+        self.last_dispatch_ms = (time.perf_counter() - t0) * 1000.0
+        # ONE device-to-host read per dispatch, then host-side slicing
+        arr = packed.cpu().numpy()  # [R, lanes, 1, W]
+        toks = arr[..., 0].astype(np.int32)
+        if with_lp:
+            M = MAX_TOP_LOGPROBS
+            lps = arr[..., 1]
+            tts = arr[..., 2 : 2 + M].astype(np.int32)
+            tlps = arr[..., 2 + M : 2 + 2 * M]
+        else:
+            lps = np.zeros(toks.shape, np.float32)
+            tts = np.zeros(toks.shape + (MAX_TOP_LOGPROBS,), np.int32)
+            tlps = np.zeros(toks.shape + (MAX_TOP_LOGPROBS,), np.float32)
+        now = time.time()
+        nonce_of = {s: n for n, s in order.items()}
+        for i, slot in enumerate(lanes):
+            nonce = nonce_of[slot]
+            self.pos[slot] += R
+            self.last_used[slot] = now
+            rows = [SampleResult(toks[k, i], lps[k, i], tts[k, i], tlps[k, i]) for k in range(R)]
+            out[nonce] = rows[0]
+            if R > 1:
+                self._buffer.setdefault(nonce, []).extend(rows[1:])
+        return out, errors
+
+    def _paged_extend(self, order, errors, active, R: int) -> int:
+        """Extend every stepping lane's page table to cover R more tokens.
+        If the pool cannot cover the full chunk width, the whole dispatch
+        shrinks to single steps and only lanes that cannot get even one
+        block fail, alone, with the typed backpressure message."""
+        while True:
+            appended: Dict[int, List[int]] = {}
+            for nonce, slot in list(order.items()):
+                try:
+                    appended[slot] = self.kv_pool.ensure(self._tables[slot], int(self.pos[slot]) + R)
+                except KVPoolExhausted as exc:
+                    if R > 1:
+                        break  # shrink the chunk and re-try every lane
+                    errors[nonce] = str(exc)
+                    active[slot] = False
+                    del order[nonce]
+            else:
+                return R
+            # roll the failed wide pass back before retrying at R=1: a lane's
+            # unused hoard (blocks past its next single step) must not starve
+            # the lanes after it in the retry
+            for slot, fresh in appended.items():
+                tbl = self._tables[slot]
+                keep = max(
+                    len(tbl.blocks) - len(fresh),
+                    self._kv_cfg.blocks_for(int(self.pos[slot]) + 1),
+                )
+                if keep < len(tbl.blocks):
+                    self.kv_pool.free_blocks(tbl.blocks[keep:])
+                    del tbl.blocks[keep:]
+            R = 1
+
+    def _table_ids(self, order: Optional[Dict[str, int]] = None) -> np.ndarray:
+        """[slots, nb] physical block ids, 0-padded past each table (entries
+        the kernel never reads: each slot's loop stops at its live length).
+        With `order` (an R == 1 dispatch's active lanes), nb is the pow2
+        bucket of the widest active table instead of max_seq / bt; frozen
+        lanes' longer tables truncate harmlessly, since they attend nothing."""
+        nb = self.max_seq // self._kv_cfg.block_tokens
+        if order:
+            widest = max(
+                (len(self._tables[s].blocks) for s in order.values() if self._tables[s] is not None),
+                default=1,
+            )
+            nb = min(_bucket_pow2(max(widest, 1)), nb)
+        ids = np.zeros((self.slots, nb), dtype=np.int32)
+        for slot, tbl in enumerate(self._tables):
+            if tbl is not None and tbl.blocks:
+                n = min(len(tbl.blocks), nb)
+                ids[slot, :n] = tbl.blocks[:n]
+        return ids
+
+    def _to_device(self, a: np.ndarray) -> torch.Tensor:
+        return torch.from_numpy(a).to(self.device, non_blocking=True)
+
+    def _ragged_step(self, token, tables, pos, max_live: int):
+        """One batched forward against the pool (read-only here): logits
+        [slots, V] and the stacked per-layer new K/V rows [L, slots, KVH, Hd]
+        for the caller to append."""
+        m = self.model
+        ep = self.eng.edge_params
+
+        def attend_fn(q, k, v, kvs):
+            # the kernel reads dense rows; these are views of fresh tensors
+            k_new, v_new = k[:, 0].contiguous(), v[:, 0].contiguous()
+            attn = paged_attend(q.contiguous(), kvs["k"], kvs["v"], tables, pos, k_new, v_new,
+                                max_live=max_live)
+            return attn, {"k": k_new, "v": v_new}
+
+        x = m.embed(ep, token)  # [slots, 1, D]
+        x, rows = m.apply_window(self.eng.window_params, x, self.kv_store.kv, pos[:, None],
+                                 attend_fn=attend_fn)
+        x = m.normalize(ep, x[:, -1:])
+        return m.lm_project(ep, x)[:, 0], rows
+
+    def _dispatch_ragged(self, order: Dict[str, int], lanes: List[int], active: np.ndarray, R: int,
+                         token: np.ndarray, decs: Dict[int, DecodingParams]):
+        """Queue R decode steps for the active `lanes` on the device: each
+        step attends the pool through the page tables, samples every active
+        lane, appends the lanes' new rows at their positions, and feeds the
+        sampled tokens to the next step.  Returns the steps' results packed
+        [R, lanes, 1, W] (still on the device) and whether W holds logprobs."""
+        bt = self._kv_cfg.block_tokens
+        tables = self._to_device(self._table_ids(order if R == 1 else None))
+        pos = np.zeros(self.slots, dtype=np.int32)  # inactive lanes attend nothing
+        pos[lanes] = self.pos[lanes]
+        pos_t = self._to_device(pos)
+        step_t = self._to_device(active.astype(np.int32))
+        tok = self._to_device(token)
+        lane_t = self._to_device(np.asarray(lanes, dtype=np.int64))
+        sampling = [
+            LaneSampling(s, SampleParams.from_decoding(decs[s], self.device),
+                         SamplePlan.from_decoding(decs[s]), self.generators[s])
+            for s in lanes
+        ]
+        with_lp = any(ls.plan.logprobs for ls in sampling)
+        max_live = int(pos.max()) + R - 1
+        steps = []
+        for r in range(R):
+            logits, rows = self._ragged_step(tok, tables, pos_t, max_live)
+            res = sample_lanes(logits, sampling, self.counts)
+            steps.append(pack_chunk_results(res, with_lp))
+            p = self.pos[lanes] + r
+            phys = [self._tables[s].blocks[int(q) // bt] for s, q in zip(lanes, p)]
+            self.kv_store.append_rows(rows, lanes, phys, (p % bt).tolist())
+            self.decode_steps += 1
+            if r + 1 < R:
+                # active lanes chain their sampled token on the device
+                tok = tok.clone()
+                tok[lane_t, 0] = torch.cat([x.token for x in res]).long()
+                pos_t = pos_t + step_t
+        return torch.stack(steps), with_lp
+
+    def generate(
+        self,
+        prompt_ids: Sequence[int],
+        decoding: Optional[DecodingParams] = None,
+        max_tokens: int = 256,
+        eos_token_ids: Optional[set] = None,
+        nonce: str = "batched",
+    ):
+        """Single-sequence loop over the batched step (tests; parity with
+        LocalEngine.generate)."""
+        decoding = decoding or DecodingParams()
+        eos = eos_token_ids or set()
+        self.end_session(nonce)
+        res = self.prefill_and_sample(nonce, prompt_ids, decoding)
+        token = int(res.token[0])
+        yield self.token_result(nonce, res, step=0, decoding=decoding)
+        if token in eos:
+            self.end_session(nonce)
+            return
+        for step in range(1, max_tokens):
+            if self.pos[self.slot_of[nonce]] >= self.max_seq:
+                break
+            res_map, errs = self.decode_batch({nonce: (token, decoding)})
+            if errs:
+                raise RuntimeError(errs[nonce])
+            res_row = res_map[nonce]
+            token = int(res_row.token[0])
+            yield self.token_result(nonce, res_row, step=step, decoding=decoding)
+            if token in eos:
+                break
+        self.end_session(nonce)

@@ -4,7 +4,8 @@ bias, repetition penalty and logprobs.
 Counterpart of dnet_tpu/core/sampler.py with the same filter order and
 semantics.  The reference keeps every knob traced under jit; here the
 knobs are host scalars and `SamplePlan` skips the machinery a request does
-not use.  The Gumbel noise comes from a `torch.Generator`, so a sampled
+not use.  A batched step samples its lanes one by one (`sample_lanes`),
+each with its own knobs, counts and generator.  The Gumbel noise comes from a `torch.Generator`, so a sampled
 stream is reproducible from its seed inside the port but cannot match the
 reference's `jax.random` stream bit for bit.
 """
@@ -207,6 +208,35 @@ def sample(
         top_ids = torch.zeros((B, MAX_TOP_LOGPROBS), dtype=torch.int32, device=dev)
         top_lp = torch.zeros((B, MAX_TOP_LOGPROBS), dtype=torch.float32, device=dev)
     return SampleResult(token, logprob, top_ids, top_lp)
+
+
+class LaneSampling(NamedTuple):
+    """One active lane of a batched step: its slot, knobs and generator."""
+
+    slot: int
+    params: SampleParams
+    plan: SamplePlan
+    generator: Optional[torch.Generator]
+
+
+def sample_lanes(
+    logits: torch.Tensor, lanes: List[LaneSampling], counts: torch.Tensor
+) -> List[SampleResult]:
+    """Per-lane sampling for a batch: logits [slots, V]; counts [slots, V]
+    int32, updated in place for the listed lanes.
+
+    Each lane samples its own 1-row slice with its own params and generator,
+    exactly as LocalEngine samples one sequence, so a lane's tokens depend
+    only on its logits and its seed.  Lanes not listed (inactive) advance
+    neither their counts nor their random stream: a seeded request's tokens
+    do not depend on other traffic.  Returns one B=1 result per lane."""
+    out = []
+    for lane in lanes:
+        row = slice(lane.slot, lane.slot + 1)
+        res = sample(logits[row], lane.params, lane.generator, token_counts=counts[row], plan=lane.plan)
+        counts[row].scatter_add_(1, res.token[:, None].long(), torch.ones_like(counts[row][:, :1]))
+        out.append(res)
+    return out
 
 
 def apply_repetition_penalty(

@@ -68,6 +68,9 @@ class RingModel(abc.ABC):
     """A model's assigned layers + edge ops; parameters are passed in."""
 
     model_type: str = ""
+    # layers whose attention can be swapped for the ragged paged kernel
+    # (apply_window's attend_fn hook)
+    supports_paged_attend: bool = False
 
     def __init__(self, config: ModelConfig, layers: Sequence[int], device: torch.device):
         self.config = config
@@ -81,10 +84,13 @@ class RingModel(abc.ABC):
 
     @abc.abstractmethod
     def apply_window(
-        self, window_params: List[dict], x: torch.Tensor, kv: dict, pos: int
+        self, window_params: List[dict], x: torch.Tensor, kv: dict, pos, attend_fn=None
     ) -> Tuple[torch.Tensor, dict]:
         """Apply the window's layers; kv holds the window's stacked cache
-        and is updated in place."""
+        and is updated in place.  pos is the chunk's start position or a
+        [B, 1] tensor of per-lane positions; `attend_fn`, where the model
+        supports it (supports_paged_attend), replaces each layer's cache
+        write and attention read."""
 
     @abc.abstractmethod
     def normalize(self, edge_params: dict, x: torch.Tensor) -> torch.Tensor:

@@ -7,7 +7,7 @@ over per-layer params where the reference scans stacked ones.
 
 from __future__ import annotations
 
-from typing import Dict, List, Tuple
+from typing import Dict, List, Tuple, Union
 
 import torch
 import torch.nn.functional as F
@@ -21,6 +21,9 @@ from dnet_tpu_torch.ops.rope import apply_rope, rope_frequencies
 
 class LlamaRingModel(RingModel):
     model_type = "llama"
+    # the standard norm->qkv->rope->attention->o-proj layer body: the
+    # attention half swaps cleanly for the ragged paged kernel
+    supports_paged_attend = True
 
     def __init__(self, config: ModelConfig, layers, device):
         super().__init__(config, layers, device)
@@ -32,9 +35,14 @@ class LlamaRingModel(RingModel):
         )
         self.inv_freq = torch.from_numpy(inv_freq).to(self.device)
 
-    def layer(self, p: dict, x: torch.Tensor, kvs: dict, pos: int) -> Tuple[torch.Tensor, dict]:
+    def layer(
+        self, p: dict, x: torch.Tensor, kvs: dict, pos: Union[int, torch.Tensor], attend_fn=None
+    ) -> Tuple[torch.Tensor, dict]:
         """One decoder layer; kvs is this layer's cache slices (written in
-        place)."""
+        place).  pos is the chunk's start, or a [B, 1] tensor of per-lane
+        positions.  With `attend_fn` (ragged paged attention) the caller owns
+        both the cache write and the attention read: it gets (q, k, v, kvs)
+        and returns (attention output, what apply_window should stack)."""
         cfg = self.config
         B, T, _ = x.shape
         Hd = cfg.head_dim
@@ -53,7 +61,10 @@ class LlamaRingModel(RingModel):
         positions = pos + torch.arange(T, device=x.device)
         q = apply_rope(q, positions, self.inv_freq, self.rope_scale)
         k = apply_rope(k, positions, self.inv_freq, self.rope_scale)
-        attn, kvs = cached_attend(q, k, v, kvs, pos, None, causal=True)
+        if attend_fn is not None:
+            attn, kvs = attend_fn(q, k, v, kvs)
+        else:
+            attn, kvs = cached_attend(q, k, v, kvs, pos, None, causal=True)
         x = x + attn.reshape(B, T, H * Hd) @ p["wo"]
         return self._mlp_block(p, x), kvs
 
@@ -63,11 +74,20 @@ class LlamaRingModel(RingModel):
         return x + (F.silu(h @ p["w_gate"]) * (h @ p["w_up"])) @ p["w_down"]
 
     def apply_window(
-        self, window_params: List[dict], x: torch.Tensor, kv: dict, pos: int
+        self, window_params: List[dict], x: torch.Tensor, kv: dict,
+        pos: Union[int, torch.Tensor], attend_fn=None,
     ) -> Tuple[torch.Tensor, dict]:
+        if attend_fn is None:
+            for li, p in enumerate(window_params):
+                x, _ = self.layer(p, x, layer_slices(kv, li), pos)
+            return x, kv
+        # the hook's per-layer outputs, stacked [L, ...] (the new K/V rows the
+        # caller appends to the pool)
+        outs = []
         for li, p in enumerate(window_params):
-            x, _ = self.layer(p, x, layer_slices(kv, li), pos)
-        return x, kv
+            x, out = self.layer(p, x, layer_slices(kv, li), pos, attend_fn)
+            outs.append(out)
+        return x, {name: torch.stack([o[name] for o in outs]) for name in outs[0]}
 
     def normalize(self, edge_params: dict, x: torch.Tensor) -> torch.Tensor:
         return rms_norm(x, edge_params["final_norm"]["weight"], self.config.rms_norm_eps)

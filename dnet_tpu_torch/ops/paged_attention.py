@@ -1,0 +1,184 @@
+"""Ragged paged attention: single-token decode that attends the KV block pool
+in place through per-slot page tables.  A hand-written CUDA kernel and its
+plain version.
+
+Counterpart of dnet_tpu/ops/paged_attention.py.  The kernel
+(csrc/paged_attention.cu) replaces the TPU kernel `_paged_kernel`
+(dnet_tpu/ops/paged_attention.py:92): slot b's query heads attend pool rows
+[0, pos[b]) through its page table, then the current token's row, which the
+caller appends to the pool after the call.  Each slot's loop stops at its
+own live length, so table entries past it are never read; the live range is
+split across blocks and a combine pass merges the splits.  The source's
+header says what bounds it on the card.
+
+`ragged_refusal` says why an engine cannot route decode through the kernel
+(None = eligible), with the reference's vocabulary.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Optional
+
+import torch
+
+from dnet_tpu_torch.kernels import build
+from dnet_tpu_torch.ops.flash_decode import BK, HEAD_DIMS, MAX_GROUP, NEG_INF, split_plan
+
+
+def ragged_refusal(model, kv_quant_bits: int = 0) -> Optional[str]:
+    """Why this engine cannot route decode through the ragged kernel (None =
+    eligible)."""
+    if not getattr(model, "supports_paged_attend", False):
+        return (
+            f"{model.config.model_type} attention stack has no paged-attend "
+            "hook (non-llama-family layers stay on dense gather)"
+        )
+    if kv_quant_bits:
+        return (
+            f"quantized KV cache (bits={kv_quant_bits}) dequantizes through "
+            "the dense gather path"
+        )
+    return None
+
+
+def _check_shapes(q, k_pool, v_pool, tables, pos, k_new, v_new) -> None:
+    B, T, H, D = q.shape
+    if T != 1:
+        raise ValueError(f"paged_attend takes one query row, got T={T}")
+    if k_pool.dim() != 4 or k_pool.shape[-1] != D or v_pool.shape != k_pool.shape:
+        raise ValueError(
+            f"pool shapes k {tuple(k_pool.shape)} v {tuple(v_pool.shape)} do not match q {tuple(q.shape)}"
+        )
+    KVH = k_pool.shape[2]
+    if H % KVH:
+        raise ValueError(f"{H} query heads are not a multiple of {KVH} KV heads")
+    if tables.dim() != 2 or tables.shape[0] != B:
+        raise ValueError(f"tables must be [B={B}, nb], got {tuple(tables.shape)}")
+    if tuple(pos.shape) != (B,):
+        raise ValueError(f"pos must be [B={B}], got {tuple(pos.shape)}")
+    if tuple(k_new.shape) != (B, KVH, D) or v_new.shape != k_new.shape:
+        raise ValueError(
+            f"new rows k {tuple(k_new.shape)} v {tuple(v_new.shape)} must be [B, KVH, D]=({B}, {KVH}, {D})"
+        )
+
+
+def paged_attend(
+    q: torch.Tensor,
+    k_pool: torch.Tensor,
+    v_pool: torch.Tensor,
+    tables: torch.Tensor,
+    pos: torch.Tensor,
+    k_new: torch.Tensor,
+    v_new: torch.Tensor,
+    scale: Optional[float] = None,
+    max_live: Optional[int] = None,
+) -> torch.Tensor:
+    """Kernel wrapper.  q [B, 1, H, D]; k_pool/v_pool [N_blocks, bt, KVH, D]
+    (one layer's pool); tables [B, nb] int32 (entries past a slot's live
+    blocks are never read); pos [B] int32 live pool rows per slot; k_new/v_new
+    [B, KVH, D] the current token's rows, attended at position pos.  Returns
+    [B, 1, H, D] in q.dtype.
+
+    `max_live` is the caller's upper bound on every pos (the host knows it
+    without reading the device); it plans the split and defaults to the
+    tables' capacity.  A low bound costs balance, not rows: the last split
+    takes whatever lies past the plan.  CUDA tensors launch the kernel (bf16
+    or f32, head dim 64 or 128, H/KVH <= 8) or raise; CPU tensors take the
+    plain version."""
+    _check_shapes(q, k_pool, v_pool, tables, pos, k_new, v_new)
+    B, _, H, D = q.shape
+    bt, KVH = k_pool.shape[1], k_pool.shape[2]
+    nb = tables.shape[1]
+    scale = D**-0.5 if scale is None else float(scale)
+    if q.device.type == "cpu":
+        return paged_attend_plain(q, k_pool, v_pool, tables, pos, k_new, v_new, scale=scale)
+    if q.dtype not in build.DTYPE_CODES or D not in HEAD_DIMS or H // KVH > MAX_GROUP:
+        raise ValueError(
+            f"paged_attend takes bf16/f32, head dim 64/128 and at most {MAX_GROUP} "
+            f"query heads per KV head; got {q.dtype}, {D}, {H // KVH}"
+        )
+    build.check_cuda_tensors("paged_attend", q.dtype, q=q, k_pool=k_pool, v_pool=v_pool,
+                             k_new=k_new, v_new=v_new)
+    build.check_cuda_tensors("paged_attend", torch.int32, tables=tables, pos=pos)
+    live_bound = nb * bt if max_live is None else min(int(max_live), nb * bt)
+    # planned for the longest slot alone: ragged slots leave most (slot, KV
+    # head) pairs short, so its splits must fill the card by themselves;
+    # a shorter slot's splits past its live length exit at once
+    tiles_per_split, n_split = split_plan(max(live_bound, 1), KVH)
+    G = H // KVH
+    part_o = torch.empty((B, KVH, n_split, G, D), dtype=torch.float32, device=q.device)
+    part_ml = torch.empty((B, KVH, n_split, G, 2), dtype=torch.float32, device=q.device)
+    out = torch.empty_like(q)
+    rc = _entry()(
+        build.DTYPE_CODES[q.dtype], D, q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
+        tables.data_ptr(), pos.data_ptr(), k_new.data_ptr(), v_new.data_ptr(), out.data_ptr(),
+        part_o.data_ptr(), part_ml.data_ptr(), B, H, KVH, nb, bt, tiles_per_split, n_split,
+        scale, build.current_stream_handle(q.device),
+    )
+    if rc != 0:
+        raise RuntimeError(f"paged_attention kernel launch failed (code {rc})")
+    paged_attend.launches += 1
+    return out
+
+
+paged_attend.launches = 0  # kernel launches since the last reset
+
+_P, _I = ctypes.c_void_p, ctypes.c_int
+# dtype, head_dim, q, k_pool, v_pool, tables, pos, k_new, v_new, o, part_o,
+# part_ml, B, H, KVH, nb, bt, tiles_per_split, n_split, scale, stream
+_ARGTYPES = (
+    _I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+    _I, _I, _I, _I, _I, _I, _I, ctypes.c_float, _P,
+)
+
+
+def _entry():
+    return build.entry("paged_attention", "dnet_paged_attention", _ARGTYPES)
+
+
+def paged_attend_plain(
+    q: torch.Tensor,
+    k_pool: torch.Tensor,
+    v_pool: torch.Tensor,
+    tables: torch.Tensor,
+    pos: torch.Tensor,
+    k_new: torch.Tensor,
+    v_new: torch.Tensor,
+    scale: Optional[float] = None,
+) -> torch.Tensor:
+    """The kernel's function in plain PyTorch, in f32: per slot, the
+    online-softmax fold over its live rows (gathered through its table, in
+    64-key tiles), then the new row folded last."""
+    B, _, H, D = q.shape
+    bt, KVH = k_pool.shape[1], k_pool.shape[2]
+    G = H // KVH
+    Vd = v_pool.shape[-1]
+    scale = D**-0.5 if scale is None else float(scale)
+    dev = q.device
+    outs = []
+    for b, live in enumerate(pos.tolist()):
+        qf = q[b, 0].reshape(KVH, G, D).float() * scale
+        m = torch.full((KVH, G, 1), NEG_INF, dtype=torch.float32, device=dev)
+        l = torch.zeros((KVH, G, 1), dtype=torch.float32, device=dev)
+        acc = torch.zeros((KVH, G, Vd), dtype=torch.float32, device=dev)
+        if live:
+            ids = tables[b, : -(-live // bt)].long()  # the live blocks only
+            kb = k_pool[ids].reshape(-1, KVH, D)[:live]
+            vb = v_pool[ids].reshape(-1, KVH, Vd)[:live]
+            for k0 in range(0, live, BK):
+                scores = torch.einsum("kgd,skd->kgs", qf, kb[k0 : k0 + BK].float())
+                m_new = torch.maximum(m, scores.amax(dim=-1, keepdim=True))
+                p = torch.exp(scores - m_new)
+                corr = torch.exp(m - m_new)
+                l = l * corr + p.sum(dim=-1, keepdim=True)
+                acc = acc * corr + torch.einsum("kgs,skd->kgd", p, vb[k0 : k0 + BK].float())
+                m = m_new
+        s_new = torch.einsum("kgd,kd->kg", qf, k_new[b].float())[..., None]
+        m_fin = torch.maximum(m, s_new)
+        corr = torch.exp(m - m_fin)
+        p_new = torch.exp(s_new - m_fin)
+        l = l * corr + p_new
+        acc = acc * corr + p_new * v_new[b].float()[:, None, :]
+        outs.append(acc / torch.clamp(l, min=1e-30))
+    return torch.stack(outs).reshape(B, 1, H, Vd).to(q.dtype)

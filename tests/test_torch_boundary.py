@@ -63,7 +63,7 @@ _GUARDED_SERVER = textwrap.dedent(
     from dnet_tpu_torch.cli.api import main
     sys.exit(main(["--model", sys.argv[1], "--device", "cpu", "--host", "127.0.0.1",
                    "--http-port", sys.argv[2], "--max-seq-len", "64",
-                   "--param-dtype", "float32"]))
+                   "--param-dtype", "float32", *sys.argv[3:]]))
     """
 )
 
@@ -82,16 +82,17 @@ def test_no_jax_or_reference_imports_in_source():
     assert not _FORBIDDEN.search("from dnet_tpu_torch.core import engine")
 
 
-def test_serves_a_request_with_jax_and_reference_blocked(tmp_path):
-    """Every port module imports, and the CLI serves one request on the CPU,
-    in a process where importing jax or dnet_tpu raises."""
+def _serve_one_guarded(tmp_path, extra_args=(), extra_env=None) -> dict:
+    """Run the CLI in a process where importing jax or dnet_tpu raises,
+    serve one greedy chat request, and return /health as it was then."""
     with socket.socket() as s:
         s.bind(("127.0.0.1", 0))
         port = s.getsockname()[1]
-    env = {k: v for k, v in os.environ.items() if not k.startswith(("JAX_", "XLA_"))}
+    env = {k: v for k, v in os.environ.items() if not k.startswith(("JAX_", "XLA_", "DNET_"))}
     env["PYTHONPATH"] = str(ROOT)
+    env.update(extra_env or {})
     proc = subprocess.Popen(
-        [sys.executable, "-c", _GUARDED_SERVER, str(tmp_path / "ckpt"), str(port)],
+        [sys.executable, "-c", _GUARDED_SERVER, str(tmp_path / "ckpt"), str(port), *extra_args],
         cwd=ROOT, env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
     )
     base = f"http://127.0.0.1:{port}"
@@ -113,6 +114,7 @@ def test_serves_a_request_with_jax_and_reference_blocked(tmp_path):
         )
         assert r.status_code == 200, r.text
         assert r.json()["usage"]["completion_tokens"] == 5
+        health = httpx.get(base + "/health", timeout=5).json()
     finally:
         proc.send_signal(signal.SIGTERM)
         try:
@@ -122,6 +124,27 @@ def test_serves_a_request_with_jax_and_reference_blocked(tmp_path):
             out, _ = proc.communicate()
     assert proc.returncode == 0, out
     assert "blocked import" not in out
+    return health
+
+
+def test_serves_a_request_with_jax_and_reference_blocked(tmp_path):
+    """Every port module imports, and the CLI serves one request on the CPU,
+    in a process where importing jax or dnet_tpu raises."""
+    health = _serve_one_guarded(tmp_path)
+    assert "engine" not in health  # the single-sequence engine
+
+
+def test_serves_a_batched_request_with_jax_and_reference_blocked(tmp_path):
+    """The same with continuous batching: --batch-slots 2 over the paged
+    pool, decoded through ragged paged attention; admission is capped at
+    the slot count."""
+    health = _serve_one_guarded(
+        tmp_path, ["--batch-slots", "2"],
+        {"DNET_KV_PAGED": "1", "DNET_KV_RAGGED": "1", "DNET_KV_BLOCK_TOKENS": "8"},
+    )
+    assert health["admission"]["capacity"] == 2
+    assert health["engine"]["slots"] == 2 and health["engine"]["decode_steps"] >= 4
+    assert health["engine"]["kv_blocks_used"] == 0
 
 
 @pytest.fixture
