@@ -23,9 +23,10 @@ Phases, one JSON line each; any failure exits non-zero:
            read once).
   serve    full-width Llama-3.2-1B with synthetic bf16 weights from a seed,
            written as a checkpoint and served by the port's HTTP server on
-           loopback: a greedy chat completion, the same request streamed
-           (equal content), and a seeded sampled one; every attention call
-           on that path must have gone through the kernels.
+           loopback: a greedy chat completion, a seeded sampled one, and
+           the greedy request streamed three times (equal content; TTFT and
+           decode rate as medians); every attention call on that path must
+           have gone through the kernels.
 Continuous batching over the paged KV pool (DNET_KV_PAGED=1
 DNET_KV_RAGGED=1), the second path:
   kernels      the ragged paged-attention kernel against its plain version
@@ -44,6 +45,27 @@ DNET_KV_RAGGED=1), the second path:
                64 tokens each, one sampled with a seed); the paged kernel
                runs 16 times per decode step, the single-sequence decode
                kernel never, the prefill kernel 16 times per prompt chunk.
+The pipelined shard ring, the third path (API node + two shard processes
+over gRPC, the qsparse8 hop codec):
+  kernels      the codec's three column kernels against their plain versions
+               at the hop's widths (C=2048, K=1024 kept, gs=64; R=1, a decode
+               hop, and R=1500, a prompt frame; bf16 and f32): norms within
+               2e-5 relative, gather and dequant-scatter equal bit for bit;
+               library yardsticks torch.linalg.vector_norm, index_select and
+               index_copy_ (on a pre-dequantized copy).
+  codec        one hop's whole encode and decode (qsparse8 and lossless) at
+               R=1 and R=1500: host wall time per call and its device work.
+  ring_serve   the serve phase's checkpoint served by two
+               `dnet_tpu_torch.cli.shard` processes on the card (layers 0-7 and
+               8-15) behind the port's API node with a hostfile on 127.0.0.1:
+               lossless, the serve phase's requests, whose greedy and seeded
+               sampled text must equal the serve phase's; qsparse8
+               (DNET_WIRE_CODEC=qsparse8, pct 0.5, gs 64), the same plus a
+               1,500-token prompt.  Every request returns 64 tokens; each
+               shard's /health must show the column kernels launched once per
+               hidden frame encoded (s0) or decoded (s1), and the attention
+               kernels once per layer per step.  Per-frame host times on
+               each shard are read after a warm-up request.
 Then the kernels summary line, the card line, and the last line
 {"ok": true, "device": {...}}.  Without a CUDA device it exits non-zero
 and prints no result.
@@ -91,6 +113,12 @@ BATCH_PROMPT_TOKENS = [27, 60, 150, 300, 520, 800, 1100, 1500]
 PAGED_POSITIONS = [0, 15, 16, 100, 1023, 2047, 4000, 4094]
 PAGED_ENV = {"DNET_KV_PAGED": "1", "DNET_KV_RAGGED": "1"}
 PREFILL_CHUNK = 256  # the batched adapter's prompt chunk (api/strategies.py)
+# the ring's hop codec: hidden width, kept columns (pct 0.5), quant group,
+# frame rows (a decode hop, a prompt frame) and input copies rotated per
+# timed call (16 x 6 MB at R=1500 in bf16 exceeds the 50 MB L2)
+COL_C, COL_K, COL_GS, COL_ROWS, COL_COPIES = 2048, 1024, 64, (1, 1500), 16
+RING_LAYERS = ([*range(0, 8)], [*range(8, 16)])
+RING_ENV = {"DNET_WIRE_QSPARSE_PCT": "0.5", "DNET_WIRE_GROUP_SIZE": "64"}
 
 
 def emit(obj) -> None:
@@ -265,6 +293,148 @@ def phase_paged_kernels(main_positions: list) -> dict:
         del kp, vp
     torch.cuda.empty_cache()
     return main
+
+
+def bytes_ops_bound(nbytes: int, ops: int, dtype) -> tuple:
+    """(ms, bound_by): the larger of bytes over the memory rate and
+    operations over the peak rate for their type."""
+    t_mem, t_ops = nbytes / HBM_BYTES_PER_S, ops / PEAK_OPS_PER_S[dtype]
+    return max(t_mem, t_ops) * 1e3, ("bytes" if t_mem >= t_ops else "operations")
+
+
+def phase_column_kernels() -> dict:
+    """The hop codec's kernels at the ring's widths; returns the decode
+    hop's (R=1) bf16 row per kernel, the frame that runs once per token."""
+    from dnet_tpu_torch.compression.ops import (
+        column_sq_norms,
+        column_sq_norms_plain,
+        dequant_scatter_columns,
+        dequant_scatter_columns_plain,
+        gather_columns,
+        gather_columns_plain,
+        quantize_q8,
+        topk_columns,
+    )
+
+    g = torch.Generator(device="cuda").manual_seed(3)
+    main = {}
+    C, K, GS = COL_C, COL_K, COL_GS
+    for dtype in (torch.float32, torch.bfloat16):
+        size = torch.tensor([], dtype=dtype).element_size()
+        name = str(dtype).split(".")[-1]
+        for R in COL_ROWS:
+            xs = [torch.randn(R, C, generator=g, device="cuda").mul_(3).to(dtype) for _ in range(COL_COPIES)]
+            # the kept columns as the codec picks them: the top K norms
+            idx = topk_columns(column_sq_norms_plain(xs[0]), K)
+            idx_long = idx.long()
+            shape = {"R": R, "C": C, "K": K}
+
+            def emit_row(kernel, err, kernel_fn, plain_fn, lib_fn, lib_call, nbytes, ops, **extra):
+                bound, by = bytes_ops_bound(nbytes, ops, torch.float32)
+                row = {"phase": "kernels", "kernel": kernel, "dtype": name, **shape, **extra,
+                       "max_err": err, "kernel_ms": device_time_ms(kernel_fn, COL_COPIES),
+                       "plain_ms": device_time_ms(plain_fn, COL_COPIES, 5),
+                       "library_ms": device_time_ms(lib_fn, COL_COPIES), "library_call": lib_call,
+                       "bytes": nbytes, "bound_ms": bound, "bound_by": by}
+                emit(row)
+                if dtype == torch.bfloat16 and R == 1 and kernel not in main:
+                    main[kernel] = row
+
+            out = column_sq_norms(xs[0])
+            torch.cuda.synchronize()
+            want = column_sq_norms_plain(xs[0])
+            rel = ((out - want).abs() / want.abs().clamp(min=1e-30)).max().item()
+            check(out.shape == (C,) and bool(torch.isfinite(out).all()), "norms output")
+            check(rel <= 2e-5, f"column_sq_norms R={R} {name}: relative err {rel}")
+            check(torch.equal(out, column_sq_norms(xs[0])), "column_sq_norms is not repeatable")
+            emit_row("column_sq_norms", (out - want).abs().max().item(),
+                     lambda l: column_sq_norms(xs[l]), lambda l: column_sq_norms_plain(xs[l]),
+                     lambda l: torch.linalg.vector_norm(xs[l], 2, 0, dtype=torch.float32),
+                     "torch.linalg.vector_norm(x, 2, 0, dtype=float32) (the square root, not squared)",
+                     R * C * size + C * 4, 2 * R * C, max_rel_err=rel, tol_rel=2e-5)
+
+            out = gather_columns(xs[0], idx)
+            torch.cuda.synchronize()
+            check(torch.equal(out, gather_columns_plain(xs[0], idx)), f"gather_columns R={R} {name} not bit-equal")
+            check(torch.equal(torch.index_select(xs[0], 1, idx), out), "index_select disagrees")
+            emit_row("gather_columns", 0.0, lambda l: gather_columns(xs[l], idx),
+                     lambda l: gather_columns_plain(xs[l], idx), lambda l: torch.index_select(xs[l], 1, idx),
+                     "torch.index_select(x, 1, idx)", 2 * R * K * size + K * 4, 0)
+
+            kept = [gather_columns_plain(x, idx) for x in xs]
+            q = [quantize_q8(k, GS) for k in kept]
+            deq = [dequant_scatter_columns_plain(c, idx, C, dtype, sc, b, GS)[:, idx_long].contiguous()
+                   for c, sc, b in q]
+            outs = [torch.zeros(R, C, dtype=dtype, device="cuda") for _ in range(COL_COPIES)]
+            codes, scale, bias = q[0]
+            out = dequant_scatter_columns(codes, idx, C, dtype, scale, bias, GS)
+            torch.cuda.synchronize()
+            check(torch.equal(out, dequant_scatter_columns_plain(codes, idx, C, dtype, scale, bias, GS)),
+                  f"dequant_scatter_columns R={R} {name} not bit-equal")
+            check(torch.equal(outs[0].clone().index_copy_(1, idx_long, deq[0]), out), "index_copy_ disagrees")
+            G = scale.shape[1]
+            emit_row("dequant_scatter_columns", 0.0,
+                     lambda l: dequant_scatter_columns(q[l][0], idx, C, dtype, q[l][1], q[l][2], GS),
+                     lambda l: dequant_scatter_columns_plain(q[l][0], idx, C, dtype, q[l][1], q[l][2], GS),
+                     lambda l: outs[l].index_copy_(1, idx_long, deq[l]),
+                     "out.index_copy_(1, idx, kept) on a pre-dequantized copy (the dequant is not timed)",
+                     R * K + 2 * R * G * 4 + K * 4 + R * C * size, 2 * R * K, gs=GS, form="qsparse8")
+            out = dequant_scatter_columns(kept[0], idx, C)
+            torch.cuda.synchronize()
+            check(torch.equal(out, dequant_scatter_columns_plain(kept[0], idx, C)), "plain scatter not bit-equal")
+            emit_row("dequant_scatter_columns", 0.0, lambda l: dequant_scatter_columns(kept[l], idx, C),
+                     lambda l: dequant_scatter_columns_plain(kept[l], idx, C),
+                     lambda l: outs[l].index_copy_(1, idx_long, kept[l]), "out.index_copy_(1, idx, kept)",
+                     R * K * size + K * 4 + R * C * size, 0, form="sparse_v1")
+            del xs, kept, q, deq, outs
+    torch.cuda.empty_cache()
+    return main
+
+
+def phase_codec_host() -> None:
+    """One hidden hop's encode and decode as a shard runs them, qsparse8
+    against lossless at the ring's widths (bf16 [1, R, 2048]): the host's
+    wall time per call, synchronised, and the device work of one call
+    (kernel launches and device time, torch.profiler)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from dnet_tpu_torch.compression.wire import compress_tensor, decompress_tensor_device
+    from dnet_tpu_torch.utils.serialization import bytes_to_device, tensor_to_bytes
+
+    def wall_ms(fn, reps: int = 20) -> float:
+        fn()
+        torch.cuda.synchronize()
+        times = []
+        for _ in range(reps):
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        return statistics.median(times)
+
+    def device_work(fn) -> dict:
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+        return {"launches": len(kernels), "device_ms": sum(e.self_device_time_total for e in kernels) / 1e3}
+
+    g = torch.Generator(device="cuda").manual_seed(4)
+    for R in COL_ROWS:
+        x = torch.randn(1, R, COL_C, generator=g, device="cuda").to(torch.bfloat16)
+        q = compress_tensor(x, 0.5, "bfloat16", 8, COL_GS)
+        lossless = tensor_to_bytes(x, "bfloat16")
+        calls = {
+            "qsparse8_encode": lambda: compress_tensor(x, 0.5, "bfloat16", 8, COL_GS),
+            "qsparse8_decode": lambda: decompress_tensor_device(*q, "cuda"),
+            "lossless_encode": lambda: tensor_to_bytes(x, "bfloat16"),
+            "lossless_decode": lambda: bytes_to_device(*lossless, "cuda"),
+        }
+        emit({"phase": "codec", "gpu": gpu_line(), "R": R, "C": COL_C,
+              "payload_bytes": {"qsparse8": len(q[0]), "lossless": len(lossless[0])},
+              "host_wall_ms": {k: wall_ms(fn) for k, fn in calls.items()},
+              "device": {k: device_work(fn) for k, fn in calls.items()}})
 
 
 def phase_kernels(main_T: int, main_pos: int) -> dict:
@@ -637,7 +807,7 @@ def phase_serve(prompt_text: str, n_prompt: int) -> tuple:
     from dnet_tpu_torch.utils.checkpoint import save_checkpoint
     from dnet_tpu_torch.utils.random_init import LLAMA_3_2_1B_CONFIG, random_llama_params
 
-    tmp = tempfile.mkdtemp(prefix="dnet-torch-smoke-")
+    tmp = os.path.join(tempfile.mkdtemp(prefix="dnet-torch-smoke-"), "llama-3.2-1b-synthetic")
     try:
         t0 = time.perf_counter()
         cfg = ModelConfig.from_hf(LLAMA_3_2_1B_CONFIG)
@@ -659,22 +829,38 @@ def phase_serve(prompt_text: str, n_prompt: int) -> tuple:
         chat = {"model": "llama-3.2-1b-synthetic", "max_tokens": MAX_TOKENS, "temperature": 0,
                 "messages": [{"role": "user", "content": prompt_text}], "logit_bias": TEXT_BIAS}
         sampled = dict(chat, temperature=0.8, top_p=0.95, seed=1234)
-        results, launches, load_s, _ = asyncio.run(
-            _drive(args, [chat, dict(chat, stream=True), sampled]))
+        bodies = [{"greedy": chat, "streamed": dict(chat, stream=True), "sampled": sampled}[k] for k in SERVE_KINDS]
+        results, launches, load_s, _ = asyncio.run(_drive(args, bodies))
         row = serve_row(results, launches, write_s, load_s)
         batched = phase_batch_serve(tmp, port, batch_step)
+        long_body = dict(chat, stream=True, messages=[{"role": "user", "content": _batch_prompts()[-1]}])
+        ring = phase_ring_serve(tmp, bodies, results, row, long_body)
     finally:
-        shutil.rmtree(tmp, ignore_errors=True)
-    return row, batched
+        shutil.rmtree(os.path.dirname(tmp), ignore_errors=True)
+    return row, batched, ring
+
+
+# the serve and ring_serve requests: one greedy, one seeded sampled and three
+# greedy streamed (their TTFT and decode rate are read as medians)
+SERVE_KINDS = ("greedy", "streamed", "sampled", "streamed", "streamed")
+
+
+def streamed_rates(results: list) -> dict:
+    """Median TTFT and decode rate of the streamed requests."""
+    runs = [r for k, r in zip(SERVE_KINDS, results) if k == "streamed"]
+    rates = [(r["tokens"] - 1) / max(r["decode_s"], 1e-9) for r in runs]
+    return {"streamed_ttft_s": statistics.median(r["ttft_s"] for r in runs),
+            "streamed_decode_tokens_per_s": statistics.median(rates),
+            "streamed_runs": [{"ttft_s": r["ttft_s"], "decode_tokens_per_s": v} for r, v in zip(runs, rates)]}
 
 
 def serve_row(results: list, launches: dict, write_s: float, load_s: float) -> dict:
     """Check the single-sequence serve's requests and launch counts; emit its line."""
-    greedy, streamed, sample = results
-    for name, r in zip(("greedy", "streamed", "sampled"), results):
+    for name, r in zip(SERVE_KINDS, results):
         check(r["status"] == 200, f"{name} request: HTTP {r['status']}")
         check(bool(r["content"]) and r["tokens"] == MAX_TOKENS, f"{name} request: empty or short completion")
-    check(streamed["content"] == greedy["content"], "streamed content differs from the non-streamed")
+        check(name != "streamed" or r["content"] == results[0]["content"],
+              "streamed content differs from the non-streamed")
     n_prefill = len(results)
     # every decode step runs the 16 layers; a chunk dispatched past the
     # budget never happens (widths are capped by max_tokens)
@@ -690,13 +876,202 @@ def serve_row(results: list, launches: dict, write_s: float, load_s: float) -> d
         "requests": [
             {"kind": k, "status": r["status"], "completion_tokens": r["tokens"], "s": r["s"],
              "tokens_per_s": r["tokens"] / r["s"], "content_head": r["content"][:40]}
-            for k, r in zip(("greedy", "streamed", "sampled"), results)
+            for k, r in zip(SERVE_KINDS, results)
         ],
-        "streamed_ttft_s": streamed["ttft_s"],
-        "streamed_decode_tokens_per_s": (streamed["tokens"] - 1) / max(streamed["decode_s"], 1e-9),
+        **streamed_rates(results),
     }
     emit(row)
     return row
+
+
+def _free_port() -> int:
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _get(url: str) -> dict:
+    return json.loads(urllib.request.urlopen(url, timeout=10).read())
+
+
+def _post_json(url: str, body: dict) -> dict:
+    req = urllib.request.Request(url, data=json.dumps(body).encode(), headers={"Content-Type": "application/json"})
+    with urllib.request.urlopen(req, timeout=600) as resp:
+        return json.loads(resp.read())
+
+
+async def _drive_ring(args: Namespace, model_dir: str, bodies: list, shard_urls: list) -> tuple:
+    """The API node in this process in ring mode: prepare the manual
+    topology, fan the load out to the shards, send `bodies` in order;
+    returns (results, load seconds, each shard's /health after the first
+    request, which warms the shards up)."""
+    from dnet_tpu_torch.api.server import serve_async
+
+    loop = asyncio.get_running_loop()
+    server = asyncio.ensure_future(serve_async(args))
+    base = f"http://127.0.0.1:{args.http_port}"
+    t0 = time.perf_counter()
+    try:
+        while True:
+            check(not server.done(), "ring API exited during start-up")
+            try:
+                await loop.run_in_executor(None, _get, base + "/health")
+                break
+            except OSError:
+                check(time.perf_counter() - t0 < 120, "ring API not up within 120 s")
+                await asyncio.sleep(0.3)
+        topo = await loop.run_in_executor(None, _post_json, base + "/v1/prepare_topology_manual", {
+            "model": model_dir,
+            "assignments": [{"instance": f"s{i}", "layers": ls} for i, ls in enumerate(RING_LAYERS)],
+        })
+        check([a["next_instance"] for a in topo["topology"]["assignments"]] == ["s1", "s0"], f"ring {topo}")
+        t_load = time.perf_counter()
+        await loop.run_in_executor(None, _post_json, base + "/v1/load_model", {"model": model_dir})
+        load_s = time.perf_counter() - t_load
+        results, warm = [], None
+        for body in bodies:
+            results.append(await loop.run_in_executor(None, _post, base + "/v1/chat/completions", body))
+            if warm is None:
+                warm = [await loop.run_in_executor(None, _get, u + "/health") for u in shard_urls]
+    finally:
+        if not server.done():
+            signal.raise_signal(signal.SIGTERM)  # the server's own shutdown path
+        await server
+    return results, load_s, warm
+
+
+def _ring_pass(model_dir: str, codec: str, bodies: list, logdir: str) -> tuple:
+    """Start the two shard processes on the card, serve `bodies` through
+    them with the hop codec `codec`, read each shard's /health, and stop
+    the shards; returns (results, [s0 health, s1 health], load seconds,
+    the /health pair after the first request)."""
+    env = dict(os.environ, DNET_WIRE_CODEC=codec, **RING_ENV)
+    shards = [(f"s{i}", _free_port(), _free_port()) for i in range(len(RING_LAYERS))]
+    hostfile = os.path.join(logdir, f"hostfile-{codec}")
+    with open(hostfile, "w") as f:
+        f.writelines(f"{n} 127.0.0.1 {h} {g}\n" for n, h, g in shards)
+    procs, logs = [], []
+    try:
+        for name, http, grpc_port in shards:
+            logs.append(os.path.join(logdir, f"shard-{codec}-{name}.log"))
+            with open(logs[-1], "w") as log:
+                procs.append(subprocess.Popen(
+                    [sys.executable, "-m", "dnet_tpu_torch.cli.shard", "--host", "127.0.0.1",
+                     "--http-port", str(http), "--grpc-port", str(grpc_port), "--shard-name", name,
+                     "--device", "cuda"],
+                    env=env, stdout=log, stderr=subprocess.STDOUT))
+        t0 = time.perf_counter()
+        for (name, http, _), proc in zip(shards, procs):
+            while True:
+                check(proc.poll() is None, f"shard {name} exited with {proc.returncode}")
+                try:
+                    health = _get(f"http://127.0.0.1:{http}/health")
+                    break
+                except OSError:
+                    check(time.perf_counter() - t0 < 120, f"shard {name} not up within 120 s")
+                    time.sleep(0.3)
+            # a fresh process: every launch count starts at 0
+            check(not any(health["kernels"].values()), f"shard {name} counts not 0: {health['kernels']}")
+        args = Namespace(
+            host="127.0.0.1", http_port=_free_port(), grpc_port=_free_port(), hostfile=hostfile, model="",
+            models_dir="", device="cuda", max_seq_len=S, param_dtype="bfloat16", max_concurrent=8,
+            request_timeout_s=600.0,
+        )
+        with environ({"DNET_WIRE_CODEC": codec, **RING_ENV}):  # the API resolves the hop codec
+            urls = [f"http://127.0.0.1:{http}" for _, http, _ in shards]
+            results, load_s, warm = asyncio.run(_drive_ring(args, model_dir, bodies, urls))
+        healths = [_get(u + "/health") for u in urls]
+    except Exception:
+        for path in logs:
+            with open(path) as f:
+                print(f"--- {path} ---\n{f.read()[-4000:]}", file=sys.stderr)
+        raise
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.send_signal(signal.SIGTERM)
+        for p in procs:
+            try:
+                p.wait(timeout=30)
+            except subprocess.TimeoutExpired:
+                p.kill()
+                p.wait()
+    return results, healths, load_s, warm
+
+
+def _steady(after: dict, before: dict, requests: list) -> dict:
+    """Per-frame host times on one shard over `requests` (all but the
+    first, warm-up request): its compute thread's time per frame, and the
+    hop encode and decode per single-row hop and per prompt frame."""
+    frames = after["compute"]["frames"] - before["compute"]["frames"]
+    hops = sum(r["tokens"] - 1 for r in requests)
+    w = {k: after["wire"][k] - before["wire"][k] for k in after["wire"]}
+    return {"compute_ms_per_frame": (after["compute"]["ms"] - before["compute"]["ms"]) / frames,
+            "hop_encode_ms": w["hop_encode_ms"] / hops, "hop_decode_ms": w["hop_decode_ms"] / hops,
+            "prompt_encode_ms": w["prompt_encode_ms"] / len(requests),
+            "prompt_decode_ms": w["prompt_decode_ms"] / len(requests)}
+
+
+def phase_ring_serve(model_dir: str, bodies: list, serve_results: list, served: dict, long_body: dict) -> dict:
+    """The checkpoint served as a two-shard ring, lossless then qsparse8;
+    returns the qsparse8 pass's column-kernel launches."""
+    greedy, sampled = serve_results[0], serve_results[2]
+    out = {}
+    for codec, reqs in (("lossless", bodies), ("qsparse8", bodies + [long_body])):
+        results, (h0, h1), load_s, warm = _ring_pass(model_dir, codec, reqs, os.path.dirname(model_dir))
+        for i, r in enumerate(results):
+            check(r["status"] == 200, f"ring {codec} request {i}: HTTP {r['status']}")
+            check(bool(r["content"]) and r["tokens"] == MAX_TOKENS, f"ring {codec} request {i}: {r['tokens']} tokens")
+        for k, r in zip(SERVE_KINDS, results):
+            check(k != "streamed" or r["content"] == results[0]["content"],
+                  f"ring {codec}: streamed differs from non-streamed")
+        if codec == "lossless":
+            check(results[0]["content"] == greedy["content"], "ring greedy text differs from the serve phase's")
+            check(results[2]["content"] == sampled["content"], "ring seeded sampled text differs from the serve phase's")
+        k0, k1, w0, w1 = h0["kernels"], h1["kernels"], h0["wire"], h1["wire"]
+        steps = sum(r["tokens"] for r in results)  # one hidden frame per generated token
+        n_layers = len(RING_LAYERS[0])
+        check(w0["frames_encoded"] == w1["frames_decoded"] == steps, f"ring {codec} hidden frames {w0} {w1}")
+        check(w0["bytes_encoded"] == w1["bytes_decoded"], f"ring {codec} hidden bytes {w0} {w1}")
+        for k in (k0, k1):
+            check(k["flash_prefill"] == n_layers * len(results), f"ring {codec} prefill launches {k}")
+            check(k["flash_decode"] == n_layers * (steps - len(results)), f"ring {codec} decode launches {k}")
+        if codec == "qsparse8":
+            check(k0["column_sq_norms"] == k0["gather_columns"] == w0["frames_encoded"],
+                  f"s0 column kernel launches {k0} != encoded frames {w0['frames_encoded']}")
+            check(k1["dequant_scatter_columns"] == w1["frames_decoded"],
+                  f"s1 dequant_scatter launches {k1} != decoded frames {w1['frames_decoded']}")
+            check(k1["column_sq_norms"] == k1["gather_columns"] == k0["dequant_scatter_columns"] == 0,
+                  "column kernels launched on the wrong shard")
+        else:
+            check(not any(k[n] for k in (k0, k1) for n in ("column_sq_norms", "gather_columns",
+                                                           "dequant_scatter_columns")),
+                  "a column kernel launched under the lossless codec")
+        row = {
+            "phase": "ring_serve", "codec": codec, "gpu": gpu_line(),
+            "transport": "real gRPC on 127.0.0.1: one process per shard, the API node in this process",
+            "layers": [f"{ls[0]}-{ls[-1]}" for ls in RING_LAYERS], "load_s": load_s,
+            "decode_hop_bytes": w0["decode_hop_bytes"], "wire": {"s0": w0, "s1": w1},
+            # steady-state host times per frame on each shard (s0 encodes,
+            # s1 decodes), the warm-up request left out
+            "steady": {f"s{i}": _steady(h, w, results[1:]) for i, (h, w) in enumerate(zip((h0, h1), warm))},
+            "launches": {"s0": k0, "s1": k1}, "decode_steps": steps - len(results),
+            "requests": [
+                {"kind": k, "status": r["status"], "completion_tokens": r["tokens"], "s": r["s"],
+                 "content_head": r["content"][:40]}
+                for k, r in zip(SERVE_KINDS + ("long_prompt_streamed",), results)
+            ],
+            **streamed_rates(results),
+            "single_process": {k: served[k] for k in ("streamed_ttft_s", "streamed_decode_tokens_per_s")},
+        }
+        if codec == "qsparse8":
+            long = results[-1]
+            row["long_prompt"] = {"prompt_tokens": BATCH_PROMPT_TOKENS[-1], "ttft_s": long["ttft_s"],
+                                  "decode_tokens_per_s": (long["tokens"] - 1) / max(long["decode_s"], 1e-9)}
+            out = {"column_sq_norms": k0["column_sq_norms"], "gather_columns": k0["gather_columns"],
+                   "dequant_scatter_columns": k1["dequant_scatter_columns"]}
+        emit(row)
+    return out
 
 
 def phase_batch_serve(model_dir: str, port: int, batch_step: dict) -> dict:
@@ -774,17 +1149,27 @@ def main() -> int:
     main_path = phase_kernels(bucket_length(n_prompt), n_prompt + MAX_TOKENS - 2)
     # the batched path's mix: every batch_serve lane half-way through its output
     main_path["paged_attend"] = phase_paged_kernels([n + MAX_TOKENS // 2 for n in BATCH_PROMPT_TOKENS])
+    # the ring's path: its decode hop (R=1, bf16) runs once per token
+    main_path.update(phase_column_kernels())
+    phase_codec_host()
     phase_parity()
     phase_batch_parity()
-    served, batched = phase_serve(prompt_text, n_prompt)
+    served, batched, ring = phase_serve(prompt_text, n_prompt)
 
     # each kernel with its launches on its own path: the single-sequence
     # serve for the dense prefill and decode kernels, the batched serve for
-    # the paged one (whose prompts also went through the prefill kernel)
+    # the paged one (whose prompts also went through the prefill kernel),
+    # the qsparse8 ring for the column kernels (counted in the shards)
     sources = {
         "flash_prefill": ("dnet_tpu_torch/csrc/flash_prefill.cu", "dnet_tpu/ops/flash_attention.py:38", served),
         "flash_decode": ("dnet_tpu_torch/csrc/flash_decode.cu", "dnet_tpu/ops/flash_decode.py:50", served),
         "paged_attend": ("dnet_tpu_torch/csrc/paged_attention.cu", "dnet_tpu/ops/paged_attention.py:92", batched),
+        "column_sq_norms": ("dnet_tpu_torch/csrc/column_ops.cu", "dnet_tpu/compression/ops.py:24",
+                            {"launches": ring}),
+        "gather_columns": ("dnet_tpu_torch/csrc/column_ops.cu", "dnet_tpu/compression/ops.py:81",
+                           {"launches": ring}),
+        "dequant_scatter_columns": ("dnet_tpu_torch/csrc/column_ops.cu", "dnet_tpu/compression/ops.py:81",
+                                    {"launches": ring}),
     }
     for name, (_, _, path) in sources.items():
         check(path["launches"][name] > 0, f"{name} never launched on its path")

@@ -4,7 +4,10 @@ Counterpart of dnet_tpu/api/http.py, trimmed to
   POST /v1/chat/completions  SSE streaming + aggregate
   POST /v1/completions       legacy text completions
   GET  /v1/models            the loaded model
-  POST /v1/load_model        load a local checkpoint
+  POST /v1/load_model        load a local checkpoint (in ring mode: the
+                             fan-out to the shards)
+  POST /v1/prepare_topology_manual
+                             ring mode: assign layer ranges to shards
   GET  /health
 with the reference's serialization, so the same request gets the same
 bytes back (SSE: `data: <json>\\n\\n` frames, then `data: [DONE]`).
@@ -26,6 +29,8 @@ from dnet_tpu_torch.api.inference import (
     PromptTooLongError,
     completion_logprobs,
 )
+from dnet_tpu_torch.api.model_manager import resolve_model_dir
+from dnet_tpu_torch.api.ring_manager import build_manual_topology
 from dnet_tpu_torch.api.schemas import (
     ChatCompletionRequest,
     CompletionRequest,
@@ -34,6 +39,7 @@ from dnet_tpu_torch.api.schemas import (
     LoadModelResponse,
     ModelInfo,
     ModelList,
+    PrepareTopologyManualRequest,
 )
 from dnet_tpu_torch.utils.logger import get_logger
 
@@ -50,14 +56,16 @@ def _json_error(
 
 
 class ApiHTTPServer:
-    def __init__(self, inference: InferenceManager, model_manager) -> None:
+    def __init__(self, inference: InferenceManager, model_manager, cluster_manager=None) -> None:
         self.inference = inference
         self.model_manager = model_manager
+        self.cluster_manager = cluster_manager  # ring mode only
         self.app = web.Application(client_max_size=64 * 1024 * 1024)
         self.app.router.add_post("/v1/chat/completions", self.chat_completions)
         self.app.router.add_post("/v1/completions", self.completions)
         self.app.router.add_get("/v1/models", self.list_models)
         self.app.router.add_post("/v1/load_model", self.load_model)
+        self.app.router.add_post("/v1/prepare_topology_manual", self.prepare_topology_manual)
         self.app.router.add_get("/health", self.health)
         self._runner: Optional[web.AppRunner] = None
 
@@ -223,13 +231,48 @@ class ApiHTTPServer:
             return _json_error(500, f"load failed: {exc}", "server_error")
         return web.json_response(LoadModelResponse(model=req.model, load_time_s=dt).model_dump())
 
+    async def prepare_topology_manual(self, request: web.Request) -> web.Response:
+        """Manual layer assignment -> the ring topology (needs a hostfile)."""
+        if self.cluster_manager is None:
+            return _json_error(400, "not in ring mode (start with --hostfile)")
+        try:
+            req = PrepareTopologyManualRequest.model_validate(await request.json())
+        except (json.JSONDecodeError, ValidationError) as exc:
+            return _json_error(400, f"invalid request: {exc}")
+        model_dir = resolve_model_dir(req.model, getattr(self.model_manager, "models_dir", None))
+        if model_dir is None:
+            return _json_error(404, f"model {req.model!r} not found locally", "model_not_found")
+        num_layers = json.loads((model_dir / "config.json").read_text())["num_hidden_layers"]
+        devices = await self.cluster_manager.healthy_devices()
+        try:
+            topo = build_manual_topology(
+                req.model, num_layers, [a.model_dump() for a in req.assignments], devices,
+                kv_bits=req.kv_bits,
+            )
+        except ValueError as exc:
+            return _json_error(400, str(exc))
+        self.cluster_manager.install_topology(topo)
+        return web.json_response({
+            "status": "ok",
+            "topology": {
+                "model": topo.model,
+                "num_layers": topo.num_layers,
+                "epoch": topo.epoch,
+                "assignments": [
+                    {"instance": a.instance, "layers": a.layers, "next_instance": a.next_instance,
+                     "mesh_tp": a.mesh_tp, "mesh_sp": a.mesh_sp}
+                    for a in topo.assignments
+                ],
+            },
+        })
+
     async def health(self, request: web.Request) -> web.Response:
         body = HealthResponse(model=self.model_manager.current_model_id).model_dump()
         body["admission"] = {
             "active": self.inference.active,
             "capacity": self.inference.max_concurrent,
         }
-        stats = getattr(self.model_manager.engine, "stats", None)
+        stats = getattr(getattr(self.model_manager, "engine", None), "stats", None)
         if stats is not None:
             body["engine"] = stats()
         return web.json_response(body)

@@ -281,6 +281,21 @@ class LoadModelResponse(BaseModel):
     load_time_s: float = 0.0
 
 
+class ManualAssignment(BaseModel):
+    instance: str
+    layers: List[int]
+    window_size: int = 0
+    residency_size: int = 0
+    mesh_tp: int = 0
+    mesh_sp: int = 0
+
+
+class PrepareTopologyManualRequest(BaseModel):
+    model: str
+    assignments: List[ManualAssignment]
+    kv_bits: int = 0
+
+
 class HealthResponse(BaseModel):
     status: str = "ok"
     role: str = "api"

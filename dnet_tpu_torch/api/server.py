@@ -1,7 +1,9 @@
 """API-node process wiring: inference manager, model manager, HTTP server.
 
-Counterpart of dnet_tpu/api/server.py for single-process serving (no
-ring, mesh, fleet or TUI).  `serve_async` runs until SIGINT/SIGTERM.
+Counterpart of dnet_tpu/api/server.py for single-process serving and, with
+--hostfile, for a ring of shards (no UDP discovery, mesh, fleet or TUI).
+In ring mode the API also listens on gRPC for the tail shard's token
+callbacks.  `serve_async` runs until SIGINT/SIGTERM.
 """
 
 from __future__ import annotations
@@ -28,15 +30,19 @@ async def serve_async(args) -> None:
         request_timeout_s=args.request_timeout_s,
         max_concurrent=max_concurrent,
     )
-    model_manager = LocalModelManager(
-        inference,
-        models_dir=args.models_dir,
-        max_seq=args.max_seq_len,
-        param_dtype=args.param_dtype,
-        device=args.device,
-        batch_slots=batch_slots,
-    )
-    http = ApiHTTPServer(inference, model_manager)
+    cluster_manager = grpc_server = None
+    if getattr(args, "hostfile", ""):
+        model_manager, cluster_manager, grpc_server = await _ring_mode(args, inference)
+    else:
+        model_manager = LocalModelManager(
+            inference,
+            models_dir=args.models_dir,
+            max_seq=args.max_seq_len,
+            param_dtype=args.param_dtype,
+            device=args.device,
+            batch_slots=batch_slots,
+        )
+    http = ApiHTTPServer(inference, model_manager, cluster_manager)
     await http.start(args.host, args.http_port)
     try:
         if args.model:
@@ -50,8 +56,50 @@ async def serve_async(args) -> None:
         log.info("shutdown signal: stopping")
     finally:
         await http.stop()
+        if grpc_server is not None:
+            await grpc_server.stop(grace=2)
         if inference.adapter is not None:
             await inference.adapter.shutdown()
+
+
+async def _ring_mode(args, inference):
+    """The hostfile's shards, the ring model manager, and the gRPC server
+    the tail shard calls back with each sampled token."""
+    from dnet_tpu_torch.api.cluster import ClusterManager
+    from dnet_tpu_torch.api.ring import ApiTokenServicer
+    from dnet_tpu_torch.api.ring_manager import RingModelManager
+    from dnet_tpu_torch.config import api_settings
+    from dnet_tpu_torch.transport.grpc_transport import api_service_handlers, start_grpc_server
+    from dnet_tpu_torch.utils.hostfile import StaticDiscovery
+    from dnet_tpu_torch.utils.network import primary_ip
+
+    discovery = StaticDiscovery.from_hostfile(args.hostfile)
+    cluster_manager = ClusterManager(discovery)
+    callback_addr = api_settings().callback_addr or (
+        f"{primary_ip(d.host for d in discovery.peers())}:{args.grpc_port}"
+    )
+    model_manager = RingModelManager(
+        inference,
+        cluster_manager,
+        models_dir=args.models_dir,
+        api_callback_addr=callback_addr,
+        max_seq=args.max_seq_len,
+        param_dtype=args.param_dtype,
+        request_timeout_s=args.request_timeout_s,
+    )
+
+    def resolve(result) -> None:
+        if inference.adapter is None:
+            log.warning("token for %s before model load", result.nonce)
+        else:
+            inference.adapter.resolve_token(result)
+
+    grpc_server = await start_grpc_server(
+        args.host, args.grpc_port, api_service_handlers(ApiTokenServicer(resolve))
+    )
+    log.info("ring mode: %d shard(s) from %s, callbacks on %s", len(discovery.peers()), args.hostfile,
+             callback_addr)
+    return model_manager, cluster_manager, grpc_server
 
 
 def serve(args) -> None:

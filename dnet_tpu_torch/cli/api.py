@@ -2,10 +2,15 @@
 
     python -m dnet_tpu_torch.cli.api --model <dir> [--device cpu]
     DNET_KV_PAGED=1 DNET_KV_RAGGED=1 python -m dnet_tpu_torch.cli.api --model <dir> --batch-slots 8
+    python -m dnet_tpu_torch.cli.api --hostfile <f>    # a ring of dnet-torch-shard nodes
 
 Runs on CUDA unless --device cpu is given, and refuses to start when CUDA
 is absent.  --batch-slots N > 1 serves N concurrent requests by continuous
 batching over a paged KV pool (needs DNET_KV_PAGED=1 and DNET_KV_RAGGED=1).
+--hostfile serves through the shards it lists (`<instance> <host> <http_port>
+<grpc_port>` per line): POST /v1/prepare_topology_manual assigns their layer
+ranges, then POST /v1/load_model loads them; the tail shard calls the
+sampled tokens back on --grpc-port.
 """
 
 from __future__ import annotations
@@ -31,6 +36,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--batch-slots", type=int, default=None,
                    help="continuous-batching slots (default DNET_API_BATCH_SLOTS, else 1)")
     p.add_argument("--request-timeout-s", type=float, default=300.0)
+    p.add_argument("--hostfile", default="", help="serve through the ring of shards this file lists")
+    p.add_argument("--grpc-port", type=int, default=58080, help="ring mode: token callbacks from the tail")
     return p
 
 

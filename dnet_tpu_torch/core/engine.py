@@ -9,6 +9,11 @@ current CUDA stream; the fused `lax.scan` decode chunk becomes a Python
 loop that feeds each sampled token back on the device, so a chunk needs one
 device-to-host read.  Prompts are padded to power-of-two buckets as in the
 reference, and never past `max_seq - pos` (the KV write must fit).
+
+In shard mode (`layers=`, `shard_mode=True`) the engine holds one ring
+shard's layer range and serves hidden states in and out: `embed_window`
+on the head, `run_layers` in the middle, `hidden_tail` / `sample_hidden`
+on the tail (shard/compute.py drives them).
 """
 
 from __future__ import annotations
@@ -77,19 +82,32 @@ class LocalEngine:
         max_seq: int = 2048,
         param_dtype: str = "bfloat16",
         device: Optional[Union[str, torch.device]] = None,
+        layers: Optional[Sequence[int]] = None,
+        shard_mode: bool = False,
     ):
+        """layers=None is the whole model; a sub-range with shard_mode=True
+        makes this engine a ring shard's compute core: it loads only the
+        edge weights the range needs (the embedding on the head, the final
+        norm and LM head on the tail, the embedding on the tail too when
+        it is tied) and serves hidden states in and out."""
         self.device = resolve_device(device)
         self.ckpt = Checkpoint(model_dir)
         self.config = ModelConfig.from_hf(self.ckpt.config)
-        self._setup(max_seq, param_dtype)
+        self._setup(max_seq, param_dtype, layers)
         t0 = time.perf_counter()
         m = self.model
         self.window_params = [
             self._cast(m.map_layer(self.ckpt.load_layer_raw(a))) for a in m.layers
         ]
-        self.edge_params = {
-            k: self._cast(v) for k, v in m.map_edge(self.ckpt.load_edge_raw()).items()
-        }
+        names = None  # every edge tensor
+        if shard_mode:
+            names = []
+            if m.is_first or (m.is_last and self.config.tie_word_embeddings):
+                names.append("model.embed_tokens.weight")
+            if m.is_last:
+                names += ["model.norm.weight", "lm_head.weight"]
+        edge = m.map_edge(self.ckpt.load_edge_raw(names))
+        self.edge_params = {k: self._cast(v) for k, v in edge.items()}
         log.info(
             "[PROFILE] loaded %d layers (%s) in %.2fs",
             len(m.layers), self.config.model_type, time.perf_counter() - t0,
@@ -120,9 +138,9 @@ class LocalEngine:
         self._build_kernels()
         return self
 
-    def _setup(self, max_seq: int, param_dtype: str) -> None:
+    def _setup(self, max_seq: int, param_dtype: str, layers: Optional[Sequence[int]] = None) -> None:
         self.model = get_ring_model_cls(self.config.model_type)(
-            self.config, range(self.config.num_hidden_layers), self.device
+            self.config, range(self.config.num_hidden_layers) if layers is None else layers, self.device
         )
         self.max_seq = max_seq
         self.param_dtype_name = param_dtype  # the KV cache's dtype too
@@ -153,6 +171,45 @@ class LocalEngine:
         x, _ = m.apply_window(self.window_params, x, kv, pos)
         x_last = m.normalize(self.edge_params, x[:, last_idx : last_idx + 1])
         return m.lm_project(self.edge_params, x_last)[:, 0]
+
+    # ---- shard paths (a ring shard's hidden states in and out) ---------
+    def run_layers(self, sess: Session, x: torch.Tensor, pos: int) -> torch.Tensor:
+        """This engine's layers over hidden x [B, T, D] starting at `pos`;
+        writes the session's KV in place."""
+        x, _ = self.model.apply_window(self.window_params, x, sess.kv, pos)
+        return x
+
+    def embed_window(self, sess: Session, tokens: torch.Tensor, pos: int) -> torch.Tensor:
+        """Head shard: embed tokens [B, T] and run this engine's layers."""
+        return self.run_layers(sess, self.model.embed(self.edge_params, tokens), pos)
+
+    def sample_hidden(
+        self, sess: Session, x: torch.Tensor, last_idx: int, decoding: DecodingParams
+    ) -> SampleResult:
+        """Tail shard: final norm + LM head at `last_idx`, then the sample
+        exactly as the single-process step draws it."""
+        m = self.model
+        x_last = m.normalize(self.edge_params, x[:, last_idx : last_idx + 1])
+        logits = m.lm_project(self.edge_params, x_last)[:, 0]
+        return self._sample_with_counts(
+            sess, logits,
+            SampleParams.from_decoding(decoding, self.device), SamplePlan.from_decoding(decoding),
+        )
+
+    def hidden_tail(
+        self, sess: Session, x: torch.Tensor, pos: int, last_idx: int, decoding: DecodingParams
+    ) -> SampleResult:
+        """Tail shard: this engine's layers, then sample at `last_idx`."""
+        return self.sample_hidden(sess, self.run_layers(sess, x, pos), last_idx, decoding)
+
+    def close(self) -> None:
+        """Drop sessions and parameters (a shard reloading frees the old
+        engine's device memory first)."""
+        self.sessions.clear()
+        self.window_params = []
+        self.edge_params = {}
+        if self.device.type == "cuda":
+            torch.cuda.empty_cache()
 
     # ---- sessions -----------------------------------------------------
     def new_session(self, nonce: str, seed: Optional[int] = None) -> Session:

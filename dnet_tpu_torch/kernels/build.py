@@ -35,7 +35,7 @@ NVCC_FLAGS: Tuple[str, ...] = (
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
 )
 # every kernel source; each builds into its own shared library
-SOURCES = ("flash_prefill", "flash_decode", "paged_attention")
+SOURCES = ("flash_prefill", "flash_decode", "paged_attention", "column_ops")
 # dtype codes of the C interface (csrc/common.cuh)
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 

@@ -76,6 +76,17 @@ class RingModel(abc.ABC):
         self.config = config
         self.device = torch.device(device)
         self.layers = sorted(set(int(x) for x in layers))
+        self.abs_to_local = {a: i for i, a in enumerate(self.layers)}
+
+    @property
+    def is_first(self) -> bool:
+        """Holds layer 0 (embeds the tokens)."""
+        return 0 in self.abs_to_local
+
+    @property
+    def is_last(self) -> bool:
+        """Holds the last layer (normalizes, projects and samples)."""
+        return self.config.num_hidden_layers - 1 in self.abs_to_local
 
     # ---- compute ------------------------------------------------------
     def embed(self, edge_params: dict, tokens: torch.Tensor) -> torch.Tensor:

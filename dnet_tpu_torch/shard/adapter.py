@@ -1,0 +1,258 @@
+"""RingAdapter: the shard's transport glue.
+
+Counterpart of dnet_tpu/shard/adapter.py: ingress admits a frame to local
+compute when the next layer is ours (deduplicating a re-sent frame) or
+relays it toward the owner; an egress task routes computed results (hidden
+state -> the next shard's stream; final token -> a unary callback to the
+API, and under a decode grant a continuation frame to the head first);
+idle streams are swept.  The channel factories are injectable, so the
+adapter runs over in-process fakes in tests.
+"""
+
+from __future__ import annotations
+
+import asyncio
+import time
+from collections import OrderedDict
+from dataclasses import asdict
+from typing import Callable, Dict, Optional
+
+import numpy as np
+
+from dnet_tpu_torch.compression.wire import codec_name
+from dnet_tpu_torch.core.types import ActivationMessage
+from dnet_tpu_torch.transport.protocol import ActivationFrame, TokenPayload
+from dnet_tpu_torch.transport.retry import call_with_retry
+from dnet_tpu_torch.transport.stream_manager import StreamManager
+from dnet_tpu_torch.utils.logger import get_logger
+from dnet_tpu_torch.utils.serialization import tensor_to_bytes
+
+log = get_logger()
+
+
+def parse_callback(url: str) -> str:
+    """grpc://host:port -> host:port."""
+    return url[len("grpc://"):] if url.startswith("grpc://") else url
+
+
+class RingAdapter:
+    DEDUP_CAP = 4096  # admitted-frame keys kept for duplicate detection
+
+    def __init__(
+        self,
+        runtime,
+        ring_client_factory: Optional[Callable[[str], object]] = None,
+        callback_client_factory: Optional[Callable[[str], object]] = None,
+        stream_idle_s: float = 30.0,
+        backoff_s: float = 0.25,
+    ) -> None:
+        self.runtime = runtime
+        if ring_client_factory is None or callback_client_factory is None:
+            from dnet_tpu_torch.transport.grpc_transport import ApiCallbackClient, RingClient
+
+            ring_client_factory = ring_client_factory or RingClient
+            callback_client_factory = callback_client_factory or ApiCallbackClient
+        self._make_ring_client = ring_client_factory
+        self._make_cb_client = callback_client_factory
+        self.next_addr: str = ""
+        self._next_client = None
+        self._streams: Optional[StreamManager] = None
+        self._cb_clients: Dict[str, object] = {}  # callback addr -> client
+        self._tasks: list = []
+        self._stream_idle_s = stream_idle_s
+        self._backoff_s = backoff_s
+        # a sender whose stream broke re-opens it and re-sends the in-flight
+        # frame: a frame already admitted is ACKed, not computed twice
+        self._seen: "OrderedDict[tuple, bool]" = OrderedDict()
+
+    # ---- lifecycle ------------------------------------------------------
+    async def start(self) -> None:
+        self._tasks = [
+            asyncio.ensure_future(self._egress_worker()),
+            asyncio.ensure_future(self._idle_sweeper()),
+        ]
+
+    async def shutdown(self) -> None:
+        for t in self._tasks:
+            t.cancel()
+        await asyncio.gather(*self._tasks, return_exceptions=True)
+        self._tasks = []
+        await self.reset_topology()
+
+    # ---- topology -------------------------------------------------------
+    def configure_topology(self, next_addr: str) -> None:
+        """next_addr: 'host:grpc_port' of the next shard ('' = none)."""
+        self.next_addr = next_addr
+        self._next_client = None
+        self._streams = None
+
+    async def reset_topology(self) -> None:
+        if self._streams:
+            await self._streams.shutdown()
+            self._streams = None
+        if self._next_client is not None:
+            await self._next_client.close()
+            self._next_client = None
+        await asyncio.gather(*(c.close() for c in self._cb_clients.values()), return_exceptions=True)
+        self._cb_clients.clear()
+        self._seen.clear()
+        self.next_addr = ""
+
+    def _ensure_next(self) -> StreamManager:
+        if self._next_client is None:
+            if not self.next_addr:
+                raise RuntimeError("no next hop configured")
+            self._next_client = self._make_ring_client(self.next_addr)
+            self._streams = StreamManager(
+                self._next_client.open_stream, backoff_s=self._backoff_s,
+                idle_timeout_s=self._stream_idle_s,
+            )
+        return self._streams
+
+    def _cb_client(self, url: str):
+        addr = parse_callback(url)
+        if not addr:
+            return None
+        client = self._cb_clients.get(addr)
+        if client is None:
+            client = self._cb_clients[addr] = self._make_cb_client(addr)
+        return client
+
+    # ---- ingress ----------------------------------------------------------
+    async def ingress_frame(self, frame: ActivationFrame) -> tuple:
+        """Admit a frame: local compute if the next layer is ours, else
+        relay.  Returns (ok, message) for the ACK."""
+        compute = self.runtime.compute
+        if compute is not None and compute.wants(frame.layer_id):
+            key = (frame.nonce, frame.seq, frame.layer_id)
+            if key in self._seen:
+                log.info("duplicate frame %s seq=%d deduped", frame.nonce, frame.seq)
+                return True, "duplicate"
+            msg = frame.to_message()
+            if not self.runtime.submit(msg, timeout=0.0 if self.runtime.queue_depth else 5.0):
+                return False, "backpressure"
+            self._seen[key] = True
+            while len(self._seen) > self.DEDUP_CAP:
+                self._seen.popitem(last=False)
+            return True, ""
+        try:
+            await self._ensure_next().send(frame.nonce, frame)
+            return True, "relayed"
+        except Exception as exc:
+            log.error("relay failed for %s: %s", frame.nonce, exc)
+            return False, f"relay failed: {exc}"
+
+    # ---- egress -------------------------------------------------------------
+    async def _egress_worker(self) -> None:
+        while True:
+            out: ActivationMessage = await self.runtime.out_q.get()
+            try:
+                if out.is_final:
+                    await self._send_token(out)
+                else:
+                    await self._send_activation(out)
+            except asyncio.CancelledError:
+                raise
+            except Exception:
+                log.exception("egress failed for %s", out.nonce)
+
+    async def _send_activation(self, msg: ActivationMessage) -> None:
+        frame = ActivationFrame(
+            nonce=msg.nonce,
+            seq=msg.seq,
+            layer_id=msg.layer_id,
+            pos=msg.pos,
+            dtype=msg.dtype,
+            shape=tuple(msg.shape),
+            payload=msg.data if isinstance(msg.data, bytes) else bytes(msg.data),
+            codec=codec_name(msg.dtype),
+            callback_url=msg.callback_url,
+            decoding=asdict(msg.decoding),
+            t_sent=time.time(),
+            t_sent_mono=time.perf_counter(),
+            auto_steps=msg.auto_steps,
+            deadline=msg.deadline,
+            epoch=msg.epoch,
+        )
+        await self._ensure_next().send(msg.nonce, frame)
+
+    async def _send_token(self, msg: ActivationMessage) -> None:
+        if msg.cont is not None:
+            # decode grant: the sampled token re-enters the ring BEFORE the
+            # API callback, so the next step computes while the token is in
+            # flight to the API
+            try:
+                await self._send_continuation(msg)
+            except Exception as exc:
+                # the API skips sending frames for granted steps: without a
+                # signal it would wait out its timeout on the next step
+                log.exception("continuation injection failed for %s", msg.nonce)
+                await self._send_error_token(msg, msg.cont[3], f"decode-grant continuation failed: {exc}")
+        client = self._cb_client(msg.callback_url)
+        if client is None:
+            log.error("final token for %s has no callback", msg.nonce)
+            return
+        payload = TokenPayload(
+            nonce=msg.nonce,
+            step=msg.seq,
+            token_id=int(msg.token_id if msg.token_id is not None else -1),
+            logprob=msg.logprob,
+            top_ids=[t for t, _ in (msg.top_logprobs or [])],
+            top_logprobs=[lp for _, lp in (msg.top_logprobs or [])],
+            error=msg.error,
+            epoch=msg.epoch,
+        )
+        await call_with_retry(lambda: client.send_token(payload), method="send_token")
+
+    async def _send_error_token(self, msg: ActivationMessage, step: int, error: str) -> None:
+        client = self._cb_client(msg.callback_url)
+        if client is None:
+            return
+        payload = TokenPayload(nonce=msg.nonce, step=step, token_id=-1, error=error, epoch=msg.epoch)
+        try:
+            await call_with_retry(lambda: client.send_token(payload), method="send_token")
+        except Exception:
+            log.exception("error-token delivery failed for %s", msg.nonce)
+
+    async def _send_continuation(self, msg: ActivationMessage) -> None:
+        """Inject the tail's sampled token as the nonce's next entry frame;
+        the tail's next hop is the head (the ring is wired all the way
+        round)."""
+        token_id, pos, steps, seq = msg.cont
+        payload, _dtype, shape = tensor_to_bytes(np.asarray([[token_id]], dtype=np.int32))
+        frame = ActivationFrame(
+            nonce=msg.nonce,
+            seq=seq,
+            layer_id=-1,
+            pos=pos,
+            dtype="tokens",
+            shape=shape,
+            payload=payload,
+            callback_url=msg.callback_url,
+            decoding=asdict(msg.decoding),
+            auto_steps=steps,
+            t_sent=time.time(),
+            t_sent_mono=time.perf_counter(),
+            deadline=msg.deadline,
+            epoch=msg.epoch,
+        )
+        await self._ensure_next().send(msg.nonce, frame)
+
+    # ---- cache / sweeping ----------------------------------------------------
+    async def reset_cache(self, nonce: str = "") -> None:
+        if self.runtime.compute is not None:
+            self.runtime.compute.reset(nonce)
+        if self._streams is not None and nonce:
+            await self._streams.end_stream(nonce)
+        # dedup keys die with the nonce: a replayed request re-sends step 0
+        if nonce:
+            for key in [k for k in self._seen if k[0] == nonce]:
+                del self._seen[key]
+        else:
+            self._seen.clear()
+
+    async def _idle_sweeper(self) -> None:
+        while True:
+            await asyncio.sleep(self._stream_idle_s)
+            if self._streams is not None:
+                await self._streams.cleanup_idle()

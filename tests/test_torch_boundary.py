@@ -166,3 +166,30 @@ def test_cli_defaults_to_cuda_and_raises_without_it(tiny_llama_dir, no_cuda):
     assert build_parser().parse_args([]).device == "cuda"
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         main(["--model", str(tiny_llama_dir)])
+
+
+def test_serves_a_ring_request_with_jax_and_reference_blocked(tmp_path, tiny_llama_dir):
+    """Two shards and the API node of a ring, each a process where
+    importing jax or dnet_tpu raises, serve one greedy request over gRPC."""
+    from tests.test_torch_ring_serving import CHAT, CpuRing
+
+    ring = CpuRing(tmp_path, guarded=True)
+    try:
+        ring.load(tiny_llama_dir)
+        r = httpx.post(ring.base + "/v1/chat/completions", json=dict(CHAT, max_tokens=5), timeout=60)
+        assert r.status_code == 200, r.text
+        assert r.json()["usage"]["completion_tokens"] == 5
+        assert ring.shard_health(1)["wire"]["frames_decoded"] == 5
+    finally:
+        outcomes = ring.stop()
+    for code, out in outcomes:
+        assert code == 0, out
+        assert "blocked import" not in out
+
+
+def test_shard_cli_defaults_to_cuda_and_raises_without_it(no_cuda):
+    from dnet_tpu_torch.cli.shard import build_parser, main
+
+    assert build_parser().parse_args([]).device == "cuda"
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        main([])
