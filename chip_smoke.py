@@ -20,7 +20,7 @@ Phases, one JSON line each; any failure exits non-zero:
   step     one full-width greedy decode step: its synchronised wall time,
            the host's time to issue it, the device's busy time (profiler),
            the attention kernels' share, and the step's bound (its weights
-           read once).
+           read once); over a bf16 and an int8 KV cache, in turns.
   serve    full-width Llama-3.2-1B with synthetic bf16 weights from a seed,
            written as a checkpoint and served by the port's HTTP server on
            loopback: a greedy chat completion, a seeded sampled one, and
@@ -66,6 +66,32 @@ over gRPC, the qsparse8 hop codec):
                hidden frame encoded (s0) or decoded (s1), and the attention
                kernels once per layer per step.  Per-frame host times on
                each shard are read after a warm-up request.
+The quantized KV cache (DNET_KV_BITS=8|4), the fourth path, on the single
+sequence, dense batched slots and the ring's shards:
+  kernels       the decode kernel's q8 and q4 variants at the serve mix (B=1,
+                S=4096, G=4, bf16 q at pos 0, 255, 4095 and the serve
+                phase's last position; f32 q there too) on caches the port's
+                write_kv quantized, against the plain version on the same
+                codes (the plain decode's tolerances); the plain kernel with a
+                lengths vector at the batch_serve lanes' positions, with bf16
+                and f32 q, and with an f32 q over a bf16 cache (as the paged
+                kernel over a bf16 pool: DNET_KV_BITS=16 on an f32 model);
+                library yardstick SDPA on a dequantized bf16 copy (dequant not
+                timed).
+  quant_parity  q8, q4 and a bf16 cache under f32 params (DNET_KV_BITS=16):
+                the single-sequence engine and dense batched slots (and, for
+                the bf16 cache, paged + ragged slots) on the GPU against the
+                CPU, as parity and batch_parity.
+  quant_serve   DNET_KV_BITS=8 and =4 with the serve phase's requests, then
+                DNET_KV_BITS=8 --batch-slots 8 over dense slots with the
+                batch_serve burst: the q8 / q4 decode kernel 16 times per
+                decode step, no other decode kernel, and the allocated KV
+                bytes equal to cache_nbytes (71,303,168 B q8 and 37,748,736 B
+                q4 per sequence; 8x over 8 slots).
+  ring_serve    a third pass, lossless with kv_bits 8 in the topology: the
+                greedy, streamed and seeded sampled requests, whose text must
+                equal quant_serve's q8 run's, and
+                each shard's q8 decode kernel once per layer per step.
 Then the kernels summary line, the card line, and the last line
 {"ok": true, "device": {...}}.  Without a CUDA device it exits non-zero
 and prints no result.
@@ -289,6 +315,19 @@ def phase_paged_kernels(main_positions: list) -> dict:
             emit(row)
             if dtype == torch.bfloat16 and positions is main_positions:
                 main = row
+            if dtype == torch.float32 and positions is main_positions:
+                # DNET_KV_BITS=16 on an f32 model: a bf16 pool under the f32 q
+                # and new rows, held to the f32 tolerance
+                kp16, vp16 = kp[0].to(torch.bfloat16), vp[0].to(torch.bfloat16)
+                out = paged_attend(q, kp16, vp16, tables_d, pos, kn, vn, max_live=max_live)
+                torch.cuda.synchronize()
+                want16 = paged_attend_plain(q, kp16.float(), vp16.float(), tables_d, pos_cpu, kn, vn)
+                err16 = (out - want16).abs().max().item()
+                check(out.dtype == dtype and bool(torch.isfinite(out).all()) and err16 <= TOL[dtype],
+                      f"paged bf16 pool under f32 q: max err {err16}")
+                emit({"phase": "kernels", "kernel": "paged_attend", "dtype": "float32", "pool_dtype": "bfloat16",
+                      "positions": positions, "max_err": err16, "tol": TOL[dtype]})
+                del kp16, vp16
             del kc, vc
         del kp, vp
     torch.cuda.empty_cache()
@@ -442,7 +481,7 @@ def phase_kernels(main_T: int, main_pos: int) -> dict:
     from torch.nn.functional import scaled_dot_product_attention as sdpa
 
     from dnet_tpu_torch.ops.flash_attention import flash_prefill, flash_prefill_plain
-    from dnet_tpu_torch.ops.flash_decode import flash_decode_attend, flash_decode_plain
+    from dnet_tpu_torch.ops.flash_decode import decode_lengths, flash_decode_attend, flash_decode_plain
 
     g = torch.Generator(device="cuda").manual_seed(0)
     main = {}
@@ -481,9 +520,10 @@ def phase_kernels(main_T: int, main_pos: int) -> dict:
                 main["flash_prefill"] = row
         for pos in dict.fromkeys(DECODE_POSITIONS + [main_pos]):
             q = torch.randn(1, 1, H, D, generator=g, device="cuda").to(dtype)
-            out = flash_decode_attend(q, kc[0], vc[0], pos)
+            lengths = decode_lengths(1, pos, "cuda")
+            out = flash_decode_attend(q, kc[0], vc[0], lengths, pos + 1)
             torch.cuda.synchronize()
-            want = flash_decode_plain(q.float(), kc[0].float(), vc[0].float(), pos)
+            want = flash_decode_plain(q.float(), kc[0].float(), vc[0].float(), lengths)
             err = (out.float() - want).abs().max().item()
             check(out.shape == q.shape and bool(torch.isfinite(out).all()), "decode output")
             check(err <= TOL[dtype], f"decode pos={pos} {dtype}: max err {err}")
@@ -498,8 +538,10 @@ def phase_kernels(main_T: int, main_pos: int) -> dict:
                 "phase": "kernels", "kernel": "flash_decode", "dtype": str(dtype).split(".")[-1],
                 "pos": pos, "S": S, "H": H, "KVH": KVH, "D": D,
                 "max_err": err, "tol": TOL[dtype],
-                "kernel_ms": device_time_ms(lambda l: flash_decode_attend(q, kc[l], vc[l], pos), LAYERS),
-                "plain_ms": device_time_ms(lambda l: flash_decode_plain(q, kc[l], vc[l], pos), LAYERS, 5),
+                "kernel_ms": device_time_ms(lambda l: flash_decode_attend(q, kc[l], vc[l], lengths, pos + 1),
+                                            LAYERS),
+                "plain_ms": device_time_ms(lambda l: flash_decode_plain(q, kc[l], vc[l], lengths, max_live=pos + 1),
+                                           LAYERS, 5),
                 "library_ms": device_time_ms(lib, LAYERS),
                 "bound_ms": bound, "bound_by": by,
             }
@@ -507,6 +549,131 @@ def phase_kernels(main_T: int, main_pos: int) -> dict:
             if dtype == torch.bfloat16 and pos == main_pos:
                 main["flash_decode"] = row
         del kc, vc
+    torch.cuda.empty_cache()
+    return main
+
+
+def quant_decode_bound(lengths: list, qbits: int, dtype, kv_dtype=None) -> tuple:
+    """(ms, bound_by) for one decode call over a cache whose lanes hold
+    `lengths` live slots: q and the output once (in `dtype`), each live
+    slot's K and V once as the cache stores them (`kv_dtype` values, q's
+    dtype by default, or codes plus a 4-byte f32 scale per slot and KV
+    head); 4*D operations per (head, key) pair."""
+    size = torch.tensor([], dtype=dtype).element_size()
+    kv_size = torch.tensor([], dtype=kv_dtype or dtype).element_size()
+    live = sum(lengths)
+    row = {0: D * kv_size, 8: D + 4, 4: D // 2 + 4}[qbits]  # bytes per (slot, KV head)
+    nbytes = 2 * len(lengths) * H * D * size + 2 * live * KVH * row
+    return bytes_ops_bound(nbytes, 4 * H * D * live, dtype)
+
+
+def phase_quant_kernels(main_pos: int, lane_positions: list) -> dict:
+    """The decode kernel's quantized variants at the serve mix (B=1, S=4096,
+    KVH=8, D=64, G=4, bf16 q; f32 q at the main position too), on caches
+    the port's write_kv quantized from bf16 rows, against the plain version
+    on the same codes; and the plain kernel with a lengths vector at the
+    batch_serve lanes' positions (bf16, f32, and f32 q over a bf16 cache).
+    Library yardstick: scaled_dot_product_attention over an
+    already-dequantized bf16 copy of the live prefix (the dequant is not
+    timed).  Returns the main rows."""
+    from torch.nn.functional import scaled_dot_product_attention as sdpa
+
+    from dnet_tpu_torch.core.kvcache import KVConfig, init_cache, layer_slices, read_kv, write_kv
+    from dnet_tpu_torch.ops.flash_decode import decode_lengths, flash_decode_attend, flash_decode_plain
+
+    g = torch.Generator(device="cuda").manual_seed(5)
+    main = {}
+    for bits in (8, 4):
+        kv = init_cache(KVConfig(LAYERS, 1, S, KVH, D, quant_bits=bits), torch.device("cuda"))
+        layers = [layer_slices(kv, l) for l in range(LAYERS)]
+        for kvs in layers:
+            write_kv(kvs, torch.randn(1, S, KVH, D, generator=g, device="cuda").to(torch.bfloat16),
+                     torch.randn(1, S, KVH, D, generator=g, device="cuda").to(torch.bfloat16), 0)
+        cases = [(torch.bfloat16, p) for p in dict.fromkeys([0, 255, 4095, main_pos])]
+        for dtype, pos in cases + [(torch.float32, main_pos)]:
+            q = torch.randn(1, 1, H, D, generator=g, device="cuda").to(dtype)
+            lengths = decode_lengths(1, pos, "cuda")
+
+            def kern(l):
+                c = layers[l]
+                return flash_decode_attend(q, c["k"], c["v"], lengths, pos + 1, k_scale=c["k_scale"],
+                                           v_scale=c["v_scale"])
+
+            def plain(l):
+                c = layers[l]
+                return flash_decode_plain(q, c["k"], c["v"], lengths, k_scale=c["k_scale"], v_scale=c["v_scale"],
+                                          max_live=pos + 1)
+
+            out = kern(0)
+            torch.cuda.synchronize()
+            want = flash_decode_plain(q.float(), layers[0]["k"], layers[0]["v"], lengths,
+                                      k_scale=layers[0]["k_scale"], v_scale=layers[0]["v_scale"])
+            err = (out.float() - want).abs().max().item()
+            check(out.shape == q.shape and out.dtype == dtype and bool(torch.isfinite(out).all()), "q decode output")
+            check(err <= TOL[dtype], f"decode q{bits} pos={pos} {dtype}: max err {err}")
+            # the yardstick reads a dequantized bf16 copy of each layer's live prefix
+            deq = [tuple(t.to(torch.bfloat16).transpose(1, 2).contiguous() for t in read_kv(c, upto=pos + 1))
+                   for c in layers]
+            qt = q.to(torch.bfloat16).transpose(1, 2)
+
+            def lib(l):
+                return sdpa(qt, deq[l][0], deq[l][1], enable_gqa=True)
+
+            lib_err = (lib(0).transpose(1, 2).float() - want).abs().max().item()
+            check(lib_err <= TOL[torch.bfloat16], f"q{bits} library yardstick disagrees: {lib_err}")
+            bound, by = quant_decode_bound([pos + 1], bits, dtype)
+            row = {
+                "phase": "kernels", "kernel": f"flash_decode_q{bits}", "dtype": str(dtype).split(".")[-1],
+                "pos": pos, "S": S, "H": H, "KVH": KVH, "D": D, "max_err": err, "tol": TOL[dtype],
+                "kernel_ms": device_time_ms(kern, LAYERS), "plain_ms": device_time_ms(plain, LAYERS, 5),
+                "library_ms": device_time_ms(lib, LAYERS),
+                "library_call": "scaled_dot_product_attention on a dequantized bf16 copy of the live prefix "
+                                "(the dequant is not timed)",
+                "library_max_err": lib_err, "bound_ms": bound, "bound_by": by,
+            }
+            emit(row)
+            if dtype == torch.bfloat16 and pos == main_pos:
+                main[f"flash_decode_q{bits}"] = row
+            del deq
+        del kv, layers
+    # the plain variant with one lane per batch_serve request, at its
+    # position: bf16 (the batch_serve mix), f32 (where one length off by one
+    # would show) and an f32 q over a bf16 cache (DNET_KV_BITS=16 on an f32
+    # model); the library call reads the cache in q's dtype (the upcast is
+    # not timed)
+    B = len(lane_positions)
+    lengths = torch.tensor([p + 1 for p in lane_positions], dtype=torch.int32, device="cuda")
+    max_live = max(lane_positions) + 1
+    j = torch.arange(max_live, device="cuda")
+    mask = (j[None, :] < lengths.long()[:, None])[:, None, None, :]
+    for dtype, kv_dtype in ((torch.bfloat16, torch.bfloat16), (torch.float32, torch.float32),
+                            (torch.float32, torch.bfloat16)):
+        kc = torch.randn(LAYERS, B, S, KVH, D, generator=g, device="cuda").to(kv_dtype)
+        vc = torch.randn(LAYERS, B, S, KVH, D, generator=g, device="cuda").to(kv_dtype)
+        q = torch.randn(B, 1, H, D, generator=g, device="cuda").to(dtype)
+        out = flash_decode_attend(q, kc[0], vc[0], lengths, max_live)
+        torch.cuda.synchronize()
+        want = flash_decode_plain(q.float(), kc[0].float(), vc[0].float(), lengths)
+        err = (out.float() - want).abs().max().item()
+        check(out.dtype == dtype and bool(torch.isfinite(out).all()) and err <= TOL[dtype],
+              f"decode lengths vector, {dtype} q over a {kv_dtype} cache: max err {err}")
+        kt, vt = (c[:, :, :max_live].transpose(2, 3).to(dtype) for c in (kc, vc))
+        qt = q.transpose(1, 2)
+        bound, by = quant_decode_bound([p + 1 for p in lane_positions], 0, dtype, kv_dtype)
+        emit({
+            "phase": "kernels", "kernel": "flash_decode", "dtype": str(dtype).split(".")[-1],
+            "cache_dtype": str(kv_dtype).split(".")[-1], "lengths": lengths.tolist(),
+            "lanes": B, "S": S, "H": H, "KVH": KVH, "D": D, "max_err": err, "tol": TOL[dtype],
+            "kernel_ms": device_time_ms(lambda l: flash_decode_attend(q, kc[l], vc[l], lengths, max_live),
+                                        LAYERS),
+            "plain_ms": device_time_ms(lambda l: flash_decode_plain(q, kc[l], vc[l], lengths, max_live=max_live),
+                                       LAYERS, 5),
+            "library_ms": device_time_ms(lambda l: sdpa(qt, kt[l], vt[l], attn_mask=mask, enable_gqa=True),
+                                         LAYERS),
+            "library_call": "scaled_dot_product_attention with a per-lane length mask",
+            "bound_ms": bound, "bound_by": by,
+        })
+        del kc, vc, kt, vt
     torch.cuda.empty_cache()
     return main
 
@@ -548,6 +715,72 @@ def phase_parity() -> None:
     }
     check(streams["cuda"] == streams["cpu"], f"greedy streams differ: {streams}")
     emit({"phase": "parity", "logits_max_err": err, "tol": 2e-3, "greedy_tokens": len(streams["cuda"])})
+
+
+def phase_quant_parity() -> None:
+    """The quantized caches and a bf16 cache under f32 params on the GPU
+    (the q8 / q4 decode kernels, the f32 prefill kernel over the
+    dequantized or upcast prefix) against the CPU (plain versions), same
+    f32 weights: the single-sequence engine as phase_parity runs it, and
+    dense batched slots (4 ragged prompts, 8 steps, the last 4 as one
+    chunk); the bf16 cache also over paged + ragged slots."""
+    from dnet_tpu_torch.core.batch import BatchedEngine
+    from dnet_tpu_torch.core.engine import LocalEngine
+    from dnet_tpu_torch.core.types import DecodingParams
+    from dnet_tpu_torch.kernels import launch_counts, reset_launch_counts
+
+    cfg, window, edge = _small_model()
+    prompt = list(range(1, 70))
+    prompts = {f"p{n}": [(7 * i + n) % 500 + 1 for i in range(n)] for n in (5, 17, 40, 69)}
+    decode_kernels = ("flash_decode", "flash_decode_q8", "flash_decode_q4")
+    for kv_dtype, bits in ((None, 8), (None, 4), ("bfloat16", 0)):
+        form = f"q{bits}" if bits else f"{kv_dtype} cache"
+        kernel = f"flash_decode_q{bits}" if bits else "flash_decode"
+        kw = dict(max_seq=256, param_dtype="float32", kv_dtype=kv_dtype, kv_quant_bits=bits)
+        engines = {dev: LocalEngine.from_params(cfg, window, edge, device=dev, **kw) for dev in ("cuda", "cpu")}
+        reset_launch_counts()
+        logits = {dev: e.prefill("p", prompt).float().cpu() for dev, e in engines.items()}
+        err = (logits["cuda"] - logits["cpu"]).abs().max().item()
+        check(bool(torch.isfinite(logits["cuda"]).all()), f"{form} parity logits")
+        check(err <= 2e-3, f"{form} GPU vs CPU prefill logits: max err {err}")
+        streams = {
+            dev: [r.token_id for r in e.generate(prompt, DecodingParams(), max_tokens=16, nonce="g")]
+            for dev, e in engines.items()
+        }
+        check(streams["cuda"] == streams["cpu"], f"{form} greedy streams differ: {streams}")
+        torch.cuda.synchronize()
+        single = launch_counts()
+        check(single[kernel] == cfg.num_hidden_layers * 15
+              and all(single[k] == 0 for k in decode_kernels if k != kernel),
+              f"{form} parity launches {single}")
+        dec = DecodingParams(logprobs=True)
+        batched = {}
+        modes = {"dense": {}}
+        if not bits:  # the ragged paged kernel refuses quantized pools
+            modes["paged"] = dict(PAGED_ENV, DNET_KV_BLOCK_TOKENS="8")
+        for mode, env in modes.items():
+            got = {}
+            for dev in ("cuda", "cpu"):
+                with environ(env):
+                    eng = BatchedEngine.from_params(cfg, window, edge, slots=4, device=dev, **kw)
+                toks = {n: [int(eng.prefill_and_sample(n, ids, dec).token[0])] for n, ids in prompts.items()}
+                lps = {n: [] for n in prompts}
+                for step in range(8):
+                    out, errs = eng.decode_batch({n: (t[-1], dec) for n, t in toks.items()},
+                                                 budgets={n: 8 - step for n in prompts} if step >= 4 else None)
+                    check(not errs, f"{mode} {form} batched errors: {errs}")
+                    for n, r in out.items():
+                        toks[n].append(int(r.token[0]))
+                        lps[n].append(float(r.logprob[0]))
+                got[dev] = (toks, lps, eng.decode_steps)
+                eng.close()
+            check(got["cuda"][0] == got["cpu"][0], f"{mode} {form} batched greedy streams differ: {got}")
+            lp_err = max(abs(a - b) for n in prompts for a, b in zip(got["cuda"][1][n], got["cpu"][1][n]))
+            check(lp_err <= 2e-3, f"{mode} {form} batched logprobs differ by {lp_err}")
+            batched[mode] = {"slots": 4, "decode_steps": got["cuda"][2], "logprob_max_err": lp_err}
+        emit({"phase": "quant_parity", "kv_bits": bits or 16, "kv_dtype": kv_dtype or "float32",
+              "logits_max_err": err, "tol": 2e-3, "greedy_tokens": len(streams["cuda"]), "launches": single,
+              "batched": batched})
 
 
 def phase_batch_parity() -> None:
@@ -712,9 +945,7 @@ async def _drive(args: Namespace, requests: list, concurrent: bool = False) -> l
     all at once); returns the results, the kernels' launches during the
     requests, the load time and /health after them."""
     from dnet_tpu_torch.api.server import serve_async
-    from dnet_tpu_torch.ops.flash_attention import flash_prefill
-    from dnet_tpu_torch.ops.flash_decode import flash_decode_attend
-    from dnet_tpu_torch.ops.paged_attention import paged_attend
+    from dnet_tpu_torch.kernels import launch_counts, reset_launch_counts
 
     loop = asyncio.get_running_loop()
     server = asyncio.ensure_future(serve_async(args))
@@ -735,9 +966,7 @@ async def _drive(args: Namespace, requests: list, concurrent: bool = False) -> l
     load_s = time.perf_counter() - t0
     url = base + "/v1/chat/completions"
     try:
-        flash_prefill.launches = 0
-        flash_decode_attend.launches = 0
-        paged_attend.launches = 0
+        reset_launch_counts()
         if concurrent:
             results = await asyncio.gather(
                 *(loop.run_in_executor(None, _post, url, body) for body in requests))
@@ -746,8 +975,7 @@ async def _drive(args: Namespace, requests: list, concurrent: bool = False) -> l
             for body in requests:
                 results.append(await loop.run_in_executor(None, _post, url, body))
         torch.cuda.synchronize()
-        launches = {"flash_prefill": flash_prefill.launches, "flash_decode": flash_decode_attend.launches,
-                    "paged_attend": paged_attend.launches}
+        launches = launch_counts()
         health = await loop.run_in_executor(
             None, lambda: json.loads(urllib.request.urlopen(base + "/health", timeout=5).read()))
     finally:
@@ -757,18 +985,19 @@ async def _drive(args: Namespace, requests: list, concurrent: bool = False) -> l
     return results, launches, load_s, health
 
 
-def phase_step(cfg, window, edge, n_prompt: int) -> None:
+def phase_step(cfg, window, edge, n_prompt: int, kv_quant_bits: int = 0) -> None:
     """Where a full-width greedy decode step's time goes: the synchronised
     wall time of a step, the host's time to issue its launches, and the
     device's busy time per step from torch.profiler (kernel time summed),
-    with the attention kernels' share of it."""
+    with the attention kernels' share of it; over a bf16 cache, or an int8
+    / int4 one (`kv_quant_bits`)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     from dnet_tpu_torch.core.engine import LocalEngine
     from dnet_tpu_torch.core.types import DecodingParams
 
-    eng = LocalEngine.from_params(cfg, window, edge, max_seq=S, device="cuda")
+    eng = LocalEngine.from_params(cfg, window, edge, max_seq=S, device="cuda", kv_quant_bits=kv_quant_bits)
     d = DecodingParams()
     tok = int(eng.prefill_and_sample("s", list(range(1, n_prompt + 1)), d).token[0])
     for _ in range(5):
@@ -793,7 +1022,7 @@ def phase_step(cfg, window, edge, n_prompt: int) -> None:
     # a step reads every weight once: its bound at the memory rate
     weight_bytes = sum(t.numel() * t.element_size() for p in window for t in p.values())
     weight_bytes += edge["embed"]["weight"].numel() * edge["embed"]["weight"].element_size()
-    emit({"phase": "step", "steps": len(wall), "pos": eng.sessions["s"].pos,
+    emit({"phase": "step", "kv_bits": kv_quant_bits, "steps": len(wall), "pos": eng.sessions["s"].pos,
           "wall_ms": wall_ms, "host_issue_ms": statistics.median(issue),
           "device_busy_ms": device_ms, "device_idle_share": 1.0 - device_ms / wall_ms,
           "attention_kernels_ms": attn_ms, "kernel_launches": len(kernels) // steps,
@@ -813,7 +1042,9 @@ def phase_serve(prompt_text: str, n_prompt: int) -> tuple:
         cfg = ModelConfig.from_hf(LLAMA_3_2_1B_CONFIG)
         window, edge = random_llama_params(cfg, range(cfg.num_hidden_layers), torch.device("cuda"),
                                            torch.bfloat16, seed=0)
-        phase_step(cfg, window, edge, n_prompt)
+        # bf16 and int8 caches in turns: host times drift within a run
+        for bits in (0, 8, 8, 0):
+            phase_step(cfg, window, edge, n_prompt, bits)
         batch_step = phase_batch_step(cfg, window, edge, BATCH_PROMPT_TOKENS)
         save_checkpoint(tmp, LLAMA_3_2_1B_CONFIG, hf_tensors(window, edge))
         del window, edge
@@ -833,11 +1064,12 @@ def phase_serve(prompt_text: str, n_prompt: int) -> tuple:
         results, launches, load_s, _ = asyncio.run(_drive(args, bodies))
         row = serve_row(results, launches, write_s, load_s)
         batched = phase_batch_serve(tmp, port, batch_step)
+        quant = phase_quant_serve(tmp, port, bodies, row, batched)
         long_body = dict(chat, stream=True, messages=[{"role": "user", "content": _batch_prompts()[-1]}])
-        ring = phase_ring_serve(tmp, bodies, results, row, long_body)
+        ring, _ = phase_ring_serve(tmp, bodies, results, row, long_body, quant)
     finally:
         shutil.rmtree(os.path.dirname(tmp), ignore_errors=True)
-    return row, batched, ring
+    return row, batched, quant, ring
 
 
 # the serve and ring_serve requests: one greedy, one seeded sampled and three
@@ -900,7 +1132,7 @@ def _post_json(url: str, body: dict) -> dict:
         return json.loads(resp.read())
 
 
-async def _drive_ring(args: Namespace, model_dir: str, bodies: list, shard_urls: list) -> tuple:
+async def _drive_ring(args: Namespace, model_dir: str, bodies: list, shard_urls: list, kv_bits: int = 0) -> tuple:
     """The API node in this process in ring mode: prepare the manual
     topology, fan the load out to the shards, send `bodies` in order;
     returns (results, load seconds, each shard's /health after the first
@@ -923,6 +1155,7 @@ async def _drive_ring(args: Namespace, model_dir: str, bodies: list, shard_urls:
         topo = await loop.run_in_executor(None, _post_json, base + "/v1/prepare_topology_manual", {
             "model": model_dir,
             "assignments": [{"instance": f"s{i}", "layers": ls} for i, ls in enumerate(RING_LAYERS)],
+            "kv_bits": kv_bits,
         })
         check([a["next_instance"] for a in topo["topology"]["assignments"]] == ["s1", "s0"], f"ring {topo}")
         t_load = time.perf_counter()
@@ -940,20 +1173,21 @@ async def _drive_ring(args: Namespace, model_dir: str, bodies: list, shard_urls:
     return results, load_s, warm
 
 
-def _ring_pass(model_dir: str, codec: str, bodies: list, logdir: str) -> tuple:
+def _ring_pass(model_dir: str, codec: str, bodies: list, logdir: str, kv_bits: int = 0) -> tuple:
     """Start the two shard processes on the card, serve `bodies` through
-    them with the hop codec `codec`, read each shard's /health, and stop
-    the shards; returns (results, [s0 health, s1 health], load seconds,
-    the /health pair after the first request)."""
+    them with the hop codec `codec` and the topology's `kv_bits`, read each
+    shard's /health, and stop the shards; returns (results, [s0 health, s1
+    health], load seconds, the /health pair after the first request)."""
     env = dict(os.environ, DNET_WIRE_CODEC=codec, **RING_ENV)
     shards = [(f"s{i}", _free_port(), _free_port()) for i in range(len(RING_LAYERS))]
-    hostfile = os.path.join(logdir, f"hostfile-{codec}")
+    tag = f"{codec}-kv{kv_bits}"
+    hostfile = os.path.join(logdir, f"hostfile-{tag}")
     with open(hostfile, "w") as f:
         f.writelines(f"{n} 127.0.0.1 {h} {g}\n" for n, h, g in shards)
     procs, logs = [], []
     try:
         for name, http, grpc_port in shards:
-            logs.append(os.path.join(logdir, f"shard-{codec}-{name}.log"))
+            logs.append(os.path.join(logdir, f"shard-{tag}-{name}.log"))
             with open(logs[-1], "w") as log:
                 procs.append(subprocess.Popen(
                     [sys.executable, "-m", "dnet_tpu_torch.cli.shard", "--host", "127.0.0.1",
@@ -979,7 +1213,7 @@ def _ring_pass(model_dir: str, codec: str, bodies: list, logdir: str) -> tuple:
         )
         with environ({"DNET_WIRE_CODEC": codec, **RING_ENV}):  # the API resolves the hop codec
             urls = [f"http://127.0.0.1:{http}" for _, http, _ in shards]
-            results, load_s, warm = asyncio.run(_drive_ring(args, model_dir, bodies, urls))
+            results, load_s, warm = asyncio.run(_drive_ring(args, model_dir, bodies, urls, kv_bits))
         healths = [_get(u + "/health") for u in urls]
     except Exception:
         for path in logs:
@@ -1012,30 +1246,47 @@ def _steady(after: dict, before: dict, requests: list) -> dict:
             "prompt_decode_ms": w["prompt_decode_ms"] / len(requests)}
 
 
-def phase_ring_serve(model_dir: str, bodies: list, serve_results: list, served: dict, long_body: dict) -> dict:
-    """The checkpoint served as a two-shard ring, lossless then qsparse8;
-    returns the qsparse8 pass's column-kernel launches."""
+def phase_ring_serve(model_dir: str, bodies: list, serve_results: list, served: dict, long_body: dict,
+                     quant: dict) -> tuple:
+    """The checkpoint served as a two-shard ring: lossless, qsparse8, then
+    lossless with kv_bits 8 in the topology (an int8 cache on each shard);
+    returns the qsparse8 pass's column-kernel launches and the kv_bits 8
+    pass's row."""
     greedy, sampled = serve_results[0], serve_results[2]
-    out = {}
-    for codec, reqs in (("lossless", bodies), ("qsparse8", bodies + [long_body])):
-        results, (h0, h1), load_s, warm = _ring_pass(model_dir, codec, reqs, os.path.dirname(model_dir))
+    passes = (
+        ("lossless", 0, SERVE_KINDS, bodies),
+        ("qsparse8", 0, SERVE_KINDS + ("long_prompt_streamed",), bodies + [long_body]),
+        # greedy, streamed and seeded sampled: the q8 single-process serve's
+        ("lossless", 8, SERVE_KINDS[:3], bodies[:3]),
+    )
+    out, ring_q8 = {}, None
+    for codec, kv_bits, kinds, reqs in passes:
+        results, (h0, h1), load_s, warm = _ring_pass(model_dir, codec, reqs, os.path.dirname(model_dir), kv_bits)
         for i, r in enumerate(results):
             check(r["status"] == 200, f"ring {codec} request {i}: HTTP {r['status']}")
             check(bool(r["content"]) and r["tokens"] == MAX_TOKENS, f"ring {codec} request {i}: {r['tokens']} tokens")
-        for k, r in zip(SERVE_KINDS, results):
+        for k, r in zip(kinds, results):
             check(k != "streamed" or r["content"] == results[0]["content"],
                   f"ring {codec}: streamed differs from non-streamed")
-        if codec == "lossless":
+        if codec == "lossless" and kv_bits == 0:
             check(results[0]["content"] == greedy["content"], "ring greedy text differs from the serve phase's")
             check(results[2]["content"] == sampled["content"], "ring seeded sampled text differs from the serve phase's")
+        if kv_bits == 8:
+            q8 = quant[8]["results"]
+            check(results[0]["content"] == q8[0]["content"], "ring kv_bits 8 greedy text differs from quant_serve's")
+            check(results[2]["content"] == q8[2]["content"],
+                  "ring kv_bits 8 seeded sampled text differs from quant_serve's")
         k0, k1, w0, w1 = h0["kernels"], h1["kernels"], h0["wire"], h1["wire"]
         steps = sum(r["tokens"] for r in results)  # one hidden frame per generated token
         n_layers = len(RING_LAYERS[0])
         check(w0["frames_encoded"] == w1["frames_decoded"] == steps, f"ring {codec} hidden frames {w0} {w1}")
         check(w0["bytes_encoded"] == w1["bytes_decoded"], f"ring {codec} hidden bytes {w0} {w1}")
+        decode = "flash_decode_q8" if kv_bits == 8 else "flash_decode"
         for k in (k0, k1):
             check(k["flash_prefill"] == n_layers * len(results), f"ring {codec} prefill launches {k}")
-            check(k["flash_decode"] == n_layers * (steps - len(results)), f"ring {codec} decode launches {k}")
+            check(k[decode] == n_layers * (steps - len(results)), f"ring {codec} kv{kv_bits} decode launches {k}")
+            check(k["flash_decode"] + k["flash_decode_q8"] + k["flash_decode_q4"] == k[decode],
+                  f"ring {codec} kv{kv_bits}: another decode variant launched {k}")
         if codec == "qsparse8":
             check(k0["column_sq_norms"] == k0["gather_columns"] == w0["frames_encoded"],
                   f"s0 column kernel launches {k0} != encoded frames {w0['frames_encoded']}")
@@ -1048,7 +1299,7 @@ def phase_ring_serve(model_dir: str, bodies: list, serve_results: list, served: 
                                                            "dequant_scatter_columns")),
                   "a column kernel launched under the lossless codec")
         row = {
-            "phase": "ring_serve", "codec": codec, "gpu": gpu_line(),
+            "phase": "ring_serve", "codec": codec, "kv_bits": kv_bits, "gpu": gpu_line(),
             "transport": "real gRPC on 127.0.0.1: one process per shard, the API node in this process",
             "layers": [f"{ls[0]}-{ls[-1]}" for ls in RING_LAYERS], "load_s": load_s,
             "decode_hop_bytes": w0["decode_hop_bytes"], "wire": {"s0": w0, "s1": w1},
@@ -1059,36 +1310,145 @@ def phase_ring_serve(model_dir: str, bodies: list, serve_results: list, served: 
             "requests": [
                 {"kind": k, "status": r["status"], "completion_tokens": r["tokens"], "s": r["s"],
                  "content_head": r["content"][:40]}
-                for k, r in zip(SERVE_KINDS + ("long_prompt_streamed",), results)
+                for k, r in zip(kinds, results)
             ],
-            **streamed_rates(results),
             "single_process": {k: served[k] for k in ("streamed_ttft_s", "streamed_decode_tokens_per_s")},
         }
+        if "streamed" in kinds:
+            row.update(streamed_rates(results))
         if codec == "qsparse8":
             long = results[-1]
             row["long_prompt"] = {"prompt_tokens": BATCH_PROMPT_TOKENS[-1], "ttft_s": long["ttft_s"],
                                   "decode_tokens_per_s": (long["tokens"] - 1) / max(long["decode_s"], 1e-9)}
             out = {"column_sq_norms": k0["column_sq_norms"], "gather_columns": k0["gather_columns"],
                    "dequant_scatter_columns": k1["dequant_scatter_columns"]}
+        if kv_bits == 8:
+            ring_q8 = row
         emit(row)
+    return out, ring_q8
+
+
+def _batch_args(model_dir: str, port: int) -> Namespace:
+    return Namespace(
+        host="127.0.0.1", http_port=port, model=model_dir, models_dir="", device="cuda",
+        max_seq_len=S, param_dtype="bfloat16", max_concurrent=BATCH_SLOTS, request_timeout_s=600.0,
+        batch_slots=BATCH_SLOTS,
+    )
+
+
+def _batch_bodies() -> list:
+    """The batched burst: 8 streamed requests of BATCH_PROMPT_TOKENS, one
+    sampled with a seed."""
+    bodies = [
+        {"model": "llama-3.2-1b-synthetic", "max_tokens": MAX_TOKENS, "temperature": 0, "stream": True,
+         "messages": [{"role": "user", "content": c}], "logit_bias": TEXT_BIAS}
+        for c in _batch_prompts()
+    ]
+    bodies[3] = dict(bodies[3], temperature=0.8, top_p=0.95, seed=4321)
+    return bodies
+
+
+def _burst_rates(results: list) -> dict:
+    t_start = min(r["t0"] for r in results)
+    t_first = min(r["t_first"] for r in results)
+    t_end = max(r["t_end"] for r in results)
+    tokens = sum(r["tokens"] for r in results)
+    return {"burst_s": t_end - t_start, "completion_tokens": tokens,
+            "aggregate_tokens_per_s": tokens / (t_end - t_start),
+            "aggregate_decode_tokens_per_s": (tokens - len(results)) / (t_end - t_first)}
+
+
+# cache_nbytes of one full-width sequence (16 layers x 4096 slots x 8 KV
+# heads x head dim 64): int8 codes + f32 scales, packed int4 + f32 scales
+QUANT_KV_BYTES = {8: 71_303_168, 4: 37_748_736}
+
+
+def phase_quant_serve(model_dir: str, port: int, bodies: list, served: dict, batched: dict) -> dict:
+    """The checkpoint served with a quantized KV cache: DNET_KV_BITS=8 and =4
+    single-sequence with the serve phase's requests, then DNET_KV_BITS=8
+    with --batch-slots 8 over dense slots (DNET_KV_PAGED unset) with the
+    batch_serve burst.  Every decode step goes through the quantized decode
+    kernel (16 launches a step, the bf16 one never) and the allocated KV
+    bytes are cache_nbytes'.  Returns {8: row, 4: row, "dense": row}."""
+    from dnet_tpu_torch.core.kvcache import KVConfig, cache_nbytes
+
+    out = {}
+    for bits in (8, 4):
+        args = Namespace(
+            host="127.0.0.1", http_port=port, model=model_dir, models_dir="", device="cuda",
+            max_seq_len=S, param_dtype="bfloat16", max_concurrent=8, request_timeout_s=600.0,
+        )
+        with environ({"DNET_KV_BITS": str(bits)}):
+            results, launches, load_s, health = asyncio.run(_drive(args, bodies))
+        for name, r in zip(SERVE_KINDS, results):
+            check(r["status"] == 200, f"q{bits} {name} request: HTTP {r['status']}")
+            check(bool(r["content"]) and r["tokens"] == MAX_TOKENS, f"q{bits} {name} request: short completion")
+            check(name != "streamed" or r["content"] == results[0]["content"],
+                  f"q{bits} streamed content differs from the non-streamed")
+        decode_steps = sum(r["tokens"] - 1 for r in results)
+        name = f"flash_decode_q{bits}"
+        check(launches[name] == LAYERS * decode_steps,
+              f"{name} launches {launches[name]} != {LAYERS} x {decode_steps} steps")
+        check(launches["flash_decode"] + launches["flash_decode_q8"] + launches["flash_decode_q4"]
+              == launches[name], f"q{bits}: another decode variant launched {launches}")
+        check(launches["flash_prefill"] == LAYERS * len(results), f"q{bits} prefill launches {launches}")
+        engine = health["engine"]
+        want_bytes = cache_nbytes(KVConfig(LAYERS, 1, S, KVH, D, quant_bits=bits))
+        check(engine["kv_quant_bits"] == bits and engine["kv_bytes"] == want_bytes == QUANT_KV_BYTES[bits],
+              f"q{bits} KV bytes {engine} != {want_bytes}")
+        row = {
+            "phase": "quant_serve", "kv_bits": bits, "mode": "single sequence", "gpu": gpu_line(),
+            "load_s": load_s, "launches": launches, "prefills": len(results), "decode_steps": decode_steps,
+            "kv_bytes": engine["kv_bytes"], "bf16_kv_bytes": 2 * LAYERS * S * KVH * D * 2,
+            "requests": [
+                {"kind": k, "status": r["status"], "completion_tokens": r["tokens"], "s": r["s"],
+                 "content_head": r["content"][:40]}
+                for k, r in zip(SERVE_KINDS, results)
+            ],
+            **streamed_rates(results),
+            "bf16_serve": {k: served[k] for k in ("streamed_ttft_s", "streamed_decode_tokens_per_s")},
+        }
+        emit(row)
+        out[bits] = dict(row, results=results)
+    # dense batched slots with an int8 cache
+    with environ({"DNET_KV_BITS": "8"}):
+        results, launches, load_s, health = asyncio.run(
+            _drive(_batch_args(model_dir, port), _batch_bodies(), concurrent=True))
+    for i, r in enumerate(results):
+        check(r["status"] == 200, f"dense q8 batched request {i}: HTTP {r['status']}")
+        check(bool(r["content"]) and r["tokens"] == MAX_TOKENS, f"dense q8 batched request {i}: {r['tokens']} tokens")
+    engine = health["engine"]
+    steps = engine["decode_steps"]
+    chunks = sum(-(-n // PREFILL_CHUNK) for n in BATCH_PROMPT_TOKENS)
+    check(engine["kv_mode"] == "dense" and engine["active"] == 0, f"dense slots: {engine}")
+    check(steps > 0 and launches["flash_decode_q8"] == LAYERS * steps,
+          f"dense q8 launches {launches['flash_decode_q8']} != {LAYERS} x {steps} batched decode steps")
+    check(launches["flash_decode"] == launches["flash_decode_q4"] == launches["paged_attend"] == 0,
+          f"dense q8: another decode kernel launched {launches}")
+    check(launches["flash_prefill"] == LAYERS * chunks, f"dense q8 prefill launches {launches}")
+    check(engine["kv_bytes"] == BATCH_SLOTS * QUANT_KV_BYTES[8], f"dense q8 KV bytes {engine}")
+    row = {
+        "phase": "quant_serve", "kv_bits": 8, "mode": "dense batched slots", "gpu": gpu_line(),
+        "batch_slots": BATCH_SLOTS, "load_s": load_s, "launches": launches, "decode_steps": steps,
+        "prefill_chunks": chunks, "kv_bytes": engine["kv_bytes"],
+        **_burst_rates(results),
+        "requests": [
+            {"prompt_tokens": n, "sampled": i == 3, "status": r["status"], "completion_tokens": r["tokens"],
+             "ttft_s": r["ttft_s"], "gap_median_ms": r["gap_median_s"] * 1e3, "content_head": r["content"][:24]}
+            for i, (n, r) in enumerate(zip(BATCH_PROMPT_TOKENS, results))
+        ],
+        "paged_bf16_batch_serve": {k: batched[k] for k in ("aggregate_tokens_per_s", "aggregate_decode_tokens_per_s")},
+    }
+    emit(row)
+    out["dense"] = row
     return out
 
 
 def phase_batch_serve(model_dir: str, port: int, batch_step: dict) -> dict:
     """The checkpoint served with continuous batching: 8 concurrent streamed
     requests of ragged prompt lengths share the batched decode step."""
-    contents = _batch_prompts()
-    args = Namespace(
-        host="127.0.0.1", http_port=port, model=model_dir, models_dir="", device="cuda",
-        max_seq_len=S, param_dtype="bfloat16", max_concurrent=BATCH_SLOTS, request_timeout_s=600.0,
-        batch_slots=BATCH_SLOTS,
-    )
-    bodies = [
-        {"model": "llama-3.2-1b-synthetic", "max_tokens": MAX_TOKENS, "temperature": 0, "stream": True,
-         "messages": [{"role": "user", "content": c}], "logit_bias": TEXT_BIAS}
-        for c in contents
-    ]
-    bodies[3] = dict(bodies[3], temperature=0.8, top_p=0.95, seed=4321)
+    args = _batch_args(model_dir, port)
+    bodies = _batch_bodies()
     with environ(PAGED_ENV):
         results, launches, load_s, health = asyncio.run(_drive(args, bodies, concurrent=True))
     for i, r in enumerate(results):
@@ -1103,18 +1463,12 @@ def phase_batch_serve(model_dir: str, port: int, batch_step: dict) -> dict:
     check(launches["flash_prefill"] == LAYERS * chunks,
           f"prefill launches {launches['flash_prefill']} != {LAYERS} x {chunks} prompt chunks")
     check(engine["active"] == 0 and engine["kv_blocks_used"] == 0, f"slots or blocks leaked: {engine}")
-    t_start = min(r["t0"] for r in results)
-    t_first = min(r["t_first"] for r in results)
-    t_end = max(r["t_end"] for r in results)
-    tokens = sum(r["tokens"] for r in results)
     row = {
         "phase": "batch_serve", "gpu": gpu_line(), "model": "Llama-3.2-1B (synthetic bf16 weights, seed 0)",
         "batch_slots": BATCH_SLOTS, "block_tokens": BT, "pool_blocks": engine["kv_pool_blocks"],
         "load_s": load_s, "launches": launches, "decode_steps": steps, "prefill_chunks": chunks,
         "kv_blocks_peak": engine["kv_blocks_peak"],
-        "burst_s": t_end - t_start, "completion_tokens": tokens,
-        "aggregate_tokens_per_s": tokens / (t_end - t_start),
-        "aggregate_decode_tokens_per_s": (tokens - len(results)) / (t_end - t_first),
+        **_burst_rates(results),
         "requests": [
             {"prompt_tokens": n, "sampled": i == 3, "status": r["status"], "completion_tokens": r["tokens"],
              "ttft_s": r["ttft_s"], "gap_median_ms": r["gap_median_s"] * 1e3, "gap_max_ms": r["gap_max_s"] * 1e3,
@@ -1151,18 +1505,25 @@ def main() -> int:
     main_path["paged_attend"] = phase_paged_kernels([n + MAX_TOKENS // 2 for n in BATCH_PROMPT_TOKENS])
     # the ring's path: its decode hop (R=1, bf16) runs once per token
     main_path.update(phase_column_kernels())
+    # the quantized caches' path: the single-sequence serve's position
+    lane_positions = [n + MAX_TOKENS // 2 for n in BATCH_PROMPT_TOKENS]
+    main_path.update(phase_quant_kernels(n_prompt + MAX_TOKENS - 2, lane_positions))
     phase_codec_host()
     phase_parity()
     phase_batch_parity()
-    served, batched, ring = phase_serve(prompt_text, n_prompt)
+    phase_quant_parity()
+    served, batched, quant, ring = phase_serve(prompt_text, n_prompt)
 
     # each kernel with its launches on its own path: the single-sequence
     # serve for the dense prefill and decode kernels, the batched serve for
     # the paged one (whose prompts also went through the prefill kernel),
-    # the qsparse8 ring for the column kernels (counted in the shards)
+    # the qsparse8 ring for the column kernels (counted in the shards), the
+    # quantized single-sequence serves for the q8 / q4 decode variants
     sources = {
         "flash_prefill": ("dnet_tpu_torch/csrc/flash_prefill.cu", "dnet_tpu/ops/flash_attention.py:38", served),
         "flash_decode": ("dnet_tpu_torch/csrc/flash_decode.cu", "dnet_tpu/ops/flash_decode.py:50", served),
+        "flash_decode_q8": ("dnet_tpu_torch/csrc/flash_decode.cu", "dnet_tpu/ops/flash_decode.py:50", quant[8]),
+        "flash_decode_q4": ("dnet_tpu_torch/csrc/flash_decode.cu", "dnet_tpu/ops/flash_decode.py:50", quant[4]),
         "paged_attend": ("dnet_tpu_torch/csrc/paged_attention.cu", "dnet_tpu/ops/paged_attention.py:92", batched),
         "column_sq_norms": ("dnet_tpu_torch/csrc/column_ops.cu", "dnet_tpu/compression/ops.py:24",
                             {"launches": ring}),

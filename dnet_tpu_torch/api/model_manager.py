@@ -3,10 +3,12 @@
 Counterpart of dnet_tpu/api/model_manager.py (its local branches):
 `batch_slots == 1` serves a single-sequence `LocalEngine` behind a
 `LocalAdapter`; `batch_slots > 1` a continuously batched `BatchedEngine`
-(paged + ragged KV) behind a `BatchedLocalAdapter`.  The scheduler
-(DNET_SCHED=1) is not ported and is refused at load.  A model id is a filesystem path or a subdirectory
-of `models_dir` (repo id slashes replaced by `--`, HF-cache style); nothing
-is downloaded.
+(dense slots, or paged + ragged with DNET_KV_PAGED=1 DNET_KV_RAGGED=1)
+behind a `BatchedLocalAdapter`.  `kv_bits` (DNET_KV_BITS: 0, 16, 8 or 4)
+picks the KV cache's form for either engine.  The scheduler (DNET_SCHED=1)
+is not ported and is refused at load.  A model id is a filesystem path or
+a subdirectory of `models_dir` (repo id slashes replaced by `--`, HF-cache
+style); nothing is downloaded.
 """
 
 from __future__ import annotations
@@ -21,6 +23,7 @@ from dnet_tpu_torch.api.strategies import BatchedLocalAdapter, LocalAdapter
 from dnet_tpu_torch.config import api_settings, sched_enabled
 from dnet_tpu_torch.core.batch import BatchedEngine
 from dnet_tpu_torch.core.engine import LocalEngine
+from dnet_tpu_torch.core.kvcache import resolve_kv_bits
 from dnet_tpu_torch.utils.logger import get_logger
 from dnet_tpu_torch.utils.tokenizer import load_tokenizer
 
@@ -50,6 +53,7 @@ class LocalModelManager:
         param_dtype: str = "bfloat16",
         device: Optional[str] = None,
         batch_slots: int = 1,
+        kv_bits: int = 0,
     ) -> None:
         self.inference = inference_manager
         self.models_dir = models_dir
@@ -57,6 +61,7 @@ class LocalModelManager:
         self.param_dtype = param_dtype
         self.device = device
         self.batch_slots = batch_slots
+        self.kv_bits = kv_bits
         self.engine: Optional[Union[LocalEngine, BatchedEngine]] = None
 
     @property
@@ -73,8 +78,13 @@ class LocalModelManager:
                 "DNET_SCHED=1: the iteration-level scheduler is not ported; unset it to serve "
                 "the legacy adapters"
             )
+        try:
+            kv_dtype, kv_quant_bits = resolve_kv_bits(self.kv_bits)
+        except NotImplementedError as exc:
+            raise EngineCapabilityError(str(exc)) from None
         t0 = time.perf_counter()
-        kwargs = dict(max_seq=max_seq or self.max_seq, param_dtype=self.param_dtype, device=self.device)
+        kwargs = dict(max_seq=max_seq or self.max_seq, param_dtype=self.param_dtype, device=self.device,
+                      kv_dtype=kv_dtype, kv_quant_bits=kv_quant_bits)
 
         def _build():
             if self.batch_slots > 1:

@@ -14,7 +14,7 @@ import signal
 from dnet_tpu_torch.api.http import ApiHTTPServer
 from dnet_tpu_torch.api.inference import InferenceManager
 from dnet_tpu_torch.api.model_manager import LocalModelManager
-from dnet_tpu_torch.config import batch_slots_default
+from dnet_tpu_torch.config import batch_slots_default, kv_settings
 from dnet_tpu_torch.utils.logger import get_logger
 
 log = get_logger()
@@ -41,6 +41,7 @@ async def serve_async(args) -> None:
             param_dtype=args.param_dtype,
             device=args.device,
             batch_slots=batch_slots,
+            kv_bits=kv_settings().bits,
         )
     http = ApiHTTPServer(inference, model_manager, cluster_manager)
     await http.start(args.host, args.http_port)

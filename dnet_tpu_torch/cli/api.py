@@ -1,12 +1,17 @@
 """`dnet-torch-api`: the port's API node, serving one model on one GPU.
 
     python -m dnet_tpu_torch.cli.api --model <dir> [--device cpu]
+    python -m dnet_tpu_torch.cli.api --model <dir> --batch-slots 8
     DNET_KV_PAGED=1 DNET_KV_RAGGED=1 python -m dnet_tpu_torch.cli.api --model <dir> --batch-slots 8
+    DNET_KV_BITS=8 python -m dnet_tpu_torch.cli.api --model <dir>    # int8 KV cache (4: int4)
     python -m dnet_tpu_torch.cli.api --hostfile <f>    # a ring of dnet-torch-shard nodes
 
 Runs on CUDA unless --device cpu is given, and refuses to start when CUDA
 is absent.  --batch-slots N > 1 serves N concurrent requests by continuous
-batching over a paged KV pool (needs DNET_KV_PAGED=1 and DNET_KV_RAGGED=1).
+batching, over dense per-slot KV rows by default or over a paged KV pool
+with DNET_KV_PAGED=1 and DNET_KV_RAGGED=1.  DNET_KV_BITS (0, 16, 8, 4) sets
+the KV cache's form for the single-sequence and dense batched engines; a
+paged pool takes the param dtype's cache only.
 --hostfile serves through the shards it lists (`<instance> <host> <http_port>
 <grpc_port>` per line): POST /v1/prepare_topology_manual assigns their layer
 ranges, then POST /v1/load_model loads them; the tail shard calls the

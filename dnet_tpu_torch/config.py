@@ -1,8 +1,8 @@
 """Settings the port reads from the environment, under the reference's names.
 
 Counterpart of dnet_tpu/config.py, trimmed to what the port's paths read:
-`KVSettings` (DNET_KV_PAGED, DNET_KV_RAGGED, DNET_KV_BLOCK_TOKENS,
-DNET_KV_POOL_BLOCKS), `ApiSettings` (DNET_API_BATCH_SLOTS,
+`KVSettings` (DNET_KV_BITS, DNET_KV_PAGED, DNET_KV_RAGGED,
+DNET_KV_BLOCK_TOKENS, DNET_KV_POOL_BLOCKS), `ApiSettings` (DNET_API_BATCH_SLOTS,
 DNET_API_PREFIX_CACHE, DNET_API_RING_AUTO_STEPS, DNET_API_CALLBACK_ADDR),
 the ring's `TransportSettings` (DNET_TRANSPORT_*), `WireSettings`
 (DNET_WIRE_*: the hop codec), and the scheduler switch DNET_SCHED, which
@@ -52,10 +52,12 @@ def _from_env(cls: Type[T], prefix: str) -> T:
 
 @dataclass
 class KVSettings:
-    """Paged KV: block-granular allocation with per-sequence page tables over
-    a shared pool (`paged`), decoded in place by the ragged kernel
-    (`ragged`)."""
+    """The KV cache's form (`bits`: 0 = the param dtype, 16 = bf16, 8 = int8,
+    4 = packed int4, core/kvcache.py `resolve_kv_bits`), and paged KV:
+    block-granular allocation with per-sequence page tables over a shared
+    pool (`paged`), decoded in place by the ragged kernel (`ragged`)."""
 
+    bits: int = 0
     paged: bool = False
     # tokens per KV block (the allocation granule); must divide max_seq
     block_tokens: int = 16

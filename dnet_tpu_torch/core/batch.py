@@ -1,31 +1,40 @@
-"""Continuous batching: N session slots share one batched decode step over a
-paged KV pool, decoded through the ragged paged-attention kernel.
+"""Continuous batching: N session slots share one batched decode step, over
+dense per-slot KV rows or a paged KV pool.
 
-Counterpart of dnet_tpu/core/batch.py `BatchedEngine` in its paged + ragged
-mode (DNET_KV_PAGED=1 DNET_KV_RAGGED=1):
+Counterpart of dnet_tpu/core/batch.py `BatchedEngine` in its two modes
+that decode in place:
 
-- A request owns one slot from prefill to EOS; its KV lives in blocks of a
-  shared pool ([L, N_blocks, bt, KVH, Hd], kv/store.py) reached through its
-  page table (kv/paged.py).  Admission and growth are counted in free
-  blocks; a shortfall raises the typed `KVPoolExhausted`.
-- Prefill runs per request on the wrapped B=1 `LocalEngine` (the prefill
-  kernel, dense staging row), then the row commits into pool blocks.
-- A decode step is one forward over all slots with static [slots] shapes and
-  an active mask: each layer's attention reads the pool in place through the
-  page tables (ops/paged_attention.py) and the new K/V rows are appended to
-  their blocks afterwards, for active lanes only.  Inactive lanes attend
-  nothing (pos 0), are not written, and advance neither their counts nor
-  their random stream (core/sampler.py `sample_lanes`).
-- Budgets widen a dispatch into an R-step chunk (CHUNK_BUCKETS): sampled
-  tokens feed the next step on the device, and the chunk's results come back
-  in one device-to-host read; the extra tokens buffer here.
+- **Dense slots** (the reference's default, DNET_KV_PAGED unset): a
+  [L, slots, S, ...] cache, plain or quantized (DNET_KV_BITS=8|4), where a
+  request owns one row from prefill to EOS.  Each layer writes the active
+  lanes' new K/V rows (codes and scales together) at their own positions,
+  then the decode kernel (ops/flash_decode.py) attends every lane's live
+  slots through a lengths vector (0 for an idle lane) in one launch: the
+  reference's vmap of the single-example step with `kv_commit=active`.
+- **Paged + ragged** (DNET_KV_PAGED=1 DNET_KV_RAGGED=1): a request's KV lives
+  in blocks of a shared pool ([L, N_blocks, bt, KVH, Hd], kv/store.py)
+  reached through its page table (kv/paged.py).  Admission and growth are
+  counted in free blocks; a shortfall raises the typed `KVPoolExhausted`.
+  Each layer's attention reads the pool in place through the page tables
+  (ops/paged_attention.py) and the new K/V rows are appended to their
+  blocks afterwards, for active lanes only.
+
+In both, prefill runs per request on the wrapped B=1 `LocalEngine` (the
+prefill kernel, a dense staging row), then the row moves into the slot's
+row or commits into pool blocks.  A decode step is one forward over all
+slots with static [slots] shapes and an active mask: inactive lanes are
+not written, attend nothing, and advance neither their counts nor their
+random stream (core/sampler.py `sample_lanes`).  Budgets widen a dispatch
+into an R-step chunk (CHUNK_BUCKETS): sampled tokens feed the next step on
+the device, and the chunk's results come back in one device-to-host read;
+the extra tokens buffer here.
 
 Where the reference jits one vmapped program per step, this is eager
 PyTorch: a chunk is a Python loop whose launches queue on the current CUDA
 stream.  Not ported yet, and refused at load with `EngineCapabilityError`
-instead of serving something else: dense batched slots (paged off), the
-dense-gather paged decode (ragged off or a model the kernel refuses), and the
-paged prefix cache.
+instead of serving something else: the dense-gather paged decode (paged
+with ragged off, or what the ragged kernel refuses: quantized pools, a
+model without the attention hook) and the prefix cache.
 """
 
 from __future__ import annotations
@@ -38,6 +47,7 @@ import numpy as np
 import torch
 
 from dnet_tpu_torch.core.engine import LocalEngine
+from dnet_tpu_torch.core.kvcache import write_kv_rows
 from dnet_tpu_torch.core.sampler import (
     MAX_TOP_LOGPROBS,
     LaneSampling,
@@ -57,6 +67,7 @@ from dnet_tpu_torch.kv import (
     paged_enabled,
     ragged_enabled,
 )
+from dnet_tpu_torch.ops.flash_decode import flash_decode_attend
 from dnet_tpu_torch.ops.paged_attention import paged_attend, ragged_refusal
 from dnet_tpu_torch.utils.logger import get_logger
 
@@ -105,15 +116,11 @@ class BatchedEngine:
 
         if slots < 1:
             raise ValueError(f"slots must be >= 1, got {slots}")
-        if not paged_enabled():
+        if paged_enabled() and not ragged_enabled():
             raise EngineCapabilityError(
-                "continuous batching serves the paged KV pool only: set DNET_KV_PAGED=1 "
-                "(dense batched slots are not ported)"
-            )
-        if not ragged_enabled():
-            raise EngineCapabilityError(
-                "continuous batching decodes through the ragged paged-attention kernel only: "
-                "set DNET_KV_RAGGED=1 (the dense-gather paged decode is not ported)"
+                "paged continuous batching decodes through the ragged paged-attention kernel "
+                "only: set DNET_KV_RAGGED=1, or unset DNET_KV_PAGED for dense slots (the "
+                "dense-gather paged decode is not ported)"
             )
         if prefix_cache_size:
             raise EngineCapabilityError(
@@ -124,22 +131,44 @@ class BatchedEngine:
         from dnet_tpu_torch.api.inference import EngineCapabilityError
 
         m = self.eng.model
-        why = ragged_refusal(m)
-        if why is not None:
-            raise EngineCapabilityError(f"ragged paged attention refused: {why}")
         self.slots = slots
         self.max_seq = self.eng.max_seq
         self.config = self.eng.config
         self.model = m
         self.device = self.eng.device
-        try:
-            cfg = PagedKVConfig.from_settings(self.max_seq, slots=slots)
-        except ValueError as exc:
-            raise EngineCapabilityError(str(exc)) from None
-        self._kv_cfg = cfg
-        self.kv_pool = BlockPool(cfg)
-        self.kv_store = BlockStore(m, len(m.layers), cfg, self.eng.param_dtype_name)
+        self.kv = None  # dense slots: [L, slots, S, ...] (+ scales)
+        self.kv_pool = self.kv_store = self._kv_cfg = None  # paged
         self._tables: List[Optional[PageTable]] = [None] * slots
+        if paged_enabled():
+            why = ragged_refusal(m, self.eng.kv_quant_bits)
+            if why is not None:
+                raise EngineCapabilityError(
+                    f"ragged paged attention refused: {why} (the dense-gather paged decode is not ported)"
+                )
+            try:
+                cfg = PagedKVConfig.from_settings(self.max_seq, slots=slots)
+            except ValueError as exc:
+                raise EngineCapabilityError(str(exc)) from None
+            self._kv_cfg = cfg
+            self.kv_pool = BlockPool(cfg)
+            self.kv_store = BlockStore(m, len(m.layers), cfg, self.eng.kv_dtype)
+            log.info(
+                "paged KV on: %d blocks x %d tokens serving %d slots; decode attends the "
+                "pool in place (ragged paged attention)",
+                cfg.pool_blocks, cfg.block_tokens, slots,
+            )
+        else:
+            if not m.supports_paged_attend:
+                raise EngineCapabilityError(
+                    f"{m.config.model_type} attention stack has no attend hook: dense batched "
+                    "slots are not ported for it"
+                )
+            self.kv = m.init_kv(len(m.layers), slots, self.max_seq, self.eng.kv_dtype, self.eng.kv_quant_bits)
+            log.info(
+                "dense KV: %d slots x %d tokens (%s), %d bytes", slots, self.max_seq,
+                f"int{self.eng.kv_quant_bits}" if self.eng.kv_quant_bits else self.eng.kv_dtype,
+                self._kv_bytes(),
+            )
         self.counts = torch.zeros(
             (slots, self.config.vocab_size), dtype=torch.int32, device=self.device
         )
@@ -155,11 +184,10 @@ class BatchedEngine:
         # and the host time of the last dispatch before its one read
         self.decode_steps = 0
         self.last_dispatch_ms = 0.0
-        log.info(
-            "paged KV on: %d blocks x %d tokens serving %d slots; decode attends the "
-            "pool in place (ragged paged attention)",
-            cfg.pool_blocks, cfg.block_tokens, slots,
-        )
+
+    def _kv_bytes(self) -> int:
+        kv = self.kv if self.kv is not None else self.kv_store.kv
+        return sum(t.numel() * t.element_size() for t in kv.values())
 
     # ---- slot lifecycle ----------------------------------------------
     def alloc_slot(self, nonce: str) -> int:
@@ -177,9 +205,10 @@ class BatchedEngine:
         self._buffer.pop(nonce, None)
         slot = self.slot_of.pop(nonce, None)
         if slot is not None:
-            # a finished request's blocks return to the free list
-            tbl, self._tables[slot] = self._tables[slot], None
-            self.kv_pool.release_table(tbl)
+            if self.kv_pool is not None:
+                # a finished request's blocks return to the free list
+                tbl, self._tables[slot] = self._tables[slot], None
+                self.kv_pool.release_table(tbl)
             self.counts[slot].zero_()
             self.generators[slot] = None
             self.pos[slot] = 0
@@ -209,16 +238,24 @@ class BatchedEngine:
         return self.slot_of
 
     def stats(self) -> dict:
-        """Slot and pool occupancy and the decode-step count (for /health)."""
-        return {
+        """Slot (and pool) occupancy, the decode-step count and the KV cache's
+        form and bytes (for /health)."""
+        out = {
             "slots": self.slots,
             "active": len(self.slot_of),
             "decode_steps": self.decode_steps,
-            "kv_pool_blocks": self.kv_pool.total,
-            "kv_blocks_used": self.kv_pool.used,
-            "kv_blocks_free": self.kv_pool.free,
-            "kv_blocks_peak": self.kv_pool.peak_used,
+            "kv_mode": "dense" if self.kv_pool is None else "paged",
+            "kv_quant_bits": self.eng.kv_quant_bits,
+            "kv_bytes": self._kv_bytes(),
         }
+        if self.kv_pool is not None:
+            out.update(
+                kv_pool_blocks=self.kv_pool.total,
+                kv_blocks_used=self.kv_pool.used,
+                kv_blocks_free=self.kv_pool.free,
+                kv_blocks_peak=self.kv_pool.peak_used,
+            )
+        return out
 
     # ---- prefill ------------------------------------------------------
     def reserve_slot(self, nonce) -> None:
@@ -231,9 +268,10 @@ class BatchedEngine:
         with batched decode steps so a long prompt never stalls active lanes
         for its whole prefill.  The pool must be able to cover the prompt so
         far: a doomed long prompt stops before its remaining chunks."""
-        sess = self.eng.sessions.get(nonce)
-        pos = 0 if sess is None else int(sess.pos)
-        self.kv_pool.require(self._kv_cfg.blocks_for(min(pos + len(ids), self.max_seq)))
+        if self.kv_pool is not None:
+            sess = self.eng.sessions.get(nonce)
+            pos = 0 if sess is None else int(sess.pos)
+            self.kv_pool.require(self._kv_cfg.blocks_for(min(pos + len(ids), self.max_seq)))
         return self.eng.prefill(nonce, list(ids), seed)
 
     def abandon_prefill(self, nonce) -> None:
@@ -268,7 +306,14 @@ class BatchedEngine:
 
     def _move_to_slot(self, nonce: str, sess) -> None:
         slot = self.alloc_slot(nonce)
-        self._commit_paged_slot(nonce, slot, sess)
+        if self.kv_pool is not None:
+            self._commit_paged_slot(nonce, slot, sess)
+        else:
+            # the staged row's live slots, codes and scales alike; the slot's
+            # later rows keep stale values that no length ever reaches
+            n = int(sess.pos)
+            for name, big in self.kv.items():
+                big[:, slot, :n] = sess.kv[name][:, 0, :n]
         self.counts[slot] = sess.counts[0]
         self.generators[slot] = sess.generator
         self.pos[slot] = sess.pos
@@ -283,8 +328,9 @@ class BatchedEngine:
         self.alloc_slot(nonce)  # fail on a full slot pool BEFORE burning prefill
         full = list(prompt_ids)
         try:
-            # admission: the pool must cover the prompt before prefill burns
-            self.kv_pool.require(self._kv_cfg.blocks_for(min(len(full), self.max_seq)))
+            if self.kv_pool is not None:
+                # admission: the pool must cover the prompt before prefill burns
+                self.kv_pool.require(self._kv_cfg.blocks_for(min(len(full), self.max_seq)))
             logits = self.eng.prefill(nonce, full, decoding.seed)
             res = self._sample_session(self.eng.sessions[nonce], logits, decoding)
             self._move_to_slot(nonce, self.eng.sessions[nonce])
@@ -350,14 +396,16 @@ class BatchedEngine:
             cap = min((budgets.get(n) or 1) for n in order)
             cap = min(cap, *(int(self.max_seq - self.pos[s]) for s in order.values()))
             R = next((r for r in self.CHUNK_BUCKETS if r <= cap), 1)
-        # block-table extension is admission: a lane the pool cannot cover
-        # fails alone with the typed backpressure message
-        R = self._paged_extend(order, errors, active, R)
-        if not order:
-            return out, errors
+        if self.kv_pool is not None:
+            # block-table extension is admission: a lane the pool cannot
+            # cover fails alone with the typed backpressure message
+            R = self._paged_extend(order, errors, active, R)
+            if not order:
+                return out, errors
         t0 = time.perf_counter()
         lanes = sorted(order.values())
-        packed, with_lp = self._dispatch_ragged(order, lanes, active, R, token, decs)
+        dispatch = self._dispatch_dense if self.kv_pool is None else self._dispatch_ragged
+        packed, with_lp = dispatch(order, lanes, active, R, token, decs)
         self.last_dispatch_ms = (time.perf_counter() - t0) * 1000.0
         # ONE device-to-host read per dispatch, then host-side slicing
         arr = packed.cpu().numpy()  # [R, lanes, 1, W]
@@ -458,6 +506,21 @@ class BatchedEngine:
         x = m.normalize(ep, x[:, -1:])
         return m.lm_project(ep, x)[:, 0], rows
 
+    def _lane_inputs(self, lanes: List[int], active: np.ndarray, token: np.ndarray,
+                     decs: Dict[int, DecodingParams]):
+        """A dispatch's device inputs: per-slot positions (0 for inactive
+        lanes) on the host and the device, the active mask as a 0/1 step,
+        the tokens, the active lane indices, and each lane's sampling."""
+        pos = np.zeros(self.slots, dtype=np.int32)
+        pos[lanes] = self.pos[lanes]
+        sampling = [
+            LaneSampling(s, SampleParams.from_decoding(decs[s], self.device),
+                         SamplePlan.from_decoding(decs[s]), self.generators[s])
+            for s in lanes
+        ]
+        return (pos, self._to_device(pos), self._to_device(active.astype(np.int32)),
+                self._to_device(token), self._to_device(np.asarray(lanes, dtype=np.int64)), sampling)
+
     def _dispatch_ragged(self, order: Dict[str, int], lanes: List[int], active: np.ndarray, R: int,
                          token: np.ndarray, decs: Dict[int, DecodingParams]):
         """Queue R decode steps for the active `lanes` on the device: each
@@ -467,17 +530,7 @@ class BatchedEngine:
         [R, lanes, 1, W] (still on the device) and whether W holds logprobs."""
         bt = self._kv_cfg.block_tokens
         tables = self._to_device(self._table_ids(order if R == 1 else None))
-        pos = np.zeros(self.slots, dtype=np.int32)  # inactive lanes attend nothing
-        pos[lanes] = self.pos[lanes]
-        pos_t = self._to_device(pos)
-        step_t = self._to_device(active.astype(np.int32))
-        tok = self._to_device(token)
-        lane_t = self._to_device(np.asarray(lanes, dtype=np.int64))
-        sampling = [
-            LaneSampling(s, SampleParams.from_decoding(decs[s], self.device),
-                         SamplePlan.from_decoding(decs[s]), self.generators[s])
-            for s in lanes
-        ]
+        pos, pos_t, step_t, tok, lane_t, sampling = self._lane_inputs(lanes, active, token, decs)
         with_lp = any(ls.plan.logprobs for ls in sampling)
         max_live = int(pos.max()) + R - 1
         steps = []
@@ -494,6 +547,51 @@ class BatchedEngine:
                 tok = tok.clone()
                 tok[lane_t, 0] = torch.cat([x.token for x in res]).long()
                 pos_t = pos_t + step_t
+        return torch.stack(steps), with_lp
+
+    def _dense_step(self, token, pos, lanes, lane_pos, lengths, max_live: int) -> torch.Tensor:
+        """One batched forward over the dense slots: each layer writes the
+        active lanes' new K/V rows at their positions (codes and scales
+        together on a quantized cache), then the decode kernel attends each
+        lane's [0, lengths[b]) slots.  Returns logits [slots, V]."""
+        m = self.model
+        ep = self.eng.edge_params
+
+        def attend_fn(q, k, v, kvs):
+            write_kv_rows(kvs, k[lanes, 0], v[lanes, 0], lanes, lane_pos)
+            attn = flash_decode_attend(q.contiguous(), kvs["k"], kvs["v"], lengths, max_live,
+                                       k_scale=kvs.get("k_scale"), v_scale=kvs.get("v_scale"))
+            return attn, {}  # written in place: nothing for apply_window to stack
+
+        x = m.embed(ep, token)  # [slots, 1, D]
+        x, _ = m.apply_window(self.eng.window_params, x, self.kv, pos[:, None], attend_fn=attend_fn)
+        x = m.normalize(ep, x[:, -1:])
+        return m.lm_project(ep, x)[:, 0]
+
+    def _dispatch_dense(self, order: Dict[str, int], lanes: List[int], active: np.ndarray, R: int,
+                        token: np.ndarray, decs: Dict[int, DecodingParams]):
+        """Queue R decode steps for the active `lanes` over the dense slots:
+        each step writes and attends the lanes' rows, samples every active
+        lane and feeds the sampled tokens to the next step.  Returns the
+        steps' results packed [R, lanes, 1, W] (still on the device) and
+        whether W holds logprobs."""
+        pos, pos_t, step_t, tok, lane_t, sampling = self._lane_inputs(lanes, active, token, decs)
+        with_lp = any(ls.plan.logprobs for ls in sampling)
+        # the chunk's longest lane ends at position max + R - 1
+        max_live = int(pos.max()) + R
+        lane_pos = pos_t[lane_t].long()
+        steps = []
+        for r in range(R):
+            lengths = (pos_t + 1) * step_t  # 0 for an idle lane
+            logits = self._dense_step(tok, pos_t, lane_t, lane_pos, lengths, max_live)
+            res = sample_lanes(logits, sampling, self.counts)
+            steps.append(pack_chunk_results(res, with_lp))
+            self.decode_steps += 1
+            if r + 1 < R:
+                tok = tok.clone()
+                tok[lane_t, 0] = torch.cat([x.token for x in res]).long()
+                pos_t = pos_t + step_t
+                lane_pos = lane_pos + 1
         return torch.stack(steps), with_lp
 
     def generate(

@@ -57,7 +57,7 @@ class Session:
     """Per-nonce decode state."""
 
     nonce: str = ""
-    kv: dict = None  # stacked [L, B, S, KVH, Hd] cache
+    kv: dict = None  # stacked [L, B, S, KVH, Hd] cache (+ scales when quantized)
     pos: int = 0
     generator: torch.Generator = None  # Gumbel noise for sampled requests
     counts: torch.Tensor = None  # [B, V] int32 generated-token counts (repetition penalty)
@@ -84,16 +84,21 @@ class LocalEngine:
         device: Optional[Union[str, torch.device]] = None,
         layers: Optional[Sequence[int]] = None,
         shard_mode: bool = False,
+        kv_dtype: Optional[str] = None,
+        kv_quant_bits: int = 0,
     ):
         """layers=None is the whole model; a sub-range with shard_mode=True
         makes this engine a ring shard's compute core: it loads only the
         edge weights the range needs (the embedding on the head, the final
         norm and LM head on the tail, the embedding on the tail too when
-        it is tied) and serves hidden states in and out."""
+        it is tied) and serves hidden states in and out.  The KV cache is
+        `kv_dtype` (default: the param dtype), or int8 / packed int4 with
+        f32 scales for `kv_quant_bits` 8 / 4 (core/kvcache.py
+        `resolve_kv_bits` maps DNET_KV_BITS to these two)."""
         self.device = resolve_device(device)
         self.ckpt = Checkpoint(model_dir)
         self.config = ModelConfig.from_hf(self.ckpt.config)
-        self._setup(max_seq, param_dtype, layers)
+        self._setup(max_seq, param_dtype, layers, kv_dtype, kv_quant_bits)
         t0 = time.perf_counter()
         m = self.model
         self.window_params = [
@@ -124,6 +129,8 @@ class LocalEngine:
         max_seq: int = 2048,
         param_dtype: str = "bfloat16",
         device: Optional[Union[str, torch.device]] = None,
+        kv_dtype: Optional[str] = None,
+        kv_quant_bits: int = 0,
     ) -> "LocalEngine":
         """An engine around already-materialised parameters (no checkpoint
         on disk): the serving loop is identical, only weight provenance
@@ -132,19 +139,26 @@ class LocalEngine:
         self.device = resolve_device(device)
         self.ckpt = None
         self.config = config
-        self._setup(max_seq, param_dtype)
+        self._setup(max_seq, param_dtype, None, kv_dtype, kv_quant_bits)
         self.window_params = [self._cast(p) for p in window_params]
         self.edge_params = {k: self._cast(v) for k, v in edge_params.items()}
         self._build_kernels()
         return self
 
-    def _setup(self, max_seq: int, param_dtype: str, layers: Optional[Sequence[int]] = None) -> None:
+    def _setup(
+        self, max_seq: int, param_dtype: str, layers: Optional[Sequence[int]] = None,
+        kv_dtype: Optional[str] = None, kv_quant_bits: int = 0,
+    ) -> None:
+        if kv_quant_bits not in (0, 4, 8):
+            raise ValueError(f"kv_quant_bits={kv_quant_bits} (supported: 0/4/8)")
         self.model = get_ring_model_cls(self.config.model_type)(
             self.config, range(self.config.num_hidden_layers) if layers is None else layers, self.device
         )
         self.max_seq = max_seq
-        self.param_dtype_name = param_dtype  # the KV cache's dtype too
         self.param_dtype = getattr(torch, param_dtype)
+        self.kv_dtype = kv_dtype or param_dtype
+        self.kv_quant_bits = kv_quant_bits
+        self.kv_bytes = 0  # bytes of the last cache a session allocated
         self.sessions: Dict[str, Session] = {}
 
     def _cast(self, params: dict) -> dict:
@@ -211,14 +225,23 @@ class LocalEngine:
         if self.device.type == "cuda":
             torch.cuda.empty_cache()
 
+    def stats(self) -> dict:
+        """The KV cache's form and the bytes one session's cache holds (for
+        /health)."""
+        return {"kv_dtype": self.kv_dtype, "kv_quant_bits": self.kv_quant_bits, "kv_bytes": self.kv_bytes}
+
     # ---- sessions -----------------------------------------------------
     def new_session(self, nonce: str, seed: Optional[int] = None) -> Session:
         if seed is None:
             # fresh entropy per unseeded request: two users must not share a stream
             seed = int.from_bytes(os.urandom(4), "little")
+        kv = self.model.init_kv(
+            len(self.model.layers), self.batch, self.max_seq, self.kv_dtype, self.kv_quant_bits
+        )
+        self.kv_bytes = sum(t.numel() * t.element_size() for t in kv.values())
         sess = Session(
             nonce=nonce,
-            kv=self.model.init_kv(len(self.model.layers), self.batch, self.max_seq, self.param_dtype_name),
+            kv=kv,
             generator=torch.Generator(device=self.device).manual_seed(int(seed)),
             counts=torch.zeros(
                 (self.batch, self.config.vocab_size), dtype=torch.int32, device=self.device

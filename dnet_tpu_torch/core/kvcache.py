@@ -1,20 +1,30 @@
-"""KV cache: preallocated and layer-stacked.
+"""KV cache: preallocated and layer-stacked, plain or quantized.
 
-Counterpart of dnet_tpu/core/kvcache.py (unquantized, full-length caches).
-Layout: k/v are [L, B, S_max, KVH, Hd]; a layer's slices `cache[name][l]`
-are contiguous [B, S_max, KVH, Hd] views, which the attention kernels read
-in place.
+Counterpart of dnet_tpu/core/kvcache.py (full-length caches; no rotating
+sliding-window or sequence-parallel writes).  Layout: k/v are
+[L, B, S_max, KVH, Hd]; a layer's slices `cache[name][l]` are contiguous
+[B, S_max, KVH, Hd] views, which the attention kernels read in place.
+
+Quantized caches (`quant_bits` 8 or 4, the reference's DNET_KV_BITS) hold
+codes plus one f32 scale per (slot, KV head), `k_scale`/`v_scale`
+[L, B, S_max, KVH, 1]: int8 codes, or offset-binary int4 nibbles packed in
+pairs along the head dim into uint8 [.., Hd/2] (low nibble = even index).
+Codes and scales equal the reference's bit for bit: f32 upcast, division by
+the scale, round half to even, clip.  The decode kernel reads the codes and
+dequantizes in on-chip memory; `read_kv` dequantizes a prefix to f32 for
+prefill.
 
 Unlike JAX's `dynamic_update_slice`, which clamps an out-of-range start and
 would silently shift the write, `write_kv` raises when a chunk does not
 fit; the engine keeps every chunk inside the cache by padding to at most
-`max_seq - pos` tokens.
+`max_seq - pos` tokens.  `write_kv_rows` writes one row per active lane of
+a batch (the reference's `kv_commit` gate), leaving other lanes untouched.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
@@ -27,10 +37,40 @@ class KVConfig:
     n_kv_heads: int
     head_dim: int  # key head dim
     dtype: str = "bfloat16"
+    # 0 = dtype as-is; 8 = int8, 4 = packed int4 (two values a byte along the
+    # head dim), both with per-(slot, head) f32 scales
+    quant_bits: int = 0
+
+
+def resolve_kv_bits(kv_bits: int) -> Tuple[Optional[str], int]:
+    """Map the API-level kv_bits knob (DNET_KV_BITS, a topology's kv_bits) to
+    engine arguments: (KV dtype override, quant bits)."""
+    if kv_bits == 16:
+        return "bfloat16", 0
+    if kv_bits in (4, 8):
+        return None, kv_bits
+    if kv_bits != 0:
+        # a mistyped value must not quietly serve a cache nobody budgeted for
+        raise NotImplementedError(f"kv_bits={kv_bits} (supported: 0/4/8/16)")
+    return None, 0
 
 
 def init_cache(cfg: KVConfig, device: torch.device) -> dict:
     shape = (cfg.n_layers, cfg.batch, cfg.max_seq, cfg.n_kv_heads, cfg.head_dim)
+    scale_shape = (*shape[:-1], 1)
+    if cfg.quant_bits in (4, 8):
+        if cfg.quant_bits == 4 and cfg.head_dim % 2:
+            raise ValueError("int4 KV needs an even head dim")
+        code_shape = shape if cfg.quant_bits == 8 else (*shape[:-1], cfg.head_dim // 2)
+        dt = torch.int8 if cfg.quant_bits == 8 else torch.uint8
+        return {
+            "k": torch.zeros(code_shape, dtype=dt, device=device),
+            "v": torch.zeros(code_shape, dtype=dt, device=device),
+            "k_scale": torch.zeros(scale_shape, dtype=torch.float32, device=device),
+            "v_scale": torch.zeros(scale_shape, dtype=torch.float32, device=device),
+        }
+    if cfg.quant_bits not in (0, 16):
+        raise NotImplementedError(f"kv quant_bits={cfg.quant_bits} (only 0/4/8/16)")
     dt = getattr(torch, cfg.dtype)
     return {
         "k": torch.zeros(shape, dtype=dt, device=device),
@@ -38,23 +78,95 @@ def init_cache(cfg: KVConfig, device: torch.device) -> dict:
     }
 
 
+def cache_nbytes(cfg: KVConfig) -> int:
+    base = cfg.n_layers * cfg.batch * cfg.max_seq * cfg.n_kv_heads
+    if cfg.quant_bits == 8:
+        return base * 2 * cfg.head_dim + base * 2 * 4  # int8 + f32 scales
+    if cfg.quant_bits == 4:
+        return base * cfg.head_dim + base * 2 * 4
+    return base * 2 * cfg.head_dim * getattr(torch, cfg.dtype).itemsize
+
+
 def layer_slices(cache: dict, layer: int) -> dict:
     """One layer's cache views (writes through them land in `cache`)."""
     return {name: arr[layer] for name, arr in cache.items()}
 
 
+# ---- quantized read/write ---------------------------------------------------
+
+
+def _quantize_q8(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Per-(..., head) symmetric int8: one f32 scale over the last axis."""
+    xf = x.float()
+    scale = torch.clamp(xf.abs().amax(dim=-1, keepdim=True) / 127.0, min=1e-8)
+    return torch.clamp(torch.round(xf / scale), -127, 127).to(torch.int8), scale
+
+
+def _quantize_q4(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Per-(..., head) symmetric int4, offset-binary nibbles packed in pairs
+    along the last (head) axis: [..., Hd] -> uint8 [..., Hd/2]."""
+    xf = x.float()
+    scale = torch.clamp(xf.abs().amax(dim=-1, keepdim=True) / 7.0, min=1e-8)
+    q = (torch.clamp(torch.round(xf / scale), -7, 7) + 8).to(torch.uint8)
+    return q[..., 0::2] | (q[..., 1::2] << 4), scale
+
+
+def _unpack_q4(p: torch.Tensor) -> torch.Tensor:
+    """uint8 [..., Hd/2] -> f32 [..., Hd] (inverse of _quantize_q4's pack)."""
+    lo = (p & 0xF).float() - 8.0
+    hi = ((p >> 4) & 0xF).float() - 8.0
+    return torch.stack([lo, hi], dim=-1).reshape(*p.shape[:-1], p.shape[-1] * 2)
+
+
+def _encoded(kvs: dict, k_new: torch.Tensor, v_new: torch.Tensor) -> dict:
+    """The cache entries for new k/v: quantized codes and scales when the
+    cache carries scales, else the values in the cache's dtype."""
+    if "k_scale" not in kvs:
+        return {"k": k_new.to(kvs["k"].dtype), "v": v_new.to(kvs["v"].dtype)}
+    quantize = _quantize_q4 if kvs["k"].dtype == torch.uint8 else _quantize_q8
+    kq, ks = quantize(k_new)
+    vq, vs = quantize(v_new)
+    return {"k": kq, "k_scale": ks, "v": vq, "v_scale": vs}
+
+
 def write_kv(kvs: dict, k_new: torch.Tensor, v_new: torch.Tensor, pos: int) -> dict:
     """Write new k/v ([B, T, KVH, Hd]) at slot `pos` of one layer's cache
-    slices, IN PLACE (the reference returns an updated copy); returns kvs."""
+    slices, IN PLACE (the reference returns an updated copy), quantizing
+    when the cache carries scales; returns kvs."""
     T = k_new.shape[1]
     S = kvs["k"].shape[1]
     if pos < 0 or pos + T > S:
         raise ValueError(f"KV write [{pos}, {pos + T}) outside a cache of {S} slots")
-    for name, val in (("k", k_new), ("v", v_new)):
-        kvs[name][:, pos : pos + T] = val.to(kvs[name].dtype)
+    for name, val in _encoded(kvs, k_new, v_new).items():
+        kvs[name][:, pos : pos + T] = val
     return kvs
 
 
-def read_kv(kvs: dict) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Full-cache k/v for attention (the cache's own dtype)."""
-    return kvs["k"], kvs["v"]
+def write_kv_rows(
+    kvs: dict, k_rows: torch.Tensor, v_rows: torch.Tensor, lanes: torch.Tensor, positions: torch.Tensor
+) -> dict:
+    """Write one new row per listed lane ([n, KVH, Hd]) at slot
+    positions[i] of lane lanes[i], IN PLACE, codes and scales together; the
+    other lanes' rows are untouched.  lanes/positions are int64 [n] on the
+    cache's device, each position inside the cache (the caller checks: an
+    index out of range is a device-side fault here, never a clamped
+    write)."""
+    for name, val in _encoded(kvs, k_rows, v_rows).items():
+        kvs[name][lanes, positions] = val
+    return kvs
+
+
+def read_kv(kvs: dict, upto: Optional[int] = None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """k/v for attention.  A quantized cache dequantizes to f32 (attention
+    runs its softmax and products in f32 anyway), slots [0, upto) only when
+    `upto` is given: later slots are masked by every reader.  A plain cache
+    returns its own tensors, whole."""
+    if "k_scale" not in kvs:
+        return kvs["k"], kvs["v"]
+    n = kvs["k"].shape[1] if upto is None else upto
+    out = []
+    for name in ("k", "v"):
+        codes, scale = kvs[name][:, :n], kvs[f"{name}_scale"][:, :n]
+        codes = _unpack_q4(codes) if codes.dtype == torch.uint8 else codes.float()
+        out.append(codes * scale)
+    return out[0], out[1]

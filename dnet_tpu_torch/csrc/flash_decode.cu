@@ -2,24 +2,35 @@
 // for Hopper: split-K flash-decoding plus a small combine pass.
 //
 // Replaces the TPU kernel `_decode_kernel` (dnet_tpu/ops/flash_decode.py:50,
-// launched by `_decode_pallas`) in its plain variant: qbits = 0, rotating =
-// False, with_lse = False, offset = 0.  q/o [B, 1, H, D], k/v [B, S, KVH, D];
-// the query attends cache slots [0, pos]; sinks [H] fold into the denominator.
+// launched by `_decode_pallas`) in its plain variant and its `qbits` 8/4
+// variant (rotating = False, with_lse = False, offset = 0).  q/o
+// [B, 1, H, D]; k/v [B, S, KVH, D] in q's dtype (or bf16 under an f32 q: the
+// DNET_KV_BITS=16 cache of an f32 model), or quantized: int8 codes
+// [B, S, KVH, D], or int4 nibbles packed in pairs along the head dim (low
+// nibble = even index, offset binary) as uint8 [B, S, KVH, D/2], each with
+// k_scale/v_scale [B, S, KVH, 1] f32.  Lane b's query attends cache slots
+// [0, lengths[b]) (lengths = position + 1; 0 = an idle lane, whose output is
+// zeros); sinks [H] fold into the denominator.
 //
 // What bounds it on an H100: one query row per head does 2 * G multiply-adds
 // per K/V element it reads (G = H / KVH query heads per KV head), far below the
 // card's balance point, so the kernel is bound by the bytes of live cache it
-// reads: 2 * (pos + 1) * KVH * D * sizeof(T) per call.  What the design does
-// about it:
-//   - it reads only the live slots [0, pos]: the loop bound is the live
+// reads: 2 * lengths[b] * KVH * (D * sizeof(KV), or D or D/2 code bytes plus a
+// 4-byte scale) per lane.  What the design does about it:
+//   - it reads only the live slots: each lane's loop is bounded by its own
 //     length.  This replaces the Pallas trick of clamping dead tiles' block
 //     indices so their copies are elided (flash_decode.py:14-17,181-191),
 //     which has no CUDA counterpart; a literal port would read all S slots.
+//   - a quantized cache is read as codes (16-byte vectors: 16 int8 codes or
+//     32 packed nibbles) plus one scale per row, and dequantized on the way
+//     into shared memory, so device memory carries the quantized bytes
+//     only; the on-chip fold is the plain variant's.
 //   - all G query heads of a KV group share each K/V tile read.
 //   - the live range is split across blocks (grid = splits x KVH x B), so a
 //     batch of one with KVH = 8 still puts enough blocks on the 132 SMs; each
 //     block writes unnormalised (acc, m, l) partials and the combine kernel
-//     merges them with one log-sum-exp per head.
+//     merges them with one log-sum-exp per head.  The split plan covers the
+//     longest lane; a split past a lane's length writes empty partials.
 
 #include "common.cuh"
 
@@ -47,11 +58,63 @@ struct Layout {
   static constexpr int OUT_PER_THREAD = GMAX * D / NTHREADS;
 };
 
-template <typename T, int D>
+// Stage rows [0, rows) of a quantized [BK, D] tile (row stride `stride`
+// bytes; one f32 scale per row at scale[r * scale_stride]) into shared
+// memory as float code * scale; rows >= rows are zero-filled.  QB 8: int8
+// codes, 16 per 16-byte vector; QB 4: offset-binary nibbles, low nibble first,
+// 32 per vector.  Layouts as dnet::stage_tile's.
+template <int QB, int D, bool TRANSPOSE>
+__device__ __forceinline__ void stage_tile_q(float* dst, int ld, const uint8_t* src, long stride,
+                                             const float* scale, long scale_stride, int rows) {
+  constexpr int VEC = QB == 8 ? 16 : 32;  // values per 16-byte vector
+  constexpr int CHUNKS = D / VEC;
+  for (int idx = threadIdx.x; idx < BK * CHUNKS; idx += blockDim.x) {
+    int r, c;
+    if (TRANSPOSE) {
+      r = idx % BK;
+      c = idx / BK;
+    } else {
+      c = idx % CHUNKS;
+      r = idx / CHUNKS;
+    }
+    float v[VEC];
+    if (r < rows) {
+      const uint4 raw = *reinterpret_cast<const uint4*>(src + (long)r * stride + c * 16);
+      const uint8_t* b = reinterpret_cast<const uint8_t*>(&raw);
+      const float s = scale[(long)r * scale_stride];
+#pragma unroll
+      for (int e = 0; e < 16; ++e) {
+        if constexpr (QB == 8) {
+          v[e] = (float)(int8_t)b[e] * s;
+        } else {
+          v[2 * e] = (float)((int)(b[e] & 0xF) - 8) * s;
+          v[2 * e + 1] = (float)((int)(b[e] >> 4) - 8) * s;
+        }
+      }
+    } else {
+#pragma unroll
+      for (int e = 0; e < VEC; ++e) v[e] = 0.f;
+    }
+#pragma unroll
+    for (int e = 0; e < VEC; ++e) {
+      if (TRANSPOSE) {
+        dst[(c * VEC + e) * ld + r] = v[e];
+      } else {
+        dst[r * ld + c * VEC + e] = v[e];
+      }
+    }
+  }
+}
+
+// KV: the cache's element type (T, bf16 under an f32 T, or uint8_t holding
+// int8 / packed int4 codes); QB: 0, 8 or 4.
+template <typename T, typename KV, int QB, int D>
 __global__ void __launch_bounds__(NTHREADS)
-flash_decode_split_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-                          float* __restrict__ part_o, float* __restrict__ part_ml, int H, int KVH,
-                          int S, int live, int tiles_per_split, int n_split, float scale) {
+flash_decode_split_kernel(const T* __restrict__ q, const KV* __restrict__ k, const KV* __restrict__ v,
+                          const float* __restrict__ k_scale, const float* __restrict__ v_scale,
+                          const int* __restrict__ lengths, float* __restrict__ part_o,
+                          float* __restrict__ part_ml, int H, int KVH, int S, int tiles_per_split,
+                          int n_split, float scale) {
   using L = Layout<D>;
   constexpr int NO = L::OUT_PER_THREAD;
   extern __shared__ __align__(16) float smem[];
@@ -91,9 +154,12 @@ flash_decode_split_kernel(const T* __restrict__ q, const T* __restrict__ k, cons
 #pragma unroll
   for (int i = 0; i < NO; ++i) acc[i] = 0.f;
 
-  const long kv_stride = (long)KVH * D;
-  const T* kb = k + ((long)b * S * KVH + kvh) * D;
-  const T* vb = v + ((long)b * S * KVH + kvh) * D;
+  constexpr int DS = QB == 4 ? D / 2 : D;  // stored elements per row
+  const long kv_stride = (long)KVH * DS;
+  const KV* kb = k + ((long)b * S * KVH + kvh) * DS;
+  const KV* vb = v + ((long)b * S * KVH + kvh) * DS;
+  const long sc_base = (long)b * S * KVH + kvh;  // scales: one per (slot, KV head)
+  const int live = min(lengths[b], S);
   const int n_tiles = (live + BK - 1) / BK;
   const int t_begin = split * tiles_per_split;
   const int t_end = min(t_begin + tiles_per_split, n_tiles);
@@ -102,8 +168,15 @@ flash_decode_split_kernel(const T* __restrict__ q, const T* __restrict__ k, cons
     const int k0 = tile * BK;
     __syncthreads();  // Qs/stats initialised; previous tile's Ks/Vs/Ss consumed
     const int rows = min(BK, S - k0);
-    dnet::stage_tile<T, D, BK, true>(Ks, L::LDK, kb + (long)k0 * kv_stride, kv_stride, rows, 1.f);
-    dnet::stage_tile<T, D, BK, false>(Vs, L::LDV, vb + (long)k0 * kv_stride, kv_stride, rows, 1.f);
+    if constexpr (QB == 0) {
+      dnet::stage_tile<KV, D, BK, true>(Ks, L::LDK, kb + (long)k0 * kv_stride, kv_stride, rows, 1.f);
+      dnet::stage_tile<KV, D, BK, false>(Vs, L::LDV, vb + (long)k0 * kv_stride, kv_stride, rows, 1.f);
+    } else {
+      stage_tile_q<QB, D, true>(Ks, L::LDK, kb + (long)k0 * kv_stride, kv_stride,
+                                k_scale + sc_base + (long)k0 * KVH, KVH, rows);
+      stage_tile_q<QB, D, false>(Vs, L::LDV, vb + (long)k0 * kv_stride, kv_stride,
+                                 v_scale + sc_base + (long)k0 * KVH, KVH, rows);
+    }
     __syncthreads();
 
     // scores: thread -> key j, heads g = tid/64, tid/64 + 2, ...
@@ -174,7 +247,9 @@ flash_decode_split_kernel(const T* __restrict__ q, const T* __restrict__ k, cons
 }
 
 // One block per (head, batch), one thread per output column: merge the
-// splits' partials with one log-sum-exp and fold the sink exactly once.
+// splits' partials with one log-sum-exp and fold the sink exactly once.  An
+// idle lane's partials are all empty (m = NEG_INF, l = 0, acc = 0): its
+// output is 0, as the reference's acc * corr / max(l, 1e-30) gives.
 template <typename T>
 __global__ void flash_decode_combine_kernel(const float* __restrict__ part_o,
                                             const float* __restrict__ part_ml,
@@ -203,19 +278,19 @@ __global__ void flash_decode_combine_kernel(const float* __restrict__ part_o,
   o[((long)b * H + h) * D + d] = dnet::from_float<T>(acc * corr / l_fin);
 }
 
-template <typename T, int D>
-int launch(const void* q, const void* k, const void* v, void* o, const float* sinks,
-           float* part_o, float* part_ml, int B, int H, int KVH, int S, int live,
-           int tiles_per_split, int n_split, float scale, cudaStream_t stream) {
+template <typename T, typename KV, int QB, int D>
+int launch(const void* q, const void* k, const void* v, const float* k_scale, const float* v_scale,
+           void* o, const float* sinks, float* part_o, float* part_ml, const int* lengths, int B,
+           int H, int KVH, int S, int tiles_per_split, int n_split, float scale, cudaStream_t stream) {
   const size_t smem = Layout<D>::BYTES;
   // above 48 KB of dynamic shared memory a kernel must opt in (per device,
   // so on every launch: the call is cheap and does not synchronise)
-  cudaError_t err = cudaFuncSetAttribute(flash_decode_split_kernel<T, D>,
+  cudaError_t err = cudaFuncSetAttribute(flash_decode_split_kernel<T, KV, QB, D>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  flash_decode_split_kernel<T, D><<<dim3(n_split, KVH, B), NTHREADS, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v), part_o,
-      part_ml, H, KVH, S, live, tiles_per_split, n_split, scale);
+  flash_decode_split_kernel<T, KV, QB, D><<<dim3(n_split, KVH, B), NTHREADS, smem, stream>>>(
+      static_cast<const T*>(q), static_cast<const KV*>(k), static_cast<const KV*>(v), k_scale,
+      v_scale, lengths, part_o, part_ml, H, KVH, S, tiles_per_split, n_split, scale);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   flash_decode_combine_kernel<T><<<dim3(H, B), D, 0, stream>>>(part_o, part_ml, sinks,
@@ -224,33 +299,68 @@ int launch(const void* q, const void* k, const void* v, void* o, const float* si
   return (int)cudaGetLastError();
 }
 
+// The cache variant for one query dtype and head dim: kv_dtype is the
+// cache's dtype code when qbits is 0 (q's own, or bf16 under an f32 q).
+template <typename T, int D>
+int launch_variant(int kv_dtype, int qbits, const void* q, const void* k, const void* v,
+                   const float* k_scale, const float* v_scale, void* o, const float* sinks,
+                   float* part_o, float* part_ml, const int* lengths, int B, int H, int KVH, int S,
+                   int tiles_per_split, int n_split, float scale, cudaStream_t st) {
+  if (qbits == 8)
+    return launch<T, uint8_t, 8, D>(q, k, v, k_scale, v_scale, o, sinks, part_o, part_ml, lengths,
+                                    B, H, KVH, S, tiles_per_split, n_split, scale, st);
+  if (qbits == 4)
+    return launch<T, uint8_t, 4, D>(q, k, v, k_scale, v_scale, o, sinks, part_o, part_ml, lengths,
+                                    B, H, KVH, S, tiles_per_split, n_split, scale, st);
+  if (qbits != 0) return -1;
+  if (kv_dtype == dnet::DTYPE_BF16)
+    return launch<T, __nv_bfloat16, 0, D>(q, k, v, k_scale, v_scale, o, sinks, part_o, part_ml,
+                                          lengths, B, H, KVH, S, tiles_per_split, n_split, scale,
+                                          st);
+  if constexpr (sizeof(T) == 4) {
+    if (kv_dtype == dnet::DTYPE_F32)
+      return launch<T, float, 0, D>(q, k, v, k_scale, v_scale, o, sinks, part_o, part_ml, lengths,
+                                    B, H, KVH, S, tiles_per_split, n_split, scale, st);
+  }
+  return -1;
+}
+
 }  // namespace
 
 // C interface (bound with ctypes in dnet_tpu_torch/ops/flash_decode.py).
-// part_o [B, KVH, n_split, G, D] and part_ml [B, KVH, n_split, G, 2] are f32
-// scratch the caller allocates.  Returns cudaGetLastError() after the
-// launches (0 = launched); -1 for a dtype, head dim or grouping this kernel
-// was not built for.
-extern "C" int dnet_flash_decode(int dtype, int head_dim, const void* q, const void* k,
-                                 const void* v, void* o, const float* sinks, float* part_o,
-                                 float* part_ml, int B, int H, int KVH, int S, int live,
+// qbits 0: k/v in kv_dtype (q's dtype, or bf16 under an f32 q) and no
+// scales; 8 / 4 (kv_dtype unused): int8 / packed-int4 codes
+// with f32 k_scale/v_scale.  lengths [B] int32 on the device.  part_o
+// [B, KVH, n_split, G, D] and part_ml [B, KVH, n_split, G, 2] are f32
+// scratch the caller allocates, n_split * tiles_per_split covering the
+// longest lane.  Returns cudaGetLastError() after the launches (0 =
+// launched); -1 for a dtype, variant, head dim or grouping this kernel was
+// not built for.
+extern "C" int dnet_flash_decode(int dtype, int kv_dtype, int qbits, int head_dim, const void* q,
+                                 const void* k, const void* v, const float* k_scale,
+                                 const float* v_scale, void* o, const float* sinks, float* part_o,
+                                 float* part_ml, const int* lengths, int B, int H, int KVH, int S,
                                  int tiles_per_split, int n_split, float scale, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (H % KVH != 0 || H / KVH > GMAX) return -1;
   if (dtype == dnet::DTYPE_BF16) {
     if (head_dim == 64)
-      return launch<__nv_bfloat16, 64>(q, k, v, o, sinks, part_o, part_ml, B, H, KVH, S, live,
-                                       tiles_per_split, n_split, scale, st);
+      return launch_variant<__nv_bfloat16, 64>(kv_dtype, qbits, q, k, v, k_scale, v_scale, o, sinks,
+                                               part_o, part_ml, lengths, B, H, KVH, S,
+                                               tiles_per_split, n_split, scale, st);
     if (head_dim == 128)
-      return launch<__nv_bfloat16, 128>(q, k, v, o, sinks, part_o, part_ml, B, H, KVH, S, live,
-                                        tiles_per_split, n_split, scale, st);
+      return launch_variant<__nv_bfloat16, 128>(kv_dtype, qbits, q, k, v, k_scale, v_scale, o,
+                                                sinks, part_o, part_ml, lengths, B, H, KVH, S,
+                                                tiles_per_split, n_split, scale, st);
   } else if (dtype == dnet::DTYPE_F32) {
     if (head_dim == 64)
-      return launch<float, 64>(q, k, v, o, sinks, part_o, part_ml, B, H, KVH, S, live,
-                               tiles_per_split, n_split, scale, st);
+      return launch_variant<float, 64>(kv_dtype, qbits, q, k, v, k_scale, v_scale, o, sinks,
+                                       part_o, part_ml, lengths, B, H, KVH, S, tiles_per_split,
+                                       n_split, scale, st);
     if (head_dim == 128)
-      return launch<float, 128>(q, k, v, o, sinks, part_o, part_ml, B, H, KVH, S, live,
-                                tiles_per_split, n_split, scale, st);
+      return launch_variant<float, 128>(kv_dtype, qbits, q, k, v, k_scale, v_scale, o, sinks,
+                                        part_o, part_ml, lengths, B, H, KVH, S, tiles_per_split,
+                                        n_split, scale, st);
   }
   return -1;
 }

@@ -4,16 +4,17 @@
 //
 // Replaces the TPU kernel `_paged_kernel` (dnet_tpu/ops/paged_attention.py:92,
 // launched by `_paged_pallas`).  q/o [B, 1, H, D]; k_pool/v_pool
-// [N_blocks, bt, KVH, D] (one layer); tables [B, nb] int32 page tables; pos
-// [B] int32 live pool rows per slot; k_new/v_new [B, KVH, D] the current
-// token's rows.  Slot b's query heads attend pool rows [0, pos[b]) -- key
+// [N_blocks, bt, KVH, D] (one layer) in q's dtype, or bf16 under an f32 q
+// (the DNET_KV_BITS=16 pool of an f32 model); tables [B, nb] int32 page
+// tables; pos [B] int32 live pool rows per slot; k_new/v_new [B, KVH, D] the
+// current token's rows in q's dtype (attended unrounded, as the reference).  Slot b's query heads attend pool rows [0, pos[b]) -- key
 // `key` lives at row key % bt of physical block tables[b, key / bt] -- and then
 // the new row, which the caller appends to the pool after the launch.
 //
 // What bounds it on an H100: as in flash_decode.cu, one query row per head does
 // 2 * G multiply-adds per K/V element it reads, far below the card's balance
 // point, so the kernel is bound by the bytes of live K/V it reads:
-// 2 * sum_b(pos[b]) * KVH * D * sizeof(T) per call.  What the design does
+// 2 * sum_b(pos[b]) * KVH * D * sizeof(KV) per call.  What the design does
 // about it:
 //   - each slot's loop bound is its own live length pos[b].  The Pallas kernel
 //     walks all nb table entries and clamps dead ones to the last live block so
@@ -104,10 +105,11 @@ __device__ __forceinline__ void stage_paged_tile(float* dst, int ld, const T* __
   }
 }
 
-template <typename T, int D>
+// T: q's and the new rows' type; KV: the pool's (T, or bf16 under an f32 T)
+template <typename T, typename KV, int D>
 __global__ void __launch_bounds__(NTHREADS)
-paged_split_kernel(const T* __restrict__ q, const T* __restrict__ k_pool,
-                   const T* __restrict__ v_pool, const int* __restrict__ tables,
+paged_split_kernel(const T* __restrict__ q, const KV* __restrict__ k_pool,
+                   const KV* __restrict__ v_pool, const int* __restrict__ tables,
                    const int* __restrict__ pos, const T* __restrict__ k_new,
                    const T* __restrict__ v_new, float* __restrict__ part_o,
                    float* __restrict__ part_ml, int H, int KVH, int nb, int bt,
@@ -153,8 +155,8 @@ paged_split_kernel(const T* __restrict__ q, const T* __restrict__ k_pool,
     const int k0 = tile * BK;
     __syncthreads();  // Qs/stats initialised; previous tile's Ks/Vs/Ss consumed
     const int rows = min(BK, live - k0);
-    stage_paged_tile<T, D, true>(Ks, L::LDK, k_pool, tbl, bt, KVH, kvh, k0, rows);
-    stage_paged_tile<T, D, false>(Vs, L::LDV, v_pool, tbl, bt, KVH, kvh, k0, rows);
+    stage_paged_tile<KV, D, true>(Ks, L::LDK, k_pool, tbl, bt, KVH, kvh, k0, rows);
+    stage_paged_tile<KV, D, false>(Vs, L::LDV, v_pool, tbl, bt, KVH, kvh, k0, rows);
     __syncthreads();
 
     // scores: thread -> key j, heads g = tid/64, tid/64 + 2, ...; rows at or
@@ -283,7 +285,7 @@ __global__ void paged_combine_kernel(const float* __restrict__ part_o,
   o[((long)b * H + h) * D + d] = dnet::from_float<T>(acc / fmaxf(l, 1e-30f));
 }
 
-template <typename T, int D>
+template <typename T, typename KV, int D>
 int launch(const void* q, const void* k_pool, const void* v_pool, const int* tables,
            const int* pos, const void* k_new, const void* v_new, void* o, float* part_o,
            float* part_ml, int B, int H, int KVH, int nb, int bt, int tiles_per_split,
@@ -291,11 +293,11 @@ int launch(const void* q, const void* k_pool, const void* v_pool, const int* tab
   const size_t smem = Layout<D>::BYTES;
   // above 48 KB of dynamic shared memory a kernel must opt in (per device,
   // so on every launch: the call is cheap and does not synchronise)
-  cudaError_t err = cudaFuncSetAttribute(paged_split_kernel<T, D>,
+  cudaError_t err = cudaFuncSetAttribute(paged_split_kernel<T, KV, D>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  paged_split_kernel<T, D><<<dim3(n_split, KVH, B), NTHREADS, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k_pool), static_cast<const T*>(v_pool),
+  paged_split_kernel<T, KV, D><<<dim3(n_split, KVH, B), NTHREADS, smem, stream>>>(
+      static_cast<const T*>(q), static_cast<const KV*>(k_pool), static_cast<const KV*>(v_pool),
       tables, pos, static_cast<const T*>(k_new), static_cast<const T*>(v_new), part_o, part_ml,
       H, KVH, nb, bt, tiles_per_split, n_split, scale);
   err = cudaGetLastError();
@@ -305,16 +307,35 @@ int launch(const void* q, const void* k_pool, const void* v_pool, const int* tab
   return (int)cudaGetLastError();
 }
 
+// The pool's dtype for one query dtype and head dim: q's own, or bf16 under
+// an f32 q.
+template <typename T, int D>
+int launch_pool(int kv_dtype, const void* q, const void* k_pool, const void* v_pool,
+                const int* tables, const int* pos, const void* k_new, const void* v_new, void* o,
+                float* part_o, float* part_ml, int B, int H, int KVH, int nb, int bt,
+                int tiles_per_split, int n_split, float scale, cudaStream_t st) {
+  if (kv_dtype == dnet::DTYPE_BF16)
+    return launch<T, __nv_bfloat16, D>(q, k_pool, v_pool, tables, pos, k_new, v_new, o, part_o,
+                                       part_ml, B, H, KVH, nb, bt, tiles_per_split, n_split,
+                                       scale, st);
+  if constexpr (sizeof(T) == 4) {
+    if (kv_dtype == dnet::DTYPE_F32)
+      return launch<T, float, D>(q, k_pool, v_pool, tables, pos, k_new, v_new, o, part_o,
+                                 part_ml, B, H, KVH, nb, bt, tiles_per_split, n_split, scale, st);
+  }
+  return -1;
+}
+
 }  // namespace
 
 // C interface (bound with ctypes in dnet_tpu_torch/ops/paged_attention.py).
-// part_o [B, KVH, n_split, G, D] and part_ml [B, KVH, n_split, G, 2] are f32
+// kv_dtype is the pools' dtype code (q's, or bf16 under an f32 q).  part_o [B, KVH, n_split, G, D] and part_ml [B, KVH, n_split, G, 2] are f32
 // scratch the caller allocates.  Returns cudaGetLastError() after the
 // launches (0 = launched); -1 for a dtype, head dim, grouping or block size
 // this kernel was not built for.
-extern "C" int dnet_paged_attention(int dtype, int head_dim, const void* q, const void* k_pool,
-                                    const void* v_pool, const int* tables, const int* pos,
-                                    const void* k_new, const void* v_new, void* o,
+extern "C" int dnet_paged_attention(int dtype, int kv_dtype, int head_dim, const void* q,
+                                    const void* k_pool, const void* v_pool, const int* tables,
+                                    const int* pos, const void* k_new, const void* v_new, void* o,
                                     float* part_o, float* part_ml, int B, int H, int KVH,
                                     int nb, int bt, int tiles_per_split, int n_split,
                                     float scale, void* stream) {
@@ -322,21 +343,22 @@ extern "C" int dnet_paged_attention(int dtype, int head_dim, const void* q, cons
   if (H % KVH != 0 || H / KVH > GMAX || bt < 1 || n_split < 1) return -1;
   if (dtype == dnet::DTYPE_BF16) {
     if (head_dim == 64)
-      return launch<__nv_bfloat16, 64>(q, k_pool, v_pool, tables, pos, k_new, v_new, o, part_o,
-                                       part_ml, B, H, KVH, nb, bt, tiles_per_split, n_split,
-                                       scale, st);
+      return launch_pool<__nv_bfloat16, 64>(kv_dtype, q, k_pool, v_pool, tables, pos, k_new,
+                                            v_new, o, part_o, part_ml, B, H, KVH, nb, bt,
+                                            tiles_per_split, n_split, scale, st);
     if (head_dim == 128)
-      return launch<__nv_bfloat16, 128>(q, k_pool, v_pool, tables, pos, k_new, v_new, o, part_o,
-                                        part_ml, B, H, KVH, nb, bt, tiles_per_split, n_split,
-                                        scale, st);
+      return launch_pool<__nv_bfloat16, 128>(kv_dtype, q, k_pool, v_pool, tables, pos, k_new,
+                                             v_new, o, part_o, part_ml, B, H, KVH, nb, bt,
+                                             tiles_per_split, n_split, scale, st);
   } else if (dtype == dnet::DTYPE_F32) {
     if (head_dim == 64)
-      return launch<float, 64>(q, k_pool, v_pool, tables, pos, k_new, v_new, o, part_o, part_ml,
-                               B, H, KVH, nb, bt, tiles_per_split, n_split, scale, st);
+      return launch_pool<float, 64>(kv_dtype, q, k_pool, v_pool, tables, pos, k_new, v_new, o,
+                                    part_o, part_ml, B, H, KVH, nb, bt, tiles_per_split, n_split,
+                                    scale, st);
     if (head_dim == 128)
-      return launch<float, 128>(q, k_pool, v_pool, tables, pos, k_new, v_new, o, part_o,
-                                part_ml, B, H, KVH, nb, bt, tiles_per_split, n_split, scale,
-                                st);
+      return launch_pool<float, 128>(kv_dtype, q, k_pool, v_pool, tables, pos, k_new, v_new, o,
+                                     part_o, part_ml, B, H, KVH, nb, bt, tiles_per_split,
+                                     n_split, scale, st);
   }
   return -1;
 }

@@ -5,24 +5,31 @@ from __future__ import annotations
 from typing import Dict
 
 
-def _wrappers() -> dict:
+def _counters() -> dict:
+    """Each kernel's name -> (its wrapper, the wrapper's launch counter);
+    the decode wrapper counts each cache variant on its own."""
     from dnet_tpu_torch.compression.ops import column_sq_norms, dequant_scatter_columns, gather_columns
     from dnet_tpu_torch.ops.flash_attention import flash_prefill
     from dnet_tpu_torch.ops.flash_decode import flash_decode_attend
     from dnet_tpu_torch.ops.paged_attention import paged_attend
 
     return {
-        "flash_prefill": flash_prefill, "flash_decode": flash_decode_attend,
-        "paged_attend": paged_attend, "column_sq_norms": column_sq_norms,
-        "gather_columns": gather_columns, "dequant_scatter_columns": dequant_scatter_columns,
+        "flash_prefill": (flash_prefill, "launches"),
+        "flash_decode": (flash_decode_attend, "launches"),
+        "flash_decode_q8": (flash_decode_attend, "launches_q8"),
+        "flash_decode_q4": (flash_decode_attend, "launches_q4"),
+        "paged_attend": (paged_attend, "launches"),
+        "column_sq_norms": (column_sq_norms, "launches"),
+        "gather_columns": (gather_columns, "launches"),
+        "dequant_scatter_columns": (dequant_scatter_columns, "launches"),
     }
 
 
 def launch_counts() -> Dict[str, int]:
-    """Each kernel wrapper's launches in this process since its last reset."""
-    return {name: fn.launches for name, fn in _wrappers().items()}
+    """Each kernel's launches in this process since its last reset."""
+    return {name: getattr(fn, attr) for name, (fn, attr) in _counters().items()}
 
 
 def reset_launch_counts() -> None:
-    for fn in _wrappers().values():
-        fn.launches = 0
+    for fn, attr in _counters().values():
+        setattr(fn, attr, 0)

@@ -24,7 +24,7 @@ import shutil
 import subprocess
 import threading
 from pathlib import Path
-from typing import Dict, Sequence, Tuple
+from typing import Dict, Optional, Sequence, Tuple
 
 import torch
 
@@ -145,11 +145,12 @@ def current_stream_handle(device: torch.device) -> int:
     return torch.cuda.current_stream(device).cuda_stream
 
 
-def check_cuda_tensors(op: str, dtype: torch.dtype, **tensors: torch.Tensor) -> None:
+def check_cuda_tensors(
+    op: str, dtype: torch.dtype, device: Optional[torch.device] = None, **tensors: torch.Tensor
+) -> None:
     """Raise ValueError unless every tensor is a contiguous CUDA tensor of
-    `dtype` on one device with a 16-byte-aligned base (the kernels read
-    rows as 16-byte vectors)."""
-    device = None
+    `dtype` on one device (`device`, when given) with a 16-byte-aligned base
+    (the kernels read rows as 16-byte vectors)."""
     for name, t in tensors.items():
         if t.device.type != "cuda":
             raise ValueError(f"{op}: {name} is on {t.device}, expected a CUDA tensor")

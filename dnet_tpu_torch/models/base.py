@@ -132,7 +132,9 @@ class RingModel(abc.ABC):
         return out
 
     # ---- cache construction ------------------------------------------
-    def kv_config(self, n_layers: int, batch: int, max_seq: int, dtype: str = "bfloat16") -> KVConfig:
+    def kv_config(
+        self, n_layers: int, batch: int, max_seq: int, dtype: str = "bfloat16", quant_bits: int = 0
+    ) -> KVConfig:
         return KVConfig(
             n_layers=n_layers,
             batch=batch,
@@ -140,8 +142,12 @@ class RingModel(abc.ABC):
             n_kv_heads=self.config.num_key_value_heads,
             head_dim=self.config.head_dim,
             dtype=dtype,
+            quant_bits=quant_bits,
         )
 
-    def init_kv(self, n_layers: int, batch: int, max_seq: int, dtype: str = "bfloat16") -> dict:
-        """Allocate the stacked [L, B, S, KVH, Hd] cache on the device."""
-        return init_cache(self.kv_config(n_layers, batch, max_seq, dtype), self.device)
+    def init_kv(
+        self, n_layers: int, batch: int, max_seq: int, dtype: str = "bfloat16", quant_bits: int = 0
+    ) -> dict:
+        """Allocate the stacked [L, B, S, KVH, Hd] cache on the device
+        (quantized: codes plus [L, B, S, KVH, 1] f32 scales)."""
+        return init_cache(self.kv_config(n_layers, batch, max_seq, dtype, quant_bits), self.device)

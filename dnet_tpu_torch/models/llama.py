@@ -7,7 +7,7 @@ over per-layer params where the reference scans stacked ones.
 
 from __future__ import annotations
 
-from typing import Dict, List, Tuple, Union
+from typing import Dict, List, Optional, Tuple, Union
 
 import torch
 import torch.nn.functional as F
@@ -15,6 +15,7 @@ import torch.nn.functional as F
 from dnet_tpu_torch.core.kvcache import layer_slices
 from dnet_tpu_torch.models.base import ModelConfig, RingModel
 from dnet_tpu_torch.ops.attention import cached_attend
+from dnet_tpu_torch.ops.flash_decode import decode_lengths
 from dnet_tpu_torch.ops.norms import rms_norm
 from dnet_tpu_torch.ops.rope import apply_rope, rope_frequencies
 
@@ -36,13 +37,15 @@ class LlamaRingModel(RingModel):
         self.inv_freq = torch.from_numpy(inv_freq).to(self.device)
 
     def layer(
-        self, p: dict, x: torch.Tensor, kvs: dict, pos: Union[int, torch.Tensor], attend_fn=None
+        self, p: dict, x: torch.Tensor, kvs: dict, pos: Union[int, torch.Tensor], attend_fn=None,
+        lengths: Optional[torch.Tensor] = None,
     ) -> Tuple[torch.Tensor, dict]:
         """One decoder layer; kvs is this layer's cache slices (written in
         place).  pos is the chunk's start, or a [B, 1] tensor of per-lane
-        positions.  With `attend_fn` (ragged paged attention) the caller owns
-        both the cache write and the attention read: it gets (q, k, v, kvs)
-        and returns (attention output, what apply_window should stack)."""
+        positions.  With `attend_fn` (batched slots) the caller owns both
+        the cache write and the attention read: it gets (q, k, v, kvs) and
+        returns (attention output, what apply_window should stack).
+        `lengths` is a decode step's lengths vector, shared by the layers."""
         cfg = self.config
         B, T, _ = x.shape
         Hd = cfg.head_dim
@@ -64,7 +67,7 @@ class LlamaRingModel(RingModel):
         if attend_fn is not None:
             attn, kvs = attend_fn(q, k, v, kvs)
         else:
-            attn, kvs = cached_attend(q, k, v, kvs, pos, None, causal=True)
+            attn, kvs = cached_attend(q, k, v, kvs, pos, None, causal=True, lengths=lengths)
         x = x + attn.reshape(B, T, H * Hd) @ p["wo"]
         return self._mlp_block(p, x), kvs
 
@@ -78,8 +81,10 @@ class LlamaRingModel(RingModel):
         pos: Union[int, torch.Tensor], attend_fn=None,
     ) -> Tuple[torch.Tensor, dict]:
         if attend_fn is None:
+            # a decode step's lengths vector, made once for every layer
+            lengths = decode_lengths(x.shape[0], pos, x.device) if x.shape[1] == 1 else None
             for li, p in enumerate(window_params):
-                x, _ = self.layer(p, x, layer_slices(kv, li), pos)
+                x, _ = self.layer(p, x, layer_slices(kv, li), pos, lengths=lengths)
             return x, kv
         # the hook's per-layer outputs, stacked [L, ...] (the new K/V rows the
         # caller appends to the pool)

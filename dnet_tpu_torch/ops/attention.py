@@ -1,12 +1,16 @@
 """Attention ops: dense GQA attention, the causal mask, and the cached
 attention every layer runs.
 
-Counterpart of dnet_tpu/ops/attention.py (the non-sequence-parallel,
-unquantized branch of `cached_attend`).  With `causal=True`,
-`cached_attend` writes the new k/v into the cache and then runs the
-hand-written kernels: the decode kernel for one query row, the prefill
-kernel otherwise (ops/flash_attention.py).  The dense `attend` stays for
-explicit masks and as the reference the kernels are tested against.
+Counterpart of dnet_tpu/ops/attention.py (the non-sequence-parallel branch
+of `cached_attend`, plain and quantized caches).  With `causal=True`,
+`cached_attend` writes the new k/v into the cache (quantizing it when the
+cache carries scales) and then runs the hand-written kernels through
+`flash_attend_causal` (ops/flash_attention.py): the decode kernel for one
+query row, the prefill kernel otherwise.  A quantized cache's decode reads
+the cache's own codes (no f32 copy of the cache is made); its prefill reads
+the live prefix dequantized to f32 with q cast to f32 (exact: the softmax
+runs in f32 anyway).  The dense `attend` stays for explicit masks and as
+the reference the kernels are tested against.
 """
 
 from __future__ import annotations
@@ -39,17 +43,28 @@ def cached_attend(
     sinks: Optional[torch.Tensor] = None,
     scale: Optional[float] = None,
     causal: bool = False,
+    lengths: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, dict]:
     """Write the new k/v into one layer's cache slices (in place) and attend
     over the full cache.  `causal=True` (mask must be None) declares the
     standard predicate, row i attends slots [0, pos + i], and runs the
-    kernels; an explicit mask runs the dense op."""
+    kernels; an explicit mask runs the dense op.  `lengths` is a decode
+    row's [pos + 1] * B int32 vector when the caller built it once for all
+    layers (flash_attend_causal makes it otherwise)."""
     if causal and mask is not None:
         raise ValueError("cached_attend: causal=True requires mask=None")
     kvs = write_kv(kvs, k_new, v_new, pos)
-    kc, vc = read_kv(kvs)
+    if causal and q.shape[1] == 1 and "k_scale" in kvs:
+        # quantized decode: dequantize tile by tile inside the kernel;
+        # read_kv would first write a full f32 copy of the cache
+        out = flash_attend_causal(q, kvs["k"], kvs["v"], pos, scale=scale, sinks=sinks, lengths=lengths,
+                                  k_scale=kvs["k_scale"], v_scale=kvs["v_scale"])
+        return out, kvs
     if causal:
-        return flash_attend_causal(q, kc, vc, pos, scale=scale, sinks=sinks), kvs
+        # a quantized cache's live prefix, dequantized to f32; a plain cache whole
+        kc, vc = read_kv(kvs, upto=pos + q.shape[1])
+        return flash_attend_causal(q, kc, vc, pos, scale=scale, sinks=sinks, lengths=lengths), kvs
+    kc, vc = read_kv(kvs)
     return attend(q, kc, vc, mask=mask, sinks=sinks, scale=scale), kvs
 
 

@@ -34,14 +34,30 @@ def flash_attend_causal(
     pos: int,
     scale: Optional[float] = None,
     sinks: Optional[torch.Tensor] = None,
+    lengths: Optional[torch.Tensor] = None,
+    k_scale: Optional[torch.Tensor] = None,
+    v_scale: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
-    """Causal attention of a chunk against the (full, preallocated) cache:
-    query row i attends slots [0, pos + i].  q [B, T, H, D]; k/v
-    [B, S, KVH, D].  T == 1 goes to the decode kernel, as on the TPU."""
-    if q.shape[1] == 1:
-        from dnet_tpu_torch.ops.flash_decode import flash_decode_attend
+    """Causal attention of a chunk against the (preallocated) cache: query
+    row i attends slots [0, pos + i].  q [B, T, H, D]; k/v [B, S, KVH, D].
 
-        return flash_decode_attend(q, k, v, pos, scale=scale, sinks=sinks)
+    T == 1 goes to the decode kernel, as on the TPU, over `lengths`
+    ([pos + 1] * B int32; made here when None), on quantized codes when
+    k_scale/v_scale come with them.  The prefill kernel takes one dtype:
+    a cache in another dtype than q (a bf16 cache under an f32 model, or an
+    f32 dequantized prefix under a bf16 one) gets the live prefix and q in
+    f32, an exact upcast, as the TPU kernel's own f32 softmax does."""
+    if q.shape[1] == 1:
+        from dnet_tpu_torch.ops.flash_decode import decode_lengths, flash_decode_attend
+
+        if lengths is None:
+            lengths = decode_lengths(q.shape[0], pos, q.device)
+        return flash_decode_attend(q, k, v, lengths, int(pos) + 1, scale=scale, sinks=sinks,
+                                   k_scale=k_scale, v_scale=v_scale)
+    if k.dtype != q.dtype:
+        end = int(pos) + q.shape[1]
+        out = flash_prefill(q.float(), k[:, :end].float(), v[:, :end].float(), pos, scale=scale, sinks=sinks)
+        return out.to(q.dtype)
     return flash_prefill(q, k, v, pos, scale=scale, sinks=sinks)
 
 

@@ -3,15 +3,21 @@ version.
 
 Counterpart of dnet_tpu/ops/flash_decode.py.  The kernel
 (csrc/flash_decode.cu) replaces the TPU kernel `_decode_kernel`
-(dnet_tpu/ops/flash_decode.py:50) in its plain variant (qbits=0,
-rotating=False, with_lse=False, offset=0): one query row per head against
-the dense preallocated cache, reading only the live slots [0, pos] and
-sharing each K/V tile across the G query heads of a KV group.  The live
-range is split across blocks (flash-decoding) and a small combine pass
+(dnet_tpu/ops/flash_decode.py:50) in its plain variant and its `qbits` 8/4
+variant (rotating=False, with_lse=False, offset=0): one query row per head
+against the dense preallocated cache, sharing each K/V tile across the G
+query heads of a KV group.  The cache is q's dtype (or bf16 under an f32
+q: DNET_KV_BITS=16 on an f32 model), or quantized (int8 codes, or int4 nibbles packed in pairs along the head dim, with f32 scales
+per slot and KV head; core/kvcache.py) and then dequantized tile by tile in
+on-chip memory.  Each lane b of the batch attends its own live slots
+[0, lengths[b]) (an int32 [B] vector on the device; 0 = an idle lane, whose
+output is zeros): the single-sequence engine passes [pos + 1], dense
+batched slots each lane's position + 1.  The live range is split across
+blocks for the longest lane (flash-decoding) and a small combine pass
 merges the splits.  The source's header says what bounds it on the card.
 
-The quantized (`qbits`), rotating sliding-window and `with_lse` (sequence-
-parallel) variants are not ported yet.
+The rotating sliding-window and `with_lse` (sequence-parallel) variants
+are not ported yet.
 """
 
 from __future__ import annotations
@@ -21,6 +27,7 @@ from typing import Optional
 
 import torch
 
+from dnet_tpu_torch.core.kvcache import read_kv
 from dnet_tpu_torch.kernels import build
 
 NEG_INF = -1e30
@@ -29,6 +36,13 @@ HEAD_DIMS = (64, 128)
 MAX_GROUP = 8  # query heads per KV head the kernel takes
 # enough (split, KV head, batch) blocks for two per SM on a 132-SM card
 TARGET_BLOCKS = 264
+# the cache's code dtype -> the kernel's variant (the reference picks it the
+# same way from the cache dtype, dnet_tpu/ops/flash_decode.py:444-446)
+QBITS = {torch.int8: 8, torch.uint8: 4}
+# the wrapper's launch counter per variant
+COUNTERS = {0: "launches", 8: "launches_q8", 4: "launches_q4"}
+# an unquantized cache's dtypes the kernel reads under each q dtype
+KV_DTYPES = {torch.float32: (torch.float32, torch.bfloat16), torch.bfloat16: (torch.bfloat16,)}
 
 
 def split_plan(live: int, n_blocks_per_split: int) -> tuple[int, int]:
@@ -40,67 +54,106 @@ def split_plan(live: int, n_blocks_per_split: int) -> tuple[int, int]:
     return tiles_per_split, -(-n_tiles // tiles_per_split)
 
 
+def decode_lengths(batch: int, pos: int, device) -> torch.Tensor:
+    """The lengths vector of a batch whose lanes all sit at `pos`: [pos + 1]
+    * batch, int32 on `device` (a fill, no host-to-device copy)."""
+    return torch.full((batch,), int(pos) + 1, dtype=torch.int32, device=device)
+
+
 def flash_decode_attend(
     q: torch.Tensor,
     k: torch.Tensor,
     v: torch.Tensor,
-    pos: int,
+    lengths: torch.Tensor,
+    max_live: int,
     scale: Optional[float] = None,
     sinks: Optional[torch.Tensor] = None,
+    k_scale: Optional[torch.Tensor] = None,
+    v_scale: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
-    """Kernel wrapper: q [B, 1, H, D] attends cache slots [0, pos] of k/v
-    [B, S, KVH, D]; [B, 1, H, D] out in q.dtype.  CUDA tensors launch the
-    kernel (bf16 or f32, head dim 64 or 128, H/KVH <= 8) or raise; CPU
-    tensors take the plain version."""
-    pos = int(pos)
+    """Kernel wrapper: lane b of q [B, 1, H, D] attends cache slots
+    [0, lengths[b]) of k/v; [B, 1, H, D] out in q.dtype.  k/v are
+    [B, S, KVH, D] in q's dtype (or bf16 under an f32 q), or with
+    k_scale/v_scale ([B, S, KVH, 1] f32) int8 [B, S, KVH, D] or packed-int4
+    uint8 [B, S, KVH, D/2] codes.
+    `max_live` (host int) bounds every length: the split plan covers it.
+    CUDA tensors launch the kernel (bf16 or f32 q, head dim 64 or 128,
+    H/KVH <= 8) or raise; CPU tensors take the plain version."""
     B, T, H, D = q.shape
     if T != 1:
         raise ValueError(f"flash_decode_attend takes one query row, got T={T}")
-    if k.dim() != 4 or k.shape[0] != B or k.shape[-1] != D or v.shape != k.shape:
+    qbits = 0 if k_scale is None else QBITS.get(k.dtype, -1)
+    if qbits < 0:
+        raise ValueError(f"quantized cache codes must be int8 or uint8, got {k.dtype}")
+    Ds = D // 2 if qbits == 4 else D
+    if k.dim() != 4 or k.shape[0] != B or k.shape[-1] != Ds or v.shape != k.shape:
         raise ValueError(f"cache shapes k {tuple(k.shape)} v {tuple(v.shape)} do not match q {tuple(q.shape)}")
     S, KVH = k.shape[1], k.shape[2]
+    if qbits and (
+        v_scale is None or tuple(k_scale.shape) != (B, S, KVH, 1) or v_scale.shape != k_scale.shape
+    ):
+        raise ValueError(f"scales must both be [B, S, KVH, 1]={(B, S, KVH, 1)}")
     if H % KVH:
         raise ValueError(f"{H} query heads are not a multiple of {KVH} KV heads")
-    if not 0 <= pos < S:
-        raise ValueError(f"position {pos} outside a cache of {S} slots")
+    if tuple(lengths.shape) != (B,):
+        raise ValueError(f"lengths must be [B]={B}, got {tuple(lengths.shape)}")
+    max_live = int(max_live)
+    if not 0 <= max_live <= S:
+        raise ValueError(f"max_live {max_live} outside a cache of {S} slots")
     if sinks is not None and tuple(sinks.shape) != (H,):
         raise ValueError(f"sinks must be [H]={H}, got {tuple(sinks.shape)}")
     scale = D**-0.5 if scale is None else float(scale)
     if q.device.type == "cpu":
-        return flash_decode_plain(q, k, v, pos, scale=scale, sinks=sinks)
+        return flash_decode_plain(q, k, v, lengths, scale=scale, sinks=sinks, k_scale=k_scale,
+                                  v_scale=v_scale, max_live=max_live)
     if q.dtype not in build.DTYPE_CODES or D not in HEAD_DIMS or H // KVH > MAX_GROUP:
         raise ValueError(
             f"flash_decode takes bf16/f32, head dim 64/128 and at most {MAX_GROUP} "
             f"query heads per KV head; got {q.dtype}, {D}, {H // KVH}"
         )
+    if not qbits and k.dtype not in KV_DTYPES[q.dtype]:
+        raise ValueError(f"flash_decode reads a {q.dtype} q over a {KV_DTYPES[q.dtype]} cache, got {k.dtype}")
+    dev = q.device
+    build.check_cuda_tensors("flash_decode", q.dtype, q=q)
+    build.check_cuda_tensors("flash_decode", k.dtype, device=dev, k=k, v=v)
+    build.check_cuda_tensors("flash_decode", torch.int32, device=dev, lengths=lengths)
+    if qbits:
+        build.check_cuda_tensors("flash_decode", torch.float32, device=dev, k_scale=k_scale, v_scale=v_scale)
     if sinks is not None:
-        build.check_cuda_tensors("flash_decode", torch.float32, sinks=sinks)
-    build.check_cuda_tensors("flash_decode", q.dtype, q=q, k=k, v=v)
-    live = pos + 1
-    tiles_per_split, n_split = split_plan(live, B * KVH)
+        build.check_cuda_tensors("flash_decode", torch.float32, device=dev, sinks=sinks)
+    # planned for the longest lane alone, as the paged kernel's: shorter
+    # lanes' extra splits exit at once with empty partials
+    tiles_per_split, n_split = split_plan(max(max_live, 1), KVH)
     G = H // KVH
     part_o = torch.empty((B, KVH, n_split, G, D), dtype=torch.float32, device=q.device)
     part_ml = torch.empty((B, KVH, n_split, G, 2), dtype=torch.float32, device=q.device)
     out = torch.empty_like(q)
     rc = _entry()(
-        build.DTYPE_CODES[q.dtype], D, q.data_ptr(), k.data_ptr(), v.data_ptr(),
+        build.DTYPE_CODES[q.dtype], build.DTYPE_CODES.get(k.dtype, -1), qbits, D,
+        q.data_ptr(), k.data_ptr(), v.data_ptr(),
+        k_scale.data_ptr() if qbits else None, v_scale.data_ptr() if qbits else None,
         out.data_ptr(), None if sinks is None else sinks.data_ptr(),
-        part_o.data_ptr(), part_ml.data_ptr(), B, H, KVH, S, live,
+        part_o.data_ptr(), part_ml.data_ptr(), lengths.data_ptr(), B, H, KVH, S,
         tiles_per_split, n_split, scale, build.current_stream_handle(q.device),
     )
     if rc != 0:
         raise RuntimeError(f"flash_decode kernel launch failed (code {rc})")
-    flash_decode_attend.launches += 1
+    counter = COUNTERS[qbits]
+    setattr(flash_decode_attend, counter, getattr(flash_decode_attend, counter) + 1)
     return out
 
 
-flash_decode_attend.launches = 0  # kernel launches since the last reset
+# kernel launches since the last reset, per variant (COUNTERS)
+flash_decode_attend.launches = 0
+flash_decode_attend.launches_q8 = 0
+flash_decode_attend.launches_q4 = 0
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
-# dtype, head_dim, q, k, v, o, sinks, part_o, part_ml, B, H, KVH, S, live,
-# tiles_per_split, n_split, scale, stream
+# dtype, kv_dtype, qbits, head_dim, q, k, v, k_scale, v_scale, o, sinks,
+# part_o, part_ml, lengths, B, H, KVH, S, tiles_per_split, n_split, scale,
+# stream
 _ARGTYPES = (
-    _I, _I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, ctypes.c_float, _P,
+    _I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, ctypes.c_float, _P,
 )
 
 
@@ -112,33 +165,47 @@ def flash_decode_plain(
     q: torch.Tensor,
     k: torch.Tensor,
     v: torch.Tensor,
-    pos: int,
+    lengths: torch.Tensor,
     scale: Optional[float] = None,
     sinks: Optional[torch.Tensor] = None,
+    k_scale: Optional[torch.Tensor] = None,
+    v_scale: Optional[torch.Tensor] = None,
+    max_live: Optional[int] = None,
 ) -> torch.Tensor:
     """The kernel's function in plain PyTorch: the online-softmax fold over
-    the live 64-key tiles, in f32, sharing the tiles across each group."""
+    64-key tiles dequantized to f32, sharing the tiles across each group.
+    A tile past a lane's length leaves that lane's state untouched, so an
+    idle lane (length 0) gives zeros.  `max_live` bounds the lengths (read
+    from `lengths` when None)."""
     B, _, H, D = q.shape
     S, KVH = k.shape[1], k.shape[2]
     G = H // KVH
-    Vd = v.shape[-1]
     scale = D**-0.5 if scale is None else float(scale)
     dev = q.device
-    live = min(int(pos) + 1, S)
+    lengths = lengths.to(device=dev, dtype=torch.int64).clamp(max=S)
+    live = int(lengths.max()) if max_live is None else min(int(max_live), S)
     qf = q[:, 0].reshape(B, KVH, G, D).float() * scale
     m = torch.full((B, KVH, G, 1), NEG_INF, dtype=torch.float32, device=dev)
     l = torch.zeros((B, KVH, G, 1), dtype=torch.float32, device=dev)
-    acc = torch.zeros((B, KVH, G, Vd), dtype=torch.float32, device=dev)
+    acc = torch.zeros((B, KVH, G, D), dtype=torch.float32, device=dev)
     for k0 in range(0, live, BK):
-        kt = k[:, k0 : min(k0 + BK, live)].float()
-        vt = v[:, k0 : min(k0 + BK, live)].float()
+        k1 = min(k0 + BK, live)
+        valid = (k0 + torch.arange(k1 - k0, device=dev))[None, :] < lengths[:, None]  # [B, s]
+        # rows past a lane's length are never used, whatever they hold
+        tile = {"k": k[:, k0:k1], "v": v[:, k0:k1]}
+        if k_scale is not None:
+            tile.update(k_scale=k_scale[:, k0:k1], v_scale=v_scale[:, k0:k1])
+        rows = valid[:, :, None, None]
+        kt, vt = (torch.where(rows, t.float(), 0.0) for t in read_kv(tile))
         scores = torch.einsum("bkgd,bskd->bkgs", qf, kt)
+        scores = torch.where(valid[:, None, None, :], scores, NEG_INF)
         m_new = torch.maximum(m, scores.amax(dim=-1, keepdim=True))
         p = torch.exp(scores - m_new)
         corr = torch.exp(m - m_new)
-        l = l * corr + p.sum(dim=-1, keepdim=True)
-        acc = acc * corr + torch.einsum("bkgs,bskd->bkgd", p, vt)
-        m = m_new
+        tile_live = (lengths > k0)[:, None, None, None]
+        l = torch.where(tile_live, l * corr + p.sum(dim=-1, keepdim=True), l)
+        acc = torch.where(tile_live, acc * corr + torch.einsum("bkgs,bskd->bkgd", p, vt), acc)
+        m = torch.where(tile_live, m_new, m)
     if sinks is None:
         sink = torch.full((1, KVH, G, 1), NEG_INF, dtype=torch.float32, device=dev)
     else:
@@ -147,4 +214,4 @@ def flash_decode_plain(
     corr = torch.exp(m - m_fin)
     l_fin = l * corr + torch.exp(sink - m_fin)
     out = acc * corr / torch.clamp(l_fin, min=1e-30)
-    return out.reshape(B, 1, H, Vd).to(q.dtype)
+    return out.reshape(B, 1, H, D).to(q.dtype)

@@ -6,7 +6,8 @@ Counterpart of dnet_tpu/ops/paged_attention.py.  The kernel
 (csrc/paged_attention.cu) replaces the TPU kernel `_paged_kernel`
 (dnet_tpu/ops/paged_attention.py:92): slot b's query heads attend pool rows
 [0, pos[b]) through its page table, then the current token's row, which the
-caller appends to the pool after the call.  Each slot's loop stops at its
+caller appends to the pool after the call.  The pool is q's dtype, or bf16
+under an f32 q (DNET_KV_BITS=16 on an f32 model).  Each slot's loop stops at its
 own live length, so table entries past it are never read; the live range is
 split across blocks and a combine pass merges the splits.  The source's
 header says what bounds it on the card.
@@ -23,7 +24,7 @@ from typing import Optional
 import torch
 
 from dnet_tpu_torch.kernels import build
-from dnet_tpu_torch.ops.flash_decode import BK, HEAD_DIMS, MAX_GROUP, NEG_INF, split_plan
+from dnet_tpu_torch.ops.flash_decode import BK, HEAD_DIMS, KV_DTYPES, MAX_GROUP, NEG_INF, split_plan
 
 
 def ragged_refusal(model, kv_quant_bits: int = 0) -> Optional[str]:
@@ -75,10 +76,11 @@ def paged_attend(
     max_live: Optional[int] = None,
 ) -> torch.Tensor:
     """Kernel wrapper.  q [B, 1, H, D]; k_pool/v_pool [N_blocks, bt, KVH, D]
-    (one layer's pool); tables [B, nb] int32 (entries past a slot's live
-    blocks are never read); pos [B] int32 live pool rows per slot; k_new/v_new
-    [B, KVH, D] the current token's rows, attended at position pos.  Returns
-    [B, 1, H, D] in q.dtype.
+    (one layer's pool, in q's dtype or bf16 under an f32 q); tables [B, nb]
+    int32 (entries past a slot's live blocks are never read); pos [B] int32
+    live pool rows per slot; k_new/v_new [B, KVH, D] the current token's
+    rows in q's dtype, attended at position pos.  Returns [B, 1, H, D] in
+    q.dtype.
 
     `max_live` is the caller's upper bound on every pos (the host knows it
     without reading the device); it plans the split and defaults to the
@@ -98,8 +100,10 @@ def paged_attend(
             f"paged_attend takes bf16/f32, head dim 64/128 and at most {MAX_GROUP} "
             f"query heads per KV head; got {q.dtype}, {D}, {H // KVH}"
         )
-    build.check_cuda_tensors("paged_attend", q.dtype, q=q, k_pool=k_pool, v_pool=v_pool,
-                             k_new=k_new, v_new=v_new)
+    if k_pool.dtype not in KV_DTYPES[q.dtype]:
+        raise ValueError(f"paged_attend reads a {q.dtype} q over a {KV_DTYPES[q.dtype]} pool, got {k_pool.dtype}")
+    build.check_cuda_tensors("paged_attend", q.dtype, q=q, k_new=k_new, v_new=v_new)
+    build.check_cuda_tensors("paged_attend", k_pool.dtype, device=q.device, k_pool=k_pool, v_pool=v_pool)
     build.check_cuda_tensors("paged_attend", torch.int32, tables=tables, pos=pos)
     live_bound = nb * bt if max_live is None else min(int(max_live), nb * bt)
     # planned for the longest slot alone: ragged slots leave most (slot, KV
@@ -111,7 +115,7 @@ def paged_attend(
     part_ml = torch.empty((B, KVH, n_split, G, 2), dtype=torch.float32, device=q.device)
     out = torch.empty_like(q)
     rc = _entry()(
-        build.DTYPE_CODES[q.dtype], D, q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
+        build.DTYPE_CODES[q.dtype], build.DTYPE_CODES[k_pool.dtype], D, q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
         tables.data_ptr(), pos.data_ptr(), k_new.data_ptr(), v_new.data_ptr(), out.data_ptr(),
         part_o.data_ptr(), part_ml.data_ptr(), B, H, KVH, nb, bt, tiles_per_split, n_split,
         scale, build.current_stream_handle(q.device),
@@ -125,10 +129,10 @@ def paged_attend(
 paged_attend.launches = 0  # kernel launches since the last reset
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
-# dtype, head_dim, q, k_pool, v_pool, tables, pos, k_new, v_new, o, part_o,
-# part_ml, B, H, KVH, nb, bt, tiles_per_split, n_split, scale, stream
+# dtype, kv_dtype, head_dim, q, k_pool, v_pool, tables, pos, k_new, v_new, o,
+# part_o, part_ml, B, H, KVH, nb, bt, tiles_per_split, n_split, scale, stream
 _ARGTYPES = (
-    _I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+    _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
     _I, _I, _I, _I, _I, _I, _I, ctypes.c_float, _P,
 )
 

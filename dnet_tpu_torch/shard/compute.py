@@ -10,7 +10,9 @@ receiving shard) dequant + scatter run in the CUDA kernels of
 compression/ops.py.
 
 This slice serves one contiguous layer range per shard with resident
-weights, one request per ring pass and a synchronous encode.  Every option
+weights, one request per ring pass and a synchronous encode; the shard's KV
+cache takes the topology's kv_bits (bf16, int8 or packed int4, as
+core/kvcache.py `resolve_kv_bits` maps it).  Every option
 that would ask for more is refused at load (`ShardCapabilityError`) rather
 than quietly served as something else.
 """
@@ -32,6 +34,7 @@ from dnet_tpu_torch.compression import (
 )
 from dnet_tpu_torch.config import transport_settings, wire_settings
 from dnet_tpu_torch.core.engine import LocalEngine, bucket_length
+from dnet_tpu_torch.core.kvcache import resolve_kv_bits
 from dnet_tpu_torch.core.types import ActivationMessage
 from dnet_tpu_torch.utils.serialization import bytes_to_device, tensor_to_bytes
 
@@ -64,9 +67,9 @@ def refuse_unsupported(
     """Raise ShardCapabilityError for the first load option outside this
     slice: batched lanes, ring speculation, the ring prefix cache, k-round
     (non-contiguous) schedules, mesh or tensor parallelism, streamed
-    weights, quantized KV or weights, and the overlapped wire pipeline
-    (None: DNET_WIRE_PIPELINE).  Other keyword arguments are ignored, so a
-    caller can pass its whole load body."""
+    weights, a kv_bits that is none of 0/16/8/4, quantized weights, and the
+    overlapped wire pipeline (None: DNET_WIRE_PIPELINE).  Other keyword
+    arguments are ignored, so a caller can pass its whole load body."""
     if wire_pipeline is None:
         wire_pipeline = wire_settings().pipeline
     ls = sorted(int(a) for a in layers)
@@ -83,7 +86,7 @@ def refuse_unsupported(
          "mesh and tensor parallelism are not ported"),
         (window_size > 0 or residency_size > 0,
          f"window_size={window_size} residency_size={residency_size}: streamed weights are not ported"),
-        (kv_bits != 0, f"kv_bits={kv_bits}: quantized KV is not ported"),
+        (kv_bits not in (0, 4, 8, 16), f"kv_bits={kv_bits} (supported: 0/4/8/16)"),
         (weight_quant_bits != 0, f"weight_quant_bits={weight_quant_bits}: weight quantization is not ported"),
         (wire_pipeline, "DNET_WIRE_PIPELINE=1: the overlapped wire pipeline is not ported"),
     ]
@@ -131,9 +134,10 @@ class ShardCompute:
             wire_codec = "lossless" if w.codec == "auto" else w.codec
         if wire_codec not in ("lossless", "qsparse8"):
             raise ValueError(f"unknown wire codec {wire_codec!r} (lossless | qsparse8)")
+        kv_dtype, kv_quant_bits = resolve_kv_bits(kv_bits)
         self.engine = LocalEngine(
             model_dir, max_seq=max_seq, param_dtype=param_dtype, device=device,
-            layers=layers, shard_mode=True,
+            layers=layers, shard_mode=True, kv_dtype=kv_dtype, kv_quant_bits=kv_quant_bits,
         )
         self.engine.KV_TTL_S = kv_ttl_s
         self.layers = list(self.engine.model.layers)

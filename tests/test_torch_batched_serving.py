@@ -7,7 +7,8 @@ concurrent burst of prompts of different lengths must stream byte-identical
 greedy SSE once the response id and created stamp are normalised (the
 pattern of tests/subsystems/test_ragged_parity.py).  Capacity errors come
 back as 429, and every configuration the port does not serve yet is
-refused at load with 422."""
+refused at load with 422 (dense batched slots, DNET_KV_PAGED unset, are
+held in tests/test_torch_kv_serving.py)."""
 
 import asyncio
 import json
@@ -146,7 +147,7 @@ def test_slot_exhaustion_is_429(tiny_llama_dir, paged_env):
 @pytest.mark.parametrize(
     "env,match",
     [
-        ({"DNET_KV_PAGED": None}, "DNET_KV_PAGED=1"),  # dense batched slots
+        ({"DNET_KV_BLOCK_TOKENS": "24"}, "divide max_seq"),  # a block size max_seq is no multiple of
         ({"DNET_KV_RAGGED": None}, "DNET_KV_RAGGED=1"),  # dense-gather paged decode
         ({"DNET_API_PREFIX_CACHE": "4"}, "prefix cache"),
         ({"DNET_SCHED": "1"}, "scheduler"),

@@ -131,7 +131,18 @@ def test_serves_a_request_with_jax_and_reference_blocked(tmp_path):
     """Every port module imports, and the CLI serves one request on the CPU,
     in a process where importing jax or dnet_tpu raises."""
     health = _serve_one_guarded(tmp_path)
-    assert "engine" not in health  # the single-sequence engine
+    assert "slots" not in health["engine"]  # the single-sequence engine
+    assert health["engine"]["kv_quant_bits"] == 0
+
+
+def test_serves_a_quantized_request_with_jax_and_reference_blocked(tmp_path):
+    """The same guarded serve with DNET_KV_BITS=8: the single-sequence
+    engine gets an int8 cache."""
+    health = _serve_one_guarded(tmp_path, extra_env={"DNET_KV_BITS": "8"})
+    assert "slots" not in health["engine"]
+    assert health["engine"]["kv_quant_bits"] == 8
+    # 2 layers x 64 slots x 2 KV heads x (8 + 8 code bytes + 2 x 4 scale bytes)
+    assert health["engine"]["kv_bytes"] == 2 * 64 * 2 * (8 + 8 + 8)
 
 
 def test_serves_a_batched_request_with_jax_and_reference_blocked(tmp_path):
@@ -145,6 +156,15 @@ def test_serves_a_batched_request_with_jax_and_reference_blocked(tmp_path):
     assert health["admission"]["capacity"] == 2
     assert health["engine"]["slots"] == 2 and health["engine"]["decode_steps"] >= 4
     assert health["engine"]["kv_blocks_used"] == 0
+
+
+def test_serves_dense_batched_slots_with_jax_and_reference_blocked(tmp_path):
+    """--batch-slots 2 without DNET_KV_PAGED: dense slots, here with an
+    int4 cache."""
+    health = _serve_one_guarded(tmp_path, ["--batch-slots", "2"], {"DNET_KV_BITS": "4"})
+    engine = health["engine"]
+    assert engine["slots"] == 2 and engine["kv_mode"] == "dense" and engine["kv_quant_bits"] == 4
+    assert engine["decode_steps"] >= 4 and engine["active"] == 0
 
 
 @pytest.fixture

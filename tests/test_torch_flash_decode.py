@@ -12,7 +12,7 @@ import numpy as np
 import pytest
 import torch
 
-from dnet_tpu_torch.ops.flash_decode import flash_decode_attend, split_plan
+from dnet_tpu_torch.ops.flash_decode import decode_lengths, flash_decode_attend, split_plan
 
 pytestmark = pytest.mark.core
 
@@ -33,6 +33,11 @@ def _mk(rng, B, H, KVH, Hd, S):
     )
 
 
+def _attend(q, k, v, pos, **kw):
+    """The port's wrapper with every lane at `pos`."""
+    return flash_decode_attend(q, k, v, decode_lengths(q.shape[0], pos, q.device), pos + 1, **kw)
+
+
 def _ref(q, k, v, pos, sinks=None):
     from dnet_tpu.ops.flash_decode import flash_decode_attend as ref_decode
     from dnet_tpu.ops.flash_decode import flash_decode_eligible
@@ -48,14 +53,14 @@ def _ref(q, k, v, pos, sinks=None):
 @pytest.mark.parametrize("H,KVH", [(4, 2), (8, 2), (4, 4)])
 def test_matches_reference_kernel(rng, pos, H, KVH):
     q, k, v = _mk(rng, 2, H, KVH, 16, S)
-    got = flash_decode_attend(torch.from_numpy(q), torch.from_numpy(k), torch.from_numpy(v), pos)
+    got = _attend(torch.from_numpy(q), torch.from_numpy(k), torch.from_numpy(v), pos)
     np.testing.assert_allclose(got.numpy(), _ref(q, k, v, pos), **TOL)
 
 
 def test_sinks_match_reference_kernel(rng):
     q, k, v = _mk(rng, 1, 8, 2, 16, S)
     sinks = rng.normal(size=(8,)).astype(np.float32)
-    got = flash_decode_attend(
+    got = _attend(
         torch.from_numpy(q), torch.from_numpy(k), torch.from_numpy(v), 300,
         sinks=torch.from_numpy(sinks),
     )
@@ -65,10 +70,10 @@ def test_sinks_match_reference_kernel(rng):
 def test_dead_slots_are_never_read(rng):
     """Slots past pos are not attended: NaN garbage there changes nothing."""
     q, k, v = (torch.from_numpy(a) for a in _mk(rng, 1, 4, 2, 16, 128))
-    want = flash_decode_attend(q, k, v, 70)
+    want = _attend(q, k, v, 70)
     k[:, 71:] = float("nan")
     v[:, 71:] = float("nan")
-    torch.testing.assert_close(flash_decode_attend(q, k, v, 70), want)
+    torch.testing.assert_close(_attend(q, k, v, 70), want)
 
 
 @pytest.mark.parametrize("live,blocks,want", [
@@ -87,6 +92,7 @@ def test_split_plan_covers_live_tiles(live, blocks, want):
 def test_non_cpu_tensors_never_take_the_plain_version():
     q = torch.empty(1, 1, 32, 64, device="meta")
     k = torch.empty(1, 64, 8, 64, device="meta")
+    lengths = torch.empty(1, dtype=torch.int32, device="meta")
     with pytest.raises(ValueError, match="CUDA"):
-        flash_decode_attend(q, k, k, 3)
+        flash_decode_attend(q, k, k, lengths, 4)
 

@@ -5,8 +5,13 @@ nor dnet_tpu, so it runs where only torch is installed:
 
     python -m pytest --noconftest -m gpu tests/test_torch_kernels_gpu.py
 
-Shapes are Llama-3.2-1B's (H=32, KVH=8, D=64); the paged kernel reads a
-block pool through shuffled page tables at ragged per-slot lengths.  The
+Shapes are Llama-3.2-1B's (H=32, KVH=8, D=64); the decode kernel reads a
+plain cache (also bf16 under an f32 q, as DNET_KV_BITS=16 gives an f32
+model) and int8 / packed-int4 caches written by the port's write_kv, with a
+lengths vector of ragged lanes (an idle one included); the paged kernel
+reads a block pool (bf16 under an f32 q too) through shuffled page tables at
+ragged per-slot lengths.  The engines with a bf16 cache under f32 params run
+on the card against the CPU's plain versions.  The
 hop codec's column kernels run at its widths (C=2048) and at odd ones, with
 R=1 frames: norms within 2e-5 relative in f32 (1e-2 in bf16 inputs summed
 in f32), gather and dequant-scatter equal bit for bit.  Tolerances: f32 1e-4 (sums
@@ -28,7 +33,8 @@ from dnet_tpu_torch.compression.ops import (
     quantize_q8,
 )
 from dnet_tpu_torch.ops.flash_attention import flash_prefill, flash_prefill_plain
-from dnet_tpu_torch.ops.flash_decode import flash_decode_attend, flash_decode_plain
+from dnet_tpu_torch.core.kvcache import KVConfig, init_cache, layer_slices, write_kv
+from dnet_tpu_torch.ops.flash_decode import decode_lengths, flash_decode_attend, flash_decode_plain
 from dnet_tpu_torch.ops.paged_attention import paged_attend, paged_attend_plain
 
 pytestmark = pytest.mark.gpu
@@ -66,12 +72,82 @@ def test_prefill_kernel_matches_plain(gen, dtype, T, pos, S, sinks):
 def test_decode_kernel_matches_plain(gen, dtype, pos):
     q = _randn(gen, dtype, 1, 1, 32, 64)
     k, v = _randn(gen, dtype, 1, 4096, 8, 64), _randn(gen, dtype, 1, 4096, 8, 64)
+    lengths = decode_lengths(1, pos, "cuda")
     before = flash_decode_attend.launches
-    out = flash_decode_attend(q, k, v, pos)
+    out = flash_decode_attend(q, k, v, lengths, pos + 1)
     torch.cuda.synchronize()
     assert flash_decode_attend.launches == before + 1
-    want = flash_decode_plain(q.float(), k.float(), v.float(), pos)
+    want = flash_decode_plain(q.float(), k.float(), v.float(), lengths)
     assert (out.float() - want).abs().max().item() <= TOL[dtype]
+
+
+LANE_LENGTHS = [1, 0, 64, 65, 300, 1500, 4095, 4096]
+
+
+def _quant_cache(gen, bits, B, S=4096):
+    """One layer's cache of B lanes, every slot written by the port's
+    write_kv from bf16 rows."""
+    kvs = layer_slices(init_cache(KVConfig(1, B, S, 8, 64, quant_bits=bits), torch.device("cuda")), 0)
+    write_kv(kvs, _randn(gen, torch.bfloat16, B, S, 8, 64), _randn(gen, torch.bfloat16, B, S, 8, 64), 0)
+    return kvs
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("bits", [8, 4])
+@pytest.mark.parametrize("pos", [0, 63, 64, 1024, 4095])
+def test_quantized_decode_kernel_matches_plain(gen, dtype, bits, pos):
+    kvs = _quant_cache(gen, bits, 1)
+    q = _randn(gen, dtype, 1, 1, 32, 64)
+    lengths = decode_lengths(1, pos, "cuda")
+    name = f"launches_q{bits}"
+    before, plain = getattr(flash_decode_attend, name), flash_decode_attend.launches
+    out = flash_decode_attend(q, kvs["k"], kvs["v"], lengths, pos + 1, k_scale=kvs["k_scale"],
+                              v_scale=kvs["v_scale"])
+    torch.cuda.synchronize()
+    assert getattr(flash_decode_attend, name) == before + 1 and flash_decode_attend.launches == plain
+    want = flash_decode_plain(q.float(), kvs["k"], kvs["v"], lengths, k_scale=kvs["k_scale"],
+                              v_scale=kvs["v_scale"])
+    assert out.dtype == dtype and (out.float() - want).abs().max().item() <= TOL[dtype]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("bits", [0, 8, 4])
+def test_decode_kernel_lengths_vector(gen, bits, dtype):
+    """Eight lanes at ragged lengths in one launch, planned for the longest
+    (and for a bound above it): each lane as the plain version gives it,
+    the idle lane zeros.  An f32 q holds it to 1e-4, where one length off by
+    one would show."""
+    B = len(LANE_LENGTHS)
+    q = _randn(gen, dtype, B, 1, 32, 64)
+    if bits:
+        kvs = _quant_cache(gen, bits, B)
+        scales = {"k_scale": kvs["k_scale"], "v_scale": kvs["v_scale"]}
+        k, v = kvs["k"], kvs["v"]
+    else:
+        k, v = _randn(gen, dtype, B, 4096, 8, 64), _randn(gen, dtype, B, 4096, 8, 64)
+        scales = {}
+    lengths = torch.tensor(LANE_LENGTHS, dtype=torch.int32, device="cuda")
+    want = flash_decode_plain(q.float(), k if bits else k.float(), v if bits else v.float(), lengths, **scales)
+    for max_live in (max(LANE_LENGTHS), 4096):
+        out = flash_decode_attend(q, k, v, lengths, max_live, **scales)
+        torch.cuda.synchronize()
+        assert (out.float() - want).abs().max().item() <= TOL[dtype]
+        assert not out[1].any()
+
+
+@pytest.mark.parametrize("pos", [0, 63, 1024, 4095])
+def test_decode_kernel_bf16_cache_under_f32_q(gen, pos):
+    """DNET_KV_BITS=16 on an f32 model: the kernel reads the bf16 cache as it
+    is, with the f32 q, counted as the plain variant."""
+    q = _randn(gen, torch.float32, 1, 1, 32, 64)
+    k, v = _randn(gen, torch.bfloat16, 1, 4096, 8, 64), _randn(gen, torch.bfloat16, 1, 4096, 8, 64)
+    lengths = decode_lengths(1, pos, "cuda")
+    before = flash_decode_attend.launches
+    out = flash_decode_attend(q, k, v, lengths, pos + 1)
+    torch.cuda.synchronize()
+    assert flash_decode_attend.launches == before + 1
+    want = flash_decode_plain(q, k.float(), v.float(), lengths)
+    assert out.dtype == torch.float32 and (out - want).abs().max().item() <= TOL[torch.float32]
 
 
 def test_cuda_tensor_never_takes_the_plain_version(gen):
@@ -82,7 +158,9 @@ def test_cuda_tensor_never_takes_the_plain_version(gen):
     with pytest.raises(ValueError):
         flash_prefill(q, k, k, 0)
     with pytest.raises(ValueError):
-        flash_decode_attend(q[:, :1], k, k, 3)
+        flash_decode_attend(q[:, :1], k, k, decode_lengths(1, 3, "cuda"), 4)
+    with pytest.raises(ValueError):  # int64 lengths are not the kernel's
+        flash_decode_attend(q[:, :1].float(), k.float(), k.float(), torch.full((1,), 4, device="cuda"), 4)
 
 
 PAGED_POSITIONS = [0, 15, 16, 100, 1023, 2047, 4000, 4094]
@@ -130,6 +208,76 @@ def test_paged_kernel_matches_plain(gen, dtype, bt):
         assert paged_attend.launches == before + 1
         assert out.shape == case[0].shape and out.dtype == dtype
         assert (out.float() - want).abs().max().item() <= TOL[dtype]
+
+
+@pytest.mark.parametrize("bt", [8, 64])
+def test_paged_kernel_bf16_pool_under_f32_q(gen, bt):
+    """DNET_KV_BITS=16 on an f32 model: a bf16 pool under an f32 q, the new
+    rows in f32 (attended unrounded)."""
+    q, k_pool, v_pool, tables, pos, k_new, v_new = _paged_case(gen, torch.float32, bt)
+    k_pool, v_pool = k_pool.to(torch.bfloat16), v_pool.to(torch.bfloat16)
+    case = (q, k_pool, v_pool, tables, pos, k_new, v_new)
+    want = paged_attend_plain(q, k_pool.float(), v_pool.float(), tables, pos, k_new, v_new)
+    out = paged_attend(*case, max_live=max(PAGED_POSITIONS))
+    torch.cuda.synchronize()
+    assert out.dtype == torch.float32 and (out - want).abs().max().item() <= TOL[torch.float32]
+
+
+def _small_model():
+    from dnet_tpu_torch.models import ModelConfig
+    from dnet_tpu_torch.utils.random_init import random_llama_params
+
+    cfg = ModelConfig.from_hf({
+        "model_type": "llama", "vocab_size": 512, "hidden_size": 256, "intermediate_size": 512,
+        "num_hidden_layers": 2, "num_attention_heads": 4, "num_key_value_heads": 2, "head_dim": 64,
+        "rope_theta": 500000.0, "tie_word_embeddings": True,
+    })
+    window, edge = random_llama_params(cfg, range(2), torch.device("cpu"), torch.float32, seed=1)
+    return cfg, window, edge
+
+
+@pytest.mark.parametrize("mode", ["single", "dense", "paged"])
+def test_engines_bf16_cache_under_f32_params(gen, monkeypatch, mode):
+    """kv_dtype bf16 under f32 params (DNET_KV_BITS=16) serves on the card:
+    the single-sequence engine, dense batched slots and paged + ragged
+    slots, each against the same engine on the CPU (greedy tokens equal,
+    logprobs within 2e-3)."""
+    from dnet_tpu_torch.core.batch import BatchedEngine
+    from dnet_tpu_torch.core.engine import LocalEngine
+    from dnet_tpu_torch.core.types import DecodingParams
+
+    cfg, window, edge = _small_model()
+    if mode == "paged":
+        for name, value in {"DNET_KV_PAGED": "1", "DNET_KV_RAGGED": "1", "DNET_KV_BLOCK_TOKENS": "8"}.items():
+            monkeypatch.setenv(name, value)
+    else:
+        monkeypatch.delenv("DNET_KV_PAGED", raising=False)
+    prompts = {f"p{n}": [(7 * i + n) % 500 + 1 for i in range(n)] for n in (5, 40, 69)}
+    dec = DecodingParams(logprobs=True)
+    got = {}
+    for dev in ("cuda", "cpu"):
+        kw = dict(max_seq=256, param_dtype="float32", device=dev, kv_dtype="bfloat16")
+        if mode == "single":
+            eng = LocalEngine.from_params(cfg, window, edge, **kw)
+            got[dev] = {n: [(r.token_id, r.logprob) for r in eng.generate(ids, dec, max_tokens=12, nonce=n)]
+                        for n, ids in prompts.items()}
+            continue
+        eng = BatchedEngine.from_params(cfg, window, edge, slots=4, **kw)
+        toks = {}
+        for n, ids in prompts.items():
+            r = eng.prefill_and_sample(n, ids, dec)
+            toks[n] = [(int(r.token[0]), float(r.logprob[0]))]
+        for step in range(8):
+            out, errs = eng.decode_batch({n: (t[-1][0], dec) for n, t in toks.items()},
+                                         budgets={n: 8 - step for n in toks} if step >= 4 else None)
+            assert not errs
+            for n, r in out.items():
+                toks[n].append((int(r.token[0]), float(r.logprob[0])))
+        eng.close()
+        got[dev] = toks
+    for n in prompts:
+        assert [t for t, _ in got["cuda"][n]] == [t for t, _ in got["cpu"][n]]
+        assert max(abs(a[1] - b[1]) for a, b in zip(got["cuda"][n], got["cpu"][n])) <= 2e-3
 
 
 def test_paged_kernel_cuda_tensor_never_takes_the_plain_version(gen):

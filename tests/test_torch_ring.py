@@ -143,7 +143,7 @@ def _api(net, kind, auto_steps):
 
 
 async def _run_ring(model_dir, kinds=("port", "port"), api_kind="port", auto_steps=16, codec="lossless",
-                    prompts=PROMPTS, steps=STEPS, decoding=None):
+                    prompts=PROMPTS, steps=STEPS, decoding=None, kv_bits=0):
     """Serve each prompt for `steps` tokens through a two-shard ring of the
     given kinds; returns (streams, net, shard runtimes)."""
     net = Net()
@@ -156,7 +156,8 @@ async def _run_ring(model_dir, kinds=("port", "port"), api_kind="port", auto_ste
     try:
         await asyncio.gather(*(
             loop.run_in_executor(None, lambda rt=rt, ls=ls: rt.load_model_core(
-                str(model_dir), ls, max_seq=MAX_SEQ, param_dtype="float32", wire_codec=codec))
+                str(model_dir), ls, max_seq=MAX_SEQ, param_dtype="float32", wire_codec=codec,
+                kv_bits=kv_bits))
             for (rt, _), ls in zip(nodes, ([0, 1], [2, 3]))
         ))
         nodes[0][1].configure_topology("s1")
@@ -187,10 +188,13 @@ async def _run_ring(model_dir, kinds=("port", "port"), api_kind="port", auto_ste
             rt.stop()
 
 
-def _local_streams(model_dir, decoding=None, prompts=PROMPTS, steps=STEPS):
+def _local_streams(model_dir, decoding=None, prompts=PROMPTS, steps=STEPS, kv_bits=0):
     from dnet_tpu_torch.core.engine import LocalEngine
+    from dnet_tpu_torch.core.kvcache import resolve_kv_bits
 
-    eng = LocalEngine(model_dir, max_seq=MAX_SEQ, param_dtype="float32", device="cpu")
+    kv_dtype, kv_quant_bits = resolve_kv_bits(kv_bits)
+    eng = LocalEngine(model_dir, max_seq=MAX_SEQ, param_dtype="float32", device="cpu", kv_dtype=kv_dtype,
+                      kv_quant_bits=kv_quant_bits)
     dec = decoding or DecodingParams(temperature=0.0)
     return [[r.token_id for r in eng.generate(p, dec, max_tokens=steps, nonce=f"l{i}")]
             for i, p in enumerate(prompts)]
@@ -214,6 +218,19 @@ def test_seeded_sampling_with_grants_matches_local(tiny_llama_dir):
     dec = DecodingParams(temperature=0.8, top_p=0.95, seed=1234)
     ring, _, _ = asyncio.run(_run_ring(tiny_llama_dir, decoding=dec, prompts=PROMPTS[:2]))
     assert ring == _local_streams(tiny_llama_dir, dec, prompts=PROMPTS[:2])
+
+
+@pytest.mark.parametrize("kv_bits", [8, 4, 16])
+def test_quantized_kv_ring_matches_local_and_reference_ring(tiny_llama_dir, kv_bits):
+    """kv_bits from the topology: each shard's cache is int8 / packed int4
+    (or bf16 under f32 params), and the ring's greedy stream equals the
+    single process's with the same cache, and dnet_tpu's ring's."""
+    port, _, rts = asyncio.run(_run_ring(tiny_llama_dir, prompts=PROMPTS[:2], kv_bits=kv_bits))
+    assert [rt.compute.engine.kv_quant_bits for rt in rts] == [0 if kv_bits == 16 else kv_bits] * 2
+    assert port == _local_streams(tiny_llama_dir, prompts=PROMPTS[:2], kv_bits=kv_bits)
+    ref, _, _ = asyncio.run(_run_ring(tiny_llama_dir, kinds=("ref", "ref"), api_kind="ref", prompts=PROMPTS[:2],
+                                      kv_bits=kv_bits))
+    assert port == ref
 
 
 def test_decode_grants_feed_the_tail_back_to_the_head(tiny_llama_dir):
@@ -293,7 +310,7 @@ def test_mixed_ring_qsparse8_completes(tiny_llama_dir, local_greedy, qsparse_pct
 REFUSED = [
     dict(lanes=2), dict(spec_lookahead=4), dict(prefix_cache=4), dict(layers=[0, 2]),
     dict(mesh_tp=2), dict(mesh_tp=-1), dict(mesh_sp=2), dict(tp_degree=2), dict(window_size=1),
-    dict(residency_size=2), dict(kv_bits=8), dict(weight_quant_bits=8), dict(wire_pipeline=True),
+    dict(residency_size=2), dict(kv_bits=3), dict(weight_quant_bits=8), dict(wire_pipeline=True),
 ]
 
 
