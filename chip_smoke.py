@@ -92,6 +92,30 @@ sequence, dense batched slots and the ring's shards:
                 greedy, streamed and seeded sampled requests, whose text must
                 equal quant_serve's q8 run's, and
                 each shard's q8 decode kernel once per layer per step.
+gpt-oss-20b (MoE, sinks, YaRN, alternating sliding/full layers), the fifth
+path, on the single-sequence engine:
+  kernels         the decode kernel's rotating variant at its widths (B=1, a
+                  ring of W=128 slots, H=64, KVH=8, D=64, sinks) at pos 0,
+                  127, 128, 300 and 4095: f32 and bf16 rings, q8 / q4 rings
+                  the port's write_kv_rotating filled (bf16 q), one bf16 row
+                  with a window of 91; library yardstick SDPA over the
+                  attended slots in position order with the sink as an extra
+                  key column.
+  gpt_oss_parity  a small gpt_oss (4 layers, head dim 64, G=8, W=32, 4
+                  experts top-2, f32) on the GPU against the CPU: prefill
+                  logits within 2e-3 and 48 equal greedy tokens past two
+                  wraps, over an f32 and an int8 cache.
+  gpt_oss_step    one full-width greedy decode step of all 24 layers (random
+                  bf16 params made on the card, ~41.8 GB, dense MoE as the
+                  reference's default) at pos ~300: wall, host issue, device
+                  busy, the attention kernels' share, launches, the bound.
+  gpt_oss_serve   the first 8 layers (4 sliding/full pairs) written as a
+                  checkpoint and served: the serve phase's requests plus a
+                  ~300-token prompt, 64 tokens each; the rotating kernel 4
+                  times per decode step, the plain one 4 times, the prefill
+                  kernel 4 times per prompt, and /health engine.kv_bytes
+                  34,603,008 (the paired cache; a flat one would hold
+                  67,108,864).
 Then the kernels summary line, the card line, and the last line
 {"ok": true, "device": {...}}.  Without a CUDA device it exits non-zero
 and prints no result.
@@ -1482,6 +1506,334 @@ def phase_batch_serve(model_dir: str, port: int, batch_step: dict) -> dict:
     return row
 
 
+# gpt-oss-20b (the fifth path): heads, KV heads, head dim, the sliding
+# window (= the ring's rows), its layers; the rotating decode kernel's
+# positions (before, at and past the ring's wrap, and deep); the 8-layer
+# serve's prompt in tokens (its ring wraps in prefill and decode)
+OSS_H, OSS_KVH, OSS_D, OSS_W, OSS_LAYERS = 64, 8, 64, 128, 24
+ROT_POSITIONS = [0, 127, 128, 300, 4095]
+ROT_SHORT_WINDOW = 91
+OSS_SERVE_LAYERS = 8
+OSS_MODEL = "gpt-oss-20b-synthetic"
+# /health engine.kv_bytes of one sequence at max_seq 4096, bf16: 4 full
+# layers x 4096 rows + 4 sliding layers x 128 rows, k and v, 8 KV heads x 64
+OSS_SERVE_KV_BYTES = 34_603_008
+
+
+def rotating_bound(pos: int, window: int, qbits: int, dtype) -> tuple:
+    """(ms, bound_by) for one rotating decode call: q and the output once
+    (in `dtype`), the sinks, and each ring slot the query attends (its last
+    min(pos + 1, window) positions) once as the cache stores it; 4*D
+    operations per (head, key) pair."""
+    size = torch.tensor([], dtype=dtype).element_size()
+    keys = min(pos + 1, window)
+    row = {0: OSS_D * size, 8: OSS_D + 4, 4: OSS_D // 2 + 4}[qbits]  # bytes per (slot, KV head)
+    nbytes = 2 * OSS_H * OSS_D * size + 4 * OSS_H + 2 * keys * OSS_KVH * row
+    return bytes_ops_bound(nbytes, 4 * OSS_H * OSS_D * keys, dtype)
+
+
+def phase_rotating_kernels() -> dict:
+    """The decode kernel's rotating variant at gpt-oss-20b's widths (B=1, a
+    ring of W=128 slots, H=64, KVH=8, D=64, sinks) against its plain
+    version: f32 and bf16 rings, and q8 / q4 rings that the port's
+    write_kv_rotating filled from 3W bf16 rows (bf16 q), at ROT_POSITIONS
+    with the served window (= W), and one bf16 row with a shorter window.
+    Each timed call reads one of the 12 sliding layers' rings (1.5 MB in
+    all: they stay in the 50 MB L2).  Library yardstick: SDPA over the
+    attended slots unrolled into position order, with the sink as an extra
+    key column (a zero key and value whose additive mask entry is the
+    sink logit); the unrolling and dequant are not timed.  Returns the
+    main rows (pos 300, the step's position)."""
+    from torch.nn.functional import scaled_dot_product_attention as sdpa
+
+    from dnet_tpu_torch.core.kvcache import KVConfig, init_cache, layer_slices, read_kv, write_kv_rotating
+    from dnet_tpu_torch.ops.flash_decode import decode_lengths, flash_decode_attend, flash_decode_plain
+
+    g = torch.Generator(device="cuda").manual_seed(7)
+    L = OSS_LAYERS // 2
+    main = {}
+    forms = [("float32", torch.float32, 0), ("bfloat16", torch.bfloat16, 0), ("q8", torch.bfloat16, 8),
+             ("q4", torch.bfloat16, 4)]
+    for form, dtype, bits in forms:
+        if bits:
+            kv = init_cache(KVConfig(L, 1, OSS_W, OSS_KVH, OSS_D, quant_bits=bits), torch.device("cuda"))
+            rings = [layer_slices(kv, l) for l in range(L)]
+            for ring in rings:
+                rows = [torch.randn(1, 3 * OSS_W, OSS_KVH, OSS_D, generator=g, device="cuda").to(torch.bfloat16)
+                        for _ in range(2)]
+                write_kv_rotating(ring, rows[0], rows[1], 0)
+        else:
+            rings = [{n: torch.randn(1, OSS_W, OSS_KVH, OSS_D, generator=g, device="cuda").to(dtype)
+                      for n in ("k", "v")} for _ in range(L)]
+        scales = [{n: r[n] for n in ("k_scale", "v_scale")} if bits else {} for r in rings]
+        cases = [(p, OSS_W) for p in ROT_POSITIONS] + ([(300, ROT_SHORT_WINDOW)] if form == "bfloat16" else [])
+        for pos, window in cases:
+            q = torch.randn(1, 1, OSS_H, OSS_D, generator=g, device="cuda").to(dtype)
+            sinks = torch.randn(OSS_H, generator=g, device="cuda")
+            lengths = decode_lengths(1, pos, "cuda")
+            live = min(pos + 1, OSS_W)
+
+            def kern(l):
+                r = rings[l]
+                return flash_decode_attend(q, r["k"], r["v"], lengths, live, sinks=sinks, rotating=True,
+                                           window=window, **scales[l])
+
+            def plain(l):
+                r = rings[l]
+                return flash_decode_plain(q, r["k"], r["v"], lengths, sinks=sinks, max_live=live, rotating=True,
+                                          window=window, **scales[l])
+
+            out = kern(0)
+            torch.cuda.synchronize()
+            r0 = rings[0]
+            want = flash_decode_plain(q.float(), r0["k"] if bits else r0["k"].float(),
+                                      r0["v"] if bits else r0["v"].float(), lengths, sinks=sinks, rotating=True,
+                                      window=window, **scales[0])
+            err = (out.float() - want).abs().max().item()
+            tol = TOL[dtype]
+            check(out.shape == q.shape and out.dtype == dtype and bool(torch.isfinite(out).all()),
+                  "rotating decode output")
+            check(err <= tol, f"rotating decode {form} pos={pos} window={window}: max err {err}")
+            # the yardstick: the attended slots in position order plus a sink column
+            keys = min(pos + 1, window)
+            slots = torch.remainder(torch.arange(pos - keys + 1, pos + 1, device="cuda"), OSS_W)
+            unrolled = []
+            for l, r in enumerate(rings):
+                kc, vc = read_kv({n: t[:, slots] for n, t in r.items()})
+                kc, vc = (torch.cat([t.to(dtype), torch.zeros_like(t[:, :1], dtype=dtype)], dim=1).transpose(1, 2)
+                          .contiguous() for t in (kc, vc))
+                unrolled.append((kc, vc))
+            bias = torch.zeros(1, OSS_H, 1, keys + 1, device="cuda", dtype=dtype)
+            bias[0, :, 0, -1] = sinks.to(dtype)
+            qt = q.transpose(1, 2)
+
+            def lib(l):
+                return sdpa(qt, unrolled[l][0], unrolled[l][1], attn_mask=bias, enable_gqa=True)
+
+            lib_err = (lib(0).transpose(1, 2).float() - want).abs().max().item()
+            check(lib_err <= TOL[torch.bfloat16], f"rotating library yardstick disagrees: {lib_err}")
+            bound, by = rotating_bound(pos, window, bits, dtype)
+            name = "flash_decode_rotating" + (f"_q{bits}" if bits else "")
+            row = {
+                "phase": "kernels", "kernel": name, "dtype": str(dtype).split(".")[-1], "cache": form,
+                "pos": pos, "window": window, "W": OSS_W, "H": OSS_H, "KVH": OSS_KVH, "D": OSS_D,
+                "max_err": err, "tol": tol,
+                "kernel_ms": device_time_ms(kern, L), "plain_ms": device_time_ms(plain, L, 5),
+                "library_ms": device_time_ms(lib, L),
+                "library_call": "scaled_dot_product_attention over the attended slots in position order, the "
+                                "sink as an extra zero key whose additive mask entry is the sink logit (the "
+                                "unrolling and dequant are not timed)",
+                "library_max_err": lib_err, "bound_ms": bound, "bound_by": by,
+            }
+            emit(row)
+            if pos == 300 and window == OSS_W and dtype == torch.bfloat16:
+                main[name] = row
+            del unrolled
+        del rings, scales
+    torch.cuda.empty_cache()
+    return main
+
+
+def _oss_small():
+    """The gpt_oss parity model: small, f32, with the kernels' head dim and
+    gpt-oss-20b's grouping (G = 8), a ring of W = 32, 4 layers, 4 experts
+    top-2, YaRN, sinks."""
+    from dnet_tpu_torch.models import ModelConfig
+    from dnet_tpu_torch.utils.random_init import GPT_OSS_20B_CONFIG, random_gpt_oss_params
+
+    cfg = ModelConfig.from_hf(dict(
+        GPT_OSS_20B_CONFIG, vocab_size=512, hidden_size=256, intermediate_size=128, num_hidden_layers=4,
+        num_attention_heads=16, num_key_value_heads=2, head_dim=64, num_local_experts=4,
+        num_experts_per_tok=2, sliding_window=32, layer_types=["sliding_attention", "full_attention"] * 2,
+    ))
+    window, edge = random_gpt_oss_params(cfg, range(4), torch.device("cpu"), torch.float32, seed=2)
+    return cfg, window, edge
+
+
+def phase_gpt_oss_parity() -> None:
+    """gpt_oss's single-sequence engine on the GPU (the rotating decode
+    kernel on the sliding half, the prefill and decode kernels on the full
+    half) against the CPU (plain versions), same f32 weights: a 40-token
+    prompt (the ring of 32 wraps in prefill) and 48 greedy tokens (two more
+    wraps), over an f32 cache and an int8 one."""
+    from dnet_tpu_torch.core.engine import LocalEngine
+    from dnet_tpu_torch.core.types import DecodingParams
+    from dnet_tpu_torch.kernels import launch_counts, reset_launch_counts
+
+    cfg, window, edge = _oss_small()
+    prompt = [(11 * i) % 500 + 1 for i in range(40)]
+    n_tokens = 48
+    for bits in (0, 8):
+        engines = {dev: LocalEngine.from_params(cfg, window, edge, max_seq=256, param_dtype="float32", device=dev,
+                                                kv_quant_bits=bits) for dev in ("cuda", "cpu")}
+        reset_launch_counts()
+        logits = {dev: e.prefill("p", prompt).float().cpu() for dev, e in engines.items()}
+        err = (logits["cuda"] - logits["cpu"]).abs().max().item()
+        check(bool(torch.isfinite(logits["cuda"]).all()) and logits["cuda"].shape == (1, 512), "gpt_oss logits")
+        check(err <= 2e-3, f"gpt_oss q{bits} GPU vs CPU prefill logits: max err {err}")
+        for e in engines.values():
+            e.end_session("p")
+        streams = {dev: [r.token_id for r in e.generate(prompt, DecodingParams(), max_tokens=n_tokens, nonce="g")]
+                   for dev, e in engines.items()}
+        check(streams["cuda"] == streams["cpu"], f"gpt_oss q{bits} greedy streams differ: {streams}")
+        torch.cuda.synchronize()
+        launches = launch_counts()
+        steps = n_tokens - 1
+        rot = "flash_decode_rotating" + (f"_q{bits}" if bits else "")
+        dec = "flash_decode" + (f"_q{bits}" if bits else "")
+        check(launches[rot] == 2 * steps and launches[dec] == 2 * steps and launches["flash_prefill"] == 2 * 2,
+              f"gpt_oss q{bits} parity launches {launches}")
+        emit({"phase": "gpt_oss_parity", "kv_bits": bits, "layers": 4, "W": 32, "H": 16, "KVH": 2, "D": 64,
+              "experts": 4, "top_k": 2, "prompt_tokens": len(prompt), "logits_max_err": err, "tol": 2e-3,
+              "greedy_tokens": len(streams["cuda"]), "launches": {k: v for k, v in launches.items() if v}})
+
+
+def phase_gpt_oss_step(cfg, window, edge, n_prompt: int) -> dict:
+    """Where a full-width gpt-oss-20b greedy decode step's time goes (24
+    layers, the reference's default dense MoE, bf16, max_seq 4096) at pos
+    ~300, past the ring's wrap: the synchronised wall time, the host's time
+    to issue it, the device's busy time (profiler), the attention kernels'
+    share, the launches, and the step's bound (every layer's weights and the
+    LM head read once)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from dnet_tpu_torch.core.engine import LocalEngine
+    from dnet_tpu_torch.core.types import DecodingParams
+
+    eng = LocalEngine.from_params(cfg, window, edge, max_seq=S, device="cuda")
+    check(eng.model.moe_impl == "dense", f"moe_impl {eng.model.moe_impl}")
+    d = DecodingParams()
+    tok = int(eng.prefill_and_sample("s", [(7 * t) % 250 + 1 for t in range(n_prompt)], d).token[0])
+    for _ in range(5):
+        tok = int(eng.decode_step("s", tok, d).token[0])
+    torch.cuda.synchronize()
+    wall, issue = [], []
+    for _ in range(20):
+        t0 = time.perf_counter()
+        res = eng.decode_step("s", tok, d)
+        issue.append((time.perf_counter() - t0) * 1e3)
+        tok = int(res.token[0])  # waits for the step
+        wall.append((time.perf_counter() - t0) * 1e3)
+    steps = 5
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(steps):
+            tok = int(eng.decode_step("s", tok, d).token[0])
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    device_ms = sum(e.self_device_time_total for e in kernels) / 1e3 / steps
+    attn_ms = sum(e.self_device_time_total for e in kernels if "flash_" in e.name) / 1e3 / steps
+    check(device_ms > 0, "the profiler saw no device time")
+    # the matrix products' share (cuBLAS's gemm / gemv / nvjet kernels,
+    # CUTLASS) and the kernels that take the most device time, per step
+    by_name = {}
+    for e in kernels:
+        by_name[e.name] = by_name.get(e.name, 0.0) + e.self_device_time_total / 1e3 / steps
+    matmul_ms = sum(t for n, t in by_name.items() if any(w in n.lower() for w in ("gemm", "gemv", "nvjet", "cutlass")))
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
+    wall_ms = statistics.median(wall)
+    weight_bytes = sum(t.numel() * t.element_size() for p in window for t in p.values())
+    weight_bytes += edge["lm_head"]["weight"].numel() * edge["lm_head"]["weight"].element_size()
+    row = {"phase": "gpt_oss_step", "gpu": gpu_line(), "model": "gpt-oss-20b (synthetic bf16 weights, seed 0)",
+           "layers": cfg.num_hidden_layers, "moe_impl": "dense", "steps": len(wall), "pos": eng.sessions["s"].pos,
+           "wall_ms": wall_ms, "host_issue_ms": statistics.median(issue), "device_busy_ms": device_ms,
+           "device_idle_share": 1.0 - device_ms / wall_ms, "attention_kernels_ms": attn_ms,
+           "matmul_kernels_ms": matmul_ms, "top_kernels_ms": {n[:80]: t for n, t in top},
+           "kernel_launches": len(kernels) // steps, "weight_bytes": weight_bytes,
+           "bound_ms": weight_bytes / HBM_BYTES_PER_S * 1e3, "kv_bytes": eng.kv_bytes,
+           "peak_memory_bytes": torch.cuda.max_memory_allocated()}
+    emit(row)
+    eng.close()
+    return row
+
+
+def phase_gpt_oss(prompt_text: str, long_text: str, port: int) -> tuple:
+    """gpt-oss-20b at full width: the 24-layer step from random params made
+    on the card, then the first OSS_SERVE_LAYERS layers (4 sliding/full
+    pairs) and the edge written as a checkpoint and served over HTTP."""
+    from dnet_tpu_torch.models import ModelConfig
+    from dnet_tpu_torch.models.convert import hf_tensors
+    from dnet_tpu_torch.utils.checkpoint import save_checkpoint
+    from dnet_tpu_torch.utils.random_init import GPT_OSS_20B_CONFIG, random_gpt_oss_params
+
+    tmp = os.path.join(tempfile.mkdtemp(prefix="dnet-torch-smoke-oss-"), OSS_MODEL)
+    try:
+        t0 = time.perf_counter()
+        torch.cuda.reset_peak_memory_stats()
+        cfg = ModelConfig.from_hf(GPT_OSS_20B_CONFIG)
+        window, edge = random_gpt_oss_params(cfg, range(cfg.num_hidden_layers), torch.device("cuda"),
+                                             torch.bfloat16, seed=0)
+        init_s = time.perf_counter() - t0
+        step = dict(phase_gpt_oss_step(cfg, window, edge, 300), init_s=init_s)
+        t0 = time.perf_counter()
+        served_cfg = dict(GPT_OSS_20B_CONFIG, num_hidden_layers=OSS_SERVE_LAYERS,
+                          layer_types=GPT_OSS_20B_CONFIG["layer_types"][:OSS_SERVE_LAYERS])
+        save_checkpoint(tmp, served_cfg, hf_tensors(window[:OSS_SERVE_LAYERS], edge))
+        del window, edge
+        torch.cuda.empty_cache()
+        write_s = time.perf_counter() - t0
+        serve = phase_gpt_oss_serve(tmp, port, prompt_text, long_text, write_s)
+    finally:
+        shutil.rmtree(os.path.dirname(tmp), ignore_errors=True)
+    return step, serve
+
+
+def phase_gpt_oss_serve(model_dir: str, port: int, prompt_text: str, long_text: str, write_s: float) -> dict:
+    """The 8-layer full-width gpt-oss checkpoint served single-sequence by
+    the port's server: the serve phase's greedy, seeded sampled and three
+    streamed requests, then one streamed request with a ~300-token prompt,
+    all 64 tokens, so the 128-row ring wraps in prefill and in decode.  The
+    rotating kernel runs 4 times per decode step (the sliding half), the
+    plain decode kernel 4 times (the full half), the prefill kernel 4 times
+    per prompt, no other decode kernel; /health's KV bytes are the paired
+    cache's."""
+    args = Namespace(
+        host="127.0.0.1", http_port=port, model=model_dir, models_dir="", device="cuda",
+        max_seq_len=S, param_dtype="bfloat16", max_concurrent=8, request_timeout_s=600.0,
+    )
+    chat = {"model": OSS_MODEL, "max_tokens": MAX_TOKENS, "temperature": 0,
+            "messages": [{"role": "user", "content": prompt_text}], "logit_bias": TEXT_BIAS}
+    bodies = [{"greedy": chat, "streamed": dict(chat, stream=True),
+               "sampled": dict(chat, temperature=0.8, top_p=0.95, seed=1234)}[k] for k in SERVE_KINDS]
+    bodies.append(dict(chat, stream=True, messages=[{"role": "user", "content": long_text}]))
+    results, launches, load_s, health = asyncio.run(_drive(args, bodies))
+    kinds = list(SERVE_KINDS) + ["streamed_long"]
+    for name, r in zip(kinds, results):
+        check(r["status"] == 200, f"gpt_oss {name} request: HTTP {r['status']}")
+        check(bool(r["content"]) and r["tokens"] == MAX_TOKENS, f"gpt_oss {name} request: short completion")
+        check(name != "streamed" or r["content"] == results[0]["content"],
+              "gpt_oss streamed content differs from the non-streamed")
+    half = OSS_SERVE_LAYERS // 2
+    decode_steps = sum(r["tokens"] - 1 for r in results)
+    check(launches["flash_decode_rotating"] == half * decode_steps,
+          f"rotating launches {launches['flash_decode_rotating']} != {half} x {decode_steps} steps")
+    check(launches["flash_decode"] == half * decode_steps,
+          f"decode launches {launches['flash_decode']} != {half} x {decode_steps} steps")
+    check(launches["flash_prefill"] == half * len(results),
+          f"prefill launches {launches['flash_prefill']} != {half} x {len(results)} prompts")
+    others = [k for k, v in launches.items() if v and k not in ("flash_decode_rotating", "flash_decode", "flash_prefill")]
+    check(not others, f"gpt_oss serve launched other kernels: {launches}")
+    engine = health["engine"]
+    check(engine["kv_bytes"] == OSS_SERVE_KV_BYTES, f"gpt_oss KV bytes {engine} != {OSS_SERVE_KV_BYTES}")
+    long = results[-1]
+    row = {
+        "phase": "gpt_oss_serve", "gpu": gpu_line(),
+        "model": f"gpt-oss-20b widths, {OSS_SERVE_LAYERS} of 24 layers (synthetic bf16 weights, seed 0)",
+        "checkpoint_write_s": write_s, "load_s": load_s, "launches": launches, "prefills": len(results),
+        "decode_steps": decode_steps, "kv_bytes": engine["kv_bytes"],
+        "flat_cache_kv_bytes": 2 * OSS_SERVE_LAYERS * S * OSS_KVH * OSS_D * 2,
+        "requests": [
+            {"kind": k, "status": r["status"], "completion_tokens": r["tokens"], "s": r["s"],
+             "tokens_per_s": r["tokens"] / r["s"], "content_head": r["content"][:40]}
+            for k, r in zip(kinds, results)
+        ],
+        **streamed_rates(results[: len(SERVE_KINDS)]),
+        "long_prompt": {"ttft_s": long["ttft_s"], "decode_tokens_per_s": (long["tokens"] - 1) / long["decode_s"]},
+    }
+    emit(row)
+    return row
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is false)", file=sys.stderr)
@@ -1508,22 +1860,29 @@ def main() -> int:
     # the quantized caches' path: the single-sequence serve's position
     lane_positions = [n + MAX_TOKENS // 2 for n in BATCH_PROMPT_TOKENS]
     main_path.update(phase_quant_kernels(n_prompt + MAX_TOKENS - 2, lane_positions))
+    # gpt_oss's sliding layers: the ring at the step's position
+    main_path.update(phase_rotating_kernels())
     phase_codec_host()
     phase_parity()
     phase_batch_parity()
     phase_quant_parity()
+    phase_gpt_oss_parity()
     served, batched, quant, ring = phase_serve(prompt_text, n_prompt)
+    _, oss_served = phase_gpt_oss(prompt_text, _batch_prompts()[BATCH_PROMPT_TOKENS.index(300)], _free_port())
 
     # each kernel with its launches on its own path: the single-sequence
     # serve for the dense prefill and decode kernels, the batched serve for
     # the paged one (whose prompts also went through the prefill kernel),
     # the qsparse8 ring for the column kernels (counted in the shards), the
-    # quantized single-sequence serves for the q8 / q4 decode variants
+    # quantized single-sequence serves for the q8 / q4 decode variants, the
+    # gpt_oss serve for the rotating variant
     sources = {
         "flash_prefill": ("dnet_tpu_torch/csrc/flash_prefill.cu", "dnet_tpu/ops/flash_attention.py:38", served),
         "flash_decode": ("dnet_tpu_torch/csrc/flash_decode.cu", "dnet_tpu/ops/flash_decode.py:50", served),
         "flash_decode_q8": ("dnet_tpu_torch/csrc/flash_decode.cu", "dnet_tpu/ops/flash_decode.py:50", quant[8]),
         "flash_decode_q4": ("dnet_tpu_torch/csrc/flash_decode.cu", "dnet_tpu/ops/flash_decode.py:50", quant[4]),
+        "flash_decode_rotating": ("dnet_tpu_torch/csrc/flash_decode.cu", "dnet_tpu/ops/flash_decode.py:50 (rotating)",
+                                  oss_served),
         "paged_attend": ("dnet_tpu_torch/csrc/paged_attention.cu", "dnet_tpu/ops/paged_attention.py:92", batched),
         "column_sq_norms": ("dnet_tpu_torch/csrc/column_ops.cu", "dnet_tpu/compression/ops.py:24",
                             {"launches": ring}),

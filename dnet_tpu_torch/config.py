@@ -5,7 +5,8 @@ Counterpart of dnet_tpu/config.py, trimmed to what the port's paths read:
 DNET_KV_BLOCK_TOKENS, DNET_KV_POOL_BLOCKS), `ApiSettings` (DNET_API_BATCH_SLOTS,
 DNET_API_PREFIX_CACHE, DNET_API_RING_AUTO_STEPS, DNET_API_CALLBACK_ADDR),
 the ring's `TransportSettings` (DNET_TRANSPORT_*), `WireSettings`
-(DNET_WIRE_*: the hop codec), and the scheduler switch DNET_SCHED, which
+(DNET_WIRE_*: the hop codec), `ComputeSettings` (DNET_COMPUTE_MOE_IMPL,
+DNET_COMPUTE_MOE_CAPACITY_FACTOR), and the scheduler switch DNET_SCHED, which
 the port reads only to refuse it.  Values come from the process
 environment on every call (no .env file, no cache), so a flip is seen at
 the next engine load.
@@ -108,6 +109,18 @@ class WireSettings:
 
 
 @dataclass
+class ComputeSettings:
+    """The MoE compute path (ops/moe.py): `moe_impl` dense | auto |
+    dispatch | a2a (dense is exact and the reference's default; dispatch
+    may drop over-capacity tokens), and the per-expert capacity factor
+    (capacity = ceil(k * tokens * factor / experts); <= 0 is the exact
+    no-drop capacity)."""
+
+    moe_impl: str = "dense"
+    moe_capacity_factor: float = 1.25
+
+
+@dataclass
 class SchedSettings:
     # the iteration-level scheduler (not ported: refused at load)
     sched: bool = False
@@ -127,6 +140,10 @@ def transport_settings() -> TransportSettings:
 
 def wire_settings() -> WireSettings:
     return _from_env(WireSettings, "DNET_WIRE_")
+
+
+def compute_settings() -> ComputeSettings:
+    return _from_env(ComputeSettings, "DNET_COMPUTE_")
 
 
 def sched_enabled() -> bool:

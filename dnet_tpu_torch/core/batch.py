@@ -46,7 +46,7 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from dnet_tpu_torch.core.engine import LocalEngine
+from dnet_tpu_torch.core.engine import LocalEngine, tensor_bytes
 from dnet_tpu_torch.core.kvcache import write_kv_rows
 from dnet_tpu_torch.core.sampler import (
     MAX_TOP_LOGPROBS,
@@ -186,8 +186,7 @@ class BatchedEngine:
         self.last_dispatch_ms = 0.0
 
     def _kv_bytes(self) -> int:
-        kv = self.kv if self.kv is not None else self.kv_store.kv
-        return sum(t.numel() * t.element_size() for t in kv.values())
+        return tensor_bytes(self.kv if self.kv is not None else self.kv_store.kv)
 
     # ---- slot lifecycle ----------------------------------------------
     def alloc_slot(self, nonce: str) -> int:

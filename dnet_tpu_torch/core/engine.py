@@ -8,7 +8,9 @@ one program per step, each step here is a sequence of launches on the
 current CUDA stream; the fused `lax.scan` decode chunk becomes a Python
 loop that feeds each sampled token back on the device, so a chunk needs one
 device-to-host read.  Prompts are padded to power-of-two buckets as in the
-reference, and never past `max_seq - pos` (the KV write must fit).
+reference, and never past `max_seq - pos` (the KV write must fit); each
+forward tells the model how many of its tokens are real (`t_real`), so a
+ring-buffer cache (gpt_oss's sliding layers) never takes a padded row.
 
 In shard mode (`layers=`, `shard_mode=True`) the engine holds one ring
 shard's layer range and serves hidden states in and out: `embed_window`
@@ -101,9 +103,9 @@ class LocalEngine:
         self._setup(max_seq, param_dtype, layers, kv_dtype, kv_quant_bits)
         t0 = time.perf_counter()
         m = self.model
-        self.window_params = [
-            self._cast(m.map_layer(self.ckpt.load_layer_raw(a))) for a in m.layers
-        ]
+        self.window_params = m.stack_layers(
+            [self._cast(m.map_layer(self.ckpt.load_layer_raw(a))) for a in m.layers]
+        )
         names = None  # every edge tensor
         if shard_mode:
             names = []
@@ -133,14 +135,14 @@ class LocalEngine:
         kv_quant_bits: int = 0,
     ) -> "LocalEngine":
         """An engine around already-materialised parameters (no checkpoint
-        on disk): the serving loop is identical, only weight provenance
-        differs."""
+        on disk; `window_params` one dict per layer, in layer order): the
+        serving loop is identical, only weight provenance differs."""
         self = cls.__new__(cls)
         self.device = resolve_device(device)
         self.ckpt = None
         self.config = config
         self._setup(max_seq, param_dtype, None, kv_dtype, kv_quant_bits)
-        self.window_params = [self._cast(p) for p in window_params]
+        self.window_params = self.model.stack_layers([self._cast(p) for p in window_params])
         self.edge_params = {k: self._cast(v) for k, v in edge_params.items()}
         self._build_kernels()
         return self
@@ -179,10 +181,11 @@ class LocalEngine:
     # ---- forward ------------------------------------------------------
     def _forward(self, tokens: torch.Tensor, kv: dict, pos: int, last_idx: int) -> torch.Tensor:
         """Embed + every layer + final norm + LM head at `last_idx`:
-        logits [B, V] in the param dtype.  Writes kv in place."""
+        logits [B, V] in the param dtype.  Writes kv in place; tokens past
+        `last_idx` are bucket padding."""
         m = self.model
         x = m.embed(self.edge_params, tokens)
-        x, _ = m.apply_window(self.window_params, x, kv, pos)
+        x, _ = m.apply_window(self.window_params, x, kv, pos, t_real=last_idx + 1)
         x_last = m.normalize(self.edge_params, x[:, last_idx : last_idx + 1])
         return m.lm_project(self.edge_params, x_last)[:, 0]
 
@@ -238,7 +241,7 @@ class LocalEngine:
         kv = self.model.init_kv(
             len(self.model.layers), self.batch, self.max_seq, self.kv_dtype, self.kv_quant_bits
         )
-        self.kv_bytes = sum(t.numel() * t.element_size() for t in kv.values())
+        self.kv_bytes = tensor_bytes(kv)
         sess = Session(
             nonce=nonce,
             kv=kv,
@@ -446,6 +449,14 @@ class LocalEngine:
             top_logprobs=top,
             step=step,
         )
+
+
+def tensor_bytes(tree) -> int:
+    """Bytes of every tensor in a (nested) dict of tensors: a flat cache, or
+    gpt_oss's paired {"a": cache, "b": cache}."""
+    if isinstance(tree, torch.Tensor):
+        return tree.numel() * tree.element_size()
+    return sum(tensor_bytes(v) for v in tree.values())
 
 
 def _host(a) -> np.ndarray:

@@ -1,9 +1,11 @@
 """KV cache: preallocated and layer-stacked, plain or quantized.
 
-Counterpart of dnet_tpu/core/kvcache.py (full-length caches; no rotating
-sliding-window or sequence-parallel writes).  Layout: k/v are
+Counterpart of dnet_tpu/core/kvcache.py (full-length caches and the
+rotating sliding-window ring; no sequence-parallel writes).  Layout: k/v are
 [L, B, S_max, KVH, Hd]; a layer's slices `cache[name][l]` are contiguous
-[B, S_max, KVH, Hd] views, which the attention kernels read in place.
+[B, S_max, KVH, Hd] views, which the attention kernels read in place.  A
+ring cache (gpt_oss's sliding layers) has S_max = W rows, and the token at
+absolute position p lives in slot p % W (`write_kv_rotating`).
 
 Quantized caches (`quant_bits` 8 or 4, the reference's DNET_KV_BITS) hold
 codes plus one f32 scale per (slot, KV head), `k_scale`/`v_scale`
@@ -153,6 +155,34 @@ def write_kv_rows(
     write)."""
     for name, val in _encoded(kvs, k_rows, v_rows).items():
         kvs[name][lanes, positions] = val
+    return kvs
+
+
+def write_kv_rotating(
+    kvs: dict, k_new: torch.Tensor, v_new: torch.Tensor, pos: int, t_real: Optional[int] = None
+) -> dict:
+    """Ring-buffer write of new k/v ([B, T, KVH, Hd]) starting at absolute
+    position `pos`, IN PLACE: the token at position p lands in slot p % W
+    (W = the cache's row count), and each slot receives its MOST RECENT
+    in-chunk token, so a chunk longer than W writes only its last W tokens
+    (the earlier ones are out of every later query's window).  Only the
+    first `t_real` tokens are real (None: all T): bucket padding must never
+    wrap into the ring, where it would overwrite live rows.  Quantizes when
+    the cache carries scales.  The live tokens fill at most two slices of
+    the ring (one wrap), written as such; returns kvs."""
+    W = kvs["k"].shape[1]
+    t_eff = k_new.shape[1] if t_real is None else int(t_real)
+    n = min(t_eff, W)  # tokens that survive: the chunk's last n real ones
+    if n <= 0:
+        return kvs
+    j0 = t_eff - n
+    start = (pos + j0) % W
+    first = min(n, W - start)  # slots [start, start + first), then [0, n - first)
+    enc = _encoded(kvs, k_new[:, j0:t_eff], v_new[:, j0:t_eff])
+    for name, val in enc.items():
+        kvs[name][:, start : start + first] = val[:, :first]
+        if n > first:
+            kvs[name][:, : n - first] = val[:, first:]
     return kvs
 
 

@@ -2,8 +2,10 @@
 // for Hopper: split-K flash-decoding plus a small combine pass.
 //
 // Replaces the TPU kernel `_decode_kernel` (dnet_tpu/ops/flash_decode.py:50,
-// launched by `_decode_pallas`) in its plain variant and its `qbits` 8/4
-// variant (rotating = False, with_lse = False, offset = 0).  q/o
+// launched by `_decode_pallas`) in its plain variant, its `qbits` 8/4
+// variant and its `rotating` variant (the gpt_oss sliding-window ring
+// buffer, flash_decode.py:100-123 and :184-186), each over the same cache
+// forms (with_lse = False, offset = 0).  q/o
 // [B, 1, H, D]; k/v [B, S, KVH, D] in q's dtype (or bf16 under an f32 q: the
 // DNET_KV_BITS=16 cache of an f32 model), or quantized: int8 codes
 // [B, S, KVH, D], or int4 nibbles packed in pairs along the head dim (low
@@ -11,6 +13,13 @@
 // k_scale/v_scale [B, S, KVH, 1] f32.  Lane b's query attends cache slots
 // [0, lengths[b]) (lengths = position + 1; 0 = an idle lane, whose output is
 // zeros); sinks [H] fold into the denominator.
+//
+// Rotating (ROT): the cache is a ring of S = W slots written before the
+// call, lane b's query sits at pos = lengths[b] - 1 (so lengths may exceed
+// S), its live slots are [0, min(lengths[b], S)), and slot s holds absolute
+// position k_abs = pos - ((pos - s) mod S); a key is attended when
+// k_abs >= 0 and k_abs > pos - window (window <= S; the served case is
+// window == S).  Everything else is the plain variant's.
 //
 // What bounds it on an H100: one query row per head does 2 * G multiply-adds
 // per K/V element it reads (G = H / KVH query heads per KV head), far below the
@@ -107,14 +116,14 @@ __device__ __forceinline__ void stage_tile_q(float* dst, int ld, const uint8_t* 
 }
 
 // KV: the cache's element type (T, bf16 under an f32 T, or uint8_t holding
-// int8 / packed int4 codes); QB: 0, 8 or 4.
-template <typename T, typename KV, int QB, int D>
+// int8 / packed int4 codes); QB: 0, 8 or 4; ROT: the rotating ring.
+template <typename T, typename KV, int QB, int D, bool ROT>
 __global__ void __launch_bounds__(NTHREADS)
 flash_decode_split_kernel(const T* __restrict__ q, const KV* __restrict__ k, const KV* __restrict__ v,
                           const float* __restrict__ k_scale, const float* __restrict__ v_scale,
                           const int* __restrict__ lengths, float* __restrict__ part_o,
                           float* __restrict__ part_ml, int H, int KVH, int S, int tiles_per_split,
-                          int n_split, float scale) {
+                          int n_split, float scale, int window) {
   using L = Layout<D>;
   constexpr int NO = L::OUT_PER_THREAD;
   extern __shared__ __align__(16) float smem[];
@@ -160,6 +169,7 @@ flash_decode_split_kernel(const T* __restrict__ q, const KV* __restrict__ k, con
   const KV* vb = v + ((long)b * S * KVH + kvh) * DS;
   const long sc_base = (long)b * S * KVH + kvh;  // scales: one per (slot, KV head)
   const int live = min(lengths[b], S);
+  const int pos = lengths[b] - 1;  // the query's absolute position (ROT)
   const int n_tiles = (live + BK - 1) / BK;
   const int t_begin = split * tiles_per_split;
   const int t_end = min(t_begin + tiles_per_split, n_tiles);
@@ -182,7 +192,14 @@ flash_decode_split_kernel(const T* __restrict__ q, const KV* __restrict__ k, con
     // scores: thread -> key j, heads g = tid/64, tid/64 + 2, ...
     {
       const int j = tid & (BK - 1);
-      const bool valid = k0 + j < live;
+      bool valid = k0 + j < live;
+      if constexpr (ROT) {
+        // the slot holds the most recent position <= pos congruent to it mod S
+        int back = (pos - (k0 + j)) % S;
+        if (back < 0) back += S;
+        const int k_abs = pos - back;
+        valid = valid && k_abs >= 0 && k_abs > pos - window;
+      }
       for (int g = tid / BK; g < G; g += NTHREADS / BK) {
         float s = 0.f;
 #pragma unroll 16
@@ -278,21 +295,36 @@ __global__ void flash_decode_combine_kernel(const float* __restrict__ part_o,
   o[((long)b * H + h) * D + d] = dnet::from_float<T>(acc * corr / l_fin);
 }
 
-template <typename T, typename KV, int QB, int D>
-int launch(const void* q, const void* k, const void* v, const float* k_scale, const float* v_scale,
-           void* o, const float* sinks, float* part_o, float* part_ml, const int* lengths, int B,
-           int H, int KVH, int S, int tiles_per_split, int n_split, float scale, cudaStream_t stream) {
+template <typename T, typename KV, int QB, int D, bool ROT>
+int launch_split(const void* q, const void* k, const void* v, const float* k_scale,
+                 const float* v_scale, float* part_o, float* part_ml, const int* lengths, int B,
+                 int H, int KVH, int S, int tiles_per_split, int n_split, float scale, int window,
+                 cudaStream_t stream) {
   const size_t smem = Layout<D>::BYTES;
   // above 48 KB of dynamic shared memory a kernel must opt in (per device,
   // so on every launch: the call is cheap and does not synchronise)
-  cudaError_t err = cudaFuncSetAttribute(flash_decode_split_kernel<T, KV, QB, D>,
+  cudaError_t err = cudaFuncSetAttribute(flash_decode_split_kernel<T, KV, QB, D, ROT>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  flash_decode_split_kernel<T, KV, QB, D><<<dim3(n_split, KVH, B), NTHREADS, smem, stream>>>(
+  flash_decode_split_kernel<T, KV, QB, D, ROT><<<dim3(n_split, KVH, B), NTHREADS, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const KV*>(k), static_cast<const KV*>(v), k_scale,
-      v_scale, lengths, part_o, part_ml, H, KVH, S, tiles_per_split, n_split, scale);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
+      v_scale, lengths, part_o, part_ml, H, KVH, S, tiles_per_split, n_split, scale, window);
+  return (int)cudaGetLastError();
+}
+
+template <typename T, typename KV, int QB, int D>
+int launch(const void* q, const void* k, const void* v, const float* k_scale, const float* v_scale,
+           void* o, const float* sinks, float* part_o, float* part_ml, const int* lengths, int B,
+           int H, int KVH, int S, int tiles_per_split, int n_split, float scale, int rotating,
+           int window, cudaStream_t stream) {
+  const int rc =
+      rotating ? launch_split<T, KV, QB, D, true>(q, k, v, k_scale, v_scale, part_o, part_ml,
+                                                  lengths, B, H, KVH, S, tiles_per_split, n_split,
+                                                  scale, window, stream)
+               : launch_split<T, KV, QB, D, false>(q, k, v, k_scale, v_scale, part_o, part_ml,
+                                                   lengths, B, H, KVH, S, tiles_per_split, n_split,
+                                                   scale, window, stream);
+  if (rc != 0) return rc;
   flash_decode_combine_kernel<T><<<dim3(H, B), D, 0, stream>>>(part_o, part_ml, sinks,
                                                                static_cast<T*>(o), H, KVH, D,
                                                                n_split);
@@ -305,22 +337,26 @@ template <typename T, int D>
 int launch_variant(int kv_dtype, int qbits, const void* q, const void* k, const void* v,
                    const float* k_scale, const float* v_scale, void* o, const float* sinks,
                    float* part_o, float* part_ml, const int* lengths, int B, int H, int KVH, int S,
-                   int tiles_per_split, int n_split, float scale, cudaStream_t st) {
+                   int tiles_per_split, int n_split, float scale, int rotating, int window,
+                   cudaStream_t st) {
   if (qbits == 8)
     return launch<T, uint8_t, 8, D>(q, k, v, k_scale, v_scale, o, sinks, part_o, part_ml, lengths,
-                                    B, H, KVH, S, tiles_per_split, n_split, scale, st);
+                                    B, H, KVH, S, tiles_per_split, n_split, scale, rotating,
+                                    window, st);
   if (qbits == 4)
     return launch<T, uint8_t, 4, D>(q, k, v, k_scale, v_scale, o, sinks, part_o, part_ml, lengths,
-                                    B, H, KVH, S, tiles_per_split, n_split, scale, st);
+                                    B, H, KVH, S, tiles_per_split, n_split, scale, rotating,
+                                    window, st);
   if (qbits != 0) return -1;
   if (kv_dtype == dnet::DTYPE_BF16)
     return launch<T, __nv_bfloat16, 0, D>(q, k, v, k_scale, v_scale, o, sinks, part_o, part_ml,
                                           lengths, B, H, KVH, S, tiles_per_split, n_split, scale,
-                                          st);
+                                          rotating, window, st);
   if constexpr (sizeof(T) == 4) {
     if (kv_dtype == dnet::DTYPE_F32)
       return launch<T, float, 0, D>(q, k, v, k_scale, v_scale, o, sinks, part_o, part_ml, lengths,
-                                    B, H, KVH, S, tiles_per_split, n_split, scale, st);
+                                    B, H, KVH, S, tiles_per_split, n_split, scale, rotating,
+                                    window, st);
   }
   return -1;
 }
@@ -333,34 +369,40 @@ int launch_variant(int kv_dtype, int qbits, const void* q, const void* k, const 
 // with f32 k_scale/v_scale.  lengths [B] int32 on the device.  part_o
 // [B, KVH, n_split, G, D] and part_ml [B, KVH, n_split, G, 2] are f32
 // scratch the caller allocates, n_split * tiles_per_split covering the
-// longest lane.  Returns cudaGetLastError() after the launches (0 =
-// launched); -1 for a dtype, variant, head dim or grouping this kernel was
-// not built for.
+// longest lane.  rotating 1: S is the ring's W slots, lengths[b] =
+// pos + 1 may exceed S, and keys outside the last `window` positions are
+// masked (0 < window <= S).  Returns cudaGetLastError() after the launches
+// (0 = launched); -1 for a dtype, variant, head dim, grouping or window
+// this kernel was not built for.
 extern "C" int dnet_flash_decode(int dtype, int kv_dtype, int qbits, int head_dim, const void* q,
                                  const void* k, const void* v, const float* k_scale,
                                  const float* v_scale, void* o, const float* sinks, float* part_o,
                                  float* part_ml, const int* lengths, int B, int H, int KVH, int S,
-                                 int tiles_per_split, int n_split, float scale, void* stream) {
+                                 int tiles_per_split, int n_split, float scale, int rotating,
+                                 int window, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (H % KVH != 0 || H / KVH > GMAX) return -1;
+  if (rotating && (window <= 0 || window > S)) return -1;
   if (dtype == dnet::DTYPE_BF16) {
     if (head_dim == 64)
       return launch_variant<__nv_bfloat16, 64>(kv_dtype, qbits, q, k, v, k_scale, v_scale, o, sinks,
                                                part_o, part_ml, lengths, B, H, KVH, S,
-                                               tiles_per_split, n_split, scale, st);
+                                               tiles_per_split, n_split, scale, rotating,
+                                               window, st);
     if (head_dim == 128)
       return launch_variant<__nv_bfloat16, 128>(kv_dtype, qbits, q, k, v, k_scale, v_scale, o,
                                                 sinks, part_o, part_ml, lengths, B, H, KVH, S,
-                                                tiles_per_split, n_split, scale, st);
+                                                tiles_per_split, n_split, scale, rotating,
+                                               window, st);
   } else if (dtype == dnet::DTYPE_F32) {
     if (head_dim == 64)
       return launch_variant<float, 64>(kv_dtype, qbits, q, k, v, k_scale, v_scale, o, sinks,
                                        part_o, part_ml, lengths, B, H, KVH, S, tiles_per_split,
-                                       n_split, scale, st);
+                                       n_split, scale, rotating, window, st);
     if (head_dim == 128)
       return launch_variant<float, 128>(kv_dtype, qbits, q, k, v, k_scale, v_scale, o, sinks,
                                         part_o, part_ml, lengths, B, H, KVH, S, tiles_per_split,
-                                        n_split, scale, st);
+                                        n_split, scale, rotating, window, st);
   }
   return -1;
 }

@@ -1,7 +1,7 @@
 """Model registry: HF `model_type` string -> RingModel subclass.
 
-Counterpart of dnet_tpu/models/__init__.py; this slice registers the llama
-family only.
+Counterpart of dnet_tpu/models/__init__.py; the port registers the llama
+and gpt_oss families so far.
 """
 
 from __future__ import annotations
@@ -9,9 +9,10 @@ from __future__ import annotations
 from typing import Type
 
 from dnet_tpu_torch.models.base import ModelConfig, RingModel
+from dnet_tpu_torch.models.gpt_oss import GptOssRingModel
 from dnet_tpu_torch.models.llama import LlamaRingModel
 
-_REGISTRY = {cls.model_type: cls for cls in (LlamaRingModel,)}
+_REGISTRY = {cls.model_type: cls for cls in (LlamaRingModel, GptOssRingModel)}
 
 
 def get_ring_model_cls(model_type: str) -> Type[RingModel]:

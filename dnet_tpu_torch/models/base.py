@@ -7,7 +7,9 @@ every call.  Where the reference stacks layers on a leading axis for one
 `lax.scan`, the port keeps a list of per-layer param dicts and loops.
 
 Parameter layout (tensors on the engine's device):
-  window params: [ {per-layer name: tensor}, ... ]  one dict per layer
+  window params: [ {per-layer name: tensor}, ... ]  one dict per layer, or
+                 whatever the model's `stack_layers` makes of that list
+                 (gpt_oss: {"a": even layers, "b": odd layers})
   edge params:   {"embed": {"weight"}, "final_norm": {"weight"},
                   "lm_head": {"weight" [hidden, vocab]}  (untied only)}
 Matrices are (in, out)-oriented, as in the reference, so the hot path is
@@ -18,10 +20,11 @@ from __future__ import annotations
 
 import abc
 from dataclasses import dataclass
-from typing import Any, Dict, List, Optional, Sequence, Tuple
+from typing import Any, Dict, List, Optional, Sequence, Tuple, Union
 
 import torch
 
+from dnet_tpu_torch.config import compute_settings
 from dnet_tpu_torch.core.kvcache import KVConfig, init_cache
 
 
@@ -42,6 +45,11 @@ class ModelConfig:
     rope_scaling: Optional[dict] = None
     tie_word_embeddings: bool = False
     max_position_embeddings: int = 8192
+    sliding_window: int = 0
+    layer_types: Optional[List[str]] = None  # e.g. ["sliding_attention", "full_attention", ...]
+    # MoE (gpt-oss style)
+    num_local_experts: int = 0
+    num_experts_per_tok: int = 0
 
     @classmethod
     def from_hf(cls, d: Dict[str, Any]) -> "ModelConfig":
@@ -61,6 +69,11 @@ class ModelConfig:
             rope_scaling=d.get("rope_scaling"),
             tie_word_embeddings=d.get("tie_word_embeddings", False),
             max_position_embeddings=d.get("max_position_embeddings", 8192),
+            sliding_window=d.get("sliding_window") or 0,
+            layer_types=d.get("layer_types"),
+            # gpt_oss says num_local_experts; qwen3_moe says num_experts
+            num_local_experts=d.get("num_local_experts", d.get("num_experts", 0)),
+            num_experts_per_tok=d.get("num_experts_per_tok", 0),
         )
 
 
@@ -77,6 +90,11 @@ class RingModel(abc.ABC):
         self.device = torch.device(device)
         self.layers = sorted(set(int(x) for x in layers))
         self.abs_to_local = {a: i for i, a in enumerate(self.layers)}
+        # MoE compute path knobs (ops/moe.py); engines and tests may
+        # override the instance attributes after construction
+        cs = compute_settings()
+        self.moe_impl = cs.moe_impl
+        self.moe_capacity_factor = cs.moe_capacity_factor
 
     @property
     def is_first(self) -> bool:
@@ -95,13 +113,17 @@ class RingModel(abc.ABC):
 
     @abc.abstractmethod
     def apply_window(
-        self, window_params: List[dict], x: torch.Tensor, kv: dict, pos, attend_fn=None
+        self, window_params, x: torch.Tensor, kv: dict, pos, attend_fn=None, t_real: Optional[int] = None
     ) -> Tuple[torch.Tensor, dict]:
         """Apply the window's layers; kv holds the window's stacked cache
         and is updated in place.  pos is the chunk's start position or a
         [B, 1] tensor of per-lane positions; `attend_fn`, where the model
         supports it (supports_paged_attend), replaces each layer's cache
-        write and attention read."""
+        write and attention read.  `t_real` is the number of real
+        (non-padding) tokens in the chunk: models with rotating ring-buffer
+        caches keep bucket padding out of their writes, because padded
+        positions would wrap around and overwrite live rows (None: every
+        token is real)."""
 
     @abc.abstractmethod
     def normalize(self, edge_params: dict, x: torch.Tensor) -> torch.Tensor:
@@ -149,5 +171,20 @@ class RingModel(abc.ABC):
         self, n_layers: int, batch: int, max_seq: int, dtype: str = "bfloat16", quant_bits: int = 0
     ) -> dict:
         """Allocate the stacked [L, B, S, KVH, Hd] cache on the device
-        (quantized: codes plus [L, B, S, KVH, 1] f32 scales)."""
+        (quantized: codes plus [L, B, S, KVH, 1] f32 scales).  Models with
+        per-kind cache shapes override: gpt_oss returns the paired cache
+        {"a": cache, "b": cache}."""
         return init_cache(self.kv_config(n_layers, batch, max_seq, dtype, quant_bits), self.device)
+
+    # ---- layout -------------------------------------------------------
+    def stack_layers(self, per_layer: List[dict]) -> Union[List[dict], Dict[str, List[dict]]]:
+        """The window params apply_window takes, from the per-layer param
+        dicts in layer order: the list itself by default; gpt_oss splits it
+        into its paired halves."""
+        return per_layer
+
+    def kv_rewindable(self, max_seq: int) -> bool:
+        """Whether stale cache rows past a rewound `pos` are harmless:
+        slot-addressed caches qualify; rotating ring-buffer caches do not
+        (a wrap-around write evicts live rows)."""
+        return True

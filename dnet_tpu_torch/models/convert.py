@@ -3,9 +3,11 @@ and the port's params back to HF checkpoint tensors.
 
 `from_jax_params` takes dnet_tpu's layer-stacked window params and edge
 params as numpy arrays ((in, out)-oriented matrices with a leading layer
-axis) and returns the port's per-layer list and edge dict on `device`.
-`hf_tensors` is the inverse of the HF mapping (`map_layer`/`map_edge`), so
-synthetic weights can be written as a checkpoint.
+axis; gpt_oss's paired {"a": even layers, "b": odd layers} stacks too) and
+returns the port's per-layer list, in layer order, and edge dict on
+`device`.  `hf_tensors` is the inverse of the HF mapping
+(`map_layer`/`map_edge`) for llama and gpt_oss params, so synthetic weights
+can be written as a checkpoint.
 """
 
 from __future__ import annotations
@@ -17,9 +19,9 @@ import torch
 
 from dnet_tpu_torch.models.base import ModelConfig
 
-# llama per-layer param name -> HF suffix (matrices are stored (in, out) here
-# and [out, in] in HF files)
-LLAMA_HF_NAMES = {
+# per-layer param name -> HF suffix, llama's and gpt_oss's (the names they
+# share map alike)
+HF_NAMES = {
     "attn_norm": "input_layernorm.weight",
     "wq": "self_attn.q_proj.weight",
     "wk": "self_attn.k_proj.weight",
@@ -32,7 +34,18 @@ LLAMA_HF_NAMES = {
     "bq": "self_attn.q_proj.bias",
     "bk": "self_attn.k_proj.bias",
     "bv": "self_attn.v_proj.bias",
+    "bo": "self_attn.o_proj.bias",
+    "sinks": "self_attn.sinks",
+    "router_w": "mlp.router.weight",
+    "router_b": "mlp.router.bias",
+    "gate_up": "mlp.experts.gate_up_proj",
+    "gate_up_b": "mlp.experts.gate_up_proj_bias",
+    "down": "mlp.experts.down_proj",
+    "down_b": "mlp.experts.down_proj_bias",
 }
+# the matrices stored (in, out) here and [out, in] in HF files (gpt_oss's
+# experts are (in, out) in both)
+TRANSPOSED = frozenset({"wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down", "router_w"})
 
 
 def _tensor(a, device, dtype) -> torch.Tensor:
@@ -48,32 +61,48 @@ def from_jax_params(
     dtype: torch.dtype = torch.float32,
 ) -> Tuple[List[Dict[str, torch.Tensor]], Dict[str, Dict[str, torch.Tensor]]]:
     """(per-layer window params, edge params) for the port from the
-    reference's stacked window params and edge params (numpy arrays)."""
+    reference's stacked window params and edge params (numpy arrays).  A
+    paired {"a", "b"} stack (gpt_oss) is interleaved back into layer order
+    (a0, b0, a1, b1, ...)."""
     n = config.num_hidden_layers
-    for name, arr in window_params.items():
-        if np.shape(arr)[0] != n:
-            raise ValueError(f"window param {name} stacks {np.shape(arr)[0]} layers, config has {n}")
-    layers = [
-        {name: _tensor(arr[i], device, dtype) for name, arr in window_params.items()}
-        for i in range(n)
-    ]
-    edge = {
+    if set(window_params) == {"a", "b"}:
+        halves = [_unstack(window_params[h], device, dtype) for h in ("a", "b")]
+        layers = [p for pair in zip(*halves) for p in pair]
+        if len(layers) != n or len(halves[0]) != len(halves[1]):
+            raise ValueError(f"paired halves of {[len(h) for h in halves]} layers, config has {n}")
+        return layers, _edge(edge_params, config, device, dtype)
+    layers = _unstack(window_params, device, dtype)
+    if len(layers) != n:
+        raise ValueError(f"window params stack {len(layers)} layers, config has {n}")
+    return layers, _edge(edge_params, config, device, dtype)
+
+
+def _unstack(stacked: Mapping[str, np.ndarray], device, dtype) -> List[Dict[str, torch.Tensor]]:
+    """Per-layer dicts from arrays with a leading layer axis."""
+    counts = {np.shape(arr)[0] for arr in stacked.values()}
+    if len(counts) != 1:
+        raise ValueError(f"window params stack unequal layer counts {sorted(counts)}")
+    return [{name: _tensor(arr[i], device, dtype) for name, arr in stacked.items()} for i in range(counts.pop())]
+
+
+def _edge(edge_params, config: ModelConfig, device, dtype) -> Dict[str, Dict[str, torch.Tensor]]:
+    return {
         group: {k: _tensor(a, device, dtype) for k, a in leaves.items()}
         for group, leaves in edge_params.items()
         if not (group == "lm_head" and config.tie_word_embeddings)
     }
-    return layers, edge
 
 
 def hf_tensors(
     window_params: List[Dict[str, torch.Tensor]],
     edge_params: Mapping[str, Mapping[str, torch.Tensor]],
 ) -> Dict[str, torch.Tensor]:
-    """HF checkpoint tensors (names and [out, in] layout) for llama params."""
+    """HF checkpoint tensors (names and [out, in] layout) for llama or
+    gpt_oss params, per layer in layer order."""
     out: Dict[str, torch.Tensor] = {}
     for i, p in enumerate(window_params):
         for name, t in p.items():
-            out[f"model.layers.{i}.{LLAMA_HF_NAMES[name]}"] = t.T if t.dim() == 2 else t
+            out[f"model.layers.{i}.{HF_NAMES[name]}"] = t.T if name in TRANSPOSED else t
     out["model.embed_tokens.weight"] = edge_params["embed"]["weight"]
     out["model.norm.weight"] = edge_params["final_norm"]["weight"]
     if "lm_head" in edge_params:

@@ -78,8 +78,10 @@ class LlamaRingModel(RingModel):
 
     def apply_window(
         self, window_params: List[dict], x: torch.Tensor, kv: dict,
-        pos: Union[int, torch.Tensor], attend_fn=None,
+        pos: Union[int, torch.Tensor], attend_fn=None, t_real: Optional[int] = None,
     ) -> Tuple[torch.Tensor, dict]:
+        # t_real is unused: a full-length cache keeps padded rows past every
+        # real position, where the next write overwrites them
         if attend_fn is None:
             # a decode step's lengths vector, made once for every layer
             lengths = decode_lengths(x.shape[0], pos, x.device) if x.shape[1] == 1 else None

@@ -1,8 +1,9 @@
-"""Attention ops: dense GQA attention, the causal mask, and the cached
-attention every layer runs.
+"""Attention ops: dense GQA attention, the causal and sliding-window
+masks, and the cached attention every layer runs.
 
-Counterpart of dnet_tpu/ops/attention.py (the non-sequence-parallel branch
-of `cached_attend`, plain and quantized caches).  With `causal=True`,
+Counterpart of dnet_tpu/ops/attention.py (the non-sequence-parallel
+branches of `cached_attend` and `rotating_cached_attend`, plain and
+quantized caches).  With `causal=True`,
 `cached_attend` writes the new k/v into the cache (quantizing it when the
 cache carries scales) and then runs the hand-written kernels through
 `flash_attend_causal` (ops/flash_attention.py): the decode kernel for one
@@ -11,6 +12,12 @@ the cache's own codes (no f32 copy of the cache is made); its prefill reads
 the live prefix dequantized to f32 with q cast to f32 (exact: the softmax
 runs in f32 anyway).  The dense `attend` stays for explicit masks and as
 the reference the kernels are tested against.
+
+`rotating_cached_attend` is gpt_oss's sliding-window layer over an
+O(window) ring-buffer cache: a decode row writes the ring first and reads
+it through the decode kernel's rotating variant; a prompt chunk attends the
+ring as it was plus its own keys through the dense `attend`, with masks
+built from each slot's absolute position, and writes the ring after.
 """
 
 from __future__ import annotations
@@ -19,8 +26,9 @@ from typing import Optional, Tuple
 
 import torch
 
-from dnet_tpu_torch.core.kvcache import read_kv, write_kv
+from dnet_tpu_torch.core.kvcache import read_kv, write_kv, write_kv_rotating
 from dnet_tpu_torch.ops.flash_attention import flash_attend_causal
+from dnet_tpu_torch.ops.flash_decode import decode_lengths, flash_decode_attend
 
 NEG_INF = -1e30  # large-negative instead of -inf: keeps softmax NaN-free on fully-masked rows
 
@@ -31,6 +39,13 @@ def causal_mask(q_len: int, kv_len: int, q_offset: int, device=None) -> torch.Te
     q_pos = q_offset + torch.arange(q_len, device=device)[:, None]
     kv_pos = torch.arange(kv_len, device=device)[None, :]
     return kv_pos <= q_pos
+
+
+def sliding_window_mask(q_len: int, kv_len: int, q_offset: int, window: int, device=None) -> torch.Tensor:
+    """Causal mask further restricted to the last `window` keys."""
+    q_pos = q_offset + torch.arange(q_len, device=device)[:, None]
+    kv_pos = torch.arange(kv_len, device=device)[None, :]
+    return (kv_pos <= q_pos) & (kv_pos > q_pos - window)
 
 
 def cached_attend(
@@ -66,6 +81,59 @@ def cached_attend(
         return flash_attend_causal(q, kc, vc, pos, scale=scale, sinks=sinks, lengths=lengths), kvs
     kc, vc = read_kv(kvs)
     return attend(q, kc, vc, mask=mask, sinks=sinks, scale=scale), kvs
+
+
+def rotating_cached_attend(
+    q: torch.Tensor,
+    k_new: torch.Tensor,
+    v_new: torch.Tensor,
+    kvs: dict,
+    pos: int,
+    window: int,
+    sinks: Optional[torch.Tensor] = None,
+    scale: Optional[float] = None,
+    t_real: Optional[int] = None,
+    lengths: Optional[torch.Tensor] = None,
+) -> Tuple[torch.Tensor, dict]:
+    """Sliding-window attention over one layer's ring-buffer cache slices
+    (W rows, slot = position % W), written in place.
+
+    A decode row (T = 1) writes the ring FIRST and attends the whole ring
+    through the rotating decode kernel, which rebuilds each slot's absolute
+    position (`lengths`: the step's [pos + 1] * B vector, made here when
+    None).  A prompt chunk attends the ring as it was before the chunk plus
+    the chunk's own keys directly (a chunk longer than W would otherwise
+    overwrite keys its own earlier queries need), then writes the ring.
+    Only the first `t_real` keys of the chunk are real (bucket padding is
+    neither attended nor written)."""
+    T = q.shape[1]
+    W = kvs["k"].shape[1]
+    if T == 1:
+        kvs = write_kv_rotating(kvs, k_new, v_new, pos, t_real=t_real)
+        if lengths is None:
+            lengths = decode_lengths(q.shape[0], pos, q.device)
+        out = flash_decode_attend(
+            q, kvs["k"], kvs["v"], lengths, min(pos + 1, W), scale=scale, sinks=sinks,
+            k_scale=kvs.get("k_scale"), v_scale=kvs.get("v_scale"), rotating=True, window=window,
+        )
+        return out, kvs
+    k_prev, v_prev = read_kv(kvs)  # [B, W, KVH, Hd]; a quantized ring in f32
+    keys = torch.cat([k_prev, k_new.to(k_prev.dtype)], dim=1)
+    vals = torch.cat([v_prev, v_new.to(v_prev.dtype)], dim=1)
+    dev = q.device
+    i = torch.arange(T, device=dev)[:, None]
+    p_abs = pos + i  # the queries' absolute positions [T, 1]
+    s = torch.arange(W, device=dev)[None, :]
+    # slot s holds the most recent pre-chunk position congruent to s mod W
+    a_prev = (pos - 1) - torch.remainder(pos - 1 - s, W)
+    m_prev = (a_prev >= 0) & (a_prev > p_abs - window)
+    j = torch.arange(T, device=dev)[None, :]  # in-chunk key index
+    m_new = (j <= i) & (j > i - window)
+    if t_real is not None:
+        m_new = m_new & (j < t_real)
+    mask = torch.cat([m_prev, m_new], dim=1)  # [T, W + T]
+    out = attend(q, keys, vals, mask=mask, sinks=sinks, scale=scale)
+    return out, write_kv_rotating(kvs, k_new, v_new, pos, t_real=t_real)
 
 
 def attend(

@@ -3,10 +3,10 @@ version.
 
 Counterpart of dnet_tpu/ops/flash_decode.py.  The kernel
 (csrc/flash_decode.cu) replaces the TPU kernel `_decode_kernel`
-(dnet_tpu/ops/flash_decode.py:50) in its plain variant and its `qbits` 8/4
-variant (rotating=False, with_lse=False, offset=0): one query row per head
-against the dense preallocated cache, sharing each K/V tile across the G
-query heads of a KV group.  The cache is q's dtype (or bf16 under an f32
+(dnet_tpu/ops/flash_decode.py:50) in its plain variant, its `qbits` 8/4
+variant and its `rotating` variant (with_lse=False, offset=0): one query
+row per head against the preallocated cache, sharing each K/V tile across
+the G query heads of a KV group.  The cache is q's dtype (or bf16 under an f32
 q: DNET_KV_BITS=16 on an f32 model), or quantized (int8 codes, or int4 nibbles packed in pairs along the head dim, with f32 scales
 per slot and KV head; core/kvcache.py) and then dequantized tile by tile in
 on-chip memory.  Each lane b of the batch attends its own live slots
@@ -16,8 +16,14 @@ batched slots each lane's position + 1.  The live range is split across
 blocks for the longest lane (flash-decoding) and a small combine pass
 merges the splits.  The source's header says what bounds it on the card.
 
-The rotating sliding-window and `with_lse` (sequence-parallel) variants
-are not ported yet.
+`rotating=True` is gpt_oss's sliding-window ring buffer: the cache holds
+W slots written before the call (core/kvcache.py `write_kv_rotating`),
+lane b's query sits at pos = lengths[b] - 1 (lengths may exceed W), its
+live slots are [0, min(lengths[b], W)), slot s holds absolute position
+pos - ((pos - s) mod W), and only keys inside the last `window` positions
+are attended.  Every cache form (bf16, f32, q8, q4) takes it.
+
+The `with_lse` (sequence-parallel) variant is not ported yet.
 """
 
 from __future__ import annotations
@@ -39,8 +45,11 @@ TARGET_BLOCKS = 264
 # the cache's code dtype -> the kernel's variant (the reference picks it the
 # same way from the cache dtype, dnet_tpu/ops/flash_decode.py:444-446)
 QBITS = {torch.int8: 8, torch.uint8: 4}
-# the wrapper's launch counter per variant
-COUNTERS = {0: "launches", 8: "launches_q8", 4: "launches_q4"}
+# the wrapper's launch counter per variant: (qbits, rotating) -> attribute
+COUNTERS = {
+    (0, False): "launches", (8, False): "launches_q8", (4, False): "launches_q4",
+    (0, True): "launches_rot", (8, True): "launches_rot_q8", (4, True): "launches_rot_q4",
+}
 # an unquantized cache's dtypes the kernel reads under each q dtype
 KV_DTYPES = {torch.float32: (torch.float32, torch.bfloat16), torch.bfloat16: (torch.bfloat16,)}
 
@@ -70,13 +79,19 @@ def flash_decode_attend(
     sinks: Optional[torch.Tensor] = None,
     k_scale: Optional[torch.Tensor] = None,
     v_scale: Optional[torch.Tensor] = None,
+    rotating: bool = False,
+    window: int = 0,
 ) -> torch.Tensor:
     """Kernel wrapper: lane b of q [B, 1, H, D] attends cache slots
     [0, lengths[b]) of k/v; [B, 1, H, D] out in q.dtype.  k/v are
     [B, S, KVH, D] in q's dtype (or bf16 under an f32 q), or with
     k_scale/v_scale ([B, S, KVH, 1] f32) int8 [B, S, KVH, D] or packed-int4
     uint8 [B, S, KVH, D/2] codes.
-    `max_live` (host int) bounds every length: the split plan covers it.
+    `max_live` (host int) bounds every lane's live slots: the split plan
+    covers it.  `rotating`: k/v are a ring of S slots, lengths[b] is the
+    query's position + 1 (it may exceed S; the live slots are
+    min(lengths[b], S)), and only the last `window` positions (0 < window
+    <= S) are attended.
     CUDA tensors launch the kernel (bf16 or f32 q, head dim 64 or 128,
     H/KVH <= 8) or raise; CPU tensors take the plain version."""
     B, T, H, D = q.shape
@@ -102,10 +117,13 @@ def flash_decode_attend(
         raise ValueError(f"max_live {max_live} outside a cache of {S} slots")
     if sinks is not None and tuple(sinks.shape) != (H,):
         raise ValueError(f"sinks must be [H]={H}, got {tuple(sinks.shape)}")
+    window = int(window)
+    if rotating and not 0 < window <= S:
+        raise ValueError(f"a rotating cache of {S} slots needs 0 < window <= {S}, got {window}")
     scale = D**-0.5 if scale is None else float(scale)
     if q.device.type == "cpu":
         return flash_decode_plain(q, k, v, lengths, scale=scale, sinks=sinks, k_scale=k_scale,
-                                  v_scale=v_scale, max_live=max_live)
+                                  v_scale=v_scale, max_live=max_live, rotating=rotating, window=window)
     if q.dtype not in build.DTYPE_CODES or D not in HEAD_DIMS or H // KVH > MAX_GROUP:
         raise ValueError(
             f"flash_decode takes bf16/f32, head dim 64/128 and at most {MAX_GROUP} "
@@ -134,11 +152,12 @@ def flash_decode_attend(
         k_scale.data_ptr() if qbits else None, v_scale.data_ptr() if qbits else None,
         out.data_ptr(), None if sinks is None else sinks.data_ptr(),
         part_o.data_ptr(), part_ml.data_ptr(), lengths.data_ptr(), B, H, KVH, S,
-        tiles_per_split, n_split, scale, build.current_stream_handle(q.device),
+        tiles_per_split, n_split, scale, int(bool(rotating)), window,
+        build.current_stream_handle(q.device),
     )
     if rc != 0:
         raise RuntimeError(f"flash_decode kernel launch failed (code {rc})")
-    counter = COUNTERS[qbits]
+    counter = COUNTERS[qbits, bool(rotating)]
     setattr(flash_decode_attend, counter, getattr(flash_decode_attend, counter) + 1)
     return out
 
@@ -147,13 +166,17 @@ def flash_decode_attend(
 flash_decode_attend.launches = 0
 flash_decode_attend.launches_q8 = 0
 flash_decode_attend.launches_q4 = 0
+flash_decode_attend.launches_rot = 0
+flash_decode_attend.launches_rot_q8 = 0
+flash_decode_attend.launches_rot_q4 = 0
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 # dtype, kv_dtype, qbits, head_dim, q, k, v, k_scale, v_scale, o, sinks,
 # part_o, part_ml, lengths, B, H, KVH, S, tiles_per_split, n_split, scale,
-# stream
+# rotating, window, stream
 _ARGTYPES = (
-    _I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, ctypes.c_float, _P,
+    _I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, ctypes.c_float,
+    _I, _I, _P,
 )
 
 
@@ -171,18 +194,22 @@ def flash_decode_plain(
     k_scale: Optional[torch.Tensor] = None,
     v_scale: Optional[torch.Tensor] = None,
     max_live: Optional[int] = None,
+    rotating: bool = False,
+    window: int = 0,
 ) -> torch.Tensor:
     """The kernel's function in plain PyTorch: the online-softmax fold over
     64-key tiles dequantized to f32, sharing the tiles across each group.
-    A tile past a lane's length leaves that lane's state untouched, so an
-    idle lane (length 0) gives zeros.  `max_live` bounds the lengths (read
-    from `lengths` when None)."""
+    A tile past a lane's live slots leaves that lane's state untouched, so
+    an idle lane (length 0) gives zeros.  `max_live` bounds the live slots
+    (read from `lengths` when None).  `rotating`: the ring's mask as the
+    kernel's (flash_decode_attend)."""
     B, _, H, D = q.shape
     S, KVH = k.shape[1], k.shape[2]
     G = H // KVH
     scale = D**-0.5 if scale is None else float(scale)
     dev = q.device
-    lengths = lengths.to(device=dev, dtype=torch.int64).clamp(max=S)
+    pos = lengths.to(device=dev, dtype=torch.int64) - 1  # the queries' positions (rotating)
+    lengths = (pos + 1).clamp(max=S)  # live slots per lane
     live = int(lengths.max()) if max_live is None else min(int(max_live), S)
     qf = q[:, 0].reshape(B, KVH, G, D).float() * scale
     m = torch.full((B, KVH, G, 1), NEG_INF, dtype=torch.float32, device=dev)
@@ -190,7 +217,12 @@ def flash_decode_plain(
     acc = torch.zeros((B, KVH, G, D), dtype=torch.float32, device=dev)
     for k0 in range(0, live, BK):
         k1 = min(k0 + BK, live)
-        valid = (k0 + torch.arange(k1 - k0, device=dev))[None, :] < lengths[:, None]  # [B, s]
+        slot = (k0 + torch.arange(k1 - k0, device=dev))[None, :]
+        valid = slot < lengths[:, None]  # [B, s]
+        if rotating:
+            # the slot holds the most recent position <= pos congruent to it mod S
+            k_abs = pos[:, None] - torch.remainder(pos[:, None] - slot, S)
+            valid = valid & (k_abs >= 0) & (k_abs > pos[:, None] - window)
         # rows past a lane's length are never used, whatever they hold
         tile = {"k": k[:, k0:k1], "v": v[:, k0:k1]}
         if k_scale is not None:

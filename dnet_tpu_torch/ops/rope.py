@@ -3,9 +3,9 @@ Llama-3 scaling).
 
 Counterpart of dnet_tpu/ops/rope.py: the frequencies are computed once per
 model config in numpy float64, exactly as the reference does, and moved to
-the device as float32.  This slice covers the default, linear and llama3
-`rope_scaling` types; YaRN and the interleaved layout come with the model
-families that need them.
+the device as float32.  It covers the default, linear, llama3 and yarn
+`rope_scaling` types (yarn's attention scaling multiplies cos and sin); the
+interleaved layout comes with the model family that needs it.
 """
 
 from __future__ import annotations
@@ -24,14 +24,17 @@ def rope_frequencies(
     max_position_embeddings: int = 8192,
 ) -> tuple[np.ndarray, float]:
     """(inv_freq [head_dim//2] float32, attention_scaling) with HF
-    `rope_scaling`; attention_scaling is 1.0 for the types covered here."""
+    `rope_scaling`; attention_scaling is YaRN's mscale, 1.0 for the other
+    types."""
     inv_freq = 1.0 / (
         theta ** (np.arange(0, head_dim, 2, dtype=np.float64) / head_dim)
     )
     attention_scaling = 1.0
     if scaling:
         rope_type = scaling.get("rope_type", scaling.get("type", ""))
-        if rope_type == "llama3":
+        if rope_type == "yarn":
+            inv_freq, attention_scaling = _yarn(inv_freq, head_dim, theta, scaling, max_position_embeddings)
+        elif rope_type == "llama3":
             factor = scaling.get("factor", 8.0)
             low_factor = scaling.get("low_freq_factor", 1.0)
             high_factor = scaling.get("high_freq_factor", 4.0)
@@ -49,6 +52,43 @@ def rope_frequencies(
         elif rope_type not in ("default", ""):
             raise NotImplementedError(f"rope_scaling type {rope_type!r}")
     return inv_freq.astype(np.float32), attention_scaling
+
+
+def _yarn(
+    inv_freq: np.ndarray, dim: int, theta: float, scaling: dict[str, Any], max_position_embeddings: int
+) -> tuple[np.ndarray, float]:
+    """YaRN: blend interpolated (inv_freq / factor) and extrapolated
+    frequencies over a linear ramp between the correction dims of
+    beta_fast and beta_slow.  With `truncate` false (gpt-oss) the ramp's
+    bounds stay fractional."""
+    factor = scaling.get("factor", 1.0)
+    attention_factor = scaling.get("attention_factor")
+    mscale = scaling.get("mscale")
+    mscale_all_dim = scaling.get("mscale_all_dim")
+    old_len = scaling.get("original_max_position_embeddings") or max_position_embeddings
+
+    def get_mscale(scale: float, ms: float = 1.0) -> float:
+        return 1.0 if scale <= 1 else 0.1 * ms * math.log(scale) + 1.0
+
+    if attention_factor is None:
+        if mscale and mscale_all_dim:
+            attention_factor = get_mscale(factor, mscale) / get_mscale(factor, mscale_all_dim)
+        else:
+            attention_factor = get_mscale(factor)
+
+    def correction_dim(num_rot: float) -> float:
+        return (dim * math.log(old_len / (num_rot * 2 * math.pi))) / (2 * math.log(theta))
+
+    low = correction_dim(scaling.get("beta_fast") or 32)
+    high = correction_dim(scaling.get("beta_slow") or 1)
+    if scaling.get("truncate", True):
+        low, high = math.floor(low), math.ceil(high)
+    low, high = max(low, 0), min(high, dim - 1)
+    if low == high:
+        high += 0.001
+    ramp = np.clip((np.arange(dim // 2, dtype=np.float64) - low) / (high - low), 0, 1)
+    extrapolation = 1 - ramp
+    return (inv_freq / factor) * (1 - extrapolation) + inv_freq * extrapolation, float(attention_factor)
 
 
 def apply_rope(

@@ -9,7 +9,8 @@ the qsparse8/sparse_v1 codec, whose column norms, gather and (on the
 receiving shard) dequant + scatter run in the CUDA kernels of
 compression/ops.py.
 
-This slice serves one contiguous layer range per shard with resident
+This slice serves llama-family checkpoints (gpt_oss's paired sliding/full
+layers are not ported to shards), one contiguous layer range per shard with resident
 weights, one request per ring pass and a synchronous encode; the shard's KV
 cache takes the topology's kv_bits (bf16, int8 or packed int4, as
 core/kvcache.py `resolve_kv_bits` maps it).  Every option
@@ -19,6 +20,7 @@ than quietly served as something else.
 
 from __future__ import annotations
 
+import json
 import time
 from pathlib import Path
 from typing import Optional, Sequence, Union
@@ -46,6 +48,24 @@ def _rows(shape) -> int:
 
 class ShardCapabilityError(ValueError):
     """A load option this shard does not serve."""
+
+
+# the model families a shard serves (gpt_oss's paired halves and ring
+# caches are not split over shards yet)
+SHARD_MODEL_TYPES = ("llama",)
+
+
+def refuse_model(model_dir: Union[str, Path]) -> None:
+    """Raise ShardCapabilityError for a checkpoint whose family this shard
+    does not serve; read from its config.json before any weight."""
+    cfg_path = Path(model_dir) / "config.json"
+    if not cfg_path.is_file():
+        raise FileNotFoundError(f"no config.json in {model_dir}")
+    model_type = json.loads(cfg_path.read_text()).get("model_type")
+    if model_type not in SHARD_MODEL_TYPES:
+        raise ShardCapabilityError(
+            f"this shard does not serve model_type {model_type!r} (ring shards serve {SHARD_MODEL_TYPES})"
+        )
 
 
 def refuse_unsupported(
@@ -128,6 +148,7 @@ class ShardCompute:
             tp_degree=tp_degree, spec_lookahead=spec_lookahead, lanes=lanes,
             prefix_cache=prefix_cache, wire_pipeline=wire_pipeline,
         )
+        refuse_model(model_dir)
         # the API resolves "auto" per hop in its load fan-out; a shard loaded
         # without a codec keeps the lossless default
         if not wire_codec:

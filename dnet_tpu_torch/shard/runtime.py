@@ -19,7 +19,7 @@ from typing import Optional
 import torch
 
 from dnet_tpu_torch.core.types import ActivationMessage
-from dnet_tpu_torch.shard.compute import ShardCompute, refuse_unsupported
+from dnet_tpu_torch.shard.compute import ShardCompute, refuse_model, refuse_unsupported
 from dnet_tpu_torch.utils.logger import get_logger
 
 log = get_logger()
@@ -79,6 +79,7 @@ class ShardRuntime:
         option this shard does not serve raises before anything happens,
         and a model already loaded keeps serving."""
         refuse_unsupported(layers, **kwargs)
+        refuse_model(model_dir)
         with self._model_lock:
             t0 = time.perf_counter()
             if self.compute is not None:  # reload: free the old engine first

@@ -42,6 +42,7 @@ _GUARDED_SERVER = textwrap.dedent(
     for m in pkgutil.walk_packages(dnet_tpu_torch.__path__, "dnet_tpu_torch."):
         importlib.import_module(m.name)
 
+    import os
     from dnet_tpu_torch.utils.checkpoint import save_checkpoint
     rng = np.random.default_rng(0)
     cfg = {"model_type": "llama", "vocab_size": 261, "hidden_size": 32,
@@ -50,14 +51,29 @@ _GUARDED_SERVER = textwrap.dedent(
     w = lambda *s: rng.normal(0, 0.05, size=s).astype(np.float32)
     t = {"model.embed_tokens.weight": w(261, 32), "model.norm.weight": np.ones(32, np.float32),
          "lm_head.weight": w(261, 32)}
+    layer = [("input_layernorm.weight", (32,)), ("post_attention_layernorm.weight", (32,)),
+             ("self_attn.q_proj.weight", (32, 32)), ("self_attn.k_proj.weight", (16, 32)),
+             ("self_attn.v_proj.weight", (16, 32)), ("self_attn.o_proj.weight", (32, 32))]
+    if os.environ.get("GUARDED_MODEL") == "gpt_oss":
+        # 2 layers (one sliding, one full), a ring of 4, 4 experts top-2, sinks, YaRN
+        cfg.update(model_type="gpt_oss", intermediate_size=24, num_local_experts=4,
+                   num_experts_per_tok=2, sliding_window=4,
+                   layer_types=["sliding_attention", "full_attention"],
+                   rope_scaling={"rope_type": "yarn", "factor": 32.0, "beta_fast": 32.0,
+                                 "beta_slow": 1.0, "truncate": False,
+                                 "original_max_position_embeddings": 4096})
+        layer += [("self_attn.q_proj.bias", (32,)), ("self_attn.k_proj.bias", (16,)),
+                  ("self_attn.v_proj.bias", (16,)), ("self_attn.o_proj.bias", (32,)),
+                  ("self_attn.sinks", (4,)), ("mlp.router.weight", (4, 32)),
+                  ("mlp.router.bias", (4,)), ("mlp.experts.gate_up_proj", (4, 32, 48)),
+                  ("mlp.experts.gate_up_proj_bias", (4, 48)), ("mlp.experts.down_proj", (4, 24, 32)),
+                  ("mlp.experts.down_proj_bias", (4, 32))]
+    else:
+        layer += [("mlp.gate_proj.weight", (64, 32)), ("mlp.up_proj.weight", (64, 32)),
+                  ("mlp.down_proj.weight", (32, 64))]
     for i in range(2):
-        p = f"model.layers.{i}."
-        for n, s in [("input_layernorm.weight", (32,)), ("post_attention_layernorm.weight", (32,)),
-                     ("self_attn.q_proj.weight", (32, 32)), ("self_attn.k_proj.weight", (16, 32)),
-                     ("self_attn.v_proj.weight", (16, 32)), ("self_attn.o_proj.weight", (32, 32)),
-                     ("mlp.gate_proj.weight", (64, 32)), ("mlp.up_proj.weight", (64, 32)),
-                     ("mlp.down_proj.weight", (32, 64))]:
-            t[p + n] = w(*s)
+        for n, s in layer:
+            t[f"model.layers.{i}." + n] = w(*s)
     save_checkpoint(sys.argv[1], cfg, t)
 
     from dnet_tpu_torch.cli.api import main
@@ -70,6 +86,8 @@ _GUARDED_SERVER = textwrap.dedent(
 
 def test_no_jax_or_reference_imports_in_source():
     files = sorted(PORT_PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    for module in ("models/gpt_oss.py", "ops/moe.py", "ops/rope.py", "ops/attention.py", "core/kvcache.py"):
+        assert PORT_PKG / module in files
     offenders = [
         f"{f.relative_to(ROOT)}: {m.group(0).strip()}"
         for f in files
@@ -143,6 +161,16 @@ def test_serves_a_quantized_request_with_jax_and_reference_blocked(tmp_path):
     assert health["engine"]["kv_quant_bits"] == 8
     # 2 layers x 64 slots x 2 KV heads x (8 + 8 code bytes + 2 x 4 scale bytes)
     assert health["engine"]["kv_bytes"] == 2 * 64 * 2 * (8 + 8 + 8)
+
+
+def test_serves_a_gpt_oss_request_with_jax_and_reference_blocked(tmp_path):
+    """The guarded serve on a gpt_oss checkpoint: the prompt (~20 tokens
+    under the chat template) wraps the 4-row ring, and /health counts the
+    paired cache (1 sliding layer x 4 rows + 1 full layer x 64 rows)."""
+    health = _serve_one_guarded(tmp_path, extra_env={"GUARDED_MODEL": "gpt_oss"})
+    assert "slots" not in health["engine"]
+    # k and v, 2 KV heads x head dim 8, f32
+    assert health["engine"]["kv_bytes"] == (4 + 64) * 2 * 2 * 8 * 4
 
 
 def test_serves_a_batched_request_with_jax_and_reference_blocked(tmp_path):

@@ -8,7 +8,9 @@ nor dnet_tpu, so it runs where only torch is installed:
 Shapes are Llama-3.2-1B's (H=32, KVH=8, D=64); the decode kernel reads a
 plain cache (also bf16 under an f32 q, as DNET_KV_BITS=16 gives an f32
 model) and int8 / packed-int4 caches written by the port's write_kv, with a
-lengths vector of ragged lanes (an idle one included); the paged kernel
+lengths vector of ragged lanes (an idle one included), and its rotating
+variant gpt-oss-20b's sliding-window ring (H=64, KVH=8, W=128, sinks) in
+every cache form; the paged kernel
 reads a block pool (bf16 under an f32 q too) through shuffled page tables at
 ragged per-slot lengths.  The engines with a bf16 cache under f32 params run
 on the card against the CPU's plain versions.  The
@@ -33,7 +35,7 @@ from dnet_tpu_torch.compression.ops import (
     quantize_q8,
 )
 from dnet_tpu_torch.ops.flash_attention import flash_prefill, flash_prefill_plain
-from dnet_tpu_torch.core.kvcache import KVConfig, init_cache, layer_slices, write_kv
+from dnet_tpu_torch.core.kvcache import KVConfig, init_cache, layer_slices, write_kv, write_kv_rotating
 from dnet_tpu_torch.ops.flash_decode import decode_lengths, flash_decode_attend, flash_decode_plain
 from dnet_tpu_torch.ops.paged_attention import paged_attend, paged_attend_plain
 
@@ -133,6 +135,57 @@ def test_decode_kernel_lengths_vector(gen, bits, dtype):
         torch.cuda.synchronize()
         assert (out.float() - want).abs().max().item() <= TOL[dtype]
         assert not out[1].any()
+
+
+ROT_W = 128  # gpt-oss-20b's sliding window
+
+
+def _ring(gen, dtype, bits, B=1, KVH=8, D=64):
+    """One layer's ring of ROT_W slots: random values in `dtype`, or codes
+    and scales the port's write_kv_rotating quantized from 3 * ROT_W bf16
+    rows (the ring keeps the last ROT_W)."""
+    if not bits:
+        return _randn(gen, dtype, B, ROT_W, KVH, D), _randn(gen, dtype, B, ROT_W, KVH, D), {}
+    kvs = layer_slices(init_cache(KVConfig(1, B, ROT_W, KVH, D, quant_bits=bits), torch.device("cuda")), 0)
+    rows = 3 * ROT_W
+    write_kv_rotating(kvs, _randn(gen, torch.bfloat16, B, rows, KVH, D), _randn(gen, torch.bfloat16, B, rows, KVH, D), 0)
+    return kvs["k"], kvs["v"], {"k_scale": kvs["k_scale"], "v_scale": kvs["v_scale"]}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("bits", [0, 8, 4])
+@pytest.mark.parametrize("pos,window", [(0, 128), (127, 128), (128, 128), (300, 128), (4095, 128), (300, 91)])
+def test_rotating_decode_kernel_matches_plain(gen, dtype, bits, pos, window):
+    """gpt-oss-20b's sliding layer (H=64, KVH=8, D=64, sinks) over its ring,
+    before, at and past the wrap, the served window and a shorter one;
+    counted on the rotating variant's own counter."""
+    k, v, scales = _ring(gen, dtype, bits)
+    q = _randn(gen, dtype, 1, 1, 64, 64)
+    sinks = torch.randn(64, generator=gen, device="cuda")
+    lengths = decode_lengths(1, pos, "cuda")
+    name = "launches_rot" + (f"_q{bits}" if bits else "")
+    before, plain = getattr(flash_decode_attend, name), flash_decode_attend.launches
+    out = flash_decode_attend(q, k, v, lengths, min(pos + 1, ROT_W), sinks=sinks, rotating=True, window=window,
+                              **scales)
+    torch.cuda.synchronize()
+    assert getattr(flash_decode_attend, name) == before + 1 and flash_decode_attend.launches == plain
+    want = flash_decode_plain(q.float(), k if bits else k.float(), v if bits else v.float(), lengths, sinks=sinks,
+                              rotating=True, window=window, **scales)
+    assert out.dtype == dtype and (out.float() - want).abs().max().item() <= TOL[dtype]
+
+
+@pytest.mark.parametrize("bits", [0, 8])
+def test_rotating_decode_kernel_lanes(gen, bits):
+    """Four lanes at their own positions (one idle) in one launch, f32 q."""
+    positions = [5, 127, 300, 4095]
+    k, v, scales = _ring(gen, torch.float32, bits, B=4)
+    q = _randn(gen, torch.float32, 4, 1, 64, 64)
+    lengths = torch.tensor([p + 1 for p in positions], dtype=torch.int32, device="cuda")
+    lengths[0] = 0
+    out = flash_decode_attend(q, k, v, lengths, ROT_W, rotating=True, window=ROT_W, **scales)
+    torch.cuda.synchronize()
+    want = flash_decode_plain(q, k, v, lengths, rotating=True, window=ROT_W, **scales)
+    assert (out - want).abs().max().item() <= TOL[torch.float32] and not out[0].any()
 
 
 @pytest.mark.parametrize("pos", [0, 63, 1024, 4095])
