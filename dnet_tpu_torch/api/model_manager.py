@@ -5,10 +5,14 @@ Counterpart of dnet_tpu/api/model_manager.py (its local branches):
 `LocalAdapter`; `batch_slots > 1` a continuously batched `BatchedEngine`
 (dense slots, or paged + ragged with DNET_KV_PAGED=1 DNET_KV_RAGGED=1)
 behind a `BatchedLocalAdapter`.  `kv_bits` (DNET_KV_BITS: 0, 16, 8 or 4)
-picks the KV cache's form for either engine.  The scheduler (DNET_SCHED=1)
-is not ported and is refused at load.  A model id is a filesystem path or
-a subdirectory of `models_dir` (repo id slashes replaced by `--`, HF-cache
-style); nothing is downloaded.
+picks the KV cache's form for either engine.  What is not ported is
+refused at load with `EngineCapabilityError` (HTTP 422), the setting named,
+instead of being dropped: the scheduler (DNET_SCHED=1), weight
+quantization (DNET_API_WEIGHT_QUANT_BITS), the single-sequence prefix cache
+(DNET_API_PREFIX_CACHE with batch_slots 1), speculative decoding
+(DNET_API_SPEC_LOOKAHEAD) and the draft model (DNET_API_DRAFT_MODEL).  A
+model id is a filesystem path or a subdirectory of `models_dir` (repo id
+slashes replaced by `--`, HF-cache style); nothing is downloaded.
 """
 
 from __future__ import annotations
@@ -20,7 +24,7 @@ from typing import Optional, Union
 
 from dnet_tpu_torch.api.inference import EngineCapabilityError
 from dnet_tpu_torch.api.strategies import BatchedLocalAdapter, LocalAdapter
-from dnet_tpu_torch.config import api_settings, sched_enabled
+from dnet_tpu_torch.config import ApiSettings, api_settings, sched_enabled
 from dnet_tpu_torch.core.batch import BatchedEngine
 from dnet_tpu_torch.core.engine import LocalEngine
 from dnet_tpu_torch.core.kvcache import resolve_kv_bits
@@ -40,6 +44,24 @@ def resolve_model_dir(model_id: str, models_dir: Optional[Union[str, Path]] = No
             if cand.is_dir() and (cand / "config.json").is_file():
                 return cand
     return None
+
+
+def refuse_unported(settings: ApiSettings, batch_slots: int) -> None:
+    """Raise EngineCapabilityError for the first setting that changes what
+    the reference serves and that the port does not serve yet (ROADMAP A4)."""
+    refused = [
+        (settings.weight_quant_bits != 0,
+         f"DNET_API_WEIGHT_QUANT_BITS={settings.weight_quant_bits}: weight quantization is not ported"),
+        (settings.prefix_cache > 0 and batch_slots <= 1,
+         f"DNET_API_PREFIX_CACHE={settings.prefix_cache}: the single-sequence prefix cache is not ported"),
+        (settings.spec_lookahead > 0,
+         f"DNET_API_SPEC_LOOKAHEAD={settings.spec_lookahead}: speculative decoding is not ported"),
+        (bool(settings.draft_model),
+         f"DNET_API_DRAFT_MODEL={settings.draft_model!r}: draft-model speculation is not ported"),
+    ]
+    for cond, why in refused:
+        if cond:
+            raise EngineCapabilityError(f"{why}; unset it to serve")
 
 
 class LocalModelManager:
@@ -78,6 +100,8 @@ class LocalModelManager:
                 "DNET_SCHED=1: the iteration-level scheduler is not ported; unset it to serve "
                 "the legacy adapters"
             )
+        settings = api_settings()
+        refuse_unported(settings, self.batch_slots)
         try:
             kv_dtype, kv_quant_bits = resolve_kv_bits(self.kv_bits)
         except NotImplementedError as exc:
@@ -90,7 +114,7 @@ class LocalModelManager:
             if self.batch_slots > 1:
                 engine = BatchedEngine(
                     model_dir, slots=self.batch_slots,
-                    prefix_cache_size=api_settings().prefix_cache, **kwargs,
+                    prefix_cache_size=settings.prefix_cache, **kwargs,
                 )
             else:
                 engine = LocalEngine(model_dir, **kwargs)

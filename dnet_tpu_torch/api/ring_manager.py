@@ -4,8 +4,9 @@
 Counterpart of dnet_tpu/api/ring_manager.py for single-round contiguous
 rings: `build_manual_topology` orders the assignments into a ring and wires
 the next pointers; `RingModelManager.load_model` ships each shard its load
-body (lanes, speculation and the prefix cache off: 0) concurrently and
-then serves through a `RingApiAdapter`; `_hop_codec` resolves
+body (lanes, speculation and the prefix cache off: 0; weight_quant_bits
+as DNET_API_WEIGHT_QUANT_BITS says, which a shard refuses when nonzero)
+concurrently and then serves through a `RingApiAdapter`; `_hop_codec` resolves
 DNET_WIRE_CODEC=auto per hop.  A failed shard load answers with the
 shard's own status (422 for an option the shard does not serve).
 """
@@ -123,6 +124,8 @@ class RingModelManager:
     def load_bodies(self, topo: TopologyInfo, model_id: str, max_seq: int) -> dict:
         """instance -> its /load_model body."""
         by_instance = {d.instance: d for d in topo.devices}
+        # shipped as configured: the shards refuse a nonzero value with 422
+        wq = api_settings().weight_quant_bits
         bodies = {}
         for a in topo.assignments:
             dev, nxt = by_instance[a.instance], by_instance.get(a.next_instance)
@@ -138,7 +141,7 @@ class RingModelManager:
                 "max_seq_len": max_seq,
                 "api_callback_address": f"grpc://{self.api_callback_addr}",
                 "param_dtype": self.param_dtype,
-                "weight_quant_bits": 0,
+                "weight_quant_bits": wq,
                 "mesh_tp": a.mesh_tp,
                 "mesh_sp": a.mesh_sp,
                 "tp_degree": a.tp_degree,

@@ -7,9 +7,12 @@
     python -m dnet_tpu_torch.cli.api --hostfile <f>    # a ring of dnet-torch-shard nodes
 
 Runs on CUDA unless --device cpu is given, and refuses to start when CUDA
-is absent.  --batch-slots N > 1 serves N concurrent requests by continuous
-batching, over dense per-slot KV rows by default or over a paged KV pool
-with DNET_KV_PAGED=1 and DNET_KV_RAGGED=1.  DNET_KV_BITS (0, 16, 8, 4) sets
+is absent.  Every flag but --model, --device and --hostfile defaults to its
+DNET_API_* setting (DNET_API_HTTP_PORT, DNET_API_MAX_SEQ_LEN,
+DNET_API_PARAM_DTYPE, ...), as the reference's.  --batch-slots N > 1
+serves N concurrent requests by continuous batching, over dense per-slot KV
+rows by default or over a paged KV pool with DNET_KV_PAGED=1 and
+DNET_KV_RAGGED=1.  DNET_KV_BITS (0, 16, 8, 4) sets
 the KV cache's form for the single-sequence and dense batched engines; a
 paged pool takes the param dtype's cache only.
 --hostfile serves through the shards it lists (`<instance> <host> <http_port>
@@ -23,26 +26,31 @@ from __future__ import annotations
 import argparse
 import sys
 
+from dnet_tpu_torch.config import api_settings
 from dnet_tpu_torch.utils.logger import setup_logger
 
 
 def build_parser() -> argparse.ArgumentParser:
+    """The flags, each defaulting to its DNET_API_* setting (config.py
+    `ApiSettings`, read when the parser is built), as the reference's CLI
+    and server take them; a flag given on the command line wins."""
+    s = api_settings()
     p = argparse.ArgumentParser(prog="dnet-torch-api", description=__doc__,
                                 formatter_class=argparse.RawDescriptionHelpFormatter)
-    p.add_argument("--host", default="0.0.0.0")
-    p.add_argument("--http-port", type=int, default=8080)
+    p.add_argument("--host", default=s.host)
+    p.add_argument("--http-port", type=int, default=s.http_port)
     p.add_argument("--model", default="", help="model to load at startup (path or id)")
-    p.add_argument("--models-dir", default="~/.dnet-tpu/models", help="where model ids resolve")
+    p.add_argument("--models-dir", default=s.models_dir, help="where model ids resolve")
     p.add_argument("--device", default="cuda", help="torch device (default cuda; 'cpu' to run there)")
-    p.add_argument("--max-seq-len", type=int, default=4096, help="KV cache slots per request")
-    p.add_argument("--param-dtype", default="bfloat16", choices=["bfloat16", "float32"])
-    p.add_argument("--max-concurrent", type=int, default=8,
+    p.add_argument("--max-seq-len", type=int, default=s.max_seq_len, help="KV cache slots per request")
+    p.add_argument("--param-dtype", default=s.param_dtype, choices=["bfloat16", "float32"])
+    p.add_argument("--max-concurrent", type=int, default=s.max_concurrent_requests,
                    help="requests admitted at once (capped at --batch-slots when batching)")
     p.add_argument("--batch-slots", type=int, default=None,
                    help="continuous-batching slots (default DNET_API_BATCH_SLOTS, else 1)")
-    p.add_argument("--request-timeout-s", type=float, default=300.0)
+    p.add_argument("--request-timeout-s", type=float, default=s.request_timeout_s)
     p.add_argument("--hostfile", default="", help="serve through the ring of shards this file lists")
-    p.add_argument("--grpc-port", type=int, default=58080, help="ring mode: token callbacks from the tail")
+    p.add_argument("--grpc-port", type=int, default=s.grpc_port, help="ring mode: token callbacks from the tail")
     return p
 
 

@@ -4,7 +4,8 @@
 
 The API node (`dnet-torch-api --hostfile <f>`) assigns its layers and next
 hop through POST /load_model.  Runs on CUDA unless --device cpu is given,
-and refuses to start when CUDA is absent.
+and refuses to start when CUDA is absent.  The other flags default to their
+DNET_SHARD_* settings, as the reference's.
 """
 
 from __future__ import annotations
@@ -12,18 +13,23 @@ from __future__ import annotations
 import argparse
 import sys
 
+from dnet_tpu_torch.config import shard_settings
 from dnet_tpu_torch.utils.logger import setup_logger
 
 
 def build_parser() -> argparse.ArgumentParser:
+    """The flags, each defaulting to its DNET_SHARD_* setting (config.py
+    `ShardSettings`, read when the parser is built); a flag given on the
+    command line wins."""
+    s = shard_settings()
     p = argparse.ArgumentParser(prog="dnet-torch-shard", description=__doc__,
                                 formatter_class=argparse.RawDescriptionHelpFormatter)
-    p.add_argument("--host", default="0.0.0.0")
-    p.add_argument("--http-port", type=int, default=8081)
-    p.add_argument("--grpc-port", type=int, default=58081)
-    p.add_argument("--queue-size", type=int, default=256, help="ingress frames queued for compute")
-    p.add_argument("--shard-name", default="", help="instance name (default shard-<host>-<grpc port>)")
-    p.add_argument("--models-dir", default="~/.dnet-tpu/models", help="where model ids resolve")
+    p.add_argument("--host", default=s.host)
+    p.add_argument("--http-port", type=int, default=s.http_port)
+    p.add_argument("--grpc-port", type=int, default=s.grpc_port)
+    p.add_argument("--queue-size", type=int, default=s.queue_size, help="ingress frames queued for compute")
+    p.add_argument("--shard-name", default=s.name, help="instance name (default shard-<host>-<grpc port>)")
+    p.add_argument("--models-dir", default=s.models_dir, help="where model ids resolve")
     p.add_argument("--device", default="cuda", help="torch device (default cuda; 'cpu' to run there)")
     return p
 

@@ -2,9 +2,13 @@
 
 Counterpart of dnet_tpu/config.py, trimmed to what the port's paths read:
 `KVSettings` (DNET_KV_BITS, DNET_KV_PAGED, DNET_KV_RAGGED,
-DNET_KV_BLOCK_TOKENS, DNET_KV_POOL_BLOCKS), `ApiSettings` (DNET_API_BATCH_SLOTS,
-DNET_API_PREFIX_CACHE, DNET_API_RING_AUTO_STEPS, DNET_API_CALLBACK_ADDR),
-the ring's `TransportSettings` (DNET_TRANSPORT_*), `WireSettings`
+DNET_KV_BLOCK_TOKENS, DNET_KV_POOL_BLOCKS), `ApiSettings` (DNET_API_*: the
+API node's host, ports, timeout, admission, models dir, max_seq_len,
+param dtype and batch slots, which its CLI takes as defaults; the ring's
+auto steps and callback address; and the weight quantization, prefix cache,
+speculation and draft model, which the port reads to refuse),
+`ShardSettings` (DNET_SHARD_*: a shard's CLI defaults), the ring's
+`TransportSettings` (DNET_TRANSPORT_*), `WireSettings`
 (DNET_WIRE_*: the hop codec), `ComputeSettings` (DNET_COMPUTE_MOE_IMPL,
 DNET_COMPUTE_MOE_CAPACITY_FACTOR), and the scheduler switch DNET_SCHED, which
 the port reads only to refuse it.  Values come from the process
@@ -70,15 +74,39 @@ class KVSettings:
 
 @dataclass
 class ApiSettings:
+    host: str = "0.0.0.0"
+    http_port: int = 8080
+    grpc_port: int = 58080
+    request_timeout_s: float = 300.0
+    max_concurrent_requests: int = 8
+    models_dir: str = "~/.dnet-tpu/models"
+    max_seq_len: int = 4096
+    param_dtype: str = "bfloat16"
+    # 8 / 4 = weight-only int8 / int4 serving (not ported: refused at load)
+    weight_quant_bits: int = 0
     # >1 = continuous batching over that many slots (core/batch.py)
     batch_slots: int = 1
     # >0 = a prefix cache of that many entries (not ported: refused at load)
     prefix_cache: int = 0
+    # >0 = speculative decoding with that many drafted tokens, and a draft
+    # model's checkpoint for it (neither ported: refused at load)
+    spec_lookahead: int = 0
+    draft_model: str = ""
     # decode grants on a ring: tokens the tail may feed straight back to
     # the head without an API round trip (0 = every step from the API)
     ring_auto_steps: int = 16
     # host:port the shards dial for token callbacks ("" = derived)
     callback_addr: str = ""
+
+
+@dataclass
+class ShardSettings:
+    host: str = "0.0.0.0"
+    http_port: int = 8081
+    grpc_port: int = 58081
+    queue_size: int = 256
+    name: str = ""
+    models_dir: str = "~/.dnet-tpu/models"
 
 
 @dataclass
@@ -132,6 +160,10 @@ def kv_settings() -> KVSettings:
 
 def api_settings() -> ApiSettings:
     return _from_env(ApiSettings, "DNET_API_")
+
+
+def shard_settings() -> ShardSettings:
+    return _from_env(ShardSettings, "DNET_SHARD_")
 
 
 def transport_settings() -> TransportSettings:

@@ -1,8 +1,10 @@
 """KV cache: preallocated and layer-stacked, plain or quantized.
 
 Counterpart of dnet_tpu/core/kvcache.py (full-length caches and the
-rotating sliding-window ring; no sequence-parallel writes).  Layout: k/v are
-[L, B, S_max, KVH, Hd]; a layer's slices `cache[name][l]` are contiguous
+rotating sliding-window ring; no sequence-parallel writes).  Layout: k is
+[L, B, S_max, KVH, Hd] and v [L, B, S_max, KVH, Vd] (Vd = `v_head_dim`, the
+same as Hd unless set: MLA caches K at nope + rope and V at its own width);
+a layer's slices `cache[name][l]` are contiguous
 [B, S_max, KVH, Hd] views, which the attention kernels read in place.  A
 ring cache (gpt_oss's sliding layers) has S_max = W rows, and the token at
 absolute position p lives in slot p % W (`write_kv_rotating`).
@@ -10,7 +12,8 @@ absolute position p lives in slot p % W (`write_kv_rotating`).
 Quantized caches (`quant_bits` 8 or 4, the reference's DNET_KV_BITS) hold
 codes plus one f32 scale per (slot, KV head), `k_scale`/`v_scale`
 [L, B, S_max, KVH, 1]: int8 codes, or offset-binary int4 nibbles packed in
-pairs along the head dim into uint8 [.., Hd/2] (low nibble = even index).
+pairs along the head dim into uint8 [.., Hd/2] and [.., Vd/2] (low nibble =
+even index).
 Codes and scales equal the reference's bit for bit: f32 upcast, division by
 the scale, round half to even, clip.  The decode kernel reads the codes and
 dequantizes in on-chip memory; `read_kv` dequantizes a prefix to f32 for
@@ -39,6 +42,7 @@ class KVConfig:
     n_kv_heads: int
     head_dim: int  # key head dim
     dtype: str = "bfloat16"
+    v_head_dim: int = 0  # 0 = same as head_dim (MLA caches differ: k = nope + rope, v = v_head)
     # 0 = dtype as-is; 8 = int8, 4 = packed int4 (two values a byte along the
     # head dim), both with per-(slot, head) f32 scales
     quant_bits: int = 0
@@ -58,16 +62,17 @@ def resolve_kv_bits(kv_bits: int) -> Tuple[Optional[str], int]:
 
 
 def init_cache(cfg: KVConfig, device: torch.device) -> dict:
-    shape = (cfg.n_layers, cfg.batch, cfg.max_seq, cfg.n_kv_heads, cfg.head_dim)
-    scale_shape = (*shape[:-1], 1)
+    rows = (cfg.n_layers, cfg.batch, cfg.max_seq, cfg.n_kv_heads)
+    vd = cfg.v_head_dim or cfg.head_dim
+    scale_shape = (*rows, 1)
     if cfg.quant_bits in (4, 8):
-        if cfg.quant_bits == 4 and cfg.head_dim % 2:
-            raise ValueError("int4 KV needs an even head dim")
-        code_shape = shape if cfg.quant_bits == 8 else (*shape[:-1], cfg.head_dim // 2)
+        if cfg.quant_bits == 4 and (cfg.head_dim % 2 or vd % 2):
+            raise ValueError("int4 KV needs even head dims")
+        per = 1 if cfg.quant_bits == 8 else 2  # values per stored element
         dt = torch.int8 if cfg.quant_bits == 8 else torch.uint8
         return {
-            "k": torch.zeros(code_shape, dtype=dt, device=device),
-            "v": torch.zeros(code_shape, dtype=dt, device=device),
+            "k": torch.zeros((*rows, cfg.head_dim // per), dtype=dt, device=device),
+            "v": torch.zeros((*rows, vd // per), dtype=dt, device=device),
             "k_scale": torch.zeros(scale_shape, dtype=torch.float32, device=device),
             "v_scale": torch.zeros(scale_shape, dtype=torch.float32, device=device),
         }
@@ -75,18 +80,19 @@ def init_cache(cfg: KVConfig, device: torch.device) -> dict:
         raise NotImplementedError(f"kv quant_bits={cfg.quant_bits} (only 0/4/8/16)")
     dt = getattr(torch, cfg.dtype)
     return {
-        "k": torch.zeros(shape, dtype=dt, device=device),
-        "v": torch.zeros(shape, dtype=dt, device=device),
+        "k": torch.zeros((*rows, cfg.head_dim), dtype=dt, device=device),
+        "v": torch.zeros((*rows, vd), dtype=dt, device=device),
     }
 
 
 def cache_nbytes(cfg: KVConfig) -> int:
     base = cfg.n_layers * cfg.batch * cfg.max_seq * cfg.n_kv_heads
+    dims = cfg.head_dim + (cfg.v_head_dim or cfg.head_dim)
     if cfg.quant_bits == 8:
-        return base * 2 * cfg.head_dim + base * 2 * 4  # int8 + f32 scales
+        return base * dims + base * 2 * 4  # int8 + f32 scales
     if cfg.quant_bits == 4:
-        return base * cfg.head_dim + base * 2 * 4
-    return base * 2 * cfg.head_dim * getattr(torch, cfg.dtype).itemsize
+        return base * dims // 2 + base * 2 * 4
+    return base * dims * getattr(torch, cfg.dtype).itemsize
 
 
 def layer_slices(cache: dict, layer: int) -> dict:
@@ -132,7 +138,7 @@ def _encoded(kvs: dict, k_new: torch.Tensor, v_new: torch.Tensor) -> dict:
 
 
 def write_kv(kvs: dict, k_new: torch.Tensor, v_new: torch.Tensor, pos: int) -> dict:
-    """Write new k/v ([B, T, KVH, Hd]) at slot `pos` of one layer's cache
+    """Write new k/v ([B, T, KVH, Hd] / [.., Vd]) at slot `pos` of one layer's cache
     slices, IN PLACE (the reference returns an updated copy), quantizing
     when the cache carries scales; returns kvs."""
     T = k_new.shape[1]

@@ -5,12 +5,17 @@
 // launched by `_decode_pallas`) in its plain variant, its `qbits` 8/4
 // variant and its `rotating` variant (the gpt_oss sliding-window ring
 // buffer, flash_decode.py:100-123 and :184-186), each over the same cache
-// forms (with_lse = False, offset = 0).  q/o
-// [B, 1, H, D]; k/v [B, S, KVH, D] in q's dtype (or bf16 under an f32 q: the
-// DNET_KV_BITS=16 cache of an f32 model), or quantized: int8 codes
-// [B, S, KVH, D], or int4 nibbles packed in pairs along the head dim (low
-// nibble = even index, offset binary) as uint8 [B, S, KVH, D/2], each with
-// k_scale/v_scale [B, S, KVH, 1] f32.  Lane b's query attends cache slots
+// forms (with_lse = False, offset = 0).  q
+// [B, 1, H, DQK], o [B, 1, H, DV]; k [B, S, KVH, DQK] and v [B, S, KVH, DV]
+// in q's dtype (or bf16 under an f32 q: the DNET_KV_BITS=16 cache of an f32
+// model), or quantized: int8 codes of those widths, or int4 nibbles packed
+// in pairs along the head dim (low nibble = even index, offset binary) as
+// uint8 [.., DQK/2] and [.., DV/2], each with k_scale/v_scale
+// [B, S, KVH, 1] f32.  DV differs from DQK for MLA (deepseek_v2: DQK 192,
+// DV 128, KVH = H, dnet_tpu/ops/flash_decode.py:175): scores run over DQK,
+// the V tile, accumulator, partials and combine over DV.  Under int4 a
+// 192-wide K row packs 96 bytes (6 vectors of 32 nibbles), a 128-wide V row
+// 64 bytes (4 vectors).  Lane b's query attends cache slots
 // [0, lengths[b]) (lengths = position + 1; 0 = an idle lane, whose output is
 // zeros); sinks [H] fold into the denominator.
 //
@@ -24,8 +29,10 @@
 // What bounds it on an H100: one query row per head does 2 * G multiply-adds
 // per K/V element it reads (G = H / KVH query heads per KV head), far below the
 // card's balance point, so the kernel is bound by the bytes of live cache it
-// reads: 2 * lengths[b] * KVH * (D * sizeof(KV), or D or D/2 code bytes plus a
-// 4-byte scale) per lane.  What the design does about it:
+// reads: lengths[b] * KVH * ((DQK + DV) * sizeof(KV), or DQK + DV or
+// (DQK + DV)/2 code bytes plus two 4-byte scales) per lane.  With G = 1
+// (MLA's H KV heads) a block uses one of its GMAX query-head rows: slow
+// per byte, correct.  What the design does about it:
 //   - it reads only the live slots: each lane's loop is bounded by its own
 //     length.  This replaces the Pallas trick of clamping dead tiles' block
 //     indices so their copies are elided (flash_decode.py:14-17,181-191),
@@ -51,20 +58,20 @@ constexpr int BK = 64;         // keys per tile
 constexpr int NTHREADS = 128;  // 4 warps
 constexpr int GMAX = 8;        // query heads per KV head this kernel supports
 
-template <int D>
+template <int DQK, int DV>
 struct Layout {
   static constexpr int LDK = BK + 4;  // Ks[d][j]
-  static constexpr int LDV = D + 4;   // Vs[j][d]
+  static constexpr int LDV = DV + 4;  // Vs[j][d]
   static constexpr int Q_OFF = 0;                     // Qs[g][d], pre-scaled
-  static constexpr int K_OFF = Q_OFF + GMAX * D;
-  static constexpr int V_OFF = K_OFF + D * LDK;
+  static constexpr int K_OFF = Q_OFF + GMAX * DQK;
+  static constexpr int V_OFF = K_OFF + DQK * LDK;
   static constexpr int S_OFF = V_OFF + BK * LDV;      // scores, then probabilities [g][j]
   static constexpr int M_OFF = S_OFF + GMAX * BK;     // running max per head
   static constexpr int L_OFF = M_OFF + GMAX;          // running denominator per head
   static constexpr int C_OFF = L_OFF + GMAX;          // this tile's rescale per head
   static constexpr int FLOATS = C_OFF + GMAX;
   static constexpr size_t BYTES = FLOATS * sizeof(float);
-  static constexpr int OUT_PER_THREAD = GMAX * D / NTHREADS;
+  static constexpr int OUT_PER_THREAD = GMAX * DV / NTHREADS;
 };
 
 // Stage rows [0, rows) of a quantized [BK, D] tile (row stride `stride`
@@ -117,14 +124,14 @@ __device__ __forceinline__ void stage_tile_q(float* dst, int ld, const uint8_t* 
 
 // KV: the cache's element type (T, bf16 under an f32 T, or uint8_t holding
 // int8 / packed int4 codes); QB: 0, 8 or 4; ROT: the rotating ring.
-template <typename T, typename KV, int QB, int D, bool ROT>
+template <typename T, typename KV, int QB, int DQK, int DV, bool ROT>
 __global__ void __launch_bounds__(NTHREADS)
 flash_decode_split_kernel(const T* __restrict__ q, const KV* __restrict__ k, const KV* __restrict__ v,
                           const float* __restrict__ k_scale, const float* __restrict__ v_scale,
                           const int* __restrict__ lengths, float* __restrict__ part_o,
                           float* __restrict__ part_ml, int H, int KVH, int S, int tiles_per_split,
                           int n_split, float scale, int window) {
-  using L = Layout<D>;
+  using L = Layout<DQK, DV>;
   constexpr int NO = L::OUT_PER_THREAD;
   extern __shared__ __align__(16) float smem[];
   float* Qs = smem + L::Q_OFF;
@@ -144,8 +151,8 @@ flash_decode_split_kernel(const T* __restrict__ q, const KV* __restrict__ k, con
   const int warp = tid >> 5;
 
   // the G query heads of this KV group are contiguous: q[b, 0, kvh*G .. kvh*G+G-1, :]
-  const T* qb = q + ((long)b * H + (long)kvh * G) * D;
-  for (int i = tid; i < G * D; i += NTHREADS) {
+  const T* qb = q + ((long)b * H + (long)kvh * G) * DQK;
+  for (int i = tid; i < G * DQK; i += NTHREADS) {
     float x;
     if constexpr (sizeof(T) == 4) {
       x = (float)qb[i];
@@ -163,10 +170,12 @@ flash_decode_split_kernel(const T* __restrict__ q, const KV* __restrict__ k, con
 #pragma unroll
   for (int i = 0; i < NO; ++i) acc[i] = 0.f;
 
-  constexpr int DS = QB == 4 ? D / 2 : D;  // stored elements per row
-  const long kv_stride = (long)KVH * DS;
-  const KV* kb = k + ((long)b * S * KVH + kvh) * DS;
-  const KV* vb = v + ((long)b * S * KVH + kvh) * DS;
+  constexpr int DSK = QB == 4 ? DQK / 2 : DQK;  // stored elements per K row
+  constexpr int DSV = QB == 4 ? DV / 2 : DV;    // and per V row
+  const long k_stride = (long)KVH * DSK;
+  const long v_stride = (long)KVH * DSV;
+  const KV* kb = k + ((long)b * S * KVH + kvh) * DSK;
+  const KV* vb = v + ((long)b * S * KVH + kvh) * DSV;
   const long sc_base = (long)b * S * KVH + kvh;  // scales: one per (slot, KV head)
   const int live = min(lengths[b], S);
   const int pos = lengths[b] - 1;  // the query's absolute position (ROT)
@@ -179,13 +188,13 @@ flash_decode_split_kernel(const T* __restrict__ q, const KV* __restrict__ k, con
     __syncthreads();  // Qs/stats initialised; previous tile's Ks/Vs/Ss consumed
     const int rows = min(BK, S - k0);
     if constexpr (QB == 0) {
-      dnet::stage_tile<KV, D, BK, true>(Ks, L::LDK, kb + (long)k0 * kv_stride, kv_stride, rows, 1.f);
-      dnet::stage_tile<KV, D, BK, false>(Vs, L::LDV, vb + (long)k0 * kv_stride, kv_stride, rows, 1.f);
+      dnet::stage_tile<KV, DQK, BK, true>(Ks, L::LDK, kb + (long)k0 * k_stride, k_stride, rows, 1.f);
+      dnet::stage_tile<KV, DV, BK, false>(Vs, L::LDV, vb + (long)k0 * v_stride, v_stride, rows, 1.f);
     } else {
-      stage_tile_q<QB, D, true>(Ks, L::LDK, kb + (long)k0 * kv_stride, kv_stride,
-                                k_scale + sc_base + (long)k0 * KVH, KVH, rows);
-      stage_tile_q<QB, D, false>(Vs, L::LDV, vb + (long)k0 * kv_stride, kv_stride,
-                                 v_scale + sc_base + (long)k0 * KVH, KVH, rows);
+      stage_tile_q<QB, DQK, true>(Ks, L::LDK, kb + (long)k0 * k_stride, k_stride,
+                                  k_scale + sc_base + (long)k0 * KVH, KVH, rows);
+      stage_tile_q<QB, DV, false>(Vs, L::LDV, vb + (long)k0 * v_stride, v_stride,
+                                  v_scale + sc_base + (long)k0 * KVH, KVH, rows);
     }
     __syncthreads();
 
@@ -203,7 +212,7 @@ flash_decode_split_kernel(const T* __restrict__ q, const KV* __restrict__ k, con
       for (int g = tid / BK; g < G; g += NTHREADS / BK) {
         float s = 0.f;
 #pragma unroll 16
-        for (int d = 0; d < D; ++d) s = fmaf(Qs[g * D + d], Ks[d * L::LDK + j], s);
+        for (int d = 0; d < DQK; ++d) s = fmaf(Qs[g * DQK + d], Ks[d * L::LDK + j], s);
         Ss[g * BK + j] = valid ? s : NEG_INF;
       }
     }
@@ -239,9 +248,9 @@ flash_decode_split_kernel(const T* __restrict__ q, const KV* __restrict__ k, con
 #pragma unroll
     for (int i = 0; i < NO; ++i) {
       const int oi = tid + i * NTHREADS;
-      if (oi < G * D) {
-        const int g = oi / D;
-        const int d = oi % D;
+      if (oi < G * DV) {
+        const int g = oi / DV;
+        const int d = oi % DV;
         float a = acc[i] * cs[g];
 #pragma unroll 16
         for (int j = 0; j < BK; ++j) a = fmaf(Ss[g * BK + j], Vs[j * L::LDV + d], a);
@@ -254,7 +263,7 @@ flash_decode_split_kernel(const T* __restrict__ q, const KV* __restrict__ k, con
 #pragma unroll
   for (int i = 0; i < NO; ++i) {
     const int oi = tid + i * NTHREADS;
-    if (oi < G * D) part_o[base * G * D + oi] = acc[i];
+    if (oi < G * DV) part_o[base * G * DV + oi] = acc[i];
   }
   __syncthreads();
   if (tid < G) {
@@ -263,8 +272,9 @@ flash_decode_split_kernel(const T* __restrict__ q, const KV* __restrict__ k, con
   }
 }
 
-// One block per (head, batch), one thread per output column: merge the
-// splits' partials with one log-sum-exp and fold the sink exactly once.  An
+// One block per (head, batch), one thread per output column (D is V's head
+// dim): merge the splits' partials with one log-sum-exp and fold the sink
+// exactly once.  An
 // idle lane's partials are all empty (m = NEG_INF, l = 0, acc = 0): its
 // output is 0, as the reference's acc * corr / max(l, 1e-30) gives.
 template <typename T>
@@ -295,69 +305,96 @@ __global__ void flash_decode_combine_kernel(const float* __restrict__ part_o,
   o[((long)b * H + h) * D + d] = dnet::from_float<T>(acc * corr / l_fin);
 }
 
-template <typename T, typename KV, int QB, int D, bool ROT>
+template <typename T, typename KV, int QB, int DQK, int DV, bool ROT>
 int launch_split(const void* q, const void* k, const void* v, const float* k_scale,
                  const float* v_scale, float* part_o, float* part_ml, const int* lengths, int B,
                  int H, int KVH, int S, int tiles_per_split, int n_split, float scale, int window,
                  cudaStream_t stream) {
-  const size_t smem = Layout<D>::BYTES;
+  const size_t smem = Layout<DQK, DV>::BYTES;
   // above 48 KB of dynamic shared memory a kernel must opt in (per device,
   // so on every launch: the call is cheap and does not synchronise)
-  cudaError_t err = cudaFuncSetAttribute(flash_decode_split_kernel<T, KV, QB, D, ROT>,
+  cudaError_t err = cudaFuncSetAttribute(flash_decode_split_kernel<T, KV, QB, DQK, DV, ROT>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  flash_decode_split_kernel<T, KV, QB, D, ROT><<<dim3(n_split, KVH, B), NTHREADS, smem, stream>>>(
+  flash_decode_split_kernel<T, KV, QB, DQK, DV, ROT>
+      <<<dim3(n_split, KVH, B), NTHREADS, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const KV*>(k), static_cast<const KV*>(v), k_scale,
       v_scale, lengths, part_o, part_ml, H, KVH, S, tiles_per_split, n_split, scale, window);
   return (int)cudaGetLastError();
 }
 
-template <typename T, typename KV, int QB, int D>
+// The rotating ring is built only where DQK == DV (gpt_oss's sliding
+// layers); MLA has no sliding layers.
+template <typename T, typename KV, int QB, int DQK, int DV>
 int launch(const void* q, const void* k, const void* v, const float* k_scale, const float* v_scale,
            void* o, const float* sinks, float* part_o, float* part_ml, const int* lengths, int B,
            int H, int KVH, int S, int tiles_per_split, int n_split, float scale, int rotating,
            int window, cudaStream_t stream) {
-  const int rc =
-      rotating ? launch_split<T, KV, QB, D, true>(q, k, v, k_scale, v_scale, part_o, part_ml,
-                                                  lengths, B, H, KVH, S, tiles_per_split, n_split,
-                                                  scale, window, stream)
-               : launch_split<T, KV, QB, D, false>(q, k, v, k_scale, v_scale, part_o, part_ml,
-                                                   lengths, B, H, KVH, S, tiles_per_split, n_split,
-                                                   scale, window, stream);
+  int rc = -1;
+  if (!rotating) {
+    rc = launch_split<T, KV, QB, DQK, DV, false>(q, k, v, k_scale, v_scale, part_o, part_ml,
+                                                 lengths, B, H, KVH, S, tiles_per_split, n_split,
+                                                 scale, window, stream);
+  } else if constexpr (DQK == DV) {
+    rc = launch_split<T, KV, QB, DQK, DV, true>(q, k, v, k_scale, v_scale, part_o, part_ml,
+                                                lengths, B, H, KVH, S, tiles_per_split, n_split,
+                                                scale, window, stream);
+  }
   if (rc != 0) return rc;
-  flash_decode_combine_kernel<T><<<dim3(H, B), D, 0, stream>>>(part_o, part_ml, sinks,
-                                                               static_cast<T*>(o), H, KVH, D,
-                                                               n_split);
+  flash_decode_combine_kernel<T><<<dim3(H, B), DV, 0, stream>>>(part_o, part_ml, sinks,
+                                                                static_cast<T*>(o), H, KVH, DV,
+                                                                n_split);
   return (int)cudaGetLastError();
 }
 
-// The cache variant for one query dtype and head dim: kv_dtype is the
+// The cache variant for one query dtype and (DQK, DV): kv_dtype is the
 // cache's dtype code when qbits is 0 (q's own, or bf16 under an f32 q).
-template <typename T, int D>
+template <typename T, int DQK, int DV>
 int launch_variant(int kv_dtype, int qbits, const void* q, const void* k, const void* v,
                    const float* k_scale, const float* v_scale, void* o, const float* sinks,
                    float* part_o, float* part_ml, const int* lengths, int B, int H, int KVH, int S,
                    int tiles_per_split, int n_split, float scale, int rotating, int window,
                    cudaStream_t st) {
   if (qbits == 8)
-    return launch<T, uint8_t, 8, D>(q, k, v, k_scale, v_scale, o, sinks, part_o, part_ml, lengths,
-                                    B, H, KVH, S, tiles_per_split, n_split, scale, rotating,
-                                    window, st);
-  if (qbits == 4)
-    return launch<T, uint8_t, 4, D>(q, k, v, k_scale, v_scale, o, sinks, part_o, part_ml, lengths,
-                                    B, H, KVH, S, tiles_per_split, n_split, scale, rotating,
-                                    window, st);
-  if (qbits != 0) return -1;
-  if (kv_dtype == dnet::DTYPE_BF16)
-    return launch<T, __nv_bfloat16, 0, D>(q, k, v, k_scale, v_scale, o, sinks, part_o, part_ml,
+    return launch<T, uint8_t, 8, DQK, DV>(q, k, v, k_scale, v_scale, o, sinks, part_o, part_ml,
                                           lengths, B, H, KVH, S, tiles_per_split, n_split, scale,
                                           rotating, window, st);
+  if (qbits == 4)
+    return launch<T, uint8_t, 4, DQK, DV>(q, k, v, k_scale, v_scale, o, sinks, part_o, part_ml,
+                                          lengths, B, H, KVH, S, tiles_per_split, n_split, scale,
+                                          rotating, window, st);
+  if (qbits != 0) return -1;
+  if (kv_dtype == dnet::DTYPE_BF16)
+    return launch<T, __nv_bfloat16, 0, DQK, DV>(q, k, v, k_scale, v_scale, o, sinks, part_o,
+                                                part_ml, lengths, B, H, KVH, S, tiles_per_split,
+                                                n_split, scale, rotating, window, st);
   if constexpr (sizeof(T) == 4) {
     if (kv_dtype == dnet::DTYPE_F32)
-      return launch<T, float, 0, D>(q, k, v, k_scale, v_scale, o, sinks, part_o, part_ml, lengths,
-                                    B, H, KVH, S, tiles_per_split, n_split, scale, rotating,
-                                    window, st);
+      return launch<T, float, 0, DQK, DV>(q, k, v, k_scale, v_scale, o, sinks, part_o, part_ml,
+                                          lengths, B, H, KVH, S, tiles_per_split, n_split, scale,
+                                          rotating, window, st);
   }
+  return -1;
+}
+
+template <typename T>
+int launch_dims(int head_dim, int v_head_dim, int kv_dtype, int qbits, const void* q,
+                const void* k, const void* v, const float* k_scale, const float* v_scale, void* o,
+                const float* sinks, float* part_o, float* part_ml, const int* lengths, int B,
+                int H, int KVH, int S, int tiles_per_split, int n_split, float scale, int rotating,
+                int window, cudaStream_t st) {
+  if (head_dim == 64 && v_head_dim == 64)
+    return launch_variant<T, 64, 64>(kv_dtype, qbits, q, k, v, k_scale, v_scale, o, sinks, part_o,
+                                     part_ml, lengths, B, H, KVH, S, tiles_per_split, n_split,
+                                     scale, rotating, window, st);
+  if (head_dim == 128 && v_head_dim == 128)
+    return launch_variant<T, 128, 128>(kv_dtype, qbits, q, k, v, k_scale, v_scale, o, sinks,
+                                       part_o, part_ml, lengths, B, H, KVH, S, tiles_per_split,
+                                       n_split, scale, rotating, window, st);
+  if (head_dim == 192 && v_head_dim == 128)
+    return launch_variant<T, 192, 128>(kv_dtype, qbits, q, k, v, k_scale, v_scale, o, sinks,
+                                       part_o, part_ml, lengths, B, H, KVH, S, tiles_per_split,
+                                       n_split, scale, rotating, window, st);
   return -1;
 }
 
@@ -366,43 +403,31 @@ int launch_variant(int kv_dtype, int qbits, const void* q, const void* k, const 
 // C interface (bound with ctypes in dnet_tpu_torch/ops/flash_decode.py).
 // qbits 0: k/v in kv_dtype (q's dtype, or bf16 under an f32 q) and no
 // scales; 8 / 4 (kv_dtype unused): int8 / packed-int4 codes
-// with f32 k_scale/v_scale.  lengths [B] int32 on the device.  part_o
-// [B, KVH, n_split, G, D] and part_ml [B, KVH, n_split, G, 2] are f32
-// scratch the caller allocates, n_split * tiles_per_split covering the
-// longest lane.  rotating 1: S is the ring's W slots, lengths[b] =
-// pos + 1 may exceed S, and keys outside the last `window` positions are
-// masked (0 < window <= S).  Returns cudaGetLastError() after the launches
-// (0 = launched); -1 for a dtype, variant, head dim, grouping or window
-// this kernel was not built for.
-extern "C" int dnet_flash_decode(int dtype, int kv_dtype, int qbits, int head_dim, const void* q,
-                                 const void* k, const void* v, const float* k_scale,
+// with f32 k_scale/v_scale.  head_dim is q's and k's, v_head_dim v's and
+// the output's (unpacked widths).  lengths [B] int32 on the device.  part_o
+// [B, KVH, n_split, G, v_head_dim] and part_ml [B, KVH, n_split, G, 2] are
+// f32 scratch the caller allocates, n_split * tiles_per_split covering the
+// longest lane.  rotating 1 (head_dim == v_head_dim only): S is the ring's
+// W slots, lengths[b] = pos + 1 may exceed S, and keys outside the last
+// `window` positions are masked (0 < window <= S).  Returns
+// cudaGetLastError() after the launches (0 = launched); -1 for a dtype,
+// variant, head dims, grouping or window this kernel was not built for.
+extern "C" int dnet_flash_decode(int dtype, int kv_dtype, int qbits, int head_dim, int v_head_dim,
+                                 const void* q, const void* k, const void* v, const float* k_scale,
                                  const float* v_scale, void* o, const float* sinks, float* part_o,
                                  float* part_ml, const int* lengths, int B, int H, int KVH, int S,
                                  int tiles_per_split, int n_split, float scale, int rotating,
                                  int window, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (H % KVH != 0 || H / KVH > GMAX) return -1;
-  if (rotating && (window <= 0 || window > S)) return -1;
-  if (dtype == dnet::DTYPE_BF16) {
-    if (head_dim == 64)
-      return launch_variant<__nv_bfloat16, 64>(kv_dtype, qbits, q, k, v, k_scale, v_scale, o, sinks,
-                                               part_o, part_ml, lengths, B, H, KVH, S,
-                                               tiles_per_split, n_split, scale, rotating,
-                                               window, st);
-    if (head_dim == 128)
-      return launch_variant<__nv_bfloat16, 128>(kv_dtype, qbits, q, k, v, k_scale, v_scale, o,
-                                                sinks, part_o, part_ml, lengths, B, H, KVH, S,
-                                                tiles_per_split, n_split, scale, rotating,
-                                               window, st);
-  } else if (dtype == dnet::DTYPE_F32) {
-    if (head_dim == 64)
-      return launch_variant<float, 64>(kv_dtype, qbits, q, k, v, k_scale, v_scale, o, sinks,
-                                       part_o, part_ml, lengths, B, H, KVH, S, tiles_per_split,
-                                       n_split, scale, rotating, window, st);
-    if (head_dim == 128)
-      return launch_variant<float, 128>(kv_dtype, qbits, q, k, v, k_scale, v_scale, o, sinks,
-                                        part_o, part_ml, lengths, B, H, KVH, S, tiles_per_split,
-                                        n_split, scale, rotating, window, st);
-  }
+  if (rotating && (window <= 0 || window > S || head_dim != v_head_dim)) return -1;
+  if (dtype == dnet::DTYPE_BF16)
+    return launch_dims<__nv_bfloat16>(head_dim, v_head_dim, kv_dtype, qbits, q, k, v, k_scale,
+                                      v_scale, o, sinks, part_o, part_ml, lengths, B, H, KVH, S,
+                                      tiles_per_split, n_split, scale, rotating, window, st);
+  if (dtype == dnet::DTYPE_F32)
+    return launch_dims<float>(head_dim, v_head_dim, kv_dtype, qbits, q, k, v, k_scale, v_scale, o,
+                              sinks, part_o, part_ml, lengths, B, H, KVH, S, tiles_per_split,
+                              n_split, scale, rotating, window, st);
   return -1;
 }

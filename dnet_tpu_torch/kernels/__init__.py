@@ -8,7 +8,8 @@ from typing import Dict
 def _counters() -> dict:
     """Each kernel's name -> (its wrapper, the wrapper's launch counter);
     the decode wrapper counts each cache variant, plain and rotating, on
-    its own."""
+    its own, and both attention wrappers count their MLA-width launches
+    (V's head dim other than Q/K's) apart."""
     from dnet_tpu_torch.compression.ops import column_sq_norms, dequant_scatter_columns, gather_columns
     from dnet_tpu_torch.ops.flash_attention import flash_prefill
     from dnet_tpu_torch.ops.flash_decode import flash_decode_attend
@@ -16,12 +17,16 @@ def _counters() -> dict:
 
     return {
         "flash_prefill": (flash_prefill, "launches"),
+        "flash_prefill_mla": (flash_prefill, "launches_mla"),
         "flash_decode": (flash_decode_attend, "launches"),
         "flash_decode_q8": (flash_decode_attend, "launches_q8"),
         "flash_decode_q4": (flash_decode_attend, "launches_q4"),
         "flash_decode_rotating": (flash_decode_attend, "launches_rot"),
         "flash_decode_rotating_q8": (flash_decode_attend, "launches_rot_q8"),
         "flash_decode_rotating_q4": (flash_decode_attend, "launches_rot_q4"),
+        "flash_decode_mla": (flash_decode_attend, "launches_mla"),
+        "flash_decode_mla_q8": (flash_decode_attend, "launches_mla_q8"),
+        "flash_decode_mla_q4": (flash_decode_attend, "launches_mla_q4"),
         "paged_attend": (paged_attend, "launches"),
         "column_sq_norms": (column_sq_norms, "launches"),
         "gather_columns": (gather_columns, "launches"),

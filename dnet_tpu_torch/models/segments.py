@@ -1,0 +1,44 @@
+"""Two-segment window layout, for models whose layers come in two param
+layouts: deepseek_v2 (a dense prefix below `first_k_dense_replace`, then
+the MoE suffix).
+
+Counterpart of dnet_tpu/models/segments.py on one device.  A window stacks
+as {"dense": [...], "moe": [...]} (per-layer param dicts; either key may be
+absent), and the layers run dense segment first, then moe segment, which
+is the model's layer order whenever every dense layer precedes every MoE
+layer, as the owning model guarantees.  The cache stays one flat stack:
+rows [:Ld] belong to the dense segment, rows [Ld:] to the moe segment.
+
+Left out, with the pipeline-parallel mesh they belong to (ROADMAP A7): the
+multi-lap `phase` that runs one segment per ring lap and
+`pad_mesh_segments`.  `quantize_params` and `wrap_offload_layer` come with
+weight quantization and weight streaming (A4).
+
+The host class provides `layer(p, x, kvs, pos, lengths=)`, one layer over
+its cache slices (written in place).
+"""
+
+from __future__ import annotations
+
+from typing import Dict, List, Optional
+
+import torch
+
+from dnet_tpu_torch.core.kvcache import layer_slices
+
+SEGMENTS = ("dense", "moe")
+
+
+class TwoSegmentStackMixin:
+    def _apply_segments(
+        self, window_params: Dict[str, List[dict]], x: torch.Tensor, kv: dict, pos: int,
+        lengths: Optional[torch.Tensor] = None,
+    ) -> torch.Tensor:
+        """The dense segment's layers, then the moe segment's, each over its
+        rows of the flat cache (written in place); returns x."""
+        row = 0
+        for seg in SEGMENTS:
+            for p in window_params.get(seg, ()):
+                x, _ = self.layer(p, x, layer_slices(kv, row), pos, lengths=lengths)
+                row += 1
+        return x

@@ -4,8 +4,11 @@ Counterpart of dnet_tpu/ops/flash_attention.py.  The kernel
 (csrc/flash_prefill.cu) replaces the TPU kernel `_flash_kernel`
 (dnet_tpu/ops/flash_attention.py:38): query row i of a chunk attends cache
 slots [0, pos + i], with the online-softmax accumulator in f32 and per-head
-sink logits folded into the denominator once.  The source's header says
-what bounds it on the card and how its design answers that.
+sink logits folded into the denominator once.  V's head dim may differ
+from Q/K's (MLA: deepseek_v2's (Dqk, Dv) = (192, 128)); the kernel is built
+for the (Dqk, Dv) pairs in HEAD_DIMS and counts its MLA-width launches
+(Dv != Dqk) apart from the others.  The source's header says what bounds
+it on the card and how its design answers that.
 
 `flash_prefill` launches the kernel for CUDA tensors (or raises) and runs
 `flash_prefill_plain`, the same tile-by-tile fold in PyTorch, for CPU
@@ -24,7 +27,8 @@ from dnet_tpu_torch.kernels import build
 
 NEG_INF = -1e30
 BK = 64  # keys per tile, in the kernel and in its plain version
-HEAD_DIMS = (64, 128)
+# (q/k head dim, v head dim) pairs the kernel is built for
+HEAD_DIMS = frozenset({(64, 64), (128, 128), (192, 128)})
 
 
 def flash_attend_causal(
@@ -39,7 +43,8 @@ def flash_attend_causal(
     v_scale: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """Causal attention of a chunk against the (preallocated) cache: query
-    row i attends slots [0, pos + i].  q [B, T, H, D]; k/v [B, S, KVH, D].
+    row i attends slots [0, pos + i].  q [B, T, H, D]; k [B, S, KVH, D];
+    v [B, S, KVH, Dv] (Dv may differ from D); out [B, T, H, Dv].
 
     T == 1 goes to the decode kernel, as on the TPU, over `lengths`
     ([pos + 1] * B int32; made here when None), on quantized codes when
@@ -63,7 +68,7 @@ def flash_attend_causal(
 
 def _check_shapes(q, k, v, pos: int, sinks) -> None:
     B, T, H, D = q.shape
-    if k.dim() != 4 or k.shape[0] != B or k.shape[-1] != D or v.shape != k.shape:
+    if k.dim() != 4 or k.shape[0] != B or k.shape[-1] != D or v.dim() != 4 or v.shape[:-1] != k.shape[:-1]:
         raise ValueError(f"cache shapes k {tuple(k.shape)} v {tuple(v.shape)} do not match q {tuple(q.shape)}")
     S, KVH = k.shape[1], k.shape[2]
     if H % KVH:
@@ -82,38 +87,46 @@ def flash_prefill(
     scale: Optional[float] = None,
     sinks: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
-    """Kernel wrapper: [B, T, H, D] out in q.dtype.  CUDA tensors launch the
-    kernel (bf16 or f32, head dim 64 or 128) or raise; CPU tensors take the
-    plain version."""
+    """Kernel wrapper: [B, T, H, Dv] out in q.dtype.  CUDA tensors launch
+    the kernel (bf16 or f32, (D, Dv) in HEAD_DIMS) or raise; CPU tensors
+    take the plain version."""
     pos = int(pos)
     _check_shapes(q, k, v, pos, sinks)
     B, T, H, D = q.shape
-    S, KVH = k.shape[1], k.shape[2]
+    S, KVH, Dv = k.shape[1], k.shape[2], v.shape[-1]
     scale = D**-0.5 if scale is None else float(scale)
     if q.device.type == "cpu":
         return flash_prefill_plain(q, k, v, pos, scale=scale, sinks=sinks)
-    if q.dtype not in build.DTYPE_CODES or D not in HEAD_DIMS:
-        raise ValueError(f"flash_prefill takes bf16/f32 with head dim 64/128, got {q.dtype}, {D}")
+    if q.dtype not in build.DTYPE_CODES or (D, Dv) not in HEAD_DIMS:
+        raise ValueError(
+            f"flash_prefill takes bf16/f32 with (head dim, v head dim) in {sorted(HEAD_DIMS)}, "
+            f"got {q.dtype}, {(D, Dv)}"
+        )
     if sinks is not None:
         build.check_cuda_tensors("flash_prefill", torch.float32, sinks=sinks)
     build.check_cuda_tensors("flash_prefill", q.dtype, q=q, k=k, v=v)
-    out = torch.empty_like(q)
+    out = torch.empty((B, T, H, Dv), dtype=q.dtype, device=q.device)
     rc = _entry()(
-        build.DTYPE_CODES[q.dtype], D, q.data_ptr(), k.data_ptr(), v.data_ptr(),
+        build.DTYPE_CODES[q.dtype], D, Dv, q.data_ptr(), k.data_ptr(), v.data_ptr(),
         out.data_ptr(), None if sinks is None else sinks.data_ptr(),
         B, T, H, KVH, S, pos, scale, build.current_stream_handle(q.device),
     )
     if rc != 0:
         raise RuntimeError(f"flash_prefill kernel launch failed (code {rc})")
-    flash_prefill.launches += 1
+    if Dv == D:
+        flash_prefill.launches += 1
+    else:
+        flash_prefill.launches_mla += 1
     return out
 
 
-flash_prefill.launches = 0  # kernel launches since the last reset
+# kernel launches since the last reset: at Dv == D, and at MLA widths
+flash_prefill.launches = 0
+flash_prefill.launches_mla = 0
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
-# dtype, head_dim, q, k, v, o, sinks, B, T, H, KVH, S, pos, scale, stream
-_ARGTYPES = (_I, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, ctypes.c_float, _P)
+# dtype, head_dim, v_head_dim, q, k, v, o, sinks, B, T, H, KVH, S, pos, scale, stream
+_ARGTYPES = (_I, _I, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, ctypes.c_float, _P)
 
 
 def _entry():

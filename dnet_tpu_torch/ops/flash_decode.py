@@ -14,7 +14,10 @@ on-chip memory.  Each lane b of the batch attends its own live slots
 output is zeros): the single-sequence engine passes [pos + 1], dense
 batched slots each lane's position + 1.  The live range is split across
 blocks for the longest lane (flash-decoding) and a small combine pass
-merges the splits.  The source's header says what bounds it on the card.
+merges the splits.  V's head dim may differ from Q/K's (MLA:
+deepseek_v2's (Dqk, Dv) = (192, 128) with G = 1), in every cache form but
+the rotating one; launches at those widths count apart (COUNTERS).  The
+source's header says what bounds it on the card.
 
 `rotating=True` is gpt_oss's sliding-window ring buffer: the cache holds
 W slots written before the call (core/kvcache.py `write_kv_rotating`),
@@ -38,17 +41,20 @@ from dnet_tpu_torch.kernels import build
 
 NEG_INF = -1e30
 BK = 64  # keys per tile, in the kernel and in its plain version
-HEAD_DIMS = (64, 128)
+# (q/k head dim, v head dim) pairs the kernel is built for
+HEAD_DIMS = frozenset({(64, 64), (128, 128), (192, 128)})
 MAX_GROUP = 8  # query heads per KV head the kernel takes
 # enough (split, KV head, batch) blocks for two per SM on a 132-SM card
 TARGET_BLOCKS = 264
 # the cache's code dtype -> the kernel's variant (the reference picks it the
 # same way from the cache dtype, dnet_tpu/ops/flash_decode.py:444-446)
 QBITS = {torch.int8: 8, torch.uint8: 4}
-# the wrapper's launch counter per variant: (qbits, rotating) -> attribute
+# the wrapper's launch counter per variant: (qbits, rotating, Dv != Dqk)
+# -> attribute
 COUNTERS = {
-    (0, False): "launches", (8, False): "launches_q8", (4, False): "launches_q4",
-    (0, True): "launches_rot", (8, True): "launches_rot_q8", (4, True): "launches_rot_q4",
+    (0, False, False): "launches", (8, False, False): "launches_q8", (4, False, False): "launches_q4",
+    (0, True, False): "launches_rot", (8, True, False): "launches_rot_q8", (4, True, False): "launches_rot_q4",
+    (0, False, True): "launches_mla", (8, False, True): "launches_mla_q8", (4, False, True): "launches_mla_q4",
 }
 # an unquantized cache's dtypes the kernel reads under each q dtype
 KV_DTYPES = {torch.float32: (torch.float32, torch.bfloat16), torch.bfloat16: (torch.bfloat16,)}
@@ -83,17 +89,18 @@ def flash_decode_attend(
     window: int = 0,
 ) -> torch.Tensor:
     """Kernel wrapper: lane b of q [B, 1, H, D] attends cache slots
-    [0, lengths[b]) of k/v; [B, 1, H, D] out in q.dtype.  k/v are
-    [B, S, KVH, D] in q's dtype (or bf16 under an f32 q), or with
-    k_scale/v_scale ([B, S, KVH, 1] f32) int8 [B, S, KVH, D] or packed-int4
-    uint8 [B, S, KVH, D/2] codes.
+    [0, lengths[b]) of k/v; [B, 1, H, Dv] out in q.dtype.  k is
+    [B, S, KVH, D] and v [B, S, KVH, Dv] in q's dtype (or bf16 under an f32
+    q), or with k_scale/v_scale ([B, S, KVH, 1] f32) int8 codes of those
+    widths or packed-int4 uint8 codes of half of them.
     `max_live` (host int) bounds every lane's live slots: the split plan
     covers it.  `rotating`: k/v are a ring of S slots, lengths[b] is the
     query's position + 1 (it may exceed S; the live slots are
     min(lengths[b], S)), and only the last `window` positions (0 < window
     <= S) are attended.
-    CUDA tensors launch the kernel (bf16 or f32 q, head dim 64 or 128,
-    H/KVH <= 8) or raise; CPU tensors take the plain version."""
+    CUDA tensors launch the kernel (bf16 or f32 q, (D, Dv) in HEAD_DIMS,
+    Dv == D when rotating, H/KVH <= 8) or raise; CPU tensors take the plain
+    version."""
     B, T, H, D = q.shape
     if T != 1:
         raise ValueError(f"flash_decode_attend takes one query row, got T={T}")
@@ -101,9 +108,10 @@ def flash_decode_attend(
     if qbits < 0:
         raise ValueError(f"quantized cache codes must be int8 or uint8, got {k.dtype}")
     Ds = D // 2 if qbits == 4 else D
-    if k.dim() != 4 or k.shape[0] != B or k.shape[-1] != Ds or v.shape != k.shape:
+    if k.dim() != 4 or k.shape[0] != B or k.shape[-1] != Ds or v.dim() != 4 or v.shape[:-1] != k.shape[:-1]:
         raise ValueError(f"cache shapes k {tuple(k.shape)} v {tuple(v.shape)} do not match q {tuple(q.shape)}")
     S, KVH = k.shape[1], k.shape[2]
+    Dv = v.shape[-1] * 2 if qbits == 4 else v.shape[-1]
     if qbits and (
         v_scale is None or tuple(k_scale.shape) != (B, S, KVH, 1) or v_scale.shape != k_scale.shape
     ):
@@ -124,10 +132,12 @@ def flash_decode_attend(
     if q.device.type == "cpu":
         return flash_decode_plain(q, k, v, lengths, scale=scale, sinks=sinks, k_scale=k_scale,
                                   v_scale=v_scale, max_live=max_live, rotating=rotating, window=window)
-    if q.dtype not in build.DTYPE_CODES or D not in HEAD_DIMS or H // KVH > MAX_GROUP:
+    if (q.dtype not in build.DTYPE_CODES or (D, Dv) not in HEAD_DIMS or H // KVH > MAX_GROUP
+            or (rotating and Dv != D)):
         raise ValueError(
-            f"flash_decode takes bf16/f32, head dim 64/128 and at most {MAX_GROUP} "
-            f"query heads per KV head; got {q.dtype}, {D}, {H // KVH}"
+            f"flash_decode takes bf16/f32, (head dim, v head dim) in {sorted(HEAD_DIMS)} (equal when "
+            f"rotating) and at most {MAX_GROUP} query heads per KV head; got {q.dtype}, {(D, Dv)}, "
+            f"{H // KVH}"
         )
     if not qbits and k.dtype not in KV_DTYPES[q.dtype]:
         raise ValueError(f"flash_decode reads a {q.dtype} q over a {KV_DTYPES[q.dtype]} cache, got {k.dtype}")
@@ -143,11 +153,11 @@ def flash_decode_attend(
     # lanes' extra splits exit at once with empty partials
     tiles_per_split, n_split = split_plan(max(max_live, 1), KVH)
     G = H // KVH
-    part_o = torch.empty((B, KVH, n_split, G, D), dtype=torch.float32, device=q.device)
+    part_o = torch.empty((B, KVH, n_split, G, Dv), dtype=torch.float32, device=q.device)
     part_ml = torch.empty((B, KVH, n_split, G, 2), dtype=torch.float32, device=q.device)
-    out = torch.empty_like(q)
+    out = torch.empty((B, 1, H, Dv), dtype=q.dtype, device=q.device)
     rc = _entry()(
-        build.DTYPE_CODES[q.dtype], build.DTYPE_CODES.get(k.dtype, -1), qbits, D,
+        build.DTYPE_CODES[q.dtype], build.DTYPE_CODES.get(k.dtype, -1), qbits, D, Dv,
         q.data_ptr(), k.data_ptr(), v.data_ptr(),
         k_scale.data_ptr() if qbits else None, v_scale.data_ptr() if qbits else None,
         out.data_ptr(), None if sinks is None else sinks.data_ptr(),
@@ -157,7 +167,7 @@ def flash_decode_attend(
     )
     if rc != 0:
         raise RuntimeError(f"flash_decode kernel launch failed (code {rc})")
-    counter = COUNTERS[qbits, bool(rotating)]
+    counter = COUNTERS[qbits, bool(rotating), Dv != D]
     setattr(flash_decode_attend, counter, getattr(flash_decode_attend, counter) + 1)
     return out
 
@@ -169,13 +179,16 @@ flash_decode_attend.launches_q4 = 0
 flash_decode_attend.launches_rot = 0
 flash_decode_attend.launches_rot_q8 = 0
 flash_decode_attend.launches_rot_q4 = 0
+flash_decode_attend.launches_mla = 0
+flash_decode_attend.launches_mla_q8 = 0
+flash_decode_attend.launches_mla_q4 = 0
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
-# dtype, kv_dtype, qbits, head_dim, q, k, v, k_scale, v_scale, o, sinks,
-# part_o, part_ml, lengths, B, H, KVH, S, tiles_per_split, n_split, scale,
-# rotating, window, stream
+# dtype, kv_dtype, qbits, head_dim, v_head_dim, q, k, v, k_scale, v_scale,
+# o, sinks, part_o, part_ml, lengths, B, H, KVH, S, tiles_per_split,
+# n_split, scale, rotating, window, stream
 _ARGTYPES = (
-    _I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, ctypes.c_float,
+    _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, ctypes.c_float,
     _I, _I, _P,
 )
 
@@ -206,6 +219,7 @@ def flash_decode_plain(
     B, _, H, D = q.shape
     S, KVH = k.shape[1], k.shape[2]
     G = H // KVH
+    Dv = v.shape[-1] * 2 if k_scale is not None and v.dtype == torch.uint8 else v.shape[-1]
     scale = D**-0.5 if scale is None else float(scale)
     dev = q.device
     pos = lengths.to(device=dev, dtype=torch.int64) - 1  # the queries' positions (rotating)
@@ -214,7 +228,7 @@ def flash_decode_plain(
     qf = q[:, 0].reshape(B, KVH, G, D).float() * scale
     m = torch.full((B, KVH, G, 1), NEG_INF, dtype=torch.float32, device=dev)
     l = torch.zeros((B, KVH, G, 1), dtype=torch.float32, device=dev)
-    acc = torch.zeros((B, KVH, G, D), dtype=torch.float32, device=dev)
+    acc = torch.zeros((B, KVH, G, Dv), dtype=torch.float32, device=dev)
     for k0 in range(0, live, BK):
         k1 = min(k0 + BK, live)
         slot = (k0 + torch.arange(k1 - k0, device=dev))[None, :]
@@ -246,4 +260,4 @@ def flash_decode_plain(
     corr = torch.exp(m - m_fin)
     l_fin = l * corr + torch.exp(sink - m_fin)
     out = acc * corr / torch.clamp(l_fin, min=1e-30)
-    return out.reshape(B, 1, H, D).to(q.dtype)
+    return out.reshape(B, 1, H, Dv).to(q.dtype)

@@ -15,17 +15,19 @@ interchangeable compute paths over the same routed-FFN semantics:
 "auto" picks dense below ~2E tokens (decode) and dispatch above, and "a2a"
 without a device mesh is dispatch, as in the reference on one device.  The
 expert-parallel paths (`moe_dispatch_sharded`, `moe_a2a*`,
-`localize_topk`) come with multi-GPU serving.  The expert products are plain batched matrix
-products (`torch.bmm` in the models' FFN closures), as the reference
-leaves them to XLA.
+`localize_topk`) come with multi-GPU serving.  The expert products are
+plain batched matrix products (`torch.bmm` in the models' FFN closures,
+`swiglu_expert_closures` for the stacked-SwiGLU families), as the
+reference leaves them to XLA.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Callable
+from typing import Callable, Tuple
 
 import torch
+import torch.nn.functional as F
 
 
 def expert_capacity(n_tokens: int, n_experts: int, k: int, factor: float) -> int:
@@ -129,3 +131,29 @@ def moe_apply(
         capacity = expert_capacity(flat.shape[0], n_experts, k, capacity_factor)
         return moe_dispatch(flat, top_idx, top_w, ffn, n_experts, capacity)
     return dense_fn()
+
+
+def swiglu_expert_closures(
+    p: dict, flat: torch.Tensor, top_idx: torch.Tensor, top_w: torch.Tensor
+) -> Tuple[Callable[[torch.Tensor], torch.Tensor], Callable[[], torch.Tensor], int]:
+    """(effn, dense, E) for the SwiGLU-expert MoE families (deepseek's
+    routed experts, mixtral) on one device: p holds the stacked
+    (in, out)-oriented expert weights e_gate/e_up [E, D, F] and e_down
+    [E, F, D].  effn maps per-expert buffers [E, C, D] -> [E, C, D];
+    dense() runs every token through every expert and sums the outputs
+    weighted by the router weights scattered over the E experts (top_idx /
+    top_w [N, k]), exact; it returns [N, D] in flat's dtype."""
+    E = p["e_gate"].shape[0]
+    N, D = flat.shape
+
+    def effn(xe: torch.Tensor) -> torch.Tensor:
+        return torch.bmm(F.silu(torch.bmm(xe, p["e_gate"])) * torch.bmm(xe, p["e_up"]), p["e_down"])
+
+    def dense() -> torch.Tensor:
+        weights = torch.zeros((N, E), dtype=top_w.dtype, device=flat.device).scatter(1, top_idx.long(), top_w)
+        # [N, D] broadcast over the experts: one batched product over the
+        # stacked weights as stored
+        expert_out = effn(flat.expand(E, N, D))  # [E, N, D]
+        return torch.einsum("end,ne->nd", expert_out, weights.to(flat.dtype))
+
+    return effn, dense, E

@@ -24,7 +24,9 @@ from typing import Optional
 import torch
 
 from dnet_tpu_torch.kernels import build
-from dnet_tpu_torch.ops.flash_decode import BK, HEAD_DIMS, KV_DTYPES, MAX_GROUP, NEG_INF, split_plan
+from dnet_tpu_torch.ops.flash_decode import BK, KV_DTYPES, MAX_GROUP, NEG_INF, split_plan
+
+HEAD_DIMS = (64, 128)  # the head dims the paged kernel is built for
 
 
 def ragged_refusal(model, kv_quant_bits: int = 0) -> Optional[str]:

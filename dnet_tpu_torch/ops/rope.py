@@ -1,11 +1,11 @@
-"""Rotary position embeddings (HF-compatible half-split convention, incl.
-Llama-3 scaling).
+"""Rotary position embeddings: the HF half-split convention (`apply_rope`,
+incl. Llama-3 scaling) and the complex-pair one (`apply_rope_interleaved`,
+DeepSeek-V2's).
 
 Counterpart of dnet_tpu/ops/rope.py: the frequencies are computed once per
 model config in numpy float64, exactly as the reference does, and moved to
 the device as float32.  It covers the default, linear, llama3 and yarn
-`rope_scaling` types (yarn's attention scaling multiplies cos and sin); the
-interleaved layout comes with the model family that needs it.
+`rope_scaling` types (yarn's attention scaling multiplies cos and sin).
 """
 
 from __future__ import annotations
@@ -112,3 +112,23 @@ def apply_rope(
     x2 = x[..., half:].float()
     out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
     return out.to(x.dtype)
+
+
+def apply_rope_interleaved(
+    x: torch.Tensor,
+    positions: torch.Tensor,
+    inv_freq: torch.Tensor,
+    attention_scaling: float = 1.0,
+) -> torch.Tensor:
+    """Rotate q or k in the complex-pair convention: the pairs are
+    (x[2i], x[2i+1]), as DeepSeek-V2's `view_as_complex` rotary takes them
+    (not the half-split one).  x: [B, T, N, D]; positions [B, T] or [T]."""
+    angles = positions[..., None].float() * inv_freq  # [..., T, D/2]
+    if angles.dim() == 2:
+        angles = angles[None]
+    cos = (torch.cos(angles) * attention_scaling)[:, :, None, :]
+    sin = (torch.sin(angles) * attention_scaling)[:, :, None, :]
+    xf = x.float()
+    x_even, x_odd = xf[..., 0::2], xf[..., 1::2]
+    out = torch.stack([x_even * cos - x_odd * sin, x_odd * cos + x_even * sin], dim=-1)
+    return out.reshape(x.shape).to(x.dtype)

@@ -100,3 +100,45 @@ def test_non_cpu_tensors_never_take_the_plain_version():
         flash_prefill(q, k, k, 0)
     assert flash_prefill.launches == launches
 
+
+
+@pytest.mark.parametrize(
+    "B,T,H,KVH,Hd,Vd,S,pos",
+    [
+        (1, 16, 4, 4, 24, 12, 32, 0),  # the tiny deepseek_v2's MLA widths, G = 1
+        (2, 32, 4, 4, 24, 12, 64, 8),  # continued session
+        (1, 64, 2, 2, 192, 128, 128, 32),  # DeepSeek-V2-Lite's (192, 128)
+        (1, 16, 8, 2, 32, 16, 64, 16),  # Dv != Dqk under grouping
+    ],
+)
+def test_mla_widths_match_reference_kernel(rng, B, T, H, KVH, Hd, Vd, S, pos):
+    """V's head dim other than Q/K's, with the model's own softmax scale:
+    the plain version against the reference's kernel (flash_eligible takes
+    Dv != Dqk)."""
+    from dnet_tpu.ops.flash_attention import flash_attend_causal as ref_flash
+    from dnet_tpu.ops.flash_attention import flash_eligible
+
+    q, k, _ = _mk(rng, B, T, H, KVH, Hd, S)
+    v = rng.normal(size=(B, S, KVH, Vd)).astype(np.float32)
+    scale = 0.7 * Hd**-0.5
+    assert flash_eligible(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))
+    want = ref_flash(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), pos, scale=scale)
+    got = flash_attend_causal(torch.from_numpy(q), torch.from_numpy(k), torch.from_numpy(v), pos, scale=scale)
+    assert got.shape == (B, T, H, Vd)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+
+
+def test_mla_widths_ragged_shape_matches_dense(rng):
+    """A T and S off every tile, at Dv != Dqk: against the reference's
+    dense attention."""
+    q, k, _ = _mk(rng, 1, 21, 4, 4, 24, 45)
+    v = rng.normal(size=(1, 45, 4, 12)).astype(np.float32)
+    want = attend(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), mask=causal_mask(21, 45, 3))
+    got = flash_prefill(torch.from_numpy(q), torch.from_numpy(k), torch.from_numpy(v), 3)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+
+
+def test_v_rows_must_match_k_rows(rng):
+    q, k, v = (torch.from_numpy(a) for a in _mk(rng, 1, 8, 4, 4, 24, 16))
+    with pytest.raises(ValueError):
+        flash_prefill(q, k, v[:, :8, :, :12], 0)

@@ -96,3 +96,19 @@ def test_non_cpu_tensors_never_take_the_plain_version():
     with pytest.raises(ValueError, match="CUDA"):
         flash_decode_attend(q, k, k, lengths, 4)
 
+
+
+@pytest.mark.parametrize("pos", [0, 63, 64, 255, 256, S - 1])
+@pytest.mark.parametrize("H,KVH,Hd,Vd", [(4, 4, 24, 12), (2, 2, 192, 128), (8, 2, 32, 16)])
+def test_mla_widths_match_reference_kernel(rng, pos, H, KVH, Hd, Vd):
+    """V's head dim other than Q/K's (MLA: G = 1, the tiny deepseek_v2's
+    (24, 12) and V2-Lite's (192, 128)), with the model's own softmax scale."""
+    q, k, _ = _mk(rng, 2, H, KVH, Hd, S)
+    v = rng.normal(size=(2, S, KVH, Vd)).astype(np.float32)
+    scale = 1.3 * Hd**-0.5
+    from dnet_tpu.ops.flash_decode import flash_decode_attend as ref_decode
+
+    want = np.asarray(ref_decode(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), jnp.int32(pos), scale=scale))
+    got = _attend(torch.from_numpy(q), torch.from_numpy(k), torch.from_numpy(v), pos, scale=scale)
+    assert got.shape == (2, 1, H, Vd)
+    np.testing.assert_allclose(got.numpy(), want, **TOL)

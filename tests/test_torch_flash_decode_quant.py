@@ -149,3 +149,34 @@ def test_wrapper_refuses_bad_shapes():
                             v_scale=scale)
     with pytest.raises(ValueError, match="max_live"):
         flash_decode_attend(q, codes, codes, one, 9, k_scale=scale, v_scale=scale)
+
+
+@pytest.mark.parametrize("bits", [8, 4])
+@pytest.mark.parametrize("pos", [0, 63, 64, 256, S - 1])
+@pytest.mark.parametrize("Hd,Vd", [(24, 12), (192, 128)])
+def test_mla_widths_quantized_match_reference_kernel(rng, bits, pos, Hd, Vd):
+    """The asymmetric MLA cache (K at Hd, V at Vd, KVH = H: G = 1), int8 and
+    packed int4 (K packs Hd/2 bytes a row, V Vd/2), written by each
+    package's own write_kv from the same rows: codes bit-equal, the decode
+    within 2e-5 of the reference kernel, at the model's softmax scale."""
+    B, H = 1, 2
+    n = pos + 1
+    rk = rng.normal(size=(B, n, H, Hd)).astype(np.float32)
+    rv = rng.normal(0.0, 0.5, size=(B, n, H, Vd)).astype(np.float32)
+    cfg = dict(n_layers=1, batch=B, max_seq=S, n_kv_heads=H, head_dim=Hd, dtype="float32", v_head_dim=Vd,
+               quant_bits=bits)
+    ref = {k: a[0] for k, a in ref_kv.init_cache(ref_kv.KVConfig(**cfg)).items()}
+    ref = ref_kv.write_kv(ref, jnp.asarray(rk), jnp.asarray(rv), jnp.int32(0))
+    port = port_kv.layer_slices(port_kv.init_cache(port_kv.KVConfig(**cfg), torch.device("cpu")), 0)
+    port_kv.write_kv(port, torch.from_numpy(rk), torch.from_numpy(rv), 0)
+    for name in ref:
+        np.testing.assert_array_equal(port[name].numpy(), np.asarray(ref[name]))
+    q = rng.normal(size=(B, 1, H, Hd)).astype(np.float32)
+    scale = 0.9 * Hd**-0.5
+    from dnet_tpu.ops.flash_decode import flash_decode_attend as ref_decode
+
+    want = ref_decode(jnp.asarray(q), ref["k"], ref["v"], jnp.int32(pos), scale=scale,
+                      k_scale=ref["k_scale"], v_scale=ref["v_scale"])
+    got = _port_decode(q, port, [n], scale=scale)
+    assert got.shape == (B, 1, H, Vd)
+    np.testing.assert_allclose(got, np.asarray(want), **TOL)

@@ -10,7 +10,9 @@ plain cache (also bf16 under an f32 q, as DNET_KV_BITS=16 gives an f32
 model) and int8 / packed-int4 caches written by the port's write_kv, with a
 lengths vector of ragged lanes (an idle one included), and its rotating
 variant gpt-oss-20b's sliding-window ring (H=64, KVH=8, W=128, sinks) in
-every cache form; the paged kernel
+every cache form; prefill and decode at DeepSeek-V2-Lite's MLA widths
+(H = KVH = 16, (Dqk, Dv) = (192, 128), its softmax scale) in bf16, f32 and
+over q8 / q4 caches, counted on their own MLA counters; the paged kernel
 reads a block pool (bf16 under an f32 q too) through shuffled page tables at
 ragged per-slot lengths.  The engines with a bf16 cache under f32 params run
 on the card against the CPU's plain versions.  The
@@ -21,6 +23,8 @@ in another order); bf16 2e-2 against the plain version computed in f32
 from the same bf16 inputs (the kernel rounds its output to bf16, ~4e-3 at
 |x| ~ 1, and sums in another order).
 """
+
+import math
 
 import pytest
 import torch
@@ -214,6 +218,90 @@ def test_cuda_tensor_never_takes_the_plain_version(gen):
         flash_decode_attend(q[:, :1], k, k, decode_lengths(1, 3, "cuda"), 4)
     with pytest.raises(ValueError):  # int64 lengths are not the kernel's
         flash_decode_attend(q[:, :1].float(), k.float(), k.float(), torch.full((1,), 4, device="cuda"), 4)
+
+
+# DeepSeek-V2-Lite's MLA attention: H = KVH = 16, q/k head dim 192 (nope 128
+# + rope 64), v head dim 128, softmax scale 192^-0.5 x mscale(40, 0.707)^2
+MLA_H, MLA_DQK, MLA_DV = 16, 192, 128
+MLA_SCALE = 192**-0.5 * (0.1 * 0.707 * math.log(40) + 1.0) ** 2
+
+
+def _mla_cache(gen, dtype, bits, S=4096):
+    """One layer's MLA cache: k [1, S, 16, 192], v [1, S, 16, 128] random in
+    `dtype`, or codes and scales the port's write_kv quantized from bf16."""
+    if not bits:
+        return _randn(gen, dtype, 1, S, MLA_H, MLA_DQK), _randn(gen, dtype, 1, S, MLA_H, MLA_DV), {}
+    cfg = KVConfig(1, 1, S, MLA_H, MLA_DQK, v_head_dim=MLA_DV, quant_bits=bits)
+    kvs = layer_slices(init_cache(cfg, torch.device("cuda")), 0)
+    write_kv(kvs, _randn(gen, torch.bfloat16, 1, S, MLA_H, MLA_DQK), _randn(gen, torch.bfloat16, 1, S, MLA_H, MLA_DV), 0)
+    return kvs["k"], kvs["v"], {"k_scale": kvs["k_scale"], "v_scale": kvs["v_scale"]}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("T,pos,S", [(64, 0, 4096), (100, 37, 512), (17, 200, 300), (512, 0, 4096)])
+def test_mla_prefill_kernel_matches_plain(gen, dtype, T, pos, S):
+    """Dv != Dqk: the score loop over 192, the output at 128, counted on the
+    MLA counter only."""
+    q = _randn(gen, dtype, 1, T, MLA_H, MLA_DQK)
+    k, v, _ = _mla_cache(gen, dtype, 0, S)
+    before, plain = flash_prefill.launches_mla, flash_prefill.launches
+    out = flash_prefill(q, k, v, pos, scale=MLA_SCALE)
+    torch.cuda.synchronize()
+    assert flash_prefill.launches_mla == before + 1 and flash_prefill.launches == plain
+    want = flash_prefill_plain(q.float(), k.float(), v.float(), pos, scale=MLA_SCALE)
+    assert out.shape == (1, T, MLA_H, MLA_DV) and out.dtype == dtype
+    assert (out.float() - want).abs().max().item() <= TOL[dtype]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("bits", [0, 8, 4])
+@pytest.mark.parametrize("pos", [0, 63, 64, 300, 4095])
+def test_mla_decode_kernel_matches_plain(gen, dtype, bits, pos):
+    """G = 1 over a plain, q8 or q4 cache (K packs 96 bytes a row under
+    int4, V 64), each form on its own MLA counter."""
+    k, v, scales = _mla_cache(gen, dtype, bits)
+    q = _randn(gen, dtype, 1, 1, MLA_H, MLA_DQK)
+    lengths = decode_lengths(1, pos, "cuda")
+    name = "launches_mla" + (f"_q{bits}" if bits else "")
+    before, plain = getattr(flash_decode_attend, name), flash_decode_attend.launches
+    out = flash_decode_attend(q, k, v, lengths, pos + 1, scale=MLA_SCALE, **scales)
+    torch.cuda.synchronize()
+    assert getattr(flash_decode_attend, name) == before + 1 and flash_decode_attend.launches == plain
+    want = flash_decode_plain(q.float(), k if bits else k.float(), v if bits else v.float(), lengths,
+                              scale=MLA_SCALE, **scales)
+    assert out.shape == (1, 1, MLA_H, MLA_DV) and out.dtype == dtype
+    assert (out.float() - want).abs().max().item() <= TOL[dtype]
+
+
+@pytest.mark.parametrize("pos", [0, 300, 4095])
+def test_mla_decode_bf16_cache_under_f32_q(gen, pos):
+    """DNET_KV_BITS=16 on an f32 deepseek_v2: the bf16 MLA cache read as it
+    is under an f32 q."""
+    q = _randn(gen, torch.float32, 1, 1, MLA_H, MLA_DQK)
+    k, v, _ = _mla_cache(gen, torch.bfloat16, 0)
+    lengths = decode_lengths(1, pos, "cuda")
+    out = flash_decode_attend(q, k, v, lengths, pos + 1, scale=MLA_SCALE)
+    torch.cuda.synchronize()
+    want = flash_decode_plain(q, k.float(), v.float(), lengths, scale=MLA_SCALE)
+    assert out.dtype == torch.float32 and (out - want).abs().max().item() <= TOL[torch.float32]
+
+
+def test_mla_widths_never_take_the_plain_version(gen):
+    """On the card a (Dqk, Dv) pair the kernels are not built for, and the
+    rotating variant at MLA widths, raise instead of computing through the
+    plain versions; nothing is counted."""
+    q = _randn(gen, torch.bfloat16, 1, 16, MLA_H, 96)
+    k, v = _randn(gen, torch.bfloat16, 1, 64, MLA_H, 96), _randn(gen, torch.bfloat16, 1, 64, MLA_H, 64)
+    counts = (flash_prefill.launches_mla, flash_decode_attend.launches_mla)
+    with pytest.raises(ValueError):
+        flash_prefill(q, k, v, 0)
+    with pytest.raises(ValueError):
+        flash_decode_attend(q[:, :1], k, v, decode_lengths(1, 3, "cuda"), 4)
+    k, v, _ = _mla_cache(gen, torch.bfloat16, 0, S=128)
+    with pytest.raises(ValueError):
+        flash_decode_attend(_randn(gen, torch.bfloat16, 1, 1, MLA_H, MLA_DQK), k, v, decode_lengths(1, 3, "cuda"),
+                            4, rotating=True, window=128)
+    assert (flash_prefill.launches_mla, flash_decode_attend.launches_mla) == counts
 
 
 PAGED_POSITIONS = [0, 15, 16, 100, 1023, 2047, 4000, 4094]
