@@ -4,13 +4,18 @@ Counterpart of dnet_tpu/api/model_manager.py (its local branches):
 `batch_slots == 1` serves a single-sequence `LocalEngine` behind a
 `LocalAdapter`; `batch_slots > 1` a continuously batched `BatchedEngine`
 (dense slots, or paged + ragged with DNET_KV_PAGED=1 DNET_KV_RAGGED=1)
-behind a `BatchedLocalAdapter`.  `kv_bits` (DNET_KV_BITS: 0, 16, 8 or 4)
+behind a `BatchedLocalAdapter`; a mesh (--mesh or DNET_MESH_*) with sp > 1
+a sequence-parallel `MeshEngine` (parallel/engine.py) behind a
+`LocalAdapter`, its ranks on `mesh_devices` when the caller names them
+(else one CUDA card per rank, or the CPU under device 'cpu').  `kv_bits` (DNET_KV_BITS: 0, 16, 8 or 4)
 picks the KV cache's form for either engine.  What is not ported is
 refused at load with `EngineCapabilityError` (HTTP 422), the setting named,
 instead of being dropped: the scheduler (DNET_SCHED=1), weight
 quantization (DNET_API_WEIGHT_QUANT_BITS), the single-sequence prefix cache
 (DNET_API_PREFIX_CACHE with batch_slots 1), speculative decoding
-(DNET_API_SPEC_LOOKAHEAD) and the draft model (DNET_API_DRAFT_MODEL).  A
+(DNET_API_SPEC_LOOKAHEAD), the draft model (DNET_API_DRAFT_MODEL), and
+under a mesh: --batch-slots > 1, the pp / tp / dp axes, a quantized KV
+cache and every family but llama.  A
 model id is a filesystem path or a subdirectory of `models_dir` (repo id
 slashes replaced by `--`, HF-cache style); nothing is downloaded.
 """
@@ -20,7 +25,7 @@ from __future__ import annotations
 import asyncio
 import time
 from pathlib import Path
-from typing import Optional, Union
+from typing import Optional, Sequence, Union
 
 from dnet_tpu_torch.api.inference import EngineCapabilityError
 from dnet_tpu_torch.api.strategies import BatchedLocalAdapter, LocalAdapter
@@ -28,6 +33,7 @@ from dnet_tpu_torch.config import ApiSettings, api_settings, sched_enabled
 from dnet_tpu_torch.core.batch import BatchedEngine
 from dnet_tpu_torch.core.engine import LocalEngine
 from dnet_tpu_torch.core.kvcache import resolve_kv_bits
+from dnet_tpu_torch.parallel.engine import MeshEngine
 from dnet_tpu_torch.utils.logger import get_logger
 from dnet_tpu_torch.utils.tokenizer import load_tokenizer
 
@@ -46,10 +52,22 @@ def resolve_model_dir(model_id: str, models_dir: Optional[Union[str, Path]] = No
     return None
 
 
-def refuse_unported(settings: ApiSettings, batch_slots: int) -> None:
+def active_mesh(mesh: Optional[dict]) -> Optional[dict]:
+    """The mesh when it asks for one, as the reference's manager decides:
+    any axis above 1, or an explicit pp above 1; else None (single device)."""
+    if mesh and (any(v > 1 for v in mesh.values()) or mesh.get("pp", 0) > 1):
+        return mesh
+    return None
+
+
+def refuse_unported(settings: ApiSettings, batch_slots: int, mesh: Optional[dict] = None) -> None:
     """Raise EngineCapabilityError for the first setting that changes what
-    the reference serves and that the port does not serve yet (ROADMAP A4)."""
+    the reference serves and that the port does not serve yet (ROADMAP A4;
+    the mesh's own axes, KV form and family: parallel/engine.py
+    check_mesh)."""
     refused = [
+        (mesh is not None and batch_slots > 1,
+         f"--batch-slots {batch_slots} with mesh {mesh}: continuous batching on the mesh engine is not ported"),
         (settings.weight_quant_bits != 0,
          f"DNET_API_WEIGHT_QUANT_BITS={settings.weight_quant_bits}: weight quantization is not ported"),
         (settings.prefix_cache > 0 and batch_slots <= 1,
@@ -76,6 +94,8 @@ class LocalModelManager:
         device: Optional[str] = None,
         batch_slots: int = 1,
         kv_bits: int = 0,
+        mesh: Optional[dict] = None,
+        mesh_devices: Optional[Sequence[str]] = None,
     ) -> None:
         self.inference = inference_manager
         self.models_dir = models_dir
@@ -84,7 +104,9 @@ class LocalModelManager:
         self.device = device
         self.batch_slots = batch_slots
         self.kv_bits = kv_bits
-        self.engine: Optional[Union[LocalEngine, BatchedEngine]] = None
+        self.mesh = active_mesh(mesh)
+        self.mesh_devices = mesh_devices
+        self.engine: Optional[Union[LocalEngine, BatchedEngine, MeshEngine]] = None
 
     @property
     def current_model_id(self) -> Optional[str]:
@@ -95,13 +117,15 @@ class LocalModelManager:
         model_dir = resolve_model_dir(model_id, self.models_dir)
         if model_dir is None:
             raise FileNotFoundError(f"model {model_id!r} not found locally (models_dir={self.models_dir})")
-        if sched_enabled():
+        # under a mesh the reference serves the mesh engine whatever
+        # DNET_SCHED says; without one its scheduler would take over
+        if sched_enabled() and self.mesh is None:
             raise EngineCapabilityError(
                 "DNET_SCHED=1: the iteration-level scheduler is not ported; unset it to serve "
                 "the legacy adapters"
             )
         settings = api_settings()
-        refuse_unported(settings, self.batch_slots)
+        refuse_unported(settings, self.batch_slots, self.mesh)
         try:
             kv_dtype, kv_quant_bits = resolve_kv_bits(self.kv_bits)
         except NotImplementedError as exc:
@@ -111,7 +135,12 @@ class LocalModelManager:
                       kv_dtype=kv_dtype, kv_quant_bits=kv_quant_bits)
 
         def _build():
-            if self.batch_slots > 1:
+            if self.mesh is not None:
+                engine = MeshEngine(
+                    model_dir, sp=self.mesh.get("sp", 1), pp=self.mesh.get("pp", 0), tp=self.mesh.get("tp", 1),
+                    dp=self.mesh.get("dp", 1), devices=self.mesh_devices, **kwargs,
+                )
+            elif self.batch_slots > 1:
                 engine = BatchedEngine(
                     model_dir, slots=self.batch_slots,
                     prefix_cache_size=settings.prefix_cache, **kwargs,

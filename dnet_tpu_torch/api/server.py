@@ -1,7 +1,9 @@
 """API-node process wiring: inference manager, model manager, HTTP server.
 
-Counterpart of dnet_tpu/api/server.py for single-process serving and, with
---hostfile, for a ring of shards (no UDP discovery, mesh, fleet or TUI).
+Counterpart of dnet_tpu/api/server.py for single-process serving (on one
+device, or over sequence-parallel ranks with --mesh sp=N or DNET_MESH_SP)
+and, with --hostfile, for a ring of shards (no UDP discovery, fleet or
+TUI).
 In ring mode the API also listens on gRPC for the tail shard's token
 callbacks.  `serve_async` runs until SIGINT/SIGTERM.
 """
@@ -10,14 +12,29 @@ from __future__ import annotations
 
 import asyncio
 import signal
+from typing import Optional
 
 from dnet_tpu_torch.api.http import ApiHTTPServer
 from dnet_tpu_torch.api.inference import InferenceManager
 from dnet_tpu_torch.api.model_manager import LocalModelManager
-from dnet_tpu_torch.config import batch_slots_default, kv_settings
+from dnet_tpu_torch.config import batch_slots_default, kv_settings, mesh_settings
+from dnet_tpu_torch.parallel.mesh import parse_mesh
 from dnet_tpu_torch.utils.logger import get_logger
 
 log = get_logger()
+
+
+def resolve_mesh(args) -> Optional[dict]:
+    """--mesh, else the DNET_MESH_* axes when they ask for a mesh (the
+    reference's precedence).  Raises ValueError for a malformed spec and for
+    the multi-host settings the port does not serve (DNET_MESH_BACKEND,
+    _COORDINATOR, _NUM_PROCESSES, _PROCESS_ID)."""
+    ms = mesh_settings()
+    for name, value, default in (("BACKEND", ms.backend, ""), ("COORDINATOR", ms.coordinator, ""),
+                                 ("NUM_PROCESSES", ms.num_processes, 0), ("PROCESS_ID", ms.process_id, 0)):
+        if value != default:
+            raise ValueError(f"DNET_MESH_{name}={value!r}: multi-host meshes are not ported; unset it to serve")
+    return parse_mesh(getattr(args, "mesh", "") or "") or ms.axes()
 
 
 async def serve_async(args) -> None:
@@ -42,6 +59,10 @@ async def serve_async(args) -> None:
             device=args.device,
             batch_slots=batch_slots,
             kv_bits=kv_settings().bits,
+            mesh=resolve_mesh(args),
+            # a programmatic caller may place the ranks itself (several on
+            # one card); the CLI never does
+            mesh_devices=getattr(args, "mesh_devices", None),
         )
     http = ApiHTTPServer(inference, model_manager, cluster_manager)
     await http.start(args.host, args.http_port)

@@ -5,6 +5,7 @@
     DNET_KV_PAGED=1 DNET_KV_RAGGED=1 python -m dnet_tpu_torch.cli.api --model <dir> --batch-slots 8
     DNET_KV_BITS=8 python -m dnet_tpu_torch.cli.api --model <dir>    # int8 KV cache (4: int4)
     python -m dnet_tpu_torch.cli.api --hostfile <f>    # a ring of dnet-torch-shard nodes
+    python -m dnet_tpu_torch.cli.api --model <dir> --mesh sp=2    # KV sharded over 2 cards
 
 Runs on CUDA unless --device cpu is given, and refuses to start when CUDA
 is absent.  Every flag but --model, --device and --hostfile defaults to its
@@ -19,6 +20,12 @@ paged pool takes the param dtype's cache only.
 <grpc_port>` per line): POST /v1/prepare_topology_manual assigns their layer
 ranges, then POST /v1/load_model loads them; the tail shard calls the
 sampled tokens back on --grpc-port.
+--mesh sp=N (default: DNET_MESH_PP/TP/DP/SP) serves over N sequence-parallel
+ranks, each holding max_seq / N KV slots: on CUDA one card per rank
+(cuda:0 .. cuda:N-1; the server refuses to start with fewer cards), with
+--device cpu every rank on the CPU.  The pp / tp / dp axes, a quantized KV
+cache, --batch-slots > 1 and families other than llama are refused (422)
+under a mesh.
 """
 
 from __future__ import annotations
@@ -51,6 +58,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--request-timeout-s", type=float, default=s.request_timeout_s)
     p.add_argument("--hostfile", default="", help="serve through the ring of shards this file lists")
     p.add_argument("--grpc-port", type=int, default=s.grpc_port, help="ring mode: token callbacks from the tail")
+    p.add_argument("--mesh", default="",
+                   help="sequence-parallel serving, e.g. 'sp=2' (default: DNET_MESH_PP/TP/DP/SP)")
     return p
 
 
@@ -60,6 +69,20 @@ def main(argv: list[str] | None = None) -> int:
     from dnet_tpu_torch.utils.device import resolve_device
 
     resolve_device(args.device)  # no CUDA and no --device cpu: refuse to start
+    from dnet_tpu_torch.api.model_manager import active_mesh
+    from dnet_tpu_torch.api.server import resolve_mesh
+    from dnet_tpu_torch.parallel.mesh import rank_devices
+
+    try:
+        mesh = active_mesh(resolve_mesh(args))
+        if mesh is not None:
+            if args.hostfile:
+                raise ValueError("--mesh with --hostfile: shard-local meshes are not ported")
+            # one card per sp rank: refuse to start on a machine with fewer
+            rank_devices(mesh.get("sp", 1), args.device)
+    except ValueError as exc:
+        log.error("%s", exc)
+        return 2
     log.info("dnet-torch-api starting on %s:%d (%s)", args.host, args.http_port, args.device)
     from dnet_tpu_torch.api.server import serve
 

@@ -10,8 +10,11 @@ speculation and draft model, which the port reads to refuse),
 `ShardSettings` (DNET_SHARD_*: a shard's CLI defaults), the ring's
 `TransportSettings` (DNET_TRANSPORT_*), `WireSettings`
 (DNET_WIRE_*: the hop codec), `ComputeSettings` (DNET_COMPUTE_MOE_IMPL,
-DNET_COMPUTE_MOE_CAPACITY_FACTOR), and the scheduler switch DNET_SCHED, which
-the port reads only to refuse it.  Values come from the process
+DNET_COMPUTE_MOE_CAPACITY_FACTOR), `MeshSettings` (DNET_MESH_PP/TP/DP/SP:
+the API node's --mesh default; the multi-host BACKEND, COORDINATOR,
+NUM_PROCESSES and PROCESS_ID are read only to refuse values other than
+their defaults), and the scheduler switch DNET_SCHED, which the port reads
+only to refuse it.  Values come from the process
 environment on every call (no .env file, no cache), so a flip is seen at
 the next engine load.
 """
@@ -149,6 +152,30 @@ class ComputeSettings:
 
 
 @dataclass
+class MeshSettings:
+    """The serving mesh's axes (DNET_MESH_*), the API node's --mesh default:
+    sequence parallelism (sp) over that many ranks is ported; pp (0 =
+    infer, which the single controller resolves to 1), tp and dp are read
+    so that other values are refused, as are the multi-host fields."""
+
+    pp: int = 0
+    tp: int = 1
+    dp: int = 1
+    sp: int = 1
+    backend: str = ""
+    coordinator: str = ""
+    num_processes: int = 0
+    process_id: int = 0
+
+    def axes(self) -> Optional[dict]:
+        """The mesh these settings ask for, or None when they ask for none
+        (the reference's test: pp > 0 or another axis above 1)."""
+        if self.pp > 0 or self.tp > 1 or self.dp > 1 or self.sp > 1:
+            return {"pp": self.pp, "tp": self.tp, "dp": self.dp, "sp": self.sp}
+        return None
+
+
+@dataclass
 class SchedSettings:
     # the iteration-level scheduler (not ported: refused at load)
     sched: bool = False
@@ -176,6 +203,10 @@ def wire_settings() -> WireSettings:
 
 def compute_settings() -> ComputeSettings:
     return _from_env(ComputeSettings, "DNET_COMPUTE_")
+
+
+def mesh_settings() -> MeshSettings:
+    return _from_env(MeshSettings, "DNET_MESH_")
 
 
 def sched_enabled() -> bool:

@@ -1,7 +1,8 @@
 """KV cache: preallocated and layer-stacked, plain or quantized.
 
-Counterpart of dnet_tpu/core/kvcache.py (full-length caches and the
-rotating sliding-window ring; no sequence-parallel writes).  Layout: k is
+Counterpart of dnet_tpu/core/kvcache.py (full-length caches, the
+rotating sliding-window ring, and the sequence-parallel shards of
+`init_cache_sp` / `write_kv_sp`).  Layout: k is
 [L, B, S_max, KVH, Hd] and v [L, B, S_max, KVH, Vd] (Vd = `v_head_dim`, the
 same as Hd unless set: MLA caches K at nope + rope and V at its own width);
 a layer's slices `cache[name][l]` are contiguous
@@ -28,6 +29,7 @@ a batch (the reference's `kv_commit` gate), leaving other lanes untouched.
 
 from __future__ import annotations
 
+import dataclasses
 from dataclasses import dataclass
 from typing import Optional, Tuple
 
@@ -83,6 +85,17 @@ def init_cache(cfg: KVConfig, device: torch.device) -> dict:
         "k": torch.zeros((*rows, cfg.head_dim), dtype=dt, device=device),
         "v": torch.zeros((*rows, vd), dtype=dt, device=device),
     }
+
+
+def init_cache_sp(cfg: KVConfig, devices) -> list:
+    """Sequence-parallel shards of one cache: rank r's own cache of
+    max_seq / R slots on devices[r], holding slots
+    [r * S_local, (r + 1) * S_local) of the sequence."""
+    R = len(devices)
+    if cfg.max_seq % R:
+        raise ValueError(f"sp={R} must divide max_seq={cfg.max_seq}")
+    local = dataclasses.replace(cfg, max_seq=cfg.max_seq // R)
+    return [init_cache(local, torch.device(d)) for d in devices]
 
 
 def cache_nbytes(cfg: KVConfig) -> int:
@@ -148,6 +161,31 @@ def write_kv(kvs: dict, k_new: torch.Tensor, v_new: torch.Tensor, pos: int) -> d
     for name, val in _encoded(kvs, k_new, v_new).items():
         kvs[name][:, pos : pos + T] = val
     return kvs
+
+
+def write_kv_sp(ranks: list, k_new: torch.Tensor, v_new: torch.Tensor, pos: int) -> list:
+    """Sequence-parallel write of new k/v ([B, T, KVH, Hd] / [.., Vd]) at
+    absolute slot `pos`, IN PLACE: `ranks` holds each rank's layer slices
+    (S_local slots each, rank r owning [r * S_local, (r + 1) * S_local)),
+    and each token lands on the rank that owns its slot.  A chunk that
+    straddles a shard boundary is one slice write on each rank it touches
+    (the reference's gather + where over every local slot writes the same
+    values); a decode token is written by its owner only.  Every one of the
+    T tokens is written, bucket padding included, as the reference writes
+    it.  Quantizes when the caches carry scales; returns ranks."""
+    T = k_new.shape[1]
+    S_local = ranks[0]["k"].shape[1]
+    if pos < 0 or pos + T > S_local * len(ranks):
+        raise ValueError(f"KV write [{pos}, {pos + T}) outside {len(ranks)} shards of {S_local} slots")
+    for r, kvs in enumerate(ranks):
+        lo, hi = max(pos, r * S_local), min(pos + T, (r + 1) * S_local)
+        if lo >= hi:
+            continue
+        dev = kvs["k"].device
+        k_r = k_new[:, lo - pos : hi - pos].to(dev, non_blocking=True)
+        v_r = v_new[:, lo - pos : hi - pos].to(dev, non_blocking=True)
+        write_kv(kvs, k_r, v_r, lo - r * S_local)
+    return ranks
 
 
 def write_kv_rows(

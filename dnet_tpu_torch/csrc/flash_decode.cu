@@ -5,7 +5,7 @@
 // launched by `_decode_pallas`) in its plain variant, its `qbits` 8/4
 // variant and its `rotating` variant (the gpt_oss sliding-window ring
 // buffer, flash_decode.py:100-123 and :184-186), each over the same cache
-// forms (with_lse = False, offset = 0).  q
+// forms (with_lse = False, offset = 0; the with_lse form is below).  q
 // [B, 1, H, DQK], o [B, 1, H, DV]; k [B, S, KVH, DQK] and v [B, S, KVH, DV]
 // in q's dtype (or bf16 under an f32 q: the DNET_KV_BITS=16 cache of an f32
 // model), or quantized: int8 codes of those widths, or int4 nibbles packed
@@ -47,6 +47,20 @@
 //     block writes unnormalised (acc, m, l) partials and the combine kernel
 //     merges them with one log-sum-exp per head.  The split plan covers the
 //     longest lane; a split past a lane's length writes empty partials.
+//
+// LSE (sequence-parallel) form, `dnet_flash_decode_lse`: replaces the same
+// TPU kernel with with_lse=True (flash_decode.py:141-150, outputs :213-223),
+// which `sp_flash_decode_attend` runs on each sp rank's shard of the cache
+// (plain bf16 / f32 caches, DQK == DV in {64, 128}).  The split kernel is
+// the one above; a second combine kernel merges the splits with one
+// log-sum-exp and writes the rank's UNNORMALISED partials: acc [B, 1, H, DV]
+// f32 relative to the merged max, and m, l [B, KVH, G] f32.  It neither
+// folds a sink nor divides by l: the cross-rank combine does both, once
+// (ops/ring_attention.py).  The rank's shard offset is carried by the
+// lengths the caller passes (clamp(pos + 1 - offset, 0, S) per lane), so a
+// rank whose shard lies wholly past pos has length 0: its one planned split
+// folds no tile and the combine writes m = NEG_INF, l = 0, acc = 0, which
+// the cross-rank weight exp(m - m_global) then zeroes.
 
 #include "common.cuh"
 
@@ -305,6 +319,41 @@ __global__ void flash_decode_combine_kernel(const float* __restrict__ part_o,
   o[((long)b * H + h) * D + d] = dnet::from_float<T>(acc * corr / l_fin);
 }
 
+// LSE form: one block per (head, batch), one thread per output column.
+// The splits' partials merge as in flash_decode_combine_kernel, but the
+// rank's partials are written as they are: acc relative to the merged max
+// M, and (M, l) per query head.  Empty partials (m = NEG_INF on every
+// split) merge to M = NEG_INF, weights exp(0) = 1 on zero acc and l, so an
+// empty rank writes (0, NEG_INF, 0).
+__global__ void flash_decode_combine_lse_kernel(const float* __restrict__ part_o,
+                                                const float* __restrict__ part_ml,
+                                                float* __restrict__ o, float* __restrict__ m_out,
+                                                float* __restrict__ l_out, int H, int KVH, int D,
+                                                int n_split) {
+  const int h = blockIdx.x;
+  const int b = blockIdx.y;
+  const int d = threadIdx.x;
+  const int G = H / KVH;
+  const int kvh = h / G;
+  const int g = h % G;
+  const long base = ((long)b * KVH + kvh) * n_split;
+
+  float M = NEG_INF;
+  for (int s = 0; s < n_split; ++s) M = fmaxf(M, part_ml[((base + s) * G + g) * 2]);
+  float acc = 0.f, l = 0.f;
+  for (int s = 0; s < n_split; ++s) {
+    const float w = expf(part_ml[((base + s) * G + g) * 2] - M);
+    acc = fmaf(w, part_o[(base + s) * G * D + g * D + d], acc);
+    l = fmaf(w, part_ml[((base + s) * G + g) * 2 + 1], l);
+  }
+  o[((long)b * H + h) * D + d] = acc;
+  if (d == 0) {
+    // m and l are [B, KVH, G]: index b * H + h, since h = kvh * G + g
+    m_out[(long)b * H + h] = M;
+    l_out[(long)b * H + h] = l;
+  }
+}
+
 template <typename T, typename KV, int QB, int DQK, int DV, bool ROT>
 int launch_split(const void* q, const void* k, const void* v, const float* k_scale,
                  const float* v_scale, float* part_o, float* part_ml, const int* lengths, int B,
@@ -398,6 +447,42 @@ int launch_dims(int head_dim, int v_head_dim, int kv_dtype, int qbits, const voi
   return -1;
 }
 
+// LSE form over a plain cache (kv_dtype: q's dtype, or bf16 under an f32 q).
+template <typename T, int D>
+int launch_lse(int kv_dtype, const void* q, const void* k, const void* v, float* o, float* m,
+               float* l, float* part_o, float* part_ml, const int* lengths, int B, int H, int KVH,
+               int S, int tiles_per_split, int n_split, float scale, cudaStream_t st) {
+  int rc = -1;
+  if (kv_dtype == dnet::DTYPE_BF16) {
+    rc = launch_split<T, __nv_bfloat16, 0, D, D, false>(q, k, v, nullptr, nullptr, part_o, part_ml,
+                                                        lengths, B, H, KVH, S, tiles_per_split,
+                                                        n_split, scale, 0, st);
+  } else if constexpr (sizeof(T) == 4) {
+    if (kv_dtype == dnet::DTYPE_F32)
+      rc = launch_split<T, float, 0, D, D, false>(q, k, v, nullptr, nullptr, part_o, part_ml,
+                                                  lengths, B, H, KVH, S, tiles_per_split, n_split,
+                                                  scale, 0, st);
+  }
+  if (rc != 0) return rc;
+  flash_decode_combine_lse_kernel<<<dim3(H, B), D, 0, st>>>(part_o, part_ml, o, m, l, H, KVH, D,
+                                                            n_split);
+  return (int)cudaGetLastError();
+}
+
+template <typename T>
+int launch_lse_dims(int head_dim, int kv_dtype, const void* q, const void* k, const void* v,
+                    float* o, float* m, float* l, float* part_o, float* part_ml,
+                    const int* lengths, int B, int H, int KVH, int S, int tiles_per_split,
+                    int n_split, float scale, cudaStream_t st) {
+  if (head_dim == 64)
+    return launch_lse<T, 64>(kv_dtype, q, k, v, o, m, l, part_o, part_ml, lengths, B, H, KVH, S,
+                             tiles_per_split, n_split, scale, st);
+  if (head_dim == 128)
+    return launch_lse<T, 128>(kv_dtype, q, k, v, o, m, l, part_o, part_ml, lengths, B, H, KVH, S,
+                              tiles_per_split, n_split, scale, st);
+  return -1;
+}
+
 }  // namespace
 
 // C interface (bound with ctypes in dnet_tpu_torch/ops/flash_decode.py).
@@ -429,5 +514,30 @@ extern "C" int dnet_flash_decode(int dtype, int kv_dtype, int qbits, int head_di
     return launch_dims<float>(head_dim, v_head_dim, kv_dtype, qbits, q, k, v, k_scale, v_scale, o,
                               sinks, part_o, part_ml, lengths, B, H, KVH, S, tiles_per_split,
                               n_split, scale, rotating, window, st);
+  return -1;
+}
+
+// The LSE form (one sp rank's partials): q [B, 1, H, head_dim] in dtype; k, v
+// [B, S, KVH, head_dim] in kv_dtype (q's dtype, or bf16 under an f32 q), no
+// scales, head_dim 64 or 128 (V's the same).  lengths [B] int32 on the
+// device: the rank's live slots per lane (0 = none).  Writes o
+// [B, 1, H, head_dim] f32 (unnormalised, relative to m), m and l
+// [B, KVH, G] f32; part_o / part_ml are the caller's f32 scratch as for
+// dnet_flash_decode.  Returns cudaGetLastError() after the launches; -1 for
+// a dtype, head dim or grouping it was not built for.
+extern "C" int dnet_flash_decode_lse(int dtype, int kv_dtype, int head_dim, const void* q,
+                                     const void* k, const void* v, float* o, float* m, float* l,
+                                     float* part_o, float* part_ml, const int* lengths, int B,
+                                     int H, int KVH, int S, int tiles_per_split, int n_split,
+                                     float scale, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (H % KVH != 0 || H / KVH > GMAX) return -1;
+  if (dtype == dnet::DTYPE_BF16)
+    return launch_lse_dims<__nv_bfloat16>(head_dim, kv_dtype, q, k, v, o, m, l, part_o, part_ml,
+                                          lengths, B, H, KVH, S, tiles_per_split, n_split, scale,
+                                          st);
+  if (dtype == dnet::DTYPE_F32)
+    return launch_lse_dims<float>(head_dim, kv_dtype, q, k, v, o, m, l, part_o, part_ml, lengths,
+                                  B, H, KVH, S, tiles_per_split, n_split, scale, st);
   return -1;
 }

@@ -8,8 +8,10 @@ from typing import Dict
 def _counters() -> dict:
     """Each kernel's name -> (its wrapper, the wrapper's launch counter);
     the decode wrapper counts each cache variant, plain and rotating, on
-    its own, and both attention wrappers count their MLA-width launches
-    (V's head dim other than Q/K's) apart."""
+    its own, both attention wrappers count their MLA-width launches (V's
+    head dim other than Q/K's) apart, and the decode kernel's LSE form
+    (flash_decode_lse, one sp rank's partials) counts on the decode
+    wrapper too."""
     from dnet_tpu_torch.compression.ops import column_sq_norms, dequant_scatter_columns, gather_columns
     from dnet_tpu_torch.ops.flash_attention import flash_prefill
     from dnet_tpu_torch.ops.flash_decode import flash_decode_attend
@@ -27,6 +29,7 @@ def _counters() -> dict:
         "flash_decode_mla": (flash_decode_attend, "launches_mla"),
         "flash_decode_mla_q8": (flash_decode_attend, "launches_mla_q8"),
         "flash_decode_mla_q4": (flash_decode_attend, "launches_mla_q4"),
+        "flash_decode_lse": (flash_decode_attend, "launches_lse"),
         "paged_attend": (paged_attend, "launches"),
         "column_sq_norms": (column_sq_norms, "launches"),
         "gather_columns": (gather_columns, "launches"),

@@ -88,6 +88,8 @@ class RingModel(abc.ABC):
     # layers whose attention can be swapped for the ragged paged kernel
     # (apply_window's attend_fn hook)
     supports_paged_attend: bool = False
+    # apply_window takes an sp group (sequence-parallel KV shards)
+    supports_sp: bool = False
 
     def __init__(self, config: ModelConfig, layers: Sequence[int], device: torch.device):
         self.config = config
@@ -117,7 +119,8 @@ class RingModel(abc.ABC):
 
     @abc.abstractmethod
     def apply_window(
-        self, window_params, x: torch.Tensor, kv: dict, pos, attend_fn=None, t_real: Optional[int] = None
+        self, window_params, x: torch.Tensor, kv: dict, pos, attend_fn=None, t_real: Optional[int] = None,
+        sp=None,
     ) -> Tuple[torch.Tensor, dict]:
         """Apply the window's layers; kv holds the window's stacked cache
         and is updated in place.  pos is the chunk's start position or a
@@ -127,7 +130,9 @@ class RingModel(abc.ABC):
         (non-padding) tokens in the chunk: models with rotating ring-buffer
         caches keep bucket padding out of their writes, because padded
         positions would wrap around and overwrite live rows (None: every
-        token is real)."""
+        token is real).  `sp` (an SpGroup, parallel/mesh.py), where the
+        model supports it (supports_sp): kv is one cache per sequence-
+        parallel rank and attention runs as the sp composition."""
 
     @abc.abstractmethod
     def normalize(self, edge_params: dict, x: torch.Tensor) -> torch.Tensor:

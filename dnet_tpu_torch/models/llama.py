@@ -3,6 +3,15 @@
 Counterpart of dnet_tpu/models/llama.py: each layer runs RMSNorm -> QKV ->
 RoPE -> cached attention (the CUDA kernels) -> o-proj -> SwiGLU, looping
 over per-layer params where the reference scans stacked ones.
+
+Sequence parallelism reaches the layers as the reference threads its
+`sp_axis` (dnet_tpu/models/base.py:152): `apply_window(..., sp=group)`
+passes the sp group down to `cached_attend`, with the cache as one shard
+per rank.  The `attend_fn` hook would need no model edit, but it hands
+the hook one layer's slices and stacks what it returns, which is the paged
+path's contract (new rows to append), not per-rank shards written in
+place; the explicit argument keeps the cache layout and the per-step
+lengths as the single-device path has them.
 """
 
 from __future__ import annotations
@@ -15,7 +24,7 @@ import torch.nn.functional as F
 from dnet_tpu_torch.core.kvcache import layer_slices
 from dnet_tpu_torch.models.base import ModelConfig, RingModel
 from dnet_tpu_torch.ops.attention import cached_attend
-from dnet_tpu_torch.ops.flash_decode import decode_lengths
+from dnet_tpu_torch.ops.flash_decode import decode_lengths, sp_lengths
 from dnet_tpu_torch.ops.norms import rms_norm
 from dnet_tpu_torch.ops.rope import apply_rope, rope_frequencies
 
@@ -25,6 +34,7 @@ class LlamaRingModel(RingModel):
     # the standard norm->qkv->rope->attention->o-proj layer body: the
     # attention half swaps cleanly for the ragged paged kernel
     supports_paged_attend = True
+    supports_sp = True
 
     def __init__(self, config: ModelConfig, layers, device):
         super().__init__(config, layers, device)
@@ -37,15 +47,17 @@ class LlamaRingModel(RingModel):
         self.inv_freq = torch.from_numpy(inv_freq).to(self.device)
 
     def layer(
-        self, p: dict, x: torch.Tensor, kvs: dict, pos: Union[int, torch.Tensor], attend_fn=None,
-        lengths: Optional[torch.Tensor] = None,
+        self, p: dict, x: torch.Tensor, kvs, pos: Union[int, torch.Tensor], attend_fn=None,
+        lengths=None, sp=None,
     ) -> Tuple[torch.Tensor, dict]:
         """One decoder layer; kvs is this layer's cache slices (written in
         place).  pos is the chunk's start, or a [B, 1] tensor of per-lane
         positions.  With `attend_fn` (batched slots) the caller owns both
         the cache write and the attention read: it gets (q, k, v, kvs) and
         returns (attention output, what apply_window should stack).
-        `lengths` is a decode step's lengths vector, shared by the layers."""
+        `lengths` is a decode step's lengths vector, shared by the layers.
+        With `sp` (an SpGroup) kvs is the list of the ranks' layer slices
+        and `lengths` the ranks' vectors (ops/attention.py `cached_attend`)."""
         cfg = self.config
         B, T, _ = x.shape
         Hd = cfg.head_dim
@@ -67,7 +79,7 @@ class LlamaRingModel(RingModel):
         if attend_fn is not None:
             attn, kvs = attend_fn(q, k, v, kvs)
         else:
-            attn, kvs = cached_attend(q, k, v, kvs, pos, None, causal=True, lengths=lengths)
+            attn, kvs = cached_attend(q, k, v, kvs, pos, None, causal=True, lengths=lengths, sp=sp)
         x = x + attn.reshape(B, T, H * Hd) @ p["wo"]
         return self._mlp_block(p, x), kvs
 
@@ -78,10 +90,19 @@ class LlamaRingModel(RingModel):
 
     def apply_window(
         self, window_params: List[dict], x: torch.Tensor, kv: dict,
-        pos: Union[int, torch.Tensor], attend_fn=None, t_real: Optional[int] = None,
+        pos: Union[int, torch.Tensor], attend_fn=None, t_real: Optional[int] = None, sp=None,
     ) -> Tuple[torch.Tensor, dict]:
         # t_real is unused: a full-length cache keeps padded rows past every
         # real position, where the next write overwrites them
+        if sp is not None:
+            # kv: one stacked cache per rank (core/kvcache.py init_cache_sp);
+            # a decode step's per-rank lengths vectors, made once for every layer
+            lengths = None
+            if x.shape[1] == 1:
+                lengths = sp_lengths(x.shape[0], pos, kv[0]["k"].shape[2], sp.devices)
+            for li, p in enumerate(window_params):
+                x, _ = self.layer(p, x, [layer_slices(c, li) for c in kv], pos, lengths=lengths, sp=sp)
+            return x, kv
         if attend_fn is None:
             # a decode step's lengths vector, made once for every layer
             lengths = decode_lengths(x.shape[0], pos, x.device) if x.shape[1] == 1 else None

@@ -1,8 +1,8 @@
 """Attention ops: dense GQA attention, the causal and sliding-window
 masks, and the cached attention every layer runs.
 
-Counterpart of dnet_tpu/ops/attention.py (the non-sequence-parallel
-branches of `cached_attend` and `rotating_cached_attend`, plain and
+Counterpart of dnet_tpu/ops/attention.py (`cached_attend` with its
+sequence-parallel branch, and `rotating_cached_attend`, plain and
 quantized caches).  With `causal=True`,
 `cached_attend` writes the new k/v into the cache (quantizing it when the
 cache carries scales) and then runs the hand-written kernels through
@@ -12,6 +12,14 @@ the cache's own codes (no f32 copy of the cache is made); its prefill reads
 the live prefix dequantized to f32 with q cast to f32 (exact: the softmax
 runs in f32 anyway).  The dense `attend` stays for explicit masks and as
 the reference the kernels are tested against.
+
+With an sp group (`sp=`, parallel/mesh.py) the cache is one shard per
+rank and `cached_attend` writes each new key on the rank that owns its
+slot (core/kvcache.py `write_kv_sp`); a decode row then runs the decode
+kernel's LSE form on every rank and one log-sum-exp combine
+(ops/ring_attention.py `sp_flash_decode_attend`), and a prompt chunk the
+dense `sp_decode_attend` under each rank's `sp_causal_mask`, as the
+reference does (its kernel composition takes one query row only).
 
 `rotating_cached_attend` is gpt_oss's sliding-window layer over an
 O(window) ring-buffer cache: a decode row writes the ring first and reads
@@ -26,9 +34,10 @@ from typing import Optional, Tuple
 
 import torch
 
-from dnet_tpu_torch.core.kvcache import read_kv, write_kv, write_kv_rotating
+from dnet_tpu_torch.core.kvcache import read_kv, write_kv, write_kv_rotating, write_kv_sp
 from dnet_tpu_torch.ops.flash_attention import flash_attend_causal
-from dnet_tpu_torch.ops.flash_decode import decode_lengths, flash_decode_attend
+from dnet_tpu_torch.ops.flash_decode import decode_lengths, flash_decode_attend, rank_live, sp_lengths
+from dnet_tpu_torch.ops.ring_attention import sp_decode_attend, sp_flash_decode_attend
 
 NEG_INF = -1e30  # large-negative instead of -inf: keeps softmax NaN-free on fully-masked rows
 
@@ -48,6 +57,24 @@ def sliding_window_mask(q_len: int, kv_len: int, q_offset: int, window: int, dev
     return (kv_pos <= q_pos) & (kv_pos > q_pos - window)
 
 
+def sp_causal_mask(q_len: int, kv_local: int, q_offset: int, rank: int, device=None) -> torch.Tensor:
+    """Causal mask against sp rank `rank`'s KV shard (slots
+    [rank * kv_local, (rank + 1) * kv_local)): causality on absolute slot
+    positions."""
+    kv_pos = rank * kv_local + torch.arange(kv_local, device=device)[None, :]
+    q_pos = q_offset + torch.arange(q_len, device=device)[:, None]
+    return kv_pos <= q_pos
+
+
+def sp_sliding_window_mask(
+    q_len: int, kv_local: int, q_offset: int, window: int, rank: int, device=None
+) -> torch.Tensor:
+    """Sliding-window causal mask against sp rank `rank`'s KV shard."""
+    kv_pos = rank * kv_local + torch.arange(kv_local, device=device)[None, :]
+    q_pos = q_offset + torch.arange(q_len, device=device)[:, None]
+    return (kv_pos <= q_pos) & (kv_pos > q_pos - window)
+
+
 def cached_attend(
     q: torch.Tensor,
     k_new: torch.Tensor,
@@ -58,16 +85,24 @@ def cached_attend(
     sinks: Optional[torch.Tensor] = None,
     scale: Optional[float] = None,
     causal: bool = False,
-    lengths: Optional[torch.Tensor] = None,
+    lengths=None,
+    sp=None,
 ) -> Tuple[torch.Tensor, dict]:
     """Write the new k/v into one layer's cache slices (in place) and attend
     over the full cache.  `causal=True` (mask must be None) declares the
     standard predicate, row i attends slots [0, pos + i], and runs the
     kernels; an explicit mask runs the dense op.  `lengths` is a decode
     row's [pos + 1] * B int32 vector when the caller built it once for all
-    layers (flash_attend_causal makes it otherwise)."""
+    layers (flash_attend_causal makes it otherwise).
+
+    With `sp` (an SpGroup) `kvs` is the list of the ranks' layer slices,
+    `lengths` (decode) the ranks' vectors from `flash_decode.sp_lengths`,
+    and the attention is the sequence-parallel composition; `mask`, when
+    given, is a list of rank-local [T, S_local] masks."""
     if causal and mask is not None:
         raise ValueError("cached_attend: causal=True requires mask=None")
+    if sp is not None:
+        return _sp_cached_attend(q, k_new, v_new, kvs, pos, mask, sp, sinks, scale, causal, lengths)
     kvs = write_kv(kvs, k_new, v_new, pos)
     if causal and q.shape[1] == 1 and "k_scale" in kvs:
         # quantized decode: dequantize tile by tile inside the kernel;
@@ -81,6 +116,26 @@ def cached_attend(
         return flash_attend_causal(q, kc, vc, pos, scale=scale, sinks=sinks, lengths=lengths), kvs
     kc, vc = read_kv(kvs)
     return attend(q, kc, vc, mask=mask, sinks=sinks, scale=scale), kvs
+
+
+def _sp_cached_attend(q, k_new, v_new, ranks, pos, mask, sp, sinks, scale, causal, lengths):
+    """cached_attend's sequence-parallel branch (the reference's
+    `sp_axis` branch, dnet_tpu/ops/attention.py:111-133)."""
+    ranks = write_kv_sp(ranks, k_new, v_new, pos)
+    T = q.shape[1]
+    S_local = ranks[0]["k"].shape[1]
+    if causal and T == 1 and "k_scale" not in ranks[0]:
+        if lengths is None:
+            lengths = sp_lengths(q.shape[0], pos, S_local, sp.devices)
+        max_lives = [rank_live(pos, r, S_local) for r in range(sp.size)]
+        out = sp_flash_decode_attend(q, [c["k"] for c in ranks], [c["v"] for c in ranks], lengths, max_lives, sp,
+                                     sinks=sinks, scale=scale)
+        return out, ranks
+    if causal:
+        mask = [sp_causal_mask(T, S_local, pos, r, c["k"].device) for r, c in enumerate(ranks)]
+    kv = [read_kv(c) for c in ranks]
+    out = sp_decode_attend(q, [k for k, _ in kv], [v for _, v in kv], mask, sp, sinks=sinks, scale=scale)
+    return out, ranks
 
 
 def rotating_cached_attend(

@@ -26,7 +26,13 @@ live slots are [0, min(lengths[b], W)), slot s holds absolute position
 pos - ((pos - s) mod W), and only keys inside the last `window` positions
 are attended.  Every cache form (bf16, f32, q8, q4) takes it.
 
-The `with_lse` (sequence-parallel) variant is not ported yet.
+`flash_decode_lse` is the `with_lse` (sequence-parallel) form over a plain
+cache: one sp rank's UNNORMALISED partials (acc relative to the rank's max
+m, the softmax denominator l), which ops/ring_attention.py combines across
+ranks with one log-sum-exp.  A rank's shard offset lives in its lengths
+vector (`sp_lengths`): the reference masks by an offset scalar, the port
+by the live slot count clamp(pos + 1 - offset, 0, S_local), so a rank
+wholly past pos has length 0 and emits m = NEG_INF, l = 0, acc = 0.
 """
 
 from __future__ import annotations
@@ -49,13 +55,19 @@ TARGET_BLOCKS = 264
 # the cache's code dtype -> the kernel's variant (the reference picks it the
 # same way from the cache dtype, dnet_tpu/ops/flash_decode.py:444-446)
 QBITS = {torch.int8: 8, torch.uint8: 4}
-# the wrapper's launch counter per variant: (qbits, rotating, Dv != Dqk)
-# -> attribute
+# the decode kernel's launch counter per form, (qbits, rotating, Dv != D,
+# with_lse) -> attribute of flash_decode_attend (flash_decode_lse counts
+# there too: one kernel source, one holder of its counters)
 COUNTERS = {
-    (0, False, False): "launches", (8, False, False): "launches_q8", (4, False, False): "launches_q4",
-    (0, True, False): "launches_rot", (8, True, False): "launches_rot_q8", (4, True, False): "launches_rot_q4",
-    (0, False, True): "launches_mla", (8, False, True): "launches_mla_q8", (4, False, True): "launches_mla_q4",
+    (0, False, False, False): "launches", (8, False, False, False): "launches_q8",
+    (4, False, False, False): "launches_q4", (0, True, False, False): "launches_rot",
+    (8, True, False, False): "launches_rot_q8", (4, True, False, False): "launches_rot_q4",
+    (0, False, True, False): "launches_mla", (8, False, True, False): "launches_mla_q8",
+    (4, False, True, False): "launches_mla_q4", (0, False, False, True): "launches_lse",
 }
+# (q/k head dim, v head dim) pairs the LSE form is built for (the
+# reference's sp path: plain caches, Dqk == Dv)
+LSE_HEAD_DIMS = frozenset({(64, 64), (128, 128)})
 # an unquantized cache's dtypes the kernel reads under each q dtype
 KV_DTYPES = {torch.float32: (torch.float32, torch.bfloat16), torch.bfloat16: (torch.bfloat16,)}
 
@@ -167,9 +179,12 @@ def flash_decode_attend(
     )
     if rc != 0:
         raise RuntimeError(f"flash_decode kernel launch failed (code {rc})")
-    counter = COUNTERS[qbits, bool(rotating), Dv != D]
-    setattr(flash_decode_attend, counter, getattr(flash_decode_attend, counter) + 1)
+    _count(COUNTERS[qbits, bool(rotating), Dv != D, False])
     return out
+
+
+def _count(counter: str) -> None:
+    setattr(flash_decode_attend, counter, getattr(flash_decode_attend, counter) + 1)
 
 
 # kernel launches since the last reset, per variant (COUNTERS)
@@ -182,6 +197,7 @@ flash_decode_attend.launches_rot_q4 = 0
 flash_decode_attend.launches_mla = 0
 flash_decode_attend.launches_mla_q8 = 0
 flash_decode_attend.launches_mla_q4 = 0
+flash_decode_attend.launches_lse = 0
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 # dtype, kv_dtype, qbits, head_dim, v_head_dim, q, k, v, k_scale, v_scale,
@@ -193,8 +209,90 @@ _ARGTYPES = (
 )
 
 
+# dtype, kv_dtype, head_dim, q, k, v, o, m, l, part_o, part_ml, lengths, B,
+# H, KVH, S, tiles_per_split, n_split, scale, stream
+_LSE_ARGTYPES = (_I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, ctypes.c_float, _P)
+
+
 def _entry():
     return build.entry("flash_decode", "dnet_flash_decode", _ARGTYPES)
+
+
+def rank_live(pos: int, rank: int, s_local: int) -> int:
+    """Live slots of sp rank `rank`'s shard, slots [rank * s_local,
+    (rank + 1) * s_local), for a query at `pos`: 0 when the shard lies
+    wholly past pos."""
+    return min(max(int(pos) + 1 - rank * s_local, 0), s_local)
+
+
+def sp_lengths(batch: int, pos: int, s_local: int, devices) -> list:
+    """Each sp rank's lengths vector for a decode row at `pos`
+    ([rank_live] * batch, int32 on the rank's device): made once per decode
+    step, not once per layer."""
+    return [decode_lengths(batch, rank_live(pos, r, s_local) - 1, d) for r, d in enumerate(devices)]
+
+
+def flash_decode_lse(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    lengths: torch.Tensor,
+    max_live: int,
+    scale: Optional[float] = None,
+) -> tuple:
+    """Kernel wrapper, the LSE form: lane b of q [B, 1, H, D] attends slots
+    [0, lengths[b]) of one sp rank's plain cache k/v [B, S, KVH, D] (q's
+    dtype, or bf16 under an f32 q) and returns the rank's UNNORMALISED
+    partials (acc [B, 1, H, D], m [B, KVH, G], l [B, KVH, G], all f32):
+    acc and l relative to the rank's max m; no sink, no division (the
+    cross-rank combine, ops/ring_attention.py, does both once).  A lane of
+    length 0 gives (0, NEG_INF, 0).  `max_live` (host int) bounds every
+    lane's length.  CUDA tensors launch the kernel ((D, D) in
+    LSE_HEAD_DIMS, H/KVH <= 8) or raise; CPU tensors take the plain
+    version."""
+    B, T, H, D = q.shape
+    if T != 1:
+        raise ValueError(f"flash_decode_lse takes one query row, got T={T}")
+    if k.dim() != 4 or k.shape[0] != B or k.shape[-1] != D or tuple(v.shape) != tuple(k.shape):
+        raise ValueError(f"cache shapes k {tuple(k.shape)} v {tuple(v.shape)} do not match q {tuple(q.shape)}")
+    S, KVH = k.shape[1], k.shape[2]
+    if H % KVH:
+        raise ValueError(f"{H} query heads are not a multiple of {KVH} KV heads")
+    if tuple(lengths.shape) != (B,):
+        raise ValueError(f"lengths must be [B]={B}, got {tuple(lengths.shape)}")
+    max_live = int(max_live)
+    if not 0 <= max_live <= S:
+        raise ValueError(f"max_live {max_live} outside a cache of {S} slots")
+    scale = D**-0.5 if scale is None else float(scale)
+    if q.device.type == "cpu":
+        return flash_decode_lse_plain(q, k, v, lengths, scale=scale, max_live=max_live)
+    if q.dtype not in build.DTYPE_CODES or (D, D) not in LSE_HEAD_DIMS or H // KVH > MAX_GROUP:
+        raise ValueError(
+            f"flash_decode_lse takes bf16/f32, head dims {sorted(LSE_HEAD_DIMS)} and at most {MAX_GROUP} "
+            f"query heads per KV head; got {q.dtype}, {D}, {H // KVH}"
+        )
+    if k.dtype not in KV_DTYPES[q.dtype]:
+        raise ValueError(f"flash_decode_lse reads a {q.dtype} q over a {KV_DTYPES[q.dtype]} cache, got {k.dtype}")
+    dev = q.device
+    build.check_cuda_tensors("flash_decode_lse", q.dtype, q=q)
+    build.check_cuda_tensors("flash_decode_lse", k.dtype, device=dev, k=k, v=v)
+    build.check_cuda_tensors("flash_decode_lse", torch.int32, device=dev, lengths=lengths)
+    tiles_per_split, n_split = split_plan(max(max_live, 1), KVH)
+    G = H // KVH
+    part_o = torch.empty((B, KVH, n_split, G, D), dtype=torch.float32, device=dev)
+    part_ml = torch.empty((B, KVH, n_split, G, 2), dtype=torch.float32, device=dev)
+    acc = torch.empty((B, 1, H, D), dtype=torch.float32, device=dev)
+    m = torch.empty((B, KVH, G), dtype=torch.float32, device=dev)
+    l = torch.empty((B, KVH, G), dtype=torch.float32, device=dev)
+    rc = build.entry("flash_decode", "dnet_flash_decode_lse", _LSE_ARGTYPES)(
+        build.DTYPE_CODES[q.dtype], build.DTYPE_CODES[k.dtype], D, q.data_ptr(), k.data_ptr(), v.data_ptr(),
+        acc.data_ptr(), m.data_ptr(), l.data_ptr(), part_o.data_ptr(), part_ml.data_ptr(), lengths.data_ptr(),
+        B, H, KVH, S, tiles_per_split, n_split, scale, build.current_stream_handle(dev),
+    )
+    if rc != 0:
+        raise RuntimeError(f"flash_decode_lse kernel launch failed (code {rc})")
+    _count(COUNTERS[0, False, False, True])
+    return acc, m, l
 
 
 def flash_decode_plain(
@@ -216,6 +314,45 @@ def flash_decode_plain(
     an idle lane (length 0) gives zeros.  `max_live` bounds the live slots
     (read from `lengths` when None).  `rotating`: the ring's mask as the
     kernel's (flash_decode_attend)."""
+    B, _, H, D = q.shape
+    KVH = k.shape[2]
+    G = H // KVH
+    m, l, acc = _fold_tiles(q, k, v, lengths, scale, k_scale, v_scale, max_live, rotating, window)
+    dev = q.device
+    if sinks is None:
+        sink = torch.full((1, KVH, G, 1), NEG_INF, dtype=torch.float32, device=dev)
+    else:
+        sink = sinks.float().reshape(1, KVH, G, 1)
+    m_fin = torch.maximum(m, sink)
+    corr = torch.exp(m - m_fin)
+    l_fin = l * corr + torch.exp(sink - m_fin)
+    out = acc * corr / torch.clamp(l_fin, min=1e-30)
+    return out.reshape(B, 1, H, acc.shape[-1]).to(q.dtype)
+
+
+def flash_decode_lse_plain(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    lengths: torch.Tensor,
+    scale: Optional[float] = None,
+    max_live: Optional[int] = None,
+) -> tuple:
+    """The LSE form's function in plain PyTorch: flash_decode_plain's tile
+    fold without its final normalisation (the counterpart of the
+    reference's `_decode_emulate(..., with_lse=True)`): (acc [B, 1, H, D],
+    m [B, KVH, G], l [B, KVH, G]), f32."""
+    B, _, H, _ = q.shape
+    m, l, acc = _fold_tiles(q, k, v, lengths, scale, None, None, max_live, False, 0)
+    return acc.reshape(B, 1, H, acc.shape[-1]), m[..., 0], l[..., 0]
+
+
+def _fold_tiles(q, k, v, lengths, scale, k_scale, v_scale, max_live, rotating, window):
+    """The online-softmax fold over 64-key tiles that both plain versions
+    share: (m, l, acc) per lane, KV head and query head of its group,
+    [B, KVH, G, 1] twice and [B, KVH, G, Dv], f32.  A tile past a lane's
+    live slots leaves that lane's state untouched: an idle lane keeps
+    (NEG_INF, 0, 0)."""
     B, _, H, D = q.shape
     S, KVH = k.shape[1], k.shape[2]
     G = H // KVH
@@ -252,12 +389,4 @@ def flash_decode_plain(
         l = torch.where(tile_live, l * corr + p.sum(dim=-1, keepdim=True), l)
         acc = torch.where(tile_live, acc * corr + torch.einsum("bkgs,bskd->bkgd", p, vt), acc)
         m = torch.where(tile_live, m_new, m)
-    if sinks is None:
-        sink = torch.full((1, KVH, G, 1), NEG_INF, dtype=torch.float32, device=dev)
-    else:
-        sink = sinks.float().reshape(1, KVH, G, 1)
-    m_fin = torch.maximum(m, sink)
-    corr = torch.exp(m - m_fin)
-    l_fin = l * corr + torch.exp(sink - m_fin)
-    out = acc * corr / torch.clamp(l_fin, min=1e-30)
-    return out.reshape(B, 1, H, Dv).to(q.dtype)
+    return m, l, acc

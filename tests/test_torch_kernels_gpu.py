@@ -14,8 +14,14 @@ every cache form; prefill and decode at DeepSeek-V2-Lite's MLA widths
 (H = KVH = 16, (Dqk, Dv) = (192, 128), its softmax scale) in bf16, f32 and
 over q8 / q4 caches, counted on their own MLA counters; the paged kernel
 reads a block pool (bf16 under an f32 q too) through shuffled page tables at
-ragged per-slot lengths.  The engines with a bf16 cache under f32 params run
-on the card against the CPU's plain versions.  The
+ragged per-slot lengths.  The decode kernel's LSE form (one sequence-
+parallel rank's unnormalised partials) runs on R = 2 and 4 shards of a
+4096-slot cache at Llama-3.2-1B's and at head dim 128's widths, an empty
+rank included: m and the rank's output acc / l within the decode
+tolerances, l within them relative to itself, and the combined ranks
+against the decode kernel over the whole cache.  The engines with a bf16
+cache under f32 params, and the sp engine, run on the card against the
+CPU's plain versions.  The
 hop codec's column kernels run at its widths (C=2048) and at odd ones, with
 R=1 frames: norms within 2e-5 relative in f32 (1e-2 in bf16 inputs summed
 in f32), gather and dequant-scatter equal bit for bit.  Tolerances: f32 1e-4 (sums
@@ -40,7 +46,18 @@ from dnet_tpu_torch.compression.ops import (
 )
 from dnet_tpu_torch.ops.flash_attention import flash_prefill, flash_prefill_plain
 from dnet_tpu_torch.core.kvcache import KVConfig, init_cache, layer_slices, write_kv, write_kv_rotating
-from dnet_tpu_torch.ops.flash_decode import decode_lengths, flash_decode_attend, flash_decode_plain
+from dnet_tpu_torch.ops.flash_decode import (
+    NEG_INF,
+    decode_lengths,
+    flash_decode_attend,
+    flash_decode_lse,
+    flash_decode_lse_plain,
+    flash_decode_plain,
+    rank_live,
+    sp_lengths,
+)
+from dnet_tpu_torch.ops.ring_attention import lse_combine
+from dnet_tpu_torch.parallel.mesh import SpGroup
 from dnet_tpu_torch.ops.paged_attention import paged_attend, paged_attend_plain
 
 pytestmark = pytest.mark.gpu
@@ -218,6 +235,119 @@ def test_cuda_tensor_never_takes_the_plain_version(gen):
         flash_decode_attend(q[:, :1], k, k, decode_lengths(1, 3, "cuda"), 4)
     with pytest.raises(ValueError):  # int64 lengths are not the kernel's
         flash_decode_attend(q[:, :1].float(), k.float(), k.float(), torch.full((1,), 4, device="cuda"), 4)
+
+
+def _check_lse(out, want, dtype):
+    """Kernel partials against the plain version's: m within the decode
+    tolerance, l within it relative to l, the rank's output acc / l within
+    it; an empty rank's partials exactly (0, NEG_INF, 0)."""
+    (acc, m, l), (wa, wm, wl) = out, want
+    assert acc.dtype == m.dtype == l.dtype == torch.float32
+    live = wl > 0
+    assert torch.equal(m[~live], wm[~live]) and (l[~live] == 0).all()
+    B, KVH, G = m.shape
+    assert (acc.reshape(B, KVH, G, -1)[~live] == 0).all()
+    if live.any():
+        assert (m - wm)[live].abs().max().item() <= TOL[dtype]
+        assert ((l - wl)[live] / wl[live]).abs().max().item() <= TOL[dtype]
+        norm = lambda a, d: (a.reshape(B, KVH, G, -1) / d.clamp(min=1e-30)[..., None])[live]  # noqa: E731
+        assert (norm(acc, l) - norm(wa, wl)).abs().max().item() <= TOL[dtype]
+
+
+@pytest.mark.parametrize("dtype,kv_dtype", [(torch.float32, torch.float32), (torch.bfloat16, torch.bfloat16),
+                                            (torch.float32, torch.bfloat16)])
+@pytest.mark.parametrize("R", [2, 4])
+@pytest.mark.parametrize("pos", [0, 1023, 1024, 2047, 2048, 4095])
+def test_lse_kernel_matches_plain_per_rank(gen, dtype, kv_dtype, R, pos):
+    """R shards of one 4096-slot cache on one card (ranks wholly past pos
+    among them at low positions): each rank's partials against the plain
+    version, one launch counted per rank, and the combined ranks against
+    the decode kernel over the whole cache."""
+    q = _randn(gen, dtype, 1, 1, 32, 64)
+    k, v = _randn(gen, kv_dtype, 1, 4096, 8, 64), _randn(gen, kv_dtype, 1, 4096, 8, 64)
+    s_local = 4096 // R
+    sp = SpGroup(["cuda:0"] * R)
+    parts = []
+    for r, lengths in enumerate(sp_lengths(1, pos, s_local, sp.devices)):
+        kr, vr = k[:, r * s_local : (r + 1) * s_local], v[:, r * s_local : (r + 1) * s_local]
+        before = flash_decode_attend.launches_lse
+        out = flash_decode_lse(q, kr, vr, lengths, rank_live(pos, r, s_local))
+        torch.cuda.synchronize()
+        assert flash_decode_attend.launches_lse == before + 1
+        _check_lse(out, flash_decode_lse_plain(q.float(), kr.float(), vr.float(), lengths), dtype)
+        parts.append(out)
+    combined = lse_combine(parts, sp, None, dtype)
+    whole = flash_decode_attend(q, k, v, decode_lengths(1, pos, "cuda"), pos + 1)
+    assert combined.dtype == dtype and (combined.float() - whole.float()).abs().max().item() <= TOL[dtype]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("pos", [5, 700, 1500])
+def test_lse_kernel_head_dim_128_with_sinks(gen, dtype, pos):
+    """Head dim 128 (H=32, KVH=8), two ranks of 1024 slots, a lane whose
+    length is 0 beside a live one, and sinks folded once by the combine."""
+    q = _randn(gen, dtype, 2, 1, 32, 128)
+    k, v = _randn(gen, dtype, 2, 2048, 8, 128), _randn(gen, dtype, 2, 2048, 8, 128)
+    sinks = torch.randn(32, generator=gen, device="cuda")
+    sp = SpGroup(["cuda:0", "cuda:0"])
+    parts = []
+    for r in range(2):
+        kr, vr = k[:, r * 1024 : (r + 1) * 1024].contiguous(), v[:, r * 1024 : (r + 1) * 1024].contiguous()
+        live = rank_live(pos, r, 1024)
+        lengths = torch.tensor([live, 0], dtype=torch.int32, device="cuda")  # lane 1 idle
+        out = flash_decode_lse(q, kr, vr, lengths, live)
+        torch.cuda.synchronize()
+        _check_lse(out, flash_decode_lse_plain(q.float(), kr.float(), vr.float(), lengths), dtype)
+        parts.append(out)
+    combined = lse_combine(parts, sp, sinks, dtype)
+    whole = flash_decode_attend(q, k, v, torch.tensor([pos + 1, 0], dtype=torch.int32, device="cuda"), pos + 1,
+                                sinks=sinks)
+    assert (combined.float() - whole.float()).abs().max().item() <= TOL[dtype]
+
+
+def test_lse_kernel_never_takes_the_plain_version(gen):
+    """On the card a head dim, dtype or cache form the LSE form is not
+    built for raises instead of computing through the plain version;
+    nothing is counted."""
+    before = flash_decode_attend.launches_lse
+    lengths = decode_lengths(1, 3, "cuda")
+    for dt, d in ((torch.float16, 64), (torch.bfloat16, 96)):
+        q, k = _randn(gen, dt, 1, 1, 32, d), _randn(gen, dt, 1, 64, 8, d)
+        with pytest.raises(ValueError):
+            flash_decode_lse(q, k, k, lengths, 4)
+    with pytest.raises(ValueError):  # bf16 q over an f32 cache
+        flash_decode_lse(_randn(gen, torch.bfloat16, 1, 1, 32, 64), *[_randn(gen, torch.float32, 1, 64, 8, 64)] * 2,
+                         lengths, 4)
+    assert flash_decode_attend.launches_lse == before
+
+
+def test_sp_engine_matches_cpu(gen):
+    """The sp engine on the card (two ranks on cuda:0: the LSE kernel per
+    rank per layer) against the same engine on the CPU, f32: prefill logits
+    within 2e-3 across the shard boundary, equal greedy streams, and
+    exactly ranks x layers LSE launches per decode step."""
+    from dnet_tpu_torch.core.types import DecodingParams
+    from dnet_tpu_torch.models import ModelConfig
+    from dnet_tpu_torch.parallel.engine import MeshEngine
+    from dnet_tpu_torch.utils.random_init import random_llama_params
+
+    cfg = ModelConfig.from_hf({
+        "model_type": "llama", "vocab_size": 512, "hidden_size": 256, "intermediate_size": 512,
+        "num_hidden_layers": 2, "num_attention_heads": 4, "num_key_value_heads": 2, "head_dim": 64,
+        "tie_word_embeddings": True,
+    })
+    window, edge = random_llama_params(cfg, range(2), torch.device("cpu"), torch.float32, seed=1)
+    engines = {dev: MeshEngine.from_params(cfg, window, edge, sp=2, max_seq=128, param_dtype="float32",
+                                           devices=[dev, dev]) for dev in ("cuda:0", "cpu")}
+    prompt = list(range(1, 70))
+    logits = {dev: e.prefill("p", prompt).float().cpu() for dev, e in engines.items()}
+    assert (logits["cuda:0"] - logits["cpu"]).abs().max().item() <= 2e-3
+    before = flash_decode_attend.launches_lse
+    streams = {dev: [r.token_id for r in e.generate(prompt, DecodingParams(), max_tokens=16, nonce="g")]
+               for dev, e in engines.items()}
+    torch.cuda.synchronize()
+    assert streams["cuda:0"] == streams["cpu"]
+    assert flash_decode_attend.launches_lse - before == 2 * 2 * 15
 
 
 # DeepSeek-V2-Lite's MLA attention: H = KVH = 16, q/k head dim 192 (nope 128
