@@ -14,8 +14,7 @@ instead of being dropped: the scheduler (DNET_SCHED=1), weight
 quantization (DNET_API_WEIGHT_QUANT_BITS), the single-sequence prefix cache
 (DNET_API_PREFIX_CACHE with batch_slots 1), speculative decoding
 (DNET_API_SPEC_LOOKAHEAD), the draft model (DNET_API_DRAFT_MODEL), and
-under a mesh: --batch-slots > 1, the pp / tp / dp axes, a quantized KV
-cache and every family but llama.  A
+under a mesh: --batch-slots > 1 and the pp / tp / dp axes.  A
 model id is a filesystem path or a subdirectory of `models_dir` (repo id
 slashes replaced by `--`, HF-cache style); nothing is downloaded.
 """
@@ -63,8 +62,7 @@ def active_mesh(mesh: Optional[dict]) -> Optional[dict]:
 def refuse_unported(settings: ApiSettings, batch_slots: int, mesh: Optional[dict] = None) -> None:
     """Raise EngineCapabilityError for the first setting that changes what
     the reference serves and that the port does not serve yet (ROADMAP A4;
-    the mesh's own axes, KV form and family: parallel/engine.py
-    check_mesh)."""
+    the mesh's own axes and its family: parallel/engine.py check_mesh)."""
     refused = [
         (mesh is not None and batch_slots > 1,
          f"--batch-slots {batch_slots} with mesh {mesh}: continuous batching on the mesh engine is not ported"),

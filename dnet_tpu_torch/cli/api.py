@@ -23,9 +23,9 @@ sampled tokens back on --grpc-port.
 --mesh sp=N (default: DNET_MESH_PP/TP/DP/SP) serves over N sequence-parallel
 ranks, each holding max_seq / N KV slots: on CUDA one card per rank
 (cuda:0 .. cuda:N-1; the server refuses to start with fewer cards), with
---device cpu every rank on the CPU.  The pp / tp / dp axes, a quantized KV
-cache, --batch-slots > 1 and families other than llama are refused (422)
-under a mesh.
+--device cpu every rank on the CPU; llama, gpt_oss and deepseek_v2, and
+DNET_KV_BITS 8 / 4, serve under it.  The pp / tp / dp axes and
+--batch-slots > 1 are refused (422) under a mesh.
 """
 
 from __future__ import annotations

@@ -50,17 +50,21 @@
 //
 // LSE (sequence-parallel) form, `dnet_flash_decode_lse`: replaces the same
 // TPU kernel with with_lse=True (flash_decode.py:141-150, outputs :213-223),
-// which `sp_flash_decode_attend` runs on each sp rank's shard of the cache
-// (plain bf16 / f32 caches, DQK == DV in {64, 128}).  The split kernel is
-// the one above; a second combine kernel merges the splits with one
-// log-sum-exp and writes the rank's UNNORMALISED partials: acc [B, 1, H, DV]
-// f32 relative to the merged max, and m, l [B, KVH, G] f32.  It neither
-// folds a sink nor divides by l: the cross-rank combine does both, once
-// (ops/ring_attention.py).  The rank's shard offset is carried by the
-// lengths the caller passes (clamp(pos + 1 - offset, 0, S) per lane), so a
-// rank whose shard lies wholly past pos has length 0: its one planned split
-// folds no tile and the combine writes m = NEG_INF, l = 0, acc = 0, which
-// the cross-rank weight exp(m - m_global) then zeroes.
+// which `sp_flash_decode_attend` runs on each sp rank's shard of the cache,
+// in every cache form but the rotating one (bf16 / f32 values, int8 / int4
+// codes) and at every (DQK, DV) pair above, MLA's (192, 128) included.  The
+// reference dequantizes a quantized shard to f32 first (`read_kv`, then the
+// kernel); this form reads the codes and dequantizes tile by tile, as the
+// non-sp quantized decode does: both compute code * scale in f32.  The split
+// kernel is the one above; a second combine kernel (one thread per V column)
+// merges the splits with one log-sum-exp and writes the rank's UNNORMALISED
+// partials: acc [B, 1, H, DV] f32 relative to the merged max, and m, l
+// [B, KVH, G] f32.  It neither folds a sink nor divides by l: the cross-rank
+// combine does both, once (ops/ring_attention.py).  The rank's shard offset
+// is carried by the lengths the caller passes (clamp(pos + 1 - offset, 0, S)
+// per lane), so a rank whose shard lies wholly past pos has length 0: its
+// one planned split folds no tile and the combine writes m = NEG_INF, l = 0,
+// acc = 0, which the cross-rank weight exp(m - m_global) then zeroes.
 
 #include "common.cuh"
 
@@ -286,16 +290,16 @@ flash_decode_split_kernel(const T* __restrict__ q, const KV* __restrict__ k, con
   }
 }
 
-// One block per (head, batch), one thread per output column (D is V's head
-// dim): merge the splits' partials with one log-sum-exp and fold the sink
-// exactly once.  An
+// One block per (head, batch), one thread per output column of V's width
+// Dv (the partials and the output are V-wide, never Q/K-wide): merge the
+// splits' partials with one log-sum-exp and fold the sink exactly once.  An
 // idle lane's partials are all empty (m = NEG_INF, l = 0, acc = 0): its
 // output is 0, as the reference's acc * corr / max(l, 1e-30) gives.
 template <typename T>
 __global__ void flash_decode_combine_kernel(const float* __restrict__ part_o,
                                             const float* __restrict__ part_ml,
                                             const float* __restrict__ sinks, T* __restrict__ o,
-                                            int H, int KVH, int D, int n_split) {
+                                            int H, int KVH, int Dv, int n_split) {
   const int h = blockIdx.x;
   const int b = blockIdx.y;
   const int d = threadIdx.x;
@@ -309,17 +313,18 @@ __global__ void flash_decode_combine_kernel(const float* __restrict__ part_o,
   float acc = 0.f, l = 0.f;
   for (int s = 0; s < n_split; ++s) {
     const float w = expf(part_ml[((base + s) * G + g) * 2] - M);
-    acc = fmaf(w, part_o[(base + s) * G * D + g * D + d], acc);
+    acc = fmaf(w, part_o[(base + s) * G * Dv + g * Dv + d], acc);
     l = fmaf(w, part_ml[((base + s) * G + g) * 2 + 1], l);
   }
   const float sink = sinks ? sinks[h] : NEG_INF;
   const float m_fin = fmaxf(M, sink);
   const float corr = expf(M - m_fin);
   const float l_fin = fmaxf(l * corr + expf(sink - m_fin), 1e-30f);
-  o[((long)b * H + h) * D + d] = dnet::from_float<T>(acc * corr / l_fin);
+  o[((long)b * H + h) * Dv + d] = dnet::from_float<T>(acc * corr / l_fin);
 }
 
-// LSE form: one block per (head, batch), one thread per output column.
+// LSE form: one block per (head, batch), one thread per output column of
+// V's width Dv (MLA: 128, while q and k are 192 wide).
 // The splits' partials merge as in flash_decode_combine_kernel, but the
 // rank's partials are written as they are: acc relative to the merged max
 // M, and (M, l) per query head.  Empty partials (m = NEG_INF on every
@@ -328,7 +333,7 @@ __global__ void flash_decode_combine_kernel(const float* __restrict__ part_o,
 __global__ void flash_decode_combine_lse_kernel(const float* __restrict__ part_o,
                                                 const float* __restrict__ part_ml,
                                                 float* __restrict__ o, float* __restrict__ m_out,
-                                                float* __restrict__ l_out, int H, int KVH, int D,
+                                                float* __restrict__ l_out, int H, int KVH, int Dv,
                                                 int n_split) {
   const int h = blockIdx.x;
   const int b = blockIdx.y;
@@ -343,10 +348,10 @@ __global__ void flash_decode_combine_lse_kernel(const float* __restrict__ part_o
   float acc = 0.f, l = 0.f;
   for (int s = 0; s < n_split; ++s) {
     const float w = expf(part_ml[((base + s) * G + g) * 2] - M);
-    acc = fmaf(w, part_o[(base + s) * G * D + g * D + d], acc);
+    acc = fmaf(w, part_o[(base + s) * G * Dv + g * Dv + d], acc);
     l = fmaf(w, part_ml[((base + s) * G + g) * 2 + 1], l);
   }
-  o[((long)b * H + h) * D + d] = acc;
+  o[((long)b * H + h) * Dv + d] = acc;
   if (d == 0) {
     // m and l are [B, KVH, G]: index b * H + h, since h = kvh * G + g
     m_out[(long)b * H + h] = M;
@@ -373,12 +378,14 @@ int launch_split(const void* q, const void* k, const void* v, const float* k_sca
 }
 
 // The rotating ring is built only where DQK == DV (gpt_oss's sliding
-// layers); MLA has no sliding layers.
+// layers); MLA has no sliding layers.  m_out / l_out non-null selects the
+// LSE form: the splits merge into the rank's unnormalised (acc, m, l), with
+// o the f32 acc, and no sink folds.
 template <typename T, typename KV, int QB, int DQK, int DV>
 int launch(const void* q, const void* k, const void* v, const float* k_scale, const float* v_scale,
-           void* o, const float* sinks, float* part_o, float* part_ml, const int* lengths, int B,
-           int H, int KVH, int S, int tiles_per_split, int n_split, float scale, int rotating,
-           int window, cudaStream_t stream) {
+           void* o, float* m_out, float* l_out, const float* sinks, float* part_o, float* part_ml,
+           const int* lengths, int B, int H, int KVH, int S, int tiles_per_split, int n_split,
+           float scale, int rotating, int window, cudaStream_t stream) {
   int rc = -1;
   if (!rotating) {
     rc = launch_split<T, KV, QB, DQK, DV, false>(q, k, v, k_scale, v_scale, part_o, part_ml,
@@ -390,9 +397,14 @@ int launch(const void* q, const void* k, const void* v, const float* k_scale, co
                                                 scale, window, stream);
   }
   if (rc != 0) return rc;
-  flash_decode_combine_kernel<T><<<dim3(H, B), DV, 0, stream>>>(part_o, part_ml, sinks,
-                                                                static_cast<T*>(o), H, KVH, DV,
-                                                                n_split);
+  if (m_out) {
+    flash_decode_combine_lse_kernel<<<dim3(H, B), DV, 0, stream>>>(
+        part_o, part_ml, static_cast<float*>(o), m_out, l_out, H, KVH, DV, n_split);
+  } else {
+    flash_decode_combine_kernel<T><<<dim3(H, B), DV, 0, stream>>>(part_o, part_ml, sinks,
+                                                                  static_cast<T*>(o), H, KVH, DV,
+                                                                  n_split);
+  }
   return (int)cudaGetLastError();
 }
 
@@ -400,86 +412,46 @@ int launch(const void* q, const void* k, const void* v, const float* k_scale, co
 // cache's dtype code when qbits is 0 (q's own, or bf16 under an f32 q).
 template <typename T, int DQK, int DV>
 int launch_variant(int kv_dtype, int qbits, const void* q, const void* k, const void* v,
-                   const float* k_scale, const float* v_scale, void* o, const float* sinks,
-                   float* part_o, float* part_ml, const int* lengths, int B, int H, int KVH, int S,
-                   int tiles_per_split, int n_split, float scale, int rotating, int window,
-                   cudaStream_t st) {
-  if (qbits == 8)
-    return launch<T, uint8_t, 8, DQK, DV>(q, k, v, k_scale, v_scale, o, sinks, part_o, part_ml,
-                                          lengths, B, H, KVH, S, tiles_per_split, n_split, scale,
-                                          rotating, window, st);
-  if (qbits == 4)
-    return launch<T, uint8_t, 4, DQK, DV>(q, k, v, k_scale, v_scale, o, sinks, part_o, part_ml,
-                                          lengths, B, H, KVH, S, tiles_per_split, n_split, scale,
-                                          rotating, window, st);
+                   const float* k_scale, const float* v_scale, void* o, float* m_out, float* l_out,
+                   const float* sinks, float* part_o, float* part_ml, const int* lengths, int B,
+                   int H, int KVH, int S, int tiles_per_split, int n_split, float scale,
+                   int rotating, int window, cudaStream_t st) {
+#define DNET_LAUNCH(KV_T, QB_)                                                                   \
+  launch<T, KV_T, QB_, DQK, DV>(q, k, v, k_scale, v_scale, o, m_out, l_out, sinks, part_o,       \
+                                part_ml, lengths, B, H, KVH, S, tiles_per_split, n_split, scale, \
+                                rotating, window, st)
+  if (qbits == 8) return DNET_LAUNCH(uint8_t, 8);
+  if (qbits == 4) return DNET_LAUNCH(uint8_t, 4);
   if (qbits != 0) return -1;
-  if (kv_dtype == dnet::DTYPE_BF16)
-    return launch<T, __nv_bfloat16, 0, DQK, DV>(q, k, v, k_scale, v_scale, o, sinks, part_o,
-                                                part_ml, lengths, B, H, KVH, S, tiles_per_split,
-                                                n_split, scale, rotating, window, st);
+  if (kv_dtype == dnet::DTYPE_BF16) return DNET_LAUNCH(__nv_bfloat16, 0);
   if constexpr (sizeof(T) == 4) {
-    if (kv_dtype == dnet::DTYPE_F32)
-      return launch<T, float, 0, DQK, DV>(q, k, v, k_scale, v_scale, o, sinks, part_o, part_ml,
-                                          lengths, B, H, KVH, S, tiles_per_split, n_split, scale,
-                                          rotating, window, st);
+    if (kv_dtype == dnet::DTYPE_F32) return DNET_LAUNCH(float, 0);
   }
+#undef DNET_LAUNCH
   return -1;
 }
 
 template <typename T>
 int launch_dims(int head_dim, int v_head_dim, int kv_dtype, int qbits, const void* q,
                 const void* k, const void* v, const float* k_scale, const float* v_scale, void* o,
-                const float* sinks, float* part_o, float* part_ml, const int* lengths, int B,
-                int H, int KVH, int S, int tiles_per_split, int n_split, float scale, int rotating,
-                int window, cudaStream_t st) {
-  if (head_dim == 64 && v_head_dim == 64)
-    return launch_variant<T, 64, 64>(kv_dtype, qbits, q, k, v, k_scale, v_scale, o, sinks, part_o,
-                                     part_ml, lengths, B, H, KVH, S, tiles_per_split, n_split,
-                                     scale, rotating, window, st);
-  if (head_dim == 128 && v_head_dim == 128)
-    return launch_variant<T, 128, 128>(kv_dtype, qbits, q, k, v, k_scale, v_scale, o, sinks,
-                                       part_o, part_ml, lengths, B, H, KVH, S, tiles_per_split,
-                                       n_split, scale, rotating, window, st);
-  if (head_dim == 192 && v_head_dim == 128)
-    return launch_variant<T, 192, 128>(kv_dtype, qbits, q, k, v, k_scale, v_scale, o, sinks,
-                                       part_o, part_ml, lengths, B, H, KVH, S, tiles_per_split,
-                                       n_split, scale, rotating, window, st);
+                float* m_out, float* l_out, const float* sinks, float* part_o, float* part_ml,
+                const int* lengths, int B, int H, int KVH, int S, int tiles_per_split, int n_split,
+                float scale, int rotating, int window, cudaStream_t st) {
+#define DNET_DIMS(DQK_, DV_)                                                                     \
+  launch_variant<T, DQK_, DV_>(kv_dtype, qbits, q, k, v, k_scale, v_scale, o, m_out, l_out,      \
+                               sinks, part_o, part_ml, lengths, B, H, KVH, S, tiles_per_split,   \
+                               n_split, scale, rotating, window, st)
+  if (head_dim == 64 && v_head_dim == 64) return DNET_DIMS(64, 64);
+  if (head_dim == 128 && v_head_dim == 128) return DNET_DIMS(128, 128);
+  if (head_dim == 192 && v_head_dim == 128) return DNET_DIMS(192, 128);
+#undef DNET_DIMS
   return -1;
 }
 
-// LSE form over a plain cache (kv_dtype: q's dtype, or bf16 under an f32 q).
-template <typename T, int D>
-int launch_lse(int kv_dtype, const void* q, const void* k, const void* v, float* o, float* m,
-               float* l, float* part_o, float* part_ml, const int* lengths, int B, int H, int KVH,
-               int S, int tiles_per_split, int n_split, float scale, cudaStream_t st) {
-  int rc = -1;
-  if (kv_dtype == dnet::DTYPE_BF16) {
-    rc = launch_split<T, __nv_bfloat16, 0, D, D, false>(q, k, v, nullptr, nullptr, part_o, part_ml,
-                                                        lengths, B, H, KVH, S, tiles_per_split,
-                                                        n_split, scale, 0, st);
-  } else if constexpr (sizeof(T) == 4) {
-    if (kv_dtype == dnet::DTYPE_F32)
-      rc = launch_split<T, float, 0, D, D, false>(q, k, v, nullptr, nullptr, part_o, part_ml,
-                                                  lengths, B, H, KVH, S, tiles_per_split, n_split,
-                                                  scale, 0, st);
-  }
-  if (rc != 0) return rc;
-  flash_decode_combine_lse_kernel<<<dim3(H, B), D, 0, st>>>(part_o, part_ml, o, m, l, H, KVH, D,
-                                                            n_split);
-  return (int)cudaGetLastError();
-}
-
-template <typename T>
-int launch_lse_dims(int head_dim, int kv_dtype, const void* q, const void* k, const void* v,
-                    float* o, float* m, float* l, float* part_o, float* part_ml,
-                    const int* lengths, int B, int H, int KVH, int S, int tiles_per_split,
-                    int n_split, float scale, cudaStream_t st) {
-  if (head_dim == 64)
-    return launch_lse<T, 64>(kv_dtype, q, k, v, o, m, l, part_o, part_ml, lengths, B, H, KVH, S,
-                             tiles_per_split, n_split, scale, st);
-  if (head_dim == 128)
-    return launch_lse<T, 128>(kv_dtype, q, k, v, o, m, l, part_o, part_ml, lengths, B, H, KVH, S,
-                              tiles_per_split, n_split, scale, st);
+template <typename... Args>
+int launch_dtype(int dtype, Args... args) {
+  if (dtype == dnet::DTYPE_BF16) return launch_dims<__nv_bfloat16>(args...);
+  if (dtype == dnet::DTYPE_F32) return launch_dims<float>(args...);
   return -1;
 }
 
@@ -503,41 +475,31 @@ extern "C" int dnet_flash_decode(int dtype, int kv_dtype, int qbits, int head_di
                                  float* part_ml, const int* lengths, int B, int H, int KVH, int S,
                                  int tiles_per_split, int n_split, float scale, int rotating,
                                  int window, void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (H % KVH != 0 || H / KVH > GMAX) return -1;
   if (rotating && (window <= 0 || window > S || head_dim != v_head_dim)) return -1;
-  if (dtype == dnet::DTYPE_BF16)
-    return launch_dims<__nv_bfloat16>(head_dim, v_head_dim, kv_dtype, qbits, q, k, v, k_scale,
-                                      v_scale, o, sinks, part_o, part_ml, lengths, B, H, KVH, S,
-                                      tiles_per_split, n_split, scale, rotating, window, st);
-  if (dtype == dnet::DTYPE_F32)
-    return launch_dims<float>(head_dim, v_head_dim, kv_dtype, qbits, q, k, v, k_scale, v_scale, o,
-                              sinks, part_o, part_ml, lengths, B, H, KVH, S, tiles_per_split,
-                              n_split, scale, rotating, window, st);
-  return -1;
+  return launch_dtype(dtype, head_dim, v_head_dim, kv_dtype, qbits, q, k, v, k_scale, v_scale, o,
+                      (float*)nullptr, (float*)nullptr, sinks, part_o, part_ml, lengths, B, H, KVH,
+                      S, tiles_per_split, n_split, scale, rotating, window,
+                      static_cast<cudaStream_t>(stream));
 }
 
-// The LSE form (one sp rank's partials): q [B, 1, H, head_dim] in dtype; k, v
-// [B, S, KVH, head_dim] in kv_dtype (q's dtype, or bf16 under an f32 q), no
-// scales, head_dim 64 or 128 (V's the same).  lengths [B] int32 on the
-// device: the rank's live slots per lane (0 = none).  Writes o
-// [B, 1, H, head_dim] f32 (unnormalised, relative to m), m and l
-// [B, KVH, G] f32; part_o / part_ml are the caller's f32 scratch as for
-// dnet_flash_decode.  Returns cudaGetLastError() after the launches; -1 for
-// a dtype, head dim or grouping it was not built for.
-extern "C" int dnet_flash_decode_lse(int dtype, int kv_dtype, int head_dim, const void* q,
-                                     const void* k, const void* v, float* o, float* m, float* l,
-                                     float* part_o, float* part_ml, const int* lengths, int B,
-                                     int H, int KVH, int S, int tiles_per_split, int n_split,
-                                     float scale, void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (H % KVH != 0 || H / KVH > GMAX) return -1;
-  if (dtype == dnet::DTYPE_BF16)
-    return launch_lse_dims<__nv_bfloat16>(head_dim, kv_dtype, q, k, v, o, m, l, part_o, part_ml,
-                                          lengths, B, H, KVH, S, tiles_per_split, n_split, scale,
-                                          st);
-  if (dtype == dnet::DTYPE_F32)
-    return launch_lse_dims<float>(head_dim, kv_dtype, q, k, v, o, m, l, part_o, part_ml, lengths,
-                                  B, H, KVH, S, tiles_per_split, n_split, scale, st);
-  return -1;
+// The LSE form (one sp rank's partials): q [B, 1, H, head_dim] in dtype; the
+// cache as for dnet_flash_decode (qbits 0, 8 or 4; never rotating), the
+// same (head_dim, v_head_dim) pairs.  lengths [B] int32 on the device: the
+// rank's live slots per lane (0 = none).  Writes o [B, 1, H, v_head_dim]
+// f32 (unnormalised, relative to m), m and l [B, KVH, G] f32; part_o /
+// part_ml are the caller's f32 scratch as for dnet_flash_decode.  Returns
+// cudaGetLastError() after the launches; -1 for a dtype, variant, head dims
+// or grouping it was not built for.
+extern "C" int dnet_flash_decode_lse(int dtype, int kv_dtype, int qbits, int head_dim,
+                                     int v_head_dim, const void* q, const void* k, const void* v,
+                                     const float* k_scale, const float* v_scale, float* o,
+                                     float* m, float* l, float* part_o, float* part_ml,
+                                     const int* lengths, int B, int H, int KVH, int S,
+                                     int tiles_per_split, int n_split, float scale, void* stream) {
+  if (H % KVH != 0 || H / KVH > GMAX || !m || !l) return -1;
+  return launch_dtype(dtype, head_dim, v_head_dim, kv_dtype, qbits, q, k, v, k_scale, v_scale,
+                      static_cast<void*>(o), m, l, (const float*)nullptr, part_o, part_ml, lengths,
+                      B, H, KVH, S, tiles_per_split, n_split, scale, 0, 0,
+                      static_cast<cudaStream_t>(stream));
 }

@@ -11,7 +11,7 @@ def _counters() -> dict:
     its own, both attention wrappers count their MLA-width launches (V's
     head dim other than Q/K's) apart, and the decode kernel's LSE form
     (flash_decode_lse, one sp rank's partials) counts on the decode
-    wrapper too."""
+    wrapper too, per cache form and width as the plain form."""
     from dnet_tpu_torch.compression.ops import column_sq_norms, dequant_scatter_columns, gather_columns
     from dnet_tpu_torch.ops.flash_attention import flash_prefill
     from dnet_tpu_torch.ops.flash_decode import flash_decode_attend
@@ -30,6 +30,11 @@ def _counters() -> dict:
         "flash_decode_mla_q8": (flash_decode_attend, "launches_mla_q8"),
         "flash_decode_mla_q4": (flash_decode_attend, "launches_mla_q4"),
         "flash_decode_lse": (flash_decode_attend, "launches_lse"),
+        "flash_decode_lse_q8": (flash_decode_attend, "launches_lse_q8"),
+        "flash_decode_lse_q4": (flash_decode_attend, "launches_lse_q4"),
+        "flash_decode_lse_mla": (flash_decode_attend, "launches_lse_mla"),
+        "flash_decode_lse_mla_q8": (flash_decode_attend, "launches_lse_mla_q8"),
+        "flash_decode_lse_mla_q4": (flash_decode_attend, "launches_lse_mla_q4"),
         "paged_attend": (paged_attend, "launches"),
         "column_sq_norms": (column_sq_norms, "launches"),
         "gather_columns": (gather_columns, "launches"),

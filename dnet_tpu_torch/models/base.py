@@ -26,7 +26,7 @@ from typing import Any, Dict, List, Optional, Sequence, Tuple, Union
 import torch
 
 from dnet_tpu_torch.config import compute_settings
-from dnet_tpu_torch.core.kvcache import KVConfig, init_cache
+from dnet_tpu_torch.core.kvcache import KVConfig, init_cache, init_cache_sp
 
 
 @dataclass
@@ -185,6 +185,15 @@ class RingModel(abc.ABC):
         {"a": cache, "b": cache}."""
         return init_cache(self.kv_config(n_layers, batch, max_seq, dtype, quant_bits), self.device)
 
+    def init_kv_sp(
+        self, n_layers: int, batch: int, max_seq: int, dtype: str = "bfloat16", quant_bits: int = 0,
+        devices: Sequence = (),
+    ) -> list:
+        """The sequence-parallel cache: one cache per rank, each of max_seq /
+        R slots on devices[r] (core/kvcache.py `init_cache_sp`), in init_kv's
+        layout.  gpt_oss overrides: a paired cache per rank."""
+        return init_cache_sp(self.kv_config(n_layers, batch, max_seq, dtype, quant_bits), devices)
+
     # ---- layout -------------------------------------------------------
     def stack_layers(self, per_layer: List[dict]) -> Union[List[dict], Dict[str, List[dict]]]:
         """The window params apply_window takes, from the per-layer param
@@ -193,8 +202,9 @@ class RingModel(abc.ABC):
         segments."""
         return per_layer
 
-    def kv_rewindable(self, max_seq: int) -> bool:
+    def kv_rewindable(self, max_seq: int, sp: int = 1) -> bool:
         """Whether stale cache rows past a rewound `pos` are harmless:
         slot-addressed caches qualify; rotating ring-buffer caches do not
-        (a wrap-around write evicts live rows)."""
+        (a wrap-around write evicts live rows).  `sp`: the sequence-parallel
+        ranks the cache is sharded over."""
         return True

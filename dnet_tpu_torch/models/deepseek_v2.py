@@ -1,7 +1,9 @@
 """DeepSeek-V2-family model: MLA attention + shared/routed MoE.
 
-Counterpart of dnet_tpu/models/deepseek_v2.py on one device (no tensor,
-sequence or pipeline parallelism).  Each layer runs:
+Counterpart of dnet_tpu/models/deepseek_v2.py on one device or over
+sequence-parallel ranks (`apply_window(sp=)`: each rank's shard of the
+asymmetric cache, a decode row through the decode kernel's LSE form at
+(192, 128); no tensor or pipeline parallelism).  Each layer runs:
 
 - MLA: queries through an optional LoRA (q_a -> norm -> q_b; absent on
   V2-Lite), keys and values through a compressed latent (kv_a -> norm ->
@@ -33,7 +35,7 @@ from dnet_tpu_torch.core.kvcache import KVConfig
 from dnet_tpu_torch.models.base import ModelConfig, RingModel
 from dnet_tpu_torch.models.segments import SEGMENTS, TwoSegmentStackMixin
 from dnet_tpu_torch.ops.attention import cached_attend
-from dnet_tpu_torch.ops.flash_decode import decode_lengths
+from dnet_tpu_torch.ops.flash_decode import decode_lengths, sp_lengths
 from dnet_tpu_torch.ops.moe import moe_apply, resolve_moe_impl, swiglu_expert_closures
 from dnet_tpu_torch.ops.norms import rms_norm
 from dnet_tpu_torch.ops.rope import apply_rope_interleaved, rope_frequencies
@@ -41,6 +43,7 @@ from dnet_tpu_torch.ops.rope import apply_rope_interleaved, rope_frequencies
 
 class DeepseekV2RingModel(TwoSegmentStackMixin, RingModel):
     model_type = "deepseek_v2"
+    supports_sp = True
 
     def __init__(self, config: ModelConfig, layers, device):
         super().__init__(config, layers, device)
@@ -99,8 +102,11 @@ class DeepseekV2RingModel(TwoSegmentStackMixin, RingModel):
 
     # ---- compute ------------------------------------------------------
     def _attention(
-        self, p: dict, x: torch.Tensor, kvs: dict, pos: int, lengths: Optional[torch.Tensor]
+        self, p: dict, x: torch.Tensor, kvs, pos: int, lengths, sp=None
     ) -> torch.Tensor:
+        """MLA incl. the residual add; under `sp` kvs is the ranks' layer
+        slices and lengths their vectors (ops/attention.py cached_attend):
+        the predicate stays the implicit causal one, as in the reference."""
         B, T, _ = x.shape
         nope, rope_d, vd = self.qk_nope_head_dim, self.qk_rope_head_dim, self.v_head_dim
 
@@ -126,7 +132,7 @@ class DeepseekV2RingModel(TwoSegmentStackMixin, RingModel):
         q_full = torch.cat([q_nope, q_pe], dim=-1)
         k_full = torch.cat([k_nope, k_pe.expand(B, T, H, rope_d)], dim=-1)
         attn, _ = cached_attend(q_full, k_full, v, kvs, pos, None, scale=self.softmax_scale, causal=True,
-                                lengths=lengths)
+                                lengths=lengths, sp=sp)
         return x + attn.reshape(B, T, H * vd) @ p["wo"]
 
     @staticmethod
@@ -164,10 +170,11 @@ class DeepseekV2RingModel(TwoSegmentStackMixin, RingModel):
         return x + (routed.to(flat.dtype) + shared).reshape(B, T, D)
 
     def layer(
-        self, p: dict, x: torch.Tensor, kvs: dict, pos: int, lengths: Optional[torch.Tensor] = None
+        self, p: dict, x: torch.Tensor, kvs, pos: int, lengths=None, sp=None
     ) -> Tuple[torch.Tensor, dict]:
-        """One decoder layer over its cache slices (written in place)."""
-        x = self._attention(p, x, kvs, pos, lengths)
+        """One decoder layer over its cache slices (written in place; under
+        `sp` the ranks' slices)."""
+        x = self._attention(p, x, kvs, pos, lengths, sp)
         if "e_gate" in p:
             return self._moe(p, x), kvs
         h = rms_norm(x, p["mlp_norm"], self.config.rms_norm_eps)
@@ -175,16 +182,20 @@ class DeepseekV2RingModel(TwoSegmentStackMixin, RingModel):
 
     def apply_window(
         self, window_params: Dict[str, List[dict]], x: torch.Tensor, kv: dict, pos: int,
-        attend_fn=None, t_real: Optional[int] = None,
+        attend_fn=None, t_real: Optional[int] = None, sp=None,
     ) -> Tuple[torch.Tensor, dict]:
-        """The dense segment, then the moe segment; kv written in place.
+        """The dense segment, then the moe segment; kv written in place
+        (under `sp`: one cache per rank, core/kvcache.py init_cache_sp).
         t_real is unused: a full-length cache keeps padded rows past every
         real position, where the next write overwrites them."""
         if attend_fn is not None:
             raise ValueError("deepseek_v2 has no attend hook (supports_paged_attend is False)")
-        # a decode step's lengths vector, made once for every layer
-        lengths = decode_lengths(x.shape[0], pos, x.device) if x.shape[1] == 1 else None
-        return self._apply_segments(window_params, x, kv, pos, lengths), kv
+        # a decode step's lengths vector (per rank under sp), made once for every layer
+        lengths = None
+        if x.shape[1] == 1:
+            lengths = (decode_lengths(x.shape[0], pos, x.device) if sp is None
+                       else sp_lengths(x.shape[0], pos, kv[0]["k"].shape[2], sp.devices))
+        return self._apply_segments(window_params, x, kv, pos, lengths, sp), kv
 
     def normalize(self, edge_params: dict, x: torch.Tensor) -> torch.Tensor:
         return rms_norm(x, edge_params["final_norm"]["weight"], self.config.rms_norm_eps)

@@ -11,6 +11,16 @@ decode kernel's rotating variant.  Each layer runs RMSNorm -> QKV (biases)
 the full cache through the prefill and decode kernels) -> o-proj (bias)
 -> the routed MoE (ops/moe.py).
 
+Under sequence parallelism (`apply_window(sp=)`, the reference's
+`_apply_paired` with an sp axis) every rank holds a full-length flat cache
+of max_seq / R slots for BOTH halves (`init_kv_sp`; the reference's
+`init_kv(rotating=False)`), never a W-row ring: neither half is rotating or
+causal, each attends through the dense sp attention under its per-rank
+masks (`sp_sliding_window_mask` with the window, or the whole sequence
+when the config has none; `sp_causal_mask`), and the sinks fold once,
+after the cross-rank combine.  No kernel runs on that path, as none does in
+the reference.
+
 Weights follow the HF dequantized layout: experts as [E, D, 2F] / [E, F, D]
 ((in, out)-oriented already) with interleaved gate/up columns, and a
 clamped SwiGLU (alpha 1.702, limit 7).  The flat (unpaired) layout, for odd
@@ -23,9 +33,15 @@ from typing import Dict, List, Optional, Tuple
 
 import torch
 
-from dnet_tpu_torch.core.kvcache import init_cache, layer_slices
+from dnet_tpu_torch.core.kvcache import init_cache, init_cache_sp, layer_slices
 from dnet_tpu_torch.models.base import ModelConfig, RingModel
-from dnet_tpu_torch.ops.attention import cached_attend, rotating_cached_attend, sliding_window_mask
+from dnet_tpu_torch.ops.attention import (
+    cached_attend,
+    rotating_cached_attend,
+    sliding_window_mask,
+    sp_causal_mask,
+    sp_sliding_window_mask,
+)
 from dnet_tpu_torch.ops.flash_decode import decode_lengths
 from dnet_tpu_torch.ops.moe import moe_apply, resolve_moe_impl
 from dnet_tpu_torch.ops.norms import rms_norm
@@ -38,6 +54,7 @@ HALVES = ("a", "b")
 
 class GptOssRingModel(RingModel):
     model_type = "gpt_oss"
+    supports_sp = True
 
     def __init__(self, config: ModelConfig, layers, device):
         super().__init__(config, layers, device)
@@ -68,9 +85,11 @@ class GptOssRingModel(RingModel):
 
     # ---- compute ------------------------------------------------------
     def _attention(
-        self, p: dict, x: torch.Tensor, kvs: dict, pos: int, window: int, causal: bool,
-        mask: Optional[torch.Tensor], t_real: Optional[int], lengths: Optional[torch.Tensor],
+        self, p: dict, x: torch.Tensor, kvs, pos: int, window: int, causal: bool,
+        mask, t_real: Optional[int], lengths: Optional[torch.Tensor], sp=None,
     ) -> torch.Tensor:
+        """One layer's attention block incl. the residual add.  Under `sp`
+        kvs is the ranks' layer slices and mask their rank-local masks."""
         cfg = self.config
         B, T, _ = x.shape
         Hd = cfg.head_dim
@@ -89,7 +108,7 @@ class GptOssRingModel(RingModel):
             attn, _ = rotating_cached_attend(q, k, v, kvs, pos, window, sinks=sinks, t_real=t_real,
                                              lengths=lengths)
         else:
-            attn, _ = cached_attend(q, k, v, kvs, pos, mask, sinks=sinks, causal=causal, lengths=lengths)
+            attn, _ = cached_attend(q, k, v, kvs, pos, mask, sinks=sinks, causal=causal, lengths=lengths, sp=sp)
         return x + (attn.reshape(B, T, H * Hd) @ p["wo"] + p["bo"])
 
     def _moe(self, p: dict, x: torch.Tensor) -> torch.Tensor:
@@ -127,12 +146,15 @@ class GptOssRingModel(RingModel):
 
     def apply_window(
         self, window_params: Dict[str, List[dict]], x: torch.Tensor, kv: dict, pos: int,
-        attend_fn=None, t_real: Optional[int] = None,
+        attend_fn=None, t_real: Optional[int] = None, sp=None,
     ) -> Tuple[torch.Tensor, dict]:
         """The paired layers in order (a0, b0, a1, b1, ...), each half over
-        its own cache kv[half]; returns (x, kv) with kv written in place."""
+        its own cache kv[half]; returns (x, kv) with kv written in place.
+        Under `sp` kv is the ranks' paired caches (`init_kv_sp`)."""
         if attend_fn is not None:
             raise ValueError("gpt_oss has no attend hook (supports_paged_attend is False)")
+        if sp is not None:
+            return self._apply_sp(window_params, x, kv, pos, sp), kv
         T = x.shape[1]
         W_cfg = self.config.sliding_window
         ctx = {}
@@ -156,6 +178,30 @@ class GptOssRingModel(RingModel):
                 x = self._moe(p, x)
         return x, kv
 
+    def sp_kind_masks(self, kind: int, T: int, S_local: int, pos: int, sp) -> list:
+        """One half's rank-local [T, S_local] masks under sp, on each rank's
+        device (the reference's `_kind_mask` with an sp axis): the sliding
+        window (the whole sequence when the config has none) for kind 1,
+        causal for kind 0."""
+        swa = self.config.sliding_window or S_local * sp.size
+        if kind == 1:
+            return [sp_sliding_window_mask(T, S_local, pos, swa, r, d) for r, d in enumerate(sp.devices)]
+        return [sp_causal_mask(T, S_local, pos, r, d) for r, d in enumerate(sp.devices)]
+
+    def _apply_sp(self, window_params: Dict[str, List[dict]], x: torch.Tensor, kv: list, pos: int, sp) -> torch.Tensor:
+        """The paired layers under sequence parallelism: each half over the
+        ranks' flat caches with its kind's rank-local masks (made once for
+        every layer); returns x."""
+        S_local = kv[0]["a"]["k"].shape[2]
+        masks = {h: self.sp_kind_masks(kind, x.shape[1], S_local, pos, sp) for h, kind in zip(HALVES, self.pair_kinds)}
+        for i in range(len(window_params["a"])):
+            for h in HALVES:
+                p = window_params[h][i]
+                x = self._attention(p, x, [layer_slices(c[h], i) for c in kv], pos, 0, False, masks[h], None, None,
+                                    sp=sp)
+                x = self._moe(p, x)
+        return x
+
     def normalize(self, edge_params: dict, x: torch.Tensor) -> torch.Tensor:
         return rms_norm(x, edge_params["final_norm"]["weight"], self.config.rms_norm_eps)
 
@@ -178,11 +224,25 @@ class GptOssRingModel(RingModel):
 
         return {h: cache(kind) for h, kind in zip(HALVES, self.pair_kinds)}
 
-    def kv_rewindable(self, max_seq: int) -> bool:
+    def init_kv_sp(
+        self, n_layers: int, batch: int, max_seq: int, dtype: str = "bfloat16", quant_bits: int = 0,
+        devices=(),
+    ) -> list:
+        """One paired cache per sequence-parallel rank, {"a": cache, "b":
+        cache} of n_layers / 2 layers each, both halves max_seq / R slots
+        (never a ring: the reference's init_kv(rotating=False) under sp)."""
+        if n_layers != len(self.layers):
+            raise ValueError(f"gpt_oss caches cover all {len(self.layers)} layers, not {n_layers}")
+        cfg = self.kv_config(n_layers // 2, batch, max_seq, dtype, quant_bits)
+        halves = {h: init_cache_sp(cfg, devices) for h in HALVES}
+        return [{h: halves[h][r] for h in HALVES} for r in range(len(devices))]
+
+    def kv_rewindable(self, max_seq: int, sp: int = 1) -> bool:
         """False when init_kv allocates a ring-buffer half: wrap-around
-        writes evict live rows, so a rewind would corrupt the window."""
+        writes evict live rows, so a rewind would corrupt the window.  Under
+        sp (sp > 1) no half is a ring."""
         W = self.config.sliding_window
-        return not (0 < W < max_seq and 1 in self.pair_kinds)
+        return sp > 1 or not (0 < W < max_seq and 1 in self.pair_kinds)
 
     # ---- weight mapping ----------------------------------------------
     def map_layer(self, raw: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:

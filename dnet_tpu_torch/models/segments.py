@@ -14,13 +14,15 @@ multi-lap `phase` that runs one segment per ring lap and
 `pad_mesh_segments`.  `quantize_params` and `wrap_offload_layer` come with
 weight quantization and weight streaming (A4).
 
-The host class provides `layer(p, x, kvs, pos, lengths=)`, one layer over
-its cache slices (written in place).
+The host class provides `layer(p, x, kvs, pos, lengths=, sp=)`, one layer
+over its cache slices (written in place).  Under sequence parallelism (an
+sp group, parallel/mesh.py) the cache is one flat stack per rank and a
+layer gets every rank's rows.
 """
 
 from __future__ import annotations
 
-from typing import Dict, List, Optional
+from typing import Dict, List
 
 import torch
 
@@ -31,14 +33,16 @@ SEGMENTS = ("dense", "moe")
 
 class TwoSegmentStackMixin:
     def _apply_segments(
-        self, window_params: Dict[str, List[dict]], x: torch.Tensor, kv: dict, pos: int,
-        lengths: Optional[torch.Tensor] = None,
+        self, window_params: Dict[str, List[dict]], x: torch.Tensor, kv, pos: int,
+        lengths=None, sp=None,
     ) -> torch.Tensor:
         """The dense segment's layers, then the moe segment's, each over its
-        rows of the flat cache (written in place); returns x."""
+        rows of the flat cache (of every rank's cache under `sp`), written in
+        place; returns x."""
         row = 0
         for seg in SEGMENTS:
             for p in window_params.get(seg, ()):
-                x, _ = self.layer(p, x, layer_slices(kv, row), pos, lengths=lengths)
+                kvs = layer_slices(kv, row) if sp is None else [layer_slices(c, row) for c in kv]
+                x, _ = self.layer(p, x, kvs, pos, lengths=lengths, sp=sp)
                 row += 1
         return x

@@ -16,10 +16,13 @@ the reference the kernels are tested against.
 With an sp group (`sp=`, parallel/mesh.py) the cache is one shard per
 rank and `cached_attend` writes each new key on the rank that owns its
 slot (core/kvcache.py `write_kv_sp`); a decode row then runs the decode
-kernel's LSE form on every rank and one log-sum-exp combine
-(ops/ring_attention.py `sp_flash_decode_attend`), and a prompt chunk the
-dense `sp_decode_attend` under each rank's `sp_causal_mask`, as the
-reference does (its kernel composition takes one query row only).
+kernel's LSE form on every rank (over a quantized cache's codes) and one
+log-sum-exp combine (ops/ring_attention.py `sp_flash_decode_attend`), and
+a prompt chunk the dense `sp_decode_attend` under each rank's
+`sp_causal_mask`, as the reference does (its kernel composition takes one
+query row only).  A caller's rank-local masks (gpt_oss's sliding and full
+halves under sp) take the dense path for decode rows too, as in the
+reference.
 
 `rotating_cached_attend` is gpt_oss's sliding-window layer over an
 O(window) ring-buffer cache: a decode row writes the ring first and reads
@@ -120,16 +123,24 @@ def cached_attend(
 
 def _sp_cached_attend(q, k_new, v_new, ranks, pos, mask, sp, sinks, scale, causal, lengths):
     """cached_attend's sequence-parallel branch (the reference's
-    `sp_axis` branch, dnet_tpu/ops/attention.py:111-133)."""
+    `sp_axis` branch, dnet_tpu/ops/attention.py:111-133).  A causal decode
+    row runs the decode kernel's LSE form on every rank, over the cache's
+    own codes when it is quantized; anything else (a prompt chunk, or a
+    caller's rank-local masks: gpt_oss) the dense sp attention over each
+    rank's shard, dequantized to f32 when quantized (`read_kv`)."""
     ranks = write_kv_sp(ranks, k_new, v_new, pos)
     T = q.shape[1]
     S_local = ranks[0]["k"].shape[1]
-    if causal and T == 1 and "k_scale" not in ranks[0]:
+    if causal and T == 1:
         if lengths is None:
             lengths = sp_lengths(q.shape[0], pos, S_local, sp.devices)
         max_lives = [rank_live(pos, r, S_local) for r in range(sp.size)]
-        out = sp_flash_decode_attend(q, [c["k"] for c in ranks], [c["v"] for c in ranks], lengths, max_lives, sp,
-                                     sinks=sinks, scale=scale)
+        quant = "k_scale" in ranks[0]
+        out = sp_flash_decode_attend(
+            q, [c["k"] for c in ranks], [c["v"] for c in ranks], lengths, max_lives, sp, sinks=sinks, scale=scale,
+            k_scales=[c["k_scale"] for c in ranks] if quant else None,
+            v_scales=[c["v_scale"] for c in ranks] if quant else None,
+        )
         return out, ranks
     if causal:
         mask = [sp_causal_mask(T, S_local, pos, r, c["k"].device) for r, c in enumerate(ranks)]

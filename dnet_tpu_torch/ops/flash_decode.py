@@ -26,10 +26,14 @@ live slots are [0, min(lengths[b], W)), slot s holds absolute position
 pos - ((pos - s) mod W), and only keys inside the last `window` positions
 are attended.  Every cache form (bf16, f32, q8, q4) takes it.
 
-`flash_decode_lse` is the `with_lse` (sequence-parallel) form over a plain
-cache: one sp rank's UNNORMALISED partials (acc relative to the rank's max
-m, the softmax denominator l), which ops/ring_attention.py combines across
-ranks with one log-sum-exp.  A rank's shard offset lives in its lengths
+`flash_decode_lse` is the `with_lse` (sequence-parallel) form: one sp
+rank's UNNORMALISED partials (acc relative to the rank's max m, the
+softmax denominator l), which ops/ring_attention.py combines across ranks
+with one log-sum-exp.  It takes every cache form but the rotating one
+(plain, q8, q4) at every (Dqk, Dv) pair, MLA's included, and counts each
+apart (COUNTERS).  Over codes it dequantizes tile by tile where the
+reference dequantizes the rank's whole shard to f32 first (`read_kv`):
+both compute code * scale in f32.  A rank's shard offset lives in its lengths
 vector (`sp_lengths`): the reference masks by an offset scalar, the port
 by the live slot count clamp(pos + 1 - offset, 0, S_local), so a rank
 wholly past pos has length 0 and emits m = NEG_INF, l = 0, acc = 0.
@@ -64,10 +68,10 @@ COUNTERS = {
     (8, True, False, False): "launches_rot_q8", (4, True, False, False): "launches_rot_q4",
     (0, False, True, False): "launches_mla", (8, False, True, False): "launches_mla_q8",
     (4, False, True, False): "launches_mla_q4", (0, False, False, True): "launches_lse",
+    (8, False, False, True): "launches_lse_q8", (4, False, False, True): "launches_lse_q4",
+    (0, False, True, True): "launches_lse_mla", (8, False, True, True): "launches_lse_mla_q8",
+    (4, False, True, True): "launches_lse_mla_q4",
 }
-# (q/k head dim, v head dim) pairs the LSE form is built for (the
-# reference's sp path: plain caches, Dqk == Dv)
-LSE_HEAD_DIMS = frozenset({(64, 64), (128, 128)})
 # an unquantized cache's dtypes the kernel reads under each q dtype
 KV_DTYPES = {torch.float32: (torch.float32, torch.bfloat16), torch.bfloat16: (torch.bfloat16,)}
 
@@ -85,6 +89,56 @@ def decode_lengths(batch: int, pos: int, device) -> torch.Tensor:
     """The lengths vector of a batch whose lanes all sit at `pos`: [pos + 1]
     * batch, int32 on `device` (a fill, no host-to-device copy)."""
     return torch.full((batch,), int(pos) + 1, dtype=torch.int32, device=device)
+
+
+def _cache_form(name, q, k, v, lengths, max_live, k_scale, v_scale):
+    """Check a decode call's shapes, which the kernel and its plain version
+    share; returns (qbits, S, KVH, Dv, max_live) with Dv v's unpacked
+    width."""
+    B, T, H, D = q.shape
+    if T != 1:
+        raise ValueError(f"{name} takes one query row, got T={T}")
+    qbits = 0 if k_scale is None else QBITS.get(k.dtype, -1)
+    if qbits < 0:
+        raise ValueError(f"quantized cache codes must be int8 or uint8, got {k.dtype}")
+    Ds = D // 2 if qbits == 4 else D
+    if k.dim() != 4 or k.shape[0] != B or k.shape[-1] != Ds or v.dim() != 4 or v.shape[:-1] != k.shape[:-1]:
+        raise ValueError(f"cache shapes k {tuple(k.shape)} v {tuple(v.shape)} do not match q {tuple(q.shape)}")
+    S, KVH = k.shape[1], k.shape[2]
+    Dv = v.shape[-1] * 2 if qbits == 4 else v.shape[-1]
+    if qbits and (
+        v_scale is None or tuple(k_scale.shape) != (B, S, KVH, 1) or v_scale.shape != k_scale.shape
+    ):
+        raise ValueError(f"scales must both be [B, S, KVH, 1]={(B, S, KVH, 1)}")
+    if H % KVH:
+        raise ValueError(f"{H} query heads are not a multiple of {KVH} KV heads")
+    if tuple(lengths.shape) != (B,):
+        raise ValueError(f"lengths must be [B]={B}, got {tuple(lengths.shape)}")
+    max_live = int(max_live)
+    if not 0 <= max_live <= S:
+        raise ValueError(f"max_live {max_live} outside a cache of {S} slots")
+    return qbits, S, KVH, Dv, max_live
+
+
+def _check_launch(name, q, k, v, lengths, qbits, Dv, k_scale, v_scale, rotating=False):
+    """Raise for a CUDA call the kernel was not built for; check every
+    tensor's device, dtype and layout."""
+    H, D, KVH = q.shape[2], q.shape[3], k.shape[2]
+    if (q.dtype not in build.DTYPE_CODES or (D, Dv) not in HEAD_DIMS or H // KVH > MAX_GROUP
+            or (rotating and Dv != D)):
+        raise ValueError(
+            f"{name} takes bf16/f32, (head dim, v head dim) in {sorted(HEAD_DIMS)} (equal when "
+            f"rotating) and at most {MAX_GROUP} query heads per KV head; got {q.dtype}, {(D, Dv)}, "
+            f"{H // KVH}"
+        )
+    if not qbits and k.dtype not in KV_DTYPES[q.dtype]:
+        raise ValueError(f"{name} reads a {q.dtype} q over a {KV_DTYPES[q.dtype]} cache, got {k.dtype}")
+    dev = q.device
+    build.check_cuda_tensors(name, q.dtype, q=q)
+    build.check_cuda_tensors(name, k.dtype, device=dev, k=k, v=v)
+    build.check_cuda_tensors(name, torch.int32, device=dev, lengths=lengths)
+    if qbits:
+        build.check_cuda_tensors(name, torch.float32, device=dev, k_scale=k_scale, v_scale=v_scale)
 
 
 def flash_decode_attend(
@@ -113,28 +167,8 @@ def flash_decode_attend(
     CUDA tensors launch the kernel (bf16 or f32 q, (D, Dv) in HEAD_DIMS,
     Dv == D when rotating, H/KVH <= 8) or raise; CPU tensors take the plain
     version."""
-    B, T, H, D = q.shape
-    if T != 1:
-        raise ValueError(f"flash_decode_attend takes one query row, got T={T}")
-    qbits = 0 if k_scale is None else QBITS.get(k.dtype, -1)
-    if qbits < 0:
-        raise ValueError(f"quantized cache codes must be int8 or uint8, got {k.dtype}")
-    Ds = D // 2 if qbits == 4 else D
-    if k.dim() != 4 or k.shape[0] != B or k.shape[-1] != Ds or v.dim() != 4 or v.shape[:-1] != k.shape[:-1]:
-        raise ValueError(f"cache shapes k {tuple(k.shape)} v {tuple(v.shape)} do not match q {tuple(q.shape)}")
-    S, KVH = k.shape[1], k.shape[2]
-    Dv = v.shape[-1] * 2 if qbits == 4 else v.shape[-1]
-    if qbits and (
-        v_scale is None or tuple(k_scale.shape) != (B, S, KVH, 1) or v_scale.shape != k_scale.shape
-    ):
-        raise ValueError(f"scales must both be [B, S, KVH, 1]={(B, S, KVH, 1)}")
-    if H % KVH:
-        raise ValueError(f"{H} query heads are not a multiple of {KVH} KV heads")
-    if tuple(lengths.shape) != (B,):
-        raise ValueError(f"lengths must be [B]={B}, got {tuple(lengths.shape)}")
-    max_live = int(max_live)
-    if not 0 <= max_live <= S:
-        raise ValueError(f"max_live {max_live} outside a cache of {S} slots")
+    qbits, S, KVH, Dv, max_live = _cache_form("flash_decode", q, k, v, lengths, max_live, k_scale, v_scale)
+    B, _, H, D = q.shape
     if sinks is not None and tuple(sinks.shape) != (H,):
         raise ValueError(f"sinks must be [H]={H}, got {tuple(sinks.shape)}")
     window = int(window)
@@ -144,23 +178,9 @@ def flash_decode_attend(
     if q.device.type == "cpu":
         return flash_decode_plain(q, k, v, lengths, scale=scale, sinks=sinks, k_scale=k_scale,
                                   v_scale=v_scale, max_live=max_live, rotating=rotating, window=window)
-    if (q.dtype not in build.DTYPE_CODES or (D, Dv) not in HEAD_DIMS or H // KVH > MAX_GROUP
-            or (rotating and Dv != D)):
-        raise ValueError(
-            f"flash_decode takes bf16/f32, (head dim, v head dim) in {sorted(HEAD_DIMS)} (equal when "
-            f"rotating) and at most {MAX_GROUP} query heads per KV head; got {q.dtype}, {(D, Dv)}, "
-            f"{H // KVH}"
-        )
-    if not qbits and k.dtype not in KV_DTYPES[q.dtype]:
-        raise ValueError(f"flash_decode reads a {q.dtype} q over a {KV_DTYPES[q.dtype]} cache, got {k.dtype}")
-    dev = q.device
-    build.check_cuda_tensors("flash_decode", q.dtype, q=q)
-    build.check_cuda_tensors("flash_decode", k.dtype, device=dev, k=k, v=v)
-    build.check_cuda_tensors("flash_decode", torch.int32, device=dev, lengths=lengths)
-    if qbits:
-        build.check_cuda_tensors("flash_decode", torch.float32, device=dev, k_scale=k_scale, v_scale=v_scale)
+    _check_launch("flash_decode", q, k, v, lengths, qbits, Dv, k_scale, v_scale, rotating)
     if sinks is not None:
-        build.check_cuda_tensors("flash_decode", torch.float32, device=dev, sinks=sinks)
+        build.check_cuda_tensors("flash_decode", torch.float32, device=q.device, sinks=sinks)
     # planned for the longest lane alone, as the paged kernel's: shorter
     # lanes' extra splits exit at once with empty partials
     tiles_per_split, n_split = split_plan(max(max_live, 1), KVH)
@@ -188,16 +208,8 @@ def _count(counter: str) -> None:
 
 
 # kernel launches since the last reset, per variant (COUNTERS)
-flash_decode_attend.launches = 0
-flash_decode_attend.launches_q8 = 0
-flash_decode_attend.launches_q4 = 0
-flash_decode_attend.launches_rot = 0
-flash_decode_attend.launches_rot_q8 = 0
-flash_decode_attend.launches_rot_q4 = 0
-flash_decode_attend.launches_mla = 0
-flash_decode_attend.launches_mla_q8 = 0
-flash_decode_attend.launches_mla_q4 = 0
-flash_decode_attend.launches_lse = 0
+for _counter in COUNTERS.values():
+    setattr(flash_decode_attend, _counter, 0)
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 # dtype, kv_dtype, qbits, head_dim, v_head_dim, q, k, v, k_scale, v_scale,
@@ -209,9 +221,12 @@ _ARGTYPES = (
 )
 
 
-# dtype, kv_dtype, head_dim, q, k, v, o, m, l, part_o, part_ml, lengths, B,
-# H, KVH, S, tiles_per_split, n_split, scale, stream
-_LSE_ARGTYPES = (_I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, ctypes.c_float, _P)
+# dtype, kv_dtype, qbits, head_dim, v_head_dim, q, k, v, k_scale, v_scale,
+# o, m, l, part_o, part_ml, lengths, B, H, KVH, S, tiles_per_split,
+# n_split, scale, stream
+_LSE_ARGTYPES = (
+    _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, ctypes.c_float, _P,
+)
 
 
 def _entry():
@@ -239,59 +254,45 @@ def flash_decode_lse(
     lengths: torch.Tensor,
     max_live: int,
     scale: Optional[float] = None,
+    k_scale: Optional[torch.Tensor] = None,
+    v_scale: Optional[torch.Tensor] = None,
 ) -> tuple:
     """Kernel wrapper, the LSE form: lane b of q [B, 1, H, D] attends slots
-    [0, lengths[b]) of one sp rank's plain cache k/v [B, S, KVH, D] (q's
-    dtype, or bf16 under an f32 q) and returns the rank's UNNORMALISED
-    partials (acc [B, 1, H, D], m [B, KVH, G], l [B, KVH, G], all f32):
-    acc and l relative to the rank's max m; no sink, no division (the
-    cross-rank combine, ops/ring_attention.py, does both once).  A lane of
-    length 0 gives (0, NEG_INF, 0).  `max_live` (host int) bounds every
-    lane's length.  CUDA tensors launch the kernel ((D, D) in
-    LSE_HEAD_DIMS, H/KVH <= 8) or raise; CPU tensors take the plain
-    version."""
-    B, T, H, D = q.shape
-    if T != 1:
-        raise ValueError(f"flash_decode_lse takes one query row, got T={T}")
-    if k.dim() != 4 or k.shape[0] != B or k.shape[-1] != D or tuple(v.shape) != tuple(k.shape):
-        raise ValueError(f"cache shapes k {tuple(k.shape)} v {tuple(v.shape)} do not match q {tuple(q.shape)}")
-    S, KVH = k.shape[1], k.shape[2]
-    if H % KVH:
-        raise ValueError(f"{H} query heads are not a multiple of {KVH} KV heads")
-    if tuple(lengths.shape) != (B,):
-        raise ValueError(f"lengths must be [B]={B}, got {tuple(lengths.shape)}")
-    max_live = int(max_live)
-    if not 0 <= max_live <= S:
-        raise ValueError(f"max_live {max_live} outside a cache of {S} slots")
+    [0, lengths[b]) of one sp rank's cache k [B, S, KVH, D] / v
+    [B, S, KVH, Dv] (q's dtype, or bf16 under an f32 q; or with
+    k_scale/v_scale int8 / packed-int4 codes, as flash_decode_attend takes
+    them) and returns the rank's UNNORMALISED partials (acc [B, 1, H, Dv],
+    m [B, KVH, G], l [B, KVH, G], all f32): acc and l relative to the
+    rank's max m; no sink, no division (the cross-rank combine,
+    ops/ring_attention.py, does both once).  A lane of length 0 gives
+    (0, NEG_INF, 0).  `max_live` (host int) bounds every lane's length.
+    CUDA tensors launch the kernel ((D, Dv) in HEAD_DIMS, H/KVH <= 8) or
+    raise; CPU tensors take the plain version."""
+    qbits, S, KVH, Dv, max_live = _cache_form("flash_decode_lse", q, k, v, lengths, max_live, k_scale, v_scale)
+    B, _, H, D = q.shape
     scale = D**-0.5 if scale is None else float(scale)
     if q.device.type == "cpu":
-        return flash_decode_lse_plain(q, k, v, lengths, scale=scale, max_live=max_live)
-    if q.dtype not in build.DTYPE_CODES or (D, D) not in LSE_HEAD_DIMS or H // KVH > MAX_GROUP:
-        raise ValueError(
-            f"flash_decode_lse takes bf16/f32, head dims {sorted(LSE_HEAD_DIMS)} and at most {MAX_GROUP} "
-            f"query heads per KV head; got {q.dtype}, {D}, {H // KVH}"
-        )
-    if k.dtype not in KV_DTYPES[q.dtype]:
-        raise ValueError(f"flash_decode_lse reads a {q.dtype} q over a {KV_DTYPES[q.dtype]} cache, got {k.dtype}")
+        return flash_decode_lse_plain(q, k, v, lengths, scale=scale, max_live=max_live, k_scale=k_scale,
+                                      v_scale=v_scale)
+    _check_launch("flash_decode_lse", q, k, v, lengths, qbits, Dv, k_scale, v_scale)
     dev = q.device
-    build.check_cuda_tensors("flash_decode_lse", q.dtype, q=q)
-    build.check_cuda_tensors("flash_decode_lse", k.dtype, device=dev, k=k, v=v)
-    build.check_cuda_tensors("flash_decode_lse", torch.int32, device=dev, lengths=lengths)
     tiles_per_split, n_split = split_plan(max(max_live, 1), KVH)
     G = H // KVH
-    part_o = torch.empty((B, KVH, n_split, G, D), dtype=torch.float32, device=dev)
+    part_o = torch.empty((B, KVH, n_split, G, Dv), dtype=torch.float32, device=dev)
     part_ml = torch.empty((B, KVH, n_split, G, 2), dtype=torch.float32, device=dev)
-    acc = torch.empty((B, 1, H, D), dtype=torch.float32, device=dev)
+    acc = torch.empty((B, 1, H, Dv), dtype=torch.float32, device=dev)
     m = torch.empty((B, KVH, G), dtype=torch.float32, device=dev)
     l = torch.empty((B, KVH, G), dtype=torch.float32, device=dev)
     rc = build.entry("flash_decode", "dnet_flash_decode_lse", _LSE_ARGTYPES)(
-        build.DTYPE_CODES[q.dtype], build.DTYPE_CODES[k.dtype], D, q.data_ptr(), k.data_ptr(), v.data_ptr(),
+        build.DTYPE_CODES[q.dtype], build.DTYPE_CODES.get(k.dtype, -1), qbits, D, Dv,
+        q.data_ptr(), k.data_ptr(), v.data_ptr(),
+        k_scale.data_ptr() if qbits else None, v_scale.data_ptr() if qbits else None,
         acc.data_ptr(), m.data_ptr(), l.data_ptr(), part_o.data_ptr(), part_ml.data_ptr(), lengths.data_ptr(),
         B, H, KVH, S, tiles_per_split, n_split, scale, build.current_stream_handle(dev),
     )
     if rc != 0:
         raise RuntimeError(f"flash_decode_lse kernel launch failed (code {rc})")
-    _count(COUNTERS[0, False, False, True])
+    _count(COUNTERS[qbits, False, Dv != D, True])
     return acc, m, l
 
 
@@ -337,13 +338,16 @@ def flash_decode_lse_plain(
     lengths: torch.Tensor,
     scale: Optional[float] = None,
     max_live: Optional[int] = None,
+    k_scale: Optional[torch.Tensor] = None,
+    v_scale: Optional[torch.Tensor] = None,
 ) -> tuple:
     """The LSE form's function in plain PyTorch: flash_decode_plain's tile
-    fold without its final normalisation (the counterpart of the
-    reference's `_decode_emulate(..., with_lse=True)`): (acc [B, 1, H, D],
-    m [B, KVH, G], l [B, KVH, G]), f32."""
+    fold (codes dequantized tile by tile) without its final normalisation
+    (the counterpart of the reference's `_decode_emulate(...,
+    with_lse=True)`): (acc [B, 1, H, Dv], m [B, KVH, G], l [B, KVH, G]),
+    f32."""
     B, _, H, _ = q.shape
-    m, l, acc = _fold_tiles(q, k, v, lengths, scale, None, None, max_live, False, 0)
+    m, l, acc = _fold_tiles(q, k, v, lengths, scale, k_scale, v_scale, max_live, False, 0)
     return acc.reshape(B, 1, H, acc.shape[-1]), m[..., 0], l[..., 0]
 
 

@@ -11,15 +11,18 @@ Counterpart of dnet_tpu/ops/ring_attention.py and of
   `SpGroup.pmax` / `SpGroup.psum`) merges them.  The engine runs a prompt
   chunk through it, as the reference does.
 - `sp_flash_decode_attend`: a decode row.  Each rank runs the decode
-  kernel's LSE form (`flash_decode_lse`) on its shard and the same combine
-  merges the unnormalised partials.
+  kernel's LSE form (`flash_decode_lse`) on its shard, plain or quantized
+  (codes dequantized in the kernel's tiles), and the same combine merges
+  the unnormalised partials.
 - `ring_attend`: full ring attention, KV blocks visiting every rank in
   turn.  No engine path calls it.
 
 Sinks (gpt_oss) fold exactly once, after the combine, never inside a rank;
 `scale` overrides the head dim's softmax scale.  Layouts are attend()'s: q
-[B, T, H, Hd], each rank's k/v [B, S_local, KVH, Hd]; lists hold one entry
-per rank, in rank order.
+[B, T, H, Hd], each rank's k [B, S_local, KVH, Hd] and v [B, S_local, KVH,
+Vd] (Vd = Hd but for MLA's asymmetric cache, deepseek_v2's Vd 128 against
+Hd 192); outputs are V-wide.  Lists hold one entry per rank, in rank
+order.
 """
 
 from __future__ import annotations
@@ -64,7 +67,8 @@ def sp_decode_attend(
     scale: Optional[float] = None,
 ) -> torch.Tensor:
     """Distributed flash-decoding with dense per-rank scores: q [B, T, H,
-    Hd] on the home device, rank r's shard k/v [B, S_local, KVH, Hd] and its
+    Hd] on the home device, rank r's shard k [B, S_local, KVH, Hd] / v
+    [B, S_local, KVH, Vd] and its
     [T, S_local] boolean mask (True = attend) on its device.  Returns
     [B, T, H, Vd] in q.dtype on the home device.  Every rank's scores
     ([B, KVH, G, T, S_local] f32) live until the global max is known, then
@@ -121,15 +125,22 @@ def sp_flash_decode_attend(
     sp,
     sinks: Optional[torch.Tensor] = None,
     scale: Optional[float] = None,
+    k_scales: Optional[Sequence[torch.Tensor]] = None,
+    v_scales: Optional[Sequence[torch.Tensor]] = None,
 ) -> torch.Tensor:
     """Sequence-parallel decode through the kernel: q [B, 1, H, Hd] on the
     home device; each rank runs flash_decode_lse on its shard with its
-    lengths vector (`flash_decode.sp_lengths`) and live bound, and
+    lengths vector (`flash_decode.sp_lengths`) and live bound (and, for a
+    quantized cache, its shard's codes with `k_scales` / `v_scales`), and
     lse_combine merges the partials (no sink inside a rank: it folds once,
-    there).  [B, 1, H, Hd] in q.dtype on the home device."""
+    there).  [B, 1, H, Vd] in q.dtype on the home device."""
+    R = len(k_ranks)
+    k_scales = [None] * R if k_scales is None else k_scales
+    v_scales = [None] * R if v_scales is None else v_scales
     parts = [
-        flash_decode_lse(qr, k, v, ln, ml, scale=scale)
-        for qr, k, v, ln, ml in zip(sp.to_ranks(q), k_ranks, v_ranks, lengths, max_lives)
+        flash_decode_lse(qr, k, v, ln, ml, scale=scale, k_scale=ks, v_scale=vs)
+        for qr, k, v, ln, ml, ks, vs in zip(sp.to_ranks(q), k_ranks, v_ranks, lengths, max_lives, k_scales,
+                                            v_scales)
     ]
     return lse_combine(parts, sp, sinks, q.dtype)
 

@@ -7,8 +7,13 @@ keeps one controller over an sp group (parallel/mesh.py): the weights and
 everything outside attention run once on rank 0's device, each rank holds
 max_seq / sp KV slots on its own device, and each layer's attention runs
 per rank and merges with one log-sum-exp combine (ops/ring_attention.py).
-A decode row goes through the decode kernel's LSE form on every rank; a
-prompt chunk through the dense sp attention, as in the reference.
+A decode row goes through the decode kernel's LSE form on every rank (over
+the cache's own codes when DNET_KV_BITS is 8 / 4); a prompt chunk through
+the dense sp attention, as in the reference.  The families whose models
+take an sp group (`supports_sp`: llama, gpt_oss, deepseek_v2) build their
+per-rank caches through their `init_kv_sp` hook: gpt_oss's paired cache
+with both halves flat (no ring, as the reference's `rotating=(sp == 1)`),
+deepseek_v2's asymmetric MLA cache.
 
 It keeps LocalEngine's session surface (new_session, prefill,
 decode_step, prefill_and_sample, the chunked decode, generate,
@@ -18,7 +23,7 @@ only the cache's construction and the forward pass differ.
 
 Not ported, and refused with EngineCapabilityError (HTTP 422) before any
 weight loads: pp > 1 (pp = 0, "infer", resolves to 1 here), tp > 1, dp > 1,
-quantized KV (DNET_KV_BITS 8 / 4) under sp, and every family but llama.
+and every family without `supports_sp`.
 """
 
 from __future__ import annotations
@@ -29,7 +34,6 @@ from typing import List, Optional, Sequence, Union
 import torch
 
 from dnet_tpu_torch.core.engine import LocalEngine, tensor_bytes
-from dnet_tpu_torch.core.kvcache import init_cache_sp
 from dnet_tpu_torch.models import ModelConfig, get_ring_model_cls
 from dnet_tpu_torch.parallel.mesh import SpGroup, rank_devices
 from dnet_tpu_torch.utils.checkpoint import Checkpoint
@@ -38,20 +42,20 @@ from dnet_tpu_torch.utils.logger import get_logger
 log = get_logger()
 
 
-def check_mesh(config: ModelConfig, pp: int, tp: int, dp: int, sp: int, max_seq: int, kv_quant_bits: int) -> None:
+def check_mesh(config: ModelConfig, pp: int, tp: int, dp: int, sp: int, max_seq: int) -> None:
     """Raise EngineCapabilityError for a mesh the port does not serve yet
     (each message names what is not ported), ValueError when sp does not
     divide max_seq (the reference's check)."""
     from dnet_tpu_torch.api.inference import EngineCapabilityError
+    from dnet_tpu_torch.models import _REGISTRY
 
+    ported = sorted(name for name, cls in _REGISTRY.items() if cls.supports_sp)
     refused = [
         (pp > 1, f"mesh pp={pp}: pipeline parallelism on the mesh engine is not ported"),
         (tp > 1, f"mesh tp={tp}: tensor parallelism on the mesh engine is not ported"),
         (dp > 1, f"mesh dp={dp}: data parallelism on the mesh engine is not ported"),
-        (kv_quant_bits != 0, f"DNET_KV_BITS={kv_quant_bits} with mesh sp={sp}: a quantized KV cache under "
-                             "sequence parallelism is not ported"),
-        (not getattr(get_ring_model_cls(config.model_type), "supports_sp", False),
-         f"mesh sp={sp} for {config.model_type}: sequence parallelism is ported for llama only"),
+        (not get_ring_model_cls(config.model_type).supports_sp,
+         f"mesh sp={sp} for {config.model_type}: sequence parallelism is ported for {', '.join(ported)} only"),
     ]
     for cond, why in refused:
         if cond:
@@ -106,7 +110,7 @@ class MeshEngine:
         over `device` (CUDA: one card per rank, refused with fewer cards;
         'cpu': every rank on the CPU)."""
         config = ModelConfig.from_hf(Checkpoint(model_dir).config)
-        group = _group(config, pp, tp, dp, sp, max_seq, kv_quant_bits, device, devices)
+        group = _group(config, pp, tp, dp, sp, max_seq, device, devices)
         LocalEngine.__init__(self, model_dir, max_seq=max_seq, param_dtype=param_dtype, device=group.home,
                              kv_dtype=kv_dtype, kv_quant_bits=kv_quant_bits)
         self._mesh_ready(group)
@@ -131,7 +135,7 @@ class MeshEngine:
     ) -> "MeshEngine":
         """A mesh engine around parameters already in the port's form (one
         dict per layer, e.g. from models/convert.py `from_jax_params`)."""
-        group = _group(config, pp, tp, dp, sp, max_seq, kv_quant_bits, device, devices)
+        group = _group(config, pp, tp, dp, sp, max_seq, device, devices)
         self = LocalEngine.from_params.__func__(
             cls, config, window_params, edge_params, max_seq=max_seq, param_dtype=param_dtype,
             device=group.home, kv_dtype=kv_dtype, kv_quant_bits=kv_quant_bits,
@@ -147,12 +151,10 @@ class MeshEngine:
                  ", ".join(str(d) for d in group.devices), self.max_seq // self.sp)
 
     def _init_kv(self) -> list:
-        """One session's cache: a shard of max_seq / sp slots per rank."""
-        kv = init_cache_sp(
-            self.model.kv_config(len(self.model.layers), self.batch, self.max_seq, self.kv_dtype,
-                                 self.kv_quant_bits),
-            self.sp_group.devices,
-        )
+        """One session's cache: a shard of max_seq / sp slots per rank, in
+        the model's layout (`init_kv_sp`)."""
+        kv = self.model.init_kv_sp(len(self.model.layers), self.batch, self.max_seq, self.kv_dtype,
+                                   self.kv_quant_bits, self.sp_group.devices)
         self.kv_bytes_per_rank = [tensor_bytes(c) for c in kv]
         return kv
 
@@ -172,9 +174,9 @@ class MeshEngine:
                 "kv_bytes_per_rank": list(self.kv_bytes_per_rank)}
 
 
-def _group(config, pp, tp, dp, sp, max_seq, kv_quant_bits, device, devices) -> SpGroup:
+def _group(config, pp, tp, dp, sp, max_seq, device, devices) -> SpGroup:
     """Check the mesh (before any weight loads), then its sp group."""
-    check_mesh(config, pp, tp, dp, sp, max_seq, kv_quant_bits)
+    check_mesh(config, pp, tp, dp, sp, max_seq)
     devs = list(devices) if devices is not None else rank_devices(sp, device)
     if len(devs) != sp:
         raise ValueError(f"mesh sp={sp} needs {sp} rank devices, got {len(devs)}")

@@ -19,9 +19,10 @@ parallel rank's unnormalised partials) runs on R = 2 and 4 shards of a
 4096-slot cache at Llama-3.2-1B's and at head dim 128's widths, an empty
 rank included: m and the rank's output acc / l within the decode
 tolerances, l within them relative to itself, and the combined ranks
-against the decode kernel over the whole cache.  The engines with a bf16
-cache under f32 params, and the sp engine, run on the card against the
-CPU's plain versions.  The
+against the decode kernel over the whole cache; so do its MLA-width
+(192, 128) and its int8 / int4 code forms, each on its own counter.  The engines with a bf16
+cache under f32 params, and the sp engine (llama; deepseek_v2 and gpt_oss,
+plain and q8 / q4), run on the card against the CPU's plain versions.  The
 hop codec's column kernels run at its widths (C=2048) and at odd ones, with
 R=1 frames: norms within 2e-5 relative in f32 (1e-2 in bf16 inputs summed
 in f32), gather and dequant-scatter equal bit for bit.  Tolerances: f32 1e-4 (sums
@@ -350,6 +351,59 @@ def test_sp_engine_matches_cpu(gen):
     assert flash_decode_attend.launches_lse - before == 2 * 2 * 15
 
 
+@pytest.mark.parametrize("family,bits", [("deepseek_v2", 0), ("deepseek_v2", 8), ("deepseek_v2", 4),
+                                         ("gpt_oss", 0), ("gpt_oss", 8)])
+def test_sp_engine_families_match_cpu(gen, family, bits):
+    """The sp engine on the card against the CPU, f32, small models at the
+    kernels' head widths: deepseek_v2 at MLA widths (3 layers, 4 heads),
+    exactly ranks x layers launches of the LSE form of the cache's variant
+    per decode step; gpt_oss (4 layers, head dim 64, G = 8, window 32)
+    launches no kernel (the dense sp attention, as the reference).  Under
+    int4 the K/V rows the CPU computes round to other codes than the card's
+    now and then (one code is 1/7 of a row's max), so that case is held
+    against the single-device engine on the card instead."""
+    from dnet_tpu_torch.core.engine import LocalEngine
+    from dnet_tpu_torch.core.types import DecodingParams
+    from dnet_tpu_torch.kernels import launch_counts, reset_launch_counts
+    from dnet_tpu_torch.models import ModelConfig
+    from dnet_tpu_torch.parallel.engine import MeshEngine
+    from dnet_tpu_torch.utils import random_init as ri
+
+    if family == "deepseek_v2":
+        cfg = ModelConfig.from_hf(dict(
+            ri.DEEPSEEK_V2_LITE_CONFIG, vocab_size=512, hidden_size=256, intermediate_size=256,
+            moe_intermediate_size=64, num_hidden_layers=3, num_attention_heads=4, num_key_value_heads=4,
+            kv_lora_rank=64, n_routed_experts=4, n_shared_experts=1, num_experts_per_tok=2))
+        window, edge = ri.random_deepseek_v2_params(cfg, range(3), torch.device("cpu"), torch.float32, seed=4)
+    else:
+        cfg = ModelConfig.from_hf(dict(
+            ri.GPT_OSS_20B_CONFIG, vocab_size=512, hidden_size=256, intermediate_size=128, num_hidden_layers=4,
+            num_attention_heads=16, num_key_value_heads=2, head_dim=64, num_local_experts=4,
+            num_experts_per_tok=2, sliding_window=32, layer_types=["sliding_attention", "full_attention"] * 2))
+        window, edge = ri.random_gpt_oss_params(cfg, range(4), torch.device("cpu"), torch.float32, seed=2)
+    kw = dict(max_seq=128, param_dtype="float32", kv_quant_bits=bits)
+    ref = "single" if bits == 4 else "cpu"
+    engines = {"cuda:0": MeshEngine.from_params(cfg, window, edge, sp=2, devices=["cuda:0"] * 2, **kw),
+               ref: (LocalEngine.from_params(cfg, window, edge, device="cuda", **kw) if bits == 4
+                     else MeshEngine.from_params(cfg, window, edge, sp=2, devices=["cpu"] * 2, **kw))}
+    prompt = [(13 * i) % 500 + 1 for i in range(69)]
+    logits = {dev: e.prefill("p", prompt).float().cpu() for dev, e in engines.items()}
+    assert (logits["cuda:0"] - logits[ref]).abs().max().item() <= 2e-3
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    streams = {}
+    for dev, e in engines.items():  # the sp engine on the card first: its launches alone
+        streams[dev] = [r.token_id for r in e.generate(prompt, DecodingParams(), max_tokens=16, nonce="g")]
+        torch.cuda.synchronize()
+        if dev == "cuda:0":
+            launches = {k: v for k, v in launch_counts().items() if v}
+    assert streams["cuda:0"] == streams[ref]
+    want = {}
+    if family == "deepseek_v2":
+        want = {"flash_decode_lse_mla" + (f"_q{bits}" if bits else ""): 2 * 3 * 15}
+    assert launches == want
+
+
 # DeepSeek-V2-Lite's MLA attention: H = KVH = 16, q/k head dim 192 (nope 128
 # + rope 64), v head dim 128, softmax scale 192^-0.5 x mscale(40, 0.707)^2
 MLA_H, MLA_DQK, MLA_DV = 16, 192, 128
@@ -414,6 +468,63 @@ def test_mla_decode_bf16_cache_under_f32_q(gen, pos):
     torch.cuda.synchronize()
     want = flash_decode_plain(q, k.float(), v.float(), lengths, scale=MLA_SCALE)
     assert out.dtype == torch.float32 and (out - want).abs().max().item() <= TOL[torch.float32]
+
+
+# the LSE form's cache forms beyond the plain (64, 64) / (128, 128) ones:
+# (name, counter, q/k head dim, v head dim, H, KVH, qbits, cache dtype under q)
+LSE_FORMS = [
+    ("mla", "launches_lse_mla", MLA_DQK, MLA_DV, MLA_H, MLA_H, 0, None),
+    ("mla_bf16_cache", "launches_lse_mla", MLA_DQK, MLA_DV, MLA_H, MLA_H, 0, torch.bfloat16),
+    ("q8", "launches_lse_q8", 64, 64, 32, 8, 8, None),
+    ("q4", "launches_lse_q4", 64, 64, 32, 8, 4, None),
+    ("mla_q8", "launches_lse_mla_q8", MLA_DQK, MLA_DV, MLA_H, MLA_H, 8, None),
+    ("mla_q4", "launches_lse_mla_q4", MLA_DQK, MLA_DV, MLA_H, MLA_H, 4, None),
+]
+
+
+# each form under an f32 and a bf16 q, but the bf16 cache under an f32 q only
+LSE_CASES = [(f, dt) for f in LSE_FORMS for dt in (torch.float32, torch.bfloat16) if f[7] is None or dt == torch.float32]
+
+
+@pytest.mark.parametrize("form,dtype", LSE_CASES, ids=[f"{f[0]}-{str(dt)[6:]}" for f, dt in LSE_CASES])
+@pytest.mark.parametrize("pos", [0, 2047, 2048, 4095])
+def test_lse_kernel_mla_and_code_forms_match_plain(gen, form, dtype, pos):
+    """The LSE form at MLA widths (G = 1, DeepSeek-V2-Lite's scale; also a
+    bf16 cache under an f32 q) and over q8 / q4 codes at (64, 64) and
+    (192, 128) that the port's write_kv quantized: two ranks of 2048 slots
+    of one cache (rank 1 empty at pos 0 and 2047: exactly (0, NEG_INF, 0)),
+    each rank's partials against the plain version on its own counter, and
+    the combined ranks against the decode kernel over the whole cache."""
+    _, counter, dqk, dv, H, KVH, bits, cache_dtype = form
+    scale = MLA_SCALE if dqk == MLA_DQK else None
+    S = 4096
+    if bits:
+        kvs = layer_slices(init_cache(KVConfig(1, 1, S, KVH, dqk, v_head_dim=dv, quant_bits=bits),
+                                      torch.device("cuda")), 0)
+        write_kv(kvs, _randn(gen, torch.bfloat16, 1, S, KVH, dqk), _randn(gen, torch.bfloat16, 1, S, KVH, dv), 0)
+    else:
+        kv_dtype = cache_dtype or dtype
+        kvs = {"k": _randn(gen, kv_dtype, 1, S, KVH, dqk), "v": _randn(gen, kv_dtype, 1, S, KVH, dv)}
+    q = _randn(gen, dtype, 1, 1, H, dqk)
+    sp = SpGroup(["cuda:0", "cuda:0"])
+    parts = []
+    for r, lengths in enumerate(sp_lengths(1, pos, S // 2, sp.devices)):
+        shard = {n: t[:, r * (S // 2) : (r + 1) * (S // 2)] for n, t in kvs.items()}
+        scales = {n: shard[n] for n in ("k_scale", "v_scale") if n in shard}
+        before = {c: getattr(flash_decode_attend, c) for c in ("launches_lse", counter)}
+        out = flash_decode_lse(q, shard["k"], shard["v"], lengths, rank_live(pos, r, S // 2), scale=scale, **scales)
+        torch.cuda.synchronize()
+        assert getattr(flash_decode_attend, counter) == before[counter] + 1
+        assert counter == "launches_lse" or flash_decode_attend.launches_lse == before["launches_lse"]
+        assert out[0].shape == (1, 1, H, dv)
+        want = flash_decode_lse_plain(q.float(), shard["k"] if bits else shard["k"].float(),
+                                      shard["v"] if bits else shard["v"].float(), lengths, scale=scale, **scales)
+        _check_lse(out, want, dtype)
+        parts.append(out)
+    combined = lse_combine(parts, sp, None, dtype)
+    whole = flash_decode_attend(q, kvs["k"], kvs["v"], decode_lengths(1, pos, "cuda"), pos + 1, scale=scale,
+                                **{n: kvs[n] for n in ("k_scale", "v_scale") if n in kvs})
+    assert combined.shape == (1, 1, H, dv) and (combined.float() - whole.float()).abs().max().item() <= TOL[dtype]
 
 
 def test_mla_widths_never_take_the_plain_version(gen):
