@@ -6,6 +6,9 @@
 Phases, one JSON line each; any failure exits non-zero:
   device   the card (nvidia-smi name and power limit), torch/CUDA versions,
            and the kernels' build from dnet_tpu_torch/csrc (nvcc, sm_90a).
+  ptxas    the decode kernel's instantiations as `nvcc -Xptxas -v` reports
+           them (registers, spill stores / loads, stack), each with its
+           dynamic shared memory; compiled beside the build.
   kernels  each hand-written kernel against its plain PyTorch version at
            the main path's full widths (Llama-3.2-1B: H=32, KVH=8, D=64,
            S=4096): f32 within 1e-4; bf16 within 2e-2 of the plain version
@@ -182,8 +185,11 @@ the seventh path, for llama, deepseek_v2 and gpt_oss and under DNET_KV_BITS:
              second time under sp = 2 in f32 against single-device f32
              serves (gpt_oss: no kernel, flat caches; deepseek_v2: 2 x 4
              flash_decode_lse_mla launches a step).
-Then the kernels summary line, the card line, and the last line
-{"ok": true, "device": {...}}.  Without a CUDA device it exits non-zero
+Every decode row also counts its device kernels per wrapper call
+(torch.profiler), which must be exactly 1: the splits of a (lane, KV head)
+merge inside the one launch.  Then the kernels summary line (its decode
+rows with kernels_per_call and times_library = ms / library_ms, both from
+this run), the card line, and the last line {"ok": true, "device": {...}}.  Without a CUDA device it exits non-zero
 and prints no result.
 """
 
@@ -205,6 +211,7 @@ import tempfile
 import time
 import urllib.request
 from argparse import Namespace
+from concurrent.futures import ThreadPoolExecutor
 
 import torch
 
@@ -275,6 +282,102 @@ def device_time_ms(fn, layers: int, reps: int = 20) -> float:
         torch.cuda.synchronize()
         times.append(start.elapsed_time(end) / reps)
     return statistics.median(times)
+
+
+def kernels_per_call(fn) -> int:
+    """Device kernels one call of `fn` launches, as torch.profiler traces
+    them.  The call sits 2 ms inside the traced window on both sides (a
+    few-microsecond kernel alone in a session was dropped now and then), and
+    a session that traced none is traced again, up to 3 times: the profiler
+    can drop a kernel record, never invent one."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(3):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            time.sleep(0.002)
+            fn()
+            torch.cuda.synchronize()
+            time.sleep(0.002)
+        n = sum(1 for e in prof.events() if e.device_type == DeviceType.CUDA)
+        if n:
+            return n
+    return 0
+
+
+def phase_decode_launches() -> dict:
+    """Device kernels per wrapper call of every decode form (each counter of
+    the decode wrapper), traced with torch.profiler right after the build,
+    before any timed phase (later in the process the profiler was seen to
+    drop these kernels' records): Llama-3.2-1B's widths for the plain, q8 /
+    q4 and LSE forms, gpt-oss-20b's ring (W=128, H=64) for the rotating ones,
+    DeepSeek-V2-Lite's (192, 128) for the MLA ones, bf16 q, an empty and a
+    long lane.  Every count must be exactly 1: a lane's splits merge inside
+    the one launch.  Returns counter name -> kernels a call."""
+    from dnet_tpu_torch.core.kvcache import KVConfig, init_cache, layer_slices, write_kv
+    from dnet_tpu_torch.kernels import _counters
+    from dnet_tpu_torch.ops.flash_decode import COUNTERS, flash_decode_attend, flash_decode_lse
+
+    g = torch.Generator(device="cuda").manual_seed(13)
+    attr_to_name = {attr: name for name, (fn, attr) in _counters().items() if fn is flash_decode_attend}
+    counts = {}
+    for (bits, rot, mla, lse), attr in COUNTERS.items():
+        h, kvh, dqk, dv = ((MLA_H, MLA_H, MLA_DQK, MLA_DV) if mla else (OSS_H, OSS_KVH, OSS_D, OSS_D) if rot
+                           else (H, KVH, D, D))
+        slots = OSS_W if rot else 2048
+        kv = layer_slices(init_cache(KVConfig(1, 1, slots, kvh, dqk, v_head_dim=dv, quant_bits=bits),
+                                     torch.device("cuda")), 0)
+        write_kv(kv, torch.randn(1, slots, kvh, dqk, generator=g, device="cuda").to(torch.bfloat16),
+                 torch.randn(1, slots, kvh, dv, generator=g, device="cuda").to(torch.bfloat16), 0)
+        q = torch.randn(1, 1, h, dqk, generator=g, device="cuda").to(torch.bfloat16)
+        scales = {n: kv[n] for n in ("k_scale", "v_scale") if n in kv}
+        seen = []
+        for length in (0 if lse else 1, 2048):
+            lengths = torch.full((1,), length, dtype=torch.int32, device="cuda")
+            live = min(length, slots)
+            if lse:
+                def call():
+                    return flash_decode_lse(q, kv["k"], kv["v"], lengths, live, **scales)
+            else:
+                extra = {"rotating": True, "window": slots} if rot else {}
+
+                def call():
+                    return flash_decode_attend(q, kv["k"], kv["v"], lengths, live, **scales, **extra)
+            call()  # built, loaded and its scratch allocated
+            before = getattr(flash_decode_attend, attr)
+            seen.append(kernels_per_call(call))
+            check(getattr(flash_decode_attend, attr) > before, f"{attr} did not count the traced call")
+        name = attr_to_name[attr]
+        check(seen == [1, 1], f"{name}: {seen} device kernels in one call, expected 1")
+        counts[name] = 1
+        del kv
+    emit({"phase": "decode_launches", "kernels_per_call": counts})
+    torch.cuda.empty_cache()
+    return counts
+
+
+def ptxas_line(report: list) -> dict:
+    """The decode kernel's instantiations as ptxas built them (registers,
+    spills, stack) with each one's dynamic shared memory."""
+    import re
+
+    from dnet_tpu_torch.ops.flash_decode import kernel_smem_bytes
+
+    types = {"float": torch.float32, "__nv_bfloat16": torch.bfloat16, "unsigned char": torch.uint8}
+    rows = []
+    for k in report:
+        row = {key: k.get(key) for key in ("name", "registers", "spill_store_bytes", "spill_load_bytes",
+                                            "stack_bytes", "static_smem_bytes")}
+        m = re.search(r"flash_decode_kernel<([^>]*)>", k["name"])
+        if m:  # cu++filt writes the non-type arguments as (int)0, (bool)1
+            t, kv, qb, dqk, dv, gp, rot = (re.sub(r"^\((?:int|bool)\)", "", x.strip()) for x in m.group(1).split(","))
+            row["dynamic_smem_bytes"] = kernel_smem_bytes(types[t], types[kv], int(qb), int(dqk), int(dv), int(gp), 1,
+                                                          rot in ("1", "true"))
+        rows.append(row)
+    return {"phase": "ptxas", "source": "dnet_tpu_torch/csrc/flash_decode.cu", "flags": "-Xptxas -v",
+            "instantiations": len(rows), "spilling": sum(1 for r in rows if r["spill_store_bytes"]),
+            "kernels": rows}
 
 
 def prefill_bound(T: int, pos: int, dtype) -> tuple:
@@ -642,6 +745,47 @@ def phase_kernels(main_T: int, main_pos: int) -> dict:
         del kc, vc
     torch.cuda.empty_cache()
     return main
+
+
+def phase_wide_group_decode() -> None:
+    """The decode kernel at G = 8 over head dim 128 (Llama-3-70B's attention:
+    H = 64, KVH = 8), the instantiation whose registers spill (the ptxas
+    line): one lane of 2,048 live slots in bf16 and f32, held to the plain
+    version and timed beside it, SDPA and its bound.  No served model of this
+    script runs this shape, so it is a line of its own, not a kernels row."""
+    from torch.nn.functional import scaled_dot_product_attention as sdpa
+
+    from dnet_tpu_torch.ops.flash_decode import decode_lengths, flash_decode_attend, flash_decode_plain
+
+    h, kvh, d, live = 64, 8, 128, 2048
+    g = torch.Generator(device="cuda").manual_seed(14)
+    for dtype in (torch.float32, torch.bfloat16):
+        kc = torch.randn(LAYERS, 1, S, kvh, d, generator=g, device="cuda").to(dtype)
+        vc = torch.randn(LAYERS, 1, S, kvh, d, generator=g, device="cuda").to(dtype)
+        q = torch.randn(1, 1, h, d, generator=g, device="cuda").to(dtype)
+        lengths = decode_lengths(1, live - 1, "cuda")
+        out = flash_decode_attend(q, kc[0], vc[0], lengths, live)
+        torch.cuda.synchronize()
+        want = flash_decode_plain(q.float(), kc[0].float(), vc[0].float(), lengths)
+        err = (out.float() - want).abs().max().item()
+        check(out.shape == q.shape and bool(torch.isfinite(out).all()), "wide-group decode output")
+        check(err <= TOL[dtype], f"decode G=8 D=128 {dtype}: max err {err}")
+        qt = q.transpose(1, 2)
+        size = torch.tensor([], dtype=dtype).element_size()
+        t_mem = size * (2 * h * d + 2 * live * kvh * d) / HBM_BYTES_PER_S
+        t_ops = 4 * h * d * live / PEAK_OPS_PER_S[dtype]
+        emit({
+            "phase": "wide_group_decode", "kernel": "flash_decode", "dtype": str(dtype).split(".")[-1],
+            "live": live, "S": S, "H": h, "KVH": kvh, "D": d, "max_err": err, "tol": TOL[dtype],
+            "kernel_ms": device_time_ms(lambda l: flash_decode_attend(q, kc[l], vc[l], lengths, live), LAYERS),
+            "plain_ms": device_time_ms(lambda l: flash_decode_plain(q, kc[l], vc[l], lengths, max_live=live),
+                                       LAYERS, 5),
+            "library_ms": device_time_ms(lambda l: sdpa(qt, kc[l, :, :live].transpose(1, 2),
+                                                        vc[l, :, :live].transpose(1, 2), enable_gqa=True), LAYERS),
+            "bound_ms": max(t_mem, t_ops) * 1e3, "bound_by": "bytes" if t_mem >= t_ops else "operations",
+        })
+        del kc, vc
+    torch.cuda.empty_cache()
 
 
 def quant_decode_bound(lengths: list, qbits: int, dtype, kv_dtype=None) -> tuple:
@@ -2632,8 +2776,8 @@ def phase_sp_step(cfg, window, edge, phase: str = "sp_step", model: str = "Llama
                   lse: str = "flash_decode_lse", kv_row_bytes: int = KVH * 2 * D * 2) -> dict:
     """Where one full-width sp = 2 greedy decode step goes (bf16, max_seq
     4096, both ranks on cuda:0) at pos ~2,100, past the shard boundary:
-    wall, host issue, device busy (profiler), the LSE kernels' share (split
-    + combine), the launches per step (exactly 2 x layers of the `lse`
+    wall, host issue, device busy (profiler), the LSE kernels' share, the
+    launches per step (exactly 2 x layers of the `lse`
     form), and the bound (the weights and the live K/V read once;
     `kv_row_bytes` per layer and position: Llama-3.2-1B's 8 KV heads x
     (64 + 64) bf16 by default).  Also the bf16 prefill logits' gap against
@@ -2825,25 +2969,41 @@ def phase_sp_serve(model_dir: str, port: int, bodies: list, long_body: dict, sp_
     return row
 
 
+def decode_extras(name: str, row: dict, per_call: dict) -> dict:
+    """A decode row's device kernels per call (phase_decode_launches) and its
+    time over the library call's, both from this run."""
+    if name not in per_call:
+        return {}
+    return {"kernels_per_call": per_call[name], "times_library": row["kernel_ms"] / row["library_ms"]}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is false)", file=sys.stderr)
         return 2
     from dnet_tpu_torch.core.engine import bucket_length
-    from dnet_tpu_torch.kernels.build import build_all
+    from dnet_tpu_torch.kernels.build import build_all, ptxas_report
     from dnet_tpu_torch.utils.tokenizer import ByteTokenizer
 
     card = gpu_line()
     t0 = time.perf_counter()
-    build_all()
+    # the decode kernel's register / spill report compiles beside the build
+    with ThreadPoolExecutor(1) as pool:
+        report = pool.submit(ptxas_report, "flash_decode")
+        build_all()
+        build_s = time.perf_counter() - t0
+        report = report.result()
     emit({"phase": "device", "gpu": card, "torch": torch.__version__, "cuda": torch.version.cuda,
           "device_name": torch.cuda.get_device_name(0), "count": torch.cuda.device_count(),
-          "kernel_build_s": time.perf_counter() - t0})
+          "kernel_build_s": build_s, "ptxas_report_s": time.perf_counter() - t0})
+    emit(ptxas_line(report))
+    per_call = phase_decode_launches()
 
     prompt_text = "Write one line about GPUs."
     tok = ByteTokenizer()
     n_prompt = len(tok.encode(tok.apply_chat_template([{"role": "user", "content": prompt_text}])))
     main_path = phase_kernels(bucket_length(n_prompt), n_prompt + MAX_TOKENS - 2)
+    phase_wide_group_decode()
     # the batched path's mix: every batch_serve lane half-way through its output
     main_path["paged_attend"] = phase_paged_kernels([n + MAX_TOKENS // 2 for n in BATCH_PROMPT_TOKENS])
     # the ring's path: its decode hop (R=1, bf16) runs once per token
@@ -2938,7 +3098,7 @@ def main() -> int:
          "launches": path["launches"][name], "max_abs_err": main_path[name]["max_err"],
          "ms": main_path[name]["kernel_ms"], "plain_ms": main_path[name]["plain_ms"],
          "bound_ms": main_path[name]["bound_ms"], "bound_by": main_path[name]["bound_by"],
-         "library_ms": main_path[name]["library_ms"]}
+         "library_ms": main_path[name]["library_ms"], **decode_extras(name, main_path[name], per_call)}
         for name, (src, rep, path) in sources.items()
     ]
     print(card, flush=True)

@@ -2,7 +2,7 @@
 
 Each `csrc/<name>.cu` compiles on its own with
 
-    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared -Xcompiler -fPIC
+    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared -Xcompiler -fPIC --split-compile=0
 
 into `build/dnet_tpu_torch/<name>-<hash>.so` at the repository root (listed
 in .gitignore), keyed by a hash of the sources and flags, so an edited
@@ -20,6 +20,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -33,6 +34,9 @@ BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "dnet_tpu_torch"
 NVCC_FLAGS: Tuple[str, ...] = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    # optimise a source's kernels on every core: the decode kernel's many
+    # instantiations take minutes on one
+    "--split-compile=0",
 )
 # every kernel source; each builds into its own shared library
 SOURCES = ("flash_prefill", "flash_decode", "paged_attention", "column_ops")
@@ -103,6 +107,45 @@ def build(names: Sequence[str] = SOURCES) -> Dict[str, Path]:
     if failures:
         raise RuntimeError("\n".join(failures))
     return paths
+
+
+def ptxas_report(name: str) -> list:
+    """Each kernel of csrc/<name>.cu as ptxas reports it: compiles the source
+    to a cubin with `-Xptxas -v` (the library's flags otherwise) and returns
+    one dict per kernel: its name (demangled with cu++filt where the toolkit
+    has it), registers, spill stores and loads, stack frame and static
+    shared memory in bytes.  Raises with the compiler's output on failure."""
+    nvcc = nvcc_path()
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    out = BUILD_DIR / f"{name}.{os.getpid()}.ptxas.cubin"
+    flags = [f for f in NVCC_FLAGS if f not in ("-shared", "-Xcompiler", "-fPIC")]
+    proc = subprocess.run([nvcc, *flags, "-cubin", "-Xptxas", "-v", "-I", str(CSRC), "-o", str(out),
+                           str(CSRC / f"{name}.cu")], capture_output=True, text=True)
+    out.unlink(missing_ok=True)
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc -Xptxas -v {name}.cu failed ({proc.returncode}):\n{proc.stdout}{proc.stderr}")
+    kernels, cur = {}, None
+    for line in (proc.stdout + proc.stderr).splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            cur = kernels.setdefault(m.group(1), {"mangled": m.group(1)})
+            continue
+        if cur is None:
+            continue
+        for key, pat in (("stack_bytes", r"(\d+) bytes stack frame"), ("spill_store_bytes", r"(\d+) bytes spill stores"),
+                         ("spill_load_bytes", r"(\d+) bytes spill loads"), ("registers", r"Used (\d+) registers"),
+                         ("static_smem_bytes", r"(\d+) bytes smem")):
+            m = re.search(pat, line)
+            if m:
+                cur[key] = int(m.group(1))
+    filt = Path(nvcc).with_name("cu++filt")
+    names = list(kernels)
+    if filt.is_file() and names:
+        demangled = subprocess.run([str(filt)], input="\n".join(names), capture_output=True, text=True).stdout.splitlines()
+        if len(demangled) == len(names):
+            for mangled, plain in zip(names, demangled):
+                kernels[mangled]["name"] = plain
+    return [{"name": k.pop("name", k["mangled"]), **k} for k in kernels.values()]
 
 
 def build_all() -> Dict[str, Path]:

@@ -12,10 +12,11 @@ per slot and KV head; core/kvcache.py) and then dequantized tile by tile in
 on-chip memory.  Each lane b of the batch attends its own live slots
 [0, lengths[b]) (an int32 [B] vector on the device; 0 = an idle lane, whose
 output is zeros): the single-sequence engine passes [pos + 1], dense
-batched slots each lane's position + 1.  The live range is split across
-blocks for the longest lane (flash-decoding) and a small combine pass
-merges the splits.  V's head dim may differ from Q/K's (MLA:
-deepseek_v2's (Dqk, Dv) = (192, 128) with G = 1), in every cache form but
+batched slots each lane's position + 1.  Each lane's live tiles are split
+across blocks (flash-decoding; `decode_plan` picks how many), and the last
+of them to finish merges their states inside the one launch.  V's head dim
+may differ from Q/K's (MLA: deepseek_v2's (Dqk, Dv) = (192, 128) with
+G = 1), in every cache form but
 the rotating one; launches at those widths count apart (COUNTERS).  The
 source's header says what bounds it on the card.
 
@@ -56,6 +57,11 @@ HEAD_DIMS = frozenset({(64, 64), (128, 128), (192, 128)})
 MAX_GROUP = 8  # query heads per KV head the kernel takes
 # enough (split, KV head, batch) blocks for two per SM on a 132-SM card
 TARGET_BLOCKS = 264
+# the decode kernel's blocks sharing one (lane, KV head), each with some
+# depth, and its blocks a call: one wave, a block an SM of a 132-SM card
+MAX_SPLITS = 16
+MIN_TILES_PER_SPLIT = 2
+DECODE_BLOCKS = 132
 # the cache's code dtype -> the kernel's variant (the reference picks it the
 # same way from the cache dtype, dnet_tpu/ops/flash_decode.py:444-446)
 QBITS = {torch.int8: 8, torch.uint8: 4}
@@ -78,11 +84,50 @@ KV_DTYPES = {torch.float32: (torch.float32, torch.bfloat16), torch.bfloat16: (to
 
 def split_plan(live: int, n_blocks_per_split: int) -> tuple[int, int]:
     """(tiles_per_split, n_split) covering the live tiles with about
-    TARGET_BLOCKS blocks; every split holds at least one live tile."""
+    TARGET_BLOCKS blocks; every split holds at least one live tile.  The
+    paged kernel's plan (the decode kernel's is `decode_plan`)."""
     n_tiles = -(-live // BK)
     want = max(1, min(n_tiles, -(-TARGET_BLOCKS // n_blocks_per_split)))
     tiles_per_split = -(-n_tiles // want)
     return tiles_per_split, -(-n_tiles // tiles_per_split)
+
+
+def decode_plan(max_live: int, n_blocks_per_split: int) -> int:
+    """The decode kernel's split count: the blocks sharing each (lane, KV
+    head), where `n_blocks_per_split` = KV heads x lanes.  At most
+    MAX_SPLITS, at least one, and no more than gives the longest lane
+    MIN_TILES_PER_SPLIT tiles a split or the call more than DECODE_BLOCKS
+    blocks.  Each lane splits its own live tiles over them in the kernel."""
+    n_tiles = -(-max(int(max_live), 1) // BK)
+    return max(1, min(MAX_SPLITS, -(-n_tiles // MIN_TILES_PER_SPLIT), DECODE_BLOCKS // n_blocks_per_split))
+
+
+def query_rows(group: int) -> int:
+    """The query rows a decode kernel block holds for `group` query heads
+    per KV head (its GP: 1, 4 or 8)."""
+    return 1 if group == 1 else 4 if group <= 4 else 8
+
+
+# per (device, stream): the decode kernel's merge scratch, the blocks'
+# states (f32) and one ticket per (lane, KV head) (int32; the merging block
+# returns it to 0, so a stream's calls share them)
+_MERGE_SCRATCH: dict = {}
+
+
+def _merge_scratch(device: torch.device, stream: int, n_split: int, B: int, KVH: int, G: int, Dv: int) -> tuple:
+    """(part pointer, tickets pointer) for a call with n_split > 1 on
+    `stream`, grown as a call needs more; (None, None) for one split."""
+    if n_split == 1:
+        return None, None
+    rows = query_rows(G)
+    n_part, n_pairs = B * KVH * n_split * rows * (2 + Dv), B * KVH
+    part, tickets = _MERGE_SCRATCH.get((device, stream), (None, None))
+    if part is None or part.numel() < n_part:
+        part = torch.empty(n_part, dtype=torch.float32, device=device)
+    if tickets is None or tickets.numel() < n_pairs:
+        tickets = torch.zeros(n_pairs, dtype=torch.int32, device=device)
+    _MERGE_SCRATCH[(device, stream)] = (part, tickets)
+    return part.data_ptr(), tickets.data_ptr()
 
 
 def decode_lengths(batch: int, pos: int, device) -> torch.Tensor:
@@ -181,21 +226,16 @@ def flash_decode_attend(
     _check_launch("flash_decode", q, k, v, lengths, qbits, Dv, k_scale, v_scale, rotating)
     if sinks is not None:
         build.check_cuda_tensors("flash_decode", torch.float32, device=q.device, sinks=sinks)
-    # planned for the longest lane alone, as the paged kernel's: shorter
-    # lanes' extra splits exit at once with empty partials
-    tiles_per_split, n_split = split_plan(max(max_live, 1), KVH)
-    G = H // KVH
-    part_o = torch.empty((B, KVH, n_split, G, Dv), dtype=torch.float32, device=q.device)
-    part_ml = torch.empty((B, KVH, n_split, G, 2), dtype=torch.float32, device=q.device)
     out = torch.empty((B, 1, H, Dv), dtype=q.dtype, device=q.device)
+    n_split = decode_plan(max_live, KVH * B)
+    stream = build.current_stream_handle(q.device)
     rc = _entry()(
         build.DTYPE_CODES[q.dtype], build.DTYPE_CODES.get(k.dtype, -1), qbits, D, Dv,
         q.data_ptr(), k.data_ptr(), v.data_ptr(),
         k_scale.data_ptr() if qbits else None, v_scale.data_ptr() if qbits else None,
-        out.data_ptr(), None if sinks is None else sinks.data_ptr(),
-        part_o.data_ptr(), part_ml.data_ptr(), lengths.data_ptr(), B, H, KVH, S,
-        tiles_per_split, n_split, scale, int(bool(rotating)), window,
-        build.current_stream_handle(q.device),
+        out.data_ptr(), None if sinks is None else sinks.data_ptr(), lengths.data_ptr(),
+        *_merge_scratch(q.device, stream, n_split, B, KVH, H // KVH, Dv), B, H, KVH, S, n_split, scale,
+        int(bool(rotating)), window, stream,
     )
     if rc != 0:
         raise RuntimeError(f"flash_decode kernel launch failed (code {rc})")
@@ -213,24 +253,30 @@ for _counter in COUNTERS.values():
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 # dtype, kv_dtype, qbits, head_dim, v_head_dim, q, k, v, k_scale, v_scale,
-# o, sinks, part_o, part_ml, lengths, B, H, KVH, S, tiles_per_split,
-# n_split, scale, rotating, window, stream
-_ARGTYPES = (
-    _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, ctypes.c_float,
-    _I, _I, _P,
-)
-
-
+# o, sinks, lengths, part, tickets, B, H, KVH, S, n_split, scale, rotating,
+# window, stream
+_ARGTYPES = (_I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, ctypes.c_float, _I, _I,
+             _P)
 # dtype, kv_dtype, qbits, head_dim, v_head_dim, q, k, v, k_scale, v_scale,
-# o, m, l, part_o, part_ml, lengths, B, H, KVH, S, tiles_per_split,
-# n_split, scale, stream
-_LSE_ARGTYPES = (
-    _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, ctypes.c_float, _P,
-)
+# o, m, l, lengths, part, tickets, B, H, KVH, S, n_split, scale, stream
+_LSE_ARGTYPES = (_I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, ctypes.c_float,
+                 _P)
+# dtype, kv_dtype, qbits, head_dim, v_head_dim, H, KVH, rotating
+_SMEM_ARGTYPES = (_I,) * 8
 
 
 def _entry():
     return build.entry("flash_decode", "dnet_flash_decode", _ARGTYPES)
+
+
+def kernel_smem_bytes(dtype, kv_dtype, qbits: int, head_dim: int, v_head_dim: int, H: int, KVH: int,
+                      rotating: bool = False) -> int:
+    """Dynamic shared memory (bytes) of the kernel instantiation a call with
+    these dtypes, cache form, widths and grouping launches (builds the
+    kernel; -1 for one it was not built for)."""
+    return build.entry("flash_decode", "dnet_flash_decode_smem", _SMEM_ARGTYPES)(
+        build.DTYPE_CODES[dtype], build.DTYPE_CODES.get(kv_dtype, -1), qbits, head_dim, v_head_dim, H, KVH,
+        int(bool(rotating)))
 
 
 def rank_live(pos: int, rank: int, s_local: int) -> int:
@@ -276,19 +322,18 @@ def flash_decode_lse(
                                       v_scale=v_scale)
     _check_launch("flash_decode_lse", q, k, v, lengths, qbits, Dv, k_scale, v_scale)
     dev = q.device
-    tiles_per_split, n_split = split_plan(max(max_live, 1), KVH)
     G = H // KVH
-    part_o = torch.empty((B, KVH, n_split, G, Dv), dtype=torch.float32, device=dev)
-    part_ml = torch.empty((B, KVH, n_split, G, 2), dtype=torch.float32, device=dev)
     acc = torch.empty((B, 1, H, Dv), dtype=torch.float32, device=dev)
     m = torch.empty((B, KVH, G), dtype=torch.float32, device=dev)
     l = torch.empty((B, KVH, G), dtype=torch.float32, device=dev)
+    n_split = decode_plan(max_live, KVH * B)
+    stream = build.current_stream_handle(dev)
     rc = build.entry("flash_decode", "dnet_flash_decode_lse", _LSE_ARGTYPES)(
         build.DTYPE_CODES[q.dtype], build.DTYPE_CODES.get(k.dtype, -1), qbits, D, Dv,
         q.data_ptr(), k.data_ptr(), v.data_ptr(),
         k_scale.data_ptr() if qbits else None, v_scale.data_ptr() if qbits else None,
-        acc.data_ptr(), m.data_ptr(), l.data_ptr(), part_o.data_ptr(), part_ml.data_ptr(), lengths.data_ptr(),
-        B, H, KVH, S, tiles_per_split, n_split, scale, build.current_stream_handle(dev),
+        acc.data_ptr(), m.data_ptr(), l.data_ptr(), lengths.data_ptr(),
+        *_merge_scratch(dev, stream, n_split, B, KVH, G, Dv), B, H, KVH, S, n_split, scale, stream,
     )
     if rc != 0:
         raise RuntimeError(f"flash_decode_lse kernel launch failed (code {rc})")

@@ -32,6 +32,7 @@ from the same bf16 inputs (the kernel rounds its output to bf16, ~4e-3 at
 """
 
 import math
+import time
 
 import pytest
 import torch
@@ -132,6 +133,31 @@ def test_quantized_decode_kernel_matches_plain(gen, dtype, bits, pos):
     want = flash_decode_plain(q.float(), kvs["k"], kvs["v"], lengths, k_scale=kvs["k_scale"],
                               v_scale=kvs["v_scale"])
     assert out.dtype == dtype and (out.float() - want).abs().max().item() <= TOL[dtype]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("bits", [0, 8, 4])
+def test_decode_kernel_group_8_head_dim_128(gen, dtype, bits):
+    """G = 8 over head dim 128 (Llama-3-70B's H = 64, KVH = 8), whose
+    instantiations spill registers: ragged lanes with an idle one, the
+    normalised output and the LSE partials against their plain versions."""
+    B, S = 4, 2048
+    if bits:
+        kvs = layer_slices(init_cache(KVConfig(1, B, S, 8, 128, quant_bits=bits), torch.device("cuda")), 0)
+        write_kv(kvs, _randn(gen, torch.bfloat16, B, S, 8, 128), _randn(gen, torch.bfloat16, B, S, 8, 128), 0)
+    else:
+        kvs = {"k": _randn(gen, dtype, B, S, 8, 128), "v": _randn(gen, dtype, B, S, 8, 128)}
+    scales = {n: kvs[n] for n in ("k_scale", "v_scale") if n in kvs}
+    k, v = (kvs[n] if bits else kvs[n].float() for n in ("k", "v"))
+    q = _randn(gen, dtype, B, 1, 64, 128)
+    lengths = torch.tensor([2048, 0, 1, 700], dtype=torch.int32, device="cuda")
+    out = flash_decode_attend(q, kvs["k"], kvs["v"], lengths, 2048, **scales)
+    lse = flash_decode_lse(q, kvs["k"], kvs["v"], lengths, 2048, **scales)
+    torch.cuda.synchronize()
+    want = flash_decode_plain(q.float(), k, v, lengths, **scales)
+    assert out.dtype == dtype and (out.float() - want).abs().max().item() <= TOL[dtype]
+    assert (out[1] == 0).all()
+    _check_lse(lse, flash_decode_lse_plain(q.float(), k, v, lengths, **scales), dtype)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -543,6 +569,134 @@ def test_mla_widths_never_take_the_plain_version(gen):
         flash_decode_attend(_randn(gen, torch.bfloat16, 1, 1, MLA_H, MLA_DQK), k, v, decode_lengths(1, 3, "cuda"),
                             4, rotating=True, window=128)
     assert (flash_prefill.launches_mla, flash_decode_attend.launches_mla) == counts
+
+
+# one call of every decode form: (counter, q/k head dim, v head dim, H, KVH,
+# qbits, rotating, LSE), at Llama-3.2-1B's, gpt-oss-20b's sliding and
+# DeepSeek-V2-Lite's widths
+DECODE_FORMS = [
+    ("launches", 64, 64, 32, 8, 0, False, False), ("launches_q8", 64, 64, 32, 8, 8, False, False),
+    ("launches_q4", 64, 64, 32, 8, 4, False, False), ("launches_rot", 64, 64, 64, 8, 0, True, False),
+    ("launches_rot_q8", 64, 64, 64, 8, 8, True, False), ("launches_rot_q4", 64, 64, 64, 8, 4, True, False),
+    ("launches_mla", MLA_DQK, MLA_DV, MLA_H, MLA_H, 0, False, False),
+    ("launches_mla_q8", MLA_DQK, MLA_DV, MLA_H, MLA_H, 8, False, False),
+    ("launches_mla_q4", MLA_DQK, MLA_DV, MLA_H, MLA_H, 4, False, False),
+    ("launches_lse", 64, 64, 32, 8, 0, False, True), ("launches_lse_q8", 64, 64, 32, 8, 8, False, True),
+    ("launches_lse_q4", 64, 64, 32, 8, 4, False, True),
+    ("launches_lse_mla", MLA_DQK, MLA_DV, MLA_H, MLA_H, 0, False, True),
+    ("launches_lse_mla_q8", MLA_DQK, MLA_DV, MLA_H, MLA_H, 8, False, True),
+    ("launches_lse_mla_q4", MLA_DQK, MLA_DV, MLA_H, MLA_H, 4, False, True),
+]
+
+
+def _decode_form_call(gen, form, dtype=torch.bfloat16, lengths=(2048,), S=2048):
+    """A zero-argument call of one decode form over a fresh cache (codes the
+    port's write_kv quantized from bf16 rows; a ring of 128 slots when
+    rotating), and its plain version's output computed in f32."""
+    _, dqk, dv, H, KVH, bits, rot, lse = form
+    B = len(lengths)
+    S = 128 if rot else S
+    if bits:
+        kvs = layer_slices(init_cache(KVConfig(1, B, S, KVH, dqk, v_head_dim=dv, quant_bits=bits),
+                                      torch.device("cuda")), 0)
+        write_kv(kvs, _randn(gen, torch.bfloat16, B, S, KVH, dqk), _randn(gen, torch.bfloat16, B, S, KVH, dv), 0)
+        k, v, scales = kvs["k"], kvs["v"], {"k_scale": kvs["k_scale"], "v_scale": kvs["v_scale"]}
+    else:
+        k, v, scales = _randn(gen, dtype, B, S, KVH, dqk), _randn(gen, dtype, B, S, KVH, dv), {}
+    q = _randn(gen, dtype, B, 1, H, dqk)
+    lens = torch.tensor(lengths, dtype=torch.int32, device="cuda")
+    max_live = min(max(lengths), S)
+    scale = MLA_SCALE if dqk == MLA_DQK else None
+    kf, vf = (k, v) if bits else (k.float(), v.float())
+    if lse:
+        return (lambda: flash_decode_lse(q, k, v, lens, max_live, scale=scale, **scales),
+                flash_decode_lse_plain(q.float(), kf, vf, lens, scale=scale, **scales))
+    extra = {"rotating": True, "window": S, "sinks": torch.randn(H, generator=gen, device="cuda")} if rot else {}
+    return (lambda: flash_decode_attend(q, k, v, lens, max_live, scale=scale, **scales, **extra),
+            flash_decode_plain(q.float(), kf, vf, lens, scale=scale, **scales, **extra))
+
+
+def _check_form(out, want, form, dtype):
+    if form[7]:
+        _check_lse(out, want, dtype)
+    else:
+        assert (out.float() - want).abs().max().item() <= TOL[dtype]
+
+
+@pytest.mark.parametrize("form", DECODE_FORMS, ids=[f[0] for f in DECODE_FORMS])
+def test_decode_wrapper_call_is_one_device_kernel(gen, form):
+    """Every decode form, normalised and LSE, runs as exactly one device
+    kernel per wrapper call (the splits merge inside it), as torch.profiler
+    traces it, counted once on its own counter."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    call, want = _decode_form_call(gen, form)
+    call()  # built and warm
+    torch.cuda.synchronize()
+    for _ in range(3):  # the profiler now and then drops a short call's record; it never invents one
+        before = getattr(flash_decode_attend, form[0])
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            time.sleep(0.002)  # the call well inside the traced window
+            out = call()
+            torch.cuda.synchronize()
+            time.sleep(0.002)
+        assert getattr(flash_decode_attend, form[0]) == before + 1
+        kernels = [e.name for e in prof.events() if e.device_type == DeviceType.CUDA]
+        if kernels:
+            break
+    assert len(kernels) == 1 and "flash_decode_kernel" in kernels[0], kernels
+    _check_form(out, want, form, torch.bfloat16)
+
+
+def test_decode_interleaved_shapes_repeat_exactly(gen):
+    """Calls of different forms, widths, lengths and split counts
+    interleaved on one stream, three rounds: every round's outputs are
+    bit-identical to the first's, so no merge state carries from one call
+    to the next."""
+    picks = [DECODE_FORMS[0], DECODE_FORMS[12], DECODE_FORMS[3], DECODE_FORMS[9], DECODE_FORMS[7]]
+    calls = [_decode_form_call(gen, f, lengths=lengths)
+             for f in picks for lengths in ((2048,), (5, 0, 1999))]
+    rounds = []
+    for _ in range(3):
+        rounds.append([c() for c, _ in calls])
+    torch.cuda.synchronize()
+    flat = lambda r: [t for x in r for t in (x if isinstance(x, tuple) else (x,))]  # noqa: E731
+    for r in rounds[1:]:
+        assert all(torch.equal(a, b) for a, b in zip(flat(rounds[0]), flat(r)))
+
+
+@pytest.mark.parametrize("n_split", [1, 2, 3, 5, 7, "cap"])
+@pytest.mark.parametrize("form", [DECODE_FORMS[0], DECODE_FORMS[9], DECODE_FORMS[12], DECODE_FORMS[14]],
+                         ids=["plain", "lse", "lse_mla", "lse_mla_q4"])
+def test_decode_split_counts_up_to_the_cap(gen, monkeypatch, form, n_split):
+    """The kernel at every split count up to the plan's cap (which a
+    2048-slot lane at 8 KV heads reaches), over lanes of mixed length and an
+    idle one: each lane as the plain version gives it, the last block of
+    each (lane, KV head) merging the others' states."""
+    from dnet_tpu_torch.ops import flash_decode as fd
+
+    if n_split == "cap":
+        assert fd.decode_plan(2048, 8) == fd.MAX_SPLITS
+        n_split = fd.MAX_SPLITS
+    monkeypatch.setattr(fd, "decode_plan", lambda max_live, blocks: n_split)
+    call, want = _decode_form_call(gen, form, dtype=torch.float32, lengths=(2048, 0, 1, 700))
+    out = call()
+    torch.cuda.synchronize()
+    _check_form(out, want, form, torch.float32)
+
+
+@pytest.mark.parametrize("form", [f for f in DECODE_FORMS if not f[6]], ids=[f[0] for f in DECODE_FORMS if not f[6]])
+def test_decode_batched_lanes_with_idle_ones(gen, form):
+    """Six lanes in one launch, two of them idle, in every non-rotating form
+    (the rotating forms' lanes: test_rotating_decode_kernel_lanes): an idle
+    lane gives zeros, or (0, NEG_INF, 0) partials."""
+    call, want = _decode_form_call(gen, form, lengths=(0, 3, 64, 0, 1500, 2048))
+    out = call()
+    torch.cuda.synchronize()
+    _check_form(out, want, form, torch.bfloat16)
+    if not form[7]:
+        assert not out[0].any() and not out[3].any()
 
 
 PAGED_POSITIONS = [0, 15, 16, 100, 1023, 2047, 4000, 4094]
