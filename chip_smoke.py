@@ -6,9 +6,10 @@
 Phases, one JSON line each; any failure exits non-zero:
   device   the card (nvidia-smi name and power limit), torch/CUDA versions,
            and the kernels' build from dnet_tpu_torch/csrc (nvcc, sm_90a).
-  ptxas    the decode kernel's instantiations as `nvcc -Xptxas -v` reports
-           them (registers, spill stores / loads, stack), each with its
-           dynamic shared memory; compiled beside the build.
+  ptxas    the decode and prefill kernels' instantiations as `nvcc -Xptxas
+           -v` reports them (registers, spill stores / loads, stack), each
+           with its dynamic shared memory; compiled beside the build.  A bf16
+           (tensor-core) prefill instantiation that spills fails the run.
   kernels  each hand-written kernel against its plain PyTorch version at
            the main path's full widths (Llama-3.2-1B: H=32, KVH=8, D=64,
            S=4096): f32 within 1e-4; bf16 within 2e-2 of the plain version
@@ -16,7 +17,14 @@ Phases, one JSON line each; any failure exits non-zero:
            output to bf16, ~4e-3 at |x| ~ 1, and sums in another order).
            Times (CUDA events), the plain version's and one PyTorch
            library call's (scaled_dot_product_attention, a yardstick the
-           port never calls), and each call's bound on an H100 SXM.
+           port never calls), and each call's bound on an H100 SXM; prefill
+           rows add times_library = kernel_ms / library_ms (SDPA with the
+           causal mask as a tensor, which every pos allows) and, at pos 0,
+           library_causal_ms (SDPA with is_causal=True: its flash backend).
+  wide_prefill  the prefill kernel at head width 128 (Llama-3-8B's H=32,
+           KVH=8), T=512 and 2048, bf16 and f32, against its plain version
+           under the same tolerances, timed beside both SDPA forms and its
+           bound.
   parity   a small model served by the engine on the GPU (kernels) and on
            the CPU (plain versions) from the same weights: prefill logits
            within 2e-3, equal 16-token greedy streams.
@@ -187,9 +195,10 @@ the seventh path, for llama, deepseek_v2 and gpt_oss and under DNET_KV_BITS:
              flash_decode_lse_mla launches a step).
 Every decode row also counts its device kernels per wrapper call
 (torch.profiler), which must be exactly 1: the splits of a (lane, KV head)
-merge inside the one launch.  Then the kernels summary line (its decode
-rows with kernels_per_call and times_library = ms / library_ms, both from
-this run), the card line, and the last line {"ok": true, "device": {...}}.  Without a CUDA device it exits non-zero
+merge inside the one launch.  Then the kernels summary line (every row
+with times_library = ms / library_ms, its decode rows with
+kernels_per_call, both from this run), the card line, and the last line
+{"ok": true, "device": {...}}.  Without a CUDA device it exits non-zero
 and prints no result.
 """
 
@@ -357,39 +366,64 @@ def phase_decode_launches() -> dict:
     return counts
 
 
-def ptxas_line(report: list) -> dict:
-    """The decode kernel's instantiations as ptxas built them (registers,
-    spills, stack) with each one's dynamic shared memory."""
+def ptxas_line(report: list, prefill_report: list) -> dict:
+    """The decode and prefill kernels' instantiations as ptxas built them
+    (registers, spills, stack) with each one's dynamic shared memory.  Fails
+    if a bf16 (tensor-core) prefill instantiation spills."""
     import re
 
+    from dnet_tpu_torch.ops.flash_attention import prefill_smem_bytes
     from dnet_tpu_torch.ops.flash_decode import kernel_smem_bytes
 
     types = {"float": torch.float32, "__nv_bfloat16": torch.bfloat16, "unsigned char": torch.uint8}
-    rows = []
-    for k in report:
-        row = {key: k.get(key) for key in ("name", "registers", "spill_store_bytes", "spill_load_bytes",
-                                            "stack_bytes", "static_smem_bytes")}
-        m = re.search(r"flash_decode_kernel<([^>]*)>", k["name"])
-        if m:  # cu++filt writes the non-type arguments as (int)0, (bool)1
-            t, kv, qb, dqk, dv, gp, rot = (re.sub(r"^\((?:int|bool)\)", "", x.strip()) for x in m.group(1).split(","))
-            row["dynamic_smem_bytes"] = kernel_smem_bytes(types[t], types[kv], int(qb), int(dqk), int(dv), int(gp), 1,
-                                                          rot in ("1", "true"))
-        rows.append(row)
+
+    def args(m):  # cu++filt writes the non-type arguments as (int)0, (bool)1
+        return [re.sub(r"^\((?:int|bool)\)", "", x.strip()) for x in m.group(1).split(",")]
+
+    def rows_of(rep, smem):
+        rows = []
+        for k in rep:
+            row = {key: k.get(key) for key in ("name", "registers", "spill_store_bytes", "spill_load_bytes",
+                                                "stack_bytes", "static_smem_bytes")}
+            row["dynamic_smem_bytes"] = smem(k["name"])
+            rows.append(row)
+        return {"instantiations": len(rows), "spilling": sum(1 for r in rows if r["spill_store_bytes"]),
+                "kernels": rows}
+
+    def decode_smem(name):
+        m = re.search(r"flash_decode_kernel<([^>]*)>", name)
+        if not m:
+            return None
+        t, kv, qb, dqk, dv, gp, rot = args(m)
+        return kernel_smem_bytes(types[t], types[kv], int(qb), int(dqk), int(dv), int(gp), 1, rot in ("1", "true"))
+
+    def prefill_smem(name):  # flash_prefill_tc_kernel<DQK, DV, m-atoms a warp>, flash_prefill_f32_kernel<DQK, DV>
+        m = re.search(r"flash_prefill_(tc|f32)_kernel<([^>]*)>", name)
+        if not m:
+            return None
+        dims = [int(re.sub(r"^\(int\)", "", x.strip())) for x in m.group(2).split(",")]
+        if m.group(1) == "f32":
+            return prefill_smem_bytes(torch.float32, *dims)
+        return prefill_smem_bytes(torch.bfloat16, dims[0], dims[1], 64 * dims[2])
+
+    prefill = rows_of(prefill_report, prefill_smem)
+    tc = [r for r in prefill["kernels"] if "flash_prefill_tc_kernel" in r["name"]]
+    check(len(tc) == 4 and not any(r["spill_store_bytes"] or r["spill_load_bytes"] for r in tc),
+          f"bf16 prefill instantiations spill or are missing: {tc}")
     return {"phase": "ptxas", "source": "dnet_tpu_torch/csrc/flash_decode.cu", "flags": "-Xptxas -v",
-            "instantiations": len(rows), "spilling": sum(1 for r in rows if r["spill_store_bytes"]),
-            "kernels": rows}
+            **rows_of(report, decode_smem),
+            "prefill": {"source": "dnet_tpu_torch/csrc/flash_prefill.cu", **prefill}}
 
 
-def prefill_bound(T: int, pos: int, dtype) -> tuple:
-    """(ms, bound_by) for causal prefill at (T, pos): q, the live K/V rows
-    and the output move once; 4*D operations per (head, query, key) pair."""
+def prefill_bound(T: int, pos: int, dtype, h: int = H, kvh: int = KVH, d: int = D) -> tuple:
+    """(ms, bound_by) for causal prefill at (T, pos) over h query and kvh KV
+    heads of width d: q, the live K/V rows and the output move once; 4*d
+    operations per (head, query, key) pair."""
     size = torch.tensor([], dtype=dtype).element_size()
     keys = min(pos + T, S)
-    nbytes = size * (2 * T * H * D + 2 * keys * KVH * D)
+    nbytes = size * (2 * T * h * d + 2 * keys * kvh * d)
     pairs = sum(min(pos + i + 1, S) for i in range(T))
-    ops = 4 * H * D * pairs
-    t_mem, t_ops = nbytes / HBM_BYTES_PER_S, ops / PEAK_OPS_PER_S[dtype]
-    return max(t_mem, t_ops) * 1e3, ("bytes" if t_mem >= t_ops else "operations")
+    return bytes_ops_bound(nbytes, 4 * h * d * pairs, dtype)
 
 
 def decode_bound(pos: int, dtype) -> tuple:
@@ -486,6 +520,9 @@ def phase_paged_kernels(main_positions: list) -> dict:
 
             def lib(l):
                 return sdpa(qt, kc[l], vc[l], attn_mask=mask, enable_gqa=True)
+
+            def lib_causal(l):
+                return sdpa(qt, live[l][0], live[l][1], is_causal=True, scale=scale)
 
             lib_err = (lib(0).transpose(1, 2).float() - want).abs().max().item()
             check(lib_err <= TOL[dtype], f"paged library yardstick disagrees: {lib_err}")
@@ -699,6 +736,10 @@ def phase_kernels(main_T: int, main_pos: int) -> dict:
                 return sdpa(qt, kc[l, :, :keys].transpose(1, 2), vc[l, :, :keys].transpose(1, 2),
                             attn_mask=mask, enable_gqa=True)
 
+            def lib_causal(l):
+                return sdpa(qt, kc[l, :, :keys].transpose(1, 2), vc[l, :, :keys].transpose(1, 2),
+                            is_causal=True, enable_gqa=True)
+
             bound, by = prefill_bound(T, pos, dtype)
             row = {
                 "phase": "kernels", "kernel": "flash_prefill", "dtype": str(dtype).split(".")[-1],
@@ -709,6 +750,9 @@ def phase_kernels(main_T: int, main_pos: int) -> dict:
                 "library_ms": device_time_ms(lib, LAYERS),
                 "bound_ms": bound, "bound_by": by,
             }
+            row["times_library"] = row["kernel_ms"] / row["library_ms"]
+            if pos == 0:
+                row["library_causal_ms"] = device_time_ms(lib_causal, LAYERS)
             emit(row)
             if dtype == torch.bfloat16 and (T, pos) == (main_T, 0):
                 main["flash_prefill"] = row
@@ -788,6 +832,54 @@ def phase_wide_group_decode() -> None:
     torch.cuda.empty_cache()
 
 
+def phase_wide_prefill() -> None:
+    """The prefill kernel at (Dqk, Dv) = (128, 128) with Llama-3-8B's heads
+    (H = 32, KVH = 8, G = 4; Qwen2.5-7B's and Qwen3's head width too): one
+    chunk of T = 512 and one of 2,048 from pos 0 over a 4096-slot cache, in
+    bf16 and f32, held to the plain version under TOL and timed beside it,
+    SDPA (the masked form of the kernels rows, and is_causal) and its
+    bound.  No served model of this script runs this width, so it is a line
+    of its own, not a kernels row."""
+    from torch.nn.functional import scaled_dot_product_attention as sdpa
+
+    from dnet_tpu_torch.ops.flash_attention import flash_prefill, flash_prefill_plain
+
+    h, kvh, d = 32, 8, 128
+    g = torch.Generator(device="cuda").manual_seed(15)
+    for dtype in (torch.float32, torch.bfloat16):
+        kc = torch.randn(LAYERS, 1, S, kvh, d, generator=g, device="cuda").to(dtype)
+        vc = torch.randn(LAYERS, 1, S, kvh, d, generator=g, device="cuda").to(dtype)
+        for T in (512, 2048):
+            q = torch.randn(1, T, h, d, generator=g, device="cuda").to(dtype)
+            out = flash_prefill(q, kc[0], vc[0], 0)
+            torch.cuda.synchronize()
+            want = flash_prefill_plain(q.float(), kc[0].float(), vc[0].float(), 0)
+            err = (out.float() - want).abs().max().item()
+            check(out.shape == q.shape and bool(torch.isfinite(out).all()), "wide prefill output")
+            check(err <= TOL[dtype], f"prefill (128, 128) T={T} {dtype}: max err {err}")
+            qt = q.transpose(1, 2)
+            mask = torch.arange(T, device="cuda")[None, :] <= torch.arange(T, device="cuda")[:, None]
+
+            def lib(l, causal=False):
+                return sdpa(qt, kc[l, :, :T].transpose(1, 2), vc[l, :, :T].transpose(1, 2),
+                            attn_mask=None if causal else mask, is_causal=causal, enable_gqa=True)
+
+            bound, by = prefill_bound(T, 0, dtype, h, kvh, d)
+            row = {
+                "phase": "wide_prefill", "kernel": "flash_prefill", "dtype": str(dtype).split(".")[-1],
+                "T": T, "pos": 0, "S": S, "H": h, "KVH": kvh, "Dqk": d, "Dv": d, "max_err": err, "tol": TOL[dtype],
+                "kernel_ms": device_time_ms(lambda l: flash_prefill(q, kc[l], vc[l], 0), LAYERS),
+                "plain_ms": device_time_ms(lambda l: flash_prefill_plain(q, kc[l], vc[l], 0), LAYERS, 5),
+                "library_ms": device_time_ms(lib, LAYERS),
+                "library_causal_ms": device_time_ms(lambda l: lib(l, True), LAYERS),
+                "bound_ms": bound, "bound_by": by,
+            }
+            row["times_library"] = row["kernel_ms"] / row["library_ms"]
+            emit(row)
+        del kc, vc
+    torch.cuda.empty_cache()
+
+
 def quant_decode_bound(lengths: list, qbits: int, dtype, kv_dtype=None) -> tuple:
     """(ms, bound_by) for one decode call over a cache whose lanes hold
     `lengths` live slots: q and the output once (in `dtype`), each live
@@ -853,6 +945,9 @@ def phase_quant_kernels(main_pos: int, lane_positions: list) -> dict:
 
             def lib(l):
                 return sdpa(qt, deq[l][0], deq[l][1], enable_gqa=True)
+
+            def lib_causal(l):
+                return sdpa(qt, live[l][0], live[l][1], is_causal=True, scale=scale)
 
             lib_err = (lib(0).transpose(1, 2).float() - want).abs().max().item()
             check(lib_err <= TOL[torch.bfloat16], f"q{bits} library yardstick disagrees: {lib_err}")
@@ -1828,6 +1923,9 @@ def phase_rotating_kernels() -> dict:
             def lib(l):
                 return sdpa(qt, unrolled[l][0], unrolled[l][1], attn_mask=bias, enable_gqa=True)
 
+            def lib_causal(l):
+                return sdpa(qt, live[l][0], live[l][1], is_causal=True, scale=scale)
+
             lib_err = (lib(0).transpose(1, 2).float() - want).abs().max().item()
             check(lib_err <= TOL[torch.bfloat16], f"rotating library yardstick disagrees: {lib_err}")
             bound, by = rotating_bound(pos, window, bits, dtype)
@@ -2180,6 +2278,9 @@ def phase_mla_kernels(main_T: int) -> dict:
             def lib(l):
                 return sdpa(qt, live[l][0], live[l][1], attn_mask=mask, scale=scale)
 
+            def lib_causal(l):
+                return sdpa(qt, live[l][0], live[l][1], is_causal=True, scale=scale)
+
             lib_err = (lib(0).transpose(1, 2).float() - want).abs().max().item()
             check(lib_err <= TOL[torch.bfloat16], f"{name} library yardstick disagrees: {lib_err}")
             bound, by = mla_bound(T, pos, bits, dtype)
@@ -2193,6 +2294,9 @@ def phase_mla_kernels(main_T: int) -> dict:
                                 + (" on a dequantized bf16 copy (dequant not timed)" if bits else ""),
                 "library_max_err": lib_err, "bound_ms": bound, "bound_by": by,
             }
+            if kind == "prefill":
+                row["times_library"] = row["kernel_ms"] / row["library_ms"]
+                row["library_causal_ms"] = device_time_ms(lib_causal, L)
             emit(row)
             if dtype == torch.bfloat16:
                 main[name] = row
@@ -2969,12 +3073,13 @@ def phase_sp_serve(model_dir: str, port: int, bodies: list, long_body: dict, sp_
     return row
 
 
-def decode_extras(name: str, row: dict, per_call: dict) -> dict:
-    """A decode row's device kernels per call (phase_decode_launches) and its
-    time over the library call's, both from this run."""
-    if name not in per_call:
-        return {}
-    return {"kernels_per_call": per_call[name], "times_library": row["kernel_ms"] / row["library_ms"]}
+def row_extras(name: str, row: dict, per_call: dict) -> dict:
+    """A row's time over the library call's and, for a decode row, its device
+    kernels per call (phase_decode_launches), both from this run."""
+    extras = {"times_library": row["kernel_ms"] / row["library_ms"]}
+    if name in per_call:
+        extras["kernels_per_call"] = per_call[name]
+    return extras
 
 
 def main() -> int:
@@ -2987,16 +3092,17 @@ def main() -> int:
 
     card = gpu_line()
     t0 = time.perf_counter()
-    # the decode kernel's register / spill report compiles beside the build
-    with ThreadPoolExecutor(1) as pool:
+    # the decode and prefill kernels' register / spill reports compile beside the build
+    with ThreadPoolExecutor(2) as pool:
         report = pool.submit(ptxas_report, "flash_decode")
+        prefill_report = pool.submit(ptxas_report, "flash_prefill")
         build_all()
         build_s = time.perf_counter() - t0
-        report = report.result()
+        report, prefill_report = report.result(), prefill_report.result()
     emit({"phase": "device", "gpu": card, "torch": torch.__version__, "cuda": torch.version.cuda,
           "device_name": torch.cuda.get_device_name(0), "count": torch.cuda.device_count(),
           "kernel_build_s": build_s, "ptxas_report_s": time.perf_counter() - t0})
-    emit(ptxas_line(report))
+    emit(ptxas_line(report, prefill_report))
     per_call = phase_decode_launches()
 
     prompt_text = "Write one line about GPUs."
@@ -3004,6 +3110,7 @@ def main() -> int:
     n_prompt = len(tok.encode(tok.apply_chat_template([{"role": "user", "content": prompt_text}])))
     main_path = phase_kernels(bucket_length(n_prompt), n_prompt + MAX_TOKENS - 2)
     phase_wide_group_decode()
+    phase_wide_prefill()
     # the batched path's mix: every batch_serve lane half-way through its output
     main_path["paged_attend"] = phase_paged_kernels([n + MAX_TOKENS // 2 for n in BATCH_PROMPT_TOKENS])
     # the ring's path: its decode hop (R=1, bf16) runs once per token
@@ -3098,7 +3205,7 @@ def main() -> int:
          "launches": path["launches"][name], "max_abs_err": main_path[name]["max_err"],
          "ms": main_path[name]["kernel_ms"], "plain_ms": main_path[name]["plain_ms"],
          "bound_ms": main_path[name]["bound_ms"], "bound_by": main_path[name]["bound_by"],
-         "library_ms": main_path[name]["library_ms"], **decode_extras(name, main_path[name], per_call)}
+         "library_ms": main_path[name]["library_ms"], **row_extras(name, main_path[name], per_call)}
         for name, (src, rep, path) in sources.items()
     ]
     print(card, flush=True)

@@ -31,7 +31,10 @@ from dnet_tpu_torch.kernels import build
 
 # enough blocks for two per SM on a 132-SM card
 TARGET_BLOCKS = 264
-NTHREADS = 256  # columns per block in every kernel (csrc/column_ops.cu)
+# the dequant + scatter's blocks of a large frame: four per SM, each mapping
+# its strip's kept columns once for a few rows
+SCATTER_BLOCKS = 4 * 132
+NTHREADS = 256  # threads per block in every kernel (csrc/column_ops.cu)
 MIN_ROWS_PER_SPLIT = 16  # a norms split walks at least this many rows
 MAX_GRID_Y = 65535
 # dequant_scatter modes (csrc/column_ops.cu)
@@ -178,9 +181,7 @@ def dequant_scatter_columns(
     if mode != MODE_SCATTER:
         build.check_cuda_tensors("dequant_scatter_columns", torch.float32, scale=scale, bias=bias)
         G = scale.shape[1] if mode == MODE_GROUP else 1
-    strips = _cdiv(D, NTHREADS)
-    row_groups = min(R, max(1, _cdiv(TARGET_BLOCKS, strips)))
-    rows_per_block = max(_cdiv(R, row_groups), _cdiv(R, MAX_GRID_Y))
+    _, _, rows_per_block = scatter_grid(R, D, out_dtype)
     rc = _entry("dnet_dequant_scatter_columns", _SCATTER_ARGTYPES)(
         build.DTYPE_CODES[out_dtype], mode, src.data_ptr(),
         None if scale is None else scale.data_ptr(), None if bias is None else bias.data_ptr(),
@@ -194,6 +195,17 @@ def dequant_scatter_columns(
 
 
 dequant_scatter_columns.launches = 0  # kernel launches since the last reset
+
+
+def scatter_grid(R: int, D: int, out_dtype: torch.dtype) -> Tuple[int, int, int]:
+    """(strip columns, strips, rows per block) of the dequant + scatter
+    kernel: a thread writes 16 bytes of a row, so a block's strip is
+    NTHREADS x (8 bf16 or 4 f32) columns, and a frame's rows are cut so that
+    about SCATTER_BLOCKS blocks run (R = 1500 at the hop's D = 2048: 500)."""
+    strip = NTHREADS * (16 // torch.tensor([], dtype=out_dtype).element_size())
+    strips = _cdiv(D, strip)
+    row_groups = min(R, max(1, _cdiv(SCATTER_BLOCKS, strips)))
+    return strip, strips, max(_cdiv(R, row_groups), _cdiv(R, MAX_GRID_Y))
 
 
 def _scatter_mode(src, out_dtype, scale, bias, gs, R, K) -> Tuple[int, torch.dtype]:

@@ -23,10 +23,14 @@
 //     blocks to fill the card at small C; each split writes its partial sums
 //     and a second pass adds them in split order.  No float atomics: the sums
 //     are the same bits on every run, so the top-k that follows is steady.
-//   - the scatter writes every output element exactly once (zeros included):
-//     a block owns a strip of 256 output columns, finds the kept columns that
-//     fall in it by binary search of the sorted `idx`, maps them in shared
-//     memory, and writes its rows coalesced; no separate zero fill.
+//   - the scatter writes every output element exactly once (zeros included),
+//     16 bytes a thread a row (8 bf16 or 4 f32 columns; element stores where
+//     D is not a multiple of that, so a row start is not 16-byte aligned): a
+//     block owns a strip of 256 such column groups, maps the kept columns
+//     that fall in it in shared memory from the slice of the sorted `idx`
+//     that can reach it (one coalesced load a thread, no dependent search),
+//     and writes a few rows; a thread reads a (row, group) scale and bias
+//     once for the columns of that group it writes.  No separate zero fill.
 //   - the dequant is written with __fmul_rn/__fadd_rn so nvcc cannot contract
 //     it into an FMA: it equals the plain version's `codes.float() * scale +
 //     bias` bit for bit.
@@ -94,46 +98,130 @@ constexpr int MODE_SCATTER = 0;
 constexpr int MODE_TENSOR = 1;
 constexpr int MODE_GROUP = 2;
 
+// 16 bytes of T from VEC floats, each rounded to T as torch's cast rounds
+template <typename T> struct Pack16;
+template <> struct Pack16<float> {
+  static __device__ __forceinline__ void store(float* dst, const float* y) {
+    *reinterpret_cast<float4*>(dst) = make_float4(y[0], y[1], y[2], y[3]);
+  }
+};
+template <> struct Pack16<__nv_bfloat16> {
+  static __device__ __forceinline__ void store(__nv_bfloat16* dst, const float* y) {
+    uint4 u;
+    __nv_bfloat162* w = reinterpret_cast<__nv_bfloat162*>(&u);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) w[i] = __floats2bfloat162_rn(y[2 * i], y[2 * i + 1]);
+    *reinterpret_cast<uint4*>(dst) = u;
+  }
+};
+
 template <typename T, int MODE>
 __global__ void __launch_bounds__(NTHREADS)
 dequant_scatter_kernel(const void* __restrict__ src, const float* __restrict__ scale,
                        const float* __restrict__ bias, const int* __restrict__ idx,
                        T* __restrict__ out, int R, int D, int K, int gs, int G,
                        int rows_per_block) {
-  __shared__ int kept_at[NTHREADS];  // strip column -> kept index, or -1
-  __shared__ int bounds[2];
-  const int c0 = blockIdx.x * NTHREADS;
-  if (threadIdx.x < 2) {
-    // first kept index whose column is >= the strip's start (resp. end)
-    const int target = c0 + threadIdx.x * NTHREADS;
-    int lo = 0, hi = K;
-    while (lo < hi) {
-      const int mid = (lo + hi) >> 1;
-      if (idx[mid] < target) lo = mid + 1; else hi = mid;
-    }
-    bounds[threadIdx.x] = lo;
+  constexpr int VEC = dnet::Vec16<T>::N;  // columns a thread writes a row: 16 bytes
+  constexpr int W = NTHREADS * VEC;       // a block's strip: 2,048 bf16 or 1,024 f32 columns
+  __shared__ __align__(16) int kept_at[W];  // strip column -> kept index, or -1
+  const int c0 = blockIdx.x * W;
+#pragma unroll
+  for (int e = 0; e < VEC; ++e) kept_at[e * NTHREADS + threadIdx.x] = -1;
+  __syncthreads();
+  // idx is sorted and unique in [0, D), so idx[j] >= j and idx[j] <= D - K + j:
+  // only j in [c0 - (D - K), c0 + W) can land in the strip.  Every thread
+  // loads its share of that slice at once (coalesced; no dependent search).
+  const int j_end = min(K, c0 + W);
+#pragma unroll 4
+  for (int j = max(0, c0 - (D - K)) + threadIdx.x; j < j_end; j += NTHREADS) {
+    const int c = idx[j] - c0;
+    if (c >= 0 && c < W) kept_at[c] = j;
   }
-  kept_at[threadIdx.x] = -1;
   __syncthreads();
-  for (int j = bounds[0] + threadIdx.x; j < bounds[1]; j += NTHREADS) kept_at[idx[j] - c0] = j;
-  __syncthreads();
-  const int c = c0 + threadIdx.x;
+  const int c = c0 + threadIdx.x * VEC;  // this thread's first column
   if (c >= D) return;
-  const int j = kept_at[threadIdx.x];
+  int jv[VEC];
+  {
+    const int4* m = reinterpret_cast<const int4*>(kept_at + threadIdx.x * VEC);
+#pragma unroll
+    for (int e = 0; e < VEC; e += 4) {
+      const int4 x = m[e / 4];
+      jv[e] = x.x; jv[e + 1] = x.y; jv[e + 2] = x.z; jv[e + 3] = x.w;
+    }
+  }
+  // MODE_GROUP: this thread's kept columns fall in groups g0 and g0 + 1
+  // whenever gs >= VEC - 1 (the hop's 16 and 64); their scales and biases
+  // are read once a row, and a column in any later group reads its own.  A
+  // power-of-two gs (the codec's) shifts: dividing by a runtime gs cost more
+  // than the rest of a decode hop's call on the card.
+  int g0 = -1, gsel[VEC];
+  bool need1 = false;
+  const int gsh = MODE == MODE_GROUP && (gs & (gs - 1)) == 0 ? __ffs(gs) - 1 : -1;
+#pragma unroll
+  for (int e = 0; e < VEC; ++e) {
+    gsel[e] = 0;
+    if (MODE == MODE_GROUP && jv[e] >= 0) {
+      const int gj = gsh >= 0 ? jv[e] >> gsh : jv[e] / gs;
+      if (g0 < 0) g0 = gj;
+      gsel[e] = gj - g0;
+      need1 |= gsel[e] == 1;
+    }
+  }
+  // 16-byte stores where every row's VEC columns are in bounds and aligned
+  const bool vec_ok = D % VEC == 0;
   const int r0 = blockIdx.y * rows_per_block;
   const int r1 = min(R, r0 + rows_per_block);
+  float sc0 = 0.f, bi0 = 0.f, sc1 = 0.f, bi1 = 0.f;
+  if (MODE == MODE_TENSOR) {
+    sc0 = scale[0];
+    bi0 = bias[0];
+  }
   for (int r = r0; r < r1; ++r) {
-    T v;
-    if (j < 0) {
-      v = dnet::from_float<T>(0.f);
-    } else if (MODE == MODE_SCATTER) {
-      v = static_cast<const T*>(src)[(long)r * K + j];
-    } else {
-      const float code = static_cast<float>(static_cast<const uint8_t*>(src)[(long)r * K + j]);
-      const long p = MODE == MODE_TENSOR ? 0 : (long)r * G + j / gs;
-      v = dnet::from_float<T>(__fadd_rn(__fmul_rn(code, scale[p]), bias[p]));
+    T* orow = out + (long)r * D + c;
+    if (MODE == MODE_SCATTER) {
+      __align__(16) T x[VEC];
+#pragma unroll
+      for (int e = 0; e < VEC; ++e)
+        x[e] = jv[e] >= 0 ? static_cast<const T*>(src)[(long)r * K + jv[e]] : dnet::from_float<T>(0.f);
+      if (vec_ok) {
+        *reinterpret_cast<uint4*>(orow) = *reinterpret_cast<const uint4*>(x);
+      } else {
+#pragma unroll
+        for (int e = 0; e < VEC; ++e)
+          if (c + e < D) orow[e] = x[e];
+      }
+      continue;
     }
-    out[(long)r * D + c] = v;
+    // every load of the row first, then the arithmetic and the store
+    unsigned code[VEC];
+#pragma unroll
+    for (int e = 0; e < VEC; ++e)
+      code[e] = jv[e] >= 0 ? static_cast<const uint8_t*>(src)[(long)r * K + jv[e]] : 0u;
+    if (MODE == MODE_GROUP && g0 >= 0) {
+      sc0 = scale[(long)r * G + g0];
+      bi0 = bias[(long)r * G + g0];
+      if (need1) {
+        sc1 = scale[(long)r * G + g0 + 1];
+        bi1 = bias[(long)r * G + g0 + 1];
+      }
+    }
+    float y[VEC];
+#pragma unroll
+    for (int e = 0; e < VEC; ++e) {
+      float sc = gsel[e] == 1 ? sc1 : sc0, bi = gsel[e] == 1 ? bi1 : bi0;
+      if (gsel[e] > 1) {
+        sc = scale[(long)r * G + g0 + gsel[e]];
+        bi = bias[(long)r * G + g0 + gsel[e]];
+      }
+      y[e] = jv[e] >= 0 ? __fadd_rn(__fmul_rn(static_cast<float>(code[e]), sc), bi) : 0.f;
+    }
+    if (vec_ok) {
+      Pack16<T>::store(orow, y);
+    } else {
+#pragma unroll
+      for (int e = 0; e < VEC; ++e)
+        if (c + e < D) orow[e] = dnet::from_float<T>(y[e]);
+    }
   }
 }
 
@@ -141,7 +229,8 @@ template <typename T>
 int launch_dequant_scatter(int mode, const void* src, const float* scale, const float* bias,
                            const int* idx, void* out, int R, int D, int K, int gs, int G,
                            int rows_per_block, cudaStream_t st) {
-  const dim3 grid((D + NTHREADS - 1) / NTHREADS, (R + rows_per_block - 1) / rows_per_block);
+  constexpr int W = NTHREADS * dnet::Vec16<T>::N;
+  const dim3 grid((D + W - 1) / W, (R + rows_per_block - 1) / rows_per_block);
   T* o = static_cast<T*>(out);
   if (mode == MODE_SCATTER) {
     dequant_scatter_kernel<T, MODE_SCATTER><<<grid, NTHREADS, 0, st>>>(

@@ -1,6 +1,7 @@
 // Helpers shared by the port's attention kernels: 16-byte vector loads of
-// bf16/f32 rows into float registers, stores back in the tensor's type, and
-// the staging of a [ROWS, D] tile from device memory into shared memory.
+// bf16/f32 rows into float registers, stores back in the tensor's type, the
+// staging of a [ROWS, D] tile from device memory into shared memory, and
+// 16-byte asynchronous copies (cp.async) into shared memory.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -81,6 +82,23 @@ __device__ __forceinline__ void stage_tile(float* dst, int ld, const T* src, lon
       }
     }
   }
+}
+
+// 16 bytes from src to shared memory at dst without passing through
+// registers; ok == false zero-fills dst and reads nothing (src may then be
+// any valid pointer), so a ragged edge never reads a dead or foreign row.
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool ok) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d), "l"(src), "r"(ok ? 16 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_commit() { asm volatile("cp.async.commit_group;\n" ::: "memory"); }
+
+// wait until at most N of this thread's committed copy groups are in flight
+template <int N>
+__device__ __forceinline__ void cp_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
 }  // namespace dnet

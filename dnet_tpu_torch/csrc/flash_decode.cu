@@ -104,6 +104,9 @@
 namespace {
 
 using dnet::NEG_INF;
+using dnet::cp_async16;
+using dnet::cp_commit;
+using dnet::cp_wait;
 
 constexpr int NTHREADS = 256;      // 8 warps
 constexpr int NWARPS = NTHREADS / 32;
@@ -154,24 +157,12 @@ struct Cfg {
   static_assert(UQ * 8 * LPK == DQK && UV * 8 * LPK == DV, "head dims are multiples of 64");
 };
 
-__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool ok) {
-  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d), "l"(src), "r"(ok ? 16 : 0)
-               : "memory");
-}
-
 __device__ __forceinline__ void cp_async4(void* dst, const void* src, bool ok) {
   const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
   asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(d), "l"(src), "r"(ok ? 4 : 0)
                : "memory");
 }
 
-__device__ __forceinline__ void cp_commit() { asm volatile("cp.async.commit_group;\n" ::: "memory"); }
-
-template <int N>
-__device__ __forceinline__ void cp_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
 
 // Values 8u .. 8u + 7 of a row in shared memory, as the cache stores them,
 // to f32 (codes times the row's scale s).

@@ -5,23 +5,60 @@
 // [0, pos + i]; online softmax (m, l, acc) in f32; per-head sink logits folded
 // into the denominator once, at emit.  Layouts are the reference's native ones:
 // q [B, T, H, DQK], k [B, S, KVH, DQK], v [B, S, KVH, DV], o [B, T, H, DV];
-// head h reads KV head h / (H / KVH).  DV may differ from DQK (MLA:
+// head h reads KV head h / G (G = H / KVH).  DV may differ from DQK (MLA:
 // deepseek_v2 attends with DQK = 192, nope 128 + rope 64, and DV = 128,
-// dnet_tpu/ops/flash_attention.py:42-46): the score loop runs over DQK, the
-// V tile, the accumulator and the output over DV.
+// dnet_tpu/ops/flash_attention.py:42-46): the scores run over DQK, the V
+// tile, the accumulator and the output over DV.  Width pairs (DQK, DV):
+// (64, 64), (128, 128), (192, 128).
 //
 // What bounds it on an H100: at prefill widths (T >= 16) the work is
-// T * keys * (DQK + DV) multiply-adds per head, far above the card's
-// bytes-to-operations balance point, so it is bound by arithmetic.  This first version does that
-// arithmetic with f32 FMAs on the CUDA cores (both for bf16 and f32 inputs),
-// not on the tensor cores: it is simple and exact to f32, and a later change
-// can move the two products to mma/wgmma.  What the design does about the
-// bound: each block keeps a 64-row Q tile in shared memory and streams 64-key
-// K/V tiles past it, so every K/V element read from device memory feeds 64
-// query rows; each thread computes a 4x4 register tile of scores and a 4-row
-// slice of the output accumulator, so shared-memory loads are amortised over
-// 16 (QK) and 4*DV/16 (PV) multiply-adds.  At (DQK, DV) = (192, 128) the
-// tiles take 155,648 bytes of shared memory, one block per SM.
+// T * keys * (DQK + DV) multiply-adds per head, far above the card's ~295
+// operations a byte, so it is bound by arithmetic: by the tensor cores for
+// bf16 inputs, by the CUDA cores' f32 FMAs for f32 inputs.
+//
+// bf16 inputs (`flash_prefill_tc_kernel`), in the FlashAttention-2 manner:
+//   - Heads stacked into rows.  The G query heads that share a KV head fill
+//     one tile's rows, packed row = t * G + g, so each K/V byte copied feeds
+//     G times the rows and a T = 16 chunk at G = 4 fills a 64-row tile.  A
+//     block owns a tile of 64 packed rows of one (batch, KV head), or of 128
+//     at (64, 64) when that still gives TC_WIDE_BLOCKS (264) blocks, two an
+//     SM: fewer blocks left SMs idle at T <= 512 on the card, more rows a
+//     warp paid at T = 2048.  Blocks run the latest (heaviest) row tile
+//     first, so the causal imbalance leaves no tail.  ops/flash_attention.py
+//     `prefill_plan` states this layout for the CPU tests.
+//   - Both products on the tensor cores, mma.sync m16n8k16 bf16 -> f32, with
+//     operands loaded by ldmatrix (.trans for V).  Each of 4 warps owns one
+//     or two 16-row m-atoms (each K/V fragment loaded then feeds both) and
+//     keeps their Q fragments in registers for the whole key loop; S = Q K^T
+//     accumulates in f32 registers; P is packed to bf16 in registers and fed
+//     straight back as the A operand of P V; O stays in f32 registers.
+//   - K/V tiles of 64 keys stay bf16 in shared memory, two stages deep, each
+//     copied with 16-byte cp.async, so the next tile's copy overlaps this
+//     tile's products; rows are padded by 16 bytes so that ldmatrix is free
+//     of bank conflicts.  Keys at or past the block's last attended slot and
+//     rows past T * G are zero-filled, never read: a dead cache slot (any bit
+//     pattern, NaN included) never meets a zero of P.  Shared memory:
+//     46,080 bytes at (64, 64) (55,296 with 128-row tiles), 87,040 at
+//     (128, 128), 111,616 at (192, 128): two blocks an SM.
+//   - Masks only where needed: key tiles wholly at or below every row's
+//     causal limit take none; the diagonal tile and the T and S edges are
+//     masked in registers; a warp skips the tiles wholly past its own rows,
+//     and the block's loop stops at pos + (its last row's t).
+//   - The softmax in registers: the row max over the raw f32 scores, then
+//     p = 2^(s * scale * log2(e) - m * scale * log2(e)): one FMA and one
+//     ex2.approx (relative error about 2^-22) a score.
+//   Rounding: q and k enter the product as they are stored (products exact,
+//   summed in f32 in another order than the plain version); the softmax
+//   scale multiplies the f32 scores, never q in bf16; P rounded to bf16 for
+//   the P V product is the one rounding the plain version, which keeps p in
+//   f32, does not make.  The row sums l are taken from the unrounded p.
+//
+// f32 inputs (`flash_prefill_f32_kernel`): the exact CUDA-core fold of the
+// port's first version (TF32 would keep 10 mantissa bits): a 64-row Q tile of
+// one head in shared memory, q pre-scaled, 64-key K/V tiles widened to f32
+// past it; each thread computes a 4x4 register tile of scores and a 4-row
+// slice of the output, so shared-memory loads are amortised over 16 (QK) and
+// 4*DV/16 (PV) multiply-adds.  155,648 bytes of shared memory at (192, 128).
 //
 // TPU -> GPU translation: the TPU's sequential last grid axis (kv tiles, with
 // the accumulator in VMEM scratch) becomes a loop inside the block; the
@@ -34,6 +71,336 @@
 namespace {
 
 using dnet::NEG_INF;
+using dnet::cp_async16;
+using dnet::cp_commit;
+using dnet::cp_wait;
+using bf16 = __nv_bfloat16;
+
+constexpr float LOG2E = 1.4426950408889634f;
+
+// ---- bf16: tensor cores ------------------------------------------------------
+
+constexpr int TC_KEYS = 64;    // keys a tile
+constexpr int TC_WARPS = 4;    // 16 * MA packed rows each
+constexpr int TC_THREADS = 32 * TC_WARPS;
+constexpr int TC_WIDE_BLOCKS = 2 * 132;  // 128-row tiles at (64, 64) from this many blocks
+
+// MA: 16-row m-atoms a warp owns (a block's tile is 64 * MA packed rows)
+template <int DQK, int DV, int MA>
+struct TcLayout {
+  static constexpr int ROWS = TC_WARPS * 16 * MA;
+  // bf16 elements; every row padded by 8 (16 bytes), so the 8 rows one
+  // ldmatrix reads start in 8 different 16-byte bank groups
+  static constexpr int LDQ = DQK + 8;
+  static constexpr int LDV = DV + 8;
+  static constexpr int Q_ELEMS = ROWS * LDQ;
+  static constexpr int K_ELEMS = TC_KEYS * LDQ;
+  static constexpr int V_ELEMS = TC_KEYS * LDV;
+  static constexpr int STAGE = K_ELEMS + V_ELEMS;
+  static constexpr int STAGES = 2;
+  static constexpr size_t BYTES = (size_t)(Q_ELEMS + STAGES * STAGE) * sizeof(bf16);
+  static_assert(DQK % 16 == 0 && DV % 16 == 0, "head dims are multiples of 16");
+};
+
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+__device__ __forceinline__ unsigned smem_addr(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+
+// four 8x8 b16 matrices; lanes 8i .. 8i + 7 give matrix i's row addresses
+__device__ __forceinline__ void ldsm_x4(const bf16* p, unsigned& r0, unsigned& r1, unsigned& r2,
+                                        unsigned& r3) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r0), "=r"(r1), "=r"(r2), "=r"(r3)
+               : "r"(smem_addr(p)));
+}
+
+__device__ __forceinline__ void ldsm_x4_trans(const bf16* p, unsigned& r0, unsigned& r1,
+                                              unsigned& r2, unsigned& r3) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r0), "=r"(r1), "=r"(r2), "=r"(r3)
+               : "r"(smem_addr(p)));
+}
+
+// d += a (16x16, row-major) * b (16x8, column-major), bf16 in, f32 sums
+__device__ __forceinline__ void mma_bf16(float* d, const unsigned* a, unsigned b0, unsigned b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// two f32 -> one register of two bf16 (lo in the low half: the lower column)
+__device__ __forceinline__ unsigned pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const unsigned*>(&v);
+}
+
+// Fragment layouts (PTX ISA, mma.m16n8k16): lane = 4 * grp + quad.  A (16x16)
+// a0: row grp, cols 2quad..+1; a1: row grp+8; a2: row grp, cols 8+2quad..;
+// a3: row grp+8, cols 8+2quad...  B (16x8): b0: rows 2quad..+1, col grp;
+// b1: rows 8+2quad...  C (16x8): c0, c1: row grp, cols 2quad..+1; c2, c3: row
+// grp+8.  So the C fragments of two neighbouring 8-key score tiles are,
+// packed to bf16, the A fragment of P over those 16 keys.
+template <int DQK, int DV, int MA>
+__global__ void __launch_bounds__(TC_THREADS, 2)
+flash_prefill_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                        const bf16* __restrict__ v, bf16* __restrict__ o,
+                        const float* __restrict__ sinks, int T_len, int H, int KVH, int S, int pos,
+                        float scale, int row_tiles) {
+  using L = TcLayout<DQK, DV, MA>;
+  constexpr int ROWS = L::ROWS, STAGES = L::STAGES;
+  constexpr int NT = TC_KEYS / 8;  // 8-key score tiles a key tile
+  constexpr int KQ = DQK / 16;     // 16-deep steps of Q K^T
+  constexpr int NO = DV / 8;       // 8-column output tiles
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* Qs = reinterpret_cast<bf16*>(smem_raw);
+  bf16* ring = Qs + L::Q_ELEMS;
+
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5, lane = tid & 31;
+  const int grp = lane >> 2, quad = lane & 3;
+  const int G = H / KVH;
+  const int rows = T_len * G;
+  // prefill_plan's order: block i takes row tile row_tiles - 1 - i / (KVH * B)
+  const int groups = gridDim.x / row_tiles;
+  const int tile = row_tiles - 1 - (int)(blockIdx.x / groups);
+  const int kvh = (int)(blockIdx.x % groups) % KVH;
+  const int b = (int)(blockIdx.x % groups) / KVH;
+  const int r0 = tile * ROWS;
+  const int t_last = (min(r0 + ROWS, rows) - 1) / G;
+  const int key_end = pos + t_last + 1;  // <= S: the wrapper checks pos + T <= S
+  const int n_tiles = (key_end + TC_KEYS - 1) / TC_KEYS;
+
+  const long k_stride = (long)KVH * DQK;
+  const long v_stride = (long)KVH * DV;
+  const bf16* kb = k + ((long)b * S * KVH + kvh) * DQK;
+  const bf16* vb = v + ((long)b * S * KVH + kvh) * DV;
+
+  // Q rows, zero past T * G; then K/V tiles, zero at and past key_end
+  constexpr int QC = DQK / 8, VC = DV / 8;  // 16-byte chunks a row
+  for (int i = tid; i < ROWS * QC; i += TC_THREADS) {
+    const int r = i / QC, c = i % QC;
+    const int R = r0 + r;
+    const bool ok = R < rows;
+    const bf16* src = ok ? q + (((long)b * T_len + R / G) * H + (long)kvh * G + R % G) * DQK + c * 8 : q;
+    cp_async16(Qs + r * L::LDQ + c * 8, src, ok);
+  }
+  auto load_kv = [&](int kt) {
+    bf16* st = ring + (kt % STAGES) * L::STAGE;
+    const int k0 = kt * TC_KEYS;
+    for (int i = tid; i < TC_KEYS * QC; i += TC_THREADS) {
+      const int j = i / QC, c = i % QC;
+      const bool ok = k0 + j < key_end;
+      cp_async16(st + j * L::LDQ + c * 8, ok ? kb + (long)(k0 + j) * k_stride + c * 8 : kb, ok);
+    }
+    bf16* vs = st + L::K_ELEMS;
+    for (int i = tid; i < TC_KEYS * VC; i += TC_THREADS) {
+      const int j = i / VC, c = i % VC;
+      const bool ok = k0 + j < key_end;
+      cp_async16(vs + j * L::LDV + c * 8, ok ? vb + (long)(k0 + j) * v_stride + c * 8 : vb, ok);
+    }
+  };
+#pragma unroll
+  for (int st = 0; st < STAGES - 1; ++st) {
+    if (st < n_tiles) load_kv(st);
+    cp_commit();
+  }
+
+  // this warp's 16 * MA rows: the thread holds rows grp and grp + 8 of each m-atom
+  const int wr0 = r0 + warp * 16 * MA;
+  const bool active = wr0 < rows;
+  const int wt_first = wr0 / G;
+  const int wt_last = (min(wr0 + 16 * MA, rows) - 1) / G;
+  const int warp_tiles = active ? (pos + wt_last) / TC_KEYS + 1 : 0;
+  const int warp_full = (pos + wt_first + 1) / TC_KEYS;  // tiles [0, warp_full) need no mask
+  int q_lim[MA][2];
+#pragma unroll
+  for (int a = 0; a < MA; ++a) {
+    q_lim[a][0] = pos + (wr0 + 16 * a + grp) / G;
+    q_lim[a][1] = pos + (wr0 + 16 * a + grp + 8) / G;
+  }
+  const float sl2 = scale * LOG2E;
+
+  unsigned qf[MA][KQ][4];
+  float oacc[MA][NO][4];
+  float m[MA][2], l[MA][2];  // l: this thread's share of its rows' sums
+#pragma unroll
+  for (int a = 0; a < MA; ++a) {
+#pragma unroll
+    for (int n = 0; n < NO; ++n) oacc[a][n][0] = oacc[a][n][1] = oacc[a][n][2] = oacc[a][n][3] = 0.f;
+    m[a][0] = m[a][1] = NEG_INF;
+    l[a][0] = l[a][1] = 0.f;
+  }
+
+  for (int kt = 0; kt < n_tiles; ++kt) {
+    cp_wait<STAGES - 2>();  // this thread's copies of tile kt (and Q) have landed
+    __syncthreads();        // everyone's have, and tile kt - 1's stage is free
+    if (kt == 0) {
+#pragma unroll
+      for (int a = 0; a < MA; ++a)
+#pragma unroll
+        for (int kk = 0; kk < KQ; ++kk)
+          ldsm_x4(Qs + (warp * 16 * MA + 16 * a + (lane & 15)) * L::LDQ + kk * 16 + (lane >> 4) * 8, qf[a][kk][0],
+                  qf[a][kk][1], qf[a][kk][2], qf[a][kk][3]);
+    }
+    if (kt + STAGES - 1 < n_tiles) load_kv(kt + STAGES - 1);
+    cp_commit();
+    if (kt >= warp_tiles) continue;
+    const bf16* Ks = ring + (kt % STAGES) * L::STAGE;
+    const bf16* Vs = Ks + L::K_ELEMS;
+
+    float s[MA][NT][4];
+#pragma unroll
+    for (int a = 0; a < MA; ++a)
+#pragma unroll
+      for (int n = 0; n < NT; ++n) s[a][n][0] = s[a][n][1] = s[a][n][2] = s[a][n][3] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < KQ; ++kk) {
+#pragma unroll
+      for (int np = 0; np < NT / 2; ++np) {
+        unsigned b0, b1, b2, b3;  // one K fragment feeds every m-atom
+        ldsm_x4(Ks + (np * 16 + (lane >> 4) * 8 + (lane & 7)) * L::LDQ + kk * 16 + ((lane >> 3) & 1) * 8, b0,
+                b1, b2, b3);
+#pragma unroll
+        for (int a = 0; a < MA; ++a) {
+          mma_bf16(s[a][2 * np], qf[a][kk], b0, b1);
+          mma_bf16(s[a][2 * np + 1], qf[a][kk], b2, b3);
+        }
+      }
+    }
+
+    // the diagonal tile and the T / S edges masked; the row max on raw scores
+    const bool masked = kt >= warp_full;
+#pragma unroll
+    for (int a = 0; a < MA; ++a) {
+      float mt[2] = {NEG_INF, NEG_INF};
+#pragma unroll
+      for (int n = 0; n < NT; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          if (masked && kt * TC_KEYS + n * 8 + 2 * quad + (e & 1) > q_lim[a][e >> 1]) s[a][n][e] = NEG_INF;
+          mt[e >> 1] = fmaxf(mt[e >> 1], s[a][n][e]);
+        }
+      float corr[2], ms[2];
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        // the 4 lanes of a row are quad 0..3 of one grp
+        mt[i] = fmaxf(mt[i], __shfl_xor_sync(0xffffffffu, mt[i], 1));
+        mt[i] = fmaxf(mt[i], __shfl_xor_sync(0xffffffffu, mt[i], 2));
+        const float m_new = fmaxf(m[a][i], mt[i]);
+        corr[i] = ex2((m[a][i] - m_new) * sl2);
+        m[a][i] = m_new;
+        ms[i] = m_new * sl2;
+        l[a][i] *= corr[i];
+      }
+#pragma unroll
+      for (int n = 0; n < NO; ++n) {
+        oacc[a][n][0] *= corr[0];
+        oacc[a][n][1] *= corr[0];
+        oacc[a][n][2] *= corr[1];
+        oacc[a][n][3] *= corr[1];
+      }
+#pragma unroll
+      for (int n = 0; n < NT; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const float p = ex2(fmaf(s[a][n][e], sl2, -ms[e >> 1]));
+          s[a][n][e] = p;
+          l[a][e >> 1] += p;
+        }
+    }
+
+    // O += P V, P in bf16 straight from the score registers
+#pragma unroll
+    for (int kk = 0; kk < TC_KEYS / 16; ++kk) {
+      unsigned pa[MA][4];
+#pragma unroll
+      for (int a = 0; a < MA; ++a) {
+        pa[a][0] = pack_bf16(s[a][2 * kk][0], s[a][2 * kk][1]);
+        pa[a][1] = pack_bf16(s[a][2 * kk][2], s[a][2 * kk][3]);
+        pa[a][2] = pack_bf16(s[a][2 * kk + 1][0], s[a][2 * kk + 1][1]);
+        pa[a][3] = pack_bf16(s[a][2 * kk + 1][2], s[a][2 * kk + 1][3]);
+      }
+#pragma unroll
+      for (int dp = 0; dp < NO / 2; ++dp) {
+        unsigned b0, b1, b2, b3;
+        ldsm_x4_trans(Vs + (kk * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * L::LDV + dp * 16 + (lane >> 4) * 8,
+                      b0, b1, b2, b3);
+#pragma unroll
+        for (int a = 0; a < MA; ++a) {
+          mma_bf16(oacc[a][2 * dp], pa[a], b0, b1);
+          mma_bf16(oacc[a][2 * dp + 1], pa[a], b2, b3);
+        }
+      }
+    }
+  }
+  if (!active) return;
+
+  // emit: fold the sink (NEG_INF = none) into the denominator exactly once
+#pragma unroll
+  for (int a = 0; a < MA; ++a)
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      float li = l[a][i];
+      li += __shfl_xor_sync(0xffffffffu, li, 1);
+      li += __shfl_xor_sync(0xffffffffu, li, 2);
+      const int R = wr0 + 16 * a + grp + 8 * i;
+      if (R >= rows) continue;
+      const int t = R / G, h = kvh * G + R % G;
+      const float sink = sinks ? sinks[h] * LOG2E : NEG_INF;
+      const float m2 = m[a][i] * sl2;
+      const float m_fin = fmaxf(m2, sink);
+      const float c = exp2f(m2 - m_fin);
+      const float inv = c / fmaxf(li * c + exp2f(sink - m_fin), 1e-30f);
+      bf16* orow = o + (((long)b * T_len + t) * H + h) * DV + 2 * quad;
+#pragma unroll
+      for (int n = 0; n < NO; ++n)
+        *reinterpret_cast<__nv_bfloat162*>(orow + n * 8) =
+            __floats2bfloat162_rn(oacc[a][n][2 * i] * inv, oacc[a][n][2 * i + 1] * inv);
+    }
+}
+
+template <int DQK, int DV, int MA>
+int launch_tc_tiles(const void* q, const void* k, const void* v, void* o, const float* sinks, int B,
+                    int T_len, int H, int KVH, int S, int pos, float scale, cudaStream_t stream) {
+  using L = TcLayout<DQK, DV, MA>;
+  const size_t smem = L::BYTES;
+  cudaError_t err = cudaFuncSetAttribute(flash_prefill_tc_kernel<DQK, DV, MA>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  const int row_tiles = (T_len * (H / KVH) + L::ROWS - 1) / L::ROWS;
+  const long blocks = (long)row_tiles * KVH * B;
+  if (blocks > 0x7fffffffL) return -1;
+  flash_prefill_tc_kernel<DQK, DV, MA><<<(unsigned)blocks, TC_THREADS, smem, stream>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
+      static_cast<bf16*>(o), sinks, T_len, H, KVH, S, pos, scale, row_tiles);
+  return (int)cudaGetLastError();
+}
+
+// prefill_plan's choice: at (64, 64), 128-row tiles (two m-atoms a warp: each
+// K/V fragment feeds two products) once they still give TC_WIDE_BLOCKS
+// blocks, two an SM; 64-row tiles otherwise, and at the wider pairs, whose
+// registers hold one m-atom a warp
+template <int DQK, int DV>
+int launch_tc(const void* q, const void* k, const void* v, void* o, const float* sinks, int B,
+              int T_len, int H, int KVH, int S, int pos, float scale, cudaStream_t stream) {
+  if constexpr (DQK == 64 && DV == 64) {
+    constexpr int WIDE = TcLayout<DQK, DV, 2>::ROWS;
+    const long wide_blocks = (long)((T_len * (H / KVH) + WIDE - 1) / WIDE) * KVH * B;
+    if (wide_blocks >= TC_WIDE_BLOCKS)
+      return launch_tc_tiles<DQK, DV, 2>(q, k, v, o, sinks, B, T_len, H, KVH, S, pos, scale, stream);
+  }
+  return launch_tc_tiles<DQK, DV, 1>(q, k, v, o, sinks, B, T_len, H, KVH, S, pos, scale, stream);
+}
+
+// ---- f32: CUDA-core FMAs -----------------------------------------------------
 
 constexpr int BQ = 64;        // query rows per block
 constexpr int BK = 64;        // keys per tile
@@ -53,11 +420,12 @@ struct Layout {
   static constexpr size_t BYTES = FLOATS * sizeof(float);
 };
 
-template <typename T, int DQK, int DV>
+template <int DQK, int DV>
 __global__ void __launch_bounds__(NTHREADS)
-flash_prefill_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-                     T* __restrict__ o, const float* __restrict__ sinks, int T_len, int H,
-                     int KVH, int S, int pos, float scale) {
+flash_prefill_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                         const float* __restrict__ v, float* __restrict__ o,
+                         const float* __restrict__ sinks, int T_len, int H, int KVH, int S, int pos,
+                         float scale) {
   using L = Layout<DQK, DV>;
   constexpr int DC = DV / 16;  // output columns per thread
   extern __shared__ __align__(16) float smem[];
@@ -82,11 +450,11 @@ flash_prefill_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* 
   const long q_stride = (long)H * DQK;
   const long k_stride = (long)KVH * DQK;
   const long v_stride = (long)KVH * DV;
-  const T* qb = q + (((long)b * T_len + q0) * H + h) * DQK;
-  const T* kb = k + ((long)b * S * KVH + kvh) * DQK;
-  const T* vb = v + ((long)b * S * KVH + kvh) * DV;
+  const float* qb = q + (((long)b * T_len + q0) * H + h) * DQK;
+  const float* kb = k + ((long)b * S * KVH + kvh) * DQK;
+  const float* vb = v + ((long)b * S * KVH + kvh) * DV;
 
-  dnet::stage_tile<T, DQK, BQ, true>(Qs, L::LDQ, qb, q_stride, q_rows, scale);
+  dnet::stage_tile<float, DQK, BQ, true>(Qs, L::LDQ, qb, q_stride, q_rows, scale);
 
   float m[4], l[4], acc[4][DC];
 #pragma unroll
@@ -100,9 +468,9 @@ flash_prefill_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* 
   for (int tile = 0; tile < n_tiles; ++tile) {
     const int k0 = tile * BK;
     __syncthreads();  // previous tile's Ks/Vs/Ps fully consumed
-    const int kv_rows = min(BK, S - k0);
-    dnet::stage_tile<T, DQK, BK, true>(Ks, L::LDK, kb + (long)k0 * k_stride, k_stride, kv_rows, 1.f);
-    dnet::stage_tile<T, DV, BK, false>(Vs, L::LDV, vb + (long)k0 * v_stride, v_stride, kv_rows, 1.f);
+    const int kv_rows = min(BK, key_end - k0);  // zeros at and past key_end: no dead slot is read
+    dnet::stage_tile<float, DQK, BK, true>(Ks, L::LDK, kb + (long)k0 * k_stride, k_stride, kv_rows, 1.f);
+    dnet::stage_tile<float, DV, BK, false>(Vs, L::LDV, vb + (long)k0 * v_stride, v_stride, kv_rows, 1.f);
     __syncthreads();
 
     float s[4][4];
@@ -187,38 +555,35 @@ flash_prefill_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* 
     const float m_fin = fmaxf(m[i], sink);
     const float corr = expf(m[i] - m_fin);
     const float l_fin = fmaxf(l[i] * corr + expf(sink - m_fin), 1e-30f);
-    T* orow = o + (((long)b * T_len + row) * H + h) * DV + tx * DC;
+    float* orow = o + (((long)b * T_len + row) * H + h) * DV + tx * DC;
 #pragma unroll
-    for (int c = 0; c < DC; ++c) orow[c] = dnet::from_float<T>(acc[i][c] * corr / l_fin);
+    for (int c = 0; c < DC; ++c) orow[c] = acc[i][c] * corr / l_fin;
   }
 }
 
-template <typename T, int DQK, int DV>
-int launch(const void* q, const void* k, const void* v, void* o, const float* sinks, int B,
-           int T_len, int H, int KVH, int S, int pos, float scale, cudaStream_t stream) {
+template <int DQK, int DV>
+int launch_f32(const void* q, const void* k, const void* v, void* o, const float* sinks, int B,
+               int T_len, int H, int KVH, int S, int pos, float scale, cudaStream_t stream) {
   const size_t smem = Layout<DQK, DV>::BYTES;
   // above 48 KB of dynamic shared memory a kernel must opt in (per device,
   // so on every launch: the call is cheap and does not synchronise)
-  cudaError_t err = cudaFuncSetAttribute(flash_prefill_kernel<T, DQK, DV>,
+  cudaError_t err = cudaFuncSetAttribute(flash_prefill_f32_kernel<DQK, DV>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid((T_len + BQ - 1) / BQ, H, B);
-  flash_prefill_kernel<T, DQK, DV><<<grid, NTHREADS, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<T*>(o), sinks, T_len, H, KVH, S, pos, scale);
+  flash_prefill_f32_kernel<DQK, DV><<<grid, NTHREADS, smem, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
+      static_cast<float*>(o), sinks, T_len, H, KVH, S, pos, scale);
   return (int)cudaGetLastError();
 }
 
-template <typename T>
-int launch_dims(int head_dim, int v_head_dim, const void* q, const void* k, const void* v, void* o,
-                const float* sinks, int B, int T_len, int H, int KVH, int S, int pos, float scale,
-                cudaStream_t st) {
-  if (head_dim == 64 && v_head_dim == 64)
-    return launch<T, 64, 64>(q, k, v, o, sinks, B, T_len, H, KVH, S, pos, scale, st);
-  if (head_dim == 128 && v_head_dim == 128)
-    return launch<T, 128, 128>(q, k, v, o, sinks, B, T_len, H, KVH, S, pos, scale, st);
-  if (head_dim == 192 && v_head_dim == 128)
-    return launch<T, 192, 128>(q, k, v, o, sinks, B, T_len, H, KVH, S, pos, scale, st);
+template <int DQK, int DV>
+int launch(int dtype, const void* q, const void* k, const void* v, void* o, const float* sinks,
+           int B, int T_len, int H, int KVH, int S, int pos, float scale, cudaStream_t st) {
+  if (dtype == dnet::DTYPE_BF16)
+    return launch_tc<DQK, DV>(q, k, v, o, sinks, B, T_len, H, KVH, S, pos, scale, st);
+  if (dtype == dnet::DTYPE_F32)
+    return launch_f32<DQK, DV>(q, k, v, o, sinks, B, T_len, H, KVH, S, pos, scale, st);
   return -1;
 }
 
@@ -233,11 +598,11 @@ extern "C" int dnet_flash_prefill(int dtype, int head_dim, int v_head_dim, const
                                   int T_len, int H, int KVH, int S, int pos, float scale,
                                   void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == dnet::DTYPE_BF16)
-    return launch_dims<__nv_bfloat16>(head_dim, v_head_dim, q, k, v, o, sinks, B, T_len, H, KVH,
-                                      S, pos, scale, st);
-  if (dtype == dnet::DTYPE_F32)
-    return launch_dims<float>(head_dim, v_head_dim, q, k, v, o, sinks, B, T_len, H, KVH, S, pos,
-                              scale, st);
+  if (head_dim == 64 && v_head_dim == 64)
+    return launch<64, 64>(dtype, q, k, v, o, sinks, B, T_len, H, KVH, S, pos, scale, st);
+  if (head_dim == 128 && v_head_dim == 128)
+    return launch<128, 128>(dtype, q, k, v, o, sinks, B, T_len, H, KVH, S, pos, scale, st);
+  if (head_dim == 192 && v_head_dim == 128)
+    return launch<192, 128>(dtype, q, k, v, o, sinks, B, T_len, H, KVH, S, pos, scale, st);
   return -1;
 }

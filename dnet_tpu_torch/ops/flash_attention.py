@@ -14,12 +14,16 @@ it on the card and how its design answers that.
 `flash_prefill_plain`, the same tile-by-tile fold in PyTorch, for CPU
 tensors.  Unlike the TPU gate (`flash_eligible`), there is no dense
 fallback on the card: the kernel masks ragged T and S edges itself.
+bf16 inputs run on the tensor cores over tiles of head-stacked rows laid
+out by `prefill_plan`; f32 inputs keep an exact CUDA-core fold, one head a
+block.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Optional
+from dataclasses import dataclass
+from typing import Iterator, Optional, Tuple
 
 import torch
 
@@ -29,6 +33,88 @@ NEG_INF = -1e30
 BK = 64  # keys per tile, in the kernel and in its plain version
 # (q/k head dim, v head dim) pairs the kernel is built for
 HEAD_DIMS = frozenset({(64, 64), (128, 128), (192, 128)})
+# the bf16 kernel's row tiles: 4 warps of one 16-row m-atom, or of two at
+# (64, 64) once 128-row tiles still give TC_WIDE_BLOCKS blocks (two an SM)
+TC_ROWS, TC_WIDE_ROWS = 64, 128
+TC_WIDE_BLOCKS = 2 * 132
+
+
+@dataclass(frozen=True)
+class PrefillPlan:
+    """How the bf16 kernel lays a call out (csrc/flash_prefill.cu).  The
+    G = H / KVH query heads that share a KV head are stacked into rows,
+    packed row r = t * G + g of KV head kvh being query row t of head
+    kvh * G + g; a block owns `block_rows` packed rows of one (batch, KV
+    head), its 4 warps a quarter each, and block i takes row tile
+    row_tiles - 1 - i // (KVH * B): the latest row tiles, which attend the
+    most keys, run first."""
+
+    T: int
+    G: int
+    KVH: int
+    B: int
+    block_rows: int = TC_ROWS
+
+    @property
+    def rows(self) -> int:
+        return self.T * self.G
+
+    @property
+    def row_tiles(self) -> int:
+        return -(-self.rows // self.block_rows)
+
+    @property
+    def blocks(self) -> int:
+        return self.row_tiles * self.KVH * self.B
+
+    def block(self, i: int) -> Tuple[int, int, int]:
+        """(row tile, KV head, batch row) of block i, as the kernel maps it."""
+        groups = self.KVH * self.B
+        rem = i % groups
+        return self.row_tiles - 1 - i // groups, rem % self.KVH, rem // self.KVH
+
+    def tile_rows(self, tile: int) -> range:
+        """The packed rows of a row tile (the last one ends at T * G)."""
+        return range(tile * self.block_rows, min((tile + 1) * self.block_rows, self.rows))
+
+    def head_row(self, kvh: int, r: int) -> Tuple[int, int]:
+        """(query row t, query head h) of packed row r of KV head kvh."""
+        return r // self.G, kvh * self.G + r % self.G
+
+    def key_end(self, pos: int, tile: int) -> int:
+        """One past the last slot a row tile attends: its key loop's bound
+        (and where its zero-filled keys start)."""
+        return pos + (self.tile_rows(tile)[-1] // self.G) + 1
+
+    def launch_order(self) -> Iterator[Tuple[int, int, int]]:
+        return (self.block(i) for i in range(self.blocks))
+
+
+def prefill_plan(T: int, H: int, KVH: int, dqk: int, dv: int, B: int = 1) -> PrefillPlan:
+    """The bf16 kernel's layout of a [B, T, H, dqk] chunk over KVH KV heads.
+    Tiles of 64 packed rows (one 16-row m-atom a warp), or of 128 at
+    (64, 64) when those still make TC_WIDE_BLOCKS blocks: on an H100 the
+    128-row tile (each K/V fragment feeding two m-atoms) was faster at
+    T = 2048 over Llama-3.2-1B's heads and slower at T <= 512, where halving
+    the blocks left SMs idle; the wider pairs' registers hold one m-atom a
+    warp."""
+    if H % KVH:
+        raise ValueError(f"{H} query heads are not a multiple of {KVH} KV heads")
+    G = H // KVH
+    rows = TC_ROWS
+    if (dqk, dv) == (64, 64) and -(-T * G // TC_WIDE_ROWS) * KVH * B >= TC_WIDE_BLOCKS:
+        rows = TC_WIDE_ROWS
+    return PrefillPlan(T=int(T), G=G, KVH=int(KVH), B=int(B), block_rows=rows)
+
+
+def prefill_smem_bytes(dtype: torch.dtype, dqk: int, dv: int, block_rows: int = TC_ROWS) -> int:
+    """Dynamic shared memory of one block of the kernel for `dtype` at
+    (dqk, dv), as csrc/flash_prefill.cu lays it out: bf16 Q (block_rows rows)
+    and two stages of 64-key K and V tiles, rows padded by 8 values; f32 Q, K,
+    P transposed and V, rows padded by 4."""
+    if dtype == torch.bfloat16:
+        return 2 * (block_rows * (dqk + 8) + 2 * BK * ((dqk + 8) + (dv + 8)))
+    return 4 * (dqk * (64 + 4) + dqk * (BK + 4) + BK * (dv + 4) + 64 * (BK + 4))
 
 
 def flash_attend_causal(

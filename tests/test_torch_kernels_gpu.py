@@ -5,7 +5,12 @@ nor dnet_tpu, so it runs where only torch is installed:
 
     python -m pytest --noconftest -m gpu tests/test_torch_kernels_gpu.py
 
-Shapes are Llama-3.2-1B's (H=32, KVH=8, D=64); the decode kernel reads a
+The prefill kernel runs at every width pair it is built for, (64, 64),
+(128, 128) and MLA's (192, 128), in bf16 (tensor cores) and f32, at G = 1,
+4 and 8 with two batch rows, T and pos off its tile grids, chunks that end
+at the cache's last slot, sinks, and caches whose dead slots hold NaN, and
+calls large enough for its 128-row tiles; one device kernel a call.  Otherwise shapes are Llama-3.2-1B's (H=32, KVH=8,
+D=64); the decode kernel reads a
 plain cache (also bf16 under an f32 q, as DNET_KV_BITS=16 gives an f32
 model) and int8 / packed-int4 caches written by the port's write_kv, with a
 lengths vector of ragged lanes (an idle one included), and its rotating
@@ -25,7 +30,8 @@ cache under f32 params, and the sp engine (llama; deepseek_v2 and gpt_oss,
 plain and q8 / q4), run on the card against the CPU's plain versions.  The
 hop codec's column kernels run at its widths (C=2048) and at odd ones, with
 R=1 frames: norms within 2e-5 relative in f32 (1e-2 in bf16 inputs summed
-in f32), gather and dequant-scatter equal bit for bit.  Tolerances: f32 1e-4 (sums
+in f32), gather and dequant-scatter equal bit for bit (the dequant-scatter
+also at R = 1, 7 and 1500 with empty strips, every column kept and odd D).  Tolerances: f32 1e-4 (sums
 in another order); bf16 2e-2 against the plain version computed in f32
 from the same bf16 inputs (the kernel rounds its output to bf16, ~4e-3 at
 |x| ~ 1, and sums in another order).
@@ -89,6 +95,74 @@ def test_prefill_kernel_matches_plain(gen, dtype, T, pos, S, sinks):
     torch.cuda.synchronize()
     assert flash_prefill.launches == before + 1
     want = flash_prefill_plain(q.float(), k.float(), v.float(), pos, sinks=sk)
+    assert (out.float() - want).abs().max().item() <= TOL[dtype]
+
+
+# (Dqk, Dv) pairs of the prefill kernel: Llama-3.2-1B's, Llama-3-8B's /
+# Qwen's, DeepSeek-V2-Lite's MLA
+PREFILL_WIDTHS = [(64, 64), (128, 128), (192, 128)]
+
+
+def _prefill_case(gen, dtype, dqk, dv, G, B, T, pos, S, sinks, KVH=2):
+    q = _randn(gen, dtype, B, T, KVH * G, dqk)
+    k, v = _randn(gen, dtype, B, S, KVH, dqk), _randn(gen, dtype, B, S, KVH, dv)
+    sk = torch.randn(KVH * G, generator=gen, device="cuda") if sinks else None
+    return q, k, v, sk, (MLA_SCALE if dqk == MLA_DQK else None)
+
+
+@pytest.mark.parametrize("dqk,dv", PREFILL_WIDTHS)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("G", [1, 4, 8])
+@pytest.mark.parametrize("T,pos,S,sinks", [(77, 45, 200, True), (50, 14, 64, False), (130, 126, 256, True)])
+def test_prefill_kernel_width_pairs(gen, dqk, dv, dtype, G, T, pos, S, sinks):
+    """Every width pair in bf16 (tensor cores, heads stacked into rows) and
+    f32, G = 1 / 4 / 8, two batch rows, T and pos off the 64-row and 64-key
+    grids, chunks that end at the cache's last slot (pos + T = S), with and
+    without sinks: one launch on the width's counter, within tolerance."""
+    q, k, v, sk, scale = _prefill_case(gen, dtype, dqk, dv, G, 2, T, pos, S, sinks)
+    attr = "launches" if dqk == dv else "launches_mla"
+    before = getattr(flash_prefill, attr)
+    out = flash_prefill(q, k, v, pos, scale=scale, sinks=sk)
+    torch.cuda.synchronize()
+    assert getattr(flash_prefill, attr) == before + 1
+    want = flash_prefill_plain(q.float(), k.float(), v.float(), pos, scale=scale, sinks=sk)
+    assert out.shape == (2, T, q.shape[2], dv) and out.dtype == dtype
+    assert (out.float() - want).abs().max().item() <= TOL[dtype]
+
+
+@pytest.mark.parametrize("T,H,pos", [(1100, 32, 37), (600, 64, 0)])
+def test_prefill_kernel_wide_tiles(gen, T, H, pos):
+    """Calls large enough for 128-row tiles at (64, 64) (prefill_plan; G = 4
+    and 8 over 8 KV heads), with sinks and NaN in the dead slots."""
+    from dnet_tpu_torch.ops.flash_attention import TC_WIDE_ROWS, prefill_plan
+
+    assert prefill_plan(T, H, 8, 64, 64).block_rows == TC_WIDE_ROWS
+    S = pos + T + 40
+    q, k, v, sk, _ = _prefill_case(gen, torch.bfloat16, 64, 64, H // 8, 1, T, pos, S, True, KVH=8)
+    k[:, pos + T:] = float("nan")
+    v[:, pos + T:] = float("nan")
+    out = flash_prefill(q, k, v, pos, sinks=sk)
+    torch.cuda.synchronize()
+    want = flash_prefill_plain(q.float(), k[:, : pos + T].float(), v[:, : pos + T].float(), pos, sinks=sk)
+    assert bool(torch.isfinite(out).all())
+    assert (out.float() - want).abs().max().item() <= TOL[torch.bfloat16]
+
+
+@pytest.mark.parametrize("dqk,dv", PREFILL_WIDTHS)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_prefill_kernel_never_reads_dead_slots(gen, dqk, dv, dtype):
+    """Cache slots at and past pos + T hold NaN (any bit pattern a dead slot
+    may hold): the output is finite and equals the plain version over the
+    live prefix, so no dead K or V row meets a zero of P."""
+    T, pos, S = 70, 33, 256
+    q, k, v, sk, scale = _prefill_case(gen, dtype, dqk, dv, 4, 1, T, pos, S, True)
+    k[:, pos + T:] = float("nan")
+    v[:, pos + T:] = float("nan")
+    out = flash_prefill(q, k, v, pos, scale=scale, sinks=sk)
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(out).all())
+    want = flash_prefill_plain(q.float(), k[:, : pos + T].float(), v[:, : pos + T].float(), pos,
+                               scale=scale, sinks=sk)
     assert (out.float() - want).abs().max().item() <= TOL[dtype]
 
 
@@ -649,6 +723,34 @@ def test_decode_wrapper_call_is_one_device_kernel(gen, form):
     _check_form(out, want, form, torch.bfloat16)
 
 
+@pytest.mark.parametrize("dqk,dv", PREFILL_WIDTHS)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_prefill_wrapper_call_is_one_device_kernel(gen, dqk, dv, dtype):
+    """One prefill call is exactly one device kernel, as torch.profiler
+    traces it, and one count on its counter.  (Placed after the decode
+    forms' profiler test: late in a long process the profiler was seen to
+    trace no kernel at all.)"""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    q, k, v, sk, scale = _prefill_case(gen, dtype, dqk, dv, 4, 1, 200, 60, 512, False)
+    attr = "launches" if dqk == dv else "launches_mla"
+    flash_prefill(q, k, v, 60, scale=scale)  # built and warm
+    torch.cuda.synchronize()
+    for _ in range(3):  # the profiler now and then drops a short call's record; it never invents one
+        before = getattr(flash_prefill, attr)
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            time.sleep(0.002)
+            flash_prefill(q, k, v, 60, scale=scale)
+            torch.cuda.synchronize()
+            time.sleep(0.002)
+        assert getattr(flash_prefill, attr) == before + 1
+        kernels = [e.name for e in prof.events() if e.device_type == DeviceType.CUDA]
+        if kernels:
+            break
+    assert len(kernels) == 1 and "flash_prefill" in kernels[0], kernels
+
+
 def test_decode_interleaved_shapes_repeat_exactly(gen):
     """Calls of different forms, widths, lengths and split counts
     interleaved on one stream, three rounds: every round's outputs are
@@ -878,6 +980,36 @@ def test_dequant_scatter_kernel_is_bit_exact(gen, dtype, R, D, K, gs):
     dropped = torch.ones(D, dtype=torch.bool, device="cuda")
     dropped[idx.long()] = False
     assert not out[:, dropped].any()
+
+
+def _strip_idx(D, K, lo, hi):
+    """K sorted unique columns of D drawn from [lo, hi) only: the strips
+    outside it have no kept column."""
+    cols = torch.randperm(hi - lo, generator=torch.Generator().manual_seed(D + K))[:K] + lo
+    return cols.sort().values.to(torch.int32).cuda()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("R", [1, 7, 1500])
+@pytest.mark.parametrize("D,K,gs,lo,hi", [(4099, 300, 64, 1100, 1900), (2048, 2048, 64, 0, 2048),
+                                          (1001, 1, 0, 1000, 1001), (2051, 1000, 16, 0, 2051),
+                                          (2048, 1500, 4, 0, 2048), (2051, 700, 3, 0, 2051)])
+def test_dequant_scatter_kernel_strips_and_tails(gen, dtype, R, D, K, gs, lo, hi):
+    """Strips with no kept column, every column kept, odd D (element stores:
+    rows do not start 16-byte aligned), one kept column at the last, groups
+    of 3, 4, 16 and 64 (3 and 4 narrower than a thread's columns; 3 divided,
+    not shifted) and one per-tensor pair, at R = 1, 7 and 1500: both forms
+    equal their plain versions bit for bit, one launch each."""
+    kept = _randn(gen, dtype, R, K) * 3
+    idx = _strip_idx(D, K, lo, hi)
+    codes, scale, bias = quantize_q8(kept, gs)
+    before = dequant_scatter_columns.launches
+    out = dequant_scatter_columns(codes, idx, D, dtype, scale, bias, gs)
+    plain = dequant_scatter_columns(kept, idx, D)
+    torch.cuda.synchronize()
+    assert dequant_scatter_columns.launches == before + 2
+    assert out.dtype == dtype and torch.equal(out, dequant_scatter_columns_plain(codes, idx, D, dtype, scale, bias, gs))
+    assert torch.equal(plain, dequant_scatter_columns_plain(kept, idx, D))
 
 
 def test_column_kernels_never_take_the_plain_version(gen):
