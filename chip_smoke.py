@@ -6,10 +6,11 @@
 Phases, one JSON line each; any failure exits non-zero:
   device   the card (nvidia-smi name and power limit), torch/CUDA versions,
            and the kernels' build from dnet_tpu_torch/csrc (nvcc, sm_90a).
-  ptxas    the decode and prefill kernels' instantiations as `nvcc -Xptxas
-           -v` reports them (registers, spill stores / loads, stack), each
-           with its dynamic shared memory; compiled beside the build.  A bf16
-           (tensor-core) prefill instantiation that spills fails the run.
+  ptxas    the decode, prefill and paged kernels' instantiations as `nvcc
+           -Xptxas -v` reports them (registers, spill stores / loads, stack),
+           each with its dynamic shared memory; compiled beside the build.
+           A bf16 (tensor-core) prefill or a bf16 paged instantiation that
+           spills fails the run.
   kernels  each hand-written kernel against its plain PyTorch version at
            the main path's full widths (Llama-3.2-1B: H=32, KVH=8, D=64,
            S=4096): f32 within 1e-4; bf16 within 2e-2 of the plain version
@@ -40,11 +41,16 @@ Phases, one JSON line each; any failure exits non-zero:
            have gone through the kernels.
 Continuous batching over the paged KV pool (DNET_KV_PAGED=1
 DNET_KV_RAGGED=1), the second path:
+  paged_launches  device kernels per paged_attend call (torch.profiler,
+               right after the build): must be 1, at the plan's budget of
+               blocks and at the cap of 16 a slot.
   kernels      the ragged paged-attention kernel against its plain version
                at full width: 8 slots reading a pool of 2048 16-token blocks
                per layer x 16 layers through shuffled page tables, at the
                batch_serve mix of positions and at a ragged mix up to 4094;
-               SDPA on a pre-gathered contiguous copy as the library call.
+               SDPA on a pre-gathered contiguous copy as the library call
+               (times_library); the batch_serve mix's bf16 row also times
+               every budget of 1 to 16 blocks a slot (kernel_ms_by_split).
   batch_parity the batched engine (4 slots, 8-token blocks) on the GPU and
                on the CPU from the same f32 weights: four ragged prompts
                decoded together, by single steps and by an 8-step chunk;
@@ -244,6 +250,8 @@ BATCH_SLOTS, BT = 8, 16
 POOL_BLOCKS = BATCH_SLOTS * S // BT
 BATCH_PROMPT_TOKENS = [27, 60, 150, 300, 520, 800, 1100, 1500]
 PAGED_POSITIONS = [0, 15, 16, 100, 1023, 2047, 4000, 4094]
+# the paged kernel's main mix: every batch_serve lane half-way through its output
+BATCH_POSITIONS = [n + MAX_TOKENS // 2 for n in BATCH_PROMPT_TOKENS]
 PAGED_ENV = {"DNET_KV_PAGED": "1", "DNET_KV_RAGGED": "1"}
 PREFILL_CHUNK = 256  # the batched adapter's prompt chunk (api/strategies.py)
 # the ring's hop codec: hidden width, kept columns (pct 0.5), quant group,
@@ -366,12 +374,14 @@ def phase_decode_launches() -> dict:
     return counts
 
 
-def ptxas_line(report: list, prefill_report: list) -> dict:
-    """The decode and prefill kernels' instantiations as ptxas built them
-    (registers, spills, stack) with each one's dynamic shared memory.  Fails
-    if a bf16 (tensor-core) prefill instantiation spills."""
+def ptxas_line(report: list, prefill_report: list, paged_report: list) -> dict:
+    """The decode, prefill and paged kernels' instantiations as ptxas built
+    them (registers, spills, stack) with each one's dynamic shared memory.
+    Fails if a bf16 (tensor-core) prefill or a bf16 paged instantiation
+    spills."""
     import re
 
+    from dnet_tpu_torch.ops import paged_attention
     from dnet_tpu_torch.ops.flash_attention import prefill_smem_bytes
     from dnet_tpu_torch.ops.flash_decode import kernel_smem_bytes
 
@@ -406,13 +416,25 @@ def ptxas_line(report: list, prefill_report: list) -> dict:
             return prefill_smem_bytes(torch.float32, *dims)
         return prefill_smem_bytes(torch.bfloat16, dims[0], dims[1], 64 * dims[2])
 
+    def paged_smem(name):  # paged_attention_kernel<T, KV, D, GP>
+        m = re.search(r"paged_attention_kernel<([^>]*)>", name)
+        if not m:
+            return None
+        t, kv, d, gp = args(m)
+        return paged_attention.kernel_smem_bytes(types[t], types[kv], int(d), int(gp), 1)
+
     prefill = rows_of(prefill_report, prefill_smem)
     tc = [r for r in prefill["kernels"] if "flash_prefill_tc_kernel" in r["name"]]
     check(len(tc) == 4 and not any(r["spill_store_bytes"] or r["spill_load_bytes"] for r in tc),
           f"bf16 prefill instantiations spill or are missing: {tc}")
+    paged = rows_of(paged_report, paged_smem)
+    bf16 = [r for r in paged["kernels"] if "paged_attention_kernel<__nv_bfloat16" in r["name"]]
+    check(len(bf16) == 6 and not any(r["spill_store_bytes"] or r["spill_load_bytes"] for r in bf16),
+          f"bf16 paged instantiations spill or are missing: {bf16}")
     return {"phase": "ptxas", "source": "dnet_tpu_torch/csrc/flash_decode.cu", "flags": "-Xptxas -v",
             **rows_of(report, decode_smem),
-            "prefill": {"source": "dnet_tpu_torch/csrc/flash_prefill.cu", **prefill}}
+            "prefill": {"source": "dnet_tpu_torch/csrc/flash_prefill.cu", **prefill},
+            "paged": {"source": "dnet_tpu_torch/csrc/paged_attention.cu", **paged}}
 
 
 def prefill_bound(T: int, pos: int, dtype, h: int = H, kvh: int = KVH, d: int = D) -> tuple:
@@ -432,6 +454,20 @@ def decode_bound(pos: int, dtype) -> tuple:
     ops = 4 * H * D * (pos + 1)
     t_mem, t_ops = nbytes / HBM_BYTES_PER_S, ops / PEAK_OPS_PER_S[dtype]
     return max(t_mem, t_ops) * 1e3, ("bytes" if t_mem >= t_ops else "operations")
+
+
+@contextlib.contextmanager
+def paged_blocks_per_slot(n: int):
+    """paged_attend planned at n blocks a slot (every KV head's budget n x
+    slots) for the block, in place of `paged_plan`'s choice."""
+    from dnet_tpu_torch.ops import paged_attention
+
+    plan = paged_attention.paged_plan
+    paged_attention.paged_plan = lambda max_live, slots, kv_heads, blocks_per_sm=1: n * slots
+    try:
+        yield
+    finally:
+        paged_attention.paged_plan = plan
 
 
 @contextlib.contextmanager
@@ -463,6 +499,53 @@ def paged_bound(positions: list, dtype) -> tuple:
     return max(t_mem, t_ops) * 1e3, ("bytes" if t_mem >= t_ops else "operations")
 
 
+def paged_tables(positions: list) -> torch.Tensor:
+    """Page tables [B, POOL_BLOCKS / BATCH_SLOTS] (int32, on the card) giving
+    each slot its live blocks scattered through a POOL_BLOCKS pool; dead
+    entries 0, as the engine pads them."""
+    perm = torch.randperm(POOL_BLOCKS, generator=torch.Generator().manual_seed(2))
+    per_slot = POOL_BLOCKS // BATCH_SLOTS
+    tables = torch.zeros(len(positions), per_slot, dtype=torch.int32)
+    for b, p in enumerate(positions):
+        n = -(-p // BT)
+        tables[b, :n] = perm[b * per_slot : b * per_slot + n].to(torch.int32)
+    return tables.cuda()
+
+
+def phase_paged_launches(main_positions: list) -> dict:
+    """Device kernels per paged_attend call, traced with torch.profiler right
+    after the build (as the decode forms'), in bf16 at the batch_serve mix
+    and the ragged mix up to 4094, at the plan's budget and at the cap of
+    16 blocks a slot: each must be exactly 1 (the splits merge inside the
+    launch)."""
+    from dnet_tpu_torch.ops.flash_decode import MAX_SPLITS
+    from dnet_tpu_torch.ops.paged_attention import paged_attend
+
+    g = torch.Generator(device="cuda").manual_seed(12)
+    shape = (POOL_BLOCKS, BT, KVH, D)
+    kp = torch.randn(shape, generator=g, device="cuda").to(torch.bfloat16)
+    vp = torch.randn(shape, generator=g, device="cuda").to(torch.bfloat16)
+    seen = []
+    for positions in (main_positions, PAGED_POSITIONS):
+        B = len(positions)
+        tables, pos = paged_tables(positions), torch.tensor(positions, dtype=torch.int32, device="cuda")
+        q = torch.randn(B, 1, H, D, generator=g, device="cuda").to(torch.bfloat16)
+        kn, vn = (torch.randn(B, KVH, D, generator=g, device="cuda").to(torch.bfloat16) for _ in range(2))
+        def call():
+            return paged_attend(q, kp, vp, tables, pos, kn, vn, max_live=max(positions))
+        for cap in (False, True):
+            with paged_blocks_per_slot(MAX_SPLITS) if cap else contextlib.nullcontext():
+                call()  # built, loaded and its scratch allocated
+                before = paged_attend.launches
+                seen.append(kernels_per_call(call))
+                check(paged_attend.launches > before, "paged_attend did not count the traced call")
+    check(seen == [1] * 4, f"paged_attend: {seen} device kernels a call, expected 1")
+    emit({"phase": "paged_launches", "kernels_per_call": 1, "traced_calls": len(seen)})
+    del kp, vp
+    torch.cuda.empty_cache()
+    return {"paged_attend": 1}
+
+
 def phase_paged_kernels(main_positions: list) -> dict:
     """The paged kernel at full width: 8 slots over a 16-layer pool of
     POOL_BLOCKS blocks per layer, each slot's blocks scattered through it
@@ -470,10 +553,10 @@ def phase_paged_kernels(main_positions: list) -> dict:
     path's bf16 case."""
     from torch.nn.functional import scaled_dot_product_attention as sdpa
 
-    from dnet_tpu_torch.ops.paged_attention import paged_attend, paged_attend_plain
+    from dnet_tpu_torch.ops.flash_decode import MAX_SPLITS
+    from dnet_tpu_torch.ops.paged_attention import blocks_per_sm, paged_attend, paged_attend_plain, paged_plan
 
     g = torch.Generator(device="cuda").manual_seed(2)
-    perm = torch.randperm(POOL_BLOCKS, generator=torch.Generator().manual_seed(2))
     per_slot = POOL_BLOCKS // BATCH_SLOTS
     main = None
     for dtype in (torch.float32, torch.bfloat16):
@@ -482,11 +565,7 @@ def phase_paged_kernels(main_positions: list) -> dict:
         vp = torch.randn(shape, generator=g, device="cuda").to(dtype)
         for positions in (main_positions, PAGED_POSITIONS):
             B = len(positions)
-            tables = torch.zeros(B, per_slot, dtype=torch.int32)
-            for b, p in enumerate(positions):
-                n = -(-p // BT)
-                tables[b, :n] = perm[b * per_slot : b * per_slot + n].to(torch.int32)
-            tables_d = tables.cuda()
+            tables_d = paged_tables(positions)
             pos_cpu = torch.tensor(positions, dtype=torch.int32)
             pos = pos_cpu.cuda()
             q = torch.randn(B, 1, H, D, generator=g, device="cuda").to(dtype)
@@ -521,9 +600,6 @@ def phase_paged_kernels(main_positions: list) -> dict:
             def lib(l):
                 return sdpa(qt, kc[l], vc[l], attn_mask=mask, enable_gqa=True)
 
-            def lib_causal(l):
-                return sdpa(qt, live[l][0], live[l][1], is_causal=True, scale=scale)
-
             lib_err = (lib(0).transpose(1, 2).float() - want).abs().max().item()
             check(lib_err <= TOL[dtype], f"paged library yardstick disagrees: {lib_err}")
             bound, by = paged_bound(positions, dtype)
@@ -542,10 +618,18 @@ def phase_paged_kernels(main_positions: list) -> dict:
                                 "(the gather is not timed)",
                 "library_max_err": lib_err,
                 "bound_ms": bound, "bound_by": by,
+                "blocks_per_kv_head": paged_plan(max_live, B, KVH, blocks_per_sm(dtype, dtype, D, H, KVH)),
             }
-            emit(row)
+            row["times_library"] = row["kernel_ms"] / row["library_ms"]
             if dtype == torch.bfloat16 and positions is main_positions:
+                # where the plan's budget sits among the others (n blocks a slot)
+                row["kernel_ms_by_split"] = {}
+                for n in range(1, MAX_SPLITS + 1):
+                    with paged_blocks_per_slot(n):
+                        row["kernel_ms_by_split"][n] = device_time_ms(
+                            lambda l: paged_attend(q, kp[l], vp[l], tables_d, pos, kn, vn), LAYERS)
                 main = row
+            emit(row)
             if dtype == torch.float32 and positions is main_positions:
                 # DNET_KV_BITS=16 on an f32 model: a bf16 pool under the f32 q
                 # and new rows, held to the f32 tolerance
@@ -627,9 +711,15 @@ def phase_column_kernels() -> dict:
             torch.cuda.synchronize()
             check(torch.equal(out, gather_columns_plain(xs[0], idx)), f"gather_columns R={R} {name} not bit-equal")
             check(torch.equal(torch.index_select(xs[0], 1, idx), out), "index_select disagrees")
+            # beside the kept bytes, the bound at sector granularity: the
+            # 32-byte sectors of x the kept columns touch, read once
+            offsets = torch.arange(R, device="cuda")[:, None] * C + idx_long[None, :]
+            sectors = int(torch.unique(offsets * size // 32).numel())
+            sector_bytes = 32 * sectors + R * K * size + K * 4
             emit_row("gather_columns", 0.0, lambda l: gather_columns(xs[l], idx),
                      lambda l: gather_columns_plain(xs[l], idx), lambda l: torch.index_select(xs[l], 1, idx),
-                     "torch.index_select(x, 1, idx)", 2 * R * K * size + K * 4, 0)
+                     "torch.index_select(x, 1, idx)", 2 * R * K * size + K * 4, 0,
+                     sector_bytes=sector_bytes, sector_bound_ms=bytes_ops_bound(sector_bytes, 0, dtype)[0])
 
             kept = [gather_columns_plain(x, idx) for x in xs]
             q = [quantize_q8(k, GS) for k in kept]
@@ -3092,18 +3182,20 @@ def main() -> int:
 
     card = gpu_line()
     t0 = time.perf_counter()
-    # the decode and prefill kernels' register / spill reports compile beside the build
-    with ThreadPoolExecutor(2) as pool:
+    # the decode, prefill and paged kernels' register / spill reports compile beside the build
+    with ThreadPoolExecutor(3) as pool:
         report = pool.submit(ptxas_report, "flash_decode")
         prefill_report = pool.submit(ptxas_report, "flash_prefill")
+        paged_report = pool.submit(ptxas_report, "paged_attention")
         build_all()
         build_s = time.perf_counter() - t0
-        report, prefill_report = report.result(), prefill_report.result()
+        report, prefill_report, paged_report = report.result(), prefill_report.result(), paged_report.result()
     emit({"phase": "device", "gpu": card, "torch": torch.__version__, "cuda": torch.version.cuda,
           "device_name": torch.cuda.get_device_name(0), "count": torch.cuda.device_count(),
           "kernel_build_s": build_s, "ptxas_report_s": time.perf_counter() - t0})
-    emit(ptxas_line(report, prefill_report))
+    emit(ptxas_line(report, prefill_report, paged_report))
     per_call = phase_decode_launches()
+    per_call.update(phase_paged_launches(BATCH_POSITIONS))
 
     prompt_text = "Write one line about GPUs."
     tok = ByteTokenizer()
@@ -3112,12 +3204,11 @@ def main() -> int:
     phase_wide_group_decode()
     phase_wide_prefill()
     # the batched path's mix: every batch_serve lane half-way through its output
-    main_path["paged_attend"] = phase_paged_kernels([n + MAX_TOKENS // 2 for n in BATCH_PROMPT_TOKENS])
+    main_path["paged_attend"] = phase_paged_kernels(BATCH_POSITIONS)
     # the ring's path: its decode hop (R=1, bf16) runs once per token
     main_path.update(phase_column_kernels())
     # the quantized caches' path: the single-sequence serve's position
-    lane_positions = [n + MAX_TOKENS // 2 for n in BATCH_PROMPT_TOKENS]
-    main_path.update(phase_quant_kernels(n_prompt + MAX_TOKENS - 2, lane_positions))
+    main_path.update(phase_quant_kernels(n_prompt + MAX_TOKENS - 2, BATCH_POSITIONS))
     # gpt_oss's sliding layers: the ring at the step's position
     main_path.update(phase_rotating_kernels())
     phase_codec_host()

@@ -15,14 +15,17 @@ bytes back (SSE: `data: <json>\\n\\n` frames, then `data: [DONE]`).
 
 from __future__ import annotations
 
+import inspect
 import json
 from typing import Optional
 
 from aiohttp import web
 from pydantic import ValidationError
 
+from dnet_tpu_torch.admission.controller import AdmissionRejected
 from dnet_tpu_torch.api.inference import (
     BackpressureError,
+    DeadlineExceededError,
     EngineCapabilityError,
     InferenceError,
     InferenceManager,
@@ -87,9 +90,15 @@ class ApiHTTPServer:
 
     @staticmethod
     def _map_inference_errors(exc: Exception):
+        if isinstance(exc, AdmissionRejected):
+            # Retry-After is integral seconds per RFC 9110; never 0
+            return _json_error(429, str(exc), "rate_limit_exceeded",
+                               {"Retry-After": str(max(1, round(exc.retry_after_s)))})
         if isinstance(exc, BackpressureError):
             # no service-time estimate here: advertise the 1 s floor
             return _json_error(429, str(exc), "rate_limit_exceeded", {"Retry-After": "1"})
+        if isinstance(exc, DeadlineExceededError):
+            return _json_error(504, str(exc), "deadline_exceeded")
         if isinstance(exc, PromptTooLongError):
             return _json_error(400, str(exc))
         if isinstance(exc, EngineCapabilityError):
@@ -133,6 +142,9 @@ class ApiHTTPServer:
                 await resp.write(b"data: [DONE]\n\n")
             except PromptTooLongError as exc:
                 err = json.dumps({"error": {"message": str(exc), "type": "invalid_request_error"}})
+                await resp.write(f"data: {err}\n\n".encode())
+            except DeadlineExceededError as exc:
+                err = json.dumps({"error": {"message": str(exc), "type": "deadline_exceeded"}})
                 await resp.write(f"data: {err}\n\n".encode())
             except BackpressureError as exc:
                 # capacity shed mid-stream is not a server fault
@@ -219,8 +231,14 @@ class ApiHTTPServer:
             req = LoadModelRequest.model_validate(await request.json())
         except (json.JSONDecodeError, ValidationError) as exc:
             return _json_error(400, f"invalid request: {exc}")
+        kwargs = {}
+        if req.delta:
+            # only a manager that fans out to shards takes `delta`
+            if "delta" not in inspect.signature(self.model_manager.load_model).parameters:
+                return _json_error(400, "delta reload is only available in ring mode")
+            kwargs["delta"] = True
         try:
-            dt = await self.model_manager.load_model(req.model, max_seq=req.max_seq_len)
+            dt = await self.model_manager.load_model(req.model, max_seq=req.max_seq_len, **kwargs)
         except FileNotFoundError as exc:
             return _json_error(404, str(exc), "model_not_found")
         except EngineCapabilityError as exc:

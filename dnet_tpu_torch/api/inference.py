@@ -4,17 +4,21 @@ Counterpart of dnet_tpu/api/inference.py: template + encode, a nonce per
 request, the per-token send / await / detokenize loop, EOS, stop-sequence
 and length stops, logprobs, usage, and non-streaming aggregation, with the
 same chunk sequence the reference emits.  Admission is a plain bound on
-concurrent requests; a step's capacity errors come back typed
-(`classify_result_error`: 429 backpressure).  Resume, deadlines, SLO
-tracking and the flight recorder are not part of the port yet.
+concurrent requests plus the reference's deadline checks: a request that
+arrives past its deadline is shed at the gate (429), one whose deadline
+passes between decode steps ends with DeadlineExceededError (504), and in
+ring mode the deadline rides every frame.  A step's capacity and deadline
+errors come back typed (`classify_result_error`).  Resume, the bounded
+queue, SLO tracking and the flight recorder are not part of the port yet.
 """
 
 from __future__ import annotations
 
 import asyncio
 import time
-from typing import AsyncIterator
+from typing import AsyncIterator, Optional
 
+from dnet_tpu_torch.admission.controller import Deadline, DeadlineGate, request_deadline
 from dnet_tpu_torch.api.schemas import (
     ChatChoice,
     ChatChoiceDelta,
@@ -34,6 +38,7 @@ from dnet_tpu_torch.api.schemas import (
     new_request_id,
 )
 from dnet_tpu_torch.api.strategies import ApiAdapterBase
+from dnet_tpu_torch.config import admission_settings
 from dnet_tpu_torch.core.types import DecodingParams
 from dnet_tpu_torch.utils.logger import get_logger
 from dnet_tpu_torch.utils.tokenizer import Detokenizer
@@ -55,6 +60,12 @@ class BackpressureError(InferenceError):
     and retry, nothing is broken."""
 
 
+class DeadlineExceededError(InferenceError):
+    """The request's end-to-end deadline expired mid-flight: maps to HTTP
+    504.  Raised by the decode loop between steps, or classified from a
+    shard's `deadline exceeded` error."""
+
+
 class EngineCapabilityError(InferenceError):
     """The engine cannot serve the requested configuration (raised at load,
     e.g. by core/batch.py for what the port does not serve yet): maps to
@@ -72,7 +83,9 @@ _BACKPRESSURE_MARKERS = (
 
 def classify_result_error(error: str) -> InferenceError:
     """Map a step's error string to the typed exception the HTTP layer turns
-    into a status code (429 backpressure, 500 otherwise)."""
+    into a status code (429 backpressure, 504 deadline, 500 otherwise)."""
+    if "deadline exceeded" in error:
+        return DeadlineExceededError(error)
     if any(marker in error for marker in _BACKPRESSURE_MARKERS):
         return BackpressureError(error)
     return InferenceError(error)
@@ -118,6 +131,7 @@ class InferenceManager:
         self.max_concurrent = max_concurrent
         self._slots = asyncio.Semaphore(max_concurrent)
         self.active = 0  # admitted requests in flight
+        self.gate = DeadlineGate()
 
     @property
     def ready(self) -> bool:
@@ -154,19 +168,43 @@ class InferenceManager:
             top_logprobs=top,
         )
 
+    @staticmethod
+    def _deadline_for(req) -> Optional[Deadline]:
+        return request_deadline(getattr(req, "deadline_s", None), admission_settings().request_deadline_s)
+
     async def generate_stream(self, req) -> AsyncIterator[ChatCompletionChunk]:
-        """Per-token chunks; the final chunk carries finish_reason/usage."""
+        """Per-token chunks; the final chunk carries finish_reason/usage.
+        A request already past its deadline raises AdmissionRejected on the
+        consumer's first `anext` (429 + Retry-After upstream)."""
         if not self.ready:
             raise InferenceError("no model loaded")
+        deadline = self._deadline_for(req)
+        self.gate.check(deadline)
         async with self._slots:
             self.active += 1
+            t_admit = time.monotonic()
             try:
-                async for chunk in self._run(req):
+                async for chunk in self._run(req, deadline):
                     yield chunk
             finally:
                 self.active -= 1
+                self.gate.observe_service(time.monotonic() - t_admit)
 
-    async def _run(self, req) -> AsyncIterator[ChatCompletionChunk]:
+    async def _await_step(self, nonce: str, step: int, deadline: Optional[Deadline]):
+        """The step's token, awaited no longer than the deadline leaves: a
+        deadline passing between or during steps raises
+        DeadlineExceededError."""
+        if deadline is None:
+            return await self.adapter.await_token(nonce, step, self.request_timeout_s)
+        timeout = min(self.request_timeout_s, max(deadline.remaining(), 0.001))
+        try:
+            return await self.adapter.await_token(nonce, step, timeout)
+        except asyncio.TimeoutError as exc:
+            if deadline.expired:
+                raise DeadlineExceededError(f"request deadline expired awaiting step {step}") from exc
+            raise
+
+    async def _run(self, req, deadline: Optional[Deadline] = None) -> AsyncIterator[ChatCompletionChunk]:
         rid = new_request_id()
         nonce = rid
         t_start = time.perf_counter()
@@ -196,11 +234,17 @@ class InferenceManager:
         stopped_by_seq = False
 
         await self.adapter.reset_cache(nonce)
+        if deadline is not None:
+            # in ring mode every frame carries it: shards drop expired ones
+            self.adapter.set_deadline(nonce, deadline.t_deadline)
         try:
             send_ids = list(prompt_ids)
             for step in range(max_new):
+                if deadline is not None and deadline.expired:
+                    # every further token is work nobody is waiting for
+                    raise DeadlineExceededError(f"request deadline expired after {generated} token(s)")
                 await self.adapter.send_tokens(nonce, send_ids, decoding, step, budget=max_new - step)
-                result = await self.adapter.await_token(nonce, step, self.request_timeout_s)
+                result = await self._await_step(nonce, step, deadline)
                 if result.error:
                     raise classify_result_error(result.error)
                 if t_first is None:

@@ -60,6 +60,9 @@ class RingApiAdapter(ApiAdapterBase):
         self._auto_steps = max(int(auto_steps), 0)
         self._granted: Dict[str, int] = {}  # nonce -> highest granted step
         self._early: Dict[tuple, TokenResult] = {}
+        # nonce -> absolute wall-clock deadline (epoch s), stamped into every
+        # frame of the request: the shards drop expired frames at dequeue
+        self._deadlines: Dict[str, float] = {}
 
     async def start(self) -> None:
         self._head_client = self._make_client(self.head_addr)
@@ -95,6 +98,7 @@ class RingApiAdapter(ApiAdapterBase):
         self._futures.cancel_nonce(nonce)
         self._pos_state.pop(nonce, None)
         self._granted.pop(nonce, None)
+        self._deadlines.pop(nonce, None)
         for key in [k for k in self._early if k[0] == nonce]:
             self._early.pop(key, None)
         if self._streams is not None:
@@ -107,6 +111,10 @@ class RingApiAdapter(ApiAdapterBase):
                 log.warning("reset_cache on %s failed: %s", addr, exc)
 
         await asyncio.gather(*(_reset(a, c) for a, c in self._shard_clients.items()))
+
+    def set_deadline(self, nonce: str, deadline_ts: float) -> None:
+        if deadline_ts > 0:
+            self._deadlines[nonce] = float(deadline_ts)
 
     async def send_tokens(
         self,
@@ -153,6 +161,7 @@ class RingApiAdapter(ApiAdapterBase):
             t_sent_mono=time.perf_counter(),
             auto_steps=auto,
             epoch=self._epoch,
+            deadline=self._deadlines.get(nonce, 0.0),
         )
         if auto:
             self._granted[nonce] = step + auto

@@ -153,7 +153,11 @@ class RingModelManager:
             }
         return bodies
 
-    async def load_model(self, model_id: str, max_seq: Optional[int] = None) -> float:
+    async def load_model(self, model_id: str, max_seq: Optional[int] = None, delta: bool = False) -> float:
+        if delta:
+            # the reference's delta reload (reuse unchanged shards' weights,
+            # bump the epoch) is not ported: refuse before any fan-out
+            raise EngineCapabilityError("delta reload is not ported; reload without `delta`")
         topo = self.cluster.current_topology
         if topo is None:
             raise RuntimeError("no topology; POST /v1/prepare_topology_manual first")

@@ -50,6 +50,11 @@ class SamplingRequest(BaseModel):
     n: int = Field(default=1, ge=1, le=1)  # >1 unsupported
     user: Optional[str] = None
     profile: bool = False  # dnet extension: include perf metrics in the final chunk
+    # dnet extension: end-to-end deadline for THIS request (seconds from
+    # arrival), overriding DNET_REQUEST_DEADLINE_S: 429 when it arrives
+    # expired, 504 when it passes between decode steps, and shards drop
+    # expired frames (api/http.py, api/inference.py)
+    deadline_s: Optional[float] = Field(default=None, gt=0.0)
     # OpenAI logit_bias: token id (stringified) -> additive bias in [-100, 100]
     logit_bias: Optional[Dict[str, float]] = None
 
@@ -272,6 +277,10 @@ class ModelList(BaseModel):
 class LoadModelRequest(BaseModel):
     model: str
     max_seq_len: Optional[int] = None
+    # ring mode: reuse the shards' weights and bump only the epoch (the
+    # reference's delta reload).  A single process answers 400, a ring 422:
+    # the delta path is not ported.
+    delta: bool = False
 
 
 class LoadModelResponse(BaseModel):

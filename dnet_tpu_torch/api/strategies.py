@@ -89,6 +89,11 @@ class ApiAdapterBase(abc.ABC):
         """Sequence capacity of the serving path, when known."""
         return None
 
+    def set_deadline(self, nonce: str, deadline_ts: float) -> None:
+        """Register the request's absolute wall-clock deadline (epoch
+        seconds).  In-process adapters have no frames to stamp: the decode
+        loop checks it between steps."""
+
 
 class _TokenFutures:
     """Per-nonce, step-keyed futures: a late token from a timed-out step can

@@ -105,9 +105,10 @@ def column_sq_norms_plain(x: torch.Tensor) -> torch.Tensor:
 
 def gather_columns(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     """Kernel wrapper: out[r, j] = x[r, idx[j]], [R, C] -> [R, K], equal bit
-    for bit to x[:, idx].  idx is int32 [K] in [0, C).  CUDA tensors launch
-    the kernel (2- or 4-byte elements) or raise; CPU tensors take the plain
-    version."""
+    for bit to x[:, idx].  idx is int32 [K] in [0, C); the codec's is sorted
+    and unique, which lets the kernel stage each strip's span of x (any idx
+    stays correct, read element by element).  CUDA tensors launch the kernel
+    (2- or 4-byte elements) or raise; CPU tensors take the plain version."""
     R, C = _check_2d("gather_columns", x)
     if idx.dim() != 1:
         raise ValueError(f"gather_columns: idx must be 1D, got {tuple(idx.shape)}")
@@ -121,9 +122,8 @@ def gather_columns(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     out = torch.empty((R, K), dtype=x.dtype, device=x.device)
     if R == 0 or K == 0:
         return out
-    row_blocks = min(R, MAX_GRID_Y, max(1, _cdiv(TARGET_BLOCKS, _cdiv(K, NTHREADS))))
     rc = _entry("dnet_gather_columns", _GATHER_ARGTYPES)(
-        x.element_size(), x.data_ptr(), idx.data_ptr(), out.data_ptr(), R, C, K, row_blocks,
+        x.element_size(), x.data_ptr(), idx.data_ptr(), out.data_ptr(), R, C, K,
         build.current_stream_handle(x.device),
     )
     if rc != 0:
@@ -262,8 +262,8 @@ def dequant_scatter_columns_plain(
 _P, _I = ctypes.c_void_p, ctypes.c_int
 # dtype, x, partial, out, R, C, n_split, rows_per_split, stream
 _NORMS_ARGTYPES = (_I, _P, _P, _P, _I, _I, _I, _I, _P)
-# elem_bytes, x, idx, out, R, C, K, row_blocks, stream
-_GATHER_ARGTYPES = (_I, _P, _P, _P, _I, _I, _I, _I, _P)
+# elem_bytes, x, idx, out, R, C, K, stream
+_GATHER_ARGTYPES = (_I, _P, _P, _P, _I, _I, _I, _P)
 # dtype, mode, src, scale, bias, idx, out, R, D, K, gs, G, rows_per_block, stream
 _SCATTER_ARGTYPES = (_I, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P)
 

@@ -7,6 +7,7 @@ API node's host, ports, timeout, admission, models dir, max_seq_len,
 param dtype and batch slots, which its CLI takes as defaults; the ring's
 auto steps and callback address; and the weight quantization, prefix cache,
 speculation and draft model, which the port reads to refuse),
+`AdmissionSettings` (DNET_REQUEST_DEADLINE_S: the default request deadline),
 `ShardSettings` (DNET_SHARD_*: a shard's CLI defaults), the ring's
 `TransportSettings` (DNET_TRANSPORT_*), `WireSettings`
 (DNET_WIRE_*: the hop codec), `ComputeSettings` (DNET_COMPUTE_MOE_IMPL,
@@ -176,6 +177,15 @@ class MeshSettings:
 
 
 @dataclass
+class AdmissionSettings:
+    """The reference's admission settings, trimmed to the default end-to-end
+    request deadline (DNET_REQUEST_DEADLINE_S); 0 disables, and a request's
+    own `deadline_s` overrides it (admission/controller.py)."""
+
+    request_deadline_s: float = 0.0
+
+
+@dataclass
 class SchedSettings:
     # the iteration-level scheduler (not ported: refused at load)
     sched: bool = False
@@ -207,6 +217,10 @@ def compute_settings() -> ComputeSettings:
 
 def mesh_settings() -> MeshSettings:
     return _from_env(MeshSettings, "DNET_MESH_")
+
+
+def admission_settings() -> AdmissionSettings:
+    return _from_env(AdmissionSettings, "DNET_")
 
 
 def sched_enabled() -> bool:

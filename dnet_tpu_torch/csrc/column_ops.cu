@@ -18,6 +18,21 @@
 // does about it:
 //   - no one-hot product: a gather is an indexed copy, so no [D, K] operand is
 //     ever built or read (the MXU trick has no reason to exist here).
+//   - the gather's block owns a strip of kept columns (32 threads x 16 bytes
+//     of output a row: 256 bf16 or 128 f32 kept values) and a tile of 16
+//     rows.  The codec's idx is sorted and unique, so a strip's kept columns
+//     lie in the span [idx[j0], idx[j_last]] of x; where that span fits a
+//     2 KB window a row, the block copies it for all its rows at once with
+//     16-byte cp.async (contiguous, every row in flight), then each thread
+//     picks its 8 (bf16) or 4 (f32) kept values out of shared memory and
+//     writes them as one 16-byte store.  Where the span does not fit, x's
+//     rows are not 16-byte multiples, or the tile has one row, the same
+//     kernel reads element by element (a one-row frame, a decode hop, one
+//     kept value a thread, as the launch-bound decode hop wants); and
+//     a column outside the span (idx not sorted) is read from x directly, so
+//     any idx in [0, C) gives the same bits.  The kept bytes are its bound;
+//     the 32-byte sectors of x they touch are the bound a design that reads
+//     x can reach.
 //   - the norms walk rows with one thread per column, so a warp reads
 //     neighbouring columns of one row (coalesced).  The rows are split across
 //     blocks to fill the card at small C; each split writes its partial sums
@@ -42,6 +57,7 @@
 namespace {
 
 constexpr int NTHREADS = 256;  // columns per block
+constexpr int NWARPS_GATHER = NTHREADS / 32;
 
 template <typename T> __device__ __forceinline__ float to_float(T x);
 template <> __device__ __forceinline__ float to_float<float>(float x) { return x; }
@@ -80,15 +96,86 @@ sq_norms_combine_kernel(const float* __restrict__ partial, float* __restrict__ o
   out[c] = acc;
 }
 
-// out[r, j] = x[r, idx[j]], copied as raw bits (U is the element's width)
+constexpr int GATHER_ROWS = 16;      // rows a gather block owns
+constexpr int GATHER_WINDOW = 2048;  // bytes of a row's span a gather block stages
+
+// out[r, j] = x[r, idx[j]], copied as raw bits (U is the element's width).
+// Grid (ceil(K / (32 * VEC)), row tiles): lane l of every warp owns kept
+// columns j0 + l * VEC .. + VEC - 1 of the block's strip, warp w rows
+// w, w + 8 of its tile.  A frame of one row (a decode hop) has nothing to
+// reuse: every thread copies one kept value, and no shared memory is
+// launched (the window is dynamic shared memory, GATHER_ROWS x
+// GATHER_WINDOW bytes for R > 1).
 template <typename U>
 __global__ void __launch_bounds__(NTHREADS)
 gather_kernel(const U* __restrict__ x, const int* __restrict__ idx, U* __restrict__ out, int R,
               int C, int K) {
-  const int j = blockIdx.x * NTHREADS + threadIdx.x;
-  if (j >= K) return;
-  const int c = idx[j];
-  for (int r = blockIdx.y; r < R; r += gridDim.y) out[(long)r * K + j] = x[(long)r * C + c];
+  constexpr int VEC = 16 / sizeof(U);  // kept values a thread writes a row
+  constexpr int JW = 32 * VEC;         // the block's strip of kept columns
+  constexpr int WE = GATHER_WINDOW / sizeof(U);  // elements of a row's window
+  extern __shared__ __align__(16) uint8_t win[];
+  const int j0 = blockIdx.x * JW;
+  const int jl = min(K, j0 + JW) - 1;  // the strip's last kept column
+  if (R == 1) {
+    for (int j = j0 + threadIdx.x; j <= jl; j += NTHREADS) out[j] = x[idx[j]];
+    return;
+  }
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int jt = j0 + lane * VEC;      // this thread's first
+  int col[VEC];
+  if (jt + VEC <= K) {
+    const int4* p = reinterpret_cast<const int4*>(idx + jt);
+#pragma unroll
+    for (int e = 0; e < VEC; e += 4) {
+      const int4 v = p[e / 4];
+      col[e] = v.x; col[e + 1] = v.y; col[e + 2] = v.z; col[e + 3] = v.w;
+    }
+  } else {
+#pragma unroll
+    for (int e = 0; e < VEC; ++e) col[e] = jt + e < K ? idx[jt + e] : -1;
+  }
+  // the window: x's columns [lo, hi_end), 16-byte aligned, holding the span
+  // [idx[j0], idx[jl]] (sorted idx: every kept column of the strip)
+  const int lo = idx[j0], hi = idx[jl];
+  const int lo_al = lo & ~(VEC - 1);
+  const int hi_end = (hi + VEC) & ~(VEC - 1);
+  const bool rows_vec = (long)C * sizeof(U) % 16 == 0;
+  const bool out_vec = (long)K * sizeof(U) % 16 == 0 && jt + VEC <= K;
+  const int n_tiles = (R + GATHER_ROWS - 1) / GATHER_ROWS;
+  for (int tile = blockIdx.y; tile < n_tiles; tile += gridDim.y) {
+    const int r0 = tile * GATHER_ROWS;
+    const int rows = min(GATHER_ROWS, R - r0);
+    const bool staged = rows > 1 && rows_vec && lo <= hi && hi_end - lo_al <= WE;
+    if (staged) {
+      const int chunks = (hi_end - lo_al) / VEC;
+      __syncthreads();  // the previous tile's window is consumed
+      for (int r = warp; r < rows; r += NWARPS_GATHER)
+        for (int c = lane; c < chunks; c += 32)
+          dnet::cp_async16(win + r * GATHER_WINDOW + c * 16, x + (long)(r0 + r) * C + lo_al + c * VEC, true);
+      dnet::cp_commit();
+      dnet::cp_wait<0>();
+      __syncthreads();
+    }
+    for (int r = warp; r < rows; r += NWARPS_GATHER) {
+      const U* xr = x + (long)(r0 + r) * C;
+      const U* wr = reinterpret_cast<const U*>(win + r * GATHER_WINDOW);
+      __align__(16) U v[VEC];
+#pragma unroll
+      for (int e = 0; e < VEC; ++e) {
+        const int c = col[e];
+        v[e] = c < 0 ? U(0) : staged && c >= lo && c <= hi ? wr[c - lo_al] : xr[c];
+      }
+      U* orow = out + (long)(r0 + r) * K + jt;
+      if (out_vec) {
+        *reinterpret_cast<uint4*>(orow) = *reinterpret_cast<const uint4*>(v);
+      } else {
+#pragma unroll
+        for (int e = 0; e < VEC; ++e)
+          if (col[e] >= 0) orow[e] = v[e];
+      }
+    }
+  }
 }
 
 // MODE_SCATTER: src is the kept columns [R, K] in T; MODE_TENSOR: src is
@@ -277,17 +364,19 @@ extern "C" int dnet_column_sq_norms(int dtype, const void* x, float* partial, fl
 }
 
 // out [R, K] = x [R, C][:, idx], elements of elem_bytes (2 or 4) bytes;
-// idx [K] int32 in [0, C).  row_blocks (<= 65535) blocks stride over rows.
+// idx [K] int32 in [0, C), fastest sorted; x, idx and out 16-byte aligned.
 extern "C" int dnet_gather_columns(int elem_bytes, const void* x, const int* idx, void* out, int R,
-                                   int C, int K, int row_blocks, void* stream) {
+                                   int C, int K, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (R < 1 || K < 1 || row_blocks < 1 || row_blocks > 65535) return -1;
-  const dim3 grid((K + NTHREADS - 1) / NTHREADS, row_blocks);
+  if (R < 1 || K < 1 || (elem_bytes != 2 && elem_bytes != 4)) return -1;
+  const int strip = 32 * 16 / elem_bytes;
+  const dim3 grid((K + strip - 1) / strip, min((R + GATHER_ROWS - 1) / GATHER_ROWS, 65535));
+  const size_t smem = R > 1 ? GATHER_ROWS * GATHER_WINDOW : 0;
   if (elem_bytes == 2) {
-    gather_kernel<uint16_t><<<grid, NTHREADS, 0, st>>>(
+    gather_kernel<uint16_t><<<grid, NTHREADS, smem, st>>>(
         static_cast<const uint16_t*>(x), idx, static_cast<uint16_t*>(out), R, C, K);
   } else if (elem_bytes == 4) {
-    gather_kernel<uint32_t><<<grid, NTHREADS, 0, st>>>(
+    gather_kernel<uint32_t><<<grid, NTHREADS, smem, st>>>(
         static_cast<const uint32_t*>(x), idx, static_cast<uint32_t*>(out), R, C, K);
   } else {
     return -1;

@@ -1,327 +1,642 @@
 // Ragged paged attention for Hopper: single-token (T = 1) decode that reads
 // each slot's KV rows in place from a shared block pool through its page
-// table, split-K across blocks (flash-decoding) plus a combine pass.
+// table, in one launch of a split-K kernel whose last block to finish merges
+// the splits and folds the step's new row.
 //
 // Replaces the TPU kernel `_paged_kernel` (dnet_tpu/ops/paged_attention.py:92,
 // launched by `_paged_pallas`).  q/o [B, 1, H, D]; k_pool/v_pool
 // [N_blocks, bt, KVH, D] (one layer) in q's dtype, or bf16 under an f32 q
 // (the DNET_KV_BITS=16 pool of an f32 model); tables [B, nb] int32 page
 // tables; pos [B] int32 live pool rows per slot; k_new/v_new [B, KVH, D] the
-// current token's rows in q's dtype (attended unrounded, as the reference).  Slot b's query heads attend pool rows [0, pos[b]) -- key
-// `key` lives at row key % bt of physical block tables[b, key / bt] -- and then
-// the new row, which the caller appends to the pool after the launch.
+// current token's rows in q's dtype (attended unrounded, as the reference).
+// Slot b's G = H / KVH <= 8 query heads of each KV head attend pool rows
+// [0, pos[b]) -- key `key` lives at row key % bt of physical block
+// tables[b, key / bt] -- and then the new row, which the caller appends to
+// the pool after the launch.  D is 64 or 128.
 //
-// What bounds it on an H100: as in flash_decode.cu, one query row per head does
-// 2 * G multiply-adds per K/V element it reads, far below the card's balance
-// point, so the kernel is bound by the bytes of live K/V it reads:
-// 2 * sum_b(pos[b]) * KVH * D * sizeof(KV) per call.  What the design does
-// about it:
-//   - each slot's loop bound is its own live length pos[b].  The Pallas kernel
-//     walks all nb table entries and clamps dead ones to the last live block so
-//     the copy is elided (paged_attention.py:176-183); CUDA has no such thing,
-//     so table entries past a slot's live blocks are never read at all.
-//   - all G query heads of a KV group share each K/V tile read.
-//   - the live range splits across blocks (grid = splits x KVH x slots), planned
-//     on the host from an upper bound of the live lengths; splits past a slot's
-//     live length write empty partials (m = -1e30, l = 0), and the last split
-//     also takes any tiles past the plan, so a low bound costs balance, never
-//     rows.
-//   - a 64-key tile spans several physical blocks when bt < 64 (and part of
-//     one when bt > 64): every staged row looks up its own block, so bt is a
-//     runtime value, any divisor of the slot capacity.
-//   - split 0 folds the new row into its accumulator exactly once per head; it
+// What bounds it on an H100: as in flash_decode.cu, one query row per head
+// does 2 * G multiply-adds per K/V element it reads, far below the card's
+// balance point, so its bound is the live K/V it reads:
+// 2 * sum_b(pos[b]) * KVH * D * sizeof(KV) per call (plus q, the new rows
+// and the output).  At a batched decode's sizes (a few MB) that is a few
+// microseconds, so what a call costs is its fixed latency plus, per tile,
+// the block's work.  The design is the decode kernel's (flash_decode.cu's
+// header says why each choice), over a page table:
+//   - One launch per call, of nx blocks per KV head.  Every block reads the
+//     slots' positions on the device and plans alike (`split_plan`): slot b
+//     takes s_b = max(1, ceil(tiles_b / T)) <= 16 consecutive blocks, T a
+//     number of tiles a block that fits every slot into nx, so ragged slots
+//     are balanced by their work (batch_serve's lanes of 59 to 1,532 keys:
+//     at most 4 tiles a block over 32 blocks a KV head, where one split
+//     count for every slot would give the longest 6) and blocks past the
+//     plan exit.
+//     With more than one block a slot, each writes its state (m, l, acc per
+//     query row) to a per-stream scratch buffer and takes a ticket for its
+//     (slot, KV head); the block that takes the last one merges every
+//     state, folds the new row, writes the outputs and returns the ticket to
+//     0.  No combine kernel, no scratch allocated per call.  Where the fold
+//     fits 128 registers a thread (G <= 4 at D = 64), two blocks share an SM,
+//     and the host plans for two an SM.
+//   - Each block stages its slice of the page table in shared memory once
+//     (one coalesced load; entries past TBL_MAX are read from the table),
+//     then copies K and V rows as the pool stores them (bf16, or f32 in the
+//     f32 instantiation) with 16-byte cp.async, each row from its own table
+//     entry: tbl[key / bt] * bt + key % bt (a shift and a mask for a
+//     power-of-two bt).  Rows past the slot's live length are zero-filled
+//     without a read, so table entries past its live blocks are never read
+//     and a dead row, NaN or not, never meets a zero of P.  A ring of 2-4
+//     stages (64-key tiles, 32 where a tile of f32 at D = 128 would pass
+//     32 KB) keeps the next tiles' copies in flight while one is folded; one
+//     __syncthreads a tile.  Values are widened to f32 as they are read into
+//     registers.
+//   - The whole block works at every G: each of 8 warps folds an eighth of
+//     every tile, 8 lanes a key (16 at G = 8 and D = 128, so that a lane
+//     holds 64 accumulators, not 128, and nothing spills), and a key's dot
+//     reduces over its lanes as a reduce-scatter that leaves each lane one
+//     query row's score, so the online softmax runs once per (key, row); at
+//     G = 4 (Llama-3.2-1B's 32 / 8 heads) every lane scores and
+//     accumulates.  Scores in log2 units (q carries log2(e)), P and PV in
+//     f32 FMAs on the CUDA cores.
+//   - The new row is one more state, folded once in the merge: every block
+//     computes its score while its first copies are in flight, and the
+//     merging block weighs v_new with it beside the splits' states.  It
 //     always exists, so pos == 0 (nothing live, also every inactive lane)
-//     gives v_new and the combine never divides by zero.
+//     gives exactly v_new and the denominator is never zero.
+//   - Host cost: the shared-memory attribute is set once per instantiation
+//     and device.
+
+#include <atomic>
 
 #include "common.cuh"
 
 namespace {
 
 using dnet::NEG_INF;
+using dnet::cp_async16;
+using dnet::cp_commit;
+using dnet::cp_wait;
 
-constexpr int BK = 64;         // keys per tile
-constexpr int NTHREADS = 128;  // 4 warps
-constexpr int GMAX = 8;        // query heads per KV head this kernel supports
+constexpr int NTHREADS = 256;      // 8 warps
+constexpr int NWARPS = NTHREADS / 32;
+constexpr int GMAX = 8;            // query heads per KV head
+constexpr int MAX_SPLIT = 16;      // blocks sharing one (slot, KV head)
+constexpr int RING_BUDGET = 81920; // shared-memory bytes the ring aims at
+constexpr int TBL_MAX = 512;       // page-table entries a block stages
+constexpr float LOG2E = 1.4426950408889634f;
 
-template <int D>
-struct Layout {
-  static constexpr int LDK = BK + 4;  // Ks[d][j]
-  static constexpr int LDV = D + 4;   // Vs[j][d]
-  static constexpr int Q_OFF = 0;                     // Qs[g][d], pre-scaled
-  static constexpr int K_OFF = Q_OFF + GMAX * D;
-  static constexpr int V_OFF = K_OFF + D * LDK;
-  static constexpr int S_OFF = V_OFF + BK * LDV;      // scores, then probabilities [g][j]
-  static constexpr int M_OFF = S_OFF + GMAX * BK;     // running max per head
-  static constexpr int L_OFF = M_OFF + GMAX;          // running denominator per head
-  static constexpr int C_OFF = L_OFF + GMAX;          // this tile's rescale per head
-  static constexpr int FLOATS = C_OFF + GMAX;
-  static constexpr size_t BYTES = FLOATS * sizeof(float);
-  static constexpr int OUT_PER_THREAD = GMAX * D / NTHREADS;
+// The shared-memory layout of one instantiation (bytes): the ring of NSTAGE
+// stages, each [K tile | V tile]; after the loop the ring holds the 8 warps'
+// states (m [GP], l [GP], acc [GP][D]); then the pre-scaled q [GP][D], the
+// block's merged state, the new row (its score per query row [GP], k_new
+// [D], v_new [D], f32) and the staged page-table entries.
+template <typename KV, int D, int GP>
+struct Cfg {
+  static constexpr int RB = D * (int)sizeof(KV);  // bytes of one K or V row
+  static constexpr int BK = 64 * 2 * RB > 32768 ? 32 : 64;
+  // lanes per key: 8, or 16 at G = 8 and D = 128, where 8 lanes would
+  // hold 128 accumulators each and spill
+  static constexpr int LPK = GP * D > 512 ? 16 : 8;
+  static constexpr int LOG_LPK = LPK == 16 ? 4 : 3;
+  static constexpr int KPP = 32 / LPK;    // keys a warp scores per pass
+  static constexpr int WK = BK / NWARPS;  // keys a warp folds per tile
+  static constexpr int PASSES = WK / KPP;
+  static constexpr int KT = BK * RB;
+  static constexpr int STAGE = 2 * KT;
+  static constexpr int NSTAGE = 4 * STAGE <= RING_BUDGET ? 4 : 3 * STAGE <= RING_BUDGET ? 3 : 2;
+  static constexpr int RING = NSTAGE * STAGE;
+  static constexpr int U = D / (8 * LPK);  // 8-value units a lane holds of a row
+  static constexpr bool QREG = GP * D / LPK <= 64;  // q's share of a lane in registers
+  static constexpr int STATE = 2 * GP + GP * D;  // floats: m, l, acc
+  static constexpr int MERGE = NWARPS * STATE * 4;
+  static constexpr int Q_OFF = RING > MERGE ? RING : MERGE;
+  static constexpr int B_OFF = Q_OFF + GP * D * 4;
+  static constexpr int N_OFF = B_OFF + STATE * 4;
+  static constexpr int T_OFF = N_OFF + (GP + 2 * D) * 4;
+  static constexpr int BYTES = T_OFF + TBL_MAX * 4;
+  // blocks an SM: two where the fold fits 128 registers a thread without
+  // spilling (G <= 4 at D = 64, G = 1 at D = 128), else one
+  static constexpr int MINB = GP * D <= 256 ? 2 : 1;
+  static_assert(RB % 16 == 0, "rows are copied as 16-byte chunks");
+  static_assert(U * 8 * LPK == D && PASSES * KPP == WK, "head dims are multiples of 8 x LPK");
 };
 
-template <typename T> __device__ __forceinline__ float to_float(T x);
-template <> __device__ __forceinline__ float to_float<float>(float x) { return x; }
-template <> __device__ __forceinline__ float to_float<__nv_bfloat16>(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-
-// Stage keys [k0, k0 + rows) of one slot's KV head `kvh` into shared memory as
-// float, each row from its own physical block; rows >= rows are zero-filled
-// and their table entries never read.
-//   TRANSPOSE: dst[d * ld + r]   otherwise: dst[r * ld + d]
-template <typename T, int D, bool TRANSPOSE>
-__device__ __forceinline__ void stage_paged_tile(float* dst, int ld, const T* __restrict__ pool,
-                                                 const int* __restrict__ tbl, int bt, int KVH,
-                                                 int kvh, int k0, int rows) {
-  constexpr int VEC = dnet::Vec16<T>::N;
-  constexpr int CHUNKS = D / VEC;
-  for (int idx = threadIdx.x; idx < BK * CHUNKS; idx += blockDim.x) {
-    int r, c;
-    if (TRANSPOSE) {
-      r = idx % BK;
-      c = idx / BK;
-    } else {
-      c = idx % CHUNKS;
-      r = idx / CHUNKS;
-    }
-    float v[VEC];
-    if (r < rows) {
-      const int key = k0 + r;
-      const long phys = tbl[key / bt];
-      const long row = phys * bt + key % bt;
-      dnet::load16<T>(pool + (row * KVH + kvh) * D + c * VEC, v);
-    } else {
-#pragma unroll
-      for (int e = 0; e < VEC; ++e) v[e] = 0.f;
-    }
-#pragma unroll
-    for (int e = 0; e < VEC; ++e) {
-      if (TRANSPOSE) {
-        dst[(c * VEC + e) * ld + r] = v[e];
-      } else {
-        dst[r * ld + c * VEC + e] = v[e];
-      }
-    }
+// Values 8u .. 8u + 7 of a row in shared memory, as the pool stores it, to f32.
+template <typename KV>
+__device__ __forceinline__ void load_unit(const uint8_t* row, int u, float* out) {
+  if constexpr (sizeof(KV) == 2) {
+    dnet::load16<__nv_bfloat16>(reinterpret_cast<const __nv_bfloat16*>(row) + u * 8, out);
+  } else {
+    dnet::load16<float>(reinterpret_cast<const float*>(row) + u * 8, out);
+    dnet::load16<float>(reinterpret_cast<const float*>(row) + u * 8 + 4, out + 4);
   }
 }
 
-// T: q's and the new rows' type; KV: the pool's (T, or bf16 under an f32 T)
-template <typename T, typename KV, int D>
-__global__ void __launch_bounds__(NTHREADS)
-paged_split_kernel(const T* __restrict__ q, const KV* __restrict__ k_pool,
-                   const KV* __restrict__ v_pool, const int* __restrict__ tables,
-                   const int* __restrict__ pos, const T* __restrict__ k_new,
-                   const T* __restrict__ v_new, float* __restrict__ part_o,
-                   float* __restrict__ part_ml, int H, int KVH, int nb, int bt,
-                   int tiles_per_split, int n_split, float scale) {
-  using L = Layout<D>;
-  constexpr int NO = L::OUT_PER_THREAD;
-  extern __shared__ __align__(16) float smem[];
-  float* Qs = smem + L::Q_OFF;
-  float* Ks = smem + L::K_OFF;
-  float* Vs = smem + L::V_OFF;
-  float* Ss = smem + L::S_OFF;
-  float* ms = smem + L::M_OFF;
-  float* ls = smem + L::L_OFF;
-  float* cs = smem + L::C_OFF;
+template <typename T>
+__device__ __forceinline__ float to_float(T x) {
+  if constexpr (sizeof(T) == 4) {
+    return x;
+  } else {
+    return __bfloat162float(x);
+  }
+}
 
-  const int split = blockIdx.x;
+// One call's arguments (pointers to device memory, shapes, the stream).
+struct Args {
+  const void* q;
+  const void* k_pool;
+  const void* v_pool;
+  const int* tables;
+  const int* pos;
+  const void* k_new;
+  const void* v_new;
+  void* o;
+  float* part;   // [KVH, nx, STATE] f32: the blocks' states (nx > B)
+  int* tickets;  // [B * KVH] int32, 0 between calls: blocks done per (slot, KV head)
+  int B, H, KVH, nb, bt, nx;
+  float scale;
+  cudaStream_t stream;
+};
+
+__device__ __forceinline__ int warp_sum(int v) {
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
+  return v;
+}
+
+__device__ __forceinline__ int warp_max(int v) {
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) v = max(v, __shfl_xor_sync(0xffffffffu, v, off));
+  return v;
+}
+
+// The split plan, which every block of a KV head computes alike from pos
+// (warp 0; the result in plan[]): each slot's live tiles split over
+// s_b = max(1, ceil(tiles_b / T)) consecutive blocks of the nx, with
+// T = ceil(total tiles / (nx - B)), which fits every slot into nx
+// (sum_b s_b <= total / T + B), and no fewer than ceil(most / MAX_SPLIT)
+// (at most MAX_SPLIT blocks a slot); with nx = B, one block a slot.  Writes
+// this block's slot (-1: idle), split, the slot's split count and its first
+// block.
+template <int BK>
+__device__ __forceinline__ void split_plan(const Args& a, int x, int lane, int* plan) {
+  const int cap = a.nb * a.bt;
+  const int rounds = (a.B + 31) / 32;
+  int total = 0, most = 0;
+  for (int i = 0; i < rounds; ++i) {
+    const int b = lane + 32 * i;
+    const int t = b < a.B ? (min(a.pos[b], cap) + BK - 1) / BK : 0;
+    total += t;
+    most = max(most, t);
+  }
+  total = warp_sum(total);
+  most = warp_max(most);
+  const int T = max(max(1, (most + MAX_SPLIT - 1) / MAX_SPLIT),
+                    a.nx > a.B ? (total + a.nx - a.B - 1) / (a.nx - a.B) : most);
+  if (lane == 0) plan[0] = -1;
+  __syncwarp();
+  int base = 0;
+  for (int i = 0; i < rounds; ++i) {
+    const int b = lane + 32 * i;
+    const int sb = b < a.B ? max(1, ((min(a.pos[b], cap) + BK - 1) / BK + T - 1) / T) : 0;
+    int incl = sb;  // inclusive scan over the warp's slots
+#pragma unroll
+    for (int off = 1; off < 32; off <<= 1) {
+      const int y = __shfl_up_sync(0xffffffffu, incl, off);
+      if (lane >= off) incl += y;
+    }
+    const int first = base + incl - sb;
+    if (sb && x >= first && x < first + sb) {
+      plan[0] = b;
+      plan[1] = x - first;
+      plan[2] = sb;
+      plan[3] = first;
+    }
+    base += __shfl_sync(0xffffffffu, incl, 31);
+  }
+}
+
+// T: q's, the new rows' and the output's type; KV: the pool's (T, or bf16
+// under an f32 T); GP: query rows a block holds (>= G).  Grid (nx, KVH):
+// the nx blocks of a KV head take the slots' splits in slot order
+// (`split_plan`); blocks past them exit.
+template <typename T, typename KV, int D, int GP>
+__global__ void __launch_bounds__(NTHREADS, Cfg<KV, D, GP>::MINB) paged_attention_kernel(const Args a) {
+  using C = Cfg<KV, D, GP>;
+  extern __shared__ __align__(16) uint8_t smem[];
+  float* Qs = reinterpret_cast<float*>(smem + C::Q_OFF);
+  float* Bs = reinterpret_cast<float*>(smem + C::B_OFF);
+  float* Ns = reinterpret_cast<float*>(smem + C::N_OFF);  // scores [GP], k_new [D], v_new [D]
+  int* Ts = reinterpret_cast<int*>(smem + C::T_OFF);
+
+  const int x = blockIdx.x;
   const int kvh = blockIdx.y;
-  const int b = blockIdx.z;
+  const int H = a.H, KVH = a.KVH, bt = a.bt;
   const int G = H / KVH;
   const int tid = threadIdx.x;
   const int lane = tid & 31;
   const int warp = tid >> 5;
+  constexpr int LPK = C::LPK, KPP = C::KPP;
+  constexpr int BK = C::BK, WK = C::WK, PASSES = C::PASSES;
+  const int kp = lane / LPK;   // which of the pass's keys
+  const int sub = lane % LPK;  // which units of the row
+
+  // which slot and split this block takes
+  __shared__ int plan[4];
+  if (warp == 0) split_plan<BK>(a, x, lane, plan);
+  __syncthreads();
+  const int b = plan[0];
+  if (b < 0) return;  // the slots' splits take fewer blocks than the grid has
+  const int split = plan[1], n_split = plan[2], first = plan[3];
+
+  // q's elements this thread stages and the new rows', then this block's
+  // tiles: the slot's live tiles, split evenly over its n_split blocks
+  constexpr int QPT = (GP * D + NTHREADS - 1) / NTHREADS;
+  const T* qb = static_cast<const T*>(a.q) + ((long)b * H + (long)kvh * G) * D;
+  const float q_scale = a.scale * LOG2E;  // scores in log2 units
+  float qv[QPT];
+#pragma unroll
+  for (int r = 0; r < QPT; ++r) {
+    const int i = tid + r * NTHREADS;
+    qv[r] = i < G * D ? to_float(qb[i]) * q_scale : 0.f;
+  }
+  const long nrow = ((long)b * KVH + kvh) * D;
+  const float kn = tid < D ? to_float(static_cast<const T*>(a.k_new)[nrow + tid]) : 0.f;
+  const float vn = tid < D ? to_float(static_cast<const T*>(a.v_new)[nrow + tid]) : 0.f;
+
+  const int* tbl = a.tables + (long)b * a.nb;
+  const int live = min(a.pos[b], a.nb * bt);
+  const int n_tiles = (live + BK - 1) / BK;
+  const int per = (n_tiles + n_split - 1) / n_split;
+  const int t_begin = min(split * per, n_tiles);
+  const int t_end = min(t_begin + per, n_tiles);
+
+  // a power-of-two bt (the engine's) shifts and masks instead of dividing
+  const bool pow2 = (bt & (bt - 1)) == 0;
+  const int bsh = __ffs(bt) - 1;
+  // the block's slice of the page table: entries [e0, e1), the first
+  // TBL_MAX of them staged
+  const int key0 = t_begin * BK;
+  const int key1 = min(t_end * BK, live);
+  const int e0 = pow2 ? key0 >> bsh : key0 / bt;
+  const int e1 = key1 > key0 ? (pow2 ? (key1 - 1) >> bsh : (key1 - 1) / bt) + 1 : e0;
+  for (int e = e0 + tid; e < min(e1, e0 + TBL_MAX); e += NTHREADS) Ts[e - e0] = tbl[e];
 
   // the G query heads of this KV group are contiguous: q[b, 0, kvh*G .. kvh*G+G-1, :]
-  const T* qb = q + ((long)b * H + (long)kvh * G) * D;
-  for (int i = tid; i < G * D; i += NTHREADS) Qs[i] = to_float<T>(qb[i]) * scale;
-  if (tid < G) {
-    ms[tid] = NEG_INF;
-    ls[tid] = 0.f;
-  }
-
-  float acc[NO];
 #pragma unroll
-  for (int i = 0; i < NO; ++i) acc[i] = 0.f;
+  for (int r = 0; r < QPT; ++r) {
+    const int i = tid + r * NTHREADS;
+    if (i < GP * D) Qs[i] = qv[r];
+  }
+  if (tid < D) {
+    Ns[GP + tid] = kn;
+    Ns[GP + D + tid] = vn;
+  }
+  __syncthreads();  // the table slice, q and the new row are staged
 
-  const int live = pos[b];
-  const int* tbl = tables + (long)b * nb;
-  const int n_tiles = (live + BK - 1) / BK;
-  const int t_begin = split * tiles_per_split;
-  const int t_end = split == n_split - 1 ? n_tiles : min(t_begin + tiles_per_split, n_tiles);
-
-  for (int tile = t_begin; tile < t_end; ++tile) {
+  const uint8_t* kpool = static_cast<const uint8_t*>(a.k_pool);
+  const uint8_t* vpool = static_cast<const uint8_t*>(a.v_pool);
+  // copy tile `tile` into ring stage `stage`, each row through its own table
+  // entry; rows past the live length are zero-filled without a read
+  auto copy_tile = [&](int tile, int stage) {
+    uint8_t* st = smem + stage * C::STAGE;
     const int k0 = tile * BK;
-    __syncthreads();  // Qs/stats initialised; previous tile's Ks/Vs/Ss consumed
     const int rows = min(BK, live - k0);
-    stage_paged_tile<KV, D, true>(Ks, L::LDK, k_pool, tbl, bt, KVH, kvh, k0, rows);
-    stage_paged_tile<KV, D, false>(Vs, L::LDV, v_pool, tbl, bt, KVH, kvh, k0, rows);
-    __syncthreads();
+    constexpr int CH = C::RB / 16;
+    for (int i = tid; i < BK * CH; i += NTHREADS) {
+      const int r = i / CH, c = i - (i / CH) * CH;
+      const bool ok = r < rows;
+      long off = 0;
+      if (ok) {
+        const int key = k0 + r;
+        const int e = pow2 ? key >> bsh : key / bt;
+        const long phys = e - e0 < TBL_MAX ? Ts[e - e0] : tbl[e];
+        const int slot = pow2 ? key & (bt - 1) : key - e * bt;
+        off = ((phys * bt + slot) * KVH + kvh) * C::RB + c * 16;
+      }
+      cp_async16(st + r * C::RB + c * 16, kpool + off, ok);
+      cp_async16(st + C::KT + r * C::RB + c * 16, vpool + off, ok);
+    }
+  };
 
-    // scores: thread -> key j, heads g = tid/64, tid/64 + 2, ...; rows at or
-    // past the live length (the stale tail of the last live block) never score
-    {
-      const int j = tid & (BK - 1);
-      const bool valid = j < rows;
-      for (int g = tid / BK; g < G; g += NTHREADS / BK) {
-        float s = 0.f;
-#pragma unroll 16
-        for (int d = 0; d < D; ++d) s = fmaf(Qs[g * D + d], Ks[d * L::LDK + j], s);
-        Ss[g * BK + j] = valid ? s : NEG_INF;
+#pragma unroll
+  for (int s = 0; s < C::NSTAGE - 1; ++s) {
+    if (t_begin + s < t_end) copy_tile(t_begin + s, s);
+    cp_commit();
+  }
+
+  // the new row's score per query row, while the first copies fly
+  for (int g = warp; g < G; g += NWARPS) {
+    float s = 0.f;
+    for (int d = lane; d < D; d += 32) s = fmaf(Qs[g * D + d], Ns[GP + d], s);
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) s += __shfl_xor_sync(0xffffffffu, s, off);
+    if (lane == 0) Ns[g] = s;
+  }
+
+  float qr[C::QREG ? GP : 1][C::QREG ? C::U : 1][8];
+  if constexpr (C::QREG) {
+#pragma unroll
+    for (int g = 0; g < GP; ++g)
+#pragma unroll
+      for (int uu = 0; uu < C::U; ++uu) {
+        const float* src = Qs + g * D + (sub + LPK * uu) * 8;
+#pragma unroll
+        for (int e = 0; e < 8; ++e) qr[g][uu][e] = src[e];
+      }
+  }
+
+  // The dot of a key reduces over its LPK lanes as a reduce-scatter: KB =
+  // log2(GP) halving steps leave each lane one query row's sum, row
+  // gl = sub >> (LOG_LPK - KB), so the softmax runs once per (key, row);
+  // the lanes of one row then share p and the rescale with the others by
+  // shuffles.
+  constexpr int KB = GP == 1 ? 0 : GP == 4 ? 2 : 3;
+  constexpr int SH = C::LOG_LPK - KB;  // log2 of the lanes holding one row
+  static_assert((1 << KB) == GP && (1 << C::LOG_LPK) == LPK, "GP is 1, 4 or 8 over 8 or 16 lanes a key");
+  const int gl = sub >> SH;
+  float m_r = NEG_INF, l_r = 0.f;  // row gl's running max (log2 units) and sum over the warp's keys
+  float acc[GP][C::U][8];
+#pragma unroll
+  for (int g = 0; g < GP; ++g)
+#pragma unroll
+    for (int uu = 0; uu < C::U; ++uu)
+#pragma unroll
+      for (int e = 0; e < 8; ++e) acc[g][uu][e] = 0.f;
+
+  for (int t = t_begin; t < t_end; ++t) {
+    const int i = t - t_begin;
+    cp_wait<C::NSTAGE - 2>();  // this thread's copies of tile t have landed
+    __syncthreads();           // everyone's have, and stage (i - 1) % NSTAGE is free
+    if (t + C::NSTAGE - 1 < t_end) copy_tile(t + C::NSTAGE - 1, (i + C::NSTAGE - 1) % C::NSTAGE);
+    cp_commit();
+
+    const int k0 = t * BK;
+    if (k0 + warp * WK >= live) continue;  // this warp's keys are all past the live rows
+    const uint8_t* Kt = smem + (i % C::NSTAGE) * C::STAGE;
+    const uint8_t* Vt = Kt + C::KT;
+
+    // scores of the warp's keys, key warp*WK + p*4 + kp: row gl's in sc[p]
+    float sc[PASSES];
+#pragma unroll
+    for (int p = 0; p < PASSES; ++p) {
+      const int j = warp * WK + p * KPP + kp;
+      float s[GP];
+#pragma unroll
+      for (int g = 0; g < GP; ++g) s[g] = 0.f;
+#pragma unroll
+      for (int uu = 0; uu < C::U; ++uu) {
+        const int u = sub + LPK * uu;
+        float kv[8];
+        load_unit<KV>(Kt + j * C::RB, u, kv);
+#pragma unroll
+        for (int g = 0; g < GP; ++g)
+#pragma unroll
+          for (int e = 0; e < 8; ++e) {
+            const float qx = C::QREG ? qr[C::QREG ? g : 0][C::QREG ? uu : 0][e] : Qs[g * D + u * 8 + e];
+            s[g] = fmaf(qx, kv[e], s[g]);
+          }
+      }
+      // reduce-scatter: step `lvl` exchanges half the rows with lane ^ (LPK / 2 >> lvl)
+#pragma unroll
+      for (int lvl = 0; lvl < KB; ++lvl) {
+        const int off = (LPK / 2) >> lvl;
+        const int half = GP >> (lvl + 1);
+        const bool up = sub & off;
+#pragma unroll
+        for (int r = 0; r < half; ++r) {
+          const float send = up ? s[r] : s[r + half];
+          const float keep = up ? s[r + half] : s[r];
+          s[r] = keep + __shfl_xor_sync(0xffffffffu, send, off);
+        }
+      }
+#pragma unroll
+      for (int off = (LPK / 2) >> KB; off > 0; off >>= 1) s[0] += __shfl_xor_sync(0xffffffffu, s[0], off);
+      sc[p] = k0 + j < live ? s[0] : NEG_INF;
+    }
+
+    // online softmax of row gl over the warp's WK keys (its lanes across the
+    // KPP key groups), then p into sc
+    float mt = sc[0];
+#pragma unroll
+    for (int p = 1; p < PASSES; ++p) mt = fmaxf(mt, sc[p]);
+#pragma unroll
+    for (int off = LPK; off < 32; off <<= 1) mt = fmaxf(mt, __shfl_xor_sync(0xffffffffu, mt, off));
+    const float m_new = fmaxf(m_r, mt);
+    const float corr = exp2f(m_r - m_new);
+    float sum = 0.f;
+#pragma unroll
+    for (int p = 0; p < PASSES; ++p) {
+      sc[p] = exp2f(sc[p] - m_new);
+      sum += sc[p];
+    }
+#pragma unroll
+    for (int off = LPK; off < 32; off <<= 1) sum += __shfl_xor_sync(0xffffffffu, sum, off);
+    l_r = l_r * corr + sum;
+    m_r = m_new;
+
+    // every row's rescale, from the lanes holding it (warp-uniform: skipped
+    // while a row's max stands)
+#pragma unroll
+    for (int g = 0; g < GP; ++g) {
+      const float cg_ = GP == 1 ? corr : __shfl_sync(0xffffffffu, corr, g << SH);
+      if (cg_ != 1.f) {
+#pragma unroll
+        for (int uu = 0; uu < C::U; ++uu)
+#pragma unroll
+          for (int e = 0; e < 8; ++e) acc[g][uu][e] *= cg_;
       }
     }
-    __syncthreads();
 
-    // online softmax per head: one warp per head, two keys per lane
-    for (int g = warp; g < G; g += NTHREADS / 32) {
-      const float s0 = Ss[g * BK + lane];
-      const float s1 = Ss[g * BK + lane + 32];
-      float mt = fmaxf(s0, s1);
+    // acc[g][unit] += p[g][key] * v[key][unit], the same keys as the scores
 #pragma unroll
-      for (int off = 16; off > 0; off >>= 1) mt = fmaxf(mt, __shfl_xor_sync(0xffffffffu, mt, off));
-      const float m_prev = ms[g];
-      const float m_new = fmaxf(m_prev, mt);
-      const float p0 = expf(s0 - m_new);
-      const float p1 = expf(s1 - m_new);
-      float sum = p0 + p1;
+    for (int p = 0; p < PASSES; ++p) {
+      const int j = warp * WK + p * KPP + kp;
+      float pg[GP];
 #pragma unroll
-      for (int off = 16; off > 0; off >>= 1) sum += __shfl_xor_sync(0xffffffffu, sum, off);
-      Ss[g * BK + lane] = p0;
-      Ss[g * BK + lane + 32] = p1;
-      __syncwarp();
-      if (lane == 0) {
-        const float corr = expf(m_prev - m_new);
-        ms[g] = m_new;
-        ls[g] = ls[g] * corr + sum;
-        cs[g] = corr;
-      }
-    }
-    __syncthreads();
-
-    // acc[g][d] = acc * corr + sum_j p[g][j] * v[j][d]
+      for (int g = 0; g < GP; ++g)
+        pg[g] = GP == 1 ? sc[p] : __shfl_sync(0xffffffffu, sc[p], kp * LPK + (g << SH));
 #pragma unroll
-    for (int i = 0; i < NO; ++i) {
-      const int oi = tid + i * NTHREADS;
-      if (oi < G * D) {
-        const int g = oi / D;
-        const int d = oi % D;
-        float a = acc[i] * cs[g];
-#pragma unroll 16
-        for (int j = 0; j < BK; ++j) a = fmaf(Ss[g * BK + j], Vs[j * L::LDV + d], a);
-        acc[i] = a;
+      for (int uu = 0; uu < C::U; ++uu) {
+        float vv[8];
+        load_unit<KV>(Vt + j * C::RB, sub + LPK * uu, vv);
+#pragma unroll
+        for (int g = 0; g < GP; ++g)
+#pragma unroll
+          for (int e = 0; e < 8; ++e) acc[g][uu][e] = fmaf(pg[g], vv[e], acc[g][uu][e]);
       }
     }
   }
 
-  if (split == 0) {
-    // the current token's row, not yet in the pool: one more key, folded once
-    __syncthreads();  // Qs written; the last tile's Ss/cs consumed
-    const T* kn = k_new + ((long)b * KVH + kvh) * D;
-    for (int g = warp; g < G; g += NTHREADS / 32) {
-      float s = 0.f;
-      for (int d = lane; d < D; d += 32) s = fmaf(Qs[g * D + d], to_float<T>(kn[d]), s);
+  // the KPP key groups of a warp share its rows' (m, l): sum their accumulators
 #pragma unroll
-      for (int off = 16; off > 0; off >>= 1) s += __shfl_xor_sync(0xffffffffu, s, off);
-      if (lane == 0) {
-        const float m_prev = ms[g];
-        const float m_new = fmaxf(m_prev, s);
-        const float corr = expf(m_prev - m_new);
-        const float p = expf(s - m_new);
-        ms[g] = m_new;
-        ls[g] = ls[g] * corr + p;
-        cs[g] = corr;
-        Ss[g * BK] = p;
-      }
-    }
-    __syncthreads();
-    const T* vn = v_new + ((long)b * KVH + kvh) * D;
+  for (int g = 0; g < GP; ++g)
 #pragma unroll
-    for (int i = 0; i < NO; ++i) {
-      const int oi = tid + i * NTHREADS;
-      if (oi < G * D) {
-        const int g = oi / D;
-        acc[i] = fmaf(Ss[g * BK], to_float<T>(vn[oi % D]), acc[i] * cs[g]);
-      }
-    }
-  }
+    for (int uu = 0; uu < C::U; ++uu)
+#pragma unroll
+      for (int e = 0; e < 8; ++e)
+#pragma unroll
+        for (int off = LPK; off < 32; off <<= 1)
+          acc[g][uu][e] += __shfl_xor_sync(0xffffffffu, acc[g][uu][e], off);
 
-  const long base = ((long)b * KVH + kvh) * n_split + split;
+  cp_wait<0>();
+  __syncthreads();  // the ring is free: it takes the warps' states
+  float* Ws = reinterpret_cast<float*>(smem) + warp * C::STATE;
+  if (kp == 0 && (sub & ((1 << SH) - 1)) == 0) {  // the first lane of row gl's
+    Ws[gl] = m_r;
+    Ws[GP + gl] = l_r;
+  }
 #pragma unroll
-  for (int i = 0; i < NO; ++i) {
-    const int oi = tid + i * NTHREADS;
-    if (oi < G * D) part_o[base * G * D + oi] = acc[i];
+  for (int g = 0; g < GP; ++g) {
+    if (kp == 0) {
+#pragma unroll
+      for (int uu = 0; uu < C::U; ++uu)
+#pragma unroll
+        for (int e = 0; e < 8; ++e) Ws[2 * GP + g * D + (sub + LPK * uu) * 8 + e] = acc[g][uu][e];
+    }
   }
   __syncthreads();
-  if (tid < G) {
-    part_ml[(base * G + tid) * 2] = ms[tid];
-    part_ml[(base * G + tid) * 2 + 1] = ls[tid];
+
+  // the block's state: its warps merged with one log-sum-exp per head
+  const float* W0 = reinterpret_cast<const float*>(smem);
+  for (int e = tid; e < G * D; e += NTHREADS) {
+    const int g = e / D, d = e - (e / D) * D;
+    float M = NEG_INF;
+#pragma unroll
+    for (int w = 0; w < NWARPS; ++w) M = fmaxf(M, W0[w * C::STATE + g]);
+    float x = 0.f, ll = 0.f;
+#pragma unroll
+    for (int w = 0; w < NWARPS; ++w) {
+      const float* Wsw = W0 + w * C::STATE;
+      const float wt = exp2f(Wsw[g] - M);
+      x = fmaf(wt, Wsw[2 * GP + g * D + d], x);
+      ll = fmaf(wt, Wsw[GP + g], ll);
+    }
+    Bs[2 * GP + g * D + d] = x;
+    if (d == 0) {
+      Bs[g] = M;
+      Bs[GP + g] = ll;
+    }
   }
+  __syncthreads();  // the block's state is in Bs
+
+  // Several blocks share the (slot, KV head): each publishes its state, and
+  // the block that takes the last ticket merges them all.
+  const int pair = b * KVH + kvh;
+  if (n_split > 1) {
+    float* mine = a.part + ((long)kvh * a.nx + x) * C::STATE;
+    for (int i = tid; i < C::STATE; i += NTHREADS) mine[i] = Bs[i];
+    __syncthreads();
+    // one thread takes the ticket with acquire-release semantics: the
+    // barrier before it makes the block's writes part of its release, the
+    // barrier after it gives the block what the earlier blocks released
+    __shared__ int last;
+    if (tid == 0) {
+      int ticket;
+      asm volatile("atom.acq_rel.gpu.global.add.s32 %0, [%1], %2;\n"
+                   : "=r"(ticket) : "l"(a.tickets + pair), "r"(1) : "memory");
+      last = ticket == n_split - 1;
+    }
+    __syncthreads();
+    if (!last) return;
+  }
+
+  // the merge: every block's (m, l, acc) loaded before any is used, then
+  // the new row (score Ns[g], value v_new) as one more state
+  for (int e = tid; e < G * D; e += NTHREADS) {
+    const int g = e / D, d = e - (e / D) * D;
+    float rm[MAX_SPLIT], rl[MAX_SPLIT], ra[MAX_SPLIT];
+    if (n_split == 1) {
+      rm[0] = Bs[g];
+      rl[0] = Bs[GP + g];
+      ra[0] = Bs[2 * GP + g * D + d];
+    } else {
+#pragma unroll
+      for (int r = 0; r < MAX_SPLIT; ++r) {
+        if (r < n_split) {
+          const float* R = a.part + ((long)kvh * a.nx + first + r) * C::STATE;  // __ldcg: from L2, not L1
+          rm[r] = __ldcg(R + g);
+          rl[r] = __ldcg(R + GP + g);
+          ra[r] = __ldcg(R + 2 * GP + g * D + d);
+        }
+      }
+    }
+    const float sn = Ns[g];
+    float M = sn;
+#pragma unroll
+    for (int r = 0; r < MAX_SPLIT; ++r)
+      if (r < n_split) M = fmaxf(M, rm[r]);
+    const float wn = exp2f(sn - M);
+    float x = wn * Ns[GP + D + d], ll = wn;
+#pragma unroll
+    for (int r = 0; r < MAX_SPLIT; ++r) {
+      if (r < n_split) {
+        const float wt = exp2f(rm[r] - M);
+        x = fmaf(wt, ra[r], x);
+        ll = fmaf(wt, rl[r], ll);
+      }
+    }
+    static_cast<T*>(a.o)[((long)b * H + (long)kvh * G + g) * D + d] = dnet::from_float<T>(x / ll);
+  }
+  if (n_split > 1 && tid == 0) a.tickets[pair] = 0;  // ready for the next call on this stream
 }
 
-// One block per (head, slot), one thread per output column: merge the
-// splits' partials with one log-sum-exp.  Split 0 holds the new row, so the
-// denominator is at least 1 at the running max.
-template <typename T>
-__global__ void paged_combine_kernel(const float* __restrict__ part_o,
-                                     const float* __restrict__ part_ml, T* __restrict__ o,
-                                     int H, int KVH, int D, int n_split) {
-  const int h = blockIdx.x;
-  const int b = blockIdx.y;
-  const int d = threadIdx.x;
-  const int G = H / KVH;
-  const int kvh = h / G;
-  const int g = h % G;
-  const long base = ((long)b * KVH + kvh) * n_split;
+// what launch_kernel does: launch, or only return the instantiation's
+// dynamic shared memory or its blocks an SM
+constexpr int LAUNCH = 0, QUERY_SMEM = 1, QUERY_BLOCKS = 2;
 
-  float M = NEG_INF;
-  for (int s = 0; s < n_split; ++s) M = fmaxf(M, part_ml[((base + s) * G + g) * 2]);
-  float acc = 0.f, l = 0.f;
-  for (int s = 0; s < n_split; ++s) {
-    const float w = expf(part_ml[((base + s) * G + g) * 2] - M);
-    acc = fmaf(w, part_o[(base + s) * G * D + g * D + d], acc);
-    l = fmaf(w, part_ml[((base + s) * G + g) * 2 + 1], l);
+// Launch one instantiation, or answer a query about it.  Its attributes are
+// set once per device.
+template <typename T, typename KV, int D, int GP>
+int launch_kernel(const Args& a, int query) {
+  constexpr int smem = Cfg<KV, D, GP>::BYTES;
+  if (query == QUERY_SMEM) return smem;
+  if (query == QUERY_BLOCKS) return Cfg<KV, D, GP>::MINB;
+  auto kernel = paged_attention_kernel<T, KV, D, GP>;
+  static std::atomic<unsigned long long> ready{0};  // a bit per device
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return (int)err;
+  const unsigned long long bit = 1ull << (dev & 63);
+  if (!(ready.load(std::memory_order_acquire) & bit)) {
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return (int)err;
+    ready.fetch_or(bit, std::memory_order_release);
   }
-  o[((long)b * H + h) * D + d] = dnet::from_float<T>(acc / fmaxf(l, 1e-30f));
-}
-
-template <typename T, typename KV, int D>
-int launch(const void* q, const void* k_pool, const void* v_pool, const int* tables,
-           const int* pos, const void* k_new, const void* v_new, void* o, float* part_o,
-           float* part_ml, int B, int H, int KVH, int nb, int bt, int tiles_per_split,
-           int n_split, float scale, cudaStream_t stream) {
-  const size_t smem = Layout<D>::BYTES;
-  // above 48 KB of dynamic shared memory a kernel must opt in (per device,
-  // so on every launch: the call is cheap and does not synchronise)
-  cudaError_t err = cudaFuncSetAttribute(paged_split_kernel<T, KV, D>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  paged_split_kernel<T, KV, D><<<dim3(n_split, KVH, B), NTHREADS, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const KV*>(k_pool), static_cast<const KV*>(v_pool),
-      tables, pos, static_cast<const T*>(k_new), static_cast<const T*>(v_new), part_o, part_ml,
-      H, KVH, nb, bt, tiles_per_split, n_split, scale);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  paged_combine_kernel<T><<<dim3(H, B), D, 0, stream>>>(part_o, part_ml, static_cast<T*>(o), H,
-                                                        KVH, D, n_split);
+  kernel<<<dim3(a.nx, a.KVH), NTHREADS, smem, a.stream>>>(a);
   return (int)cudaGetLastError();
+}
+
+// The query rows a block holds: GP >= G, 1, 4 or 8.
+template <typename T, typename KV, int D>
+int launch_group(const Args& a, int query) {
+  const int G = a.H / a.KVH;
+  if (G <= 1) return launch_kernel<T, KV, D, 1>(a, query);
+  if (G <= 4) return launch_kernel<T, KV, D, 4>(a, query);
+  return launch_kernel<T, KV, D, 8>(a, query);
 }
 
 // The pool's dtype for one query dtype and head dim: q's own, or bf16 under
 // an f32 q.
 template <typename T, int D>
-int launch_pool(int kv_dtype, const void* q, const void* k_pool, const void* v_pool,
-                const int* tables, const int* pos, const void* k_new, const void* v_new, void* o,
-                float* part_o, float* part_ml, int B, int H, int KVH, int nb, int bt,
-                int tiles_per_split, int n_split, float scale, cudaStream_t st) {
-  if (kv_dtype == dnet::DTYPE_BF16)
-    return launch<T, __nv_bfloat16, D>(q, k_pool, v_pool, tables, pos, k_new, v_new, o, part_o,
-                                       part_ml, B, H, KVH, nb, bt, tiles_per_split, n_split,
-                                       scale, st);
+int launch_pool(int kv_dtype, const Args& a, int query) {
+  if (kv_dtype == dnet::DTYPE_BF16) return launch_group<T, __nv_bfloat16, D>(a, query);
   if constexpr (sizeof(T) == 4) {
-    if (kv_dtype == dnet::DTYPE_F32)
-      return launch<T, float, D>(q, k_pool, v_pool, tables, pos, k_new, v_new, o, part_o,
-                                 part_ml, B, H, KVH, nb, bt, tiles_per_split, n_split, scale, st);
+    if (kv_dtype == dnet::DTYPE_F32) return launch_group<T, float, D>(a, query);
+  }
+  return -1;
+}
+
+int launch_dtype(int dtype, int kv_dtype, int head_dim, const Args& a, int query) {
+  if (a.H <= 0 || a.KVH <= 0 || a.H % a.KVH != 0 || a.H / a.KVH > GMAX) return -1;
+  if (query == LAUNCH && (a.bt < 1 || a.nb < 1 || a.B < 1 || a.nx < a.B ||
+                 a.nx > MAX_SPLIT * a.B || a.nx > 65535 || (a.nx > a.B && (!a.part || !a.tickets))))
+    return -1;
+  if (dtype == dnet::DTYPE_BF16) {
+    if (head_dim == 64) return launch_pool<__nv_bfloat16, 64>(kv_dtype, a, query);
+    if (head_dim == 128) return launch_pool<__nv_bfloat16, 128>(kv_dtype, a, query);
+  } else if (dtype == dnet::DTYPE_F32) {
+    if (head_dim == 64) return launch_pool<float, 64>(kv_dtype, a, query);
+    if (head_dim == 128) return launch_pool<float, 128>(kv_dtype, a, query);
   }
   return -1;
 }
@@ -329,36 +644,31 @@ int launch_pool(int kv_dtype, const void* q, const void* k_pool, const void* v_p
 }  // namespace
 
 // C interface (bound with ctypes in dnet_tpu_torch/ops/paged_attention.py).
-// kv_dtype is the pools' dtype code (q's, or bf16 under an f32 q).  part_o [B, KVH, n_split, G, D] and part_ml [B, KVH, n_split, G, 2] are f32
-// scratch the caller allocates.  Returns cudaGetLastError() after the
-// launches (0 = launched); -1 for a dtype, head dim, grouping or block size
-// this kernel was not built for.
+// kv_dtype is the pools' dtype code (q's, or bf16 under an f32 q).  B slots;
+// nx (B..16 B) blocks per KV head, over which each slot's live tiles
+// split (`split_plan`); above B they need part, f32 scratch of
+// KVH * nx * (2 + head_dim) * GP floats (GP = 1, 4 or 8, the first of them
+// >= H / KVH), and tickets, B * KVH int32 that are 0 before the call and that
+// it leaves 0 (one buffer a stream).  One kernel launch; returns its
+// cudaError_t (0 = launched); -1 for a dtype, head dim, grouping, block size
+// or block count this kernel was not built for.
 extern "C" int dnet_paged_attention(int dtype, int kv_dtype, int head_dim, const void* q,
                                     const void* k_pool, const void* v_pool, const int* tables,
                                     const int* pos, const void* k_new, const void* v_new, void* o,
-                                    float* part_o, float* part_ml, int B, int H, int KVH,
-                                    int nb, int bt, int tiles_per_split, int n_split,
-                                    float scale, void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (H % KVH != 0 || H / KVH > GMAX || bt < 1 || n_split < 1) return -1;
-  if (dtype == dnet::DTYPE_BF16) {
-    if (head_dim == 64)
-      return launch_pool<__nv_bfloat16, 64>(kv_dtype, q, k_pool, v_pool, tables, pos, k_new,
-                                            v_new, o, part_o, part_ml, B, H, KVH, nb, bt,
-                                            tiles_per_split, n_split, scale, st);
-    if (head_dim == 128)
-      return launch_pool<__nv_bfloat16, 128>(kv_dtype, q, k_pool, v_pool, tables, pos, k_new,
-                                             v_new, o, part_o, part_ml, B, H, KVH, nb, bt,
-                                             tiles_per_split, n_split, scale, st);
-  } else if (dtype == dnet::DTYPE_F32) {
-    if (head_dim == 64)
-      return launch_pool<float, 64>(kv_dtype, q, k_pool, v_pool, tables, pos, k_new, v_new, o,
-                                    part_o, part_ml, B, H, KVH, nb, bt, tiles_per_split, n_split,
-                                    scale, st);
-    if (head_dim == 128)
-      return launch_pool<float, 128>(kv_dtype, q, k_pool, v_pool, tables, pos, k_new, v_new, o,
-                                     part_o, part_ml, B, H, KVH, nb, bt, tiles_per_split,
-                                     n_split, scale, st);
-  }
-  return -1;
+                                    float* part, int* tickets, int B, int H, int KVH, int nb, int bt,
+                                    int nx, float scale, void* stream) {
+  const Args a{q, k_pool, v_pool, tables, pos, k_new, v_new, o, part, tickets, B, H, KVH, nb, bt,
+               nx, scale, static_cast<cudaStream_t>(stream)};
+  return launch_dtype(dtype, kv_dtype, head_dim, a, LAUNCH);
+}
+
+// The dynamic shared memory (bytes, what = 1) or the blocks an SM (what = 2)
+// of the instantiation a call with these dtypes, head dim and grouping (H
+// query over KVH KV heads) launches; -1 for one this kernel was not built
+// for.
+extern "C" int dnet_paged_attention_query(int what, int dtype, int kv_dtype, int head_dim, int H, int KVH) {
+  const Args a{nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr,
+               1, H, KVH, 1, 1, 1, 1.f, nullptr};
+  if (what != QUERY_SMEM && what != QUERY_BLOCKS) return -1;
+  return launch_dtype(dtype, kv_dtype, head_dim, a, what);
 }

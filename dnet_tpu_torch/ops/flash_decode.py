@@ -55,10 +55,9 @@ BK = 64  # keys per tile, in the kernel and in its plain version
 # (q/k head dim, v head dim) pairs the kernel is built for
 HEAD_DIMS = frozenset({(64, 64), (128, 128), (192, 128)})
 MAX_GROUP = 8  # query heads per KV head the kernel takes
-# enough (split, KV head, batch) blocks for two per SM on a 132-SM card
-TARGET_BLOCKS = 264
-# the decode kernel's blocks sharing one (lane, KV head), each with some
-# depth, and its blocks a call: one wave, a block an SM of a 132-SM card
+# the decode (and paged) kernel's blocks sharing one (lane, KV head), each
+# with some depth, and its blocks a call: one wave, a block an SM of a
+# 132-SM card
 MAX_SPLITS = 16
 MIN_TILES_PER_SPLIT = 2
 DECODE_BLOCKS = 132
@@ -80,16 +79,6 @@ COUNTERS = {
 }
 # an unquantized cache's dtypes the kernel reads under each q dtype
 KV_DTYPES = {torch.float32: (torch.float32, torch.bfloat16), torch.bfloat16: (torch.bfloat16,)}
-
-
-def split_plan(live: int, n_blocks_per_split: int) -> tuple[int, int]:
-    """(tiles_per_split, n_split) covering the live tiles with about
-    TARGET_BLOCKS blocks; every split holds at least one live tile.  The
-    paged kernel's plan (the decode kernel's is `decode_plan`)."""
-    n_tiles = -(-live // BK)
-    want = max(1, min(n_tiles, -(-TARGET_BLOCKS // n_blocks_per_split)))
-    tiles_per_split = -(-n_tiles // want)
-    return tiles_per_split, -(-n_tiles // tiles_per_split)
 
 
 def decode_plan(max_live: int, n_blocks_per_split: int) -> int:

@@ -8,9 +8,12 @@ Counterpart of dnet_tpu/ops/paged_attention.py.  The kernel
 [0, pos[b]) through its page table, then the current token's row, which the
 caller appends to the pool after the call.  The pool is q's dtype, or bf16
 under an f32 q (DNET_KV_BITS=16 on an f32 model).  Each slot's loop stops at its
-own live length, so table entries past it are never read; the live range is
-split across blocks and a combine pass merges the splits.  The source's
-header says what bounds it on the card.
+own live length, so table entries past it are never read; `paged_plan`
+gives each KV head a budget of blocks, over which the kernel splits every
+slot's live tiles in proportion to them (reading the positions on the
+device), and the last of a slot's blocks to finish merges their states and
+folds the new row, inside the one launch.  The source's header says what
+bounds it on the card.
 
 `ragged_refusal` says why an engine cannot route decode through the kernel
 (None = eligible), with the reference's vocabulary.
@@ -19,12 +22,22 @@ header says what bounds it on the card.
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import Optional
 
 import torch
 
 from dnet_tpu_torch.kernels import build
-from dnet_tpu_torch.ops.flash_decode import BK, KV_DTYPES, MAX_GROUP, NEG_INF, split_plan
+from dnet_tpu_torch.ops.flash_decode import (
+    BK,
+    DECODE_BLOCKS,
+    KV_DTYPES,
+    MAX_GROUP,
+    MAX_SPLITS,
+    MIN_TILES_PER_SPLIT,
+    NEG_INF,
+    _merge_scratch,
+)
 
 HEAD_DIMS = (64, 128)  # the head dims the paged kernel is built for
 
@@ -43,6 +56,20 @@ def ragged_refusal(model, kv_quant_bits: int = 0) -> Optional[str]:
             "the dense gather path"
         )
     return None
+
+
+def paged_plan(max_live: int, slots: int, kv_heads: int, blocks_per_sm: int = 1) -> int:
+    """The paged kernel's blocks per KV head: `slots` x the decode kernel's
+    split count (`decode_plan`'s rule over slots x KV heads: at most
+    MAX_SPLITS, no more than gives the longest slot MIN_TILES_PER_SPLIT
+    tiles a split, and one wave: DECODE_BLOCKS x `blocks_per_sm`, the
+    instantiation's blocks an SM).  The kernel splits each slot's live
+    tiles over them in proportion to its tiles, so ragged slots share the
+    budget by their work."""
+    n_tiles = -(-max(int(max_live), 1) // BK)
+    per_slot = min(MAX_SPLITS, -(-n_tiles // MIN_TILES_PER_SPLIT),
+                   DECODE_BLOCKS * int(blocks_per_sm) // max(int(slots) * int(kv_heads), 1))
+    return max(1, per_slot) * int(slots)
 
 
 def _check_shapes(q, k_pool, v_pool, tables, pos, k_new, v_new) -> None:
@@ -85,10 +112,11 @@ def paged_attend(
     q.dtype.
 
     `max_live` is the caller's upper bound on every pos (the host knows it
-    without reading the device); it plans the split and defaults to the
-    tables' capacity.  A low bound costs balance, not rows: the last split
-    takes whatever lies past the plan.  CUDA tensors launch the kernel (bf16
-    or f32, head dim 64 or 128, H/KVH <= 8) or raise; CPU tensors take the
+    without reading the device); it plans the split (`paged_plan`) and
+    defaults to the tables' capacity.  A low bound costs balance, not rows:
+    the kernel splits each slot's live tiles as the positions on the device
+    give them.  CUDA tensors launch the kernel (bf16 or f32, head dim 64 or 128,
+    H/KVH <= 8) or raise; CPU tensors take the
     plain version."""
     _check_shapes(q, k_pool, v_pool, tables, pos, k_new, v_new)
     B, _, H, D = q.shape
@@ -108,19 +136,15 @@ def paged_attend(
     build.check_cuda_tensors("paged_attend", k_pool.dtype, device=q.device, k_pool=k_pool, v_pool=v_pool)
     build.check_cuda_tensors("paged_attend", torch.int32, tables=tables, pos=pos)
     live_bound = nb * bt if max_live is None else min(int(max_live), nb * bt)
-    # planned for the longest slot alone: ragged slots leave most (slot, KV
-    # head) pairs short, so its splits must fill the card by themselves;
-    # a shorter slot's splits past its live length exit at once
-    tiles_per_split, n_split = split_plan(max(live_bound, 1), KVH)
-    G = H // KVH
-    part_o = torch.empty((B, KVH, n_split, G, D), dtype=torch.float32, device=q.device)
-    part_ml = torch.empty((B, KVH, n_split, G, 2), dtype=torch.float32, device=q.device)
+    nx = paged_plan(live_bound, B, KVH, blocks_per_sm(q.dtype, k_pool.dtype, D, H, KVH))
     out = torch.empty_like(q)
+    stream = build.current_stream_handle(q.device)
+    # the merge scratch holds nx states a KV head: B x ceil(nx / B) >= nx
     rc = _entry()(
         build.DTYPE_CODES[q.dtype], build.DTYPE_CODES[k_pool.dtype], D, q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
         tables.data_ptr(), pos.data_ptr(), k_new.data_ptr(), v_new.data_ptr(), out.data_ptr(),
-        part_o.data_ptr(), part_ml.data_ptr(), B, H, KVH, nb, bt, tiles_per_split, n_split,
-        scale, build.current_stream_handle(q.device),
+        *_merge_scratch(q.device, stream, -(-nx // B), B, KVH, H // KVH, D), B, H, KVH, nb, bt, nx,
+        scale, stream,
     )
     if rc != 0:
         raise RuntimeError(f"paged_attention kernel launch failed (code {rc})")
@@ -132,15 +156,35 @@ paged_attend.launches = 0  # kernel launches since the last reset
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 # dtype, kv_dtype, head_dim, q, k_pool, v_pool, tables, pos, k_new, v_new, o,
-# part_o, part_ml, B, H, KVH, nb, bt, tiles_per_split, n_split, scale, stream
+# part, tickets, B, H, KVH, nb, bt, nx, scale, stream
 _ARGTYPES = (
     _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
-    _I, _I, _I, _I, _I, _I, _I, ctypes.c_float, _P,
+    _I, _I, _I, _I, _I, _I, ctypes.c_float, _P,
 )
 
 
 def _entry():
     return build.entry("paged_attention", "dnet_paged_attention", _ARGTYPES)
+
+
+def _query(what: int, dtype, kv_dtype, head_dim: int, H: int, KVH: int) -> int:
+    return build.entry("paged_attention", "dnet_paged_attention_query", (_I,) * 6)(
+        what, build.DTYPE_CODES[dtype], build.DTYPE_CODES[kv_dtype], head_dim, H, KVH)
+
+
+def kernel_smem_bytes(dtype, kv_dtype, head_dim: int, H: int, KVH: int) -> int:
+    """Dynamic shared memory (bytes) of the kernel instantiation a call with
+    these dtypes, head dim and grouping launches (builds the kernel; -1 for
+    one it was not built for)."""
+    return _query(1, dtype, kv_dtype, head_dim, H, KVH)
+
+
+@functools.lru_cache(maxsize=None)
+def blocks_per_sm(dtype, kv_dtype, head_dim: int, H: int, KVH: int) -> int:
+    """Blocks an SM of the kernel instantiation a call with these dtypes,
+    head dim and grouping launches: 2 where its fold fits 128 registers a
+    thread, else 1 (builds the kernel)."""
+    return _query(2, dtype, kv_dtype, head_dim, H, KVH)
 
 
 def paged_attend_plain(

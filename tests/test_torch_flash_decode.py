@@ -12,7 +12,8 @@ import numpy as np
 import pytest
 import torch
 
-from dnet_tpu_torch.ops.flash_decode import decode_lengths, flash_decode_attend, split_plan
+from dnet_tpu_torch.ops.flash_decode import decode_lengths, flash_decode_attend
+from dnet_tpu_torch.ops.paged_attention import paged_plan
 
 pytestmark = pytest.mark.core
 
@@ -76,17 +77,24 @@ def test_dead_slots_are_never_read(rng):
     torch.testing.assert_close(_attend(q, k, v, 70), want)
 
 
-@pytest.mark.parametrize("live,blocks,want", [
-    (1, 8, (1, 1)),  # one tile
-    (4096, 8, (2, 32)),  # 64 tiles over 33 wanted splits
-    (1025, 8, (1, 17)),
-    (4096, 264, (64, 1)),  # enough (KV head, batch) blocks already
+@pytest.mark.parametrize("live,slots,per_sm,want", [
+    (1, 1, 1, 1),  # one tile
+    (4096, 1, 1, 16),  # 64 tiles: the split cap
+    (1025, 1, 1, 9),  # 17 tiles, two or more a split
+    (1530, 8, 2, 32),  # batch_serve's 8 lanes x 8 KV heads, two blocks an SM: one wave
 ])
-def test_split_plan_covers_live_tiles(live, blocks, want):
-    tiles_per_split, n_split = split_plan(live, blocks)
-    assert (tiles_per_split, n_split) == want
+def test_split_plan_covers_live_tiles(live, slots, per_sm, want):
+    """The paged kernel's plan (`paged_plan`, 8 KV heads): `want` blocks a
+    KV head, a whole number a slot, at most MAX_SPLITS a slot and one wave
+    of blocks; the longest slot alone would hold a tile in each of its
+    share."""
+    nx = paged_plan(live, slots, 8, per_sm)
+    assert nx == want and nx % slots == 0
+    n = nx // slots
+    assert n <= 16 and (n == 1 or nx * 8 <= 132 * per_sm)
     n_tiles = -(-live // 64)
-    assert (n_split - 1) * tiles_per_split < n_tiles <= n_split * tiles_per_split
+    per = -(-n_tiles // n)
+    assert (n - 1) * per < n_tiles <= n * per
 
 
 def test_non_cpu_tensors_never_take_the_plain_version():

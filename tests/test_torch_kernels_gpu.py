@@ -19,7 +19,9 @@ every cache form; prefill and decode at DeepSeek-V2-Lite's MLA widths
 (H = KVH = 16, (Dqk, Dv) = (192, 128), its softmax scale) in bf16, f32 and
 over q8 / q4 caches, counted on their own MLA counters; the paged kernel
 reads a block pool (bf16 under an f32 q too) through shuffled page tables at
-ragged per-slot lengths.  The decode kernel's LSE form (one sequence-
+ragged per-slot lengths, bt 8 to 128, G = 1, 3, 4 and 8 at head dims 64 and
+128, every blocks-a-slot budget up to the cap, one device kernel a call, and
+interleaved with decode calls repeating bit for bit.  The decode kernel's LSE form (one sequence-
 parallel rank's unnormalised partials) runs on R = 2 and 4 shards of a
 4096-slot cache at Llama-3.2-1B's and at head dim 128's widths, an empty
 rank included: m and the rank's output acc / l within the decode
@@ -30,8 +32,10 @@ cache under f32 params, and the sp engine (llama; deepseek_v2 and gpt_oss,
 plain and q8 / q4), run on the card against the CPU's plain versions.  The
 hop codec's column kernels run at its widths (C=2048) and at odd ones, with
 R=1 frames: norms within 2e-5 relative in f32 (1e-2 in bf16 inputs summed
-in f32), gather and dequant-scatter equal bit for bit (the dequant-scatter
-also at R = 1, 7 and 1500 with empty strips, every column kept and odd D).  Tolerances: f32 1e-4 (sums
+in f32), gather and dequant-scatter equal bit for bit (both also at R = 1, 7 and
+1500: the gather with odd C, one kept column, every column, a span past its
+window and an unsorted idx; the dequant-scatter with empty strips, every
+column kept and odd D).  Tolerances: f32 1e-4 (sums
 in another order); bf16 2e-2 against the plain version computed in f32
 from the same bf16 inputs (the kernel rounds its output to bf16, ~4e-3 at
 |x| ~ 1, and sums in another order).
@@ -751,6 +755,35 @@ def test_prefill_wrapper_call_is_one_device_kernel(gen, dqk, dv, dtype):
     assert len(kernels) == 1 and "flash_prefill" in kernels[0], kernels
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n_split", [None, 16])
+def test_paged_wrapper_call_is_one_device_kernel(gen, monkeypatch, dtype, n_split):
+    """One paged call is exactly one device kernel at the plan's split count
+    and at the cap (the splits merge inside it), as torch.profiler traces
+    it, and one count on its counter.  (After the decode forms' profiler
+    test, as the prefill one.)"""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    case = _paged_case(gen, dtype, 16, [57, 92, 182, 332, 552, 832, 1132, 1532])
+    if n_split is not None:
+        _paged_blocks_per_slot(monkeypatch, n_split)
+    paged_attend(*case, max_live=1532)  # built and warm
+    torch.cuda.synchronize()
+    for _ in range(3):  # the profiler now and then drops a short call's record; it never invents one
+        before = paged_attend.launches
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            time.sleep(0.002)
+            paged_attend(*case, max_live=1532)
+            torch.cuda.synchronize()
+            time.sleep(0.002)
+        assert paged_attend.launches == before + 1
+        kernels = [e.name for e in prof.events() if e.device_type == DeviceType.CUDA]
+        if kernels:
+            break
+    assert len(kernels) == 1 and "paged_attention_kernel" in kernels[0], kernels
+
+
 def test_decode_interleaved_shapes_repeat_exactly(gen):
     """Calls of different forms, widths, lengths and split counts
     interleaved on one stream, three rounds: every round's outputs are
@@ -804,11 +837,11 @@ def test_decode_batched_lanes_with_idle_ones(gen, form):
 PAGED_POSITIONS = [0, 15, 16, 100, 1023, 2047, 4000, 4094]
 
 
-def _paged_case(gen, dtype, bt, positions=PAGED_POSITIONS, cap=4096):
+def _paged_case(gen, dtype, bt, positions=PAGED_POSITIONS, cap=4096, H=32, KVH=8, D=64):
     """A pool holding every slot's live blocks in shuffled order, plus one
     NaN block that every dead table entry points at: a kernel that read a
     dead entry would put NaN into its output."""
-    B, KVH, D = len(positions), 8, 64
+    B = len(positions)
     nb = cap // bt
     per_slot = [-(-p // bt) for p in positions]  # blocks holding rows [0, pos)
     n_blocks = sum(per_slot) + 1
@@ -823,14 +856,14 @@ def _paged_case(gen, dtype, bt, positions=PAGED_POSITIONS, cap=4096):
     k_pool[-1] = float("nan")
     v_pool[-1] = float("nan")
     return (
-        _randn(gen, dtype, B, 1, 32, D), k_pool, v_pool, tables.cuda(),
+        _randn(gen, dtype, B, 1, H, D), k_pool, v_pool, tables.cuda(),
         torch.tensor(positions, dtype=torch.int32, device="cuda"),
         _randn(gen, dtype, B, KVH, D), _randn(gen, dtype, B, KVH, D),
     )
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("bt", [8, 16, 64])
+@pytest.mark.parametrize("bt", [8, 16, 64, 128])
 def test_paged_kernel_matches_plain(gen, dtype, bt):
     """Ragged slots (pos 0, mid-block, block edges, near capacity) through
     shuffled tables with poisoned dead entries; the split is planned from
@@ -859,6 +892,75 @@ def test_paged_kernel_bf16_pool_under_f32_q(gen, bt):
     out = paged_attend(*case, max_live=max(PAGED_POSITIONS))
     torch.cuda.synchronize()
     assert out.dtype == torch.float32 and (out - want).abs().max().item() <= TOL[torch.float32]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("D", [64, 128])
+@pytest.mark.parametrize("H,KVH", [(8, 8), (32, 8), (24, 8), (64, 8)])
+def test_paged_kernel_groups_and_head_dims(gen, dtype, D, H, KVH):
+    """G = 1, 4, 3 (held as 4 query rows) and 8 query heads per KV head at
+    head dims 64 and 128, over ragged slots with NaN behind every dead
+    entry."""
+    case = _paged_case(gen, dtype, 16, [0, 1, 77, 1530, 4000], H=H, KVH=KVH, D=D)
+    want = paged_attend_plain(*(t.float() if t.is_floating_point() else t for t in case))
+    out = paged_attend(*case, max_live=4000)
+    torch.cuda.synchronize()
+    assert (out.float() - want).abs().max().item() <= TOL[dtype]
+    assert torch.equal(out[0, 0], case[6][0].repeat_interleave(H // KVH, dim=0))  # pos 0: exactly v_new
+
+
+def _paged_blocks_per_slot(monkeypatch, n):
+    """Plan every paged call at n blocks a slot (a KV head's budget n x
+    slots)."""
+    from dnet_tpu_torch.ops import paged_attention
+
+    monkeypatch.setattr(paged_attention, "paged_plan", lambda max_live, slots, kv_heads, per_sm=1: n * slots)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n_split", range(1, 17))
+def test_paged_split_counts_up_to_the_cap(gen, monkeypatch, dtype, n_split):
+    """Every budget up to the cap's 16 blocks a slot over ragged slots (an
+    empty one, one shorter than its share of blocks, the longest near
+    capacity): each slot's blocks split its own tiles, the last to finish
+    merging them."""
+    from dnet_tpu_torch.ops.flash_decode import MAX_SPLITS
+
+    assert MAX_SPLITS == 16
+    case = _paged_case(gen, dtype, 16, [0, 65, 700, 4094])
+    want = paged_attend_plain(*(t.float() if t.is_floating_point() else t for t in case))
+    _paged_blocks_per_slot(monkeypatch, n_split)
+    out = paged_attend(*case)
+    torch.cuda.synchronize()
+    assert (out.float() - want).abs().max().item() <= TOL[dtype]
+
+
+def test_paged_interleaved_calls_repeat_exactly(gen, monkeypatch):
+    """Paged calls of other shapes, dtypes and budgets, interleaved with
+    decode calls on one stream, three rounds: every round's outputs are
+    bit-identical to the first's, so every ticket is back at 0 after each
+    call."""
+    from dnet_tpu_torch.ops import paged_attention
+
+    plan = paged_attention.paged_plan
+    cases = [(_paged_case(gen, torch.bfloat16, 16, [57, 1530, 0, 300]), 4),
+             (_paged_case(gen, torch.float32, 8, [4000, 3], H=8, KVH=8, D=128), 16),
+             (_paged_case(gen, torch.bfloat16, 64, [2047, 2048, 100]), None)]
+    decode, _ = _decode_form_call(gen, DECODE_FORMS[0], lengths=(2048,))
+    rounds = []
+    for _ in range(3):
+        outs = []
+        for case, n in cases:
+            if n is None:
+                monkeypatch.setattr(paged_attention, "paged_plan", plan)
+            else:
+                _paged_blocks_per_slot(monkeypatch, n)
+            outs.append(paged_attend(*case))
+            outs.append(decode())
+        rounds.append(outs)
+    torch.cuda.synchronize()
+    for r in rounds[1:]:
+        assert all(torch.equal(a, b) for a, b in zip(rounds[0], r))
 
 
 def _small_model():
@@ -959,6 +1061,27 @@ def test_gather_kernel_is_bit_exact(gen, dtype, R, C, K):
     torch.cuda.synchronize()
     assert gather_columns.launches == before + 1
     assert torch.equal(out, gather_columns_plain(x, idx))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("R", [1, 7, 1500])
+@pytest.mark.parametrize("C,K,order", [(2049, 1000, "sorted"), (2048, 1, "sorted"), (2048, 2048, "all"),
+                                       (2048, 1024, "unsorted"), (4096, 64, "sorted"), (2048, 1024, "sorted")])
+def test_gather_kernel_strips_and_orders(gen, dtype, R, C, K, order):
+    """The staged window (sorted idx, spans that fit), the element-by-element
+    path (odd C, a span past the window, one row) and x read outside the
+    span (unsorted idx) all give x[:, idx] bit for bit."""
+    x = _randn(gen, dtype, R, C)
+    if order == "all":
+        idx = torch.arange(C, dtype=torch.int32, device="cuda")
+    else:
+        idx = _kept_idx(gen, C, K) if K > 1 else torch.tensor([C // 3], dtype=torch.int32, device="cuda")
+        if order == "unsorted":
+            idx = idx[torch.randperm(K, generator=torch.Generator().manual_seed(K)).cuda()].contiguous()
+    out = gather_columns(x, idx)
+    torch.cuda.synchronize()
+    assert torch.equal(out, gather_columns_plain(x, idx))
+    assert torch.equal(out, torch.index_select(x, 1, idx))
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
