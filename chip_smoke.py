@@ -199,9 +199,45 @@ the seventh path, for llama, deepseek_v2 and gpt_oss and under DNET_KV_BITS:
              second time under sp = 2 in f32 against single-device f32
              serves (gpt_oss: no kernel, flat caches; deepseek_v2: 2 x 4
              flash_decode_lse_mla launches a step).
+The qwen families, the eighth path: qwen2, qwen3, mixtral and qwen3_moe,
+served at Qwen3-235B-A22B's widths through the decode and paged kernels'
+forms for more than 8 query heads a KV head (row groups of blocks):
+  kernels          `flash_decode_wide` at H = 64 over KVH = 4, D = 128
+                   (G = 16) on a 4096-slot cache at the qwen3_moe serve's
+                   position and at 4095, `paged_attend_wide` at those
+                   widths over the batch_serve mix, f32 and bf16, each
+                   against its plain version (TOL), beside SDPA
+                   (enable_gqa; paged on a pre-gathered copy) and its bound.
+  wide_group_decode  (above) G = 8 at head dim 128 timed as one block of
+                   8 rows and as two row groups of 4, G = 16 as two row
+                   groups of 8 and as four of 4; each names the layout the
+                   launcher dispatches.
+  qwen_parity      small f32 models at the published heads (head dim 128):
+                   qwen2 at Qwen2.5-7B's 28 / 4 (qkv biases), qwen3 at
+                   Qwen3-4B's 32 / 8 (q/k norms), mixtral at Mixtral-8x7B's
+                   32 / 8 (8 experts top-2), qwen3_moe at Qwen3-235B-A22B's
+                   64 / 4 (8 experts top-2, a dense first layer): GPU
+                   against CPU, prefill logits within 2e-3, 24 equal greedy
+                   tokens, exact launches (the wide counter at G = 16); then
+                   qwen3_moe at sp = 2 on ["cuda:0", "cuda:0"] against cpu x 2
+                   and the single device (the wide LSE form).
+  qwen3_moe_step   one greedy decode step of all 48 Qwen3-30B-A3B layers
+                   at full width (random bf16 params made on the card,
+                   ~61 GB, dense MoE) at pos ~300: wall, host issue,
+                   device busy, the attention kernels' share, launches,
+                   the bound.
+  qwen3_moe_serve  Qwen3-235B-A22B's first 2 layers at full width (128
+                   experts top-8 of 1536, ~12.4 GB) written as a checkpoint
+                   and served: the serve phase's requests single sequence
+                   (exactly 2 flash_decode_wide launches a decode step, 2
+                   prefill launches a prompt, /health kv_bytes 16,777,216),
+                   then the batch_serve burst with --batch-slots 8 over the
+                   paged pool (2 paged_attend_wide launches a batched decode
+                   step, 2 prefill launches a prompt chunk, kv_bytes the
+                   pool's).
 Every decode row also counts its device kernels per wrapper call
-(torch.profiler), which must be exactly 1: the splits of a (lane, KV head)
-merge inside the one launch.  Then the kernels summary line (every row
+(torch.profiler), which must be exactly 1: the splits and row groups of a
+(lane, KV head) merge inside the one launch.  Then the kernels summary line (every row
 with times_library = ms / library_ms, its decode rows with
 kernels_per_call, both from this run), the card line, and the last line
 {"ok": true, "device": {...}}.  Without a CUDA device it exits non-zero
@@ -329,19 +365,24 @@ def phase_decode_launches() -> dict:
     before any timed phase (later in the process the profiler was seen to
     drop these kernels' records): Llama-3.2-1B's widths for the plain, q8 /
     q4 and LSE forms, gpt-oss-20b's ring (W=128, H=64) for the rotating ones,
-    DeepSeek-V2-Lite's (192, 128) for the MLA ones, bf16 q, an empty and a
-    long lane.  Every count must be exactly 1: a lane's splits merge inside
+    DeepSeek-V2-Lite's (192, 128) for the MLA ones, Qwen3-235B-A22B's
+    (H = 64 over KVH = 4, G = 16, D = 128) for the wide counter in the
+    plain, q8, q4 and LSE forms, bf16 q, an empty and a long lane.  Every
+    count must be exactly 1: a lane's splits and row groups merge inside
     the one launch.  Returns counter name -> kernels a call."""
     from dnet_tpu_torch.core.kvcache import KVConfig, init_cache, layer_slices, write_kv
     from dnet_tpu_torch.kernels import _counters
-    from dnet_tpu_torch.ops.flash_decode import COUNTERS, flash_decode_attend, flash_decode_lse
+    from dnet_tpu_torch.ops.flash_decode import COUNTERS, WIDE_COUNTER, flash_decode_attend, flash_decode_lse
 
     g = torch.Generator(device="cuda").manual_seed(13)
     attr_to_name = {attr: name for name, (fn, attr) in _counters().items() if fn is flash_decode_attend}
     counts = {}
-    for (bits, rot, mla, lse), attr in COUNTERS.items():
-        h, kvh, dqk, dv = ((MLA_H, MLA_H, MLA_DQK, MLA_DV) if mla else (OSS_H, OSS_KVH, OSS_D, OSS_D) if rot
-                           else (H, KVH, D, D))
+    forms = [((bits, rot, mla, lse), attr, (MLA_H, MLA_H, MLA_DQK, MLA_DV) if mla
+              else (OSS_H, OSS_KVH, OSS_D, OSS_D) if rot else (H, KVH, D, D))
+             for (bits, rot, mla, lse), attr in COUNTERS.items()]
+    forms += [((bits, False, False, lse), WIDE_COUNTER, (QW_H, QW_KVH, QW_D, QW_D))
+              for bits, lse in ((0, False), (8, False), (4, False), (0, True))]
+    for (bits, rot, mla, lse), attr, (h, kvh, dqk, dv) in forms:
         slots = OSS_W if rot else 2048
         kv = layer_slices(init_cache(KVConfig(1, 1, slots, kvh, dqk, v_head_dim=dv, quant_bits=bits),
                                      torch.device("cuda")), 0)
@@ -366,7 +407,7 @@ def phase_decode_launches() -> dict:
             seen.append(kernels_per_call(call))
             check(getattr(flash_decode_attend, attr) > before, f"{attr} did not count the traced call")
         name = attr_to_name[attr]
-        check(seen == [1, 1], f"{name}: {seen} device kernels in one call, expected 1")
+        check(seen == [1, 1], f"{name} q{bits}: {seen} device kernels in one call, expected 1")
         counts[name] = 1
         del kv
     emit({"phase": "decode_launches", "kernels_per_call": counts})
@@ -448,10 +489,10 @@ def prefill_bound(T: int, pos: int, dtype, h: int = H, kvh: int = KVH, d: int = 
     return bytes_ops_bound(nbytes, 4 * h * d * pairs, dtype)
 
 
-def decode_bound(pos: int, dtype) -> tuple:
+def decode_bound(pos: int, dtype, h: int = H, kvh: int = KVH, d: int = D) -> tuple:
     size = torch.tensor([], dtype=dtype).element_size()
-    nbytes = size * (2 * H * D + 2 * (pos + 1) * KVH * D)
-    ops = 4 * H * D * (pos + 1)
+    nbytes = size * (2 * h * d + 2 * (pos + 1) * kvh * d)
+    ops = 4 * h * d * (pos + 1)
     t_mem, t_ops = nbytes / HBM_BYTES_PER_S, ops / PEAK_OPS_PER_S[dtype]
     return max(t_mem, t_ops) * 1e3, ("bytes" if t_mem >= t_ops else "operations")
 
@@ -485,16 +526,16 @@ def environ(values: dict):
                 os.environ[k] = v
 
 
-def paged_bound(positions: list, dtype) -> tuple:
+def paged_bound(positions: list, dtype, h: int = H, kvh: int = KVH, d: int = D) -> tuple:
     """(ms, bound_by) for one ragged paged-attention call: q, the live K/V
     rows, the new rows and the output move once, with the live table
-    entries and the positions; 4*D operations per (head, key) pair, the new
+    entries and the positions; 4*d operations per (head, key) pair, the new
     row included."""
     size = torch.tensor([], dtype=dtype).element_size()
     B, live = len(positions), sum(positions)
-    nbytes = size * (2 * B * H * D + 2 * live * KVH * D + 2 * B * KVH * D)
+    nbytes = size * (2 * B * h * d + 2 * live * kvh * d + 2 * B * kvh * d)
     nbytes += 4 * (sum(-(-p // BT) for p in positions) + B)
-    ops = 4 * H * D * (live + B)
+    ops = 4 * h * d * (live + B)
     t_mem, t_ops = nbytes / HBM_BYTES_PER_S, ops / PEAK_OPS_PER_S[dtype]
     return max(t_mem, t_ops) * 1e3, ("bytes" if t_mem >= t_ops else "operations")
 
@@ -515,9 +556,10 @@ def paged_tables(positions: list) -> torch.Tensor:
 def phase_paged_launches(main_positions: list) -> dict:
     """Device kernels per paged_attend call, traced with torch.profiler right
     after the build (as the decode forms'), in bf16 at the batch_serve mix
-    and the ragged mix up to 4094, at the plan's budget and at the cap of
-    16 blocks a slot: each must be exactly 1 (the splits merge inside the
-    launch)."""
+    and the ragged mix up to 4094, and at Qwen3-235B-A22B's G = 16 at the
+    batch_serve mix, at the plan's budget and at the cap of 16 blocks a
+    slot: each must be exactly 1 (the splits and row groups merge inside
+    the launch)."""
     from dnet_tpu_torch.ops.flash_decode import MAX_SPLITS
     from dnet_tpu_torch.ops.paged_attention import paged_attend
 
@@ -540,10 +582,29 @@ def phase_paged_launches(main_positions: list) -> dict:
                 seen.append(kernels_per_call(call))
                 check(paged_attend.launches > before, "paged_attend did not count the traced call")
     check(seen == [1] * 4, f"paged_attend: {seen} device kernels a call, expected 1")
-    emit({"phase": "paged_launches", "kernels_per_call": 1, "traced_calls": len(seen)})
+    del kp, vp
+    # Qwen3-235B-A22B's G = 16 (row groups of blocks) at the main mix
+    shape = (POOL_BLOCKS, BT, QW_KVH, QW_D)
+    kp = torch.randn(shape, generator=g, device="cuda").to(torch.bfloat16)
+    vp = torch.randn(shape, generator=g, device="cuda").to(torch.bfloat16)
+    B = len(main_positions)
+    tables, pos = paged_tables(main_positions), torch.tensor(main_positions, dtype=torch.int32, device="cuda")
+    q = torch.randn(B, 1, QW_H, QW_D, generator=g, device="cuda").to(torch.bfloat16)
+    kn, vn = (torch.randn(B, QW_KVH, QW_D, generator=g, device="cuda").to(torch.bfloat16) for _ in range(2))
+    wide = []
+    for cap in (False, True):
+        with paged_blocks_per_slot(MAX_SPLITS) if cap else contextlib.nullcontext():
+            def call():
+                return paged_attend(q, kp, vp, tables, pos, kn, vn, max_live=max(main_positions))
+            call()
+            before = paged_attend.launches_wide
+            wide.append(kernels_per_call(call))
+            check(paged_attend.launches_wide > before, "paged_attend_wide did not count the traced call")
+    check(wide == [1, 1], f"paged_attend_wide: {wide} device kernels a call, expected 1")
+    emit({"phase": "paged_launches", "kernels_per_call": 1, "traced_calls": len(seen) + len(wide)})
     del kp, vp
     torch.cuda.empty_cache()
-    return {"paged_attend": 1}
+    return {"paged_attend": 1, "paged_attend_wide": 1}
 
 
 def phase_paged_kernels(main_positions: list) -> dict:
@@ -882,43 +943,64 @@ def phase_kernels(main_T: int, main_pos: int) -> dict:
 
 
 def phase_wide_group_decode() -> None:
-    """The decode kernel at G = 8 over head dim 128 (Llama-3-70B's attention:
-    H = 64, KVH = 8), the instantiation whose registers spill (the ptxas
-    line): one lane of 2,048 live slots in bf16 and f32, held to the plain
-    version and timed beside it, SDPA and its bound.  No served model of this
-    script runs this shape, so it is a line of its own, not a kernels row."""
+    """The decode kernel at head dim 128 where a block's query rows are a
+    choice: G = 8 (Llama-3-70B's and Qwen3-30B-A3B's grouping; H = 64 over
+    KVH = 8 here), where the GP = 8 instantiation spills (the ptxas line),
+    as one block of 8 rows a KV head and as two row groups of 4; and
+    G = 16 (Qwen3-235B-A22B's 64 / 4) as two row groups of 8 and as four
+    of 4.  One lane of 2,048 live slots in bf16 and f32, each layout held
+    to the plain version and timed beside it, SDPA and the bound.
+    `dispatch` is the layout the launcher picks (ops/flash_decode.py
+    `query_rows`), `faster` the one this run measured faster."""
     from torch.nn.functional import scaled_dot_product_attention as sdpa
 
-    from dnet_tpu_torch.ops.flash_decode import decode_lengths, flash_decode_attend, flash_decode_plain
+    from dnet_tpu_torch.ops import flash_decode as fd
 
-    h, kvh, d, live = 64, 8, 128, 2048
+    h, d, live = 64, 128, 2048
+    launcher_rows = fd.query_rows
     g = torch.Generator(device="cuda").manual_seed(14)
-    for dtype in (torch.float32, torch.bfloat16):
-        kc = torch.randn(LAYERS, 1, S, kvh, d, generator=g, device="cuda").to(dtype)
-        vc = torch.randn(LAYERS, 1, S, kvh, d, generator=g, device="cuda").to(dtype)
-        q = torch.randn(1, 1, h, d, generator=g, device="cuda").to(dtype)
-        lengths = decode_lengths(1, live - 1, "cuda")
-        out = flash_decode_attend(q, kc[0], vc[0], lengths, live)
-        torch.cuda.synchronize()
-        want = flash_decode_plain(q.float(), kc[0].float(), vc[0].float(), lengths)
-        err = (out.float() - want).abs().max().item()
-        check(out.shape == q.shape and bool(torch.isfinite(out).all()), "wide-group decode output")
-        check(err <= TOL[dtype], f"decode G=8 D=128 {dtype}: max err {err}")
-        qt = q.transpose(1, 2)
-        size = torch.tensor([], dtype=dtype).element_size()
-        t_mem = size * (2 * h * d + 2 * live * kvh * d) / HBM_BYTES_PER_S
-        t_ops = 4 * h * d * live / PEAK_OPS_PER_S[dtype]
-        emit({
-            "phase": "wide_group_decode", "kernel": "flash_decode", "dtype": str(dtype).split(".")[-1],
-            "live": live, "S": S, "H": h, "KVH": kvh, "D": d, "max_err": err, "tol": TOL[dtype],
-            "kernel_ms": device_time_ms(lambda l: flash_decode_attend(q, kc[l], vc[l], lengths, live), LAYERS),
-            "plain_ms": device_time_ms(lambda l: flash_decode_plain(q, kc[l], vc[l], lengths, max_live=live),
-                                       LAYERS, 5),
-            "library_ms": device_time_ms(lambda l: sdpa(qt, kc[l, :, :live].transpose(1, 2),
-                                                        vc[l, :, :live].transpose(1, 2), enable_gqa=True), LAYERS),
-            "bound_ms": max(t_mem, t_ops) * 1e3, "bound_by": "bytes" if t_mem >= t_ops else "operations",
-        })
-        del kc, vc
+    try:
+        for kvh in (8, 4):
+            group = h // kvh
+            layouts = {f"{-(-group // rows)}x{rows}": rows for rows in (8, 4)}
+            dispatch = next(n for n, rows in layouts.items() if rows == launcher_rows(group, d))
+            for dtype in (torch.float32, torch.bfloat16):
+                kc = torch.randn(LAYERS, 1, S, kvh, d, generator=g, device="cuda").to(dtype)
+                vc = torch.randn(LAYERS, 1, S, kvh, d, generator=g, device="cuda").to(dtype)
+                q = torch.randn(1, 1, h, d, generator=g, device="cuda").to(dtype)
+                lengths = fd.decode_lengths(1, live - 1, "cuda")
+                want = fd.flash_decode_plain(q.float(), kc[0].float(), vc[0].float(), lengths)
+                errs, times = {}, {}
+                for name, rows in layouts.items():
+                    fd.query_rows = lambda group, head_dim=64, rows=rows: rows
+                    out = fd.flash_decode_attend(q, kc[0], vc[0], lengths, live)
+                    torch.cuda.synchronize()
+                    errs[name] = (out.float() - want).abs().max().item()
+                    check(out.shape == q.shape and bool(torch.isfinite(out).all()), "wide-group decode output")
+                    check(errs[name] <= TOL[dtype], f"decode G={group} D=128 {name} {dtype}: max err {errs[name]}")
+                    times[name] = device_time_ms(lambda l: fd.flash_decode_attend(q, kc[l], vc[l], lengths, live),
+                                                 LAYERS)
+                fd.query_rows = launcher_rows
+                qt = q.transpose(1, 2)
+                size = torch.tensor([], dtype=dtype).element_size()
+                t_mem = size * (2 * h * d + 2 * live * kvh * d) / HBM_BYTES_PER_S
+                t_ops = 4 * h * d * live / PEAK_OPS_PER_S[dtype]
+                emit({
+                    "phase": "wide_group_decode", "kernel": "flash_decode", "gpu": gpu_line(),
+                    "dtype": str(dtype).split(".")[-1], "live": live, "S": S, "H": h, "KVH": kvh, "G": group, "D": d,
+                    "max_err": max(errs.values()), "max_err_by_layout": errs, "tol": TOL[dtype],
+                    "kernel_ms": times[dispatch], "kernel_ms_by_layout": times, "dispatch": dispatch,
+                    "faster": min(times, key=times.get),
+                    "plain_ms": device_time_ms(
+                        lambda l: fd.flash_decode_plain(q, kc[l], vc[l], lengths, max_live=live), LAYERS, 5),
+                    "library_ms": device_time_ms(lambda l: sdpa(qt, kc[l, :, :live].transpose(1, 2),
+                                                                vc[l, :, :live].transpose(1, 2), enable_gqa=True),
+                                                 LAYERS),
+                    "bound_ms": max(t_mem, t_ops) * 1e3, "bound_by": "bytes" if t_mem >= t_ops else "operations",
+                })
+                del kc, vc
+    finally:
+        fd.query_rows = launcher_rows
     torch.cuda.empty_cache()
 
 
@@ -3163,6 +3245,338 @@ def phase_sp_serve(model_dir: str, port: int, bodies: list, long_body: dict, sp_
     return row
 
 
+# Qwen3-MoE (the eighth path): Qwen3-235B-A22B's attention, H = 64 query
+# heads over KVH = 4 (G = 16, two row groups of 8 a KV head) at head dim
+# 128; the 235B serve's layers; the serve's /health KV bytes (2 layers x 4096
+# slots x 4 KV heads x (k 128 + v 128) x 2 B)
+QW_H, QW_KVH, QW_D = 64, 4, 128
+QW_SERVE_LAYERS = 2
+QW_MODEL = "qwen3-235b-a22b-synthetic"
+QW_SERVE_KV_BYTES = 16_777_216
+
+
+def phase_wide_kernels(serve_pos: int) -> dict:
+    """The decode and paged kernels at Qwen3-235B-A22B's G = 16 (row groups
+    of blocks), f32 and bf16: decode over a 16-layer 4096-slot cache at the
+    qwen3_moe serve's position and at 4095, paged over a 16-layer pool of
+    POOL_BLOCKS blocks at the batch_serve mix; each against its plain
+    version (TOL), one count on its wide counter a call, timed beside the
+    plain version, SDPA (enable_gqa; for paged on a pre-gathered contiguous
+    copy) and its bound.  Returns the bf16 rows at the serve's position and
+    the batch mix."""
+    from torch.nn.functional import scaled_dot_product_attention as sdpa
+
+    from dnet_tpu_torch.ops.flash_decode import decode_lengths, flash_decode_attend, flash_decode_plain
+    from dnet_tpu_torch.ops.paged_attention import paged_attend, paged_attend_plain
+
+    g = torch.Generator(device="cuda").manual_seed(15)
+    main = {}
+    positions = BATCH_POSITIONS
+    per_slot = POOL_BLOCKS // BATCH_SLOTS
+    for dtype in (torch.float32, torch.bfloat16):
+        name = str(dtype).split(".")[-1]
+        kc = torch.randn(LAYERS, 1, S, QW_KVH, QW_D, generator=g, device="cuda").to(dtype)
+        vc = torch.randn(LAYERS, 1, S, QW_KVH, QW_D, generator=g, device="cuda").to(dtype)
+        for pos in (serve_pos, S - 1):
+            q = torch.randn(1, 1, QW_H, QW_D, generator=g, device="cuda").to(dtype)
+            lengths = decode_lengths(1, pos, "cuda")
+            before = flash_decode_attend.launches_wide
+            out = flash_decode_attend(q, kc[0], vc[0], lengths, pos + 1)
+            torch.cuda.synchronize()
+            check(flash_decode_attend.launches_wide == before + 1, "flash_decode_wide did not count the call")
+            want = flash_decode_plain(q.float(), kc[0].float(), vc[0].float(), lengths)
+            err = (out.float() - want).abs().max().item()
+            check(out.shape == q.shape and bool(torch.isfinite(out).all()), "wide decode output")
+            check(err <= TOL[dtype], f"wide decode pos={pos} {dtype}: max err {err}")
+            qt = q.transpose(1, 2)
+            bound, by = decode_bound(pos, dtype, QW_H, QW_KVH, QW_D)
+            row = {
+                "phase": "kernels", "kernel": "flash_decode_wide", "dtype": name, "pos": pos, "S": S,
+                "H": QW_H, "KVH": QW_KVH, "D": QW_D, "max_err": err, "tol": TOL[dtype],
+                "kernel_ms": device_time_ms(lambda l: flash_decode_attend(q, kc[l], vc[l], lengths, pos + 1), LAYERS),
+                "plain_ms": device_time_ms(lambda l: flash_decode_plain(q, kc[l], vc[l], lengths, max_live=pos + 1),
+                                           LAYERS, 5),
+                "library_ms": device_time_ms(lambda l: sdpa(qt, kc[l, :, : pos + 1].transpose(1, 2),
+                                                            vc[l, :, : pos + 1].transpose(1, 2), enable_gqa=True),
+                                             LAYERS),
+                "bound_ms": bound, "bound_by": by,
+            }
+            row["times_library"] = row["kernel_ms"] / row["library_ms"]
+            emit(row)
+            if dtype == torch.bfloat16 and pos == serve_pos:
+                main["flash_decode_wide"] = row
+        del kc, vc
+        shape = (LAYERS, POOL_BLOCKS, BT, QW_KVH, QW_D)
+        kp = torch.randn(shape, generator=g, device="cuda").to(dtype)
+        vp = torch.randn(shape, generator=g, device="cuda").to(dtype)
+        B, max_live = len(positions), max(positions)
+        tables = paged_tables(positions)
+        pos_cpu = torch.tensor(positions, dtype=torch.int32)
+        pos = pos_cpu.cuda()
+        q = torch.randn(B, 1, QW_H, QW_D, generator=g, device="cuda").to(dtype)
+        kn, vn = (torch.randn(B, QW_KVH, QW_D, generator=g, device="cuda").to(dtype) for _ in range(2))
+        before = paged_attend.launches_wide
+        out = paged_attend(q, kp[0], vp[0], tables, pos, kn, vn, max_live=max_live)
+        torch.cuda.synchronize()
+        check(paged_attend.launches_wide == before + 1, "paged_attend_wide did not count the call")
+        want = paged_attend_plain(q.float(), kp[0].float(), vp[0].float(), tables, pos_cpu, kn.float(), vn.float())
+        err = (out.float() - want).abs().max().item()
+        check(out.shape == q.shape and bool(torch.isfinite(out).all()), "wide paged output")
+        check(err <= TOL[dtype], f"wide paged {dtype}: max err {err}")
+        # the library yardstick over each layer's live rows gathered once,
+        # outside the timing, with the new row at pos[b]
+        keys = max_live + 1
+        j = torch.arange(keys, device="cuda")
+        rows = tables.long()[:, (j // BT).clamp(max=per_slot - 1)] * BT + j % BT
+        at_pos = j[None, :] == pos.long()[:, None]
+
+        def contiguous(pool, new):
+            c = pool.reshape(LAYERS, POOL_BLOCKS * BT, QW_KVH, QW_D)[:, rows]
+            c = torch.where(at_pos[None, :, :, None, None], new[None, :, None], c)
+            return c.transpose(2, 3).contiguous()
+
+        kg, vg = contiguous(kp, kn), contiguous(vp, vn)
+        mask = (j[None, :] <= pos.long()[:, None])[:, None, None, :]
+        qt = q.transpose(1, 2)
+
+        def lib(l):
+            return sdpa(qt, kg[l], vg[l], attn_mask=mask, enable_gqa=True)
+
+        lib_err = (lib(0).transpose(1, 2).float() - want).abs().max().item()
+        check(lib_err <= TOL[dtype], f"wide paged library yardstick disagrees: {lib_err}")
+        bound, by = paged_bound(positions, dtype, QW_H, QW_KVH, QW_D)
+        row = {
+            "phase": "kernels", "kernel": "paged_attend_wide", "dtype": name, "positions": positions,
+            "sum_pos": sum(positions), "slots": B, "bt": BT, "pool_blocks": POOL_BLOCKS, "layers": LAYERS,
+            "H": QW_H, "KVH": QW_KVH, "D": QW_D, "max_err": err, "tol": TOL[dtype],
+            "kernel_ms": device_time_ms(
+                lambda l: paged_attend(q, kp[l], vp[l], tables, pos, kn, vn, max_live=max_live), LAYERS),
+            "plain_ms": device_time_ms(lambda l: paged_attend_plain(q, kp[l], vp[l], tables, pos_cpu, kn, vn),
+                                       LAYERS, 5),
+            "library_ms": device_time_ms(lib, LAYERS),
+            "library_call": "scaled_dot_product_attention on a pre-gathered contiguous copy (the gather is not timed)",
+            "library_max_err": lib_err, "bound_ms": bound, "bound_by": by,
+        }
+        row["times_library"] = row["kernel_ms"] / row["library_ms"]
+        emit(row)
+        if dtype == torch.bfloat16:
+            main["paged_attend_wide"] = row
+        del kp, vp, kg, vg
+        torch.cuda.empty_cache()
+    return main
+
+
+def _qwen_small(family: str):
+    """A small f32 model of `family` at its published heads (head dim 128):
+    qwen2 at Qwen2.5-7B's 28 / 4 (G = 7, qkv biases), qwen3 at Qwen3-4B's
+    32 / 8 (q/k norms), mixtral at Mixtral-8x7B's 32 / 8 (8 experts top-2),
+    qwen3_moe at Qwen3-235B-A22B's 64 / 4 (G = 16; 8 experts top-2, layer 0
+    dense through mlp_only_layers); hidden 512, narrow FFNs, 2 layers (3
+    for qwen3_moe)."""
+    from dnet_tpu_torch.models import ModelConfig
+    from dnet_tpu_torch.utils import random_init as ri
+
+    narrow = dict(vocab_size=512, hidden_size=512, intermediate_size=256, head_dim=QW_D, num_hidden_layers=2)
+    cfg = {
+        "qwen2": dict(ri.QWEN2_5_7B_CONFIG, **narrow),
+        "qwen3": dict(ri.QWEN3_4B_CONFIG, **narrow),
+        "mixtral": dict(ri.MIXTRAL_8X7B_CONFIG, **dict(narrow, intermediate_size=128)),
+        "qwen3_moe": dict(ri.QWEN3_235B_A22B_CONFIG, **dict(narrow, num_hidden_layers=3), moe_intermediate_size=128,
+                          num_experts=8, num_experts_per_tok=2, mlp_only_layers=[0]),
+    }[family]
+    cfg = ModelConfig.from_hf(cfg)
+    window, edge = ri.random_qwen_params(cfg, range(cfg.num_hidden_layers), torch.device("cpu"), torch.float32,
+                                         seed=6)
+    return cfg, window, edge
+
+
+def phase_qwen_parity() -> dict:
+    """qwen2, qwen3, mixtral and qwen3_moe on the card against the CPU
+    (plain versions), same f32 weights (`_qwen_small`): a 40-token prompt,
+    prefill logits within 2e-3 and 24 equal greedy tokens on the
+    single-sequence engine, with exactly layers launches of the prefill
+    kernel a prompt and of the decode kernel's form a step (G = 16: the
+    wide counter); then qwen3_moe at sp = 2 on ["cuda:0", "cuda:0"] against
+    cpu x 2 and the card's single device (a 69-token prompt across the
+    shard boundary at 64, 16 tokens, 2 x layers wide LSE launches a step).
+    Returns the launches by counter, summed."""
+    from dnet_tpu_torch.core.engine import LocalEngine
+    from dnet_tpu_torch.core.types import DecodingParams
+    from dnet_tpu_torch.kernels import launch_counts, reset_launch_counts
+    from dnet_tpu_torch.parallel.engine import MeshEngine
+
+    total = {}
+    prompt = [(17 * i) % 500 + 1 for i in range(40)]
+    n_tokens = 24
+    for family in ("qwen2", "qwen3", "mixtral", "qwen3_moe"):
+        cfg, window, edge = _qwen_small(family)
+        layers, G = cfg.num_hidden_layers, cfg.num_attention_heads // cfg.num_key_value_heads
+        engines = {dev: LocalEngine.from_params(cfg, window, edge, max_seq=256, param_dtype="float32", device=dev)
+                   for dev in ("cuda", "cpu")}
+        reset_launch_counts()
+        logits = {dev: e.prefill("p", prompt).float().cpu() for dev, e in engines.items()}
+        err = (logits["cuda"] - logits["cpu"]).abs().max().item()
+        check(bool(torch.isfinite(logits["cuda"]).all()) and logits["cuda"].shape == (1, 512), f"{family} logits")
+        check(err <= 2e-3, f"{family} GPU vs CPU prefill logits: max err {err}")
+        for e in engines.values():
+            e.end_session("p")
+        streams = {dev: [r.token_id for r in e.generate(prompt, DecodingParams(), max_tokens=n_tokens, nonce="g")]
+                   for dev, e in engines.items()}
+        check(streams["cuda"] == streams["cpu"], f"{family} greedy streams differ: {streams}")
+        torch.cuda.synchronize()
+        launches = {k: v for k, v in launch_counts().items() if v}
+        dec = "flash_decode_wide" if G > 8 else "flash_decode"
+        expected = {"flash_prefill": layers * 2, dec: layers * (n_tokens - 1)}
+        check(launches == expected, f"{family} parity launches {launches} != {expected}")
+        for k, v in launches.items():
+            total[k] = total.get(k, 0) + v
+        emit({"phase": "qwen_parity", "family": family, "layers": layers, "H": cfg.num_attention_heads,
+              "KVH": cfg.num_key_value_heads, "D": cfg.head_dim, "G": G, "experts": cfg.num_local_experts,
+              "prompt_tokens": len(prompt), "logits_max_err": err, "tol": 2e-3,
+              "greedy_tokens": len(streams["cuda"]), "launches": launches})
+        del engines
+    # qwen3_moe's sp = 2 mesh: the wide LSE form on the card
+    cfg, window, edge = _qwen_small("qwen3_moe")
+    prompt = [(13 * i) % 500 + 1 for i in range(69)]
+    kw = dict(max_seq=128, param_dtype="float32")
+    engines = {"cuda": MeshEngine.from_params(cfg, window, edge, sp=2, devices=SP_DEVICES, **kw),
+               "cpu": MeshEngine.from_params(cfg, window, edge, sp=2, devices=["cpu", "cpu"], **kw),
+               "single": LocalEngine.from_params(cfg, window, edge, device="cuda", **kw)}
+    logits = {dev: e.prefill("p", prompt).float().cpu() for dev, e in engines.items()}
+    err = {dev: (logits["cuda"] - logits[dev]).abs().max().item() for dev in ("cpu", "single")}
+    check(bool(torch.isfinite(logits["cuda"]).all()) and max(err.values()) <= 2e-3, f"qwen3_moe sp logits {err}")
+    streams, launches = {}, None
+    for dev, e in engines.items():
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        streams[dev] = [r.token_id for r in e.generate(prompt, DecodingParams(), max_tokens=16, nonce="g")]
+        torch.cuda.synchronize()
+        if dev == "cuda":
+            launches = {k: v for k, v in launch_counts().items() if v}
+    check(streams["cuda"] == streams["cpu"] == streams["single"], f"qwen3_moe sp greedy streams differ: {streams}")
+    want = {"flash_decode_wide": 2 * cfg.num_hidden_layers * 15}
+    check(launches == want, f"qwen3_moe sp parity launches {launches} != {want}")
+    total["flash_decode_wide"] += want["flash_decode_wide"]
+    emit({"phase": "qwen_parity", "family": "qwen3_moe", "sp": 2, "devices": SP_DEVICES,
+          "layers": cfg.num_hidden_layers, "H": QW_H, "KVH": QW_KVH, "max_seq": 128, "prompt_tokens": len(prompt),
+          "logits_max_err": err, "tol": 2e-3, "greedy_tokens": len(streams["cuda"]), "launches": launches,
+          "decode_steps": 15})
+    del engines
+    return total
+
+
+def phase_qwen3_moe(prompt_text: str, port: int) -> tuple:
+    """Qwen3-MoE at full width: Qwen3-30B-A3B's step over all 48 layers from
+    random params made on the card (~61 GB), then Qwen3-235B-A22B's first
+    QW_SERVE_LAYERS layers and edge (~12.4 GB) written as a checkpoint and
+    served over HTTP, single sequence and with --batch-slots 8."""
+    from dnet_tpu_torch.models import ModelConfig
+    from dnet_tpu_torch.models.convert import hf_tensors
+    from dnet_tpu_torch.utils.checkpoint import save_checkpoint
+    from dnet_tpu_torch.utils.random_init import QWEN3_30B_A3B_CONFIG, QWEN3_235B_A22B_CONFIG, random_qwen_params
+
+    tmp = os.path.join(tempfile.mkdtemp(prefix="dnet-torch-smoke-qwen-"), QW_MODEL)
+    try:
+        t0 = time.perf_counter()
+        torch.cuda.reset_peak_memory_stats()
+        cfg = ModelConfig.from_hf(QWEN3_30B_A3B_CONFIG)
+        window, edge = random_qwen_params(cfg, range(cfg.num_hidden_layers), torch.device("cuda"), torch.bfloat16,
+                                          seed=0)
+        init_s = time.perf_counter() - t0
+        step = dict(phase_moe_step("qwen3_moe_step", "Qwen3-30B-A3B (synthetic bf16 weights, seed 0)", cfg, window,
+                                   edge, 300), init_s=init_s)
+        del window, edge
+        gc.collect()
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        served_cfg = dict(QWEN3_235B_A22B_CONFIG, num_hidden_layers=QW_SERVE_LAYERS)
+        cfg = ModelConfig.from_hf(served_cfg)
+        window, edge = random_qwen_params(cfg, range(QW_SERVE_LAYERS), torch.device("cuda"), torch.bfloat16, seed=0)
+        save_checkpoint(tmp, served_cfg, hf_tensors(window, edge, "qwen3_moe"))
+        del window, edge
+        torch.cuda.empty_cache()
+        write_s = time.perf_counter() - t0
+        serve = phase_qwen3_moe_serve(tmp, port, prompt_text, write_s)
+        batched = phase_qwen3_moe_batch_serve(tmp, port)
+    finally:
+        shutil.rmtree(os.path.dirname(tmp), ignore_errors=True)
+    return step, serve, batched
+
+
+def phase_qwen3_moe_serve(model_dir: str, port: int, prompt_text: str, write_s: float) -> dict:
+    """The 2-layer full-width Qwen3-235B-A22B checkpoint served single
+    sequence: the serve phase's greedy, seeded sampled and three streamed
+    requests, 64 tokens each; the wide decode form QW_SERVE_LAYERS times a
+    decode step, the prefill kernel (G = 16 at (128, 128)) QW_SERVE_LAYERS
+    times a prompt, no other kernel; /health's KV bytes the cache's."""
+    args = Namespace(
+        host="127.0.0.1", http_port=port, model=model_dir, models_dir="", device="cuda",
+        max_seq_len=S, param_dtype="bfloat16", max_concurrent=8, request_timeout_s=600.0,
+    )
+    chat = {"model": QW_MODEL, "max_tokens": MAX_TOKENS, "temperature": 0,
+            "messages": [{"role": "user", "content": prompt_text}], "logit_bias": TEXT_BIAS}
+    bodies = [{"greedy": chat, "streamed": dict(chat, stream=True),
+               "sampled": dict(chat, temperature=0.8, top_p=0.95, seed=1234)}[k] for k in SERVE_KINDS]
+    results, launches, load_s, health = asyncio.run(_drive(args, bodies))
+    for name, r in zip(SERVE_KINDS, results):
+        check(r["status"] == 200, f"qwen3_moe {name} request: HTTP {r['status']}")
+        check(bool(r["content"]) and r["tokens"] == MAX_TOKENS, f"qwen3_moe {name} request: short completion")
+        check(name != "streamed" or r["content"] == results[0]["content"],
+              "qwen3_moe streamed content differs from the non-streamed")
+    decode_steps = sum(r["tokens"] - 1 for r in results)
+    want = {"flash_decode_wide": QW_SERVE_LAYERS * decode_steps, "flash_prefill": QW_SERVE_LAYERS * len(results)}
+    check({k: v for k, v in launches.items() if v} == want, f"qwen3_moe serve launches {launches} != {want}")
+    engine = health["engine"]
+    check(engine["kv_bytes"] == QW_SERVE_KV_BYTES, f"qwen3_moe KV bytes {engine} != {QW_SERVE_KV_BYTES}")
+    row = {
+        "phase": "qwen3_moe_serve", "mode": "single sequence", "gpu": gpu_line(),
+        "model": f"Qwen3-235B-A22B widths, {QW_SERVE_LAYERS} of 94 layers (synthetic bf16 weights, seed 0)",
+        "checkpoint_write_s": write_s, "load_s": load_s, "launches": launches, "prefills": len(results),
+        "decode_steps": decode_steps, "kv_bytes": engine["kv_bytes"],
+        "requests": [
+            {"kind": k, "status": r["status"], "completion_tokens": r["tokens"], "s": r["s"],
+             "tokens_per_s": r["tokens"] / r["s"], "content_head": r["content"][:40]}
+            for k, r in zip(SERVE_KINDS, results)
+        ],
+        **streamed_rates(results),
+    }
+    emit(row)
+    return row
+
+
+def phase_qwen3_moe_batch_serve(model_dir: str, port: int) -> dict:
+    """The same checkpoint with --batch-slots 8 over the paged pool (paged +
+    ragged): the batch_serve burst; the wide paged form QW_SERVE_LAYERS
+    times a batched decode step (the engine's decode_steps), the prefill
+    kernel QW_SERVE_LAYERS times a prompt chunk, no other kernel; /health's
+    KV bytes the pool's."""
+    args = _batch_args(model_dir, port)
+    bodies = [dict(b, model=QW_MODEL) for b in _batch_bodies()]
+    with environ(PAGED_ENV):
+        results, launches, load_s, health = asyncio.run(_drive(args, bodies, concurrent=True))
+    for i, r in enumerate(results):
+        check(r["status"] == 200, f"qwen3_moe batched request {i}: HTTP {r['status']}")
+        check(bool(r["content"]) and r["tokens"] == MAX_TOKENS, f"qwen3_moe batched request {i}: {r['tokens']} tokens")
+    engine = health["engine"]
+    steps = engine["decode_steps"]
+    chunks = sum(-(-n // PREFILL_CHUNK) for n in BATCH_PROMPT_TOKENS)
+    want = {"paged_attend_wide": QW_SERVE_LAYERS * steps, "flash_prefill": QW_SERVE_LAYERS * chunks}
+    check(steps > 0 and {k: v for k, v in launches.items() if v} == want,
+          f"qwen3_moe batched launches {launches} != {want}")
+    pool_bytes = QW_SERVE_LAYERS * engine["kv_pool_blocks"] * BT * QW_KVH * 2 * QW_D * 2
+    check(engine["kv_bytes"] == pool_bytes, f"qwen3_moe pool KV bytes {engine} != {pool_bytes}")
+    check(engine["active"] == 0 and engine["kv_blocks_used"] == 0, f"slots or blocks leaked: {engine}")
+    row = {
+        "phase": "qwen3_moe_serve", "mode": "paged + ragged batched slots", "gpu": gpu_line(),
+        "model": f"Qwen3-235B-A22B widths, {QW_SERVE_LAYERS} of 94 layers (synthetic bf16 weights, seed 0)",
+        "batch_slots": BATCH_SLOTS, "block_tokens": BT, "pool_blocks": engine["kv_pool_blocks"],
+        "load_s": load_s, "launches": launches, "decode_steps": steps, "prefill_chunks": chunks,
+        "kv_bytes": engine["kv_bytes"], "kv_blocks_peak": engine["kv_blocks_peak"], **_burst_rates(results),
+    }
+    emit(row)
+    return row
+
+
 def row_extras(name: str, row: dict, per_call: dict) -> dict:
     """A row's time over the library call's and, for a decode row, its device
     kernels per call (phase_decode_launches), both from this run."""
@@ -3231,6 +3645,12 @@ def main() -> int:
     main_path.update(phase_mla_kernels(bucket_length(n_prompt)))
     phase_deepseek_parity()
     _, ds_served = phase_deepseek(prompt_text, long_text, _free_port())
+    # qwen3_moe (after deepseek_v2 has freed its memory): the G = 16 kernel
+    # rows at the 235B serve's position and the batch mix, the qwen family
+    # parity, Qwen3-30B-A3B's 48-layer step, the 2-layer 235B serves
+    main_path.update(phase_wide_kernels(n_prompt + MAX_TOKENS - 2))
+    phase_qwen_parity()
+    _, qw_served, qw_batched = phase_qwen3_moe(prompt_text, _free_port())
 
     # each kernel with its launches on its own path: the single-sequence
     # serve for the dense prefill and decode kernels, the batched serve for
@@ -3243,7 +3663,8 @@ def main() -> int:
     # serve (f32 and bf16 passes) for the LSE form and its q8 pass for the
     # form over int8 codes, deepseek_v2's sp serve for the MLA-width form,
     # and the sp parity's q4 and MLA q8 / q4 passes for those forms (no
-    # serve runs them)
+    # serve runs them), and the Qwen3-235B-A22B serves (single sequence,
+    # batched) for the G = 16 forms
     sources = {
         "flash_prefill": ("dnet_tpu_torch/csrc/flash_prefill.cu", "dnet_tpu/ops/flash_attention.py:38", served),
         "flash_decode": ("dnet_tpu_torch/csrc/flash_decode.cu", "dnet_tpu/ops/flash_decode.py:50", served),
@@ -3277,7 +3698,11 @@ def main() -> int:
         "flash_decode_lse_mla_q4": ("dnet_tpu_torch/csrc/flash_decode.cu",
                                     "dnet_tpu/ops/flash_decode.py:50 (with_lse, qbits 4, Dqk 192, Dv 128)",
                                     {"launches": sp_parity}),
+        "flash_decode_wide": ("dnet_tpu_torch/csrc/flash_decode.cu",
+                              "dnet_tpu/ops/flash_decode.py:50 (G > 8, any form)", qw_served),
         "paged_attend": ("dnet_tpu_torch/csrc/paged_attention.cu", "dnet_tpu/ops/paged_attention.py:92", batched),
+        "paged_attend_wide": ("dnet_tpu_torch/csrc/paged_attention.cu", "dnet_tpu/ops/paged_attention.py:92 (G > 8)",
+                              qw_batched),
         "column_sq_norms": ("dnet_tpu_torch/csrc/column_ops.cu", "dnet_tpu/compression/ops.py:24",
                             {"launches": ring}),
         "gather_columns": ("dnet_tpu_torch/csrc/column_ops.cu", "dnet_tpu/compression/ops.py:81",

@@ -9,7 +9,7 @@
 // (the DNET_KV_BITS=16 pool of an f32 model); tables [B, nb] int32 page
 // tables; pos [B] int32 live pool rows per slot; k_new/v_new [B, KVH, D] the
 // current token's rows in q's dtype (attended unrounded, as the reference).
-// Slot b's G = H / KVH <= 8 query heads of each KV head attend pool rows
+// Slot b's G = H / KVH query heads of each KV head (any G) attend pool rows
 // [0, pos[b]) -- key `key` lives at row key % bt of physical block
 // tables[b, key / bt] -- and then the new row, which the caller appends to
 // the pool after the launch.  D is 64 or 128.
@@ -62,6 +62,15 @@
 //     merging block weighs v_new with it beside the splits' states.  It
 //     always exists, so pos == 0 (nothing live, also every inactive lane)
 //     gives exactly v_new and the denominator is never zero.
+//   - Any group size through the same instantiations, as in
+//     flash_decode.cu: a block holds GP = min(8, G rounded up to 1, 4 or 8)
+//     query rows, and a group of G > 8 splits over RG = ceil(G / 8) row
+//     groups, heads kvh * G + 8r .. min(G, 8r + 8) - 1 (the last group's rows
+//     past G are masked and never written).  Each (KV head, row group) has
+//     its nx blocks, its own split plan, states and tickets; its blocks are
+//     adjacent to the other row groups' of the same split (the row group is
+//     the fastest part of the grid's x), so the second group's tiles come
+//     from L2.
 //   - Host cost: the shared-memory attribute is set once per instantiation
 //     and device.
 
@@ -78,7 +87,7 @@ using dnet::cp_wait;
 
 constexpr int NTHREADS = 256;      // 8 warps
 constexpr int NWARPS = NTHREADS / 32;
-constexpr int GMAX = 8;            // query heads per KV head
+constexpr int GMAX = 8;            // query heads a block holds; wider groups split over row groups
 constexpr int MAX_SPLIT = 16;      // blocks sharing one (slot, KV head)
 constexpr int RING_BUDGET = 81920; // shared-memory bytes the ring aims at
 constexpr int TBL_MAX = 512;       // page-table entries a block stages
@@ -150,9 +159,10 @@ struct Args {
   const void* k_new;
   const void* v_new;
   void* o;
-  float* part;   // [KVH, nx, STATE] f32: the blocks' states (nx > B)
-  int* tickets;  // [B * KVH] int32, 0 between calls: blocks done per (slot, KV head)
+  float* part;   // [KVH, rg, nx, STATE] f32: the blocks' states (nx > B)
+  int* tickets;  // [B * KVH * rg] int32, 0 between calls: blocks done per (slot, KV head, row group)
   int B, H, KVH, nb, bt, nx;
+  int rg;        // row groups a KV head: ceil(G / GMAX)
   float scale;
   cudaStream_t stream;
 };
@@ -216,9 +226,9 @@ __device__ __forceinline__ void split_plan(const Args& a, int x, int lane, int* 
 }
 
 // T: q's, the new rows' and the output's type; KV: the pool's (T, or bf16
-// under an f32 T); GP: query rows a block holds (>= G).  Grid (nx, KVH):
-// the nx blocks of a KV head take the slots' splits in slot order
-// (`split_plan`); blocks past them exit.
+// under an f32 T); GP: query rows a block holds (min(G, 8) rounded up).
+// Grid (nx * rg, KVH): the nx blocks of a (KV head, row group) take the
+// slots' splits in slot order (`split_plan`); blocks past them exit.
 template <typename T, typename KV, int D, int GP>
 __global__ void __launch_bounds__(NTHREADS, Cfg<KV, D, GP>::MINB) paged_attention_kernel(const Args a) {
   using C = Cfg<KV, D, GP>;
@@ -228,10 +238,13 @@ __global__ void __launch_bounds__(NTHREADS, Cfg<KV, D, GP>::MINB) paged_attentio
   float* Ns = reinterpret_cast<float*>(smem + C::N_OFF);  // scores [GP], k_new [D], v_new [D]
   int* Ts = reinterpret_cast<int*>(smem + C::T_OFF);
 
-  const int x = blockIdx.x;
+  const int x = blockIdx.x / a.rg;
+  const int rgi = blockIdx.x - x * a.rg;  // this block's row group
   const int kvh = blockIdx.y;
   const int H = a.H, KVH = a.KVH, bt = a.bt;
   const int G = H / KVH;
+  const int h0 = kvh * G + rgi * GP;  // the row group's first query head
+  const int GB = min(GP, G - rgi * GP);  // and its rows; rows GB..GP-1 are masked
   const int tid = threadIdx.x;
   const int lane = tid & 31;
   const int warp = tid >> 5;
@@ -251,13 +264,13 @@ __global__ void __launch_bounds__(NTHREADS, Cfg<KV, D, GP>::MINB) paged_attentio
   // q's elements this thread stages and the new rows', then this block's
   // tiles: the slot's live tiles, split evenly over its n_split blocks
   constexpr int QPT = (GP * D + NTHREADS - 1) / NTHREADS;
-  const T* qb = static_cast<const T*>(a.q) + ((long)b * H + (long)kvh * G) * D;
+  const T* qb = static_cast<const T*>(a.q) + ((long)b * H + h0) * D;
   const float q_scale = a.scale * LOG2E;  // scores in log2 units
   float qv[QPT];
 #pragma unroll
   for (int r = 0; r < QPT; ++r) {
     const int i = tid + r * NTHREADS;
-    qv[r] = i < G * D ? to_float(qb[i]) * q_scale : 0.f;
+    qv[r] = i < GB * D ? to_float(qb[i]) * q_scale : 0.f;
   }
   const long nrow = ((long)b * KVH + kvh) * D;
   const float kn = tid < D ? to_float(static_cast<const T*>(a.k_new)[nrow + tid]) : 0.f;
@@ -281,7 +294,7 @@ __global__ void __launch_bounds__(NTHREADS, Cfg<KV, D, GP>::MINB) paged_attentio
   const int e1 = key1 > key0 ? (pow2 ? (key1 - 1) >> bsh : (key1 - 1) / bt) + 1 : e0;
   for (int e = e0 + tid; e < min(e1, e0 + TBL_MAX); e += NTHREADS) Ts[e - e0] = tbl[e];
 
-  // the G query heads of this KV group are contiguous: q[b, 0, kvh*G .. kvh*G+G-1, :]
+  // the row group's query heads are contiguous: q[b, 0, h0 .. h0+GB-1, :]
 #pragma unroll
   for (int r = 0; r < QPT; ++r) {
     const int i = tid + r * NTHREADS;
@@ -325,7 +338,7 @@ __global__ void __launch_bounds__(NTHREADS, Cfg<KV, D, GP>::MINB) paged_attentio
   }
 
   // the new row's score per query row, while the first copies fly
-  for (int g = warp; g < G; g += NWARPS) {
+  for (int g = warp; g < GB; g += NWARPS) {
     float s = 0.f;
     for (int d = lane; d < D; d += 32) s = fmaf(Qs[g * D + d], Ns[GP + d], s);
 #pragma unroll
@@ -498,7 +511,7 @@ __global__ void __launch_bounds__(NTHREADS, Cfg<KV, D, GP>::MINB) paged_attentio
 
   // the block's state: its warps merged with one log-sum-exp per head
   const float* W0 = reinterpret_cast<const float*>(smem);
-  for (int e = tid; e < G * D; e += NTHREADS) {
+  for (int e = tid; e < GB * D; e += NTHREADS) {
     const int g = e / D, d = e - (e / D) * D;
     float M = NEG_INF;
 #pragma unroll
@@ -519,11 +532,12 @@ __global__ void __launch_bounds__(NTHREADS, Cfg<KV, D, GP>::MINB) paged_attentio
   }
   __syncthreads();  // the block's state is in Bs
 
-  // Several blocks share the (slot, KV head): each publishes its state, and
-  // the block that takes the last ticket merges them all.
-  const int pair = b * KVH + kvh;
+  // Several blocks share the (slot, KV head, row group): each publishes its
+  // state, and the block that takes the last ticket merges them all.
+  const int pair = (b * KVH + kvh) * a.rg + rgi;
+  const long grp = (long)kvh * a.rg + rgi;  // the (KV head, row group)'s states in part
   if (n_split > 1) {
-    float* mine = a.part + ((long)kvh * a.nx + x) * C::STATE;
+    float* mine = a.part + (grp * a.nx + x) * C::STATE;
     for (int i = tid; i < C::STATE; i += NTHREADS) mine[i] = Bs[i];
     __syncthreads();
     // one thread takes the ticket with acquire-release semantics: the
@@ -542,7 +556,7 @@ __global__ void __launch_bounds__(NTHREADS, Cfg<KV, D, GP>::MINB) paged_attentio
 
   // the merge: every block's (m, l, acc) loaded before any is used, then
   // the new row (score Ns[g], value v_new) as one more state
-  for (int e = tid; e < G * D; e += NTHREADS) {
+  for (int e = tid; e < GB * D; e += NTHREADS) {
     const int g = e / D, d = e - (e / D) * D;
     float rm[MAX_SPLIT], rl[MAX_SPLIT], ra[MAX_SPLIT];
     if (n_split == 1) {
@@ -553,7 +567,7 @@ __global__ void __launch_bounds__(NTHREADS, Cfg<KV, D, GP>::MINB) paged_attentio
 #pragma unroll
       for (int r = 0; r < MAX_SPLIT; ++r) {
         if (r < n_split) {
-          const float* R = a.part + ((long)kvh * a.nx + first + r) * C::STATE;  // __ldcg: from L2, not L1
+          const float* R = a.part + (grp * a.nx + first + r) * C::STATE;  // __ldcg: from L2, not L1
           rm[r] = __ldcg(R + g);
           rl[r] = __ldcg(R + GP + g);
           ra[r] = __ldcg(R + 2 * GP + g * D + d);
@@ -575,7 +589,7 @@ __global__ void __launch_bounds__(NTHREADS, Cfg<KV, D, GP>::MINB) paged_attentio
         ll = fmaf(wt, rl[r], ll);
       }
     }
-    static_cast<T*>(a.o)[((long)b * H + (long)kvh * G + g) * D + d] = dnet::from_float<T>(x / ll);
+    static_cast<T*>(a.o)[((long)b * H + h0 + g) * D + d] = dnet::from_float<T>(x / ll);
   }
   if (n_split > 1 && tid == 0) a.tickets[pair] = 0;  // ready for the next call on this stream
 }
@@ -602,11 +616,11 @@ int launch_kernel(const Args& a, int query) {
     if (err != cudaSuccess) return (int)err;
     ready.fetch_or(bit, std::memory_order_release);
   }
-  kernel<<<dim3(a.nx, a.KVH), NTHREADS, smem, a.stream>>>(a);
+  kernel<<<dim3(a.nx * a.rg, a.KVH), NTHREADS, smem, a.stream>>>(a);
   return (int)cudaGetLastError();
 }
 
-// The query rows a block holds: GP >= G, 1, 4 or 8.
+// The query rows a block holds: GP >= min(G, 8), 1, 4 or 8.
 template <typename T, typename KV, int D>
 int launch_group(const Args& a, int query) {
   const int G = a.H / a.KVH;
@@ -627,7 +641,7 @@ int launch_pool(int kv_dtype, const Args& a, int query) {
 }
 
 int launch_dtype(int dtype, int kv_dtype, int head_dim, const Args& a, int query) {
-  if (a.H <= 0 || a.KVH <= 0 || a.H % a.KVH != 0 || a.H / a.KVH > GMAX) return -1;
+  if (a.H <= 0 || a.KVH <= 0 || a.H % a.KVH != 0 || a.rg != (a.H / a.KVH + GMAX - 1) / GMAX) return -1;
   if (query == LAUNCH && (a.bt < 1 || a.nb < 1 || a.B < 1 || a.nx < a.B ||
                  a.nx > MAX_SPLIT * a.B || a.nx > 65535 || (a.nx > a.B && (!a.part || !a.tickets))))
     return -1;
@@ -645,11 +659,12 @@ int launch_dtype(int dtype, int kv_dtype, int head_dim, const Args& a, int query
 
 // C interface (bound with ctypes in dnet_tpu_torch/ops/paged_attention.py).
 // kv_dtype is the pools' dtype code (q's, or bf16 under an f32 q).  B slots;
-// nx (B..16 B) blocks per KV head, over which each slot's live tiles
-// split (`split_plan`); above B they need part, f32 scratch of
-// KVH * nx * (2 + head_dim) * GP floats (GP = 1, 4 or 8, the first of them
-// >= H / KVH), and tickets, B * KVH int32 that are 0 before the call and that
-// it leaves 0 (one buffer a stream).  One kernel launch; returns its
+// each KV head's G = H / KVH query heads take RG = ceil(G / 8) row groups;
+// nx (B..16 B) blocks per (KV head, row group), over which each slot's live
+// tiles split (`split_plan`); above B they need part, f32 scratch of
+// KVH * RG * nx * (2 + head_dim) * GP floats (GP = 1, 4 or 8, the first of
+// them >= min(H / KVH, 8)), and tickets, B * KVH * RG int32 that are 0
+// before the call and that it leaves 0 (one buffer a stream).  One kernel launch; returns its
 // cudaError_t (0 = launched); -1 for a dtype, head dim, grouping, block size
 // or block count this kernel was not built for.
 extern "C" int dnet_paged_attention(int dtype, int kv_dtype, int head_dim, const void* q,
@@ -657,8 +672,9 @@ extern "C" int dnet_paged_attention(int dtype, int kv_dtype, int head_dim, const
                                     const int* pos, const void* k_new, const void* v_new, void* o,
                                     float* part, int* tickets, int B, int H, int KVH, int nb, int bt,
                                     int nx, float scale, void* stream) {
+  if (H <= 0 || KVH <= 0) return -1;
   const Args a{q, k_pool, v_pool, tables, pos, k_new, v_new, o, part, tickets, B, H, KVH, nb, bt,
-               nx, scale, static_cast<cudaStream_t>(stream)};
+               nx, (H / KVH + GMAX - 1) / GMAX, scale, static_cast<cudaStream_t>(stream)};
   return launch_dtype(dtype, kv_dtype, head_dim, a, LAUNCH);
 }
 
@@ -667,8 +683,8 @@ extern "C" int dnet_paged_attention(int dtype, int kv_dtype, int head_dim, const
 // query over KVH KV heads) launches; -1 for one this kernel was not built
 // for.
 extern "C" int dnet_paged_attention_query(int what, int dtype, int kv_dtype, int head_dim, int H, int KVH) {
+  if ((what != QUERY_SMEM && what != QUERY_BLOCKS) || H <= 0 || KVH <= 0) return -1;
   const Args a{nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr,
-               1, H, KVH, 1, 1, 1, 1.f, nullptr};
-  if (what != QUERY_SMEM && what != QUERY_BLOCKS) return -1;
+               1, H, KVH, 1, 1, 1, (H / KVH + GMAX - 1) / GMAX, 1.f, nullptr};
   return launch_dtype(dtype, kv_dtype, head_dim, a, what);
 }

@@ -11,7 +11,9 @@ def _counters() -> dict:
     its own, both attention wrappers count their MLA-width launches (V's
     head dim other than Q/K's) apart, and the decode kernel's LSE form
     (flash_decode_lse, one sp rank's partials) counts on the decode
-    wrapper too, per cache form and width as the plain form."""
+    wrapper too, per cache form and width as the plain form.  Both
+    attention wrappers count a call with more than 8 query heads a KV head
+    (row groups of blocks) on its own wide counter, whatever its form."""
     from dnet_tpu_torch.compression.ops import column_sq_norms, dequant_scatter_columns, gather_columns
     from dnet_tpu_torch.ops.flash_attention import flash_prefill
     from dnet_tpu_torch.ops.flash_decode import flash_decode_attend
@@ -35,7 +37,9 @@ def _counters() -> dict:
         "flash_decode_lse_mla": (flash_decode_attend, "launches_lse_mla"),
         "flash_decode_lse_mla_q8": (flash_decode_attend, "launches_lse_mla_q8"),
         "flash_decode_lse_mla_q4": (flash_decode_attend, "launches_lse_mla_q4"),
+        "flash_decode_wide": (flash_decode_attend, "launches_wide"),
         "paged_attend": (paged_attend, "launches"),
+        "paged_attend_wide": (paged_attend, "launches_wide"),
         "column_sq_norms": (column_sq_norms, "launches"),
         "gather_columns": (gather_columns, "launches"),
         "dequant_scatter_columns": (dequant_scatter_columns, "launches"),

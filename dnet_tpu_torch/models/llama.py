@@ -1,4 +1,5 @@
-"""Llama-family model (Llama 2/3.x and checkpoints that ship qkv biases).
+"""Llama-family model (Llama 2/3.x and checkpoints that ship qkv biases),
+and the decoder that qwen2, qwen3, mixtral and qwen3_moe derive from.
 
 Counterpart of dnet_tpu/models/llama.py: each layer runs RMSNorm -> QKV ->
 RoPE -> cached attention (the CUDA kernels) -> o-proj -> SwiGLU, looping
@@ -46,6 +47,11 @@ class LlamaRingModel(RingModel):
         )
         self.inv_freq = torch.from_numpy(inv_freq).to(self.device)
 
+    def _qk_transform(self, p: dict, q: torch.Tensor, k: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Pre-RoPE q/k hook: the identity for llama (qwen3 adds per-head
+        norms)."""
+        return q, k
+
     def layer(
         self, p: dict, x: torch.Tensor, kvs, pos: Union[int, torch.Tensor], attend_fn=None,
         lengths=None, sp=None,
@@ -73,6 +79,7 @@ class LlamaRingModel(RingModel):
         q = q.reshape(B, T, H, Hd)
         k = k.reshape(B, T, KVH, Hd)
         v = v.reshape(B, T, KVH, Hd)
+        q, k = self._qk_transform(p, q, k)  # subclass hook (qwen3's q/k norms)
         positions = pos + torch.arange(T, device=x.device)
         q = apply_rope(q, positions, self.inv_freq, self.rope_scale)
         k = apply_rope(k, positions, self.inv_freq, self.rope_scale)
@@ -84,7 +91,8 @@ class LlamaRingModel(RingModel):
         return self._mlp_block(p, x), kvs
 
     def _mlp_block(self, p: dict, x: torch.Tensor) -> torch.Tensor:
-        """Post-attention SwiGLU FFN incl. the residual add."""
+        """Post-attention SwiGLU FFN incl. the residual add; a subclass hook
+        (mixtral swaps in the sparse-MoE block)."""
         h = rms_norm(x, p["mlp_norm"], self.config.rms_norm_eps)
         return x + (F.silu(h @ p["w_gate"]) * (h @ p["w_up"])) @ p["w_down"]
 

@@ -17,8 +17,13 @@ across blocks (flash-decoding; `decode_plan` picks how many), and the last
 of them to finish merges their states inside the one launch.  V's head dim
 may differ from Q/K's (MLA: deepseek_v2's (Dqk, Dv) = (192, 128) with
 G = 1), in every cache form but
-the rotating one; launches at those widths count apart (COUNTERS).  The
-source's header says what bounds it on the card.
+the rotating one; launches at those widths count apart (COUNTERS).  Any
+group size G = H / KVH runs: a block holds `query_rows` of a group's query
+heads (1, 4 or 8), and a larger group splits over ceil(G / rows) row groups
+of blocks in the same launch (G = 16: Qwen3-235B-A22B's 64 / 4 heads);
+every call with G > 8 counts under its own counter,
+`launches_wide`, whatever its form.  The source's header says what bounds
+it on the card.
 
 `rotating=True` is gpt_oss's sliding-window ring buffer: the cache holds
 W slots written before the call (core/kvcache.py `write_kv_rotating`),
@@ -54,7 +59,7 @@ NEG_INF = -1e30
 BK = 64  # keys per tile, in the kernel and in its plain version
 # (q/k head dim, v head dim) pairs the kernel is built for
 HEAD_DIMS = frozenset({(64, 64), (128, 128), (192, 128)})
-MAX_GROUP = 8  # query heads per KV head the kernel takes
+MAX_ROWS = 8  # query heads per KV head a kernel block holds; larger groups split over blocks
 # the decode (and paged) kernel's blocks sharing one (lane, KV head), each
 # with some depth, and its blocks a call: one wave, a block an SM of a
 # 132-SM card
@@ -77,13 +82,16 @@ COUNTERS = {
     (0, False, True, True): "launches_lse_mla", (8, False, True, True): "launches_lse_mla_q8",
     (4, False, True, True): "launches_lse_mla_q4",
 }
+# every form's launches with more query heads a KV head than a block holds
+WIDE_COUNTER = "launches_wide"
 # an unquantized cache's dtypes the kernel reads under each q dtype
 KV_DTYPES = {torch.float32: (torch.float32, torch.bfloat16), torch.bfloat16: (torch.bfloat16,)}
 
 
 def decode_plan(max_live: int, n_blocks_per_split: int) -> int:
     """The decode kernel's split count: the blocks sharing each (lane, KV
-    head), where `n_blocks_per_split` = KV heads x lanes.  At most
+    head, row group), where `n_blocks_per_split` = KV heads x row groups x
+    lanes.  At most
     MAX_SPLITS, at least one, and no more than gives the longest lane
     MIN_TILES_PER_SPLIT tiles a split or the call more than DECODE_BLOCKS
     blocks.  Each lane splits its own live tiles over them in the kernel."""
@@ -91,25 +99,44 @@ def decode_plan(max_live: int, n_blocks_per_split: int) -> int:
     return max(1, min(MAX_SPLITS, -(-n_tiles // MIN_TILES_PER_SPLIT), DECODE_BLOCKS // n_blocks_per_split))
 
 
-def query_rows(group: int) -> int:
-    """The query rows a decode kernel block holds for `group` query heads
-    per KV head (its GP: 1, 4 or 8)."""
-    return 1 if group == 1 else 4 if group <= 4 else 8
+# G = 8 at these head dims runs as two row groups of 4 (the GP = 8
+# instantiation spills there; chip_smoke.py's wide_group_decode phase times
+# both layouts)
+SPLIT_8_HEAD_DIMS = frozenset({128})
 
 
-# per (device, stream): the decode kernel's merge scratch, the blocks'
-# states (f32) and one ticket per (lane, KV head) (int32; the merging block
-# returns it to 0, so a stream's calls share them)
+def query_rows(group: int, head_dim: int) -> int:
+    """The query rows a decode kernel block holds (its GP: 1, 4 or 8) for
+    `group` query heads per KV head at q/k head dim `head_dim`: the group's
+    whole size rounded up to 1, 4 or 8 where one block holds it, else 8 a
+    block (`row_groups` blocks a KV head), and 4 at G = 8 over
+    SPLIT_8_HEAD_DIMS."""
+    if group == 1:
+        return 1
+    if group <= 4 or (group == 8 and head_dim in SPLIT_8_HEAD_DIMS):
+        return 4
+    return MAX_ROWS
+
+
+def row_groups(group: int, rows: int) -> int:
+    """The blocks a (lane, split, KV head) takes: ceil(group / rows)."""
+    return -(-group // rows)
+
+
+# per (device, stream): the decode and paged kernels' merge scratch, the
+# blocks' states (f32) and one ticket per (lane, KV head, row group)
+# (int32; the merging block returns it to 0, so a stream's calls share them)
 _MERGE_SCRATCH: dict = {}
 
 
-def _merge_scratch(device: torch.device, stream: int, n_split: int, B: int, KVH: int, G: int, Dv: int) -> tuple:
+def _merge_scratch(device: torch.device, stream: int, n_split: int, B: int, groups: int, rows: int,
+                   Dv: int) -> tuple:
     """(part pointer, tickets pointer) for a call with n_split > 1 on
-    `stream`, grown as a call needs more; (None, None) for one split."""
+    `stream` (`groups` = KV heads x row groups, `rows` query rows a block),
+    grown as a call needs more; (None, None) for one split."""
     if n_split == 1:
         return None, None
-    rows = query_rows(G)
-    n_part, n_pairs = B * KVH * n_split * rows * (2 + Dv), B * KVH
+    n_part, n_pairs = B * groups * n_split * rows * (2 + Dv), B * groups
     part, tickets = _MERGE_SCRATCH.get((device, stream), (None, None))
     if part is None or part.numel() < n_part:
         part = torch.empty(n_part, dtype=torch.float32, device=device)
@@ -158,12 +185,10 @@ def _check_launch(name, q, k, v, lengths, qbits, Dv, k_scale, v_scale, rotating=
     """Raise for a CUDA call the kernel was not built for; check every
     tensor's device, dtype and layout."""
     H, D, KVH = q.shape[2], q.shape[3], k.shape[2]
-    if (q.dtype not in build.DTYPE_CODES or (D, Dv) not in HEAD_DIMS or H // KVH > MAX_GROUP
-            or (rotating and Dv != D)):
+    if q.dtype not in build.DTYPE_CODES or (D, Dv) not in HEAD_DIMS or (rotating and Dv != D):
         raise ValueError(
-            f"{name} takes bf16/f32, (head dim, v head dim) in {sorted(HEAD_DIMS)} (equal when "
-            f"rotating) and at most {MAX_GROUP} query heads per KV head; got {q.dtype}, {(D, Dv)}, "
-            f"{H // KVH}"
+            f"{name} takes bf16/f32 and (head dim, v head dim) in {sorted(HEAD_DIMS)} (equal when "
+            f"rotating); got {q.dtype}, {(D, Dv)}"
         )
     if not qbits and k.dtype not in KV_DTYPES[q.dtype]:
         raise ValueError(f"{name} reads a {q.dtype} q over a {KV_DTYPES[q.dtype]} cache, got {k.dtype}")
@@ -199,7 +224,7 @@ def flash_decode_attend(
     min(lengths[b], S)), and only the last `window` positions (0 < window
     <= S) are attended.
     CUDA tensors launch the kernel (bf16 or f32 q, (D, Dv) in HEAD_DIMS,
-    Dv == D when rotating, H/KVH <= 8) or raise; CPU tensors take the plain
+    Dv == D when rotating, any H/KVH) or raise; CPU tensors take the plain
     version."""
     qbits, S, KVH, Dv, max_live = _cache_form("flash_decode", q, k, v, lengths, max_live, k_scale, v_scale)
     B, _, H, D = q.shape
@@ -216,42 +241,48 @@ def flash_decode_attend(
     if sinks is not None:
         build.check_cuda_tensors("flash_decode", torch.float32, device=q.device, sinks=sinks)
     out = torch.empty((B, 1, H, Dv), dtype=q.dtype, device=q.device)
-    n_split = decode_plan(max_live, KVH * B)
+    rows = query_rows(H // KVH, D)
+    groups = KVH * row_groups(H // KVH, rows)  # (KV head, row group) pairs a lane
+    n_split = decode_plan(max_live, groups * B)
     stream = build.current_stream_handle(q.device)
     rc = _entry()(
         build.DTYPE_CODES[q.dtype], build.DTYPE_CODES.get(k.dtype, -1), qbits, D, Dv,
         q.data_ptr(), k.data_ptr(), v.data_ptr(),
         k_scale.data_ptr() if qbits else None, v_scale.data_ptr() if qbits else None,
         out.data_ptr(), None if sinks is None else sinks.data_ptr(), lengths.data_ptr(),
-        *_merge_scratch(q.device, stream, n_split, B, KVH, H // KVH, Dv), B, H, KVH, S, n_split, scale,
-        int(bool(rotating)), window, stream,
+        *_merge_scratch(q.device, stream, n_split, B, groups, rows, Dv),
+        B, H, KVH, S, n_split, rows, scale, int(bool(rotating)), window, stream,
     )
     if rc != 0:
         raise RuntimeError(f"flash_decode kernel launch failed (code {rc})")
-    _count(COUNTERS[qbits, bool(rotating), Dv != D, False])
+    _count(H // KVH, COUNTERS[qbits, bool(rotating), Dv != D, False])
     return out
 
 
-def _count(counter: str) -> None:
+def _count(group: int, counter: str) -> None:
+    """One launch on `counter`, or on WIDE_COUNTER for a group wider than a
+    block holds."""
+    if group > MAX_ROWS:
+        counter = WIDE_COUNTER
     setattr(flash_decode_attend, counter, getattr(flash_decode_attend, counter) + 1)
 
 
-# kernel launches since the last reset, per variant (COUNTERS)
-for _counter in COUNTERS.values():
+# kernel launches since the last reset, per variant (COUNTERS, WIDE_COUNTER)
+for _counter in (*COUNTERS.values(), WIDE_COUNTER):
     setattr(flash_decode_attend, _counter, 0)
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 # dtype, kv_dtype, qbits, head_dim, v_head_dim, q, k, v, k_scale, v_scale,
-# o, sinks, lengths, part, tickets, B, H, KVH, S, n_split, scale, rotating,
-# window, stream
-_ARGTYPES = (_I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, ctypes.c_float, _I, _I,
-             _P)
+# o, sinks, lengths, part, tickets, B, H, KVH, S, n_split, rows, scale,
+# rotating, window, stream
+_ARGTYPES = (_I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, ctypes.c_float,
+             _I, _I, _P)
 # dtype, kv_dtype, qbits, head_dim, v_head_dim, q, k, v, k_scale, v_scale,
-# o, m, l, lengths, part, tickets, B, H, KVH, S, n_split, scale, stream
-_LSE_ARGTYPES = (_I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, ctypes.c_float,
-                 _P)
-# dtype, kv_dtype, qbits, head_dim, v_head_dim, H, KVH, rotating
-_SMEM_ARGTYPES = (_I,) * 8
+# o, m, l, lengths, part, tickets, B, H, KVH, S, n_split, rows, scale, stream
+_LSE_ARGTYPES = (_I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                 ctypes.c_float, _P)
+# dtype, kv_dtype, qbits, head_dim, v_head_dim, H, KVH, rows, rotating
+_SMEM_ARGTYPES = (_I,) * 9
 
 
 def _entry():
@@ -265,7 +296,7 @@ def kernel_smem_bytes(dtype, kv_dtype, qbits: int, head_dim: int, v_head_dim: in
     kernel; -1 for one it was not built for)."""
     return build.entry("flash_decode", "dnet_flash_decode_smem", _SMEM_ARGTYPES)(
         build.DTYPE_CODES[dtype], build.DTYPE_CODES.get(kv_dtype, -1), qbits, head_dim, v_head_dim, H, KVH,
-        int(bool(rotating)))
+        query_rows(H // KVH, head_dim), int(bool(rotating)))
 
 
 def rank_live(pos: int, rank: int, s_local: int) -> int:
@@ -301,7 +332,7 @@ def flash_decode_lse(
     rank's max m; no sink, no division (the cross-rank combine,
     ops/ring_attention.py, does both once).  A lane of length 0 gives
     (0, NEG_INF, 0).  `max_live` (host int) bounds every lane's length.
-    CUDA tensors launch the kernel ((D, Dv) in HEAD_DIMS, H/KVH <= 8) or
+    CUDA tensors launch the kernel ((D, Dv) in HEAD_DIMS, any H/KVH) or
     raise; CPU tensors take the plain version."""
     qbits, S, KVH, Dv, max_live = _cache_form("flash_decode_lse", q, k, v, lengths, max_live, k_scale, v_scale)
     B, _, H, D = q.shape
@@ -315,18 +346,21 @@ def flash_decode_lse(
     acc = torch.empty((B, 1, H, Dv), dtype=torch.float32, device=dev)
     m = torch.empty((B, KVH, G), dtype=torch.float32, device=dev)
     l = torch.empty((B, KVH, G), dtype=torch.float32, device=dev)
-    n_split = decode_plan(max_live, KVH * B)
+    rows = query_rows(G, D)
+    groups = KVH * row_groups(G, rows)
+    n_split = decode_plan(max_live, groups * B)
     stream = build.current_stream_handle(dev)
     rc = build.entry("flash_decode", "dnet_flash_decode_lse", _LSE_ARGTYPES)(
         build.DTYPE_CODES[q.dtype], build.DTYPE_CODES.get(k.dtype, -1), qbits, D, Dv,
         q.data_ptr(), k.data_ptr(), v.data_ptr(),
         k_scale.data_ptr() if qbits else None, v_scale.data_ptr() if qbits else None,
         acc.data_ptr(), m.data_ptr(), l.data_ptr(), lengths.data_ptr(),
-        *_merge_scratch(dev, stream, n_split, B, KVH, G, Dv), B, H, KVH, S, n_split, scale, stream,
+        *_merge_scratch(dev, stream, n_split, B, groups, rows, Dv),
+        B, H, KVH, S, n_split, rows, scale, stream,
     )
     if rc != 0:
         raise RuntimeError(f"flash_decode_lse kernel launch failed (code {rc})")
-    _count(COUNTERS[qbits, False, Dv != D, True])
+    _count(G, COUNTERS[qbits, False, Dv != D, True])
     return acc, m, l
 
 

@@ -12,8 +12,10 @@ own live length, so table entries past it are never read; `paged_plan`
 gives each KV head a budget of blocks, over which the kernel splits every
 slot's live tiles in proportion to them (reading the positions on the
 device), and the last of a slot's blocks to finish merges their states and
-folds the new row, inside the one launch.  The source's header says what
-bounds it on the card.
+folds the new row, inside the one launch.  Any group size G = H / KVH
+runs: a group wider than a block's 8 query rows splits over ceil(G / 8) row
+groups of blocks, each with its own budget, and such calls count apart
+(`launches_wide`).  The source's header says what bounds it on the card.
 
 `ragged_refusal` says why an engine cannot route decode through the kernel
 (None = eligible), with the reference's vocabulary.
@@ -32,11 +34,12 @@ from dnet_tpu_torch.ops.flash_decode import (
     BK,
     DECODE_BLOCKS,
     KV_DTYPES,
-    MAX_GROUP,
+    MAX_ROWS,
     MAX_SPLITS,
     MIN_TILES_PER_SPLIT,
     NEG_INF,
     _merge_scratch,
+    row_groups,
 )
 
 HEAD_DIMS = (64, 128)  # the head dims the paged kernel is built for
@@ -59,8 +62,9 @@ def ragged_refusal(model, kv_quant_bits: int = 0) -> Optional[str]:
 
 
 def paged_plan(max_live: int, slots: int, kv_heads: int, blocks_per_sm: int = 1) -> int:
-    """The paged kernel's blocks per KV head: `slots` x the decode kernel's
-    split count (`decode_plan`'s rule over slots x KV heads: at most
+    """The paged kernel's blocks per (KV head, row group): `slots` x the
+    decode kernel's split count (`decode_plan`'s rule over slots x
+    `kv_heads`, the KV heads times their row groups: at most
     MAX_SPLITS, no more than gives the longest slot MIN_TILES_PER_SPLIT
     tiles a split, and one wave: DECODE_BLOCKS x `blocks_per_sm`, the
     instantiation's blocks an SM).  The kernel splits each slot's live
@@ -116,8 +120,7 @@ def paged_attend(
     defaults to the tables' capacity.  A low bound costs balance, not rows:
     the kernel splits each slot's live tiles as the positions on the device
     give them.  CUDA tensors launch the kernel (bf16 or f32, head dim 64 or 128,
-    H/KVH <= 8) or raise; CPU tensors take the
-    plain version."""
+    any H/KVH) or raise; CPU tensors take the plain version."""
     _check_shapes(q, k_pool, v_pool, tables, pos, k_new, v_new)
     B, _, H, D = q.shape
     bt, KVH = k_pool.shape[1], k_pool.shape[2]
@@ -125,34 +128,38 @@ def paged_attend(
     scale = D**-0.5 if scale is None else float(scale)
     if q.device.type == "cpu":
         return paged_attend_plain(q, k_pool, v_pool, tables, pos, k_new, v_new, scale=scale)
-    if q.dtype not in build.DTYPE_CODES or D not in HEAD_DIMS or H // KVH > MAX_GROUP:
-        raise ValueError(
-            f"paged_attend takes bf16/f32, head dim 64/128 and at most {MAX_GROUP} "
-            f"query heads per KV head; got {q.dtype}, {D}, {H // KVH}"
-        )
+    if q.dtype not in build.DTYPE_CODES or D not in HEAD_DIMS:
+        raise ValueError(f"paged_attend takes bf16/f32 and head dim 64/128; got {q.dtype}, {D}")
     if k_pool.dtype not in KV_DTYPES[q.dtype]:
         raise ValueError(f"paged_attend reads a {q.dtype} q over a {KV_DTYPES[q.dtype]} pool, got {k_pool.dtype}")
     build.check_cuda_tensors("paged_attend", q.dtype, q=q, k_new=k_new, v_new=v_new)
     build.check_cuda_tensors("paged_attend", k_pool.dtype, device=q.device, k_pool=k_pool, v_pool=v_pool)
     build.check_cuda_tensors("paged_attend", torch.int32, tables=tables, pos=pos)
     live_bound = nb * bt if max_live is None else min(int(max_live), nb * bt)
-    nx = paged_plan(live_bound, B, KVH, blocks_per_sm(q.dtype, k_pool.dtype, D, H, KVH))
+    G = H // KVH
+    rows = 1 if G == 1 else 4 if G <= 4 else MAX_ROWS  # the query rows a kernel block holds
+    groups = KVH * row_groups(G, MAX_ROWS)
+    nx = paged_plan(live_bound, B, groups, blocks_per_sm(q.dtype, k_pool.dtype, D, H, KVH))
     out = torch.empty_like(q)
     stream = build.current_stream_handle(q.device)
-    # the merge scratch holds nx states a KV head: B x ceil(nx / B) >= nx
+    # the merge scratch holds nx states a (KV head, row group): B x ceil(nx / B) >= nx
     rc = _entry()(
         build.DTYPE_CODES[q.dtype], build.DTYPE_CODES[k_pool.dtype], D, q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
         tables.data_ptr(), pos.data_ptr(), k_new.data_ptr(), v_new.data_ptr(), out.data_ptr(),
-        *_merge_scratch(q.device, stream, -(-nx // B), B, KVH, H // KVH, D), B, H, KVH, nb, bt, nx,
-        scale, stream,
+        *_merge_scratch(q.device, stream, -(-nx // B), B, groups, rows, D),
+        B, H, KVH, nb, bt, nx, scale, stream,
     )
     if rc != 0:
         raise RuntimeError(f"paged_attention kernel launch failed (code {rc})")
-    paged_attend.launches += 1
+    if G > MAX_ROWS:
+        paged_attend.launches_wide += 1
+    else:
+        paged_attend.launches += 1
     return out
 
 
-paged_attend.launches = 0  # kernel launches since the last reset
+# kernel launches since the last reset: G <= 8, and wider groups
+paged_attend.launches = paged_attend.launches_wide = 0
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 # dtype, kv_dtype, head_dim, q, k_pool, v_pool, tables, pos, k_new, v_new, o,

@@ -21,7 +21,14 @@ over q8 / q4 caches, counted on their own MLA counters; the paged kernel
 reads a block pool (bf16 under an f32 q too) through shuffled page tables at
 ragged per-slot lengths, bt 8 to 128, G = 1, 3, 4 and 8 at head dims 64 and
 128, every blocks-a-slot budget up to the cap, one device kernel a call, and
-interleaved with decode calls repeating bit for bit.  The decode kernel's LSE form (one sequence-
+interleaved with decode calls repeating bit for bit.  Groups wider than a
+block's 8 query rows (G = 9, 12, 16, 32; row groups of blocks) run the
+decode kernel in the plain, q8, q4 and LSE forms at head dims 64 and 128
+with split counts up to the cap, the paged kernel at G = 12 and 16 over bt
+16 and 64, and the prefill kernel at (128, 128) with G = 16, each on its
+wide counter, one device kernel a call, interleaved with narrow calls
+repeating bit for bit; G = 8 at head dim 128 runs in both of its layouts.
+The decode kernel's LSE form (one sequence-
 parallel rank's unnormalised partials) runs on R = 2 and 4 shards of a
 4096-slot cache at Llama-3.2-1B's and at head dim 128's widths, an empty
 rank included: m and the rank's output acc / l within the decode
@@ -961,6 +968,213 @@ def test_paged_interleaved_calls_repeat_exactly(gen, monkeypatch):
     torch.cuda.synchronize()
     for r in rounds[1:]:
         assert all(torch.equal(a, b) for a, b in zip(rounds[0], r))
+
+
+# wider groups than a block's 8 query rows (row groups of blocks): G = 9,
+# 12, 16 (Qwen3-235B-A22B's 64 / 4 heads) and 32, over 2 KV heads
+WIDE_GROUPS = [9, 12, 16, 32]
+WIDE_LENGTHS = (2048, 0, 1, 700)
+
+
+def _wide_form(G, D, bits, lse):
+    """A DECODE_FORMS entry at group G and head dim D on 2 KV heads, counted
+    on the wide counter."""
+    return ("launches_wide", D, D, 2 * G, 2, bits, False, lse)
+
+
+@pytest.mark.parametrize("G", WIDE_GROUPS)
+@pytest.mark.parametrize("D", [64, 128])
+@pytest.mark.parametrize("bits", [0, 8, 4])
+@pytest.mark.parametrize("lse", [False, True], ids=["normalised", "lse"])
+def test_decode_kernel_wide_groups(gen, G, D, bits, lse):
+    """More query heads a KV head than a block holds, in the plain, q8, q4
+    and LSE forms at head dims 64 and 128, over ragged lanes with an idle
+    one: each head as the plain version gives it (the last row group's
+    masked rows never written), one launch on launches_wide and none on
+    the form's own counter."""
+    form = _wide_form(G, D, bits, lse)
+    narrow = {c: getattr(flash_decode_attend, c) for c in ("launches", "launches_q8", "launches_q4",
+                                                             "launches_lse", "launches_lse_q8", "launches_lse_q4")}
+    call, want = _decode_form_call(gen, form, dtype=torch.float32, lengths=WIDE_LENGTHS)
+    before = flash_decode_attend.launches_wide
+    out = call()
+    torch.cuda.synchronize()
+    assert flash_decode_attend.launches_wide == before + 1
+    assert {c: getattr(flash_decode_attend, c) for c in narrow} == narrow
+    _check_form(out, want, form, torch.float32)
+
+
+@pytest.mark.parametrize("G", [12, 16])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_decode_kernel_wide_groups_rotating_and_sinks(gen, G, dtype):
+    """The rotating ring with sinks at G > 8 (every form takes the row-group
+    split): each head's sink folds once, into its own row."""
+    form = ("launches_wide", 64, 64, 2 * G, 2, 0, True, False)
+    call, want = _decode_form_call(gen, form, dtype=dtype, lengths=(300, 5, 0))
+    out = call()
+    torch.cuda.synchronize()
+    _check_form(out, want, form, dtype)
+
+
+@pytest.mark.parametrize("n_split", [1, 2, 3, 7, "cap"])
+@pytest.mark.parametrize("lse", [False, True], ids=["normalised", "lse"])
+@pytest.mark.parametrize("bits", [0, 4])
+def test_decode_wide_split_counts_up_to_the_cap(gen, monkeypatch, n_split, lse, bits):
+    """G = 16 at head dim 128 at every split count up to the cap: each
+    (lane, KV head, row group) merges its own blocks' states (a merge keyed
+    by (lane, KV head) alone would fire after half of them or mix two
+    groups' rows)."""
+    from dnet_tpu_torch.ops import flash_decode as fd
+
+    if n_split == "cap":
+        n_split = fd.MAX_SPLITS
+    monkeypatch.setattr(fd, "decode_plan", lambda max_live, blocks: n_split)
+    form = _wide_form(16, 128, bits, lse)
+    call, want = _decode_form_call(gen, form, dtype=torch.float32, lengths=WIDE_LENGTHS)
+    out = call()
+    torch.cuda.synchronize()
+    _check_form(out, want, form, torch.float32)
+
+
+def test_decode_plan_counts_row_groups():
+    """A G = 16 call over 4 KV heads plans for 8 (KV head, row group) pairs
+    a lane: as many blocks as G = 8 over 8 KV heads, one wave."""
+    from dnet_tpu_torch.ops import flash_decode as fd
+
+    rows = fd.query_rows(16, 128)
+    assert rows == 8 and fd.row_groups(16, rows) == 2
+    n = fd.decode_plan(2048, 4 * fd.row_groups(16, rows))
+    assert n == fd.decode_plan(2048, 8) and n * 4 * 2 <= fd.DECODE_BLOCKS
+
+
+@pytest.mark.parametrize("rows", [8, 4])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("lse", [False, True], ids=["normalised", "lse"])
+def test_decode_group_8_head_dim_128_both_layouts(gen, monkeypatch, rows, dtype, lse):
+    """G = 8 at head dim 128 as one group of 8 rows and as two of 4 (the
+    launcher picks one by measurement): both as the plain version gives it,
+    on the narrow counter."""
+    from dnet_tpu_torch.ops import flash_decode as fd
+
+    monkeypatch.setattr(fd, "SPLIT_8_HEAD_DIMS", frozenset({128}) if rows == 4 else frozenset())
+    assert fd.query_rows(8, 128) == rows
+    form = ("launches_lse" if lse else "launches", 128, 128, 64, 8, 0, False, lse)
+    call, want = _decode_form_call(gen, form, dtype=dtype, lengths=WIDE_LENGTHS)
+    before = getattr(flash_decode_attend, form[0]), flash_decode_attend.launches_wide
+    out = call()
+    torch.cuda.synchronize()
+    assert (getattr(flash_decode_attend, form[0]), flash_decode_attend.launches_wide) == (before[0] + 1, before[1])
+    _check_form(out, want, form, dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("G", [12, 16])
+@pytest.mark.parametrize("bt", [16, 64])
+@pytest.mark.parametrize("D", [64, 128])
+def test_paged_kernel_wide_groups(gen, dtype, G, bt, D):
+    """The paged kernel at G = 12 and 16 over ragged slots with NaN behind
+    every dead entry: one launch on launches_wide, none on launches; pos 0
+    gives exactly v_new in every head of the group."""
+    case = _paged_case(gen, dtype, bt, [0, 1, 77, 1530, 4000], H=2 * G, KVH=2, D=D)
+    want = paged_attend_plain(*(t.float() if t.is_floating_point() else t for t in case))
+    before = paged_attend.launches, paged_attend.launches_wide
+    out = paged_attend(*case, max_live=4000)
+    torch.cuda.synchronize()
+    assert (paged_attend.launches, paged_attend.launches_wide) == (before[0], before[1] + 1)
+    assert (out.float() - want).abs().max().item() <= TOL[dtype]
+    assert torch.equal(out[0, 0], case[6][0].repeat_interleave(G, dim=0))
+
+
+@pytest.mark.parametrize("n_split", [1, 2, 5, 16])
+def test_paged_wide_split_counts(gen, monkeypatch, n_split):
+    """G = 16 at every few budgets up to the cap: each (slot, KV head, row
+    group) merges its own blocks."""
+    case = _paged_case(gen, torch.float32, 16, [0, 65, 700, 4094], H=64, KVH=4, D=128)
+    want = paged_attend_plain(*case)
+    _paged_blocks_per_slot(monkeypatch, n_split)
+    out = paged_attend(*case)
+    torch.cuda.synchronize()
+    assert (out - want).abs().max().item() <= TOL[torch.float32]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_prefill_kernel_group_16_head_dim_128(gen, dtype):
+    """The prefill kernel at (128, 128) with G = 16 (Qwen3-235B-A22B's
+    64 / 4 heads stacked into rows), a chunk off the tile grids."""
+    q, k, v, sk, _ = _prefill_case(gen, dtype, 128, 128, 16, 1, 150, 37, 256, False, KVH=4)
+    before = flash_prefill.launches
+    out = flash_prefill(q, k, v, 37)
+    torch.cuda.synchronize()
+    assert flash_prefill.launches == before + 1
+    want = flash_prefill_plain(q.float(), k.float(), v.float(), 37)
+    assert (out.float() - want).abs().max().item() <= TOL[dtype]
+
+
+WIDE_FORMS = [_wide_form(16, 128, bits, lse) for bits in (0, 8, 4) for lse in (False, True)]
+
+
+@pytest.mark.parametrize("form", WIDE_FORMS, ids=[f"q{f[5]}-{'lse' if f[7] else 'norm'}" for f in WIDE_FORMS])
+def test_wide_decode_call_is_one_device_kernel(gen, form):
+    """A G = 16 decode call in every form is one device kernel (its row
+    groups are blocks of the one launch), as torch.profiler traces it."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    call, want = _decode_form_call(gen, form)
+    call()
+    torch.cuda.synchronize()
+    for _ in range(3):  # the profiler now and then drops a short call's record; it never invents one
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            time.sleep(0.002)
+            out = call()
+            torch.cuda.synchronize()
+            time.sleep(0.002)
+        kernels = [e.name for e in prof.events() if e.device_type == DeviceType.CUDA]
+        if kernels:
+            break
+    assert len(kernels) == 1 and "flash_decode_kernel" in kernels[0], kernels
+    _check_form(out, want, form, torch.bfloat16)
+
+
+def test_wide_paged_call_is_one_device_kernel(gen):
+    """A G = 16 paged call is one device kernel, as torch.profiler traces it."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    case = _paged_case(gen, torch.bfloat16, 16, [57, 92, 182, 332, 552, 832, 1132, 1532], H=64, KVH=4, D=128)
+    paged_attend(*case, max_live=1532)
+    torch.cuda.synchronize()
+    for _ in range(3):  # the profiler now and then drops a short call's record; it never invents one
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            time.sleep(0.002)
+            paged_attend(*case, max_live=1532)
+            torch.cuda.synchronize()
+            time.sleep(0.002)
+        kernels = [e.name for e in prof.events() if e.device_type == DeviceType.CUDA]
+        if kernels:
+            break
+    assert len(kernels) == 1 and "paged_attention_kernel" in kernels[0], kernels
+
+
+def test_wide_and_narrow_calls_interleaved_repeat_exactly(gen):
+    """G = 12 / 16 decode and paged calls interleaved with G <= 8 ones on one
+    stream, three rounds: every round bit-identical to the first, so every
+    (lane, KV head, row group) ticket is back at 0 after each call."""
+    calls = [c for f, lens in ((_wide_form(16, 128, 0, False), (2048, 5)), (_wide_form(12, 64, 8, True), (700,)),
+                               (DECODE_FORMS[0], (2048,)), (_wide_form(16, 128, 4, False), (1, 2048, 0)))
+             for c, _ in (_decode_form_call(gen, f, lengths=lens),)]
+    paged = [_paged_case(gen, torch.bfloat16, 16, [57, 1530, 0], H=64, KVH=4, D=128),
+             _paged_case(gen, torch.bfloat16, 16, [300, 4000])]
+    rounds = []
+    for _ in range(3):
+        outs = []
+        for c, case in zip(calls, paged + paged):
+            outs += [c(), paged_attend(*case)]
+        rounds.append(outs)
+    torch.cuda.synchronize()
+    flat = lambda r: [t for x in r for t in (x if isinstance(x, tuple) else (x,))]  # noqa: E731
+    for r in rounds[1:]:
+        assert all(torch.equal(a, b) for a, b in zip(flat(rounds[0]), flat(r)))
 
 
 def _small_model():
