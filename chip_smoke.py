@@ -8,9 +8,11 @@ Phases, one JSON line each; any failure exits non-zero:
            and the kernels' build from dnet_tpu_torch/csrc (nvcc, sm_90a).
   ptxas    the decode, prefill and paged kernels' instantiations as `nvcc
            -Xptxas -v` reports them (registers, spill stores / loads, stack),
-           each with its dynamic shared memory; compiled beside the build.
-           A bf16 (tensor-core) prefill or a bf16 paged instantiation that
-           spills fails the run.
+           each with its dynamic shared memory, and how many spill;
+           compiled beside the build.  A bf16 (tensor-core) prefill, a bf16
+           paged or a tensor-core decode / paged instantiation that spills,
+           or a decode instantiation of 8 rows a block at head dim 128
+           (which spilled; no dispatch reaches it), fails the run.
   kernels  each hand-written kernel against its plain PyTorch version at
            the main path's full widths (Llama-3.2-1B: H=32, KVH=8, D=64,
            S=4096): f32 within 1e-4; bf16 within 2e-2 of the plain version
@@ -201,17 +203,28 @@ the seventh path, for llama, deepseek_v2 and gpt_oss and under DNET_KV_BITS:
              flash_decode_lse_mla launches a step).
 The qwen families, the eighth path: qwen2, qwen3, mixtral and qwen3_moe,
 served at Qwen3-235B-A22B's widths through the decode and paged kernels'
-forms for more than 8 query heads a KV head (row groups of blocks):
+forms for more than 8 query heads a KV head (row groups of blocks); a bf16
+q over a bf16 cache at head dim 128 with more than 4 query heads a KV head
+runs their tensor-core forms (16 query rows a block, counted on
+launches_mma too):
   kernels          `flash_decode_wide` at H = 64 over KVH = 4, D = 128
                    (G = 16) on a 4096-slot cache at the qwen3_moe serve's
                    position and at 4095, `paged_attend_wide` at those
-                   widths over the batch_serve mix, f32 and bf16, each
-                   against its plain version (TOL), beside SDPA
-                   (enable_gqa; paged on a pre-gathered copy) and its bound.
-  wide_group_decode  (above) G = 8 at head dim 128 timed as one block of
-                   8 rows and as two row groups of 4, G = 16 as two row
-                   groups of 8 and as four of 4; each names the layout the
-                   launcher dispatches.
+                   widths over the batch_serve mix, f32 and bf16 (the
+                   tensor-core forms, held to MMA_TOL), each against its
+                   plain version, beside SDPA (enable_gqa; paged on a
+                   pre-gathered copy) and its bound; then the tensor-core
+                   forms alone (`flash_decode_mma`, normalised and LSE, at
+                   G = 5, 7, 8, 12, 16, 24 over 4 KV heads, lanes at
+                   positions 0, 1, 63, 64, 65, 113, 2047, 4095 one at a
+                   time and all eight in one launch, timed at 2047;
+                   `paged_attend_mma` at G = 7, 8, 16 over the batch_serve
+                   mix), within MMA_TOL of their plain versions.
+  wide_group_decode  (above) G = 7, 8 and 16 at head dim 128, 2,048 live
+                   slots: bf16 as row groups of 16 on the tensor cores
+                   (dispatched) and of 4 on the CUDA cores, f32 as row
+                   groups of 4; each names the layout the launcher
+                   dispatches.
   qwen_parity      small f32 models at the published heads (head dim 128):
                    qwen2 at Qwen2.5-7B's 28 / 4 (qkv biases), qwen3 at
                    Qwen3-4B's 32 / 8 (q/k norms), mixtral at Mixtral-8x7B's
@@ -220,21 +233,28 @@ forms for more than 8 query heads a KV head (row groups of blocks):
                    against CPU, prefill logits within 2e-3, 24 equal greedy
                    tokens, exact launches (the wide counter at G = 16); then
                    qwen3_moe at sp = 2 on ["cuda:0", "cuda:0"] against cpu x 2
-                   and the single device (the wide LSE form).
+                   and the single device (the wide LSE form); then bf16
+                   through the tensor-core decode form, qwen3_moe at
+                   Qwen3-235B-A22B's heads (G = 16) and qwen3 at
+                   Qwen3-30B-A3B's 32 / 4 (G = 8): each engine's greedy
+                   stream (agreement and first divergence reported), then
+                   the card's stream fed to both, the logits of every step
+                   within BF16_LOGITS_TOL.
   qwen3_moe_step   one greedy decode step of all 48 Qwen3-30B-A3B layers
                    at full width (random bf16 params made on the card,
                    ~61 GB, dense MoE) at pos ~300: wall, host issue,
-                   device busy, the attention kernels' share, launches,
-                   the bound.
+                   device busy, the attention kernels' share, launches
+                   (48 tensor-core decode calls a step), the bound.
   qwen3_moe_serve  Qwen3-235B-A22B's first 2 layers at full width (128
                    experts top-8 of 1536, ~12.4 GB) written as a checkpoint
                    and served: the serve phase's requests single sequence
-                   (exactly 2 flash_decode_wide launches a decode step, 2
-                   prefill launches a prompt, /health kv_bytes 16,777,216),
-                   then the batch_serve burst with --batch-slots 8 over the
-                   paged pool (2 paged_attend_wide launches a batched decode
-                   step, 2 prefill launches a prompt chunk, kv_bytes the
-                   pool's).
+                   (exactly 2 flash_decode_wide launches a decode step, each
+                   also on flash_decode_mma, 2 prefill launches a prompt,
+                   /health kv_bytes 16,777,216), then the batch_serve burst
+                   with --batch-slots 8 over the paged pool (2
+                   paged_attend_wide launches a batched decode step, each
+                   also on paged_attend_mma, 2 prefill launches a prompt
+                   chunk, kv_bytes the pool's).
 Every decode row also counts its device kernels per wrapper call
 (torch.profiler), which must be exactly 1: the splits and row groups of a
 (lane, KV head) merge inside the one launch.  Then the kernels summary line (every row
@@ -367,12 +387,21 @@ def phase_decode_launches() -> dict:
     q4 and LSE forms, gpt-oss-20b's ring (W=128, H=64) for the rotating ones,
     DeepSeek-V2-Lite's (192, 128) for the MLA ones, Qwen3-235B-A22B's
     (H = 64 over KVH = 4, G = 16, D = 128) for the wide counter in the
-    plain, q8, q4 and LSE forms, bf16 q, an empty and a long lane.  Every
-    count must be exactly 1: a lane's splits and row groups merge inside
-    the one launch.  Returns counter name -> kernels a call."""
+    plain, q8, q4 and LSE forms, and Qwen3-30B-A3B's (H = 32 over KVH = 4,
+    G = 8) in the plain and LSE forms, bf16 q, an empty and a long lane;
+    the plain and LSE forms at head dim 128 run the tensor-core kernel and
+    count on launches_mma too.  Every count must be exactly 1: a lane's
+    splits and row groups merge inside the one launch.  Returns counter
+    name -> kernels a call."""
     from dnet_tpu_torch.core.kvcache import KVConfig, init_cache, layer_slices, write_kv
     from dnet_tpu_torch.kernels import _counters
-    from dnet_tpu_torch.ops.flash_decode import COUNTERS, WIDE_COUNTER, flash_decode_attend, flash_decode_lse
+    from dnet_tpu_torch.ops.flash_decode import (
+        COUNTERS,
+        MMA_COUNTER,
+        WIDE_COUNTER,
+        flash_decode_attend,
+        flash_decode_lse,
+    )
 
     g = torch.Generator(device="cuda").manual_seed(13)
     attr_to_name = {attr: name for name, (fn, attr) in _counters().items() if fn is flash_decode_attend}
@@ -382,7 +411,9 @@ def phase_decode_launches() -> dict:
              for (bits, rot, mla, lse), attr in COUNTERS.items()]
     forms += [((bits, False, False, lse), WIDE_COUNTER, (QW_H, QW_KVH, QW_D, QW_D))
               for bits, lse in ((0, False), (8, False), (4, False), (0, True))]
+    forms += [((0, False, False, lse), COUNTERS[0, False, False, lse], (32, QW_KVH, QW_D, QW_D)) for lse in (False, True)]
     for (bits, rot, mla, lse), attr, (h, kvh, dqk, dv) in forms:
+        mma = dqk == QW_D and not bits
         slots = OSS_W if rot else 2048
         kv = layer_slices(init_cache(KVConfig(1, 1, slots, kvh, dqk, v_head_dim=dv, quant_bits=bits),
                                      torch.device("cuda")), 0)
@@ -403,12 +434,16 @@ def phase_decode_launches() -> dict:
                 def call():
                     return flash_decode_attend(q, kv["k"], kv["v"], lengths, live, **scales, **extra)
             call()  # built, loaded and its scratch allocated
-            before = getattr(flash_decode_attend, attr)
+            before = getattr(flash_decode_attend, attr), getattr(flash_decode_attend, MMA_COUNTER)
             seen.append(kernels_per_call(call))
-            check(getattr(flash_decode_attend, attr) > before, f"{attr} did not count the traced call")
+            check(getattr(flash_decode_attend, attr) > before[0], f"{attr} did not count the traced call")
+            check((getattr(flash_decode_attend, MMA_COUNTER) > before[1]) == mma,
+                  f"{attr} at {(h, kvh, dqk)}: {MMA_COUNTER} counted {'no' if mma else 'a'} tensor-core call")
         name = attr_to_name[attr]
-        check(seen == [1, 1], f"{name} q{bits}: {seen} device kernels in one call, expected 1")
+        check(seen == [1, 1], f"{name} q{bits} at {(h, kvh, dqk)}: {seen} device kernels in one call, expected 1")
         counts[name] = 1
+        if mma:
+            counts[attr_to_name[MMA_COUNTER]] = 1
         del kv
     emit({"phase": "decode_launches", "kernels_per_call": counts})
     torch.cuda.empty_cache()
@@ -417,9 +452,12 @@ def phase_decode_launches() -> dict:
 
 def ptxas_line(report: list, prefill_report: list, paged_report: list) -> dict:
     """The decode, prefill and paged kernels' instantiations as ptxas built
-    them (registers, spills, stack) with each one's dynamic shared memory.
-    Fails if a bf16 (tensor-core) prefill or a bf16 paged instantiation
-    spills."""
+    them (registers, spills, stack) with each one's dynamic shared memory,
+    and the count of those that spill.  Fails if a bf16 (tensor-core)
+    prefill, a bf16 paged or a tensor-core decode / paged instantiation
+    spills or is missing, or if a CUDA-core decode instantiation with 8
+    rows a block at head dim 128 (which spilled, and which no dispatch
+    reaches) is built."""
     import re
 
     from dnet_tpu_torch.ops import paged_attention
@@ -442,6 +480,8 @@ def ptxas_line(report: list, prefill_report: list, paged_report: list) -> dict:
                 "kernels": rows}
 
     def decode_smem(name):
+        if "flash_decode_mma_kernel" in name:
+            return kernel_smem_bytes(torch.bfloat16, torch.bfloat16, 0, QW_D, QW_D, 16, 1)
         m = re.search(r"flash_decode_kernel<([^>]*)>", name)
         if not m:
             return None
@@ -457,12 +497,14 @@ def ptxas_line(report: list, prefill_report: list, paged_report: list) -> dict:
             return prefill_smem_bytes(torch.float32, *dims)
         return prefill_smem_bytes(torch.bfloat16, dims[0], dims[1], 64 * dims[2])
 
-    def paged_smem(name):  # paged_attention_kernel<T, KV, D, GP>
+    def paged_smem(name):  # paged_attention_kernel<T, KV, D, GP>, paged_attention_mma_kernel
+        if "paged_attention_mma_kernel" in name:
+            return paged_attention.kernel_smem_bytes(torch.bfloat16, torch.bfloat16, QW_D, 16, 1, rows=16)
         m = re.search(r"paged_attention_kernel<([^>]*)>", name)
         if not m:
             return None
         t, kv, d, gp = args(m)
-        return paged_attention.kernel_smem_bytes(types[t], types[kv], int(d), int(gp), 1)
+        return paged_attention.kernel_smem_bytes(types[t], types[kv], int(d), int(gp), 1, rows=int(gp))
 
     prefill = rows_of(prefill_report, prefill_smem)
     tc = [r for r in prefill["kernels"] if "flash_prefill_tc_kernel" in r["name"]]
@@ -472,8 +514,15 @@ def ptxas_line(report: list, prefill_report: list, paged_report: list) -> dict:
     bf16 = [r for r in paged["kernels"] if "paged_attention_kernel<__nv_bfloat16" in r["name"]]
     check(len(bf16) == 6 and not any(r["spill_store_bytes"] or r["spill_load_bytes"] for r in bf16),
           f"bf16 paged instantiations spill or are missing: {bf16}")
+    decode = rows_of(report, decode_smem)
+    mma = [r for r in decode["kernels"] + paged["kernels"] if "_mma_kernel" in r["name"]]
+    check(len(mma) == 2 and not any(r["spill_store_bytes"] or r["spill_load_bytes"] for r in mma),
+          f"tensor-core decode / paged instantiations spill or are missing: {mma}")
+    gone = [r["name"] for r in decode["kernels"]
+            if re.search(r"flash_decode_kernel<[^>]*\(int\)128, \(int\)128, \(int\)8,", r["name"])]
+    check(not gone, f"decode instantiations with 8 rows at (128, 128) are still built: {gone}")
     return {"phase": "ptxas", "source": "dnet_tpu_torch/csrc/flash_decode.cu", "flags": "-Xptxas -v",
-            **rows_of(report, decode_smem),
+            **decode, "tensor_core": mma,
             "prefill": {"source": "dnet_tpu_torch/csrc/flash_prefill.cu", **prefill},
             "paged": {"source": "dnet_tpu_torch/csrc/paged_attention.cu", **paged}}
 
@@ -557,9 +606,10 @@ def phase_paged_launches(main_positions: list) -> dict:
     """Device kernels per paged_attend call, traced with torch.profiler right
     after the build (as the decode forms'), in bf16 at the batch_serve mix
     and the ragged mix up to 4094, and at Qwen3-235B-A22B's G = 16 at the
-    batch_serve mix, at the plan's budget and at the cap of 16 blocks a
-    slot: each must be exactly 1 (the splits and row groups merge inside
-    the launch)."""
+    batch_serve mix (bf16: the tensor-core form, counted on launches_mma
+    too), at the plan's budget and at the cap of 16 blocks a slot: each
+    must be exactly 1 (the splits and row groups merge inside the
+    launch)."""
     from dnet_tpu_torch.ops.flash_decode import MAX_SPLITS
     from dnet_tpu_torch.ops.paged_attention import paged_attend
 
@@ -597,14 +647,15 @@ def phase_paged_launches(main_positions: list) -> dict:
             def call():
                 return paged_attend(q, kp, vp, tables, pos, kn, vn, max_live=max(main_positions))
             call()
-            before = paged_attend.launches_wide
+            before = paged_attend.launches_wide, paged_attend.launches_mma
             wide.append(kernels_per_call(call))
-            check(paged_attend.launches_wide > before, "paged_attend_wide did not count the traced call")
+            check(paged_attend.launches_wide > before[0] and paged_attend.launches_mma > before[1],
+                  "paged_attend_wide / paged_attend_mma did not count the traced call")
     check(wide == [1, 1], f"paged_attend_wide: {wide} device kernels a call, expected 1")
     emit({"phase": "paged_launches", "kernels_per_call": 1, "traced_calls": len(seen) + len(wide)})
     del kp, vp
     torch.cuda.empty_cache()
-    return {"paged_attend": 1, "paged_attend_wide": 1}
+    return {"paged_attend": 1, "paged_attend_wide": 1, "paged_attend_mma": 1}
 
 
 def phase_paged_kernels(main_positions: list) -> dict:
@@ -943,44 +994,51 @@ def phase_kernels(main_T: int, main_pos: int) -> dict:
 
 
 def phase_wide_group_decode() -> None:
-    """The decode kernel at head dim 128 where a block's query rows are a
-    choice: G = 8 (Llama-3-70B's and Qwen3-30B-A3B's grouping; H = 64 over
-    KVH = 8 here), where the GP = 8 instantiation spills (the ptxas line),
-    as one block of 8 rows a KV head and as two row groups of 4; and
-    G = 16 (Qwen3-235B-A22B's 64 / 4) as two row groups of 8 and as four
-    of 4.  One lane of 2,048 live slots in bf16 and f32, each layout held
-    to the plain version and timed beside it, SDPA and the bound.
-    `dispatch` is the layout the launcher picks (ops/flash_decode.py
-    `query_rows`), `faster` the one this run measured faster."""
+    """The decode kernel at head dim 128 where more than 4 query heads share
+    a KV head, in the layouts it can take: G = 7 (Qwen2.5-7B's 28 / 4),
+    G = 8 (Llama-3-70B's and Qwen3-30B-A3B's grouping; H = 64 over KVH = 8
+    here) and G = 16 (Qwen3-235B-A22B's 64 / 4).  bf16 as row groups of 16
+    rows on the tensor cores (the launcher's) and as row groups of 4 on the
+    CUDA cores (forced: PR 12's layout at G = 8 and 16); f32 as row groups
+    of 4, its only layout (the 8-row instantiation at head dim 128 is not
+    built).  One lane of 2,048 live slots, each layout held to the plain
+    version (TOL; MMA_TOL for the tensor-core form) and timed beside it,
+    SDPA and the bound.  `dispatch` is the layout the launcher picks,
+    `faster` the one this run measured faster."""
     from torch.nn.functional import scaled_dot_product_attention as sdpa
 
     from dnet_tpu_torch.ops import flash_decode as fd
 
-    h, d, live = 64, 128, 2048
-    launcher_rows = fd.query_rows
+    d, live = 128, 2048
+    takes_mma = fd.takes_mma
     g = torch.Generator(device="cuda").manual_seed(14)
     try:
-        for kvh in (8, 4):
+        for h, kvh in ((28, 4), (64, 8), (64, 4)):
             group = h // kvh
-            layouts = {f"{-(-group // rows)}x{rows}": rows for rows in (8, 4)}
-            dispatch = next(n for n, rows in layouts.items() if rows == launcher_rows(group, d))
             for dtype in (torch.float32, torch.bfloat16):
                 kc = torch.randn(LAYERS, 1, S, kvh, d, generator=g, device="cuda").to(dtype)
                 vc = torch.randn(LAYERS, 1, S, kvh, d, generator=g, device="cuda").to(dtype)
                 q = torch.randn(1, 1, h, d, generator=g, device="cuda").to(dtype)
                 lengths = fd.decode_lengths(1, live - 1, "cuda")
                 want = fd.flash_decode_plain(q.float(), kc[0].float(), vc[0].float(), lengths)
-                errs, times = {}, {}
-                for name, rows in layouts.items():
-                    fd.query_rows = lambda group, head_dim=64, rows=rows: rows
+                errs, times, tols = {}, {}, {}
+                for mma in ((True, False) if dtype == torch.bfloat16 else (False,)):
+                    fd.takes_mma = takes_mma if mma else (lambda *a, **k: False)
+                    _, rows, rg = fd.decode_layout(dtype, dtype, 0, d, d, group)
+                    name = f"{rg}x{rows}"
+                    before = fd.flash_decode_attend.launches_mma
                     out = fd.flash_decode_attend(q, kc[0], vc[0], lengths, live)
                     torch.cuda.synchronize()
+                    check(fd.flash_decode_attend.launches_mma == before + mma, f"{name}: launches_mma")
                     errs[name] = (out.float() - want).abs().max().item()
+                    tols[name] = fd.MMA_TOL[dtype] if mma else TOL[dtype]
                     check(out.shape == q.shape and bool(torch.isfinite(out).all()), "wide-group decode output")
-                    check(errs[name] <= TOL[dtype], f"decode G={group} D=128 {name} {dtype}: max err {errs[name]}")
+                    check(errs[name] <= tols[name], f"decode G={group} D=128 {name} {dtype}: max err {errs[name]}")
                     times[name] = device_time_ms(lambda l: fd.flash_decode_attend(q, kc[l], vc[l], lengths, live),
                                                  LAYERS)
-                fd.query_rows = launcher_rows
+                fd.takes_mma = takes_mma
+                _, rows, rg = fd.decode_layout(dtype, dtype, 0, d, d, group)
+                dispatch = f"{rg}x{rows}"
                 qt = q.transpose(1, 2)
                 size = torch.tensor([], dtype=dtype).element_size()
                 t_mem = size * (2 * h * d + 2 * live * kvh * d) / HBM_BYTES_PER_S
@@ -988,9 +1046,9 @@ def phase_wide_group_decode() -> None:
                 emit({
                     "phase": "wide_group_decode", "kernel": "flash_decode", "gpu": gpu_line(),
                     "dtype": str(dtype).split(".")[-1], "live": live, "S": S, "H": h, "KVH": kvh, "G": group, "D": d,
-                    "max_err": max(errs.values()), "max_err_by_layout": errs, "tol": TOL[dtype],
+                    "max_err": errs[dispatch], "max_err_by_layout": errs, "tol": tols[dispatch], "tol_by_layout": tols,
                     "kernel_ms": times[dispatch], "kernel_ms_by_layout": times, "dispatch": dispatch,
-                    "faster": min(times, key=times.get),
+                    "tensor_cores": rows == 16, "faster": min(times, key=times.get),
                     "plain_ms": device_time_ms(
                         lambda l: fd.flash_decode_plain(q, kc[l], vc[l], lengths, max_live=live), LAYERS, 5),
                     "library_ms": device_time_ms(lambda l: sdpa(qt, kc[l, :, :live].transpose(1, 2),
@@ -1000,7 +1058,7 @@ def phase_wide_group_decode() -> None:
                 })
                 del kc, vc
     finally:
-        fd.query_rows = launcher_rows
+        fd.takes_mma = takes_mma
     torch.cuda.empty_cache()
 
 
@@ -2193,6 +2251,7 @@ def phase_moe_step(phase: str, model: str, cfg, window, edge, n_prompt: int) -> 
 
     from dnet_tpu_torch.core.engine import LocalEngine
     from dnet_tpu_torch.core.types import DecodingParams
+    from dnet_tpu_torch.kernels import launch_counts, reset_launch_counts
 
     eng = LocalEngine.from_params(cfg, window, edge, max_seq=S, device="cuda")
     check(eng.model.moe_impl == "dense", f"moe_impl {eng.model.moe_impl}")
@@ -2209,10 +2268,12 @@ def phase_moe_step(phase: str, model: str, cfg, window, edge, n_prompt: int) -> 
         tok = int(res.token[0])  # waits for the step
         wall.append((time.perf_counter() - t0) * 1e3)
     steps = 5
+    reset_launch_counts()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         for _ in range(steps):
             tok = int(eng.decode_step("s", tok, d).token[0])
         torch.cuda.synchronize()
+    per_step = {k: v / steps for k, v in launch_counts().items() if v}
     kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
     device_ms = sum(e.self_device_time_total for e in kernels) / 1e3 / steps
     attn_ms = sum(e.self_device_time_total for e in kernels if "flash_" in e.name) / 1e3 / steps
@@ -2232,7 +2293,8 @@ def phase_moe_step(phase: str, model: str, cfg, window, edge, n_prompt: int) -> 
            "wall_ms": wall_ms, "host_issue_ms": statistics.median(issue), "device_busy_ms": device_ms,
            "device_idle_share": 1.0 - device_ms / wall_ms, "attention_kernels_ms": attn_ms,
            "matmul_kernels_ms": matmul_ms, "top_kernels_ms": {n[:80]: t for n, t in top},
-           "kernel_launches": len(kernels) // steps, "weight_bytes": weight_bytes,
+           "kernel_launches": len(kernels) // steps, "wrapper_launches_per_step": per_step,
+           "attention_share": attn_ms / device_ms, "weight_bytes": weight_bytes,
            "bound_ms": weight_bytes / HBM_BYTES_PER_S * 1e3, "kv_bytes": eng.kv_bytes,
            "peak_memory_bytes": torch.cuda.max_memory_allocated()}
     emit(row)
@@ -3098,10 +3160,12 @@ def phase_sp_step(cfg, window, edge, phase: str = "sp_step", model: str = "Llama
     layers = cfg.num_hidden_layers
     check(launches == {lse: 2 * layers * 20}, f"{phase} launches {launches}")
     steps = 5
+    reset_launch_counts()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         for _ in range(steps):
             tok = int(eng.decode_step("s", tok, d).token[0])
         torch.cuda.synchronize()
+    per_step = {k: v / steps for k, v in launch_counts().items() if v}
     kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
     device_ms = sum(e.self_device_time_total for e in kernels) / 1e3 / steps
     lse_ms = sum(e.self_device_time_total for e in kernels if "flash_decode" in e.name) / 1e3 / steps
@@ -3262,11 +3326,12 @@ def phase_wide_kernels(serve_pos: int) -> dict:
     POOL_BLOCKS blocks at the batch_serve mix; each against its plain
     version (TOL), one count on its wide counter a call, timed beside the
     plain version, SDPA (enable_gqa; for paged on a pre-gathered contiguous
-    copy) and its bound.  Returns the bf16 rows at the serve's position and
-    the batch mix."""
+    copy) and its bound; bf16 runs the tensor-core forms (MMA_TOL, counted
+    on launches_mma too).  Returns the bf16 rows at the serve's position and
+    the batch mix, also as the tensor-core forms' rows."""
     from torch.nn.functional import scaled_dot_product_attention as sdpa
 
-    from dnet_tpu_torch.ops.flash_decode import decode_lengths, flash_decode_attend, flash_decode_plain
+    from dnet_tpu_torch.ops.flash_decode import MMA_TOL, decode_lengths, flash_decode_attend, flash_decode_plain
     from dnet_tpu_torch.ops.paged_attention import paged_attend, paged_attend_plain
 
     g = torch.Generator(device="cuda").manual_seed(15)
@@ -3280,19 +3345,22 @@ def phase_wide_kernels(serve_pos: int) -> dict:
         for pos in (serve_pos, S - 1):
             q = torch.randn(1, 1, QW_H, QW_D, generator=g, device="cuda").to(dtype)
             lengths = decode_lengths(1, pos, "cuda")
-            before = flash_decode_attend.launches_wide
+            before = flash_decode_attend.launches_wide, flash_decode_attend.launches_mma
             out = flash_decode_attend(q, kc[0], vc[0], lengths, pos + 1)
             torch.cuda.synchronize()
-            check(flash_decode_attend.launches_wide == before + 1, "flash_decode_wide did not count the call")
+            check(flash_decode_attend.launches_wide == before[0] + 1, "flash_decode_wide did not count the call")
+            mma = dtype == torch.bfloat16  # bf16 over a bf16 cache at head dim 128: the tensor-core form
+            check(flash_decode_attend.launches_mma == before[1] + mma, "flash_decode_mma miscounted the call")
             want = flash_decode_plain(q.float(), kc[0].float(), vc[0].float(), lengths)
             err = (out.float() - want).abs().max().item()
+            tol = MMA_TOL[dtype] if mma else TOL[dtype]
             check(out.shape == q.shape and bool(torch.isfinite(out).all()), "wide decode output")
-            check(err <= TOL[dtype], f"wide decode pos={pos} {dtype}: max err {err}")
+            check(err <= tol, f"wide decode pos={pos} {dtype}: max err {err}")
             qt = q.transpose(1, 2)
             bound, by = decode_bound(pos, dtype, QW_H, QW_KVH, QW_D)
             row = {
                 "phase": "kernels", "kernel": "flash_decode_wide", "dtype": name, "pos": pos, "S": S,
-                "H": QW_H, "KVH": QW_KVH, "D": QW_D, "max_err": err, "tol": TOL[dtype],
+                "H": QW_H, "KVH": QW_KVH, "D": QW_D, "tensor_cores": mma, "max_err": err, "tol": tol,
                 "kernel_ms": device_time_ms(lambda l: flash_decode_attend(q, kc[l], vc[l], lengths, pos + 1), LAYERS),
                 "plain_ms": device_time_ms(lambda l: flash_decode_plain(q, kc[l], vc[l], lengths, max_live=pos + 1),
                                            LAYERS, 5),
@@ -3304,7 +3372,7 @@ def phase_wide_kernels(serve_pos: int) -> dict:
             row["times_library"] = row["kernel_ms"] / row["library_ms"]
             emit(row)
             if dtype == torch.bfloat16 and pos == serve_pos:
-                main["flash_decode_wide"] = row
+                main["flash_decode_wide"] = main["flash_decode_mma"] = row
         del kc, vc
         shape = (LAYERS, POOL_BLOCKS, BT, QW_KVH, QW_D)
         kp = torch.randn(shape, generator=g, device="cuda").to(dtype)
@@ -3315,14 +3383,17 @@ def phase_wide_kernels(serve_pos: int) -> dict:
         pos = pos_cpu.cuda()
         q = torch.randn(B, 1, QW_H, QW_D, generator=g, device="cuda").to(dtype)
         kn, vn = (torch.randn(B, QW_KVH, QW_D, generator=g, device="cuda").to(dtype) for _ in range(2))
-        before = paged_attend.launches_wide
+        before = paged_attend.launches_wide, paged_attend.launches_mma
         out = paged_attend(q, kp[0], vp[0], tables, pos, kn, vn, max_live=max_live)
         torch.cuda.synchronize()
-        check(paged_attend.launches_wide == before + 1, "paged_attend_wide did not count the call")
+        mma = dtype == torch.bfloat16
+        check(paged_attend.launches_wide == before[0] + 1, "paged_attend_wide did not count the call")
+        check(paged_attend.launches_mma == before[1] + mma, "paged_attend_mma miscounted the call")
         want = paged_attend_plain(q.float(), kp[0].float(), vp[0].float(), tables, pos_cpu, kn.float(), vn.float())
         err = (out.float() - want).abs().max().item()
+        tol = MMA_TOL[dtype] if mma else TOL[dtype]
         check(out.shape == q.shape and bool(torch.isfinite(out).all()), "wide paged output")
-        check(err <= TOL[dtype], f"wide paged {dtype}: max err {err}")
+        check(err <= tol, f"wide paged {dtype}: max err {err}")
         # the library yardstick over each layer's live rows gathered once,
         # outside the timing, with the new row at pos[b]
         keys = max_live + 1
@@ -3348,7 +3419,7 @@ def phase_wide_kernels(serve_pos: int) -> dict:
         row = {
             "phase": "kernels", "kernel": "paged_attend_wide", "dtype": name, "positions": positions,
             "sum_pos": sum(positions), "slots": B, "bt": BT, "pool_blocks": POOL_BLOCKS, "layers": LAYERS,
-            "H": QW_H, "KVH": QW_KVH, "D": QW_D, "max_err": err, "tol": TOL[dtype],
+            "H": QW_H, "KVH": QW_KVH, "D": QW_D, "tensor_cores": mma, "max_err": err, "tol": tol,
             "kernel_ms": device_time_ms(
                 lambda l: paged_attend(q, kp[l], vp[l], tables, pos, kn, vn, max_live=max_live), LAYERS),
             "plain_ms": device_time_ms(lambda l: paged_attend_plain(q, kp[l], vp[l], tables, pos_cpu, kn, vn),
@@ -3360,19 +3431,148 @@ def phase_wide_kernels(serve_pos: int) -> dict:
         row["times_library"] = row["kernel_ms"] / row["library_ms"]
         emit(row)
         if dtype == torch.bfloat16:
-            main["paged_attend_wide"] = row
+            main["paged_attend_wide"] = main["paged_attend_mma"] = row
         del kp, vp, kg, vg
         torch.cuda.empty_cache()
     return main
 
 
-def _qwen_small(family: str):
+MMA_GROUPS = [5, 7, 8, 12, 16, 24]
+MMA_POSITIONS = [0, 1, 63, 64, 65, 113, 2047, 4095]
+MMA_TIMED_POS = 2047
+
+
+def phase_mma_kernels() -> None:
+    """The decode and paged kernels' tensor-core forms (bf16 q over a bf16
+    cache at head dim 128) against their plain versions within MMA_TOL
+    (tests/test_torch_decode_mma.py states it from its emulation of their
+    numerics): decode, normalised and LSE, at G = 5, 7, 8, 12, 16 and 24
+    (row groups of 16: 24 takes two) over 4 KV heads of a 16-layer
+    4096-slot cache, one lane at each of MMA_POSITIONS and the eight lanes
+    in one launch, one count a call on launches_mma, timed with one lane at
+    MMA_TIMED_POS beside the plain version, SDPA (enable_gqa; for LSE a
+    normalised output, as the LSE rows) and the bound; paged at G = 7, 8
+    and 16 over the batch_serve mix (SDPA on a pre-gathered copy)."""
+    from torch.nn.functional import scaled_dot_product_attention as sdpa
+
+    from dnet_tpu_torch.ops.flash_decode import (
+        MMA_TOL,
+        flash_decode_attend,
+        flash_decode_lse,
+        flash_decode_lse_plain,
+        flash_decode_plain,
+    )
+    from dnet_tpu_torch.ops.paged_attention import paged_attend, paged_attend_plain
+
+    g = torch.Generator(device="cuda").manual_seed(16)
+    bf, kvh, d = torch.bfloat16, QW_KVH, QW_D
+    kc = torch.randn(LAYERS, 8, S, kvh, d, generator=g, device="cuda").to(bf)
+    vc = torch.randn(LAYERS, 8, S, kvh, d, generator=g, device="cuda").to(bf)
+    kf, vf = kc[0].float(), vc[0].float()
+    for G in MMA_GROUPS:
+        h = G * kvh
+        q = torch.randn(8, 1, h, d, generator=g, device="cuda").to(bf)
+        for lse in (False, True):
+            errs = []
+            for lanes in [[b] for b in range(8)] + [list(range(8))]:
+                lens = torch.tensor([MMA_POSITIONS[b] + 1 for b in lanes], dtype=torch.int32, device="cuda")
+                live = int(lens.max())
+                qs, ks, vs = q[lanes], kc[0, lanes], vc[0, lanes]
+                before = flash_decode_attend.launches_mma
+                out = (flash_decode_lse if lse else flash_decode_attend)(qs, ks, vs, lens, live)
+                torch.cuda.synchronize()
+                check(flash_decode_attend.launches_mma == before + 1, f"G={G}: launches_mma did not count")
+                if lse:
+                    want = flash_decode_lse_plain(qs.float(), kf[lanes], vf[lanes], lens)
+                    errs.append(max(lse_errors(out, want).values()))
+                else:
+                    want = flash_decode_plain(qs.float(), kf[lanes], vf[lanes], lens)
+                    check(bool(torch.isfinite(out).all()) and out.shape == qs.shape, "tensor-core decode output")
+                    errs.append((out.float() - want).abs().max().item())
+            tol = MMA_TOL[torch.float32 if lse else bf]
+            check(max(errs) <= tol, f"tensor-core decode G={G} lse={lse}: max err {max(errs)} > {tol}")
+            pos = MMA_TIMED_POS
+            lens = torch.full((1,), pos + 1, dtype=torch.int32, device="cuda")
+            q1 = q[:1]
+            qt = q1.transpose(1, 2)
+            fn = flash_decode_lse if lse else flash_decode_attend
+            plain = flash_decode_lse_plain if lse else flash_decode_plain
+            bound, by = decode_bound(pos, bf, h, kvh, d)
+            row = {
+                "phase": "kernels", "kernel": "flash_decode_mma", "form": "lse" if lse else "normalised",
+                "dtype": "bfloat16", "G": G, "H": h, "KVH": kvh, "D": d, "S": S, "positions": MMA_POSITIONS,
+                "lanes": [1, 8], "max_err": max(errs), "tol": tol, "timed_pos": pos,
+                "kernel_ms": device_time_ms(lambda l: fn(q1, kc[l, :1], vc[l, :1], lens, pos + 1), LAYERS),
+                "plain_ms": device_time_ms(lambda l: plain(q1, kc[l, :1], vc[l, :1], lens, max_live=pos + 1),
+                                           LAYERS, 5),
+                "library_ms": device_time_ms(lambda l: sdpa(qt, kc[l, :1, : pos + 1].transpose(1, 2),
+                                                            vc[l, :1, : pos + 1].transpose(1, 2), enable_gqa=True),
+                                             LAYERS),
+                "bound_ms": bound, "bound_by": by,
+            }
+            row["times_library"] = row["kernel_ms"] / row["library_ms"]
+            emit(row)
+    del kc, vc, kf, vf
+    torch.cuda.empty_cache()
+    positions = BATCH_POSITIONS
+    per_slot = POOL_BLOCKS // BATCH_SLOTS
+    shape = (LAYERS, POOL_BLOCKS, BT, kvh, d)
+    kp = torch.randn(shape, generator=g, device="cuda").to(bf)
+    vp = torch.randn(shape, generator=g, device="cuda").to(bf)
+    B, max_live = len(positions), max(positions)
+    tables = paged_tables(positions)
+    pos_cpu = torch.tensor(positions, dtype=torch.int32)
+    pos = pos_cpu.cuda()
+    keys = max_live + 1
+    j = torch.arange(keys, device="cuda")
+    rows = tables.long()[:, (j // BT).clamp(max=per_slot - 1)] * BT + j % BT
+    at_pos = j[None, :] == pos.long()[:, None]
+    mask = (j[None, :] <= pos.long()[:, None])[:, None, None, :]
+    for G in (7, 8, 16):
+        h = G * kvh
+        q = torch.randn(B, 1, h, d, generator=g, device="cuda").to(bf)
+        kn, vn = (torch.randn(B, kvh, d, generator=g, device="cuda").to(bf) for _ in range(2))
+        before = paged_attend.launches_mma
+        out = paged_attend(q, kp[0], vp[0], tables, pos, kn, vn, max_live=max_live)
+        torch.cuda.synchronize()
+        check(paged_attend.launches_mma == before + 1, f"paged G={G}: launches_mma did not count")
+        want = paged_attend_plain(q.float(), kp[0].float(), vp[0].float(), tables, pos_cpu, kn.float(), vn.float())
+        err = (out.float() - want).abs().max().item()
+        check(bool(torch.isfinite(out).all()) and err <= MMA_TOL[bf], f"tensor-core paged G={G}: max err {err}")
+
+        def contiguous(pool, new):
+            c = pool.reshape(LAYERS, POOL_BLOCKS * BT, kvh, d)[:, rows]
+            c = torch.where(at_pos[None, :, :, None, None], new[None, :, None], c)
+            return c.transpose(2, 3).contiguous()
+
+        kg, vg = contiguous(kp, kn), contiguous(vp, vn)
+        qt = q.transpose(1, 2)
+        bound, by = paged_bound(positions, bf, h, kvh, d)
+        row = {
+            "phase": "kernels", "kernel": "paged_attend_mma", "dtype": "bfloat16", "G": G, "H": h, "KVH": kvh,
+            "D": d, "positions": positions, "slots": B, "bt": BT, "max_err": err, "tol": MMA_TOL[bf],
+            "kernel_ms": device_time_ms(
+                lambda l: paged_attend(q, kp[l], vp[l], tables, pos, kn, vn, max_live=max_live), LAYERS),
+            "plain_ms": device_time_ms(lambda l: paged_attend_plain(q, kp[l], vp[l], tables, pos_cpu, kn, vn),
+                                       LAYERS, 5),
+            "library_ms": device_time_ms(lambda l: sdpa(qt, kg[l], vg[l], attn_mask=mask, enable_gqa=True), LAYERS),
+            "library_call": "scaled_dot_product_attention on a pre-gathered contiguous copy (the gather is not timed)",
+            "bound_ms": bound, "bound_by": by,
+        }
+        row["times_library"] = row["kernel_ms"] / row["library_ms"]
+        emit(row)
+        del kg, vg
+    del kp, vp
+    torch.cuda.empty_cache()
+
+
+def _qwen_small(family: str, **overrides):
     """A small f32 model of `family` at its published heads (head dim 128):
     qwen2 at Qwen2.5-7B's 28 / 4 (G = 7, qkv biases), qwen3 at Qwen3-4B's
     32 / 8 (q/k norms), mixtral at Mixtral-8x7B's 32 / 8 (8 experts top-2),
     qwen3_moe at Qwen3-235B-A22B's 64 / 4 (G = 16; 8 experts top-2, layer 0
     dense through mlp_only_layers); hidden 512, narrow FFNs, 2 layers (3
-    for qwen3_moe)."""
+    for qwen3_moe); `overrides` replace config entries (other heads)."""
     from dnet_tpu_torch.models import ModelConfig
     from dnet_tpu_torch.utils import random_init as ri
 
@@ -3384,10 +3584,67 @@ def _qwen_small(family: str):
         "qwen3_moe": dict(ri.QWEN3_235B_A22B_CONFIG, **dict(narrow, num_hidden_layers=3), moe_intermediate_size=128,
                           num_experts=8, num_experts_per_tok=2, mlp_only_layers=[0]),
     }[family]
-    cfg = ModelConfig.from_hf(cfg)
+    cfg = ModelConfig.from_hf(dict(cfg, **overrides))
     window, edge = ri.random_qwen_params(cfg, range(cfg.num_hidden_layers), torch.device("cpu"), torch.float32,
                                          seed=6)
     return cfg, window, edge
+
+
+# the bf16 parity's logits tolerance: on the CPU these models' bf16 engines
+# sit 0.012 (qwen3) and 0.027 (qwen3_moe) from their f32 engines over 24
+# teacher-forced steps (logits up to ~1.5); the card's bf16 products round
+# at other places than the CPU's
+BF16_LOGITS_TOL = 0.1
+
+
+def _qwen_bf16_parity(family: str, overrides: dict, model: str, n_tokens: int = 24) -> dict:
+    """`family` in bf16 on the card (the tensor-core decode form) against the
+    CPU (plain versions), same weights: each engine's own greedy stream
+    (their agreement and first divergence reported), exactly layers
+    tensor-core decode launches a step, then the card's stream fed to both
+    (teacher forcing) with the logits of the prompt and of every decode
+    step within BF16_LOGITS_TOL."""
+    from dnet_tpu_torch.core.engine import LocalEngine
+    from dnet_tpu_torch.core.types import DecodingParams
+    from dnet_tpu_torch.kernels import launch_counts, reset_launch_counts
+
+    cfg, window, edge = _qwen_small(family, **overrides)
+    layers, G = cfg.num_hidden_layers, cfg.num_attention_heads // cfg.num_key_value_heads
+    engines = {dev: LocalEngine.from_params(cfg, window, edge, max_seq=256, param_dtype="bfloat16", device=dev)
+               for dev in ("cuda", "cpu")}
+    prompt = [(17 * i) % 500 + 1 for i in range(40)]
+    streams, launches = {}, None
+    for dev, e in engines.items():
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        streams[dev] = [r.token_id for r in e.generate(prompt, DecodingParams(), max_tokens=n_tokens, nonce="g")]
+        torch.cuda.synchronize()
+        if dev == "cuda":
+            launches = {k: v for k, v in launch_counts().items() if v}
+    dec = "flash_decode_wide" if G > 8 else "flash_decode"
+    want = {"flash_prefill": layers, dec: layers * (n_tokens - 1), "flash_decode_mma": layers * (n_tokens - 1)}
+    check(launches == want, f"{family} bf16 parity launches {launches} != {want}")
+    agree = next((i for i, (a, b) in enumerate(zip(streams["cuda"], streams["cpu"])) if a != b), None)
+    errs = []
+    logits = {dev: e.prefill("t", prompt).float().cpu() for dev, e in engines.items()}
+    errs.append((logits["cuda"] - logits["cpu"]).abs().max().item())
+    for tok in streams["cuda"][:-1]:
+        for dev, e in engines.items():
+            sess = e.sessions["t"]
+            token = torch.full((1, 1), tok, dtype=torch.int64, device=e.device)
+            logits[dev] = e._forward(token, sess.kv, sess.pos, 0).float().cpu()
+            sess.pos += 1
+        check(bool(torch.isfinite(logits["cuda"]).all()), f"{family} bf16 logits")
+        errs.append((logits["cuda"] - logits["cpu"]).abs().max().item())
+    check(max(errs) <= BF16_LOGITS_TOL, f"{family} bf16 GPU vs CPU logits: {errs}")
+    row = {"phase": "qwen_parity", "family": family, "dtype": "bfloat16", "model_heads": model, "layers": layers,
+           "H": cfg.num_attention_heads, "KVH": cfg.num_key_value_heads, "D": cfg.head_dim, "G": G,
+           "prompt_tokens": len(prompt), "logits_max_err": max(errs), "logits_err_by_step": errs,
+           "tol": BF16_LOGITS_TOL, "greedy_tokens": n_tokens,
+           "greedy_agree": n_tokens if agree is None else agree, "first_divergence": agree, "launches": launches}
+    emit(row)
+    del engines
+    return launches
 
 
 def phase_qwen_parity() -> dict:
@@ -3462,6 +3719,12 @@ def phase_qwen_parity() -> dict:
           "logits_max_err": err, "tol": 2e-3, "greedy_tokens": len(streams["cuda"]), "launches": launches,
           "decode_steps": 15})
     del engines
+    # bf16 through the tensor-core decode form: Qwen3-235B-A22B's heads
+    # (G = 16) and Qwen3-30B-A3B's (32 / 4, G = 8)
+    for family, overrides, model in (("qwen3_moe", {}, "Qwen3-235B-A22B (64 / 4)"),
+                                     ("qwen3", {"num_key_value_heads": 4}, "Qwen3-30B-A3B (32 / 4)")):
+        for k, v in _qwen_bf16_parity(family, overrides, model).items():
+            total[k] = total.get(k, 0) + v
     return total
 
 
@@ -3485,6 +3748,10 @@ def phase_qwen3_moe(prompt_text: str, port: int) -> tuple:
         init_s = time.perf_counter() - t0
         step = dict(phase_moe_step("qwen3_moe_step", "Qwen3-30B-A3B (synthetic bf16 weights, seed 0)", cfg, window,
                                    edge, 300), init_s=init_s)
+        # G = 8 at head dim 128 in bf16: every layer's decode through the tensor-core form
+        layers = cfg.num_hidden_layers
+        check(step["wrapper_launches_per_step"] == {"flash_decode": layers, "flash_decode_mma": layers},
+              f"qwen3_moe step launches {step['wrapper_launches_per_step']}")
         del window, edge
         gc.collect()
         torch.cuda.empty_cache()
@@ -3524,7 +3791,8 @@ def phase_qwen3_moe_serve(model_dir: str, port: int, prompt_text: str, write_s: 
         check(name != "streamed" or r["content"] == results[0]["content"],
               "qwen3_moe streamed content differs from the non-streamed")
     decode_steps = sum(r["tokens"] - 1 for r in results)
-    want = {"flash_decode_wide": QW_SERVE_LAYERS * decode_steps, "flash_prefill": QW_SERVE_LAYERS * len(results)}
+    want = {"flash_decode_wide": QW_SERVE_LAYERS * decode_steps, "flash_decode_mma": QW_SERVE_LAYERS * decode_steps,
+            "flash_prefill": QW_SERVE_LAYERS * len(results)}
     check({k: v for k, v in launches.items() if v} == want, f"qwen3_moe serve launches {launches} != {want}")
     engine = health["engine"]
     check(engine["kv_bytes"] == QW_SERVE_KV_BYTES, f"qwen3_moe KV bytes {engine} != {QW_SERVE_KV_BYTES}")
@@ -3560,7 +3828,8 @@ def phase_qwen3_moe_batch_serve(model_dir: str, port: int) -> dict:
     engine = health["engine"]
     steps = engine["decode_steps"]
     chunks = sum(-(-n // PREFILL_CHUNK) for n in BATCH_PROMPT_TOKENS)
-    want = {"paged_attend_wide": QW_SERVE_LAYERS * steps, "flash_prefill": QW_SERVE_LAYERS * chunks}
+    want = {"paged_attend_wide": QW_SERVE_LAYERS * steps, "paged_attend_mma": QW_SERVE_LAYERS * steps,
+            "flash_prefill": QW_SERVE_LAYERS * chunks}
     check(steps > 0 and {k: v for k, v in launches.items() if v} == want,
           f"qwen3_moe batched launches {launches} != {want}")
     pool_bytes = QW_SERVE_LAYERS * engine["kv_pool_blocks"] * BT * QW_KVH * 2 * QW_D * 2
@@ -3649,6 +3918,7 @@ def main() -> int:
     # rows at the 235B serve's position and the batch mix, the qwen family
     # parity, Qwen3-30B-A3B's 48-layer step, the 2-layer 235B serves
     main_path.update(phase_wide_kernels(n_prompt + MAX_TOKENS - 2))
+    phase_mma_kernels()
     phase_qwen_parity()
     _, qw_served, qw_batched = phase_qwen3_moe(prompt_text, _free_port())
 
@@ -3664,7 +3934,8 @@ def main() -> int:
     # form over int8 codes, deepseek_v2's sp serve for the MLA-width form,
     # and the sp parity's q4 and MLA q8 / q4 passes for those forms (no
     # serve runs them), and the Qwen3-235B-A22B serves (single sequence,
-    # batched) for the G = 16 forms
+    # batched) for the G = 16 forms, which run bf16 through the tensor-core
+    # kernels (their rows the G = 16 rows')
     sources = {
         "flash_prefill": ("dnet_tpu_torch/csrc/flash_prefill.cu", "dnet_tpu/ops/flash_attention.py:38", served),
         "flash_decode": ("dnet_tpu_torch/csrc/flash_decode.cu", "dnet_tpu/ops/flash_decode.py:50", served),
@@ -3700,9 +3971,13 @@ def main() -> int:
                                     {"launches": sp_parity}),
         "flash_decode_wide": ("dnet_tpu_torch/csrc/flash_decode.cu",
                               "dnet_tpu/ops/flash_decode.py:50 (G > 8, any form)", qw_served),
+        "flash_decode_mma": ("dnet_tpu_torch/csrc/flash_decode.cu",
+                             "dnet_tpu/ops/flash_decode.py:50 (bf16, D = 128, G > 4)", qw_served),
         "paged_attend": ("dnet_tpu_torch/csrc/paged_attention.cu", "dnet_tpu/ops/paged_attention.py:92", batched),
         "paged_attend_wide": ("dnet_tpu_torch/csrc/paged_attention.cu", "dnet_tpu/ops/paged_attention.py:92 (G > 8)",
                               qw_batched),
+        "paged_attend_mma": ("dnet_tpu_torch/csrc/paged_attention.cu",
+                             "dnet_tpu/ops/paged_attention.py:92 (bf16, D = 128, G > 4)", qw_batched),
         "column_sq_norms": ("dnet_tpu_torch/csrc/column_ops.cu", "dnet_tpu/compression/ops.py:24",
                             {"launches": ring}),
         "gather_columns": ("dnet_tpu_torch/csrc/column_ops.cu", "dnet_tpu/compression/ops.py:81",

@@ -66,7 +66,7 @@
 // q tile), which also stops before dead cache slots; ragged T and S edges are
 // masked here instead of being refused by a tiling gate.
 
-#include "common.cuh"
+#include "mma.cuh"
 
 namespace {
 
@@ -74,7 +74,12 @@ using dnet::NEG_INF;
 using dnet::cp_async16;
 using dnet::cp_commit;
 using dnet::cp_wait;
-using bf16 = __nv_bfloat16;
+using dnet::bf16;
+using dnet::ex2;
+using dnet::ldsm_x4;
+using dnet::ldsm_x4_trans;
+using dnet::mma_bf16;
+using dnet::pack_bf16;
 
 constexpr float LOG2E = 1.4426950408889634f;
 
@@ -102,52 +107,9 @@ struct TcLayout {
   static_assert(DQK % 16 == 0 && DV % 16 == 0, "head dims are multiples of 16");
 };
 
-__device__ __forceinline__ float ex2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
-}
-
-__device__ __forceinline__ unsigned smem_addr(const void* p) {
-  return static_cast<unsigned>(__cvta_generic_to_shared(p));
-}
-
-// four 8x8 b16 matrices; lanes 8i .. 8i + 7 give matrix i's row addresses
-__device__ __forceinline__ void ldsm_x4(const bf16* p, unsigned& r0, unsigned& r1, unsigned& r2,
-                                        unsigned& r3) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r0), "=r"(r1), "=r"(r2), "=r"(r3)
-               : "r"(smem_addr(p)));
-}
-
-__device__ __forceinline__ void ldsm_x4_trans(const bf16* p, unsigned& r0, unsigned& r1,
-                                              unsigned& r2, unsigned& r3) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r0), "=r"(r1), "=r"(r2), "=r"(r3)
-               : "r"(smem_addr(p)));
-}
-
-// d += a (16x16, row-major) * b (16x8, column-major), bf16 in, f32 sums
-__device__ __forceinline__ void mma_bf16(float* d, const unsigned* a, unsigned b0, unsigned b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// two f32 -> one register of two bf16 (lo in the low half: the lower column)
-__device__ __forceinline__ unsigned pack_bf16(float lo, float hi) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const unsigned*>(&v);
-}
-
-// Fragment layouts (PTX ISA, mma.m16n8k16): lane = 4 * grp + quad.  A (16x16)
-// a0: row grp, cols 2quad..+1; a1: row grp+8; a2: row grp, cols 8+2quad..;
-// a3: row grp+8, cols 8+2quad...  B (16x8): b0: rows 2quad..+1, col grp;
-// b1: rows 8+2quad...  C (16x8): c0, c1: row grp, cols 2quad..+1; c2, c3: row
-// grp+8.  So the C fragments of two neighbouring 8-key score tiles are,
-// packed to bf16, the A fragment of P over those 16 keys.
+// (mma.cuh notes the fragment layouts: the C fragments of two
+// neighbouring 8-key score tiles are, packed to bf16, the A fragment of P
+// over those 16 keys.)
 template <int DQK, int DV, int MA>
 __global__ void __launch_bounds__(TC_THREADS, 2)
 flash_prefill_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,

@@ -56,17 +56,36 @@
 //     query row's score, so the online softmax runs once per (key, row); at
 //     G = 4 (Llama-3.2-1B's 32 / 8 heads) every lane scores and
 //     accumulates.  Scores in log2 units (q carries log2(e)), P and PV in
-//     f32 FMAs on the CUDA cores.
+//     f32 FMAs on the CUDA cores.  These CUDA-core forms use no mma.sync:
+//     at G <= 4 a 16-row m tile would be at most a quarter used, and an f32
+//     q keeps f32 FMAs (at G > 4 and D = 128 its 8-row blocks of 16 lanes a
+//     key ran faster than row groups of 4 in a probe on the card, so they
+//     stay).
+//   - The tensor-core form (`paged_attention_mma_kernel`): a bf16 q over a
+//     bf16 pool at D = 128 with G >= 5 (every G of the qwen families' wide
+//     groups: Qwen3-235B-A22B's 16, Qwen3-30B-A3B's 8, Qwen2.5-7B's 7)
+//     holds 16 query rows a block, row groups of 16 past that.  The
+//     page-table staging, the per-row copies from each slot's own blocks
+//     (rows past pos zero-filled without a read), the on-device split plan
+//     and the new row folded once in the merge stay as above; the rows land
+//     in the padded ring of csrc/mma.cuh and the decode kernel's tensor-core
+//     tile fold (`dnet::dmma::fold_tile`, one device function for both
+//     kernels) folds them, with its numerics (csrc/flash_decode.cu): exact
+//     bf16 products summed in f32, P as hi + lo.  The new row's score is
+//     q . k_new on the CUDA cores, products of bf16 values summed in f32
+//     and scaled after, as the tiles' scores.  155,072 bytes of shared
+//     memory: one block an SM, which the host's plan counts.
 //   - The new row is one more state, folded once in the merge: every block
 //     computes its score while its first copies are in flight, and the
 //     merging block weighs v_new with it beside the splits' states.  It
 //     always exists, so pos == 0 (nothing live, also every inactive lane)
 //     gives exactly v_new and the denominator is never zero.
 //   - Any group size through the same instantiations, as in
-//     flash_decode.cu: a block holds GP = min(8, G rounded up to 1, 4 or 8)
-//     query rows, and a group of G > 8 splits over RG = ceil(G / 8) row
-//     groups, heads kvh * G + 8r .. min(G, 8r + 8) - 1 (the last group's rows
-//     past G are masked and never written).  Each (KV head, row group) has
+//     flash_decode.cu: a block holds the launcher's rows, GP = min(8, G
+//     rounded up to 1, 4 or 8) on the CUDA cores or 16 on the tensor cores,
+//     and a wider group splits over RG = ceil(G / GP) row groups, heads
+//     kvh * G + r GP .. min(G, (r + 1) GP) - 1 (the last group's rows past
+//     G are masked and never written).  Each (KV head, row group) has
 //     its nx blocks, its own split plan, states and tickets; its blocks are
 //     adjacent to the other row groups' of the same split (the row group is
 //     the fastest part of the grid's x), so the second group's tiles come
@@ -76,7 +95,7 @@
 
 #include <atomic>
 
-#include "common.cuh"
+#include "mma.cuh"
 
 namespace {
 
@@ -87,7 +106,6 @@ using dnet::cp_wait;
 
 constexpr int NTHREADS = 256;      // 8 warps
 constexpr int NWARPS = NTHREADS / 32;
-constexpr int GMAX = 8;            // query heads a block holds; wider groups split over row groups
 constexpr int MAX_SPLIT = 16;      // blocks sharing one (slot, KV head)
 constexpr int RING_BUDGET = 81920; // shared-memory bytes the ring aims at
 constexpr int TBL_MAX = 512;       // page-table entries a block stages
@@ -162,7 +180,7 @@ struct Args {
   float* part;   // [KVH, rg, nx, STATE] f32: the blocks' states (nx > B)
   int* tickets;  // [B * KVH * rg] int32, 0 between calls: blocks done per (slot, KV head, row group)
   int B, H, KVH, nb, bt, nx;
-  int rg;        // row groups a KV head: ceil(G / GMAX)
+  int rows, rg;  // query rows a block holds (GP) and row groups a KV head (ceil(G / GP))
   float scale;
   cudaStream_t stream;
 };
@@ -594,19 +612,167 @@ __global__ void __launch_bounds__(NTHREADS, Cfg<KV, D, GP>::MINB) paged_attentio
   if (n_split > 1 && tid == 0) a.tickets[pair] = 0;  // ready for the next call on this stream
 }
 
+// The tensor-core form (rows 16): bf16 q over a bf16 pool at D = 128.
+// Grid (nx * rg, KVH) as above, rg = ceil(G / 16); the pool's rows land in
+// the padded ring and the decode form's tile fold (mma.cuh) folds them.
+__global__ void __launch_bounds__(dnet::dmma::THREADS) paged_attention_mma_kernel(const Args a) {
+  namespace M = dnet::dmma;
+  using dnet::bf16;
+  constexpr int D = M::D, BK = M::BK, RB = D * 2;
+  extern __shared__ __align__(16) uint8_t smem[];
+  bf16* Qs = reinterpret_cast<bf16*>(smem + M::RING);
+  float* Bs = reinterpret_cast<float*>(smem + M::RING + M::Q_BYTES);
+  float* Ns = Bs + M::STATE;  // scores [ROWS], k_new [D], v_new [D]
+  int* Ts = reinterpret_cast<int*>(Ns + M::ROWS + 2 * D);
+
+  const int x = blockIdx.x / a.rg;
+  const int rgi = blockIdx.x - x * a.rg;
+  const int kvh = blockIdx.y;
+  const int H = a.H, KVH = a.KVH, bt = a.bt;
+  const int G = H / KVH;
+  const int h0 = kvh * G + rgi * M::ROWS;
+  const int GB = min(M::ROWS, G - rgi * M::ROWS);
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+
+  __shared__ int plan[4];
+  if (warp == 0) split_plan<BK>(a, x, lane, plan);
+  __syncthreads();
+  const int b = plan[0];
+  if (b < 0) return;
+  const int split = plan[1], n_split = plan[2], first = plan[3];
+
+  // q's 16 rows as 16-byte chunks (zero past the group) and the new rows
+  constexpr int QCH = M::ROWS * D / 8;
+  const bf16* qb = static_cast<const bf16*>(a.q) + ((long)b * H + h0) * D;
+  uint4 qv[QCH / M::THREADS];
+#pragma unroll
+  for (int r = 0; r < QCH / M::THREADS; ++r) {
+    const int i = tid + r * M::THREADS;
+    qv[r] = i / (D / 8) < GB ? *reinterpret_cast<const uint4*>(qb + i * 8) : make_uint4(0, 0, 0, 0);
+  }
+  const long nrow = ((long)b * KVH + kvh) * D;
+  const float kn = tid < D ? __bfloat162float(static_cast<const bf16*>(a.k_new)[nrow + tid]) : 0.f;
+  const float vn = tid < D ? __bfloat162float(static_cast<const bf16*>(a.v_new)[nrow + tid]) : 0.f;
+
+  const int* tbl = a.tables + (long)b * a.nb;
+  const int live = min(a.pos[b], a.nb * bt);
+  const int n_tiles = (live + BK - 1) / BK;
+  const int per = (n_tiles + n_split - 1) / n_split;
+  const int t_begin = min(split * per, n_tiles);
+  const int t_end = min(t_begin + per, n_tiles);
+  const bool pow2 = (bt & (bt - 1)) == 0;
+  const int bsh = __ffs(bt) - 1;
+  const int key0 = t_begin * BK;
+  const int key1 = min(t_end * BK, live);
+  const int e0 = pow2 ? key0 >> bsh : key0 / bt;
+  const int e1 = key1 > key0 ? (pow2 ? (key1 - 1) >> bsh : (key1 - 1) / bt) + 1 : e0;
+  for (int e = e0 + tid; e < min(e1, e0 + TBL_MAX); e += M::THREADS) Ts[e - e0] = tbl[e];
+#pragma unroll
+  for (int r = 0; r < QCH / M::THREADS; ++r) {
+    const int i = tid + r * M::THREADS;
+    *reinterpret_cast<uint4*>(Qs + (i / (D / 8)) * M::LD + (i % (D / 8)) * 8) = qv[r];
+  }
+  if (tid < D) {
+    Ns[M::ROWS + tid] = kn;
+    Ns[M::ROWS + D + tid] = vn;
+  }
+  __syncthreads();  // the table slice, q and the new row are staged
+
+  const uint8_t* kpool = static_cast<const uint8_t*>(a.k_pool);
+  const uint8_t* vpool = static_cast<const uint8_t*>(a.v_pool);
+  // copy tile `tile` into ring stage `stage`, rows padded, each row through
+  // its own table entry; rows past the live length are zero-filled without
+  // a read
+  auto copy_tile = [&](int tile, int stage) {
+    uint8_t* st = smem + stage * M::STAGE_BYTES;
+    const int k0 = tile * BK;
+    const int rows = min(BK, live - k0);
+    for (int i = tid; i < BK * (RB / 16); i += M::THREADS) {
+      const int r = i / (RB / 16), c = i - r * (RB / 16);
+      const bool ok = r < rows;
+      long off = 0;
+      if (ok) {
+        const int key = k0 + r;
+        const int e = pow2 ? key >> bsh : key / bt;
+        const long phys = e - e0 < TBL_MAX ? Ts[e - e0] : tbl[e];
+        const int slot = pow2 ? key & (bt - 1) : key - e * bt;
+        off = ((phys * bt + slot) * KVH + kvh) * RB + c * 16;
+      }
+      cp_async16(st + r * M::LD * 2 + c * 16, kpool + off, ok);
+      cp_async16(st + M::TILE_BYTES + r * M::LD * 2 + c * 16, vpool + off, ok);
+    }
+  };
+#pragma unroll
+  for (int s = 0; s < M::NSTAGE - 1; ++s) {
+    if (t_begin + s < t_end) copy_tile(t_begin + s, s);
+    cp_commit();
+  }
+
+  // the new row's score per query row (log2 units), while the copies fly:
+  // exact bf16 products summed in f32, scaled after, as the tiles' scores
+  const float sl2 = a.scale * LOG2E;
+  for (int g = warp; g < GB; g += M::WARPS) {
+    float sg = 0.f;
+    for (int d = lane; d < D; d += 32) sg = fmaf(__bfloat162float(Qs[g * M::LD + d]), Ns[M::ROWS + d], sg);
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) sg += __shfl_xor_sync(0xffffffffu, sg, off);
+    if (lane == 0) Ns[g] = sg * sl2;
+  }
+
+  M::Warp w;
+  M::init(w, Qs, lane);
+  for (int t = t_begin; t < t_end; ++t) {
+    const int i = t - t_begin;
+    cp_wait<M::NSTAGE - 2>();  // this thread's copies of tile t have landed
+    __syncthreads();           // everyone's have, and stage (i - 1) % NSTAGE is free
+    if (t + M::NSTAGE - 1 < t_end) copy_tile(t + M::NSTAGE - 1, (i + M::NSTAGE - 1) % M::NSTAGE);
+    cp_commit();
+    const int n_valid = live - t * BK;
+    if ((warp % M::KGROUPS) * 16 >= n_valid) continue;  // the warp's keys are all past the live rows
+    const bf16* Kt = reinterpret_cast<const bf16*>(smem + (i % M::NSTAGE) * M::STAGE_BYTES);
+    M::fold_tile(w, Kt, Kt + M::TILE_BYTES / 2, warp, lane, n_valid, sl2);
+  }
+  cp_wait<0>();
+  __syncthreads();  // the ring is free: it takes the warps' states
+  M::block_state(w, reinterpret_cast<float*>(smem), Bs, warp, lane);
+
+  // the merge, in float4 chunks: each row weighed once (the new
+  // row as one more state), then a thread's chunks with their loads in
+  // flight
+  const int pair = (b * KVH + kvh) * a.rg + rgi;
+  const long grp = (long)kvh * a.rg + rgi;  // the (KV head, row group)'s states in part
+  const float* parts = a.part + (grp * a.nx + first) * M::STATE;
+  if (n_split > 1 && !M::publish(Bs, a.part + (grp * a.nx + x) * M::STATE, a.tickets + pair, n_split)) return;
+  __shared__ float Wr[M::ROWS][MAX_SPLIT];
+  __shared__ float Mr[M::ROWS], Lr[M::ROWS], Xr[M::ROWS];
+  M::merge_rows<MAX_SPLIT>(Bs, parts, n_split, GB, Ns, Wr, Mr, Lr, Xr);
+  for (int e = tid; e < GB * (D / 4); e += M::THREADS) {
+    const int g = e / (D / 4), d = (e % (D / 4)) * 4;
+    const float* vn4 = Ns + M::ROWS + D + d;
+    const float4 xs = M::merge_acc<MAX_SPLIT>(
+        Bs, parts, n_split, Wr, g, d, make_float4(Xr[g] * vn4[0], Xr[g] * vn4[1], Xr[g] * vn4[2], Xr[g] * vn4[3]));
+    const float inv = 1.f / Lr[g];
+    const __nv_bfloat162 lo = __floats2bfloat162_rn(xs.x * inv, xs.y * inv);
+    const __nv_bfloat162 hi = __floats2bfloat162_rn(xs.z * inv, xs.w * inv);
+    uint2 packed;
+    packed.x = *reinterpret_cast<const unsigned*>(&lo);
+    packed.y = *reinterpret_cast<const unsigned*>(&hi);
+    *reinterpret_cast<uint2*>(static_cast<bf16*>(a.o) + ((long)b * H + h0 + g) * D + d) = packed;
+  }
+  if (n_split > 1 && tid == 0) a.tickets[pair] = 0;  // ready for the next call on this stream
+}
+
 // what launch_kernel does: launch, or only return the instantiation's
 // dynamic shared memory or its blocks an SM
 constexpr int LAUNCH = 0, QUERY_SMEM = 1, QUERY_BLOCKS = 2;
 
-// Launch one instantiation, or answer a query about it.  Its attributes are
-// set once per device.
-template <typename T, typename KV, int D, int GP>
-int launch_kernel(const Args& a, int query) {
-  constexpr int smem = Cfg<KV, D, GP>::BYTES;
-  if (query == QUERY_SMEM) return smem;
-  if (query == QUERY_BLOCKS) return Cfg<KV, D, GP>::MINB;
-  auto kernel = paged_attention_kernel<T, KV, D, GP>;
-  static std::atomic<unsigned long long> ready{0};  // a bit per device
+// Launch `kernel` with `smem` bytes of dynamic shared memory over the
+// call's grid (nx * rg, KVH); its attribute is set once per device
+// (`ready`: the caller's, a bit per device).
+template <typename Kernel>
+int launch_grid(Kernel kernel, std::atomic<unsigned long long>& ready, const Args& a, int smem, int threads) {
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return (int)err;
@@ -616,17 +782,44 @@ int launch_kernel(const Args& a, int query) {
     if (err != cudaSuccess) return (int)err;
     ready.fetch_or(bit, std::memory_order_release);
   }
-  kernel<<<dim3(a.nx * a.rg, a.KVH), NTHREADS, smem, a.stream>>>(a);
+  kernel<<<dim3(a.nx * a.rg, a.KVH), threads, smem, a.stream>>>(a);
   return (int)cudaGetLastError();
 }
 
-// The query rows a block holds: GP >= min(G, 8), 1, 4 or 8.
+// Launch one CUDA-core instantiation, or answer a query about it.
+template <typename T, typename KV, int D, int GP>
+int launch_kernel(const Args& a, int query) {
+  constexpr int smem = Cfg<KV, D, GP>::BYTES;
+  if (query == QUERY_SMEM) return smem;
+  if (query == QUERY_BLOCKS) return Cfg<KV, D, GP>::MINB;
+  static std::atomic<unsigned long long> ready{0};
+  return launch_grid(paged_attention_kernel<T, KV, D, GP>, ready, a, smem, NTHREADS);
+}
+
+// The tensor-core form (rows 16: bf16 q and pool at D = 128), or an
+// answer about it (one block an SM); -1 for any other call.
+template <typename T, typename KV, int D>
+int launch_mma(const Args& a, int query) {
+  if constexpr (sizeof(T) == 2 && sizeof(KV) == 2 && D == dnet::dmma::D) {
+    namespace M = dnet::dmma;
+    constexpr int smem = M::RING + M::Q_BYTES + (M::STATE + M::ROWS + 2 * D + TBL_MAX) * 4;
+    if (query == QUERY_SMEM) return smem;
+    if (query == QUERY_BLOCKS) return 1;
+    static std::atomic<unsigned long long> ready{0};
+    return launch_grid(paged_attention_mma_kernel, ready, a, smem, M::THREADS);
+  }
+  return -1;
+}
+
+// The query rows a block holds: the launcher's rows, 1, 4 or 8 on the CUDA
+// cores, 16 on the tensor cores.
 template <typename T, typename KV, int D>
 int launch_group(const Args& a, int query) {
-  const int G = a.H / a.KVH;
-  if (G <= 1) return launch_kernel<T, KV, D, 1>(a, query);
-  if (G <= 4) return launch_kernel<T, KV, D, 4>(a, query);
-  return launch_kernel<T, KV, D, 8>(a, query);
+  if (a.rows == 1) return launch_kernel<T, KV, D, 1>(a, query);
+  if (a.rows == 4) return launch_kernel<T, KV, D, 4>(a, query);
+  if (a.rows == 8) return launch_kernel<T, KV, D, 8>(a, query);
+  if (a.rows == dnet::dmma::ROWS) return launch_mma<T, KV, D>(a, query);
+  return -1;
 }
 
 // The pool's dtype for one query dtype and head dim: q's own, or bf16 under
@@ -640,8 +833,17 @@ int launch_pool(int kv_dtype, const Args& a, int query) {
   return -1;
 }
 
+// The row groups a KV head's G = H / KVH query heads split into, `rows`
+// (1, 4, 8 or 16) a block; 0 for a grouping or rows this kernel does not
+// take.
+int row_groups(int H, int KVH, int rows) {
+  if (H <= 0 || KVH <= 0 || H % KVH != 0 || (rows != 1 && rows != 4 && rows != 8 && rows != dnet::dmma::ROWS))
+    return 0;
+  return (H / KVH + rows - 1) / rows;
+}
+
 int launch_dtype(int dtype, int kv_dtype, int head_dim, const Args& a, int query) {
-  if (a.H <= 0 || a.KVH <= 0 || a.H % a.KVH != 0 || a.rg != (a.H / a.KVH + GMAX - 1) / GMAX) return -1;
+  if (a.H <= 0 || a.KVH <= 0 || a.H % a.KVH != 0 || a.rg != row_groups(a.H, a.KVH, a.rows)) return -1;
   if (query == LAUNCH && (a.bt < 1 || a.nb < 1 || a.B < 1 || a.nx < a.B ||
                  a.nx > MAX_SPLIT * a.B || a.nx > 65535 || (a.nx > a.B && (!a.part || !a.tickets))))
     return -1;
@@ -659,32 +861,37 @@ int launch_dtype(int dtype, int kv_dtype, int head_dim, const Args& a, int query
 
 // C interface (bound with ctypes in dnet_tpu_torch/ops/paged_attention.py).
 // kv_dtype is the pools' dtype code (q's, or bf16 under an f32 q).  B slots;
-// each KV head's G = H / KVH query heads take RG = ceil(G / 8) row groups;
-// nx (B..16 B) blocks per (KV head, row group), over which each slot's live
-// tiles split (`split_plan`); above B they need part, f32 scratch of
-// KVH * RG * nx * (2 + head_dim) * GP floats (GP = 1, 4 or 8, the first of
-// them >= min(H / KVH, 8)), and tickets, B * KVH * RG int32 that are 0
-// before the call and that it leaves 0 (one buffer a stream).  One kernel launch; returns its
-// cudaError_t (0 = launched); -1 for a dtype, head dim, grouping, block size
-// or block count this kernel was not built for.
+// rows (1, 4 or 8 on the CUDA cores; 16, the tensor-core form: bf16 q and
+// pool at head dim 128) query heads a block, so each KV head's G = H / KVH
+// query heads take RG = ceil(G / rows) row groups; nx (B..16 B) blocks per
+// (KV head, row group), over which each slot's live tiles split
+// (`split_plan`); above B they need part, f32 scratch of
+// KVH * RG * nx * (2 + head_dim) * rows floats, and tickets, B * KVH * RG
+// int32 that are 0 before the call and that it leaves 0 (one buffer a
+// stream).  One kernel launch; returns its cudaError_t (0 = launched); -1
+// for a dtype, head dim, grouping, rows, block size or block count this
+// kernel was not built for.
 extern "C" int dnet_paged_attention(int dtype, int kv_dtype, int head_dim, const void* q,
                                     const void* k_pool, const void* v_pool, const int* tables,
                                     const int* pos, const void* k_new, const void* v_new, void* o,
                                     float* part, int* tickets, int B, int H, int KVH, int nb, int bt,
-                                    int nx, float scale, void* stream) {
-  if (H <= 0 || KVH <= 0) return -1;
+                                    int nx, int rows, float scale, void* stream) {
+  const int rg = row_groups(H, KVH, rows);
+  if (!rg) return -1;
   const Args a{q, k_pool, v_pool, tables, pos, k_new, v_new, o, part, tickets, B, H, KVH, nb, bt,
-               nx, (H / KVH + GMAX - 1) / GMAX, scale, static_cast<cudaStream_t>(stream)};
+               nx, rows, rg, scale, static_cast<cudaStream_t>(stream)};
   return launch_dtype(dtype, kv_dtype, head_dim, a, LAUNCH);
 }
 
 // The dynamic shared memory (bytes, what = 1) or the blocks an SM (what = 2)
-// of the instantiation a call with these dtypes, head dim and grouping (H
-// query over KVH KV heads) launches; -1 for one this kernel was not built
-// for.
-extern "C" int dnet_paged_attention_query(int what, int dtype, int kv_dtype, int head_dim, int H, int KVH) {
-  if ((what != QUERY_SMEM && what != QUERY_BLOCKS) || H <= 0 || KVH <= 0) return -1;
+// of the instantiation a call with these dtypes, head dim, grouping (H
+// query over KVH KV heads) and rows a block launches; -1 for one this
+// kernel was not built for.
+extern "C" int dnet_paged_attention_query(int what, int dtype, int kv_dtype, int head_dim, int H, int KVH,
+                                          int rows) {
+  const int rg = row_groups(H, KVH, rows);
+  if ((what != QUERY_SMEM && what != QUERY_BLOCKS) || !rg) return -1;
   const Args a{nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr,
-               1, H, KVH, 1, 1, 1, (H / KVH + GMAX - 1) / GMAX, 1.f, nullptr};
+               1, H, KVH, 1, 1, 1, rows, rg, 1.f, nullptr};
   return launch_dtype(dtype, kv_dtype, head_dim, a, what);
 }

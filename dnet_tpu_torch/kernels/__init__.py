@@ -13,7 +13,9 @@ def _counters() -> dict:
     (flash_decode_lse, one sp rank's partials) counts on the decode
     wrapper too, per cache form and width as the plain form.  Both
     attention wrappers count a call with more than 8 query heads a KV head
-    (row groups of blocks) on its own wide counter, whatever its form."""
+    (row groups of blocks) on its own wide counter, whatever its form, and
+    a call through the tensor-core form (bf16 at head dim 128, more than 4
+    query heads a KV head) once more on its own `_mma` counter."""
     from dnet_tpu_torch.compression.ops import column_sq_norms, dequant_scatter_columns, gather_columns
     from dnet_tpu_torch.ops.flash_attention import flash_prefill
     from dnet_tpu_torch.ops.flash_decode import flash_decode_attend
@@ -38,8 +40,10 @@ def _counters() -> dict:
         "flash_decode_lse_mla_q8": (flash_decode_attend, "launches_lse_mla_q8"),
         "flash_decode_lse_mla_q4": (flash_decode_attend, "launches_lse_mla_q4"),
         "flash_decode_wide": (flash_decode_attend, "launches_wide"),
+        "flash_decode_mma": (flash_decode_attend, "launches_mma"),
         "paged_attend": (paged_attend, "launches"),
         "paged_attend_wide": (paged_attend, "launches_wide"),
+        "paged_attend_mma": (paged_attend, "launches_mma"),
         "column_sq_norms": (column_sq_norms, "launches"),
         "gather_columns": (gather_columns, "launches"),
         "dequant_scatter_columns": (dequant_scatter_columns, "launches"),

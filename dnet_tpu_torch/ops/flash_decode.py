@@ -22,8 +22,13 @@ group size G = H / KVH runs: a block holds `query_rows` of a group's query
 heads (1, 4 or 8), and a larger group splits over ceil(G / rows) row groups
 of blocks in the same launch (G = 16: Qwen3-235B-A22B's 64 / 4 heads);
 every call with G > 8 counts under its own counter,
-`launches_wide`, whatever its form.  The source's header says what bounds
-it on the card.
+`launches_wide`, whatever its form.  A bf16 q over a bf16 cache at head
+dim 128 with G >= 5 takes the kernel's tensor-core form instead
+(`takes_mma`: 16 query rows a block, mma.sync scores and P V, P as two
+bf16 terms), counted once more on `launches_mma`; `decode_layout` gives
+each call's form, rows and row groups, and a CUDA tensor launches exactly
+that form or raises.  The source's header says what bounds it on the
+card.
 
 `rotating=True` is gpt_oss's sliding-window ring buffer: the cache holds
 W slots written before the call (core/kvcache.py `write_kv_rotating`),
@@ -59,7 +64,9 @@ NEG_INF = -1e30
 BK = 64  # keys per tile, in the kernel and in its plain version
 # (q/k head dim, v head dim) pairs the kernel is built for
 HEAD_DIMS = frozenset({(64, 64), (128, 128), (192, 128)})
-MAX_ROWS = 8  # query heads per KV head a kernel block holds; larger groups split over blocks
+# query heads per KV head a CUDA-core block holds (larger groups split over
+# blocks), and the group past which a call counts as wide (WIDE_COUNTER)
+MAX_ROWS = 8
 # the decode (and paged) kernel's blocks sharing one (lane, KV head), each
 # with some depth, and its blocks a call: one wave, a block an SM of a
 # 132-SM card
@@ -99,21 +106,30 @@ def decode_plan(max_live: int, n_blocks_per_split: int) -> int:
     return max(1, min(MAX_SPLITS, -(-n_tiles // MIN_TILES_PER_SPLIT), DECODE_BLOCKS // n_blocks_per_split))
 
 
-# G = 8 at these head dims runs as two row groups of 4 (the GP = 8
-# instantiation spills there; chip_smoke.py's wide_group_decode phase times
-# both layouts)
-SPLIT_8_HEAD_DIMS = frozenset({128})
+# the tensor-core forms' query rows a block (mma.sync's m) and the
+# smallest group they take: a bf16 q over a bf16 cache at head dim 128
+MMA_ROWS = 16
+MMA_MIN_GROUP = 5
+MMA_HEAD_DIM = 128
+MMA_COUNTER = "launches_mma"
+# the tensor-core forms' tolerances against the f32 plain version on the
+# same bf16 inputs (max abs error): outputs kept in f32 (the LSE partials:
+# m, l relative to itself, acc / l) and outputs rounded to bf16
+# (normalised decode, paged).  tests/test_torch_decode_mma.py holds its
+# emulation of their numerics to the reference's kernels within them, and
+# chip_smoke.py holds the kernels to them on the card.
+MMA_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
 
 
 def query_rows(group: int, head_dim: int) -> int:
-    """The query rows a decode kernel block holds (its GP: 1, 4 or 8) for
+    """The query rows a CUDA-core decode block holds (its GP: 1, 4 or 8) for
     `group` query heads per KV head at q/k head dim `head_dim`: the group's
     whole size rounded up to 1, 4 or 8 where one block holds it, else 8 a
-    block (`row_groups` blocks a KV head), and 4 at G = 8 over
-    SPLIT_8_HEAD_DIMS."""
+    block (`row_groups` blocks a KV head); at head dim 128 never more than
+    4 (the GP = 8 instantiation spills there and is not built)."""
     if group == 1:
         return 1
-    if group <= 4 or (group == 8 and head_dim in SPLIT_8_HEAD_DIMS):
+    if group <= 4 or head_dim == MMA_HEAD_DIM:
         return 4
     return MAX_ROWS
 
@@ -121,6 +137,25 @@ def query_rows(group: int, head_dim: int) -> int:
 def row_groups(group: int, rows: int) -> int:
     """The blocks a (lane, split, KV head) takes: ceil(group / rows)."""
     return -(-group // rows)
+
+
+def takes_mma(q_dtype, kv_dtype, qbits: int, head_dim: int, v_head_dim: int, group: int,
+              rotating: bool = False) -> bool:
+    """Whether a call takes the kernel's tensor-core form: a bf16 q over a
+    bf16 cache (no codes) at (128, 128), group >= MMA_MIN_GROUP, not
+    rotating.  Every other call takes the CUDA-core form."""
+    return (q_dtype == torch.bfloat16 and kv_dtype == torch.bfloat16 and not qbits and not rotating
+            and head_dim == v_head_dim == MMA_HEAD_DIM and group >= MMA_MIN_GROUP)
+
+
+def decode_layout(q_dtype, kv_dtype, qbits: int, head_dim: int, v_head_dim: int, group: int,
+                  rotating: bool = False) -> tuple:
+    """(tensor-core form?, query rows a block, row groups a KV head) of a
+    decode call: MMA_ROWS rows on the tensor cores, `query_rows` on the
+    CUDA cores."""
+    mma = takes_mma(q_dtype, kv_dtype, qbits, head_dim, v_head_dim, group, rotating)
+    rows = MMA_ROWS if mma else query_rows(group, head_dim)
+    return mma, rows, row_groups(group, rows)
 
 
 # per (device, stream): the decode and paged kernels' merge scratch, the
@@ -241,8 +276,8 @@ def flash_decode_attend(
     if sinks is not None:
         build.check_cuda_tensors("flash_decode", torch.float32, device=q.device, sinks=sinks)
     out = torch.empty((B, 1, H, Dv), dtype=q.dtype, device=q.device)
-    rows = query_rows(H // KVH, D)
-    groups = KVH * row_groups(H // KVH, rows)  # (KV head, row group) pairs a lane
+    mma, rows, rg = decode_layout(q.dtype, k.dtype, qbits, D, Dv, H // KVH, rotating)
+    groups = KVH * rg  # (KV head, row group) pairs a lane
     n_split = decode_plan(max_live, groups * B)
     stream = build.current_stream_handle(q.device)
     rc = _entry()(
@@ -255,20 +290,22 @@ def flash_decode_attend(
     )
     if rc != 0:
         raise RuntimeError(f"flash_decode kernel launch failed (code {rc})")
-    _count(H // KVH, COUNTERS[qbits, bool(rotating), Dv != D, False])
+    _count(H // KVH, COUNTERS[qbits, bool(rotating), Dv != D, False], mma)
     return out
 
 
-def _count(group: int, counter: str) -> None:
-    """One launch on `counter`, or on WIDE_COUNTER for a group wider than a
-    block holds."""
+def _count(group: int, counter: str, mma: bool) -> None:
+    """One launch on `counter`, or on WIDE_COUNTER for a group of more than
+    MAX_ROWS heads, and one more on MMA_COUNTER for the tensor-core form."""
     if group > MAX_ROWS:
         counter = WIDE_COUNTER
-    setattr(flash_decode_attend, counter, getattr(flash_decode_attend, counter) + 1)
+    for c in (counter, MMA_COUNTER) if mma else (counter,):
+        setattr(flash_decode_attend, c, getattr(flash_decode_attend, c) + 1)
 
 
 # kernel launches since the last reset, per variant (COUNTERS, WIDE_COUNTER)
-for _counter in (*COUNTERS.values(), WIDE_COUNTER):
+# and of the tensor-core form (MMA_COUNTER, beside its variant's)
+for _counter in (*COUNTERS.values(), WIDE_COUNTER, MMA_COUNTER):
     setattr(flash_decode_attend, _counter, 0)
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
@@ -294,9 +331,10 @@ def kernel_smem_bytes(dtype, kv_dtype, qbits: int, head_dim: int, v_head_dim: in
     """Dynamic shared memory (bytes) of the kernel instantiation a call with
     these dtypes, cache form, widths and grouping launches (builds the
     kernel; -1 for one it was not built for)."""
+    rows = decode_layout(dtype, kv_dtype, qbits, head_dim, v_head_dim, H // KVH, rotating)[1]
     return build.entry("flash_decode", "dnet_flash_decode_smem", _SMEM_ARGTYPES)(
         build.DTYPE_CODES[dtype], build.DTYPE_CODES.get(kv_dtype, -1), qbits, head_dim, v_head_dim, H, KVH,
-        query_rows(H // KVH, head_dim), int(bool(rotating)))
+        rows, int(bool(rotating)))
 
 
 def rank_live(pos: int, rank: int, s_local: int) -> int:
@@ -346,8 +384,8 @@ def flash_decode_lse(
     acc = torch.empty((B, 1, H, Dv), dtype=torch.float32, device=dev)
     m = torch.empty((B, KVH, G), dtype=torch.float32, device=dev)
     l = torch.empty((B, KVH, G), dtype=torch.float32, device=dev)
-    rows = query_rows(G, D)
-    groups = KVH * row_groups(G, rows)
+    mma, rows, rg = decode_layout(q.dtype, k.dtype, qbits, D, Dv, G)
+    groups = KVH * rg
     n_split = decode_plan(max_live, groups * B)
     stream = build.current_stream_handle(dev)
     rc = build.entry("flash_decode", "dnet_flash_decode_lse", _LSE_ARGTYPES)(
@@ -360,7 +398,7 @@ def flash_decode_lse(
     )
     if rc != 0:
         raise RuntimeError(f"flash_decode_lse kernel launch failed (code {rc})")
-    _count(G, COUNTERS[qbits, False, Dv != D, True])
+    _count(G, COUNTERS[qbits, False, Dv != D, True], mma)
     return acc, m, l
 
 

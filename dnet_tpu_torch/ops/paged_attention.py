@@ -15,7 +15,11 @@ device), and the last of a slot's blocks to finish merges their states and
 folds the new row, inside the one launch.  Any group size G = H / KVH
 runs: a group wider than a block's 8 query rows splits over ceil(G / 8) row
 groups of blocks, each with its own budget, and such calls count apart
-(`launches_wide`).  The source's header says what bounds it on the card.
+(`launches_wide`).  A bf16 q over a bf16 pool at head dim 128 with G >= 5
+takes the kernel's tensor-core form (16 query rows a block, the decode
+kernel's tensor-core tile fold), counted once more on `launches_mma`;
+`paged_layout` gives each call's form, rows and row groups.  The source's
+header says what bounds it on the card.
 
 `ragged_refusal` says why an engine cannot route decode through the kernel
 (None = eligible), with the reference's vocabulary.
@@ -37,9 +41,12 @@ from dnet_tpu_torch.ops.flash_decode import (
     MAX_ROWS,
     MAX_SPLITS,
     MIN_TILES_PER_SPLIT,
+    MMA_COUNTER,
+    MMA_ROWS,
     NEG_INF,
     _merge_scratch,
     row_groups,
+    takes_mma,
 )
 
 HEAD_DIMS = (64, 128)  # the head dims the paged kernel is built for
@@ -74,6 +81,19 @@ def paged_plan(max_live: int, slots: int, kv_heads: int, blocks_per_sm: int = 1)
     per_slot = min(MAX_SPLITS, -(-n_tiles // MIN_TILES_PER_SPLIT),
                    DECODE_BLOCKS * int(blocks_per_sm) // max(int(slots) * int(kv_heads), 1))
     return max(1, per_slot) * int(slots)
+
+
+def paged_layout(q_dtype, kv_dtype, head_dim: int, group: int) -> tuple:
+    """(tensor-core form?, query rows a block, row groups a KV head) of a
+    paged call: a bf16 q over a bf16 pool at head dim 128 with group >= 5
+    on the tensor cores (`takes_mma`, as the decode kernel), every other
+    call on the CUDA cores with the group rounded up to 1, 4 or 8 rows a
+    block (at head dim 128 too, unlike the decode kernel: there 8 rows
+    fold 16 lanes a key without spilling, and an f32 call at G = 8 and 16
+    ran faster that way than in row groups of 4 in a probe on the card)."""
+    mma = takes_mma(q_dtype, kv_dtype, 0, head_dim, head_dim, group)
+    rows = MMA_ROWS if mma else 1 if group == 1 else 4 if group <= 4 else MAX_ROWS
+    return mma, rows, row_groups(group, rows)
 
 
 def _check_shapes(q, k_pool, v_pool, tables, pos, k_new, v_new) -> None:
@@ -137,9 +157,9 @@ def paged_attend(
     build.check_cuda_tensors("paged_attend", torch.int32, tables=tables, pos=pos)
     live_bound = nb * bt if max_live is None else min(int(max_live), nb * bt)
     G = H // KVH
-    rows = 1 if G == 1 else 4 if G <= 4 else MAX_ROWS  # the query rows a kernel block holds
-    groups = KVH * row_groups(G, MAX_ROWS)
-    nx = paged_plan(live_bound, B, groups, blocks_per_sm(q.dtype, k_pool.dtype, D, H, KVH))
+    mma, rows, rg = paged_layout(q.dtype, k_pool.dtype, D, G)
+    groups = KVH * rg
+    nx = paged_plan(live_bound, B, groups, blocks_per_sm(q.dtype, k_pool.dtype, D, H, KVH, rows))
     out = torch.empty_like(q)
     stream = build.current_stream_handle(q.device)
     # the merge scratch holds nx states a (KV head, row group): B x ceil(nx / B) >= nx
@@ -147,7 +167,7 @@ def paged_attend(
         build.DTYPE_CODES[q.dtype], build.DTYPE_CODES[k_pool.dtype], D, q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
         tables.data_ptr(), pos.data_ptr(), k_new.data_ptr(), v_new.data_ptr(), out.data_ptr(),
         *_merge_scratch(q.device, stream, -(-nx // B), B, groups, rows, D),
-        B, H, KVH, nb, bt, nx, scale, stream,
+        B, H, KVH, nb, bt, nx, rows, scale, stream,
     )
     if rc != 0:
         raise RuntimeError(f"paged_attention kernel launch failed (code {rc})")
@@ -155,18 +175,22 @@ def paged_attend(
         paged_attend.launches_wide += 1
     else:
         paged_attend.launches += 1
+    if mma:
+        setattr(paged_attend, MMA_COUNTER, getattr(paged_attend, MMA_COUNTER) + 1)
     return out
 
 
-# kernel launches since the last reset: G <= 8, and wider groups
+# kernel launches since the last reset: G <= 8, wider groups, and the
+# tensor-core form's (beside its group's counter)
 paged_attend.launches = paged_attend.launches_wide = 0
+setattr(paged_attend, MMA_COUNTER, 0)
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 # dtype, kv_dtype, head_dim, q, k_pool, v_pool, tables, pos, k_new, v_new, o,
-# part, tickets, B, H, KVH, nb, bt, nx, scale, stream
+# part, tickets, B, H, KVH, nb, bt, nx, rows, scale, stream
 _ARGTYPES = (
     _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
-    _I, _I, _I, _I, _I, _I, ctypes.c_float, _P,
+    _I, _I, _I, _I, _I, _I, _I, ctypes.c_float, _P,
 )
 
 
@@ -174,24 +198,26 @@ def _entry():
     return build.entry("paged_attention", "dnet_paged_attention", _ARGTYPES)
 
 
-def _query(what: int, dtype, kv_dtype, head_dim: int, H: int, KVH: int) -> int:
-    return build.entry("paged_attention", "dnet_paged_attention_query", (_I,) * 6)(
-        what, build.DTYPE_CODES[dtype], build.DTYPE_CODES[kv_dtype], head_dim, H, KVH)
+def _query(what: int, dtype, kv_dtype, head_dim: int, H: int, KVH: int, rows: Optional[int]) -> int:
+    if rows is None:
+        rows = paged_layout(dtype, kv_dtype, head_dim, H // KVH)[1]
+    return build.entry("paged_attention", "dnet_paged_attention_query", (_I,) * 7)(
+        what, build.DTYPE_CODES[dtype], build.DTYPE_CODES[kv_dtype], head_dim, H, KVH, rows)
 
 
-def kernel_smem_bytes(dtype, kv_dtype, head_dim: int, H: int, KVH: int) -> int:
+def kernel_smem_bytes(dtype, kv_dtype, head_dim: int, H: int, KVH: int, rows: Optional[int] = None) -> int:
     """Dynamic shared memory (bytes) of the kernel instantiation a call with
-    these dtypes, head dim and grouping launches (builds the kernel; -1 for
-    one it was not built for)."""
-    return _query(1, dtype, kv_dtype, head_dim, H, KVH)
+    these dtypes, head dim, grouping and rows a block (`paged_layout`'s by
+    default) launches (builds the kernel; -1 for one it was not built for)."""
+    return _query(1, dtype, kv_dtype, head_dim, H, KVH, rows)
 
 
 @functools.lru_cache(maxsize=None)
-def blocks_per_sm(dtype, kv_dtype, head_dim: int, H: int, KVH: int) -> int:
+def blocks_per_sm(dtype, kv_dtype, head_dim: int, H: int, KVH: int, rows: Optional[int] = None) -> int:
     """Blocks an SM of the kernel instantiation a call with these dtypes,
-    head dim and grouping launches: 2 where its fold fits 128 registers a
-    thread, else 1 (builds the kernel)."""
-    return _query(2, dtype, kv_dtype, head_dim, H, KVH)
+    head dim, grouping and rows a block launches: 2 where its fold fits 128
+    registers a thread, else 1 (builds the kernel)."""
+    return _query(2, dtype, kv_dtype, head_dim, H, KVH, rows)
 
 
 def paged_attend_plain(

@@ -28,6 +28,12 @@ with split counts up to the cap, the paged kernel at G = 12 and 16 over bt
 16 and 64, and the prefill kernel at (128, 128) with G = 16, each on its
 wide counter, one device kernel a call, interleaved with narrow calls
 repeating bit for bit; G = 8 at head dim 128 runs in both of its layouts.
+The tensor-core forms (bf16 over bf16 at head dim 128, G >= 5) run the
+decode kernel normalised and LSE at G = 5, 7, 8, 12, 16 and 24 over lanes
+at every tile edge of a 4096-slot cache, split counts up to the cap and
+sinks, and the paged kernel at G = 7, 8, 16 and 24 and every few budgets,
+within MMA_TOL (tests/test_torch_decode_mma.py), each call counted on
+launches_mma.
 The decode kernel's LSE form (one sequence-
 parallel rank's unnormalised partials) runs on R = 2 and 4 shards of a
 4096-slot cache at Llama-3.2-1B's and at head dim 128's widths, an empty
@@ -66,6 +72,7 @@ from dnet_tpu_torch.compression.ops import (
 from dnet_tpu_torch.ops.flash_attention import flash_prefill, flash_prefill_plain
 from dnet_tpu_torch.core.kvcache import KVConfig, init_cache, layer_slices, write_kv, write_kv_rotating
 from dnet_tpu_torch.ops.flash_decode import (
+    MMA_TOL,
     NEG_INF,
     decode_lengths,
     flash_decode_attend,
@@ -349,21 +356,22 @@ def test_cuda_tensor_never_takes_the_plain_version(gen):
         flash_decode_attend(q[:, :1].float(), k.float(), k.float(), torch.full((1,), 4, device="cuda"), 4)
 
 
-def _check_lse(out, want, dtype):
+def _check_lse(out, want, dtype, tol=None):
     """Kernel partials against the plain version's: m within the decode
-    tolerance, l within it relative to l, the rank's output acc / l within
-    it; an empty rank's partials exactly (0, NEG_INF, 0)."""
+    tolerance (or `tol`), l within it relative to l, the rank's output
+    acc / l within it; an empty rank's partials exactly (0, NEG_INF, 0)."""
     (acc, m, l), (wa, wm, wl) = out, want
+    tol = TOL[dtype] if tol is None else tol
     assert acc.dtype == m.dtype == l.dtype == torch.float32
     live = wl > 0
     assert torch.equal(m[~live], wm[~live]) and (l[~live] == 0).all()
     B, KVH, G = m.shape
     assert (acc.reshape(B, KVH, G, -1)[~live] == 0).all()
     if live.any():
-        assert (m - wm)[live].abs().max().item() <= TOL[dtype]
-        assert ((l - wl)[live] / wl[live]).abs().max().item() <= TOL[dtype]
+        assert (m - wm)[live].abs().max().item() <= tol
+        assert ((l - wl)[live] / wl[live]).abs().max().item() <= tol
         norm = lambda a, d: (a.reshape(B, KVH, G, -1) / d.clamp(min=1e-30)[..., None])[live]  # noqa: E731
-        assert (norm(acc, l) - norm(wa, wl)).abs().max().item() <= TOL[dtype]
+        assert (norm(acc, l) - norm(wa, wl)).abs().max().item() <= tol
 
 
 @pytest.mark.parametrize("dtype,kv_dtype", [(torch.float32, torch.float32), (torch.bfloat16, torch.bfloat16),
@@ -1037,34 +1045,139 @@ def test_decode_wide_split_counts_up_to_the_cap(gen, monkeypatch, n_split, lse, 
 
 
 def test_decode_plan_counts_row_groups():
-    """A G = 16 call over 4 KV heads plans for 8 (KV head, row group) pairs
-    a lane: as many blocks as G = 8 over 8 KV heads, one wave."""
+    """A G = 16 call over 4 KV heads plans for its (KV head, row group)
+    pairs a lane: on the CUDA cores four row groups of 4 (16 pairs: as
+    many blocks as G = 4 over 16 KV heads), on the tensor cores one of 16
+    (4 pairs); one wave either way."""
     from dnet_tpu_torch.ops import flash_decode as fd
 
-    rows = fd.query_rows(16, 128)
-    assert rows == 8 and fd.row_groups(16, rows) == 2
-    n = fd.decode_plan(2048, 4 * fd.row_groups(16, rows))
-    assert n == fd.decode_plan(2048, 8) and n * 4 * 2 <= fd.DECODE_BLOCKS
+    assert fd.decode_layout(torch.float32, torch.float32, 0, 128, 128, 16) == (False, 4, 4)
+    assert fd.decode_layout(torch.bfloat16, torch.bfloat16, 0, 128, 128, 16) == (True, 16, 1)
+    for rg in (4, 1):
+        n = fd.decode_plan(2048, 4 * rg)
+        assert n == fd.decode_plan(2048, 4 * rg) and n * 4 * rg <= fd.DECODE_BLOCKS
 
 
-@pytest.mark.parametrize("rows", [8, 4])
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("rows,dtype", [(16, torch.bfloat16), (4, torch.bfloat16), (4, torch.float32)])
 @pytest.mark.parametrize("lse", [False, True], ids=["normalised", "lse"])
 def test_decode_group_8_head_dim_128_both_layouts(gen, monkeypatch, rows, dtype, lse):
-    """G = 8 at head dim 128 as one group of 8 rows and as two of 4 (the
-    launcher picks one by measurement): both as the plain version gives it,
-    on the narrow counter."""
+    """G = 8 at head dim 128 in bf16 as one block of 16 rows on the tensor
+    cores (the launcher's) and as two row groups of 4 on the CUDA cores
+    (forced), f32 as two of 4: each as the plain version gives it, on the
+    narrow counter, the tensor-core form once more on launches_mma."""
     from dnet_tpu_torch.ops import flash_decode as fd
 
-    monkeypatch.setattr(fd, "SPLIT_8_HEAD_DIMS", frozenset({128}) if rows == 4 else frozenset())
-    assert fd.query_rows(8, 128) == rows
+    if rows == 4:
+        monkeypatch.setattr(fd, "takes_mma", lambda *a, **k: False)
+    assert fd.decode_layout(dtype, dtype, 0, 128, 128, 8)[1] == rows
     form = ("launches_lse" if lse else "launches", 128, 128, 64, 8, 0, False, lse)
     call, want = _decode_form_call(gen, form, dtype=dtype, lengths=WIDE_LENGTHS)
-    before = getattr(flash_decode_attend, form[0]), flash_decode_attend.launches_wide
+    counters = (form[0], "launches_wide", "launches_mma")
+    before = [getattr(flash_decode_attend, c) for c in counters]
     out = call()
     torch.cuda.synchronize()
-    assert (getattr(flash_decode_attend, form[0]), flash_decode_attend.launches_wide) == (before[0] + 1, before[1])
+    assert [getattr(flash_decode_attend, c) for c in counters] == [before[0] + 1, before[1], before[2] + (rows == 16)]
     _check_form(out, want, form, dtype)
+
+
+# the tensor-core forms: a bf16 q over a bf16 cache at head dim 128 with
+# G >= 5 (Qwen2.5-7B's 7, Qwen3-30B-A3B's 8, Qwen3-235B-A22B's 16; 24 runs
+# as two row groups of 16, the second half masked), lanes at every tile
+# edge of a 4096-slot cache
+MMA_GROUPS = [5, 7, 8, 12, 16, 24]
+MMA_LENGTHS = tuple(p + 1 for p in (0, 1, 63, 64, 65, 113, 2047, 4095))
+
+
+def _mma_form(G, lse):
+    """A DECODE_FORMS entry of the tensor-core form at group G on 2 KV
+    heads, on the counter its group counts on (wide past 8)."""
+    counter = "launches_wide" if G > 8 else "launches_lse" if lse else "launches"
+    return (counter, 128, 128, 2 * G, 2, 0, False, lse)
+
+
+def _check_mma(out, want, lse):
+    """The tensor-core forms' tolerances (MMA_TOL, which
+    tests/test_torch_decode_mma.py states): f32 partials, bf16 outputs."""
+    if lse:
+        _check_lse(out, want, torch.bfloat16, tol=MMA_TOL[torch.float32])
+    else:
+        assert (out.float() - want).abs().max().item() <= MMA_TOL[torch.bfloat16]
+
+
+@pytest.mark.parametrize("G", MMA_GROUPS)
+@pytest.mark.parametrize("lse", [False, True], ids=["normalised", "lse"])
+@pytest.mark.parametrize("lanes", [1, 8])
+def test_decode_mma_forms(gen, G, lse, lanes):
+    """Each lane length alone (lanes 1) and all eight in one launch (lanes
+    8): the plain version's outputs within MMA_TOL, one count on the
+    group's counter and one on launches_mma."""
+    form = _mma_form(G, lse)
+    for lengths in ([(n,) for n in MMA_LENGTHS] if lanes == 1 else [MMA_LENGTHS]):
+        call, want = _decode_form_call(gen, form, lengths=lengths, S=4096)
+        before = getattr(flash_decode_attend, form[0]), flash_decode_attend.launches_mma
+        out = call()
+        torch.cuda.synchronize()
+        assert (getattr(flash_decode_attend, form[0]), flash_decode_attend.launches_mma) == (before[0] + 1,
+                                                                                           before[1] + 1)
+        _check_mma(out, want, lse)
+
+
+@pytest.mark.parametrize("n_split", [1, 2, 3, 7, "cap"])
+@pytest.mark.parametrize("lse", [False, True], ids=["normalised", "lse"])
+@pytest.mark.parametrize("G", [8, 24])
+def test_decode_mma_split_counts_up_to_the_cap(gen, monkeypatch, n_split, lse, G):
+    """The tensor-core form at every split count up to the cap, over lanes
+    with an idle one: each (lane, KV head, row group of 16) merges its own
+    blocks."""
+    from dnet_tpu_torch.ops import flash_decode as fd
+
+    monkeypatch.setattr(fd, "decode_plan", lambda max_live, blocks: fd.MAX_SPLITS if n_split == "cap" else n_split)
+    call, want = _decode_form_call(gen, _mma_form(G, lse), lengths=WIDE_LENGTHS)
+    out = call()
+    torch.cuda.synchronize()
+    _check_mma(out, want, lse)
+    if not lse:
+        assert not out[1].any()
+
+
+def test_decode_mma_sinks(gen):
+    """The normalised tensor-core form folds each head's sink once."""
+    q, k, v = _randn(gen, torch.bfloat16, 2, 1, 32, 128), *(_randn(gen, torch.bfloat16, 2, 512, 4, 128)
+                                                             for _ in range(2))
+    sinks = torch.randn(32, generator=gen, device="cuda")
+    lens = torch.tensor([300, 1], dtype=torch.int32, device="cuda")
+    out = flash_decode_attend(q, k, v, lens, 300, sinks=sinks)
+    torch.cuda.synchronize()
+    want = flash_decode_plain(q.float(), k.float(), v.float(), lens, sinks=sinks)
+    assert (out.float() - want).abs().max().item() <= MMA_TOL[torch.bfloat16]
+
+
+@pytest.mark.parametrize("G", [7, 8, 16, 24])
+@pytest.mark.parametrize("bt", [16, 64])
+def test_paged_mma_form(gen, G, bt):
+    """The paged kernel's tensor-core form over ragged slots with NaN
+    behind every dead entry: within MMA_TOL[bf16] of the plain version,
+    pos 0 exactly v_new, one count on launches_mma."""
+    case = _paged_case(gen, torch.bfloat16, bt, [0, 1, 77, 1530, 4000], H=2 * G, KVH=2, D=128)
+    want = paged_attend_plain(*(t.float() if t.is_floating_point() else t for t in case))
+    before = paged_attend.launches_mma
+    out = paged_attend(*case, max_live=4000)
+    torch.cuda.synchronize()
+    assert paged_attend.launches_mma == before + 1
+    assert (out.float() - want).abs().max().item() <= MMA_TOL[torch.bfloat16]
+    assert torch.equal(out[0, 0], case[6][0].repeat_interleave(G, dim=0))
+
+
+@pytest.mark.parametrize("n_split", [1, 2, 5, 16])
+def test_paged_mma_split_counts(gen, monkeypatch, n_split):
+    """G = 16 in bf16 at budgets up to the cap: each (slot, KV head) merges
+    its own blocks with the new row."""
+    case = _paged_case(gen, torch.bfloat16, 16, [0, 65, 700, 4094], H=64, KVH=4, D=128)
+    want = paged_attend_plain(*(t.float() if t.is_floating_point() else t for t in case))
+    _paged_blocks_per_slot(monkeypatch, n_split)
+    out = paged_attend(*case)
+    torch.cuda.synchronize()
+    assert (out.float() - want).abs().max().item() <= MMA_TOL[torch.bfloat16]
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -1132,12 +1245,15 @@ def test_wide_decode_call_is_one_device_kernel(gen, form):
         kernels = [e.name for e in prof.events() if e.device_type == DeviceType.CUDA]
         if kernels:
             break
-    assert len(kernels) == 1 and "flash_decode_kernel" in kernels[0], kernels
+    # bf16 over a bf16 cache at head dim 128 runs the tensor-core form
+    name = "flash_decode_mma_kernel" if not form[5] else "flash_decode_kernel"
+    assert len(kernels) == 1 and name in kernels[0], kernels
     _check_form(out, want, form, torch.bfloat16)
 
 
 def test_wide_paged_call_is_one_device_kernel(gen):
-    """A G = 16 paged call is one device kernel, as torch.profiler traces it."""
+    """A G = 16 paged call (bf16: the tensor-core form) is one device
+    kernel, as torch.profiler traces it."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -1153,7 +1269,7 @@ def test_wide_paged_call_is_one_device_kernel(gen):
         kernels = [e.name for e in prof.events() if e.device_type == DeviceType.CUDA]
         if kernels:
             break
-    assert len(kernels) == 1 and "paged_attention_kernel" in kernels[0], kernels
+    assert len(kernels) == 1 and "paged_attention_mma_kernel" in kernels[0], kernels
 
 
 def test_wide_and_narrow_calls_interleaved_repeat_exactly(gen):

@@ -15,7 +15,8 @@ each (lane, KV head, row group) keeps its own merge states and ticket
   `_decode_emulate(..., with_lse=True)`, as tests/test_torch_decode_plan.py
   holds them), f32 within 2e-5 (tests/test_flash_decode.py:41).
 - `row_group_launch` / `paged_row_group_launch` below write the kernels'
-  row-group grids out block by block in plain PyTorch, with the tickets: every
+  row-group grids out block by block in plain PyTorch, with the tickets, at
+  the CUDA-core forms' rows and at the tensor-core forms' 16: every
   (KV head, query head) is folded and written exactly once, the masked rows
   never, every ticket counts exactly its own row group's blocks (a merge
   keyed by (lane, KV head) alone would see RG x n_split blocks and fire
@@ -56,13 +57,15 @@ def _interpret_mode(monkeypatch):
 
 
 def test_rows_and_row_groups():
-    """The launcher's layout: 1, 4 or 8 rows a block, 8 past 8 (G = 12 as
-    8 + 4, G = 16 as two 8s), G = 8 at head dim 128 as two groups of 4 (the
-    faster layout on the card), and the split plan counts every (KV head,
-    row group): G = 16 over 4 KV heads plans as G = 8 over 8."""
+    """The launcher's CUDA-core layout: 1, 4 or 8 rows a block, 8 past 8
+    (G = 12 as 8 + 4, G = 16 as two 8s), every G > 4 at head dim 128 as
+    groups of 4 (the GP = 8 instantiation spills there and is not built;
+    tests/test_torch_decode_mma.py tables the tensor-core form), and the
+    split plan counts every (KV head, row group): G = 16 over 4 KV heads
+    plans as G = 8 over 8."""
     assert [query_rows(g, 64) for g in (1, 3, 4, 5, 8, 9, 12, 16, 32)] == [1, 4, 4, 8, 8, 8, 8, 8, 8]
     assert [row_groups(g, query_rows(g, 64)) for g in (8, 9, 12, 16, 32)] == [1, 2, 2, 2, 4]
-    assert query_rows(8, 128) == 4 and query_rows(16, 128) == MAX_ROWS
+    assert [query_rows(g, 128) for g in (5, 7, 8, 16)] == [4] * 4 and MAX_ROWS == 8
     assert decode_plan(2048, 4 * row_groups(16, 8)) == decode_plan(2048, 8)
     assert paged_plan(1532, 8, 4 * row_groups(16, 8), 1) == paged_plan(1532, 8, 8, 1)
 
@@ -180,7 +183,7 @@ def row_group_launch(q, k, v, lengths, n_split, rows):
     return out, writes, {key: len(t) for key, t in tickets.items()}
 
 
-@pytest.mark.parametrize("G,rows", [(12, 8), (16, 8), (9, 8), (8, 4), (16, 4)])
+@pytest.mark.parametrize("G,rows", [(12, 8), (16, 8), (9, 8), (8, 4), (16, 4), (7, 16), (8, 16), (16, 16), (24, 16)])
 @pytest.mark.parametrize("n_split", [1, 3, 16])
 def test_row_group_grid_folds_each_head_once(rng, G, rows, n_split):
     """Every (lane, KV head, query head) written exactly once, nothing past
@@ -202,16 +205,18 @@ def test_row_group_grid_folds_each_head_once(rng, G, rows, n_split):
     np.testing.assert_allclose(out.numpy(), want, **TOL)
 
 
-def paged_row_group_launch(q, k_pool, v_pool, tables, pos, k_new, v_new, nx):
+def paged_row_group_launch(q, k_pool, v_pool, tables, pos, k_new, v_new, nx, rows=None):
     """csrc/paged_attention.cu's grid (nx x RG, KVH) block by block: block x
     is plan block x // RG for row group x % RG (`split_plan` over nx per
     (KV head, row group)); the last block of a (slot, KV head, row group)
-    ticket merges its splits with the new row and writes its heads."""
+    ticket merges its splits with the new row and writes its heads.  `rows`
+    a block: the launcher's (16 for the tensor-core form), by default the
+    CUDA-core form's at head dim 64."""
     B, _, H, D = q.shape
     _, bt, KVH, _ = k_pool.shape
     G = H // KVH
-    rows = 1 if G == 1 else 4 if G <= 4 else MAX_ROWS
-    RG = row_groups(G, MAX_ROWS)
+    rows = rows or (1 if G == 1 else 4 if G <= 4 else MAX_ROWS)
+    RG = row_groups(G, rows)
     nb = tables.shape[1]
     scale = D**-0.5
     splits, first, _ = split_plan(pos.tolist(), nx, 64, nb * bt)
@@ -252,6 +257,20 @@ def test_paged_row_group_grid_folds_each_head_once(paged_reference, G, per_slot)
     assert (writes == 1).all() and not torch.isnan(out).any()
     assert counts == {(b * 2 + kvh) * 2 + r: splits[b] for b in range(B) for kvh in range(2) for r in range(2)}
     np.testing.assert_allclose(out.numpy(), want, **TOL)
+
+
+@pytest.mark.parametrize("G", [7, 8, 16, 24])
+@pytest.mark.parametrize("per_slot", [1, 3])
+def test_paged_row_group_grid_at_16_rows(G, per_slot):
+    """The tensor-core form's grid (16 rows a block; G = 24 as 16 + 8 with
+    8 masked rows): every head written once, each ticket counting its own
+    row group's splits, the outputs the plain version's."""
+    case = [torch.from_numpy(np.asarray(a)) for a in _case(G, 8, [0, 5, 8, 61, 140], H=2 * G, KVH=2, cap=160)]
+    B, RG = case[0].shape[0], row_groups(G, 16)
+    out, writes, counts, splits = paged_row_group_launch(*case, nx=per_slot * B, rows=16)
+    assert (writes == 1).all() and not torch.isnan(out).any()
+    assert counts == {(b * 2 + kvh) * RG + r: splits[b] for b in range(B) for kvh in range(2) for r in range(RG)}
+    np.testing.assert_allclose(out.numpy(), paged_attend(*case).numpy(), **TOL)
 
 
 # ---- a tiny qwen3_moe at G = 16 through the engine ------------------------
