@@ -64,16 +64,43 @@ DNET_KV_RAGGED=1), the second path:
                64 tokens each, one sampled with a seed); the paged kernel
                runs 16 times per decode step, the single-sequence decode
                kernel never, the prefill kernel 16 times per prompt chunk.
+The iteration-level scheduler (DNET_SCHED=1) with the paged prefix cache,
+over the same slots:
+  sched_parity the scheduler in process on the GPU and on the CPU from the
+               same f32 weights (head dim 64): four concurrent greedy
+               requests over 4 slots and a pool of 26 16-token blocks that
+               holds their prompts but not their growth; a preemption on
+               each device, equal texts.
+  sched_serve  the batch_serve checkpoint behind DNET_SCHED=1: the
+               batch_serve burst (decode lanes and prefill tokens per tick
+               from GET /v1/debug/sched, lane tokens per decode step beside
+               the legacy adapter's), then a two-turn conversation (a
+               512-token prompt, then its prompt and answer plus a new
+               message); the two turns again with DNET_API_PREFIX_CACHE=4
+               (turn 2 prefills fewer tokens than its prompt, both texts
+               equal); the burst over a pool of 300 blocks (a preemption,
+               every request 64 tokens).  The paged kernel runs 16 times per
+               decode forward step and the prefill kernel 16 times per
+               prefill segment the tick records count.
 The pipelined shard ring, the third path (API node + two shard processes
 over gRPC, the qsparse8 hop codec):
+  column_launches  device kernels per column_topk call and per call of the
+               chain it replaced (torch.profiler, right after the build):
+               column_topk must be 1, at R = 1 and 1500.
   kernels      the codec's three column kernels against their plain versions
                at the hop's widths (C=2048, K=1024 kept, gs=64; R=1, a decode
                hop, and R=1500, a prompt frame; bf16 and f32): norms within
                2e-5 relative, gather and dequant-scatter equal bit for bit;
-               library yardsticks torch.linalg.vector_norm, index_select and
-               index_copy_ (on a pre-dequantized copy).
+               the norms kernel with its selection on (column_topk: one
+               device kernel a call, its kept columns and bitmask equal
+               topk_columns of its own norms, repeatable), beside the chain
+               it replaced (the norms, then sorts: sort_chain_ms); library
+               yardsticks torch.linalg.vector_norm (+ torch.topk and a sort),
+               index_select and index_copy_ (on a pre-dequantized copy).
   codec        one hop's whole encode and decode (qsparse8 and lossless) at
-               R=1 and R=1500: host wall time per call and its device work.
+               R=1 and R=1500: host wall time per call and its device work;
+               the qsparse8 encode also as its select ran before column_topk
+               (qsparse8_encode_sort_chain), with an equal payload.
   ring_serve   the serve phase's checkpoint served by two
                `dnet_tpu_torch.cli.shard` processes on the card (layers 0-7 and
                8-15) behind the port's API node with a hostfile on 127.0.0.1:
@@ -283,7 +310,9 @@ import time
 import urllib.request
 from argparse import Namespace
 from concurrent.futures import ThreadPoolExecutor
+from typing import Optional, Sequence
 
+import numpy as np
 import torch
 
 # H100 SXM peaks (NVIDIA data sheet, dense): the bound of a call is the
@@ -768,16 +797,42 @@ def bytes_ops_bound(nbytes: int, ops: int, dtype) -> tuple:
     return max(t_mem, t_ops) * 1e3, ("bytes" if t_mem >= t_ops else "operations")
 
 
-def phase_column_kernels() -> dict:
+def phase_column_launches() -> dict:
+    """Device kernels one select of the hop codec takes at each COL_ROWS
+    frame (bf16, the ring's widths): column_topk, which must be 1, and the
+    chain it replaced (the norms kernel, then sorts, a slice and a cast).
+    Traced right after the build, as the decode and paged calls: late in a
+    long process the profiler was seen to trace no kernel at all."""
+    from dnet_tpu_torch.compression.ops import column_sq_norms, column_topk, topk_columns
+
+    g = torch.Generator(device="cuda").manual_seed(5)
+    out = {}
+    for R in COL_ROWS:
+        x = torch.randn(R, COL_C, generator=g, device="cuda").to(torch.bfloat16)
+        column_topk(x, COL_K)
+        topk_columns(column_sq_norms(x), COL_K)
+        out[R] = {"column_topk": kernels_per_call(lambda: column_topk(x, COL_K)),
+                  "sort_chain": kernels_per_call(lambda: topk_columns(column_sq_norms(x), COL_K))}
+        check(out[R]["column_topk"] == 1, f"column_topk R={R}: {out[R]['column_topk']} device kernels")
+    emit({"phase": "column_launches", "gpu": gpu_line(), "C": COL_C, "keep": COL_K, "per_call": out})
+    return out
+
+
+def phase_column_kernels(per_call: dict) -> dict:
     """The hop codec's kernels at the ring's widths; returns the decode
-    hop's (R=1) bf16 row per kernel, the frame that runs once per token."""
+    hop's (R=1) bf16 row per kernel, the frame that runs once per token
+    (for the norms kernel its column_topk form, which the send side runs).
+    `per_call`: phase_column_launches' counts."""
     from dnet_tpu_torch.compression.ops import (
         column_sq_norms,
         column_sq_norms_plain,
+        column_topk,
+        column_topk_plain,
         dequant_scatter_columns,
         dequant_scatter_columns_plain,
         gather_columns,
         gather_columns_plain,
+        pack_mask,
         quantize_q8,
         topk_columns,
     )
@@ -805,6 +860,8 @@ def phase_column_kernels() -> dict:
                 emit(row)
                 if dtype == torch.bfloat16 and R == 1 and kernel not in main:
                     main[kernel] = row
+                    if kernel == "column_topk":  # the norms kernel's row on the send side's path
+                        main["column_sq_norms"] = row
 
             out = column_sq_norms(xs[0])
             torch.cuda.synchronize()
@@ -818,6 +875,25 @@ def phase_column_kernels() -> dict:
                      lambda l: torch.linalg.vector_norm(xs[l], 2, 0, dtype=torch.float32),
                      "torch.linalg.vector_norm(x, 2, 0, dtype=float32) (the square root, not squared)",
                      R * C * size + C * 4, 2 * R * C, max_rel_err=rel, tol_rel=2e-5)
+
+            # the norms with the selection on: the kept columns and the
+            # wire's bitmask, equal to topk_columns of the kernel's own norms
+            sel, mask = column_topk(xs[0], K)
+            sel2, mask2 = column_topk(xs[0], K)
+            torch.cuda.synchronize()
+            check(torch.equal(sel, topk_columns(out, K)) and torch.equal(mask, pack_mask(sel, C)),
+                  f"column_topk R={R} {name}: not topk_columns of its own norms")
+            check(torch.equal(sel, sel2) and torch.equal(mask, mask2), "column_topk is not repeatable")
+            plain_sel, _ = column_topk_plain(xs[0], K)
+            emit_row("column_topk", 0.0, lambda l: column_topk(xs[l], K), lambda l: column_topk_plain(xs[l], K),
+                     lambda l: torch.topk(torch.linalg.vector_norm(xs[l], 2, 0, dtype=torch.float32),
+                                          K).indices.sort(),
+                     "torch.topk(torch.linalg.vector_norm(x, 2, 0, dtype=float32), keep).indices.sort()",
+                     R * C * size + 4 * K + C // 8, 2 * R * C,
+                     sort_chain_ms=device_time_ms(lambda l: topk_columns(column_sq_norms(xs[l]), K), COL_COPIES),
+                     kernels_per_call=per_call[R]["column_topk"],
+                     sort_chain_kernels_per_call=per_call[R]["sort_chain"],
+                     columns_as_plain=int(torch.isin(sel, plain_sel).sum()))
 
             out = gather_columns(xs[0], idx)
             torch.cuda.synchronize()
@@ -863,11 +939,32 @@ def phase_column_kernels() -> dict:
     return main
 
 
+def _sort_chain_encode(x: torch.Tensor, drop_frac: float, gs: int) -> bytes:
+    """The qsparse8 encode as the send side ran it before column_topk: the
+    norms kernel, a stable sort, a slice, a second sort and a cast for the
+    kept columns, the gather, and the bitmask built on the host from the
+    indices (a host sync); the same payload bytes as compress_tensor's."""
+    from dnet_tpu_torch.compression.ops import (
+        column_sq_norms, gather_columns, keep_count, quantize_q8, topk_columns)
+
+    D = x.shape[-1]
+    x2 = x.reshape(-1, D).contiguous()
+    idx = topk_columns(column_sq_norms(x2), keep_count(D, drop_frac))
+    kept = gather_columns(x2, idx)
+    mask = np.zeros(D, dtype=bool)
+    mask[idx.cpu().numpy()] = True
+    codes, scale, bias = quantize_q8(kept, gs)
+    return (np.packbits(mask).tobytes() + codes.cpu().numpy().tobytes()
+            + scale.float().cpu().numpy().tobytes() + bias.float().cpu().numpy().tobytes())
+
+
 def phase_codec_host() -> None:
     """One hidden hop's encode and decode as a shard runs them, qsparse8
     against lossless at the ring's widths (bf16 [1, R, 2048]): the host's
     wall time per call, synchronised, and the device work of one call
-    (kernel launches and device time, torch.profiler)."""
+    (kernel launches and device time, torch.profiler).  The qsparse8 encode
+    is also timed as it ran before its select became one kernel
+    (`qsparse8_encode_sort_chain`), its payload checked equal."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -896,9 +993,11 @@ def phase_codec_host() -> None:
     for R in COL_ROWS:
         x = torch.randn(1, R, COL_C, generator=g, device="cuda").to(torch.bfloat16)
         q = compress_tensor(x, 0.5, "bfloat16", 8, COL_GS)
+        check(q[0] == _sort_chain_encode(x, 0.5, COL_GS), f"codec R={R}: the encodes' payloads differ")
         lossless = tensor_to_bytes(x, "bfloat16")
         calls = {
             "qsparse8_encode": lambda: compress_tensor(x, 0.5, "bfloat16", 8, COL_GS),
+            "qsparse8_encode_sort_chain": lambda: _sort_chain_encode(x, 0.5, COL_GS),
             "qsparse8_decode": lambda: decompress_tensor_device(*q, "cuda"),
             "lossless_encode": lambda: tensor_to_bytes(x, "bfloat16"),
             "lossless_decode": lambda: bytes_to_device(*lossless, "cuda"),
@@ -1500,10 +1599,13 @@ def _post(url: str, body: dict) -> dict:
                 "gap_max_s": max(gaps) if gaps else None}
 
 
-async def _drive(args: Namespace, requests: list, concurrent: bool = False) -> list:
+async def _drive(args: Namespace, requests: list, concurrent: bool = False, then: Sequence = (),
+                 sched: bool = False) -> list:
     """Serve args' model in this process and send `requests` (in order, or
-    all at once); returns the results, the kernels' launches during the
-    requests, the load time and /health after them."""
+    all at once), then the `then` requests in order (a callable there is
+    called with the results so far and returns its body); returns the
+    results, the kernels' launches during the requests, the load time and
+    /health after them (with `sched`, /v1/debug/sched under "sched")."""
     from dnet_tpu_torch.api.server import serve_async
     from dnet_tpu_torch.kernels import launch_counts, reset_launch_counts
 
@@ -1534,10 +1636,16 @@ async def _drive(args: Namespace, requests: list, concurrent: bool = False) -> l
             results = []
             for body in requests:
                 results.append(await loop.run_in_executor(None, _post, url, body))
+        for body in then:
+            body = body(results) if callable(body) else body
+            results.append(await loop.run_in_executor(None, _post, url, body))
         torch.cuda.synchronize()
         launches = launch_counts()
         health = await loop.run_in_executor(
             None, lambda: json.loads(urllib.request.urlopen(base + "/health", timeout=5).read()))
+        if sched:
+            health["sched"] = await loop.run_in_executor(
+                None, lambda: json.loads(urllib.request.urlopen(base + "/v1/debug/sched", timeout=5).read()))
     finally:
         if not server.done():
             signal.raise_signal(signal.SIGTERM)  # the server's own shutdown path
@@ -1629,6 +1737,7 @@ def phase_serve(prompt_text: str, n_prompt: int) -> tuple:
         results, launches, load_s, _ = asyncio.run(_drive(args, bodies))
         row = serve_row(results, launches, write_s, load_s)
         batched = phase_batch_serve(tmp, port, batch_step)
+        phase_sched_serve(tmp, port, batched)
         quant = phase_quant_serve(tmp, port, bodies, row, batched)
         long_body = dict(chat, stream=True, messages=[{"role": "user", "content": _batch_prompts()[-1]}])
         ring, _ = phase_ring_serve(tmp, bodies, results, row, long_body, quant)
@@ -2045,6 +2154,226 @@ def phase_batch_serve(model_dir: str, port: int, batch_step: dict) -> dict:
         "step_at_8_lanes": {k: batch_step[k] for k in ("wall_ms", "host_issue_ms", "device_busy_ms",
                                                        "device_idle_share", "paged_kernel_ms")},
     }
+    emit(row)
+    return row
+
+
+# the iteration-level scheduler (DNET_SCHED=1) over paged + ragged slots; a
+# pool that holds the burst's prompts (282 blocks of 16 with their first
+# decode token) but not their growth to 64 tokens each (313); turn 1 of the
+# two-turn pass is whole prefill chunks long, so turn 2 prefills the same
+# chunks with the prefix cache and without it; the tick ring holds every
+# tick of a pass
+SCHED_ENV = dict(PAGED_ENV, DNET_SCHED="1", DNET_OBS_TICK_RECORDS="100000")
+SCHED_POOL_BLOCKS = 300
+SCHED_TURN_TOKENS = 2 * PREFILL_CHUNK
+
+
+def _sched_ticks(debug: dict, mark: int, end: Optional[int] = None) -> list:
+    """The tick records captured from index `mark` on (before `end`): the
+    ring is the process's and spans every server it ran."""
+    out = [r for r in debug["records"] if r["seq"] >= mark and (end is None or r["seq"] < end)]
+    check(bool(out) and out[0]["seq"] == mark, f"tick records from {mark} fell out of the ring")
+    return out
+
+
+def _ticks_captured() -> int:
+    from dnet_tpu_torch.sched.flight import get_tick_recorder
+
+    return get_tick_recorder().snapshot()["summary"]["ticks_captured"]
+
+
+def _sched_launch_checks(what: str, launches: dict, ticks: list, engine: dict) -> tuple:
+    """The kernels the scheduler's ticks ran: the paged kernel once a layer
+    per decode forward step, the prefill kernel once a layer per prefill
+    segment, the single-sequence decode kernel never; every slot and block
+    back.  Returns (decode steps, prefill segments)."""
+    steps = sum(r["decode_steps"] for r in ticks)
+    segments = sum(r["prefill_segments"] for r in ticks)
+    check(steps > 0 and steps == engine["decode_steps"], f"{what}: tick decode steps {steps} vs {engine}")
+    check(launches["paged_attend"] == LAYERS * steps,
+          f"{what}: paged launches {launches['paged_attend']} != {LAYERS} x {steps} decode steps")
+    check(launches["flash_prefill"] == LAYERS * segments,
+          f"{what}: prefill launches {launches['flash_prefill']} != {LAYERS} x {segments} segments")
+    check(launches["flash_decode"] == 0, f"{what}: {launches['flash_decode']} single-sequence decode launches")
+    # a prefix cache's entries keep their blocks
+    held = engine.get("prefix_cache", {}).get("blocks", 0)
+    check(engine["active"] == 0 and engine["kv_blocks_used"] == held, f"{what}: slots or blocks leaked: {engine}")
+    check(not any(r["errors"] for r in ticks), f"{what}: tick errors")
+    return steps, segments
+
+
+def _turns(model: str) -> tuple:
+    """The two-turn pass's bodies: turn 1 a SCHED_TURN_TOKENS-token prompt,
+    turn 2 (a function of turn 1's result) its prompt and answer plus a new
+    user message; non-streamed, for their usage."""
+    first = _long_prompt(SCHED_TURN_TOKENS)
+    base = {"model": model, "max_tokens": MAX_TOKENS, "temperature": 0, "logit_bias": TEXT_BIAS}
+    turn1 = dict(base, messages=[{"role": "user", "content": first}])
+
+    def turn2(results):
+        return dict(base, messages=[{"role": "user", "content": first},
+                                    {"role": "assistant", "content": results[-1]["content"]},
+                                    {"role": "user", "content": "Say that again in other words."}])
+    return turn1, turn2
+
+
+def phase_sched_serve(model_dir: str, port: int, batched: dict) -> dict:
+    """The batch_serve checkpoint served through the iteration-level
+    scheduler (DNET_SCHED=1, paged + ragged, --batch-slots 8, 16-token
+    blocks): the batch_serve burst (lanes per tick and per decode step
+    beside batch_serve's legacy adapter) then a two-turn conversation
+    without a prefix cache; the two turns again with DNET_API_PREFIX_CACHE=4
+    (turn 2 prefills fewer tokens than its prompt, same text); the burst
+    over a pool too small for it (a preemption, every request whole)."""
+    args = _batch_args(model_dir, port)
+    turn1, turn2 = _turns("llama-3.2-1b-synthetic")
+    marks = {}
+
+    def mark(name, body):
+        def build(results):
+            marks[name] = _ticks_captured()
+            return body(results) if callable(body) else body
+        return build
+
+    # pass 1: the burst, then the two turns with no prefix cache
+    marks["burst"] = _ticks_captured()
+    with environ(SCHED_ENV):
+        results, launches, load_s, health = asyncio.run(_drive(
+            args, _batch_bodies(), concurrent=True, sched=True,
+            then=[mark("turn1", turn1), mark("turn2", turn2)]))
+    burst, (plain1, plain2) = results[:BATCH_SLOTS], results[BATCH_SLOTS:]
+    for i, r in enumerate(results):
+        check(r["status"] == 200 and r["tokens"] == MAX_TOKENS, f"sched request {i}: {r['status']}, {r['tokens']}")
+    ticks = _sched_ticks(health["sched"], marks["burst"])
+    _sched_launch_checks("sched_serve", launches, ticks, health["engine"])
+    burst_ticks = _sched_ticks(health["sched"], marks["burst"], marks["turn1"])
+    plain2_ticks = _sched_ticks(health["sched"], marks["turn2"])
+    steps = sum(r["decode_steps"] for r in burst_ticks)
+    lane_tokens = sum(r["tokens"] for r in burst) - len(burst)
+    check(not any(r["preempted"] for r in ticks), "sched_serve: a preemption with the full pool")
+    decoding = [r for r in burst_ticks if r["decode_lanes"]]
+    prefilling = [r for r in burst_ticks if r["prefill_tokens"]]
+    legacy_lane_tokens = batched["completion_tokens"] - BATCH_SLOTS
+    row = {
+        "phase": "sched_serve", "gpu": gpu_line(), "model": "Llama-3.2-1B (synthetic bf16 weights, seed 0)",
+        "batch_slots": BATCH_SLOTS, "block_tokens": BT, "load_s": load_s, "launches": launches,
+        "burst": {
+            "ticks": len(burst_ticks), "decode_steps": steps, "lane_tokens": lane_tokens,
+            "lane_tokens_per_decode_step": lane_tokens / steps,
+            "decode_lanes_per_tick": statistics.mean(r["decode_lanes"] for r in decoding),
+            "prefill_tokens_per_tick": statistics.mean(r["prefill_tokens"] for r in prefilling),
+            "prefill_ticks": len(prefilling), "tick_ms_mean": statistics.mean(r["tick_ms"] for r in burst_ticks),
+            **_burst_rates(burst),
+            "legacy_adapter": {"decode_steps": batched["decode_steps"], "lane_tokens": legacy_lane_tokens,
+                               "lane_tokens_per_decode_step": legacy_lane_tokens / batched["decode_steps"],
+                               "aggregate_decode_tokens_per_s": batched["aggregate_decode_tokens_per_s"]},
+        },
+    }
+
+    # pass 2: the two turns with a prefix cache of 4 entries
+    marks.clear()
+    with environ(dict(SCHED_ENV, DNET_API_PREFIX_CACHE="4")):
+        results, launches, _, health = asyncio.run(_drive(
+            args, [], sched=True, then=[mark("turn1", turn1), mark("turn2", turn2)]))
+    cached1, cached2 = results
+    ticks = _sched_ticks(health["sched"], marks["turn1"])
+    _sched_launch_checks("sched_serve prefix", launches, ticks, health["engine"])
+    hit_prefill = sum(r["prefill_tokens"] for r in _sched_ticks(health["sched"], marks["turn2"]))
+    plain_prefill = sum(r["prefill_tokens"] for r in plain2_ticks)
+    prompt2 = cached2["body"]["usage"]["prompt_tokens"]
+    cache = health["engine"]["prefix_cache"]
+    check(plain_prefill == prompt2, f"turn 2 without the cache prefilled {plain_prefill} of {prompt2}")
+    check(0 < hit_prefill < prompt2 and cache["hits"] >= 1, f"turn 2 prefilled {hit_prefill} of {prompt2}: {cache}")
+    check(cached1["content"] == plain1["content"] and cached2["content"] == plain2["content"],
+          "the two turns' text differs with the prefix cache")
+    row["two_turn"] = {"turn1_prompt_tokens": cached1["body"]["usage"]["prompt_tokens"],
+                       "turn2_prompt_tokens": prompt2, "turn2_prefill_tokens": hit_prefill,
+                       "turn2_prefill_tokens_without_cache": plain_prefill, "prefix_cache": cache,
+                       "turn2_s": cached2["s"], "turn2_s_without_cache": plain2["s"]}
+
+    # pass 3: the burst over a pool too small for it
+    mark_pool = _ticks_captured()
+    with environ(dict(SCHED_ENV, DNET_KV_POOL_BLOCKS=str(SCHED_POOL_BLOCKS))):
+        results, launches, _, health = asyncio.run(_drive(args, _batch_bodies(), concurrent=True, sched=True))
+    for i, r in enumerate(results):
+        check(r["status"] == 200 and r["tokens"] == MAX_TOKENS,
+              f"small-pool request {i}: {r['status']}, {r['tokens']} tokens")
+    ticks = _sched_ticks(health["sched"], mark_pool)
+    _sched_launch_checks("sched_serve small pool", launches, ticks, health["engine"])
+    preempted = sum(r["preempted"] for r in ticks)
+    check(preempted >= 1, f"no preemption with a pool of {SCHED_POOL_BLOCKS} blocks")
+    row["small_pool"] = {"pool_blocks": SCHED_POOL_BLOCKS, "preempted": preempted,
+                         "requeued": sum(r["requeued"] for r in ticks), "ticks": len(ticks),
+                         "decode_steps": sum(r["decode_steps"] for r in ticks),
+                         "kv_blocks_peak": health["engine"]["kv_blocks_peak"], **_burst_rates(results)}
+    emit(row)
+    return row
+
+
+def _sched_generate(engine, bodies: list) -> tuple:
+    """Serve `bodies` concurrently through the scheduler's adapter over
+    `engine`, in process (InferenceManager, the byte tokenizer): returns the
+    completions' texts and the ticks they took."""
+    from dnet_tpu_torch.api.inference import InferenceManager
+    from dnet_tpu_torch.api.schemas import ChatCompletionRequest
+    from dnet_tpu_torch.sched import SchedulerAdapter
+    from dnet_tpu_torch.utils.tokenizer import ByteTokenizer
+
+    async def go():
+        adapter = SchedulerAdapter(engine)
+        inference = InferenceManager(adapter, request_timeout_s=600.0, max_concurrent=len(bodies))
+        inference.tokenizer, inference.model_id = ByteTokenizer(), "small"
+        await adapter.start()
+        try:
+            outs = await asyncio.gather(*(inference.generate(ChatCompletionRequest.model_validate(b))
+                                          for b in bodies))
+        finally:
+            await adapter.shutdown()
+        return [o.choices[0].message.content for o in outs]
+
+    from dnet_tpu_torch.sched.flight import get_tick_recorder
+
+    mark = _ticks_captured()
+    texts = asyncio.run(go())
+    return texts, _sched_ticks(get_tick_recorder().snapshot(), mark)
+
+
+def phase_sched_parity(devices: Sequence[str] = ("cuda", "cpu")) -> dict:
+    """The scheduler on the GPU (paged and prefill kernels) against the
+    scheduler on the CPU (plain versions), same f32 weights (head dim 64):
+    four concurrent greedy requests over 4 slots and a pool of 16-token
+    blocks that holds their prompts but not their growth, so a sequence is
+    preempted, re-prefilled and resumed.  The texts must be equal."""
+    from dnet_tpu_torch.core.batch import BatchedEngine
+    from dnet_tpu_torch.ops.paged_attention import paged_attend
+
+    cfg, window, edge = _small_model()
+    bodies = [{"model": "small", "max_tokens": 24, "temperature": 0, "logit_bias": TEXT_BIAS,
+               "messages": [{"role": "user", "content": _long_prompt(n)}]} for n in (40, 70, 100, 130)]
+    out = {}
+    for dev in devices:
+        with environ(dict(SCHED_ENV, DNET_KV_BLOCK_TOKENS="16", DNET_KV_POOL_BLOCKS="26")):
+            eng = BatchedEngine.from_params(cfg, window, edge, slots=4, max_seq=256, param_dtype="float32",
+                                            device=dev)
+            paged_attend.launches = 0
+            texts, ticks = _sched_generate(eng, bodies)
+        steps = sum(r["decode_steps"] for r in ticks)
+        out[dev] = {"texts": texts, "preempted": sum(r["preempted"] for r in ticks), "ticks": len(ticks),
+                    "decode_steps": steps}
+        check(eng.kv_pool.used == 0 and not eng.slot_of, f"sched_parity {dev}: slots or blocks leaked")
+        check(out[dev]["preempted"] >= 1, f"sched_parity {dev}: no preemption")
+        if dev == "cuda":
+            torch.cuda.synchronize()
+            check(paged_attend.launches == cfg.num_hidden_layers * steps,
+                  f"sched_parity: paged launches {paged_attend.launches} for {steps} decode steps")
+        del eng
+    a, b = (out[dev]["texts"] for dev in devices)
+    check(a == b, f"sched_parity texts differ: {out}")
+    row = {"phase": "sched_parity", "slots": 4, "bt": 16, "pool_blocks": 26, "max_tokens": 24,
+           "prompt_tokens": [40, 70, 100, 130], **{dev: {k: v for k, v in o.items() if k != "texts"}
+                                                    for dev, o in out.items()},
+           "text_heads": [t[:16] for t in a]}
     emit(row)
     return row
 
@@ -3877,6 +4206,7 @@ def main() -> int:
           "device_name": torch.cuda.get_device_name(0), "count": torch.cuda.device_count(),
           "kernel_build_s": build_s, "ptxas_report_s": time.perf_counter() - t0})
     emit(ptxas_line(report, prefill_report, paged_report))
+    column_per_call = phase_column_launches()
     per_call = phase_decode_launches()
     per_call.update(phase_paged_launches(BATCH_POSITIONS))
 
@@ -3889,7 +4219,8 @@ def main() -> int:
     # the batched path's mix: every batch_serve lane half-way through its output
     main_path["paged_attend"] = phase_paged_kernels(BATCH_POSITIONS)
     # the ring's path: its decode hop (R=1, bf16) runs once per token
-    main_path.update(phase_column_kernels())
+    main_path.update(phase_column_kernels(column_per_call))
+    per_call["column_sq_norms"] = main_path["column_sq_norms"]["kernels_per_call"]
     # the quantized caches' path: the single-sequence serve's position
     main_path.update(phase_quant_kernels(n_prompt + MAX_TOKENS - 2, BATCH_POSITIONS))
     # gpt_oss's sliding layers: the ring at the step's position
@@ -3897,6 +4228,7 @@ def main() -> int:
     phase_codec_host()
     phase_parity()
     phase_batch_parity()
+    phase_sched_parity()
     phase_quant_parity()
     oss_parity = phase_gpt_oss_parity()
     # sequence parallelism: the LSE form at the sp_serve step's position
@@ -3978,8 +4310,8 @@ def main() -> int:
                               qw_batched),
         "paged_attend_mma": ("dnet_tpu_torch/csrc/paged_attention.cu",
                              "dnet_tpu/ops/paged_attention.py:92 (bf16, D = 128, G > 4)", qw_batched),
-        "column_sq_norms": ("dnet_tpu_torch/csrc/column_ops.cu", "dnet_tpu/compression/ops.py:24",
-                            {"launches": ring}),
+        "column_sq_norms": ("dnet_tpu_torch/csrc/column_ops.cu",
+                            "dnet_tpu/compression/ops.py:24 (+ the top_k of :198-205)", {"launches": ring}),
         "gather_columns": ("dnet_tpu_torch/csrc/column_ops.cu", "dnet_tpu/compression/ops.py:81",
                            {"launches": ring}),
         "dequant_scatter_columns": ("dnet_tpu_torch/csrc/column_ops.cu", "dnet_tpu/compression/ops.py:81",

@@ -9,6 +9,7 @@ Counterpart of dnet_tpu/api/http.py, trimmed to
   POST /v1/prepare_topology_manual
                              ring mode: assign layer ranges to shards
   GET  /health
+  GET  /v1/debug/sched       the scheduler's tick flight ring (?last=N)
 with the reference's serialization, so the same request gets the same
 bytes back (SSE: `data: <json>\\n\\n` frames, then `data: [DONE]`).
 """
@@ -44,6 +45,7 @@ from dnet_tpu_torch.api.schemas import (
     ModelList,
     PrepareTopologyManualRequest,
 )
+from dnet_tpu_torch.sched.flight import get_tick_recorder
 from dnet_tpu_torch.utils.logger import get_logger
 
 log = get_logger()
@@ -70,6 +72,7 @@ class ApiHTTPServer:
         self.app.router.add_post("/v1/load_model", self.load_model)
         self.app.router.add_post("/v1/prepare_topology_manual", self.prepare_topology_manual)
         self.app.router.add_get("/health", self.health)
+        self.app.router.add_get("/v1/debug/sched", self.debug_sched)
         self._runner: Optional[web.AppRunner] = None
 
     async def start(self, host: str, port: int) -> None:
@@ -283,6 +286,21 @@ class ApiHTTPServer:
                 ],
             },
         })
+
+    async def debug_sched(self, request: web.Request) -> web.Response:
+        """The scheduler's tick flight ring (sched/flight.py): per-tick
+        token-budget use and waste, prefill / decode split, queue depths by
+        state, preemptions, and KV block-pool occupancy.  `?last=N` trims
+        the record list to the most recent N ticks."""
+        snap = get_tick_recorder().snapshot()
+        last = request.query.get("last", "").strip()
+        if last:
+            try:
+                n = max(0, int(last))
+            except ValueError:
+                return _json_error(400, "last must be an integer")
+            snap["records"] = snap["records"][-n:] if n else []
+        return web.json_response(snap)
 
     async def health(self, request: web.Request) -> web.Response:
         body = HealthResponse(model=self.model_manager.current_model_id).model_dump()

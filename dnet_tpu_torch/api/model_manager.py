@@ -4,15 +4,18 @@ Counterpart of dnet_tpu/api/model_manager.py (its local branches):
 `batch_slots == 1` serves a single-sequence `LocalEngine` behind a
 `LocalAdapter`; `batch_slots > 1` a continuously batched `BatchedEngine`
 (dense slots, or paged + ragged with DNET_KV_PAGED=1 DNET_KV_RAGGED=1)
-behind a `BatchedLocalAdapter`; a mesh (--mesh or DNET_MESH_*) with sp > 1
-a sequence-parallel `MeshEngine` (parallel/engine.py) behind a
+behind a `BatchedLocalAdapter`, or behind the iteration-level scheduler's
+`SchedulerAdapter` (sched/) with DNET_SCHED=1, which widens a load to
+DNET_SCHED_SLOTS or max(batch_slots, 8) slots, as the reference's manager
+does; DNET_API_PREFIX_CACHE gives paged slots a prefix cache; a mesh
+(--mesh or DNET_MESH_*) with sp > 1 a sequence-parallel `MeshEngine` (parallel/engine.py) behind a
 `LocalAdapter`, its ranks on `mesh_devices` when the caller names them
 (else one CUDA card per rank, or the CPU under device 'cpu').  `kv_bits` (DNET_KV_BITS: 0, 16, 8 or 4)
 picks the KV cache's form for either engine.  What is not ported is
 refused at load with `EngineCapabilityError` (HTTP 422), the setting named,
-instead of being dropped: the scheduler (DNET_SCHED=1), weight
-quantization (DNET_API_WEIGHT_QUANT_BITS), the single-sequence prefix cache
-(DNET_API_PREFIX_CACHE with batch_slots 1), speculative decoding
+instead of being dropped: weight quantization (DNET_API_WEIGHT_QUANT_BITS),
+the single-sequence and the dense-slot prefix caches (DNET_API_PREFIX_CACHE
+with batch_slots 1, or on dense batched slots), speculative decoding
 (DNET_API_SPEC_LOOKAHEAD), the draft model (DNET_API_DRAFT_MODEL), and
 under a mesh: --batch-slots > 1 and the pp / tp / dp axes.  A
 model id is a filesystem path or a subdirectory of `models_dir` (repo id
@@ -28,11 +31,12 @@ from typing import Optional, Sequence, Union
 
 from dnet_tpu_torch.api.inference import EngineCapabilityError
 from dnet_tpu_torch.api.strategies import BatchedLocalAdapter, LocalAdapter
-from dnet_tpu_torch.config import ApiSettings, api_settings, sched_enabled
+from dnet_tpu_torch.config import ApiSettings, api_settings, sched_enabled, sched_settings
 from dnet_tpu_torch.core.batch import BatchedEngine
 from dnet_tpu_torch.core.engine import LocalEngine
 from dnet_tpu_torch.core.kvcache import resolve_kv_bits
 from dnet_tpu_torch.parallel.engine import MeshEngine
+from dnet_tpu_torch.sched import SchedulerAdapter
 from dnet_tpu_torch.utils.logger import get_logger
 from dnet_tpu_torch.utils.tokenizer import load_tokenizer
 
@@ -62,7 +66,9 @@ def active_mesh(mesh: Optional[dict]) -> Optional[dict]:
 def refuse_unported(settings: ApiSettings, batch_slots: int, mesh: Optional[dict] = None) -> None:
     """Raise EngineCapabilityError for the first setting that changes what
     the reference serves and that the port does not serve yet (ROADMAP A4;
-    the mesh's own axes and its family: parallel/engine.py check_mesh)."""
+    the mesh's own axes and its family: parallel/engine.py check_mesh; a
+    prefix cache on dense batched slots: core/batch.py).  `batch_slots` is
+    the load's, widened by the scheduler where it serves."""
     refused = [
         (mesh is not None and batch_slots > 1,
          f"--batch-slots {batch_slots} with mesh {mesh}: continuous batching on the mesh engine is not ported"),
@@ -115,15 +121,15 @@ class LocalModelManager:
         model_dir = resolve_model_dir(model_id, self.models_dir)
         if model_dir is None:
             raise FileNotFoundError(f"model {model_id!r} not found locally (models_dir={self.models_dir})")
-        # under a mesh the reference serves the mesh engine whatever
-        # DNET_SCHED says; without one its scheduler would take over
-        if sched_enabled() and self.mesh is None:
-            raise EngineCapabilityError(
-                "DNET_SCHED=1: the iteration-level scheduler is not ported; unset it to serve "
-                "the legacy adapters"
-            )
+        # DNET_SCHED=1 without a mesh: the scheduler serves a batched
+        # engine, so a single-sequence load widens (under a mesh the
+        # reference serves the mesh engine whatever DNET_SCHED says)
+        sched_on = sched_enabled() and self.mesh is None
+        batch_slots = self.batch_slots
+        if sched_on:
+            batch_slots = sched_settings().sched_slots or max(self.batch_slots, 8)
         settings = api_settings()
-        refuse_unported(settings, self.batch_slots, self.mesh)
+        refuse_unported(settings, batch_slots, self.mesh)
         try:
             kv_dtype, kv_quant_bits = resolve_kv_bits(self.kv_bits)
         except NotImplementedError as exc:
@@ -138,9 +144,9 @@ class LocalModelManager:
                     model_dir, sp=self.mesh.get("sp", 1), pp=self.mesh.get("pp", 0), tp=self.mesh.get("tp", 1),
                     dp=self.mesh.get("dp", 1), devices=self.mesh_devices, **kwargs,
                 )
-            elif self.batch_slots > 1:
+            elif batch_slots > 1:
                 engine = BatchedEngine(
-                    model_dir, slots=self.batch_slots,
+                    model_dir, slots=batch_slots,
                     prefix_cache_size=settings.prefix_cache, **kwargs,
                 )
             else:
@@ -149,7 +155,12 @@ class LocalModelManager:
 
         engine, tokenizer = await asyncio.get_running_loop().run_in_executor(None, _build)
         old_adapter = self.inference.adapter
-        adapter = BatchedLocalAdapter(engine) if isinstance(engine, BatchedEngine) else LocalAdapter(engine)
+        if sched_on:
+            adapter = SchedulerAdapter(engine)
+        elif isinstance(engine, BatchedEngine):
+            adapter = BatchedLocalAdapter(engine)
+        else:
+            adapter = LocalAdapter(engine)
         await adapter.start()
         self.inference.adapter = adapter
         self.inference.tokenizer = tokenizer

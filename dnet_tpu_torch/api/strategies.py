@@ -5,7 +5,8 @@ contract the driver speaks; `LocalAdapter` runs the engine in this process
 on one compute thread, chunking decode steps with the same 2 -> 4 -> ...
 width ramp and the same one-chunk-ahead pipelining as the reference;
 `BatchedLocalAdapter` coalesces concurrent requests' decode steps into one
-batched engine call (continuous batching).
+batched engine call (continuous batching).  DNET_SCHED=1 serves the
+iteration-level scheduler's adapter instead (sched/engine.py).
 """
 
 from __future__ import annotations
@@ -129,6 +130,12 @@ class _TokenFutures:
             fut = self._futures.pop(key)
             if not fut.done():
                 fut.cancel()
+
+    def fail_all(self, error: str) -> None:
+        """Resolve every pending future with an error TokenResult (the
+        awaiting side still owns the pop)."""
+        for nonce, step in list(self._futures):
+            self.resolve(TokenResult(nonce=nonce, token_id=-1, step=step, error=error))
 
 
 class BatchedLocalAdapter(ApiAdapterBase):

@@ -3,7 +3,9 @@ plain versions.
 
 Counterpart of dnet_tpu/compression/ops.py.  The kernels
 (csrc/column_ops.cu) replace two TPU kernels of that file:
-  - `_norms_kernel` (:24): per-column sums of squares, `column_sq_norms`;
+  - `_norms_kernel` (:24): per-column sums of squares, `column_sq_norms`,
+    and with the send side's `jax.lax.top_k` + sort (:198-205) fused in,
+    `column_topk`: one launch that sums the columns and picks the kept ones;
   - `_matmul_kernel` (:81) against a one-hot matrix: the send side's column
     gather, `gather_columns`, and the receive side's column scatter with
     the q8 dequant fused in, `dequant_scatter_columns`.
@@ -13,10 +15,11 @@ R >= 1 and every C.  A wrapper launches its kernel for CUDA tensors or
 raises, and takes the plain version only for CPU tensors; each counts its
 launches.
 
-The top-k and the q8 quantize run outside any kernel in the reference too,
-so they are plain torch ops here.  Top-k keeps `jax.lax.top_k`'s tie order
-(lowest index first): a stable descending sort, the first `keep` indices,
-then sorted ascending (the wire bitmask convention).
+The top-k keeps `jax.lax.top_k`'s order (NaN above +inf, ties to the
+lowest index): a stable descending sort in the plain version, the first
+`keep` indices, then sorted ascending (the wire bitmask convention).  The
+q8 quantize runs outside any kernel in the reference too, so it is plain
+torch ops here.
 """
 
 from __future__ import annotations
@@ -35,8 +38,13 @@ TARGET_BLOCKS = 264
 # its strip's kept columns once for a few rows
 SCATTER_BLOCKS = 4 * 132
 NTHREADS = 256  # threads per block in every kernel (csrc/column_ops.cu)
-MIN_ROWS_PER_SPLIT = 16  # a norms split walks at least this many rows
+NORMS_WARPS = NTHREADS // 32
+# a norms split walks at least this many rows: 4 a warp
+MIN_ROWS_PER_SPLIT = 4 * NORMS_WARPS
 MAX_GRID_Y = 65535
+# shared memory a block may opt in to on an H100, less the selection's
+# static arrays: column_topk holds all C norms in one block
+MAX_SELECT_SMEM = 232448 - 2048
 # dequant_scatter modes (csrc/column_ops.cu)
 MODE_SCATTER, MODE_TENSOR, MODE_GROUP = 0, 1, 2
 
@@ -54,12 +62,19 @@ def _check_2d(op: str, x: torch.Tensor) -> Tuple[int, int]:
 # ---- B4: column sums of squares --------------------------------------------
 
 
-def norms_split(R: int, C: int) -> Tuple[int, int]:
+def norms_strip(elem_bytes: int) -> int:
+    """Columns a norms block owns: a warp's 512 bytes of a row."""
+    return 32 * (16 // elem_bytes)
+
+
+def norms_split(R: int, C: int, elem_bytes: int = 2) -> Tuple[int, int]:
     """(n_split, rows_per_split) for the norms kernel: rows split across
-    blocks until about TARGET_BLOCKS run; a function of the shape alone, so
-    the same input always sums in the same order."""
-    col_blocks = _cdiv(C, NTHREADS)
-    want = max(1, min(_cdiv(TARGET_BLOCKS, col_blocks), _cdiv(R, MIN_ROWS_PER_SPLIT)))
+    blocks until about TARGET_BLOCKS run, each split at least
+    MIN_ROWS_PER_SPLIT rows; a function of the shape alone, so the same
+    input always sums in the same order (R = 1500 at C = 2048 in bf16:
+    8 strips x 33 splits of 46 rows)."""
+    strips = _cdiv(C, norms_strip(elem_bytes))
+    want = max(1, min(_cdiv(TARGET_BLOCKS, strips), _cdiv(R, MIN_ROWS_PER_SPLIT), MAX_GRID_Y))
     rows_per_split = _cdiv(R, want)
     return _cdiv(R, rows_per_split), rows_per_split
 
@@ -73,31 +88,90 @@ def column_sq_norms(x: torch.Tensor) -> torch.Tensor:
         raise ValueError(f"column_sq_norms needs R, C >= 1, got {tuple(x.shape)}")
     if x.device.type == "cpu":
         return column_sq_norms_plain(x)
-    if x.dtype not in build.DTYPE_CODES:
-        raise ValueError(f"column_sq_norms takes bf16/f32, got {x.dtype}")
-    build.check_cuda_tensors("column_sq_norms", x.dtype, x=x)
-    n_split, rows_per_split = norms_split(R, C)
-    out = torch.empty(C, dtype=torch.float32, device=x.device)
-    partial = (
-        torch.empty((n_split, C), dtype=torch.float32, device=x.device) if n_split > 1 else out
-    )
-    rc = _entry("dnet_column_sq_norms", _NORMS_ARGTYPES)(
-        build.DTYPE_CODES[x.dtype], x.data_ptr(), partial.data_ptr(), out.data_ptr(),
-        R, C, n_split, rows_per_split, build.current_stream_handle(x.device),
-    )
-    if rc != 0:
-        raise RuntimeError(f"column_sq_norms kernel launch failed (code {rc})")
-    column_sq_norms.launches += 1
-    return out
+    return _norms_topk("column_sq_norms", x, 0)[0]
 
 
-column_sq_norms.launches = 0  # kernel launches since the last reset
+column_sq_norms.launches = 0  # kernel launches since the last reset (column_topk's too)
 
 
 def column_sq_norms_plain(x: torch.Tensor) -> torch.Tensor:
     """The norms kernel's function in plain PyTorch."""
     xf = x.float()
     return (xf * xf).sum(dim=0)
+
+
+def column_topk(x: torch.Tensor, keep: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Kernel wrapper: the `keep` columns of x [R, C] (bf16/f32) with the
+    largest sums of squares -> (idx int32 [keep] ascending, bitmask uint8
+    [ceil(C / 8)] packed as np.packbits), ties to the lower index.  One
+    launch of the norms kernel with its selection on, counted on
+    `column_sq_norms.launches`.  CUDA tensors launch the kernel (or raise);
+    CPU tensors take the plain version."""
+    R, C = _check_2d("column_topk", x)
+    keep = int(keep)
+    if R < 1 or C < 1 or not 1 <= keep <= C:
+        raise ValueError(f"column_topk needs R, C >= 1 and 1 <= keep <= C, got {tuple(x.shape)}, keep={keep}")
+    if x.device.type == "cpu":
+        return column_topk_plain(x, keep)
+    if 4 * C > MAX_SELECT_SMEM:
+        raise ValueError(f"column_topk holds C norms in one block: C={C} exceeds {MAX_SELECT_SMEM // 4}")
+    _, idx, mask = _norms_topk("column_topk", x, keep)
+    return idx, mask
+
+
+def column_topk_plain(x: torch.Tensor, keep: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """column_topk's function in plain PyTorch: the plain norms, the
+    top-k (`topk_columns`) and the packed mask."""
+    idx = topk_columns(column_sq_norms_plain(x), keep)
+    return idx, pack_mask(idx, x.shape[1])
+
+
+def pack_mask(idx: torch.Tensor, C: int) -> torch.Tensor:
+    """Columns idx of C as a bitmask, np.packbits's order (bit 7 of byte b
+    is column 8b), uint8 [ceil(C / 8)] on idx's device."""
+    mask = torch.zeros(_cdiv(C, 8) * 8, dtype=torch.int32, device=idx.device)
+    mask[idx.long()] = 1
+    weights = torch.tensor([128, 64, 32, 16, 8, 4, 2, 1], dtype=torch.int32, device=idx.device)
+    return (mask.view(-1, 8) * weights).sum(dim=1).to(torch.uint8)
+
+
+# per (device, stream): the norms kernel's tickets, one a strip and one for
+# the call (int32; the kernel returns them to 0, so a stream's calls share them)
+_TICKETS: dict = {}
+
+
+def _tickets(device: torch.device, n: int) -> torch.Tensor:
+    key = (device, build.current_stream_handle(device))
+    t = _TICKETS.get(key)
+    if t is None or t.numel() < n:
+        t = _TICKETS[key] = torch.zeros(n, dtype=torch.int32, device=device)
+    return t
+
+
+def _norms_topk(op: str, x: torch.Tensor, keep: int):
+    """(norms [C] f32, idx, mask) from one launch; idx and mask are None
+    when keep == 0."""
+    R, C = x.shape
+    if x.dtype not in build.DTYPE_CODES:
+        raise ValueError(f"{op} takes bf16/f32, got {x.dtype}")
+    build.check_cuda_tensors(op, x.dtype, x=x)
+    n_split, rows_per_split = norms_split(R, C, x.element_size())
+    dev = x.device
+    norms = torch.empty(C, dtype=torch.float32, device=dev)
+    partial = torch.empty((n_split, C), dtype=torch.float32, device=dev) if n_split > 1 else None
+    tickets = None
+    if n_split > 1 or keep:
+        tickets = _tickets(dev, _cdiv(C, norms_strip(x.element_size())) + 1)
+    idx = torch.empty(keep, dtype=torch.int32, device=dev) if keep else None
+    mask = torch.empty(_cdiv(C, 8), dtype=torch.uint8, device=dev) if keep else None
+    rc = _entry("dnet_column_norms_topk", _NORMS_ARGTYPES)(
+        build.DTYPE_CODES[x.dtype], x.data_ptr(), _ptr(partial), norms.data_ptr(), _ptr(tickets),
+        _ptr(idx), _ptr(mask), R, C, n_split, rows_per_split, keep, build.current_stream_handle(dev),
+    )
+    if rc != 0:
+        raise RuntimeError(f"{op} kernel launch failed (code {rc})")
+    column_sq_norms.launches += 1
+    return norms, idx, mask
 
 
 # ---- B5, send side: column gather ------------------------------------------
@@ -260,12 +334,16 @@ def dequant_scatter_columns_plain(
 
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
-# dtype, x, partial, out, R, C, n_split, rows_per_split, stream
-_NORMS_ARGTYPES = (_I, _P, _P, _P, _I, _I, _I, _I, _P)
+# dtype, x, partial, norms, tickets, idx, mask, R, C, n_split, rows_per_split, keep, stream
+_NORMS_ARGTYPES = (_I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P)
 # elem_bytes, x, idx, out, R, C, K, stream
 _GATHER_ARGTYPES = (_I, _P, _P, _P, _I, _I, _I, _P)
 # dtype, mode, src, scale, bias, idx, out, R, D, K, gs, G, rows_per_block, stream
 _SCATTER_ARGTYPES = (_I, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P)
+
+
+def _ptr(t: Optional[torch.Tensor]) -> Optional[int]:
+    return None if t is None else t.data_ptr()
 
 
 def _entry(symbol: str, argtypes):

@@ -14,8 +14,9 @@ byte for byte, with their metadata in the frame's dtype string:
     gs=0 marks the per-tensor fallback (fewer kept columns than one
     group): exactly one f32 scale and one f32 bias.
 
-The send side runs on the device: column norms (kernel), top-k, the column
-gather (kernel) and the quantize; only the kept columns leave the card.
+The send side runs on the device: column norms and top-k (one kernel, which
+also writes the bitmask), the column gather (kernel) and the quantize; only
+the kept columns and the bitmask leave the card.
 The receive side uploads the compact buffers and runs the fused dequant +
 scatter kernel.  The byte packing is on the host.
 """
@@ -28,12 +29,11 @@ import numpy as np
 import torch
 
 from dnet_tpu_torch.compression.ops import (
-    column_l2_norms,
+    column_topk,
     dequant_scatter_columns,
     gather_columns,
     keep_count,
     quantize_q8,
-    topk_columns,
 )
 from dnet_tpu_torch.utils.serialization import numpy_dtype, tensor_to_bytes, torch_dtype
 
@@ -54,8 +54,12 @@ def codec_name(dtype: str) -> str:
     return dtype  # a plain wire dtype: the lossless codec
 
 
+def _bytes(t: torch.Tensor) -> bytes:
+    return t.detach().contiguous().cpu().numpy().tobytes()
+
+
 def _f32_bytes(t: torch.Tensor) -> bytes:
-    return t.detach().to(torch.float32).contiguous().cpu().numpy().tobytes()
+    return _bytes(t.to(torch.float32))
 
 
 def compress_tensor(
@@ -72,18 +76,16 @@ def compress_tensor(
     orig_shape = tuple(x.shape)
     D = orig_shape[-1]
     x2 = x.reshape(-1, D).contiguous()
-    idx = topk_columns(column_l2_norms(x2), keep_count(D, drop_frac))
+    idx, mask = column_topk(x2, keep_count(D, drop_frac))
     kept = gather_columns(x2, idx)
-    mask = np.zeros(D, dtype=bool)
-    mask[idx.cpu().numpy()] = True
-    bitmask = np.packbits(mask).tobytes()
+    # the kept data first: its copy waits for the device, the mask's then does not
     if quant_bits == 0:
         data, _, _ = tensor_to_bytes(kept, wire_dtype=wire_dtype)
-        return bitmask + data, f"{wire_dtype}|{FMT_TAG}|pct={drop_frac:g}|orig={D}", orig_shape
+        return _bytes(mask) + data, f"{wire_dtype}|{FMT_TAG}|pct={drop_frac:g}|orig={D}", orig_shape
     gs = _effective_group(kept.shape[1], group_size)
     codes, scale, bias = quantize_q8(kept, gs)
-    payload = bitmask + codes.contiguous().cpu().numpy().tobytes() + _f32_bytes(scale) + _f32_bytes(bias)
-    return payload, f"{wire_dtype}|{QFMT_TAG}|pct={drop_frac:g}|orig={D}|gs={gs}", orig_shape
+    data = _bytes(codes) + _f32_bytes(scale) + _f32_bytes(bias)
+    return _bytes(mask) + data, f"{wire_dtype}|{QFMT_TAG}|pct={drop_frac:g}|orig={D}|gs={gs}", orig_shape
 
 
 def _effective_group(K: int, group_size: int) -> int:

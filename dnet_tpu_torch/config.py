@@ -14,10 +14,11 @@ speculation and draft model, which the port reads to refuse),
 DNET_COMPUTE_MOE_CAPACITY_FACTOR), `MeshSettings` (DNET_MESH_PP/TP/DP/SP:
 the API node's --mesh default; the multi-host BACKEND, COORDINATOR,
 NUM_PROCESSES and PROCESS_ID are read only to refuse values other than
-their defaults), and the scheduler switch DNET_SCHED, which the port reads
-only to refuse it.  Values come from the process
-environment on every call (no .env file, no cache), so a flip is seen at
-the next engine load.
+their defaults), and `SchedSettings` (DNET_SCHED, DNET_SCHED_TOKEN_BUDGET,
+DNET_SCHED_PREFILL_CHUNK, DNET_SCHED_SLOTS: the iteration-level scheduler)
+with the capacity of its tick ring (DNET_OBS_TICK_RECORDS, `ObsSettings`).
+Values come from the process environment on every call (no .env file, no
+cache), so a flip is seen at the next engine load.
 """
 
 from __future__ import annotations
@@ -187,8 +188,27 @@ class AdmissionSettings:
 
 @dataclass
 class SchedSettings:
-    # the iteration-level scheduler (not ported: refused at load)
+    """The iteration-level continuous-batching scheduler (sched/).
+    DNET_SCHED=1 makes it the serving adapter for local model loads
+    without a mesh: every tick packs up to `sched_token_budget` tokens of
+    chunked-prefill segments (at most `sched_prefill_chunk` a request) and
+    one decode step per running sequence, admits work while the paged-KV
+    pool can cover it, and preempts the lowest-priority sequence under
+    block starvation.  `sched_slots` batch lanes (0: max(batch_slots, 8))."""
+
     sched: bool = False
+    sched_token_budget: int = 2048
+    sched_prefill_chunk: int = 256
+    sched_slots: int = 0
+
+
+@dataclass
+class ObsSettings:
+    """The reference's observability settings, trimmed to the scheduler's
+    tick flight-recorder ring capacity (sched/flight.py, GET
+    /v1/debug/sched); 0 disables capture."""
+
+    tick_records: int = 256
 
 
 def kv_settings() -> KVSettings:
@@ -223,8 +243,16 @@ def admission_settings() -> AdmissionSettings:
     return _from_env(AdmissionSettings, "DNET_")
 
 
+def obs_settings() -> ObsSettings:
+    return _from_env(ObsSettings, "DNET_OBS_")
+
+
+def sched_settings() -> SchedSettings:
+    return _from_env(SchedSettings, "DNET_")
+
+
 def sched_enabled() -> bool:
-    return _from_env(SchedSettings, "DNET_").sched
+    return sched_settings().sched
 
 
 def batch_slots_default(cli_value: Optional[int] = None) -> int:

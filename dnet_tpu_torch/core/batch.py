@@ -21,10 +21,14 @@ that decode in place:
 
 In both, prefill runs per request on the wrapped B=1 `LocalEngine` (the
 prefill kernel, a dense staging row), then the row moves into the slot's
-row or commits into pool blocks.  A decode step is one forward over all
-slots with static [slots] shapes and an active mask: inactive lanes are
-not written, attend nothing, and advance neither their counts nor their
-random stream (core/sampler.py `sample_lanes`).  Budgets widen a dispatch
+row or commits into pool blocks.  With a prefix cache (paged only,
+`prefix_cache_size`, kv/prefix.py), a prompt that extends a stored one
+aliases its full blocks into the new page table, prefills only the rest,
+and copies a shared partial tail block through its staging row
+(copy-on-write); a prefilled prompt is stored by aliasing its blocks.  A
+decode step is one forward over all slots with static [slots] shapes and
+an active mask: inactive lanes are not written, attend nothing, and
+advance neither their counts nor their random stream (core/sampler.py `sample_lanes`).  Budgets widen a dispatch
 into an R-step chunk (CHUNK_BUCKETS): sampled tokens feed the next step on
 the device, and the chunk's results come back in one device-to-host read;
 the extra tokens buffer here.
@@ -34,7 +38,7 @@ PyTorch: a chunk is a Python loop whose launches queue on the current CUDA
 stream.  Not ported yet, and refused at load with `EngineCapabilityError`
 instead of serving something else: the dense-gather paged decode (paged
 with ragged off, or what the ragged kernel refuses: quantized pools, a
-model without the attention hook) and the prefix cache.
+model without the attention hook) and the prefix cache on dense slots.
 """
 
 from __future__ import annotations
@@ -63,6 +67,7 @@ from dnet_tpu_torch.kv import (
     BlockStore,
     KVPoolExhausted,
     PagedKVConfig,
+    PagedPrefixCache,
     PageTable,
     paged_enabled,
     ragged_enabled,
@@ -93,7 +98,7 @@ class BatchedEngine:
     ):
         self._refuse_config(slots, prefix_cache_size)
         self.eng = LocalEngine(model_dir, **engine_kwargs)
-        self._init_state(slots)
+        self._init_state(slots, prefix_cache_size)
 
     @classmethod
     def from_params(
@@ -104,7 +109,7 @@ class BatchedEngine:
         cls._refuse_config(slots, prefix_cache_size)
         self = cls.__new__(cls)
         self.eng = LocalEngine.from_params(config, window_params, edge_params, **kw)
-        self._init_state(slots)
+        self._init_state(slots, prefix_cache_size)
         return self
 
     @staticmethod
@@ -122,12 +127,14 @@ class BatchedEngine:
                 "only: set DNET_KV_RAGGED=1, or unset DNET_KV_PAGED for dense slots (the "
                 "dense-gather paged decode is not ported)"
             )
-        if prefix_cache_size:
+        if prefix_cache_size and not paged_enabled():
             raise EngineCapabilityError(
-                f"prefix cache (size {prefix_cache_size}) is not ported to the batched engine"
+                f"prefix cache (size {prefix_cache_size}) on dense batched slots: the dense "
+                "snapshot prefix cache is not ported (ROADMAP A4); it serves on paged slots "
+                "(DNET_KV_PAGED=1 DNET_KV_RAGGED=1)"
             )
 
-    def _init_state(self, slots: int) -> None:
+    def _init_state(self, slots: int, prefix_size: int = 0) -> None:
         from dnet_tpu_torch.api.inference import EngineCapabilityError
 
         m = self.eng.model
@@ -139,6 +146,10 @@ class BatchedEngine:
         self.kv = None  # dense slots: [L, slots, S, ...] (+ scales)
         self.kv_pool = self.kv_store = self._kv_cfg = None  # paged
         self._tables: List[Optional[PageTable]] = [None] * slots
+        self.paged_prefix: Optional[PagedPrefixCache] = None
+        # nonce -> (n_tokens, blocks, n_full) of a prefix hit not yet
+        # committed into its slot's page table (one reference each)
+        self._adopt: Dict[str, Tuple[int, List[int], int]] = {}
         if paged_enabled():
             why = ragged_refusal(m, self.eng.kv_quant_bits)
             if why is not None:
@@ -146,12 +157,15 @@ class BatchedEngine:
                     f"ragged paged attention refused: {why} (the dense-gather paged decode is not ported)"
                 )
             try:
-                cfg = PagedKVConfig.from_settings(self.max_seq, slots=slots)
+                # the pool's default size covers the prefix entries too
+                cfg = PagedKVConfig.from_settings(self.max_seq, slots=slots + prefix_size)
             except ValueError as exc:
                 raise EngineCapabilityError(str(exc)) from None
             self._kv_cfg = cfg
             self.kv_pool = BlockPool(cfg)
             self.kv_store = BlockStore(m, len(m.layers), cfg, self.eng.kv_dtype)
+            if prefix_size > 0:
+                self.paged_prefix = PagedPrefixCache(self.kv_pool, self.kv_store, prefix_size)
             log.info(
                 "paged KV on: %d blocks x %d tokens serving %d slots; decode attends the "
                 "pool in place (ragged paged attention)",
@@ -202,6 +216,10 @@ class BatchedEngine:
 
     def free_slot(self, nonce: str) -> None:
         self._buffer.pop(nonce, None)
+        stash = self._adopt.pop(nonce, None)
+        if stash is not None:
+            # a prefix hit whose prefill never committed (cancelled, starved)
+            self.kv_pool.free_blocks(stash[1])
         slot = self.slot_of.pop(nonce, None)
         if slot is not None:
             if self.kv_pool is not None:
@@ -254,7 +272,53 @@ class BatchedEngine:
                 kv_blocks_free=self.kv_pool.free,
                 kv_blocks_peak=self.kv_pool.peak_used,
             )
+        if self.paged_prefix is not None:
+            out["prefix_cache"] = dict(
+                self.paged_prefix.stats, entries=len(self.paged_prefix),
+                blocks=self.paged_prefix.held_blocks(),
+                shared_blocks=self.kv_pool.shared_blocks, cow_copies=self.kv_pool.cow_copies,
+            )
         return out
+
+    # ---- prefix cache -------------------------------------------------
+    def seed_from_prefix(self, nonce, full_ids, seed=None) -> int:
+        """Paged slots with a prefix cache: a hit's blocks are held for this
+        request's page table (full blocks aliased, no copy) and its staging
+        session starts from them, gathered into a dense row, at the hit's
+        length.  Returns the tokens covered (0 on a miss, on dense slots,
+        without a cache, or when the session already exists)."""
+        if self.paged_prefix is None or nonce in self.eng.sessions:
+            return 0
+        hit = self.paged_prefix.lookup_blocks(list(full_ids))
+        if hit is None:
+            return 0
+        n, blocks, n_full = hit
+        sess = self.eng.new_session(nonce, seed)
+        sess.kv = self.kv_store.gather_row(blocks, self.max_seq)
+        sess.pos = n
+        self._adopt[nonce] = (n, blocks, n_full)
+        return n
+
+    def store_prefix(self, nonce, full_ids) -> None:
+        """Snapshot `full_ids`' KV into the prefix cache: an adopted slot's
+        live page table is aliased (zero copies); a prompt still staging
+        commits its tail blocks, aliasing a parent entry's full blocks."""
+        if self.paged_prefix is None:
+            return
+        full = list(full_ids)
+        slot = self.slot_of.get(nonce)
+        if slot is not None and self._tables[slot] is not None and int(self.pos[slot]) == len(full):
+            self.paged_prefix.store_blocks(full, len(full), self._tables[slot].blocks)
+            return
+        sess = self.eng.sessions.get(nonce)
+        if sess is not None and sess.kv is not None and sess.pos == len(full):
+            self.paged_prefix.store(full, sess.kv)
+
+    def _held_full_blocks(self, nonce) -> int:
+        """Full blocks a prefix hit already holds for this request: only
+        these count as covered at admission (a shared partial tail block is
+        copied into a fresh one)."""
+        return self._adopt.get(nonce, (0, [], 0))[2]
 
     # ---- prefill ------------------------------------------------------
     def reserve_slot(self, nonce) -> None:
@@ -270,7 +334,8 @@ class BatchedEngine:
         if self.kv_pool is not None:
             sess = self.eng.sessions.get(nonce)
             pos = 0 if sess is None else int(sess.pos)
-            self.kv_pool.require(self._kv_cfg.blocks_for(min(pos + len(ids), self.max_seq)))
+            need = self._kv_cfg.blocks_for(min(pos + len(ids), self.max_seq))
+            self.kv_pool.require(max(need - self._held_full_blocks(nonce), 0))
         return self.eng.prefill(nonce, list(ids), seed)
 
     def abandon_prefill(self, nonce) -> None:
@@ -293,15 +358,29 @@ class BatchedEngine:
         return res
 
     def _commit_paged_slot(self, nonce: str, slot: int, sess) -> None:
-        """Turn a staged B=1 prefill into this slot's page table: the staged
-        dense row commits block by block into fresh pool blocks (all or
-        nothing)."""
-        nb = self._kv_cfg.blocks_for(int(sess.pos))
-        own = self.kv_pool.alloc(nb)
-        self.kv_store.commit_row(sess.kv, list(range(nb)), own)
+        """Turn a staged B=1 prefill into this slot's page table: a prefix
+        hit's full blocks stay in place, and every block from the first
+        unshared one commits out of the staged dense row (all or nothing),
+        which already merged a shared partial block with the new tokens:
+        the copy-on-write."""
+        cfg = self._kv_cfg
+        nb = cfg.blocks_for(int(sess.pos))
+        stash = self._adopt.pop(nonce, None)
+        n_sh, blocks, n_full = stash if stash is not None else (0, [], 0)
+        try:
+            own = self.kv_pool.alloc(nb - n_full)
+        except KVPoolExhausted:
+            if stash is not None:
+                self._adopt[nonce] = stash  # abandon_prefill releases it
+            raise
+        self.kv_store.commit_row(sess.kv, list(range(n_full, nb)), own)
+        if stash is not None:
+            if n_sh % cfg.block_tokens:
+                self.kv_pool.count_cow()
+            self.kv_pool.free_blocks(blocks[n_full:])  # the transient hold
         # a re-prefilled nonce keeps its slot: drop the superseded table
         self.kv_pool.release_table(self._tables[slot])
-        self._tables[slot] = PageTable(blocks=own)
+        self._tables[slot] = PageTable(blocks=list(blocks[:n_full]) + own)
 
     def _move_to_slot(self, nonce: str, sess) -> None:
         slot = self.alloc_slot(nonce)
@@ -322,20 +401,24 @@ class BatchedEngine:
     def prefill_and_sample(
         self, nonce: str, prompt_ids: Sequence[int], decoding: DecodingParams
     ) -> SampleResult:
-        """Prefill on the B=1 engine, then move the session's KV row and
-        sampling state into this request's batch slot."""
+        """Prefill on the B=1 engine (from a prefix hit where there is one),
+        then move the session's KV row and sampling state into this
+        request's batch slot, and store the prompt in the prefix cache."""
         self.alloc_slot(nonce)  # fail on a full slot pool BEFORE burning prefill
         full = list(prompt_ids)
         try:
+            n = self.seed_from_prefix(nonce, full, decoding.seed)
             if self.kv_pool is not None:
-                # admission: the pool must cover the prompt before prefill burns
-                self.kv_pool.require(self._kv_cfg.blocks_for(min(len(full), self.max_seq)))
-            logits = self.eng.prefill(nonce, full, decoding.seed)
+                # admission: the pool must cover the uncovered prompt before prefill burns
+                need = self._kv_cfg.blocks_for(min(len(full), self.max_seq))
+                self.kv_pool.require(max(need - self._held_full_blocks(nonce), 0))
+            logits = self.eng.prefill(nonce, full[n:], decoding.seed)
             res = self._sample_session(self.eng.sessions[nonce], logits, decoding)
             self._move_to_slot(nonce, self.eng.sessions[nonce])
         except Exception:
             self.abandon_prefill(nonce)
             raise
+        self.store_prefix(nonce, full)
         return res
 
     # ---- decode -------------------------------------------------------

@@ -5,7 +5,9 @@
 // Replaces two TPU kernels of dnet_tpu/compression/ops.py:
 //   - `_norms_kernel` (:24, via `_column_sq_norms_pallas` and
 //     `column_l2_norms`): x [R, C] bf16/f32 -> [C] f32, the sum of squares of
-//     each column, accumulated over row tiles in a sequential grid.
+//     each column, accumulated over row tiles in a sequential grid; here
+//     with the `jax.lax.top_k` + sort that follows it on the send side
+//     (:198-205, :238-249) fused in.
 //   - `_matmul_kernel` (:81, via `_pallas_matmul`, `gather_columns` and
 //     `scatter_columns`): a [R, D] @ one-hot [D, K] product on the MXU, which
 //     is an exact column gather [R, D] -> [R, K], or a column scatter
@@ -33,11 +35,22 @@
 //     any idx in [0, C) gives the same bits.  The kept bytes are its bound;
 //     the 32-byte sectors of x they touch are the bound a design that reads
 //     x can reach.
-//   - the norms walk rows with one thread per column, so a warp reads
-//     neighbouring columns of one row (coalesced).  The rows are split across
-//     blocks to fill the card at small C; each split writes its partial sums
-//     and a second pass adds them in split order.  No float atomics: the sums
-//     are the same bits on every run, so the top-k that follows is steady.
+//   - the norms and the codec's top-k are one launch (the TPU side ran the
+//     norms kernel, then `jax.lax.top_k` and a sort inside one jitted
+//     program, :198-205).  A block owns a strip of a warp's 512 bytes of a
+//     row (256 bf16 or 128 f32 columns, 16 bytes a lane) and walks a range
+//     of rows, its warps adding their rows in a fixed order through shared
+//     memory; rows split over blocks until about two blocks an SM run.  Each
+//     split writes its sums and takes its strip's ticket, and the last adds
+//     the partials in split order (the decode kernel's ticket merge): no
+//     float atomics, so a frame's norms, and the columns picked from them,
+//     are the same on every run.  With a `keep`, the last strip to finish
+//     holds all C norms in shared memory, radix-selects the keep-th largest
+//     on their f32 bits (the norms are >= 0, so the bits order as the
+//     floats; ties go to the lower index, as `jax.lax.top_k`), and writes
+//     the kept columns ascending and the wire's packed bitmask.  A decode
+//     hop's frame (R = 1) is launch-bound: this takes its select chain
+//     (sorts, casts and a host sync for the mask) down to one kernel.
 //   - the scatter writes every output element exactly once (zeros included),
 //     16 bytes a thread a row (8 bf16 or 4 f32 columns; element stores where
 //     D is not a multiple of that, so a row start is not 16-byte aligned): a
@@ -56,7 +69,7 @@
 
 namespace {
 
-constexpr int NTHREADS = 256;  // columns per block
+constexpr int NTHREADS = 256;  // threads per block in every kernel
 constexpr int NWARPS_GATHER = NTHREADS / 32;
 
 template <typename T> __device__ __forceinline__ float to_float(T x);
@@ -65,35 +78,213 @@ template <> __device__ __forceinline__ float to_float<__nv_bfloat16>(__nv_bfloat
   return __bfloat162float(x);
 }
 
-// partial[s, c] = sum over rows [s * rows_per_split, (s + 1) * rows_per_split) of x[r, c]^2
-// (with n_split == 1 `partial` is the output itself)
-template <typename T>
-__global__ void __launch_bounds__(NTHREADS)
-sq_norms_partial_kernel(const T* __restrict__ x, float* __restrict__ partial, int R, int C,
-                        int rows_per_split) {
-  const int c = blockIdx.x * NTHREADS + threadIdx.x;
-  if (c >= C) return;
-  const int r0 = blockIdx.y * rows_per_split;
-  const int r1 = min(R, r0 + rows_per_split);
-  const T* col = x + c;
-  float acc = 0.f;
-#pragma unroll 8
-  for (int r = r0; r < r1; ++r) {
-    const float v = to_float<T>(col[(long)r * C]);
-    acc = fmaf(v, v, acc);
+constexpr int NORMS_WARPS = NTHREADS / 32;
+constexpr int RADIX_BINS = 256;  // 8-bit digits: four passes over a 32-bit key
+static_assert(RADIX_BINS == NTHREADS, "the selection's scan gives each thread one digit");
+
+// The sum of v over the block's threads before this one (thread order),
+// through `warp_tot` [NORMS_WARPS]; every thread of the block calls it.
+__device__ __forceinline__ int block_exclusive_scan(int v, int* warp_tot) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  int incl = v;
+#pragma unroll
+  for (int o = 1; o < 32; o <<= 1) {
+    const int n = __shfl_up_sync(0xffffffffu, incl, o);
+    if (lane >= o) incl += n;
   }
-  partial[(long)blockIdx.y * C + c] = acc;
+  if (lane == 31) warp_tot[warp] = incl;
+  __syncthreads();
+  int before = 0;
+  for (int w = 0; w < warp; ++w) before += warp_tot[w];
+  __syncthreads();  // warp_tot is free for the next scan
+  return before + incl - v;
 }
 
-// out[c] = sum over s of partial[s, c], in split order
+// One thread of the block takes a ticket on `counter` with acquire-release
+// semantics (the barrier before it makes the block's writes part of its
+// release, the barrier after it gives the block what earlier blocks
+// released); true in every thread of the block that took the last of `n`.
+__device__ __forceinline__ bool last_ticket(int* counter, int n, int* flag) {
+  __threadfence();
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    int ticket;
+    asm volatile("atom.acq_rel.gpu.global.add.s32 %0, [%1], %2;\n"
+                 : "=r"(ticket) : "l"(counter), "r"(1) : "memory");
+    *flag = ticket == n - 1;
+    if (ticket == n - 1) *counter = 0;  // ready for the next call on this stream
+  }
+  __syncthreads();
+  return *flag;
+}
+
+// The selection, in the last block: the `keep` largest of norms [C] (NaN
+// above +inf, ties to the lower index, as the plain version's stable sort)
+// -> idx [keep] ascending and the packed bitmask [ceil(C / 8)] (bit 7 of
+// byte b is column 8b, as np.packbits).  The norms are >= 0, so their f32
+// bits order as the floats: a radix select over 8-bit digits, most
+// significant first, finds the keep-th largest key (`prefix` at the end) and
+// how many keys equal to it are kept (`k`); a prefix sum over the threads'
+// runs of columns then places each kept column.
+__device__ void select_top(const float* norms, uint32_t* keys, int C, int keep, int* idx_out,
+                           uint8_t* mask_out) {
+  __shared__ int hist[RADIX_BINS];
+  __shared__ int warp_tot[NORMS_WARPS];
+  __shared__ uint32_t s_prefix;
+  __shared__ int s_k;
+  const int tid = threadIdx.x;
+  for (int i = tid; i < C; i += NTHREADS) {
+    const float v = __ldcg(norms + i);
+    keys[i] = isnan(v) ? 0x7fffffffu : __float_as_uint(v);
+  }
+  uint32_t prefix = 0, pmask = 0;
+  int k = keep;
+  for (int shift = 24; shift >= 0; shift -= 8) {
+    hist[tid] = 0;
+    __syncthreads();
+    for (int i = tid; i < C; i += NTHREADS) {
+      const uint32_t u = keys[i];
+      if ((u & pmask) == prefix) atomicAdd(&hist[(u >> shift) & (RADIX_BINS - 1)], 1);
+    }
+    __syncthreads();
+    // thread t holds digit 255 - t: its exclusive sum counts the keys of
+    // higher digits, and exactly one thread's digit holds the k-th largest
+    const int digit = RADIX_BINS - 1 - tid;
+    const int cnt = hist[digit];
+    const int above = block_exclusive_scan(cnt, warp_tot);
+    if (above < k && above + cnt >= k) {
+      s_prefix = prefix | ((uint32_t)digit << shift);
+      s_k = k - above;
+    }
+    __syncthreads();
+    prefix = s_prefix;
+    k = s_k;
+    pmask |= (uint32_t)(RADIX_BINS - 1) << shift;
+  }
+  // each thread owns a run of columns, a multiple of 8 (whole mask bytes)
+  const int run = ((C + NTHREADS - 1) / NTHREADS + 7) & ~7;
+  const int a = min(C, tid * run), b = min(C, a + run);
+  int n_gt = 0, n_eq = 0;
+  for (int i = a; i < b; ++i) {
+    n_gt += keys[i] > prefix;
+    n_eq += keys[i] == prefix;
+  }
+  int eq_seen = block_exclusive_scan(n_eq, warp_tot);
+  const int mine = n_gt + max(0, min(n_eq, k - eq_seen));
+  int pos = block_exclusive_scan(mine, warp_tot);
+  for (int i = a; i < b; i += 8) {
+    unsigned byte = 0;
+    for (int e = 0; e < 8 && i + e < b; ++e) {
+      const uint32_t u = keys[i + e];
+      const bool kept = u > prefix || (u == prefix && eq_seen++ < k);
+      if (kept) {
+        idx_out[pos++] = i + e;
+        byte |= 0x80u >> e;
+      }
+    }
+    mask_out[i >> 3] = static_cast<uint8_t>(byte);
+  }
+}
+
+// norms[c] = sum over r of x[r, c]^2 in f32, and with keep > 0 the top-keep
+// selection of them, in one launch.  Grid (strips, n_split): a block owns a
+// strip of 32 x VEC columns (a warp's 512 bytes of a row) and the rows
+// [split * rows_per_split, +rows_per_split); warp w walks rows w, w + 8, ...
+// of them, a lane VEC neighbouring columns (one 16-byte load a row; VEC
+// columns at stride 32 on the element path), and the warps' sums are added
+// in warp order through shared memory.  With n_split > 1 each split writes
+// its sums to partial [n_split, C] and takes its strip's ticket; the last
+// adds the partials in split order.  Then with keep > 0 each strip takes
+// the call's ticket and the last runs the selection.  Every product and sum
+// is rounded on its own (__fmul_rn, __fadd_rn), in an order fixed by the
+// shape: a frame's norms are the same bits on every run.
+template <typename T>
 __global__ void __launch_bounds__(NTHREADS)
-sq_norms_combine_kernel(const float* __restrict__ partial, float* __restrict__ out, int C,
-                        int n_split) {
-  const int c = blockIdx.x * NTHREADS + threadIdx.x;
-  if (c >= C) return;
-  float acc = 0.f;
-  for (int s = 0; s < n_split; ++s) acc += partial[(long)s * C + c];
-  out[c] = acc;
+norms_topk_kernel(const T* __restrict__ x, float* __restrict__ partial, float* __restrict__ norms,
+                  int* __restrict__ tickets, int* __restrict__ idx_out, uint8_t* __restrict__ mask_out,
+                  int R, int C, int rows_per_split, int keep, bool vec) {
+  constexpr int VEC = 16 / sizeof(T);
+  constexpr int JW = 32 * VEC;  // the strip: 256 bf16 or 128 f32 columns
+  extern __shared__ __align__(16) float smem[];  // [NORMS_WARPS, JW] sums, then the keys
+  __shared__ int flag;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int n_split = gridDim.y;
+  const int c0 = blockIdx.x * JW;
+  const int r0 = blockIdx.y * rows_per_split;
+  const int r1 = min(R, r0 + rows_per_split);
+  float acc[VEC];
+#pragma unroll
+  for (int e = 0; e < VEC; ++e) acc[e] = 0.f;
+  if (vec) {  // C % VEC == 0 and x 16-byte aligned: every row's chunk is aligned
+    const int c = c0 + lane * VEC;
+    if (c < C) {
+#pragma unroll 4
+      for (int r = r0 + warp; r < r1; r += NORMS_WARPS) {
+        float v[VEC];
+        dnet::load16<T>(x + (long)r * C + c, v);
+#pragma unroll
+        for (int e = 0; e < VEC; ++e) acc[e] = __fadd_rn(acc[e], __fmul_rn(v[e], v[e]));
+      }
+    }
+#pragma unroll
+    for (int e = 0; e < VEC; ++e) smem[warp * JW + lane * VEC + e] = acc[e];
+  } else {
+#pragma unroll 2
+    for (int r = r0 + warp; r < r1; r += NORMS_WARPS) {
+      const T* xr = x + (long)r * C + c0 + lane;
+#pragma unroll
+      for (int e = 0; e < VEC; ++e) {
+        if (c0 + e * 32 + lane < C) {
+          const float v = to_float<T>(xr[e * 32]);
+          acc[e] = __fadd_rn(acc[e], __fmul_rn(v, v));
+        }
+      }
+    }
+#pragma unroll
+    for (int e = 0; e < VEC; ++e) smem[warp * JW + e * 32 + lane] = acc[e];
+  }
+  __syncthreads();
+  const int j = threadIdx.x;  // the strip column this thread adds up
+  const bool mine = j < JW && c0 + j < C;
+  float s = 0.f;
+  if (mine)
+    for (int w = 0; w < NORMS_WARPS; ++w) s = __fadd_rn(s, smem[w * JW + j]);
+  if (n_split == 1) {
+    if (mine) norms[c0 + j] = s;
+  } else {
+    if (mine) partial[(long)blockIdx.y * C + c0 + j] = s;
+    if (!last_ticket(tickets + blockIdx.x, n_split, &flag)) return;
+    if (mine) {
+      float o = 0.f;
+      for (int sp = 0; sp < n_split; ++sp) o = __fadd_rn(o, __ldcg(partial + (long)sp * C + c0 + j));
+      norms[c0 + j] = o;
+    }
+  }
+  if (keep <= 0) return;
+  if (!last_ticket(tickets + gridDim.x, gridDim.x, &flag)) return;
+  select_top(norms, reinterpret_cast<uint32_t*>(smem), C, keep, idx_out, mask_out);
+}
+
+template <typename T>
+int launch_norms_topk(const void* x, float* partial, float* norms, int* tickets, int* idx,
+                      uint8_t* mask, int R, int C, int n_split, int rows_per_split, int keep,
+                      cudaStream_t st) {
+  constexpr int VEC = 16 / sizeof(T);
+  constexpr int JW = 32 * VEC;
+  const size_t sums = NORMS_WARPS * JW * sizeof(float);
+  const size_t keys = keep > 0 ? (size_t)C * sizeof(uint32_t) : 0;
+  const size_t smem = keys > sums ? keys : sums;
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        norms_topk_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  const bool vec = C % VEC == 0 && reinterpret_cast<uintptr_t>(x) % 16 == 0;
+  const dim3 grid((C + JW - 1) / JW, n_split);
+  norms_topk_kernel<T><<<grid, NTHREADS, smem, st>>>(static_cast<const T*>(x), partial, norms,
+                                                     tickets, idx, mask, R, C, rows_per_split,
+                                                     keep, vec);
+  return static_cast<int>(cudaGetLastError());
 }
 
 constexpr int GATHER_ROWS = 16;      // rows a gather block owns
@@ -337,30 +528,25 @@ int launch_dequant_scatter(int mode, const void* src, const float* scale, const 
 
 }  // namespace
 
-// x [R, C] (dtype code) -> out [C] f32.  n_split > 1 needs partial
-// [n_split, C] f32 scratch; rows_per_split * n_split >= R.
-extern "C" int dnet_column_sq_norms(int dtype, const void* x, float* partial, float* out, int R,
-                                    int C, int n_split, int rows_per_split, void* stream) {
+// x [R, C] (dtype code) -> norms [C] f32 and, with keep in [1, C], idx
+// [keep] int32 ascending and mask [ceil(C / 8)] uint8 of the top keep.
+// n_split > 1 needs partial [n_split, C] f32 scratch; n_split > 1 or
+// keep > 0 needs tickets [strips + 1] int32, zero between calls (the kernel
+// returns them to zero); rows_per_split * n_split >= R.
+extern "C" int dnet_column_norms_topk(int dtype, const void* x, float* partial, float* norms,
+                                      int* tickets, int* idx, uint8_t* mask, int R, int C,
+                                      int n_split, int rows_per_split, int keep, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (R < 1 || C < 1 || n_split < 1 || (long)rows_per_split * n_split < R) return -1;
-  float* first = n_split == 1 ? out : partial;
-  const dim3 grid((C + NTHREADS - 1) / NTHREADS, n_split);
-  if (dtype == dnet::DTYPE_BF16) {
-    sq_norms_partial_kernel<__nv_bfloat16><<<grid, NTHREADS, 0, st>>>(
-        static_cast<const __nv_bfloat16*>(x), first, R, C, rows_per_split);
-  } else if (dtype == dnet::DTYPE_F32) {
-    sq_norms_partial_kernel<float><<<grid, NTHREADS, 0, st>>>(
-        static_cast<const float*>(x), first, R, C, rows_per_split);
-  } else {
-    return -1;
-  }
-  if (n_split > 1) {
-    const cudaError_t err = cudaGetLastError();
-    if (err != cudaSuccess) return static_cast<int>(err);
-    sq_norms_combine_kernel<<<(C + NTHREADS - 1) / NTHREADS, NTHREADS, 0, st>>>(partial, out, C,
-                                                                               n_split);
-  }
-  return static_cast<int>(cudaGetLastError());
+  if (R < 1 || C < 1 || n_split < 1 || n_split > 65535 || (long)rows_per_split * n_split < R) return -1;
+  if ((n_split > 1 && (!partial || !tickets)) || keep > C) return -1;
+  if (keep > 0 && (!tickets || !idx || !mask)) return -1;
+  if (dtype == dnet::DTYPE_BF16)
+    return launch_norms_topk<__nv_bfloat16>(x, partial, norms, tickets, idx, mask, R, C, n_split,
+                                            rows_per_split, keep, st);
+  if (dtype == dnet::DTYPE_F32)
+    return launch_norms_topk<float>(x, partial, norms, tickets, idx, mask, R, C, n_split,
+                                    rows_per_split, keep, st);
+  return -1;
 }
 
 // out [R, K] = x [R, C][:, idx], elements of elem_bytes (2 or 4) bytes;

@@ -1,6 +1,6 @@
 """Paged KV: the block pool, page tables and the pool's device tensors.
 
-Counterpart of dnet_tpu/kv/ without the prefix cache (`kv/prefix.py`).
+Counterpart of dnet_tpu/kv/, with the paged prefix cache (`kv/prefix.py`).
 """
 
 from dnet_tpu_torch.kv.paged import (
@@ -11,6 +11,7 @@ from dnet_tpu_torch.kv.paged import (
     paged_enabled,
     ragged_enabled,
 )
+from dnet_tpu_torch.kv.prefix import PagedPrefixCache
 from dnet_tpu_torch.kv.store import BlockStore
 
 __all__ = [
@@ -19,6 +20,7 @@ __all__ = [
     "KVPoolExhausted",
     "PagedKVConfig",
     "PageTable",
+    "PagedPrefixCache",
     "paged_enabled",
     "ragged_enabled",
 ]

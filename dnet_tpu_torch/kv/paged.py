@@ -8,9 +8,9 @@ cache tensors.  Everything here is plain Python under one lock.
 
 The reference publishes the pool's state as Prometheus gauges; here they are
 plain counters on the pool (`used`, `free`, `peak_used`, `cow_copies`,
-`shared_blocks`, `admission_rejected`).  Refcounts, `share` and `cow` stay
-because the pool's invariants need them, though the prefix cache that
-shares blocks is not ported yet.
+`shared_blocks`, `admission_rejected`).  Refcounts, `retain`, `share` and
+`cow` serve the paged prefix cache (kv/prefix.py), whose entries alias the
+blocks of live page tables.
 
 Invariants (`check_conservation`):
 - ``used + free == total`` at every step; a block shared by N holders counts
@@ -122,6 +122,10 @@ class BlockPool:
         # caller holds _lock
         self.peak_used = max(self.peak_used, len(self._ref))
 
+    def can_cover(self, n_blocks: int) -> bool:
+        with self._lock:
+            return len(self._free) >= n_blocks
+
     def require(self, n_blocks: int) -> None:
         """Admission pre-check: raise KVPoolExhausted (and count the
         rejection) if the pool cannot cover n_blocks now, before a prefill
@@ -150,15 +154,30 @@ class BlockPool:
             self._note_peak()
         return out
 
-    def share(self, blocks: Sequence[int]) -> List[int]:
-        """Alias existing blocks (ref++ each); returns them for chaining."""
+    def retain(self, blocks: Sequence[int]) -> List[int]:
+        """Take one extra reference per block, not counted as sharing (a
+        transient hold, e.g. a prefix entry's partial tail block while an
+        adopter copies it)."""
         with self._lock:
             for b in blocks:
                 if b not in self._ref:
-                    raise ValueError(f"share of unallocated block {b}")
+                    raise ValueError(f"retain of unallocated block {b}")
                 self._ref[b] += 1
-            self.shared_blocks += len(blocks)
         return list(blocks)
+
+    def share(self, blocks: Sequence[int]) -> List[int]:
+        """Alias existing blocks (ref++ each); returns them for chaining.
+        Counted in `shared_blocks`: each is a copy the dense path would make."""
+        out = self.retain(blocks)
+        with self._lock:
+            self.shared_blocks += len(out)
+        return out
+
+    def count_cow(self, n: int = 1) -> None:
+        """Count copies-on-write made outside `cow()` (a shared partial
+        block whose merged contents commit from a dense staging row)."""
+        with self._lock:
+            self.cow_copies += n
 
     def free_blocks(self, blocks: Sequence[int]) -> int:
         """Drop one reference per block; blocks reaching ref 0 return to the

@@ -9,7 +9,9 @@ writes update the pool in place (the reference donates the buffers to jitted
 programs for the same effect).
 
 The ragged path needs no gather: decode reads the pool through the page
-tables in the kernel itself (ops/paged_attention.py).
+tables in the kernel itself (ops/paged_attention.py).  A prefix-cache hit
+gathers its blocks once into the dense staging row its prefill continues
+from (`gather_row`).
 
 Where JAX drops an inactive lane's append by passing an out-of-range block
 with `mode="drop"`, PyTorch indexing has no drop mode: an out-of-range index
@@ -58,6 +60,25 @@ class BlockStore:
             L, S = row.shape[:2]
             blocks = row.reshape(L, S // bt, bt, *row.shape[2:])
             pool[:, pb] = blocks[:, lb].to(pool.dtype)
+
+    def gather_row(self, blocks: Sequence[int], width_tokens: int) -> Dict[str, torch.Tensor]:
+        """One sequence's blocks as a fresh dense row [L, 1, width_tokens,
+        ...] (logical block i from pool block blocks[i]); rows past the
+        blocks are zeros, beyond every position the row's prefill attends."""
+        bt = self.block_tokens
+        if width_tokens % bt or len(blocks) * bt > width_tokens:
+            raise ValueError(f"{len(blocks)} blocks of {bt} tokens in a row of {width_tokens}")
+        self._check_blocks(blocks)
+        n = len(blocks) * bt
+        idx = self._index(blocks)
+        out = {}
+        for name, pool in self.kv.items():
+            L, tail = pool.shape[0], pool.shape[3:]
+            row = torch.zeros((L, 1, width_tokens, *tail), dtype=pool.dtype, device=pool.device)
+            if n:
+                row[:, 0, :n] = pool[:, idx].reshape(L, n, *tail)
+            out[name] = row
+        return out
 
     def append_rows(
         self, rows: Dict[str, torch.Tensor], lanes: Sequence[int], phys: Sequence[int],

@@ -1,0 +1,195 @@
+"""Tick packing: token budget -> one mixed prefill+decode batch plan.
+
+Counterpart of dnet_tpu/sched/policy.py.  Every tick the policy packs at most ``DNET_SCHED_TOKEN_BUDGET`` tokens of
+work into one :class:`TickPlan`:
+
+1. **Decode first.**  Every DECODING request with a pending step gets one
+   token (decode is what the per-token SLO measures; a long prompt must
+   never starve running streams for more than one tick).  Fused-chunk
+   budgets ride along so the engine may still batch R device steps per
+   dispatch — the active set is fixed per tick, so streams stay
+   bit-identical to serial stepping.
+2. **Chunked prefill fills the remainder.**  PREFILLING requests continue
+   (most urgent first) in ``DNET_SCHED_PREFILL_CHUNK``-bounded segments.
+3. **Admission.**  WAITING requests are admitted most-urgent-first while
+   a batch slot is free and the paged-KV pool can cover their whole
+   prompt (``BlockPool.can_cover`` — admission is a function of FREE
+   BLOCKS, not worst-case length).  When nothing is running at all, the
+   top request is admitted regardless so an oversized prompt fails fast
+   with the typed backpressure error instead of queueing forever.
+
+The policy runs on the event loop and snapshots everything the compute
+thread needs into the plan; it never reads compute-thread-owned engine
+state (slot occupancy is derived from the queue's own books, the block
+pool is lock-guarded).  Dense batched slots have no pool and admit on
+slots alone.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass, field
+from typing import Dict, List, Optional, Tuple
+
+from dnet_tpu_torch.core.types import DecodingParams
+from dnet_tpu_torch.sched.kinds import STATE_PREFILLING
+from dnet_tpu_torch.sched.queue import SchedQueue, SchedRequest
+
+
+@dataclass
+class PrefillChunk:
+    """One chunked-prefill segment of one request for this tick."""
+
+    nonce: str
+    ids: List[int]  # full replay ids (prompt + driver-confirmed tokens)
+    start: int  # staging position this chunk assumes
+    end: int  # staging position after this chunk
+    first: bool  # reserve a slot + prefix-cache seed before this chunk
+    last: bool  # store prefix + adopt into a batch lane after this chunk
+    decoding: DecodingParams
+    pending_step: int  # the driver step this request's next sample resolves
+    seed: Optional[int]
+    #: strictly-lower-priority DECODING nonces this prefill may evict on
+    #: pool starvation (least urgent first); resources only flow up the
+    #: priority order, so preemption cannot cycle
+    victims: List[str] = field(default_factory=list)
+
+
+@dataclass
+class TickPlan:
+    prefills: List[PrefillChunk] = field(default_factory=list)
+    #: nonce -> (last token, decoding) for this tick's batched decode
+    decode: Dict[str, Tuple[int, DecodingParams]] = field(default_factory=dict)
+    budgets: Dict[str, Optional[int]] = field(default_factory=dict)
+    steps: Dict[str, int] = field(default_factory=dict)
+    #: replay ids for EVERY decoding request (preemption stash source)
+    ids: Dict[str, List[int]] = field(default_factory=dict)
+    #: decode eviction order on block starvation, least urgent first
+    victims: List[str] = field(default_factory=list)
+    admitted: List[str] = field(default_factory=list)
+    prefill_tokens: int = 0
+
+    def empty(self) -> bool:
+        return not self.prefills and not self.decode
+
+
+class SchedulerPolicy:
+    def __init__(self, token_budget: int, prefill_chunk: int) -> None:
+        self.token_budget = max(int(token_budget), 1)
+        self.prefill_chunk = max(int(prefill_chunk), 1)
+
+    # ---- admission ----------------------------------------------------
+    @staticmethod
+    def admissible(req: SchedRequest, engine) -> bool:
+        """Can the paged pool cover this request's whole prompt (plus one
+        decode block) right now?  Dense engines admit on slots alone.
+        Conservative for preempted requests — their aliased prefix blocks
+        make the actual prefill cheaper, but counting on a cache hit for
+        admission would thrash the pool."""
+        pool = getattr(engine, "kv_pool", None)
+        if pool is None:
+            return True
+        cfg = engine._kv_cfg
+        need = cfg.blocks_for(min(len(req.ids) + 1, engine.max_seq))
+        return pool.can_cover(need)
+
+    def has_work(self, queue: SchedQueue, engine) -> bool:
+        """Would the next plan be non-empty?  (The tick loop parks when
+        not — progress then comes from a send/reset kick.)"""
+        if any(r.pending_step is not None for r in queue.decoding()):
+            return True
+        if queue.prefilling():
+            return True
+        # a preempted request whose next driver step has not arrived yet
+        # is not schedulable: its resume sample would have no future to
+        # resolve (the send that names the step is moments away)
+        waiting = [r for r in queue.waiting() if r.pending_step is not None]
+        if not waiting:
+            return False
+        if queue.active() == 0:
+            return True  # top request is admitted regardless (fail fast)
+        slots_free = getattr(engine, "slots", 1) - queue.active()
+        return slots_free > 0 and any(
+            self.admissible(r, engine) for r in waiting
+        )
+
+    # ---- packing ------------------------------------------------------
+    def plan(self, queue: SchedQueue, engine) -> TickPlan:
+        out = TickPlan()
+        budget = self.token_budget
+
+        decoding = queue.decoding()
+        # replay-id snapshots are only consumed on preemption (the prefix
+        # alias of an evicted victim), so the O(lanes x seq_len) copies are
+        # taken only under pool pressure; a mis-predicted eviction without
+        # its snapshot just skips the alias and re-prefills on resume
+        pool = getattr(engine, "kv_pool", None)
+        pressure = False
+        if pool is not None:
+            bt = engine._kv_cfg.block_tokens
+            margin = len(decoding) + self.token_budget // bt + 4
+            pressure = pool.free < margin
+        for r in decoding:
+            if pressure:
+                out.ids[r.nonce] = list(r.ids)
+            if r.pending_step is None:
+                continue
+            out.decode[r.nonce] = (r.ids[-1], r.decoding)
+            out.budgets[r.nonce] = r.pending_budget
+            out.steps[r.nonce] = r.pending_step
+        budget -= len(out.decode)
+        out.victims = queue.victims()
+        prios = {r.nonce: r.priority() for r in decoding}
+
+        def chunk_for(r: SchedRequest, first: bool) -> int:
+            remaining = len(r.ids) - r.prefilled
+            return max(min(self.prefill_chunk, budget, remaining), 0)
+
+        def emit(r: SchedRequest, first: bool) -> None:
+            nonlocal budget
+            n = chunk_for(r, first)
+            end = r.prefilled + n
+            out.prefills.append(
+                PrefillChunk(
+                    nonce=r.nonce,
+                    ids=list(r.ids),
+                    start=r.prefilled,
+                    end=end,
+                    first=first,
+                    last=end >= len(r.ids),
+                    decoding=r.decoding,
+                    pending_step=r.pending_step if r.pending_step is not None else 0,
+                    seed=r.decoding.seed,
+                    victims=[
+                        v for v in out.victims if prios[v] > r.priority()
+                    ],
+                )
+            )
+            out.prefill_tokens += n
+            budget -= n
+
+        for r in queue.prefilling():
+            if budget <= 0:
+                break
+            emit(r, first=(r.prefilled == 0))
+
+        # admission: slot occupancy from the queue's own books (the
+        # engine's free list is compute-thread state; a lost race is a
+        # clean requeue in step.py, never a client error)
+        slots_free = max(getattr(engine, "slots", 1) - queue.active(), 0)
+        nothing_active = queue.active() == 0
+        for r in queue.waiting():
+            if budget <= 0 or slots_free <= 0:
+                break
+            if r.pending_step is None:
+                continue  # preempted; its next driver step names the future
+            if not self.admissible(r, engine) and not (
+                nothing_active and not out.admitted
+            ):
+                continue
+            r.state = STATE_PREFILLING
+            r.prefilled = 0
+            out.admitted.append(r.nonce)
+            slots_free -= 1
+            emit(r, first=True)
+        queue.sync_gauges()
+        return out

@@ -311,7 +311,7 @@ def test_pool_exhaustion_is_typed_backpressure(weights, monkeypatch):
     [
         ({}, {"kv_quant_bits": 8}, "dense-gather paged decode is not ported"),  # quantized pool
         ({"DNET_KV_RAGGED": "0"}, {}, "DNET_KV_RAGGED=1"),
-        ({}, {"prefix_cache_size": 4}, "prefix cache"),
+        ({"DNET_KV_PAGED": "0"}, {"prefix_cache_size": 4}, "prefix cache"),  # on dense slots
         ({"DNET_KV_BLOCK_TOKENS": "24"}, {}, "divide max_seq"),
     ],
 )

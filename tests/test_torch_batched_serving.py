@@ -8,7 +8,9 @@ greedy SSE once the response id and created stamp are normalised (the
 pattern of tests/subsystems/test_ragged_parity.py).  Capacity errors come
 back as 429, and every configuration the port does not serve yet is
 refused at load with 422 (dense batched slots, DNET_KV_PAGED unset, are
-held in tests/test_torch_kv_serving.py)."""
+held in tests/test_torch_kv_serving.py); a prefix cache and the scheduler
+serve the reference's bytes (tests/test_torch_sched_serving.py holds the
+scheduler in depth)."""
 
 import asyncio
 import json
@@ -149,8 +151,6 @@ def test_slot_exhaustion_is_429(tiny_llama_dir, paged_env):
     [
         ({"DNET_KV_BLOCK_TOKENS": "24"}, "divide max_seq"),  # a block size max_seq is no multiple of
         ({"DNET_KV_RAGGED": None}, "DNET_KV_RAGGED=1"),  # dense-gather paged decode
-        ({"DNET_API_PREFIX_CACHE": "4"}, "prefix cache"),
-        ({"DNET_SCHED": "1"}, "scheduler"),
     ],
 )
 def test_refused_configurations_are_422_at_load(tiny_llama_dir, paged_env, env, match):
@@ -158,6 +158,27 @@ def test_refused_configurations_are_422_at_load(tiny_llama_dir, paged_env, env, 
     status, body, _ = asyncio.run(_burst(_app(port=True), tiny_llama_dir, []))
     assert status == 422
     assert body["error"]["type"] == "invalid_request_error" and match in body["error"]["message"]
+
+
+@pytest.mark.parametrize(
+    "env,engine_key",
+    [
+        ({"DNET_API_PREFIX_CACHE": "4"}, "prefix_cache"),  # the paged prefix cache
+        ({"DNET_SCHED": "1"}, "slots"),  # the iteration-level scheduler
+    ],
+)
+def test_prefix_cache_and_scheduler_serve(tiny_llama_dir, paged_env, env, engine_key):
+    """The two configurations served since the scheduler and the paged
+    prefix cache were ported: the burst streams the reference's bytes."""
+    paged_env(**env)
+    bodies = [_chat(p) for p in PROMPTS]
+    rs, ref, _ = asyncio.run(_burst(_app(port=False), tiny_llama_dir, bodies))
+    ps, port, health = asyncio.run(_burst(_app(port=True), tiny_llama_dir, bodies))
+    assert rs == ps == 200
+    for (r_status, _, r_body), (p_status, _, p_body) in zip(ref, port):
+        assert r_status == p_status == 200
+        assert _normalize(p_body) == _normalize(r_body)
+    assert engine_key in health["engine"]
 
 
 def test_single_slot_keeps_the_local_adapter(tiny_llama_dir, paged_env):

@@ -45,7 +45,9 @@ cache under f32 params, and the sp engine (llama; deepseek_v2 and gpt_oss,
 plain and q8 / q4), run on the card against the CPU's plain versions.  The
 hop codec's column kernels run at its widths (C=2048) and at odd ones, with
 R=1 frames: norms within 2e-5 relative in f32 (1e-2 in bf16 inputs summed
-in f32), gather and dequant-scatter equal bit for bit (both also at R = 1, 7 and
+in f32); the one-launch norms + top-k at R = 1 / 7 / 1500, C = 2048 / 2880
+/ 8192, keep = 1 / C/2 / C, ties, NaN and inf, equal bit for bit to
+topk_columns of its own norms, one device kernel a call; gather and dequant-scatter equal bit for bit (both also at R = 1, 7 and
 1500: the gather with odd C, one kept column, every column, a span past its
 window and an unsorted idx; the dequant-scatter with empty strips, every
 column kept and odd D).  Tolerances: f32 1e-4 (sums
@@ -63,6 +65,9 @@ import torch
 from dnet_tpu_torch.compression.ops import (
     column_sq_norms,
     column_sq_norms_plain,
+    column_topk,
+    pack_mask,
+    topk_columns,
     dequant_scatter_columns,
     dequant_scatter_columns_plain,
     gather_columns,
@@ -799,6 +804,30 @@ def test_paged_wrapper_call_is_one_device_kernel(gen, monkeypatch, dtype, n_spli
     assert len(kernels) == 1 and "paged_attention_kernel" in kernels[0], kernels
 
 
+@pytest.mark.parametrize("R", [1, 1500])
+def test_column_topk_call_is_one_device_kernel(gen, R):
+    """A column_topk call is exactly one device kernel at the decode hop's
+    and at a prompt frame's rows, as torch.profiler traces it.  (Beside the
+    other profiler tests, early in the file: late in a long process the
+    profiler was seen to trace no kernel at all.)"""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    x = _randn(gen, torch.bfloat16, R, 2048)
+    column_topk(x, 1024)  # built and warm, its tickets allocated
+    torch.cuda.synchronize()
+    for _ in range(3):  # the profiler now and then drops a short call's record; it never invents one
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            time.sleep(0.002)
+            column_topk(x, 1024)
+            torch.cuda.synchronize()
+            time.sleep(0.002)
+        kernels = [e.name for e in prof.events() if e.device_type == DeviceType.CUDA]
+        if kernels:
+            break
+    assert len(kernels) == 1 and "norms_topk_kernel" in kernels[0], kernels
+
+
 def test_decode_interleaved_shapes_repeat_exactly(gen):
     """Calls of different forms, widths, lengths and split counts
     interleaved on one stream, three rounds: every round's outputs are
@@ -1382,6 +1411,53 @@ def test_column_norms_kernel_matches_plain(gen, dtype, R, C):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("R", [1, 7, 1500])
+@pytest.mark.parametrize("C", [2048, 2880, 8192])
+@pytest.mark.parametrize("keep_of", ["1", "half", "all"])
+def test_column_topk_kernel_selects_from_its_own_norms(gen, dtype, R, C, keep_of):
+    """One launch picks the kept columns: its indices and bitmask equal
+    topk_columns / pack_mask of the kernel's own norms (norms-only mode)
+    bit for bit, those norms are within 2e-5 relative of the plain
+    version, and a repeated call gives the same bits."""
+    keep = {"1": 1, "half": C // 2, "all": C}[keep_of]
+    x = _randn(gen, dtype, R, C) * 3
+    before = column_sq_norms.launches
+    idx, mask = column_topk(x, keep)
+    idx2, mask2 = column_topk(x, keep)
+    norms = column_sq_norms(x)
+    torch.cuda.synchronize()
+    assert column_sq_norms.launches == before + 3
+    assert idx.dtype == torch.int32 and idx.shape == (keep,) and mask.shape == ((C + 7) // 8,)
+    want = topk_columns(norms, keep)
+    assert torch.equal(idx, want) and torch.equal(mask, pack_mask(want, C))
+    assert torch.equal(idx, idx2) and torch.equal(mask, mask2)
+    plain = column_sq_norms_plain(x)
+    assert ((norms - plain).abs() / plain.abs().clamp(min=1e-30)).max().item() <= 2e-5
+
+
+@pytest.mark.parametrize("C", [64, 2048, 2880])
+def test_column_topk_kernel_ties_nan_inf(gen, C):
+    """Exact ties (small integers, copied and zero columns), +inf and NaN
+    norms: the kernel's columns are the plain version's at every keep (the
+    plain version is the spec)."""
+    g = torch.Generator().manual_seed(C)
+    x = torch.randint(-6, 7, (5, C), generator=g).float()
+    src, dst = torch.randint(0, C, (2, C // 2), generator=g)
+    x[:, dst] = x[:, src]
+    x[:, torch.randint(0, C, (3,), generator=g)] = 0.0
+    x[2, C // 3] = float("nan")
+    x[4, C // 5] = float("nan")
+    x[0, C // 7] = float("inf")
+    for dtype in (torch.float32, torch.bfloat16):
+        xc = x.to(dtype).cuda()
+        for keep in sorted({1, 2, 3, 4, C // 8, C // 2, C - 1, C}):
+            idx, mask = column_topk(xc, keep)
+            want = topk_columns(column_sq_norms_plain(xc), keep)
+            assert torch.equal(idx, want), (dtype, keep)
+            assert torch.equal(mask, pack_mask(want, C)), (dtype, keep)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("R,C,K", [(1, 2048, 1024), (1500, 2048, 1024), (5, 101, 37), (3, 2, 2)])
 def test_gather_kernel_is_bit_exact(gen, dtype, R, C, K):
     x = _randn(gen, dtype, R, C)
@@ -1470,6 +1546,8 @@ def test_column_kernels_never_take_the_plain_version(gen):
     idx = torch.arange(8, dtype=torch.int32, device="cuda")
     with pytest.raises(ValueError):
         column_sq_norms(x)
+    with pytest.raises(ValueError):
+        column_topk(x, 8)
     with pytest.raises(ValueError):  # int64 indices are not the kernel's
         gather_columns(x.float(), idx.long())
     with pytest.raises(ValueError):
