@@ -38,8 +38,8 @@ Phases, one JSON line each; any failure exits non-zero:
   serve    full-width Llama-3.2-1B with synthetic bf16 weights from a seed,
            written as a checkpoint and served by the port's HTTP server on
            loopback: a greedy chat completion, a seeded sampled one, and
-           the greedy request streamed three times (equal content; TTFT and
-           decode rate as medians); every attention call on that path must
+           the greedy request streamed (equal content; its TTFT and decode
+           rate); every attention call on that path must
            have gone through the kernels.
 Continuous batching over the paged KV pool (DNET_KV_PAGED=1
 DNET_KV_RAGGED=1), the second path:
@@ -282,6 +282,45 @@ launches_mma too):
                    paged_attend_wide launches a batched decode step, each
                    also on paged_attend_mma, 2 prefill launches a prompt
                    chunk, kv_bytes the pool's).
+Continuous batching for every family and cache form, the ninth path: the
+dense-gather paged decode (DNET_KV_PAGED=1 without DNET_KV_RAGGED, and
+what the ragged kernel refuses), gpt_oss and deepseek_v2 on batched slots:
+  lane_launches  device kernels per call of each lane form below (B = 8,
+                 torch.profiler, right after the build): exactly 1.
+  lane_kernels   the decode kernel's lane forms against their plain
+                 versions, timed beside SDPA with a per-lane mask and their
+                 bounds: gpt-oss-20b's ring (W = 128, H = 64, KVH = 8,
+                 sinks) at B = 8 with lengths 0, 40, 128, 129, 300, 301,
+                 700, 4096; DeepSeek-V2-Lite's (192, 128) at B = 8 (an idle
+                 lane, the batch_serve mix); plain, int8 and int4 over a
+                 Llama-3.2-1B view gathered from a 2,048-block pool through
+                 shuffled page tables; f32, bf16 and (bf16 q) q8 / q4.  Then
+                 the gather's own copies: a max_seq-wide view, the bucket of
+                 the widest table, one step's scatter (bf16, int8).
+  gather_parity  small f32 models on the GPU against the CPU: llama under
+                 the dense gather (f32, q8, q4), gpt_oss on dense slots (f32,
+                 q8, q4; a ring of 32 wrapping per lane), deepseek_v2 on
+                 dense slots and under the gather (f32, q8, q4): equal greedy
+                 streams, logprobs within 2e-3, exact launches.
+  gather_serve   batch_serve's checkpoint and burst with DNET_KV_PAGED=1
+                 (bf16), then DNET_KV_BITS=8 DNET_KV_PAGED=1
+                 DNET_KV_RAGGED=1 (the ragged kernel refuses the pool): every
+                 request 200 with 64 tokens, 16 decode launches of the
+                 cache's form a step, no paged launch, no block held after;
+                 the gather's and scatter's device ms per decode step; then
+                 each form's lanes on in-process engines, dense slots against
+                 the gather on one fixed schedule: equal greedy tokens.
+  gpt_oss_batch_serve  the 8-layer gpt-oss-20b checkpoint with
+                 --batch-slots 8: 8 concurrent streams of the batch_serve
+                 prompts, 16 tokens each (rings wrapped per lane); 4 rotating
+                 + 4 plain decode launches a step; then DNET_KV_PAGED=1,
+                 which /health reports as dense slots.
+  deepseek_batch_serve  the 4-layer DeepSeek-V2-Lite checkpoint with
+                 --batch-slots 8, dense bf16 slots and the gather over an
+                 int8 pool: 4 MLA decode launches a step, 4 MLA prefill
+                 launches a prompt chunk.
+  lane_kernels_summary  the lane forms with the kernels line's keys, each
+                 with its launches on the path that ran it.
 Every decode row also counts its device kernels per wrapper call
 (torch.profiler), which must be exactly 1: the splits and row groups of a
 (lane, KV head) merge inside the one launch.  Then the kernels summary line (every row
@@ -347,7 +386,13 @@ RING_LAYERS = ([*range(0, 8)], [*range(8, 16)])
 RING_ENV = {"DNET_WIRE_QSPARSE_PCT": "0.5", "DNET_WIRE_GROUP_SIZE": "64"}
 
 
+_T0 = time.perf_counter()
+
+
 def emit(obj) -> None:
+    """One JSON line; a phase's line carries the script's elapsed seconds."""
+    if "phase" in obj:
+        obj = dict(obj, elapsed_s=time.perf_counter() - _T0)
     print(json.dumps(obj), flush=True)
 
 
@@ -376,7 +421,7 @@ def device_time_ms(fn, layers: int, reps: int = 20) -> float:
     times = []
     for _ in range(3):
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        torch.cuda._sleep(100_000_000)  # ~60 ms
+        torch.cuda._sleep(50_000_000)  # ~30 ms
         start.record()
         for r in range(reps):
             fn(r % layers)
@@ -753,7 +798,7 @@ def phase_paged_kernels(main_positions: list) -> dict:
                     lambda l: paged_attend(q, kp[l], vp[l], tables_d, pos, kn, vn, max_live=max_live),
                     LAYERS),
                 "plain_ms": device_time_ms(
-                    lambda l: paged_attend_plain(q, kp[l], vp[l], tables_d, pos_cpu, kn, vn), LAYERS, 5),
+                    lambda l: paged_attend_plain(q, kp[l], vp[l], tables_d, pos_cpu, kn, vn), LAYERS, 3),
                 "library_ms": device_time_ms(lib, LAYERS),
                 "library_call": "scaled_dot_product_attention on a pre-gathered contiguous copy "
                                 "(the gather is not timed)",
@@ -854,7 +899,7 @@ def phase_column_kernels(per_call: dict) -> dict:
                 bound, by = bytes_ops_bound(nbytes, ops, torch.float32)
                 row = {"phase": "kernels", "kernel": kernel, "dtype": name, **shape, **extra,
                        "max_err": err, "kernel_ms": device_time_ms(kernel_fn, COL_COPIES),
-                       "plain_ms": device_time_ms(plain_fn, COL_COPIES, 5),
+                       "plain_ms": device_time_ms(plain_fn, COL_COPIES, 3),
                        "library_ms": device_time_ms(lib_fn, COL_COPIES), "library_call": lib_call,
                        "bytes": nbytes, "bound_ms": bound, "bound_by": by}
                 emit(row)
@@ -1047,7 +1092,7 @@ def phase_kernels(main_T: int, main_pos: int) -> dict:
                 "T": T, "pos": pos, "S": S, "H": H, "KVH": KVH, "D": D,
                 "max_err": err, "tol": TOL[dtype],
                 "kernel_ms": device_time_ms(lambda l: flash_prefill(q, kc[l], vc[l], pos), LAYERS),
-                "plain_ms": device_time_ms(lambda l: flash_prefill_plain(q, kc[l], vc[l], pos), LAYERS, 5),
+                "plain_ms": device_time_ms(lambda l: flash_prefill_plain(q, kc[l], vc[l], pos), LAYERS, 3),
                 "library_ms": device_time_ms(lib, LAYERS),
                 "bound_ms": bound, "bound_by": by,
             }
@@ -1149,7 +1194,7 @@ def phase_wide_group_decode() -> None:
                     "kernel_ms": times[dispatch], "kernel_ms_by_layout": times, "dispatch": dispatch,
                     "tensor_cores": rows == 16, "faster": min(times, key=times.get),
                     "plain_ms": device_time_ms(
-                        lambda l: fd.flash_decode_plain(q, kc[l], vc[l], lengths, max_live=live), LAYERS, 5),
+                        lambda l: fd.flash_decode_plain(q, kc[l], vc[l], lengths, max_live=live), LAYERS, 3),
                     "library_ms": device_time_ms(lambda l: sdpa(qt, kc[l, :, :live].transpose(1, 2),
                                                                 vc[l, :, :live].transpose(1, 2), enable_gqa=True),
                                                  LAYERS),
@@ -1198,7 +1243,7 @@ def phase_wide_prefill() -> None:
                 "phase": "wide_prefill", "kernel": "flash_prefill", "dtype": str(dtype).split(".")[-1],
                 "T": T, "pos": 0, "S": S, "H": h, "KVH": kvh, "Dqk": d, "Dv": d, "max_err": err, "tol": TOL[dtype],
                 "kernel_ms": device_time_ms(lambda l: flash_prefill(q, kc[l], vc[l], 0), LAYERS),
-                "plain_ms": device_time_ms(lambda l: flash_prefill_plain(q, kc[l], vc[l], 0), LAYERS, 5),
+                "plain_ms": device_time_ms(lambda l: flash_prefill_plain(q, kc[l], vc[l], 0), LAYERS, 3),
                 "library_ms": device_time_ms(lib, LAYERS),
                 "library_causal_ms": device_time_ms(lambda l: lib(l, True), LAYERS),
                 "bound_ms": bound, "bound_by": by,
@@ -1284,7 +1329,7 @@ def phase_quant_kernels(main_pos: int, lane_positions: list) -> dict:
             row = {
                 "phase": "kernels", "kernel": f"flash_decode_q{bits}", "dtype": str(dtype).split(".")[-1],
                 "pos": pos, "S": S, "H": H, "KVH": KVH, "D": D, "max_err": err, "tol": TOL[dtype],
-                "kernel_ms": device_time_ms(kern, LAYERS), "plain_ms": device_time_ms(plain, LAYERS, 5),
+                "kernel_ms": device_time_ms(kern, LAYERS), "plain_ms": device_time_ms(plain, LAYERS, 3),
                 "library_ms": device_time_ms(lib, LAYERS),
                 "library_call": "scaled_dot_product_attention on a dequantized bf16 copy of the live prefix "
                                 "(the dequant is not timed)",
@@ -1739,18 +1784,19 @@ def phase_serve(prompt_text: str, n_prompt: int) -> tuple:
         batched = phase_batch_serve(tmp, port, batch_step)
         phase_sched_serve(tmp, port, batched)
         quant = phase_quant_serve(tmp, port, bodies, row, batched)
+        gathered = phase_gather_serve(tmp, port, batched)
         long_body = dict(chat, stream=True, messages=[{"role": "user", "content": _batch_prompts()[-1]}])
         ring, _ = phase_ring_serve(tmp, bodies, results, row, long_body, quant)
         sp_long = dict(chat, stream=True, messages=[{"role": "user", "content": _long_prompt(SP_LONG_TOKENS)}])
         sp_serve = phase_sp_serve(tmp, port, bodies, sp_long, sp_step)
     finally:
         shutil.rmtree(os.path.dirname(tmp), ignore_errors=True)
-    return row, batched, quant, ring, sp_serve
+    return row, batched, quant, ring, sp_serve, gathered
 
 
-# the serve and ring_serve requests: one greedy, one seeded sampled and three
-# greedy streamed (their TTFT and decode rate are read as medians)
-SERVE_KINDS = ("greedy", "streamed", "sampled", "streamed", "streamed")
+# the serve and ring_serve requests: one greedy, one greedy streamed (its
+# TTFT and decode rate) and one seeded sampled
+SERVE_KINDS = ("greedy", "streamed", "sampled")
 
 
 def streamed_rates(results: list) -> dict:
@@ -2493,7 +2539,7 @@ def phase_rotating_kernels() -> dict:
                 "phase": "kernels", "kernel": name, "dtype": str(dtype).split(".")[-1], "cache": form,
                 "pos": pos, "window": window, "W": OSS_W, "H": OSS_H, "KVH": OSS_KVH, "D": OSS_D,
                 "max_err": err, "tol": tol,
-                "kernel_ms": device_time_ms(kern, L), "plain_ms": device_time_ms(plain, L, 5),
+                "kernel_ms": device_time_ms(kern, L), "plain_ms": device_time_ms(plain, L, 3),
                 "library_ms": device_time_ms(lib, L),
                 "library_call": "scaled_dot_product_attention over the attended slots in position order, the "
                                 "sink as an extra zero key whose additive mask entry is the sink logit (the "
@@ -2659,17 +2705,18 @@ def phase_gpt_oss(prompt_text: str, long_text: str, port: int) -> tuple:
         torch.cuda.empty_cache()
         write_s = time.perf_counter() - t0
         serve = phase_gpt_oss_serve(tmp, port, prompt_text, long_text, write_s)
+        batch = phase_gpt_oss_batch_serve(tmp, port)
         # the same checkpoint under sp = 2: flat caches, no kernel
         sp_serve = phase_sp_family_serve("gpt_oss", tmp, port, OSS_MODEL, prompt_text, None,
                                          KVConfig(OSS_SERVE_LAYERS // 2, 1, S // 2, OSS_KVH, OSS_D, "float32"), 2)
     finally:
         shutil.rmtree(os.path.dirname(tmp), ignore_errors=True)
-    return step, dict(serve, sp_serve=sp_serve)
+    return step, dict(serve, sp_serve=sp_serve, batch_serve=batch)
 
 
 def phase_gpt_oss_serve(model_dir: str, port: int, prompt_text: str, long_text: str, write_s: float) -> dict:
     """The 8-layer full-width gpt-oss checkpoint served single-sequence by
-    the port's server: the serve phase's greedy, seeded sampled and three
+    the port's server: the serve phase's greedy, seeded sampled and
     streamed requests, then one streamed request with a ~300-token prompt,
     all 64 tokens, so the 128-row ring wraps in prefill and in decode.  The
     rotating kernel runs 4 times per decode step (the sliding half), the
@@ -2851,7 +2898,7 @@ def phase_mla_kernels(main_T: int) -> dict:
                 "phase": "kernels", "kernel": name, "dtype": str(dtype).split(".")[-1], "cache": form,
                 "T": T, "pos": pos, "S": S, "H": MLA_H, "KVH": MLA_H, "Dqk": MLA_DQK, "Dv": MLA_DV,
                 "scale": scale, "max_err": err, "tol": TOL[dtype],
-                "kernel_ms": device_time_ms(kern, L), "plain_ms": device_time_ms(plain, L, 5),
+                "kernel_ms": device_time_ms(kern, L), "plain_ms": device_time_ms(plain, L, 3),
                 "library_ms": device_time_ms(lib, L),
                 "library_call": "scaled_dot_product_attention with Dv != Dqk"
                                 + (" on a dequantized bf16 copy (dequant not timed)" if bits else ""),
@@ -2952,11 +2999,12 @@ def phase_deepseek(prompt_text: str, long_text: str, port: int) -> tuple:
         torch.cuda.empty_cache()
         write_s = time.perf_counter() - t0
         serve = phase_deepseek_serve(tmp, port, prompt_text, long_text, write_s)
+        batch = phase_deepseek_batch_serve(tmp, port)
         # the same checkpoint under sp = 2: the LSE form at the MLA widths
         sp_serve = phase_sp_family_serve("deepseek_v2", tmp, port, DS_MODEL, prompt_text, "flash_decode_lse_mla",
                                          KVConfig(DS_SERVE_LAYERS, 1, S // 2, MLA_H, MLA_DQK, "float32",
                                                   v_head_dim=MLA_DV), 1)
-        serve = dict(serve, sp_serve=sp_serve)
+        serve = dict(serve, sp_serve=sp_serve, batch_serve=batch)
     finally:
         shutil.rmtree(os.path.dirname(tmp), ignore_errors=True)
     return step, serve
@@ -2965,7 +3013,7 @@ def phase_deepseek(prompt_text: str, long_text: str, port: int) -> tuple:
 def phase_deepseek_serve(model_dir: str, port: int, prompt_text: str, long_text: str, write_s: float) -> dict:
     """The 4-layer full-width DeepSeek-V2-Lite checkpoint served
     single-sequence by the port's server: the serve phase's greedy, seeded
-    sampled and three streamed requests plus a streamed ~300-token prompt
+    sampled and streamed requests plus a streamed ~300-token prompt
     over a bf16 cache, then a greedy and a streamed request under
     DNET_KV_BITS=8 and =4.  Every attention call takes the MLA kernels: 4
     decode launches per step (of the cache's variant) and 4 prefill
@@ -3199,7 +3247,7 @@ def phase_lse_kernels(serve_pos: int) -> dict:
                                 lambda l: flash_decode_lse(q, kc[l][:, sl], vc[l][:, sl], lengths[r], live), LAYERS),
                             "plain_ms": device_time_ms(
                                 lambda l: flash_decode_lse_plain(q, kc[l][:, sl], vc[l][:, sl], lengths[r],
-                                                                 max_live=live), LAYERS, 5),
+                                                                 max_live=live), LAYERS, 3),
                             "library_ms": device_time_ms(
                                 lambda l: sdpa(qt, kc[l][:, r * s_local : r * s_local + live].transpose(1, 2),
                                                vc[l][:, r * s_local : r * s_local + live].transpose(1, 2),
@@ -3328,7 +3376,7 @@ def phase_lse_form_kernels(serve_pos: int) -> dict:
                     "live": live, "S_local": s_local, "H": heads, "KVH": kv_heads, "Dqk": dqk, "Dv": dv,
                     "scale": scale or dqk**-0.5, **errs, "max_err": max(errs.values()), "tol": TOL[dtype],
                     "empty_rank_exact": live == 0,
-                    "kernel_ms": device_time_ms(kern, L), "plain_ms": device_time_ms(plain, L, 5),
+                    "kernel_ms": device_time_ms(kern, L), "plain_ms": device_time_ms(plain, L, 3),
                     "library_ms": device_time_ms(
                         lambda l: sdpa(qt, lib_kv[l][0], lib_kv[l][1], scale=scale, enable_gqa=True), L)
                     if live else None,
@@ -4101,7 +4149,7 @@ def phase_qwen3_moe(prompt_text: str, port: int) -> tuple:
 
 def phase_qwen3_moe_serve(model_dir: str, port: int, prompt_text: str, write_s: float) -> dict:
     """The 2-layer full-width Qwen3-235B-A22B checkpoint served single
-    sequence: the serve phase's greedy, seeded sampled and three streamed
+    sequence: the serve phase's greedy, seeded sampled and streamed
     requests, 64 tokens each; the wide decode form QW_SERVE_LAYERS times a
     decode step, the prefill kernel (G = 16 at (128, 128)) QW_SERVE_LAYERS
     times a prompt, no other kernel; /health's KV bytes the cache's."""
@@ -4175,6 +4223,609 @@ def phase_qwen3_moe_batch_serve(model_dir: str, port: int) -> dict:
     return row
 
 
+# continuous batching for every family and cache form (the ninth path): the
+# decode kernel's lane forms at B = 8 (gpt-oss-20b's ring with per-lane
+# lengths, some past W and one idle; DeepSeek-V2-Lite's MLA widths; int8 /
+# int4 over a gathered Llama-3.2-1B view of the pool at BATCH_POSITIONS),
+# the family serves' output length, and the dense gather's settings (the
+# reference's default paged mode: DNET_KV_RAGGED unset)
+LANE_ROT_LENGTHS = [0, 40, 128, 129, 300, 301, 700, 4096]
+LANE_MLA_LENGTHS = [0] + [p + 1 for p in BATCH_POSITIONS[1:]]
+LANE_MLA_LAYERS = 4
+FAMILY_TOKENS = 16
+GATHER_ENV = {"DNET_KV_PAGED": "1"}
+
+
+def lane_bound(keys: list, h: int, kvh: int, dqk: int, dv: int, qbits: int, dtype, sinks: bool = False) -> tuple:
+    """(ms, bound_by) for one decode call over lanes that attend `keys`
+    slots each: q and the output once (in `dtype`), the lengths, the sinks,
+    and each attended slot's K and V once as the cache stores them (values
+    in `dtype`, or codes plus two 4-byte f32 scales a slot and KV head);
+    2 * (dqk + dv) operations per (head, key) pair."""
+    size = torch.tensor([], dtype=dtype).element_size()
+    row = {0: (dqk + dv) * size, 8: dqk + dv + 8, 4: (dqk + dv) // 2 + 8}[qbits]
+    nbytes = len(keys) * (h * (dqk + dv) * size + 4) + sum(keys) * kvh * row + (4 * h if sinks else 0)
+    return bytes_ops_bound(nbytes, 2 * h * (dqk + dv) * sum(keys), dtype)
+
+
+def _lane_caches(B: int, slots: int, kvh: int, dqk: int, dv: int, bits: int, dtype, layers: int, g,
+                 rotating: bool = False) -> list:
+    """`layers` layer slices of a [layers, B, slots, ...] cache: random
+    values in `dtype`, or codes and scales the port's write_kv (a ring:
+    write_kv_rotating, 3 x slots rows) made from random bf16 rows."""
+    from dnet_tpu_torch.core.kvcache import KVConfig, init_cache, layer_slices, write_kv, write_kv_rotating
+
+    if not bits:
+        kv = {"k": torch.randn(layers, B, slots, kvh, dqk, generator=g, device="cuda").to(dtype),
+              "v": torch.randn(layers, B, slots, kvh, dv, generator=g, device="cuda").to(dtype)}
+        return [layer_slices(kv, l) for l in range(layers)]
+    kv = init_cache(KVConfig(layers, B, slots, kvh, dqk, v_head_dim=dv, quant_bits=bits), torch.device("cuda"))
+    out = [layer_slices(kv, l) for l in range(layers)]
+    n = 3 * slots if rotating else slots
+    for c in out:
+        k, v = (torch.randn(B, n, kvh, d, generator=g, device="cuda").to(torch.bfloat16) for d in (dqk, dv))
+        (write_kv_rotating if rotating else write_kv)(c, k, v, 0)
+    return out
+
+
+def _lane_forms() -> list:
+    """(row name, counter, shape, lengths, bits, dtype, extra) of every lane
+    form lane_launches traces and lane_kernels times: the rotating ring at
+    gpt-oss-20b's heads (sinks, window W), the MLA widths at
+    DeepSeek-V2-Lite's (its softmax scale), Llama-3.2-1B's over a gathered
+    view; f32, bf16 and (bf16 q) int8 / int4."""
+    rot = (OSS_H, OSS_KVH, OSS_D, OSS_D, OSS_W)
+    mla = (MLA_H, MLA_H, MLA_DQK, MLA_DV, S)
+    gat = (H, KVH, D, D, S)
+    forms = []
+    for tag, dtype, bits in (("f32", torch.float32, 0), ("bf16", torch.bfloat16, 0), ("q8", torch.bfloat16, 8),
+                             ("q4", torch.bfloat16, 4)):
+        sfx = f"_q{bits}" if bits else ""
+        forms.append((f"flash_decode_rotating{sfx}_lanes", f"flash_decode_rotating{sfx}", tag, rot,
+                      LANE_ROT_LENGTHS, bits, dtype, {"rotating": True, "window": OSS_W}))
+        forms.append((f"flash_decode_mla{sfx}_lanes", f"flash_decode_mla{sfx}", tag, mla, LANE_MLA_LENGTHS, bits,
+                      dtype, {"scale": _mla_scale()}))
+        forms.append((f"flash_decode{sfx}_gathered", f"flash_decode{sfx}", tag, gat,
+                      [p + 1 for p in BATCH_POSITIONS], bits, dtype, {}))
+    return forms
+
+
+def phase_lane_launches() -> dict:
+    """Device kernels per call of each lane form (B = 8, torch.profiler,
+    right after the build as the other forms' counts): each must be
+    exactly 1, its counter counting the call.  Returns row name -> 1."""
+    from dnet_tpu_torch.kernels import launch_counts
+    from dnet_tpu_torch.ops.flash_decode import flash_decode_attend
+
+    g = torch.Generator(device="cuda").manual_seed(17)
+    counts = {}
+    for name, counter, tag, (h, kvh, dqk, dv, slots), lengths, bits, dtype, extra in _lane_forms():
+        if tag == "f32":
+            continue
+        B = len(lengths)
+        c = _lane_caches(B, slots, kvh, dqk, dv, bits, dtype, 1, g, rotating=bool(extra.get("rotating")))[0]
+        q = torch.randn(B, 1, h, dqk, generator=g, device="cuda").to(dtype)
+        lens = torch.tensor(lengths, dtype=torch.int32, device="cuda")
+        scales = {n: c[n] for n in ("k_scale", "v_scale") if n in c}
+        sinks = {"sinks": torch.randn(h, generator=g, device="cuda")} if extra.get("rotating") else {}
+
+        def call():
+            return flash_decode_attend(q, c["k"], c["v"], lens, min(max(lengths), slots), **scales, **sinks, **extra)
+
+        call()
+        before = launch_counts()[counter]
+        n = kernels_per_call(call)
+        check(n == 1 and launch_counts()[counter] > before, f"{name} ({tag}): {n} device kernels in one call")
+        counts[name] = 1
+        del c
+    emit({"phase": "lane_launches", "kernels_per_call": counts})
+    torch.cuda.empty_cache()
+    return counts
+
+
+def event_time_ms(fn, reps: int = 10) -> float:
+    """Median per-call time between CUDA events around `reps` calls, after a
+    synchronise: for calls that upload their host index arrays, so the
+    host's wait on each upload is in the time, as in serving."""
+    fn()
+    times = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(reps):
+            fn()
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end) / reps)
+    return statistics.median(times)
+
+
+def _gathered_pool(bits: int, g):
+    """A BlockStore of Llama-3.2-1B's layout (16 layers x POOL_BLOCKS blocks
+    of BT tokens, bf16 or int8 / int4 codes with f32 scales) that the
+    port's write_kv filled from random bf16 rows, and the shuffled page
+    tables of the batch_serve mix."""
+    from dnet_tpu_torch.core.kvcache import layer_slices, write_kv
+    from dnet_tpu_torch.kv import BlockStore, PagedKVConfig
+    from dnet_tpu_torch.models import ModelConfig, get_ring_model_cls
+    from dnet_tpu_torch.utils.random_init import LLAMA_3_2_1B_CONFIG
+
+    cfg = ModelConfig.from_hf(LLAMA_3_2_1B_CONFIG)
+    model = get_ring_model_cls("llama")(cfg, range(LAYERS), "cuda")
+    store = BlockStore(model, LAYERS, PagedKVConfig(BT, POOL_BLOCKS), "bfloat16", quant_bits=bits,
+                       session_tokens=S)
+    for l in range(LAYERS):  # a layer's pool is a cache of POOL_BLOCKS rows of BT slots
+        k, v = (torch.randn(POOL_BLOCKS, BT, KVH, D, generator=g, device="cuda").to(torch.bfloat16) for _ in "kv")
+        write_kv(layer_slices(store.kv, l), k, v, 0)
+    return store, paged_tables(BATCH_POSITIONS).cpu().numpy()
+
+
+def phase_lane_kernels(per_call: dict) -> dict:
+    """Every lane form against its plain version on the card (TOL), timed
+    beside SDPA and its bound: the rotating ring at B = 8 (gpt-oss-20b's
+    heads, W = 128, sinks) with lengths LANE_ROT_LENGTHS (an idle lane, some
+    past W); the MLA form at B = 8 over DeepSeek-V2-Lite's heads at its
+    scale; plain, int8 and int4 over a Llama-3.2-1B view gathered from a
+    pool of POOL_BLOCKS blocks through the batch_serve mix's shuffled page
+    tables.  Library yardstick: SDPA over the attended slots with a per-lane
+    mask (the ring with the sink as an extra zero key whose mask entry is
+    its logit; quantized caches dequantized to a bf16 copy first, not
+    timed); an idle lane's output (0) is held against the plain version
+    only.  Then the dense gather's own cost: the pool gathered into a
+    max_seq-wide view (an R-step chunk) and into the bucket of the widest
+    table (a single step), and one step's scatter of each lane's block,
+    bf16 and int8, timed with events around the calls (the index upload
+    included).  Returns row name -> main row (bf16 q)."""
+    from torch.nn.functional import scaled_dot_product_attention as sdpa
+
+    from dnet_tpu_torch.core.kvcache import read_kv
+    from dnet_tpu_torch.ops.flash_decode import flash_decode_attend, flash_decode_plain
+
+    g = torch.Generator(device="cuda").manual_seed(19)
+    main = {}
+    pools = {}
+    for name, counter, tag, (h, kvh, dqk, dv, slots), lengths, bits, dtype, extra in _lane_forms():
+        B = len(lengths)
+        rotating = bool(extra.get("rotating"))
+        if name.endswith("_gathered"):
+            if bits not in pools:
+                pools[bits] = _gathered_pool(bits, g)
+            store, ids = pools[bits]
+            view = store.gather(ids)  # f32: an f32 q over the bf16 pool (DNET_KV_BITS=16, f32 model)
+            layers = [{n: t[l] for n, t in view.items()} for l in range(LAYERS)]
+        else:
+            layers = _lane_caches(B, slots, kvh, dqk, dv, bits, dtype,
+                                  OSS_LAYERS // 2 if rotating else LANE_MLA_LAYERS, g, rotating=rotating)
+        L = len(layers)
+        q = torch.randn(B, 1, h, dqk, generator=g, device="cuda").to(dtype)
+        lens = torch.tensor(lengths, dtype=torch.int32, device="cuda")
+        live = min(max(lengths), slots)
+        sinks = {"sinks": torch.randn(h, generator=g, device="cuda")} if rotating else {}
+        scales = [{n: c[n] for n in ("k_scale", "v_scale") if n in c} for c in layers]
+
+        def kern(l):
+            c = layers[l]
+            return flash_decode_attend(q, c["k"], c["v"], lens, live, **scales[l], **sinks, **extra)
+
+        def plain(l):
+            c = layers[l]
+            return flash_decode_plain(q, c["k"], c["v"], lens, max_live=live, **scales[l], **sinks, **extra)
+
+        out = kern(0)
+        torch.cuda.synchronize()
+        c0 = layers[0]
+        want = flash_decode_plain(q.float(), c0["k"] if bits else c0["k"].float(),
+                                  c0["v"] if bits else c0["v"].float(), lens, **scales[0], **sinks, **extra)
+        err = (out.float() - want).abs().max().item()
+        check(out.shape == (B, 1, h, dv) and out.dtype == dtype and bool(torch.isfinite(out).all()),
+              f"{name} ({tag}) output")
+        check(err <= TOL[dtype], f"{name} ({tag}): max err {err}")
+        check(bool((out[lens == 0] == 0).all()), f"{name} ({tag}): an idle lane's output is not 0")
+        # the yardstick: the attended slots of every lane under a mask
+        keys = [min(n, slots) for n in lengths]
+        width = max(keys)
+        j = torch.arange(width, device="cuda")
+        attend = j[None, :] < torch.tensor(keys, device="cuda")[:, None]  # [B, width]
+        lib_kv = []
+        for c in layers:
+            kc, vc = read_kv({n: t[:, :width] for n, t in c.items()})
+            if rotating:
+                kc, vc = (torch.cat([t.to(dtype), torch.zeros_like(t[:, :1], dtype=dtype)], dim=1) for t in (kc, vc))
+            lib_kv.append(tuple(t.to(dtype).transpose(1, 2).contiguous() for t in (kc, vc)))
+        if rotating:
+            mask = torch.full((B, h, 1, width + 1), float("-inf"), device="cuda", dtype=dtype)
+            mask[..., :width].masked_fill_(attend[:, None, None, :], 0.0)
+            mask[..., -1] = sinks["sinks"].to(dtype)[None, :, None]
+        else:
+            mask = attend[:, None, None, :]
+        qt = q.transpose(1, 2)
+
+        def lib(l):
+            return sdpa(qt, lib_kv[l][0], lib_kv[l][1], attn_mask=mask, enable_gqa=True,
+                        scale=extra.get("scale"))
+
+        act = lens > 0
+        lib_err = (lib(0).transpose(1, 2).float()[act] - want[act]).abs().max().item()
+        check(lib_err <= TOL[torch.bfloat16], f"{name} ({tag}) library yardstick disagrees: {lib_err}")
+        bound, by = lane_bound(keys, h, kvh, dqk, dv, bits, dtype, sinks=rotating)
+        row = {
+            "phase": "lane_kernels", "kernel": name, "counter": counter, "dtype": str(dtype).split(".")[-1],
+            "cache": tag, "lanes": B, "lengths": lengths, "slots": slots, "H": h, "KVH": kvh, "Dqk": dqk, "Dv": dv,
+            "max_err": err, "tol": TOL[dtype],
+            "kernel_ms": device_time_ms(kern, L), "plain_ms": device_time_ms(plain, L, 3),
+            "library_ms": device_time_ms(lib, L), "library_max_err": lib_err,
+            "library_call": "scaled_dot_product_attention over the attended slots with a per-lane mask"
+                            + (", the sink as an extra zero key" if rotating else "")
+                            + (" (on a dequantized bf16 copy, not timed)" if bits else ""),
+            "bound_ms": bound, "bound_by": by, "kernels_per_call": per_call.get(name),
+        }
+        row["times_library"] = row["kernel_ms"] / row["library_ms"]
+        emit(row)
+        if tag == "bf16" or bits:
+            main[name] = row
+        del layers, lib_kv
+    # the dense gather's own cost per dispatch, bf16 and int8 pools
+    for bits in (0, 8):
+        store, ids = pools[bits]
+        widest = max(-(-(p + 1) // BT) for p in BATCH_POSITIONS)
+        bucket = 1 << (widest - 1).bit_length()
+        triples = [(b, p // BT, int(ids[b, p // BT])) for b, p in enumerate(BATCH_POSITIONS)]
+        view = store.gather(ids)
+        per_token = sum(t[:, 0, 0].numel() * t.element_size() for t in store.kv.values())  # a token row, all layers
+        for what, fn, blocks, rows in (
+            ("kv_gather max_seq", lambda: store.gather(ids), ids, BATCH_SLOTS * S),
+            ("kv_gather bucket", lambda: store.gather(ids[:, :bucket]), ids[:, :bucket], BATCH_SLOTS * bucket * BT),
+            ("kv_scatter one block a lane", lambda: store.scatter(view, triples), [t[2] for t in triples],
+             BATCH_SLOTS * BT),
+        ):
+            # each distinct block read once (a table's dead entries all read block 0), each row written once
+            nbytes = (len(np.unique(blocks)) * BT + rows) * per_token
+            emit({"phase": "lane_kernels", "kernel": what, "kv_bits": bits or 16, "rows": rows,
+                  "ms": event_time_ms(fn), "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
+                  "bytes": nbytes})
+        del view
+    del pools
+    torch.cuda.empty_cache()
+    return main
+
+
+def _family_parity(what: str, cfg, window, edge, env: dict, prompts: dict, steps: int, expected, **kw) -> dict:
+    """The batched engine (4 slots, max_seq 256) on the GPU and on the CPU
+    from the same f32 weights, under `env`: every prompt prefilled, then
+    `steps` batched steps (single steps, the second half as one budgeted
+    chunk); equal greedy streams, logprobs within 2e-3, and the GPU's
+    launches equal to expected(decode_steps) exactly.  Returns the emitted
+    row."""
+    from dnet_tpu_torch.core.batch import BatchedEngine
+    from dnet_tpu_torch.core.types import DecodingParams
+    from dnet_tpu_torch.kernels import launch_counts, reset_launch_counts
+
+    dec = DecodingParams(logprobs=True)
+    got = {}
+    for dev in ("cuda", "cpu"):
+        with environ(env):
+            eng = BatchedEngine.from_params(cfg, window, edge, slots=4, max_seq=256, param_dtype="float32",
+                                            device=dev, **kw)
+        reset_launch_counts()
+        toks = {n: [int(eng.prefill_and_sample(n, ids, dec).token[0])] for n, ids in prompts.items()}
+        lps = {n: [] for n in prompts}
+        for step in range(steps):
+            half = step >= steps // 2
+            out, errs = eng.decode_batch({n: (t[-1], dec) for n, t in toks.items()},
+                                         budgets={n: steps - step for n in prompts} if half else None)
+            check(not errs, f"{what} batched errors: {errs}")
+            for n, r in out.items():
+                toks[n].append(int(r.token[0]))
+                lps[n].append(float(r.logprob[0]))
+        if dev == "cuda":
+            torch.cuda.synchronize()
+            launches = {k: v for k, v in launch_counts().items() if v}
+            n_steps, stats = eng.decode_steps, eng.stats()
+        for n in prompts:
+            eng.end_session(n)
+        if eng.kv_pool is not None:
+            check(eng.kv_pool.used == 0, f"{what}: blocks leaked")
+        eng.close()
+        got[dev] = (toks, lps)
+    check(got["cuda"][0] == got["cpu"][0], f"{what} greedy streams differ: {got}")
+    lp_err = max(abs(a - b) for n in prompts for a, b in zip(got["cuda"][1][n], got["cpu"][1][n]))
+    check(lp_err <= 2e-3, f"{what} logprobs differ by {lp_err}")
+    want = expected(n_steps)
+    check(n_steps == steps and launches == want, f"{what} launches {launches} != {want} ({n_steps} steps)")
+    row = {"phase": "gather_parity", "case": what, "kv_mode": stats["kv_mode"], "kv_ragged": stats["kv_ragged"],
+           "kv_quant_bits": stats["kv_quant_bits"], "slots": 4, "prompt_tokens": [len(p) for p in prompts.values()],
+           "decode_steps": n_steps, "logprob_max_err": lp_err, "tol": 2e-3, "launches": launches}
+    emit(row)
+    return row
+
+
+def phase_gather_parity() -> dict:
+    """Small f32 models, GPU against CPU, on every new batched mode: llama
+    under the dense gather (f32, q8, q4; 8-token blocks), gpt_oss on dense
+    slots (f32, q8, q4: a ring of 32 that wraps per lane, in prefill for the
+    69-token prompt and in decode for the others), deepseek_v2 on dense
+    slots (f32) and under the dense gather (f32, q8, q4).  Returns each case's
+    launches (the lane forms' launches on an engine path)."""
+    cfg, window, edge = _small_model()
+    prompts = {f"p{n}": [(7 * i + n) % 500 + 1 for i in range(n)] for n in (5, 17, 40, 69)}
+    gather = dict(GATHER_ENV, DNET_KV_BLOCK_TOKENS="8")
+    out = {}
+    for bits in (0, 8, 4):
+        dec = "flash_decode" + (f"_q{bits}" if bits else "")
+        out[f"llama-gather-q{bits}"] = _family_parity(
+            f"llama dense gather q{bits}", cfg, window, edge, gather, prompts, 16,
+            lambda n, dec=dec: {dec: 2 * n, "flash_prefill": 2 * len(prompts)}, kv_quant_bits=bits)["launches"]
+    cfg, window, edge = _oss_small()
+    for bits in (0, 8, 4):
+        sfx = f"_q{bits}" if bits else ""
+        out[f"gpt_oss-dense-q{bits}"] = _family_parity(
+            f"gpt_oss dense slots q{bits}", cfg, window, edge, {}, prompts, 40,
+            lambda n, sfx=sfx: {f"flash_decode_rotating{sfx}": 2 * n, f"flash_decode{sfx}": 2 * n,
+                                "flash_prefill": 2 * len(prompts)}, kv_quant_bits=bits)["launches"]
+    cfg, window, edge = _ds_small()
+    for mode, env, bits in (("dense", {}, 0), ("gather", gather, 0), ("gather", gather, 8), ("gather", gather, 4)):
+        sfx = f"_q{bits}" if bits else ""
+        out[f"deepseek_v2-{mode}-q{bits}"] = _family_parity(
+            f"deepseek_v2 {mode} q{bits}", cfg, window, edge, env, prompts, 16,
+            lambda n, sfx=sfx: {f"flash_decode_mla{sfx}": 3 * n, "flash_prefill_mla": 3 * len(prompts)},
+            kv_quant_bits=bits)["launches"]
+    return out
+
+
+@contextlib.contextmanager
+def store_timing():
+    """CUDA events around every BlockStore gather and scatter the
+    dense-gather decode makes in the block (a prompt's commit into the pool,
+    which scatters too, apart), class-wide; yields the list of (op, start,
+    end) events, read after a synchronise."""
+    from dnet_tpu_torch.kv.store import BlockStore
+
+    events = []
+    saved = {op: getattr(BlockStore, op) for op in ("gather", "scatter", "commit_row")}
+    inside_commit = []
+
+    def timed(op, fn):
+        def wrapper(self, *args):
+            if op == "scatter" and inside_commit:
+                return fn(self, *args)
+            inside_commit.extend([op] if op == "commit_row" else [])
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            try:
+                return fn(self, *args)
+            finally:
+                end.record()
+                events.append((op, start, end))
+                if op == "commit_row":
+                    inside_commit.pop()
+
+        return wrapper
+
+    for op, fn in saved.items():
+        setattr(BlockStore, op, timed(op, fn))
+    try:
+        yield events
+    finally:
+        for op, fn in saved.items():
+            setattr(BlockStore, op, fn)
+
+
+def _burst_pass(what: str, args: Namespace, bodies: list, env: dict, n_tokens: int) -> tuple:
+    """One concurrent burst under `env`: every request 200 with `n_tokens`
+    tokens; returns (results, launches, /health's engine, load_s, the
+    store's gather and scatter device ms in all)."""
+    with environ(env), store_timing() as events:
+        results, launches, load_s, health = asyncio.run(_drive(args, bodies, concurrent=True))
+        torch.cuda.synchronize()
+        copies = {op: 0.0 for op in ("gather", "scatter", "commit_row")}
+        copies.update({f"{op}_calls": 0 for op in ("gather", "scatter", "commit_row")})
+        for op, start, end in events:
+            copies[op] += start.elapsed_time(end)
+            copies[f"{op}_calls"] += 1
+    for i, r in enumerate(results):
+        check(r["status"] == 200, f"{what} request {i}: HTTP {r['status']}")
+        check(bool(r["content"]) and r["tokens"] == n_tokens, f"{what} request {i}: {r['tokens']} tokens")
+    engine = health["engine"]
+    check(engine["active"] == 0 and engine.get("kv_blocks_used", 0) == 0, f"{what}: slots or blocks leaked {engine}")
+    return results, launches, engine, load_s, copies
+
+
+def _burst_row(phase: str, what: str, results: list, launches: dict, engine: dict, load_s: float, copies: dict,
+               prompt_tokens: list, **extra) -> dict:
+    steps = engine["decode_steps"]
+    row = {"phase": phase, "pass": what, "gpu": gpu_line(), "kv_mode": engine["kv_mode"],
+           "kv_ragged": engine["kv_ragged"], "kv_quant_bits": engine["kv_quant_bits"], "batch_slots": BATCH_SLOTS,
+           "load_s": load_s, "decode_steps": steps, "launches": {k: v for k, v in launches.items() if v},
+           "kv_bytes": engine["kv_bytes"], **_burst_rates(results), **extra,
+           "requests": [{"prompt_tokens": n, "completion_tokens": r["tokens"], "ttft_s": r["ttft_s"],
+                         "gap_median_ms": r["gap_median_s"] * 1e3, "content_head": r["content"][:24]}
+                        for n, r in zip(prompt_tokens, results)]}
+    if copies["gather_calls"]:
+        row.update(kv_gather_ms_per_step=copies["gather"] / steps, kv_scatter_ms_per_step=copies["scatter"] / steps,
+                   kv_gather_calls=copies["gather_calls"], kv_scatter_calls=copies["scatter_calls"],
+                   kv_gather_ms_per_call=copies["gather"] / copies["gather_calls"],
+                   kv_scatter_ms_per_call=copies["scatter"] / copies["scatter_calls"],
+                   kv_commit_calls=copies["commit_row_calls"], kv_commit_ms=copies["commit_row"])
+    emit(row)
+    return row
+
+
+def _lane_streams(weights: tuple, env: dict, bits: int) -> tuple:
+    """The batch_serve prompts on an in-process BatchedEngine over the
+    checkpoint's `weights` (config, per-layer params, edge params; 8 slots,
+    bf16) under `env`: every prompt prefilled in 256-token chunks, then
+    MAX_TOKENS - 1 greedy decode steps over all 8 lanes with their budgets,
+    a fixed schedule (the HTTP adapter's depends on arrival times, and a
+    lane's split plan on the batch's longest lane).  Returns (tokens per
+    lane, the engine's stats)."""
+    from dnet_tpu_torch.core.batch import BatchedEngine
+    from dnet_tpu_torch.core.types import DecodingParams
+    from dnet_tpu_torch.utils.tokenizer import ByteTokenizer
+
+    tok = ByteTokenizer()
+    prompts = {f"l{i}": tok.encode(tok.apply_chat_template([{"role": "user", "content": c}]))
+               for i, c in enumerate(_batch_prompts())}
+    dec = DecodingParams(temperature=0.0)
+    with environ(env):
+        eng = BatchedEngine.from_params(*weights, slots=BATCH_SLOTS, max_seq=S, param_dtype="bfloat16",
+                                        device="cuda", kv_quant_bits=bits)
+    toks = {}
+    for n, ids in prompts.items():
+        eng.reserve_slot(n)
+        for i in range(0, len(ids), PREFILL_CHUNK):
+            logits = eng.prefill_chunk(n, ids[i : i + PREFILL_CHUNK])
+        toks[n] = [int(eng.adopt_prefilled(n, logits, dec).token[0])]
+    for step in range(1, MAX_TOKENS):
+        out, errs = eng.decode_batch({n: (t[-1], dec) for n, t in toks.items()},
+                                     budgets={n: MAX_TOKENS - step for n in toks})
+        check(not errs, f"lane streams {env}: {errs}")
+        for n, r in out.items():
+            toks[n].append(int(r.token[0]))
+    stats = eng.stats()
+    eng.close()
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    return list(toks.values()), stats
+
+
+def phase_gather_serve(model_dir: str, port: int, batched: dict) -> dict:
+    """The batch_serve checkpoint and burst through the dense-gather paged
+    decode: bf16 with DNET_KV_PAGED=1 alone (the reference's default paged
+    mode), then DNET_KV_BITS=8 DNET_KV_PAGED=1 DNET_KV_RAGGED=1, which falls
+    back from the ragged kernel to the gather.  Every request ends 200 with
+    all its tokens, the decode kernel of the cache's form runs 16 times a
+    decode step and the paged kernel never, the prefill kernel 16 times a
+    prompt chunk, and no block is held after the burst.  Each form's lanes
+    are then run on in-process engines, dense slots and the gather, on one
+    fixed schedule: every lane's greedy tokens equal (the same kernel over
+    the same values).  Prints the gather's and the scatter's device ms per
+    decode step and the aggregate decode rates beside batch_serve's (paged
+    + ragged, bf16)."""
+    from dnet_tpu_torch.core.engine import LocalEngine
+
+    args = _batch_args(model_dir, port)
+    bodies = _batch_bodies()
+    chunks = sum(-(-n // PREFILL_CHUNK) for n in BATCH_PROMPT_TOKENS)
+    loaded = LocalEngine(model_dir, max_seq=S, param_dtype="bfloat16", device="cuda", kv_paged=False)
+    weights = (loaded.config, loaded.window_params, loaded.edge_params)  # read once for the lane streams
+    del loaded
+    out = {}
+    for what, env, kernel, bits in (
+        ("gather bf16", GATHER_ENV, "flash_decode", 0),
+        ("gather q8 (ragged refused)", dict(GATHER_ENV, DNET_KV_RAGGED="1", DNET_KV_BITS="8"), "flash_decode_q8", 8),
+    ):
+        results, launches, engine, load_s, copies = _burst_pass(what, args, bodies, env, MAX_TOKENS)
+        steps = engine["decode_steps"]
+        check(engine["kv_mode"] == "paged" and engine["kv_ragged"] is False, f"{what}: {engine}")
+        dense, dense_stats = _lane_streams(weights, {}, bits)
+        gathered, gather_stats = _lane_streams(weights, {k: v for k, v in env.items() if k != "DNET_KV_BITS"}, bits)
+        check(dense_stats["kv_mode"] == "dense" and gather_stats["kv_mode"] == "paged", f"{what}: lane streams' modes")
+        for i, (a, b) in enumerate(zip(gathered, dense)):
+            check(a == b, f"{what} lane {i}: tokens {a} differ from dense slots' {b}")
+        check(steps > 0 and launches[kernel] == LAYERS * steps,
+              f"{what}: {kernel} launches {launches[kernel]} != {LAYERS} x {steps} steps")
+        others = {k: v for k, v in launches.items() if v and k not in (kernel, "flash_prefill")}
+        check(not others, f"{what}: other kernels launched {others}")
+        check(launches["flash_prefill"] == LAYERS * chunks, f"{what}: prefill launches {launches}")
+        check(copies["gather_calls"] > 0 and copies["scatter_calls"] == copies["gather_calls"]
+              and copies["commit_row_calls"] == len(bodies), f"{what}: {copies}")
+        out[what] = _burst_row(
+            "gather_serve", what, results, launches, engine, load_s, copies, BATCH_PROMPT_TOKENS,
+            pool_blocks=engine["kv_pool_blocks"], kv_blocks_peak=engine["kv_blocks_peak"],
+            lane_streams_equal_dense_slots=f"{len(dense)} lanes x {MAX_TOKENS} tokens",
+            paged_ragged_bf16_batch_serve={k: batched[k] for k in ("aggregate_tokens_per_s",
+                                                                   "aggregate_decode_tokens_per_s")})
+    del weights
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"launches": {k: v["launches"] for k, v in out.items()}, "rows": out}
+
+
+def _family_bodies(model: str, n_tokens: int) -> list:
+    """The batch_serve burst's 8 prompts (~27 to 1,500 tokens) for `model`,
+    greedy, streamed, n_tokens each."""
+    return [{"model": model, "max_tokens": n_tokens, "temperature": 0, "stream": True,
+             "messages": [{"role": "user", "content": c}], "logit_bias": TEXT_BIAS} for c in _batch_prompts()]
+
+
+def phase_gpt_oss_batch_serve(model_dir: str, port: int) -> dict:
+    """The 8-layer gpt-oss-20b checkpoint with --batch-slots 8 on dense
+    slots (the paired cache, a W = 128 ring a slot on the sliding half): 8
+    concurrent streams of the batch_serve prompts (~27 to 1,500 tokens,
+    every ring but the shortest's wrapped in prefill, each at its own
+    position), FAMILY_TOKENS each.  The rotating kernel runs 4 times a
+    decode step and the plain decode kernel 4 times, the prefill kernel 4
+    times a prompt chunk (the full half), no other kernel.  Then the same
+    with DNET_KV_PAGED=1: /health reports dense slots (the rings cannot be
+    addressed by blocks, the reference's fallback); how many lanes' texts
+    equal the first pass's is printed (the adapter's schedule, and so a
+    lane's split plan, follows arrival times)."""
+    args = _batch_args(model_dir, port)
+    bodies = _family_bodies(OSS_MODEL, FAMILY_TOKENS)
+    half = OSS_SERVE_LAYERS // 2
+    chunks = sum(-(-n // PREFILL_CHUNK) for n in BATCH_PROMPT_TOKENS)
+    rows, first = {}, None
+    for what, env in (("dense slots", {}), ("DNET_KV_PAGED=1 (falls back to dense slots)", GATHER_ENV)):
+        results, launches, engine, load_s, copies = _burst_pass(f"gpt_oss {what}", args, bodies, env, FAMILY_TOKENS)
+        steps = engine["decode_steps"]
+        want = {"flash_decode_rotating": half * steps, "flash_decode": half * steps, "flash_prefill": half * chunks}
+        got = {k: v for k, v in launches.items() if v}
+        check(steps > 0 and got == want, f"gpt_oss {what}: launches {got} != {want}")
+        check(engine["kv_mode"] == "dense", f"gpt_oss {what}: {engine}")
+        first = first or results
+        same = sum(r["content"] == d["content"] for r, d in zip(results, first))
+        rows[what] = _burst_row("gpt_oss_batch_serve", what, results, launches, engine, load_s, copies,
+                                BATCH_PROMPT_TOKENS, W=OSS_W, lanes_equal_first_pass=same)
+    return {"launches": rows["dense slots"]["launches"], "rows": rows}
+
+
+def phase_deepseek_batch_serve(model_dir: str, port: int) -> dict:
+    """The 4-layer DeepSeek-V2-Lite checkpoint with --batch-slots 8: the 8
+    batch_serve prompts, FAMILY_TOKENS each, on dense bf16 slots, then
+    through the dense-gather paged decode (DNET_KV_PAGED=1) over an int8
+    pool.  Exactly 4 MLA decode launches of the cache's form
+    a decode step, 4 MLA prefill launches a prompt chunk, no other kernel,
+    no block held after a burst.  Returns each pass's launches."""
+    args = _batch_args(model_dir, port)
+    bodies = _family_bodies(DS_MODEL, FAMILY_TOKENS)
+    chunks = sum(-(-n // PREFILL_CHUNK) for n in BATCH_PROMPT_TOKENS)
+    out = {}
+    for what, env, bits in (("dense bf16", {}, 0), ("gather q8", dict(GATHER_ENV, DNET_KV_BITS="8"), 8)):
+        results, launches, engine, load_s, copies = _burst_pass(f"deepseek {what}", args, bodies, env,
+                                                                FAMILY_TOKENS)
+        steps = engine["decode_steps"]
+        dec = "flash_decode_mla" + (f"_q{bits}" if bits else "")
+        want = {dec: DS_SERVE_LAYERS * steps, "flash_prefill_mla": DS_SERVE_LAYERS * chunks}
+        got = {k: v for k, v in launches.items() if v}
+        check(steps > 0 and got == want, f"deepseek {what}: launches {got} != {want}")
+        check(engine["kv_mode"] == ("paged" if bits else "dense") and engine["kv_quant_bits"] == bits,
+              f"deepseek {what}: {engine}")
+        out[what] = _burst_row("deepseek_batch_serve", what, results, launches, engine, load_s, copies,
+                               BATCH_PROMPT_TOKENS)
+    return {k: v["launches"] for k, v in out.items()}
+
+
+def lane_summary(rows: dict, paths: dict) -> dict:
+    """The lane forms' line: each main row with the kernels line's keys,
+    its launches taken from the path that ran it (`paths`: row name ->
+    launches dict of that path)."""
+    out = []
+    for name, row in rows.items():
+        counter = row["counter"]
+        launches = paths[name].get(counter, 0)
+        check(launches > 0, f"{name}: {counter} never launched on its path")
+        out.append({"name": name, "route": "cuda", "source": "dnet_tpu_torch/csrc/flash_decode.cu",
+                    "replaces": "dnet_tpu/ops/flash_decode.py:50 (" + row["cache"] + ", lanes)", "launches": launches,
+                    "max_abs_err": row["max_err"], "ms": row["kernel_ms"], "plain_ms": row["plain_ms"],
+                    "bound_ms": row["bound_ms"], "bound_by": row["bound_by"], "library_ms": row["library_ms"],
+                    "times_library": row["times_library"], "kernels_per_call": row["kernels_per_call"]})
+    line = {"phase": "lane_kernels_summary", "kernels": out}
+    emit(line)
+    return line
+
+
 def row_extras(name: str, row: dict, per_call: dict) -> dict:
     """A row's time over the library call's and, for a decode row, its device
     kernels per call (phase_decode_launches), both from this run."""
@@ -4209,6 +4860,7 @@ def main() -> int:
     column_per_call = phase_column_launches()
     per_call = phase_decode_launches()
     per_call.update(phase_paged_launches(BATCH_POSITIONS))
+    lane_per_call = phase_lane_launches()
 
     prompt_text = "Write one line about GPUs."
     tok = ByteTokenizer()
@@ -4225,10 +4877,13 @@ def main() -> int:
     main_path.update(phase_quant_kernels(n_prompt + MAX_TOKENS - 2, BATCH_POSITIONS))
     # gpt_oss's sliding layers: the ring at the step's position
     main_path.update(phase_rotating_kernels())
+    # the decode kernel's lane forms (B = 8) and the dense gather's copies
+    lane_rows = phase_lane_kernels(lane_per_call)
     phase_codec_host()
     phase_parity()
     phase_batch_parity()
     phase_sched_parity()
+    lane_parity = phase_gather_parity()
     phase_quant_parity()
     oss_parity = phase_gpt_oss_parity()
     # sequence parallelism: the LSE form at the sp_serve step's position
@@ -4237,7 +4892,7 @@ def main() -> int:
     main_path.update(phase_lse_kernels(SP_SERVE_POS))
     main_path.update(phase_lse_form_kernels(SP_SERVE_POS))
     sp_parity = phase_sp_parity()
-    served, batched, quant, ring, sp_served = phase_serve(prompt_text, n_prompt)
+    served, batched, quant, ring, sp_served, gathered = phase_serve(prompt_text, n_prompt)
     long_text = _batch_prompts()[BATCH_PROMPT_TOKENS.index(300)]
     _, oss_served = phase_gpt_oss(prompt_text, long_text, _free_port())
     # deepseek_v2 (after gpt_oss has freed its memory): the MLA-width
@@ -4317,6 +4972,18 @@ def main() -> int:
         "dequant_scatter_columns": ("dnet_tpu_torch/csrc/column_ops.cu", "dnet_tpu/compression/ops.py:81",
                                     {"launches": ring}),
     }
+    # the lane forms, each with its launches on the path that ran it
+    lane_summary(lane_rows, {
+        "flash_decode_rotating_lanes": oss_served["batch_serve"]["launches"],
+        "flash_decode_rotating_q8_lanes": lane_parity["gpt_oss-dense-q8"],
+        "flash_decode_rotating_q4_lanes": lane_parity["gpt_oss-dense-q4"],
+        "flash_decode_mla_lanes": ds_served["batch_serve"]["dense bf16"],
+        "flash_decode_mla_q8_lanes": ds_served["batch_serve"]["gather q8"],
+        "flash_decode_mla_q4_lanes": lane_parity["deepseek_v2-gather-q4"],
+        "flash_decode_gathered": gathered["launches"]["gather bf16"],
+        "flash_decode_q8_gathered": gathered["launches"]["gather q8 (ragged refused)"],
+        "flash_decode_q4_gathered": lane_parity["llama-gather-q4"],
+    })
     from dnet_tpu_torch.kernels import launch_counts
 
     check(set(sources) == set(launch_counts()), f"the kernels line misses counters: {set(launch_counts()) - set(sources)}")

@@ -2,9 +2,12 @@
 
 Counterpart of dnet_tpu/api/model_manager.py (its local branches):
 `batch_slots == 1` serves a single-sequence `LocalEngine` behind a
-`LocalAdapter`; `batch_slots > 1` a continuously batched `BatchedEngine`
-(dense slots, or paged + ragged with DNET_KV_PAGED=1 DNET_KV_RAGGED=1)
-behind a `BatchedLocalAdapter`, or behind the iteration-level scheduler's
+`LocalAdapter` (with DNET_KV_PAGED=1, its paged admission ledger:
+exhaustion answers 429); `batch_slots > 1` a continuously batched
+`BatchedEngine` for every family (dense slots; with DNET_KV_PAGED=1 a paged
+pool decoded through the dense gather, or in place with DNET_KV_RAGGED=1
+where the ragged kernel takes the model and cache; dense slots where the
+pool cannot be used) behind a `BatchedLocalAdapter`, or behind the iteration-level scheduler's
 `SchedulerAdapter` (sched/) with DNET_SCHED=1, which widens a load to
 DNET_SCHED_SLOTS or max(batch_slots, 8) slots, as the reference's manager
 does; DNET_API_PREFIX_CACHE gives paged slots a prefix cache; a mesh
@@ -15,7 +18,8 @@ picks the KV cache's form for either engine.  What is not ported is
 refused at load with `EngineCapabilityError` (HTTP 422), the setting named,
 instead of being dropped: weight quantization (DNET_API_WEIGHT_QUANT_BITS),
 the single-sequence and the dense-slot prefix caches (DNET_API_PREFIX_CACHE
-with batch_slots 1, or on dense batched slots), speculative decoding
+with batch_slots 1, or on dense batched slots, also where a paged pool
+falls back to them: core/batch.py), speculative decoding
 (DNET_API_SPEC_LOOKAHEAD), the draft model (DNET_API_DRAFT_MODEL), and
 under a mesh: --batch-slots > 1 and the pp / tp / dp axes.  A
 model id is a filesystem path or a subdirectory of `models_dir` (repo id

@@ -1,25 +1,39 @@
 """Continuous batching: N session slots share one batched decode step, over
 dense per-slot KV rows or a paged KV pool.
 
-Counterpart of dnet_tpu/core/batch.py `BatchedEngine` in its two modes
-that decode in place:
+Counterpart of dnet_tpu/core/batch.py `BatchedEngine` in its three decode
+modes, for every family (each has the lane hook, models/base.py
+`supports_kv_commit`):
 
 - **Dense slots** (the reference's default, DNET_KV_PAGED unset): a
   [L, slots, S, ...] cache, plain or quantized (DNET_KV_BITS=8|4), where a
-  request owns one row from prefill to EOS.  Each layer writes the active
-  lanes' new K/V rows (codes and scales together) at their own positions,
-  then the decode kernel (ops/flash_decode.py) attends every lane's live
-  slots through a lengths vector (0 for an idle lane) in one launch: the
-  reference's vmap of the single-example step with `kv_commit=active`.
-- **Paged + ragged** (DNET_KV_PAGED=1 DNET_KV_RAGGED=1): a request's KV lives
-  in blocks of a shared pool ([L, N_blocks, bt, KVH, Hd], kv/store.py)
-  reached through its page table (kv/paged.py).  Admission and growth are
-  counted in free blocks; a shortfall raises the typed `KVPoolExhausted`.
-  Each layer's attention reads the pool in place through the page tables
+  request owns one row from prefill to EOS (gpt_oss: the paired
+  {"a", "b"} cache, its sliding half a W-row ring).  Each layer writes the
+  active lanes' new K/V rows (codes and scales together) at their own
+  positions (a ring: p % W), then the decode kernel (ops/flash_decode.py)
+  attends every lane's live slots through a lengths vector (0 for an idle
+  lane) in one launch, in its plain, rotating or (192, 128) MLA form: the
+  reference's vmap of the single-example step with `kv_commit=active`
+  (ops/attention.py `lane_cached_attend`).
+- **Paged, dense gather** (DNET_KV_PAGED=1; the reference's default paged
+  mode, and its fallback for what the ragged kernel refuses: quantized
+  pools, layers without llama's attention body): a request's KV lives in
+  blocks of a shared pool ([L, N_blocks, bt, ...], kv/store.py) reached
+  through its page table (kv/paged.py).  A dispatch gathers the page
+  tables into a dense [L, slots, nb * bt, ...] view, runs the dense-slot
+  steps over it, and scatters back only the blocks the active lanes wrote.
+  Admission and growth are counted in free blocks; a shortfall raises the
+  typed `KVPoolExhausted`.
+- **Paged + ragged** (DNET_KV_PAGED=1 DNET_KV_RAGGED=1, eligible models):
+  each layer's attention reads the pool in place through the page tables
   (ops/paged_attention.py) and the new K/V rows are appended to their
   blocks afterwards, for active lanes only.
 
-In both, prefill runs per request on the wrapped B=1 `LocalEngine` (the
+A paged pool the model cannot use (a block size that does not divide
+max_seq, a session layout the pool cannot address: gpt_oss's rings) falls
+back to dense slots with the reference's warning.
+
+In all three, prefill runs per request on the wrapped B=1 `LocalEngine` (the
 prefill kernel, a dense staging row), then the row moves into the slot's
 row or commits into pool blocks.  With a prefix cache (paged only,
 `prefix_cache_size`, kv/prefix.py), a prompt that extends a stored one
@@ -36,9 +50,9 @@ the extra tokens buffer here.
 Where the reference jits one vmapped program per step, this is eager
 PyTorch: a chunk is a Python loop whose launches queue on the current CUDA
 stream.  Not ported yet, and refused at load with `EngineCapabilityError`
-instead of serving something else: the dense-gather paged decode (paged
-with ragged off, or what the ragged kernel refuses: quantized pools, a
-model without the attention hook) and the prefix cache on dense slots.
+instead of serving something else: the prefix cache on dense slots (the
+reference's dense snapshot `PrefixCache`, ROADMAP A4), also where a paged
+pool falls back to dense slots.
 """
 
 from __future__ import annotations
@@ -51,7 +65,6 @@ import numpy as np
 import torch
 
 from dnet_tpu_torch.core.engine import LocalEngine, tensor_bytes
-from dnet_tpu_torch.core.kvcache import write_kv_rows
 from dnet_tpu_torch.core.sampler import (
     MAX_TOP_LOGPROBS,
     LaneSampling,
@@ -72,7 +85,8 @@ from dnet_tpu_torch.kv import (
     paged_enabled,
     ragged_enabled,
 )
-from dnet_tpu_torch.ops.flash_decode import flash_decode_attend
+from dnet_tpu_torch.kv.store import tree_get, tree_leaves
+from dnet_tpu_torch.ops.attention import LaneStep, lane_cached_attend
 from dnet_tpu_torch.ops.paged_attention import paged_attend, ragged_refusal
 from dnet_tpu_torch.utils.logger import get_logger
 
@@ -86,6 +100,13 @@ def _bucket_pow2(n: int) -> int:
     return b
 
 
+def _dense_prefix_refusal(size: int, why: str) -> str:
+    return (
+        f"DNET_API_PREFIX_CACHE={size} on dense batched slots ({why}): the dense snapshot prefix "
+        "cache is not ported (ROADMAP A4); it serves on paged slots (DNET_KV_PAGED=1); unset it to serve"
+    )
+
+
 class BatchedEngine:
     """LocalEngine-compatible surface plus `decode_batch` for the adapter."""
 
@@ -97,7 +118,8 @@ class BatchedEngine:
         self, model_dir: str | Path, slots: int = 8, prefix_cache_size: int = 0, **engine_kwargs
     ):
         self._refuse_config(slots, prefix_cache_size)
-        self.eng = LocalEngine(model_dir, **engine_kwargs)
+        # the inner B=1 engine only stages prefills: this engine owns the pool
+        self.eng = LocalEngine(model_dir, **{**engine_kwargs, "kv_paged": False})
         self._init_state(slots, prefix_cache_size)
 
     @classmethod
@@ -108,7 +130,7 @@ class BatchedEngine:
         LocalEngine.from_params)."""
         cls._refuse_config(slots, prefix_cache_size)
         self = cls.__new__(cls)
-        self.eng = LocalEngine.from_params(config, window_params, edge_params, **kw)
+        self.eng = LocalEngine.from_params(config, window_params, edge_params, **{**kw, "kv_paged": False})
         self._init_state(slots, prefix_cache_size)
         return self
 
@@ -121,23 +143,17 @@ class BatchedEngine:
 
         if slots < 1:
             raise ValueError(f"slots must be >= 1, got {slots}")
-        if paged_enabled() and not ragged_enabled():
-            raise EngineCapabilityError(
-                "paged continuous batching decodes through the ragged paged-attention kernel "
-                "only: set DNET_KV_RAGGED=1, or unset DNET_KV_PAGED for dense slots (the "
-                "dense-gather paged decode is not ported)"
-            )
         if prefix_cache_size and not paged_enabled():
-            raise EngineCapabilityError(
-                f"prefix cache (size {prefix_cache_size}) on dense batched slots: the dense "
-                "snapshot prefix cache is not ported (ROADMAP A4); it serves on paged slots "
-                "(DNET_KV_PAGED=1 DNET_KV_RAGGED=1)"
-            )
+            raise EngineCapabilityError(_dense_prefix_refusal(prefix_cache_size, "DNET_KV_PAGED is unset"))
 
     def _init_state(self, slots: int, prefix_size: int = 0) -> None:
         from dnet_tpu_torch.api.inference import EngineCapabilityError
 
         m = self.eng.model
+        if not m.supports_kv_commit:
+            raise EngineCapabilityError(
+                f"continuous batching not supported for {m.config.model_type} (no gated KV writes yet)"
+            )
         self.slots = slots
         self.max_seq = self.eng.max_seq
         self.config = self.eng.config
@@ -150,33 +166,39 @@ class BatchedEngine:
         # nonce -> (n_tokens, blocks, n_full) of a prefix hit not yet
         # committed into its slot's page table (one reference each)
         self._adopt: Dict[str, Tuple[int, List[int], int]] = {}
-        if paged_enabled():
-            why = ragged_refusal(m, self.eng.kv_quant_bits)
-            if why is not None:
-                raise EngineCapabilityError(
-                    f"ragged paged attention refused: {why} (the dense-gather paged decode is not ported)"
-                )
+        paged = paged_enabled()
+        if paged:
             try:
                 # the pool's default size covers the prefix entries too
                 cfg = PagedKVConfig.from_settings(self.max_seq, slots=slots + prefix_size)
-            except ValueError as exc:
-                raise EngineCapabilityError(str(exc)) from None
-            self._kv_cfg = cfg
-            self.kv_pool = BlockPool(cfg)
-            self.kv_store = BlockStore(m, len(m.layers), cfg, self.eng.kv_dtype)
-            if prefix_size > 0:
-                self.paged_prefix = PagedPrefixCache(self.kv_pool, self.kv_store, prefix_size)
-            log.info(
-                "paged KV on: %d blocks x %d tokens serving %d slots; decode attends the "
-                "pool in place (ragged paged attention)",
-                cfg.pool_blocks, cfg.block_tokens, slots,
-            )
-        else:
-            if not m.supports_paged_attend:
-                raise EngineCapabilityError(
-                    f"{m.config.model_type} attention stack has no attend hook: dense batched "
-                    "slots are not ported for it"
-                )
+                store = BlockStore(m, len(m.layers), cfg, self.eng.kv_dtype, self.eng.kv_quant_bits,
+                                   session_tokens=self.max_seq)
+            except (ValueError, NotImplementedError) as exc:
+                log.warning("paged KV disabled for batched engine (%s); serving dense slots", exc)
+                if prefix_size:
+                    raise EngineCapabilityError(
+                        _dense_prefix_refusal(prefix_size, f"paged KV is disabled ({exc})")
+                    ) from None
+                paged = False
+            else:
+                self._kv_cfg = cfg
+                self.kv_pool = BlockPool(cfg)
+                self.kv_store = store
+                if prefix_size > 0:
+                    self.paged_prefix = PagedPrefixCache(self.kv_pool, self.kv_store, prefix_size)
+                log.info("paged KV on: %d blocks x %d tokens serving %d slots",
+                         cfg.pool_blocks, cfg.block_tokens, slots)
+        # ragged paged attention (DNET_KV_RAGGED=1): decode attends the pool
+        # in place; the dense gather serves everything the kernel refuses
+        self.kv_ragged = False
+        if paged and ragged_enabled():
+            why = ragged_refusal(m, self.eng.kv_quant_bits)
+            if why is not None:
+                log.warning("ragged paged attention disabled (%s); serving dense-gather decode", why)
+            else:
+                self.kv_ragged = True
+                log.info("ragged paged attention on: decode attends the block pool in place")
+        if not paged:
             self.kv = m.init_kv(len(m.layers), slots, self.max_seq, self.eng.kv_dtype, self.eng.kv_quant_bits)
             log.info(
                 "dense KV: %d slots x %d tokens (%s), %d bytes", slots, self.max_seq,
@@ -262,6 +284,7 @@ class BatchedEngine:
             "active": len(self.slot_of),
             "decode_steps": self.decode_steps,
             "kv_mode": "dense" if self.kv_pool is None else "paged",
+            "kv_ragged": self.kv_ragged,
             "kv_quant_bits": self.eng.kv_quant_bits,
             "kv_bytes": self._kv_bytes(),
         }
@@ -387,11 +410,14 @@ class BatchedEngine:
         if self.kv_pool is not None:
             self._commit_paged_slot(nonce, slot, sess)
         else:
-            # the staged row's live slots, codes and scales alike; the slot's
-            # later rows keep stale values that no length ever reaches
+            # the staged row's live slots, codes and scales alike (a W-row
+            # ring whole once it has wrapped: staging and slot both hold
+            # position p at p % W); the slot's later rows keep stale values
+            # that no length ever reaches
             n = int(sess.pos)
-            for name, big in self.kv.items():
-                big[:, slot, :n] = sess.kv[name][:, 0, :n]
+            for path, big in tree_leaves(self.kv):
+                m = min(n, big.shape[2])
+                big[:, slot, :m] = tree_get(sess.kv, path)[:, 0, :m]
         self.counts[slot] = sess.counts[0]
         self.generators[slot] = sess.generator
         self.pos[slot] = sess.pos
@@ -486,7 +512,10 @@ class BatchedEngine:
                 return out, errors
         t0 = time.perf_counter()
         lanes = sorted(order.values())
-        dispatch = self._dispatch_dense if self.kv_pool is None else self._dispatch_ragged
+        if self.kv_pool is None:
+            dispatch = self._dispatch_dense
+        else:
+            dispatch = self._dispatch_ragged if self.kv_ragged else self._dispatch_gather
         packed, with_lp = dispatch(order, lanes, active, R, token, decs)
         self.last_dispatch_ms = (time.perf_counter() - t0) * 1000.0
         # ONE device-to-host read per dispatch, then host-side slicing
@@ -631,28 +660,50 @@ class BatchedEngine:
                 pos_t = pos_t + step_t
         return torch.stack(steps), with_lp
 
-    def _dense_step(self, token, pos, lanes, lane_pos, lengths, max_live: int) -> torch.Tensor:
-        """One batched forward over the dense slots: each layer writes the
-        active lanes' new K/V rows at their positions (codes and scales
-        together on a quantized cache), then the decode kernel attends each
-        lane's [0, lengths[b]) slots.  Returns logits [slots, V]."""
+    def _dense_step(self, kv: dict, token, pos, step: LaneStep) -> torch.Tensor:
+        """One batched forward over dense slots `kv` (the slots' cache, or a
+        gathered view of the pool): each layer writes the active lanes' new
+        K/V rows at their positions (codes and scales together on a
+        quantized cache; a ring at p % W), then the decode kernel attends
+        each lane's [0, lengths[b]) slots.  Returns logits [slots, V]."""
         m = self.model
         ep = self.eng.edge_params
 
-        def attend_fn(q, k, v, kvs):
-            write_kv_rows(kvs, k[lanes, 0], v[lanes, 0], lanes, lane_pos)
-            attn = flash_decode_attend(q.contiguous(), kvs["k"], kvs["v"], lengths, max_live,
-                                       k_scale=kvs.get("k_scale"), v_scale=kvs.get("v_scale"))
+        def attend_fn(q, k, v, kvs, sinks=None, scale=None, window=0):
+            attn = lane_cached_attend(q, k, v, kvs, step, sinks=sinks, scale=scale, window=window)
             return attn, {}  # written in place: nothing for apply_window to stack
 
         x = m.embed(ep, token)  # [slots, 1, D]
-        x, _ = m.apply_window(self.eng.window_params, x, self.kv, pos[:, None], attend_fn=attend_fn)
+        x, _ = m.apply_window(self.eng.window_params, x, kv, pos[:, None], attend_fn=attend_fn)
         x = m.normalize(ep, x[:, -1:])
         return m.lm_project(ep, x)[:, 0]
 
+    def _dispatch_gather(self, order: Dict[str, int], lanes: List[int], active: np.ndarray, R: int,
+                         token: np.ndarray, decs: Dict[int, DecodingParams]):
+        """The dense-gather paged decode: gather the page tables into a dense
+        view (a single step at the pow2 bucket of the widest active table,
+        an R-step chunk at max_seq), run the R dense steps over it, and
+        scatter back each active lane's blocks p0 // bt .. (p0 + R - 1) //
+        bt, which copy-on-write has made private (a block shared through the
+        prefix cache is never written).  Returns what _dispatch_dense
+        does."""
+        view = self.kv_store.gather(self._table_ids(order if R == 1 else None))
+        out = self._dense_steps(view, lanes, active, R, token, decs)
+        bt = self._kv_cfg.block_tokens
+        triples = []
+        for slot in lanes:
+            p0, blocks = int(self.pos[slot]), self._tables[slot].blocks
+            triples.extend((slot, b, blocks[b]) for b in range(p0 // bt, (p0 + R - 1) // bt + 1))
+        self.kv_store.scatter(view, triples)
+        return out
+
     def _dispatch_dense(self, order: Dict[str, int], lanes: List[int], active: np.ndarray, R: int,
                         token: np.ndarray, decs: Dict[int, DecodingParams]):
-        """Queue R decode steps for the active `lanes` over the dense slots:
+        return self._dense_steps(self.kv, lanes, active, R, token, decs)
+
+    def _dense_steps(self, kv: dict, lanes: List[int], active: np.ndarray, R: int, token: np.ndarray,
+                     decs: Dict[int, DecodingParams]):
+        """Queue R decode steps for the active `lanes` over dense slots `kv`:
         each step writes and attends the lanes' rows, samples every active
         lane and feeds the sampled tokens to the next step.  Returns the
         steps' results packed [R, lanes, 1, W] (still on the device) and
@@ -665,7 +716,7 @@ class BatchedEngine:
         steps = []
         for r in range(R):
             lengths = (pos_t + 1) * step_t  # 0 for an idle lane
-            logits = self._dense_step(tok, pos_t, lane_t, lane_pos, lengths, max_live)
+            logits = self._dense_step(kv, tok, pos_t, LaneStep(lane_t, lane_pos, lengths, max_live))
             res = sample_lanes(logits, sampling, self.counts)
             steps.append(pack_chunk_results(res, with_lp))
             self.decode_steps += 1

@@ -12,6 +12,15 @@ reference, and never past `max_seq - pos` (the KV write must fit); each
 forward tells the model how many of its tokens are real (`t_real`), so a
 ring-buffer cache (gpt_oss's sliding layers) never takes a padded row.
 
+Under DNET_KV_PAGED=1 (`kv_paged`) the engine keeps the reference's
+paged admission ledger: a `BlockPool` (kv/paged.py) that each session
+debits block by block as its prompt and decode grow (the KV itself stays
+the session's dense cache).  A prefill or a decode step the pool cannot
+cover raises `KVPoolExhausted` before any compute, which the HTTP layer
+answers with 429; a session's blocks return when it ends or the TTL sweep
+drops it.  A block size that does not divide max_seq serves without the
+ledger, with the reference's warning.
+
 In shard mode (`layers=`, `shard_mode=True`) the engine holds one ring
 shard's layer range and serves hidden states in and out: `embed_window`
 on the head, `run_layers` in the middle, `hidden_tail` / `sample_hidden`
@@ -39,6 +48,7 @@ from dnet_tpu_torch.core.sampler import (
     sample,
 )
 from dnet_tpu_torch.core.types import DecodingParams, TokenResult
+from dnet_tpu_torch.kv.paged import BlockPool, KVPoolExhausted, PagedKVConfig, PageTable, paged_enabled
 from dnet_tpu_torch.models import ModelConfig, get_ring_model_cls
 from dnet_tpu_torch.utils.checkpoint import Checkpoint
 from dnet_tpu_torch.utils.device import resolve_device
@@ -68,6 +78,7 @@ class Session:
     # without a host round trip) + dispatched-but-unread chunk queue
     last_token: torch.Tensor = None  # [B, 1] int64
     pending: deque = field(default_factory=deque)
+    pages: PageTable = None  # the paged ledger's blocks (kv_paged)
 
 
 class LocalEngine:
@@ -88,6 +99,7 @@ class LocalEngine:
         shard_mode: bool = False,
         kv_dtype: Optional[str] = None,
         kv_quant_bits: int = 0,
+        kv_paged: Optional[bool] = None,
     ):
         """layers=None is the whole model; a sub-range with shard_mode=True
         makes this engine a ring shard's compute core: it loads only the
@@ -96,11 +108,19 @@ class LocalEngine:
         it is tied) and serves hidden states in and out.  The KV cache is
         `kv_dtype` (default: the param dtype), or int8 / packed int4 with
         f32 scales for `kv_quant_bits` 8 / 4 (core/kvcache.py
-        `resolve_kv_bits` maps DNET_KV_BITS to these two)."""
+        `resolve_kv_bits` maps DNET_KV_BITS to these two).  `kv_paged`
+        (default: DNET_KV_PAGED) turns on the paged admission ledger; a
+        shard never keeps one, as in the reference."""
         self.device = resolve_device(device)
         self.ckpt = Checkpoint(model_dir)
         self.config = ModelConfig.from_hf(self.ckpt.config)
         self._setup(max_seq, param_dtype, layers, kv_dtype, kv_quant_bits)
+        if paged_enabled() if kv_paged is None else kv_paged:
+            if shard_mode:
+                log.warning("paged KV not supported for shard engines (the ring runtime owns shard "
+                            "admission); serving the dense path")
+            else:
+                self._init_paged()
         t0 = time.perf_counter()
         m = self.model
         self.window_params = m.stack_layers(
@@ -133,6 +153,7 @@ class LocalEngine:
         device: Optional[Union[str, torch.device]] = None,
         kv_dtype: Optional[str] = None,
         kv_quant_bits: int = 0,
+        kv_paged: Optional[bool] = None,
     ) -> "LocalEngine":
         """An engine around already-materialised parameters (no checkpoint
         on disk; `window_params` one dict per layer, in layer order): the
@@ -142,6 +163,8 @@ class LocalEngine:
         self.ckpt = None
         self.config = config
         self._setup(max_seq, param_dtype, None, kv_dtype, kv_quant_bits)
+        if paged_enabled() if kv_paged is None else kv_paged:
+            self._init_paged()
         self.window_params = self.model.stack_layers([self._cast(p) for p in window_params])
         self.edge_params = {k: self._cast(v) for k, v in edge_params.items()}
         self._build_kernels()
@@ -162,6 +185,34 @@ class LocalEngine:
         self.kv_quant_bits = kv_quant_bits
         self.kv_bytes = 0  # bytes of the last cache a session allocated
         self.sessions: Dict[str, Session] = {}
+        self.kv_pool: Optional[BlockPool] = None  # the paged ledger (_init_paged)
+
+    # ---- paged KV ledger ------------------------------------------------
+    def _init_paged(self, slots: int = 8) -> None:
+        """The BlockPool admission ledger (DNET_KV_PAGED=1).  `slots` sizes
+        the pool when DNET_KV_POOL_BLOCKS is 0: that many max_seq
+        sequences' worth of blocks."""
+        try:
+            cfg = PagedKVConfig.from_settings(self.max_seq, slots=slots)
+        except ValueError as exc:
+            log.warning("paged KV disabled (%s); serving the dense path", exc)
+            return
+        self.kv_pool = BlockPool(cfg)
+        log.info("paged KV on: %d blocks x %d tokens (%s sequences' worth)", cfg.pool_blocks,
+                 cfg.block_tokens, cfg.pool_blocks * cfg.block_tokens // self.max_seq)
+
+    def _paged_ensure(self, sess: Session, n_tokens: int) -> None:
+        """Debit the pool for the blocks a session needs to cover n_tokens;
+        raises KVPoolExhausted before any compute."""
+        if self.kv_pool is None:
+            return
+        if sess.pages is None:
+            sess.pages = PageTable()
+        self.kv_pool.ensure(sess.pages, min(n_tokens, self.max_seq))
+
+    def _paged_release(self, sess: Optional[Session]) -> None:
+        if self.kv_pool is not None and sess is not None:
+            self.kv_pool.release_table(sess.pages)
 
     def _cast(self, params: dict) -> dict:
         return {
@@ -229,9 +280,13 @@ class LocalEngine:
             torch.cuda.empty_cache()
 
     def stats(self) -> dict:
-        """The KV cache's form and the bytes one session's cache holds (for
-        /health)."""
-        return {"kv_dtype": self.kv_dtype, "kv_quant_bits": self.kv_quant_bits, "kv_bytes": self.kv_bytes}
+        """The KV cache's form and the bytes one session's cache holds, and
+        the paged ledger's blocks when it is on (for /health)."""
+        out = {"kv_dtype": self.kv_dtype, "kv_quant_bits": self.kv_quant_bits, "kv_bytes": self.kv_bytes}
+        if self.kv_pool is not None:
+            out.update(kv_mode="paged", kv_pool_blocks=self.kv_pool.total, kv_blocks_used=self.kv_pool.used,
+                       kv_blocks_free=self.kv_pool.free, kv_blocks_peak=self.kv_pool.peak_used)
+        return out
 
     # ---- sessions -----------------------------------------------------
     def new_session(self, nonce: str, seed: Optional[int] = None) -> Session:
@@ -256,13 +311,14 @@ class LocalEngine:
         return self.model.init_kv(len(self.model.layers), self.batch, self.max_seq, self.kv_dtype, self.kv_quant_bits)
 
     def end_session(self, nonce: str) -> None:
-        self.sessions.pop(nonce, None)
+        self._paged_release(self.sessions.pop(nonce, None))
 
     def sweep_sessions(self) -> int:
         now = time.time()
         dead = [n for n, s in self.sessions.items() if now - s.last_used > self.KV_TTL_S]
         for n in dead:
-            self.sessions.pop(n)
+            # the sweep is the paged ledger's collector too
+            self._paged_release(self.sessions.pop(n))
         return len(dead)
 
     # ---- inference ----------------------------------------------------
@@ -277,9 +333,17 @@ class LocalEngine:
         if start + len(ids) > self.max_seq:
             raise ValueError(f"prompt length {start + len(ids)} exceeds max_seq {self.max_seq}")
         t_pf = time.perf_counter()
-        if sess is None:
+        fresh = sess is None
+        if fresh:
             sess = self.new_session(nonce, seed)
         T = len(ids)
+        try:
+            # admission before the forward: exhaustion costs nothing
+            self._paged_ensure(sess, sess.pos + T)
+        except KVPoolExhausted:
+            if fresh:
+                self.end_session(nonce)
+            raise
         # the PADDED width must fit too: the KV write may not run past max_seq
         Tpad = min(bucket_length(T), self.max_seq - sess.pos)
         tokens = np.zeros((self.batch, Tpad), dtype=np.int64)
@@ -317,6 +381,7 @@ class LocalEngine:
         sess = self.sessions[nonce]
         if sess.pos >= self.max_seq:
             raise ValueError(f"sequence length {sess.pos} reached max_seq {self.max_seq}")
+        self._paged_ensure(sess, sess.pos + 1)  # may raise KVPoolExhausted
         token = torch.full((self.batch, 1), int(token_id), dtype=torch.int64, device=self.device)
         logits = self._forward(token, sess.kv, sess.pos, 0)
         res = self._sample_with_counts(
@@ -349,6 +414,12 @@ class LocalEngine:
         budget = min(max_steps, self.max_seq - sess.pos)
         K = next((b for b in self.DECODE_CHUNK_BUCKETS if b <= budget), 1)
         if K == 1:
+            return 0
+        try:
+            self._paged_ensure(sess, sess.pos + K)
+        except KVPoolExhausted:
+            # an un-extendable chunk falls back to single steps, whose own
+            # admission raises the definitive error
             return 0
         if token_id is None:
             if sess.last_token is None:

@@ -85,8 +85,16 @@ class RingModel(abc.ABC):
     """A model's assigned layers + edge ops; parameters are passed in."""
 
     model_type: str = ""
-    # layers whose attention can be swapped for the ragged paged kernel
-    # (apply_window's attend_fn hook)
+    # the lane hook dense batched slots need (the reference's
+    # supports_kv_commit): apply_window's attend_fn replaces each layer's
+    # cache write and attention read, with the layer's attention settings
+    # as keywords (sinks, scale, window), so the caller writes only the
+    # active lanes' rows at their own positions and attends through a
+    # lengths vector
+    supports_kv_commit: bool = True
+    # ragged eligibility (ops/paged_attention.py ragged_refusal): the layer
+    # body is llama's, whose attend_fn hook may also read the pool in place
+    # through the ragged paged kernel and hand back its new rows to append
     supports_paged_attend: bool = False
     # apply_window takes an sp group (sequence-parallel KV shards)
     supports_sp: bool = False
@@ -124,13 +132,17 @@ class RingModel(abc.ABC):
     ) -> Tuple[torch.Tensor, dict]:
         """Apply the window's layers; kv holds the window's stacked cache
         and is updated in place.  pos is the chunk's start position or a
-        [B, 1] tensor of per-lane positions; `attend_fn`, where the model
-        supports it (supports_paged_attend), replaces each layer's cache
-        write and attention read.  `t_real` is the number of real
-        (non-padding) tokens in the chunk: models with rotating ring-buffer
-        caches keep bucket padding out of their writes, because padded
-        positions would wrap around and overwrite live rows (None: every
-        token is real).  `sp` (an SpGroup, parallel/mesh.py), where the
+        [B, 1] tensor of per-lane positions; `attend_fn` (a decode row,
+        supports_kv_commit) replaces each layer's cache write and attention
+        read: it is called as attend_fn(q, k, v, kvs, sinks=, scale=,
+        window=) with the layer's sink logits (or None), softmax scale (None:
+        head_dim ** -0.5) and ring window (0 unless kvs is a W-row ring),
+        and returns (attention output, what apply_window stacks: the ragged
+        path's new rows, or {} when the hook wrote them).  `t_real` is the
+        number of real (non-padding) tokens in the chunk: models with
+        rotating ring-buffer caches keep bucket padding out of their writes,
+        because padded positions would wrap around and overwrite live rows
+        (None: every token is real).  `sp` (an SpGroup, parallel/mesh.py), where the
         model supports it (supports_sp): kv is one cache per sequence-
         parallel rank and attention runs as the sp composition."""
 

@@ -19,6 +19,12 @@ asymmetric cache, a decode row through the decode kernel's LSE form at
   group-limited), `norm_topk_prob`, `routed_scaling_factor`, the routed
   experts through ops/moe.py, plus the always-on shared experts.
 
+On batched slots (core/batch.py: dense slots, or a view gathered from the
+paged pool) a decode row of lanes goes through apply_window's attend hook:
+each active lane's 192-wide K and 128-wide V rows are written at its
+position, then the decode kernel's (192, 128) form attends every lane over
+the lengths vector at the model's softmax scale.
+
 Dense and MoE layers carry different params, so the window stacks as
 {"dense": [...], "moe": [...]} (models/segments.py).
 """
@@ -102,11 +108,13 @@ class DeepseekV2RingModel(TwoSegmentStackMixin, RingModel):
 
     # ---- compute ------------------------------------------------------
     def _attention(
-        self, p: dict, x: torch.Tensor, kvs, pos: int, lengths, sp=None
+        self, p: dict, x: torch.Tensor, kvs, pos, lengths, sp=None, attend_fn=None
     ) -> torch.Tensor:
         """MLA incl. the residual add; under `sp` kvs is the ranks' layer
         slices and lengths their vectors (ops/attention.py cached_attend):
-        the predicate stays the implicit causal one, as in the reference."""
+        the predicate stays the implicit causal one, as in the reference.
+        With `attend_fn` (batched lanes, pos [B, 1]) the hook writes the
+        192-wide K and 128-wide V rows and attends at the model's scale."""
         B, T, _ = x.shape
         nope, rope_d, vd = self.qk_nope_head_dim, self.qk_rope_head_dim, self.v_head_dim
 
@@ -131,8 +139,11 @@ class DeepseekV2RingModel(TwoSegmentStackMixin, RingModel):
         k_pe = apply_rope_interleaved(k_pe[:, :, None, :], positions, self.inv_freq, self.rope_scale)
         q_full = torch.cat([q_nope, q_pe], dim=-1)
         k_full = torch.cat([k_nope, k_pe.expand(B, T, H, rope_d)], dim=-1)
-        attn, _ = cached_attend(q_full, k_full, v, kvs, pos, None, scale=self.softmax_scale, causal=True,
-                                lengths=lengths, sp=sp)
+        if attend_fn is not None:
+            attn, _ = attend_fn(q_full, k_full, v, kvs, scale=self.softmax_scale)
+        else:
+            attn, _ = cached_attend(q_full, k_full, v, kvs, pos, None, scale=self.softmax_scale, causal=True,
+                                    lengths=lengths, sp=sp)
         return x + attn.reshape(B, T, H * vd) @ p["wo"]
 
     @staticmethod
@@ -170,11 +181,11 @@ class DeepseekV2RingModel(TwoSegmentStackMixin, RingModel):
         return x + (routed.to(flat.dtype) + shared).reshape(B, T, D)
 
     def layer(
-        self, p: dict, x: torch.Tensor, kvs, pos: int, lengths=None, sp=None
+        self, p: dict, x: torch.Tensor, kvs, pos, lengths=None, sp=None, attend_fn=None
     ) -> Tuple[torch.Tensor, dict]:
         """One decoder layer over its cache slices (written in place; under
-        `sp` the ranks' slices)."""
-        x = self._attention(p, x, kvs, pos, lengths, sp)
+        `sp` the ranks' slices; with `attend_fn`, through the lane hook)."""
+        x = self._attention(p, x, kvs, pos, lengths, sp, attend_fn)
         if "e_gate" in p:
             return self._moe(p, x), kvs
         h = rms_norm(x, p["mlp_norm"], self.config.rms_norm_eps)
@@ -187,9 +198,10 @@ class DeepseekV2RingModel(TwoSegmentStackMixin, RingModel):
         """The dense segment, then the moe segment; kv written in place
         (under `sp`: one cache per rank, core/kvcache.py init_cache_sp).
         t_real is unused: a full-length cache keeps padded rows past every
-        real position, where the next write overwrites them."""
+        real position, where the next write overwrites them.  `attend_fn`:
+        a decode row of batched lanes through the lane hook (pos [B, 1])."""
         if attend_fn is not None:
-            raise ValueError("deepseek_v2 has no attend hook (supports_paged_attend is False)")
+            return self._apply_segments(window_params, x, kv, pos, attend_fn=attend_fn), kv
         # a decode step's lengths vector (per rank under sp), made once for every layer
         lengths = None
         if x.shape[1] == 1:

@@ -14,8 +14,9 @@ multi-lap `phase` that runs one segment per ring lap and
 `pad_mesh_segments`.  `quantize_params` and `wrap_offload_layer` come with
 weight quantization and weight streaming (A4).
 
-The host class provides `layer(p, x, kvs, pos, lengths=, sp=)`, one layer
-over its cache slices (written in place).  Under sequence parallelism (an
+The host class provides `layer(p, x, kvs, pos, lengths=, sp=, attend_fn=)`,
+one layer over its cache slices (written in place, or through the batched
+lanes' attend hook).  Under sequence parallelism (an
 sp group, parallel/mesh.py) the cache is one flat stack per rank and a
 layer gets every rank's rows.
 """
@@ -34,7 +35,7 @@ SEGMENTS = ("dense", "moe")
 class TwoSegmentStackMixin:
     def _apply_segments(
         self, window_params: Dict[str, List[dict]], x: torch.Tensor, kv, pos: int,
-        lengths=None, sp=None,
+        lengths=None, sp=None, attend_fn=None,
     ) -> torch.Tensor:
         """The dense segment's layers, then the moe segment's, each over its
         rows of the flat cache (of every rank's cache under `sp`), written in
@@ -43,6 +44,6 @@ class TwoSegmentStackMixin:
         for seg in SEGMENTS:
             for p in window_params.get(seg, ()):
                 kvs = layer_slices(kv, row) if sp is None else [layer_slices(c, row) for c in kv]
-                x, _ = self.layer(p, x, kvs, pos, lengths=lengths, sp=sp)
+                x, _ = self.layer(p, x, kvs, pos, lengths=lengths, sp=sp, attend_fn=attend_fn)
                 row += 1
         return x

@@ -29,15 +29,23 @@ O(window) ring-buffer cache: a decode row writes the ring first and reads
 it through the decode kernel's rotating variant; a prompt chunk attends the
 ring as it was plus its own keys through the dense `attend`, with masks
 built from each slot's absolute position, and writes the ring after.
+
+`lane_cached_attend` is the batched engine's decode row over lanes at
+their own positions (the reference's vmap with `kv_commit=active`): it
+writes only the active lanes' new rows, at position p (a W-row ring: slot
+p % W), then one decode-kernel launch attends every lane through its
+lengths vector (0 for an idle lane), in the plain, rotating or (192, 128)
+MLA form and over a quantized cache's codes.
 """
 
 from __future__ import annotations
 
+from dataclasses import dataclass
 from typing import Optional, Tuple
 
 import torch
 
-from dnet_tpu_torch.core.kvcache import read_kv, write_kv, write_kv_rotating, write_kv_sp
+from dnet_tpu_torch.core.kvcache import read_kv, write_kv, write_kv_rotating, write_kv_rows, write_kv_sp
 from dnet_tpu_torch.ops.flash_attention import flash_attend_causal
 from dnet_tpu_torch.ops.flash_decode import decode_lengths, flash_decode_attend, rank_live, sp_lengths
 from dnet_tpu_torch.ops.ring_attention import sp_decode_attend, sp_flash_decode_attend
@@ -240,3 +248,43 @@ def attend(
         probs = probs / probs.sum(dim=-1, keepdim=True)
     out = torch.einsum("bkgts,bskd->btkgd", probs, v.float())
     return out.reshape(B, T, H, v.shape[-1]).to(q.dtype)
+
+
+@dataclass(frozen=True)
+class LaneStep:
+    """One decode step's lanes: `lanes` int64 [n] the active lanes,
+    `positions` int64 [n] their new rows' positions, `lengths` int32 [B]
+    each lane's live length after the write (0 for an idle lane) and
+    `max_live` (host int) a bound on every lane's length.  All on the
+    cache's device."""
+
+    lanes: torch.Tensor
+    positions: torch.Tensor
+    lengths: torch.Tensor
+    max_live: int
+
+
+def lane_cached_attend(
+    q: torch.Tensor,
+    k_new: torch.Tensor,
+    v_new: torch.Tensor,
+    kvs: dict,
+    step: LaneStep,
+    sinks: Optional[torch.Tensor] = None,
+    scale: Optional[float] = None,
+    window: int = 0,
+) -> torch.Tensor:
+    """One decode row per lane (q [B, 1, H, D], k_new/v_new [B, 1, KVH, .])
+    over one layer's cache slices [B, S, ...]: the active lanes' rows are
+    written at their positions, codes and scales together (a ring, when
+    `window` > 0: slot position % S), the other lanes' rows are untouched,
+    then lane b attends its [0, lengths[b]) slots (a ring: the last `window`
+    positions up to lengths[b] - 1) in one decode-kernel launch."""
+    S = kvs["k"].shape[1]
+    rotating = window > 0
+    slots = torch.remainder(step.positions, S) if rotating else step.positions
+    write_kv_rows(kvs, k_new[step.lanes, 0], v_new[step.lanes, 0], step.lanes, slots)
+    return flash_decode_attend(
+        q.contiguous(), kvs["k"], kvs["v"], step.lengths, min(step.max_live, S), scale=scale, sinks=sinks,
+        k_scale=kvs.get("k_scale"), v_scale=kvs.get("v_scale"), rotating=rotating, window=window,
+    )

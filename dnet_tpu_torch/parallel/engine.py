@@ -77,6 +77,8 @@ class MeshEngine:
     _cast = LocalEngine._cast
     _build_kernels = LocalEngine._build_kernels
     new_session = LocalEngine.new_session
+    _paged_ensure = LocalEngine._paged_ensure  # no ledger under a mesh (kv_pool stays None)
+    _paged_release = LocalEngine._paged_release
     end_session = LocalEngine.end_session
     sweep_sessions = LocalEngine.sweep_sessions
     prefill = LocalEngine.prefill
@@ -112,8 +114,9 @@ class MeshEngine:
         'cpu': every rank on the CPU)."""
         config = ModelConfig.from_hf(Checkpoint(model_dir).config)
         group = _group(config, pp, tp, dp, sp, max_seq, device, devices)
+        # no paged ledger: mesh caches are sharded, as in the reference
         LocalEngine.__init__(self, model_dir, max_seq=max_seq, param_dtype=param_dtype, device=group.home,
-                             kv_dtype=kv_dtype, kv_quant_bits=kv_quant_bits)
+                             kv_dtype=kv_dtype, kv_quant_bits=kv_quant_bits, kv_paged=False)
         self._mesh_ready(group)
 
     @classmethod
@@ -139,7 +142,7 @@ class MeshEngine:
         group = _group(config, pp, tp, dp, sp, max_seq, device, devices)
         self = LocalEngine.from_params.__func__(
             cls, config, window_params, edge_params, max_seq=max_seq, param_dtype=param_dtype,
-            device=group.home, kv_dtype=kv_dtype, kv_quant_bits=kv_quant_bits,
+            device=group.home, kv_dtype=kv_dtype, kv_quant_bits=kv_quant_bits, kv_paged=False,
         )
         self._mesh_ready(group)
         return self

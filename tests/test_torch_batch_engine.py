@@ -315,18 +315,52 @@ def test_pool_exhaustion_is_typed_backpressure(weights, monkeypatch):
         ({"DNET_KV_BLOCK_TOKENS": "24"}, {}, "divide max_seq"),
     ],
 )
-def test_refused_configurations(weights, monkeypatch, env, kw, match):
-    """What the port does not serve yet is refused at load with a typed
-    error (HTTP 422), never served as something else."""
+def test_refused_configurations(weights, ref, monkeypatch, env, kw, match):
+    """The configurations the port refused at load (the refusal's text in
+    `match`).  A prefix cache on dense slots still is (HTTP 422: the dense
+    snapshot prefix cache, ROADMAP A4, is not ported).  The other three now
+    serve as the reference does, its greedy stream equal to the ragged
+    reference's (an int8 pool's: the int8 dense slots'): a quantized pool
+    and DNET_KV_RAGGED off through the dense-gather decode, a block size
+    that does not divide max_seq on dense slots."""
     for k, v in env.items():
         monkeypatch.setenv(k, v)
-    with pytest.raises(EngineCapabilityError, match=match):
-        _port(weights, **kw)
+    reset_settings_cache()
+    if "prefix_cache_size" in kw:
+        with pytest.raises(EngineCapabilityError, match="DNET_API_PREFIX_CACHE=4 on dense batched slots"):
+            _port(weights, **kw)
+        return
+    eng = _port(weights, **kw)
+    mode = "dense" if match == "divide max_seq" else "paged"
+    assert eng.stats()["kv_mode"] == mode and eng.kv_ragged is False
+    dec = DecodingParams(temperature=0.0, logprobs=True)
+    got = _interleaved(eng, dec, steps=6)
+    monkeypatch.undo()
+    if kw.get("kv_quant_bits"):
+        # an int8 pool: the stream of int8 dense slots, the same kernel over the same codes
+        monkeypatch.setenv("DNET_KV_PAGED", "0")
+        reset_settings_cache()
+        want = _interleaved(_port(weights, **kw), dec, steps=6)
+        monkeypatch.undo()
+    else:
+        reset_settings_cache()
+        want = _interleaved(ref, RefDecoding(temperature=0.0, logprobs=True), steps=6)
+    reset_settings_cache()
+    _assert_streams_match(got, want)
 
 
-def test_model_without_the_hook_is_refused(weights, monkeypatch):
+def test_model_without_the_hook_is_refused(weights, ref, monkeypatch):
+    """A family without llama's attention body (supports_paged_attend
+    False: gpt_oss, deepseek_v2) is refused the ragged kernel only, as the
+    reference's ragged_refusal says, and serves through the dense gather;
+    a model without the lane hook at all is refused batching at load."""
     from dnet_tpu_torch.models.llama import LlamaRingModel
 
     monkeypatch.setattr(LlamaRingModel, "supports_paged_attend", False)
-    with pytest.raises(EngineCapabilityError, match="paged-attend hook"):
+    eng = _port(weights)
+    assert eng.kv_pool is not None and eng.kv_ragged is False
+    dec = DecodingParams(temperature=0.0, logprobs=True)
+    _assert_streams_match(_interleaved(eng, dec), _interleaved(ref, RefDecoding(temperature=0.0, logprobs=True)))
+    monkeypatch.setattr(LlamaRingModel, "supports_kv_commit", False)
+    with pytest.raises(EngineCapabilityError, match="no gated KV writes"):
         _port(weights)

@@ -6,10 +6,12 @@ Pallas kernel in interpret mode, the port's plain version on the CPU).  A
 concurrent burst of prompts of different lengths must stream byte-identical
 greedy SSE once the response id and created stamp are normalised (the
 pattern of tests/subsystems/test_ragged_parity.py).  Capacity errors come
-back as 429, and every configuration the port does not serve yet is
-refused at load with 422 (dense batched slots, DNET_KV_PAGED unset, are
-held in tests/test_torch_kv_serving.py); a prefix cache and the scheduler
-serve the reference's bytes (tests/test_torch_sched_serving.py holds the
+back as 429.  The configurations once refused at load serve as the
+reference does: a block size that does not divide max_seq on dense slots,
+DNET_KV_PAGED=1 without DNET_KV_RAGGED through the dense gather (dense
+batched slots, DNET_KV_PAGED unset, are held in
+tests/test_torch_kv_serving.py); a prefix cache and the scheduler serve
+the reference's bytes (tests/test_torch_sched_serving.py holds the
 scheduler in depth)."""
 
 import asyncio
@@ -154,10 +156,22 @@ def test_slot_exhaustion_is_429(tiny_llama_dir, paged_env):
     ],
 )
 def test_refused_configurations_are_422_at_load(tiny_llama_dir, paged_env, env, match):
+    """The two configurations the port refused at load (the refusal's text
+    in `match`) now serve the reference's bytes: a block size max_seq is no
+    multiple of on dense slots (the reference's "paged KV disabled"
+    fallback), and the dense-gather paged decode."""
     paged_env(**env)
-    status, body, _ = asyncio.run(_burst(_app(port=True), tiny_llama_dir, []))
-    assert status == 422
-    assert body["error"]["type"] == "invalid_request_error" and match in body["error"]["message"]
+    bodies = [_chat(p) for p in PROMPTS]
+    rs, ref, _ = asyncio.run(_burst(_app(port=False), tiny_llama_dir, bodies))
+    ps, port, health = asyncio.run(_burst(_app(port=True), tiny_llama_dir, bodies))
+    assert rs == ps == 200, port
+    for (r_status, _, r_body), (p_status, _, p_body) in zip(ref, port):
+        assert r_status == p_status == 200
+        assert _normalize(p_body) == _normalize(r_body)
+    engine = health["engine"]
+    assert engine["kv_mode"] == {"divide max_seq": "dense", "DNET_KV_RAGGED=1": "paged"}[match]
+    assert engine["kv_ragged"] is False and engine["active"] == 0
+    assert engine.get("kv_blocks_used", 0) == 0
 
 
 @pytest.mark.parametrize(

@@ -3,10 +3,10 @@ tiny checkpoint (tests/fakes/checkpoints.py make_tiny_deepseek_v2: MLA with
 q/k head dim 24 and v head dim 12, layer 0 dense, 3 MoE layers): greedy
 chat and completions, streamed and aggregated, must be byte-identical
 except for the response id and the created stamp, over an f32 model
-with the plain cache and with DNET_KV_BITS=8 (an int8 cache).  What the port does
-not serve for deepseek_v2 yet is refused at load with 422: batched slots
-(paged + ragged, and dense) on the API, and a ring shard's load.  The
-reference runs its Pallas kernels in interpret mode (DNET_FLASH_INTERPRET=1)."""
+with the plain cache and with DNET_KV_BITS=8 (an int8 cache), single
+sequence and on batched slots (dense, and through the dense-gather paged
+decode).  A ring shard's load is refused with 422.  The reference runs
+its Pallas kernels in interpret mode (DNET_FLASH_INTERPRET=1)."""
 
 import asyncio
 import json
@@ -121,12 +121,24 @@ def test_sse_and_aggregate_byte_identical(deepseek_dir, no_warmup, kv_bits):
     ({"DNET_KV_PAGED": "1", "DNET_KV_RAGGED": "1", "DNET_KV_BLOCK_TOKENS": "8"}, "no paged-attend hook"),
     ({}, "dense batched slots are not ported"),
 ])
-def test_batched_slots_are_422_at_load(deepseek_dir, monkeypatch, env, match):
+def test_batched_slots_are_422_at_load(deepseek_dir, no_warmup, monkeypatch, env, match):
+    """--batch-slots 4, which the port refused at load (the refusal's text
+    in `match`), now serves the reference's bytes: dense slots, and with
+    DNET_KV_PAGED=1 DNET_KV_RAGGED=1 the dense-gather paged decode (MLA is refused the ragged kernel)."""
     for k, v in env.items():
         monkeypatch.setenv(k, v)
-    (status, body), _ = asyncio.run(_serve(_app(port=True, batch_slots=4), deepseek_dir, []))
-    assert status == 422
-    assert body["error"]["type"] == "invalid_request_error" and match in body["error"]["message"]
+    reset_settings_cache()
+    requests = [
+        ("/v1/chat/completions", dict(CHAT, stream=True)),
+        ("/v1/chat/completions", dict(CHAT, messages=[{"role": "user", "content": "A longer question " * 4}])),
+    ]
+    (rs, _), ref = asyncio.run(_serve(_app(port=False, batch_slots=4), deepseek_dir, requests))
+    (ps, _), port = asyncio.run(_serve(_app(port=True, batch_slots=4), deepseek_dir, requests))
+    assert rs == ps == 200
+    for (r_status, r_body), (p_status, p_body) in zip(ref, port):
+        assert r_status == p_status == 200
+        assert _normalize(p_body) == _normalize(r_body)
+    assert json.loads(port[1][1])["usage"]["completion_tokens"] == 24
 
 
 def test_ring_shard_load_is_422(deepseek_dir):

@@ -534,14 +534,15 @@ MLA_H, MLA_DQK, MLA_DV = 16, 192, 128
 MLA_SCALE = 192**-0.5 * (0.1 * 0.707 * math.log(40) + 1.0) ** 2
 
 
-def _mla_cache(gen, dtype, bits, S=4096):
-    """One layer's MLA cache: k [1, S, 16, 192], v [1, S, 16, 128] random in
-    `dtype`, or codes and scales the port's write_kv quantized from bf16."""
+def _mla_cache(gen, dtype, bits, S=4096, B=1):
+    """One layer's MLA cache of B lanes: k [B, S, 16, 192], v [B, S, 16,
+    128] random in `dtype`, or codes and scales the port's write_kv
+    quantized from bf16."""
     if not bits:
-        return _randn(gen, dtype, 1, S, MLA_H, MLA_DQK), _randn(gen, dtype, 1, S, MLA_H, MLA_DV), {}
-    cfg = KVConfig(1, 1, S, MLA_H, MLA_DQK, v_head_dim=MLA_DV, quant_bits=bits)
+        return _randn(gen, dtype, B, S, MLA_H, MLA_DQK), _randn(gen, dtype, B, S, MLA_H, MLA_DV), {}
+    cfg = KVConfig(1, B, S, MLA_H, MLA_DQK, v_head_dim=MLA_DV, quant_bits=bits)
     kvs = layer_slices(init_cache(cfg, torch.device("cuda")), 0)
-    write_kv(kvs, _randn(gen, torch.bfloat16, 1, S, MLA_H, MLA_DQK), _randn(gen, torch.bfloat16, 1, S, MLA_H, MLA_DV), 0)
+    write_kv(kvs, _randn(gen, torch.bfloat16, B, S, MLA_H, MLA_DQK), _randn(gen, torch.bfloat16, B, S, MLA_H, MLA_DV), 0)
     return kvs["k"], kvs["v"], {"k_scale": kvs["k_scale"], "v_scale": kvs["v_scale"]}
 
 
@@ -1552,3 +1553,124 @@ def test_column_kernels_never_take_the_plain_version(gen):
         gather_columns(x.float(), idx.long())
     with pytest.raises(ValueError):
         dequant_scatter_columns(x[:, :8], idx, 64)
+
+
+# ---- the decode kernel's lane forms (continuous batching for every family) --
+
+# lane lengths by lane count: idle lanes (0), a ring's lengths before, at and
+# past W, and long lanes
+LANE_FORM_LENGTHS = {
+    "rotating": {1: [301], 3: [0, 129, 4096], 8: [0, 40, 128, 129, 300, 301, 700, 4096]},
+    "mla": {1: [4096], 3: [0, 300, 4096], 8: [0, 1, 63, 64, 300, 1500, 2048, 4096]},
+    "gathered": {1: [1500], 3: [0, 17, 1024], 8: [0, 1, 16, 17, 100, 1023, 2047, 2048]},
+}
+LANE_FORM_CASES = [(kind, dtype, bits) for kind in ("rotating", "mla", "gathered")
+                   for dtype, bits in ((torch.float32, 0), (torch.bfloat16, 0), (torch.bfloat16, 8),
+                                       (torch.bfloat16, 4))]
+
+
+def _gathered_view(gen, dtype, bits, B, bt=16, S=2048):
+    """One layer of a dense view [B, S, 8, 64] gathered (kv/store.py
+    BlockStore.gather) from a pool of shuffled blocks: plain values in
+    `dtype` (bf16 under an f32 q), or int8 / int4 codes and scales the
+    port's write_kv made."""
+    from dnet_tpu_torch.kv import BlockStore, PagedKVConfig
+
+    kv_dtype = "bfloat16" if dtype == torch.float32 and not bits else str(dtype).split(".")[-1]
+
+    class _Model:
+        def init_kv(self, n_layers, batch, max_seq, dtype="bfloat16", quant_bits=0):
+            return init_cache(KVConfig(n_layers, batch, max_seq, 8, 64, dtype=dtype, quant_bits=quant_bits),
+                              torch.device("cuda"))
+
+    n_blocks = B * S // bt
+    store = BlockStore(_Model(), 1, PagedKVConfig(bt, n_blocks), kv_dtype, quant_bits=bits, session_tokens=S)
+    rows = layer_slices(_Model().init_kv(1, n_blocks, bt, kv_dtype, bits), 0)
+    write_kv(rows, _randn(gen, torch.bfloat16, n_blocks, bt, 8, 64), _randn(gen, torch.bfloat16, n_blocks, bt, 8, 64), 0)
+    for name, t in rows.items():
+        store.kv[name][0] = t
+    ids = torch.randperm(n_blocks, generator=torch.Generator().manual_seed(B)).reshape(B, S // bt).numpy()
+    return layer_slices(store.gather(ids), 0)
+
+
+def _lane_form_call(gen, kind, dtype, bits, B):
+    """A zero-argument lane-form call over B lanes and its plain version's
+    output in f32."""
+    lengths = LANE_FORM_LENGTHS[kind][B]
+    if kind == "rotating":
+        k, v, scales = _ring(gen, dtype, bits, B=B)
+        sinks = torch.randn(64, generator=gen, device="cuda")
+        H, extra, slots = 64, {"rotating": True, "window": ROT_W, "sinks": sinks}, ROT_W
+    elif kind == "mla":
+        k, v, scales = _mla_cache(gen, dtype, bits, B=B)
+        H, extra, slots = MLA_H, {"scale": MLA_SCALE}, 4096
+    else:
+        kvs = _gathered_view(gen, dtype, bits, B)
+        k, v = kvs["k"], kvs["v"]
+        scales = {n: kvs[n] for n in ("k_scale", "v_scale") if n in kvs}
+        H, extra, slots = 32, {}, k.shape[1]
+    q = _randn(gen, dtype, B, 1, H, k.shape[-1] * (2 if bits == 4 else 1))
+    lens = torch.tensor(lengths, dtype=torch.int32, device="cuda")
+    max_live = min(max(lengths), slots)
+    kf, vf = (k, v) if bits else (k.float(), v.float())
+    want = flash_decode_plain(q.float(), kf, vf, lens, **scales, **extra)
+    return lambda: flash_decode_attend(q, k, v, lens, max_live, **scales, **extra), want, lens
+
+
+@pytest.mark.parametrize("B", [1, 3, 8])
+@pytest.mark.parametrize("kind,dtype,bits", LANE_FORM_CASES,
+                         ids=[f"{k}-{str(d)[6:]}-q{b}" for k, d, b in LANE_FORM_CASES])
+def test_lane_forms_match_plain(gen, kind, dtype, bits, B):
+    """The lane forms the batched engine runs for every family: gpt-oss's
+    ring with per-lane lengths (idle lanes, lengths past W), DeepSeek's MLA
+    widths over lanes, Llama's widths over a view gathered from shuffled
+    pool blocks; each lane as the plain version gives it, idle lanes 0."""
+    call, want, lens = _lane_form_call(gen, kind, dtype, bits, B)
+    out = call()
+    torch.cuda.synchronize()
+    assert out.dtype == dtype and bool(torch.isfinite(out).all())
+    assert (out.float() - want).abs().max().item() <= TOL[dtype]
+    assert not out[lens == 0].any()
+
+
+def test_lane_forms_interleaved_repeat_exactly(gen):
+    """Every lane form at B = 1, 3 and 8 interleaved on one stream, three
+    rounds: each round's outputs bit-identical to the first's."""
+    calls = [_lane_form_call(gen, kind, torch.bfloat16, bits, B)[0]
+             for kind in ("rotating", "mla", "gathered") for bits in (0, 8) for B in (1, 3, 8)]
+    rounds = [[c() for c in calls] for _ in range(3)]
+    torch.cuda.synchronize()
+    for r in rounds[1:]:
+        assert all(torch.equal(a, b) for a, b in zip(rounds[0], r))
+
+
+@pytest.mark.parametrize("window,bits", [(0, 0), (0, 8), (ROT_W, 0), (ROT_W, 4)])
+def test_lane_cached_attend_matches_the_cpu(gen, window, bits):
+    """ops/attention.py lane_cached_attend (the batched step's write and
+    read) on the card against the CPU: the active lanes' rows written at
+    their positions (a ring: p % W), the frozen lane's rows untouched, and
+    the attention within the decode tolerance."""
+    from dnet_tpu_torch.ops.attention import LaneStep, lane_cached_attend
+
+    B, S = 4, ROT_W if window else 512
+    kvs = layer_slices(init_cache(KVConfig(1, B, S, 8, 64, dtype="float32", quant_bits=bits), torch.device("cuda")), 0)
+    write_kv(kvs, _randn(gen, torch.float32, B, S, 8, 64), _randn(gen, torch.float32, B, S, 8, 64), 0)
+    pos = [5, 300, 0, 700] if window else [5, 300, 0, 511]
+    lanes = [0, 1, 3]  # lane 2 frozen
+    q = _randn(gen, torch.float32, B, 1, 32, 64)
+    k_new, v_new = _randn(gen, torch.float32, B, 1, 8, 64), _randn(gen, torch.float32, B, 1, 8, 64)
+    sinks = torch.randn(32, generator=gen, device="cuda") if window else None
+    outs, caches = {}, {}
+    for dev in ("cuda", "cpu"):
+        c = {n: t.clone().to(dev) for n, t in kvs.items()}
+        lengths = torch.tensor([p + 1 if b in lanes else 0 for b, p in enumerate(pos)], dtype=torch.int32, device=dev)
+        step = LaneStep(torch.tensor(lanes, device=dev), torch.tensor([pos[b] for b in lanes], device=dev), lengths,
+                        max(pos) + 1)
+        outs[dev] = lane_cached_attend(q.to(dev), k_new.to(dev), v_new.to(dev), c, step,
+                                       sinks=None if sinks is None else sinks.to(dev), window=window).cpu()
+        caches[dev] = {n: t.cpu() for n, t in c.items()}
+    assert (outs["cuda"] - outs["cpu"]).abs().max().item() <= TOL[torch.float32]
+    for name in kvs:
+        assert torch.equal(caches["cuda"][name][2], kvs[name][2].cpu())  # the frozen lane
+        if not bits:
+            assert torch.equal(caches["cuda"][name], caches["cpu"][name])

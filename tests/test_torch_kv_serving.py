@@ -3,8 +3,9 @@ dnet_tpu's, serving the same tiny checkpoint on loopback: greedy SSE must
 be byte-identical once the response id and created stamp are normalised
 (the pattern of tests/subsystems/test_ragged_parity.py), single sequence
 and with dense batched slots (--batch-slots, DNET_KV_PAGED unset, the
-reference's default batched mode).  A paged pool with a quantized cache
-needs the dense-gather paged decode, which is not ported: 422 at load."""
+reference's default batched mode), and over a paged pool, which a
+quantized cache decodes through the dense gather (the reference's fallback
+from the ragged kernel)."""
 
 import asyncio
 import json
@@ -135,9 +136,11 @@ def test_kv_bits_setting_and_a_typo_is_422(tiny_llama_dir, env):
 
 
 def test_paged_pool_with_quantized_cache_is_422(tiny_llama_dir, env):
+    """Formerly refused with 422: DNET_KV_BITS=8 over a paged pool with
+    DNET_KV_RAGGED=1.  Both servers fall back from the ragged kernel to
+    the dense-gather decode and stream the same bytes."""
     env(DNET_KV_PAGED="1", DNET_KV_RAGGED="1", DNET_KV_BLOCK_TOKENS="8")
-    status, body, _ = asyncio.run(_serve(_app(True, kv_bits=8, slots=4), tiny_llama_dir, [], False))
-    assert status == 422
-    msg = body["error"]["message"]
-    assert body["error"]["type"] == "invalid_request_error"
-    assert "quantized KV cache (bits=8)" in msg and "dense-gather paged decode is not ported" in msg
+    health = _both(tiny_llama_dir, 8, 4, [_chat(p, max_tokens=8) for p in PROMPTS])
+    engine = health["engine"]
+    assert engine["kv_mode"] == "paged" and engine["kv_ragged"] is False and engine["kv_quant_bits"] == 8
+    assert engine["active"] == 0 and engine["kv_blocks_used"] == 0 and engine["decode_steps"] > 0
