@@ -1,0 +1,117 @@
+"""Supported-model catalog.
+
+Counterpart of dnet_tpu/api/catalog.py, kept as its own copy (the port
+imports nothing of the JAX package): the same entries, each with its
+`<id>:int8` / `<id>:int4` weight-only variants, which serve the base
+checkpoint through ops/quant.py.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass, field
+from typing import List, Optional
+
+
+@dataclass(frozen=True)
+class CatalogEntry:
+    id: str  # HF-style repo id or short name
+    arch: str  # model_type
+    params_b: float  # billions of parameters
+    n_layers: int
+    ci_test: bool = False
+    notes: str = ""
+    # weight-only serving quantizations this entry supports: a variant is
+    # the same bf16 checkpoint served with ops/quant int8/int4 weights
+    quant_variants: tuple = ("int8", "int4")
+
+
+QUANT_BITS = {"bf16": 0, "int8": 8, "int4": 4}
+
+
+model_catalog: List[CatalogEntry] = [
+    # Llama family (reference catalog: Llama 3.x 3B-70B, Hermes 70B/405B)
+    CatalogEntry("meta-llama/Llama-3.2-1B-Instruct", "llama", 1.2, 16, ci_test=True),
+    CatalogEntry("meta-llama/Llama-3.2-3B-Instruct", "llama", 3.2, 28, ci_test=True),
+    CatalogEntry("meta-llama/Llama-3.1-8B-Instruct", "llama", 8.0, 32),
+    CatalogEntry("meta-llama/Llama-3.3-70B-Instruct", "llama", 70.6, 80),
+    CatalogEntry("NousResearch/Hermes-3-Llama-3.1-70B", "llama", 70.6, 80),
+    CatalogEntry("NousResearch/Hermes-3-Llama-3.1-405B", "llama", 405.0, 126),
+    # Qwen2.5 family (BASELINE config 3; biased-qkv llama arch)
+    CatalogEntry("Qwen/Qwen2.5-7B-Instruct", "qwen2", 7.6, 28),
+    CatalogEntry("Qwen/Qwen2.5-32B-Instruct", "qwen2", 32.8, 64),
+    CatalogEntry("Qwen/Qwen2.5-72B-Instruct", "qwen2", 72.7, 80),
+    # Qwen3 family (4B-32B in reference catalog)
+    CatalogEntry("Qwen/Qwen3-4B", "qwen3", 4.0, 36, ci_test=True),
+    CatalogEntry("Qwen/Qwen3-8B", "qwen3", 8.2, 36),
+    CatalogEntry("Qwen/Qwen3-14B", "qwen3", 14.8, 40),
+    CatalogEntry("Qwen/Qwen3-32B", "qwen3", 32.8, 64),
+    CatalogEntry("Qwen/Qwen3-30B-A3B", "qwen3_moe", 30.5, 48, notes="MoE 128x top-8"),
+    CatalogEntry("Qwen/Qwen3-235B-A22B", "qwen3_moe", 235.0, 94, notes="MoE 128x top-8"),
+    # GPT-OSS MoE (20B/120B in reference catalog)
+    CatalogEntry("openai/gpt-oss-20b", "gpt_oss", 20.9, 24, notes="MoE 32x, SWA alternating"),
+    CatalogEntry("openai/gpt-oss-120b", "gpt_oss", 116.8, 36, notes="MoE 128x, SWA alternating"),
+    CatalogEntry("meta-llama/Llama-3.1-70B-Instruct", "llama", 70.6, 80),
+    # DeepSeek-V2 arch (MLA)
+    CatalogEntry("deepseek-ai/DeepSeek-V2-Lite-Chat", "deepseek_v2", 15.7, 27, notes="MLA"),
+    # Mixtral sparse MoE (BASELINE config 4)
+    CatalogEntry("mistralai/Mixtral-8x7B-Instruct-v0.1", "mixtral", 46.7, 32, notes="MoE 8x top-2"),
+    CatalogEntry("mistralai/Mixtral-8x22B-Instruct-v0.1", "mixtral", 141.0, 56, notes="MoE 8x top-2"),
+]
+
+
+def expanded_catalog() -> List[CatalogEntry]:
+    """One row per (model, quant variant): a variant is the same bf16
+    checkpoint served through ops/quant, addressed as `<id>:<variant>`
+    (resolve_variant).  The base id (implicit bf16) is listed too."""
+    out: List[CatalogEntry] = []
+    for e in model_catalog:
+        out.append(e)
+        for v in e.quant_variants:
+            out.append(
+                CatalogEntry(
+                    f"{e.id}:{v}", e.arch, e.params_b, e.n_layers,
+                    ci_test=False,
+                    notes=(e.notes + " " if e.notes else "") + f"{v} weights",
+                    quant_variants=(),
+                )
+            )
+    return out
+
+
+def split_variant(model_id: str) -> tuple:
+    """`<model>[:<quant>]` -> (base_id, weight_quant_bits | None).
+
+    Catalog-independent so `:int8` also works on local checkpoint dirs;
+    unknown suffixes are treated as part of the id (returns (id, None))."""
+    base, sep, variant = model_id.rpartition(":")
+    if sep and variant in QUANT_BITS:
+        return base, QUANT_BITS[variant]
+    return model_id, None
+
+
+def find_entry(model_id: str) -> Optional[CatalogEntry]:
+    for e in model_catalog:
+        if e.id == model_id or e.id.split("/")[-1] == model_id:
+            return e
+    return None
+
+
+def resolve_variant(model_id: str) -> Optional[tuple]:
+    """Resolve `<model>[:<quant>]` aliases (quant variants):
+    "Llama-3.2-1B-Instruct:int8" -> (entry, 8).  Returns (entry,
+    weight_quant_bits) or None when unknown."""
+    base, _, variant = model_id.partition(":")
+    e = find_entry(base)
+    if e is None:
+        return None
+    if not variant:
+        return e, 0
+    if variant not in QUANT_BITS:
+        return None
+    if variant != "bf16" and variant not in e.quant_variants:
+        return None
+    return e, QUANT_BITS[variant]
+
+
+def get_ci_test_models() -> List[CatalogEntry]:
+    return [e for e in model_catalog if e.ci_test]

@@ -3,7 +3,8 @@
 Counterpart of dnet_tpu/api/http.py, trimmed to
   POST /v1/chat/completions  SSE streaming + aggregate
   POST /v1/completions       legacy text completions
-  GET  /v1/models            the loaded model
+  GET  /v1/models            the catalog with its quant variants, and the
+                             loaded model
   POST /v1/load_model        load a local checkpoint (in ring mode: the
                              fan-out to the shards)
   POST /v1/prepare_topology_manual
@@ -33,6 +34,7 @@ from dnet_tpu_torch.api.inference import (
     PromptTooLongError,
     completion_logprobs,
 )
+from dnet_tpu_torch.api.catalog import expanded_catalog, split_variant
 from dnet_tpu_torch.api.model_manager import resolve_model_dir
 from dnet_tpu_torch.api.ring_manager import build_manual_topology
 from dnet_tpu_torch.api.schemas import (
@@ -225,8 +227,12 @@ class ApiHTTPServer:
         return web.json_response(result.model_dump(exclude_none=True))
 
     async def list_models(self, request: web.Request) -> web.Response:
+        # the catalog's rows, each quant variant its own (`<id>:int8`), and
+        # the loaded id where the catalog does not list it
+        data = [ModelInfo(id=e.id) for e in expanded_catalog()]
         loaded = self.model_manager.current_model_id
-        data = [ModelInfo(id=loaded)] if loaded else []
+        if loaded and all(m.id != loaded for m in data):
+            data.append(ModelInfo(id=loaded))
         return web.json_response(ModelList(data=data).model_dump())
 
     async def load_model(self, request: web.Request) -> web.Response:
@@ -260,7 +266,8 @@ class ApiHTTPServer:
             req = PrepareTopologyManualRequest.model_validate(await request.json())
         except (json.JSONDecodeError, ValidationError) as exc:
             return _json_error(400, f"invalid request: {exc}")
-        model_dir = resolve_model_dir(req.model, getattr(self.model_manager, "models_dir", None))
+        # a quant variant's layers are its base checkpoint's
+        model_dir = resolve_model_dir(split_variant(req.model)[0], getattr(self.model_manager, "models_dir", None))
         if model_dir is None:
             return _json_error(404, f"model {req.model!r} not found locally", "model_not_found")
         num_layers = json.loads((model_dir / "config.json").read_text())["num_hidden_layers"]

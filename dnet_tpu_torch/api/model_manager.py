@@ -14,9 +14,13 @@ does; DNET_API_PREFIX_CACHE gives paged slots a prefix cache; a mesh
 (--mesh or DNET_MESH_*) with sp > 1 a sequence-parallel `MeshEngine` (parallel/engine.py) behind a
 `LocalAdapter`, its ranks on `mesh_devices` when the caller names them
 (else one CUDA card per rank, or the CPU under device 'cpu').  `kv_bits` (DNET_KV_BITS: 0, 16, 8 or 4)
-picks the KV cache's form for either engine.  What is not ported is
+picks the KV cache's form for every engine, and DNET_API_WEIGHT_QUANT_BITS
+(8 / 4, groups of DNET_API_WEIGHT_QUANT_GROUP) its weights' form; a model
+id `<id>:int8` / `<id>:int4` (api/catalog.py `split_variant`) loads the
+base checkpoint at those bits (`<id>:bf16` at none), with the bits'
+default group unless one is set.  What is not ported is
 refused at load with `EngineCapabilityError` (HTTP 422), the setting named,
-instead of being dropped: weight quantization (DNET_API_WEIGHT_QUANT_BITS),
+instead of being dropped:
 the single-sequence and the dense-slot prefix caches (DNET_API_PREFIX_CACHE
 with batch_slots 1, or on dense batched slots, also where a paged pool
 falls back to them: core/batch.py), speculative decoding
@@ -33,12 +37,14 @@ import time
 from pathlib import Path
 from typing import Optional, Sequence, Union
 
+from dnet_tpu_torch.api.catalog import split_variant
 from dnet_tpu_torch.api.inference import EngineCapabilityError
 from dnet_tpu_torch.api.strategies import BatchedLocalAdapter, LocalAdapter
 from dnet_tpu_torch.config import ApiSettings, api_settings, sched_enabled, sched_settings
 from dnet_tpu_torch.core.batch import BatchedEngine
 from dnet_tpu_torch.core.engine import LocalEngine
 from dnet_tpu_torch.core.kvcache import resolve_kv_bits
+from dnet_tpu_torch.ops.quant import DEFAULT_GROUP, DEFAULT_GROUP_Q4
 from dnet_tpu_torch.parallel.engine import MeshEngine
 from dnet_tpu_torch.sched import SchedulerAdapter
 from dnet_tpu_torch.utils.logger import get_logger
@@ -59,6 +65,19 @@ def resolve_model_dir(model_id: str, models_dir: Optional[Union[str, Path]] = No
     return None
 
 
+def weight_quant(model_id: str, settings: ApiSettings) -> tuple:
+    """(base model id, weight_quant_bits, weight_quant_group) of a load: a
+    `:int8` / `:int4` / `:bf16` variant overrides DNET_API_WEIGHT_QUANT_BITS
+    and takes its bits' default group unless DNET_API_WEIGHT_QUANT_GROUP
+    is set, as the reference's manager resolves it."""
+    base_id, variant_bits = split_variant(model_id)
+    bits = settings.weight_quant_bits if variant_bits is None else variant_bits
+    group = settings.weight_quant_group
+    if variant_bits:
+        group = group or (DEFAULT_GROUP_Q4 if variant_bits == 4 else DEFAULT_GROUP)
+    return base_id, bits, group
+
+
 def active_mesh(mesh: Optional[dict]) -> Optional[dict]:
     """The mesh when it asks for one, as the reference's manager decides:
     any axis above 1, or an explicit pp above 1; else None (single device)."""
@@ -76,8 +95,6 @@ def refuse_unported(settings: ApiSettings, batch_slots: int, mesh: Optional[dict
     refused = [
         (mesh is not None and batch_slots > 1,
          f"--batch-slots {batch_slots} with mesh {mesh}: continuous batching on the mesh engine is not ported"),
-        (settings.weight_quant_bits != 0,
-         f"DNET_API_WEIGHT_QUANT_BITS={settings.weight_quant_bits}: weight quantization is not ported"),
         (settings.prefix_cache > 0 and batch_slots <= 1,
          f"DNET_API_PREFIX_CACHE={settings.prefix_cache}: the single-sequence prefix cache is not ported"),
         (settings.spec_lookahead > 0,
@@ -121,8 +138,12 @@ class LocalModelManager:
         return self.inference.model_id
 
     async def load_model(self, model_id: str, max_seq: Optional[int] = None) -> float:
-        """Returns the load time in seconds; raises on failure."""
-        model_dir = resolve_model_dir(model_id, self.models_dir)
+        """Returns the load time in seconds; raises on failure.  A
+        `<id>:int8` / `<id>:int4` variant loads the base checkpoint with
+        weight-only quantization (`weight_quant`)."""
+        settings = api_settings()
+        base_id, wq_bits, wq_group = weight_quant(model_id, settings)
+        model_dir = resolve_model_dir(base_id, self.models_dir)
         if model_dir is None:
             raise FileNotFoundError(f"model {model_id!r} not found locally (models_dir={self.models_dir})")
         # DNET_SCHED=1 without a mesh: the scheduler serves a batched
@@ -132,7 +153,6 @@ class LocalModelManager:
         batch_slots = self.batch_slots
         if sched_on:
             batch_slots = sched_settings().sched_slots or max(self.batch_slots, 8)
-        settings = api_settings()
         refuse_unported(settings, batch_slots, self.mesh)
         try:
             kv_dtype, kv_quant_bits = resolve_kv_bits(self.kv_bits)
@@ -140,7 +160,8 @@ class LocalModelManager:
             raise EngineCapabilityError(str(exc)) from None
         t0 = time.perf_counter()
         kwargs = dict(max_seq=max_seq or self.max_seq, param_dtype=self.param_dtype, device=self.device,
-                      kv_dtype=kv_dtype, kv_quant_bits=kv_quant_bits)
+                      kv_dtype=kv_dtype, kv_quant_bits=kv_quant_bits, weight_quant_bits=wq_bits,
+                      weight_quant_group=wq_group)
 
         def _build():
             if self.mesh is not None:

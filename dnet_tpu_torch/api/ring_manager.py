@@ -5,8 +5,8 @@ Counterpart of dnet_tpu/api/ring_manager.py for single-round contiguous
 rings: `build_manual_topology` orders the assignments into a ring and wires
 the next pointers; `RingModelManager.load_model` ships each shard its load
 body (lanes, speculation and the prefix cache off: 0; weight_quant_bits
-as DNET_API_WEIGHT_QUANT_BITS says, which a shard refuses when nonzero)
-concurrently and then serves through a `RingApiAdapter`; `_hop_codec` resolves
+as DNET_API_WEIGHT_QUANT_BITS says, or a `<id>:int8` / `<id>:int4` model
+id's bits with the base checkpoint as the model path) concurrently and then serves through a `RingApiAdapter`; `_hop_codec` resolves
 DNET_WIRE_CODEC=auto per hop.  A failed shard load answers with the
 shard's own status (422 for an option the shard does not serve).
 """
@@ -22,7 +22,7 @@ from typing import List, Optional
 import aiohttp
 
 from dnet_tpu_torch.api.inference import EngineCapabilityError
-from dnet_tpu_torch.api.model_manager import resolve_model_dir
+from dnet_tpu_torch.api.model_manager import resolve_model_dir, weight_quant
 from dnet_tpu_torch.config import api_settings, wire_settings
 from dnet_tpu_torch.core.types import DeviceInfo, LayerAssignment, TopologyInfo
 from dnet_tpu_torch.utils.logger import get_logger
@@ -122,10 +122,10 @@ class RingModelManager:
         return self.inference.model_id
 
     def load_bodies(self, topo: TopologyInfo, model_id: str, max_seq: int) -> dict:
-        """instance -> its /load_model body."""
+        """instance -> its /load_model body; a quant variant's model path
+        is its base checkpoint's, its bits the shards' weight_quant_bits."""
         by_instance = {d.instance: d for d in topo.devices}
-        # shipped as configured: the shards refuse a nonzero value with 422
-        wq = api_settings().weight_quant_bits
+        model_id, wq, _ = weight_quant(model_id, api_settings())
         bodies = {}
         for a in topo.assignments:
             dev, nxt = by_instance[a.instance], by_instance.get(a.next_instance)
@@ -161,7 +161,7 @@ class RingModelManager:
         topo = self.cluster.current_topology
         if topo is None:
             raise RuntimeError("no topology; POST /v1/prepare_topology_manual first")
-        model_dir = resolve_model_dir(model_id, self.models_dir)
+        model_dir = resolve_model_dir(weight_quant(model_id, api_settings())[0], self.models_dir)
         if model_dir is None:
             raise FileNotFoundError(f"model {model_id!r} not found locally")
         t0 = time.perf_counter()

@@ -5,8 +5,9 @@ Counterpart of dnet_tpu/config.py, trimmed to what the port's paths read:
 DNET_KV_BLOCK_TOKENS, DNET_KV_POOL_BLOCKS), `ApiSettings` (DNET_API_*: the
 API node's host, ports, timeout, admission, models dir, max_seq_len,
 param dtype and batch slots, which its CLI takes as defaults; the ring's
-auto steps and callback address; and the weight quantization, prefix cache,
-speculation and draft model, which the port reads to refuse),
+auto steps and callback address; the weight quantization and its group;
+and the prefix cache, speculation and draft model, which the port reads to
+refuse where it does not serve them yet),
 `AdmissionSettings` (DNET_REQUEST_DEADLINE_S: the default request deadline),
 `ShardSettings` (DNET_SHARD_*: a shard's CLI defaults), the ring's
 `TransportSettings` (DNET_TRANSPORT_*), `WireSettings`
@@ -87,8 +88,10 @@ class ApiSettings:
     models_dir: str = "~/.dnet-tpu/models"
     max_seq_len: int = 4096
     param_dtype: str = "bfloat16"
-    # 8 / 4 = weight-only int8 / int4 serving (not ported: refused at load)
+    # 8 / 4 = weight-only int8 / int4 serving (ops/quant.py); the group
+    # along the contraction axis (0 = the bits' default, 128 / 64)
     weight_quant_bits: int = 0
+    weight_quant_group: int = 0
     # >1 = continuous batching over that many slots (core/batch.py)
     batch_slots: int = 1
     # >0 = a prefix cache of that many entries (not ported: refused at load)

@@ -277,8 +277,8 @@ class BatchedEngine:
         return self.slot_of
 
     def stats(self) -> dict:
-        """Slot (and pool) occupancy, the decode-step count and the KV cache's
-        form and bytes (for /health)."""
+        """Slot (and pool) occupancy, the decode-step count, the KV cache's
+        form and bytes and the weights' (for /health)."""
         out = {
             "slots": self.slots,
             "active": len(self.slot_of),
@@ -287,6 +287,7 @@ class BatchedEngine:
             "kv_ragged": self.kv_ragged,
             "kv_quant_bits": self.eng.kv_quant_bits,
             "kv_bytes": self._kv_bytes(),
+            **self.eng.weight_stats(),
         }
         if self.kv_pool is not None:
             out.update(

@@ -34,7 +34,7 @@ import time
 from collections import deque
 from dataclasses import dataclass, field
 from pathlib import Path
-from typing import Dict, List, Optional, Sequence, Union
+from typing import Dict, Iterable, List, Optional, Sequence, Union
 
 import numpy as np
 import torch
@@ -50,6 +50,7 @@ from dnet_tpu_torch.core.sampler import (
 from dnet_tpu_torch.core.types import DecodingParams, TokenResult
 from dnet_tpu_torch.kv.paged import BlockPool, KVPoolExhausted, PagedKVConfig, PageTable, paged_enabled
 from dnet_tpu_torch.models import ModelConfig, get_ring_model_cls
+from dnet_tpu_torch.ops.quant import is_quantized
 from dnet_tpu_torch.utils.checkpoint import Checkpoint
 from dnet_tpu_torch.utils.device import resolve_device
 from dnet_tpu_torch.utils.logger import get_logger
@@ -100,6 +101,8 @@ class LocalEngine:
         kv_dtype: Optional[str] = None,
         kv_quant_bits: int = 0,
         kv_paged: Optional[bool] = None,
+        weight_quant_bits: int = 0,
+        weight_quant_group: int = 0,
     ):
         """layers=None is the whole model; a sub-range with shard_mode=True
         makes this engine a ring shard's compute core: it loads only the
@@ -110,11 +113,15 @@ class LocalEngine:
         f32 scales for `kv_quant_bits` 8 / 4 (core/kvcache.py
         `resolve_kv_bits` maps DNET_KV_BITS to these two).  `kv_paged`
         (default: DNET_KV_PAGED) turns on the paged admission ledger; a
-        shard never keeps one, as in the reference."""
+        shard never keeps one, as in the reference.  `weight_quant_bits` 8 /
+        4 serves int8 / packed-int4 weights (ops/quant.py, groups of
+        `weight_quant_group` along the contraction axis, 0: the bits'
+        default): each layer is quantized on the device as it loads, and
+        so is the LM projection."""
         self.device = resolve_device(device)
         self.ckpt = Checkpoint(model_dir)
         self.config = ModelConfig.from_hf(self.ckpt.config)
-        self._setup(max_seq, param_dtype, layers, kv_dtype, kv_quant_bits)
+        self._setup(max_seq, param_dtype, layers, kv_dtype, kv_quant_bits, weight_quant_bits, weight_quant_group)
         if paged_enabled() if kv_paged is None else kv_paged:
             if shard_mode:
                 log.warning("paged KV not supported for shard engines (the ring runtime owns shard "
@@ -124,7 +131,7 @@ class LocalEngine:
         t0 = time.perf_counter()
         m = self.model
         self.window_params = m.stack_layers(
-            [self._cast(m.map_layer(self.ckpt.load_layer_raw(a))) for a in m.layers]
+            [self._place(m.map_layer(self._on_device(self.ckpt.load_layer_raw(a)))) for a in m.layers]
         )
         names = None  # every edge tensor
         if shard_mode:
@@ -133,8 +140,7 @@ class LocalEngine:
                 names.append("model.embed_tokens.weight")
             if m.is_last:
                 names += ["model.norm.weight", "lm_head.weight"]
-        edge = m.map_edge(self.ckpt.load_edge_raw(names))
-        self.edge_params = {k: self._cast(v) for k, v in edge.items()}
+        self.edge_params = self._place_edge(m.map_edge(self._on_device(self.ckpt.load_edge_raw(names))))
         log.info(
             "[PROFILE] loaded %d layers (%s) in %.2fs",
             len(m.layers), self.config.model_type, time.perf_counter() - t0,
@@ -145,7 +151,7 @@ class LocalEngine:
     def from_params(
         cls,
         config: ModelConfig,
-        window_params: List[dict],
+        window_params: Iterable[dict],
         edge_params: dict,
         *,
         max_seq: int = 2048,
@@ -154,31 +160,43 @@ class LocalEngine:
         kv_dtype: Optional[str] = None,
         kv_quant_bits: int = 0,
         kv_paged: Optional[bool] = None,
+        weight_quant_bits: int = 0,
+        weight_quant_group: int = 0,
     ) -> "LocalEngine":
         """An engine around already-materialised parameters (no checkpoint
-        on disk; `window_params` one dict per layer, in layer order): the
-        serving loop is identical, only weight provenance differs."""
+        on disk; `window_params` one dict per layer, in layer order, which
+        may be a generator: with `weight_quant_bits` each layer is quantized
+        as it arrives and its full-precision copy is dropped before the
+        next is made).  Params that are quantized already (e.g. the
+        reference's, through models/convert.py) are kept as they are."""
         self = cls.__new__(cls)
         self.device = resolve_device(device)
         self.ckpt = None
         self.config = config
-        self._setup(max_seq, param_dtype, None, kv_dtype, kv_quant_bits)
+        self._setup(max_seq, param_dtype, None, kv_dtype, kv_quant_bits, weight_quant_bits, weight_quant_group)
         if paged_enabled() if kv_paged is None else kv_paged:
             self._init_paged()
-        self.window_params = self.model.stack_layers([self._cast(p) for p in window_params])
-        self.edge_params = {k: self._cast(v) for k, v in edge_params.items()}
+        self.edge_params = self._place_edge(edge_params)
+        self.window_params = self.model.stack_layers([self._place(p) for p in window_params])
         self._build_kernels()
         return self
 
     def _setup(
         self, max_seq: int, param_dtype: str, layers: Optional[Sequence[int]] = None,
-        kv_dtype: Optional[str] = None, kv_quant_bits: int = 0,
+        kv_dtype: Optional[str] = None, kv_quant_bits: int = 0, weight_quant_bits: int = 0,
+        weight_quant_group: int = 0,
     ) -> None:
         if kv_quant_bits not in (0, 4, 8):
             raise ValueError(f"kv_quant_bits={kv_quant_bits} (supported: 0/4/8)")
+        if weight_quant_bits not in (0, 4, 8):
+            raise NotImplementedError("weight quantization supports 4 (packed int4) or 8 (int8) bits")
         self.model = get_ring_model_cls(self.config.model_type)(
             self.config, range(self.config.num_hidden_layers) if layers is None else layers, self.device
         )
+        if weight_quant_bits and not self.model.supports_weight_quant:
+            raise NotImplementedError(f"weight quantization not supported for {self.config.model_type}")
+        self.weight_quant_bits = weight_quant_bits
+        self.weight_quant_group = weight_quant_group
         self.max_seq = max_seq
         self.param_dtype = getattr(torch, param_dtype)
         self.kv_dtype = kv_dtype or param_dtype
@@ -215,10 +233,40 @@ class LocalEngine:
             self.kv_pool.release_table(sess.pages)
 
     def _cast(self, params: dict) -> dict:
+        """Params on the device, floats in the param dtype; quantized
+        weights are kept as they are."""
         return {
-            k: v.to(device=self.device, dtype=self.param_dtype if v.is_floating_point() else v.dtype)
+            k: v if is_quantized(v) else
+            v.to(device=self.device, dtype=self.param_dtype if v.is_floating_point() else v.dtype)
             for k, v in params.items()
         }
+
+    def _on_device(self, tensors: dict) -> dict:
+        """Tensors moved to the device in their own dtype (quantized weights
+        kept as given), so that the checkpoint mapping's transposes and
+        expert stacks, and the quantizer, run there."""
+        return {k: v if is_quantized(v) else v.to(self.device) for k, v in tensors.items()}
+
+    def _place(self, params: dict) -> dict:
+        """One layer's params on the device.  Under weight quantization the
+        model's quant keys are quantized from the values as loaded (before
+        the cast, as the reference does), their scales in the param dtype."""
+        if self.weight_quant_bits:
+            params = self.model.quantize_params(
+                self._on_device(params), self.weight_quant_bits, scale_dtype=self.param_dtype,
+                group_size=self.weight_quant_group,
+            )
+        return self._cast(params)
+
+    def _place_edge(self, edge: dict) -> dict:
+        """The edge params on the device (the LM projection quantized under
+        weight quantization, `quantize_edge`)."""
+        if self.weight_quant_bits:
+            edge = self.model.quantize_edge(
+                {k: self._on_device(leaves) for k, leaves in edge.items()}, self.weight_quant_bits,
+                scale_dtype=self.param_dtype, group_size=self.weight_quant_group,
+            )
+        return {k: self._cast(v) for k, v in edge.items()}
 
     def _build_kernels(self) -> None:
         """Build the attention kernels now, not on the first request."""
@@ -279,10 +327,18 @@ class LocalEngine:
         if self.device.type == "cuda":
             torch.cuda.empty_cache()
 
+    def weight_stats(self) -> dict:
+        """The weights' form and the bytes they hold on the device (codes,
+        scales and every float tensor, the edge included)."""
+        return {"weight_quant_bits": self.weight_quant_bits,
+                "weight_bytes": tensor_bytes(self.window_params) + tensor_bytes(self.edge_params)}
+
     def stats(self) -> dict:
-        """The KV cache's form and the bytes one session's cache holds, and
-        the paged ledger's blocks when it is on (for /health)."""
-        out = {"kv_dtype": self.kv_dtype, "kv_quant_bits": self.kv_quant_bits, "kv_bytes": self.kv_bytes}
+        """The weights' and the KV cache's form, the bytes the weights and
+        one session's cache hold, and the paged ledger's blocks when it is
+        on (for /health)."""
+        out = {"kv_dtype": self.kv_dtype, "kv_quant_bits": self.kv_quant_bits, "kv_bytes": self.kv_bytes,
+               **self.weight_stats()}
         if self.kv_pool is not None:
             out.update(kv_mode="paged", kv_pool_blocks=self.kv_pool.total, kv_blocks_used=self.kv_pool.used,
                        kv_blocks_free=self.kv_pool.free, kv_blocks_peak=self.kv_pool.peak_used)

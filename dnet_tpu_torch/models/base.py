@@ -14,7 +14,10 @@ Parameter layout (tensors on the engine's device):
   edge params:   {"embed": {"weight"}, "final_norm": {"weight"},
                   "lm_head": {"weight" [hidden, vocab]}  (untied only)}
 Matrices are (in, out)-oriented, as in the reference, so the hot path is
-`x @ W`.
+`x @ W`.  Under weight-only quantization (ops/quant.py) a matrix named in
+the model's `quant_keys` is an {"q" | "q4", "s"} dict instead, and every
+matmul site reads it through `dq`, which passes a plain tensor through
+unchanged.
 """
 
 from __future__ import annotations
@@ -27,6 +30,7 @@ import torch
 
 from dnet_tpu_torch.config import compute_settings
 from dnet_tpu_torch.core.kvcache import KVConfig, init_cache, init_cache_sp
+from dnet_tpu_torch.ops.quant import QUANTIZABLE, dq, embed_lookup, is_quantized, quantize_tree, quantizer
 
 
 @dataclass
@@ -85,6 +89,12 @@ class RingModel(abc.ABC):
     """A model's assigned layers + edge ops; parameters are passed in."""
 
     model_type: str = ""
+    # every family's matmuls read their weights through ops/quant.py `dq`;
+    # a family that cannot sets False and the engine refuses to quantize it
+    supports_weight_quant: bool = True
+    # per-layer param names that weight-only quantization takes (the big
+    # matmuls; norms, biases, sinks and routers stay float)
+    quant_keys: frozenset = QUANTIZABLE
     # the lane hook dense batched slots need (the reference's
     # supports_kv_commit): apply_window's attend_fn replaces each layer's
     # cache write and attention read, with the layer's attention settings
@@ -122,8 +132,8 @@ class RingModel(abc.ABC):
 
     # ---- compute ------------------------------------------------------
     def embed(self, edge_params: dict, tokens: torch.Tensor) -> torch.Tensor:
-        """tokens [B, T] -> hidden [B, T, D]."""
-        return edge_params["embed"]["weight"][tokens.long()]
+        """tokens [B, T] -> hidden [B, T, D] (a maybe-quantized table)."""
+        return embed_lookup(edge_params["embed"]["weight"], tokens)
 
     @abc.abstractmethod
     def apply_window(
@@ -152,10 +162,12 @@ class RingModel(abc.ABC):
 
     def lm_project(self, edge_params: dict, x: torch.Tensor) -> torch.Tensor:
         """hidden [B, T, D] -> logits [B, T, V] (tied: the embedding table,
-        transposed)."""
+        transposed; a quantized tied table is stored in the projection
+        layout already, quantize_edge)."""
         if self.config.tie_word_embeddings:
-            return x @ edge_params["embed"]["weight"].T
-        return x @ edge_params["lm_head"]["weight"]
+            w = edge_params["embed"]["weight"]
+            return x @ (dq(w) if is_quantized(w) else w.T)
+        return x @ dq(edge_params["lm_head"]["weight"])
 
     # ---- weight mapping ----------------------------------------------
     @abc.abstractmethod
@@ -172,6 +184,38 @@ class RingModel(abc.ABC):
             out["final_norm"] = {"weight": raw["model.norm.weight"]}
         if "lm_head.weight" in raw and not self.config.tie_word_embeddings:
             out["lm_head"] = {"weight": raw["lm_head.weight"].T.contiguous()}
+        return out
+
+    # ---- weight-only quantization ------------------------------------
+    def quantize_params(
+        self, params: dict, bits: int, scale_dtype: Optional[torch.dtype] = None, group_size: int = 0
+    ) -> dict:
+        """Quantize one layer's `quant_keys` weights (ops/quant.py), on the
+        device they lie on.  The reference quantizes the stacked window; the
+        codes are the same per layer, and a layer at a time never holds a
+        whole model's full-precision copy.  group_size 0: the bits'
+        default."""
+        return quantize_tree(params, self.quant_keys, bits=bits, scale_dtype=scale_dtype, group_size=group_size)
+
+    def quantize_edge(
+        self, edge: Dict[str, Any], bits: int, scale_dtype: Optional[torch.dtype] = None, group_size: int = 0
+    ) -> Dict[str, Any]:
+        """Quantize the LM projection among the edge params: the O(hidden x
+        vocab) matrix every decode step reads in full (the embedding gather
+        reads O(tokens x hidden), the norms are vectors).  A tied table is
+        re-laid out to the projection orientation [hidden, vocab] (groups
+        along hidden, the contraction dim); `embed_lookup` gathers its rows
+        as columns, so one quantized array serves both ops and the
+        full-precision table is not kept.  A tied checkpoint's serialised
+        lm_head is never read and is dropped."""
+        quantize, group_size = quantizer(bits, group_size)
+        out = dict(edge)
+        if self.config.tie_word_embeddings and "embed" in out:
+            out.pop("lm_head", None)
+            if not is_quantized(out["embed"]["weight"]):
+                out["embed"] = {"weight": quantize(out["embed"]["weight"].T, group_size, scale_dtype)}
+        elif "lm_head" in out and not is_quantized(out["lm_head"]["weight"]):
+            out["lm_head"] = {"weight": quantize(out["lm_head"]["weight"], group_size, scale_dtype)}
         return out
 
     # ---- cache construction ------------------------------------------

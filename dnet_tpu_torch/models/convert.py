@@ -6,7 +6,10 @@ params as numpy arrays ((in, out)-oriented matrices with a leading layer
 axis; gpt_oss's paired {"a": even layers, "b": odd layers} stacks and the
 {"dense", "moe"} segments of deepseek_v2 and of mixed-layout qwen3_moe too)
 and returns the port's per-layer list, in global layer order, and edge
-dict on `device`.  `hf_tensors` is the inverse of the HF mapping
+dict on `device`.  A weight the reference quantized ({"q" | "q4", "s"},
+ops/quant.py) crosses unchanged: its int8 / packed-uint8 codes as they are
+and its scales in their own dtype, so both packages serve the same
+quantized weights.  `hf_tensors` is the inverse of the HF mapping
 (`map_layer`/`map_edge`) for every family's params (stacked experts back to
 per-expert tensors, under mixtral's `block_sparse_moe.*` names or the
 `mlp.*` names deepseek_v2 and qwen3_moe share), so synthetic weights can be
@@ -77,6 +80,31 @@ def _tensor(a, device, dtype) -> torch.Tensor:
     return t.to(device=device, dtype=dtype)
 
 
+def _exact(a, device) -> torch.Tensor:
+    """A quantized weight's leaf in its own dtype: int8 / uint8 codes, f32 or
+    bf16 scales (bf16 crosses through f32, which holds it exactly)."""
+    arr = np.asarray(a)
+    if arr.dtype.name == "bfloat16":
+        return torch.from_numpy(arr.astype(np.float32)).to(device=device, dtype=torch.bfloat16)
+    return torch.from_numpy(arr.copy()).to(device)
+
+
+def _leaf(a, device, dtype):
+    """A reference leaf on `device`: floats as `dtype`, a quantized weight's
+    {"q" | "q4", "s"} dict leaf by leaf as it is."""
+    if isinstance(a, Mapping):
+        return {k: _exact(v, device) for k, v in a.items()}
+    return _tensor(a, device, dtype)
+
+
+def _lead(a) -> int:
+    return np.shape(a["s"] if isinstance(a, Mapping) else a)[0]
+
+
+def _row(a, i: int):
+    return {k: v[i] for k, v in a.items()} if isinstance(a, Mapping) else a[i]
+
+
 def from_jax_params(
     window_params: Mapping[str, np.ndarray],
     edge_params: Mapping[str, Mapping[str, np.ndarray]],
@@ -117,15 +145,15 @@ def from_jax_params(
 
 def _unstack(stacked: Mapping[str, np.ndarray], device, dtype) -> List[Dict[str, torch.Tensor]]:
     """Per-layer dicts from arrays with a leading layer axis."""
-    counts = {np.shape(arr)[0] for arr in stacked.values()}
+    counts = {_lead(arr) for arr in stacked.values()}
     if len(counts) != 1:
         raise ValueError(f"window params stack unequal layer counts {sorted(counts)}")
-    return [{name: _tensor(arr[i], device, dtype) for name, arr in stacked.items()} for i in range(counts.pop())]
+    return [{name: _leaf(_row(arr, i), device, dtype) for name, arr in stacked.items()} for i in range(counts.pop())]
 
 
 def _edge(edge_params, config: ModelConfig, device, dtype) -> Dict[str, Dict[str, torch.Tensor]]:
     return {
-        group: {k: _tensor(a, device, dtype) for k, a in leaves.items()}
+        group: {k: _leaf(a, device, dtype) for k, a in leaves.items()}
         for group, leaves in edge_params.items()
         if not (group == "lm_head" and config.tie_word_embeddings)
     }

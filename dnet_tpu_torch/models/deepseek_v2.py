@@ -44,12 +44,21 @@ from dnet_tpu_torch.ops.attention import cached_attend
 from dnet_tpu_torch.ops.flash_decode import decode_lengths, sp_lengths
 from dnet_tpu_torch.ops.moe import moe_apply, resolve_moe_impl, swiglu_expert_closures
 from dnet_tpu_torch.ops.norms import rms_norm
+from dnet_tpu_torch.ops.quant import dq
 from dnet_tpu_torch.ops.rope import apply_rope_interleaved, rope_frequencies
 
 
 class DeepseekV2RingModel(TwoSegmentStackMixin, RingModel):
     model_type = "deepseek_v2"
     supports_sp = True
+    # the reference's set: the MLA projections, the dense MLP, the routed
+    # and shared experts (the router gate_w stays f32: routing decisions are
+    # precision-sensitive)
+    quant_keys = frozenset({
+        "wq", "wq_a", "wq_b", "wkv_a", "wkv_b", "wo",
+        "w_gate", "w_up", "w_down",
+        "e_gate", "e_up", "e_down", "s_gate", "s_up", "s_down",
+    })
 
     def __init__(self, config: ModelConfig, layers, device):
         super().__init__(config, layers, device)
@@ -120,17 +129,17 @@ class DeepseekV2RingModel(TwoSegmentStackMixin, RingModel):
 
         h = rms_norm(x, p["attn_norm"], self.config.rms_norm_eps)
         if self.q_lora_rank is None:
-            q = h @ p["wq"]
+            q = h @ dq(p["wq"])
         else:
-            q = rms_norm(h @ p["wq_a"], p["q_a_norm"], 1e-6) @ p["wq_b"]
+            q = rms_norm(h @ dq(p["wq_a"]), p["q_a_norm"], 1e-6) @ dq(p["wq_b"])
         H = q.shape[-1] // self.qk_head_dim
         q = q.reshape(B, T, H, self.qk_head_dim)
         q_nope, q_pe = q[..., :nope], q[..., nope:]
 
-        ckv = h @ p["wkv_a"]  # [B, T, kv_lora_rank + rope_d]
+        ckv = h @ dq(p["wkv_a"])  # [B, T, kv_lora_rank + rope_d]
         k_latent, k_pe = ckv[..., : self.kv_lora_rank], ckv[..., self.kv_lora_rank :]
         k_latent = rms_norm(k_latent, p["kv_a_norm"], 1e-6)
-        kv = (k_latent @ p["wkv_b"]).reshape(B, T, H, nope + vd)
+        kv = (k_latent @ dq(p["wkv_b"])).reshape(B, T, H, nope + vd)
         k_nope, v = kv[..., :nope], kv[..., nope:]
 
         positions = pos + torch.arange(T, device=x.device)
@@ -144,11 +153,11 @@ class DeepseekV2RingModel(TwoSegmentStackMixin, RingModel):
         else:
             attn, _ = cached_attend(q_full, k_full, v, kvs, pos, None, scale=self.softmax_scale, causal=True,
                                     lengths=lengths, sp=sp)
-        return x + attn.reshape(B, T, H * vd) @ p["wo"]
+        return x + attn.reshape(B, T, H * vd) @ dq(p["wo"])
 
     @staticmethod
-    def _dense_mlp(h: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor, w_down: torch.Tensor) -> torch.Tensor:
-        return (F.silu(h @ w_gate) * (h @ w_up)) @ w_down
+    def _dense_mlp(h: torch.Tensor, w_gate, w_up, w_down) -> torch.Tensor:
+        return (F.silu(h @ dq(w_gate)) * (h @ dq(w_up))) @ dq(w_down)
 
     def _route(self, flat: torch.Tensor, gate_w: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
         """(top_idx [N, k], top_w [N, k] f32): a softmax over every expert's

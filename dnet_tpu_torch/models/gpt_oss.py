@@ -52,6 +52,7 @@ from dnet_tpu_torch.ops.attention import (
 from dnet_tpu_torch.ops.flash_decode import decode_lengths
 from dnet_tpu_torch.ops.moe import moe_apply, resolve_moe_impl
 from dnet_tpu_torch.ops.norms import rms_norm
+from dnet_tpu_torch.ops.quant import dq, lead_dim, out_dim
 from dnet_tpu_torch.ops.rope import apply_rope, rope_frequencies
 
 ALPHA = 1.702
@@ -102,13 +103,13 @@ class GptOssRingModel(RingModel):
         cfg = self.config
         B, T, _ = x.shape
         Hd = cfg.head_dim
-        H = p["wq"].shape[1] // Hd
-        KVH = p["wk"].shape[1] // Hd
+        H = out_dim(p["wq"]) // Hd
+        KVH = out_dim(p["wk"]) // Hd
 
         h = rms_norm(x, p["attn_norm"], cfg.rms_norm_eps)
-        q = (h @ p["wq"] + p["bq"]).reshape(B, T, H, Hd)
-        k = (h @ p["wk"] + p["bk"]).reshape(B, T, KVH, Hd)
-        v = (h @ p["wv"] + p["bv"]).reshape(B, T, KVH, Hd)
+        q = (h @ dq(p["wq"]) + p["bq"]).reshape(B, T, H, Hd)
+        k = (h @ dq(p["wk"]) + p["bk"]).reshape(B, T, KVH, Hd)
+        v = (h @ dq(p["wv"]) + p["bv"]).reshape(B, T, KVH, Hd)
         positions = pos + torch.arange(T, device=x.device)
         q = apply_rope(q, positions, self.inv_freq, self.rope_scale)
         k = apply_rope(k, positions, self.inv_freq, self.rope_scale)
@@ -120,7 +121,7 @@ class GptOssRingModel(RingModel):
                                              lengths=lengths)
         else:
             attn, _ = cached_attend(q, k, v, kvs, pos, mask, sinks=sinks, causal=causal, lengths=lengths, sp=sp)
-        return x + (attn.reshape(B, T, H * Hd) @ p["wo"] + p["bo"])
+        return x + (attn.reshape(B, T, H * Hd) @ dq(p["wo"]) + p["bo"])
 
     def _moe(self, p: dict, x: torch.Tensor) -> torch.Tensor:
         B, T, D = x.shape
@@ -128,7 +129,7 @@ class GptOssRingModel(RingModel):
         flat = h.reshape(B * T, D)
         N = flat.shape[0]
         k = self.config.num_experts_per_tok
-        E = p["gate_up"].shape[0]
+        E = lead_dim(p["gate_up"])
 
         logits = flat @ p["router_w"] + p["router_b"]  # [N, E]
         top_vals, top_idx = torch.topk(logits, k, dim=-1)
@@ -141,8 +142,8 @@ class GptOssRingModel(RingModel):
             return (up + 1.0) * (gate * torch.sigmoid(gate * ALPHA))
 
         def ffn(xe: torch.Tensor) -> torch.Tensor:  # per-expert buffers [E, C, D] -> [E, C, D]
-            gu = torch.bmm(xe, p["gate_up"]) + p["gate_up_b"][:, None, :]
-            return torch.bmm(glu(gu), p["down"]) + p["down_b"][:, None, :]
+            gu = torch.bmm(xe, dq(p["gate_up"])) + p["gate_up_b"][:, None, :]
+            return torch.bmm(glu(gu), dq(p["down"])) + p["down_b"][:, None, :]
 
         def dense() -> torch.Tensor:  # every token x every expert, scores mask the sum
             scores = torch.zeros_like(logits).scatter(1, top_idx, top_probs)

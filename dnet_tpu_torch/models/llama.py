@@ -27,6 +27,7 @@ from dnet_tpu_torch.models.base import ModelConfig, RingModel
 from dnet_tpu_torch.ops.attention import cached_attend
 from dnet_tpu_torch.ops.flash_decode import decode_lengths, sp_lengths
 from dnet_tpu_torch.ops.norms import rms_norm
+from dnet_tpu_torch.ops.quant import dq, out_dim
 from dnet_tpu_torch.ops.rope import apply_rope, rope_frequencies
 
 
@@ -67,13 +68,13 @@ class LlamaRingModel(RingModel):
         cfg = self.config
         B, T, _ = x.shape
         Hd = cfg.head_dim
-        H = p["wq"].shape[1] // Hd
-        KVH = p["wk"].shape[1] // Hd
+        H = out_dim(p["wq"]) // Hd
+        KVH = out_dim(p["wk"]) // Hd
 
         h = rms_norm(x, p["attn_norm"], cfg.rms_norm_eps)
-        q = h @ p["wq"]
-        k = h @ p["wk"]
-        v = h @ p["wv"]
+        q = h @ dq(p["wq"])
+        k = h @ dq(p["wk"])
+        v = h @ dq(p["wv"])
         if "bq" in p:
             q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
         q = q.reshape(B, T, H, Hd)
@@ -87,14 +88,14 @@ class LlamaRingModel(RingModel):
             attn, kvs = attend_fn(q, k, v, kvs)
         else:
             attn, kvs = cached_attend(q, k, v, kvs, pos, None, causal=True, lengths=lengths, sp=sp)
-        x = x + attn.reshape(B, T, H * Hd) @ p["wo"]
+        x = x + attn.reshape(B, T, H * Hd) @ dq(p["wo"])
         return self._mlp_block(p, x), kvs
 
     def _mlp_block(self, p: dict, x: torch.Tensor) -> torch.Tensor:
         """Post-attention SwiGLU FFN incl. the residual add; a subclass hook
         (mixtral swaps in the sparse-MoE block)."""
         h = rms_norm(x, p["mlp_norm"], self.config.rms_norm_eps)
-        return x + (F.silu(h @ p["w_gate"]) * (h @ p["w_up"])) @ p["w_down"]
+        return x + (F.silu(h @ dq(p["w_gate"])) * (h @ dq(p["w_up"]))) @ dq(p["w_down"])
 
     def apply_window(
         self, window_params: List[dict], x: torch.Tensor, kv: dict,

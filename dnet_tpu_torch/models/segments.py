@@ -11,8 +11,9 @@ rows [:Ld] belong to the dense segment, rows [Ld:] to the moe segment.
 
 Left out, with the pipeline-parallel mesh they belong to (ROADMAP A7): the
 multi-lap `phase` that runs one segment per ring lap and
-`pad_mesh_segments`.  `quantize_params` and `wrap_offload_layer` come with
-weight quantization and weight streaming (A4).
+`pad_mesh_segments`; `wrap_offload_layer` comes with weight streaming (A4).
+Weight quantization needs nothing of the layout: the engine quantizes each
+layer's params before `stack_layers` sorts them into segments.
 
 The host class provides `layer(p, x, kvs, pos, lengths=, sp=, attend_fn=)`,
 one layer over its cache slices (written in place, or through the batched

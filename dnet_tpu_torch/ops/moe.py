@@ -29,6 +29,8 @@ from typing import Callable, Tuple
 import torch
 import torch.nn.functional as F
 
+from dnet_tpu_torch.ops.quant import dq, lead_dim
+
 
 def expert_capacity(n_tokens: int, n_experts: int, k: int, factor: float) -> int:
     """Per-expert token capacity C.  factor <= 0 -> exact (C = n)."""
@@ -139,15 +141,15 @@ def swiglu_expert_closures(
     """(effn, dense, E) for the SwiGLU-expert MoE families (deepseek's
     routed experts, mixtral) on one device: p holds the stacked
     (in, out)-oriented expert weights e_gate/e_up [E, D, F] and e_down
-    [E, F, D].  effn maps per-expert buffers [E, C, D] -> [E, C, D];
+    [E, F, D], each maybe quantized (read through ops/quant.py `dq`).  effn maps per-expert buffers [E, C, D] -> [E, C, D];
     dense() runs every token through every expert and sums the outputs
     weighted by the router weights scattered over the E experts (top_idx /
     top_w [N, k]), exact; it returns [N, D] in flat's dtype."""
-    E = p["e_gate"].shape[0]
+    E = lead_dim(p["e_gate"])
     N, D = flat.shape
 
     def effn(xe: torch.Tensor) -> torch.Tensor:
-        return torch.bmm(F.silu(torch.bmm(xe, p["e_gate"])) * torch.bmm(xe, p["e_up"]), p["e_down"])
+        return torch.bmm(F.silu(torch.bmm(xe, dq(p["e_gate"]))) * torch.bmm(xe, dq(p["e_up"])), dq(p["e_down"]))
 
     def dense() -> torch.Tensor:
         weights = torch.zeros((N, E), dtype=top_w.dtype, device=flat.device).scatter(1, top_idx.long(), top_w)

@@ -75,6 +75,10 @@ class MeshEngine:
     # new_session, _forward and _init_kv, the three this class defines
     _setup = LocalEngine._setup
     _cast = LocalEngine._cast
+    _on_device = LocalEngine._on_device
+    _place = LocalEngine._place
+    _place_edge = LocalEngine._place_edge
+    weight_stats = LocalEngine.weight_stats
     _build_kernels = LocalEngine._build_kernels
     new_session = LocalEngine.new_session
     _paged_ensure = LocalEngine._paged_ensure  # no ledger under a mesh (kv_pool stays None)
@@ -107,16 +111,22 @@ class MeshEngine:
         kv_quant_bits: int = 0,
         device: Optional[Union[str, torch.device]] = None,
         devices: Optional[Sequence[Union[str, torch.device]]] = None,
+        weight_quant_bits: int = 0,
+        weight_quant_group: int = 0,
     ):
         """`devices`: the ranks' devices, one per rank (a device may repeat:
         ranks then share it); by default parallel/mesh.py `rank_devices`
         over `device` (CUDA: one card per rank, refused with fewer cards;
-        'cpu': every rank on the CPU)."""
+        'cpu': every rank on the CPU).  Weights (quantized under
+        `weight_quant_bits`, as LocalEngine's) live on the home device: the
+        ranks split the cache, not the weights, so every rank reads the same
+        codes."""
         config = ModelConfig.from_hf(Checkpoint(model_dir).config)
         group = _group(config, pp, tp, dp, sp, max_seq, device, devices)
         # no paged ledger: mesh caches are sharded, as in the reference
         LocalEngine.__init__(self, model_dir, max_seq=max_seq, param_dtype=param_dtype, device=group.home,
-                             kv_dtype=kv_dtype, kv_quant_bits=kv_quant_bits, kv_paged=False)
+                             kv_dtype=kv_dtype, kv_quant_bits=kv_quant_bits, kv_paged=False,
+                             weight_quant_bits=weight_quant_bits, weight_quant_group=weight_quant_group)
         self._mesh_ready(group)
 
     @classmethod
@@ -136,6 +146,8 @@ class MeshEngine:
         kv_quant_bits: int = 0,
         device: Optional[Union[str, torch.device]] = None,
         devices: Optional[Sequence[Union[str, torch.device]]] = None,
+        weight_quant_bits: int = 0,
+        weight_quant_group: int = 0,
     ) -> "MeshEngine":
         """A mesh engine around parameters already in the port's form (one
         dict per layer, e.g. from models/convert.py `from_jax_params`)."""
@@ -143,6 +155,7 @@ class MeshEngine:
         self = LocalEngine.from_params.__func__(
             cls, config, window_params, edge_params, max_seq=max_seq, param_dtype=param_dtype,
             device=group.home, kv_dtype=kv_dtype, kv_quant_bits=kv_quant_bits, kv_paged=False,
+            weight_quant_bits=weight_quant_bits, weight_quant_group=weight_quant_group,
         )
         self._mesh_ready(group)
         return self
@@ -171,11 +184,12 @@ class MeshEngine:
         return m.lm_project(self.edge_params, x_last)[:, 0]
 
     def stats(self) -> dict:
-        """The KV cache's form, the sp ranks' devices and the bytes one
-        session's cache holds, in all and per rank (for /health)."""
+        """The weights' and the KV cache's form, the sp ranks' devices, the
+        weights' bytes and the bytes one session's cache holds, in all and
+        per rank (for /health)."""
         return {"kv_dtype": self.kv_dtype, "kv_quant_bits": self.kv_quant_bits, "kv_bytes": self.kv_bytes,
                 "sp": self.sp, "devices": [str(d) for d in self.sp_group.devices],
-                "kv_bytes_per_rank": list(self.kv_bytes_per_rank)}
+                "kv_bytes_per_rank": list(self.kv_bytes_per_rank), **self.weight_stats()}
 
 
 def _group(config, pp, tp, dp, sp, max_seq, device, devices) -> SpGroup:

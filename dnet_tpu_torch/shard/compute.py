@@ -87,7 +87,8 @@ def refuse_unsupported(
     """Raise ShardCapabilityError for the first load option outside this
     slice: batched lanes, ring speculation, the ring prefix cache, k-round
     (non-contiguous) schedules, mesh or tensor parallelism, streamed
-    weights, a kv_bits that is none of 0/16/8/4, quantized weights, and the
+    weights, a kv_bits that is none of 0/16/8/4, a weight_quant_bits that
+    is none of 0/8/4, and the
     overlapped wire pipeline (None: DNET_WIRE_PIPELINE).  Other keyword
     arguments are ignored, so a caller can pass its whole load body."""
     if wire_pipeline is None:
@@ -107,7 +108,7 @@ def refuse_unsupported(
         (window_size > 0 or residency_size > 0,
          f"window_size={window_size} residency_size={residency_size}: streamed weights are not ported"),
         (kv_bits not in (0, 4, 8, 16), f"kv_bits={kv_bits} (supported: 0/4/8/16)"),
-        (weight_quant_bits != 0, f"weight_quant_bits={weight_quant_bits}: weight quantization is not ported"),
+        (weight_quant_bits not in (0, 4, 8), f"weight_quant_bits={weight_quant_bits} (supported: 0/4/8)"),
         (wire_pipeline, "DNET_WIRE_PIPELINE=1: the overlapped wire pipeline is not ported"),
     ]
     for cond, why in refused:
@@ -156,9 +157,13 @@ class ShardCompute:
         if wire_codec not in ("lossless", "qsparse8"):
             raise ValueError(f"unknown wire codec {wire_codec!r} (lossless | qsparse8)")
         kv_dtype, kv_quant_bits = resolve_kv_bits(kv_bits)
+        # weight_quant_bits 8 / 4: this range's layers and, on the tail, the
+        # LM projection quantized at the bits' default group, as the
+        # reference's shard does (its load body carries no group)
         self.engine = LocalEngine(
             model_dir, max_seq=max_seq, param_dtype=param_dtype, device=device,
             layers=layers, shard_mode=True, kv_dtype=kv_dtype, kv_quant_bits=kv_quant_bits,
+            weight_quant_bits=weight_quant_bits,
         )
         self.engine.KV_TTL_S = kv_ttl_s
         self.layers = list(self.engine.model.layers)

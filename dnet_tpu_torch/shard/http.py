@@ -98,6 +98,8 @@ class ShardHTTPServer:
             body["sessions"] = len(compute.engine.sessions)
             body["wire_codec"] = compute.wire_codec
             body["wire"] = dict(compute.wire_stats)
+            # the weights' and the cache's form and bytes on this shard
+            body["engine"] = compute.engine.stats()
         return web.json_response(body)
 
     async def load_model(self, request: web.Request) -> web.Response:

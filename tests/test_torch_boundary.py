@@ -107,7 +107,9 @@ _GUARDED_SERVER = textwrap.dedent(
     save_checkpoint(sys.argv[1], cfg, t)
 
     from dnet_tpu_torch.cli.api import main
-    sys.exit(main(["--model", sys.argv[1], "--device", "cpu", "--host", "127.0.0.1",
+    # GUARDED_VARIANT ":int8": the catalog's weight-only variant of the same checkpoint
+    sys.exit(main(["--model", sys.argv[1] + os.environ.get("GUARDED_VARIANT", ""), "--device", "cpu",
+                   "--host", "127.0.0.1",
                    "--http-port", sys.argv[2], "--max-seq-len", "64",
                    "--param-dtype", "float32", *sys.argv[3:]]))
     """
@@ -118,7 +120,7 @@ def test_no_jax_or_reference_imports_in_source():
     files = sorted(PORT_PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"]
     for module in ("models/gpt_oss.py", "models/deepseek_v2.py", "models/segments.py", "models/qwen2.py",
                    "models/qwen3.py", "models/mixtral.py", "models/qwen3_moe.py", "ops/moe.py", "ops/rope.py",
-                   "ops/attention.py", "core/kvcache.py", "config.py"):
+                   "ops/attention.py", "core/kvcache.py", "config.py", "ops/quant.py", "api/catalog.py"):
         assert PORT_PKG / module in files
     offenders = [
         f"{f.relative_to(ROOT)}: {m.group(0).strip()}"
@@ -132,9 +134,10 @@ def test_no_jax_or_reference_imports_in_source():
     assert not _FORBIDDEN.search("from dnet_tpu_torch.core import engine")
 
 
-def _serve_one_guarded(tmp_path, extra_args=(), extra_env=None) -> dict:
+def _serve_one_guarded(tmp_path, extra_args=(), extra_env=None, model="m") -> dict:
     """Run the CLI in a process where importing jax or dnet_tpu raises,
-    serve one greedy chat request, and return /health as it was then."""
+    serve one greedy chat request for `model`, and return /health as it
+    was then."""
     with socket.socket() as s:
         s.bind(("127.0.0.1", 0))
         port = s.getsockname()[1]
@@ -158,7 +161,7 @@ def _serve_one_guarded(tmp_path, extra_args=(), extra_env=None) -> dict:
         assert proc.poll() is None, proc.stdout.read()
         r = httpx.post(
             base + "/v1/chat/completions",
-            json={"model": "m", "messages": [{"role": "user", "content": "hi"}],
+            json={"model": model, "messages": [{"role": "user", "content": "hi"}],
                   "max_tokens": 5, "temperature": 0},
             timeout=30,
         )
@@ -193,6 +196,19 @@ def test_serves_a_quantized_request_with_jax_and_reference_blocked(tmp_path):
     assert health["engine"]["kv_quant_bits"] == 8
     # 2 layers x 64 slots x 2 KV heads x (8 + 8 code bytes + 2 x 4 scale bytes)
     assert health["engine"]["kv_bytes"] == 2 * 64 * 2 * (8 + 8 + 8)
+
+
+def test_serves_an_int8_weight_request_with_jax_and_reference_blocked(tmp_path):
+    """The guarded serve of the checkpoint's `:int8` variant: every layer
+    matrix and the LM head as int8 codes with f32 scales (their groups span
+    the whole 32- / 64-row in axis)."""
+    health = _serve_one_guarded(tmp_path, extra_env={"GUARDED_VARIANT": ":int8"}, model=str(tmp_path / "ckpt:int8"))
+    assert health["engine"]["weight_quant_bits"] == 8
+    # per layer: 2 f32 norms (256 B); q/k/v/o codes 32 x (32 + 16 + 16 + 32) + f32 scales 4 x (32 + 16 + 16 + 32);
+    # gate/up/down codes 3 x 2048 + scales 4 x (64 + 64 + 32); the f32 embedding, the final norm, and the
+    # LM head's codes 32 x 261 + scales 4 x 261
+    layer = 256 + 32 * 96 + 4 * 96 + 3 * 2048 + 4 * 160
+    assert health["engine"]["weight_bytes"] == 2 * layer + 261 * 32 * 4 + 32 * 4 + 261 * 32 + 261 * 4
 
 
 def test_serves_a_gpt_oss_request_with_jax_and_reference_blocked(tmp_path):

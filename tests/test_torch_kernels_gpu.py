@@ -50,14 +50,17 @@ in f32); the one-launch norms + top-k at R = 1 / 7 / 1500, C = 2048 / 2880
 topk_columns of its own norms, one device kernel a call; gather and dequant-scatter equal bit for bit (both also at R = 1, 7 and
 1500: the gather with odd C, one kept column, every column, a span past its
 window and an unsorted idx; the dequant-scatter with empty strips, every
-column kept and odd D).  Tolerances: f32 1e-4 (sums
+column kept and odd D).  Every one-kernel-a-call case is traced in a fresh
+process (tests/torch_gpu_trace.py; the helper's own check traces one known
+elementwise kernel).  The weight quantizer at a Llama-3.3-70B MLP weight's
+size gives the CPU's codes, scales and dequantized weight bit for bit.
+Tolerances: f32 1e-4 (sums
 in another order); bf16 2e-2 against the plain version computed in f32
 from the same bf16 inputs (the kernel rounds its output to bf16, ~4e-3 at
 |x| ~ 1, and sums in another order).
 """
 
 import math
-import time
 
 import pytest
 import torch
@@ -90,6 +93,7 @@ from dnet_tpu_torch.ops.flash_decode import (
 from dnet_tpu_torch.ops.ring_attention import lse_combine
 from dnet_tpu_torch.parallel.mesh import SpGroup
 from dnet_tpu_torch.ops.paged_attention import paged_attend, paged_attend_plain
+from torch_gpu_trace import trace_all
 
 pytestmark = pytest.mark.gpu
 
@@ -101,6 +105,19 @@ def gen():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     return torch.Generator(device="cuda").manual_seed(0)
+
+
+@pytest.fixture(scope="module")
+def traced():
+    """Every TRACED case's device kernels, each traced in a fresh process
+    (tests/torch_gpu_trace.py), all at the first test that asks, every
+    source built first so that the processes only load the kernels."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from dnet_tpu_torch.kernels.build import build_all
+
+    build_all()
+    return trace_all(TRACED)
 
 
 def _randn(gen, dtype, *shape):
@@ -723,110 +740,114 @@ def _check_form(out, want, form, dtype):
 
 
 @pytest.mark.parametrize("form", DECODE_FORMS, ids=[f[0] for f in DECODE_FORMS])
-def test_decode_wrapper_call_is_one_device_kernel(gen, form):
+def test_decode_wrapper_call_is_one_device_kernel(gen, traced, form):
     """Every decode form, normalised and LSE, runs as exactly one device
     kernel per wrapper call (the splits merge inside it), as torch.profiler
-    traces it, counted once on its own counter."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
+    traces it in a fresh process (tests/torch_gpu_trace.py), counted once on
+    its own counter."""
     call, want = _decode_form_call(gen, form)
-    call()  # built and warm
-    torch.cuda.synchronize()
-    for _ in range(3):  # the profiler now and then drops a short call's record; it never invents one
-        before = getattr(flash_decode_attend, form[0])
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            time.sleep(0.002)  # the call well inside the traced window
-            out = call()
-            torch.cuda.synchronize()
-            time.sleep(0.002)
-        assert getattr(flash_decode_attend, form[0]) == before + 1
-        kernels = [e.name for e in prof.events() if e.device_type == DeviceType.CUDA]
-        if kernels:
-            break
+    out = call()
+    trace = traced[("decode", "decode", DECODE_FORMS.index(form))]
+    assert trace["counted"] == 1
+    kernels = trace["kernels"]
     assert len(kernels) == 1 and "flash_decode_kernel" in kernels[0], kernels
     _check_form(out, want, form, torch.bfloat16)
 
 
 @pytest.mark.parametrize("dqk,dv", PREFILL_WIDTHS)
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_prefill_wrapper_call_is_one_device_kernel(gen, dqk, dv, dtype):
+def test_prefill_wrapper_call_is_one_device_kernel(gen, traced, dqk, dv, dtype):
     """One prefill call is exactly one device kernel, as torch.profiler
-    traces it, and one count on its counter.  (Placed after the decode
-    forms' profiler test: late in a long process the profiler was seen to
-    trace no kernel at all.)"""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    q, k, v, sk, scale = _prefill_case(gen, dtype, dqk, dv, 4, 1, 200, 60, 512, False)
-    attr = "launches" if dqk == dv else "launches_mla"
-    flash_prefill(q, k, v, 60, scale=scale)  # built and warm
-    torch.cuda.synchronize()
-    for _ in range(3):  # the profiler now and then drops a short call's record; it never invents one
-        before = getattr(flash_prefill, attr)
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            time.sleep(0.002)
-            flash_prefill(q, k, v, 60, scale=scale)
-            torch.cuda.synchronize()
-            time.sleep(0.002)
-        assert getattr(flash_prefill, attr) == before + 1
-        kernels = [e.name for e in prof.events() if e.device_type == DeviceType.CUDA]
-        if kernels:
-            break
+    traces it in a fresh process, and one count on its counter."""
+    trace = traced[("prefill", dqk, dv, str(dtype).split(".")[-1])]
+    assert trace["counted"] == 1
+    kernels = trace["kernels"]
     assert len(kernels) == 1 and "flash_prefill" in kernels[0], kernels
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("n_split", [None, 16])
-def test_paged_wrapper_call_is_one_device_kernel(gen, monkeypatch, dtype, n_split):
+def test_paged_wrapper_call_is_one_device_kernel(gen, traced, dtype, n_split):
     """One paged call is exactly one device kernel at the plan's split count
     and at the cap (the splits merge inside it), as torch.profiler traces
-    it, and one count on its counter.  (After the decode forms' profiler
-    test, as the prefill one.)"""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    case = _paged_case(gen, dtype, 16, [57, 92, 182, 332, 552, 832, 1132, 1532])
-    if n_split is not None:
-        _paged_blocks_per_slot(monkeypatch, n_split)
-    paged_attend(*case, max_live=1532)  # built and warm
-    torch.cuda.synchronize()
-    for _ in range(3):  # the profiler now and then drops a short call's record; it never invents one
-        before = paged_attend.launches
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            time.sleep(0.002)
-            paged_attend(*case, max_live=1532)
-            torch.cuda.synchronize()
-            time.sleep(0.002)
-        assert paged_attend.launches == before + 1
-        kernels = [e.name for e in prof.events() if e.device_type == DeviceType.CUDA]
-        if kernels:
-            break
+    it in a fresh process, and one count on its counter."""
+    trace = traced[("paged", str(dtype).split(".")[-1], n_split)]
+    assert trace["counted"] == 1
+    kernels = trace["kernels"]
     assert len(kernels) == 1 and "paged_attention_kernel" in kernels[0], kernels
 
 
 @pytest.mark.parametrize("R", [1, 1500])
-def test_column_topk_call_is_one_device_kernel(gen, R):
+def test_column_topk_call_is_one_device_kernel(gen, traced, R):
     """A column_topk call is exactly one device kernel at the decode hop's
-    and at a prompt frame's rows, as torch.profiler traces it.  (Beside the
-    other profiler tests, early in the file: late in a long process the
-    profiler was seen to trace no kernel at all.)"""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    x = _randn(gen, torch.bfloat16, R, 2048)
-    column_topk(x, 1024)  # built and warm, its tickets allocated
-    torch.cuda.synchronize()
-    for _ in range(3):  # the profiler now and then drops a short call's record; it never invents one
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            time.sleep(0.002)
-            column_topk(x, 1024)
-            torch.cuda.synchronize()
-            time.sleep(0.002)
-        kernels = [e.name for e in prof.events() if e.device_type == DeviceType.CUDA]
-        if kernels:
-            break
+    and at a prompt frame's rows, as torch.profiler traces it in a fresh
+    process."""
+    kernels = traced[("column_topk", R)]["kernels"]
     assert len(kernels) == 1 and "norms_topk_kernel" in kernels[0], kernels
+
+
+@pytest.mark.parametrize("scale_dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("bits", [8, 4])
+def test_weight_quantizer_on_the_card_equals_the_cpu(gen, bits, scale_dtype):
+    """A Llama-3.3-70B MLP weight ([8192, 28672] bf16) quantized on the card
+    at the bits' default group: codes, scales and the dequantized weight
+    equal the CPU's bit for bit (the CPU's equal dnet_tpu's,
+    tests/test_torch_weight_quant.py)."""
+    from dnet_tpu_torch.ops.quant import dq, quantize_weight_q4, quantize_weight_q8
+
+    quantize = quantize_weight_q4 if bits == 4 else quantize_weight_q8
+    w = (torch.randn(8192, 28672, generator=gen, device="cuda") * 0.02).to(torch.bfloat16)
+    got = quantize(w, scale_dtype=scale_dtype)
+    want = quantize(w.cpu(), scale_dtype=scale_dtype)
+    assert sorted(got) == sorted(want) and got["s"].dtype == scale_dtype
+    assert all(torch.equal(got[k].cpu(), want[k]) for k in want)
+    assert torch.equal(dq(got).cpu(), dq(want))
+
+
+def test_trace_helper_traces_a_known_kernel(gen, traced):
+    """The tracing process itself: one in-place add on the card is one
+    elementwise device kernel, among the session's other (host) events."""
+    trace = traced[("add",)]
+    assert trace["events"] > len(trace["kernels"]) == 1, trace
+    assert "elementwise" in trace["kernels"][0], trace
+
+
+def _trace_decode(gen, mp, forms: str, i: int):
+    form = (DECODE_FORMS if forms == "decode" else WIDE_FORMS)[i]
+    call, _ = _decode_form_call(gen, form)
+    return call, (lambda: getattr(flash_decode_attend, form[0])) if forms == "decode" else None
+
+
+def _trace_prefill(gen, mp, dqk: int, dv: int, dtype: str):
+    q, k, v, _, scale = _prefill_case(gen, getattr(torch, dtype), dqk, dv, 4, 1, 200, 60, 512, False)
+    attr = "launches" if dqk == dv else "launches_mla"
+    return (lambda: flash_prefill(q, k, v, 60, scale=scale)), (lambda: getattr(flash_prefill, attr))
+
+
+def _trace_paged(gen, mp, dtype: str, n_split, wide: bool = False):
+    shape = dict(H=64, KVH=4, D=128) if wide else {}
+    case = _paged_case(gen, getattr(torch, dtype), 16, [57, 92, 182, 332, 552, 832, 1132, 1532], **shape)
+    if n_split is not None:
+        _paged_blocks_per_slot(mp, n_split)
+    attr = "launches_wide" if wide else "launches"  # G = 16 counts on the wide counter
+    return (lambda: paged_attend(*case, max_live=1532)), (lambda: getattr(paged_attend, attr))
+
+
+def _trace_column_topk(gen, mp, R: int):
+    x = _randn(gen, torch.bfloat16, R, 2048)
+    return (lambda: column_topk(x, 1024)), None
+
+
+def _trace_add(gen, mp):
+    x = torch.zeros(1 << 20, device="cuda")
+    return (lambda: x.add_(1.0)), None
+
+
+# the one-kernel-a-call cases, by name: each builds (a zero-argument call,
+# its counter or None) from the seeded generator as its test makes its
+# inputs; tests/torch_gpu_trace.py traces them in a fresh process
+TRACE_CASES = {"decode": _trace_decode, "prefill": _trace_prefill, "paged": _trace_paged,
+               "column_topk": _trace_column_topk, "add": _trace_add}
 
 
 def test_decode_interleaved_shapes_repeat_exactly(gen):
@@ -1257,48 +1278,25 @@ WIDE_FORMS = [_wide_form(16, 128, bits, lse) for bits in (0, 8, 4) for lse in (F
 
 
 @pytest.mark.parametrize("form", WIDE_FORMS, ids=[f"q{f[5]}-{'lse' if f[7] else 'norm'}" for f in WIDE_FORMS])
-def test_wide_decode_call_is_one_device_kernel(gen, form):
+def test_wide_decode_call_is_one_device_kernel(gen, traced, form):
     """A G = 16 decode call in every form is one device kernel (its row
-    groups are blocks of the one launch), as torch.profiler traces it."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
+    groups are blocks of the one launch), as torch.profiler traces it in a
+    fresh process."""
     call, want = _decode_form_call(gen, form)
-    call()
-    torch.cuda.synchronize()
-    for _ in range(3):  # the profiler now and then drops a short call's record; it never invents one
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            time.sleep(0.002)
-            out = call()
-            torch.cuda.synchronize()
-            time.sleep(0.002)
-        kernels = [e.name for e in prof.events() if e.device_type == DeviceType.CUDA]
-        if kernels:
-            break
+    out = call()
+    kernels = traced[("decode", "wide", WIDE_FORMS.index(form))]["kernels"]
     # bf16 over a bf16 cache at head dim 128 runs the tensor-core form
     name = "flash_decode_mma_kernel" if not form[5] else "flash_decode_kernel"
     assert len(kernels) == 1 and name in kernels[0], kernels
     _check_form(out, want, form, torch.bfloat16)
 
 
-def test_wide_paged_call_is_one_device_kernel(gen):
+def test_wide_paged_call_is_one_device_kernel(gen, traced):
     """A G = 16 paged call (bf16: the tensor-core form) is one device
-    kernel, as torch.profiler traces it."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    case = _paged_case(gen, torch.bfloat16, 16, [57, 92, 182, 332, 552, 832, 1132, 1532], H=64, KVH=4, D=128)
-    paged_attend(*case, max_live=1532)
-    torch.cuda.synchronize()
-    for _ in range(3):  # the profiler now and then drops a short call's record; it never invents one
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            time.sleep(0.002)
-            paged_attend(*case, max_live=1532)
-            torch.cuda.synchronize()
-            time.sleep(0.002)
-        kernels = [e.name for e in prof.events() if e.device_type == DeviceType.CUDA]
-        if kernels:
-            break
+    kernel, as torch.profiler traces it in a fresh process."""
+    trace = traced[("paged", "bfloat16", None, True)]
+    assert trace["counted"] == 1
+    kernels = trace["kernels"]
     assert len(kernels) == 1 and "paged_attention_mma_kernel" in kernels[0], kernels
 
 
@@ -1674,3 +1672,16 @@ def test_lane_cached_attend_matches_the_cpu(gen, window, bits):
         assert torch.equal(caches["cuda"][name][2], kvs[name][2].cpu())  # the frozen lane
         if not bits:
             assert torch.equal(caches["cuda"][name], caches["cpu"][name])
+
+
+# every case the one-kernel-a-call tests hold, as (TRACE_CASES name, *its
+# arguments): traced once each, in parallel, by the `traced` fixture
+TRACED = (
+    [("decode", "decode", i) for i in range(len(DECODE_FORMS))]
+    + [("prefill", dqk, dv, dtype) for dqk, dv in PREFILL_WIDTHS for dtype in ("float32", "bfloat16")]
+    + [("paged", dtype, n_split) for dtype in ("float32", "bfloat16") for n_split in (None, 16)]
+    + [("column_topk", R) for R in (1, 1500)]
+    + [("add",)]
+    + [("decode", "wide", i) for i in range(len(WIDE_FORMS))]
+    + [("paged", "bfloat16", None, True)]
+)

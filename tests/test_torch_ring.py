@@ -143,7 +143,7 @@ def _api(net, kind, auto_steps):
 
 
 async def _run_ring(model_dir, kinds=("port", "port"), api_kind="port", auto_steps=16, codec="lossless",
-                    prompts=PROMPTS, steps=STEPS, decoding=None, kv_bits=0):
+                    prompts=PROMPTS, steps=STEPS, decoding=None, kv_bits=0, weight_quant_bits=0):
     """Serve each prompt for `steps` tokens through a two-shard ring of the
     given kinds; returns (streams, net, shard runtimes)."""
     net = Net()
@@ -157,7 +157,7 @@ async def _run_ring(model_dir, kinds=("port", "port"), api_kind="port", auto_ste
         await asyncio.gather(*(
             loop.run_in_executor(None, lambda rt=rt, ls=ls: rt.load_model_core(
                 str(model_dir), ls, max_seq=MAX_SEQ, param_dtype="float32", wire_codec=codec,
-                kv_bits=kv_bits))
+                kv_bits=kv_bits, weight_quant_bits=weight_quant_bits))
             for (rt, _), ls in zip(nodes, ([0, 1], [2, 3]))
         ))
         nodes[0][1].configure_topology("s1")
@@ -188,13 +188,13 @@ async def _run_ring(model_dir, kinds=("port", "port"), api_kind="port", auto_ste
             rt.stop()
 
 
-def _local_streams(model_dir, decoding=None, prompts=PROMPTS, steps=STEPS, kv_bits=0):
+def _local_streams(model_dir, decoding=None, prompts=PROMPTS, steps=STEPS, kv_bits=0, weight_quant_bits=0):
     from dnet_tpu_torch.core.engine import LocalEngine
     from dnet_tpu_torch.core.kvcache import resolve_kv_bits
 
     kv_dtype, kv_quant_bits = resolve_kv_bits(kv_bits)
     eng = LocalEngine(model_dir, max_seq=MAX_SEQ, param_dtype="float32", device="cpu", kv_dtype=kv_dtype,
-                      kv_quant_bits=kv_quant_bits)
+                      kv_quant_bits=kv_quant_bits, weight_quant_bits=weight_quant_bits)
     dec = decoding or DecodingParams(temperature=0.0)
     return [[r.token_id for r in eng.generate(p, dec, max_tokens=steps, nonce=f"l{i}")]
             for i, p in enumerate(prompts)]
@@ -310,7 +310,7 @@ def test_mixed_ring_qsparse8_completes(tiny_llama_dir, local_greedy, qsparse_pct
 REFUSED = [
     dict(lanes=2), dict(spec_lookahead=4), dict(prefix_cache=4), dict(layers=[0, 2]),
     dict(mesh_tp=2), dict(mesh_tp=-1), dict(mesh_sp=2), dict(tp_degree=2), dict(window_size=1),
-    dict(residency_size=2), dict(kv_bits=3), dict(weight_quant_bits=8), dict(wire_pipeline=True),
+    dict(residency_size=2), dict(kv_bits=3), dict(weight_quant_bits=3), dict(wire_pipeline=True),
 ]
 
 
@@ -325,6 +325,24 @@ def test_refused_load_options_raise(tiny_llama_dir, option):
     with pytest.raises(ShardCapabilityError, match="does not serve"):
         rt.load_model_core(str(tiny_llama_dir), layers, max_seq=MAX_SEQ, param_dtype="float32", **kwargs)
     assert rt.compute is None
+
+
+@pytest.mark.parametrize("weight_quant_bits", [8])
+def test_weight_quant_load_option_serves(tiny_llama_dir, weight_quant_bits):
+    """weight_quant_bits in the load body (once refused): each shard
+    quantizes its layers (the tail its LM head too), and the ring's greedy
+    stream equals the single process's at the same bits, and dnet_tpu's
+    ring's."""
+    from dnet_tpu_torch.ops.quant import is_quantized
+
+    port, _, rts = asyncio.run(_run_ring(tiny_llama_dir, prompts=PROMPTS[:2], weight_quant_bits=weight_quant_bits))
+    engines = [rt.compute.engine for rt in rts]
+    assert [e.weight_quant_bits for e in engines] == [weight_quant_bits] * 2
+    assert all(is_quantized(e.window_params[0]["w_up"]) for e in engines)
+    assert port == _local_streams(tiny_llama_dir, prompts=PROMPTS[:2], weight_quant_bits=weight_quant_bits)
+    ref, _, _ = asyncio.run(_run_ring(tiny_llama_dir, kinds=("ref", "ref"), api_kind="ref", prompts=PROMPTS[:2],
+                                      weight_quant_bits=weight_quant_bits))
+    assert port == ref
 
 
 def test_wire_pipeline_env_is_refused(tiny_llama_dir, monkeypatch):

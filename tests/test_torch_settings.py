@@ -5,9 +5,10 @@ do (dnet_tpu/config.py ApiSettings / ShardSettings, dnet_tpu/cli/api.py,
 dnet_tpu/cli/shard.py, dnet_tpu/api/server.py), and a flag still wins.
 Settings that change what the reference serves and that the port does not
 serve yet are refused at load with 422 and a message naming the setting:
-weight quantization, the single-sequence prefix cache, speculative decoding
-and the draft model.  The ring API ships the configured weight_quant_bits to
-its shards, which refuse a nonzero one with 422.
+the single-sequence prefix cache, speculative decoding and the draft model.
+Weight quantization (DNET_API_WEIGHT_QUANT_BITS 8 / 4), once refused,
+serves; the ring API ships the configured weight_quant_bits to its shards,
+which serve it too.
 """
 
 import asyncio
@@ -156,8 +157,6 @@ def _load(model_dir):
 
 
 @pytest.mark.parametrize("name,value", [
-    ("DNET_API_WEIGHT_QUANT_BITS", "8"),
-    ("DNET_API_WEIGHT_QUANT_BITS", "4"),
     ("DNET_API_PREFIX_CACHE", "4"),
     ("DNET_API_SPEC_LOOKAHEAD", "3"),
     ("DNET_API_DRAFT_MODEL", "/srv/models/draft"),
@@ -168,6 +167,22 @@ def test_unported_setting_is_422_at_load(llama_dir, env, name, value):
     assert status == 422, body
     assert body["error"]["type"] == "invalid_request_error" and name in body["error"]["message"]
     assert manager.engine is None
+
+
+@pytest.mark.parametrize("bits", [8, 4])
+def test_weight_quant_setting_serves(llama_dir, env, bits):
+    """DNET_API_WEIGHT_QUANT_BITS 8 / 4 (once a 422) loads an engine whose
+    layers and LM projection hold int8 / packed-int4 codes."""
+    from dnet_tpu_torch.ops.quant import is_quantized
+
+    env({"DNET_API_WEIGHT_QUANT_BITS": str(bits)})
+    (status, body), manager = _load(llama_dir)
+    assert status == 200, body
+    engine = manager.engine
+    assert engine.weight_quant_bits == bits and engine.stats()["weight_quant_bits"] == bits
+    assert ("q4" if bits == 4 else "q") in engine.window_params[0]["wq"]
+    head = "embed" if engine.config.tie_word_embeddings else "lm_head"
+    assert is_quantized(engine.edge_params[head]["weight"])
 
 
 def test_defaults_still_load(llama_dir, env):
@@ -199,17 +214,24 @@ def test_ring_manager_ships_the_configured_weight_quant_bits(env):
     assert {b["weight_quant_bits"] for b in _ring_bodies().values()} == {4}
 
 
-def test_shard_refuses_the_shipped_weight_quant_bits(llama_dir, env):
-    """The body the ring API sends under DNET_API_WEIGHT_QUANT_BITS=8 is
-    refused by the shard with 422, which the ring API answers as 422."""
+def test_shard_serves_the_shipped_weight_quant_bits(llama_dir, env):
+    """The body the ring API sends under DNET_API_WEIGHT_QUANT_BITS=8 (once
+    refused with 422) loads the shard with int8 weights."""
     from dnet_tpu_torch.shard.http import ShardHTTPServer
     from dnet_tpu_torch.shard.runtime import ShardRuntime
     from dnet_tpu_torch.shard.server import Shard
 
+    class Adapter:  # the ring wiring a load resets and configures, not under test
+        async def reset_topology(self):
+            pass
+
+        def configure_topology(self, next_addr):
+            self.next_addr = next_addr
+
     env({"DNET_API_WEIGHT_QUANT_BITS": "8"})
     body = dict(_ring_bodies()["s0"], model_path=str(llama_dir), next_node=None)
     runtime = ShardRuntime("s0", device="cpu")
-    app = ShardHTTPServer(Shard("s0", runtime, adapter=None)).app
+    app = ShardHTTPServer(Shard("s0", runtime, adapter=Adapter())).app
 
     async def go():
         client = TestClient(TestServer(app))
@@ -221,5 +243,6 @@ def test_shard_refuses_the_shipped_weight_quant_bits(llama_dir, env):
             await client.close()
 
     status, resp = asyncio.run(go())
-    assert status == 422 and "weight_quant_bits=8" in resp["message"]
-    assert runtime.compute is None
+    assert status == 200, resp
+    assert runtime.compute.engine.weight_quant_bits == 8
+    runtime.unload_model_core()
