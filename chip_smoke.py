@@ -347,6 +347,34 @@ the card; the matmuls read them through the plain `dq`), the tenth path:
                  step), 3 profiled steps (device busy, launches, matmul /
                  attention / elementwise kernels, the plain dq's own time)
                  against the bound: every weight byte read once.
+Weight streaming (core/weights.py: layers packed in page-locked host memory,
+copied a window at a time to the card on the cache's copy stream), the
+eleventh path:
+  stream_parity  small f32 models streamed on the GPU against the same
+                 engines on the CPU: llama (4 layers) at the plans (2, 4)
+                 offload, (2, 1) sliding_fit and (1, 1), deepseek_v2 (MLA
+                 widths) and gpt_oss (W-row rings) at (2, 2): prefill logits
+                 within 2e-3, 16 equal greedy tokens, one attention launch
+                 a layer a step, each layer copied once a forward.
+  stream_serve   the serve checkpoint through ring_serve's two shard
+                 processes, the tail (layers 8-15) with window_size 2 and
+                 residency_size 4 in its topology assignment: greedy and
+                 streamed text equal to the single process's, 8 decode
+                 launches a step on the tail, its /health weight cache
+                 (loads, hits, evictions), the bytes copied a step (8
+                 layers, 973 MB) and the rate against the resident ring's
+                 in the same run.
+  stream_step_70b  Llama-3.3-70B-Instruct's widths in bf16 at 38 layers
+                 (65.0 GB page-locked; the depth fixed from the card
+                 machine's MemAvailable, which the line prints with the
+                 rest of the host's memory at the phase's start, after
+                 the host caches are freed, and once the layers are
+                 locked), the card
+                 capped at 40 GB, window 8 and residency 16: a 64-token
+                 prefill and 4 greedy decode steps, 38 prefill launches a
+                 prompt and 38 tensor-core decode launches a step, the
+                 bytes copied a step against a 1 GiB page-locked copy
+                 probed in the same run, the device peak under the cap.
 Every decode row also counts its device kernels per wrapper call
 (torch.profiler), which must be exactly 1: the splits and row groups of a
 (lane, KV head) merge inside the one launch.  Then the kernels summary line (every row
@@ -360,10 +388,12 @@ from __future__ import annotations
 
 import asyncio
 import contextlib
+import ctypes
 import gc
 import json
 import os
 import random
+import resource
 import shutil
 import signal
 import socket
@@ -1408,18 +1438,18 @@ def phase_quant_kernels(main_pos: int, lane_positions: list) -> dict:
     return main
 
 
-def _small_model():
+def _small_model(layers: int = 2):
     """The parity phases' model: small, f32, with the kernels' head dim."""
     from dnet_tpu_torch.models import ModelConfig
     from dnet_tpu_torch.utils.random_init import random_llama_params
 
     cfg = ModelConfig.from_hf({
         "model_type": "llama", "vocab_size": 512, "hidden_size": 256,
-        "intermediate_size": 512, "num_hidden_layers": 2, "num_attention_heads": 4,
+        "intermediate_size": 512, "num_hidden_layers": layers, "num_attention_heads": 4,
         "num_key_value_heads": 2, "head_dim": 64, "rope_theta": 500000.0,
         "tie_word_embeddings": True,
     })
-    window, edge = random_llama_params(cfg, range(2), torch.device("cpu"), torch.float32, seed=1)
+    window, edge = random_llama_params(cfg, range(layers), torch.device("cpu"), torch.float32, seed=1)
     return cfg, window, edge
 
 
@@ -1812,7 +1842,8 @@ def phase_serve(prompt_text: str, n_prompt: int) -> tuple:
         quant = phase_quant_serve(tmp, port, bodies, row, batched)
         gathered = phase_gather_serve(tmp, port, batched)
         long_body = dict(chat, stream=True, messages=[{"role": "user", "content": _batch_prompts()[-1]}])
-        ring, _ = phase_ring_serve(tmp, bodies, results, row, long_body, quant)
+        ring, _, lossless = phase_ring_serve(tmp, bodies, results, row, long_body, quant)
+        phase_stream_serve(tmp, bodies, results, row, lossless)
         sp_long = dict(chat, stream=True, messages=[{"role": "user", "content": _long_prompt(SP_LONG_TOKENS)}])
         sp_serve = phase_sp_serve(tmp, port, bodies, sp_long, sp_step)
         phase_wq_serve(tmp, port, bodies, row, health["engine"]["weight_bytes"], batched)
@@ -1881,11 +1912,13 @@ def _post_json(url: str, body: dict) -> dict:
         return json.loads(resp.read())
 
 
-async def _drive_ring(args: Namespace, model_dir: str, bodies: list, shard_urls: list, kv_bits: int = 0) -> tuple:
+async def _drive_ring(args: Namespace, model_dir: str, bodies: list, shard_urls: list, kv_bits: int = 0,
+                      windows: Sequence[dict] = ({}, {})) -> tuple:
     """The API node in this process in ring mode: prepare the manual
-    topology, fan the load out to the shards, send `bodies` in order;
-    returns (results, load seconds, each shard's /health after the first
-    request, which warms the shards up)."""
+    topology (each assignment with its `windows` entry: window_size /
+    residency_size), fan the load out to the shards, send `bodies` in
+    order; returns (results, load seconds, each shard's /health after the
+    first request, which warms the shards up)."""
     from dnet_tpu_torch.api.server import serve_async
 
     loop = asyncio.get_running_loop()
@@ -1903,7 +1936,8 @@ async def _drive_ring(args: Namespace, model_dir: str, bodies: list, shard_urls:
                 await asyncio.sleep(0.3)
         topo = await loop.run_in_executor(None, _post_json, base + "/v1/prepare_topology_manual", {
             "model": model_dir,
-            "assignments": [{"instance": f"s{i}", "layers": ls} for i, ls in enumerate(RING_LAYERS)],
+            "assignments": [{"instance": f"s{i}", "layers": ls, **w}
+                            for i, (ls, w) in enumerate(zip(RING_LAYERS, windows))],
             "kv_bits": kv_bits,
         })
         check([a["next_instance"] for a in topo["topology"]["assignments"]] == ["s1", "s0"], f"ring {topo}")
@@ -1922,14 +1956,16 @@ async def _drive_ring(args: Namespace, model_dir: str, bodies: list, shard_urls:
     return results, load_s, warm
 
 
-def _ring_pass(model_dir: str, codec: str, bodies: list, logdir: str, kv_bits: int = 0, tag: str = "") -> tuple:
+def _ring_pass(model_dir: str, codec: str, bodies: list, logdir: str, kv_bits: int = 0, tag: str = "",
+               windows: Sequence[dict] = ({}, {})) -> tuple:
     """Start the two shard processes on the card, serve `bodies` through
-    them with the hop codec `codec` and the topology's `kv_bits`, read each
-    shard's /health, and stop the shards; returns (results, [s0 health, s1
-    health], load seconds, the /health pair after the first request).
-    `tag` names the pass's hostfile and shard logs (default: codec and
-    kv_bits)."""
-    env = dict(os.environ, DNET_WIRE_CODEC=codec, **RING_ENV)
+    them with the hop codec `codec`, the topology's `kv_bits` and each
+    shard's `windows` entry (its weight plan), read each shard's /health,
+    and stop the shards; returns (results, [s0 health, s1 health], load
+    seconds, the /health pair after the first request).  `tag` names the
+    pass's hostfile and shard logs (default: codec and kv_bits); a
+    streaming shard's repack cache goes under `logdir`."""
+    env = dict(os.environ, DNET_WIRE_CODEC=codec, DNET_SHARD_REPACK_DIR=os.path.join(logdir, "repack"), **RING_ENV)
     shards = [(f"s{i}", _free_port(), _free_port()) for i in range(len(RING_LAYERS))]
     tag = tag or f"{codec}-kv{kv_bits}"
     hostfile = os.path.join(logdir, f"hostfile-{tag}")
@@ -1964,7 +2000,7 @@ def _ring_pass(model_dir: str, codec: str, bodies: list, logdir: str, kv_bits: i
         )
         with environ({"DNET_WIRE_CODEC": codec, **RING_ENV}):  # the API resolves the hop codec
             urls = [f"http://127.0.0.1:{http}" for _, http, _ in shards]
-            results, load_s, warm = asyncio.run(_drive_ring(args, model_dir, bodies, urls, kv_bits))
+            results, load_s, warm = asyncio.run(_drive_ring(args, model_dir, bodies, urls, kv_bits, windows))
         healths = [_get(u + "/health") for u in urls]
     except Exception:
         for path in logs:
@@ -2001,8 +2037,8 @@ def phase_ring_serve(model_dir: str, bodies: list, serve_results: list, served: 
                      quant: dict) -> tuple:
     """The checkpoint served as a two-shard ring: lossless, qsparse8, then
     lossless with kv_bits 8 in the topology (an int8 cache on each shard);
-    returns the qsparse8 pass's column-kernel launches and the kv_bits 8
-    pass's row."""
+    returns the qsparse8 pass's column-kernel launches, the kv_bits 8
+    pass's row and the lossless pass's."""
     greedy, sampled = serve_results[0], serve_results[2]
     passes = (
         ("lossless", 0, SERVE_KINDS, bodies),
@@ -2010,7 +2046,7 @@ def phase_ring_serve(model_dir: str, bodies: list, serve_results: list, served: 
         # greedy, streamed and seeded sampled: the q8 single-process serve's
         ("lossless", 8, SERVE_KINDS[:3], bodies[:3]),
     )
-    out, ring_q8 = {}, None
+    out, ring_q8, lossless = {}, None, None
     for codec, kv_bits, kinds, reqs in passes:
         results, (h0, h1), load_s, warm = _ring_pass(model_dir, codec, reqs, os.path.dirname(model_dir), kv_bits)
         for i, r in enumerate(results):
@@ -2075,8 +2111,10 @@ def phase_ring_serve(model_dir: str, bodies: list, serve_results: list, served: 
                    "dequant_scatter_columns": k1["dequant_scatter_columns"]}
         if kv_bits == 8:
             ring_q8 = row
+        elif codec == "lossless":
+            lossless = row
         emit(row)
-    return out, ring_q8
+    return out, ring_q8, lossless
 
 
 def _batch_args(model_dir: str, port: int) -> Namespace:
@@ -5122,6 +5160,318 @@ def phase_wq_step_70b() -> dict:
     return row
 
 
+# weight streaming (core/weights.py): the parity plans (family, window,
+# residency), the serve's tail shard plan, and Llama-3.3-70B-Instruct's
+# widths in bf16 streamed at a fixed depth: 60% of the card machine's
+# MemAvailable (108.4 GB at its start) over one layer's 1.711 GB
+# is 38 layers of page-locked host memory (65.0 GB), with the card capped
+# below them
+STREAM_PLANS = [("llama", 2, 4), ("llama", 2, 1), ("llama", 1, 1), ("deepseek_v2", 2, 2), ("gpt_oss", 2, 2)]
+STREAM_SERVE_WINDOWS = ({}, {"window_size": 2, "residency_size": 4})
+STREAM_70B_LAYERS, STREAM_70B_WINDOW, STREAM_70B_RESIDENCY = 38, 8, 16
+STREAM_70B_CAP_BYTES = 40 * 10**9  # the card's allowance: below the 38 layers' 65.0 GB
+STREAM_70B_PROMPT, STREAM_70B_STEPS = 64, 4
+PCIE_GEN5_X16_BYTES_PER_S = 64e9  # the link's nominal rate, one direction
+
+
+def phase_stream_parity() -> dict:
+    """Weight-streaming engines on the GPU against the same engines on the
+    CPU, same f32 weights (small models at the kernels' head widths): llama
+    (4 layers) at the plans (2, 4) offload, (2, 1) sliding_fit and (1, 1),
+    deepseek_v2 (3 layers, MLA widths) and gpt_oss (4 layers, its sliding
+    layers' W-row rings) at (2, 2).  Prefill logits within 2e-3, equal
+    16-token greedy streams, and on the card each layer's attention kernel
+    launched once per step (gpt_oss: the rotating form on its sliding
+    layers, whose prompts attend the ring through the dense path, as in
+    its fit engine) and each layer copied to the card once per step.
+    Returns the launches of the whole phase."""
+    from dnet_tpu_torch.core.engine import LocalEngine
+    from dnet_tpu_torch.core.types import DecodingParams
+    from dnet_tpu_torch.kernels import launch_counts, reset_launch_counts
+
+    models = {"llama": lambda: _small_model(4), "deepseek_v2": _ds_small, "gpt_oss": _oss_small}
+    prompt = [(17 * i) % 500 + 1 for i in range(40)]
+    n_tokens = 16
+    total = {}
+    for family, w, r in STREAM_PLANS:
+        cfg, window, edge = models[family]()
+        L = cfg.num_hidden_layers
+        engines = {dev: LocalEngine.from_params(cfg, window, edge, max_seq=256, param_dtype="float32", device=dev,
+                                                window_size=w, residency_size=r) for dev in ("cuda", "cpu")}
+        check(engines["cuda"].weight_cache is not None, f"{family} ({w}, {r}) did not stream")
+        reset_launch_counts()
+        logits = {dev: e.prefill("p", prompt).float().cpu() for dev, e in engines.items()}
+        err = (logits["cuda"] - logits["cpu"]).abs().max().item()
+        check(bool(torch.isfinite(logits["cuda"]).all()) and logits["cuda"].shape == (1, cfg.vocab_size),
+              f"stream {family} logits")
+        check(err <= 2e-3, f"stream {family} ({w}, {r}) GPU vs CPU prefill logits: max err {err}")
+        for e in engines.values():
+            e.end_session("p")
+        torch.cuda.synchronize()
+        prefill_launches = {k: v for k, v in launch_counts().items() if v}
+        wc = engines["cuda"].weight_cache
+        before = wc.snapshot()
+        reset_launch_counts()
+        streams = {dev: [r_.token_id for r_ in e.generate(prompt, DecodingParams(), max_tokens=n_tokens, nonce="g")]
+                   for dev, e in engines.items()}
+        torch.cuda.synchronize()
+        check(streams["cuda"] == streams["cpu"], f"stream {family} ({w}, {r}) greedy streams differ: {streams}")
+        launches = {k: v for k, v in launch_counts().items() if v}
+        after = wc.snapshot()
+        steps = n_tokens - 1
+        want_prefill, want = {
+            "llama": ({"flash_prefill": L}, {"flash_prefill": L, "flash_decode": L * steps}),
+            "deepseek_v2": ({"flash_prefill_mla": L}, {"flash_prefill_mla": L, "flash_decode_mla": L * steps}),
+            "gpt_oss": ({"flash_prefill": L // 2},
+                        {"flash_prefill": L // 2, "flash_decode": L // 2 * steps,
+                         "flash_decode_rotating": L // 2 * steps}),
+        }[family]
+        check(prefill_launches == want_prefill, f"stream {family} prefill launches {prefill_launches}")
+        check(launches == want, f"stream {family} ({w}, {r}) launches {launches} != {want}")
+        # every layer copied once per forward (the prompt's and each step's)
+        check(after["loads"] - before["loads"] == L * n_tokens, f"stream {family} loads {before} {after}")
+        for k, v in launches.items():
+            total[k] = total.get(k, 0) + v
+        emit({"phase": "stream_parity", "family": family, "layers": L, "window_size": w, "residency_size": r,
+              "plan": engines["cuda"].plan.name, "prompt_tokens": len(prompt), "logits_max_err": err, "tol": 2e-3,
+              "greedy_tokens": len(streams["cuda"]), "prefill_launches": prefill_launches,
+              "generate_launches": launches, "weight_cache": after})
+        for e in engines.values():
+            e.close()
+    return total
+
+
+def phase_stream_serve(model_dir: str, bodies: list, serve_results: list, served: dict, resident_ring: dict) -> dict:
+    """The ring_serve checkpoint (full-width Llama-3.2-1B, bf16) as the same
+    two shard processes, shard 1 (layers 8-15) streaming its weights with
+    window_size 2 and residency_size 4 (offload: a decode step copies all 8
+    layers to the card, 973 MB), shard 0 resident: greedy and greedy
+    streamed requests, whose text must equal the single process's (which
+    ring_serve holds the resident ring to).  Reports the decode rate beside
+    the single process's and the resident ring's (`resident_ring`:
+    ring_serve's lossless row), each shard's host ms per frame, the tail's
+    weight cache counters (loads, hits, evictions) from /health, the bytes
+    copied to the card a step and the rate they crossed at, against the
+    step's bound at the link's nominal rate.  Returns s1's launches."""
+    results, (h0, h1), load_s, warm = _ring_pass(model_dir, "lossless", bodies[:2], os.path.dirname(model_dir),
+                                                 tag="stream", windows=STREAM_SERVE_WINDOWS)
+    for i, r in enumerate(results):
+        check(r["status"] == 200 and r["tokens"] == MAX_TOKENS,
+              f"stream_serve request {i}: {r['status']} {r['tokens']}")
+        check(r["content"] == serve_results[0]["content"], f"stream_serve request {i}: text differs from the serve's")
+    e0, e1 = h0["engine"], h1["engine"]
+    check(e0["weight_policy"] == "fit" and "weight_cache" not in e0, f"s0 engine {e0}")
+    check(e1["weight_policy"] == "offload", f"s1 engine {e1}")
+    wc, wc_warm = e1["weight_cache"], warm[1]["engine"]["weight_cache"]
+    layers = len(RING_LAYERS[1])
+    steps = sum(r["tokens"] for r in results) - len(results)  # decode steps (each prompt samples one token)
+    k1 = h1["kernels"]
+    check(k1["flash_prefill"] == layers * len(results) and k1["flash_decode"] == layers * steps,
+          f"stream_serve s1 launches {k1}")
+    # the second (streamed) request alone: its forwards' loads (counted as
+    # they are issued; the copies run on the shard's loader threads)
+    passes = results[1]["tokens"]  # its prompt's forward and its decode steps'
+    layer_bytes = wc["slab_bytes"] // wc["slabs"]
+    loads = wc["loads"] - wc_warm["loads"]
+    check(loads == layers * passes, f"stream_serve loads {loads} over {passes} forwards of {layers} layers")
+    step_bytes = loads * layer_bytes / passes
+    streamed = results[1]
+    decode_s_per_token = streamed["decode_s"] / max(streamed["tokens"] - 1, 1)
+    row = {"phase": "stream_serve", "gpu": gpu_line(), "model": "Llama-3.2-1B widths (synthetic, seed 0, bf16)",
+           "layers": [f"{ls[0]}-{ls[-1]}" for ls in RING_LAYERS], "windows": list(STREAM_SERVE_WINDOWS),
+           "load_s": load_s, "weight_cache": wc, "host_pinned_bytes": wc["host_bytes"],
+           "h2d_bytes_per_step": step_bytes, "layer_bytes": layer_bytes,
+           "streamed_ttft_s": streamed["ttft_s"], "streamed_decode_tokens_per_s": 1.0 / decode_s_per_token,
+           "decode_ms_per_token": decode_s_per_token * 1e3,
+           "h2d_gb_per_s_achieved": step_bytes / decode_s_per_token / 1e9,
+           "step_bound_ms_at_64_gb_per_s": step_bytes / PCIE_GEN5_X16_BYTES_PER_S * 1e3,
+           "single_process": {k: served[k] for k in ("streamed_ttft_s", "streamed_decode_tokens_per_s")},
+           "resident_ring": {k: resident_ring[k] for k in ("streamed_ttft_s", "streamed_decode_tokens_per_s")},
+           # host ms per frame on each shard (s1's includes its wait for the copies)
+           "steady": {f"s{i}": _steady(h, w, results[1:]) for i, (h, w) in enumerate(zip((h0, h1), warm))},
+           "launches": {"s0": {k: v for k, v in h0["kernels"].items() if v}, "s1": {k: v for k, v in k1.items() if v}},
+           "content_head": streamed["content"][:40]}
+    emit(row)
+    return k1
+
+
+def pinned_copy_gb_per_s(nbytes: int = 1 << 30, reps: int = 5, trials: int = 3) -> list:
+    """Host-to-device rates of one page-locked buffer (CUDA events), one
+    a trial of `reps` copies; the link's rate is the best of them."""
+    src = torch.empty(nbytes, dtype=torch.uint8, pin_memory=True)
+    dst = torch.empty(nbytes, dtype=torch.uint8, device="cuda")
+    dst.copy_(src, non_blocking=True)
+    rates = []
+    for _ in range(trials):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(reps):
+            dst.copy_(src, non_blocking=True)
+        end.record()
+        torch.cuda.synchronize()
+        rates.append(nbytes * reps / (start.elapsed_time(end) / 1e3) / 1e9)
+    del src, dst
+    return rates
+
+
+def _read_ints(path: str) -> Optional[int]:
+    try:
+        with open(path) as f:
+            text = f.read().strip()
+    except OSError:
+        return None
+    return None if text == "max" else int(text)
+
+
+def host_memory() -> dict:
+    """This machine's host memory as the kernel reports it: /proc/meminfo's
+    totals (bytes), the memory cgroup's limit and use (v2, else v1; None
+    where the file is absent or unlimited), this process's resident bytes
+    and its live children's."""
+    want = ("MemTotal", "MemFree", "MemAvailable", "Cached", "Shmem", "Mlocked", "AnonPages")
+    with open("/proc/meminfo") as f:
+        info = {k: int(v.split()[0]) * 1024 for k, v in (line.split(":", 1) for line in f) if k in want}
+
+    def rss(pid) -> int:
+        try:
+            with open(f"/proc/{pid}/status") as f:
+                return next(int(line.split()[1]) * 1024 for line in f if line.startswith("VmRSS:"))
+        except (OSError, StopIteration):
+            return 0
+
+    children = []
+    for task in os.listdir("/proc/self/task"):
+        try:
+            with open(f"/proc/self/task/{task}/children") as f:
+                children += f.read().split()
+        except OSError:
+            pass
+    cg2, cg1 = "/sys/fs/cgroup/", "/sys/fs/cgroup/memory/"
+    limit = _read_ints(cg2 + "memory.max") if os.path.exists(cg2 + "memory.max") else \
+        _read_ints(cg1 + "memory.limit_in_bytes")
+    used = _read_ints(cg2 + "memory.current") if os.path.exists(cg2 + "memory.current") else \
+        _read_ints(cg1 + "memory.usage_in_bytes")
+    return {**{f"{k}_bytes": v for k, v in info.items()}, "cgroup_limit_bytes": limit, "cgroup_used_bytes": used,
+            "self_rss_bytes": rss("self"), "children": len(children),
+            "children_rss_bytes": sum(rss(c) for c in children)}
+
+
+def free_host_caches() -> None:
+    """Hand back what freed tensors still hold: the caching allocators'
+    blocks (page-locked host ones included) and glibc's free heap."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    # the page-locked host allocator's cache (its name differs by release)
+    empty_host = getattr(torch._C, "_host_emptyCache", None) or getattr(torch._C, "_accelerator_emptyHostCache")
+    empty_host()
+    ctypes.CDLL("libc.so.6").malloc_trim(0)
+
+
+def phase_stream_step_70b() -> dict:
+    """Llama-3.3-70B-Instruct's widths in bf16, streamed: 38 layers (65.0
+    GB, more than the card may use here: it is capped at 40 GB with
+    set_per_process_memory_fraction) made from a seed on the card one at a
+    time and packed into page-locked host memory, the embedding and the LM
+    head (4.2 GB) resident, window 8 and residency 16 (27.4 GB of slabs).
+    A 64-token prompt and 4 greedy decode steps; reports the host bytes,
+    the device peak, the prefill and step walls, the bytes copied a step,
+    the rate achieved against a 1 GiB page-locked copy probed in this run
+    (the best of 3 trials), and the step's bound (its bytes over the
+    probe's rate, and over the link's nominal 64 GB/s); checks one prefill launch a layer a prompt and
+    one decode launch a layer a step."""
+    from dnet_tpu_torch.core.engine import LocalEngine
+    from dnet_tpu_torch.core.types import DecodingParams
+    from dnet_tpu_torch.kernels import launch_counts, reset_launch_counts
+    from dnet_tpu_torch.models import ModelConfig
+    from dnet_tpu_torch.utils.random_init import LLAMA_3_3_70B_CONFIG, random_llama_edge, random_llama_layers
+
+    free_host_caches()
+    # the host memory the depth was fixed from, before any layer is locked
+    mem_start = host_memory()
+    total = torch.cuda.mem_get_info()[1]
+    torch.cuda.set_per_process_memory_fraction(STREAM_70B_CAP_BYTES / total)
+    torch.cuda.reset_peak_memory_stats()
+    eng = None
+    try:
+        probes = pinned_copy_gb_per_s()
+        probe = max(probes)
+        free_host_caches()  # the probe's page-locked buffer
+        raw = dict(LLAMA_3_3_70B_CONFIG, num_hidden_layers=STREAM_70B_LAYERS)
+        cfg = ModelConfig.from_hf(raw)
+        L = cfg.num_hidden_layers
+        dev = torch.device("cuda")
+        t0 = time.perf_counter()
+        eng = LocalEngine.from_params(cfg, random_llama_layers(cfg, range(L), dev, torch.bfloat16, seed=0),
+                                      random_llama_edge(cfg, dev, torch.bfloat16, seed=1), max_seq=256, device="cuda",
+                                      window_size=STREAM_70B_WINDOW, residency_size=STREAM_70B_RESIDENCY)
+        torch.cuda.synchronize()
+        made_s = time.perf_counter() - t0
+        mem_locked = host_memory()
+        wc = eng.weight_cache
+        host_bytes = wc.store.host_bytes()
+        layer_bytes = wc.store.host_layer(0).nbytes
+        check(host_bytes == L * layer_bytes and host_bytes > STREAM_70B_CAP_BYTES,
+              f"70B streamed host bytes {host_bytes} (cap {STREAM_70B_CAP_BYTES})")
+        check(all(wc.store.host_layer(a).buf.is_pinned() for a in (0, L - 1)), "70B host layers not page-locked")
+        d = DecodingParams()
+        prompt = [(7 * t) % 250 + 1 for t in range(STREAM_70B_PROMPT)]
+        reset_launch_counts()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        res = eng.prefill_and_sample("s", prompt, d)
+        tok = int(res.token[0])
+        prefill_ms = (time.perf_counter() - t) * 1e3
+        prefill_launches = {k: v for k, v in launch_counts().items() if v}
+        check(prefill_launches == {"flash_prefill": L}, f"70B streamed prefill launches {prefill_launches}")
+        reset_launch_counts()
+        before = wc.snapshot()
+        walls, tokens = [], [tok]
+        for _ in range(STREAM_70B_STEPS):
+            t = time.perf_counter()
+            tok = int(eng.decode_step("s", tok, d).token[0])
+            walls.append((time.perf_counter() - t) * 1e3)
+            tokens.append(tok)
+        after = wc.snapshot()
+        per_step = {k: v / STREAM_70B_STEPS for k, v in launch_counts().items() if v}
+        check(per_step == {"flash_decode": L, "flash_decode_mma": L} and all(0 <= x < cfg.vocab_size for x in tokens),
+              f"70B streamed decode launches per step {per_step}")
+        loads = after["loads"] - before["loads"]
+        check(loads == L * STREAM_70B_STEPS, f"70B streamed loads {loads} over {STREAM_70B_STEPS} steps")
+        step_bytes = loads * layer_bytes / STREAM_70B_STEPS
+        peak = torch.cuda.max_memory_allocated()
+        check(peak < STREAM_70B_CAP_BYTES, f"70B streamed device peak {peak} over the cap {STREAM_70B_CAP_BYTES}")
+        step_ms = statistics.median(walls)
+        bound_ms = step_bytes / (probe * 1e9) * 1e3
+        row = {"phase": "stream_step_70b", "gpu": gpu_line(), "host_mem_available_bytes": mem_start["MemAvailable_bytes"],
+               # at the phase's start (after freeing the host caches) and
+               # once every layer is locked
+               "host_memory_at_start": mem_start, "host_memory_locked": mem_locked,
+               # cudaHostRegister locks pages whatever this limit says
+               "memlock_limit_bytes": resource.getrlimit(resource.RLIMIT_MEMLOCK)[0],
+               "model": "Llama-3.3-70B-Instruct widths (synthetic, seed 0, bf16)", "layers": L,
+               "layers_of_the_model": LLAMA_3_3_70B_CONFIG["num_hidden_layers"],
+               "window_size": STREAM_70B_WINDOW, "residency_size": STREAM_70B_RESIDENCY, "plan": eng.plan.name,
+               "make_s": made_s, "layer_bytes": layer_bytes, "host_pinned_bytes": host_bytes,
+               "card_cap_bytes": STREAM_70B_CAP_BYTES, "card_memory_bytes": total, "device_peak_bytes": peak,
+               "slabs": after["slabs"], "slab_bytes": after["slab_bytes"],
+               "prefill_tokens": STREAM_70B_PROMPT, "prefill_ms": prefill_ms, "prefill_launches": prefill_launches,
+               "decode_steps": STREAM_70B_STEPS, "decode_wall_ms": walls, "decode_wall_ms_median": step_ms,
+               "wrapper_launches_per_step": per_step, "h2d_bytes_per_step": step_bytes,
+               "h2d_gb_per_s_achieved": step_bytes / (step_ms / 1e3) / 1e9,
+               "pinned_probe_gb_per_s": probe, "pinned_probe_trials_gb_per_s": probes, "step_bound_ms": bound_ms, "bound_by": "bytes (host-to-device)",
+               "step_bound_ms_at_64_gb_per_s": step_bytes / PCIE_GEN5_X16_BYTES_PER_S * 1e3,
+               "step_over_bound": step_ms / bound_ms, "weight_cache": after, "tokens": tokens}
+        emit(row)
+        return row
+    finally:
+        if eng is not None:
+            eng.close()
+        del eng
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.set_per_process_memory_fraction(1.0)
+
+
 def lane_summary(rows: dict, paths: dict) -> dict:
     """The lane forms' line: each main row with the kernels line's keys,
     its launches taken from the path that ran it (`paths`: row name ->
@@ -5201,6 +5551,7 @@ def main() -> int:
     lane_parity = phase_gather_parity()
     phase_quant_parity()
     phase_wq_parity()
+    phase_stream_parity()
     oss_parity = phase_gpt_oss_parity()
     # sequence parallelism: the LSE form at the sp_serve step's position
     # (both sp ranks share cuda:0), at the MLA widths and over codes too,
@@ -5225,8 +5576,10 @@ def main() -> int:
     phase_qwen_parity()
     _, qw_served, qw_batched = phase_qwen3_moe(prompt_text, _free_port())
     # Llama-3.3-70B-Instruct at int8 (after every earlier phase has freed
-    # its memory): all 80 layers on the one card
+    # its memory): all 80 layers on the one card; then in bf16, streamed
+    # from host memory past a capped card
     phase_wq_step_70b()
+    phase_stream_step_70b()
 
     # each kernel with its launches on its own path: the single-sequence
     # serve for the dense prefill and decode kernels, the batched serve for

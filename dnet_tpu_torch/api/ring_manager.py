@@ -8,7 +8,9 @@ body (lanes, speculation and the prefix cache off: 0; weight_quant_bits
 as DNET_API_WEIGHT_QUANT_BITS says, or a `<id>:int8` / `<id>:int4` model
 id's bits with the base checkpoint as the model path) concurrently and then serves through a `RingApiAdapter`; `_hop_codec` resolves
 DNET_WIRE_CODEC=auto per hop.  A failed shard load answers with the
-shard's own status (422 for an option the shard does not serve).
+shard's own status (422 for an option the shard does not serve).  An
+assignment's `window_size` / `residency_size` ride its body: that shard
+streams its weights (core/weights.py).
 """
 
 from __future__ import annotations
@@ -145,6 +147,7 @@ class RingModelManager:
                 "mesh_tp": a.mesh_tp,
                 "mesh_sp": a.mesh_sp,
                 "tp_degree": a.tp_degree,
+                # not ported on shards (off for every topology, streamed or not)
                 "spec_lookahead": 0,
                 "lanes": 0,
                 "prefix_cache": 0,

@@ -9,7 +9,8 @@ auto steps and callback address; the weight quantization and its group;
 and the prefix cache, speculation and draft model, which the port reads to
 refuse where it does not serve them yet),
 `AdmissionSettings` (DNET_REQUEST_DEADLINE_S: the default request deadline),
-`ShardSettings` (DNET_SHARD_*: a shard's CLI defaults), the ring's
+`ShardSettings` (DNET_SHARD_*: a shard's CLI defaults and the weight
+streaming repack cache's directory, `repack_dir`), the ring's
 `TransportSettings` (DNET_TRANSPORT_*), `WireSettings`
 (DNET_WIRE_*: the hop codec), `ComputeSettings` (DNET_COMPUTE_MOE_IMPL,
 DNET_COMPUTE_MOE_CAPACITY_FACTOR), `MeshSettings` (DNET_MESH_PP/TP/DP/SP:
@@ -115,6 +116,8 @@ class ShardSettings:
     queue_size: int = 256
     name: str = ""
     models_dir: str = "~/.dnet-tpu/models"
+    # the weight-streaming repack cache (core/weights.py HostLayerStore)
+    repack_dir: str = "~/.dnet-tpu/repacked"
 
 
 @dataclass

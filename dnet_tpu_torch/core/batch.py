@@ -52,7 +52,8 @@ PyTorch: a chunk is a Python loop whose launches queue on the current CUDA
 stream.  Not ported yet, and refused at load with `EngineCapabilityError`
 instead of serving something else: the prefix cache on dense slots (the
 reference's dense snapshot `PrefixCache`, ROADMAP A4), also where a paged
-pool falls back to dense slots.
+pool falls back to dense slots.  A streaming weight plan is refused as the
+reference refuses it: batching needs resident weights.
 """
 
 from __future__ import annotations
@@ -150,6 +151,11 @@ class BatchedEngine:
         from dnet_tpu_torch.api.inference import EngineCapabilityError
 
         m = self.eng.model
+        if self.eng.plan.streams_weights:
+            self.eng.close()
+            raise EngineCapabilityError(
+                "continuous batching needs resident weights (fit policy); weight streaming serves single-sequence"
+            )
         if not m.supports_kv_commit:
             raise EngineCapabilityError(
                 f"continuous batching not supported for {m.config.model_type} (no gated KV writes yet)"

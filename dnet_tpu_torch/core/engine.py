@@ -1,13 +1,13 @@
 """Single-process inference engine: prefill + token-by-token decode on one
 device with a preallocated KV cache and per-nonce sessions.
 
-Counterpart of dnet_tpu/core/engine.py `LocalEngine` on its default path:
-resident weights, dense KV, no speculative decoding, prefix cache, weight
-offload or draft model.  PyTorch runs eagerly, so where the reference jits
-one program per step, each step here is a sequence of launches on the
-current CUDA stream; the fused `lax.scan` decode chunk becomes a Python
-loop that feeds each sampled token back on the device, so a chunk needs one
-device-to-host read.  Prompts are padded to power-of-two buckets as in the
+Counterpart of dnet_tpu/core/engine.py `LocalEngine`: dense KV, resident or
+streamed weights, no speculative decoding, prefix cache or draft model.
+PyTorch runs eagerly, so where the reference jits one program per step,
+each step here is a sequence of launches on the current CUDA stream; the
+fused `lax.scan` decode chunk becomes a Python loop that feeds each
+sampled token back on the device, so a chunk needs one device-to-host
+read.  Prompts are padded to power-of-two buckets as in the
 reference, and never past `max_seq - pos` (the KV write must fit); each
 forward tells the model how many of its tokens are real (`t_real`), so a
 ring-buffer cache (gpt_oss's sliding layers) never takes a padded row.
@@ -25,6 +25,18 @@ In shard mode (`layers=`, `shard_mode=True`) the engine holds one ring
 shard's layer range and serves hidden states in and out: `embed_window`
 on the head, `run_layers` in the middle, `hidden_tail` / `sample_hidden`
 on the tail (shard/compute.py drives them).
+
+Weight streaming (`window_size` / `residency_size`, the reference's
+plan: core/weights.py `plan_policy`): under an offload or sliding_fit plan
+the edge params (embedding, final norm, LM head) stay on the device and
+the layers live in host memory (`HostLayerStore`), reaching the device a
+window at a time through a `WeightCache` of at most `residency` layers.
+`_stream_windows` is the reference's loop: prefetch the next window
+(wrapping to window 0 for the next token) while this one computes, run
+each layer as a single-layer window over its own cache (the session's KV
+is a list of per-layer caches), release it, evict it at once under
+sliding_fit, and evict the window behind.  Decode chunks are refused
+(single steps: each step re-reads every window), as in the reference.
 """
 
 from __future__ import annotations
@@ -48,6 +60,7 @@ from dnet_tpu_torch.core.sampler import (
     sample,
 )
 from dnet_tpu_torch.core.types import DecodingParams, TokenResult
+from dnet_tpu_torch.core.weights import HostLayerStore, WeightCache, plan_policy
 from dnet_tpu_torch.kv.paged import BlockPool, KVPoolExhausted, PagedKVConfig, PageTable, paged_enabled
 from dnet_tpu_torch.models import ModelConfig, get_ring_model_cls
 from dnet_tpu_torch.ops.quant import is_quantized
@@ -70,7 +83,9 @@ class Session:
     """Per-nonce decode state."""
 
     nonce: str = ""
-    kv: dict = None  # stacked [L, B, S, KVH, Hd] cache (+ scales when quantized)
+    # stacked [L, B, S, KVH, Hd] cache (+ scales when quantized); a
+    # streaming engine's is a list of one-layer caches
+    kv: dict = None
     pos: int = 0
     generator: torch.Generator = None  # Gumbel noise for sampled requests
     counts: torch.Tensor = None  # [B, V] int32 generated-token counts (repetition penalty)
@@ -83,7 +98,8 @@ class Session:
 
 
 class LocalEngine:
-    """One process, one device: the full hot path over resident weights."""
+    """One process, one device: the full hot path over resident or streamed
+    weights."""
 
     # chunk widths tried largest-first
     DECODE_CHUNK_BUCKETS = (32, 16, 8, 4, 2)
@@ -103,6 +119,9 @@ class LocalEngine:
         kv_paged: Optional[bool] = None,
         weight_quant_bits: int = 0,
         weight_quant_group: int = 0,
+        window_size: int = 0,
+        residency_size: int = 0,
+        repack_dir: Optional[Union[str, Path]] = None,
     ):
         """layers=None is the whole model; a sub-range with shard_mode=True
         makes this engine a ring shard's compute core: it loads only the
@@ -117,7 +136,9 @@ class LocalEngine:
         4 serves int8 / packed-int4 weights (ops/quant.py, groups of
         `weight_quant_group` along the contraction axis, 0: the bits'
         default): each layer is quantized on the device as it loads, and
-        so is the LM projection."""
+        so is the LM projection.  `window_size` / `residency_size` pick the
+        weight plan (0: all local layers); a streaming plan keeps the layers
+        in host memory (`repack_dir`: a cache of mapped layers on disk)."""
         self.device = resolve_device(device)
         self.ckpt = Checkpoint(model_dir)
         self.config = ModelConfig.from_hf(self.ckpt.config)
@@ -130,9 +151,16 @@ class LocalEngine:
                 self._init_paged()
         t0 = time.perf_counter()
         m = self.model
-        self.window_params = m.stack_layers(
-            [self._place(m.map_layer(self._on_device(self.ckpt.load_layer_raw(a)))) for a in m.layers]
-        )
+        self.plan = plan_policy(len(m.layers), window_size, residency_size)
+        if self.plan.streams_weights:
+            self._start_streaming(HostLayerStore(
+                self.ckpt, m, param_dtype=param_dtype, repack_dir=repack_dir,
+                weight_quant_bits=weight_quant_bits, weight_quant_group=weight_quant_group, device=self.device,
+            ))
+        else:
+            self.window_params = m.stack_layers(
+                [self._place(m.map_layer(self._on_device(self.ckpt.load_layer_raw(a)))) for a in m.layers]
+            )
         names = None  # every edge tensor
         if shard_mode:
             names = []
@@ -141,9 +169,11 @@ class LocalEngine:
             if m.is_last:
                 names += ["model.norm.weight", "lm_head.weight"]
         self.edge_params = self._place_edge(m.map_edge(self._on_device(self.ckpt.load_edge_raw(names))))
+        if not self.plan.streams_weights:
+            self.ckpt.close()
         log.info(
-            "[PROFILE] loaded %d layers (%s) in %.2fs",
-            len(m.layers), self.config.model_type, time.perf_counter() - t0,
+            "[PROFILE] loaded %d layers (%s, %s) in %.2fs",
+            len(m.layers), self.config.model_type, self.plan.name, time.perf_counter() - t0,
         )
         self._build_kernels()
 
@@ -162,13 +192,18 @@ class LocalEngine:
         kv_paged: Optional[bool] = None,
         weight_quant_bits: int = 0,
         weight_quant_group: int = 0,
+        window_size: int = 0,
+        residency_size: int = 0,
     ) -> "LocalEngine":
         """An engine around already-materialised parameters (no checkpoint
         on disk; `window_params` one dict per layer, in layer order, which
         may be a generator: with `weight_quant_bits` each layer is quantized
         as it arrives and its full-precision copy is dropped before the
         next is made).  Params that are quantized already (e.g. the
-        reference's, through models/convert.py) are kept as they are."""
+        reference's, through models/convert.py) are kept as they are.  A
+        streaming plan (`window_size` / `residency_size`) packs each layer
+        into host memory as it arrives (page-locked on CUDA) and drops it
+        from the device: the host layer source of the streamed engine."""
         self = cls.__new__(cls)
         self.device = resolve_device(device)
         self.ckpt = None
@@ -177,7 +212,14 @@ class LocalEngine:
         if paged_enabled() if kv_paged is None else kv_paged:
             self._init_paged()
         self.edge_params = self._place_edge(edge_params)
-        self.window_params = self.model.stack_layers([self._place(p) for p in window_params])
+        self.plan = plan_policy(len(self.model.layers), window_size, residency_size)
+        if self.plan.streams_weights:
+            self._start_streaming(HostLayerStore.from_layers(
+                self.model, window_params, param_dtype=param_dtype, weight_quant_bits=weight_quant_bits,
+                weight_quant_group=weight_quant_group, device=self.device,
+            ))
+        else:
+            self.window_params = self.model.stack_layers([self._place(p) for p in window_params])
         self._build_kernels()
         return self
 
@@ -204,6 +246,19 @@ class LocalEngine:
         self.kv_bytes = 0  # bytes of the last cache a session allocated
         self.sessions: Dict[str, Session] = {}
         self.kv_pool: Optional[BlockPool] = None  # the paged ledger (_init_paged)
+        # resident weights unless a streaming plan says otherwise
+        self.plan = plan_policy(len(self.model.layers))
+        self.weight_cache: Optional[WeightCache] = None
+        self._windows: List[List[int]] = []
+
+    def _start_streaming(self, store: HostLayerStore) -> None:
+        """Serve the layers from `store` through a WeightCache of
+        `plan.residency` layers, window 0 already on its way."""
+        m, w = self.model, self.plan.window_size
+        self.weight_cache = WeightCache(store, max_resident=self.plan.residency, device=self.device)
+        self._windows = [m.layers[i : i + w] for i in range(0, len(m.layers), w)]
+        self.window_params = None
+        self.weight_cache.prefetch(self._windows[0])
 
     # ---- paged KV ledger ------------------------------------------------
     def _init_paged(self, slots: int = 8) -> None:
@@ -283,21 +338,48 @@ class LocalEngine:
         logits [B, V] in the param dtype.  Writes kv in place; tokens past
         `last_idx` are bucket padding."""
         m = self.model
-        x = m.embed(self.edge_params, tokens)
-        x, _ = m.apply_window(self.window_params, x, kv, pos, t_real=last_idx + 1)
+        x = self._layers(m.embed(self.edge_params, tokens), kv, pos, last_idx + 1)
         x_last = m.normalize(self.edge_params, x[:, last_idx : last_idx + 1])
         return m.lm_project(self.edge_params, x_last)[:, 0]
 
-    # ---- shard paths (a ring shard's hidden states in and out) ---------
-    def run_layers(self, sess: Session, x: torch.Tensor, pos: int) -> torch.Tensor:
-        """This engine's layers over hidden x [B, T, D] starting at `pos`;
-        writes the session's KV in place."""
-        x, _ = self.model.apply_window(self.window_params, x, sess.kv, pos)
+    def _layers(self, x: torch.Tensor, kv, pos: int, t_real: Optional[int]) -> torch.Tensor:
+        """Every layer of this engine over x under the weight plan."""
+        if self.weight_cache is None:
+            x, _ = self.model.apply_window(self.window_params, x, kv, pos, t_real=t_real)
+            return x
+        return self._stream_windows(x, kv, pos, t_real)
+
+    def _stream_windows(self, x: torch.Tensor, kv: list, pos: int, t_real: Optional[int]) -> torch.Tensor:
+        """The weight-streaming loop: prefetch the next window (window 0
+        after the last, for the next token) while this one runs, each layer
+        over its own cache; release each layer as it is done (sliding_fit:
+        evict it at once) and evict the window behind."""
+        m, wc, windows = self.model, self.weight_cache, self._windows
+        sliding = self.plan.name == "sliding_fit"
+        for wi, window in enumerate(windows):
+            if len(windows) > 1:
+                wc.prefetch(windows[wi + 1] if wi + 1 < len(windows) else windows[0])
+            for layer in window:
+                p = wc.get(layer)
+                x, _ = m.apply_window(p, x, kv[m.abs_to_local[layer]], pos, t_real=t_real)
+                wc.release([layer])
+                if sliding:
+                    wc.evict([layer])
+            if len(windows) > 1 and not sliding:
+                wc.evict(window)  # room for what comes next
         return x
 
-    def embed_window(self, sess: Session, tokens: torch.Tensor, pos: int) -> torch.Tensor:
+    # ---- shard paths (a ring shard's hidden states in and out) ---------
+    def run_layers(self, sess: Session, x: torch.Tensor, pos: int, t_real: Optional[int] = None) -> torch.Tensor:
+        """This engine's layers over hidden x [B, T, D] starting at `pos`
+        (`t_real` of its rows real); writes the session's KV in place."""
+        return self._layers(x, sess.kv, pos, t_real)
+
+    def embed_window(
+        self, sess: Session, tokens: torch.Tensor, pos: int, t_real: Optional[int] = None
+    ) -> torch.Tensor:
         """Head shard: embed tokens [B, T] and run this engine's layers."""
-        return self.run_layers(sess, self.model.embed(self.edge_params, tokens), pos)
+        return self.run_layers(sess, self.model.embed(self.edge_params, tokens), pos, t_real)
 
     def sample_hidden(
         self, sess: Session, x: torch.Tensor, last_idx: int, decoding: DecodingParams
@@ -322,6 +404,11 @@ class LocalEngine:
         """Drop sessions and parameters (a shard reloading frees the old
         engine's device memory first)."""
         self.sessions.clear()
+        if self.weight_cache is not None:
+            self.weight_cache.shutdown()
+            self.weight_cache = None
+        if self.ckpt is not None:
+            self.ckpt.close()
         self.window_params = []
         self.edge_params = {}
         if self.device.type == "cuda":
@@ -329,16 +416,24 @@ class LocalEngine:
 
     def weight_stats(self) -> dict:
         """The weights' form and the bytes they hold on the device (codes,
-        scales and every float tensor, the edge included)."""
+        scales and every float tensor, the edge included; streaming: the
+        edge and the weight cache's slabs)."""
+        if self.weight_cache is not None:
+            layer_bytes = self.weight_cache.snapshot()["slab_bytes"]
+        else:
+            layer_bytes = tensor_bytes(self.window_params)
         return {"weight_quant_bits": self.weight_quant_bits,
-                "weight_bytes": tensor_bytes(self.window_params) + tensor_bytes(self.edge_params)}
+                "weight_bytes": layer_bytes + tensor_bytes(self.edge_params)}
 
     def stats(self) -> dict:
         """The weights' and the KV cache's form, the bytes the weights and
-        one session's cache hold, and the paged ledger's blocks when it is
+        one session's cache hold, the weight plan (and, streaming, the
+        weight cache's counters), and the paged ledger's blocks when it is
         on (for /health)."""
         out = {"kv_dtype": self.kv_dtype, "kv_quant_bits": self.kv_quant_bits, "kv_bytes": self.kv_bytes,
-               **self.weight_stats()}
+               "weight_policy": self.plan.name, **self.weight_stats()}
+        if self.weight_cache is not None:
+            out["weight_cache"] = self.weight_cache.snapshot()
         if self.kv_pool is not None:
             out.update(kv_mode="paged", kv_pool_blocks=self.kv_pool.total, kv_blocks_used=self.kv_pool.used,
                        kv_blocks_free=self.kv_pool.free, kv_blocks_peak=self.kv_pool.peak_used)
@@ -363,8 +458,13 @@ class LocalEngine:
         return sess
 
     def _init_kv(self):
-        """A new session's cache (parallel/engine.py's MeshEngine shards it)."""
-        return self.model.init_kv(len(self.model.layers), self.batch, self.max_seq, self.kv_dtype, self.kv_quant_bits)
+        """A new session's cache (parallel/engine.py's MeshEngine shards it;
+        a streaming engine keeps one cache per layer)."""
+        m = self.model
+        if self.weight_cache is not None:
+            return [m.init_offload_kv(a, self.batch, self.max_seq, self.kv_dtype, self.kv_quant_bits)
+                    for a in m.layers]
+        return m.init_kv(len(m.layers), self.batch, self.max_seq, self.kv_dtype, self.kv_quant_bits)
 
     def end_session(self, nonce: str) -> None:
         self._paged_release(self.sessions.pop(nonce, None))
@@ -469,7 +569,7 @@ class LocalEngine:
             return 0
         budget = min(max_steps, self.max_seq - sess.pos)
         K = next((b for b in self.DECODE_CHUNK_BUCKETS if b <= budget), 1)
-        if K == 1:
+        if K == 1 or self.weight_cache is not None:
             return 0
         try:
             self._paged_ensure(sess, sess.pos + K)

@@ -250,6 +250,21 @@ class RingModel(abc.ABC):
         layout.  gpt_oss overrides: a paired cache per rank."""
         return init_cache_sp(self.kv_config(n_layers, batch, max_seq, dtype, quant_bits), devices)
 
+    # ---- weight streaming (core/weights.py) ----------------------------
+    def wrap_offload_layer(self, mapped: dict, layer: int):
+        """ONE layer's params shaped as a single-layer window, the unit a
+        streaming engine loads and runs through apply_window (absolute
+        `layer`).  Default: a one-element list; deepseek_v2 puts it in its
+        segment, gpt_oss in its half."""
+        return [mapped]
+
+    def init_offload_kv(
+        self, layer: int, batch: int, max_seq: int, dtype: str = "bfloat16", quant_bits: int = 0
+    ) -> dict:
+        """One streamed layer's own cache, in the layout its single-layer
+        window reads (a streaming engine keeps the KV per layer)."""
+        return init_cache(self.kv_config(1, batch, max_seq, dtype, quant_bits), self.device)
+
     # ---- layout -------------------------------------------------------
     def stack_layers(self, per_layer: List[dict]) -> Union[List[dict], Dict[str, List[dict]]]:
         """The window params apply_window takes, from the per-layer param

@@ -32,6 +32,10 @@ Weights follow the HF dequantized layout: experts as [E, D, 2F] / [E, F, D]
 ((in, out)-oriented already) with interleaved gate/up columns, and a
 clamped SwiGLU (alpha 1.702, limit 7).  The flat (unpaired) layout, for odd
 layer counts or non-alternating kinds, is refused at load.
+
+A streaming engine (core/weights.py) runs one layer at a time as a window
+of its half alone ({"a": [p]} or {"b": [p]}) over that layer's own cache,
+in the half's form (`init_offload_kv`: the sliding layers' W-row ring).
 """
 
 from __future__ import annotations
@@ -171,8 +175,12 @@ class GptOssRingModel(RingModel):
             return self._apply_sp(window_params, x, kv, pos, sp), kv
         T = x.shape[1]
         W_cfg = self.config.sliding_window
+        # both halves, or one (a streamed layer's single-layer window)
+        halves = [h for h in HALVES if h in window_params]
         ctx = {}
         for h, kind in zip(HALVES, self.pair_kinds):
+            if h not in window_params:
+                continue
             S_h = kv[h]["k"].shape[2]
             # a W-row cache marks the ring-buffer layout (init_kv sizes a
             # sliding half to W only when W < max_seq)
@@ -184,8 +192,8 @@ class GptOssRingModel(RingModel):
             ctx[h] = (W_cfg if rotating else 0, causal, mask)
         # a decode step's lengths vector, made once for every layer
         lengths = decode_lengths(x.shape[0], pos, x.device) if T == 1 and attend_fn is None else None
-        for i in range(len(window_params["a"])):
-            for h in HALVES:
+        for i in range(len(window_params[halves[0]])):
+            for h in halves:
                 p = window_params[h][i]
                 window, causal, mask = ctx[h]
                 x = self._attention(p, x, layer_slices(kv[h], i), pos, window, causal, mask, t_real, lengths,
@@ -238,6 +246,25 @@ class GptOssRingModel(RingModel):
             return init_cache(self.kv_config(n_layers // 2, batch, s, dtype, quant_bits), self.device)
 
         return {h: cache(kind) for h, kind in zip(HALVES, self.pair_kinds)}
+
+    def _half(self, layer: int) -> str:
+        """The half an (absolute) layer belongs to: even local positions
+        are "a", odd ones "b"."""
+        return HALVES[self.abs_to_local[layer] % 2]
+
+    def wrap_offload_layer(self, mapped: dict, layer: int) -> Dict[str, List[dict]]:
+        """One layer as a one-layer window of its half."""
+        return {self._half(layer): [mapped]}
+
+    def init_offload_kv(
+        self, layer: int, batch: int, max_seq: int, dtype: str = "bfloat16", quant_bits: int = 0
+    ) -> dict:
+        """A streamed layer's cache in its half's form: a W-row ring for a
+        sliding layer when W < max_seq, else max_seq rows."""
+        kind = self.pair_kinds[HALVES.index(self._half(layer))]
+        W = self.config.sliding_window
+        s = W if kind == 1 and 0 < W < max_seq else max_seq
+        return {self._half(layer): init_cache(self.kv_config(1, batch, s, dtype, quant_bits), self.device)}
 
     def init_kv_sp(
         self, n_layers: int, batch: int, max_seq: int, dtype: str = "bfloat16", quant_bits: int = 0,

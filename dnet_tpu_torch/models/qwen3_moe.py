@@ -12,7 +12,9 @@ dense-prefix and interleaved, need no stacking of their own here: the port
 loops over per-layer param dicts, and each layer picks its MLP by its own
 params, as the reference's `_mlp_block` does on `"e_gate" in p`.  Where
 the reference stacks {"dense", "moe"} segments and runs two-segment or
-`lax.cond` scans, the window stays one list in layer order.
+`lax.cond` scans, the window stays one list in layer order; so a streamed
+layer (weight streaming) is the base class's one-element window, where the
+reference's `wrap_offload_layer` picks the layer's segment.
 
 The paged attend hook therefore threads through mixed stacks too, so
 `supports_paged_attend` is inherited (True) for every layout.  The

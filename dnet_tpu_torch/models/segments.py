@@ -11,7 +11,8 @@ rows [:Ld] belong to the dense segment, rows [Ld:] to the moe segment.
 
 Left out, with the pipeline-parallel mesh they belong to (ROADMAP A7): the
 multi-lap `phase` that runs one segment per ring lap and
-`pad_mesh_segments`; `wrap_offload_layer` comes with weight streaming (A4).
+`pad_mesh_segments`.  A streamed layer (`wrap_offload_layer`) is a window
+of one segment holding one layer over its own one-layer cache.
 Weight quantization needs nothing of the layout: the engine quantizes each
 layer's params before `stack_layers` sorts them into segments.
 
@@ -34,6 +35,10 @@ SEGMENTS = ("dense", "moe")
 
 
 class TwoSegmentStackMixin:
+    def wrap_offload_layer(self, mapped: dict, layer: int) -> Dict[str, List[dict]]:
+        """One layer as a one-layer window of its segment."""
+        return {"moe" if self.is_moe_layer(layer) else "dense": [mapped]}
+
     def _apply_segments(
         self, window_params: Dict[str, List[dict]], x: torch.Tensor, kv, pos: int,
         lengths=None, sp=None, attend_fn=None,

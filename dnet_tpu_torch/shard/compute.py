@@ -10,10 +10,15 @@ receiving shard) dequant + scatter run in the CUDA kernels of
 compression/ops.py.
 
 This slice serves llama-family checkpoints (gpt_oss's paired sliding/full
-layers are not ported to shards), one contiguous layer range per shard with resident
-weights, one request per ring pass and a synchronous encode; the shard's KV
-cache takes the topology's kv_bits (bf16, int8 or packed int4, as
-core/kvcache.py `resolve_kv_bits` maps it).  Every option
+layers are not ported to shards), one contiguous layer range per shard, one
+request per ring pass and a synchronous encode; the shard's KV cache takes
+the topology's kv_bits (bf16, int8 or packed int4, as core/kvcache.py
+`resolve_kv_bits` maps it).  The topology's `window_size` /
+`residency_size` give the shard's weight plan (core/weights.py): under
+offload or sliding_fit its layers stream from host memory (the repack
+cache under `repack_dir`), the head shard running embed + the streamed
+layers and the tail the streamed layers + norm + head + sample, as the
+reference's streaming branch does.  Every option
 that would ask for more is refused at load (`ShardCapabilityError`) rather
 than quietly served as something else.
 """
@@ -71,8 +76,6 @@ def refuse_model(model_dir: Union[str, Path]) -> None:
 def refuse_unsupported(
     layers: Sequence[int],
     *,
-    window_size: int = 0,
-    residency_size: int = 0,
     kv_bits: int = 0,
     weight_quant_bits: int = 0,
     mesh_tp: int = 0,
@@ -86,9 +89,8 @@ def refuse_unsupported(
 ) -> None:
     """Raise ShardCapabilityError for the first load option outside this
     slice: batched lanes, ring speculation, the ring prefix cache, k-round
-    (non-contiguous) schedules, mesh or tensor parallelism, streamed
-    weights, a kv_bits that is none of 0/16/8/4, a weight_quant_bits that
-    is none of 0/8/4, and the
+    (non-contiguous) schedules, mesh or tensor parallelism, a kv_bits that
+    is none of 0/16/8/4, a weight_quant_bits that is none of 0/8/4, and the
     overlapped wire pipeline (None: DNET_WIRE_PIPELINE).  Other keyword
     arguments are ignored, so a caller can pass its whole load body."""
     if wire_pipeline is None:
@@ -105,8 +107,6 @@ def refuse_unsupported(
         (mesh_tp not in (0, 1) or mesh_sp not in (0, 1) or tp_degree > 1,
          f"mesh_tp={mesh_tp} mesh_sp={mesh_sp} tp_degree={tp_degree}: "
          "mesh and tensor parallelism are not ported"),
-        (window_size > 0 or residency_size > 0,
-         f"window_size={window_size} residency_size={residency_size}: streamed weights are not ported"),
         (kv_bits not in (0, 4, 8, 16), f"kv_bits={kv_bits} (supported: 0/4/8/16)"),
         (weight_quant_bits not in (0, 4, 8), f"weight_quant_bits={weight_quant_bits} (supported: 0/4/8)"),
         (wire_pipeline, "DNET_WIRE_PIPELINE=1: the overlapped wire pipeline is not ported"),
@@ -129,6 +129,7 @@ class ShardCompute:
         kv_ttl_s: float = 600.0,
         window_size: int = 0,
         residency_size: int = 0,
+        repack_dir: Optional[str] = None,
         kv_bits: int = 0,
         compress_frac: Optional[float] = None,
         weight_quant_bits: int = 0,
@@ -144,7 +145,7 @@ class ShardCompute:
     ) -> None:
         w = wire_settings()
         refuse_unsupported(
-            layers, window_size=window_size, residency_size=residency_size, kv_bits=kv_bits,
+            layers, kv_bits=kv_bits,
             weight_quant_bits=weight_quant_bits, mesh_tp=mesh_tp, mesh_sp=mesh_sp,
             tp_degree=tp_degree, spec_lookahead=spec_lookahead, lanes=lanes,
             prefix_cache=prefix_cache, wire_pipeline=wire_pipeline,
@@ -163,7 +164,8 @@ class ShardCompute:
         self.engine = LocalEngine(
             model_dir, max_seq=max_seq, param_dtype=param_dtype, device=device,
             layers=layers, shard_mode=True, kv_dtype=kv_dtype, kv_quant_bits=kv_quant_bits,
-            weight_quant_bits=weight_quant_bits,
+            weight_quant_bits=weight_quant_bits, window_size=window_size, residency_size=residency_size,
+            repack_dir=repack_dir,
         )
         self.engine.KV_TTL_S = kv_ttl_s
         self.layers = list(self.engine.model.layers)
@@ -270,10 +272,10 @@ class ShardCompute:
             if not self.is_first:
                 raise ValueError("token frame arrived at a non-first shard")
             tokens, T = self._embed_tokens(msg, pos)
-            x = eng.embed_window(sess, tokens, pos)
+            x = eng.embed_window(sess, tokens, pos, t_real=T)
         else:
             x, T = self._decode_payload(msg, pos)
-            x = eng.run_layers(sess, x, pos)
+            x = eng.run_layers(sess, x, pos, t_real=T)
         sess.pos = pos + T
         sess.last_used = time.time()
         if self.is_last:

@@ -1,22 +1,29 @@
 """Shard control-plane HTTP server (aiohttp).
 
 Counterpart of dnet_tpu/shard/http.py, trimmed to /load_model,
-/unload_model and /health.  `ShardLoadModelRequest` keeps every field of
+/unload_model, /health and /cleanup_repacked (which deletes the weight-
+streaming repack cache: the loaded model's subtree, or the whole cache
+when none is loaded; 409 while a streaming engine reads it).  `ShardLoadModelRequest` keeps every field of
 the reference's, so an API node of either package can load this shard;
 the options this slice does not serve answer 422 (shard/compute.py).
-/health carries the kernels' launch counts in this process and the hop
-codec's frame and byte counts.
+/health carries the kernels' launch counts in this process, the hop
+codec's frame and byte counts, and the engine's weight plan (and, when it
+streams, `engine.weight_cache`: loads, hits, evictions and bytes).
 """
 
 from __future__ import annotations
 
+import asyncio
 import json
+import shutil
 import time
+from pathlib import Path
 from typing import List, Optional
 
 from aiohttp import web
 from pydantic import BaseModel, ValidationError
 
+from dnet_tpu_torch.config import shard_settings
 from dnet_tpu_torch.kernels import launch_counts
 from dnet_tpu_torch.shard.compute import ShardCapabilityError
 from dnet_tpu_torch.utils.logger import get_logger
@@ -66,6 +73,7 @@ class ShardHTTPServer:
         self.app.router.add_get("/health", self.health)
         self.app.router.add_post("/load_model", self.load_model)
         self.app.router.add_post("/unload_model", self.unload_model)
+        self.app.router.add_post("/cleanup_repacked", self.cleanup_repacked)
         self._runner: Optional[web.AppRunner] = None
 
     async def start(self, host: str, port: int) -> None:
@@ -122,3 +130,28 @@ class ShardHTTPServer:
     async def unload_model(self, request: web.Request) -> web.Response:
         await self.shard.unload_model()
         return web.json_response({"status": "ok"})
+
+    async def cleanup_repacked(self, request: web.Request) -> web.Response:
+        """Delete the repack cache: the loaded model's subtree, else the
+        whole directory; refused (409) while a streaming engine reads it."""
+        rt = self.shard.runtime
+
+        def cleanup():
+            # under the model lock: no load is half-way while we look
+            with rt._model_lock:
+                compute = rt.compute
+                if compute is not None and compute.engine.plan.streams_weights:
+                    return None, 0
+                target = Path(shard_settings().repack_dir).expanduser()
+                if rt.model_path:
+                    target = target / Path(rt.model_path).name
+                freed = 0
+                if target.is_dir():
+                    freed = sum(f.stat().st_size for f in target.rglob("*") if f.is_file())
+                    shutil.rmtree(target, ignore_errors=True)
+                return str(target), freed
+
+        removed, freed = await asyncio.get_running_loop().run_in_executor(None, cleanup)
+        if removed is None:
+            return _error(409, "model is streaming from the repack cache; POST /unload_model first")
+        return web.json_response({"status": "ok", "removed": removed, "freed_bytes": freed})

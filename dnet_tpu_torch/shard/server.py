@@ -13,7 +13,7 @@ import signal
 import socket
 
 from dnet_tpu_torch.api.model_manager import resolve_model_dir
-from dnet_tpu_torch.config import transport_settings
+from dnet_tpu_torch.config import shard_settings, transport_settings
 from dnet_tpu_torch.shard.adapter import RingAdapter
 from dnet_tpu_torch.shard.grpc_servicer import ShardRingServicer
 from dnet_tpu_torch.shard.http import ShardHTTPServer, ShardLoadModelRequest
@@ -53,6 +53,8 @@ class Shard:
                 kv_bits=req.kv_bits, weight_quant_bits=req.weight_quant_bits,
                 mesh_tp=req.mesh_tp, mesh_sp=req.mesh_sp, tp_degree=req.tp_degree,
                 spec_lookahead=req.spec_lookahead, lanes=req.lanes, prefix_cache=req.prefix_cache,
+                # read by the engine only under a streaming plan
+                repack_dir=shard_settings().repack_dir,
             ),
         )
         await self.adapter.reset_topology()

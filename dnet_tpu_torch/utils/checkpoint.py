@@ -1,10 +1,16 @@
-"""HF-format checkpoint access with the port's own safetensors reader/writer.
+"""HF-format checkpoint access through the port's native host store.
 
 Counterpart of dnet_tpu/utils/checkpoint.py (`Checkpoint`,
-`save_checkpoint`) without the `safetensors` package: the format is an
-8-byte little-endian header length, a JSON header mapping each tensor name
-to {dtype, shape, data_offsets}, and the raw little-endian bytes.  Tensors
-load as CPU torch tensors (bf16 included, which numpy cannot hold).
+`save_checkpoint`) without the `safetensors` package: each file is mapped
+once by utils/native_store.py `NativeSafetensors`, which parses the header
+(an 8-byte little-endian length, a JSON index mapping each tensor name to
+{dtype, shape, data_offsets}, then the raw little-endian bytes).
+`load_tensor` returns an owning CPU tensor (bf16 included, which numpy
+cannot hold); `tensor_view` the zero-copy view the weight-streaming host
+store reads (core/weights.py).  `prefetch_layer` / `release_layer` stream
+one layer's spans into and out of the page cache; a fit load's layer and
+edge reads advise WILLNEED first, so a cold file is read ahead as the
+buffered reads of a plain file reader were.
 """
 
 from __future__ import annotations
@@ -13,42 +19,16 @@ import json
 import re
 import struct
 from pathlib import Path
-from typing import Dict, List, Mapping, Optional, Tuple, Union
+from typing import Dict, List, Mapping, Optional, Union
 
 import numpy as np
 import torch
 
+from dnet_tpu_torch.utils.native_store import DTYPES, NativeSafetensors
+
 _LAYER_RE = re.compile(r"^model\.layers\.(\d+)\.(.+)$")
 
-_DTYPES = {
-    "F64": torch.float64, "F32": torch.float32, "F16": torch.float16,
-    "BF16": torch.bfloat16, "I64": torch.int64, "I32": torch.int32,
-    "I16": torch.int16, "I8": torch.int8, "U8": torch.uint8, "BOOL": torch.bool,
-}
-_NAMES = {v: k for k, v in _DTYPES.items()}
-
-
-def read_header(path: Path) -> Tuple[dict, int]:
-    """(header without __metadata__, byte offset of the data section)."""
-    with open(path, "rb") as f:
-        (n,) = struct.unpack("<Q", f.read(8))
-        header = json.loads(f.read(n))
-    header.pop("__metadata__", None)
-    return header, 8 + n
-
-
-def read_tensor(path: Path, meta: dict, data_start: int) -> torch.Tensor:
-    begin, end = meta["data_offsets"]
-    dtype = _DTYPES.get(meta["dtype"])
-    if dtype is None:
-        raise ValueError(f"unsupported safetensors dtype {meta['dtype']} in {path}")
-    buf = bytearray(end - begin)
-    with open(path, "rb") as f:
-        f.seek(data_start + begin)
-        f.readinto(buf)
-    if not buf:
-        return torch.empty(meta["shape"], dtype=dtype)
-    return torch.frombuffer(buf, dtype=dtype).reshape(meta["shape"])
+_NAMES = {v: k for k, v in DTYPES.items()}
 
 
 def save_safetensors(path: Path, tensors: Mapping[str, torch.Tensor]) -> None:
@@ -93,12 +73,12 @@ class Checkpoint:
             files = sorted(self.dir.glob("*.safetensors"))
         if not files:
             raise FileNotFoundError(f"no .safetensors in {self.dir}")
-        # tensor name -> (file, header entry, data offset)
-        self._where: Dict[str, Tuple[Path, dict, int]] = {}
+        # tensor name -> its file's mapping
+        self._where: Dict[str, NativeSafetensors] = {}
         for path in files:
-            header, start = read_header(path)
-            for name, meta in header.items():
-                self._where[name] = (path, meta, start)
+            st = NativeSafetensors(path)
+            for name in st.keys():
+                self._where[name] = st
 
         self.layer_tensors: Dict[int, Dict[str, str]] = {}  # layer -> suffix -> full name
         self.edge_tensors: Dict[str, str] = {}
@@ -113,20 +93,56 @@ class Checkpoint:
     def num_layers(self) -> int:
         return int(self.config["num_hidden_layers"])
 
-    def load_tensor(self, name: str) -> torch.Tensor:
-        path, meta, start = self._where[name]
-        return read_tensor(path, meta, start)
+    def tensor_view(self, name: str) -> torch.Tensor:
+        """Zero-copy CPU view of one tensor in its mapped file."""
+        return self._where[name].tensor(name)
 
-    def load_layer_raw(self, layer: int) -> Dict[str, torch.Tensor]:
-        """One layer's tensors keyed by suffix (prefix stripped)."""
+    def load_tensor(self, name: str) -> torch.Tensor:
+        return self.tensor_view(name).clone()
+
+    def load_layer_raw(self, layer: int, view: bool = False) -> Dict[str, torch.Tensor]:
+        """One layer's tensors keyed by suffix (prefix stripped): owning
+        copies, read after a WILLNEED on the layer's spans so the kernel
+        reads them ahead of the copy; `view`: zero-copy views."""
         if layer not in self.layer_tensors:
             raise KeyError(f"layer {layer} not in checkpoint")
+        if view:
+            return {s: self.tensor_view(full) for s, full in self.layer_tensors[layer].items()}
+        self.prefetch_layer(layer, sync=True)
         return {s: self.load_tensor(full) for s, full in self.layer_tensors[layer].items()}
 
     def load_edge_raw(self, names: Optional[List[str]] = None) -> Dict[str, torch.Tensor]:
-        """Non-layer tensors (embed/final-norm/lm-head), all or a subset."""
-        keys = names if names is not None else list(self.edge_tensors)
-        return {k: self.load_tensor(k) for k in keys if k in self.edge_tensors}
+        """Non-layer tensors (embed/final-norm/lm-head), all or a subset
+        (owning copies, read after a WILLNEED like a layer's)."""
+        keys = [k for k in (names if names is not None else self.edge_tensors) if k in self.edge_tensors]
+        for st, group in self._by_file(keys).items():
+            st.prefetch(group, sync=True)
+        return {k: self.load_tensor(k) for k in keys}
+
+    def close(self) -> None:
+        """Unmap every file (a fit engine once its tensors are copied out:
+        a mapping would keep the files' pages, and a deleted file, alive);
+        reads after it raise."""
+        for st in set(self._where.values()):
+            st.close()
+
+    # ---- page-cache streaming -------------------------------------------
+    def _by_file(self, names: List[str]) -> Dict[NativeSafetensors, List[str]]:
+        by_file: Dict[NativeSafetensors, List[str]] = {}
+        for full in names:
+            by_file.setdefault(self._where[full], []).append(full)
+        return by_file
+
+    def prefetch_layer(self, layer: int, sync: bool = False) -> None:
+        """WILLNEED on one layer's spans and, unless `sync`, a background
+        page-touch, so its disk reads overlap compute."""
+        for st, names in self._by_file(list(self.layer_tensors.get(layer, {}).values())).items():
+            st.prefetch(names, sync=sync)
+
+    def release_layer(self, layer: int) -> None:
+        """DONTNEED an evicted layer's spans."""
+        for st, names in self._by_file(list(self.layer_tensors.get(layer, {}).values())).items():
+            st.release(names)
 
 
 def save_checkpoint(

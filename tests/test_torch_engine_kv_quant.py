@@ -46,7 +46,7 @@ def test_session_cache_is_quantized(engine, bits):
     assert sorted(sess.kv) == ["k", "k_scale", "v", "v_scale"]
     cfg = engine.model.kv_config(len(engine.model.layers), 1, MAX_SEQ, engine.kv_dtype, bits)
     assert engine.stats() == {"kv_dtype": "float32", "kv_quant_bits": bits, "kv_bytes": cache_nbytes(cfg),
-                              **engine.weight_stats()}
+                              "weight_policy": "fit", **engine.weight_stats()}
     assert engine.weight_stats()["weight_quant_bits"] == 0
     engine.end_session("c")
 

@@ -53,7 +53,8 @@ window and an unsorted idx; the dequant-scatter with empty strips, every
 column kept and odd D).  Every one-kernel-a-call case is traced in a fresh
 process (tests/torch_gpu_trace.py; the helper's own check traces one known
 elementwise kernel).  The weight quantizer at a Llama-3.3-70B MLP weight's
-size gives the CPU's codes, scales and dequantized weight bit for bit.
+size gives the CPU's codes, scales and dequantized weight bit for bit.  A
+weight-streaming engine (plan (2, 1)) matches the CPU's.
 Tolerances: f32 1e-4 (sums
 in another order); bf16 2e-2 against the plain version computed in f32
 from the same bf16 inputs (the kernel rounds its output to bf16, ~4e-3 at
@@ -490,6 +491,43 @@ def test_sp_engine_matches_cpu(gen):
     torch.cuda.synchronize()
     assert streams["cuda:0"] == streams["cpu"]
     assert flash_decode_attend.launches_lse - before == 2 * 2 * 15
+
+
+def test_streamed_engine_matches_cpu(gen):
+    """A weight-streaming engine on the card (plan (2, 1), sliding_fit:
+    each layer copied from page-locked host memory on the cache's copy
+    stream, evicted as soon as its kernels are queued) against the same
+    engine on the CPU, f32: prefill logits within 2e-3, equal greedy
+    streams, one prefill launch a layer per prompt and one decode launch a
+    layer per step, and every layer copied again each step."""
+    from dnet_tpu_torch.core.engine import LocalEngine
+    from dnet_tpu_torch.core.types import DecodingParams
+    from dnet_tpu_torch.models import ModelConfig
+    from dnet_tpu_torch.utils.random_init import random_llama_params
+
+    cfg = ModelConfig.from_hf({
+        "model_type": "llama", "vocab_size": 512, "hidden_size": 256, "intermediate_size": 512,
+        "num_hidden_layers": 4, "num_attention_heads": 4, "num_key_value_heads": 2, "head_dim": 64,
+    })
+    window, edge = random_llama_params(cfg, range(4), torch.device("cpu"), torch.float32, seed=1)
+    engines = {dev: LocalEngine.from_params(cfg, window, edge, max_seq=128, param_dtype="float32", device=dev,
+                                            window_size=2, residency_size=1) for dev in ("cuda", "cpu")}
+    assert all(e.plan.name == "sliding_fit" for e in engines.values())
+    assert engines["cuda"].weight_cache.store._cache[0].buf.is_pinned()
+    prompt = list(range(1, 40))
+    logits = {dev: e.prefill("p", prompt).float().cpu() for dev, e in engines.items()}
+    assert (logits["cuda"] - logits["cpu"]).abs().max().item() <= 2e-3
+    prefills, decodes = flash_prefill.launches, flash_decode_attend.launches
+    loads = engines["cuda"].weight_cache.stats["loads"]
+    streams = {dev: [r.token_id for r in e.generate(prompt, DecodingParams(), max_tokens=12, nonce="g")]
+               for dev, e in engines.items()}
+    torch.cuda.synchronize()
+    assert streams["cuda"] == streams["cpu"]
+    assert flash_prefill.launches - prefills == 4
+    assert flash_decode_attend.launches - decodes == 4 * 11
+    assert engines["cuda"].weight_cache.stats["loads"] - loads == 4 * 12
+    for e in engines.values():
+        e.close()
 
 
 @pytest.mark.parametrize("family,bits", [("deepseek_v2", 0), ("deepseek_v2", 8), ("deepseek_v2", 4),

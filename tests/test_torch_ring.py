@@ -143,9 +143,11 @@ def _api(net, kind, auto_steps):
 
 
 async def _run_ring(model_dir, kinds=("port", "port"), api_kind="port", auto_steps=16, codec="lossless",
-                    prompts=PROMPTS, steps=STEPS, decoding=None, kv_bits=0, weight_quant_bits=0):
+                    prompts=PROMPTS, steps=STEPS, decoding=None, kv_bits=0, weight_quant_bits=0,
+                    shard_opts=({}, {})):
     """Serve each prompt for `steps` tokens through a two-shard ring of the
-    given kinds; returns (streams, net, shard runtimes)."""
+    given kinds (`shard_opts`: each shard's extra load options); returns
+    (streams, net, shard runtimes)."""
     net = Net()
     make = {"port": _port_shard, "ref": _ref_shard}
     nodes = [make[k](net, f"s{i}") for i, k in enumerate(kinds)]
@@ -155,10 +157,10 @@ async def _run_ring(model_dir, kinds=("port", "port"), api_kind="port", auto_ste
         await adapter.start()
     try:
         await asyncio.gather(*(
-            loop.run_in_executor(None, lambda rt=rt, ls=ls: rt.load_model_core(
+            loop.run_in_executor(None, lambda rt=rt, ls=ls, opts=opts: rt.load_model_core(
                 str(model_dir), ls, max_seq=MAX_SEQ, param_dtype="float32", wire_codec=codec,
-                kv_bits=kv_bits, weight_quant_bits=weight_quant_bits))
-            for (rt, _), ls in zip(nodes, ([0, 1], [2, 3]))
+                kv_bits=kv_bits, weight_quant_bits=weight_quant_bits, **opts))
+            for (rt, _), ls, opts in zip(nodes, ([0, 1], [2, 3]), shard_opts)
         ))
         nodes[0][1].configure_topology("s1")
         nodes[1][1].configure_topology("s0")  # the tail's next is the head
@@ -309,9 +311,12 @@ def test_mixed_ring_qsparse8_completes(tiny_llama_dir, local_greedy, qsparse_pct
 
 REFUSED = [
     dict(lanes=2), dict(spec_lookahead=4), dict(prefix_cache=4), dict(layers=[0, 2]),
-    dict(mesh_tp=2), dict(mesh_tp=-1), dict(mesh_sp=2), dict(tp_degree=2), dict(window_size=1),
-    dict(residency_size=2), dict(kv_bits=3), dict(weight_quant_bits=3), dict(wire_pipeline=True),
+    dict(mesh_tp=2), dict(mesh_tp=-1), dict(mesh_sp=2), dict(tp_degree=2), dict(kv_bits=3),
+    dict(weight_quant_bits=3), dict(wire_pipeline=True),
 ]
+# once refused, now served: a window streams the tail shard's weights
+# (offload over its 2 layers); a residency of all its layers alone is fit
+STREAMING = [(dict(window_size=1), "offload"), (dict(residency_size=2), "fit")]
 
 
 @pytest.mark.parametrize("option", REFUSED, ids=lambda o: "-".join(f"{k}={v}" for k, v in o.items()))
@@ -325,6 +330,20 @@ def test_refused_load_options_raise(tiny_llama_dir, option):
     with pytest.raises(ShardCapabilityError, match="does not serve"):
         rt.load_model_core(str(tiny_llama_dir), layers, max_seq=MAX_SEQ, param_dtype="float32", **kwargs)
     assert rt.compute is None
+
+
+@pytest.mark.parametrize("option,plan", STREAMING, ids=lambda o: "-".join(f"{k}={v}" for k, v in o.items())
+                         if isinstance(o, dict) else o)
+def test_streaming_load_options_serve(tiny_llama_dir, local_greedy, option, plan):
+    """window_size / residency_size in the tail shard's load body: the plan
+    is the reference's (`plan_policy`), and the ring's greedy stream equals
+    the single process's."""
+    from dnet_tpu.core.weights import plan_policy as ref_plan_policy
+
+    port, _, rts = asyncio.run(_run_ring(tiny_llama_dir, prompts=PROMPTS[:1], shard_opts=({}, option)))
+    engines = [rt.compute.engine for rt in rts]
+    assert [e.plan.name for e in engines] == ["fit", plan] == ["fit", ref_plan_policy(2, **option).name]
+    assert port == local_greedy[:1]
 
 
 @pytest.mark.parametrize("weight_quant_bits", [8])
