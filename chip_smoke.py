@@ -375,6 +375,40 @@ eleventh path:
                  prompt and 38 tensor-core decode launches a step, the
                  bytes copied a step against a 1 GiB page-locked copy
                  probed in the same run, the device peak under the cap.
+Speculative decoding and the snapshot prefix cache (A4), the twelfth path:
+  spec_launches  device kernels per call of the prefill kernel's per-lane
+                 form (B = 8 lanes, T = 5; bf16 and f32 at each width pair,
+                 torch.profiler, right after the build): exactly 1.
+  spec_kernels   the per-lane form (the batched verify block: each lane's
+                 chunk at its own start) against its plain version over
+                 per-lane masks: Llama-3.2-1B's heads, Llama-3-8B's at
+                 (128, 128) and DeepSeek-V2-Lite's MLA widths, f32 and bf16,
+                 B = 8 lanes at starts 100 to 4,000, T = 5 and 8; timed
+                 beside SDPA with the per-lane mask as a tensor and its
+                 bound (each lane's live K/V read once); then the scalar form
+                 at the single-sequence verify's shape (T = 5, pos 113 and
+                 2,048).
+  spec_parity    a 2-layer f32 model at Llama-3.2-1B's heads on the GPU
+                 against the CPU: the speculative greedy stream (L = 4) equal
+                 to the plain one, single sequence and on 8 dense slots
+                 (3 greedy lanes verifying together, a seeded sampled lane
+                 on the plain step, equal to its serial stream on the same
+                 device), one per-lane launch a layer a verify block; a
+                 self-draft's first block emits L + 1 tokens; a prefix
+                 hit's logits within 2e-3 of a cold prefill's.
+  spec_serve     the serve checkpoint over HTTP in bf16, requests without
+                 logit bias (a biased request does not speculate; the
+                 first token's time is a 1-token request's): a greedy chat
+                 and a two-turn chat, plain and with
+                 DNET_API_SPEC_LOOKAHEAD=4 DNET_API_PREFIX_CACHE=4, a
+                 self-draft (DNET_API_DRAFT_MODEL), and the batch_serve
+                 prompts (greedy, concurrent, 32 tokens) with --batch-slots 8 plain and
+                 speculating: tok/s, the first token's time, tokens a
+                 verify block, visible-text agreement (reported), turn 2's
+                 first token on a hit against the cold server and the
+                 prefill tokens saved, a speculating bf16 engine's greedy
+                 tokens against a plain one's in process (reported);
+                 exactly one per-lane launch a layer a batched verify block.
 Every decode row also counts its device kernels per wrapper call
 (torch.profiler), which must be exactly 1: the splits and row groups of a
 (lane, KV head) merge inside the one launch.  Then the kernels summary line (every row
@@ -618,11 +652,11 @@ def ptxas_line(report: list, prefill_report: list, paged_report: list) -> dict:
         t, kv, qb, dqk, dv, gp, rot = args(m)
         return kernel_smem_bytes(types[t], types[kv], int(qb), int(dqk), int(dv), int(gp), 1, rot in ("1", "true"))
 
-    def prefill_smem(name):  # flash_prefill_tc_kernel<DQK, DV, m-atoms a warp>, flash_prefill_f32_kernel<DQK, DV>
+    def prefill_smem(name):  # flash_prefill_tc_kernel<DQK, DV, m-atoms a warp, lanes>, _f32_kernel<DQK, DV, lanes>
         m = re.search(r"flash_prefill_(tc|f32)_kernel<([^>]*)>", name)
         if not m:
             return None
-        dims = [int(re.sub(r"^\(int\)", "", x.strip())) for x in m.group(2).split(",")]
+        dims = [int(re.sub(r"^\((?:int|bool)\)", "", x.strip())) for x in m.group(2).split(",")][:-1]
         if m.group(1) == "f32":
             return prefill_smem_bytes(torch.float32, *dims)
         return prefill_smem_bytes(torch.bfloat16, dims[0], dims[1], 64 * dims[2])
@@ -638,7 +672,8 @@ def ptxas_line(report: list, prefill_report: list, paged_report: list) -> dict:
 
     prefill = rows_of(prefill_report, prefill_smem)
     tc = [r for r in prefill["kernels"] if "flash_prefill_tc_kernel" in r["name"]]
-    check(len(tc) == 4 and not any(r["spill_store_bytes"] or r["spill_load_bytes"] for r in tc),
+    # 4 scalar instantiations (128-row tiles at (64, 64)) and the per-lane form's 3
+    check(len(tc) == 7 and not any(r["spill_store_bytes"] or r["spill_load_bytes"] for r in tc),
           f"bf16 prefill instantiations spill or are missing: {tc}")
     paged = rows_of(paged_report, paged_smem)
     bf16 = [r for r in paged["kernels"] if "paged_attention_kernel<__nv_bfloat16" in r["name"]]
@@ -1847,9 +1882,10 @@ def phase_serve(prompt_text: str, n_prompt: int) -> tuple:
         sp_long = dict(chat, stream=True, messages=[{"role": "user", "content": _long_prompt(SP_LONG_TOKENS)}])
         sp_serve = phase_sp_serve(tmp, port, bodies, sp_long, sp_step)
         phase_wq_serve(tmp, port, bodies, row, health["engine"]["weight_bytes"], batched)
+        spec = phase_spec_serve(tmp, port)
     finally:
         shutil.rmtree(os.path.dirname(tmp), ignore_errors=True)
-    return row, batched, quant, ring, sp_serve, gathered
+    return row, batched, quant, ring, sp_serve, gathered, spec
 
 
 # the serve and ring_serve requests: one greedy, one greedy streamed (its
@@ -5472,6 +5508,410 @@ def phase_stream_step_70b() -> dict:
         torch.cuda.set_per_process_memory_fraction(1.0)
 
 
+# ---- speculative decoding and the prefix cache (A4) -----------------------------
+
+SPEC_L = 4  # drafted tokens a verify block (DNET_API_SPEC_LOOKAHEAD)
+# the batched verify's lane starts: a batch of long and short conversations
+SPEC_LANE_STARTS = [100, 611, 1024, 1500, 2047, 2600, 3333, 4000]
+SPEC_LANE_T = (SPEC_L + 1, 8)
+SPEC_SCALAR_POS = (113, 2048)  # the single-sequence verify's shape (T = L + 1)
+SPEC_KERNEL_LAYERS = 3  # caches rotated per timed call: each > the 50 MB L2 at B = 8
+SPEC_TURN_TOKENS = PREFILL_CHUNK
+
+
+def _spec_widths() -> list:
+    """(name, H, KVH, Dqk, Dv, scale) of the per-lane rows: Llama-3.2-1B's
+    heads (the served model's), Llama-3-8B's at (128, 128), and
+    DeepSeek-V2-Lite's MLA widths at its softmax scale."""
+    return [("Llama-3.2-1B", H, KVH, D, D, None), ("Llama-3-8B", 32, 8, 128, 128, None),
+            ("DeepSeek-V2-Lite", MLA_H, MLA_H, MLA_DQK, MLA_DV, _mla_scale())]
+
+
+def lanes_bound(starts: list, T: int, h: int, kvh: int, dqk: int, dv: int, dtype) -> tuple:
+    """(ms, bound_by) of one per-lane prefill call: q and the output once,
+    the positions, and each lane's live K and V rows (start + T) once;
+    2 * (dqk + dv) operations per (head, query, key) pair."""
+    size = torch.tensor([], dtype=dtype).element_size()
+    nbytes = len(starts) * (T * h * (dqk + dv) * size + 4) + sum(p + T for p in starts) * kvh * (dqk + dv) * size
+    pairs = sum(p + i + 1 for p in starts for i in range(T))
+    return bytes_ops_bound(nbytes, 2 * h * (dqk + dv) * pairs, dtype)
+
+
+def _lanes_call(dtype, h, kvh, dqk, dv, T, layers: int, g, starts=SPEC_LANE_STARTS):
+    """q [B, T, h, dqk] and `layers` caches [B, S, kvh, .] in `dtype`, the
+    lane starts as the kernel takes them."""
+    B = len(starts)
+    q = torch.randn(B, T, h, dqk, generator=g, device="cuda").to(dtype)
+    kv = [(torch.randn(B, S, kvh, dqk, generator=g, device="cuda").to(dtype),
+           torch.randn(B, S, kvh, dv, generator=g, device="cuda").to(dtype)) for _ in range(layers)]
+    return q, kv, torch.tensor(starts, dtype=torch.int32, device="cuda")
+
+
+def phase_spec_launches() -> dict:
+    """Device kernels per call of the prefill kernel's per-lane form (B = 8,
+    T = L + 1, torch.profiler, right after the build as the other forms'
+    counts), bf16 and f32 at each width pair: exactly 1, counted on
+    flash_prefill_lanes.  Returns {"flash_prefill_lanes": 1}."""
+    from dnet_tpu_torch.ops.flash_attention import flash_prefill
+
+    g = torch.Generator(device="cuda").manual_seed(23)
+    counts = {}
+    for name, h, kvh, dqk, dv, scale in _spec_widths():
+        for dtype in (torch.bfloat16, torch.float32):
+            q, kv, pos = _lanes_call(dtype, h, kvh, dqk, dv, SPEC_L + 1, 1, g)
+
+            def call():
+                return flash_prefill(q, kv[0][0], kv[0][1], max(SPEC_LANE_STARTS), scale=scale, positions=pos)
+
+            call()
+            before = flash_prefill.launches_lanes
+            n = kernels_per_call(call)
+            check(n == 1 and flash_prefill.launches_lanes > before, f"per-lane prefill {name} {dtype}: {n} kernels")
+            counts[f"{name} {str(dtype).split('.')[-1]}"] = n
+            del q, kv
+    emit({"phase": "spec_launches", "kernels_per_call": counts})
+    torch.cuda.empty_cache()
+    return {"flash_prefill_lanes": 1}
+
+
+def phase_spec_kernels() -> dict:
+    """The prefill kernel's per-lane form against its plain version (per-lane
+    masks) at each width pair, f32 and bf16, B = 8 lanes at
+    SPEC_LANE_STARTS, T = 5 (the verify block at L = 4) and 8, timed beside
+    SDPA with the per-lane causal mask as a tensor and its bound (each
+    lane's live K/V read once); then the scalar form at the single-sequence
+    verify's shape (B = 1, T = 5 at pos 113 and 2,048).  Returns the main
+    row: bf16 at Llama-3.2-1B's heads, T = 5."""
+    from torch.nn.functional import scaled_dot_product_attention as sdpa
+
+    from dnet_tpu_torch.ops.flash_attention import flash_prefill, flash_prefill_plain
+
+    g = torch.Generator(device="cuda").manual_seed(29)
+    main = {}
+    top = max(SPEC_LANE_STARTS)
+    for name, h, kvh, dqk, dv, scale in _spec_widths():
+        for dtype in (torch.float32, torch.bfloat16):
+            for T in SPEC_LANE_T:
+                q, kv, pos = _lanes_call(dtype, h, kvh, dqk, dv, T, SPEC_KERNEL_LAYERS, g)
+                out = flash_prefill(q, kv[0][0], kv[0][1], top, scale=scale, positions=pos)
+                torch.cuda.synchronize()
+                want = flash_prefill_plain(q.float(), kv[0][0].float(), kv[0][1].float(), top, scale=scale,
+                                           positions=pos)
+                err = (out.float() - want).abs().max().item()
+                check(out.shape == (len(SPEC_LANE_STARTS), T, h, dv) and bool(torch.isfinite(out).all()),
+                      f"per-lane prefill {name} output")
+                check(err <= TOL[dtype], f"per-lane prefill {name} {dtype} T={T}: max err {err}")
+                keys = top + T
+                j = torch.arange(keys, device="cuda")
+                mask = j[None, None, None, :] <= (pos.long()[:, None, None, None]
+                                                  + torch.arange(T, device="cuda")[None, None, :, None])
+                qt = q.transpose(1, 2)
+                lib_kv = [(k[:, :keys].transpose(1, 2), v[:, :keys].transpose(1, 2)) for k, v in kv]
+
+                def lib(l):
+                    return sdpa(qt, lib_kv[l][0], lib_kv[l][1], attn_mask=mask, enable_gqa=True, scale=scale)
+
+                lib_err = (lib(0).transpose(1, 2).float() - want).abs().max().item()
+                check(lib_err <= TOL[torch.bfloat16], f"per-lane prefill {name} yardstick disagrees: {lib_err}")
+                bound, by = lanes_bound(SPEC_LANE_STARTS, T, h, kvh, dqk, dv, dtype)
+                row = {
+                    "phase": "spec_kernels", "kernel": "flash_prefill_lanes", "heads_of": name,
+                    "dtype": str(dtype).split(".")[-1], "lanes": len(SPEC_LANE_STARTS), "T": T,
+                    "starts": SPEC_LANE_STARTS, "S": S, "H": h, "KVH": kvh, "Dqk": dqk, "Dv": dv,
+                    "max_err": err, "tol": TOL[dtype],
+                    "kernel_ms": device_time_ms(
+                        lambda l: flash_prefill(q, kv[l][0], kv[l][1], top, scale=scale, positions=pos),
+                        SPEC_KERNEL_LAYERS),
+                    "plain_ms": device_time_ms(
+                        lambda l: flash_prefill_plain(q, kv[l][0], kv[l][1], top, scale=scale, positions=pos),
+                        SPEC_KERNEL_LAYERS, 3),
+                    "library_ms": device_time_ms(lib, SPEC_KERNEL_LAYERS), "library_max_err": lib_err,
+                    "library_call": "scaled_dot_product_attention, the per-lane causal mask as a tensor",
+                    "bound_ms": bound, "bound_by": by,
+                }
+                row["times_library"] = row["kernel_ms"] / row["library_ms"]
+                row["times_bound"] = row["kernel_ms"] / bound
+                emit(row)
+                if dtype == torch.bfloat16 and T == SPEC_L + 1 and name == "Llama-3.2-1B":
+                    main["flash_prefill_lanes"] = row
+                del q, kv, lib_kv
+    # the scalar form at the single-sequence verify's shape
+    for dtype in (torch.float32, torch.bfloat16):
+        kc = torch.randn(LAYERS, 1, S, KVH, D, generator=g, device="cuda").to(dtype)
+        vc = torch.randn(LAYERS, 1, S, KVH, D, generator=g, device="cuda").to(dtype)
+        for p in SPEC_SCALAR_POS:
+            T = SPEC_L + 1
+            q = torch.randn(1, T, H, D, generator=g, device="cuda").to(dtype)
+            out = flash_prefill(q, kc[0], vc[0], p)
+            torch.cuda.synchronize()
+            want = flash_prefill_plain(q.float(), kc[0].float(), vc[0].float(), p)
+            err = (out.float() - want).abs().max().item()
+            check(err <= TOL[dtype], f"verify-shape prefill pos={p} {dtype}: max err {err}")
+            keys = p + T
+            mask = torch.arange(keys, device="cuda")[None, :] <= p + torch.arange(T, device="cuda")[:, None]
+            qt = q.transpose(1, 2)
+
+            def lib(l):
+                return sdpa(qt, kc[l, :, :keys].transpose(1, 2), vc[l, :, :keys].transpose(1, 2), attn_mask=mask,
+                            enable_gqa=True)
+
+            bound, by = prefill_bound(T, p, dtype)
+            row = {"phase": "spec_kernels", "kernel": "flash_prefill", "shape": "single-sequence verify block",
+                   "dtype": str(dtype).split(".")[-1], "T": T, "pos": p, "S": S, "H": H, "KVH": KVH, "D": D,
+                   "max_err": err, "tol": TOL[dtype],
+                   "kernel_ms": device_time_ms(lambda l: flash_prefill(q, kc[l], vc[l], p), LAYERS),
+                   "plain_ms": device_time_ms(lambda l: flash_prefill_plain(q, kc[l], vc[l], p), LAYERS, 3),
+                   "library_ms": device_time_ms(lib, LAYERS), "bound_ms": bound, "bound_by": by}
+            row["times_library"] = row["kernel_ms"] / row["library_ms"]
+            row["times_bound"] = row["kernel_ms"] / bound
+            emit(row)
+        del kc, vc
+    torch.cuda.empty_cache()
+    return main
+
+
+def _spec_model():
+    """spec_parity's model: 2 f32 layers at Llama-3.2-1B's heads (32 / 8,
+    head dim 64), narrow elsewhere so that the CPU keeps up."""
+    from dnet_tpu_torch.models import ModelConfig
+    from dnet_tpu_torch.utils.random_init import random_llama_params
+
+    raw = {"model_type": "llama", "vocab_size": 512, "hidden_size": 512, "intermediate_size": 1024,
+           "num_hidden_layers": 2, "num_attention_heads": H, "num_key_value_heads": KVH, "head_dim": D,
+           "rope_theta": 500000.0, "tie_word_embeddings": True}
+    cfg = ModelConfig.from_hf(raw)
+    window, edge = random_llama_params(cfg, range(2), torch.device("cpu"), torch.float32, seed=3)
+    return raw, cfg, window, edge
+
+
+def _spec_lanes(eng, prompts: dict, decs: dict, n: int) -> dict:
+    """Every prompt prefilled on a batched engine, then batched decode with
+    budgets until each has n tokens."""
+    toks = {k: [int(eng.prefill_and_sample(k, p, decs[k]).token[0])] for k, p in prompts.items()}
+    while any(len(t) < n for t in toks.values()):
+        live = {k: t for k, t in toks.items() if len(t) < n}
+        out, errs = eng.decode_batch({k: (t[-1], decs[k]) for k, t in live.items()},
+                                     budgets={k: n - len(t) for k, t in live.items()})
+        check(not errs, f"spec lanes: {errs}")
+        for k, r in out.items():
+            toks[k].append(int(r.token[0]))
+    for k in prompts:
+        eng.end_session(k)
+    return {k: t[:n] for k, t in toks.items()}
+
+
+def phase_spec_parity() -> dict:
+    """Speculation and the prefix cache on the GPU against the CPU, f32, a
+    2-layer model at Llama-3.2-1B's heads: the single-sequence speculative
+    greedy stream (L = 4) equals the plain one on both devices; on 8 dense
+    slots, three greedy lanes verifying together beside a seeded sampled
+    lane equal their plain streams (the sampled lane its serial stream on
+    the same device), with one per-lane launch a layer for each verify
+    block; a self-draft (the model written as a checkpoint and named as its
+    own draft) emits L + 1 tokens from its first block; a prefix hit's
+    first-token logits equal a cold prefill's within 2e-3.  Returns the
+    launches of the per-lane form on the card."""
+    from dnet_tpu_torch.core.batch import BatchedEngine
+    from dnet_tpu_torch.core.engine import LocalEngine
+    from dnet_tpu_torch.core.types import DecodingParams
+    from dnet_tpu_torch.kernels import launch_counts, reset_launch_counts
+    from dnet_tpu_torch.models.convert import hf_tensors
+    from dnet_tpu_torch.utils.checkpoint import save_checkpoint
+
+    raw, cfg, window, edge = _spec_model()
+    greedy, sampled = DecodingParams(temperature=0.0), DecodingParams(temperature=0.9, top_p=0.9, seed=7)
+    prompts = {"g0": [7, 3, 11, 7, 3, 11, 7, 3] * 4, "g1": [5, 9, 5, 9, 5, 9, 2] * 3, "g2": list(range(40, 140)),
+               "s": [250, 99, 13, 4]}
+    kw = dict(max_seq=512, param_dtype="float32")
+    row = {"phase": "spec_parity", "lookahead": SPEC_L, "model": "2 layers, H 32, KVH 8, head dim 64, f32"}
+    single, lanes = {}, {}
+    for dev in ("cuda", "cpu"):
+        plain = LocalEngine.from_params(cfg, window, edge, device=dev, **kw)
+        spec = LocalEngine.from_params(cfg, window, edge, device=dev, spec_lookahead=SPEC_L, **kw)
+        want = {k: [r.token_id for r in plain.generate(p, greedy, max_tokens=32, nonce=k)]
+                for k, p in prompts.items() if k != "s"}
+        got = {k: [r.token_id for r in spec.generate(p, greedy, max_tokens=32, nonce=k)]
+               for k, p in prompts.items() if k != "s"}
+        check(got == want, f"spec_parity {dev}: the speculative stream differs from the plain one")
+        check(spec.spec_blocks > 0, f"spec_parity {dev}: no verify block ran")
+        single[dev] = got
+        row[f"single_{dev}"] = {"blocks": spec.spec_blocks, "emitted": spec.spec_emitted}
+        serial = [r.token_id for r in plain.generate(prompts["s"], sampled, max_tokens=24, nonce="s")]
+        eng = BatchedEngine.from_params(cfg, window, edge, slots=BATCH_SLOTS, device=dev, spec_lookahead=SPEC_L,
+                                        **kw)
+        reset_launch_counts()
+        got = _spec_lanes(eng, prompts, {k: sampled if k == "s" else greedy for k in prompts}, 24)
+        if dev == "cuda":
+            torch.cuda.synchronize()
+            launched = launch_counts()["flash_prefill_lanes"]
+            check(launched == cfg.num_hidden_layers * eng.spec_blocks > 0,
+                  f"spec_parity: {launched} per-lane launches for {eng.spec_blocks} verify blocks")
+            row["lanes_launches"] = launch_counts()
+        check(got.pop("s") == serial, f"spec_parity {dev}: the sampled lane differs from its serial stream")
+        check(got == {k: v[:24] for k, v in want.items()}, f"spec_parity {dev}: a greedy lane differs")
+        lanes[dev] = got
+        row[f"lanes_{dev}"] = {"blocks": eng.spec_blocks, "emitted": eng.spec_emitted}
+        eng.close()
+        del plain, spec
+    check(single["cuda"] == single["cpu"] and lanes["cuda"] == lanes["cpu"], "spec_parity: GPU and CPU differ")
+    tmp = tempfile.mkdtemp(prefix="dnet-torch-spec-")
+    try:
+        save_checkpoint(tmp, raw, hf_tensors(window, edge))
+        draft = LocalEngine(tmp, device="cuda", spec_lookahead=SPEC_L, draft_dir=tmp, **kw)
+        r0 = draft.prefill_and_sample("d", prompts["g2"], greedy)
+        first = draft.decode_spec("d", int(r0.token[0]), greedy, 32)
+        check(len(first) == SPEC_L + 1, f"self-draft block emitted {len(first)} of {SPEC_L + 1}")
+        draft.end_session("d")
+        got = [r.token_id for r in draft.generate(prompts["g2"], greedy, max_tokens=32, nonce="d")]
+        check(got == single["cuda"]["g2"], "self-draft stream differs from the plain one")
+        row["self_draft"] = {"first_block": len(first), "blocks": draft.spec_blocks, "emitted": draft.spec_emitted}
+        draft.close()
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    base = prompts["g2"]
+    ext = base + [9, 8, 7, 6]
+    cold = {dev: LocalEngine.from_params(cfg, window, edge, device=dev, **kw).prefill("c", ext).float().cpu()
+            for dev in ("cuda", "cpu")}
+    warm = LocalEngine.from_params(cfg, window, edge, device="cuda", prefix_cache_size=2, **kw)
+    warm.prefill("a", base)
+    warm.end_session("a")
+    hit = warm.prefill("b", ext).float().cpu()
+    check(warm.prefix_cache.stats["hits"] == 1, f"no prefix hit: {warm.prefix_cache.stats}")
+    errs = {dev: (hit - c).abs().max().item() for dev, c in cold.items()}
+    check(max(errs.values()) <= 2e-3, f"prefix hit logits vs cold: {errs}")
+    row["prefix_hit"] = {"tokens_restored": len(base), "logits_max_err_vs_cold": errs, "tol": 2e-3}
+    emit(row)
+    torch.cuda.empty_cache()
+    return row["lanes_launches"]
+
+
+def _first_divergence(a: list, b: list) -> Optional[int]:
+    return next((i for i, (x, y) in enumerate(zip(a, b)) if x != y), None if len(a) == len(b) else min(len(a), len(b)))
+
+
+def phase_spec_serve(model_dir: str, port: int) -> dict:
+    """The serve checkpoint (full-width Llama-3.2-1B, bf16) over HTTP with
+    and without speculation and the prefix cache.  The requests carry no
+    logit bias (a biased request does not speculate), so the random
+    weights' greedy tokens are mostly outside the byte tokenizer's 256 and
+    the visible text is short: the time to the first token is a 1-token
+    request's wall time, rates are completion tokens over wall time, and
+    token agreement is checked in process too.  Single sequence: a greedy
+    chat (64 tokens) and its 1-token probe, then a two-turn chat whose
+    turn 2 resends turn 1 (turn 2 a 1-token probe), on the plain server and
+    on one with DNET_API_SPEC_LOOKAHEAD=4 and DNET_API_PREFIX_CACHE=4; a
+    self-draft (DNET_API_DRAFT_MODEL naming the checkpoint); --batch-slots 8
+    with the batch_serve prompts (greedy, no bias, concurrent), plain and
+    speculating.  Reports tok/s, the first token's time, tokens a verify
+    block, whether the visible text agrees with the plain pass (in bf16 a
+    verify block's prefill kernel and a plain step's decode kernel may
+    round a near-tie apart: reported, not required), turn 2's first token
+    on a hit against the cold server and the prefill tokens saved, and the
+    in-process greedy tokens of a speculating bf16 engine against a plain
+    one; every batched verify block one per-lane launch a layer.  Returns
+    the batched speculating pass's launches."""
+    from dnet_tpu_torch.core.engine import LocalEngine
+    from dnet_tpu_torch.core.types import DecodingParams
+
+    model = "llama-3.2-1b-synthetic"
+    text = "Count: one two three one two three one two three"
+    chat = {"model": model, "max_tokens": MAX_TOKENS, "temperature": 0,
+            "messages": [{"role": "user", "content": text}]}
+    probe = dict(chat, max_tokens=1)
+    warm = dict(chat, max_tokens=8, messages=[{"role": "user", "content": "Warm up."}])
+
+    def turns(turn_text):
+        turn1 = dict(chat, messages=[{"role": "user", "content": turn_text}])
+
+        def turn2(results):
+            return dict(probe, messages=[{"role": "user", "content": turn_text},
+                                         {"role": "assistant", "content": results[-1]["content"]},
+                                         {"role": "user", "content": "Say that again in other words."}])
+        return [turn1, turn2]
+
+    # a first request and a first two-turn pair warm the server (first-use
+    # allocations and launches); the second pair is the measured one
+    turn_text = _long_prompt(SPEC_TURN_TOKENS)
+    requests = [warm, chat, probe]
+    then = turns("Tell me a story. " + turn_text) + turns(turn_text)
+    kinds = ["warm", "greedy", "first_token", "warm_turn1", "warm_turn2_first_token", "turn1", "turn2_first_token"]
+    args = Namespace(host="127.0.0.1", http_port=port, model=model_dir, models_dir="", device="cuda",
+                     max_seq_len=S, param_dtype="bfloat16", max_concurrent=8, request_timeout_s=600.0)
+
+    def summary(results, launches, load_s, health, names):
+        out = {"load_s": load_s, "engine": {k: v for k, v in health["engine"].items() if k.startswith(("spec", "prefix"))}}
+        for name, r in zip(names, results):
+            want = 1 if name.endswith("first_token") else 8 if name == "warm" else MAX_TOKENS
+            check(r["status"] == 200 and r["tokens"] == want, f"spec_serve {name}: {r['status']}, {r['tokens']}")
+            out[name] = {"s": r["s"], "tokens_per_s": r["tokens"] / r["s"], "visible_chars": len(r["content"])}
+        eng = health["engine"]
+        if eng.get("spec_blocks"):
+            out["tokens_per_block"] = eng["spec_emitted"] / eng["spec_blocks"]
+        out["launches"] = {k: v for k, v in launches.items() if v}
+        return out
+
+    row = {"phase": "spec_serve", "gpu": gpu_line(), "model": "Llama-3.2-1B (synthetic bf16 weights, seed 0)",
+           "lookahead": SPEC_L}
+    plain_res, launches, load_s, health = asyncio.run(_drive(args, requests, then=then))
+    row["plain"] = summary(plain_res, launches, load_s, health, kinds)
+    with environ({"DNET_API_SPEC_LOOKAHEAD": str(SPEC_L), "DNET_API_PREFIX_CACHE": "4"}):
+        spec_res, launches, load_s, health = asyncio.run(_drive(args, requests, then=then))
+    row["spec"] = summary(spec_res, launches, load_s, health, kinds)
+    cache = health["engine"]["prefix_cache"]
+    check(health["engine"]["spec_blocks"] > 0, "spec_serve: no verify block ran")
+    check(cache["hits"] >= 2, f"spec_serve: the turns 2 did not hit the prefix cache: {cache}")
+    row["speedup"] = row["spec"]["greedy"]["tokens_per_s"] / row["plain"]["greedy"]["tokens_per_s"]
+    # the hit covers turn 1's whole prompt (its snapshot): those tokens are not prefilled again
+    t2 = kinds.index("turn2_first_token")
+    row["prefix"] = {"turn2_first_token_s_hit": spec_res[t2]["s"], "turn2_first_token_s_cold": plain_res[t2]["s"],
+                     "prefill_tokens_saved": len(_template_ids(turn_text)), "prefix_cache": cache}
+    row["visible_text_agrees"] = {k: a["content"] == b["content"] for k, a, b in zip(kinds, plain_res, spec_res)}
+    with environ({"DNET_API_SPEC_LOOKAHEAD": str(SPEC_L), "DNET_API_DRAFT_MODEL": model_dir}):
+        draft_res, launches, load_s, health = asyncio.run(_drive(args, requests))
+    row["self_draft"] = summary(draft_res, launches, load_s, health, kinds[:3])
+    row["self_draft"]["visible_text_agrees"] = draft_res[1]["content"] == plain_res[1]["content"]
+    check(health["engine"].get("spec_draft") is True, "spec_serve: the draft model did not load")
+    # half of batch_serve's tokens a request: the script's time limit
+    burst = [{"model": model, "max_tokens": MAX_TOKENS // 2, "temperature": 0, "messages": b["messages"]}
+             for b in _batch_bodies()]
+    bargs = _batch_args(model_dir, port)
+
+    def burst_row(results, load_s):
+        for i, r in enumerate(results):
+            check(r["status"] == 200 and r["tokens"] == MAX_TOKENS // 2, f"spec_serve burst {i}: {r['status']}")
+        wall = max(r["s"] for r in results)  # the requests start together
+        return {"load_s": load_s, "burst_s": wall, "aggregate_tokens_per_s": sum(r["tokens"] for r in results) / wall}
+
+    plain_b, _, load_s, _ = asyncio.run(_drive(bargs, burst, concurrent=True))
+    row["batched_plain"] = burst_row(plain_b, load_s)
+    with environ({"DNET_API_SPEC_LOOKAHEAD": str(SPEC_L)}):
+        spec_b, lanes_launches, load_s, health = asyncio.run(_drive(bargs, burst, concurrent=True))
+    eng = health["engine"]
+    check(eng["spec_blocks"] > 0, "spec_serve batched: no verify block ran")
+    check(lanes_launches["flash_prefill_lanes"] == LAYERS * eng["spec_blocks"],
+          f"per-lane launches {lanes_launches['flash_prefill_lanes']} != {LAYERS} x {eng['spec_blocks']} blocks")
+    row["batched_spec"] = {**burst_row(spec_b, load_s), "verify_blocks": eng["spec_blocks"],
+                           "lane_blocks": eng["spec_lane_blocks"],
+                           "tokens_per_lane_block": eng["spec_emitted"] / eng["spec_lane_blocks"],
+                           "launches": {k: v for k, v in lanes_launches.items() if v}}
+    row["batched_speedup"] = row["batched_spec"]["aggregate_tokens_per_s"] / row["batched_plain"]["aggregate_tokens_per_s"]
+    row["batched_visible_text_agrees"] = sum(a["content"] == b["content"] for a, b in zip(plain_b, spec_b))
+    # the greedy tokens themselves, in process: a speculating bf16 engine against a plain one
+    ids = _template_ids(text)
+    streams = {}
+    for name, kw in (("plain", {}), ("spec", {"spec_lookahead": SPEC_L})):
+        eng = LocalEngine(model_dir, max_seq=S, device="cuda", **kw)
+        streams[name] = [r.token_id for r in eng.generate(ids, DecodingParams(temperature=0.0), max_tokens=MAX_TOKENS)]
+        eng.close()
+        del eng
+        gc.collect()
+    row["bf16_tokens"] = {"agree": sum(a == b for a, b in zip(streams["plain"], streams["spec"])),
+                          "of": MAX_TOKENS, "first_divergence": _first_divergence(streams["plain"], streams["spec"])}
+    emit(row)
+    torch.cuda.empty_cache()
+    return {"launches": lanes_launches}
+
+
 def lane_summary(rows: dict, paths: dict) -> dict:
     """The lane forms' line: each main row with the kernels line's keys,
     its launches taken from the path that ran it (`paths`: row name ->
@@ -5526,6 +5966,7 @@ def main() -> int:
     per_call = phase_decode_launches()
     per_call.update(phase_paged_launches(BATCH_POSITIONS))
     lane_per_call = phase_lane_launches()
+    per_call.update(phase_spec_launches())
 
     prompt_text = "Write one line about GPUs."
     tok = ByteTokenizer()
@@ -5544,11 +5985,14 @@ def main() -> int:
     main_path.update(phase_rotating_kernels())
     # the decode kernel's lane forms (B = 8) and the dense gather's copies
     lane_rows = phase_lane_kernels(lane_per_call)
+    # the batched verify block's per-lane prefill form, and the scalar form at the single-sequence verify's shape
+    main_path.update(phase_spec_kernels())
     phase_codec_host()
     phase_parity()
     phase_batch_parity()
     phase_sched_parity()
     lane_parity = phase_gather_parity()
+    phase_spec_parity()
     phase_quant_parity()
     phase_wq_parity()
     phase_stream_parity()
@@ -5559,7 +6003,7 @@ def main() -> int:
     main_path.update(phase_lse_kernels(SP_SERVE_POS))
     main_path.update(phase_lse_form_kernels(SP_SERVE_POS))
     sp_parity = phase_sp_parity()
-    served, batched, quant, ring, sp_served, gathered = phase_serve(prompt_text, n_prompt)
+    served, batched, quant, ring, sp_served, gathered, spec_served = phase_serve(prompt_text, n_prompt)
     long_text = _batch_prompts()[BATCH_PROMPT_TOKENS.index(300)]
     _, oss_served = phase_gpt_oss(prompt_text, long_text, _free_port())
     # deepseek_v2 (after gpt_oss has freed its memory): the MLA-width
@@ -5608,6 +6052,9 @@ def main() -> int:
                                      "dnet_tpu/ops/flash_decode.py:50 (rotating, qbits 4)", {"launches": oss_parity[4]}),
         "flash_prefill_mla": ("dnet_tpu_torch/csrc/flash_prefill.cu",
                               "dnet_tpu/ops/flash_attention.py:38 (Dqk 192, Dv 128)", ds_served),
+        "flash_prefill_lanes": ("dnet_tpu_torch/csrc/flash_prefill.cu",
+                                "dnet_tpu/ops/flash_attention.py:38 (per-lane positions: jax.vmap over lanes, "
+                                "dnet_tpu/core/batch.py:336)", spec_served),
         "flash_decode_mla": ("dnet_tpu_torch/csrc/flash_decode.cu", "dnet_tpu/ops/flash_decode.py:50 (Dqk 192, Dv 128)",
                              ds_served),
         "flash_decode_mla_q8": ("dnet_tpu_torch/csrc/flash_decode.cu",

@@ -10,7 +10,13 @@ where the ragged kernel takes the model and cache; dense slots where the
 pool cannot be used) behind a `BatchedLocalAdapter`, or behind the iteration-level scheduler's
 `SchedulerAdapter` (sched/) with DNET_SCHED=1, which widens a load to
 DNET_SCHED_SLOTS or max(batch_slots, 8) slots, as the reference's manager
-does; DNET_API_PREFIX_CACHE gives paged slots a prefix cache; a mesh
+does; DNET_API_PREFIX_CACHE gives every single-device engine a prefix
+cache (snapshots on the single sequence and dense slots, shared blocks on
+paged slots), DNET_API_SPEC_LOOKAHEAD speculative decoding (the single
+sequence and dense slots; off on paged slots and for rotating caches,
+with the reference's warnings) and DNET_API_DRAFT_MODEL, resolved as a
+model id is, its draft model (single sequence only; a draft that is not
+found logs a warning and the engine drafts by prompt lookup); a mesh
 (--mesh or DNET_MESH_*) with sp > 1 a sequence-parallel `MeshEngine` (parallel/engine.py) behind a
 `LocalAdapter`, its ranks on `mesh_devices` when the caller names them
 (else one CUDA card per rank, or the CPU under device 'cpu').  `kv_bits` (DNET_KV_BITS: 0, 16, 8 or 4)
@@ -20,12 +26,8 @@ id `<id>:int8` / `<id>:int4` (api/catalog.py `split_variant`) loads the
 base checkpoint at those bits (`<id>:bf16` at none), with the bits'
 default group unless one is set.  What is not ported is
 refused at load with `EngineCapabilityError` (HTTP 422), the setting named,
-instead of being dropped:
-the single-sequence and the dense-slot prefix caches (DNET_API_PREFIX_CACHE
-with batch_slots 1, or on dense batched slots, also where a paged pool
-falls back to them: core/batch.py), speculative decoding
-(DNET_API_SPEC_LOOKAHEAD), the draft model (DNET_API_DRAFT_MODEL), and
-under a mesh: --batch-slots > 1 and the pp / tp / dp axes.  A
+instead of being dropped: under a mesh, --batch-slots > 1, the pp / tp / dp
+axes, and the prefix cache or speculation (ROADMAP A7.4).  A
 model id is a filesystem path or a subdirectory of `models_dir` (repo id
 slashes replaced by `--`, HF-cache style); nothing is downloaded.
 """
@@ -88,19 +90,21 @@ def active_mesh(mesh: Optional[dict]) -> Optional[dict]:
 
 def refuse_unported(settings: ApiSettings, batch_slots: int, mesh: Optional[dict] = None) -> None:
     """Raise EngineCapabilityError for the first setting that changes what
-    the reference serves and that the port does not serve yet (ROADMAP A4;
-    the mesh's own axes and its family: parallel/engine.py check_mesh; a
-    prefix cache on dense batched slots: core/batch.py).  `batch_slots` is
-    the load's, widened by the scheduler where it serves."""
+    the reference serves and that the port does not serve yet (under a
+    mesh: batching, the prefix cache and speculation, ROADMAP A7.4; the
+    mesh's own axes and its family: parallel/engine.py check_mesh).
+    `batch_slots` is the load's, widened by the scheduler where it
+    serves."""
     refused = [
         (mesh is not None and batch_slots > 1,
          f"--batch-slots {batch_slots} with mesh {mesh}: continuous batching on the mesh engine is not ported"),
-        (settings.prefix_cache > 0 and batch_slots <= 1,
-         f"DNET_API_PREFIX_CACHE={settings.prefix_cache}: the single-sequence prefix cache is not ported"),
-        (settings.spec_lookahead > 0,
-         f"DNET_API_SPEC_LOOKAHEAD={settings.spec_lookahead}: speculative decoding is not ported"),
-        (bool(settings.draft_model),
-         f"DNET_API_DRAFT_MODEL={settings.draft_model!r}: draft-model speculation is not ported"),
+        (mesh is not None and settings.prefix_cache > 0,
+         f"DNET_API_PREFIX_CACHE={settings.prefix_cache} with mesh {mesh}: the mesh engine's sharded prefix "
+         "snapshots are not ported (ROADMAP A7.4)"),
+        (mesh is not None and settings.spec_lookahead > 0,
+         f"DNET_API_SPEC_LOOKAHEAD={settings.spec_lookahead}"
+         + (f" (DNET_API_DRAFT_MODEL={settings.draft_model!r})" if settings.draft_model else "")
+         + f" with mesh {mesh}: the mesh engine's ring verify block is not ported (ROADMAP A7.4)"),
     ]
     for cond, why in refused:
         if cond:
@@ -162,6 +166,15 @@ class LocalModelManager:
         kwargs = dict(max_seq=max_seq or self.max_seq, param_dtype=self.param_dtype, device=self.device,
                       kv_dtype=kv_dtype, kv_quant_bits=kv_quant_bits, weight_quant_bits=wq_bits,
                       weight_quant_group=wq_group)
+        features = dict(prefix_cache_size=settings.prefix_cache, spec_lookahead=settings.spec_lookahead)
+        # the draft model: single-sequence serving only (batched engines
+        # draft by prompt lookup), resolved as a model id is
+        draft_dir = None
+        if settings.draft_model and settings.spec_lookahead > 0 and self.mesh is None and batch_slots <= 1:
+            draft_dir = resolve_model_dir(settings.draft_model, self.models_dir)
+            if draft_dir is None:
+                log.warning("DNET_API_DRAFT_MODEL=%s not found; drafting by prompt-lookup instead",
+                            settings.draft_model)
 
         def _build():
             if self.mesh is not None:
@@ -170,12 +183,9 @@ class LocalModelManager:
                     dp=self.mesh.get("dp", 1), devices=self.mesh_devices, **kwargs,
                 )
             elif batch_slots > 1:
-                engine = BatchedEngine(
-                    model_dir, slots=batch_slots,
-                    prefix_cache_size=settings.prefix_cache, **kwargs,
-                )
+                engine = BatchedEngine(model_dir, slots=batch_slots, **features, **kwargs)
             else:
-                engine = LocalEngine(model_dir, **kwargs)
+                engine = LocalEngine(model_dir, draft_dir=draft_dir, **features, **kwargs)
             return engine, load_tokenizer(model_dir)
 
         engine, tokenizer = await asyncio.get_running_loop().run_in_executor(None, _build)

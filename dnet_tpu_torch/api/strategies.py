@@ -5,7 +5,11 @@ contract the driver speaks; `LocalAdapter` runs the engine in this process
 on one compute thread, chunking decode steps with the same 2 -> 4 -> ...
 width ramp and the same one-chunk-ahead pipelining as the reference;
 `BatchedLocalAdapter` coalesces concurrent requests' decode steps into one
-batched engine call (continuous batching).  DNET_SCHED=1 serves the
+batched engine call (continuous batching).  A greedy request on a
+speculating engine decodes by verify blocks (`LocalAdapter`: the engine's
+`decode_spec`; batched: inside `decode_batch`), their extra tokens
+buffered as a chunk's are; a chunked prefill looks the whole prompt up in
+the prefix cache first and stores it at the end.  DNET_SCHED=1 serves the
 iteration-level scheduler's adapter instead (sched/engine.py).
 """
 
@@ -225,15 +229,20 @@ class BatchedLocalAdapter(ApiAdapterBase):
         try:
             # claim a batch slot BEFORE burning any prefill compute
             await loop.run_in_executor(self._executor, eng.reserve_slot, nonce)
+            # the prefix cache first: look up the WHOLE prompt, then prefill
+            # only the part it does not cover
+            n = await loop.run_in_executor(self._executor, eng.seed_from_prefix, nonce, ids, decoding.seed)
+            rest = ids[n:]
             logits = None
-            for i in range(0, len(ids), self.PREFILL_CHUNK):
+            for i in range(0, len(rest), self.PREFILL_CHUNK):
                 if self._cancelled(nonce, step):
                     await loop.run_in_executor(self._executor, eng.abandon_prefill, nonce)
                     return
-                chunk = ids[i : i + self.PREFILL_CHUNK]
+                chunk = rest[i : i + self.PREFILL_CHUNK]
                 logits = await loop.run_in_executor(
                     self._executor, eng.prefill_chunk, nonce, chunk, decoding.seed
                 )
+            await loop.run_in_executor(self._executor, eng.store_prefix, nonce, ids)
             if self._cancelled(nonce, step):
                 await loop.run_in_executor(self._executor, eng.abandon_prefill, nonce)
                 return
@@ -361,8 +370,18 @@ class LocalAdapter(ApiAdapterBase):
 
     def _chunked_results(self, eng, nonce: str, token_ids: List[int], decoding, budget):
         """Pipelined chunked decode: read the current chunk AFTER enqueueing
-        the next one, so the read overlaps the device computing ahead.
-        Returns the current chunk's results, or None for a single step."""
+        the next one, so the read overlaps the device computing ahead.  A
+        request the engine may speculate on runs one verify block instead
+        (1..L+1 tokens, buffered like a chunk's).  Returns the current
+        chunk's results, or None for a single step."""
+        if (
+            budget is not None
+            and budget > 1
+            and eng.spec_eligible(decoding)
+            and eng.spec_worthwhile(nonce)
+            and eng.pending_chunks(nonce) == 0
+        ):
+            return eng.decode_spec(nonce, token_ids[-1], decoding, budget)
         if eng.pending_chunks(nonce) == 0:
             chunk = self._next_chunk_width(nonce, budget)
             if chunk <= 1:

@@ -95,10 +95,11 @@ class ApiSettings:
     weight_quant_group: int = 0
     # >1 = continuous batching over that many slots (core/batch.py)
     batch_slots: int = 1
-    # >0 = a prefix cache of that many entries (not ported: refused at load)
+    # >0 = a prefix cache of that many entries (core/prefix_cache.py; under
+    # a mesh refused at load)
     prefix_cache: int = 0
     # >0 = speculative decoding with that many drafted tokens, and a draft
-    # model's checkpoint for it (neither ported: refused at load)
+    # model's checkpoint for it (core/spec.py; under a mesh refused at load)
     spec_lookahead: int = 0
     draft_model: str = ""
     # decode grants on a ring: tokens the tail may feed straight back to

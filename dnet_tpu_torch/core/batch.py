@@ -35,12 +35,27 @@ back to dense slots with the reference's warning.
 
 In all three, prefill runs per request on the wrapped B=1 `LocalEngine` (the
 prefill kernel, a dense staging row), then the row moves into the slot's
-row or commits into pool blocks.  With a prefix cache (paged only,
-`prefix_cache_size`, kv/prefix.py), a prompt that extends a stored one
-aliases its full blocks into the new page table, prefills only the rest,
-and copies a shared partial tail block through its staging row
-(copy-on-write); a prefilled prompt is stored by aliasing its blocks.  A
-decode step is one forward over all slots with static [slots] shapes and
+row or commits into pool blocks.  With a prefix cache
+(`prefix_cache_size`): on dense slots the inner engine's snapshot cache
+(core/prefix_cache.py `PrefixCache`) restores a hit into the staging row;
+on paged slots (kv/prefix.py) a prompt that extends a stored one aliases
+its full blocks into the new page table, prefills only the rest, and
+copies a shared partial tail block through its staging row
+(copy-on-write), and a prefilled prompt is stored by aliasing its blocks.
+
+Speculation (`spec_lookahead` L > 0, dense slots only: a verify block's
+rows would bypass the paged scatter, so it is off under a pool with the
+reference's warning; and off for a rotating cache): within one
+`decode_batch` call, the greedy lanes with budget to spare draft L tokens
+each by prompt lookup over their own history row (core/spec.py, on the
+device) and verify them together in ONE forward of L+1 rows a lane
+(`_decode_spec_lanes`: each layer writes the speculating lanes' rows at
+their positions and attends through the prefill kernel's per-lane form,
+ops/attention.py `lane_chunk_attend`); each lane advances by its own
+accepted count (its extra tokens buffer here), while sampled lanes take the
+plain batched step.
+
+A decode step is one forward over all slots with static [slots] shapes and
 an active mask: inactive lanes are not written, attend nothing, and
 advance neither their counts nor their random stream (core/sampler.py `sample_lanes`).  Budgets widen a dispatch
 into an R-step chunk (CHUNK_BUCKETS): sampled tokens feed the next step on
@@ -49,11 +64,8 @@ the extra tokens buffer here.
 
 Where the reference jits one vmapped program per step, this is eager
 PyTorch: a chunk is a Python loop whose launches queue on the current CUDA
-stream.  Not ported yet, and refused at load with `EngineCapabilityError`
-instead of serving something else: the prefix cache on dense slots (the
-reference's dense snapshot `PrefixCache`, ROADMAP A4), also where a paged
-pool falls back to dense slots.  A streaming weight plan is refused as the
-reference refuses it: batching needs resident weights.
+stream.  A streaming weight plan is refused with `EngineCapabilityError`
+(422) as the reference refuses it: batching needs resident weights.
 """
 
 from __future__ import annotations
@@ -75,6 +87,7 @@ from dnet_tpu_torch.core.sampler import (
     pack_chunk_results,
     sample_lanes,
 )
+from dnet_tpu_torch.core.spec import accept_drafts, commit_history, ngram_draft
 from dnet_tpu_torch.core.types import DecodingParams
 from dnet_tpu_torch.kv import (
     BlockPool,
@@ -87,7 +100,7 @@ from dnet_tpu_torch.kv import (
     ragged_enabled,
 )
 from dnet_tpu_torch.kv.store import tree_get, tree_leaves
-from dnet_tpu_torch.ops.attention import LaneStep, lane_cached_attend
+from dnet_tpu_torch.ops.attention import LaneChunk, LaneStep, lane_chunk_attend, lane_cached_attend
 from dnet_tpu_torch.ops.paged_attention import paged_attend, ragged_refusal
 from dnet_tpu_torch.utils.logger import get_logger
 
@@ -101,26 +114,25 @@ def _bucket_pow2(n: int) -> int:
     return b
 
 
-def _dense_prefix_refusal(size: int, why: str) -> str:
-    return (
-        f"DNET_API_PREFIX_CACHE={size} on dense batched slots ({why}): the dense snapshot prefix "
-        "cache is not ported (ROADMAP A4); it serves on paged slots (DNET_KV_PAGED=1); unset it to serve"
-    )
-
-
 class BatchedEngine:
     """LocalEngine-compatible surface plus `decode_batch` for the adapter."""
 
     token_result = staticmethod(LocalEngine.token_result)
     # chunk widths tried largest-first
     CHUNK_BUCKETS = (16, 8, 4, 2)
+    # the acceptance gate's thresholds, LocalEngine's
+    SPEC_WARMUP_BLOCKS = LocalEngine.SPEC_WARMUP_BLOCKS
+    SPEC_MIN_TOKENS_PER_BLOCK = LocalEngine.SPEC_MIN_TOKENS_PER_BLOCK
 
     def __init__(
         self, model_dir: str | Path, slots: int = 8, prefix_cache_size: int = 0, **engine_kwargs
     ):
-        self._refuse_config(slots, prefix_cache_size)
+        if slots < 1:
+            raise ValueError(f"slots must be >= 1, got {slots}")
         # the inner B=1 engine only stages prefills: this engine owns the pool
-        self.eng = LocalEngine(model_dir, **{**engine_kwargs, "kv_paged": False})
+        # (and, paged, the prefix cache); on dense slots the prefix cache is
+        # the inner engine's
+        self.eng = LocalEngine(model_dir, **self._inner_kwargs(prefix_cache_size, engine_kwargs))
         self._init_state(slots, prefix_cache_size)
 
     @classmethod
@@ -129,23 +141,19 @@ class BatchedEngine:
     ) -> "BatchedEngine":
         """Build around already-materialised params (mirrors
         LocalEngine.from_params)."""
-        cls._refuse_config(slots, prefix_cache_size)
+        if slots < 1:
+            raise ValueError(f"slots must be >= 1, got {slots}")
         self = cls.__new__(cls)
-        self.eng = LocalEngine.from_params(config, window_params, edge_params, **{**kw, "kv_paged": False})
+        self.eng = LocalEngine.from_params(config, window_params, edge_params,
+                                           **self._inner_kwargs(prefix_cache_size, kw))
         self._init_state(slots, prefix_cache_size)
         return self
 
     @staticmethod
-    def _refuse_config(slots: int, prefix_cache_size: int) -> None:
-        """Load-time refusals of what this port does not serve yet (the HTTP
-        layer maps EngineCapabilityError to 422).  Checked before any weight
-        is read."""
-        from dnet_tpu_torch.api.inference import EngineCapabilityError
-
-        if slots < 1:
-            raise ValueError(f"slots must be >= 1, got {slots}")
-        if prefix_cache_size and not paged_enabled():
-            raise EngineCapabilityError(_dense_prefix_refusal(prefix_cache_size, "DNET_KV_PAGED is unset"))
+    def _inner_kwargs(prefix_cache_size: int, kw: dict) -> dict:
+        """The inner engine's arguments: never its own ledger, and the
+        prefix cache's capacity when the slots will be dense."""
+        return {**kw, "kv_paged": False, "prefix_cache_size": 0 if paged_enabled() else prefix_cache_size}
 
     def _init_state(self, slots: int, prefix_size: int = 0) -> None:
         from dnet_tpu_torch.api.inference import EngineCapabilityError
@@ -165,6 +173,13 @@ class BatchedEngine:
         self.config = self.eng.config
         self.model = m
         self.device = self.eng.device
+        # per-lane speculation: the inner engine's staging sessions keep the
+        # prompt's history, which each lane adopts
+        self.spec_lookahead = self.eng.spec_lookahead
+        if self.spec_lookahead > 0 and not m.kv_rewindable(self.max_seq):
+            log.warning("speculative decoding needs a rewind-safe cache layout; %s uses rotating SWA buffers "
+                        "- disabled for this model", m.config.model_type)
+            self.spec_lookahead = 0
         self.kv = None  # dense slots: [L, slots, S, ...] (+ scales)
         self.kv_pool = self.kv_store = self._kv_cfg = None  # paged
         self._tables: List[Optional[PageTable]] = [None] * slots
@@ -181,17 +196,22 @@ class BatchedEngine:
                                    session_tokens=self.max_seq)
             except (ValueError, NotImplementedError) as exc:
                 log.warning("paged KV disabled for batched engine (%s); serving dense slots", exc)
-                if prefix_size:
-                    raise EngineCapabilityError(
-                        _dense_prefix_refusal(prefix_size, f"paged KV is disabled ({exc})")
-                    ) from None
                 paged = False
+                if prefix_size > 0:
+                    # the pool was to hold the prefix cache: the slots are
+                    # dense, so the inner engine keeps the snapshots
+                    self.eng.prefix_cache = self.eng._build_prefix_cache(prefix_size)
             else:
                 self._kv_cfg = cfg
                 self.kv_pool = BlockPool(cfg)
                 self.kv_store = store
                 if prefix_size > 0:
-                    self.paged_prefix = PagedPrefixCache(self.kv_pool, self.kv_store, prefix_size)
+                    self.paged_prefix = PagedPrefixCache(self.kv_pool, self.kv_store, prefix_size,
+                                                         row_tokens=self.max_seq)
+                if self.spec_lookahead > 0:
+                    log.warning("per-lane speculation disabled under paged KV (verify blocks bypass the block "
+                                "scatter path)")
+                    self.spec_lookahead = 0
                 log.info("paged KV on: %d blocks x %d tokens serving %d slots",
                          cfg.pool_blocks, cfg.block_tokens, slots)
         # ragged paged attention (DNET_KV_RAGGED=1): decode attends the pool
@@ -226,6 +246,13 @@ class BatchedEngine:
         # and the host time of the last dispatch before its one read
         self.decode_steps = 0
         self.last_dispatch_ms = 0.0
+        # speculation: each lane's committed tokens by position, the
+        # acceptance counts per request (nonce -> [blocks, emitted]), the
+        # verify forwards run, the lanes they verified and the tokens emitted
+        self.hist = (torch.zeros((slots, self.max_seq), dtype=torch.int64, device=self.device)
+                     if self.spec_lookahead > 0 else None)
+        self._spec_stats: Dict[str, List[int]] = {}
+        self.spec_blocks = self.spec_lane_blocks = self.spec_emitted = 0
 
     def _kv_bytes(self) -> int:
         return tensor_bytes(self.kv if self.kv is not None else self.kv_store.kv)
@@ -244,6 +271,7 @@ class BatchedEngine:
 
     def free_slot(self, nonce: str) -> None:
         self._buffer.pop(nonce, None)
+        self._spec_stats.pop(nonce, None)
         stash = self._adopt.pop(nonce, None)
         if stash is not None:
             # a prefix hit whose prefill never committed (cancelled, starved)
@@ -255,6 +283,8 @@ class BatchedEngine:
                 tbl, self._tables[slot] = self._tables[slot], None
                 self.kv_pool.release_table(tbl)
             self.counts[slot].zero_()
+            if self.hist is not None:
+                self.hist[slot].zero_()
             self.generators[slot] = None
             self.pos[slot] = 0
             self._free.append(slot)
@@ -308,31 +338,42 @@ class BatchedEngine:
                 blocks=self.paged_prefix.held_blocks(),
                 shared_blocks=self.kv_pool.shared_blocks, cow_copies=self.kv_pool.cow_copies,
             )
+        elif self.eng.prefix_cache is not None:
+            out["prefix_cache"] = dict(self.eng.prefix_cache.stats, entries=len(self.eng.prefix_cache))
+        if self.spec_lookahead > 0:
+            out.update(spec_lookahead=self.spec_lookahead, spec_blocks=self.spec_blocks,
+                       spec_lane_blocks=self.spec_lane_blocks, spec_emitted=self.spec_emitted)
         return out
 
     # ---- prefix cache -------------------------------------------------
     def seed_from_prefix(self, nonce, full_ids, seed=None) -> int:
-        """Paged slots with a prefix cache: a hit's blocks are held for this
-        request's page table (full blocks aliased, no copy) and its staging
-        session starts from them, gathered into a dense row, at the hit's
-        length.  Returns the tokens covered (0 on a miss, on dense slots,
-        without a cache, or when the session already exists)."""
+        """A new request's prefix-cache entry.  Dense slots: the inner
+        engine's snapshot restores its staging session.  Paged slots: a
+        hit's blocks are held for this request's page table (full blocks
+        aliased, no copy) and its staging session starts from them,
+        gathered into a dense row, at the hit's length.  Returns the tokens
+        covered (0 on a miss, without a cache, or when the session already
+        exists)."""
+        if self.kv_pool is None:
+            return self.eng.seed_from_prefix(nonce, full_ids, seed)
         if self.paged_prefix is None or nonce in self.eng.sessions:
             return 0
-        hit = self.paged_prefix.lookup_blocks(list(full_ids))
+        full = list(full_ids)
+        hit = self.paged_prefix.lookup_blocks(full)
         if hit is None:
             return 0
         n, blocks, n_full = hit
-        sess = self.eng.new_session(nonce, seed)
-        sess.kv = self.kv_store.gather_row(blocks, self.max_seq)
-        sess.pos = n
+        self.eng._restore_session(nonce, full, n, self.kv_store.gather_row(blocks, self.max_seq), seed)
         self._adopt[nonce] = (n, blocks, n_full)
         return n
 
     def store_prefix(self, nonce, full_ids) -> None:
         """Snapshot `full_ids`' KV into the prefix cache: an adopted slot's
         live page table is aliased (zero copies); a prompt still staging
-        commits its tail blocks, aliasing a parent entry's full blocks."""
+        commits its tail blocks, aliasing a parent entry's full blocks.
+        Dense slots: the inner engine snapshots a staging session."""
+        if self.kv_pool is None:
+            return self.eng.store_prefix(nonce, full_ids)
         if self.paged_prefix is None:
             return
         full = list(full_ids)
@@ -366,7 +407,8 @@ class BatchedEngine:
             pos = 0 if sess is None else int(sess.pos)
             need = self._kv_cfg.blocks_for(min(pos + len(ids), self.max_seq))
             self.kv_pool.require(max(need - self._held_full_blocks(nonce), 0))
-        return self.eng.prefill(nonce, list(ids), seed)
+        # the full prompt's snapshot is the caller's (store_prefix)
+        return self.eng.prefill(nonce, list(ids), seed, allow_store=False)
 
     def abandon_prefill(self, nonce) -> None:
         """Drop a half-prefilled request (cancelled mid-chunks)."""
@@ -426,6 +468,8 @@ class BatchedEngine:
                 m = min(n, big.shape[2])
                 big[:, slot, :m] = tree_get(sess.kv, path)[:, 0, :m]
         self.counts[slot] = sess.counts[0]
+        if self.hist is not None and sess.hist is not None:
+            self.hist[slot] = sess.hist[0]  # the prompt the staging prefill committed
         self.generators[slot] = sess.generator
         self.pos[slot] = sess.pos
         self.last_used[slot] = time.time()
@@ -436,16 +480,24 @@ class BatchedEngine:
     ) -> SampleResult:
         """Prefill on the B=1 engine (from a prefix hit where there is one),
         then move the session's KV row and sampling state into this
-        request's batch slot, and store the prompt in the prefix cache."""
+        request's batch slot, and store the prompt in the prefix cache (on
+        dense slots the inner engine's prefill looks up and stores)."""
         self.alloc_slot(nonce)  # fail on a full slot pool BEFORE burning prefill
         full = list(prompt_ids)
+        if self.kv_pool is None:
+            try:
+                res = self.eng.prefill_and_sample(nonce, full, decoding)
+                self._move_to_slot(nonce, self.eng.sessions[nonce])
+            except Exception:
+                self.abandon_prefill(nonce)
+                raise
+            return res
         try:
             n = self.seed_from_prefix(nonce, full, decoding.seed)
-            if self.kv_pool is not None:
-                # admission: the pool must cover the uncovered prompt before prefill burns
-                need = self._kv_cfg.blocks_for(min(len(full), self.max_seq))
-                self.kv_pool.require(max(need - self._held_full_blocks(nonce), 0))
-            logits = self.eng.prefill(nonce, full[n:], decoding.seed)
+            # admission: the pool must cover the uncovered prompt before prefill burns
+            need = self._kv_cfg.blocks_for(min(len(full), self.max_seq))
+            self.kv_pool.require(max(need - self._held_full_blocks(nonce), 0))
+            logits = self.eng.prefill(nonce, full[n:], decoding.seed, allow_store=False)
             res = self._sample_session(self.eng.sessions[nonce], logits, decoding)
             self._move_to_slot(nonce, self.eng.sessions[nonce])
         except Exception:
@@ -486,6 +538,30 @@ class BatchedEngine:
         requests = {n: r for n, r in requests.items() if n not in out}
         if not requests:
             return out, errors
+        # per-lane speculation: greedy lanes with budget to spare verify a
+        # drafted block instead of stepping once, each advancing by its own
+        # accepted count; the other lanes take the plain step below
+        if self.spec_lookahead > 0 and budgets:
+            spec_reqs = {}
+            for nonce, (tok, dec) in requests.items():
+                slot = self.slot_of.get(nonce)
+                budget = budgets.get(nonce) or 1
+                if (
+                    slot is not None
+                    and dec.temperature == 0.0
+                    and not dec.logprobs
+                    and dec.repetition_penalty == 1.0
+                    and not dec.logit_bias  # the verify's argmaxes are unbiased
+                    and budget > 1
+                    and self.pos[slot] + self.spec_lookahead + 1 <= self.max_seq
+                    and self._spec_worthwhile(nonce)
+                ):
+                    spec_reqs[nonce] = (tok, slot, budget)
+            if spec_reqs:
+                out.update(self._decode_spec_lanes(spec_reqs))
+                requests = {n: r for n, r in requests.items() if n not in spec_reqs}
+                if not requests:
+                    return out, errors
         token = np.zeros((self.slots, 1), dtype=np.int64)
         active = np.zeros(self.slots, dtype=bool)
         decs: Dict[int, DecodingParams] = {}
@@ -733,6 +809,72 @@ class BatchedEngine:
                 pos_t = pos_t + step_t
                 lane_pos = lane_pos + 1
         return torch.stack(steps), with_lp
+
+    # ---- speculation ----------------------------------------------------
+    def _spec_worthwhile(self, nonce: str) -> bool:
+        """LocalEngine.spec_worthwhile's gate on this request's counts."""
+        st = self._spec_stats.get(nonce)
+        if st is None or st[0] < self.SPEC_WARMUP_BLOCKS:
+            return True
+        return st[1] / st[0] >= self.SPEC_MIN_TOKENS_PER_BLOCK
+
+    def _decode_spec_lanes(self, spec_reqs: Dict[str, Tuple[int, int, int]]) -> Dict[str, SampleResult]:
+        """One verify block over the speculating lanes (nonce -> (fed token,
+        slot, budget)): each commits its fed token to its history row,
+        drafts L tokens by prompt lookup there and writes them too; then
+        ONE forward over every slot's L+1 rows (lanes that do not speculate
+        ride along, neither written nor read back) verifies them, and each
+        lane emits its agreeing prefix plus the first correction (at most
+        its budget).  The first token returns now, the rest buffer."""
+        L = self.spec_lookahead
+        m, ep = self.model, self.eng.edge_params
+        lanes = sorted(slot for _tok, slot, _b in spec_reqs.values())
+        tok = np.zeros(self.slots, dtype=np.int64)
+        pos = np.zeros(self.slots, dtype=np.int64)
+        for _nonce, (t, slot, _b) in spec_reqs.items():
+            tok[slot], pos[slot] = t, self.pos[slot]
+        lane_t = self._to_device(np.asarray(lanes, dtype=np.int64))
+        start_t = self._to_device(pos[lanes])
+        fed = self._to_device(tok[lanes])[:, None]  # [n, 1]
+        # the lanes' history rows: the fed token at pos, the drafts after it
+        hist = commit_history(self.hist[lane_t], start_t, fed)
+        drafts = ngram_draft(hist, start_t + 1, L)  # [n, L], on the device
+        self.hist[lane_t] = commit_history(hist, start_t + 1, drafts)
+        block = torch.zeros((self.slots, L + 1), dtype=torch.int64, device=self.device)
+        block[lane_t] = torch.cat([fed, drafts], dim=1)
+        chunk = LaneChunk(lane_t, start_t[:, None] + torch.arange(L + 1, device=self.device),
+                          self._to_device(pos.astype(np.int32)), int(pos.max()))
+
+        def attend_fn(q, k, v, kvs, sinks=None, scale=None, window=0):
+            return lane_chunk_attend(q, k, v, kvs, chunk, sinks=sinks, scale=scale, window=window), {}
+
+        x = m.embed(ep, block)
+        x, _ = m.apply_window(self.eng.window_params, x, self.kv, self._to_device(pos)[:, None],
+                              attend_fn=attend_fn)
+        preds = m.lm_project(ep, m.normalize(ep, x[lane_t])).argmax(dim=-1)  # [n, L+1]
+        out_h = accept_drafts(preds, drafts)[1].cpu().numpy()  # -1 past each lane's acceptance
+        self.spec_blocks += 1
+        self.spec_lane_blocks += len(lanes)
+        now = time.time()
+        zero_lp = np.zeros((1,), np.float32)
+        zero_tt = np.zeros((1, MAX_TOP_LOGPROBS), np.int32)
+        zero_tlp = np.zeros((1, MAX_TOP_LOGPROBS), np.float32)
+        res: Dict[str, SampleResult] = {}
+        for nonce, (_t, slot, budget) in spec_reqs.items():
+            row = out_h[lanes.index(slot)]
+            emitted = min(int((row >= 0).sum()), budget)
+            rows = [SampleResult(row[i : i + 1].astype(np.int32), zero_lp, zero_tt, zero_tlp)
+                    for i in range(emitted)]
+            self.pos[slot] += emitted
+            self.last_used[slot] = now
+            st = self._spec_stats.setdefault(nonce, [0, 0])
+            st[0] += 1
+            st[1] += emitted
+            self.spec_emitted += emitted
+            res[nonce] = rows[0]
+            if rows[1:]:
+                self._buffer.setdefault(nonce, []).extend(rows[1:])
+        return res
 
     def generate(
         self,

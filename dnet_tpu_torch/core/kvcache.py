@@ -23,8 +23,9 @@ prefill.
 Unlike JAX's `dynamic_update_slice`, which clamps an out-of-range start and
 would silently shift the write, `write_kv` raises when a chunk does not
 fit; the engine keeps every chunk inside the cache by padding to at most
-`max_seq - pos` tokens.  `write_kv_rows` writes one row per active lane of
-a batch (the reference's `kv_commit` gate), leaving other lanes untouched.
+`max_seq - pos` tokens.  `write_kv_rows` writes one row, or one chunk of
+rows (a speculative verify block), per active lane of a batch (the
+reference's `kv_commit` gate), leaving other lanes untouched.
 """
 
 from __future__ import annotations
@@ -192,13 +193,15 @@ def write_kv_rows(
     kvs: dict, k_rows: torch.Tensor, v_rows: torch.Tensor, lanes: torch.Tensor, positions: torch.Tensor
 ) -> dict:
     """Write one new row per listed lane ([n, KVH, Hd]) at slot
-    positions[i] of lane lanes[i], IN PLACE, codes and scales together; the
-    other lanes' rows are untouched.  lanes/positions are int64 [n] on the
-    cache's device, each position inside the cache (the caller checks: an
-    index out of range is a device-side fault here, never a clamped
-    write)."""
+    positions[i] of lane lanes[i], or a chunk of rows per lane ([n, T, KVH,
+    Hd]) at slots positions[i, :] (int64 [n, T]), IN PLACE, codes and
+    scales together; the other lanes' rows are untouched.  lanes/positions
+    are int64 on the cache's device, each position inside the cache (the
+    caller checks: an index out of range is a device-side fault here, never
+    a clamped write)."""
+    rows = lanes[:, None] if positions.dim() == 2 else lanes
     for name, val in _encoded(kvs, k_rows, v_rows).items():
-        kvs[name][lanes, positions] = val
+        kvs[name][rows, positions] = val
     return kvs
 
 

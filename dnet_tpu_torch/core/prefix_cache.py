@@ -1,12 +1,16 @@
 """Prefix matching for KV reuse across requests.
 
-Counterpart of dnet_tpu/core/prefix_cache.py, its `PrefixIndex` only: the
-matcher and LRU that the paged prefix cache (kv/prefix.py) stores block
-runs in.  Matching is exact-prefix over full stored prompts, so the win is
-multi-turn chat: a follow-up request resends the grown history, hits the
-previous turn's entry and prefills only the new turn.  The dense
-snapshot cache (`PrefixCache`) and the shard-side `SnapshotStore` are not
-ported.  The reference's hit / miss / store / eviction metrics are plain
+Counterpart of dnet_tpu/core/prefix_cache.py: `PrefixIndex`, the matcher
+and LRU that the paged prefix cache (kv/prefix.py) stores block runs in,
+and `PrefixCache`, the dense snapshot cache of the single-sequence engine
+and of dense batched slots (the KV of whole prompts).  Matching is
+exact-prefix over full stored prompts, so the win is multi-turn chat: a
+follow-up request resends the grown history, hits the previous turn's
+entry and prefills only the new turn.  Snapshots are clones both in and
+out: the engine writes its caches in place, so a shared tensor would
+change under the entry at the borrowing session's next step.  The
+shard-side `SnapshotStore` is not ported (ring prefix caching, ROADMAP
+A6.3).  The reference's hit / miss / store / eviction metrics are plain
 counters here (`stats`).
 """
 
@@ -15,6 +19,17 @@ from __future__ import annotations
 import threading
 from collections import OrderedDict
 from typing import Optional, Sequence, Tuple
+
+import torch
+
+
+def clone_tree(tree):
+    """A deep copy of a cache: a tensor, or a dict / list of them."""
+    if isinstance(tree, torch.Tensor):
+        return tree.clone()
+    if isinstance(tree, dict):
+        return {k: clone_tree(v) for k, v in tree.items()}
+    return [clone_tree(v) for v in tree]
 
 
 class PrefixIndex:
@@ -115,3 +130,46 @@ class PrefixIndex:
         if self.on_evict is not None:
             for v in dropped:
                 self.on_evict(v)
+
+
+class PrefixCache:
+    """Full-prompt KV snapshots over a PrefixIndex (repetition counts are
+    zero at prefill end, since they track generated tokens only, so the KV
+    is the whole state)."""
+
+    def __init__(self, capacity: int, min_tokens: int = 16) -> None:
+        self._index = PrefixIndex(capacity, min_tokens)
+        self.stats = {"hits": 0, "misses": 0, "stores": 0}
+
+    @property
+    def min_tokens(self) -> int:
+        return self._index.min_tokens
+
+    @min_tokens.setter
+    def min_tokens(self, v: int) -> None:  # tests tune it for tiny prompts
+        self._index.min_tokens = v
+
+    def __len__(self) -> int:
+        return len(self._index)
+
+    def lookup(self, prompt_ids: Sequence[int]) -> Optional[Tuple[int, object]]:
+        """The longest cached prefix covering at most len(prompt) - 1
+        tokens: (n_tokens, a private copy of its KV) or None."""
+        hit = self._index.lookup(prompt_ids)
+        if hit is None:
+            self.stats["misses"] += 1
+            return None
+        self.stats["hits"] += 1
+        n, kv = hit
+        return n, clone_tree(kv)
+
+    def store(self, prompt_ids: Sequence[int], kv) -> None:
+        """Snapshot a copy of `kv` under the full prompt (prompts shorter
+        than min_tokens and ones already stored are skipped)."""
+        if len(prompt_ids) < self.min_tokens or self._index.get_exact(prompt_ids) is not None:
+            return
+        if self._index.put(prompt_ids, clone_tree(kv)):
+            self.stats["stores"] += 1
+
+    def clear(self) -> None:
+        self._index.clear()

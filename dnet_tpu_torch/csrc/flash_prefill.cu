@@ -11,6 +11,20 @@
 // tile, the accumulator and the output over DV.  Width pairs (DQK, DV):
 // (64, 64), (128, 128), (192, 128).
 //
+// The per-lane form (`positions`, int32 [B] on the device; null: the scalar
+// `pos` for every lane) is the batched speculative verify: lane b's chunk
+// starts at positions[b], so its row i attends slots [0, positions[b] + i].
+// It replaces the reference's jax.vmap of `_flash_kernel` over lanes, each
+// with its own pos (dnet_tpu/core/batch.py:304-343).  Each block reads its
+// lane's start once and derives its key bound and causal limits from it;
+// nothing else changes, so both families take it at every width pair.  It
+// is an instantiation of its own (LANES), with 64-row tiles: the lane
+// vector's register in the 128-row tiles' instantiation made it spill.  A
+// verify chunk is short (T = L + 1, e.g. 5): its rows fill 5 * G of a
+// 64-row tile and each (lane, KV head) block streams the lane's whole live
+// cache with no split, so the form is bound by those bytes, not by the
+// products (ROADMAP B: a short-chunk redesign).
+//
 // What bounds it on an H100: at prefill widths (T >= 16) the work is
 // T * keys * (DQK + DV) multiply-adds per head, far above the card's ~295
 // operations a byte, so it is bound by arithmetic: by the tensor cores for
@@ -110,12 +124,12 @@ struct TcLayout {
 // (mma.cuh notes the fragment layouts: the C fragments of two
 // neighbouring 8-key score tiles are, packed to bf16, the A fragment of P
 // over those 16 keys.)
-template <int DQK, int DV, int MA>
+template <int DQK, int DV, int MA, bool LANES>
 __global__ void __launch_bounds__(TC_THREADS, 2)
 flash_prefill_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                         const bf16* __restrict__ v, bf16* __restrict__ o,
-                        const float* __restrict__ sinks, int T_len, int H, int KVH, int S, int pos,
-                        float scale, int row_tiles) {
+                        const float* __restrict__ sinks, const int* __restrict__ positions, int T_len,
+                        int H, int KVH, int S, int pos, float scale, int row_tiles) {
   using L = TcLayout<DQK, DV, MA>;
   constexpr int ROWS = L::ROWS, STAGES = L::STAGES;
   constexpr int NT = TC_KEYS / 8;  // 8-key score tiles a key tile
@@ -135,6 +149,7 @@ flash_prefill_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const int tile = row_tiles - 1 - (int)(blockIdx.x / groups);
   const int kvh = (int)(blockIdx.x % groups) % KVH;
   const int b = (int)(blockIdx.x % groups) / KVH;
+  if constexpr (LANES) pos = positions[b];  // this lane's chunk start
   const int r0 = tile * ROWS;
   const int t_last = (min(r0 + ROWS, rows) - 1) / G;
   const int key_end = pos + t_last + 1;  // <= S: the wrapper checks pos + T <= S
@@ -329,37 +344,40 @@ flash_prefill_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     }
 }
 
-template <int DQK, int DV, int MA>
-int launch_tc_tiles(const void* q, const void* k, const void* v, void* o, const float* sinks, int B,
-                    int T_len, int H, int KVH, int S, int pos, float scale, cudaStream_t stream) {
+template <int DQK, int DV, int MA, bool LANES>
+int launch_tc_tiles(const void* q, const void* k, const void* v, void* o, const float* sinks,
+                    const int* positions, int B, int T_len, int H, int KVH, int S, int pos, float scale,
+                    cudaStream_t stream) {
   using L = TcLayout<DQK, DV, MA>;
   const size_t smem = L::BYTES;
-  cudaError_t err = cudaFuncSetAttribute(flash_prefill_tc_kernel<DQK, DV, MA>,
+  cudaError_t err = cudaFuncSetAttribute(flash_prefill_tc_kernel<DQK, DV, MA, LANES>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   const int row_tiles = (T_len * (H / KVH) + L::ROWS - 1) / L::ROWS;
   const long blocks = (long)row_tiles * KVH * B;
   if (blocks > 0x7fffffffL) return -1;
-  flash_prefill_tc_kernel<DQK, DV, MA><<<(unsigned)blocks, TC_THREADS, smem, stream>>>(
+  flash_prefill_tc_kernel<DQK, DV, MA, LANES><<<(unsigned)blocks, TC_THREADS, smem, stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
-      static_cast<bf16*>(o), sinks, T_len, H, KVH, S, pos, scale, row_tiles);
+      static_cast<bf16*>(o), sinks, positions, T_len, H, KVH, S, pos, scale, row_tiles);
   return (int)cudaGetLastError();
 }
 
 // prefill_plan's choice: at (64, 64), 128-row tiles (two m-atoms a warp: each
 // K/V fragment feeds two products) once they still give TC_WIDE_BLOCKS
 // blocks, two an SM; 64-row tiles otherwise, and at the wider pairs, whose
-// registers hold one m-atom a warp
+// registers hold one m-atom a warp.  The per-lane form takes 64-row tiles.
 template <int DQK, int DV>
-int launch_tc(const void* q, const void* k, const void* v, void* o, const float* sinks, int B,
-              int T_len, int H, int KVH, int S, int pos, float scale, cudaStream_t stream) {
+int launch_tc(const void* q, const void* k, const void* v, void* o, const float* sinks, const int* positions,
+              int B, int T_len, int H, int KVH, int S, int pos, float scale, cudaStream_t stream) {
+  if (positions)
+    return launch_tc_tiles<DQK, DV, 1, true>(q, k, v, o, sinks, positions, B, T_len, H, KVH, S, pos, scale, stream);
   if constexpr (DQK == 64 && DV == 64) {
     constexpr int WIDE = TcLayout<DQK, DV, 2>::ROWS;
     const long wide_blocks = (long)((T_len * (H / KVH) + WIDE - 1) / WIDE) * KVH * B;
     if (wide_blocks >= TC_WIDE_BLOCKS)
-      return launch_tc_tiles<DQK, DV, 2>(q, k, v, o, sinks, B, T_len, H, KVH, S, pos, scale, stream);
+      return launch_tc_tiles<DQK, DV, 2, false>(q, k, v, o, sinks, nullptr, B, T_len, H, KVH, S, pos, scale, stream);
   }
-  return launch_tc_tiles<DQK, DV, 1>(q, k, v, o, sinks, B, T_len, H, KVH, S, pos, scale, stream);
+  return launch_tc_tiles<DQK, DV, 1, false>(q, k, v, o, sinks, nullptr, B, T_len, H, KVH, S, pos, scale, stream);
 }
 
 // ---- f32: CUDA-core FMAs -----------------------------------------------------
@@ -382,12 +400,12 @@ struct Layout {
   static constexpr size_t BYTES = FLOATS * sizeof(float);
 };
 
-template <int DQK, int DV>
+template <int DQK, int DV, bool LANES>
 __global__ void __launch_bounds__(NTHREADS)
 flash_prefill_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
                          const float* __restrict__ v, float* __restrict__ o,
-                         const float* __restrict__ sinks, int T_len, int H, int KVH, int S, int pos,
-                         float scale) {
+                         const float* __restrict__ sinks, const int* __restrict__ positions, int T_len,
+                         int H, int KVH, int S, int pos, float scale) {
   using L = Layout<DQK, DV>;
   constexpr int DC = DV / 16;  // output columns per thread
   extern __shared__ __align__(16) float smem[];
@@ -403,6 +421,7 @@ flash_prefill_f32_kernel(const float* __restrict__ q, const float* __restrict__ 
   const int h = blockIdx.y;
   const int b = blockIdx.z;
   const int kvh = h / (H / KVH);
+  if constexpr (LANES) pos = positions[b];  // this lane's chunk start
 
   const int q_rows = min(BQ, T_len - q0);
   // last key any row of this tile may attend is pos + q0 + q_rows - 1
@@ -523,48 +542,61 @@ flash_prefill_f32_kernel(const float* __restrict__ q, const float* __restrict__ 
   }
 }
 
-template <int DQK, int DV>
-int launch_f32(const void* q, const void* k, const void* v, void* o, const float* sinks, int B,
-               int T_len, int H, int KVH, int S, int pos, float scale, cudaStream_t stream) {
+template <int DQK, int DV, bool LANES>
+int launch_f32_form(const void* q, const void* k, const void* v, void* o, const float* sinks,
+                    const int* positions, int B, int T_len, int H, int KVH, int S, int pos, float scale,
+                    cudaStream_t stream) {
   const size_t smem = Layout<DQK, DV>::BYTES;
   // above 48 KB of dynamic shared memory a kernel must opt in (per device,
   // so on every launch: the call is cheap and does not synchronise)
-  cudaError_t err = cudaFuncSetAttribute(flash_prefill_f32_kernel<DQK, DV>,
+  cudaError_t err = cudaFuncSetAttribute(flash_prefill_f32_kernel<DQK, DV, LANES>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid((T_len + BQ - 1) / BQ, H, B);
-  flash_prefill_f32_kernel<DQK, DV><<<grid, NTHREADS, smem, stream>>>(
+  flash_prefill_f32_kernel<DQK, DV, LANES><<<grid, NTHREADS, smem, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
-      static_cast<float*>(o), sinks, T_len, H, KVH, S, pos, scale);
+      static_cast<float*>(o), sinks, positions, T_len, H, KVH, S, pos, scale);
   return (int)cudaGetLastError();
 }
 
 template <int DQK, int DV>
+int launch_f32(const void* q, const void* k, const void* v, void* o, const float* sinks, const int* positions,
+               int B, int T_len, int H, int KVH, int S, int pos, float scale, cudaStream_t stream) {
+  if (positions)
+    return launch_f32_form<DQK, DV, true>(q, k, v, o, sinks, positions, B, T_len, H, KVH, S, pos, scale, stream);
+  return launch_f32_form<DQK, DV, false>(q, k, v, o, sinks, nullptr, B, T_len, H, KVH, S, pos, scale, stream);
+}
+
+template <int DQK, int DV>
 int launch(int dtype, const void* q, const void* k, const void* v, void* o, const float* sinks,
-           int B, int T_len, int H, int KVH, int S, int pos, float scale, cudaStream_t st) {
+           const int* positions, int B, int T_len, int H, int KVH, int S, int pos, float scale,
+           cudaStream_t st) {
   if (dtype == dnet::DTYPE_BF16)
-    return launch_tc<DQK, DV>(q, k, v, o, sinks, B, T_len, H, KVH, S, pos, scale, st);
+    return launch_tc<DQK, DV>(q, k, v, o, sinks, positions, B, T_len, H, KVH, S, pos, scale, st);
   if (dtype == dnet::DTYPE_F32)
-    return launch_f32<DQK, DV>(q, k, v, o, sinks, B, T_len, H, KVH, S, pos, scale, st);
+    return launch_f32<DQK, DV>(q, k, v, o, sinks, positions, B, T_len, H, KVH, S, pos, scale, st);
   return -1;
 }
 
 }  // namespace
 
 // C interface (bound with ctypes in dnet_tpu_torch/ops/flash_attention.py).
-// head_dim is q's and k's, v_head_dim v's and the output's.  Returns
-// cudaGetLastError() after the launch (0 = launched); -1 for a dtype or
-// (head_dim, v_head_dim) pair this kernel was not built for.
+// head_dim is q's and k's, v_head_dim v's and the output's.  `positions`
+// (int32 [B], on the device) is the per-lane form: lane b's row i attends
+// slots [0, positions[b] + i], and `pos` is ignored; null keeps the scalar
+// `pos` for every lane.  Returns cudaGetLastError() after the launch (0 =
+// launched); -1 for a dtype or (head_dim, v_head_dim) pair this kernel was
+// not built for.
 extern "C" int dnet_flash_prefill(int dtype, int head_dim, int v_head_dim, const void* q,
-                                  const void* k, const void* v, void* o, const float* sinks, int B,
-                                  int T_len, int H, int KVH, int S, int pos, float scale,
-                                  void* stream) {
+                                  const void* k, const void* v, void* o, const float* sinks,
+                                  const int* positions, int B, int T_len, int H, int KVH, int S,
+                                  int pos, float scale, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (head_dim == 64 && v_head_dim == 64)
-    return launch<64, 64>(dtype, q, k, v, o, sinks, B, T_len, H, KVH, S, pos, scale, st);
+    return launch<64, 64>(dtype, q, k, v, o, sinks, positions, B, T_len, H, KVH, S, pos, scale, st);
   if (head_dim == 128 && v_head_dim == 128)
-    return launch<128, 128>(dtype, q, k, v, o, sinks, B, T_len, H, KVH, S, pos, scale, st);
+    return launch<128, 128>(dtype, q, k, v, o, sinks, positions, B, T_len, H, KVH, S, pos, scale, st);
   if (head_dim == 192 && v_head_dim == 128)
-    return launch<192, 128>(dtype, q, k, v, o, sinks, B, T_len, H, KVH, S, pos, scale, st);
+    return launch<192, 128>(dtype, q, k, v, o, sinks, positions, B, T_len, H, KVH, S, pos, scale, st);
   return -1;
 }

@@ -15,7 +15,9 @@ def _counters() -> dict:
     attention wrappers count a call with more than 8 query heads a KV head
     (row groups of blocks) on its own wide counter, whatever its form, and
     a call through the tensor-core form (bf16 at head dim 128, more than 4
-    query heads a KV head) once more on its own `_mma` counter."""
+    query heads a KV head) once more on its own `_mma` counter.  The prefill
+    kernel's per-lane form (the batched speculative verify) counts on
+    `flash_prefill_lanes` alone, at every width."""
     from dnet_tpu_torch.compression.ops import column_sq_norms, dequant_scatter_columns, gather_columns
     from dnet_tpu_torch.ops.flash_attention import flash_prefill
     from dnet_tpu_torch.ops.flash_decode import flash_decode_attend
@@ -24,6 +26,7 @@ def _counters() -> dict:
     return {
         "flash_prefill": (flash_prefill, "launches"),
         "flash_prefill_mla": (flash_prefill, "launches_mla"),
+        "flash_prefill_lanes": (flash_prefill, "launches_lanes"),
         "flash_decode": (flash_decode_attend, "launches"),
         "flash_decode_q8": (flash_decode_attend, "launches_q8"),
         "flash_decode_q4": (flash_decode_attend, "launches_q4"),

@@ -12,13 +12,15 @@ the pool instead of dense KV snapshots.
   request diverging mid-block) is copied by the adopter (copy-on-write).
 - **live-table snapshots** (`store_blocks`): an adopted slot's table is
   aliased whole, zero copies.
+- **the dense facade** (`lookup` / `store`): the single-sequence engine's
+  paged mode (core/engine.py) keeps its KV as a dense row and restores a
+  hit's blocks gathered into a fresh row of `row_tokens` slots; `store`
+  commits a dense row's tail blocks (also the scheduler's store of a
+  prompt still staged as a dense row).
 
 Entry eviction releases the entry's references through PrefixIndex's
 `on_evict` hook; the blocks live until the last page table drops them.
-The reference's dense facade `lookup` (a restored row for the
-single-sequence engine's paged mode) and the fleet's
-`prefix_affinity_key` are not ported; `store` keeps the facade's name for
-the one caller the scheduler has, a prompt still staged as a dense row.
+The fleet's `prefix_affinity_key` is not ported.
 """
 
 from __future__ import annotations
@@ -36,9 +38,14 @@ log = get_logger()
 class PagedPrefixCache:
     """PrefixIndex entries valued (n_tokens, block run) in a shared pool."""
 
-    def __init__(self, pool: BlockPool, store: BlockStore, capacity: int, min_tokens: int = 16) -> None:
+    def __init__(
+        self, pool: BlockPool, store: BlockStore, capacity: int, min_tokens: int = 16, row_tokens: int = 0
+    ) -> None:
         self.pool = pool
         self._dev = store
+        # the dense facade's restored rows are this wide (the consuming
+        # engine's max_seq); 0: the facade's lookup is unused
+        self.row_tokens = row_tokens
         self._index = PrefixIndex(capacity, min_tokens, on_evict=self._release)
         self.stats = {"hits": 0, "misses": 0, "stores": 0}
 
@@ -96,6 +103,19 @@ class PagedPrefixCache:
             return False
         self.stats["stores"] += 1
         return True
+
+    def lookup(self, prompt_ids: Sequence[int]) -> Optional[Tuple[int, dict]]:
+        """(n_tokens, a private dense row): the hit's blocks gathered into a
+        fresh [L, 1, row_tokens, ...] buffer (PrefixCache's surface)."""
+        hit = self.lookup_blocks(prompt_ids)
+        if hit is None:
+            return None
+        n, blocks, _n_full = hit
+        try:
+            kv_row = self._dev.gather_row(blocks, self.row_tokens)
+        finally:
+            self.pool.free_blocks(blocks)  # the gather copied them: the row owns nothing
+        return n, kv_row
 
     def store(self, prompt_ids: Sequence[int], kv_row: dict) -> None:
         """Snapshot a dense staging row ([L, 1, S, ...]), committing only the

@@ -35,7 +35,12 @@ their own positions (the reference's vmap with `kv_commit=active`): it
 writes only the active lanes' new rows, at position p (a W-row ring: slot
 p % W), then one decode-kernel launch attends every lane through its
 lengths vector (0 for an idle lane), in the plain, rotating or (192, 128)
-MLA form and over a quantized cache's codes.
+MLA form and over a quantized cache's codes.  `lane_chunk_attend` is its
+chunk twin, the batched speculative verify: each speculating lane writes
+its L+1 rows at its own positions (the other lanes' rows untouched), then
+one launch of the prefill kernel's per-lane form attends every lane from
+its own chunk start (a quantized cache: the live prefix dequantized to f32,
+as cached_attend's prefill reads it).
 """
 
 from __future__ import annotations
@@ -288,3 +293,43 @@ def lane_cached_attend(
         q.contiguous(), kvs["k"], kvs["v"], step.lengths, min(step.max_live, S), scale=scale, sinks=sinks,
         k_scale=kvs.get("k_scale"), v_scale=kvs.get("v_scale"), rotating=rotating, window=window,
     )
+
+
+@dataclass(frozen=True)
+class LaneChunk:
+    """One verify block's lanes: `lanes` int64 [n] the speculating lanes,
+    `rows` int64 [n, T] the slots their chunk's rows land in (start + i),
+    `starts` int32 [B] every lane's chunk start (0 for a lane that does not
+    speculate) and `max_start` (host int) the largest.  All on the cache's
+    device."""
+
+    lanes: torch.Tensor
+    rows: torch.Tensor
+    starts: torch.Tensor
+    max_start: int
+
+
+def lane_chunk_attend(
+    q: torch.Tensor,
+    k_new: torch.Tensor,
+    v_new: torch.Tensor,
+    kvs: dict,
+    chunk: LaneChunk,
+    sinks: Optional[torch.Tensor] = None,
+    scale: Optional[float] = None,
+    window: int = 0,
+) -> torch.Tensor:
+    """A chunk of T rows per lane (q [B, T, H, D], k_new/v_new [B, T, KVH,
+    .]) over one layer's slot-addressed cache slices [B, S, ...]: the
+    speculating lanes' rows are written at their slots, codes and scales
+    together, the other lanes' rows are untouched, then lane b's row i
+    attends slots [0, starts[b] + i] in one launch of the prefill kernel's
+    per-lane form.  A ring cache cannot take a verify block (stale rows
+    would evict live ones)."""
+    if window:
+        raise ValueError("a rotating cache cannot verify a speculative block")
+    write_kv_rows(kvs, k_new[chunk.lanes], v_new[chunk.lanes], chunk.lanes, chunk.rows)
+    # a quantized cache's live prefix, dequantized to f32; a plain cache whole
+    kc, vc = read_kv(kvs, upto=chunk.max_start + q.shape[1])
+    return flash_attend_causal(q.contiguous(), kc, vc, chunk.max_start, scale=scale, sinks=sinks,
+                               positions=chunk.starts)

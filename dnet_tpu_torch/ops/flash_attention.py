@@ -12,7 +12,13 @@ it on the card and how its design answers that.
 
 `flash_prefill` launches the kernel for CUDA tensors (or raises) and runs
 `flash_prefill_plain`, the same tile-by-tile fold in PyTorch, for CPU
-tensors.  Unlike the TPU gate (`flash_eligible`), there is no dense
+tensors.  Its per-lane form (`positions`, int32 [B] on q's device) gives
+each lane its own chunk start, as the reference's jax.vmap over lanes does
+in the batched speculative verify (dnet_tpu/core/batch.py:304-343): lane
+b's row i attends slots [0, positions[b] + i].  The caller passes the
+largest start as `pos` (a host int: the bound every shape check and a
+quantized cache's dequantized prefix need, with no device read); the form
+counts its launches on `launches_lanes`.  Unlike the TPU gate (`flash_eligible`), there is no dense
 fallback on the card: the kernel masks ragged T and S edges itself.
 bf16 inputs run on the tensor cores over tiles of head-stacked rows laid
 out by `prefill_plan`; f32 inputs keep an exact CUDA-core fold, one head a
@@ -127,18 +133,21 @@ def flash_attend_causal(
     lengths: Optional[torch.Tensor] = None,
     k_scale: Optional[torch.Tensor] = None,
     v_scale: Optional[torch.Tensor] = None,
+    positions: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """Causal attention of a chunk against the (preallocated) cache: query
     row i attends slots [0, pos + i].  q [B, T, H, D]; k [B, S, KVH, D];
-    v [B, S, KVH, Dv] (Dv may differ from D); out [B, T, H, Dv].
+    v [B, S, KVH, Dv] (Dv may differ from D); out [B, T, H, Dv].  With
+    `positions` (int32 [B]) lane b's chunk starts at positions[b] and `pos`
+    is the largest start (the per-lane form).
 
-    T == 1 goes to the decode kernel, as on the TPU, over `lengths`
+    T == 1 (without `positions`) goes to the decode kernel, as on the TPU, over `lengths`
     ([pos + 1] * B int32; made here when None), on quantized codes when
     k_scale/v_scale come with them.  The prefill kernel takes one dtype:
     a cache in another dtype than q (a bf16 cache under an f32 model, or an
     f32 dequantized prefix under a bf16 one) gets the live prefix and q in
     f32, an exact upcast, as the TPU kernel's own f32 softmax does."""
-    if q.shape[1] == 1:
+    if q.shape[1] == 1 and positions is None:
         from dnet_tpu_torch.ops.flash_decode import decode_lengths, flash_decode_attend
 
         if lengths is None:
@@ -147,12 +156,13 @@ def flash_attend_causal(
                                    k_scale=k_scale, v_scale=v_scale)
     if k.dtype != q.dtype:
         end = int(pos) + q.shape[1]
-        out = flash_prefill(q.float(), k[:, :end].float(), v[:, :end].float(), pos, scale=scale, sinks=sinks)
+        out = flash_prefill(q.float(), k[:, :end].float(), v[:, :end].float(), pos, scale=scale, sinks=sinks,
+                            positions=positions)
         return out.to(q.dtype)
-    return flash_prefill(q, k, v, pos, scale=scale, sinks=sinks)
+    return flash_prefill(q, k, v, pos, scale=scale, sinks=sinks, positions=positions)
 
 
-def _check_shapes(q, k, v, pos: int, sinks) -> None:
+def _check_shapes(q, k, v, pos: int, sinks, positions=None) -> None:
     B, T, H, D = q.shape
     if k.dim() != 4 or k.shape[0] != B or k.shape[-1] != D or v.dim() != 4 or v.shape[:-1] != k.shape[:-1]:
         raise ValueError(f"cache shapes k {tuple(k.shape)} v {tuple(v.shape)} do not match q {tuple(q.shape)}")
@@ -163,6 +173,9 @@ def _check_shapes(q, k, v, pos: int, sinks) -> None:
         raise ValueError(f"chunk [{pos}, {pos + T}) does not fit a cache of {S} slots")
     if sinks is not None and tuple(sinks.shape) != (H,):
         raise ValueError(f"sinks must be [H]={H}, got {tuple(sinks.shape)}")
+    if positions is not None and (tuple(positions.shape) != (B,) or positions.device != q.device):
+        raise ValueError(f"positions must be [B]={B} on {q.device}, got {tuple(positions.shape)} on "
+                         f"{positions.device}")
 
 
 def flash_prefill(
@@ -172,17 +185,20 @@ def flash_prefill(
     pos: int,
     scale: Optional[float] = None,
     sinks: Optional[torch.Tensor] = None,
+    positions: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """Kernel wrapper: [B, T, H, Dv] out in q.dtype.  CUDA tensors launch
     the kernel (bf16 or f32, (D, Dv) in HEAD_DIMS) or raise; CPU tensors
-    take the plain version."""
+    take the plain version.  `positions` (int32 [B]): the per-lane form,
+    `pos` then the largest lane start (the caller's host-side bound: every
+    lane start must be in [0, pos], which the kernel does not check)."""
     pos = int(pos)
-    _check_shapes(q, k, v, pos, sinks)
+    _check_shapes(q, k, v, pos, sinks, positions)
     B, T, H, D = q.shape
     S, KVH, Dv = k.shape[1], k.shape[2], v.shape[-1]
     scale = D**-0.5 if scale is None else float(scale)
     if q.device.type == "cpu":
-        return flash_prefill_plain(q, k, v, pos, scale=scale, sinks=sinks)
+        return flash_prefill_plain(q, k, v, pos, scale=scale, sinks=sinks, positions=positions)
     if q.dtype not in build.DTYPE_CODES or (D, Dv) not in HEAD_DIMS:
         raise ValueError(
             f"flash_prefill takes bf16/f32 with (head dim, v head dim) in {sorted(HEAD_DIMS)}, "
@@ -190,29 +206,36 @@ def flash_prefill(
         )
     if sinks is not None:
         build.check_cuda_tensors("flash_prefill", torch.float32, sinks=sinks)
+    if positions is not None:
+        build.check_cuda_tensors("flash_prefill", torch.int32, device=q.device, positions=positions)
     build.check_cuda_tensors("flash_prefill", q.dtype, q=q, k=k, v=v)
     out = torch.empty((B, T, H, Dv), dtype=q.dtype, device=q.device)
     rc = _entry()(
         build.DTYPE_CODES[q.dtype], D, Dv, q.data_ptr(), k.data_ptr(), v.data_ptr(),
         out.data_ptr(), None if sinks is None else sinks.data_ptr(),
+        None if positions is None else positions.data_ptr(),
         B, T, H, KVH, S, pos, scale, build.current_stream_handle(q.device),
     )
     if rc != 0:
         raise RuntimeError(f"flash_prefill kernel launch failed (code {rc})")
-    if Dv == D:
+    if positions is not None:
+        flash_prefill.launches_lanes += 1
+    elif Dv == D:
         flash_prefill.launches += 1
     else:
         flash_prefill.launches_mla += 1
     return out
 
 
-# kernel launches since the last reset: at Dv == D, and at MLA widths
+# kernel launches since the last reset: at Dv == D, at MLA widths, and of
+# the per-lane form (every width)
 flash_prefill.launches = 0
 flash_prefill.launches_mla = 0
+flash_prefill.launches_lanes = 0
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
-# dtype, head_dim, v_head_dim, q, k, v, o, sinks, B, T, H, KVH, S, pos, scale, stream
-_ARGTYPES = (_I, _I, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, ctypes.c_float, _P)
+# dtype, head_dim, v_head_dim, q, k, v, o, sinks, positions, B, T, H, KVH, S, pos, scale, stream
+_ARGTYPES = (_I, _I, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, ctypes.c_float, _P)
 
 
 def _entry():
@@ -226,9 +249,12 @@ def flash_prefill_plain(
     pos: int,
     scale: Optional[float] = None,
     sinks: Optional[torch.Tensor] = None,
+    positions: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """The kernel's function in plain PyTorch: the same fold over 64-key
-    tiles, in f32, up to the last slot the chunk's last row attends."""
+    tiles, in f32, up to the last slot the chunk's last row attends.  With
+    `positions` each lane's rows are masked at its own start (`pos`: the
+    largest, which bounds the fold)."""
     B, T, H, D = q.shape
     S, KVH = k.shape[1], k.shape[2]
     G = H // KVH
@@ -239,7 +265,8 @@ def flash_prefill_plain(
     m = torch.full((B, KVH, G, T, 1), NEG_INF, dtype=torch.float32, device=dev)
     l = torch.zeros((B, KVH, G, T, 1), dtype=torch.float32, device=dev)
     acc = torch.zeros((B, KVH, G, T, Vd), dtype=torch.float32, device=dev)
-    q_pos = pos + torch.arange(T, device=dev)[:, None]
+    starts = pos if positions is None else positions.to(dev).long().reshape(B, 1, 1, 1, 1)
+    q_pos = starts + torch.arange(T, device=dev)[:, None]  # [T, 1], per lane [B, 1, 1, T, 1]
     key_end = min(pos + T, S)
     for k0 in range(0, key_end, BK):
         kt = k[:, k0 : k0 + BK].float()

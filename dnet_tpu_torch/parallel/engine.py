@@ -86,6 +86,13 @@ class MeshEngine:
     end_session = LocalEngine.end_session
     sweep_sessions = LocalEngine.sweep_sessions
     prefill = LocalEngine.prefill
+    _tokens = LocalEngine._tokens
+    # no prefix cache, speculation or draft under a mesh (the model
+    # manager refuses them: ROADMAP A7.4); prefill and generate ask
+    _init_features = LocalEngine._init_features
+    _commit_prompt_hist = LocalEngine._commit_prompt_hist
+    _advance_draft = LocalEngine._advance_draft
+    spec_eligible = LocalEngine.spec_eligible
     _sample_with_counts = LocalEngine._sample_with_counts
     prefill_and_sample = LocalEngine.prefill_and_sample
     decode_step = LocalEngine.decode_step

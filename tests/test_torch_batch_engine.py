@@ -316,22 +316,18 @@ def test_pool_exhaustion_is_typed_backpressure(weights, monkeypatch):
     ],
 )
 def test_refused_configurations(weights, ref, monkeypatch, env, kw, match):
-    """The configurations the port refused at load (the refusal's text in
-    `match`).  A prefix cache on dense slots still is (HTTP 422: the dense
-    snapshot prefix cache, ROADMAP A4, is not ported).  The other three now
-    serve as the reference does, its greedy stream equal to the ragged
-    reference's (an int8 pool's: the int8 dense slots'): a quantized pool
-    and DNET_KV_RAGGED off through the dense-gather decode, a block size
-    that does not divide max_seq on dense slots."""
+    """The configurations the port once refused at load (the refusal's text
+    in `match`) all serve as the reference does, the greedy stream equal to
+    the ragged reference's (an int8 pool's: the int8 dense slots'): a
+    quantized pool and DNET_KV_RAGGED off through the dense-gather decode, a
+    block size that does not divide max_seq on dense slots, and a prefix
+    cache on dense slots (the inner engine's snapshot cache, which stores
+    the 18-token prompt)."""
     for k, v in env.items():
         monkeypatch.setenv(k, v)
     reset_settings_cache()
-    if "prefix_cache_size" in kw:
-        with pytest.raises(EngineCapabilityError, match="DNET_API_PREFIX_CACHE=4 on dense batched slots"):
-            _port(weights, **kw)
-        return
     eng = _port(weights, **kw)
-    mode = "dense" if match == "divide max_seq" else "paged"
+    mode = "dense" if match in ("divide max_seq", "prefix cache") else "paged"
     assert eng.stats()["kv_mode"] == mode and eng.kv_ragged is False
     dec = DecodingParams(temperature=0.0, logprobs=True)
     got = _interleaved(eng, dec, steps=6)
@@ -347,6 +343,8 @@ def test_refused_configurations(weights, ref, monkeypatch, env, kw, match):
         want = _interleaved(ref, RefDecoding(temperature=0.0, logprobs=True), steps=6)
     reset_settings_cache()
     _assert_streams_match(got, want)
+    if "prefix_cache_size" in kw:
+        assert eng.stats()["prefix_cache"]["stores"] >= 1
 
 
 def test_model_without_the_hook_is_refused(weights, ref, monkeypatch):

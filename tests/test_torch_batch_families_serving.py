@@ -14,8 +14,9 @@ byte-identical SSE once the response id and created stamp are normalised.
 - one slot with DNET_KV_PAGED=1: the single-sequence paged ledger, whose
   exhaustion answers 429 before any compute, as the reference's does.
 
-A prefix cache on dense slots stays a 422, also when a paged pool falls
-back to them (gpt_oss with DNET_KV_PAGED=1 and DNET_API_PREFIX_CACHE).
+A prefix cache on dense slots, once a 422, serves, also when a paged pool
+falls back to them (gpt_oss with DNET_KV_PAGED=1 and
+DNET_API_PREFIX_CACHE): the inner engine's snapshot cache.
 """
 
 import asyncio
@@ -154,14 +155,15 @@ def test_burst_sse_byte_identical(model_dirs, env, case):
 
 
 def test_gpt_oss_paged_fallback_with_a_prefix_cache_is_422(model_dirs, env):
-    """The paged pool falls back to dense slots, where the reference would
-    serve its dense snapshot prefix cache (not ported): 422 at load, the
-    setting named."""
+    """The paged pool falls back to dense slots, where the reference serves
+    its dense snapshot prefix cache: once a 422 at load, this now serves
+    the reference's bytes (the cache changes no output), the snapshots in
+    the inner engine's cache."""
     env(**PAGED, DNET_API_PREFIX_CACHE="4")
-    (status, body), _, _ = asyncio.run(_serve(_app(True, 4), model_dirs["gpt_oss"], []))
-    assert status == 422 and body["error"]["type"] == "invalid_request_error"
-    msg = body["error"]["message"]
-    assert "DNET_API_PREFIX_CACHE=4" in msg and "paged KV is disabled" in msg and "rotating" in msg
+    port, health = _both(model_dirs["gpt_oss"], [_chat(p) for p in PROMPTS], slots=4)
+    assert all(status == 200 for status, _ in port)
+    engine = health["engine"]
+    assert engine["kv_mode"] == "dense" and engine["prefix_cache"]["stores"] >= 1
 
 
 def test_single_slot_paged_ledger_serves_and_answers_429(model_dirs, env):

@@ -261,6 +261,18 @@ def test_serves_dense_batched_slots_with_jax_and_reference_blocked(tmp_path):
     assert engine["decode_steps"] >= 4 and engine["active"] == 0
 
 
+@pytest.mark.parametrize("slots", [1, 2])
+def test_serves_speculation_and_prefix_cache_with_jax_and_reference_blocked(tmp_path, slots):
+    """The guarded serve with DNET_API_SPEC_LOOKAHEAD=3 and
+    DNET_API_PREFIX_CACHE=2, single sequence and on dense slots: the greedy
+    request runs verify blocks, and the prompt's snapshot is stored."""
+    args = ["--batch-slots", "2"] if slots == 2 else []
+    health = _serve_one_guarded(tmp_path, args, {"DNET_API_SPEC_LOOKAHEAD": "3", "DNET_API_PREFIX_CACHE": "2"})
+    engine = health["engine"]
+    assert engine["spec_lookahead"] == 3 and engine["spec_blocks"] >= 1
+    assert engine["prefix_cache"]["stores"] == 1
+
+
 @pytest.fixture
 def no_cuda(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)

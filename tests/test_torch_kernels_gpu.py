@@ -9,7 +9,14 @@ The prefill kernel runs at every width pair it is built for, (64, 64),
 (128, 128) and MLA's (192, 128), in bf16 (tensor cores) and f32, at G = 1,
 4 and 8 with two batch rows, T and pos off its tile grids, chunks that end
 at the cache's last slot, sinks, and caches whose dead slots hold NaN, and
-calls large enough for its 128-row tiles; one device kernel a call.  Otherwise shapes are Llama-3.2-1B's (H=32, KVH=8,
+calls large enough for its 128-row tiles; one device kernel a call.  Its
+per-lane form (the batched speculative verify: each lane's chunk at its
+own start) runs at every width pair and both dtypes, B = 8 lanes, T = 5
+and 8, starts spread over 0 to 4,000 with NaN past each lane's live rows,
+on its own counter, one device kernel a call, each lane equal to the
+scalar form at its start; the speculating engines (single sequence, and
+dense batched slots with a sampled lane beside three greedy ones) run on
+the card against the CPU.  Otherwise shapes are Llama-3.2-1B's (H=32, KVH=8,
 D=64); the decode kernel reads a
 plain cache (also bf16 under an f32 q, as DNET_KV_BITS=16 gives an f32
 model) and int8 / packed-int4 caches written by the port's write_kv, with a
@@ -169,6 +176,68 @@ def test_prefill_kernel_width_pairs(gen, dqk, dv, dtype, G, T, pos, S, sinks):
     want = flash_prefill_plain(q.float(), k.float(), v.float(), pos, scale=scale, sinks=sk)
     assert out.shape == (2, T, q.shape[2], dv) and out.dtype == dtype
     assert (out.float() - want).abs().max().item() <= TOL[dtype]
+
+
+# the per-lane form's lane starts: an idle lane at 0, tile edges, and the
+# spread of a batch of long and short conversations
+LANE_STARTS = [0, 63, 100, 511, 1024, 2047, 3100, 4000]
+
+
+def _lanes_case(gen, dtype, dqk, dv, G, T, KVH=2, S=4104):
+    q, k, v, sk, scale = _prefill_case(gen, dtype, dqk, dv, G, len(LANE_STARTS), T, 0, S, True, KVH=KVH)
+    for b, p in enumerate(LANE_STARTS):
+        k[b, p + T:] = float("nan")  # past each lane's live rows: never read
+        v[b, p + T:] = float("nan")
+    positions = torch.tensor(LANE_STARTS, dtype=torch.int32, device="cuda")
+    return q, k, v, sk, scale, positions
+
+
+@pytest.mark.parametrize("dqk,dv", PREFILL_WIDTHS)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("G", [1, 4])
+@pytest.mark.parametrize("T", [5, 8])
+def test_prefill_lanes_kernel_matches_plain(gen, dqk, dv, dtype, G, T):
+    """The per-lane form: lane b's row i attends [0, starts[b] + i], NaN in
+    every lane's dead rows; one launch on `launches_lanes` (none on the
+    scalar counters), finite, within tolerance of the plain version over
+    per-lane masks, and each lane equal to the scalar form at its start."""
+    q, k, v, sk, scale, positions = _lanes_case(gen, dtype, dqk, dv, G, T)
+    top = max(LANE_STARTS)
+    before = (flash_prefill.launches_lanes, flash_prefill.launches, flash_prefill.launches_mla)
+    out = flash_prefill(q, k, v, top, scale=scale, sinks=sk, positions=positions)
+    torch.cuda.synchronize()
+    after = (flash_prefill.launches_lanes, flash_prefill.launches, flash_prefill.launches_mla)
+    assert after == (before[0] + 1, before[1], before[2])
+    assert bool(torch.isfinite(out).all())
+    want = flash_prefill_plain(q.float(), k.float().nan_to_num(), v.float().nan_to_num(), top, scale=scale,
+                               sinks=sk, positions=positions)
+    assert (out.float() - want).abs().max().item() <= TOL[dtype]
+    for b, p in enumerate(LANE_STARTS):
+        one = flash_prefill(q[b : b + 1], k[b : b + 1], v[b : b + 1], p, scale=scale, sinks=sk)
+        assert (out[b].float() - one[0].float()).abs().max().item() <= TOL[dtype]
+
+
+def test_prefill_lanes_form_checks_its_vector(gen):
+    """A positions vector of the wrong length, type or device raises before
+    any launch."""
+    q, k, v, _, _, positions = _lanes_case(gen, torch.float32, 64, 64, 4, 5)
+    launches = flash_prefill.launches_lanes
+    for bad in (positions[:3], positions.long(), positions.cpu()):
+        with pytest.raises(ValueError):
+            flash_prefill(q, k, v, 4000, positions=bad)
+    assert flash_prefill.launches_lanes == launches
+
+
+@pytest.mark.parametrize("dqk,dv", PREFILL_WIDTHS)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_prefill_lanes_call_is_one_device_kernel(gen, traced, dqk, dv, dtype):
+    """One per-lane call (B = 8, T = 5) is exactly one device kernel, as
+    torch.profiler traces it in a fresh process, and one count on
+    launches_lanes."""
+    trace = traced[("prefill_lanes", dqk, dv, str(dtype).split(".")[-1])]
+    assert trace["counted"] == 1
+    kernels = trace["kernels"]
+    assert len(kernels) == 1 and "flash_prefill" in kernels[0], kernels
 
 
 @pytest.mark.parametrize("T,H,pos", [(1100, 32, 37), (600, 64, 0)])
@@ -862,6 +931,12 @@ def _trace_prefill(gen, mp, dqk: int, dv: int, dtype: str):
     return (lambda: flash_prefill(q, k, v, 60, scale=scale)), (lambda: getattr(flash_prefill, attr))
 
 
+def _trace_prefill_lanes(gen, mp, dqk: int, dv: int, dtype: str):
+    q, k, v, sk, scale, positions = _lanes_case(gen, getattr(torch, dtype), dqk, dv, 4, 5)
+    return ((lambda: flash_prefill(q, k, v, max(LANE_STARTS), scale=scale, sinks=sk, positions=positions)),
+            (lambda: flash_prefill.launches_lanes))
+
+
 def _trace_paged(gen, mp, dtype: str, n_split, wide: bool = False):
     shape = dict(H=64, KVH=4, D=128) if wide else {}
     case = _paged_case(gen, getattr(torch, dtype), 16, [57, 92, 182, 332, 552, 832, 1132, 1532], **shape)
@@ -884,8 +959,8 @@ def _trace_add(gen, mp):
 # the one-kernel-a-call cases, by name: each builds (a zero-argument call,
 # its counter or None) from the seeded generator as its test makes its
 # inputs; tests/torch_gpu_trace.py traces them in a fresh process
-TRACE_CASES = {"decode": _trace_decode, "prefill": _trace_prefill, "paged": _trace_paged,
-               "column_topk": _trace_column_topk, "add": _trace_add}
+TRACE_CASES = {"decode": _trace_decode, "prefill": _trace_prefill, "prefill_lanes": _trace_prefill_lanes,
+               "paged": _trace_paged, "column_topk": _trace_column_topk, "add": _trace_add}
 
 
 def test_decode_interleaved_shapes_repeat_exactly(gen):
@@ -1416,6 +1491,54 @@ def test_engines_bf16_cache_under_f32_params(gen, monkeypatch, mode):
         assert max(abs(a[1] - b[1]) for a, b in zip(got["cuda"][n], got["cpu"][n])) <= 2e-3
 
 
+@pytest.mark.parametrize("mode", ["single", "dense"])
+def test_speculating_engines_match_cpu(gen, mode):
+    """Prompt-lookup speculation (L = 4) on the card against the CPU, f32:
+    the single-sequence engine's greedy stream, and on 4 dense slots three
+    greedy lanes verifying together beside a seeded sampled lane on the
+    plain step; equal greedy streams, the sampled lane equal to its serial
+    stream on the same device (a torch.Generator's stream differs between
+    the card and the CPU), every batched verify block one per-lane prefill
+    launch a layer."""
+    from dnet_tpu_torch.core.batch import BatchedEngine
+    from dnet_tpu_torch.core.engine import LocalEngine
+    from dnet_tpu_torch.core.types import DecodingParams
+
+    cfg, window, edge = _small_model()
+    prompts = {"g0": [7, 3, 11, 7, 3, 11, 7, 3] * 3, "g1": [5, 9, 5, 9, 5, 9, 2], "g2": list(range(40, 90)),
+               "s": [250, 99, 13]}
+    greedy, sampled = DecodingParams(temperature=0.0), DecodingParams(temperature=0.9, top_p=0.9, seed=42)
+    got = {}
+    for dev in ("cuda", "cpu"):
+        kw = dict(max_seq=256, param_dtype="float32", device=dev, spec_lookahead=4)
+        if mode == "single":
+            eng = LocalEngine.from_params(cfg, window, edge, **kw)
+            got[dev] = {n: [r.token_id for r in eng.generate(ids, greedy, max_tokens=24, nonce=n)]
+                        for n, ids in prompts.items() if n != "s"}
+            assert eng.spec_blocks > 0
+            continue
+        eng = BatchedEngine.from_params(cfg, window, edge, slots=4, **kw)
+        toks = {n: [int(eng.prefill_and_sample(n, ids, sampled if n == "s" else greedy).token[0])]
+                for n, ids in prompts.items()}
+        lanes0, blocks0 = flash_prefill.launches_lanes, eng.spec_blocks
+        while any(len(t) < 20 for t in toks.values()):
+            live = {n: t for n, t in toks.items() if len(t) < 20}
+            out, errs = eng.decode_batch({n: (t[-1], sampled if n == "s" else greedy) for n, t in live.items()},
+                                         budgets={n: 20 - len(t) for n, t in live.items()})
+            assert not errs
+            for n, r in out.items():
+                toks[n].append(int(r.token[0]))
+        if dev == "cuda":
+            torch.cuda.synchronize()
+            assert eng.spec_blocks > blocks0
+            assert flash_prefill.launches_lanes - lanes0 == cfg.num_hidden_layers * (eng.spec_blocks - blocks0)
+        eng.close()
+        serial = LocalEngine.from_params(cfg, window, edge, max_seq=256, param_dtype="float32", device=dev)
+        assert toks.pop("s")[:20] == [r.token_id for r in serial.generate(prompts["s"], sampled, max_tokens=20)]
+        got[dev] = {n: t[:20] for n, t in toks.items()}
+    assert got["cuda"] == got["cpu"]
+
+
 def test_paged_kernel_cuda_tensor_never_takes_the_plain_version(gen):
     q, k_pool, v_pool, tables, pos, k_new, v_new = _paged_case(gen, torch.float32, 16, [3, 40])
     with pytest.raises(ValueError):
@@ -1717,6 +1840,7 @@ def test_lane_cached_attend_matches_the_cpu(gen, window, bits):
 TRACED = (
     [("decode", "decode", i) for i in range(len(DECODE_FORMS))]
     + [("prefill", dqk, dv, dtype) for dqk, dv in PREFILL_WIDTHS for dtype in ("float32", "bfloat16")]
+    + [("prefill_lanes", dqk, dv, dtype) for dqk, dv in PREFILL_WIDTHS for dtype in ("float32", "bfloat16")]
     + [("paged", dtype, n_split) for dtype in ("float32", "bfloat16") for n_split in (None, 16)]
     + [("column_topk", R) for R in (1, 1500)]
     + [("add",)]

@@ -5,10 +5,11 @@ do (dnet_tpu/config.py ApiSettings / ShardSettings, dnet_tpu/cli/api.py,
 dnet_tpu/cli/shard.py, dnet_tpu/api/server.py), and a flag still wins.
 Settings that change what the reference serves and that the port does not
 serve yet are refused at load with 422 and a message naming the setting:
-the single-sequence prefix cache, speculative decoding and the draft model.
-Weight quantization (DNET_API_WEIGHT_QUANT_BITS 8 / 4), once refused,
-serves; the ring API ships the configured weight_quant_bits to its shards,
-which serve it too.
+the prefix cache and speculation (with or without a draft model) under a
+mesh.  Weight quantization (DNET_API_WEIGHT_QUANT_BITS 8 / 4), the prefix
+cache, speculative decoding and the draft model, once refused, serve on a
+single device; the ring API ships the configured weight_quant_bits to its
+shards, which serve it too.
 """
 
 import asyncio
@@ -132,14 +133,18 @@ def llama_dir(tmp_path_factory):
     return d
 
 
-def _load(model_dir):
-    """POST /v1/load_model to a fresh port server; (status, json body)."""
+def _load(model_dir, mesh=None, slots=1, chat=None):
+    """POST /v1/load_model to a fresh port server; (status, json body), the
+    manager.  With `chat` (a chat request's body) the request is then sent
+    too, and its (status, json body) replaces the load's when the load
+    succeeded."""
     from dnet_tpu_torch.api.http import ApiHTTPServer
     from dnet_tpu_torch.api.inference import InferenceManager
     from dnet_tpu_torch.api.model_manager import LocalModelManager
 
     inference = InferenceManager(adapter=None, request_timeout_s=60.0, max_concurrent=2)
-    manager = LocalModelManager(inference, max_seq=64, param_dtype="float32", device="cpu")
+    manager = LocalModelManager(inference, max_seq=64, param_dtype="float32", device="cpu", mesh=mesh,
+                                batch_slots=slots)
     app = ApiHTTPServer(inference, manager).app
 
     async def go():
@@ -147,6 +152,9 @@ def _load(model_dir):
         await client.start_server()
         try:
             r = await client.post("/v1/load_model", json={"model": str(model_dir)})
+            if chat is None or r.status != 200:
+                return r.status, await r.json()
+            r = await client.post("/v1/chat/completions", json=chat)
             return r.status, await r.json()
         finally:
             await client.close()
@@ -162,11 +170,53 @@ def _load(model_dir):
     ("DNET_API_DRAFT_MODEL", "/srv/models/draft"),
 ])
 def test_unported_setting_is_422_at_load(llama_dir, env, name, value):
-    env({name: value})
-    (status, body), manager = _load(llama_dir)
+    """Under a mesh (sp = 2) the prefix cache and speculation stay refused
+    (ROADMAP A7.4), the message naming the setting (a draft model needs a
+    lookahead, and the refusal names both)."""
+    env({name: value, **({"DNET_API_SPEC_LOOKAHEAD": "3"} if name == "DNET_API_DRAFT_MODEL" else {})})
+    (status, body), manager = _load(llama_dir, mesh={"sp": 2})
     assert status == 422, body
     assert body["error"]["type"] == "invalid_request_error" and name in body["error"]["message"]
+    assert "mesh" in body["error"]["message"]
     assert manager.engine is None
+
+
+@pytest.mark.parametrize("slots", [1, 4])
+@pytest.mark.parametrize("name,value", [
+    ("DNET_API_PREFIX_CACHE", "4"),
+    ("DNET_API_SPEC_LOOKAHEAD", "3"),
+    ("DNET_API_DRAFT_MODEL", "self"),
+])
+def test_speculation_and_prefix_settings_serve(llama_dir, env, name, value, slots):
+    """The three settings once refused with 422 load on a single device, one
+    slot and dense batched slots, and serve a greedy chat.  The draft model
+    (given with a lookahead; `self` names the served checkpoint) drafts on
+    the single sequence only, as the reference's manager resolves it."""
+    values = {name: str(llama_dir) if value == "self" else value}
+    if name == "DNET_API_DRAFT_MODEL":
+        values["DNET_API_SPEC_LOOKAHEAD"] = "3"
+    env(values)
+    chat = {"model": "m", "messages": [{"role": "user", "content": "abcabc"}], "max_tokens": 8,
+            "temperature": 0.0}
+    (status, body), manager = _load(llama_dir, slots=slots, chat=chat)
+    assert status == 200, body
+    assert body["usage"]["completion_tokens"] >= 1
+    engine = manager.engine
+    inner = engine if slots == 1 else engine.eng
+    if name == "DNET_API_PREFIX_CACHE":
+        assert inner.prefix_cache is not None and "prefix_cache" in engine.stats()
+    else:
+        assert engine.spec_lookahead == 3
+        assert (inner.draft is not None) == (name == "DNET_API_DRAFT_MODEL" and slots == 1)
+
+
+def test_missing_draft_model_drafts_by_prompt_lookup(llama_dir, env, tmp_path):
+    """A draft model that resolves to nothing logs a warning and the engine
+    speculates by prompt lookup (the reference's manager)."""
+    env({"DNET_API_SPEC_LOOKAHEAD": "3", "DNET_API_DRAFT_MODEL": str(tmp_path / "absent")})
+    (status, body), manager = _load(llama_dir)
+    assert status == 200, body
+    assert manager.engine.spec_lookahead == 3 and manager.engine.draft is None
 
 
 @pytest.mark.parametrize("bits", [8, 4])
