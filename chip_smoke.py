@@ -30,17 +30,21 @@ Phases, one JSON line each; any failure exits non-zero:
            bound.
   parity   a small model served by the engine on the GPU (kernels) and on
            the CPU (plain versions) from the same weights: prefill logits
-           within 2e-3, equal 16-token greedy streams.
+           within 2e-3, equal 16-token greedy streams, and /v1/embeddings'
+           hidden states within 2e-3.
   step     one full-width greedy decode step: its synchronised wall time,
            the host's time to issue it, the device's busy time (profiler),
            the attention kernels' share, and the step's bound (its weights
-           read once); over a bf16 and an int8 KV cache, in turns.
+           read once); over a bf16 and an int8 KV cache.
   serve    full-width Llama-3.2-1B with synthetic bf16 weights from a seed,
            written as a checkpoint and served by the port's HTTP server on
            loopback: a greedy chat completion, a seeded sampled one, and
            the greedy request streamed (equal content; its TTFT and decode
            rate); every attention call on that path must
-           have gone through the kernels.
+           have gone through the kernels.  With obs off (the default):
+           dnet_ttft_ms_count and the request and token counters equal the
+           requests' counts, no device fence was made, and the launch
+           counts are those of the same requests without the obs layer.
 Continuous batching over the paged KV pool (DNET_KV_PAGED=1
 DNET_KV_RAGGED=1), the second path:
   paged_launches  device kernels per paged_attend call (torch.profiler,
@@ -64,6 +68,20 @@ DNET_KV_RAGGED=1), the second path:
                64 tokens each, one sampled with a seed); the paged kernel
                runs 16 times per decode step, the single-sequence decode
                kernel never, the prefill kernel 16 times per prompt chunk.
+  obs_serve    the same checkpoint with --batch-slots 8 over the dense-gather
+               paged decode, DNET_OBS_ENABLED=1, 4 requests admitted at once
+               and a queue of 2 (DNET_ADMIT_QUEUE_DEPTH): a burst of 10
+               streamed 16-token requests gets exactly 6 answers and 4 x 429
+               queue_full with Retry-After; the request and token counters,
+               the four fenced phases of the batched dispatch (kv_gather,
+               compute, kv_scatter, sample) and their coverage of
+               dnet_decode_step_ms (>= 0.8), the device-memory gauges, a
+               profiled request's critical path (within 2% of its wall time
+               at the client), the serving window's trace, /v1/embeddings
+               on a 51- and a 300-token input (2048 wide, 16 prefill launches
+               each, a repeat equal bit for bit), and /v1/unload_model
+               (device memory in use falls by at least the weights' bytes);
+               the burst's rate beside batch_serve's (obs off).
 The iteration-level scheduler (DNET_SCHED=1) with the paged prefix cache,
 over the same slots:
   sched_parity the scheduler in process on the GPU and on the CPU from the
@@ -111,7 +129,10 @@ over gRPC, the qsparse8 hop codec):
                shard's /health must show the column kernels launched once per
                hidden frame encoded (s0) or decoded (s1), and the attention
                kernels once per layer per step.  Per-frame host times on
-               each shard are read after a warm-up request.
+               each shard are read after a warm-up request.  The API's
+               /v1/cluster/metrics must read dnet_federation_scrape_ok 1 for
+               both shards, and on the qsparse8 pass s0's /metrics a nonzero
+               dnet_wire_bytes_total{dir="tx"}.
 The quantized KV cache (DNET_KV_BITS=8|4), the fourth path, on the single
 sequence, dense batched slots and the ring's shards:
   kernels       the decode kernel's q8 and q4 variants at the serve mix (B=1,
@@ -218,7 +239,7 @@ the seventh path, for llama, deepseek_v2 and gpt_oss and under DNET_KV_BITS:
              DeepSeek-V2-Lite layers (the deepseek_step's params).
   sp_serve   the serve phase's checkpoint served with mesh sp = 2 on
              ["cuda:0", "cuda:0"]: its requests plus a ~2,100-token prompt
-             whose KV crosses the shard boundary at 2,048, 64 tokens each;
+             whose KV crosses the shard boundary at 2,048, 32 tokens each;
              in f32 the greedy text equal to a single-device f32 serve,
              bf16 served once (no single-device bf16 pass); 2 x 16 LSE
              launches per decode step and no other kernel;
@@ -436,6 +457,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import urllib.error
 import urllib.request
 from argparse import Namespace
 from concurrent.futures import ThreadPoolExecutor
@@ -1509,7 +1531,15 @@ def phase_parity() -> None:
         for dev, e in engines.items()
     }
     check(streams["cuda"] == streams["cpu"], f"greedy streams differ: {streams}")
-    emit({"phase": "parity", "logits_max_err": err, "tol": 2e-3, "greedy_tokens": len(streams["cuda"])})
+    # /v1/embeddings' forward (hidden_states: the prefill kernel, then the
+    # final norm), held to the logits' tolerance
+    hidden = {dev: e.hidden_states(prompt) for dev, e in engines.items()}
+    check(hidden["cuda"].shape == (len(prompt), 256) and bool(np.isfinite(hidden["cuda"]).all()),
+          f"embeddings hidden states {hidden['cuda'].shape}")
+    emb_err = float(np.abs(hidden["cuda"] - hidden["cpu"]).max())
+    check(emb_err <= 2e-3, f"GPU vs CPU embeddings hidden states: max err {emb_err}")
+    emit({"phase": "parity", "logits_max_err": err, "tol": 2e-3, "greedy_tokens": len(streams["cuda"]),
+          "embeddings_max_err": emb_err})
 
 
 def phase_quant_parity() -> None:
@@ -1736,14 +1766,19 @@ def _post(url: str, body: dict) -> dict:
 
 
 async def _drive(args: Namespace, requests: list, concurrent: bool = False, then: Sequence = (),
-                 sched: bool = False) -> list:
+                 sched: bool = False, metrics: bool = False) -> list:
     """Serve args' model in this process and send `requests` (in order, or
     all at once), then the `then` requests in order (a callable there is
     called with the results so far and returns its body); returns the
     results, the kernels' launches during the requests, the load time and
-    /health after them (with `sched`, /v1/debug/sched under "sched")."""
+    /health after them (with `sched`, /v1/debug/sched under "sched"; with
+    `metrics`, the metrics zeroed before the requests and /metrics after
+    them under "metrics", and the device fences the requests made under
+    "fences")."""
     from dnet_tpu_torch.api.server import serve_async
     from dnet_tpu_torch.kernels import launch_counts, reset_launch_counts
+    from dnet_tpu_torch.obs import reset_obs
+    from dnet_tpu_torch.obs.jit import fence_calls
 
     loop = asyncio.get_running_loop()
     server = asyncio.ensure_future(serve_async(args))
@@ -1765,6 +1800,9 @@ async def _drive(args: Namespace, requests: list, concurrent: bool = False, then
     url = base + "/v1/chat/completions"
     try:
         reset_launch_counts()
+        if metrics:
+            reset_obs()
+            fences = fence_calls()
         if concurrent:
             results = await asyncio.gather(
                 *(loop.run_in_executor(None, _post, url, body) for body in requests))
@@ -1782,6 +1820,9 @@ async def _drive(args: Namespace, requests: list, concurrent: bool = False, then
         if sched:
             health["sched"] = await loop.run_in_executor(
                 None, lambda: json.loads(urllib.request.urlopen(base + "/v1/debug/sched", timeout=5).read()))
+        if metrics:
+            health["metrics"] = await loop.run_in_executor(None, _scrape, base + "/metrics")
+            health["fences"] = fence_calls() - fences
     finally:
         if not server.done():
             signal.raise_signal(signal.SIGTERM)  # the server's own shutdown path
@@ -1850,8 +1891,8 @@ def phase_serve(prompt_text: str, n_prompt: int) -> tuple:
         cfg = ModelConfig.from_hf(LLAMA_3_2_1B_CONFIG)
         window, edge = random_llama_params(cfg, range(cfg.num_hidden_layers), torch.device("cuda"),
                                            torch.bfloat16, seed=0)
-        # bf16 and int8 caches in turns: host times drift within a run
-        for bits in (0, 8, 8, 0):
+        # a bf16 and an int8 cache, one step phase each
+        for bits in (0, 8):
             phase_step(cfg, window, edge, n_prompt, bits)
         batch_step = phase_batch_step(cfg, window, edge, BATCH_PROMPT_TOKENS)
         sp_step = phase_sp_step(cfg, window, edge)
@@ -1870,9 +1911,10 @@ def phase_serve(prompt_text: str, n_prompt: int) -> tuple:
                 "messages": [{"role": "user", "content": prompt_text}], "logit_bias": TEXT_BIAS}
         sampled = dict(chat, temperature=0.8, top_p=0.95, seed=1234)
         bodies = [{"greedy": chat, "streamed": dict(chat, stream=True), "sampled": sampled}[k] for k in SERVE_KINDS]
-        results, launches, load_s, health = asyncio.run(_drive(args, bodies))
-        row = serve_row(results, launches, write_s, load_s)
+        results, launches, load_s, health = asyncio.run(_drive(args, bodies, metrics=True))
+        row = serve_row(results, launches, write_s, load_s, health)
         batched = phase_batch_serve(tmp, port, batch_step)
+        phase_obs_serve(tmp, port, batched)
         phase_sched_serve(tmp, port, batched)
         quant = phase_quant_serve(tmp, port, bodies, row, batched)
         gathered = phase_gather_serve(tmp, port, batched)
@@ -1902,8 +1944,9 @@ def streamed_rates(results: list) -> dict:
             "streamed_runs": [{"ttft_s": r["ttft_s"], "decode_tokens_per_s": v} for r, v in zip(runs, rates)]}
 
 
-def serve_row(results: list, launches: dict, write_s: float, load_s: float) -> dict:
-    """Check the single-sequence serve's requests and launch counts; emit its line."""
+def serve_row(results: list, launches: dict, write_s: float, load_s: float, health: dict) -> dict:
+    """Check the single-sequence serve's requests, launch counts and
+    metrics (obs off: counted, never fenced); emit its line."""
     for name, r in zip(SERVE_KINDS, results):
         check(r["status"] == 200, f"{name} request: HTTP {r['status']}")
         check(bool(r["content"]) and r["tokens"] == MAX_TOKENS, f"{name} request: empty or short completion")
@@ -1917,10 +1960,20 @@ def serve_row(results: list, launches: dict, write_s: float, load_s: float) -> d
           f"prefill launches {launches['flash_prefill']} != {LAYERS} x {n_prefill} prefills")
     check(launches["flash_decode"] == LAYERS * decode_steps,
           f"decode launches {launches['flash_decode']} != {LAYERS} x {decode_steps} steps")
+    m = health["metrics"]
+    tokens = sum(r["tokens"] for r in results)
+    check(m["dnet_ttft_ms_count"] == len(results), f"dnet_ttft_ms_count {m['dnet_ttft_ms_count']} != {len(results)}")
+    check(m["dnet_requests_total"] == len(results) and m["dnet_tokens_generated_total"] == tokens,
+          f"request / token counters {m['dnet_requests_total']} / {m['dnet_tokens_generated_total']} != "
+          f"{len(results)} / {tokens}")
+    check(health["fences"] == 0, f"{health['fences']} device fences with obs off")
     row = {
         "phase": "serve", "gpu": gpu_line(), "model": "Llama-3.2-1B (synthetic bf16 weights, seed 0)",
         "checkpoint_write_s": write_s, "load_s": load_s, "launches": launches,
         "prefills": n_prefill, "decode_steps": decode_steps,
+        "metrics": {k: m[k] for k in ("dnet_requests_total", "dnet_tokens_generated_total", "dnet_ttft_ms_count",
+                                      "dnet_decode_step_ms_count", "dnet_prefill_ms_count")},
+        "fences_obs_off": health["fences"],
         "requests": [
             {"kind": k, "status": r["status"], "completion_tokens": r["tokens"], "s": r["s"],
              "tokens_per_s": r["tokens"] / r["s"], "content_head": r["content"][:40]}
@@ -1930,6 +1983,22 @@ def serve_row(results: list, launches: dict, write_s: float, load_s: float) -> d
     }
     emit(row)
     return row
+
+
+def _get_text(url: str) -> str:
+    with urllib.request.urlopen(url, timeout=30) as r:
+        return r.read().decode()
+
+
+def _scrape(url: str) -> dict:
+    """A Prometheus exposition (/metrics, /v1/cluster/metrics) as
+    {sample with its labels: value}."""
+    out = {}
+    for line in _get_text(url).splitlines():
+        if line and not line.startswith("#"):
+            key, value = line.rsplit(" ", 1)
+            out[key] = float(value)
+    return out
 
 
 def _free_port() -> int:
@@ -1949,12 +2018,14 @@ def _post_json(url: str, body: dict) -> dict:
 
 
 async def _drive_ring(args: Namespace, model_dir: str, bodies: list, shard_urls: list, kv_bits: int = 0,
-                      windows: Sequence[dict] = ({}, {})) -> tuple:
+                      windows: Sequence[dict] = ({}, {}), obs: Optional[dict] = None) -> tuple:
     """The API node in this process in ring mode: prepare the manual
     topology (each assignment with its `windows` entry: window_size /
     residency_size), fan the load out to the shards, send `bodies` in
     order; returns (results, load seconds, each shard's /health after the
-    first request, which warms the shards up)."""
+    first request, which warms the shards up).  An `obs` dict receives the
+    API's /v1/cluster/metrics ("cluster") and each shard's /metrics
+    ("shards") after the requests."""
     from dnet_tpu_torch.api.server import serve_async
 
     loop = asyncio.get_running_loop()
@@ -1985,6 +2056,9 @@ async def _drive_ring(args: Namespace, model_dir: str, bodies: list, shard_urls:
             results.append(await loop.run_in_executor(None, _post, base + "/v1/chat/completions", body))
             if warm is None:
                 warm = [await loop.run_in_executor(None, _get, u + "/health") for u in shard_urls]
+        if obs is not None:
+            obs["cluster"] = await loop.run_in_executor(None, _scrape, base + "/v1/cluster/metrics")
+            obs["shards"] = [await loop.run_in_executor(None, _scrape, u + "/metrics") for u in shard_urls]
     finally:
         if not server.done():
             signal.raise_signal(signal.SIGTERM)  # the server's own shutdown path
@@ -1993,14 +2067,15 @@ async def _drive_ring(args: Namespace, model_dir: str, bodies: list, shard_urls:
 
 
 def _ring_pass(model_dir: str, codec: str, bodies: list, logdir: str, kv_bits: int = 0, tag: str = "",
-               windows: Sequence[dict] = ({}, {})) -> tuple:
+               windows: Sequence[dict] = ({}, {}), obs: Optional[dict] = None) -> tuple:
     """Start the two shard processes on the card, serve `bodies` through
     them with the hop codec `codec`, the topology's `kv_bits` and each
     shard's `windows` entry (its weight plan), read each shard's /health,
     and stop the shards; returns (results, [s0 health, s1 health], load
     seconds, the /health pair after the first request).  `tag` names the
     pass's hostfile and shard logs (default: codec and kv_bits); a
-    streaming shard's repack cache goes under `logdir`."""
+    streaming shard's repack cache goes under `logdir`; `obs` as
+    _drive_ring's."""
     env = dict(os.environ, DNET_WIRE_CODEC=codec, DNET_SHARD_REPACK_DIR=os.path.join(logdir, "repack"), **RING_ENV)
     shards = [(f"s{i}", _free_port(), _free_port()) for i in range(len(RING_LAYERS))]
     tag = tag or f"{codec}-kv{kv_bits}"
@@ -2036,7 +2111,7 @@ def _ring_pass(model_dir: str, codec: str, bodies: list, logdir: str, kv_bits: i
         )
         with environ({"DNET_WIRE_CODEC": codec, **RING_ENV}):  # the API resolves the hop codec
             urls = [f"http://127.0.0.1:{http}" for _, http, _ in shards]
-            results, load_s, warm = asyncio.run(_drive_ring(args, model_dir, bodies, urls, kv_bits, windows))
+            results, load_s, warm = asyncio.run(_drive_ring(args, model_dir, bodies, urls, kv_bits, windows, obs))
         healths = [_get(u + "/health") for u in urls]
     except Exception:
         for path in logs:
@@ -2084,7 +2159,15 @@ def phase_ring_serve(model_dir: str, bodies: list, serve_results: list, served: 
     )
     out, ring_q8, lossless = {}, None, None
     for codec, kv_bits, kinds, reqs in passes:
-        results, (h0, h1), load_s, warm = _ring_pass(model_dir, codec, reqs, os.path.dirname(model_dir), kv_bits)
+        obs = {}
+        results, (h0, h1), load_s, warm = _ring_pass(model_dir, codec, reqs, os.path.dirname(model_dir), kv_bits,
+                                                     obs=obs)
+        # the API's federated scrape read both shards, and each shard's own
+        # /metrics counts the payload bytes it wrote to the next hop
+        fed = {p: obs["cluster"].get(f'dnet_federation_scrape_ok{{node="api",peer="{p}"}}') for p in ("s0", "s1")}
+        check(fed == {"s0": 1.0, "s1": 1.0}, f"ring {codec}: dnet_federation_scrape_ok {fed}")
+        tx = [m['dnet_wire_bytes_total{dir="tx"}'] for m in obs["shards"]]
+        check(codec != "qsparse8" or tx[0] > 0, f"ring {codec}: shard tx wire bytes {tx}")
         for i, r in enumerate(results):
             check(r["status"] == 200, f"ring {codec} request {i}: HTTP {r['status']}")
             check(bool(r["content"]) and r["tokens"] == MAX_TOKENS, f"ring {codec} request {i}: {r['tokens']} tokens")
@@ -2130,6 +2213,7 @@ def phase_ring_serve(model_dir: str, bodies: list, serve_results: list, served: 
             # s1 decodes), the warm-up request left out
             "steady": {f"s{i}": _steady(h, w, results[1:]) for i, (h, w) in enumerate(zip((h0, h1), warm))},
             "launches": {"s0": k0, "s1": k1}, "decode_steps": steps - len(results),
+            "federation_scrape_ok": fed, "shard_wire_tx_bytes": tx,
             "requests": [
                 {"kind": k, "status": r["status"], "completion_tokens": r["tokens"], "s": r["s"],
                  "content_head": r["content"][:40]}
@@ -2302,6 +2386,172 @@ def phase_batch_serve(model_dir: str, port: int, batch_step: dict) -> dict:
         ],
         "step_at_8_lanes": {k: batch_step[k] for k in ("wall_ms", "host_issue_ms", "device_busy_ms",
                                                        "device_idle_share", "paged_kernel_ms")},
+    }
+    emit(row)
+    return row
+
+
+# the request lifecycle with obs on: 4 slots admitted of 8 and a queue of 2,
+# so a burst of 10 streams sheds exactly 4; the dense-gather paged decode,
+# whose dispatch has all four phases
+OBS_ENV = dict(DNET_KV_PAGED="1", DNET_OBS_ENABLED="1", DNET_ADMIT_QUEUE_DEPTH="2", DNET_ADMIT_QUEUE_TIMEOUT_S="120")
+OBS_ADMITTED, OBS_BURST, OBS_TOKENS = 4, 10, 16
+EMBED_TOKENS = (51, 300)
+
+
+def _post_status(url: str, body: dict) -> dict:
+    """_post's result, or for an HTTP error its status, Retry-After, body
+    and the time it was sent."""
+    t0 = time.perf_counter()
+    try:
+        return _post(url, body)
+    except urllib.error.HTTPError as exc:
+        return {"status": exc.code, "retry_after": exc.headers.get("Retry-After"), "body": json.loads(exc.read()),
+                "t0": t0}
+
+
+def _obs_delta(after: dict, before: dict, key: str) -> float:
+    return after.get(key, 0.0) - before.get(key, 0.0)
+
+
+async def _drive_obs(args: Namespace, model_dir: str) -> dict:
+    """The obs_serve server in this process: the shed burst, a profiled
+    request, the trace, /v1/embeddings and /v1/unload_model, each with the
+    metrics around it."""
+    from dnet_tpu_torch.api.server import serve_async
+    from dnet_tpu_torch.kernels import launch_counts, reset_launch_counts
+
+    loop = asyncio.get_running_loop()
+    server = asyncio.ensure_future(serve_async(args))
+    base = f"http://127.0.0.1:{args.http_port}"
+    run = lambda fn, *a: loop.run_in_executor(None, fn, *a)  # noqa: E731
+    out = {}
+    t0 = time.perf_counter()
+    try:
+        while True:
+            check(not server.done(), "obs server exited during start-up")
+            try:
+                if (await run(_get, base + "/health")).get("model"):
+                    break
+            except OSError:
+                pass
+            check(time.perf_counter() - t0 < 600, "obs server not ready within 600 s")
+            await asyncio.sleep(0.5)
+        chat = {"model": "llama-3.2-1b-synthetic", "max_tokens": OBS_TOKENS, "temperature": 0, "stream": True,
+                "logit_bias": TEXT_BIAS}
+        prompts = _batch_prompts()
+        bodies = [dict(chat, messages=[{"role": "user", "content": prompts[i % 3]}]) for i in range(OBS_BURST)]
+        out["m0"] = await run(_scrape, base + "/metrics")
+        out["burst"] = await asyncio.gather(*(run(_post_status, base + "/v1/chat/completions", b) for b in bodies))
+        out["m1"] = await run(_scrape, base + "/metrics")
+        prof = dict(bodies[0], stream=False, max_tokens=MAX_TOKENS, profile=True)
+        t = time.perf_counter()
+        out["profile"] = await run(_post_status, base + "/v1/chat/completions", prof)
+        check(out["profile"]["status"] == 200, f"profiled request: {out['profile']}")
+        out["profile"]["wall_ms"] = (time.perf_counter() - t) * 1e3
+        out["trace"] = json.loads(await run(_get_text, base + "/v1/debug/trace"))
+        out["embed"] = []
+        for n in EMBED_TOKENS + EMBED_TOKENS:  # each input twice: the repeat must equal bit for bit
+            reset_launch_counts()
+            t = time.perf_counter()
+            body = await run(_post_json, base + "/v1/embeddings",
+                             {"model": "llama-3.2-1b-synthetic", "input": [[65 + i % 26 for i in range(n)]]})
+            out["embed"].append({"tokens": n, "s": time.perf_counter() - t, "launches": launch_counts(),
+                                 "vector": body["data"][0]["embedding"], "usage": body["usage"]})
+        health = await run(_get, base + "/health")
+        out["weight_bytes"] = health["engine"]["weight_bytes"]
+        out["m2"] = await run(_scrape, base + "/metrics")
+        out["unload"] = await run(_post_json, base + "/v1/unload_model", {})
+        out["m3"] = await run(_scrape, base + "/metrics")
+        out["health_unloaded"] = await run(_get, base + "/health")
+    finally:
+        if not server.done():
+            signal.raise_signal(signal.SIGTERM)  # the server's own shutdown path: drain, then stop
+        await server
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
+def phase_obs_serve(model_dir: str, port: int, batched: dict) -> dict:
+    """The request lifecycle and its observability on the batch_serve
+    checkpoint: --batch-slots 8 over the dense-gather paged decode,
+    DNET_OBS_ENABLED=1, 4 requests admitted at once and a queue of 2
+    (DNET_ADMIT_QUEUE_DEPTH).  A burst of 10 streamed 16-token requests gets
+    exactly 6 answers and 4 x 429 queue_full, each with Retry-After >= 1;
+    the request and token counters equal what the clients counted; the
+    fenced phases of the batched dispatch (kv_gather, compute, kv_scatter,
+    sample) cover at least 0.8 of dnet_decode_step_ms; the device-memory
+    gauges are set (in_use <= limit); a profiled request's critical-path
+    segments sum to within 2% of its wall time at the client; the serving
+    window's trace parses; /v1/embeddings on a 51- and a 300-token input
+    gives finite 2048-wide vectors, 16 prefill launches each (one forward),
+    and a repeat gives the same bits; /v1/unload_model frees at least the
+    weights' bytes."""
+    args = _batch_args(model_dir, port)
+    args.max_concurrent = OBS_ADMITTED
+    with environ(OBS_ENV):
+        out = asyncio.run(_drive_obs(args, model_dir))
+    burst, m0, m1 = out["burst"], out["m0"], out["m1"]
+    ok = [r for r in burst if r["status"] == 200]
+    shed = [r for r in burst if r["status"] != 200]
+    check(len(ok) == OBS_ADMITTED + 2 and len(shed) == OBS_BURST - OBS_ADMITTED - 2,
+          f"burst statuses {sorted(r['status'] for r in burst)}")
+    check(max(r["t0"] for r in burst) < min(r["t_end"] for r in ok), "a burst request completed before all were sent")
+    for r in shed:
+        check(r["status"] == 429 and int(r["retry_after"]) >= 1, f"shed request {r}")
+        check(r["body"]["error"]["type"] == "rate_limit_exceeded" and "queue full" in r["body"]["error"]["message"],
+              f"shed body {r['body']}")
+    queue_full = _obs_delta(m1, m0, 'dnet_admit_rejected_total{reason="queue_full"}')
+    check(queue_full == len(shed), f"dnet_admit_rejected_total queue_full moved {queue_full}")
+    tokens = sum(r["tokens"] for r in ok)
+    check(all(r["tokens"] == OBS_TOKENS for r in ok), f"burst completions {[r['tokens'] for r in ok]}")
+    counted = {k: _obs_delta(m1, m0, k) for k in ("dnet_requests_total", "dnet_tokens_generated_total")}
+    check(counted == {"dnet_requests_total": len(ok), "dnet_tokens_generated_total": tokens},
+          f"counters {counted} != {len(ok)} requests, {tokens} tokens")
+    parent_ms = _obs_delta(m1, m0, "dnet_decode_step_ms_sum")
+    phases = {}
+    for ph in ("kv_gather", "compute", "kv_scatter", "sample"):
+        n = _obs_delta(m1, m0, f'dnet_step_phase_ms_count{{phase="{ph}"}}')
+        ms = _obs_delta(m1, m0, f'dnet_step_phase_ms_sum{{phase="{ph}"}}')
+        check(n > 0, f"phase {ph} never observed")
+        phases[ph] = {"dispatches": n, "sum_ms": ms, "mean_ms": ms / n, "share": ms / parent_ms}
+    coverage = sum(p["sum_ms"] for p in phases.values()) / parent_ms
+    check(coverage >= 0.8, f"phase coverage {coverage:.3f} < 0.8")
+    m2 = out["m2"]
+    mem = {k: m2[f'dnet_device_mem_bytes{{kind="{k}"}}'] for k in ("in_use", "peak", "limit")}
+    check(all(v > 0 for v in mem.values()) and mem["in_use"] <= mem["limit"], f"device memory gauges {mem}")
+    prof = out["profile"]
+    cp = prof["body"]["metrics"]["critical_path"]
+    seg_sum = sum(cp["segments_ms"].values())
+    check(abs(seg_sum - prof["wall_ms"]) <= 0.02 * prof["wall_ms"],
+          f"critical path {seg_sum:.1f} ms vs {prof['wall_ms']:.1f} ms at the client")
+    trace = out["trace"]
+    check(isinstance(trace.get("traceEvents"), list) and len(trace["traceEvents"]) > 0, "trace JSON")
+    embed = out["embed"]
+    for e in embed:
+        v = np.asarray(e["vector"], dtype=np.float32)
+        check(v.shape == (2048,) and bool(np.isfinite(v).all()), f"embedding of {e['tokens']} tokens: {v.shape}")
+        check(e["launches"]["flash_prefill"] == LAYERS, f"embedding launches {e['launches']}")
+        check(e["usage"]["prompt_tokens"] == e["tokens"], f"embedding usage {e['usage']}")
+    for a, b in zip(embed[:2], embed[2:]):
+        check(a["vector"] == b["vector"], f"the {a['tokens']}-token embedding changed on a repeat")
+    freed = out["m2"]['dnet_device_mem_bytes{kind="in_use"}'] - out["m3"]['dnet_device_mem_bytes{kind="in_use"}']
+    check(freed >= out["weight_bytes"], f"unload freed {freed} bytes < the weights' {out['weight_bytes']}")
+    check(out["health_unloaded"]["model"] is None, f"/health after unload: {out['health_unloaded']}")
+    row = {
+        "phase": "obs_serve", "gpu": gpu_line(), "model": "Llama-3.2-1B (synthetic bf16 weights, seed 0)",
+        "admitted": OBS_ADMITTED, "queue_depth": 2, "burst": OBS_BURST,
+        "statuses": sorted(r["status"] for r in burst), "retry_after": [r["retry_after"] for r in shed],
+        "counters": counted, "decode_step_ms_sum": parent_ms, "phases": phases, "coverage": coverage,
+        "device_mem_bytes": mem,
+        "profile": {"wall_ms": prof["wall_ms"], "segments_sum_ms": seg_sum, "segments_ms": cp["segments_ms"]},
+        "trace_events": len(trace["traceEvents"]),
+        "embeddings": [{"tokens": e["tokens"], "s": e["s"], "flash_prefill_launches": e["launches"]["flash_prefill"]}
+                       for e in embed],
+        "unload_freed_bytes": freed, "weight_bytes": out["weight_bytes"],
+        "burst_obs_on": _burst_rates(ok),
+        "batch_serve_obs_off": {k: batched[k] for k in ("aggregate_tokens_per_s", "aggregate_decode_tokens_per_s")},
     }
     emit(row)
     return row
@@ -3254,7 +3504,9 @@ def phase_sp_family_serve(family: str, model_dir: str, port: int, model: str, pr
 SP_RANKS = (2, 4)
 LSE_POSITIONS = [0, 1023, 1024, 2047, 2048, 4095]
 SP_LONG_TOKENS = 2100
-SP_SERVE_POS = SP_LONG_TOKENS + MAX_TOKENS // 2  # the long request half-way through its output
+# sp_serve's completions: 32 tokens, half the serve phase's, for the script's time
+SP_SERVE_TOKENS = 32
+SP_SERVE_POS = SP_LONG_TOKENS + SP_SERVE_TOKENS // 2  # the long request half-way through its output
 SP_DEVICES = ["cuda:0", "cuda:0"]  # the script needs one card: both ranks share it
 
 
@@ -3681,8 +3933,8 @@ SP_RANK_Q8_KV_BYTES = 35_651_584
 def phase_sp_serve(model_dir: str, port: int, bodies: list, long_body: dict, sp_step: dict) -> dict:
     """The serve phase's checkpoint served by the port's HTTP server through
     the model manager with a mesh of sp = 2 on ["cuda:0", "cuda:0"]: the
-    serve phase's requests plus one streamed prompt of ~2,100 tokens, 64
-    tokens each.  In f32 the greedy text must equal a single-device f32
+    serve phase's requests plus one streamed prompt of ~2,100 tokens,
+    SP_SERVE_TOKENS (32) tokens each.  In f32 the greedy text must equal a single-device f32
     serve of the same checkpoint; in bf16 it is served once (sp prefill is
     the reference's dense path, the single device's the prefill kernel, so
     their texts part).  Every decode step
@@ -3694,7 +3946,7 @@ def phase_sp_serve(model_dir: str, port: int, bodies: list, long_body: dict, sp_
     from dnet_tpu_torch.core.kvcache import KVConfig, cache_nbytes
 
     kinds = list(SERVE_KINDS) + ["streamed_long"]
-    reqs = bodies + [long_body]
+    reqs = [dict(b, max_tokens=SP_SERVE_TOKENS) for b in bodies + [long_body]]
 
     def serve(dtype: str, mesh: bool, requests: list, names: list = kinds):
         args = Namespace(host="127.0.0.1", http_port=port, model=model_dir, models_dir="", device="cuda",
@@ -3702,7 +3954,8 @@ def phase_sp_serve(model_dir: str, port: int, bodies: list, long_body: dict, sp_
                          mesh="sp=2" if mesh else "", mesh_devices=SP_DEVICES if mesh else None)
         results, launches, load_s, health = asyncio.run(_drive(args, requests))
         for k, r in zip(names, results):
-            check(r["status"] == 200 and r["tokens"] == MAX_TOKENS, f"sp_serve {dtype} mesh={mesh} {k}: {r['status']}")
+            check(r["status"] == 200 and r["tokens"] == SP_SERVE_TOKENS,
+                  f"sp_serve {dtype} mesh={mesh} {k}: {r['status']}")
         return results, launches, load_s, health
 
     single32 = serve("float32", False, reqs)

@@ -3,22 +3,37 @@
 Counterpart of dnet_tpu/api/inference.py: template + encode, a nonce per
 request, the per-token send / await / detokenize loop, EOS, stop-sequence
 and length stops, logprobs, usage, and non-streaming aggregation, with the
-same chunk sequence the reference emits.  Admission is a plain bound on
-concurrent requests plus the reference's deadline checks: a request that
-arrives past its deadline is shed at the gate (429), one whose deadline
-passes between decode steps ends with DeadlineExceededError (504), and in
-ring mode the deadline rides every frame.  A step's capacity and deadline
-errors come back typed (`classify_result_error`).  Resume, the bounded
-queue, SLO tracking and the flight recorder are not part of the port yet.
+same chunk sequence the reference emits.  Requests pass the reference's
+`AdmissionController` (admission/controller.py): a bounded wait queue that
+sheds with 429 + Retry-After, deadline-aware shedding, and drain (503).
+One whose deadline passes between decode steps ends with
+DeadlineExceededError (504), and in ring mode the deadline rides every
+frame.  A step's capacity and deadline errors come back typed
+(`classify_result_error`).  Each request is recorded as the reference
+records it: the flight recorder's spans (admission wait, ttft, each
+decode step, the closing request span), the request / token / error
+counters and the TTFT histogram, the SLO windows, the critical-path
+ledger (in `metrics.critical_path` when the request asks to profile) and
+one `request_complete` wide event.  /v1/embeddings passes the same
+admission.  Resume across shard failures is not part of the port yet.
 """
 
 from __future__ import annotations
 
 import asyncio
+import base64
 import time
 from typing import AsyncIterator, Optional
 
-from dnet_tpu_torch.admission.controller import Deadline, DeadlineGate, request_deadline
+import numpy as np
+
+from dnet_tpu_torch.admission.controller import (
+    AdmissionController,
+    AdmissionRejected,
+    Deadline,
+    deadline_expired,
+    request_deadline,
+)
 from dnet_tpu_torch.api.schemas import (
     ChatChoice,
     ChatChoiceDelta,
@@ -31,6 +46,9 @@ from dnet_tpu_torch.api.schemas import (
     CompletionChoice,
     CompletionLogprobs,
     CompletionResponse,
+    EmbeddingData,
+    EmbeddingsResponse,
+    EmbeddingsUsage,
     LogprobEntry,
     RequestMetrics,
     TopLogprob,
@@ -38,12 +56,20 @@ from dnet_tpu_torch.api.schemas import (
     new_request_id,
 )
 from dnet_tpu_torch.api.strategies import ApiAdapterBase
-from dnet_tpu_torch.config import admission_settings
+from dnet_tpu_torch.config import admission_settings, kv_settings, sched_settings, wire_settings
 from dnet_tpu_torch.core.types import DecodingParams
+from dnet_tpu_torch.obs import critical_path, get_recorder, get_slo_tracker, metric
+from dnet_tpu_torch.obs.events import bind, log_event
 from dnet_tpu_torch.utils.logger import get_logger
 from dnet_tpu_torch.utils.tokenizer import Detokenizer
 
 log = get_logger()
+
+_TTFT_MS = metric("dnet_ttft_ms")
+_REQUESTS = metric("dnet_requests_total")
+_REQUEST_ERRORS = metric("dnet_request_errors_total")
+_TOKENS_TOTAL = metric("dnet_tokens_generated_total")
+_CANCELS = metric("dnet_cancel_propagated_total")
 
 
 class InferenceError(Exception):
@@ -91,6 +117,34 @@ def classify_result_error(error: str) -> InferenceError:
     return InferenceError(error)
 
 
+def _event_status(exc: BaseException) -> int:
+    """HTTP status a failed request's `request_complete` event carries: the
+    mapping api/http.py `_map_inference_errors` applies."""
+    if isinstance(exc, AdmissionRejected):
+        return 503 if exc.reason == "draining" else 429
+    if isinstance(exc, BackpressureError):
+        return 429
+    if isinstance(exc, DeadlineExceededError):
+        return 504
+    if isinstance(exc, PromptTooLongError):
+        return 400
+    if isinstance(exc, EngineCapabilityError):
+        return 422
+    return 500
+
+
+def _resolved_modes() -> dict:
+    """The serving-mode knobs beside a request's outcome: wire codec, KV
+    layout, TP degree (1: not ported) and whether the scheduler served."""
+    kv = kv_settings()
+    return {
+        "codec": wire_settings().codec,
+        "kv": "ragged" if kv.ragged else ("paged" if kv.paged else "dense"),
+        "tp": 1,
+        "sched": sched_settings().sched,
+    }
+
+
 def completion_logprobs(entries: list, offset0: int = 0) -> CompletionLogprobs:
     """Chat-style LogprobEntry list -> the OpenAI text_completion logprobs
     shape ({tokens, token_logprobs, top_logprobs, text_offset})."""
@@ -128,10 +182,11 @@ class InferenceManager:
         self.tokenizer = None  # set by the model manager on load
         self.model_id = None
         self.request_timeout_s = request_timeout_s
-        self.max_concurrent = max_concurrent
-        self._slots = asyncio.Semaphore(max_concurrent)
-        self.active = 0  # admitted requests in flight
-        self.gate = DeadlineGate()
+        adm = admission_settings()
+        # the front door: bounded queue, shedding, Retry-After, drain
+        self.admission = AdmissionController(
+            max_concurrent, queue_depth=adm.admit_queue_depth, queue_timeout_s=adm.admit_queue_timeout_s
+        )
 
     @property
     def ready(self) -> bool:
@@ -174,21 +229,32 @@ class InferenceManager:
 
     async def generate_stream(self, req) -> AsyncIterator[ChatCompletionChunk]:
         """Per-token chunks; the final chunk carries finish_reason/usage.
-        A request already past its deadline raises AdmissionRejected on the
-        consumer's first `anext` (429 + Retry-After upstream)."""
+        Admission happens on the consumer's first `anext`: a shed request
+        raises AdmissionRejected (429 / 503 + Retry-After upstream) before
+        any chunk."""
         if not self.ready:
             raise InferenceError("no model loaded")
         deadline = self._deadline_for(req)
-        self.gate.check(deadline)
-        async with self._slots:
-            self.active += 1
-            t_admit = time.monotonic()
-            try:
-                async for chunk in self._run(req, deadline):
+        t_admit = time.perf_counter()
+        try:
+            async with self.admission.slot(deadline):
+                # queued-at-the-gate time: _run backdates it onto the
+                # timeline as the admission_wait segment
+                admit_wait_ms = (time.perf_counter() - t_admit) * 1000.0
+                async for chunk in self._run(req, deadline, admit_wait_ms):
                     yield chunk
-            finally:
-                self.active -= 1
-                self.gate.observe_service(time.monotonic() - t_admit)
+        except AdmissionRejected as rej:
+            # shed before a rid existed: still one finished request
+            log_event(
+                "request_complete",
+                status=_event_status(rej),
+                finish_reason="shed",
+                shed=True,
+                shed_reason=rej.reason,
+                tokens=0,
+                total_ms=round((time.perf_counter() - t_admit) * 1000.0, 3),
+            )
+            raise
 
     async def _await_step(self, nonce: str, step: int, deadline: Optional[Deadline]):
         """The step's token, awaited no longer than the deadline leaves: a
@@ -201,55 +267,88 @@ class InferenceManager:
             return await self.adapter.await_token(nonce, step, timeout)
         except asyncio.TimeoutError as exc:
             if deadline.expired:
+                deadline_expired("api_step")
                 raise DeadlineExceededError(f"request deadline expired awaiting step {step}") from exc
             raise
 
-    async def _run(self, req, deadline: Optional[Deadline] = None) -> AsyncIterator[ChatCompletionChunk]:
+    async def _run(
+        self, req, deadline: Optional[Deadline] = None, admit_wait_ms: float = 0.0
+    ) -> AsyncIterator[ChatCompletionChunk]:
         rid = new_request_id()
         nonce = rid
+        # every log record and wide event of this request carries the rid;
+        # entered by hand so the finally below always exits it
+        ctx = bind(rid=rid, node="api")
+        ctx.__enter__()
         t_start = time.perf_counter()
         t_first = None
         generated = 0
         finish_reason = "length"
-        tok = self.tokenizer
-        prompt_ids = tok.encode(req.render_prompt(tok))
-        decoding = self._decoding(req)
-        stop_seqs = req.stop_sequences()
-        eos = tok.eos_token_ids
-        detok = Detokenizer(tok)
-        max_new = req.completion_tokens_limit
-
-        capacity = self.adapter.max_seq()
-        if capacity is not None:
-            if len(prompt_ids) >= capacity:
-                raise PromptTooLongError(
-                    f"prompt is {len(prompt_ids)} tokens but the serving context is {capacity}"
-                )
-            max_new = min(max_new, capacity - len(prompt_ids))
-
-        pending = ""  # emitted-text buffer held back for stop-seq match
-        held_entries: list = []  # logprob entries for held-back tokens
-        emitted_ahead = 0  # emitted chars owned by the oldest held entry
-        first_chunk = True  # first streamed delta carries role=assistant
-        stopped_by_seq = False
-
-        await self.adapter.reset_cache(nonce)
-        if deadline is not None:
-            # in ring mode every frame carries it: shards drop expired ones
-            self.adapter.set_deadline(nonce, deadline.t_deadline)
+        recorder = get_recorder()
+        slo = get_slo_tracker()
+        completed = False  # one request_complete a request
+        opened = False  # the adapter holds a session for the nonce
+        prompt_ids: list = []
         try:
+            tok = self.tokenizer
+            prompt_ids = tok.encode(req.render_prompt(tok))
+            decoding = self._decoding(req)
+            stop_seqs = req.stop_sequences()
+            eos = tok.eos_token_ids
+            detok = Detokenizer(tok)
+            max_new = req.completion_tokens_limit
+
+            capacity = self.adapter.max_seq()
+            if capacity is not None:
+                if len(prompt_ids) >= capacity:
+                    raise PromptTooLongError(
+                        f"prompt is {len(prompt_ids)} tokens but the serving context is {capacity}"
+                    )
+                max_new = min(max_new, capacity - len(prompt_ids))
+
+            recorder.begin(rid)
+            if admit_wait_ms > 0.0:
+                # the wait happened before this timeline's origin: a
+                # negative start keeps [0, e2e] the admitted window while
+                # the ledger still carries the queued time
+                recorder.span(rid, "admission_wait", admit_wait_ms, t_ms=-admit_wait_ms, force=True)
+            _REQUESTS.inc()
+            pending = ""  # emitted-text buffer held back for stop-seq match
+            held_entries: list = []  # logprob entries for held-back tokens
+            emitted_ahead = 0  # emitted chars owned by the oldest held entry
+            first_chunk = True  # first streamed delta carries role=assistant
+            stopped_by_seq = False
+
+            await self.adapter.reset_cache(nonce)
+            opened = True
+            if deadline is not None:
+                # in ring mode every frame carries it: shards drop expired ones
+                self.adapter.set_deadline(nonce, deadline.t_deadline)
             send_ids = list(prompt_ids)
             for step in range(max_new):
                 if deadline is not None and deadline.expired:
                     # every further token is work nobody is waiting for
+                    deadline_expired("api_step")
                     raise DeadlineExceededError(f"request deadline expired after {generated} token(s)")
+                t_step = time.perf_counter()
                 await self.adapter.send_tokens(nonce, send_ids, decoding, step, budget=max_new - step)
                 result = await self._await_step(nonce, step, deadline)
                 if result.error:
                     raise classify_result_error(result.error)
+                # one span a token: send -> token resolved
+                step_ms = (time.perf_counter() - t_step) * 1000
+                recorder.span(rid, "decode_step", step_ms, step=step)
+                if step > 0:
+                    # step 0 is the prefill: TTFT owns it
+                    slo.record_decode(step_ms)
                 if t_first is None:
                     t_first = time.perf_counter()
+                    ttft_ms = (t_first - t_start) * 1000
+                    _TTFT_MS.observe(ttft_ms)
+                    slo.record_ttft(ttft_ms)
+                    recorder.span(rid, "ttft", ttft_ms, t_ms=0.0, force=True)
                 generated += 1
+                _TOKENS_TOTAL.inc()
 
                 if result.token_id in eos:
                     finish_reason = "stop"
@@ -344,13 +443,33 @@ class InferenceManager:
                 completion_tokens=generated,
                 total_tokens=len(prompt_ids) + generated,
             )
+            # the request span closes the timeline; RequestMetrics is a view
+            # over the recorded spans
+            recorder.span(
+                rid, "request", (t_end - t_start) * 1000, t_ms=0.0,
+                tokens=generated, prompt_tokens=len(prompt_ids),
+                finish_reason=finish_reason, force=True,
+            )
+            # the segment ledger feeds dnet_request_segment_ms for every
+            # request, and rides the final chunk when the client profiles
+            ledger = critical_path.decompose(recorder.timeline(rid))
+            critical_path.observe(ledger)
+            log_event(
+                "request_complete",
+                status=200,
+                finish_reason=finish_reason,
+                shed=False,
+                tokens=generated,
+                prompt_tokens=len(prompt_ids),
+                total_ms=round((t_end - t_start) * 1000.0, 3),
+                modes=_resolved_modes(),
+                critical_path=ledger,
+            )
+            completed = True
             metrics = None
             if req.profile:
-                metrics = RequestMetrics.from_times(
-                    (t_end - t_start) * 1000,
-                    ((t_first or t_end) - t_start) * 1000,
-                    generated,
-                )
+                metrics = RequestMetrics.from_timeline(recorder.timeline(rid))
+                metrics.critical_path = ledger
             yield ChatCompletionChunk(
                 id=rid,
                 model=req.model,
@@ -365,10 +484,87 @@ class InferenceManager:
                 usage=usage,
                 metrics=metrics,
             )
+            slo.record_request(ok=True)
+        except (GeneratorExit, asyncio.CancelledError):
+            # the client went away (an SSE disconnect closes this generator)
+            _CANCELS.inc()
+            if not completed:
+                # 499: the client-closed-request convention
+                log_event(
+                    "request_complete",
+                    status=499,
+                    finish_reason="cancelled",
+                    shed=False,
+                    tokens=generated,
+                    prompt_tokens=len(prompt_ids),
+                    total_ms=round((time.perf_counter() - t_start) * 1000.0, 3),
+                    modes=_resolved_modes(),
+                )
+                completed = True
+            raise
+        except Exception as exc:
+            # shed work (429 capacity, 504 deadline) is not failed work: it
+            # burns neither the availability SLO nor the error counter
+            shed = isinstance(exc, (BackpressureError, DeadlineExceededError))
+            if not shed:
+                _REQUEST_ERRORS.inc()
+                slo.record_request(ok=False)
+            if not completed:
+                log_event(
+                    "request_complete",
+                    status=_event_status(exc),
+                    finish_reason="shed" if shed else "error",
+                    shed=shed,
+                    shed_reason=(
+                        "deadline" if isinstance(exc, DeadlineExceededError)
+                        else "backpressure" if shed else ""
+                    ),
+                    error=str(exc)[:200],
+                    tokens=generated,
+                    prompt_tokens=len(prompt_ids),
+                    total_ms=round((time.perf_counter() - t_start) * 1000.0, 3),
+                    modes=_resolved_modes(),
+                )
+                completed = True
+            raise
         finally:
-            # a finished or abandoned request (client disconnect closes this
-            # generator) frees its KV at once
-            await self.adapter.reset_cache(nonce)
+            # a finished or abandoned request frees its KV at once
+            try:
+                if opened:
+                    await self.adapter.reset_cache(nonce)
+            finally:
+                ctx.__exit__(None, None, None)
+
+    async def embeddings(self, req) -> EmbeddingsResponse:
+        """/v1/embeddings: mean-pooled final hidden states, one vector an
+        input.  Takes a string, a list of strings, a token list or a batch
+        of token lists, and the base64 encoding.  Embeddings use the same
+        compute as decode, so they pass the same admission."""
+        async with self.admission.slot(self._deadline_for(req)):
+            return await self._embeddings(req)
+
+    async def _embeddings(self, req) -> EmbeddingsResponse:
+        raw = req.input
+        if isinstance(raw, str):
+            batches = [self.tokenizer.encode(raw)]
+        elif raw and isinstance(raw[0], str):
+            batches = [self.tokenizer.encode(s) for s in raw]
+        elif raw and isinstance(raw[0], list):
+            batches = [list(ids) for ids in raw]
+        else:
+            batches = [list(raw)]
+        if any(not b for b in batches):
+            raise ValueError("embeddings input contains an empty entry")
+        vecs = await self.adapter.embed(batches)
+        if req.encoding_format == "base64":
+            vecs = [base64.b64encode(np.asarray(v, dtype=np.float32).tobytes()).decode("ascii") for v in vecs]
+        data = [EmbeddingData(index=i, embedding=v) for i, v in enumerate(vecs)]
+        n_tok = sum(len(b) for b in batches)
+        return EmbeddingsResponse(
+            data=data,
+            model=self.model_id or req.model,
+            usage=EmbeddingsUsage(prompt_tokens=n_tok, total_tokens=n_tok),
+        )
 
     async def _collect(self, req):
         """Drain the decode stream into (rid, text, logprob entries,

@@ -35,9 +35,12 @@ slashes replaced by `--`, HF-cache style); nothing is downloaded.
 from __future__ import annotations
 
 import asyncio
+import gc
 import time
 from pathlib import Path
 from typing import Optional, Sequence, Union
+
+import torch
 
 from dnet_tpu_torch.api.catalog import split_variant
 from dnet_tpu_torch.api.inference import EngineCapabilityError
@@ -206,3 +209,20 @@ class LocalModelManager:
         dt = time.perf_counter() - t0
         log.info("loaded model %s from %s in %.1fs", model_id, model_dir, dt)
         return dt
+
+    async def unload_model(self) -> None:
+        """Drop the model: stop the adapter and free the engine's device
+        memory (its parameters, caches and the allocator's cached blocks)."""
+        self.inference.model_id = None
+        self.inference.tokenizer = None
+        adapter, self.inference.adapter = self.inference.adapter, None
+        if adapter is not None:
+            await adapter.shutdown()
+        engine, self.engine = self.engine, None
+        if engine is not None:
+            engine.close()
+        del adapter, engine
+        gc.collect()
+        if torch.cuda.is_available() and torch.cuda.is_initialized():
+            torch.cuda.empty_cache()
+        log.info("model unloaded")

@@ -217,6 +217,30 @@ class RingModelManager:
                  model_id, len(topo.assignments), dt, topo.epoch)
         return dt
 
+    async def unload_model(self) -> None:
+        """Drop the model: stop the ring adapter and ask every shard of the
+        topology to unload (concurrently; a failed leg is logged)."""
+        topo = self.cluster.current_topology
+        self.inference.model_id = None
+        self.inference.tokenizer = None
+        adapter, self.inference.adapter = self.inference.adapter, None
+        if adapter is not None:
+            await adapter.shutdown()
+        if topo is None:
+            return
+        by_instance = {d.instance: d for d in topo.devices}
+        async with aiohttp.ClientSession(timeout=aiohttp.ClientTimeout(total=60.0)) as session:
+
+            async def drop(a: LayerAssignment) -> None:
+                dev = by_instance[a.instance]
+                try:
+                    async with session.post(f"http://{dev.host}:{dev.http_port}/unload_model") as r:
+                        await r.read()
+                except (aiohttp.ClientError, asyncio.TimeoutError) as exc:
+                    log.warning("unload on %s failed: %s", a.instance, exc)
+
+            await asyncio.gather(*(drop(a) for a in topo.assignments))
+
     @staticmethod
     def _canonical_host(host: str) -> str:
         """Best-effort canonical address, so that one machine named once by

@@ -174,7 +174,9 @@ class Usage(BaseModel):
 
 
 class RequestMetrics(BaseModel):
-    """dnet extension returned when profile=true."""
+    """dnet extension returned when profile=true: a view over the request's
+    flight-recorder timeline (obs/recorder.py), as the reference's, with
+    the critical-path segment ledger (obs/critical_path.py) attached."""
 
     total_ms: float = 0.0
     ttfb_ms: float = 0.0
@@ -182,9 +184,31 @@ class RequestMetrics(BaseModel):
     tokens_generated: int = 0
     tps_overall: float = 0.0
     tps_decoding: float = 0.0
+    critical_path: Optional[dict] = None
 
     @classmethod
-    def from_times(cls, total_ms: float, ttfb_ms: float, tokens: int) -> "RequestMetrics":
+    def from_timeline(cls, timeline: Optional[dict]) -> "RequestMetrics":
+        """The profile fields from the recorded `ttft`, `decode_step` and
+        closing `request` spans; zeros when the timeline is gone."""
+        spans = (timeline or {}).get("spans", [])
+
+        def last(name: str) -> Optional[dict]:
+            return next((s for s in reversed(spans) if s["name"] == name), None)
+
+        req = last("request")
+        if req is None:
+            return cls()
+        total_ms = float(req["dur_ms"])
+        meta = req.get("meta") or {}
+        tokens = int(meta.get("tokens", sum(1 for s in spans if s["name"] == "decode_step")))
+        ttft = last("ttft")
+        if ttft is not None:
+            ttfb_ms = float(ttft["dur_ms"])
+        elif tokens:
+            # ttft span lost with an evicted timeline: all of it is decoding
+            ttfb_ms = 0.0
+        else:
+            ttfb_ms = total_ms
         gen_ms = max(total_ms - ttfb_ms, 1e-9)
         return cls(
             total_ms=total_ms,
@@ -194,6 +218,32 @@ class RequestMetrics(BaseModel):
             tps_overall=tokens / max(total_ms / 1000, 1e-9),
             tps_decoding=max(tokens - 1, 0) / (gen_ms / 1000),
         )
+
+
+class EmbeddingsRequest(BaseModel):
+    model: str
+    input: Union[str, List[str], List[int], List[List[int]]]
+    encoding_format: Literal["float", "base64"] = "float"
+    user: Optional[str] = None
+
+
+class EmbeddingData(BaseModel):
+    object: Literal["embedding"] = "embedding"
+    index: int
+    # list of floats, or a base64 little-endian f32 buffer
+    embedding: Union[List[float], str]
+
+
+class EmbeddingsUsage(BaseModel):
+    prompt_tokens: int
+    total_tokens: int
+
+
+class EmbeddingsResponse(BaseModel):
+    object: Literal["list"] = "list"
+    data: List[EmbeddingData]
+    model: str
+    usage: EmbeddingsUsage
 
 
 class CompletionResponse(BaseModel):
@@ -303,6 +353,11 @@ class PrepareTopologyManualRequest(BaseModel):
     model: str
     assignments: List[ManualAssignment]
     kv_bits: int = 0
+
+
+class UnloadModelResponse(BaseModel):
+    status: str = "ok"
+    message: str = ""
 
 
 class HealthResponse(BaseModel):

@@ -5,7 +5,11 @@ device, or over sequence-parallel ranks with --mesh sp=N or DNET_MESH_SP)
 and, with --hostfile, for a ring of shards (no UDP discovery, fleet or
 TUI).
 In ring mode the API also listens on gRPC for the tail shard's token
-callbacks.  `serve_async` runs until SIGINT/SIGTERM.
+callbacks.  `serve_async` runs until SIGINT/SIGTERM, then drains as the
+reference does: admission enters drain mode (/health reads "draining", new
+work gets 503 + Retry-After, queued requests are shed) while the HTTP
+server stays up, so in-flight streams finish within DNET_DRAIN_DEADLINE_S;
+only then does it tear down.
 """
 
 from __future__ import annotations
@@ -17,7 +21,7 @@ from typing import Optional
 from dnet_tpu_torch.api.http import ApiHTTPServer
 from dnet_tpu_torch.api.inference import InferenceManager
 from dnet_tpu_torch.api.model_manager import LocalModelManager
-from dnet_tpu_torch.config import batch_slots_default, kv_settings, mesh_settings
+from dnet_tpu_torch.config import admission_settings, batch_slots_default, kv_settings, mesh_settings
 from dnet_tpu_torch.parallel.mesh import parse_mesh
 from dnet_tpu_torch.utils.logger import get_logger
 
@@ -75,7 +79,14 @@ async def serve_async(args) -> None:
             loop.add_signal_handler(sig, stop.set)
         log.info("dnet-torch-api ready")
         await stop.wait()
-        log.info("shutdown signal: stopping")
+        drain_s = admission_settings().drain_deadline_s
+        log.info("shutdown signal: draining %d in-flight request(s) (bounded %.1fs)",
+                 inference.admission.active, drain_s)
+        inference.admission.begin_drain()
+        if await inference.admission.wait_drained(drain_s):
+            log.info("drain complete; shutting down")
+        else:
+            log.warning("drain deadline hit; shutting down with work in flight")
     finally:
         await http.stop()
         if grpc_server is not None:

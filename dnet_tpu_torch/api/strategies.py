@@ -11,6 +11,10 @@ speculating engine decodes by verify blocks (`LocalAdapter`: the engine's
 buffered as a chunk's are; a chunked prefill looks the whole prompt up in
 the prefix cache first and stores it at the end.  DNET_SCHED=1 serves the
 iteration-level scheduler's adapter instead (sched/engine.py).
+`embed` serves /v1/embeddings on the compute thread: the engine's
+`hidden_states` (one prefill forward over a throwaway session), mean-pooled
+per input; the batched adapters reach it through their inner LocalEngine,
+and the ring's adapter answers NotImplementedError (501).
 """
 
 from __future__ import annotations
@@ -20,6 +24,8 @@ import asyncio
 import threading
 from concurrent.futures import ThreadPoolExecutor
 from typing import Dict, List, Optional
+
+import numpy as np
 
 from dnet_tpu_torch.core.types import DecodingParams, TokenResult
 from dnet_tpu_torch.utils.logger import get_logger
@@ -42,6 +48,19 @@ async def _reap(task: Optional["asyncio.Task"], what: str) -> None:
         pass
     if not task.done():
         log.warning("%s ignored cancellation for %.0fs at shutdown; abandoning it", what, _REAP_TIMEOUT_S)
+
+
+async def _embed_on_executor(hidden_fn, executor, ids_list: List[List[int]]) -> List[List[float]]:
+    """Mean-pool `hidden_fn(ids)` ([T, D] f32) per input on the adapter's
+    compute executor (session bookkeeping must not race decode steps)."""
+    if executor is None:
+        raise RuntimeError("adapter not started")
+    loop = asyncio.get_running_loop()
+    out: List[List[float]] = []
+    for ids in ids_list:
+        h = await loop.run_in_executor(executor, hidden_fn, ids)
+        out.append([float(v) for v in np.mean(h, axis=0)])
+    return out
 
 
 async def _sweep_loop(adapter, interval_s: float = 60.0) -> None:
@@ -98,6 +117,11 @@ class ApiAdapterBase(abc.ABC):
         """Register the request's absolute wall-clock deadline (epoch
         seconds).  In-process adapters have no frames to stamp: the decode
         loop checks it between steps."""
+
+    async def embed(self, ids_list: List[List[int]]) -> List[List[float]]:
+        """Mean-pooled final hidden states, one vector an input.  Default:
+        unsupported (the ring's shards never ship hidden states back)."""
+        raise NotImplementedError(f"embeddings unsupported on {type(self).__name__}")
 
 
 class _TokenFutures:
@@ -194,6 +218,10 @@ class BatchedLocalAdapter(ApiAdapterBase):
 
     def max_seq(self) -> Optional[int]:
         return self.engine.max_seq
+
+    async def embed(self, ids_list: List[List[int]]) -> List[List[float]]:
+        # the inner LocalEngine's forward: the batched steps only decode
+        return await _embed_on_executor(self.engine.eng.hidden_states, self._executor, ids_list)
 
     async def send_tokens(
         self,
@@ -333,6 +361,9 @@ class LocalAdapter(ApiAdapterBase):
 
     def max_seq(self) -> Optional[int]:
         return self.engine.max_seq
+
+    async def embed(self, ids_list: List[List[int]]) -> List[List[float]]:
+        return await _embed_on_executor(self.engine.hidden_states, self._executor, ids_list)
 
     async def send_tokens(
         self,

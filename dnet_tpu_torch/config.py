@@ -8,7 +8,9 @@ param dtype and batch slots, which its CLI takes as defaults; the ring's
 auto steps and callback address; the weight quantization and its group;
 and the prefix cache, speculation and draft model, which the port reads to
 refuse where it does not serve them yet),
-`AdmissionSettings` (DNET_REQUEST_DEADLINE_S: the default request deadline),
+`AdmissionSettings` (DNET_ADMIT_QUEUE_DEPTH, DNET_ADMIT_QUEUE_TIMEOUT_S,
+DNET_REQUEST_DEADLINE_S, DNET_DRAIN_DEADLINE_S: the bounded admission
+queue, the default request deadline and the shutdown drain),
 `ShardSettings` (DNET_SHARD_*: a shard's CLI defaults and the weight
 streaming repack cache's directory, `repack_dir`), the ring's
 `TransportSettings` (DNET_TRANSPORT_*), `WireSettings`
@@ -16,9 +18,10 @@ streaming repack cache's directory, `repack_dir`), the ring's
 DNET_COMPUTE_MOE_CAPACITY_FACTOR), `MeshSettings` (DNET_MESH_PP/TP/DP/SP:
 the API node's --mesh default; the multi-host BACKEND, COORDINATOR,
 NUM_PROCESSES and PROCESS_ID are read only to refuse values other than
-their defaults), and `SchedSettings` (DNET_SCHED, DNET_SCHED_TOKEN_BUDGET,
+their defaults), `SchedSettings` (DNET_SCHED, DNET_SCHED_TOKEN_BUDGET,
 DNET_SCHED_PREFILL_CHUNK, DNET_SCHED_SLOTS: the iteration-level scheduler)
-with the capacity of its tick ring (DNET_OBS_TICK_RECORDS, `ObsSettings`).
+and `ObsSettings` (DNET_OBS_*: the observability group, the scheduler's
+tick ring among it).
 Values come from the process environment on every call (no .env file, no
 cache), so a flip is seen at the next engine load.
 """
@@ -186,11 +189,19 @@ class MeshSettings:
 
 @dataclass
 class AdmissionSettings:
-    """The reference's admission settings, trimmed to the default end-to-end
-    request deadline (DNET_REQUEST_DEADLINE_S); 0 disables, and a request's
-    own `deadline_s` overrides it (admission/controller.py)."""
+    """Bounded admission, load shedding, end-to-end deadlines and drain
+    (admission/controller.py), under the reference's names: at most
+    `admit_queue_depth` requests wait beyond the executing set
+    (DNET_API_MAX_CONCURRENT_REQUESTS) and the rest shed at once with 429
+    + Retry-After; a queued request sheds after `admit_queue_timeout_s`;
+    `request_deadline_s` is the default end-to-end deadline (0 disables; a
+    request's own `deadline_s` overrides it); on SIGTERM / SIGINT the
+    server drains, giving in-flight requests `drain_deadline_s`."""
 
+    admit_queue_depth: int = 32
+    admit_queue_timeout_s: float = 10.0
     request_deadline_s: float = 0.0
+    drain_deadline_s: float = 30.0
 
 
 @dataclass
@@ -211,11 +222,38 @@ class SchedSettings:
 
 @dataclass
 class ObsSettings:
-    """The reference's observability settings, trimmed to the scheduler's
-    tick flight-recorder ring capacity (sched/flight.py, GET
-    /v1/debug/sched); 0 disables capture."""
+    """Observability (DNET_OBS_*), the reference's group.  `enabled` turns
+    on the `[PROFILE]` log lines and the device fences that make phase
+    timings true (a `torch.cuda.synchronize` of the engine's device at each
+    phase boundary, obs/jit.py `fence`); with it off the served path gains
+    no synchronisation.  `sync_per_layer` fences every layer of a forward
+    (dnet_layer_compute_ms), `sync_every_n` every Nth decode step
+    (`sync_stride`).  SLO targets over a rolling window (obs/slo.py; 0
+    disables a target), the flight recorder's sampling (`trace_sample`:
+    every Nth request keeps its full span stream), the trace export's
+    default window and event cap, the scheduler's tick ring
+    (`tick_records`; 0 disables capture), the wide-event ring and its
+    optional JSONL sink, and the per-shard timeout of /v1/cluster/metrics."""
 
+    enabled: bool = False
+    sync_per_layer: bool = False
+    sync_every_n: int = 0
+    slo_window_s: float = 300.0
+    slo_ttft_p95_ms: float = 0.0
+    slo_decode_p95_ms: float = 0.0
+    slo_availability: float = 0.0
+    cluster_scrape_timeout_s: float = 5.0
+    trace_sample: int = 1
+    trace_window_s: float = 120.0
+    trace_max_events: int = 50000
     tick_records: int = 256
+    events_records: int = 2048
+    events_path: str = ""
+
+    def sync_stride(self) -> int:
+        """Decode-step fence cadence: 0 = never, N >= 1 = every N steps
+        (negative values clamp to never)."""
+        return max(int(self.sync_every_n), 0)
 
 
 def kv_settings() -> KVSettings:
@@ -256,6 +294,18 @@ def obs_settings() -> ObsSettings:
 
 def sched_settings() -> SchedSettings:
     return _from_env(SchedSettings, "DNET_")
+
+
+def env_flag(name: str, default: bool = False) -> bool:
+    """A boolean read straight from the process environment (DNET_PROFILE,
+    the legacy profile switch): unset or empty gives `default`."""
+    raw = os.environ.get(name)
+    if raw is None or not raw.strip():
+        return default
+    try:
+        return _parse_bool(raw)
+    except ValueError as exc:
+        raise ValueError(f"bad value for {name}: {exc}") from exc
 
 
 def sched_enabled() -> bool:

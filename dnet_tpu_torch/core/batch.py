@@ -66,6 +66,15 @@ Where the reference jits one vmapped program per step, this is eager
 PyTorch: a chunk is a Python loop whose launches queue on the current CUDA
 stream.  A streaming weight plan is refused with `EngineCapabilityError`
 (422) as the reference refuses it: batching needs resident weights.
+
+Each dispatch observes dnet_decode_step_ms at its wall time over the tokens
+it served (as LocalEngine does), and, under `obs_enabled()`, the four
+phases of the reference's `dnet_step_phase_ms{phase}`: `kv_gather` (the
+page-table gather, gather path only), `compute` (the steps' launches,
+sampling included), `kv_scatter` (the blocks' write-back, gather path
+only) and `sample` (the one device-to-host read).  Only then are the phase
+boundaries fenced (obs/jit.py `fence`, a synchronize of the card), so that
+each phase's time covers its kernels; with obs off nothing waits.
 """
 
 from __future__ import annotations
@@ -100,11 +109,17 @@ from dnet_tpu_torch.kv import (
     ragged_enabled,
 )
 from dnet_tpu_torch.kv.store import tree_get, tree_leaves
+from dnet_tpu_torch.obs import get_recorder, metric, obs_enabled
+from dnet_tpu_torch.obs.jit import fence
+from dnet_tpu_torch.obs.phases import PHASE_COMPUTE, PHASE_KV_GATHER, PHASE_KV_SCATTER, PHASE_SAMPLE
 from dnet_tpu_torch.ops.attention import LaneChunk, LaneStep, lane_chunk_attend, lane_cached_attend
 from dnet_tpu_torch.ops.paged_attention import paged_attend, ragged_refusal
 from dnet_tpu_torch.utils.logger import get_logger
 
 log = get_logger()
+
+_PHASE_MS = metric("dnet_step_phase_ms")
+_DECODE_STEP_MS = metric("dnet_decode_step_ms")
 
 
 def _bucket_pow2(n: int) -> int:
@@ -593,16 +608,21 @@ class BatchedEngine:
             R = self._paged_extend(order, errors, active, R)
             if not order:
                 return out, errors
+        # phase attribution fences its boundaries only while obs is on
+        attribute = obs_enabled()
         t0 = time.perf_counter()
         lanes = sorted(order.values())
         if self.kv_pool is None:
             dispatch = self._dispatch_dense
         else:
             dispatch = self._dispatch_ragged if self.kv_ragged else self._dispatch_gather
-        packed, with_lp = dispatch(order, lanes, active, R, token, decs)
+        packed, with_lp = dispatch(order, lanes, active, R, token, decs, attribute)
         self.last_dispatch_ms = (time.perf_counter() - t0) * 1000.0
         # ONE device-to-host read per dispatch, then host-side slicing
+        t_read = time.perf_counter()
         arr = packed.cpu().numpy()  # [R, lanes, 1, W]
+        if attribute:
+            self._observe_phase(PHASE_SAMPLE, t_read, order, R)
         toks = arr[..., 0].astype(np.int32)
         if with_lp:
             M = MAX_TOP_LOGPROBS
@@ -623,7 +643,20 @@ class BatchedEngine:
             out[nonce] = rows[0]
             if R > 1:
                 self._buffer.setdefault(nonce, []).extend(rows[1:])
+        # the dispatch's wall time over the tokens it served, observed that
+        # many times: the count is the tokens served on every path
+        n_tok = R * len(order)
+        _DECODE_STEP_MS.observe_n((time.perf_counter() - t0) * 1000.0 / n_tok, n_tok)
         return out, errors
+
+    def _observe_phase(self, phase: str, t0: float, order: Dict[str, int], R: int) -> None:
+        """One observation of `phase` since `t0` a dispatch, and a span on
+        each participating request's timeline."""
+        dur_ms = (time.perf_counter() - t0) * 1000.0
+        _PHASE_MS.labels(phase=phase).observe(dur_ms)
+        rec = get_recorder()
+        for nonce in order:
+            rec.span(nonce, phase, dur_ms, batch=len(order), chunk=R)
 
     def _paged_extend(self, order, errors, active, R: int) -> int:
         """Extend every stepping lane's page table to cover R more tokens.
@@ -716,7 +749,7 @@ class BatchedEngine:
                 self._to_device(token), self._to_device(np.asarray(lanes, dtype=np.int64)), sampling)
 
     def _dispatch_ragged(self, order: Dict[str, int], lanes: List[int], active: np.ndarray, R: int,
-                         token: np.ndarray, decs: Dict[int, DecodingParams]):
+                         token: np.ndarray, decs: Dict[int, DecodingParams], attribute: bool = False):
         """Queue R decode steps for the active `lanes` on the device: each
         step attends the pool through the page tables, samples every active
         lane, appends the lanes' new rows at their positions, and feeds the
@@ -728,6 +761,7 @@ class BatchedEngine:
         with_lp = any(ls.plan.logprobs for ls in sampling)
         max_live = int(pos.max()) + R - 1
         steps = []
+        t0 = time.perf_counter()
         for r in range(R):
             logits, rows = self._ragged_step(tok, tables, pos_t, max_live)
             res = sample_lanes(logits, sampling, self.counts)
@@ -741,7 +775,12 @@ class BatchedEngine:
                 tok = tok.clone()
                 tok[lane_t, 0] = torch.cat([x.token for x in res]).long()
                 pos_t = pos_t + step_t
-        return torch.stack(steps), with_lp
+        packed = torch.stack(steps)
+        if attribute:
+            # the pool is attended in place: the whole dispatch is compute
+            fence(self.device)
+            self._observe_phase(PHASE_COMPUTE, t0, order, R)
+        return packed, with_lp
 
     def _dense_step(self, kv: dict, token, pos, step: LaneStep) -> torch.Tensor:
         """One batched forward over dense slots `kv` (the slots' cache, or a
@@ -762,7 +801,7 @@ class BatchedEngine:
         return m.lm_project(ep, x)[:, 0]
 
     def _dispatch_gather(self, order: Dict[str, int], lanes: List[int], active: np.ndarray, R: int,
-                         token: np.ndarray, decs: Dict[int, DecodingParams]):
+                         token: np.ndarray, decs: Dict[int, DecodingParams], attribute: bool = False):
         """The dense-gather paged decode: gather the page tables into a dense
         view (a single step at the pow2 bucket of the widest active table,
         an R-step chunk at max_seq), run the R dense steps over it, and
@@ -770,33 +809,44 @@ class BatchedEngine:
         bt, which copy-on-write has made private (a block shared through the
         prefix cache is never written).  Returns what _dispatch_dense
         does."""
+        t0 = time.perf_counter()
         view = self.kv_store.gather(self._table_ids(order if R == 1 else None))
-        out = self._dense_steps(view, lanes, active, R, token, decs)
+        if attribute:
+            fence(self.device)
+            self._observe_phase(PHASE_KV_GATHER, t0, order, R)
+        out = self._dense_steps(view, lanes, active, R, token, decs, order if attribute else None)
         bt = self._kv_cfg.block_tokens
         triples = []
         for slot in lanes:
             p0, blocks = int(self.pos[slot]), self._tables[slot].blocks
             triples.extend((slot, b, blocks[b]) for b in range(p0 // bt, (p0 + R - 1) // bt + 1))
+        t0 = time.perf_counter()
         self.kv_store.scatter(view, triples)
+        if attribute:
+            fence(self.device)
+            self._observe_phase(PHASE_KV_SCATTER, t0, order, R)
         return out
 
     def _dispatch_dense(self, order: Dict[str, int], lanes: List[int], active: np.ndarray, R: int,
-                        token: np.ndarray, decs: Dict[int, DecodingParams]):
-        return self._dense_steps(self.kv, lanes, active, R, token, decs)
+                        token: np.ndarray, decs: Dict[int, DecodingParams], attribute: bool = False):
+        return self._dense_steps(self.kv, lanes, active, R, token, decs, order if attribute else None)
 
     def _dense_steps(self, kv: dict, lanes: List[int], active: np.ndarray, R: int, token: np.ndarray,
-                     decs: Dict[int, DecodingParams]):
+                     decs: Dict[int, DecodingParams], attribute: Optional[Dict[str, int]] = None):
         """Queue R decode steps for the active `lanes` over dense slots `kv`:
         each step writes and attends the lanes' rows, samples every active
         lane and feeds the sampled tokens to the next step.  Returns the
         steps' results packed [R, lanes, 1, W] (still on the device) and
-        whether W holds logprobs."""
+        whether W holds logprobs.  `attribute` (the dispatch's nonce ->
+        slot order, under obs) fences the steps and observes them as the
+        compute phase."""
         pos, pos_t, step_t, tok, lane_t, sampling = self._lane_inputs(lanes, active, token, decs)
         with_lp = any(ls.plan.logprobs for ls in sampling)
         # the chunk's longest lane ends at position max + R - 1
         max_live = int(pos.max()) + R
         lane_pos = pos_t[lane_t].long()
         steps = []
+        t0 = time.perf_counter()
         for r in range(R):
             lengths = (pos_t + 1) * step_t  # 0 for an idle lane
             logits = self._dense_step(kv, tok, pos_t, LaneStep(lane_t, lane_pos, lengths, max_live))
@@ -808,7 +858,11 @@ class BatchedEngine:
                 tok[lane_t, 0] = torch.cat([x.token for x in res]).long()
                 pos_t = pos_t + step_t
                 lane_pos = lane_pos + 1
-        return torch.stack(steps), with_lp
+        packed = torch.stack(steps)
+        if attribute is not None:
+            fence(self.device)
+            self._observe_phase(PHASE_COMPUTE, t0, attribute, R)
+        return packed, with_lp
 
     # ---- speculation ----------------------------------------------------
     def _spec_worthwhile(self, nonce: str) -> bool:
@@ -828,6 +882,7 @@ class BatchedEngine:
         its budget).  The first token returns now, the rest buffer."""
         L = self.spec_lookahead
         m, ep = self.model, self.eng.edge_params
+        t_blk = time.perf_counter()
         lanes = sorted(slot for _tok, slot, _b in spec_reqs.values())
         tok = np.zeros(self.slots, dtype=np.int64)
         pos = np.zeros(self.slots, dtype=np.int64)
@@ -859,10 +914,13 @@ class BatchedEngine:
         zero_lp = np.zeros((1,), np.float32)
         zero_tt = np.zeros((1, MAX_TOP_LOGPROBS), np.int32)
         zero_tlp = np.zeros((1, MAX_TOP_LOGPROBS), np.float32)
+        blk_ms = (time.perf_counter() - t_blk) * 1000.0
         res: Dict[str, SampleResult] = {}
+        total_emitted = 0
         for nonce, (_t, slot, budget) in spec_reqs.items():
             row = out_h[lanes.index(slot)]
             emitted = min(int((row >= 0).sum()), budget)
+            total_emitted += emitted
             rows = [SampleResult(row[i : i + 1].astype(np.int32), zero_lp, zero_tt, zero_tlp)
                     for i in range(emitted)]
             self.pos[slot] += emitted
@@ -874,6 +932,8 @@ class BatchedEngine:
             res[nonce] = rows[0]
             if rows[1:]:
                 self._buffer.setdefault(nonce, []).extend(rows[1:])
+        # the block's wall time over every accepted token, as a plain dispatch
+        _DECODE_STEP_MS.observe_n(blk_ms / max(total_emitted, 1), total_emitted)
         return res
 
     def generate(

@@ -59,6 +59,20 @@ rewindable (slot-addressed) cache, speculate (`spec_eligible`), and a
 session whose drafts rarely land falls back to plain steps
 (`spec_worthwhile`).  Streamed weights disable both features with a
 warning, as in the reference.
+
+`hidden_states` serves /v1/embeddings: one prefill forward over a
+throwaway session (the prefill kernel, a launch a layer on CUDA) and the
+final norm, f32 [T, D], under every weight plan.
+
+Observability at the reference's sites (obs/): dnet_prefill_ms and a
+`prefill` span each prefill (dispatch wall time: nothing waits for the
+device), dnet_decode_step_ms at each step's share of its dispatch (a
+chunk's or a verify block's wall time over the tokens it served, so the
+count is the tokens served), a `prefix_cache_hit` span, the TTL sweep's
+dnet_kv_sessions_evicted_total.  DNET_OBS_SYNC_EVERY_N fences every Nth
+decode step (a `decode_sync_drain` span) and DNET_OBS_SYNC_PER_LAYER every
+streamed layer (dnet_layer_compute_ms), through obs/jit.py `fence`; with
+neither set the engine never waits on the device for observability.
 """
 
 from __future__ import annotations
@@ -73,6 +87,7 @@ from typing import Dict, Iterable, List, Optional, Sequence, Union
 import numpy as np
 import torch
 
+from dnet_tpu_torch.config import obs_settings
 from dnet_tpu_torch.core.prefix_cache import PrefixCache
 from dnet_tpu_torch.core.sampler import (
     MAX_TOP_LOGPROBS,
@@ -87,12 +102,19 @@ from dnet_tpu_torch.core.types import DecodingParams, TokenResult
 from dnet_tpu_torch.core.weights import HostLayerStore, WeightCache, plan_policy
 from dnet_tpu_torch.kv.paged import BlockPool, KVPoolExhausted, PagedKVConfig, PageTable, paged_enabled
 from dnet_tpu_torch.models import ModelConfig, get_ring_model_cls
+from dnet_tpu_torch.obs import get_recorder, metric
+from dnet_tpu_torch.obs.jit import fence
 from dnet_tpu_torch.ops.quant import is_quantized
 from dnet_tpu_torch.utils.checkpoint import Checkpoint
 from dnet_tpu_torch.utils.device import resolve_device
 from dnet_tpu_torch.utils.logger import get_logger
 
 log = get_logger()
+
+_DECODE_STEP_MS = metric("dnet_decode_step_ms")
+_PREFILL_MS = metric("dnet_prefill_ms")
+_LAYER_MS = metric("dnet_layer_compute_ms")
+_SESS_EVICTED = metric("dnet_kv_sessions_evicted_total")
 
 
 def bucket_length(n: int, min_bucket: int = 16) -> int:
@@ -322,6 +344,10 @@ class LocalEngine:
         self.plan = plan_policy(len(self.model.layers))
         self.weight_cache: Optional[WeightCache] = None
         self._windows: List[List[int]] = []
+        # the observability fences (DNET_OBS_SYNC_*), read at load
+        obs = obs_settings()
+        self._sync_per_layer = obs.sync_per_layer
+        self._sync_every_n = obs.sync_stride()  # 0 = never, N >= 1 = every N
 
     def _start_streaming(self, store: HostLayerStore) -> None:
         """Serve the layers from `store` through a WeightCache of
@@ -489,7 +515,13 @@ class LocalEngine:
                 wc.prefetch(windows[wi + 1] if wi + 1 < len(windows) else windows[0])
             for layer in window:
                 p = wc.get(layer)
+                t0 = time.perf_counter() if self._sync_per_layer else 0.0
                 x, _ = m.apply_window(p, x, kv[m.abs_to_local[layer]], pos, t_real=t_real)
+                if self._sync_per_layer:
+                    fence(self.device)
+                    dt_ms = (time.perf_counter() - t0) * 1000
+                    _LAYER_MS.observe(dt_ms)
+                    log.info("[PROFILE] layer %d: %.2fms", layer, dt_ms)
                 wc.release([layer])
                 if sliding:
                     wc.evict([layer])
@@ -618,6 +650,8 @@ class LocalEngine:
         for n in dead:
             # the sweep is the paged ledger's collector too
             self._paged_release(self.sessions.pop(n))
+        if dead:
+            _SESS_EVICTED.inc(len(dead))
         return len(dead)
 
     # ---- inference ----------------------------------------------------
@@ -656,6 +690,7 @@ class LocalEngine:
             if hit is not None:
                 n, kv = hit
                 sess = self.new_session(nonce, seed, kv=kv, pos=n)
+                get_recorder().span(nonce, "prefix_cache_hit", 0.0, tokens=n)
                 ids = full_ids[n:]  # at least one token is left, by the cache's rule
             else:
                 sess = self.new_session(nonce, seed)
@@ -683,8 +718,34 @@ class LocalEngine:
         sess.last_used = time.time()
         if self.prefix_cache is not None and allow_store and fresh and sess.pos == len(full_ids):
             self.prefix_cache.store(full_ids, sess.kv)  # copied: the session goes on writing its cache
-        log.info("[PROFILE] prefill %d tokens: %.2fms dispatch", T, (time.perf_counter() - t_pf) * 1000)
+        dt_ms = (time.perf_counter() - t_pf) * 1000
+        _PREFILL_MS.observe(dt_ms)
+        get_recorder().span(nonce, "prefill", dt_ms, tokens=T)
+        log.info("[PROFILE] prefill %d tokens: %.2fms dispatch", T, dt_ms)
         return logits
+
+    def hidden_states(self, prompt_ids: Sequence[int]) -> np.ndarray:
+        """Final-norm'd hidden states of a prompt, f32 [T, D] (callers
+        pool): the embeddings primitive.  One forward over a throwaway
+        session, no sampling, under every weight plan."""
+        ids = list(prompt_ids)
+        if not ids:
+            raise ValueError("empty embeddings input")
+        if len(ids) > self.max_seq:
+            raise ValueError(f"input length {len(ids)} exceeds max_seq {self.max_seq}")
+        nonce = "__embed__"
+        self.end_session(nonce)
+        sess = self.new_session(nonce, seed=0)
+        try:
+            h = self._final_hidden(self._tokens(ids, 0), sess.kv, len(ids))
+            return h[0, : len(ids)].float().cpu().numpy()
+        finally:
+            self.end_session(nonce)
+
+    def _final_hidden(self, tokens: torch.Tensor, kv, t_real: int) -> torch.Tensor:
+        """Embed + every layer from position 0 + final norm: [B, Tpad, D]."""
+        m = self.model
+        return m.normalize(self.edge_params, self._layers(m.embed(self.edge_params, tokens), kv, 0, t_real))
 
     def seed_from_prefix(self, nonce: str, full_ids: Sequence[int], seed: Optional[int] = None) -> int:
         """The chunked prefill's prefix-cache entry: seed a NEW session from
@@ -758,12 +819,21 @@ class LocalEngine:
         if sess.pos >= self.max_seq:
             raise ValueError(f"sequence length {sess.pos} reached max_seq {self.max_seq}")
         self._paged_ensure(sess, sess.pos + 1)  # may raise KVPoolExhausted
+        t_step = time.perf_counter()
         token = torch.full((self.batch, 1), int(token_id), dtype=torch.int64, device=self.device)
         logits = self._forward(token, sess.kv, sess.pos, 0)
         res = self._sample_with_counts(
             sess, logits,
             SampleParams.from_decoding(decoding, self.device), SamplePlan.from_decoding(decoding),
         )
+        if self._sync_every_n and sess.pos % self._sync_every_n == 0:
+            t0 = time.perf_counter()
+            fence(self.device)
+            drain_ms = (time.perf_counter() - t0) * 1000
+            get_recorder().span(nonce, "decode_sync_drain", drain_ms, step=sess.pos)
+            log.info("[PROFILE] decode step %d sync: %.2fms drain", sess.pos, drain_ms)
+        # dispatch wall (synced only when the fence above ran this step)
+        _DECODE_STEP_MS.observe((time.perf_counter() - t_step) * 1000)
         sess.pos += 1
         sess.last_used = time.time()
         return res
@@ -851,6 +921,7 @@ class LocalEngine:
         if budget <= 1 or sess.pos + L + 1 > self.max_seq:
             tid = token_id if token_id is not None else int(sess.last_token[0, 0])
             return [self.decode_step(nonce, tid, decoding)]
+        t_blk = time.perf_counter()
         if token_id is None:
             if sess.last_token is None:
                 raise RuntimeError("no device-resident token to chain from")
@@ -864,6 +935,8 @@ class LocalEngine:
             out, sess.hist = step(self.edge_params, tok, sess.hist, sess.kv, sess.pos)
         out_h = out.cpu().numpy()  # [B, L+1]; waits for the block
         emitted = min(int((out_h[0] >= 0).sum()), budget)
+        # the block's wall time over its tokens: the count stays the tokens served
+        _DECODE_STEP_MS.observe_n((time.perf_counter() - t_blk) * 1000 / max(emitted, 1), emitted)
         sess.pos += emitted
         sess.spec_blocks += 1
         sess.spec_emitted += emitted
@@ -941,7 +1014,10 @@ class LocalEngine:
         packed [K, B, W] block, split on the host."""
         sess = self.sessions[nonce]
         K, packed, plan = sess.pending.popleft()
+        t0 = time.perf_counter()
         arr = packed.cpu().numpy()  # waits for the chunk's launches
+        # the blocking read amortizes the chunk: K observations of its share
+        _DECODE_STEP_MS.observe_n((time.perf_counter() - t0) * 1000 / K, K)
         toks = arr[..., 0].astype(np.int32)  # [K, B]
         if plan.logprobs:
             M = MAX_TOP_LOGPROBS

@@ -10,8 +10,9 @@ entry and prefills only the new turn.  Snapshots are clones both in and
 out: the engine writes its caches in place, so a shared tensor would
 change under the entry at the borrowing session's next step.  The
 shard-side `SnapshotStore` is not ported (ring prefix caching, ROADMAP
-A6.3).  The reference's hit / miss / store / eviction metrics are plain
-counters here (`stats`).
+A6.3).  `PrefixIndex` counts its hits, misses, stores and evictions in
+the reference's dnet_kv_cache_*_total{cache} families (`cache` = its
+`kind`, "prefix" for both caches, as the reference's) and in `stats`.
 """
 
 from __future__ import annotations
@@ -21,6 +22,13 @@ from collections import OrderedDict
 from typing import Optional, Sequence, Tuple
 
 import torch
+
+from dnet_tpu_torch.obs import metric
+
+_HITS = metric("dnet_kv_cache_hits_total")
+_MISSES = metric("dnet_kv_cache_misses_total")
+_EVICTIONS = metric("dnet_kv_cache_evictions_total")
+_STORES = metric("dnet_kv_cache_stores_total")
 
 
 def clone_tree(tree):
@@ -39,9 +47,10 @@ class PrefixIndex:
     move-to-end on a hit; evict the oldest at capacity; prompts shorter
     than `min_tokens` are not stored)."""
 
-    def __init__(self, capacity: int, min_tokens: int = 16, on_evict=None) -> None:
+    def __init__(self, capacity: int, min_tokens: int = 16, on_evict=None, kind: str = "prefix") -> None:
         self.capacity = capacity
         self.min_tokens = min_tokens
+        self.kind = kind  # the `cache` label of its counters
         # called with each evicted value after the lock drops (the paged
         # prefix cache releases its block references here)
         self.on_evict = on_evict
@@ -77,9 +86,11 @@ class PrefixIndex:
             best = self._match(ids, len(ids) - 1)
             if best is None:
                 self.stats["misses"] += 1
+                _MISSES.labels(cache=self.kind).inc()
                 return None
             self._entries.move_to_end(best)
             self.stats["hits"] += 1
+            _HITS.labels(cache=self.kind).inc()
             return len(best), self._entries[best]
 
     def match_quiet(
@@ -115,9 +126,11 @@ class PrefixIndex:
                 return False
             self._entries[ids] = value
             self.stats["stores"] += 1
+            _STORES.labels(cache=self.kind).inc()
             while len(self._entries) > self.capacity:
                 evicted.append(self._entries.popitem(last=False)[1])
                 self.stats["evictions"] += 1
+                _EVICTIONS.labels(cache=self.kind).inc()
         if self.on_evict is not None:
             for v in evicted:
                 self.on_evict(v)

@@ -10,6 +10,9 @@ kernel rebuilds and an unchanged one loads in milliseconds.  The sources
 expose a plain C interface (no PyTorch headers): a build takes seconds.
 `build_all()` starts one nvcc per source, all at once.
 
+A source's first load in a process counts as its compile step in
+`dnet_jit_compiles_total{fn=<name>}` and `dnet_jit_compile_ms` (obs/jit.py).
+
 Each C entry point returns `cudaGetLastError()` after its launch, and the
 Python wrappers raise when it is not 0: a launch the driver refuses never
 runs, and nothing else would report it.
@@ -24,10 +27,13 @@ import re
 import shutil
 import subprocess
 import threading
+import time
 from pathlib import Path
 from typing import Dict, Optional, Sequence, Tuple
 
 import torch
+
+from dnet_tpu_torch.obs.jit import count_build
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "dnet_tpu_torch"
@@ -164,8 +170,10 @@ def load(name: str) -> ctypes.CDLL:
     with _lock:
         lib = _libs.get(name)
         if lib is None:
+            t0 = time.perf_counter()
             lib = ctypes.CDLL(str(build([name])[name]))
             _libs[name] = lib
+            count_build(name, (time.perf_counter() - t0) * 1000.0)
     return lib
 
 

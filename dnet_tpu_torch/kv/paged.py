@@ -6,9 +6,11 @@ backpressure) and per-sequence `PageTable`s mapping logical block index to
 physical pool block.  The device half (`kv/store.py`) holds the pool-shaped
 cache tensors.  Everything here is plain Python under one lock.
 
-The reference publishes the pool's state as Prometheus gauges; here they are
-plain counters on the pool (`used`, `free`, `peak_used`, `cow_copies`,
-`shared_blocks`, `admission_rejected`).  Refcounts, `retain`, `share` and
+The pool publishes its state as the reference's metric families
+(dnet_kv_blocks_used / _free, dnet_kv_pool_blocks, dnet_kv_cow_copies_total,
+dnet_kv_prefix_shared_blocks_total, dnet_kv_admission_rejected_total) and
+keeps the same numbers as counters of its own for /health (`used`, `free`,
+`peak_used`, `cow_copies`, `shared_blocks`, `admission_rejected`).  Refcounts, `retain`, `share` and
 `cow` serve the paged prefix cache (kv/prefix.py), whose entries alias the
 blocks of live page tables.
 
@@ -28,6 +30,14 @@ from dataclasses import dataclass, field
 from typing import Dict, List, Optional, Sequence
 
 from dnet_tpu_torch.config import kv_settings
+from dnet_tpu_torch.obs import metric
+
+_USED = metric("dnet_kv_blocks_used")
+_FREE = metric("dnet_kv_blocks_free")
+_POOL = metric("dnet_kv_pool_blocks")
+_COW = metric("dnet_kv_cow_copies_total")
+_SHARED = metric("dnet_kv_prefix_shared_blocks_total")
+_REJECTED = metric("dnet_kv_admission_rejected_total")
 
 
 class KVPoolExhausted(RuntimeError):
@@ -106,6 +116,8 @@ class BlockPool:
         self.cow_copies = 0
         self.shared_blocks = 0
         self.admission_rejected = 0
+        _POOL.set(self.total)
+        self._publish()
 
     # ---- accounting ---------------------------------------------------
     @property
@@ -122,6 +134,14 @@ class BlockPool:
         # caller holds _lock
         self.peak_used = max(self.peak_used, len(self._ref))
 
+    def _publish(self) -> None:
+        """Set the used / free gauges (the two may tear between reads; each
+        is consistent)."""
+        with self._lock:
+            used, free = len(self._ref), len(self._free)
+        _USED.set(used)
+        _FREE.set(free)
+
     def can_cover(self, n_blocks: int) -> bool:
         with self._lock:
             return len(self._free) >= n_blocks
@@ -135,6 +155,7 @@ class BlockPool:
             if free < n_blocks:
                 self.admission_rejected += 1
         if free < n_blocks:
+            _REJECTED.inc()
             raise KVPoolExhausted(n_blocks, free, self.total)
 
     # ---- allocation ---------------------------------------------------
@@ -147,11 +168,13 @@ class BlockPool:
             if len(self._free) < n_blocks:
                 free = len(self._free)
                 self.admission_rejected += 1
+                _REJECTED.inc()
                 raise KVPoolExhausted(n_blocks, free, self.total)
             out = [self._free.pop() for _ in range(n_blocks)]
             for b in out:
                 self._ref[b] = 1
             self._note_peak()
+        self._publish()
         return out
 
     def retain(self, blocks: Sequence[int]) -> List[int]:
@@ -171,6 +194,8 @@ class BlockPool:
         out = self.retain(blocks)
         with self._lock:
             self.shared_blocks += len(out)
+        if out:
+            _SHARED.inc(len(out))
         return out
 
     def count_cow(self, n: int = 1) -> None:
@@ -178,6 +203,8 @@ class BlockPool:
         block whose merged contents commit from a dense staging row)."""
         with self._lock:
             self.cow_copies += n
+        if n > 0:
+            _COW.inc(n)
 
     def free_blocks(self, blocks: Sequence[int]) -> int:
         """Drop one reference per block; blocks reaching ref 0 return to the
@@ -196,6 +223,7 @@ class BlockPool:
                     released += 1
                 else:
                     self._ref[b] = r - 1
+        self._publish()
         return released
 
     def refcount(self, block: int) -> int:
@@ -210,6 +238,7 @@ class BlockPool:
         self.free_blocks([block])
         with self._lock:
             self.cow_copies += 1
+        _COW.inc()
         return new
 
     # ---- table helpers ------------------------------------------------

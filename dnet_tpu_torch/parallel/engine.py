@@ -102,6 +102,7 @@ class MeshEngine:
     decode_chunk_read = LocalEngine.decode_chunk_read
     decode_chunk = LocalEngine.decode_chunk
     generate = LocalEngine.generate
+    hidden_states = LocalEngine.hidden_states
     token_result = staticmethod(LocalEngine.token_result)
     close = LocalEngine.close
 
@@ -189,6 +190,13 @@ class MeshEngine:
         x, _ = m.apply_window(self.window_params, x, kv, pos, t_real=last_idx + 1, sp=self.sp_group)
         x_last = m.normalize(self.edge_params, x[:, last_idx : last_idx + 1])
         return m.lm_project(self.edge_params, x_last)[:, 0]
+
+    def _final_hidden(self, tokens: torch.Tensor, kv: list, t_real: int) -> torch.Tensor:
+        """LocalEngine._final_hidden with the sp group threaded to the layers."""
+        m = self.model
+        x, _ = m.apply_window(self.window_params, m.embed(self.edge_params, tokens), kv, 0, t_real=t_real,
+                              sp=self.sp_group)
+        return m.normalize(self.edge_params, x)
 
     def stats(self) -> dict:
         """The weights' and the KV cache's form, the sp ranks' devices, the

@@ -7,24 +7,36 @@ it on the batched engine (step.py), admits work as a function of free
 paged-KV blocks, and preempts by block starvation with the paged prefix
 kept in the prefix cache (kv/prefix.py).  Every tick is recorded in a
 bounded ring (flight.py) served at GET /v1/debug/sched.
+
+The exports resolve lazily (PEP 562), as the reference's: the metrics
+registry's core registration imports ``sched.kinds`` for its label sets,
+and an eager ``engine`` / ``queue`` import here would re-enter the
+registry's lock through their module-level ``metric()`` handles.
 """
 
-from dnet_tpu_torch.sched.engine import SchedulerAdapter
-from dnet_tpu_torch.sched.kinds import BATCH_KINDS, PREEMPT_REASONS, QUEUE_STATES
-from dnet_tpu_torch.sched.policy import PrefillChunk, SchedulerPolicy, TickPlan
-from dnet_tpu_torch.sched.queue import SchedQueue, SchedRequest
-from dnet_tpu_torch.sched.step import TickResult, execute_tick
+from __future__ import annotations
 
-__all__ = [
-    "BATCH_KINDS",
-    "PREEMPT_REASONS",
-    "QUEUE_STATES",
-    "PrefillChunk",
-    "SchedQueue",
-    "SchedRequest",
-    "SchedulerAdapter",
-    "SchedulerPolicy",
-    "TickPlan",
-    "TickResult",
-    "execute_tick",
-]
+_EXPORTS = {
+    "BATCH_KINDS": "dnet_tpu_torch.sched.kinds",
+    "PREEMPT_REASONS": "dnet_tpu_torch.sched.kinds",
+    "QUEUE_STATES": "dnet_tpu_torch.sched.kinds",
+    "PrefillChunk": "dnet_tpu_torch.sched.policy",
+    "SchedulerPolicy": "dnet_tpu_torch.sched.policy",
+    "TickPlan": "dnet_tpu_torch.sched.policy",
+    "SchedQueue": "dnet_tpu_torch.sched.queue",
+    "SchedRequest": "dnet_tpu_torch.sched.queue",
+    "SchedulerAdapter": "dnet_tpu_torch.sched.engine",
+    "TickResult": "dnet_tpu_torch.sched.step",
+    "execute_tick": "dnet_tpu_torch.sched.step",
+}
+
+__all__ = sorted(_EXPORTS)
+
+
+def __getattr__(name: str):
+    target = _EXPORTS.get(name)
+    if target is None:
+        raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
+    import importlib
+
+    return getattr(importlib.import_module(target), name)

@@ -16,12 +16,14 @@ deadlines order both admission and preemption.  Preempted sequences
 return to WAITING with their paged prefix aliased into the prefix cache
 and resume transparently: the pending driver step rides along and
 resolves from the resume's adopt sample.  Every tick is recorded in the
-flight ring (sched/flight.py) that ``GET /v1/debug/sched`` serves.
+flight ring (sched/flight.py) that ``GET /v1/debug/sched`` serves (with
+obs off too, unlike the reference, which records only under
+``obs_enabled()``), and feeds the reference's dnet_sched_* metrics and its
+``preempted`` events.  /v1/embeddings runs on the batched engine's inner
+LocalEngine, on the compute thread.
 
 Not ported: the reference's wire-pipeline tick dispatch (DNET_WIRE_PIPELINE,
-which the port's ring refuses), its embeddings surface (the port serves
-no embeddings endpoint), and its dnet_sched_* metrics (the tick records
-carry the same numbers).
+which the port's ring refuses).
 """
 
 from __future__ import annotations
@@ -31,17 +33,23 @@ import time
 from concurrent.futures import ThreadPoolExecutor
 from typing import Dict, List, Optional
 
-from dnet_tpu_torch.api.strategies import ApiAdapterBase, _reap, _TokenFutures
+from dnet_tpu_torch.api.strategies import ApiAdapterBase, _embed_on_executor, _reap, _TokenFutures
 from dnet_tpu_torch.config import sched_settings
 from dnet_tpu_torch.core.types import DecodingParams, TokenResult
+from dnet_tpu_torch.obs import metric
+from dnet_tpu_torch.obs.events import log_event
 from dnet_tpu_torch.sched.flight import get_tick_recorder
 from dnet_tpu_torch.sched.kinds import QUEUE_STATES, STATE_DECODING
 from dnet_tpu_torch.sched.policy import SchedulerPolicy, TickPlan
 from dnet_tpu_torch.sched.queue import SchedQueue
-from dnet_tpu_torch.sched.step import MAX_STARVED_REQUEUES, PREEMPTIONS, TickResult, execute_tick
+from dnet_tpu_torch.sched.step import MAX_STARVED_REQUEUES, TickResult, execute_tick
 from dnet_tpu_torch.utils.logger import get_logger
 
 log = get_logger()
+
+_TICK_MS = metric("dnet_sched_tick_ms")
+_BATCH_TOKENS = metric("dnet_sched_batch_tokens")
+_PREEMPTIONS = metric("dnet_sched_preemptions_total")
 
 
 class SchedulerAdapter(ApiAdapterBase):
@@ -141,6 +149,9 @@ class SchedulerAdapter(ApiAdapterBase):
     def max_seq(self) -> Optional[int]:
         return self.engine.max_seq
 
+    async def embed(self, ids_list: List[List[int]]) -> List[List[float]]:
+        return await _embed_on_executor(self.engine.eng.hidden_states, self._executor, ids_list)
+
     async def send_tokens(
         self,
         nonce: str,
@@ -200,6 +211,9 @@ class SchedulerAdapter(ApiAdapterBase):
                 t0 = time.perf_counter()
                 result = await loop.run_in_executor(self._executor, execute_tick, self.engine, plan, None)
                 tick_ms = (time.perf_counter() - t0) * 1000.0
+                _TICK_MS.observe(tick_ms)
+                _BATCH_TOKENS.labels(kind="prefill").observe(float(result.prefill_tokens))
+                _BATCH_TOKENS.labels(kind="decode").observe(float(result.decode_lanes))
                 self._apply(plan, result)
                 self._record_tick(tick_ms, result)
                 if self.policy.has_work(self.queue, self.engine):
@@ -259,7 +273,7 @@ class SchedulerAdapter(ApiAdapterBase):
     def _apply(self, plan: TickPlan, result: TickResult) -> None:
         for nonce in result.preempted:
             self.queue.requeue(nonce, reason_preempt=True)
-            log.info("preempted %s (block starvation)", nonce)
+            log_event("preempted", rid=nonce, reason="policy")
         for nonce in result.requeued:
             req = self.queue.get(nonce)
             if req is None:
@@ -272,8 +286,8 @@ class SchedulerAdapter(ApiAdapterBase):
                 )
                 continue
             self.queue.requeue(nonce, reason_preempt=False)
-            PREEMPTIONS["starved_requeue"] += 1
-            log.info("requeued %s (starved prefill)", nonce)
+            _PREEMPTIONS.labels(reason="starved_requeue").inc()
+            log_event("preempted", rid=nonce, reason="starved_requeue")
         for nonce, pos in result.progress.items():
             req = self.queue.get(nonce)
             if req is not None and req.state != STATE_DECODING:

@@ -6,9 +6,9 @@ ring, surfaced raw by ``GET /v1/debug/sched`` (api/http.py): which ticks
 wasted budget, how many decode lanes and prompt tokens each packed, what
 the queue looked like when a preemption fired, whether the block pool was
 pinned when a prefill starved.  Bounded by DNET_OBS_TICK_RECORDS (256;
-0 disables capture), so retention is O(1) regardless of traffic.  The reference's aggregate
-metrics (dnet_sched_tick_records_total, the budget-used histogram) are
-not kept: the snapshot's summary carries the same sums.
+0 disables capture), so retention is O(1) regardless of traffic.  Each
+record also increments dnet_sched_tick_records_total and observes
+dnet_sched_tick_budget_used_ratio, as the reference's.
 """
 
 from __future__ import annotations
@@ -113,6 +113,11 @@ class TickFlightRecorder:
             self._records.append(rec)
             while len(self._records) > cap:
                 self._records.popleft()
+        from dnet_tpu_torch.obs import metric
+
+        metric("dnet_sched_tick_records_total").inc()
+        if rec.budget_tokens > 0:
+            metric("dnet_sched_tick_budget_used_ratio").observe(min(used / rec.budget_tokens, 1.0))
         return rec
 
     def records(self) -> List[TickRecord]:

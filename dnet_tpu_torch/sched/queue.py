@@ -11,8 +11,9 @@ it, so preemption cannot cycle.
 
 The queue is owned by the event loop: policy and bookkeeping run there;
 the compute thread only sees plain snapshots inside a
-:class:`~dnet_tpu_torch.sched.policy.TickPlan`.  The reference's queue
-depth gauges are the plain `depths` dict here.
+:class:`~dnet_tpu_torch.sched.policy.TickPlan`.  `depths` holds the counts
+that the reference's dnet_sched_queue_depth{state} gauges export, and
+`sync_gauges` sets both.
 """
 
 from __future__ import annotations
@@ -22,6 +23,7 @@ from dataclasses import dataclass, field
 from typing import Dict, List, Optional, Tuple
 
 from dnet_tpu_torch.core.types import DecodingParams
+from dnet_tpu_torch.obs import metric
 from dnet_tpu_torch.sched.kinds import (
     QUEUE_STATES,
     STATE_DECODING,
@@ -29,6 +31,9 @@ from dnet_tpu_torch.sched.kinds import (
     STATE_PREFILLING,
     STATE_WAITING,
 )
+
+
+_QUEUE_DEPTH = metric("dnet_sched_queue_depth")
 
 
 @dataclass
@@ -160,3 +165,5 @@ class SchedQueue:
             if r.state in counts:
                 counts[r.state] += 1
         self.depths = counts
+        for state, n in counts.items():
+            _QUEUE_DEPTH.labels(state=state).set(float(n))

@@ -28,8 +28,8 @@ The executor only reads the plan (loop-side snapshots) and the engine; it
 never touches the scheduler queue.  Results flow back as plain data in a
 :class:`TickResult` the loop applies.  The reference's wire-pipeline seam
 (``on_decode``, DNET_WIRE_PIPELINE=1) is kept in the signature; the port's
-adapter passes None.  Preemptions are counted in ``PREEMPTIONS`` (the
-reference's dnet_sched_preemptions_total).
+adapter passes None.  Preemptions are counted in
+dnet_sched_preemptions_total{reason}, as in the reference.
 """
 
 from __future__ import annotations
@@ -38,14 +38,13 @@ from dataclasses import dataclass, field
 from typing import Dict, List
 
 from dnet_tpu_torch.kv import KVPoolExhausted
-from dnet_tpu_torch.sched.kinds import PREEMPT_REASONS
+from dnet_tpu_torch.obs import metric
 from dnet_tpu_torch.sched.policy import PrefillChunk, TickPlan
 from dnet_tpu_torch.utils.logger import get_logger
 
 log = get_logger()
 
-#: preemptions in this process by reason
-PREEMPTIONS = {reason: 0 for reason in PREEMPT_REASONS}
+_PREEMPTIONS = metric("dnet_sched_preemptions_total")
 
 #: consecutive starved requeues before a prefill surfaces the typed
 #: backpressure error instead of waiting for blocks that may never free
@@ -112,7 +111,7 @@ def _preempt(engine, nonce: str, ids: List[int]) -> None:
             # losing the alias only costs the resume a re-prefill
             log.debug("preemption prefix store for %s skipped: %s", nonce, exc)
     engine.end_session(nonce)
-    PREEMPTIONS["block_starvation"] += 1
+    _PREEMPTIONS.labels(reason="block_starvation").inc()
 
 
 def _preempt_for_decode(engine, plan: TickPlan, reqs: dict, res: TickResult) -> None:

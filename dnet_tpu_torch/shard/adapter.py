@@ -6,7 +6,9 @@ relays it toward the owner; an egress task routes computed results (hidden
 state -> the next shard's stream; final token -> a unary callback to the
 API, and under a decode grant a continuation frame to the head first);
 idle streams are swept.  The channel factories are injectable, so the
-adapter runs over in-process fakes in tests.
+adapter runs over in-process fakes in tests.  Ingress counts a frame's
+payload bytes (dnet_transport_rx_bytes_total, dnet_wire_bytes_total{dir=
+"rx"}) and records `transport_recv`; egress records `shard_tx`.
 """
 
 from __future__ import annotations
@@ -21,6 +23,7 @@ import numpy as np
 
 from dnet_tpu_torch.compression.wire import codec_name
 from dnet_tpu_torch.core.types import ActivationMessage
+from dnet_tpu_torch.obs import get_recorder, metric
 from dnet_tpu_torch.transport.protocol import ActivationFrame, TokenPayload
 from dnet_tpu_torch.transport.retry import call_with_retry
 from dnet_tpu_torch.transport.stream_manager import StreamManager
@@ -28,6 +31,9 @@ from dnet_tpu_torch.utils.logger import get_logger
 from dnet_tpu_torch.utils.serialization import tensor_to_bytes
 
 log = get_logger()
+
+_RX_BYTES = metric("dnet_transport_rx_bytes_total")
+_WIRE_BYTES = metric("dnet_wire_bytes_total")
 
 
 def parse_callback(url: str) -> str:
@@ -122,6 +128,10 @@ class RingAdapter:
     async def ingress_frame(self, frame: ActivationFrame) -> tuple:
         """Admit a frame: local compute if the next layer is ours, else
         relay.  Returns (ok, message) for the ACK."""
+        n_bytes = len(frame.payload or b"")
+        _RX_BYTES.inc(n_bytes)
+        _WIRE_BYTES.labels(dir="rx").inc(n_bytes)
+        get_recorder().span(frame.nonce, "transport_recv", 0.0, bytes=n_bytes, seq=frame.seq, t_sent=frame.t_sent)
         compute = self.runtime.compute
         if compute is not None and compute.wants(frame.layer_id):
             key = (frame.nonce, frame.seq, frame.layer_id)
@@ -157,6 +167,7 @@ class RingAdapter:
                 log.exception("egress failed for %s", out.nonce)
 
     async def _send_activation(self, msg: ActivationMessage) -> None:
+        t0 = time.perf_counter()
         frame = ActivationFrame(
             nonce=msg.nonce,
             seq=msg.seq,
@@ -169,12 +180,14 @@ class RingAdapter:
             callback_url=msg.callback_url,
             decoding=asdict(msg.decoding),
             t_sent=time.time(),
-            t_sent_mono=time.perf_counter(),
+            t_sent_mono=t0,
             auto_steps=msg.auto_steps,
             deadline=msg.deadline,
             epoch=msg.epoch,
         )
         await self._ensure_next().send(msg.nonce, frame)
+        get_recorder().span(msg.nonce, "shard_tx", (time.perf_counter() - t0) * 1000.0, seq=msg.seq,
+                            bytes=len(frame.payload or b""))
 
     async def _send_token(self, msg: ActivationMessage) -> None:
         if msg.cont is not None:

@@ -1,7 +1,11 @@
 """Shard control-plane HTTP server (aiohttp).
 
 Counterpart of dnet_tpu/shard/http.py, trimmed to /load_model,
-/unload_model, /health and /cleanup_repacked (which deletes the weight-
+/unload_model, /health, the observability routes (/metrics, this
+process's Prometheus exposition; /v1/debug/timeline/{rid}, its spans of
+one request; /v1/debug/events, its wide-event ring, stamped with `t_wall`
+so that the API's fetch doubles as a clock probe) and /cleanup_repacked
+(which deletes the weight-
 streaming repack cache: the loaded model's subtree, or the whole cache
 when none is loaded; 409 while a streaming engine reads it).  `ShardLoadModelRequest` keeps every field of
 the reference's, so an API node of either package can load this shard;
@@ -25,6 +29,8 @@ from pydantic import BaseModel, ValidationError
 
 from dnet_tpu_torch.config import shard_settings
 from dnet_tpu_torch.kernels import launch_counts
+from dnet_tpu_torch.obs.events import get_event_ring
+from dnet_tpu_torch.obs.http import find_timeline, metrics_response
 from dnet_tpu_torch.shard.compute import ShardCapabilityError
 from dnet_tpu_torch.utils.logger import get_logger
 
@@ -71,6 +77,9 @@ class ShardHTTPServer:
         self.shard = shard  # the Shard facade (runtime + adapter)
         self.app = web.Application(client_max_size=16 * 1024 * 1024)
         self.app.router.add_get("/health", self.health)
+        self.app.router.add_get("/metrics", self.metrics)
+        self.app.router.add_get("/v1/debug/timeline/{rid}", self.debug_timeline)
+        self.app.router.add_get("/v1/debug/events", self.debug_events)
         self.app.router.add_post("/load_model", self.load_model)
         self.app.router.add_post("/unload_model", self.unload_model)
         self.app.router.add_post("/cleanup_repacked", self.cleanup_repacked)
@@ -86,6 +95,29 @@ class ShardHTTPServer:
         if self._runner:
             await self._runner.cleanup()
             self._runner = None
+
+    async def metrics(self, request: web.Request) -> web.Response:
+        return await metrics_response(request)
+
+    async def debug_timeline(self, request: web.Request) -> web.Response:
+        rid = request.match_info["rid"]
+        timeline = find_timeline(rid)
+        if timeline is None:
+            return _error(404, f"no recorded timeline for {rid!r}")
+        return web.json_response(timeline)
+
+    async def debug_events(self, request: web.Request) -> web.Response:
+        try:
+            last_s = float(request.query.get("last_s", "") or 0.0)
+        except ValueError:
+            return _error(400, "last_s must be a number")
+        ring = get_event_ring()
+        events = ring.query(
+            rid=request.query.get("rid", "").strip(),
+            name=request.query.get("name", "").strip(),
+            last_s=last_s,
+        )
+        return web.json_response({"events": events, "dropped": ring.dropped, "t_wall": time.time()})
 
     async def health(self, request: web.Request) -> web.Response:
         rt = self.shard.runtime

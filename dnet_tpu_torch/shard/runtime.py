@@ -4,7 +4,11 @@ model's lifecycle.
 Counterpart of dnet_tpu/shard/runtime.py: frames queue for ONE compute
 thread (device work never runs on the event loop), results flow back to an
 asyncio output queue, an expired request's frame is dropped at dequeue with
-a payload-free error final, and idle KV sessions expire by TTL.
+a payload-free error final, and idle KV sessions expire by TTL.  Each
+frame's compute is a `shard_compute` span on the request's timeline (keyed
+by its nonce), and a drop counts dnet_deadline_exceeded_total{stage=
+"shard_dequeue"} with a `shed` event and a `deadline_drop` span, as the
+reference's.
 """
 
 from __future__ import annotations
@@ -19,10 +23,14 @@ from typing import Optional
 import torch
 
 from dnet_tpu_torch.core.types import ActivationMessage
+from dnet_tpu_torch.obs import get_recorder, metric
+from dnet_tpu_torch.obs.events import bind, log_event
 from dnet_tpu_torch.shard.compute import ShardCompute, refuse_model, refuse_unsupported
 from dnet_tpu_torch.utils.logger import get_logger
 
 log = get_logger()
+
+_DEADLINE_EXCEEDED = metric("dnet_deadline_exceeded_total")
 
 
 def _error_final(msg: ActivationMessage, error: str) -> ActivationMessage:
@@ -137,7 +145,9 @@ class ShardRuntime:
             if self.compute is None:
                 log.warning("dropping frame for %s: no model loaded", msg.nonce)
                 continue
-            self._process_frame(msg)
+            # every log line and event of this frame carries its request
+            with bind(rid=msg.nonce, node=self.shard_id, epoch=msg.epoch):
+                self._process_frame(msg)
 
     def _process_frame(self, msg: ActivationMessage) -> None:
         compute = self.compute
@@ -151,8 +161,10 @@ class ShardRuntime:
         try:
             t0 = time.perf_counter()
             out = compute.process(msg)
+            dt_ms = (time.perf_counter() - t0) * 1e3
             self.compute_stats["frames"] += 1
-            self.compute_stats["ms"] += (time.perf_counter() - t0) * 1e3
+            self.compute_stats["ms"] += dt_ms
+            get_recorder().span(msg.nonce, "shard_compute", dt_ms, seq=msg.seq, layer_id=msg.layer_id)
             # the deadline and epoch ride every downstream hop
             out.deadline = msg.deadline
             out.epoch = msg.epoch
@@ -162,6 +174,9 @@ class ShardRuntime:
             self._emit(_error_final(msg, str(exc)))
 
     def _drop_expired(self, msg: ActivationMessage) -> None:
+        _DEADLINE_EXCEEDED.labels(stage="shard_dequeue").inc()
+        log_event("shed", reason="deadline", stage="shard_dequeue", seq=msg.seq)
+        get_recorder().span(msg.nonce, "deadline_drop", 0.0, seq=msg.seq, deadline=msg.deadline)
         log.warning(
             "dropping expired frame for %s seq=%d (deadline %.3fs past)",
             msg.nonce, msg.seq, time.time() - msg.deadline,

@@ -5,7 +5,9 @@ per nonce with a background ACK reader; a backpressure ACK pauses the
 stream for a backoff; a write failure drops the stream and re-sends the
 frame on a fresh one under the retry policy (the receiving shard dedups on
 (nonce, seq, layer_id)); idle streams are swept.  The channel layer is
-injectable, so tests pass fakes.
+injectable, so tests pass fakes.  Each frame written counts its payload
+bytes (dnet_transport_tx_bytes_total, dnet_wire_bytes_total{dir="tx"})
+and itself (dnet_transport_tx_frames_total).
 """
 
 from __future__ import annotations
@@ -15,11 +17,16 @@ import time
 from dataclasses import dataclass, field
 from typing import Callable, Dict, Optional
 
+from dnet_tpu_torch.obs import metric
 from dnet_tpu_torch.transport.protocol import ActivationFrame, StreamAck
 from dnet_tpu_torch.transport.retry import call_with_retry
 from dnet_tpu_torch.utils.logger import get_logger
 
 log = get_logger()
+
+_TX_BYTES = metric("dnet_transport_tx_bytes_total")
+_TX_FRAMES = metric("dnet_transport_tx_frames_total")
+_WIRE_BYTES = metric("dnet_wire_bytes_total")
 
 
 @dataclass
@@ -78,6 +85,10 @@ class StreamManager:
 
         ctx = await call_with_retry(_attempt, method="send_activation")
         ctx.last_used = time.monotonic()
+        n_bytes = len(frame.payload or b"")
+        _TX_BYTES.inc(n_bytes)
+        _WIRE_BYTES.labels(dir="tx").inc(n_bytes)
+        _TX_FRAMES.inc()
 
     async def _ack_reader(self, ctx: StreamContext) -> None:
         """Consume ACKs; a backpressure ACK pauses the stream briefly."""

@@ -1,7 +1,9 @@
 """Process-wide logger.
 
 Counterpart of dnet_tpu/utils/logger.py, trimmed to one console handler:
-`[PROFILE]` lines are dropped unless DNET_PROFILE=1.
+`[PROFILE]` lines are dropped unless `obs_enabled()` (DNET_OBS_ENABLED or
+DNET_PROFILE), and every record carries the identity bound by
+`obs.events.bind` (rid / node / epoch / tick; `ContextStampFilter`).
 """
 
 from __future__ import annotations
@@ -20,7 +22,9 @@ class ProfileFilter(logging.Filter):
     def filter(self, record: logging.LogRecord) -> bool:
         if "[PROFILE]" not in record.getMessage():
             return True
-        return os.environ.get("DNET_PROFILE", "0").lower() in ("1", "true", "yes")
+        from dnet_tpu_torch.obs import obs_enabled
+
+        return obs_enabled()
 
 
 def setup_logger(role: Optional[str] = None, level: Optional[str] = None) -> logging.Logger:
@@ -32,8 +36,14 @@ def setup_logger(role: Optional[str] = None, level: Optional[str] = None) -> log
             logger.removeHandler(h)
     logger.setLevel((level or os.environ.get("DNET_LOG_LEVEL", "INFO")).upper())
     logger.propagate = False
+    from dnet_tpu_torch.obs.events import ContextStampFilter
+
+    # logger-level stamp: every record through any handler carries the
+    # bound rid/node/epoch/tick, exactly once
+    if not any(isinstance(f, ContextStampFilter) for f in logger.filters):
+        logger.addFilter(ContextStampFilter())
     fmt = logging.Formatter(
-        f"%(asctime)s %(levelname)-7s %(name)s{'[' + role + ']' if role else ''} %(message)s",
+        f"%(asctime)s %(levelname)-7s %(name)s{'[' + role + ']' if role else ''}%(ctx)s %(message)s",
         datefmt="%H:%M:%S",
     )
     console = logging.StreamHandler(sys.stderr)

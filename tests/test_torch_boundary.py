@@ -120,7 +120,10 @@ def test_no_jax_or_reference_imports_in_source():
     files = sorted(PORT_PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"]
     for module in ("models/gpt_oss.py", "models/deepseek_v2.py", "models/segments.py", "models/qwen2.py",
                    "models/qwen3.py", "models/mixtral.py", "models/qwen3_moe.py", "ops/moe.py", "ops/rope.py",
-                   "ops/attention.py", "core/kvcache.py", "config.py", "ops/quant.py", "api/catalog.py"):
+                   "ops/attention.py", "core/kvcache.py", "config.py", "ops/quant.py", "api/catalog.py",
+                   "admission/controller.py", "admission/reasons.py", "obs/__init__.py", "obs/metrics.py",
+                   "obs/phases.py", "obs/recorder.py", "obs/slo.py", "obs/critical_path.py", "obs/events.py",
+                   "obs/trace.py", "obs/http.py", "obs/jit.py", "obs/clock.py", "obs/federation.py"):
         assert PORT_PKG / module in files
     offenders = [
         f"{f.relative_to(ROOT)}: {m.group(0).strip()}"

@@ -365,8 +365,12 @@ def test_case_equal_across_packages(case):
 
 
 def test_port_counts_queue_depths_and_preemptions():
-    """The reference's queue-depth gauges and preemption counter are plain
-    counts in the port."""
+    """The port keeps the queue depths as counts beside the reference's
+    gauges, and counts preemptions in the reference's counter."""
+    from dnet_tpu_torch.obs import metric
+
+    depth = metric("dnet_sched_queue_depth")
+    preempted = metric("dnet_sched_preemptions_total").labels(reason="block_starvation")
     m = _modules("dnet_tpu_torch")
     q = m.queue.SchedQueue()
     r = _add(m, q, "x", 4)
@@ -374,8 +378,10 @@ def test_port_counts_queue_depths_and_preemptions():
     r.state = m.kinds.STATE_DECODING
     q.sync_gauges()
     assert q.depths["decoding"] == 1
+    assert depth.labels(state="decoding").value == 1
     q.remove("x")
     assert q.depths == {"waiting": 0, "prefilling": 0, "decoding": 0}
-    before = m.step.PREEMPTIONS["block_starvation"]
+    assert depth.labels(state="decoding").value == 0
+    before = preempted.value
     case_prefill_starvation_evicts_lower_priority_victim(m)
-    assert m.step.PREEMPTIONS["block_starvation"] == before + 1
+    assert preempted.value == before + 1
