@@ -430,6 +430,36 @@ Speculative decoding and the snapshot prefix cache (A4), the twelfth path:
                  prefill tokens saved, a speculating bf16 engine's greedy
                  tokens against a plain one's in process (reported);
                  exactly one per-lane launch a layer a batched verify block.
+The ring's failure handling (A5.1, A6.4, A6.5), on the ring's path:
+  recover_serve  the serve checkpoint on two shard processes (s1 armed with
+                 DNET_CHAOS=shard_compute:error_at:161) behind the API node
+                 with --auto-recover, DNET_RESILIENCE_RESUME=1 and a health
+                 probe every 0.25 s (down after 2 failures):
+                 POST /v1/prepare_topology (each shard's profile: bf16
+                 matmul FLOP/s, read rate, host-to-device rate, memory, card;
+                 the echo times between them; the solver's split, which must
+                 cover the 16 layers once in contiguous ranges, k = 1,
+                 single-device shards); then the split 0-7 / 8-15 by hand, a
+                 warm-up, and the baseline: the serve prompt streamed to 64
+                 greedy tokens with logprobs (top 2).  The same request with
+                 s1's compute failing at decode step 32: resumed (one
+                 dnet_request_resumed_total, one injected fault on s1,
+                 prompt + 32 replayed tokens, 8 + 8 prefill launches on
+                 each shard: the prompt's and the replay's).  Again with s1 SIGKILLed after the 16th
+                 chunk: /health reads degraded, then ok with s1 quarantined,
+                 dnet_recovery_total{outcome="recovered"} + 1, the epoch + 1
+                 on the API and on s0, s0 holding layers 0-15 (8 + 16 prefill
+                 launches on s0), the stream completing on its id.  One more
+                 request on the recovered ring.  Every stream's usage and
+                 finish reason equal the baseline's, and its text too unless
+                 the first differing greedy token swaps a bf16 near tie:
+                 the baseline's top-2 logprob margin there under
+                 BF16_LOGITS_TOL, the resumed stream's top two the
+                 baseline's swapped, their logprobs within BF16_LOGITS_TOL
+                 (the replay computes the generated tokens' K/V in one
+                 prefill); the line prints the first differing step, that
+                 margin, the swap's logprob error and how many of the
+                 baseline's steps are such near ties.
 Every decode row also counts its device kernels per wrapper call
 (torch.profiler), which must be exactly 1: the splits and row groups of a
 (lane, KV head) merge inside the one launch.  Then the kernels summary line (every row
@@ -1921,6 +1951,7 @@ def phase_serve(prompt_text: str, n_prompt: int) -> tuple:
         long_body = dict(chat, stream=True, messages=[{"role": "user", "content": _batch_prompts()[-1]}])
         ring, _, lossless = phase_ring_serve(tmp, bodies, results, row, long_body, quant)
         phase_stream_serve(tmp, bodies, results, row, lossless)
+        phase_recover_serve(tmp, chat)
         sp_long = dict(chat, stream=True, messages=[{"role": "user", "content": _long_prompt(SP_LONG_TOKENS)}])
         sp_serve = phase_sp_serve(tmp, port, bodies, sp_long, sp_step)
         phase_wq_serve(tmp, port, bodies, row, health["engine"]["weight_bytes"], batched)
@@ -2235,6 +2266,270 @@ def phase_ring_serve(model_dir: str, bodies: list, serve_results: list, served: 
             lossless = row
         emit(row)
     return out, ring_q8, lossless
+
+
+# recover_serve: s1's shard_compute call that faults.  Each token costs the
+# tail one compute call (the prompt frame, then one frame a decode step),
+# so the warm-up and the baseline requests take calls 1-128 and call 161 is
+# decode step 32 of the third request: mid-decode
+RECOVER_FAULT_CALL = 2 * MAX_TOKENS + 1 + MAX_TOKENS // 2
+RECOVER_KILL_CHUNK = 16
+RECOVER_ENV = {"DNET_RESILIENCE_RESUME": "1", "DNET_API_HEALTH_INTERVAL_S": "0.25",
+               "DNET_API_HEALTH_FAIL_THRESHOLD": "2"}
+
+
+def _stream_chat(url: str, body: dict, on_chunk=None) -> dict:
+    """A streamed chat: its text, usage, finish reason, response ids, the
+    logprob entries and the arrival gaps; `on_chunk(n)` after the n-th
+    content chunk."""
+    req = urllib.request.Request(url, data=json.dumps(body).encode(), headers={"Content-Type": "application/json"})
+    t0 = time.perf_counter()
+    content, entries, ids, arrivals, usage, finish = [], [], set(), [], None, None
+    with urllib.request.urlopen(req, timeout=600) as resp:
+        for raw in resp:
+            line = raw.decode().strip()
+            if not line.startswith("data: {"):
+                continue
+            ev = json.loads(line[len("data: "):])
+            check("error" not in ev, f"stream error event: {ev.get('error')}")
+            ids.add(ev["id"])
+            for c in ev["choices"]:
+                if c.get("logprobs"):
+                    entries.extend(c["logprobs"]["content"])
+                if c.get("finish_reason"):
+                    finish = c["finish_reason"]
+                if c["delta"].get("content"):
+                    arrivals.append(time.perf_counter())
+                    content.append(c["delta"]["content"])
+                    if on_chunk is not None:
+                        on_chunk(len(content))
+            usage = ev.get("usage") or usage
+    gaps = [b - a for a, b in zip(arrivals, arrivals[1:])]
+    return {"content": "".join(content), "usage": usage, "finish": finish, "ids": ids, "entries": entries,
+            "s": time.perf_counter() - t0, "gap_median_s": statistics.median(gaps), "gap_max_s": max(gaps)}
+
+
+def _same_stream(what: str, got: dict, base: dict) -> dict:
+    """Check a resumed stream against the baseline: usage and finish reason
+    equal, one response id, the text equal.  A differing greedy token is
+    allowed only as a swap of a near tie (bf16 rounding can flip one: the
+    replay computes the generated tokens' K/V in one prefill, not a step at
+    a time): at the first differing step the baseline's top-2 logprob
+    margin is under BF16_LOGITS_TOL, the resumed stream's top two are the
+    baseline's top two swapped, and each of their logprobs is within
+    BF16_LOGITS_TOL of the baseline's.  `near_ties` counts the baseline's
+    steps whose margin is under BF16_LOGITS_TOL: the steps where a swap
+    would pass.  Returns the comparison."""
+    check(got["usage"] == base["usage"], f"{what}: usage {got['usage']} != baseline {base['usage']}")
+    check(got["finish"] == base["finish"], f"{what}: finish {got['finish']} != baseline {base['finish']}")
+    check(len(got["ids"]) == 1, f"{what}: response ids {got['ids']}")
+    toks = [e["token"] for e in got["entries"]]
+    want = [e["token"] for e in base["entries"]]
+    margins = [e["top_logprobs"][0]["logprob"] - e["top_logprobs"][1]["logprob"] for e in base["entries"]]
+    first = next((i for i, (a, b) in enumerate(zip(toks, want)) if a != b), None)
+    out = {"text_equal": got["content"] == base["content"], "first_differing_step": first,
+           "near_ties": sum(m < BF16_LOGITS_TOL for m in margins), "steps": len(margins)}
+    if first is not None:
+        top, mine = base["entries"][first]["top_logprobs"], got["entries"][first]["top_logprobs"]
+        out["baseline_top2_margin"] = margins[first]
+        check(margins[first] < BF16_LOGITS_TOL,
+              f"{what}: step {first} differs ({toks[first]!r} vs {want[first]!r}) at a top-2 margin of {margins[first]}")
+        check([e["token"] for e in mine[:2]] == [top[1]["token"], top[0]["token"]],
+              f"{what}: step {first}'s top two {mine[:2]} are not the baseline's {top[:2]} swapped")
+        errs = [abs(mine[0]["logprob"] - top[1]["logprob"]), abs(mine[1]["logprob"] - top[0]["logprob"])]
+        out["swap_logprob_err"] = max(errs)
+        check(max(errs) <= BF16_LOGITS_TOL, f"{what}: step {first}'s swapped logprobs differ by {errs}")
+    else:
+        check(out["text_equal"], f"{what}: text differs from the baseline's")
+    return out
+
+
+async def _drive_recover(args: Namespace, model_dir: str, body: dict, shards: list, procs: list) -> dict:
+    """The API node (--auto-recover, resume on) in this process over the
+    two shard processes: prepare_topology, the manual split, load, then the
+    baseline, the chaos-resumed, the kill-resumed and the recovered
+    requests (recover_serve's doc)."""
+    from dnet_tpu_torch.api.server import serve_async
+    from dnet_tpu_torch.obs import metric
+
+    loop = asyncio.get_running_loop()
+    run = lambda fn, *a: loop.run_in_executor(None, fn, *a)  # noqa: E731
+    server = asyncio.ensure_future(serve_async(args))
+    base = f"http://127.0.0.1:{args.http_port}"
+    urls = [f"http://127.0.0.1:{http}" for _, http, _ in shards]
+    chat = base + "/v1/chat/completions"
+    out: dict = {}
+    try:
+        t0 = time.perf_counter()
+        while True:
+            check(not server.done(), "recover API exited during start-up")
+            try:
+                await run(_get, base + "/health")
+                break
+            except OSError:
+                check(time.perf_counter() - t0 < 120, "recover API not up within 120 s")
+                await asyncio.sleep(0.3)
+        # 1. the solver over both shards: every layer once, one round, single-device shards
+        t0 = time.perf_counter()
+        solved = (await run(_post_json, base + "/v1/prepare_topology", {"model": model_dir}))["topology"]
+        out["prepare_topology_s"] = time.perf_counter() - t0
+        layers = [a["layers"] for a in solved["assignments"]]
+        check(sorted(x for ls in layers for x in ls) == list(range(LAYERS)), f"solved layers {layers}")
+        check(all(ls == list(range(ls[0], ls[-1] + 1)) for ls in layers), f"solved ranges not contiguous {layers}")
+        check(solved["solution"]["k"] == 1 and all((a["mesh_tp"], a["window_size"]) == (1, 0)
+                                                    for a in solved["assignments"]), f"solve {solved}")
+        out["solve"] = {"solver": solved["solution"]["solver"], "split": {a["instance"]: f"{ls[0]}-{ls[-1]}"
+                                                                          for a, ls in zip(solved["assignments"], layers)},
+                        "predicted_stage_s": solved["solution"]["predicted_stage_s"]}
+        # the shards' probes as the solver read them, and each one's link to the other
+        out["profiles"] = {n: (await run(_post_json, u + "/profile", {}))["profile"] for (n, _, _), u in zip(shards, urls)}
+        out["latency_s"] = {}
+        for i, ((n, _, _), u) in enumerate(zip(shards, urls)):
+            peer = f"127.0.0.1:{shards[1 - i][2]}"
+            lat = await run(_post_json, u + "/measure_latency", {"peers": [peer], "payload_sizes": [65536, 1048576]})
+            out["latency_s"][f"{n}->{shards[1 - i][0]}"] = lat["latency"][peer]
+        # 2. the ring split by hand (the kill must leave a shard behind)
+        await run(_post_json, base + "/v1/prepare_topology_manual", {
+            "model": model_dir, "assignments": [{"instance": f"s{i}", "layers": ls} for i, ls in enumerate(RING_LAYERS)]})
+        await run(_post_json, base + "/v1/load_model", {"model": model_dir})
+        await run(_stream_chat, chat, body)  # a warm-up: the shards' first request loads their kernels
+        baseline = await run(_stream_chat, chat, body)
+        check(baseline["usage"]["completion_tokens"] == MAX_TOKENS, f"baseline {baseline['usage']}")
+        resumed = metric("dnet_request_resumed_total")
+        replay = metric("dnet_resume_replay_tokens_total")
+        recovered = metric("dnet_recovery_total").labels(outcome="recovered")
+        rec_s = metric("dnet_recovery_duration_seconds")
+        # 3. the chaos fault on s1's call RECOVER_FAULT_CALL: decode step 32
+        before = [resumed.value, replay.value, (await run(_scrape, urls[1] + "/metrics"))]
+        k_before = [(await run(_get, u + "/health"))["kernels"] for u in urls]
+        chaos_run = await run(_stream_chat, chat, body)
+        k_after = [(await run(_get, u + "/health"))["kernels"] for u in urls]
+        injected = (await run(_scrape, urls[1] + "/metrics"))['dnet_chaos_injected_total{point="shard_compute"}']
+        n_prompt = baseline["usage"]["prompt_tokens"]
+        fault_step = RECOVER_FAULT_CALL - 2 * MAX_TOKENS - 1
+        check(resumed.value - before[0] == 1, f"chaos: dnet_request_resumed_total +{resumed.value - before[0]}")
+        check(injected - before[2]['dnet_chaos_injected_total{point="shard_compute"}'] == 1,
+              "chaos: s1's dnet_chaos_injected_total{point=shard_compute} did not count one fault")
+        check(replay.value - before[1] == n_prompt + fault_step,
+              f"chaos: replayed {replay.value - before[1]} tokens, want prompt {n_prompt} + {fault_step}")
+        prefills = [a["flash_prefill"] - b["flash_prefill"] for a, b in zip(k_after, k_before)]
+        check(prefills == [len(RING_LAYERS[0]) * 2] * 2, f"chaos: prefill launches {prefills} (prompt + replay)")
+        out["chaos"] = {"fault_step": fault_step, "replay_tokens": n_prompt + fault_step, "wall_s": chaos_run["s"],
+                        "baseline_wall_s": baseline["s"], "replay_gap_s": chaos_run["gap_max_s"],
+                        "baseline_gap_median_s": baseline["gap_median_s"], "prefill_launches": prefills,
+                        **_same_stream("chaos resume", chaos_run, baseline)}
+        # 4. kill s1 after the 16th chunk; /health polled in the background
+        epoch0 = (await run(_get, base + "/health"))["epoch"]
+        statuses, t_kill, stop = [], [], asyncio.Event()
+
+        async def poll():
+            while not stop.is_set():
+                h = await run(_get, base + "/health")
+                statuses.append((time.perf_counter(), h["status"], list(h.get("quarantine") or ())))
+                await asyncio.sleep(0.05)
+
+        def kill(n):
+            if n == RECOVER_KILL_CHUNK and not t_kill:
+                procs[1].send_signal(signal.SIGKILL)
+                t_kill.append(time.perf_counter())
+
+        rec0, rec_s0, res0 = recovered.value, rec_s.sum, resumed.value
+        k0 = (await run(_get, urls[0] + "/health"))["kernels"]
+        poller = asyncio.ensure_future(poll())
+        try:
+            killed = await run(_stream_chat, chat, body, kill)
+        finally:
+            stop.set()
+            await poller
+        h0 = await run(_get, urls[0] + "/health")
+        health = await run(_get, base + "/health")
+        downs = [t for t, st, _ in statuses if st == "degraded" and t >= t_kill[0]]
+        check(bool(downs), f"/health never read degraded after the kill: {[st for _, st, _ in statuses]}")
+        check(health["status"] == "ok" and list(health["quarantine"]) == ["s1"], f"/health after recovery {health}")
+        check(recovered.value - rec0 == 1, f"dnet_recovery_total{{outcome=recovered}} +{recovered.value - rec0}")
+        check(resumed.value - res0 == 1, "kill: the request was not resumed")
+        check(health["epoch"] == epoch0 + 1 and h0["epoch"] == epoch0 + 1,
+              f"epochs after recovery: API {health['epoch']}, s0 {h0['epoch']}, before {epoch0}")
+        topo = (await run(_get, base + "/v1/topology"))["topology"]
+        check([(a["instance"], a["layers"]) for a in topo["assignments"]] == [("s0", list(range(LAYERS)))],
+              f"recovered topology {topo['assignments']}")
+        launches = {k: h0["kernels"][k] - k0[k] for k in ("flash_prefill", "flash_decode")}
+        check(launches["flash_prefill"] == len(RING_LAYERS[0]) + LAYERS,
+              f"kill: s0 prefill launches {launches['flash_prefill']} != the prompt's 8 + the replay's 16")
+        out["kill"] = {"kill_to_down_s": downs[0] - t_kill[0], "recovery_s": rec_s.sum - rec_s0,
+                       "wall_s": killed["s"], "baseline_wall_s": baseline["s"], "epoch": [epoch0, health["epoch"]],
+                       "s0_launches": launches, "quarantine": list(health["quarantine"]),
+                       **_same_stream("kill resume", killed, baseline)}
+        # 5. the recovered one-shard ring
+        again = await run(_stream_chat, chat, body)
+        out["recovered_ring"] = {"wall_s": again["s"], **_same_stream("recovered ring", again, baseline)}
+    finally:
+        if not server.done():
+            signal.raise_signal(signal.SIGTERM)  # the server's own shutdown path
+        await server
+    return out
+
+
+def phase_recover_serve(model_dir: str, chat: dict) -> dict:
+    """The serve checkpoint on a two-shard ring under the ring's failure
+    handling: the solver, a chaos fault resumed, a shard killed and the
+    ring recovered over the other, the request resumed (module doc)."""
+    logdir = os.path.dirname(model_dir)
+    shards = [(f"s{i}", _free_port(), _free_port()) for i in range(2)]
+    hostfile = os.path.join(logdir, "hostfile-recover")
+    with open(hostfile, "w") as f:
+        f.writelines(f"{n} 127.0.0.1 {h} {g}\n" for n, h, g in shards)
+    procs, logs = [], []
+    body = dict(chat, stream=True, logprobs=True, top_logprobs=2)
+    try:
+        for i, (name, http, grpc_port) in enumerate(shards):
+            env = dict(os.environ, DNET_WIRE_CODEC="lossless")
+            if i == 1:
+                env["DNET_CHAOS"] = f"shard_compute:error_at:{RECOVER_FAULT_CALL}"
+            logs.append(os.path.join(logdir, f"shard-recover-{name}.log"))
+            with open(logs[-1], "w") as log:
+                procs.append(subprocess.Popen(
+                    [sys.executable, "-m", "dnet_tpu_torch.cli.shard", "--host", "127.0.0.1", "--http-port", str(http),
+                     "--grpc-port", str(grpc_port), "--shard-name", name, "--device", "cuda"],
+                    env=env, stdout=log, stderr=subprocess.STDOUT))
+        t0 = time.perf_counter()
+        for (name, http, _), proc in zip(shards, procs):
+            while True:
+                check(proc.poll() is None, f"shard {name} exited with {proc.returncode}")
+                try:
+                    health = _get(f"http://127.0.0.1:{http}/health")
+                    break
+                except OSError:
+                    check(time.perf_counter() - t0 < 120, f"shard {name} not up within 120 s")
+                    time.sleep(0.3)
+        check(health.get("chaos", {}).get("points") == {"shard_compute": "error_at"}, f"s1 chaos {health.get('chaos')}")
+        args = Namespace(
+            host="127.0.0.1", http_port=_free_port(), grpc_port=_free_port(), hostfile=hostfile, model="",
+            models_dir="", device="cuda", max_seq_len=S, param_dtype="bfloat16", max_concurrent=8,
+            request_timeout_s=600.0, auto_recover=True,
+        )
+        with environ({"DNET_WIRE_CODEC": "lossless", **RECOVER_ENV}):
+            out = asyncio.run(_drive_recover(args, model_dir, body, shards, procs))
+    except Exception:
+        for path in logs:
+            with open(path) as f:
+                print(f"--- {path} ---\n{f.read()[-4000:]}", file=sys.stderr)
+        raise
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.send_signal(signal.SIGTERM)
+        for p in procs:
+            try:
+                p.wait(timeout=30)
+            except subprocess.TimeoutExpired:
+                p.kill()
+                p.wait()
+    row = {"phase": "recover_serve", "gpu": gpu_line(), "layers": [f"{ls[0]}-{ls[-1]}" for ls in RING_LAYERS],
+           "env": RECOVER_ENV, "fault": f"s1 shard_compute:error_at:{RECOVER_FAULT_CALL}",
+           "kill_at": f"s1 SIGKILL after chunk {RECOVER_KILL_CHUNK}", **out}
+    emit(row)
+    return row
 
 
 def _batch_args(model_dir: str, port: int) -> Namespace:

@@ -42,6 +42,7 @@ from typing import Deque, Optional
 from dnet_tpu_torch.admission.reasons import DEADLINE_STAGES, REJECT_REASONS
 from dnet_tpu_torch.obs import metric
 from dnet_tpu_torch.obs.events import log_event
+from dnet_tpu_torch.resilience import chaos
 from dnet_tpu_torch.utils.logger import get_logger
 
 log = get_logger()
@@ -256,7 +257,9 @@ class AdmissionController:
         """Admit the calling request or raise `AdmissionRejected`.
 
         Prefer ``async with controller.slot(...)`` — it guarantees the
-        release."""
+        release.  The chaos point ``admit`` sits first, so an injected
+        delay backs the queue up exactly like a slow burst would."""
+        await chaos.inject_async("admit")
         if self._draining:
             raise self._reject("draining", "server is draining for shutdown")
         if deadline is not None and deadline.expired:

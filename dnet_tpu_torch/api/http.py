@@ -10,11 +10,16 @@ Counterpart of dnet_tpu/api/http.py, trimmed to
   POST /v1/load_model        load a local checkpoint (in ring mode: the
                              fan-out to the shards)
   POST /v1/unload_model      drop the model and free its device memory
+  POST /v1/prepare_topology  ring mode: profile the shards and solve the
+                             layer split (parallel/solver.py)
   POST /v1/prepare_topology_manual
                              ring mode: assign layer ranges to shards
-  GET  /health               + admission and the rolling SLO windows
-                             ("degraded" while one burns, "draining" on
-                             shutdown)
+  GET  /v1/topology          the installed topology and its epoch
+  GET  /v1/devices           the shards discovery knows
+  GET  /health               + admission, the rolling SLO windows, and in
+                             ring mode the epoch, the shards' health and
+                             the quarantine ("degraded" while a shard is
+                             down or an SLO burns, "draining" on shutdown)
   GET  /metrics              Prometheus text exposition (obs/)
   GET  /v1/cluster/metrics   every shard's /metrics and this node's, merged
                              with node labels (ring mode)
@@ -52,11 +57,11 @@ from dnet_tpu_torch.api.inference import (
     InferenceError,
     InferenceManager,
     PromptTooLongError,
+    ServiceDegradedError,
     completion_logprobs,
 )
-from dnet_tpu_torch.config import obs_settings
 from dnet_tpu_torch.api.catalog import expanded_catalog, split_variant
-from dnet_tpu_torch.api.model_manager import resolve_model_dir
+from dnet_tpu_torch.api.model_manager import resolve_model_dir, weight_quant
 from dnet_tpu_torch.api.ring_manager import build_manual_topology
 from dnet_tpu_torch.api.schemas import (
     ChatCompletionRequest,
@@ -68,8 +73,10 @@ from dnet_tpu_torch.api.schemas import (
     ModelInfo,
     ModelList,
     PrepareTopologyManualRequest,
+    PrepareTopologyRequest,
     UnloadModelResponse,
 )
+from dnet_tpu_torch.config import api_settings, obs_settings
 from dnet_tpu_torch.obs import CONTENT_TYPE_LATEST, get_recorder, get_registry, get_slo_tracker, metric
 from dnet_tpu_torch.obs.clock import offset_from_probe, stitch_timelines
 from dnet_tpu_torch.obs.critical_path import critical_path_section
@@ -78,6 +85,7 @@ from dnet_tpu_torch.obs.federation import federate
 from dnet_tpu_torch.obs.http import find_timeline, metrics_response
 from dnet_tpu_torch.obs.phases import EVENT_NAMES
 from dnet_tpu_torch.obs.trace import export_trace
+from dnet_tpu_torch.resilience.chaos import armed_summary
 from dnet_tpu_torch.sched.flight import get_tick_recorder
 from dnet_tpu_torch.utils.logger import get_logger
 
@@ -100,6 +108,24 @@ def _json_error(
     )
 
 
+def _topology_json(topo, solution: bool = False) -> dict:
+    """A topology as the reference's routes render it: the manual route
+    without the streaming fields and the solution, the solved route and
+    GET /v1/topology with both."""
+    assignments = []
+    for a in topo.assignments:
+        row = {"instance": a.instance, "layers": a.layers, "next_instance": a.next_instance}
+        if solution:
+            row.update(window_size=a.window_size, residency_size=a.residency_size)
+        row.update(mesh_tp=a.mesh_tp, mesh_sp=a.mesh_sp)
+        assignments.append(row)
+    body = {"model": topo.model, "num_layers": topo.num_layers, "epoch": topo.epoch}
+    if solution:
+        body["solution"] = topo.solution
+    body["assignments"] = assignments
+    return body
+
+
 class ApiHTTPServer:
     def __init__(self, inference: InferenceManager, model_manager, cluster_manager=None) -> None:
         self.inference = inference
@@ -112,7 +138,10 @@ class ApiHTTPServer:
         self.app.router.add_get("/v1/models", self.list_models)
         self.app.router.add_post("/v1/load_model", self.load_model)
         self.app.router.add_post("/v1/unload_model", self.unload_model)
+        self.app.router.add_post("/v1/prepare_topology", self.prepare_topology)
         self.app.router.add_post("/v1/prepare_topology_manual", self.prepare_topology_manual)
+        self.app.router.add_get("/v1/topology", self.get_topology)
+        self.app.router.add_get("/v1/devices", self.get_devices)
         self.app.router.add_get("/health", self.health)
         self.app.router.add_get("/metrics", self.metrics)
         self.app.router.add_get("/v1/cluster/metrics", self.cluster_metrics)
@@ -146,6 +175,9 @@ class ApiHTTPServer:
                                retry_after_s=admission.retry_after_s())
         if not self.inference.ready:
             return _json_error(400, "no model loaded; POST /v1/load_model first")
+        monitor = self.inference.failure_monitor
+        if monitor is not None and monitor.degraded:
+            return _json_error(503, f"ring degraded: shard(s) {monitor.down_shards()} down", "service_unavailable")
         return None
 
     def _map_inference_errors(self, exc: Exception):
@@ -164,6 +196,8 @@ class ApiHTTPServer:
         if isinstance(exc, EngineCapabilityError):
             # the serving config asked the engine for something it cannot do
             return _json_error(422, str(exc), "invalid_request_error")
+        if isinstance(exc, ServiceDegradedError):
+            return _json_error(503, str(exc), "service_unavailable")
         if isinstance(exc, ConnectionError):
             # a transport failure before any chunk: retryable unavailability
             return _json_error(503, str(exc), "service_unavailable")
@@ -344,6 +378,59 @@ class ApiHTTPServer:
         await self.model_manager.unload_model()
         return web.json_response(UnloadModelResponse(message="unloaded").model_dump())
 
+    async def prepare_topology(self, request: web.Request) -> web.Response:
+        """Profile every healthy shard, then solve the layer split over them
+        (parallel/solver.py) and install it under a new epoch.  A shard
+        whose profile failed stops the solve (502)."""
+        if self.cluster_manager is None:
+            return _json_error(400, "not in ring mode (start with --hostfile)")
+        try:
+            req = PrepareTopologyRequest.model_validate(await request.json())
+        except (json.JSONDecodeError, ValidationError) as exc:
+            return _json_error(400, f"invalid request: {exc}")
+        from dnet_tpu_torch.config import topology_settings
+        from dnet_tpu_torch.parallel.solver import model_profile_from_checkpoint, solve_topology
+
+        base_id, wq, _ = weight_quant(req.model, api_settings())
+        model_dir = resolve_model_dir(base_id, getattr(self.model_manager, "models_dir", None))
+        if model_dir is None:
+            return _json_error(404, f"model {req.model!r} not found locally", "model_not_found")
+        devices = await self.cluster_manager.profile_cluster()
+        if not devices:
+            return _json_error(503, "no healthy shards discovered", "no_devices")
+        failed = self.cluster_manager.profile_errors
+        if failed:
+            return _json_error(502, f"device profile failed on {sorted(failed)}: {failed}", "server_error")
+        ts = topology_settings()
+        try:
+            profile = model_profile_from_checkpoint(model_dir, seq_len=req.seq_len, kv_bits=req.kv_bits,
+                                                    weight_quant_bits=wq)
+            topo = solve_topology(devices, profile, kv_bits=req.kv_bits, solver=ts.solver, mip_gap=ts.mip_gap)
+        except ValueError as exc:
+            return _json_error(400, str(exc))
+        topo.model = req.model
+        # install, not assign: the new epoch arms the fence for the load
+        self.cluster_manager.install_topology(topo)
+        return web.json_response({"status": "ok", "topology": _topology_json(topo, solution=True)})
+
+    async def get_topology(self, request: web.Request) -> web.Response:
+        topo = getattr(self.cluster_manager, "current_topology", None)
+        if topo is None:
+            return web.json_response({"topology": None})
+        body = _topology_json(topo, solution=True)
+        body["kv_bits"] = topo.kv_bits
+        return web.json_response({"topology": body})
+
+    async def get_devices(self, request: web.Request) -> web.Response:
+        if self.cluster_manager is None:
+            return web.json_response({"devices": []})
+        devices = await self.cluster_manager.scan_devices()
+        return web.json_response({"devices": [
+            {"instance": d.instance, "host": d.host, "http_port": d.http_port, "grpc_port": d.grpc_port,
+             "is_manager": d.is_manager, "slice_id": d.slice_id, "chip_count": d.chip_count}
+            for d in devices
+        ]})
+
     async def prepare_topology_manual(self, request: web.Request) -> web.Response:
         """Manual layer assignment -> the ring topology (needs a hostfile)."""
         if self.cluster_manager is None:
@@ -366,39 +453,25 @@ class ApiHTTPServer:
         except ValueError as exc:
             return _json_error(400, str(exc))
         self.cluster_manager.install_topology(topo)
-        return web.json_response({
-            "status": "ok",
-            "topology": {
-                "model": topo.model,
-                "num_layers": topo.num_layers,
-                "epoch": topo.epoch,
-                "assignments": [
-                    {"instance": a.instance, "layers": a.layers, "next_instance": a.next_instance,
-                     "mesh_tp": a.mesh_tp, "mesh_sp": a.mesh_sp}
-                    for a in topo.assignments
-                ],
-            },
-        })
-
-    async def debug_sched(self, request: web.Request) -> web.Response:
-        """The scheduler's tick flight ring (sched/flight.py): per-tick
-        token-budget use and waste, prefill / decode split, queue depths by
-        state, preemptions, and KV block-pool occupancy.  `?last=N` trims
-        the record list to the most recent N ticks."""
-        snap = get_tick_recorder().snapshot()
-        last = request.query.get("last", "").strip()
-        if last:
-            try:
-                n = max(0, int(last))
-            except ValueError:
-                return _json_error(400, "last must be an integer")
-            snap["records"] = snap["records"][-n:] if n else []
-        return web.json_response(snap)
+        return web.json_response({"status": "ok", "topology": _topology_json(topo)})
 
     async def health(self, request: web.Request) -> web.Response:
         body = HealthResponse(model=self.model_manager.current_model_id).model_dump()
+        chaos = armed_summary()
+        if chaos is not None:
+            # an injected fault must never pass for a real one
+            body["chaos"] = chaos
         if self.cluster_manager is not None:
             body["epoch"] = self.cluster_manager.epoch
+        monitor = self.inference.failure_monitor
+        if monitor is not None:
+            # quarantined shards do not degrade the status: the re-solved
+            # ring serves, below full capacity
+            body["quarantine"] = monitor.quarantine.snapshot()
+            if monitor.health:
+                body["shards"] = monitor.snapshot()
+                if monitor.degraded:
+                    body["status"] = "degraded"
         # a burning SLO degrades /health: slow is its own kind of down
         slo = get_slo_tracker().snapshot()
         body["slo"] = slo
@@ -411,7 +484,7 @@ class ApiHTTPServer:
             # draining wins over degraded: balancers must stop routing here
             body["status"] = "draining"
             body["admission"]["epoch"] = body.get("epoch", 0)
-            body["admission"]["quarantine"] = []
+            body["admission"]["quarantine"] = list(body.get("quarantine") or ())
         stats = getattr(getattr(self.model_manager, "engine", None), "stats", None)
         if stats is not None:
             body["engine"] = stats()

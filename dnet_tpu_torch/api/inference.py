@@ -15,7 +15,12 @@ decode step, the closing request span), the request / token / error
 counters and the TTFT histogram, the SLO windows, the critical-path
 ledger (in `metrics.critical_path` when the request asks to profile) and
 one `request_complete` wide event.  /v1/embeddings passes the same
-admission.  Resume across shard failures is not part of the port yet.
+admission.  In ring mode the failure monitor (api/failure.py) fails a
+request fast when a shard goes down (ServiceDegradedError, 503), and
+behind DNET_RESILIENCE_RESUME=1 every decode step goes through a
+`ResumableDecode` (resilience/checkpoint.py): a failed step waits for the
+ring to recover, replays prompt + generated under `rid#rN`, and takes the
+replay's token as its own, on the same client stream.
 """
 
 from __future__ import annotations
@@ -60,6 +65,8 @@ from dnet_tpu_torch.config import admission_settings, kv_settings, sched_setting
 from dnet_tpu_torch.core.types import DecodingParams
 from dnet_tpu_torch.obs import critical_path, get_recorder, get_slo_tracker, metric
 from dnet_tpu_torch.obs.events import bind, log_event
+from dnet_tpu_torch.resilience.checkpoint import ResumableDecode
+from dnet_tpu_torch.resilience.policy import is_retryable
 from dnet_tpu_torch.utils.logger import get_logger
 from dnet_tpu_torch.utils.tokenizer import Detokenizer
 
@@ -78,6 +85,11 @@ class InferenceError(Exception):
 
 class PromptTooLongError(InferenceError):
     """Maps to HTTP 400 (client error) rather than 500."""
+
+
+class ServiceDegradedError(InferenceError):
+    """The ring has shards down: maps to HTTP 503 at once, instead of a
+    request waiting out its token timeout."""
 
 
 class BackpressureError(InferenceError):
@@ -130,6 +142,8 @@ def _event_status(exc: BaseException) -> int:
         return 400
     if isinstance(exc, EngineCapabilityError):
         return 422
+    if isinstance(exc, ServiceDegradedError):
+        return 503
     return 500
 
 
@@ -182,6 +196,7 @@ class InferenceManager:
         self.tokenizer = None  # set by the model manager on load
         self.model_id = None
         self.request_timeout_s = request_timeout_s
+        self.failure_monitor = None  # RingFailureMonitor in ring mode
         adm = admission_settings()
         # the front door: bounded queue, shedding, Retry-After, drain
         self.admission = AdmissionController(
@@ -256,21 +271,6 @@ class InferenceManager:
             )
             raise
 
-    async def _await_step(self, nonce: str, step: int, deadline: Optional[Deadline]):
-        """The step's token, awaited no longer than the deadline leaves: a
-        deadline passing between or during steps raises
-        DeadlineExceededError."""
-        if deadline is None:
-            return await self.adapter.await_token(nonce, step, self.request_timeout_s)
-        timeout = min(self.request_timeout_s, max(deadline.remaining(), 0.001))
-        try:
-            return await self.adapter.await_token(nonce, step, timeout)
-        except asyncio.TimeoutError as exc:
-            if deadline.expired:
-                deadline_expired("api_step")
-                raise DeadlineExceededError(f"request deadline expired awaiting step {step}") from exc
-            raise
-
     async def _run(
         self, req, deadline: Optional[Deadline] = None, admit_wait_ms: float = 0.0
     ) -> AsyncIterator[ChatCompletionChunk]:
@@ -287,9 +287,10 @@ class InferenceManager:
         recorder = get_recorder()
         slo = get_slo_tracker()
         completed = False  # one request_complete a request
-        opened = False  # the adapter holds a session for the nonce
+        resume = None  # built once the adapter holds a session for the nonce
         prompt_ids: list = []
         try:
+            self._check_degraded()
             tok = self.tokenizer
             prompt_ids = tok.encode(req.render_prompt(tok))
             decoding = self._decoding(req)
@@ -320,21 +321,49 @@ class InferenceManager:
             stopped_by_seq = False
 
             await self.adapter.reset_cache(nonce)
-            opened = True
             if deadline is not None:
                 # in ring mode every frame carries it: shards drop expired ones
                 self.adapter.set_deadline(nonce, deadline.t_deadline)
+            # owns the wire nonce and the step mapping, so that a failed
+            # step can be replayed on a recovered ring; the adapter is a
+            # getter because auto-recovery installs a new one
+            resume = ResumableDecode(
+                lambda: self.adapter, rid, prompt_ids, monitor=self.failure_monitor,
+                timeout_s=self.request_timeout_s,
+            )
             send_ids = list(prompt_ids)
             for step in range(max_new):
-                if deadline is not None and deadline.expired:
-                    # every further token is work nobody is waiting for
-                    deadline_expired("api_step")
-                    raise DeadlineExceededError(f"request deadline expired after {generated} token(s)")
+                if deadline is not None:
+                    if deadline.expired:
+                        # every further token is work nobody is waiting for
+                        deadline_expired("api_step")
+                        raise DeadlineExceededError(f"request deadline expired after {generated} token(s)")
+                    # the token await is bounded by what the deadline leaves
+                    resume.timeout_s = min(self.request_timeout_s, max(deadline.remaining(), 0.001))
                 t_step = time.perf_counter()
-                await self.adapter.send_tokens(nonce, send_ids, decoding, step, budget=max_new - step)
-                result = await self._await_step(nonce, step, deadline)
-                if result.error:
-                    raise classify_result_error(result.error)
+                try:
+                    # per step: the monitor's fail_pending only reaches the
+                    # futures pending when the shard went down
+                    self._check_degraded()
+                    await resume.send(send_ids, decoding, step, budget=max_new - step)
+                    result = await resume.await_token(step)
+                    if result.error:
+                        raise classify_result_error(result.error)
+                except asyncio.CancelledError:
+                    raise
+                except Exception as exc:
+                    if deadline is not None and deadline.expired and isinstance(exc, asyncio.TimeoutError):
+                        deadline_expired("api_step")
+                        raise DeadlineExceededError(f"request deadline expired awaiting step {step}") from exc
+                    if isinstance(exc, (DeadlineExceededError, BackpressureError)):
+                        # shed work is not replayed
+                        raise
+                    if not (isinstance(exc, (InferenceError, asyncio.TimeoutError)) or is_retryable(exc)):
+                        raise
+                    # None: resume off or exhausted, the failure surfaces
+                    result = await resume.try_resume(exc, decoding, step, budget=max_new - step)
+                    if result is None:
+                        raise
                 # one span a token: send -> token resolved
                 step_ms = (time.perf_counter() - t_step) * 1000
                 recorder.span(rid, "decode_step", step_ms, step=step)
@@ -356,6 +385,8 @@ class InferenceManager:
 
                 delta = detok.add(result.token_id)
                 send_ids = [result.token_id]
+                # a later resume replays prompt + the accepted tokens
+                resume.record(result.token_id)
                 if req.logprobs_enabled:
                     held_entries.append(self._logprob_entry(result, delta))
 
@@ -528,12 +559,19 @@ class InferenceManager:
                 completed = True
             raise
         finally:
-            # a finished or abandoned request frees its KV at once
+            # a finished or abandoned request frees its KV at once; a reset
+            # that fails (the ring just died) is logged, never raised over
+            # the request's own outcome
             try:
-                if opened:
-                    await self.adapter.reset_cache(nonce)
+                if resume is not None:
+                    await resume.cleanup()
             finally:
                 ctx.__exit__(None, None, None)
+
+    def _check_degraded(self) -> None:
+        monitor = self.failure_monitor
+        if monitor is not None and monitor.degraded:
+            raise ServiceDegradedError(f"ring degraded: shard(s) {monitor.down_shards()} down")
 
     async def embeddings(self, req) -> EmbeddingsResponse:
         """/v1/embeddings: mean-pooled final hidden states, one vector an

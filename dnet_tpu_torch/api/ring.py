@@ -3,6 +3,9 @@ sampled tokens back through the API's gRPC servicer.
 
 Counterpart of dnet_tpu/api/ring.py `RingApiAdapter` and `ApiTokenServicer`
 without lane coalescing, the ring prefix cache and epoch NACK handling.
+A token callback minted under another topology epoch than the adapter's
+(a fenced-out shard finishing old work) is dropped and counted in
+dnet_stale_epoch_rejected_total{kind="token_cb"}.
 Decode grants are kept: a frame may let the tail feed up to `auto_steps`
 sampled tokens straight back to the head, so those steps send no frame
 from here; their tokens may arrive before the decode loop awaits them and wait
@@ -20,6 +23,7 @@ import numpy as np
 
 from dnet_tpu_torch.api.strategies import ApiAdapterBase, _TokenFutures
 from dnet_tpu_torch.core.types import DecodingParams, TokenResult
+from dnet_tpu_torch.membership import epoch as epoch_fence
 from dnet_tpu_torch.transport.protocol import ActivationFrame, Empty, TokenPayload
 from dnet_tpu_torch.transport.stream_manager import StreamManager
 from dnet_tpu_torch.utils.logger import get_logger
@@ -182,6 +186,10 @@ class RingApiAdapter(ApiAdapterBase):
         return await self._futures.wait(nonce, step, timeout)
 
     def resolve_token(self, result: TokenResult) -> None:
+        if epoch_fence.is_stale(self._epoch, result.epoch):
+            err = epoch_fence.reject("token_cb", self._epoch, result.epoch)
+            log.warning("zombie token for %s step %d dropped: %s", result.nonce, result.step, err)
+            return
         if not self._futures.resolve(result):
             if result.step <= self._granted.get(result.nonce, -1):
                 # a granted step raced ahead of the decode loop's await: hold it

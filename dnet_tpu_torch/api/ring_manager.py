@@ -10,7 +10,13 @@ id's bits with the base checkpoint as the model path) concurrently and then serv
 DNET_WIRE_CODEC=auto per hop.  A failed shard load answers with the
 shard's own status (422 for an option the shard does not serve).  An
 assignment's `window_size` / `residency_size` ride its body: that shard
-streams its weights (core/weights.py).
+streams its weights (core/weights.py).  `load_model(delta=True)` is the
+reference's delta reload (membership/delta.py): a shard whose body is
+unchanged since its last load (all but `epoch` and `next_node`) keeps its
+weights and takes only the new epoch and next hop through POST
+/update_topology; a shard that refuses it (409: it no longer holds the
+model) is loaded in full.  The resolved max_seq is kept, so that a
+recovery's reload reproduces the last load's bodies.
 """
 
 from __future__ import annotations
@@ -27,6 +33,7 @@ from dnet_tpu_torch.api.inference import EngineCapabilityError
 from dnet_tpu_torch.api.model_manager import resolve_model_dir, weight_quant
 from dnet_tpu_torch.config import api_settings, wire_settings
 from dnet_tpu_torch.core.types import DeviceInfo, LayerAssignment, TopologyInfo
+from dnet_tpu_torch.membership import body_signature, split_delta
 from dnet_tpu_torch.utils.logger import get_logger
 from dnet_tpu_torch.utils.tokenizer import load_tokenizer
 
@@ -118,10 +125,19 @@ class RingModelManager:
         self.param_dtype = param_dtype
         self.request_timeout_s = request_timeout_s
         self._ring_client_factory = ring_client_factory
+        # instance -> signature of the body it last loaded in full: what a
+        # delta reload may skip
+        self._last_load: dict = {}
 
     @property
     def current_model_id(self) -> Optional[str]:
         return self.inference.model_id
+
+    @property
+    def weight_quant_bits(self) -> int:
+        """The shards' weight_quant_bits for the loaded model (the solver's
+        memory model)."""
+        return weight_quant(self.inference.model_id or "", api_settings())[1]
 
     def load_bodies(self, topo: TopologyInfo, model_id: str, max_seq: int) -> dict:
         """instance -> its /load_model body; a quant variant's model path
@@ -157,10 +173,6 @@ class RingModelManager:
         return bodies
 
     async def load_model(self, model_id: str, max_seq: Optional[int] = None, delta: bool = False) -> float:
-        if delta:
-            # the reference's delta reload (reuse unchanged shards' weights,
-            # bump the epoch) is not ported: refuse before any fan-out
-            raise EngineCapabilityError("delta reload is not ported; reload without `delta`")
         topo = self.cluster.current_topology
         if topo is None:
             raise RuntimeError("no topology; POST /v1/prepare_topology_manual first")
@@ -169,18 +181,31 @@ class RingModelManager:
             raise FileNotFoundError(f"model {model_id!r} not found locally")
         t0 = time.perf_counter()
         by_instance = {d.instance: d for d in topo.devices}
-        max_seq = max_seq or self.max_seq
+        # a recovery reload passes no max_seq and must reproduce the last
+        # load's bodies (another max_seq would make every shard "changed")
+        self.max_seq = max_seq = max_seq or self.max_seq
         bodies = self.load_bodies(topo, model_id, max_seq)
+        changed, unchanged = split_delta(self._last_load, bodies) if delta else (bodies, {})
         timeout = aiohttp.ClientTimeout(total=self.request_timeout_s)
         async with aiohttp.ClientSession(timeout=timeout) as session:
 
             async def ship(a: LayerAssignment) -> None:
-                dev = by_instance[a.instance]
+                """One shard's leg: the delta update where its body is
+                unchanged, the full /load_model otherwise."""
+                dev, body = by_instance[a.instance], bodies[a.instance]
+                if a.instance in unchanged:
+                    if await self._update_topology(session, dev, body):
+                        return
+                    log.warning("delta update of %s refused; falling back to a full load", a.instance)
                 url = f"http://{dev.host}:{dev.http_port}/load_model"
-                async with session.post(url, json=bodies[a.instance]) as r:
+                async with session.post(url, json=body) as r:
                     if r.status != 200:
+                        # a half-shipped topology must not leave a signature
+                        # claiming this shard can be delta-updated
+                        self._last_load.pop(a.instance, None)
                         text = await r.text()
                         raise ShardLoadError(f"shard {a.instance} load failed ({r.status}): {text}", r.status)
+                self._last_load[a.instance] = body_signature(body)
 
             # shards load concurrently (weight reads dominate); every leg runs
             # to its end before the first failure surfaces
@@ -213,14 +238,29 @@ class RingModelManager:
         if old is not None:
             await old.shutdown()
         dt = time.perf_counter() - t0
-        log.info("ring model %s loaded across %d shard(s) in %.1fs (epoch %d)",
-                 model_id, len(topo.assignments), dt, topo.epoch)
+        log.info("ring model %s loaded across %d shard(s) in %.1fs (epoch %d, %d full load(s), %d delta update(s))",
+                 model_id, len(topo.assignments), dt, topo.epoch, len(changed), len(unchanged))
         return dt
+
+    async def _update_topology(self, session, dev: DeviceInfo, body: dict) -> bool:
+        """One shard's POST /update_topology; False (a refusal or a transport
+        failure) sends the caller to the full load."""
+        url = f"http://{dev.host}:{dev.http_port}/update_topology"
+        payload = {k: body[k] for k in ("model_path", "layers", "epoch", "next_node")}
+        try:
+            async with session.post(url, json=payload) as r:
+                if r.status == 200:
+                    return True
+                log.warning("update_topology on %s answered %d: %s", dev.instance, r.status, await r.text())
+        except (aiohttp.ClientError, asyncio.TimeoutError) as exc:
+            log.warning("update_topology on %s failed: %s", dev.instance, exc)
+        return False
 
     async def unload_model(self) -> None:
         """Drop the model: stop the ring adapter and ask every shard of the
         topology to unload (concurrently; a failed leg is logged)."""
         topo = self.cluster.current_topology
+        self._last_load.clear()  # unloaded shards hold nothing to delta from
         self.inference.model_id = None
         self.inference.tokenizer = None
         adapter, self.inference.adapter = self.inference.adapter, None

@@ -349,6 +349,12 @@ class ManualAssignment(BaseModel):
     mesh_sp: int = 0
 
 
+class PrepareTopologyRequest(BaseModel):
+    model: str
+    kv_bits: int = 0
+    seq_len: int = 4096
+
+
 class PrepareTopologyManualRequest(BaseModel):
     model: str
     assignments: List[ManualAssignment]

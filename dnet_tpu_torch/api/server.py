@@ -5,7 +5,11 @@ device, or over sequence-parallel ranks with --mesh sp=N or DNET_MESH_SP)
 and, with --hostfile, for a ring of shards (no UDP discovery, fleet or
 TUI).
 In ring mode the API also listens on gRPC for the tail shard's token
-callbacks.  `serve_async` runs until SIGINT/SIGTERM, then drains as the
+callbacks and runs the `RingFailureMonitor` (api/failure.py): health
+probes every DNET_API_HEALTH_INTERVAL_S, fast-fail and 503 once a shard
+misses DNET_API_HEALTH_FAIL_THRESHOLD in a row, and with --auto-recover a
+re-solve and delta reload over the healthy shards.  A malformed DNET_CHAOS
+stops the server at start (resilience/chaos.py `validate_startup`).  `serve_async` runs until SIGINT/SIGTERM, then drains as the
 reference does: admission enters drain mode (/health reads "draining", new
 work gets 503 + Retry-After, queued requests are shed) while the HTTP
 server stays up, so in-flight streams finish within DNET_DRAIN_DEADLINE_S;
@@ -23,6 +27,7 @@ from dnet_tpu_torch.api.inference import InferenceManager
 from dnet_tpu_torch.api.model_manager import LocalModelManager
 from dnet_tpu_torch.config import admission_settings, batch_slots_default, kv_settings, mesh_settings
 from dnet_tpu_torch.parallel.mesh import parse_mesh
+from dnet_tpu_torch.resilience import chaos
 from dnet_tpu_torch.utils.logger import get_logger
 
 log = get_logger()
@@ -42,6 +47,8 @@ def resolve_mesh(args) -> Optional[dict]:
 
 
 async def serve_async(args) -> None:
+    # a malformed DNET_CHAOS stops the server here, never mid-request
+    chaos.validate_startup(role="api")
     batch_slots = batch_slots_default(getattr(args, "batch_slots", None))
     # with continuous batching, admission must not exceed the slot pool: an
     # over-admitted request would fail on prefill instead of queueing
@@ -51,9 +58,19 @@ async def serve_async(args) -> None:
         request_timeout_s=args.request_timeout_s,
         max_concurrent=max_concurrent,
     )
-    cluster_manager = grpc_server = None
+    cluster_manager = grpc_server = monitor = None
     if getattr(args, "hostfile", ""):
         model_manager, cluster_manager, grpc_server = await _ring_mode(args, inference)
+        from dnet_tpu_torch.api.failure import RingFailureMonitor
+        from dnet_tpu_torch.config import api_settings
+
+        s = api_settings()
+        monitor = RingFailureMonitor(
+            cluster_manager, inference, model_manager=model_manager, interval_s=s.health_interval_s,
+            fail_threshold=s.health_fail_threshold, auto_recover=getattr(args, "auto_recover", False),
+        )
+        inference.failure_monitor = monitor
+        monitor.start()
     else:
         model_manager = LocalModelManager(
             inference,
@@ -89,6 +106,8 @@ async def serve_async(args) -> None:
             log.warning("drain deadline hit; shutting down with work in flight")
     finally:
         await http.stop()
+        if monitor is not None:
+            await monitor.stop()
         if grpc_server is not None:
             await grpc_server.stop(grace=2)
         if inference.adapter is not None:

@@ -11,7 +11,8 @@ speculating engine decodes by verify blocks (`LocalAdapter`: the engine's
 buffered as a chunk's are; a chunked prefill looks the whole prompt up in
 the prefix cache first and stores it at the end.  DNET_SCHED=1 serves the
 iteration-level scheduler's adapter instead (sched/engine.py).
-`embed` serves /v1/embeddings on the compute thread: the engine's
+`fail_pending` resolves every pending token wait with an error (the ring
+failure monitor's fast-fail).  `embed` serves /v1/embeddings on the compute thread: the engine's
 `hidden_states` (one prefill forward over a throwaway session), mean-pooled
 per input; the batched adapters reach it through their inner LocalEngine,
 and the ring's adapter answers NotImplementedError (501).
@@ -117,6 +118,15 @@ class ApiAdapterBase(abc.ABC):
         """Register the request's absolute wall-clock deadline (epoch
         seconds).  In-process adapters have no frames to stamp: the decode
         loop checks it between steps."""
+
+    def fail_pending(self, error: str) -> None:
+        """Fail every in-flight token wait with `error`: the failure
+        monitor's fast-fail when a shard goes down, instead of each request
+        waiting out its timeout.  Covers every adapter built on
+        `_TokenFutures`."""
+        futures = getattr(self, "_futures", None)
+        if isinstance(futures, _TokenFutures):
+            futures.fail_all(error)
 
     async def embed(self, ids_list: List[List[int]]) -> List[List[float]]:
         """Mean-pooled final hidden states, one vector an input.  Default:

@@ -18,8 +18,13 @@ the KV cache's form for the single-sequence and dense batched engines; a
 paged pool takes the param dtype's cache only.
 --hostfile serves through the shards it lists (`<instance> <host> <http_port>
 <grpc_port>` per line): POST /v1/prepare_topology_manual assigns their layer
-ranges, then POST /v1/load_model loads them; the tail shard calls the
-sampled tokens back on --grpc-port.
+ranges (or POST /v1/prepare_topology profiles them and solves the split),
+then POST /v1/load_model loads them; the tail shard calls the sampled
+tokens back on --grpc-port.  A ring's failure monitor marks a shard down
+after DNET_API_HEALTH_FAIL_THRESHOLD failed probes, one every
+DNET_API_HEALTH_INTERVAL_S; --auto-recover then re-solves and reloads the
+ring over the healthy shards, DNET_REJOIN=1 lets a quarantined shard back
+in, and DNET_RESILIENCE_RESUME=1 resumes the requests a failure cut.
 --mesh sp=N (default: DNET_MESH_PP/TP/DP/SP) serves over N sequence-parallel
 ranks, each holding max_seq / N KV slots: on CUDA one card per rank
 (cuda:0 .. cuda:N-1; the server refuses to start with fewer cards), with
@@ -58,6 +63,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--request-timeout-s", type=float, default=s.request_timeout_s)
     p.add_argument("--hostfile", default="", help="serve through the ring of shards this file lists")
     p.add_argument("--grpc-port", type=int, default=s.grpc_port, help="ring mode: token callbacks from the tail")
+    p.add_argument("--auto-recover", action="store_true",
+                   help="ring mode: re-solve and reload over the healthy shards when one goes down")
     p.add_argument("--mesh", default="",
                    help="sequence-parallel serving, e.g. 'sp=2' (default: DNET_MESH_PP/TP/DP/SP)")
     return p

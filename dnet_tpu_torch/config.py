@@ -20,8 +20,13 @@ the API node's --mesh default; the multi-host BACKEND, COORDINATOR,
 NUM_PROCESSES and PROCESS_ID are read only to refuse values other than
 their defaults), `SchedSettings` (DNET_SCHED, DNET_SCHED_TOKEN_BUDGET,
 DNET_SCHED_PREFILL_CHUNK, DNET_SCHED_SLOTS: the iteration-level scheduler)
-and `ObsSettings` (DNET_OBS_*: the observability group, the scheduler's
-tick ring among it).
+`ObsSettings` (DNET_OBS_*: the observability group, the scheduler's
+tick ring among it), and the ring's failure handling: `ResilienceSettings`
+(DNET_RESILIENCE_*: transparent resume and the retry policy),
+`MembershipSettings` (DNET_REJOIN, DNET_REJOIN_STABLE_S,
+DNET_RECOVERY_MAX_ROUNDS), `ChaosSettings` (DNET_CHAOS, DNET_CHAOS_SEED)
+and `TopologySettings` (DNET_TOPOLOGY_*: the solver behind
+/v1/prepare_topology).
 Values come from the process environment on every call (no .env file, no
 cache), so a flip is seen at the next engine load.
 """
@@ -110,6 +115,11 @@ class ApiSettings:
     ring_auto_steps: int = 16
     # host:port the shards dial for token callbacks ("" = derived)
     callback_addr: str = ""
+    # ring failure monitor (api/failure.py): seconds between gRPC health
+    # probes of every shard, and consecutive failed probes that mark a
+    # shard down
+    health_interval_s: float = 5.0
+    health_fail_threshold: int = 3
 
 
 @dataclass
@@ -127,12 +137,13 @@ class ShardSettings:
 @dataclass
 class TransportSettings:
     """The ring's hidden-state hops (DNET_TRANSPORT_*): the older sparse_v1
-    column compression, and the send retry/backoff policy."""
+    column compression, the idle-stream sweep and the pause after a
+    backpressure ACK.  Retries follow resilience/policy.py
+    (DNET_RESILIENCE_RETRY_*)."""
 
     compress: bool = False
     compress_pct: float = 0.5
     compress_quant_bits: int = 0
-    send_retries: int = 3
     stream_idle_sweep_s: float = 30.0
     stream_backoff_s: float = 0.25
 
@@ -256,6 +267,57 @@ class ObsSettings:
         return max(int(self.sync_every_n), 0)
 
 
+@dataclass
+class ResilienceSettings:
+    """Request survival (DNET_RESILIENCE_*), the reference's group: `resume`
+    turns a mid-decode shard failure into checkpoint -> wait for recovery
+    -> replay prefill on the same client stream (resilience/checkpoint.py),
+    each attempt waiting at most `resume_deadline_s` for the ring and at
+    most `max_resumes` a request; the retry knobs set the base policy of
+    every RPC class (resilience/policy.py), and a nonzero
+    `retry_jitter_seed` makes the backoff reproducible."""
+
+    resume: bool = False
+    resume_deadline_s: float = 30.0
+    max_resumes: int = 2
+    retry_attempts: int = 3
+    retry_base_s: float = 0.05
+    retry_max_s: float = 2.0
+    retry_jitter_seed: int = 0
+
+
+@dataclass
+class MembershipSettings:
+    """Elastic ring membership (membership/, api/failure.py): with `rejoin`
+    a quarantined shard that probes green for `rejoin_stable_s` seconds is
+    re-profiled, re-solved and delta-reloaded back into the ring;
+    `recovery_max_rounds` bounds the re-solve rounds of one failure
+    burst."""
+
+    rejoin: bool = False
+    rejoin_stable_s: float = 15.0
+    recovery_max_rounds: int = 3
+
+
+@dataclass
+class ChaosSettings:
+    """Seeded fault injection (resilience/chaos.py): DNET_CHAOS is a
+    comma-separated list of `point:kind:param` specs, DNET_CHAOS_SEED the
+    seed of every point's RNG."""
+
+    chaos: str = ""
+    chaos_seed: int = 0
+
+
+@dataclass
+class TopologySettings:
+    """The solver behind /v1/prepare_topology (parallel/solver.py):
+    `solver` auto | greedy | milp and the MILP's relative gap."""
+
+    solver: str = "auto"
+    mip_gap: float = 1e-4
+
+
 def kv_settings() -> KVSettings:
     return _from_env(KVSettings, "DNET_KV_")
 
@@ -294,6 +356,22 @@ def obs_settings() -> ObsSettings:
 
 def sched_settings() -> SchedSettings:
     return _from_env(SchedSettings, "DNET_")
+
+
+def resilience_settings() -> ResilienceSettings:
+    return _from_env(ResilienceSettings, "DNET_RESILIENCE_")
+
+
+def membership_settings() -> MembershipSettings:
+    return _from_env(MembershipSettings, "DNET_")
+
+
+def chaos_settings() -> ChaosSettings:
+    return _from_env(ChaosSettings, "DNET_")
+
+
+def topology_settings() -> TopologySettings:
+    return _from_env(TopologySettings, "DNET_TOPOLOGY_")
 
 
 def env_flag(name: str, default: bool = False) -> bool:

@@ -115,6 +115,11 @@ class DeviceInfo:
     t_comm: float = 0.0
     ici_bw: float = 0.0
 
+    def ici_adjacent(self, other: "DeviceInfo") -> bool:
+        """Same host and same slice: the solver may merge the two into one
+        node's mesh slice."""
+        return self.host == other.host and self.slice_id == other.slice_id
+
 
 @dataclass
 class LayerAssignment:
@@ -147,6 +152,9 @@ class TopologyInfo:
     assignments: List[LayerAssignment]
     solution: dict = field(default_factory=dict)
     epoch: int = 0  # minted when the API installs the topology
+
+    def assignment_for(self, instance: str) -> Optional[LayerAssignment]:
+        return next((a for a in self.assignments if a.instance == instance), None)
 
     def head_instance(self) -> str:
         """Owner of layer 0 (the first hop of a token frame)."""

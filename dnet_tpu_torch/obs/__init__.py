@@ -5,9 +5,9 @@ with the reference's names, types, HELP strings and label sets, so that a
 harness that reads the reference's exposition reads the port's unchanged.
 Two differences: `dnet_jit_compiles_total{fn}` counts the builds of the
 CUDA sources (obs/phases.py KERNEL_SOURCES; the port has no jax.jit), and
-the families of subsystems not ported yet (membership, resilience, chaos,
-the runtime sanitizer, the fleet, tensor parallelism) are exposed at zero,
-as on a reference node that never uses them.
+the families of subsystems not ported yet (the runtime sanitizer, the
+fleet, tensor parallelism) are exposed at zero, as on a reference node that
+never uses them.
 
 One process-global `MetricsRegistry` (Prometheus text exposition at
 `GET /metrics` on both the API and shard HTTP servers) and one
@@ -164,8 +164,8 @@ def _register_core(reg: MetricsRegistry) -> None:
         "dnet_prefix_refill_total",
         "Ring prefix-cache misses transparently re-sent as full prefills",
     )
-    # resilience (the reference's, not ported: at zero): retries, stream
-    # re-open, resume, and the chaos harness that exercises all of them
+    # resilience (resilience/): retries, stream re-open, resume, and the
+    # chaos harness that exercises all of them
     retries = reg.counter(
         "dnet_rpc_retries_total",
         "RPC attempts retried under the resilience backoff policy",
@@ -207,15 +207,14 @@ def _register_core(reg: MetricsRegistry) -> None:
         "Admission-queue wait before a slot was granted (ms)",
     )
     from dnet_tpu_torch.admission.reasons import DEADLINE_STAGES, REJECT_REASONS
+    from dnet_tpu_torch.membership.epoch import RECOVERY_OUTCOMES, STALE_EPOCH_KINDS
     from dnet_tpu_torch.obs.phases import (
-        INJECTION_POINTS,
-        RECOVERY_OUTCOMES,
         REPLICA_STATES,
         ROUTE_REASONS,
         RUNTIME_CHECK_CODES,
-        STALE_EPOCH_KINDS,
         ZOMBIE_THREAD_KINDS,
     )
+    from dnet_tpu_torch.resilience.chaos import INJECTION_POINTS
 
     rejected = reg.counter(
         "dnet_admit_rejected_total",
@@ -244,10 +243,9 @@ def _register_core(reg: MetricsRegistry) -> None:
         "Shard output-queue frames dropped on overflow (error surfaced "
         "upstream in their place)",
     )
-    # elastic ring membership (the reference's, not ported: at zero): epoch fence +
+    # elastic ring membership (membership/, api/failure.py): epoch fence +
     # recovery/rejoin accounting.  Kind/outcome label sets are DECLARED in
-    # membership/epoch.py (a leaf module, like admission/reasons.py) and
-    #.
+    # membership/epoch.py (a leaf module, like admission/reasons.py).
     reg.gauge(
         "dnet_topology_epoch",
         "Ring topology epoch this process holds (API: minted; shard: "

@@ -129,15 +129,8 @@ EVENT_NAMES = (
 )
 
 # Label sets of families whose subsystems are not ported; the values are
-# the reference's (membership/epoch.py, resilience/chaos.py,
-# analysis/runtime/domains.py, fleet/states.py), so the exposition matches.
-STALE_EPOCH_KINDS = ("frame", "token_cb", "reset_cache", "fleet_route")
-RECOVERY_OUTCOMES = ("recovered", "failed", "no_capacity")
-INJECTION_POINTS = (
-    "send_activation", "token_cb", "health_check", "shard_compute", "admit",
-    "zombie_frame", "rejoin", "wire_encode", "wire_decode", "fleet_dispatch",
-    "update_topology",
-)
+# the reference's (analysis/runtime/domains.py, fleet/states.py), so the
+# exposition matches.
 RUNTIME_CHECK_CODES = ("DS001", "DS002", "DS003", "DS004", "DS005", "DS006")
 ZOMBIE_THREAD_KINDS = ("shard-compute", "tui")
 REPLICA_STATES = ("active", "draining", "quarantined", "dead")

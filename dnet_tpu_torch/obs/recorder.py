@@ -35,7 +35,7 @@ from collections import OrderedDict
 from typing import Iterator, List, Optional
 
 # Resume replays run under a fresh wire nonce `rid#rN`
-# (the reference's resilience/checkpoint.py; resume is not ported yet) so shard-side
+# (resilience/checkpoint.py) so shard-side
 # dedup and stream identity stay per-segment — but the STORY is one
 # request.  The recorder aliases every segment nonce back to the base rid
 # at write time, so `/v1/debug/timeline/{rid}` (and the trace export)

@@ -9,6 +9,13 @@ idle streams are swept.  The channel factories are injectable, so the
 adapter runs over in-process fakes in tests.  Ingress counts a frame's
 payload bytes (dnet_transport_rx_bytes_total, dnet_wire_bytes_total{dir=
 "rx"}) and records `transport_recv`; egress records `shard_tx`.
+
+Ingress is the shard's epoch fence (membership/epoch.py): a frame minted
+under another topology epoch than the one this shard holds is refused
+(NACK) and counted in dnet_stale_epoch_rejected_total{kind="frame"}, never
+computed or relayed; the chaos point `zombie_frame` marks a frame stale on
+purpose.  Token callbacks run under the `send_token` retry policy with the
+chaos point `token_cb` inside the retried call.
 """
 
 from __future__ import annotations
@@ -23,9 +30,11 @@ import numpy as np
 
 from dnet_tpu_torch.compression.wire import codec_name
 from dnet_tpu_torch.core.types import ActivationMessage
+from dnet_tpu_torch.membership import epoch as epoch_fence
 from dnet_tpu_torch.obs import get_recorder, metric
+from dnet_tpu_torch.resilience import chaos
+from dnet_tpu_torch.resilience.policy import call_with_retry
 from dnet_tpu_torch.transport.protocol import ActivationFrame, TokenPayload
-from dnet_tpu_torch.transport.retry import call_with_retry
 from dnet_tpu_torch.transport.stream_manager import StreamManager
 from dnet_tpu_torch.utils.logger import get_logger
 from dnet_tpu_torch.utils.serialization import tensor_to_bytes
@@ -132,6 +141,18 @@ class RingAdapter:
         _RX_BYTES.inc(n_bytes)
         _WIRE_BYTES.labels(dir="rx").inc(n_bytes)
         get_recorder().span(frame.nonce, "transport_recv", 0.0, bytes=n_bytes, seq=frame.seq, t_sent=frame.t_sent)
+        # the epoch fence: a frame from a fenced-out sender (or one the
+        # zombie_frame chaos point marks) is refused before compute or relay
+        held = self.runtime.epoch
+        stale = epoch_fence.is_stale(held, frame.epoch)
+        try:
+            await chaos.inject_async("zombie_frame")
+        except chaos.ChaosError:
+            stale = True
+        if stale:
+            err = epoch_fence.reject("frame", held, frame.epoch)
+            log.warning("fenced frame %s seq=%d: %s", frame.nonce, frame.seq, err)
+            return False, str(err)
         compute = self.runtime.compute
         if compute is not None and compute.wants(frame.layer_id):
             key = (frame.nonce, frame.seq, frame.layer_id)
@@ -215,7 +236,18 @@ class RingAdapter:
             error=msg.error,
             epoch=msg.epoch,
         )
-        await call_with_retry(lambda: client.send_token(payload), method="send_token")
+        await self._cb_send(client, payload)
+
+    async def _cb_send(self, client, payload: TokenPayload):
+        """One token callback under the send_token retry policy; the chaos
+        point sits inside the retried call, so an injected fault is absorbed
+        as a real one would be."""
+
+        async def attempt():
+            await chaos.inject_async("token_cb")
+            return await client.send_token(payload)
+
+        return await call_with_retry(attempt, method="send_token")
 
     async def _send_error_token(self, msg: ActivationMessage, step: int, error: str) -> None:
         client = self._cb_client(msg.callback_url)
@@ -223,7 +255,7 @@ class RingAdapter:
             return
         payload = TokenPayload(nonce=msg.nonce, step=step, token_id=-1, error=error, epoch=msg.epoch)
         try:
-            await call_with_retry(lambda: client.send_token(payload), method="send_token")
+            await self._cb_send(client, payload)
         except Exception:
             log.exception("error-token delivery failed for %s", msg.nonce)
 

@@ -7,7 +7,8 @@ the engine's power-of-two prefill buckets.  Hidden hops leave through one
 encode seam, `_encode_activation`: the lossless cast to the wire dtype, or
 the qsparse8/sparse_v1 codec, whose column norms, gather and (on the
 receiving shard) dequant + scatter run in the CUDA kernels of
-compression/ops.py.
+compression/ops.py.  The chaos points `wire_encode` and `wire_decode` sit
+at the encode and decode seams, as at the reference's synchronous ones.
 
 This slice serves llama-family checkpoints (gpt_oss's paired sliding/full
 layers are not ported to shards), one contiguous layer range per shard, one
@@ -43,6 +44,7 @@ from dnet_tpu_torch.config import transport_settings, wire_settings
 from dnet_tpu_torch.core.engine import LocalEngine, bucket_length
 from dnet_tpu_torch.core.kvcache import resolve_kv_bits
 from dnet_tpu_torch.core.types import ActivationMessage
+from dnet_tpu_torch.resilience import chaos
 from dnet_tpu_torch.utils.serialization import bytes_to_device, tensor_to_bytes
 
 
@@ -212,6 +214,7 @@ class ShardCompute:
         compressed frame uploads only its compact buffers and is rebuilt by
         the dequant + scatter kernel."""
         eng = self.engine
+        chaos.inject("wire_decode")
         t0 = time.perf_counter()
         if is_compressed_dtype(msg.dtype):
             out = decompress_tensor_device(msg.data, msg.dtype, msg.shape, eng.device)
@@ -319,6 +322,7 @@ class ShardCompute:
             # codec's alone (its read-back would wait for them anyway)
             torch.cuda.synchronize(x.device)
         t0 = time.perf_counter()
+        chaos.inject("wire_encode")
         if frac > 0 or qbits:
             payload, dtype, shape = compress_tensor(
                 x, frac, wire_dtype=self.wire_dtype, quant_bits=qbits, group_size=self._wire_gs,

@@ -2,15 +2,21 @@
 
 Counterpart of dnet_tpu/shard/grpc_servicer.py: the bidi StreamActivations
 with one ACK per frame, unary SendActivation, HealthCheck (assigned layers
-and queue depth) and ResetCache.
+and queue depth), ResetCache (fenced by the topology epoch: a reset minted
+under another epoch raises, counted as kind "reset_cache") and the
+MeasureLatency echo.
 """
 
 from __future__ import annotations
 
+import time
+
+from dnet_tpu_torch.membership import epoch as epoch_fence
 from dnet_tpu_torch.transport.protocol import (
     ActivationFrame,
     Empty,
     HealthInfo,
+    LatencyProbe,
     ResetCacheRequest,
     StreamAck,
 )
@@ -44,5 +50,14 @@ class ShardRingServicer:
         )
 
     async def reset_cache(self, request: ResetCacheRequest, context) -> Empty:
+        # a reset from a dead topology must not clear the live ring's
+        # sessions; epoch 0 is the unfenced admin reset
+        held = self.runtime.epoch
+        if epoch_fence.is_stale(held, request.epoch):
+            raise epoch_fence.reject("reset_cache", held, request.epoch)
         await self.adapter.reset_cache(request.nonce)
         return Empty()
+
+    async def measure_latency(self, probe: LatencyProbe, context) -> LatencyProbe:
+        # echo the payload; `t_remote` makes the probe a clock-offset sample
+        return LatencyProbe(t_sent=probe.t_sent, payload=probe.payload, t_remote=time.time())

@@ -1,7 +1,12 @@
 """Shard control-plane HTTP server (aiohttp).
 
 Counterpart of dnet_tpu/shard/http.py, trimmed to /load_model,
-/unload_model, /health, the observability routes (/metrics, this
+/update_topology (a delta reload's cheap half: the new epoch and next hop
+for a shard whose weights stay; 409 when it cannot prove it holds the
+model and layers asked for, and the API then loads it in full),
+/unload_model, /profile (this shard's device microbenchmarks,
+parallel/profiler.py), /measure_latency (median gRPC echo times to peers),
+/health (with the armed chaos spec, if any), the observability routes (/metrics, this
 process's Prometheus exposition; /v1/debug/timeline/{rid}, its spans of
 one request; /v1/debug/events, its wide-event ring, stamped with `t_wall`
 so that the API's fetch doubles as a clock probe) and /cleanup_repacked
@@ -25,12 +30,14 @@ from pathlib import Path
 from typing import List, Optional
 
 from aiohttp import web
-from pydantic import BaseModel, ValidationError
+from pydantic import BaseModel, Field, ValidationError
 
 from dnet_tpu_torch.config import shard_settings
 from dnet_tpu_torch.kernels import launch_counts
 from dnet_tpu_torch.obs.events import get_event_ring
+from dnet_tpu_torch.obs.clock import ClockSync
 from dnet_tpu_torch.obs.http import find_timeline, metrics_response
+from dnet_tpu_torch.resilience.chaos import armed_summary
 from dnet_tpu_torch.shard.compute import ShardCapabilityError
 from dnet_tpu_torch.utils.logger import get_logger
 
@@ -68,6 +75,22 @@ class ShardLoadModelRequest(BaseModel):
     epoch: int = 0
 
 
+class UpdateTopologyRequest(BaseModel):
+    """A delta reload's body (the reference's): the shard checks that it
+    holds `model_path` and `layers`, then takes `epoch` and `next_node`."""
+
+    model_path: str
+    layers: List[int]
+    epoch: int = 0
+    next_node: Optional[NextNode] = None
+
+
+class MeasureLatencyRequest(BaseModel):
+    peers: List[str]  # "host:grpc_port"
+    payload_sizes: List[int] = Field(default_factory=lambda: [1024, 65536, 1048576])
+    rounds: int = 3
+
+
 def _error(status: int, message: str) -> web.Response:
     return web.json_response({"status": "error", "message": message}, status=status)
 
@@ -81,7 +104,10 @@ class ShardHTTPServer:
         self.app.router.add_get("/v1/debug/timeline/{rid}", self.debug_timeline)
         self.app.router.add_get("/v1/debug/events", self.debug_events)
         self.app.router.add_post("/load_model", self.load_model)
+        self.app.router.add_post("/update_topology", self.update_topology)
         self.app.router.add_post("/unload_model", self.unload_model)
+        self.app.router.add_post("/profile", self.profile)
+        self.app.router.add_post("/measure_latency", self.measure_latency)
         self.app.router.add_post("/cleanup_repacked", self.cleanup_repacked)
         self._runner: Optional[web.AppRunner] = None
 
@@ -134,6 +160,10 @@ class ShardHTTPServer:
             "kernels": launch_counts(),
             "compute": dict(rt.compute_stats),
         }
+        chaos = armed_summary()
+        if chaos is not None:
+            # an injected fault must never pass for a real one
+            body["chaos"] = chaos
         if compute is not None:
             body["sessions"] = len(compute.engine.sessions)
             body["wire_codec"] = compute.wire_codec
@@ -159,9 +189,81 @@ class ShardHTTPServer:
             return _error(500, str(exc))
         return web.json_response({"status": "ok", "load_time_s": time.perf_counter() - t0})
 
+    async def update_topology(self, request: web.Request) -> web.Response:
+        try:
+            req = UpdateTopologyRequest.model_validate(await request.json())
+        except (json.JSONDecodeError, ValidationError) as exc:
+            return _error(400, f"invalid request: {exc}")
+        try:
+            await self.shard.update_topology(req)
+        except ValueError as exc:
+            # holds nothing, another model or other layers: refuse, and the
+            # API loads this shard in full
+            return _error(409, str(exc))
+        except Exception as exc:
+            log.exception("shard update_topology failed")
+            return _error(500, str(exc))
+        return web.json_response({"status": "ok", "epoch": self.shard.runtime.epoch})
+
     async def unload_model(self, request: web.Request) -> web.Response:
         await self.shard.unload_model()
         return web.json_response({"status": "ok"})
+
+    async def profile(self, request: web.Request) -> web.Response:
+        """This shard's device profile, measured in this process off the
+        event loop (parallel/profiler.py); a failed probe answers 500."""
+        from dnet_tpu_torch.parallel.profiler import profile_device
+
+        try:
+            result = await asyncio.get_running_loop().run_in_executor(
+                None, profile_device, self.shard.runtime.device
+            )
+        except Exception as exc:
+            log.exception("device profile failed")
+            return _error(500, f"profile failed: {exc}")
+        return web.json_response({"status": "ok", "profile": result})
+
+    async def measure_latency(self, request: web.Request) -> web.Response:
+        """Echo each peer over gRPC at each payload size; the median round
+        trip (s) per (peer, size), and the clock offsets the same probes
+        give."""
+        try:
+            req = MeasureLatencyRequest.model_validate(await request.json())
+        except (json.JSONDecodeError, ValidationError) as exc:
+            return _error(400, f"invalid request: {exc}")
+        from dnet_tpu_torch.transport.grpc_transport import RingClient
+        from dnet_tpu_torch.transport.protocol import LatencyProbe
+
+        results = {}
+        clocks = ClockSync()
+        for peer in req.peers:
+            client = RingClient(peer)
+            per_size = {}
+            try:
+                for size in req.payload_sizes:
+                    rtts = []
+                    payload = b"\x00" * size
+                    for _ in range(req.rounds):
+                        t0, t0_wall = time.perf_counter(), time.time()
+                        try:
+                            echo = await client.measure_latency(LatencyProbe(t_sent=t0_wall, payload=payload))
+                        except Exception as exc:
+                            log.warning("latency probe to %s failed: %s", peer, exc)
+                            continue
+                        rtts.append(time.perf_counter() - t0)
+                        if echo.t_remote:
+                            clocks.update(peer, t0_wall, echo.t_remote, time.time())
+                    if rtts:
+                        per_size[str(size)] = sorted(rtts)[len(rtts) // 2]
+            finally:
+                await client.close()
+            results[peer] = per_size
+        offsets = {
+            peer: {"offset_s": est.offset_s, "rtt_s": est.rtt_s}
+            for peer in req.peers
+            if (est := clocks.estimate(peer)) is not None
+        }
+        return web.json_response({"status": "ok", "latency": results, "clock_offsets": offsets})
 
     async def cleanup_repacked(self, request: web.Request) -> web.Response:
         """Delete the repack cache: the loaded model's subtree, else the

@@ -8,7 +8,10 @@ a payload-free error final, and idle KV sessions expire by TTL.  Each
 frame's compute is a `shard_compute` span on the request's timeline (keyed
 by its nonce), and a drop counts dnet_deadline_exceeded_total{stage=
 "shard_dequeue"} with a `shed` event and a `deadline_drop` span, as the
-reference's.
+reference's.  The chaos point `shard_compute` sits before each frame's
+compute: an injected fault takes the path a real compute failure takes
+(an error final upstream).  The topology epoch is pinned at load or by a
+delta update (`set_epoch`) and published as dnet_topology_epoch.
 """
 
 from __future__ import annotations
@@ -23,8 +26,10 @@ from typing import Optional
 import torch
 
 from dnet_tpu_torch.core.types import ActivationMessage
+from dnet_tpu_torch.membership import set_epoch_gauge
 from dnet_tpu_torch.obs import get_recorder, metric
 from dnet_tpu_torch.obs.events import bind, log_event
+from dnet_tpu_torch.resilience import chaos
 from dnet_tpu_torch.shard.compute import ShardCompute, refuse_model, refuse_unsupported
 from dnet_tpu_torch.utils.logger import get_logger
 
@@ -96,11 +101,22 @@ class ShardRuntime:
             kwargs.setdefault("device", self.device)
             self.compute = ShardCompute(model_dir, layers, **kwargs)
             self.model_path = str(model_dir)
-            self.epoch = int(epoch)
+            self._set_epoch_locked(epoch)
             log.info(
                 "shard %s loaded layers %d..%d (epoch %d) in %.1fs",
                 self.shard_id, min(layers), max(layers), self.epoch, time.perf_counter() - t0,
             )
+
+    def set_epoch(self, epoch: int) -> None:
+        """Pin the topology epoch this shard serves under (a delta update)
+        and publish it.  Takes the model lock: an epoch write must not race
+        a full reload pinning its own."""
+        with self._model_lock:
+            self._set_epoch_locked(epoch)
+
+    def _set_epoch_locked(self, epoch: int) -> None:
+        self.epoch = int(epoch)
+        set_epoch_gauge(self.epoch)
 
     def unload_model_core(self) -> None:
         with self._model_lock:
@@ -109,10 +125,15 @@ class ShardRuntime:
                 self.compute.engine.close()
             self.compute = None
             self.model_path = ""
-            self.epoch = 0
+            self._set_epoch_locked(0)
             gc.collect()
             if torch.cuda.is_available():
                 torch.cuda.empty_cache()
+
+    def drain_ingress(self) -> None:
+        """Drop every queued frame (a delta update: frames minted under the
+        old epoch must not burn compute)."""
+        self._drain_queue()
 
     def _drain_queue(self) -> None:
         try:
@@ -160,6 +181,7 @@ class ShardRuntime:
             return
         try:
             t0 = time.perf_counter()
+            chaos.inject("shard_compute")
             out = compute.process(msg)
             dt_ms = (time.perf_counter() - t0) * 1e3
             self.compute_stats["frames"] += 1

@@ -1,7 +1,10 @@
 """Shard-node process wiring: ShardRuntime + RingAdapter + gRPC + HTTP.
 
 Counterpart of dnet_tpu/shard/server.py for hostfile rings (no UDP
-discovery, TUI or delta topology updates).  `serve_async` runs until
+discovery or TUI).  A malformed DNET_CHAOS stops the shard at start
+(resilience/chaos.py `validate_startup`).  `update_topology` is a delta
+reload's shard half: the weights stay, the per-request state goes, the new
+epoch is pinned and the next hop rewired.  `serve_async` runs until
 SIGINT/SIGTERM and shuts down in order: HTTP, gRPC, adapter, runtime.
 """
 
@@ -14,6 +17,7 @@ import socket
 
 from dnet_tpu_torch.api.model_manager import resolve_model_dir
 from dnet_tpu_torch.config import shard_settings, transport_settings
+from dnet_tpu_torch.resilience import chaos
 from dnet_tpu_torch.shard.adapter import RingAdapter
 from dnet_tpu_torch.shard.grpc_servicer import ShardRingServicer
 from dnet_tpu_torch.shard.http import ShardHTTPServer, ShardLoadModelRequest
@@ -62,6 +66,35 @@ class Shard:
             f"{req.next_node.host}:{req.next_node.grpc_port}" if req.next_node else ""
         )
 
+    async def update_topology(self, req) -> None:
+        """Delta reconfiguration: this shard's load body is unchanged in the
+        new topology, so it keeps its weights and (1) proves it holds the
+        model and layers the API expects, (2) drops every per-request state
+        (KV sessions, queued frames, streams, dedup keys), (3) pins the new
+        epoch, (4) rewires its next hop.  Raises ValueError when the proof
+        fails (the HTTP layer answers 409 and the API loads in full)."""
+        await chaos.inject_async("update_topology")
+        compute = self.runtime.compute
+        if compute is None:
+            raise ValueError("no model loaded; cannot delta-update")
+        model_dir = resolve_model_dir(req.model_path, self.models_dir)
+        if model_dir is None or str(model_dir) != self.runtime.model_path:
+            raise ValueError(
+                f"loaded model {self.runtime.model_path!r} does not match requested {req.model_path!r}"
+            )
+        if sorted(compute.layers) != sorted(req.layers):
+            raise ValueError(f"loaded layers {sorted(compute.layers)} do not match requested {sorted(req.layers)}")
+        await self.adapter.reset_topology()
+        self.runtime.drain_ingress()
+        compute.reset("")
+        # off the loop: set_epoch takes the model lock, which a concurrent
+        # full reload holds for its whole weight read
+        await asyncio.get_running_loop().run_in_executor(None, self.runtime.set_epoch, req.epoch)
+        next_addr = f"{req.next_node.host}:{req.next_node.grpc_port}" if req.next_node else ""
+        self.adapter.configure_topology(next_addr)
+        log.info("shard %s delta-updated to epoch %d (next=%s, weights kept)", self.shard_id, req.epoch,
+                 next_addr or "<none>")
+
     async def unload_model(self) -> None:
         await self.adapter.reset_topology()
         await asyncio.get_running_loop().run_in_executor(None, self.runtime.unload_model_core)
@@ -70,6 +103,8 @@ class Shard:
 async def serve_async(args) -> None:
     from dnet_tpu_torch.transport.grpc_transport import ring_service_handlers, start_grpc_server
 
+    # a malformed DNET_CHAOS stops the shard here, never mid-request
+    chaos.validate_startup(role="shard")
     t = transport_settings()
     shard_id = args.shard_name or f"shard-{socket.gethostname()}-{args.grpc_port}"
     runtime = ShardRuntime(shard_id, queue_size=args.queue_size, device=args.device)

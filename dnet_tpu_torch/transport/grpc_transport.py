@@ -2,8 +2,12 @@
 
 Counterpart of dnet_tpu/transport/grpc_transport.py: 64 MiB messages,
 1024 streams, conservative keepalive, BDP probe off, no proxy.
-`RingClient` streams frames to a peer shard and resets a nonce's KV there;
-`ApiCallbackClient` carries a shard's sampled token back to the API.
+`RingClient` streams frames to a peer shard, resets a nonce's KV there,
+probes its health (the failure monitor) and echoes latency probes (the
+profiler); `ApiCallbackClient` carries a shard's sampled token back to the
+API.  Unary RPCs retry transient failures under their class's policy
+(resilience/policy.py); `health_check`'s class is pinned to one attempt,
+because the failure monitor's threshold is the probe's retry budget.
 """
 
 from __future__ import annotations
@@ -12,7 +16,7 @@ import grpc
 import grpc.aio as aio_grpc
 
 from dnet_tpu_torch.transport import protocol as proto
-from dnet_tpu_torch.transport.retry import call_with_retry
+from dnet_tpu_torch.resilience.policy import call_with_retry
 from dnet_tpu_torch.utils.logger import get_logger
 
 log = get_logger()
@@ -52,14 +56,30 @@ class RingClient:
             request_serializer=_serialize,
             response_deserializer=proto.StreamAck.from_bytes,
         )
+        self._health = self.channel.unary_unary(
+            proto.M_HEALTH_CHECK,
+            request_serializer=_serialize,
+            response_deserializer=proto.HealthInfo.from_bytes,
+        )
         self._reset = self.channel.unary_unary(
             proto.M_RESET_CACHE,
             request_serializer=_serialize,
             response_deserializer=proto.Empty.from_bytes,
         )
+        self._latency = self.channel.unary_unary(
+            proto.M_MEASURE_LATENCY,
+            request_serializer=_serialize,
+            response_deserializer=proto.LatencyProbe.from_bytes,
+        )
 
     def open_stream(self):
         return self._stream_stream()
+
+    async def health_check(self, timeout: float = 5.0) -> proto.HealthInfo:
+        return await call_with_retry(lambda: self._health(proto.Empty(), timeout=timeout), method="health_check")
+
+    async def measure_latency(self, probe: proto.LatencyProbe, timeout: float = 30.0) -> proto.LatencyProbe:
+        return await call_with_retry(lambda: self._latency(probe, timeout=timeout), method="measure_latency")
 
     async def reset_cache(self, nonce: str = "", timeout: float = 10.0, epoch: int = 0):
         return await call_with_retry(
@@ -95,11 +115,12 @@ class ApiCallbackClient:
 
 def ring_service_handlers(servicer) -> grpc.GenericRpcHandler:
     """servicer provides stream_activations (an async generator),
-    send_activation, health_check and reset_cache."""
+    send_activation, health_check, reset_cache and measure_latency."""
     unary = {
         "SendActivation": (servicer.send_activation, proto.ActivationFrame),
         "HealthCheck": (servicer.health_check, proto.Empty),
         "ResetCache": (servicer.reset_cache, proto.ResetCacheRequest),
+        "MeasureLatency": (servicer.measure_latency, proto.LatencyProbe),
     }
     handlers = {
         name: grpc.unary_unary_rpc_method_handler(

@@ -19,7 +19,9 @@ from dnet_tpu_torch.core.types import ActivationMessage, DecodingParams, TokenRe
 # gRPC method paths
 RING_SERVICE = "dnet.DnetRing"
 M_STREAM_ACTIVATIONS = f"/{RING_SERVICE}/StreamActivations"
+M_HEALTH_CHECK = f"/{RING_SERVICE}/HealthCheck"
 M_RESET_CACHE = f"/{RING_SERVICE}/ResetCache"
+M_MEASURE_LATENCY = f"/{RING_SERVICE}/MeasureLatency"
 
 API_SERVICE = "dnet.ShardApi"
 M_SEND_TOKEN = f"/{API_SERVICE}/SendToken"
@@ -158,3 +160,14 @@ class ResetCacheRequest(_Packed):
 @dataclass
 class Empty(_Packed):
     ok: bool = True
+
+
+@dataclass
+class LatencyProbe(_Packed):
+    """Echo RPC for link profiling: the echo stamps `t_remote` (the
+    server's wall clock while serving), so one probe is also a clock-offset
+    sample (obs/clock.py)."""
+
+    t_sent: float
+    payload: bytes = b""
+    t_remote: float = 0.0

@@ -3,8 +3,10 @@
 Counterpart of dnet_tpu/transport/stream_manager.py: a stream opens lazily
 per nonce with a background ACK reader; a backpressure ACK pauses the
 stream for a backoff; a write failure drops the stream and re-sends the
-frame on a fresh one under the retry policy (the receiving shard dedups on
-(nonce, seq, layer_id)); idle streams are swept.  The channel layer is
+frame on a fresh one under the `send_activation` retry policy
+(resilience/policy.py; each re-open counts dnet_stream_reopens_total, and
+the receiving shard dedups on (nonce, seq, layer_id)); idle streams are
+swept.  The chaos point `send_activation` sits before each write.  The channel layer is
 injectable, so tests pass fakes.  Each frame written counts its payload
 bytes (dnet_transport_tx_bytes_total, dnet_wire_bytes_total{dir="tx"})
 and itself (dnet_transport_tx_frames_total).
@@ -19,7 +21,8 @@ from typing import Callable, Dict, Optional
 
 from dnet_tpu_torch.obs import metric
 from dnet_tpu_torch.transport.protocol import ActivationFrame, StreamAck
-from dnet_tpu_torch.transport.retry import call_with_retry
+from dnet_tpu_torch.resilience import chaos
+from dnet_tpu_torch.resilience.policy import call_with_retry
 from dnet_tpu_torch.utils.logger import get_logger
 
 log = get_logger()
@@ -27,6 +30,7 @@ log = get_logger()
 _TX_BYTES = metric("dnet_transport_tx_bytes_total")
 _TX_FRAMES = metric("dnet_transport_tx_frames_total")
 _WIRE_BYTES = metric("dnet_wire_bytes_total")
+_REOPENS = metric("dnet_stream_reopens_total")
 
 
 @dataclass
@@ -76,6 +80,7 @@ class StreamManager:
             while ctx.disabled:
                 await asyncio.sleep(max(ctx.disabled_until - time.monotonic(), 0.01))
             try:
+                await chaos.inject_async("send_activation")
                 await ctx.call.write(frame)
             except Exception:
                 # dead stream: drop it so the retry opens a fresh one
@@ -83,7 +88,7 @@ class StreamManager:
                 raise
             return ctx
 
-        ctx = await call_with_retry(_attempt, method="send_activation")
+        ctx = await call_with_retry(_attempt, method="send_activation", on_retry=lambda *_: _REOPENS.inc())
         ctx.last_used = time.monotonic()
         n_bytes = len(frame.payload or b"")
         _TX_BYTES.inc(n_bytes)

@@ -56,6 +56,41 @@ def save_safetensors(path: Path, tensors: Mapping[str, torch.Tensor]) -> None:
                 f.write(t.reshape(-1).view(torch.uint8).numpy().tobytes())
 
 
+_DTYPE_SIZES = {
+    "F64": 8, "F32": 4, "F16": 2, "BF16": 2,
+    "I64": 8, "I32": 4, "I16": 2, "I8": 1, "U8": 1, "BOOL": 1,
+    "F8_E4M3": 1, "F8_E5M2": 1, "U32": 4, "U16": 2, "U64": 8,
+}
+
+
+def dtype_size(dtype: str) -> int:
+    """Bytes of one element of a safetensors dtype tag."""
+    return _DTYPE_SIZES[dtype.upper()]
+
+
+def tensor_headers(model_dir: Union[str, Path]) -> Dict[str, tuple]:
+    """name -> (shape, dtype tag) of every tensor in the checkpoint, read
+    from the safetensors headers alone (no mapping, no weight read): the
+    solver's cost model."""
+    model_dir = Path(model_dir)
+    index = model_dir / "model.safetensors.index.json"
+    if index.is_file():
+        files = sorted({model_dir / f for f in json.loads(index.read_text())["weight_map"].values()})
+    else:
+        files = sorted(model_dir.glob("*.safetensors"))
+    if not files:
+        raise FileNotFoundError(f"no .safetensors in {model_dir}")
+    out: Dict[str, tuple] = {}
+    for path in files:
+        with open(path, "rb") as f:
+            (n,) = struct.unpack("<Q", f.read(8))
+            header = json.loads(f.read(n))
+        for name, meta in header.items():
+            if name != "__metadata__":
+                out[name] = (list(meta["shape"]), meta["dtype"])
+    return out
+
+
 class Checkpoint:
     """An HF-format model directory: config.json + *.safetensors [+ index]."""
 

@@ -123,7 +123,11 @@ def test_no_jax_or_reference_imports_in_source():
                    "ops/attention.py", "core/kvcache.py", "config.py", "ops/quant.py", "api/catalog.py",
                    "admission/controller.py", "admission/reasons.py", "obs/__init__.py", "obs/metrics.py",
                    "obs/phases.py", "obs/recorder.py", "obs/slo.py", "obs/critical_path.py", "obs/events.py",
-                   "obs/trace.py", "obs/http.py", "obs/jit.py", "obs/clock.py", "obs/federation.py"):
+                   "obs/trace.py", "obs/http.py", "obs/jit.py", "obs/clock.py", "obs/federation.py",
+                   "resilience/__init__.py", "resilience/chaos.py", "resilience/policy.py",
+                   "resilience/checkpoint.py", "membership/__init__.py", "membership/epoch.py",
+                   "membership/delta.py", "membership/quarantine.py", "parallel/profiler.py",
+                   "parallel/solver.py", "api/failure.py"):
         assert PORT_PKG / module in files
     offenders = [
         f"{f.relative_to(ROOT)}: {m.group(0).strip()}"

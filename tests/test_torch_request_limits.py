@@ -3,9 +3,9 @@ dnet_tpu's on the same tiny checkpoint.  A request already past its
 deadline is shed with 429 and Retry-After, one whose deadline passes
 between decode steps ends with 504 (or an in-band error event once the
 stream has started), `deadline_s <= 0` is an invalid request, and
-`/v1/load_model {"delta": true}` is refused (400 on a single process, 422
-on a port ring, whose delta path is not ported).  Bodies must match byte
-for byte once `id` and `created` are normalized."""
+`/v1/load_model {"delta": true}` is refused with 400 on a single process
+and served on a ring as the reference's ring serves it.  Bodies must match
+byte for byte once `id` and `created` are normalized."""
 
 import asyncio
 import json
@@ -192,25 +192,86 @@ def test_delta_reload_refused_on_a_single_process(tiny_llama_dir, no_warmup):
 
 
 def test_delta_reload_refused_on_a_port_ring(tiny_llama_dir):
-    from dnet_tpu_torch.api.http import ApiHTTPServer
-    from dnet_tpu_torch.api.inference import InferenceManager
-    from dnet_tpu_torch.api.ring_manager import RingModelManager
+    """A delta reload on a ring of two port shards, driven by the port's
+    API stack and by the reference's: after a full load and a re-installed
+    topology, `/v1/load_model {"delta": true}` loads no shard again (each
+    takes /update_topology and keeps its engine), every shard holds the
+    new epoch (+1), and both APIs answer the same statuses and keys."""
+    from dnet_tpu_torch.shard.adapter import RingAdapter
+    from dnet_tpu_torch.shard.http import ShardHTTPServer
+    from dnet_tpu_torch.shard.runtime import ShardRuntime
+    from dnet_tpu_torch.shard.server import Shard
+    from tests.fakes.transport import FakeCallbackClient, FakeRingClient
+
+    class Peers:
+        def __init__(self, devices):
+            self.devices = devices
+
+        def peers(self):
+            return self.devices
+
+    async def api_run(pkg, shards, servers):
+        import importlib
+
+        mod = lambda m: importlib.import_module(f"{pkg}.{m}")  # noqa: E731
+        DeviceInfo = mod("core.types").DeviceInfo
+        devices = [DeviceInfo(instance=name, host="127.0.0.1", http_port=srv.port, grpc_port=1 + i)
+                   for i, (name, srv) in enumerate(servers)]
+        inference = mod("api.inference").InferenceManager(adapter=None)
+        cluster = mod("api.cluster").ClusterManager(Peers(devices))
+        manager = mod("api.ring_manager").RingModelManager(inference, cluster, api_callback_addr="127.0.0.1:9",
+                                                           max_seq=64, param_dtype="float32")
+        client = TestClient(TestServer(mod("api.http").ApiHTTPServer(inference, manager, cluster).app))
+        await client.start_server()
+        out = []
+        try:
+            topo = {"model": str(tiny_llama_dir), "assignments": [{"instance": "s0", "layers": [0, 1]},
+                                                                  {"instance": "s1", "layers": [2, 3]}]}
+            for route, body in (("/v1/prepare_topology_manual", topo), ("/v1/load_model", {"model": topo["model"]}),
+                                ("/v1/prepare_topology_manual", topo),
+                                ("/v1/load_model", {"model": topo["model"], "delta": True})):
+                engines = [rt.compute.engine if rt.compute else None for rt, _ in shards]
+                r = await client.post(route, json=body)
+                reply = await r.json()
+                kept = [rt.compute is not None and rt.compute.engine is e for (rt, _), e in zip(shards, engines)]
+                out.append((route, r.status, sorted(reply), kept, [rt.epoch for rt, _ in shards]))
+        finally:
+            if inference.adapter is not None:
+                await inference.adapter.shutdown()
+            await client.close()
+        return out
 
     async def go():
-        inference = InferenceManager(adapter=None)
-        cluster = types.SimpleNamespace(current_topology=None)
-        app = ApiHTTPServer(inference, RingModelManager(inference, cluster), cluster_manager=cluster).app
-        client = TestClient(TestServer(app))
-        await client.start_server()
+        shards, servers = [], []
+        for name in ("s0", "s1"):
+            rt = ShardRuntime(name, device="cpu")
+            adapter = RingAdapter(rt, ring_client_factory=FakeRingClient, callback_client_factory=FakeCallbackClient)
+            shard = Shard(name, rt, adapter)
+            await shard.start()
+            srv = TestServer(ShardHTTPServer(shard).app)
+            await srv.start_server()
+            shards.append((rt, shard))
+            servers.append((name, srv))
         try:
-            r = await client.post("/v1/load_model", json={"model": str(tiny_llama_dir), "delta": True})
-            return r.status, await r.json()
+            runs = []
+            for pkg in ("dnet_tpu", "dnet_tpu_torch"):
+                for _, shard in shards:  # each run starts from empty shards
+                    await shard.unload_model()
+                runs.append(await api_run(pkg, shards, servers))
+            return runs
         finally:
-            await client.close()
+            for (_, shard), (_, srv) in zip(shards, servers):
+                await srv.close()
+                await shard.stop()
 
-    status, body = asyncio.run(go())
-    assert status == 422
-    assert body["error"]["type"] == "invalid_request_error" and "delta reload" in body["error"]["message"]
+    ref, port = asyncio.run(go())
+    # the epochs differ between the runs (each API mints its own); the rest
+    # must not, and each run's delta load bumps the shards' epoch by one
+    assert [row[:4] for row in port] == [row[:4] for row in ref]
+    assert [row[1] for row in port] == [200] * 4
+    (_, _, _, _, loaded), (_, _, _, kept, after) = port[1], port[3]
+    assert kept == [True, True]  # no shard loaded its weights again
+    assert after == [e + 1 for e in loaded]
 
 
 def test_ring_adapter_stamps_the_deadline_into_frames():
