@@ -132,7 +132,9 @@ over gRPC, the qsparse8 hop codec):
                each shard are read after a warm-up request.  The API's
                /v1/cluster/metrics must read dnet_federation_scrape_ok 1 for
                both shards, and on the qsparse8 pass s0's /metrics a nonzero
-               dnet_wire_bytes_total{dir="tx"}.
+               dnet_wire_bytes_total{dir="tx"}.  The three passes, and
+               stream_serve's and wq_serve's, load one pair of shard
+               processes in turn; each pass reads its own launches.
 The quantized KV cache (DNET_KV_BITS=8|4), the fourth path, on the single
 sequence, dense batched slots and the ring's shards:
   kernels       the decode kernel's q8 and q4 variants at the serve mix (B=1,
@@ -385,15 +387,13 @@ eleventh path:
                  (loads, hits, evictions), the bytes copied a step (8
                  layers, 973 MB) and the rate against the resident ring's
                  in the same run.
-  stream_step_70b  Llama-3.3-70B-Instruct's widths in bf16 at 38 layers
-                 (65.0 GB page-locked; the depth fixed from the card
-                 machine's MemAvailable, which the line prints with the
-                 rest of the host's memory at the phase's start, after
-                 the host caches are freed, and once the layers are
-                 locked), the card
+  stream_step_70b  Llama-3.3-70B-Instruct's widths in bf16 at 24 layers
+                 (41.1 GB page-locked; the line prints the host's memory
+                 at the phase's start, after the host caches are freed,
+                 and once the layers are locked), the card
                  capped at 40 GB, window 8 and residency 16: a 64-token
-                 prefill and 4 greedy decode steps, 38 prefill launches a
-                 prompt and 38 tensor-core decode launches a step, the
+                 prefill and 4 greedy decode steps, 24 prefill launches a
+                 prompt and 24 tensor-core decode launches a step, the
                  bytes copied a step against a 1 GiB page-locked copy
                  probed in the same run, the device peak under the cap.
 Speculative decoding and the snapshot prefix cache (A4), the twelfth path:
@@ -460,6 +460,34 @@ The ring's failure handling (A5.1, A6.4, A6.5), on the ring's path:
                  prefill); the line prints the first differing step, that
                  margin, the swap's logprob error and how many of the
                  baseline's steps are such near ties.
+Every family on ring shards, the ring settings and offline generation
+(A6.7, A6.8, C8, A5.2):
+  gpt_oss_parity   (one more line) the parity model as ring shards over
+                   [0] and [1, 2, 3], whose kinds do not pair (the flat
+                   layout, no kernel), chained through their hidden
+                   states: 40 prompt tokens and 16 teacher-forced steps,
+                   logits within 2e-3 of the whole engine's on the card and
+                   of the same shards' on the CPU.
+  generate_cli     `python -m dnet_tpu_torch.cli.generate` as a process
+                   over the serve checkpoint: one prompt, --raw, 32
+                   tokens; its JSONL row's tokens and text equal to the
+                   in-process engine's greedy stream for the same ids.
+  family_ring_serve  one pair of shard processes loads each family in turn
+                   at its published widths, 2 layers a checkpoint: the
+                   gpt-oss-20b serve checkpoint (0-1 / 2-3, paired on both
+                   shards), DeepSeek-V2-Lite's (0 dense / 1 MoE),
+                   Qwen3-235B-A22B's (0 / 1), then Qwen2.5-7B, Qwen3-4B
+                   (tied) and Mixtral-8x7B written here (0 / 1).  A greedy
+                   and a streamed request of 64 tokens: the streamed text
+                   equal to the greedy, the greedy equal to the family's
+                   single-sequence serve (or, for the three written here,
+                   an in-process engine on the same ids); on each shard the
+                   prefill kernel a layer a prompt (gpt_oss: its full
+                   layer) and the family's decode form a layer a step
+                   (`family_ring_launches`), no other kernel; each shard's
+                   device memory in use within its weights + 512 MiB after
+                   the reload (the last family freed).  family_rings: the
+                   phase's seconds.
 Every decode row also counts its device kernels per wrapper call
 (torch.profiler), which must be exactly 1: the splits and row groups of a
 (lane, KV head) merge inside the one launch.  Then the kernels summary line (every row
@@ -1949,16 +1977,67 @@ def phase_serve(prompt_text: str, n_prompt: int) -> tuple:
         quant = phase_quant_serve(tmp, port, bodies, row, batched)
         gathered = phase_gather_serve(tmp, port, batched)
         long_body = dict(chat, stream=True, messages=[{"role": "user", "content": _batch_prompts()[-1]}])
-        ring, _, lossless = phase_ring_serve(tmp, bodies, results, row, long_body, quant)
-        phase_stream_serve(tmp, bodies, results, row, lossless)
+        # the Llama ring passes (ring_serve's three, stream_serve's, wq_serve's)
+        # share one pair of shard processes, each load freeing the last
+        logdir = os.path.dirname(tmp)
+        with ShardPair(dict(os.environ, DNET_SHARD_REPACK_DIR=os.path.join(logdir, "repack"), **RING_ENV), logdir,
+                       "llama") as pair:
+            ring, _, lossless = phase_ring_serve(tmp, bodies, results, row, long_body, quant, pair)
+            phase_stream_serve(tmp, bodies, results, row, lossless, pair)
+            phase_wq_serve(tmp, port, bodies, row, health["engine"]["weight_bytes"], batched, pair)
         phase_recover_serve(tmp, chat)
         sp_long = dict(chat, stream=True, messages=[{"role": "user", "content": _long_prompt(SP_LONG_TOKENS)}])
         sp_serve = phase_sp_serve(tmp, port, bodies, sp_long, sp_step)
-        phase_wq_serve(tmp, port, bodies, row, health["engine"]["weight_bytes"], batched)
         spec = phase_spec_serve(tmp, port)
+        phase_generate_cli(tmp, prompt_text)
     finally:
         shutil.rmtree(os.path.dirname(tmp), ignore_errors=True)
     return row, batched, quant, ring, sp_serve, gathered, spec
+
+
+GENERATE_TOKENS = 32
+
+
+def phase_generate_cli(model_dir: str, prompt_text: str) -> dict:
+    """`python -m dnet_tpu_torch.cli.generate` as a process on the card over
+    the serve checkpoint: one prompt, --raw, GENERATE_TOKENS tokens; its
+    JSONL row's tokens and text must be the in-process engine's greedy
+    stream for the same ids."""
+    from dnet_tpu_torch.core.engine import LocalEngine
+    from dnet_tpu_torch.core.types import DecodingParams
+    from dnet_tpu_torch.utils.tokenizer import ByteTokenizer
+
+    with tempfile.TemporaryDirectory(prefix="dnet-torch-smoke-gen-") as d:
+        prompts, out = os.path.join(d, "prompts.txt"), os.path.join(d, "out.jsonl")
+        with open(prompts, "w") as f:
+            f.write(prompt_text + "\n")
+        t0 = time.perf_counter()
+        proc = subprocess.run([sys.executable, "-m", "dnet_tpu_torch.cli.generate", "--model", model_dir,
+                               "--prompts", prompts, "--output", out, "--raw", "--max-tokens", str(GENERATE_TOKENS),
+                               "--max-seq", str(S), "--param-dtype", "bfloat16"],
+                              capture_output=True, text=True, timeout=300)
+        wall_s = time.perf_counter() - t0
+        check(proc.returncode == 0, f"generate CLI exited {proc.returncode}: {proc.stderr[-3000:]}")
+        with open(out) as f:
+            rows = [json.loads(line) for line in f]
+    tok = ByteTokenizer()  # the checkpoint has no tokenizer files, as the CLI finds
+    eng = LocalEngine(model_dir, max_seq=S, param_dtype="bfloat16", device="cuda")
+    try:
+        toks = [r.token_id for r in eng.generate(tok.encode(prompt_text), DecodingParams(temperature=0.0),
+                                                 max_tokens=GENERATE_TOKENS, eos_token_ids=tok.eos_token_ids,
+                                                 nonce="gen")]
+    finally:
+        eng.close()
+    if toks and toks[-1] in tok.eos_token_ids:
+        toks = toks[:-1]
+    check(len(rows) == 1 and rows[0]["prompt"] == prompt_text, f"generate CLI rows {rows}")
+    check(rows[0]["tokens"] == len(toks) and rows[0]["text"] == tok.decode(toks),
+          f"generate CLI row {rows[0]} != the engine's {len(toks)} tokens {tok.decode(toks)!r}")
+    row = {"phase": "generate_cli", "gpu": gpu_line(), "model": "llama-3.2-1b-synthetic", "raw": True,
+           "tokens": rows[0]["tokens"], "tok_s": rows[0]["tok_s"], "process_wall_s": wall_s,
+           "text_equal_engine": True}
+    emit(row)
+    return row
 
 
 # the serve and ring_serve requests: one greedy, one greedy streamed (its
@@ -2049,14 +2128,15 @@ def _post_json(url: str, body: dict) -> dict:
 
 
 async def _drive_ring(args: Namespace, model_dir: str, bodies: list, shard_urls: list, kv_bits: int = 0,
-                      windows: Sequence[dict] = ({}, {}), obs: Optional[dict] = None) -> tuple:
+                      windows: Sequence[dict] = ({}, {}), obs: Optional[dict] = None,
+                      layers: Sequence[list] = RING_LAYERS) -> tuple:
     """The API node in this process in ring mode: prepare the manual
-    topology (each assignment with its `windows` entry: window_size /
-    residency_size), fan the load out to the shards, send `bodies` in
-    order; returns (results, load seconds, each shard's /health after the
-    first request, which warms the shards up).  An `obs` dict receives the
-    API's /v1/cluster/metrics ("cluster") and each shard's /metrics
-    ("shards") after the requests."""
+    topology (s0, s1 over `layers`, each assignment with its `windows`
+    entry: window_size / residency_size), fan the load out to the shards,
+    send `bodies` in order; returns (results, load seconds, each shard's
+    /health after the first request, which warms the shards up).  An `obs`
+    dict receives the API's /v1/cluster/metrics ("cluster") and each
+    shard's /metrics ("shards") after the requests."""
     from dnet_tpu_torch.api.server import serve_async
 
     loop = asyncio.get_running_loop()
@@ -2075,7 +2155,7 @@ async def _drive_ring(args: Namespace, model_dir: str, bodies: list, shard_urls:
         topo = await loop.run_in_executor(None, _post_json, base + "/v1/prepare_topology_manual", {
             "model": model_dir,
             "assignments": [{"instance": f"s{i}", "layers": ls, **w}
-                            for i, (ls, w) in enumerate(zip(RING_LAYERS, windows))],
+                            for i, (ls, w) in enumerate(zip(layers, windows))],
             "kv_bits": kv_bits,
         })
         check([a["next_instance"] for a in topo["topology"]["assignments"]] == ["s1", "s0"], f"ring {topo}")
@@ -2097,68 +2177,96 @@ async def _drive_ring(args: Namespace, model_dir: str, bodies: list, shard_urls:
     return results, load_s, warm
 
 
-def _ring_pass(model_dir: str, codec: str, bodies: list, logdir: str, kv_bits: int = 0, tag: str = "",
-               windows: Sequence[dict] = ({}, {}), obs: Optional[dict] = None) -> tuple:
-    """Start the two shard processes on the card, serve `bodies` through
-    them with the hop codec `codec`, the topology's `kv_bits` and each
-    shard's `windows` entry (its weight plan), read each shard's /health,
-    and stop the shards; returns (results, [s0 health, s1 health], load
-    seconds, the /health pair after the first request).  `tag` names the
-    pass's hostfile and shard logs (default: codec and kv_bits); a
-    streaming shard's repack cache goes under `logdir`; `obs` as
-    _drive_ring's."""
-    env = dict(os.environ, DNET_WIRE_CODEC=codec, DNET_SHARD_REPACK_DIR=os.path.join(logdir, "repack"), **RING_ENV)
-    shards = [(f"s{i}", _free_port(), _free_port()) for i in range(len(RING_LAYERS))]
-    tag = tag or f"{codec}-kv{kv_bits}"
-    hostfile = os.path.join(logdir, f"hostfile-{tag}")
-    with open(hostfile, "w") as f:
-        f.writelines(f"{n} 127.0.0.1 {h} {g}\n" for n, h, g in shards)
-    procs, logs = [], []
-    try:
-        for name, http, grpc_port in shards:
-            logs.append(os.path.join(logdir, f"shard-{tag}-{name}.log"))
-            with open(logs[-1], "w") as log:
-                procs.append(subprocess.Popen(
-                    [sys.executable, "-m", "dnet_tpu_torch.cli.shard", "--host", "127.0.0.1",
-                     "--http-port", str(http), "--grpc-port", str(grpc_port), "--shard-name", name,
-                     "--device", "cuda"],
-                    env=env, stdout=log, stderr=subprocess.STDOUT))
-        t0 = time.perf_counter()
-        for (name, http, _), proc in zip(shards, procs):
-            while True:
-                check(proc.poll() is None, f"shard {name} exited with {proc.returncode}")
-                try:
-                    health = _get(f"http://127.0.0.1:{http}/health")
-                    break
-                except OSError:
-                    check(time.perf_counter() - t0 < 120, f"shard {name} not up within 120 s")
-                    time.sleep(0.3)
-            # a fresh process: every launch count starts at 0
-            check(not any(health["kernels"].values()), f"shard {name} counts not 0: {health['kernels']}")
-        args = Namespace(
-            host="127.0.0.1", http_port=_free_port(), grpc_port=_free_port(), hostfile=hostfile, model="",
-            models_dir="", device="cuda", max_seq_len=S, param_dtype="bfloat16", max_concurrent=8,
-            request_timeout_s=600.0,
-        )
-        with environ({"DNET_WIRE_CODEC": codec, **RING_ENV}):  # the API resolves the hop codec
-            urls = [f"http://127.0.0.1:{http}" for _, http, _ in shards]
-            results, load_s, warm = asyncio.run(_drive_ring(args, model_dir, bodies, urls, kv_bits, windows, obs))
-        healths = [_get(u + "/health") for u in urls]
-    except Exception:
-        for path in logs:
+class ShardPair:
+    """Two shard processes on the card (`dnet_tpu_torch.cli.shard --device
+    cuda`, logs and hostfile named by `tag` under `logdir`), each up with
+    every launch count at 0, started once and loaded with one model after
+    another by the ring passes given them (each load frees the last)."""
+
+    def __init__(self, env: dict, logdir: str, tag: str) -> None:
+        self.logdir = logdir
+        shards = [(f"s{i}", _free_port(), _free_port()) for i in range(2)]
+        self.hostfile = os.path.join(logdir, f"hostfile-{tag}")
+        with open(self.hostfile, "w") as f:
+            f.writelines(f"{n} 127.0.0.1 {h} {g}\n" for n, h, g in shards)
+        self.urls = [f"http://127.0.0.1:{http}" for _, http, _ in shards]
+        self.procs, self.logs = [], []
+        try:
+            for name, http, grpc_port in shards:
+                self.logs.append(os.path.join(logdir, f"shard-{tag}-{name}.log"))
+                with open(self.logs[-1], "w") as log:
+                    self.procs.append(subprocess.Popen(
+                        [sys.executable, "-m", "dnet_tpu_torch.cli.shard", "--host", "127.0.0.1",
+                         "--http-port", str(http), "--grpc-port", str(grpc_port), "--shard-name", name,
+                         "--device", "cuda"],
+                        env=env, stdout=log, stderr=subprocess.STDOUT))
+            t0 = time.perf_counter()
+            for (name, _, _), url, proc in zip(shards, self.urls, self.procs):
+                while True:
+                    check(proc.poll() is None, f"shard {name} exited with {proc.returncode}")
+                    try:
+                        health = _get(url + "/health")
+                        break
+                    except OSError:
+                        check(time.perf_counter() - t0 < 120, f"shard {name} not up within 120 s")
+                        time.sleep(0.3)
+                # a fresh process: every launch count starts at 0
+                check(not any(health["kernels"].values()), f"shard {name} counts not 0: {health['kernels']}")
+        except Exception:
+            self.stop(failed=True)
+            raise
+
+    def __enter__(self) -> "ShardPair":
+        return self
+
+    def __exit__(self, exc_type, exc, tb) -> None:
+        self.stop(failed=exc is not None)
+
+    def health(self) -> list:
+        return [_get(u + "/health") for u in self.urls]
+
+    def stop(self, failed: bool = False) -> None:
+        """SIGTERM the processes and wait for them (kill after 30 s); after a
+        failure, print each log's tail to stderr first."""
+        for path in self.logs if failed else ():
             with open(path) as f:
                 print(f"--- {path} ---\n{f.read()[-4000:]}", file=sys.stderr)
-        raise
-    finally:
-        for p in procs:
+        for p in self.procs:
             if p.poll() is None:
                 p.send_signal(signal.SIGTERM)
-        for p in procs:
+        for p in self.procs:
             try:
                 p.wait(timeout=30)
             except subprocess.TimeoutExpired:
                 p.kill()
                 p.wait()
+
+
+def _ring_pass(pair: ShardPair, model_dir: str, codec: str, bodies: list, kv_bits: int = 0,
+               windows: Sequence[dict] = ({}, {}), obs: Optional[dict] = None,
+               layers: Sequence[list] = RING_LAYERS) -> tuple:
+    """Serve `bodies` through the running shard pair `pair` over `layers`
+    with the hop codec `codec`, the topology's `kv_bits` and each shard's
+    `windows` entry (its weight plan), and read each shard's /health;
+    returns (results, [s0 health, s1 health], load seconds, the /health
+    pair after the first request), each /health's `kernels` the pass's own
+    launches (the counts after the pass less those before it).  `obs` as
+    _drive_ring's, with each shard's /metrics before the pass
+    ("shards_before")."""
+    args = Namespace(
+        host="127.0.0.1", http_port=_free_port(), grpc_port=_free_port(), hostfile=pair.hostfile, model="",
+        models_dir="", device="cuda", max_seq_len=S, param_dtype="bfloat16", max_concurrent=8,
+        request_timeout_s=600.0,
+    )
+    before = pair.health()
+    if obs is not None:
+        obs["shards_before"] = [_scrape(u + "/metrics") for u in pair.urls]
+    with environ({"DNET_WIRE_CODEC": codec, **RING_ENV}):  # the API resolves the hop codec
+        results, load_s, warm = asyncio.run(_drive_ring(args, model_dir, bodies, pair.urls, kv_bits, windows,
+                                                        obs, layers))
+    healths = pair.health()
+    for h, b in zip(healths, before):
+        h["kernels"] = {k: v - b["kernels"].get(k, 0) for k, v in h["kernels"].items()}
     return results, healths, load_s, warm
 
 
@@ -2176,7 +2284,7 @@ def _steady(after: dict, before: dict, requests: list) -> dict:
 
 
 def phase_ring_serve(model_dir: str, bodies: list, serve_results: list, served: dict, long_body: dict,
-                     quant: dict) -> tuple:
+                     quant: dict, pair: ShardPair) -> tuple:
     """The checkpoint served as a two-shard ring: lossless, qsparse8, then
     lossless with kv_bits 8 in the topology (an int8 cache on each shard);
     returns the qsparse8 pass's column-kernel launches, the kv_bits 8
@@ -2191,13 +2299,13 @@ def phase_ring_serve(model_dir: str, bodies: list, serve_results: list, served: 
     out, ring_q8, lossless = {}, None, None
     for codec, kv_bits, kinds, reqs in passes:
         obs = {}
-        results, (h0, h1), load_s, warm = _ring_pass(model_dir, codec, reqs, os.path.dirname(model_dir), kv_bits,
-                                                     obs=obs)
+        results, (h0, h1), load_s, warm = _ring_pass(pair, model_dir, codec, reqs, kv_bits, obs=obs)
         # the API's federated scrape read both shards, and each shard's own
         # /metrics counts the payload bytes it wrote to the next hop
         fed = {p: obs["cluster"].get(f'dnet_federation_scrape_ok{{node="api",peer="{p}"}}') for p in ("s0", "s1")}
         check(fed == {"s0": 1.0, "s1": 1.0}, f"ring {codec}: dnet_federation_scrape_ok {fed}")
-        tx = [m['dnet_wire_bytes_total{dir="tx"}'] for m in obs["shards"]]
+        tx = [m[key] - b.get(key, 0.0) for m, b in zip(obs["shards"], obs["shards_before"])
+              for key in ['dnet_wire_bytes_total{dir="tx"}']]
         check(codec != "qsparse8" or tx[0] > 0, f"ring {codec}: shard tx wire bytes {tx}")
         for i, r in enumerate(results):
             check(r["status"] == 200, f"ring {codec} request {i}: HTTP {r['status']}")
@@ -2266,6 +2374,140 @@ def phase_ring_serve(model_dir: str, bodies: list, serve_results: list, served: 
             lossless = row
         emit(row)
     return out, ring_q8, lossless
+
+
+# family_ring_serve: every family on the two ring shards, each at its
+# published widths cut to 2 layers (gpt_oss: the serve's 4-layer
+# checkpoint, one sliding / full pair a shard), one greedy and one streamed
+# request of MAX_TOKENS tokens; one shard pair loads one family after
+# another, each load freeing the last (checked in every shard's /metrics)
+FAMILY_SPLITS = {"gpt_oss": ([0, 1], [2, 3])}  # the others: [0] / [1]
+FAMILY_RING_WRITTEN = (("qwen2", "QWEN2_5_7B_CONFIG", "qwen2.5-7b-synthetic"),
+                       ("qwen3", "QWEN3_4B_CONFIG", "qwen3-4b-synthetic"),
+                       ("mixtral", "MIXTRAL_8X7B_CONFIG", "mixtral-8x7b-synthetic"))
+# a shard's device memory in use after its requests, beyond its weights
+# (the last session's KV is freed at its reset): RoPE tables and the
+# kernels' scratch
+FAMILY_RING_MEM_SLACK = 512 << 20
+
+
+def family_ring_launches(family: str, config: dict, n_layers: int, prompts: int, steps: int) -> dict:
+    """One shard's expected launches over `n_layers` of `family` in bf16:
+    the prefill kernel a layer a prompt (gpt_oss: its full half's layers),
+    and a layer a decode step the decode form the family's single-process
+    phase counts (MLA widths; the rotating form on gpt_oss's sliding half
+    and the plain one on its full half; G > 8 the wide counter; D = 128
+    with G > 4 the tensor-core one)."""
+    from dnet_tpu_torch.models import ModelConfig
+
+    if family == "deepseek_v2":
+        return {"flash_prefill_mla": n_layers * prompts, "flash_decode_mla": n_layers * steps}
+    if family == "gpt_oss":  # the sliding half's ring prefills outside the kernel, as in gpt_oss_serve
+        half = n_layers // 2
+        return {"flash_prefill": half * prompts, "flash_decode_rotating": half * steps, "flash_decode": half * steps}
+    cfg = ModelConfig.from_hf(config)
+    G = cfg.num_attention_heads // cfg.num_key_value_heads
+    out = {"flash_prefill": n_layers * prompts, ("flash_decode_wide" if G > 8 else "flash_decode"): n_layers * steps}
+    if cfg.head_dim == 128 and G > 4:
+        out["flash_decode_mma"] = n_layers * steps
+    return out
+
+
+def _engine_greedy_text(model_dir: str, prompt_text: str) -> str:
+    """The checkpoint's greedy text from one in-process single-sequence
+    engine on the card: the chat request's ids, TEXT_BIAS, MAX_TOKENS."""
+    from dnet_tpu_torch.core.engine import LocalEngine
+    from dnet_tpu_torch.core.types import DecodingParams
+    from dnet_tpu_torch.utils.tokenizer import ByteTokenizer
+
+    eng = LocalEngine(model_dir, max_seq=S, param_dtype="bfloat16", device="cuda")
+    try:
+        dec = DecodingParams(temperature=0.0, logit_bias={int(t): b for t, b in TEXT_BIAS.items()})
+        toks = [r.token_id for r in eng.generate(_template_ids(prompt_text), dec, max_tokens=MAX_TOKENS, nonce="b")]
+    finally:
+        eng.close()
+    return ByteTokenizer().decode(toks)
+
+
+def _family_ring_pass(pair: ShardPair, family: str, model_dir: str, model: str, config: dict, prompt_text: str,
+                      baseline: str, write_s: float = 0.0) -> dict:
+    """Load `model_dir` on `pair` over the family's split, serve a greedy
+    and a streamed request, check them against `baseline` (the single
+    process's greedy text) and each shard's launches and memory; emit and
+    return the family_ring_serve row."""
+    layers = FAMILY_SPLITS.get(family, ([0], [1]))
+    chat = {"model": model, "max_tokens": MAX_TOKENS, "temperature": 0,
+            "messages": [{"role": "user", "content": prompt_text}], "logit_bias": TEXT_BIAS}
+    results, after, load_s, warm = _ring_pass(pair, model_dir, "lossless", [chat, dict(chat, stream=True)],
+                                              layers=layers)
+    mem = [_scrape(u + "/metrics")['dnet_device_mem_bytes{kind="in_use"}'] for u in pair.urls]
+    for i, r in enumerate(results):
+        check(r["status"] == 200, f"{family} ring request {i}: HTTP {r['status']}")
+        check(r["tokens"] == MAX_TOKENS, f"{family} ring request {i}: {r['tokens']} tokens")
+    check(results[1]["content"] == results[0]["content"], f"{family} ring: streamed differs from non-streamed")
+    check(results[0]["content"] == baseline,
+          f"{family} ring greedy text differs from the single process's: {results[0]['content']!r} != {baseline!r}")
+    steps = sum(r["tokens"] - 1 for r in results)
+    launches = []
+    for i, (a, ls) in enumerate(zip(after, layers)):
+        got = {k: v for k, v in a["kernels"].items() if v}
+        want = family_ring_launches(family, config, len(ls), len(results), steps)
+        check(got == want, f"{family} ring s{i} launches {got} != {want}")
+        check(a["layers"] == ls and a["model"] == model_dir, f"{family} ring s{i} holds {a['layers']} {a['model']}")
+        # the reload freed the last model: only this one's weights stay
+        held = a["engine"]["weight_bytes"]
+        check(mem[i] <= held + FAMILY_RING_MEM_SLACK, f"{family} ring s{i}: {mem[i]} B in use, {held} B weights")
+        launches.append(got)
+    row = {"phase": "family_ring_serve", "family": family, "gpu": gpu_line(), "model": model,
+           "transport": "real gRPC on 127.0.0.1: one process per shard, the API node in this process",
+           "layers": [f"{ls[0]}-{ls[-1]}" for ls in layers], "load_s": load_s, "checkpoint_write_s": write_s,
+           "decode_steps": steps, "launches": {"s0": launches[0], "s1": launches[1]},
+           "device_mem_in_use": mem, "weight_bytes": [a["engine"]["weight_bytes"] for a in after],
+           "decode_hop_bytes": after[0]["wire"]["decode_hop_bytes"], "text_equal_single_process": True,
+           "steady": {f"s{i}": _steady(a, w, results[1:]) for i, (a, w) in enumerate(zip(after, warm))},
+           "requests": [{"kind": k, "status": r["status"], "completion_tokens": r["tokens"], "s": r["s"],
+                         "content_head": r["content"][:40]} for k, r in zip(SERVE_KINDS, results)],
+           **streamed_rates(results)}
+    emit(row)
+    return row
+
+
+def phase_family_rings(prompt_text: str, served: dict) -> dict:
+    """Every family on one pair of ring shards: the gpt_oss, deepseek_v2 and
+    qwen3_moe serve checkpoints (`served`: family -> (dir, model id, config,
+    the serve's greedy text)), then Qwen2.5-7B, Qwen3-4B and Mixtral-8x7B
+    at 2 layers, each written here and held against one in-process
+    single-sequence engine; returns family -> row."""
+    from dnet_tpu_torch.models import ModelConfig
+    from dnet_tpu_torch.models.convert import hf_tensors
+    from dnet_tpu_torch.utils import random_init
+    from dnet_tpu_torch.utils.checkpoint import save_checkpoint
+
+    t0 = time.perf_counter()
+    logdir = tempfile.mkdtemp(prefix="dnet-torch-smoke-rings-")
+    rows = {}
+    try:
+        with ShardPair(dict(os.environ, **RING_ENV), logdir, "families") as pair:
+            for family, (model_dir, model, config, greedy) in served.items():
+                rows[family] = _family_ring_pass(pair, family, model_dir, model, config, prompt_text, greedy)
+            for family, name, model in FAMILY_RING_WRITTEN:
+                t1 = time.perf_counter()
+                config = dict(getattr(random_init, name), num_hidden_layers=2)
+                window, edge = random_init.random_qwen_params(ModelConfig.from_hf(config), range(2),
+                                                              torch.device("cuda"), torch.bfloat16, seed=0)
+                model_dir = os.path.join(logdir, model)
+                save_checkpoint(model_dir, config, hf_tensors(window, edge, family))
+                del window, edge
+                torch.cuda.empty_cache()
+                write_s = time.perf_counter() - t1
+                baseline = _engine_greedy_text(model_dir, prompt_text)
+                rows[family] = _family_ring_pass(pair, family, model_dir, model, config, prompt_text, baseline,
+                                                 write_s)
+                shutil.rmtree(model_dir, ignore_errors=True)
+    finally:
+        shutil.rmtree(logdir, ignore_errors=True)
+    emit({"phase": "family_rings", "gpu": gpu_line(), "families": list(rows), "s": time.perf_counter() - t0})
+    return rows
 
 
 # recover_serve: s1's shard_compute call that faults.  Each token costs the
@@ -3259,7 +3501,56 @@ def phase_gpt_oss_parity() -> dict:
               "experts": 4, "top_k": 2, "prompt_tokens": len(prompt), "logits_max_err": err, "tol": 2e-3,
               "greedy_tokens": len(streams["cuda"]), "launches": {k: v for k, v in launches.items() if v}})
         out[bits] = launches
+    _gpt_oss_flat_shards(cfg, window, edge, prompt)
     return out
+
+
+def _gpt_oss_flat_shards(cfg, window, edge, prompt: list, n_steps: int = 16, card: str = "cuda") -> None:
+    """The same model as ring shards over [0] and [1, 2, 3], whose kinds do
+    not pair (the flat layout: dense masked attention, no kernel), chained
+    through their hidden states on the card and on the CPU: the logits of
+    the prompt and of n_steps teacher-forced decode steps (the whole
+    engine's greedy tokens) within 2e-3 of the whole engine's on the card,
+    and the card's shards within 2e-3 of the CPU's."""
+    from dnet_tpu_torch.core.engine import LocalEngine, bucket_length
+    from dnet_tpu_torch.models.convert import hf_tensors
+    from dnet_tpu_torch.utils.checkpoint import save_checkpoint
+
+    tmp = tempfile.mkdtemp(prefix="dnet-torch-smoke-oss-flat-")
+    try:
+        save_checkpoint(tmp, cfg.extra, hf_tensors(window, edge))
+        whole = LocalEngine.from_params(cfg, window, edge, max_seq=256, param_dtype="float32", device=card)
+        shards = {where: [LocalEngine(tmp, max_seq=256, param_dtype="float32", device=dev, layers=ls, shard_mode=True)
+                          for ls in ([0], [1, 2, 3])] for where, dev in (("card", card), ("cpu", "cpu"))}
+        check(all(e.model.pair_kinds is None for es in shards.values() for e in es), "gpt_oss shards not flat")
+        whole_kv = whole.new_session("f", seed=0).kv
+        sess = {where: [e.new_session("f", seed=0) for e in es] for where, es in shards.items()}
+        ids, pos, errs = list(prompt), 0, {"whole": [], "cpu": []}
+        for _ in range(n_steps + 1):
+            T = len(ids)
+            toks = torch.zeros((1, 1 if T == 1 else min(bucket_length(T), 256 - pos)), dtype=torch.int64)
+            toks[0, :T] = torch.tensor(ids)
+            want = whole._forward(toks.to(card), whole_kv, pos, T - 1).float().cpu()
+            got = {}
+            for where, (head, tail) in shards.items():
+                hs, ts = sess[where]
+                x = head.embed_window(hs, toks.to(head.device), pos, t_real=T)
+                x = tail.run_layers(ts, x, pos, t_real=T)
+                m = tail.model
+                logits = m.lm_project(tail.edge_params, m.normalize(tail.edge_params, x[:, T - 1:T]))[:, 0]
+                got[where] = logits.float().cpu()
+            check(bool(torch.isfinite(got["card"]).all()), "gpt_oss flat shard logits")
+            errs["whole"].append((got["card"] - want).abs().max().item())
+            errs["cpu"].append((got["card"] - got["cpu"]).abs().max().item())
+            pos += T
+            ids = [int(want.argmax(-1)[0])]
+        err = {k: max(v) for k, v in errs.items()}
+        check(max(err.values()) <= 2e-3, f"gpt_oss flat shards' logits: {err}")
+        emit({"phase": "gpt_oss_parity", "layout": "flat ring shards [0] / [1, 2, 3]", "prompt_tokens": len(prompt),
+              "decode_steps": n_steps, "logits_max_err_vs_whole_engine": err["whole"],
+              "logits_max_err_vs_cpu_shards": err["cpu"], "tol": 2e-3})
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
 
 
 def phase_moe_step(phase: str, model: str, cfg, window, edge, n_prompt: int) -> dict:
@@ -3325,41 +3616,41 @@ def phase_moe_step(phase: str, model: str, cfg, window, edge, n_prompt: int) -> 
     return row
 
 
-def phase_gpt_oss(prompt_text: str, long_text: str, port: int) -> tuple:
+def phase_gpt_oss(prompt_text: str, long_text: str, port: int, ckpt_root: str) -> tuple:
     """gpt-oss-20b at full width: the 24-layer step from random params made
     on the card, then the first OSS_SERVE_LAYERS layers (2 sliding/full
-    pairs) and the edge written as a checkpoint and served over HTTP."""
+    pairs) and the edge written as a checkpoint under `ckpt_root` and
+    served over HTTP; returns (step, serve, the family rings' entry: dir,
+    model id, config, the serve's greedy text)."""
     from dnet_tpu_torch.core.kvcache import KVConfig
     from dnet_tpu_torch.models import ModelConfig
     from dnet_tpu_torch.models.convert import hf_tensors
     from dnet_tpu_torch.utils.checkpoint import save_checkpoint
     from dnet_tpu_torch.utils.random_init import GPT_OSS_20B_CONFIG, random_gpt_oss_params
 
-    tmp = os.path.join(tempfile.mkdtemp(prefix="dnet-torch-smoke-oss-"), OSS_MODEL)
-    try:
-        t0 = time.perf_counter()
-        torch.cuda.reset_peak_memory_stats()
-        cfg = ModelConfig.from_hf(GPT_OSS_20B_CONFIG)
-        window, edge = random_gpt_oss_params(cfg, range(cfg.num_hidden_layers), torch.device("cuda"),
-                                             torch.bfloat16, seed=0)
-        init_s = time.perf_counter() - t0
-        step = dict(phase_moe_step("gpt_oss_step", "gpt-oss-20b (synthetic bf16 weights, seed 0)", cfg, window,
-                                   edge, 300), init_s=init_s)
-        t0 = time.perf_counter()
-        served_cfg = dict(GPT_OSS_20B_CONFIG, num_hidden_layers=OSS_SERVE_LAYERS,
-                          layer_types=GPT_OSS_20B_CONFIG["layer_types"][:OSS_SERVE_LAYERS])
-        save_checkpoint(tmp, served_cfg, hf_tensors(window[:OSS_SERVE_LAYERS], edge))
-        del window, edge
-        torch.cuda.empty_cache()
-        write_s = time.perf_counter() - t0
-        serve = phase_gpt_oss_serve(tmp, port, prompt_text, long_text, write_s)
-        batch = phase_gpt_oss_batch_serve(tmp, port)
-        # the same checkpoint under sp = 2: flat caches, no kernel
-        sp_serve = phase_sp_family_serve("gpt_oss", tmp, port, OSS_MODEL, prompt_text, None,
-                                         KVConfig(OSS_SERVE_LAYERS // 2, 1, S // 2, OSS_KVH, OSS_D, "float32"), 2)
-    finally:
-        shutil.rmtree(os.path.dirname(tmp), ignore_errors=True)
-    return step, dict(serve, sp_serve=sp_serve, batch_serve=batch)
+    tmp = os.path.join(ckpt_root, OSS_MODEL)
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    cfg = ModelConfig.from_hf(GPT_OSS_20B_CONFIG)
+    window, edge = random_gpt_oss_params(cfg, range(cfg.num_hidden_layers), torch.device("cuda"),
+                                         torch.bfloat16, seed=0)
+    init_s = time.perf_counter() - t0
+    step = dict(phase_moe_step("gpt_oss_step", "gpt-oss-20b (synthetic bf16 weights, seed 0)", cfg, window,
+                               edge, 300), init_s=init_s)
+    t0 = time.perf_counter()
+    served_cfg = dict(GPT_OSS_20B_CONFIG, num_hidden_layers=OSS_SERVE_LAYERS,
+                      layer_types=GPT_OSS_20B_CONFIG["layer_types"][:OSS_SERVE_LAYERS])
+    save_checkpoint(tmp, served_cfg, hf_tensors(window[:OSS_SERVE_LAYERS], edge))
+    del window, edge
+    torch.cuda.empty_cache()
+    write_s = time.perf_counter() - t0
+    serve = phase_gpt_oss_serve(tmp, port, prompt_text, long_text, write_s)
+    batch = phase_gpt_oss_batch_serve(tmp, port)
+    # the same checkpoint under sp = 2: flat caches, no kernel
+    sp_serve = phase_sp_family_serve("gpt_oss", tmp, port, OSS_MODEL, prompt_text, None,
+                                     KVConfig(OSS_SERVE_LAYERS // 2, 1, S // 2, OSS_KVH, OSS_D, "float32"), 2)
+    ring = (tmp, OSS_MODEL, served_cfg, serve["greedy_text"])
+    return step, dict(serve, sp_serve=sp_serve, batch_serve=batch), ring
 
 
 def phase_gpt_oss_serve(model_dir: str, port: int, prompt_text: str, long_text: str, write_s: float) -> dict:
@@ -3404,7 +3695,7 @@ def phase_gpt_oss_serve(model_dir: str, port: int, prompt_text: str, long_text: 
         "phase": "gpt_oss_serve", "gpu": gpu_line(),
         "model": f"gpt-oss-20b widths, {OSS_SERVE_LAYERS} of 24 layers (synthetic bf16 weights, seed 0)",
         "checkpoint_write_s": write_s, "load_s": load_s, "launches": launches, "prefills": len(results),
-        "decode_steps": decode_steps, "kv_bytes": engine["kv_bytes"],
+        "decode_steps": decode_steps, "kv_bytes": engine["kv_bytes"], "greedy_text": results[0]["content"],
         "flat_cache_kv_bytes": 2 * OSS_SERVE_LAYERS * S * OSS_KVH * OSS_D * 2,
         "requests": [
             {"kind": k, "status": r["status"], "completion_tokens": r["tokens"], "s": r["s"],
@@ -3616,46 +3907,45 @@ def phase_deepseek_parity() -> None:
               "tol": 2e-3, "greedy_tokens": len(streams["cuda"]), "launches": expected})
 
 
-def phase_deepseek(prompt_text: str, long_text: str, port: int) -> tuple:
+def phase_deepseek(prompt_text: str, long_text: str, port: int, ckpt_root: str) -> tuple:
     """DeepSeek-V2-Lite at full width: the 27-layer step from random params
     made on the card, then the first DS_SERVE_LAYERS layers (1 dense + 1
-    MoE) and the edge written as a checkpoint and served over HTTP."""
+    MoE) and the edge written as a checkpoint under `ckpt_root` and served
+    over HTTP; returns (step, serve, the family rings' entry: dir, model
+    id, config, the serve's greedy text)."""
     from dnet_tpu_torch.core.kvcache import KVConfig
     from dnet_tpu_torch.models import ModelConfig
     from dnet_tpu_torch.models.convert import hf_tensors
     from dnet_tpu_torch.utils.checkpoint import save_checkpoint
     from dnet_tpu_torch.utils.random_init import DEEPSEEK_V2_LITE_CONFIG, random_deepseek_v2_params
 
-    tmp = os.path.join(tempfile.mkdtemp(prefix="dnet-torch-smoke-ds-"), DS_MODEL)
-    try:
-        t0 = time.perf_counter()
-        torch.cuda.reset_peak_memory_stats()
-        cfg = ModelConfig.from_hf(DEEPSEEK_V2_LITE_CONFIG)
-        window, edge = random_deepseek_v2_params(cfg, range(cfg.num_hidden_layers), torch.device("cuda"),
-                                                 torch.bfloat16, seed=0)
-        init_s = time.perf_counter() - t0
-        step = dict(phase_moe_step("deepseek_step", "DeepSeek-V2-Lite-Chat (synthetic bf16 weights, seed 0)", cfg,
-                                   window, edge, 300), init_s=init_s)
-        # the same 27 layers at sp = 2, past the shard boundary: the LSE form
-        # at the MLA widths, 16 heads x (192 + 128) bf16 of K/V a layer and slot
-        phase_sp_step(cfg, window, edge, "deepseek_sp_step", "DeepSeek-V2-Lite-Chat", "flash_decode_lse_mla",
-                      MLA_H * (MLA_DQK + MLA_DV) * 2)
-        t0 = time.perf_counter()
-        save_checkpoint(tmp, dict(DEEPSEEK_V2_LITE_CONFIG, num_hidden_layers=DS_SERVE_LAYERS),
-                        hf_tensors(window[:DS_SERVE_LAYERS], edge))
-        del window, edge
-        torch.cuda.empty_cache()
-        write_s = time.perf_counter() - t0
-        serve = phase_deepseek_serve(tmp, port, prompt_text, long_text, write_s)
-        batch = phase_deepseek_batch_serve(tmp, port)
-        # the same checkpoint under sp = 2: the LSE form at the MLA widths
-        sp_serve = phase_sp_family_serve("deepseek_v2", tmp, port, DS_MODEL, prompt_text, "flash_decode_lse_mla",
-                                         KVConfig(DS_SERVE_LAYERS, 1, S // 2, MLA_H, MLA_DQK, "float32",
-                                                  v_head_dim=MLA_DV), 1)
-        serve = dict(serve, sp_serve=sp_serve, batch_serve=batch)
-    finally:
-        shutil.rmtree(os.path.dirname(tmp), ignore_errors=True)
-    return step, serve
+    tmp = os.path.join(ckpt_root, DS_MODEL)
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    cfg = ModelConfig.from_hf(DEEPSEEK_V2_LITE_CONFIG)
+    window, edge = random_deepseek_v2_params(cfg, range(cfg.num_hidden_layers), torch.device("cuda"),
+                                             torch.bfloat16, seed=0)
+    init_s = time.perf_counter() - t0
+    step = dict(phase_moe_step("deepseek_step", "DeepSeek-V2-Lite-Chat (synthetic bf16 weights, seed 0)", cfg,
+                               window, edge, 300), init_s=init_s)
+    # the same 27 layers at sp = 2, past the shard boundary: the LSE form
+    # at the MLA widths, 16 heads x (192 + 128) bf16 of K/V a layer and slot
+    phase_sp_step(cfg, window, edge, "deepseek_sp_step", "DeepSeek-V2-Lite-Chat", "flash_decode_lse_mla",
+                  MLA_H * (MLA_DQK + MLA_DV) * 2)
+    t0 = time.perf_counter()
+    served_cfg = dict(DEEPSEEK_V2_LITE_CONFIG, num_hidden_layers=DS_SERVE_LAYERS)
+    save_checkpoint(tmp, served_cfg, hf_tensors(window[:DS_SERVE_LAYERS], edge))
+    del window, edge
+    torch.cuda.empty_cache()
+    write_s = time.perf_counter() - t0
+    serve = phase_deepseek_serve(tmp, port, prompt_text, long_text, write_s)
+    batch = phase_deepseek_batch_serve(tmp, port)
+    # the same checkpoint under sp = 2: the LSE form at the MLA widths
+    sp_serve = phase_sp_family_serve("deepseek_v2", tmp, port, DS_MODEL, prompt_text, "flash_decode_lse_mla",
+                                     KVConfig(DS_SERVE_LAYERS, 1, S // 2, MLA_H, MLA_DQK, "float32",
+                                              v_head_dim=MLA_DV), 1)
+    serve = dict(serve, sp_serve=sp_serve, batch_serve=batch)
+    return step, serve, (tmp, DS_MODEL, served_cfg, serve["greedy_text"])
 
 
 def phase_deepseek_serve(model_dir: str, port: int, prompt_text: str, long_text: str, write_s: float) -> dict:
@@ -3712,6 +4002,7 @@ def phase_deepseek_serve(model_dir: str, port: int, prompt_text: str, long_text:
                  "weights, seed 0)",
         "checkpoint_write_s": write_s, "load_s": out[0]["load_s"], "launches": total,
         "prefills": len(base), "decode_steps": out[0]["decode_steps"], "kv_bytes": out[0]["kv_bytes"],
+        "greedy_text": base[0]["content"],
         "requests": [
             {"kind": k, "status": r["status"], "completion_tokens": r["tokens"], "s": r["s"],
              "tokens_per_s": r["tokens"] / r["s"], "content_head": r["content"][:40]}
@@ -4332,12 +4623,13 @@ def phase_sp_serve(model_dir: str, port: int, bodies: list, long_body: dict, sp_
 
 # Qwen3-MoE (the eighth path): Qwen3-235B-A22B's attention, H = 64 query
 # heads over KVH = 4 (G = 16, two row groups of 8 a KV head) at head dim
-# 128; the 235B serve's layers; the serve's /health KV bytes (1 layer x 4096
-# slots x 4 KV heads x (k 128 + v 128) x 2 B)
+# 128; the 235B serve's layers (one a ring shard in family_ring_serve); the
+# serve's /health KV bytes (2 layers x 4096 slots x 4 KV heads x (k 128 + v
+# 128) x 2 B)
 QW_H, QW_KVH, QW_D = 64, 4, 128
-QW_SERVE_LAYERS = 1
+QW_SERVE_LAYERS = 2
 QW_MODEL = "qwen3-235b-a22b-synthetic"
-QW_SERVE_KV_BYTES = 8_388_608
+QW_SERVE_KV_BYTES = 16_777_216
 
 
 def phase_wide_kernels(serve_pos: int) -> dict:
@@ -4749,46 +5041,45 @@ def phase_qwen_parity() -> dict:
     return total
 
 
-def phase_qwen3_moe(prompt_text: str, port: int) -> tuple:
+def phase_qwen3_moe(prompt_text: str, port: int, ckpt_root: str) -> tuple:
     """Qwen3-MoE at full width: Qwen3-30B-A3B's step over all 48 layers from
     random params made on the card (~61 GB), then Qwen3-235B-A22B's first
-    QW_SERVE_LAYERS layers and edge (~7.5 GB) written as a checkpoint and
-    served over HTTP, single sequence and with --batch-slots 8."""
+    QW_SERVE_LAYERS layers and edge (~12.3 GB) written as a checkpoint
+    under `ckpt_root` and served over HTTP, single sequence and with
+    --batch-slots 8; returns (step, serve, batched, the family rings'
+    entry: dir, model id, config, the serve's greedy text)."""
     from dnet_tpu_torch.models import ModelConfig
     from dnet_tpu_torch.models.convert import hf_tensors
     from dnet_tpu_torch.utils.checkpoint import save_checkpoint
     from dnet_tpu_torch.utils.random_init import QWEN3_30B_A3B_CONFIG, QWEN3_235B_A22B_CONFIG, random_qwen_params
 
-    tmp = os.path.join(tempfile.mkdtemp(prefix="dnet-torch-smoke-qwen-"), QW_MODEL)
-    try:
-        t0 = time.perf_counter()
-        torch.cuda.reset_peak_memory_stats()
-        cfg = ModelConfig.from_hf(QWEN3_30B_A3B_CONFIG)
-        window, edge = random_qwen_params(cfg, range(cfg.num_hidden_layers), torch.device("cuda"), torch.bfloat16,
-                                          seed=0)
-        init_s = time.perf_counter() - t0
-        step = dict(phase_moe_step("qwen3_moe_step", "Qwen3-30B-A3B (synthetic bf16 weights, seed 0)", cfg, window,
-                                   edge, 300), init_s=init_s)
-        # G = 8 at head dim 128 in bf16: every layer's decode through the tensor-core form
-        layers = cfg.num_hidden_layers
-        check(step["wrapper_launches_per_step"] == {"flash_decode": layers, "flash_decode_mma": layers},
-              f"qwen3_moe step launches {step['wrapper_launches_per_step']}")
-        del window, edge
-        gc.collect()
-        torch.cuda.empty_cache()
-        t0 = time.perf_counter()
-        served_cfg = dict(QWEN3_235B_A22B_CONFIG, num_hidden_layers=QW_SERVE_LAYERS)
-        cfg = ModelConfig.from_hf(served_cfg)
-        window, edge = random_qwen_params(cfg, range(QW_SERVE_LAYERS), torch.device("cuda"), torch.bfloat16, seed=0)
-        save_checkpoint(tmp, served_cfg, hf_tensors(window, edge, "qwen3_moe"))
-        del window, edge
-        torch.cuda.empty_cache()
-        write_s = time.perf_counter() - t0
-        serve = phase_qwen3_moe_serve(tmp, port, prompt_text, write_s)
-        batched = phase_qwen3_moe_batch_serve(tmp, port)
-    finally:
-        shutil.rmtree(os.path.dirname(tmp), ignore_errors=True)
-    return step, serve, batched
+    tmp = os.path.join(ckpt_root, QW_MODEL)
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    cfg = ModelConfig.from_hf(QWEN3_30B_A3B_CONFIG)
+    window, edge = random_qwen_params(cfg, range(cfg.num_hidden_layers), torch.device("cuda"), torch.bfloat16,
+                                      seed=0)
+    init_s = time.perf_counter() - t0
+    step = dict(phase_moe_step("qwen3_moe_step", "Qwen3-30B-A3B (synthetic bf16 weights, seed 0)", cfg, window,
+                               edge, 300), init_s=init_s)
+    # G = 8 at head dim 128 in bf16: every layer's decode through the tensor-core form
+    layers = cfg.num_hidden_layers
+    check(step["wrapper_launches_per_step"] == {"flash_decode": layers, "flash_decode_mma": layers},
+          f"qwen3_moe step launches {step['wrapper_launches_per_step']}")
+    del window, edge
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    served_cfg = dict(QWEN3_235B_A22B_CONFIG, num_hidden_layers=QW_SERVE_LAYERS)
+    cfg = ModelConfig.from_hf(served_cfg)
+    window, edge = random_qwen_params(cfg, range(QW_SERVE_LAYERS), torch.device("cuda"), torch.bfloat16, seed=0)
+    save_checkpoint(tmp, served_cfg, hf_tensors(window, edge, "qwen3_moe"))
+    del window, edge
+    torch.cuda.empty_cache()
+    write_s = time.perf_counter() - t0
+    serve = phase_qwen3_moe_serve(tmp, port, prompt_text, write_s)
+    batched = phase_qwen3_moe_batch_serve(tmp, port)
+    return step, serve, batched, (tmp, QW_MODEL, served_cfg, serve["greedy_text"])
 
 
 def phase_qwen3_moe_serve(model_dir: str, port: int, prompt_text: str, write_s: float) -> dict:
@@ -4821,7 +5112,7 @@ def phase_qwen3_moe_serve(model_dir: str, port: int, prompt_text: str, write_s: 
         "phase": "qwen3_moe_serve", "mode": "single sequence", "gpu": gpu_line(),
         "model": f"Qwen3-235B-A22B widths, {QW_SERVE_LAYERS} of 94 layers (synthetic bf16 weights, seed 0)",
         "checkpoint_write_s": write_s, "load_s": load_s, "launches": launches, "prefills": len(results),
-        "decode_steps": decode_steps, "kv_bytes": engine["kv_bytes"],
+        "decode_steps": decode_steps, "kv_bytes": engine["kv_bytes"], "greedy_text": results[0]["content"],
         "requests": [
             {"kind": k, "status": r["status"], "completion_tokens": r["tokens"], "s": r["s"],
              "tokens_per_s": r["tokens"] / r["s"], "content_head": r["content"][:40]}
@@ -5547,7 +5838,7 @@ def phase_wq_parity() -> dict:
 
 
 def phase_wq_serve(model_dir: str, port: int, bodies: list, served: dict, bf16_weight_bytes: int,
-                   batched: dict) -> dict:
+                   batched: dict, pair: ShardPair) -> dict:
     """The serve phase's checkpoint at `<id>:int8` and `<id>:int4` (the
     catalog's weight-only variants) through the HTTP entry point, with the
     serve phase's greedy, streamed and sampled requests: 64 tokens each,
@@ -5614,8 +5905,7 @@ def phase_wq_serve(model_dir: str, port: int, bodies: list, served: dict, bf16_w
     out["batched"] = burst
     # the ring: the variant's id makes both shards load at weight_quant_bits 8
     greedy = dict(bodies[0], model=WQ_MODEL + ":int8")
-    results, healths, load_s, _ = _ring_pass(model_dir + ":int8", "lossless", [greedy], os.path.dirname(model_dir),
-                                             tag="wq8")
+    results, healths, load_s, _ = _ring_pass(pair, model_dir + ":int8", "lossless", [greedy])
     r = results[0]
     check(r["status"] == 200 and r["tokens"] == MAX_TOKENS, f"wq8 ring: {r['status']} {r['tokens']}")
     check(r["content"] == out[8]["results"][0]["content"], "wq8 ring text differs from the int8 single process's")
@@ -5746,14 +6036,14 @@ def phase_wq_step_70b() -> dict:
 
 # weight streaming (core/weights.py): the parity plans (family, window,
 # residency), the serve's tail shard plan, and Llama-3.3-70B-Instruct's
-# widths in bf16 streamed at a fixed depth: 60% of the card machine's
-# MemAvailable (108.4 GB at its start) over one layer's 1.711 GB
-# is 38 layers of page-locked host memory (65.0 GB), with the card capped
-# below them
+# widths in bf16 streamed at a fixed depth: 24 layers of page-locked host
+# memory (41.1 GB at one layer's 1.711 GB), still more than the card's cap
+# (38 layers, 60% of the card machine's 108.4 GB MemAvailable, until the
+# script's time limit cut the depth)
 STREAM_PLANS = [("llama", 2, 4), ("llama", 2, 1), ("llama", 1, 1), ("deepseek_v2", 2, 2), ("gpt_oss", 2, 2)]
 STREAM_SERVE_WINDOWS = ({}, {"window_size": 2, "residency_size": 4})
-STREAM_70B_LAYERS, STREAM_70B_WINDOW, STREAM_70B_RESIDENCY = 38, 8, 16
-STREAM_70B_CAP_BYTES = 40 * 10**9  # the card's allowance: below the 38 layers' 65.0 GB
+STREAM_70B_LAYERS, STREAM_70B_WINDOW, STREAM_70B_RESIDENCY = 24, 8, 16
+STREAM_70B_CAP_BYTES = 40 * 10**9  # the card's allowance: below the 24 layers' 41.1 GB
 STREAM_70B_PROMPT, STREAM_70B_STEPS = 64, 4
 PCIE_GEN5_X16_BYTES_PER_S = 64e9  # the link's nominal rate, one direction
 
@@ -5825,7 +6115,8 @@ def phase_stream_parity() -> dict:
     return total
 
 
-def phase_stream_serve(model_dir: str, bodies: list, serve_results: list, served: dict, resident_ring: dict) -> dict:
+def phase_stream_serve(model_dir: str, bodies: list, serve_results: list, served: dict, resident_ring: dict,
+                       pair: ShardPair) -> dict:
     """The ring_serve checkpoint (full-width Llama-3.2-1B, bf16) as the same
     two shard processes, shard 1 (layers 8-15) streaming its weights with
     window_size 2 and residency_size 4 (offload: a decode step copies all 8
@@ -5837,8 +6128,8 @@ def phase_stream_serve(model_dir: str, bodies: list, serve_results: list, served
     weight cache counters (loads, hits, evictions) from /health, the bytes
     copied to the card a step and the rate they crossed at, against the
     step's bound at the link's nominal rate.  Returns s1's launches."""
-    results, (h0, h1), load_s, warm = _ring_pass(model_dir, "lossless", bodies[:2], os.path.dirname(model_dir),
-                                                 tag="stream", windows=STREAM_SERVE_WINDOWS)
+    results, (h0, h1), load_s, warm = _ring_pass(pair, model_dir, "lossless", bodies[:2],
+                                                 windows=STREAM_SERVE_WINDOWS)
     for i, r in enumerate(results):
         check(r["status"] == 200 and r["tokens"] == MAX_TOKENS,
               f"stream_serve request {i}: {r['status']} {r['tokens']}")
@@ -5952,7 +6243,7 @@ def free_host_caches() -> None:
 
 
 def phase_stream_step_70b() -> dict:
-    """Llama-3.3-70B-Instruct's widths in bf16, streamed: 38 layers (65.0
+    """Llama-3.3-70B-Instruct's widths in bf16, streamed: 24 layers (41.1
     GB, more than the card may use here: it is capped at 40 GB with
     set_per_process_memory_fraction) made from a seed on the card one at a
     time and packed into page-locked host memory, the embedding and the LM
@@ -6553,20 +6844,29 @@ def main() -> int:
     sp_parity = phase_sp_parity()
     served, batched, quant, ring, sp_served, gathered, spec_served = phase_serve(prompt_text, n_prompt)
     long_text = _batch_prompts()[BATCH_PROMPT_TOKENS.index(300)]
-    _, oss_served = phase_gpt_oss(prompt_text, long_text, _free_port())
-    # deepseek_v2 (after gpt_oss has freed its memory): the MLA-width
-    # kernels at the served prompt's bucket and the step's position, parity,
-    # the 27-layer step, the 2-layer serve
-    main_path.update(phase_mla_kernels(bucket_length(n_prompt)))
-    phase_deepseek_parity()
-    _, ds_served = phase_deepseek(prompt_text, long_text, _free_port())
-    # qwen3_moe (after deepseek_v2 has freed its memory): the G = 16 kernel
-    # rows at the 235B serve's position and the batch mix, the qwen family
-    # parity, Qwen3-30B-A3B's 48-layer step, the 1-layer 235B serves
-    main_path.update(phase_wide_kernels(n_prompt + MAX_TOKENS - 2))
-    phase_mma_kernels()
-    phase_qwen_parity()
-    _, qw_served, qw_batched = phase_qwen3_moe(prompt_text, _free_port())
+    # the gpt_oss, deepseek_v2 and qwen3_moe serve checkpoints stay on disk
+    # for the family rings (writing them again there would add ~30 s)
+    ckpt_root = tempfile.mkdtemp(prefix="dnet-torch-smoke-served-")
+    try:
+        _, oss_served, oss_ring = phase_gpt_oss(prompt_text, long_text, _free_port(), ckpt_root)
+        # deepseek_v2 (after gpt_oss has freed its memory): the MLA-width
+        # kernels at the served prompt's bucket and the step's position,
+        # parity, the 27-layer step, the 2-layer serve
+        main_path.update(phase_mla_kernels(bucket_length(n_prompt)))
+        phase_deepseek_parity()
+        _, ds_served, ds_ring = phase_deepseek(prompt_text, long_text, _free_port(), ckpt_root)
+        # qwen3_moe (after deepseek_v2 has freed its memory): the G = 16
+        # kernel rows at the 235B serve's position and the batch mix, the
+        # qwen family parity, Qwen3-30B-A3B's 48-layer step, the 2-layer
+        # 235B serves
+        main_path.update(phase_wide_kernels(n_prompt + MAX_TOKENS - 2))
+        phase_mma_kernels()
+        phase_qwen_parity()
+        _, qw_served, qw_batched, qw_ring = phase_qwen3_moe(prompt_text, _free_port(), ckpt_root)
+        # every family on one pair of ring shards
+        phase_family_rings(prompt_text, {"gpt_oss": oss_ring, "deepseek_v2": ds_ring, "qwen3_moe": qw_ring})
+    finally:
+        shutil.rmtree(ckpt_root, ignore_errors=True)
     # Llama-3.3-70B-Instruct at int8 (after every earlier phase has freed
     # its memory): all 80 layers on the one card; then in bf16, streamed
     # from host memory past a capped card

@@ -4,9 +4,16 @@
 Counterpart of dnet_tpu/api/ring_manager.py for single-round contiguous
 rings: `build_manual_topology` orders the assignments into a ring and wires
 the next pointers; `RingModelManager.load_model` ships each shard its load
-body (lanes, speculation and the prefix cache off: 0; weight_quant_bits
-as DNET_API_WEIGHT_QUANT_BITS says, or a `<id>:int8` / `<id>:int4` model
-id's bits with the base checkpoint as the model path) concurrently and then serves through a `RingApiAdapter`; `_hop_codec` resolves
+body concurrently and then serves through a `RingApiAdapter`.  The body
+carries weight_quant_bits as DNET_API_WEIGHT_QUANT_BITS says (or a
+`<id>:int8` / `<id>:int4` model id's bits, with the base checkpoint as the
+model path), and lanes, spec_lookahead and prefix_cache as the reference's
+rules work them out from DNET_API_RING_LANES, DNET_API_SPEC_LOOKAHEAD and
+DNET_API_PREFIX_CACHE (`_lanes_for`, `_spec_lookahead_for`, `_prefix_for`:
+each needs a single-round resident topology, lanes a model with gated KV
+writes, speculation a rewindable cache and no lanes; every setting they
+turn off is logged); the shards refuse a value above 0 (422, the setting
+named) until those features are ported.  `_hop_codec` resolves
 DNET_WIRE_CODEC=auto per hop.  A failed shard load answers with the
 shard's own status (422 for an option the shard does not serve).  An
 assignment's `window_size` / `residency_size` ride its body: that shard
@@ -23,8 +30,10 @@ from __future__ import annotations
 
 import asyncio
 import functools
+import json
 import socket
 import time
+from pathlib import Path
 from typing import List, Optional
 
 import aiohttp
@@ -144,6 +153,10 @@ class RingModelManager:
         is its base checkpoint's, its bits the shards' weight_quant_bits."""
         by_instance = {d.instance: d for d in topo.devices}
         model_id, wq, _ = weight_quant(model_id, api_settings())
+        model_dir = resolve_model_dir(model_id, self.models_dir)
+        lanes = self._lanes_for(topo, model_dir)
+        spec = 0 if lanes > 1 else self._spec_lookahead_for(topo, model_dir, max_seq)
+        prefix = self._prefix_for(topo)
         bodies = {}
         for a in topo.assignments:
             dev, nxt = by_instance[a.instance], by_instance.get(a.next_instance)
@@ -163,14 +176,80 @@ class RingModelManager:
                 "mesh_tp": a.mesh_tp,
                 "mesh_sp": a.mesh_sp,
                 "tp_degree": a.tp_degree,
-                # not ported on shards (off for every topology, streamed or not)
-                "spec_lookahead": 0,
-                "lanes": 0,
-                "prefix_cache": 0,
+                "spec_lookahead": spec,
+                "lanes": lanes,
+                "prefix_cache": prefix,
                 "epoch": topo.epoch,
                 "wire_codec": self._hop_codec(dev, nxt, len(topo.assignments)),
             }
         return bodies
+
+    @staticmethod
+    def _single_round_resident(topo: TopologyInfo) -> bool:
+        """The precondition lanes, the prefix cache and speculation share:
+        every assignment one contiguous run (the prompt visits each shard
+        once) with no streaming window."""
+        return all(a.layers == list(range(a.layers[0], a.layers[-1] + 1)) and a.window_size <= 0
+                   for a in topo.assignments)
+
+    @staticmethod
+    def _probe_model(model_dir):
+        """(ModelConfig, ring model class) from a checkpoint's config.json."""
+        from dnet_tpu_torch.models import ModelConfig, get_ring_model_cls
+
+        cfg = ModelConfig.from_hf(json.loads((Path(model_dir) / "config.json").read_text()))
+        return cfg, get_ring_model_cls(cfg.model_type)
+
+    def _lanes_for(self, topo: TopologyInfo, model_dir) -> int:
+        """DNET_API_RING_LANES where the topology is single-round and
+        resident and the model has gated KV writes, else 0 (logged)."""
+        lanes = api_settings().ring_lanes
+        if lanes <= 1:
+            return 0
+        if not self._single_round_resident(topo):
+            log.info("ring lanes off: k-round or streaming topology")
+            return 0
+        try:
+            cfg, model_cls = self._probe_model(model_dir)
+        except Exception as exc:  # an unreadable model serves single-lane
+            log.warning("ring lanes off (model probe failed: %s); serving lanes=1", exc)
+            return 0
+        if not model_cls.supports_kv_commit:
+            log.warning("ring_lanes=%d requested but %s has no gated KV writes; degrading to lanes=1",
+                        lanes, cfg.model_type)
+            return 0
+        return lanes
+
+    def _prefix_for(self, topo: TopologyInfo) -> int:
+        """DNET_API_PREFIX_CACHE where the topology is single-round and
+        resident, else 0 (logged)."""
+        cap = api_settings().prefix_cache
+        if cap <= 0:
+            return 0
+        if not self._single_round_resident(topo):
+            log.info("ring prefix cache off: k-round or streaming topology")
+            return 0
+        return cap
+
+    def _spec_lookahead_for(self, topo: TopologyInfo, model_dir, max_seq: int) -> int:
+        """DNET_API_SPEC_LOOKAHEAD where the topology is single-round and
+        resident and the whole model's cache can rewind at max_seq (no
+        rotating ring), else 0 (logged)."""
+        lookahead = api_settings().spec_lookahead
+        if lookahead <= 0:
+            return 0
+        if not self._single_round_resident(topo):
+            log.info("ring speculation off: k-round or streaming topology")
+            return 0
+        try:
+            cfg, model_cls = self._probe_model(model_dir)
+            if not model_cls(cfg, range(cfg.num_hidden_layers), "cpu").kv_rewindable(max_seq):
+                log.info("ring speculation off: %s cache cannot rewind", cfg.model_type)
+                return 0
+        except Exception as exc:
+            log.warning("ring speculation off (model probe failed: %s)", exc)
+            return 0
+        return lookahead
 
     async def load_model(self, model_id: str, max_seq: Optional[int] = None, delta: bool = False) -> float:
         topo = self.cluster.current_topology

@@ -5,14 +5,17 @@ Counterpart of dnet_tpu/config.py, trimmed to what the port's paths read:
 DNET_KV_BLOCK_TOKENS, DNET_KV_POOL_BLOCKS), `ApiSettings` (DNET_API_*: the
 API node's host, ports, timeout, admission, models dir, max_seq_len,
 param dtype and batch slots, which its CLI takes as defaults; the ring's
-auto steps and callback address; the weight quantization and its group;
-and the prefix cache, speculation and draft model, which the port reads to
-refuse where it does not serve them yet),
+auto steps, lanes and callback address; the weight quantization and its
+group; and the prefix cache, speculation and draft model, which a ring
+ships to its shards and the port refuses where it does not serve them
+yet),
 `AdmissionSettings` (DNET_ADMIT_QUEUE_DEPTH, DNET_ADMIT_QUEUE_TIMEOUT_S,
 DNET_REQUEST_DEADLINE_S, DNET_DRAIN_DEADLINE_S: the bounded admission
 queue, the default request deadline and the shutdown drain),
-`ShardSettings` (DNET_SHARD_*: a shard's CLI defaults and the weight
-streaming repack cache's directory, `repack_dir`), the ring's
+`ShardSettings` (DNET_SHARD_*: a shard's CLI defaults, the weight
+streaming repack cache's directory, `repack_dir`, and the mesh axes
+`mesh_tp` / `mesh_sp`, read to refuse a mesh), `TpSettings` (DNET_TP,
+read to refuse tensor parallelism; DNET_TP_COLLECTIVE, unread), the ring's
 `TransportSettings` (DNET_TRANSPORT_*), `WireSettings`
 (DNET_WIRE_*: the hop codec), `ComputeSettings` (DNET_COMPUTE_MOE_IMPL,
 DNET_COMPUTE_MOE_CAPACITY_FACTOR), `MeshSettings` (DNET_MESH_PP/TP/DP/SP:
@@ -113,6 +116,10 @@ class ApiSettings:
     # decode grants on a ring: tokens the tail may feed straight back to
     # the head without an API round trip (0 = every step from the API)
     ring_auto_steps: int = 16
+    # batched lanes on a ring: every shard pools this many KV rows (0 / 1 =
+    # off; the ring manager ships it where the topology and model allow,
+    # and the shards refuse it until ring lanes are ported)
+    ring_lanes: int = 0
     # host:port the shards dial for token callbacks ("" = derived)
     callback_addr: str = ""
     # ring failure monitor (api/failure.py): seconds between gRPC health
@@ -132,6 +139,23 @@ class ShardSettings:
     models_dir: str = "~/.dnet-tpu/models"
     # the weight-streaming repack cache (core/weights.py HostLayerStore)
     repack_dir: str = "~/.dnet-tpu/repacked"
+    # a mesh-backed shard's axes, taken when a load body gives 0 (tp=1/sp=1
+    # = one device; tp=-1 = every local device): anything else is refused
+    # at load until mesh-backed shards are ported
+    mesh_tp: int = 1
+    mesh_sp: int = 1
+
+
+@dataclass
+class TpSettings:
+    """Intra-shard tensor parallelism (DNET_TP, DNET_TP_COLLECTIVE), the
+    reference's group: the degree a shard loaded with tp_degree 0 takes (1
+    = off) and the collectives' wire format (auto | lossless | q8).  A
+    degree above 1 is refused at load until tensor parallelism is ported;
+    nothing reads `tp_collective` until then."""
+
+    tp: int = 1
+    tp_collective: str = "auto"
 
 
 @dataclass
@@ -328,6 +352,10 @@ def api_settings() -> ApiSettings:
 
 def shard_settings() -> ShardSettings:
     return _from_env(ShardSettings, "DNET_SHARD_")
+
+
+def tp_settings() -> TpSettings:
+    return _from_env(TpSettings, "DNET_")
 
 
 def transport_settings() -> TransportSettings:

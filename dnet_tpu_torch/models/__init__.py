@@ -23,6 +23,8 @@ _REGISTRY = {
     for cls in (LlamaRingModel, Qwen2RingModel, Qwen3RingModel, MixtralRingModel, Qwen3MoeRingModel,
                 GptOssRingModel, DeepseekV2RingModel)
 }
+# every registered family, in registration order
+MODEL_TYPES = tuple(_REGISTRY)
 
 
 def get_ring_model_cls(model_type: str) -> Type[RingModel]:
@@ -32,4 +34,4 @@ def get_ring_model_cls(model_type: str) -> Type[RingModel]:
         raise ValueError(f"unsupported model_type: {model_type!r}") from None
 
 
-__all__ = ["ModelConfig", "RingModel", "get_ring_model_cls"]
+__all__ = ["MODEL_TYPES", "ModelConfig", "RingModel", "get_ring_model_cls"]

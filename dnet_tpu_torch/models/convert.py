@@ -2,9 +2,10 @@
 and the port's params back to HF checkpoint tensors.
 
 `from_jax_params` takes dnet_tpu's layer-stacked window params and edge
-params as numpy arrays ((in, out)-oriented matrices with a leading layer
-axis; gpt_oss's paired {"a": even layers, "b": odd layers} stacks and the
-{"dense", "moe"} segments of deepseek_v2 and of mixed-layout qwen3_moe too)
+params, of the whole model or of a ring shard's layer range, as numpy
+arrays ((in, out)-oriented matrices with a leading layer axis; gpt_oss's
+paired {"a": even layers, "b": odd layers} stacks and the {"dense",
+"moe"} segments of deepseek_v2 and of mixed-layout qwen3_moe too)
 and returns the port's per-layer list, in global layer order, and edge
 dict on `device`.  A weight the reference quantized ({"q" | "q4", "s"},
 ops/quant.py) crosses unchanged: its int8 / packed-uint8 codes as they are
@@ -18,7 +19,7 @@ written as a checkpoint.
 
 from __future__ import annotations
 
-from typing import Dict, List, Mapping, Tuple, Union
+from typing import Dict, List, Mapping, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -111,36 +112,43 @@ def from_jax_params(
     config: ModelConfig,
     device: Union[str, torch.device],
     dtype: torch.dtype = torch.float32,
+    layers: Optional[Sequence[int]] = None,
 ) -> Tuple[List[Dict[str, torch.Tensor]], Dict[str, Dict[str, torch.Tensor]]]:
     """(per-layer window params, edge params) for the port from the
-    reference's stacked window params and edge params (numpy arrays).  A
-    paired {"a", "b"} stack (gpt_oss) is interleaved back into layer order
-    (a0, b0, a1, b1, ...); {"dense", "moe"} segments (deepseek_v2, mixed
-    qwen3_moe) are merged in the order of the model's layer kinds
-    (`is_moe_layer`): dense first for a dense prefix, interleaved for
-    qwen3_moe's decoder_sparse_step layouts."""
-    n = config.num_hidden_layers
+    reference's stacked window params and edge params (numpy arrays) of the
+    absolute `layers` (None: every layer; a ring shard's range otherwise,
+    with the edge params that range holds).  A paired {"a", "b"} stack
+    (gpt_oss) is interleaved back into layer order (a0, b0, a1, b1, ...); a
+    flat one (gpt_oss over a range whose kinds do not pair) is a plain
+    stack; {"dense", "moe"} segments (deepseek_v2, mixed qwen3_moe) are
+    merged in the order of the range's layer kinds (`is_moe_layer`): dense
+    first for a dense prefix, interleaved for qwen3_moe's
+    decoder_sparse_step layouts, either segment alone for a range that
+    holds one kind."""
+    layers = list(range(config.num_hidden_layers)) if layers is None else sorted(layers)
+    n = len(layers)
     if set(window_params) == {"a", "b"}:
         halves = [_unstack(window_params[h], device, dtype) for h in ("a", "b")]
-        layers = [p for pair in zip(*halves) for p in pair]
-        if len(layers) != n or len(halves[0]) != len(halves[1]):
-            raise ValueError(f"paired halves of {[len(h) for h in halves]} layers, config has {n}")
-        return layers, _edge(edge_params, config, device, dtype)
+        out = [p for pair in zip(*halves) for p in pair]
+        if len(out) != n or len(halves[0]) != len(halves[1]):
+            raise ValueError(f"paired halves of {[len(h) for h in halves]} layers, the range has {n}")
+        return out, _edge(edge_params, config, device, dtype)
     if set(window_params) <= {"dense", "moe"} and window_params:
         from dnet_tpu_torch.models import get_ring_model_cls
 
-        model = get_ring_model_cls(config.model_type)(config, range(n), "cpu")
-        kinds = ["moe" if model.is_moe_layer(a) else "dense" for a in range(n)]
+        model = get_ring_model_cls(config.model_type)(config, layers, "cpu")
+        kinds = ["moe" if model.is_moe_layer(a) else "dense" for a in layers]
         segs = {seg: _unstack(window_params[seg], device, dtype) for seg in window_params}
         if {seg: len(ls) for seg, ls in segs.items()} != {seg: kinds.count(seg) for seg in set(kinds)}:
-            raise ValueError(f"{sorted(window_params)} segments do not match {config.model_type}'s layer kinds")
+            raise ValueError(f"{sorted(window_params)} segments do not match {config.model_type}'s layer kinds "
+                             f"over layers {layers}")
         rows = {seg: iter(ls) for seg, ls in segs.items()}
-        layers = [next(rows[kind]) for kind in kinds]
+        out = [next(rows[kind]) for kind in kinds]
     else:
-        layers = _unstack(window_params, device, dtype)
-    if len(layers) != n:
-        raise ValueError(f"window params stack {len(layers)} layers, config has {n}")
-    return layers, _edge(edge_params, config, device, dtype)
+        out = _unstack(window_params, device, dtype)
+    if len(out) != n:
+        raise ValueError(f"window params stack {len(out)} layers, the range has {n}")
+    return out, _edge(edge_params, config, device, dtype)
 
 
 def _unstack(stacked: Mapping[str, np.ndarray], device, dtype) -> List[Dict[str, torch.Tensor]]:

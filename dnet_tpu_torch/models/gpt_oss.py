@@ -1,9 +1,9 @@
 """GPT-OSS-family model: MoE + alternating sliding/full attention + sinks.
 
 Counterpart of dnet_tpu/models/gpt_oss.py in its paired layout
-(`_apply_paired`): gpt-oss alternates sliding and full attention layers,
-so the even layers (half "a") and the odd layers (half "b") are each of
-one kind.  `stack_layers` splits the per-layer params into the two
+(`_apply_paired`) and its flat one (below): gpt-oss alternates sliding
+and full attention layers, so the even layers (half "a") and the odd
+layers (half "b") are each of one kind.  `stack_layers` splits the per-layer params into the two
 halves, `init_kv` gives each half its own cache, and the sliding half's
 cache is an O(window) ring buffer (W rows instead of max_seq) read by the
 decode kernel's rotating variant.  Each layer runs RMSNorm -> QKV (biases)
@@ -30,8 +30,18 @@ the reference.
 
 Weights follow the HF dequantized layout: experts as [E, D, 2F] / [E, F, D]
 ((in, out)-oriented already) with interleaved gate/up columns, and a
-clamped SwiGLU (alpha 1.702, limit 7).  The flat (unpaired) layout, for odd
-layer counts or non-alternating kinds, is refused at load.
+clamped SwiGLU (alpha 1.702, limit 7).
+
+A layer range whose kinds do not pair (an odd count, as a ring shard's
+range or a manual topology may give) takes the reference's flat layout:
+one list in layer order over one full-length cache for every layer, each
+layer under its kind's mask (causal, or the sliding window) through the
+dense masked attention with sinks, as the reference's non-paired
+`apply_window` runs it; no kernel runs there, and a sliding layer's
+decode reads its whole cache.  It serves single sequences, resident or
+streamed (a streamed flat layer is a one-layer window keyed by its kind,
+{"full": [p]} or {"sliding": [p]}, over a full-length cache); batched
+slots and sequence parallelism refuse it with EngineCapabilityError.
 
 A streaming engine (core/weights.py) runs one layer at a time as a window
 of its half alone ({"a": [p]} or {"b": [p]}) over that layer's own cache,
@@ -40,7 +50,7 @@ in the half's form (`init_offload_kv`: the sliding layers' W-row ring).
 
 from __future__ import annotations
 
-from typing import Dict, List, Optional, Tuple
+from typing import Dict, List, Optional, Tuple, Union
 
 import torch
 
@@ -48,6 +58,7 @@ from dnet_tpu_torch.core.kvcache import init_cache, init_cache_sp, layer_slices
 from dnet_tpu_torch.models.base import ModelConfig, RingModel
 from dnet_tpu_torch.ops.attention import (
     cached_attend,
+    causal_mask,
     rotating_cached_attend,
     sliding_window_mask,
     sp_causal_mask,
@@ -62,6 +73,8 @@ from dnet_tpu_torch.ops.rope import apply_rope, rope_frequencies
 ALPHA = 1.702
 LIMIT = 7.0
 HALVES = ("a", "b")
+# a streamed flat layer's window key, by kind (0 = full, 1 = sliding)
+FLAT_KINDS = ("full", "sliding")
 
 
 class GptOssRingModel(RingModel):
@@ -80,20 +93,17 @@ class GptOssRingModel(RingModel):
         resolve_moe_impl(self.moe_impl, 1, max(config.num_local_experts, 1))  # fail fast on a typo
         kinds = config.layer_types or ["full_attention"] * config.num_hidden_layers
         # kind per assigned layer (0 = full, 1 = sliding)
-        kind_list = [1 if kinds[a] == "sliding_attention" else 0 for a in self.layers]
-        # paired layout: each of the even and odd halves is one kind
+        self.layer_kinds: List[int] = [1 if kinds[a] == "sliding_attention" else 0 for a in self.layers]
+        # paired layout: each of the even and odd halves is one kind; else
+        # the flat layout (one list in layer order, a kind per layer)
         self.pair_kinds: Optional[Tuple[int, int]] = None
-        if len(kind_list) >= 2 and len(kind_list) % 2 == 0:
-            a, b = kind_list[0::2], kind_list[1::2]
+        if len(self.layer_kinds) >= 2 and len(self.layer_kinds) % 2 == 0:
+            a, b = self.layer_kinds[0::2], self.layer_kinds[1::2]
             if len(set(a)) == 1 and len(set(b)) == 1:
                 self.pair_kinds = (a[0], b[0])
-        if self.pair_kinds is None:
-            from dnet_tpu_torch.api.inference import EngineCapabilityError
-
-            raise EngineCapabilityError(
-                f"gpt_oss layers {self.layers} with kinds {kind_list} do not pair into one sliding "
-                "and one full half: the flat layout is not ported"
-            )
+        # the flat layout serves single sequences only: no lane hook, so
+        # batched slots refuse it (its sp cache is refused in init_kv_sp)
+        self.supports_kv_commit = self.pair_kinds is not None
 
     # ---- compute ------------------------------------------------------
     def _attention(
@@ -170,7 +180,10 @@ class GptOssRingModel(RingModel):
         `attend_fn` (a decode row of batched lanes, pos [B, 1]) each layer's
         write and read go through the hook: the sliding half's ring with
         window W, the full half (and a sliding half over a full-length
-        cache, whose window covers every position) with window 0."""
+        cache, whose window covers every position) with window 0.  The
+        flat layout takes `_apply_flat` (no sp, no lane hook)."""
+        if self.pair_kinds is None:
+            return self._apply_flat(window_params, x, kv, pos, t_real), kv
         if sp is not None:
             return self._apply_sp(window_params, x, kv, pos, sp), kv
         T = x.shape[1]
@@ -201,6 +214,26 @@ class GptOssRingModel(RingModel):
                 x = self._moe(p, x)
         return x, kv
 
+    def _apply_flat(self, window_params, x: torch.Tensor, kv: dict, pos: int, t_real: Optional[int]) -> torch.Tensor:
+        """The flat layout, the reference's non-paired body: the layers in
+        order over one full-length cache, each under its kind's mask (the
+        sliding window or causal), with sinks, through the dense masked
+        attention (no kernel: the reference passes an explicit mask to
+        cached_attend too).  `window_params` is the layer list, or a
+        streamed layer's one-layer window keyed by its kind."""
+        if isinstance(window_params, dict):  # {"full" | "sliding": [p]}
+            (name, layers), = window_params.items()
+            kinds = [FLAT_KINDS.index(name)] * len(layers)
+        else:
+            layers, kinds = window_params, self.layer_kinds
+        T, S = x.shape[1], kv["k"].shape[2]
+        masks = (causal_mask(T, S, pos, device=x.device),
+                 sliding_window_mask(T, S, pos, self.config.sliding_window or S, device=x.device))
+        for i, (p, kind) in enumerate(zip(layers, kinds)):
+            x = self._attention(p, x, layer_slices(kv, i), pos, 0, False, masks[kind], t_real, None)
+            x = self._moe(p, x)
+        return x
+
     def sp_kind_masks(self, kind: int, T: int, S_local: int, pos: int, sp) -> list:
         """One half's rank-local [T, S_local] masks under sp, on each rank's
         device (the reference's `_kind_mask` with an sp axis): the sliding
@@ -229,16 +262,22 @@ class GptOssRingModel(RingModel):
         return rms_norm(x, edge_params["final_norm"]["weight"], self.config.rms_norm_eps)
 
     # ---- layout -------------------------------------------------------
-    def stack_layers(self, per_layer: List[dict]) -> Dict[str, List[dict]]:
+    def stack_layers(self, per_layer: List[dict]) -> Union[List[dict], Dict[str, List[dict]]]:
+        """The paired halves, or the flat layout's list as it is."""
+        if self.pair_kinds is None:
+            return per_layer
         return {"a": per_layer[0::2], "b": per_layer[1::2]}
 
     def init_kv(
         self, n_layers: int, batch: int, max_seq: int, dtype: str = "bfloat16", quant_bits: int = 0
     ) -> dict:
         """The paired cache {"a": cache, "b": cache}, each of n_layers / 2
-        layers; a sliding half is a ring of W rows when W < max_seq."""
+        layers; a sliding half is a ring of W rows when W < max_seq.  The
+        flat layout: one full-length cache for every layer."""
         if n_layers != len(self.layers):
             raise ValueError(f"gpt_oss caches cover all {len(self.layers)} layers, not {n_layers}")
+        if self.pair_kinds is None:
+            return super().init_kv(n_layers, batch, max_seq, dtype, quant_bits)
         W = self.config.sliding_window
 
         def cache(kind: int) -> dict:
@@ -253,14 +292,20 @@ class GptOssRingModel(RingModel):
         return HALVES[self.abs_to_local[layer] % 2]
 
     def wrap_offload_layer(self, mapped: dict, layer: int) -> Dict[str, List[dict]]:
-        """One layer as a one-layer window of its half."""
+        """One layer as a one-layer window of its half (flat: keyed by its
+        kind)."""
+        if self.pair_kinds is None:
+            return {FLAT_KINDS[self.layer_kinds[self.abs_to_local[layer]]]: [mapped]}
         return {self._half(layer): [mapped]}
 
     def init_offload_kv(
         self, layer: int, batch: int, max_seq: int, dtype: str = "bfloat16", quant_bits: int = 0
     ) -> dict:
         """A streamed layer's cache in its half's form: a W-row ring for a
-        sliding layer when W < max_seq, else max_seq rows."""
+        sliding layer when W < max_seq, else max_seq rows (flat: always
+        max_seq rows)."""
+        if self.pair_kinds is None:
+            return super().init_offload_kv(layer, batch, max_seq, dtype, quant_bits)
         kind = self.pair_kinds[HALVES.index(self._half(layer))]
         W = self.config.sliding_window
         s = W if kind == 1 and 0 < W < max_seq else max_seq
@@ -275,6 +320,11 @@ class GptOssRingModel(RingModel):
         (never a ring: the reference's init_kv(rotating=False) under sp)."""
         if n_layers != len(self.layers):
             raise ValueError(f"gpt_oss caches cover all {len(self.layers)} layers, not {n_layers}")
+        if self.pair_kinds is None:  # no reference path reaches it from a shard
+            from dnet_tpu_torch.api.inference import EngineCapabilityError
+
+            raise EngineCapabilityError(f"gpt_oss layers {self.layers} with kinds {self.layer_kinds} take the flat "
+                                        "layout, which has no sequence-parallel form")
         cfg = self.kv_config(n_layers // 2, batch, max_seq, dtype, quant_bits)
         halves = {h: init_cache_sp(cfg, devices) for h in HALVES}
         return [{h: halves[h][r] for h in HALVES} for r in range(len(devices))]
@@ -282,9 +332,9 @@ class GptOssRingModel(RingModel):
     def kv_rewindable(self, max_seq: int, sp: int = 1) -> bool:
         """False when init_kv allocates a ring-buffer half: wrap-around
         writes evict live rows, so a rewind would corrupt the window.  Under
-        sp (sp > 1) no half is a ring."""
+        sp (sp > 1) no half is a ring, nor in the flat layout."""
         W = self.config.sliding_window
-        return sp > 1 or not (0 < W < max_seq and 1 in self.pair_kinds)
+        return sp > 1 or self.pair_kinds is None or not (0 < W < max_seq and 1 in self.pair_kinds)
 
     # ---- weight mapping ----------------------------------------------
     def map_layer(self, raw: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:

@@ -10,9 +10,10 @@ receiving shard) dequant + scatter run in the CUDA kernels of
 compression/ops.py.  The chaos points `wire_encode` and `wire_decode` sit
 at the encode and decode seams, as at the reference's synchronous ones.
 
-This slice serves llama-family checkpoints (gpt_oss's paired sliding/full
-layers are not ported to shards), one contiguous layer range per shard, one
-request per ring pass and a synchronous encode; the shard's KV cache takes
+This slice serves every family the port registers (gpt_oss's range in its
+paired layout, or the flat one where its kinds do not pair; deepseek_v2's
+range as its dense and moe segments), one contiguous layer range per shard,
+one request per ring pass and a synchronous encode; the shard's KV cache takes
 the topology's kv_bits (bf16, int8 or packed int4, as core/kvcache.py
 `resolve_kv_bits` maps it).  The topology's `window_size` /
 `residency_size` give the shard's weight plan (core/weights.py): under
@@ -40,10 +41,11 @@ from dnet_tpu_torch.compression import (
     decompress_tensor_device,
     is_compressed_dtype,
 )
-from dnet_tpu_torch.config import transport_settings, wire_settings
+from dnet_tpu_torch.config import tp_settings, transport_settings, wire_settings
 from dnet_tpu_torch.core.engine import LocalEngine, bucket_length
 from dnet_tpu_torch.core.kvcache import resolve_kv_bits
 from dnet_tpu_torch.core.types import ActivationMessage
+from dnet_tpu_torch.models import MODEL_TYPES
 from dnet_tpu_torch.resilience import chaos
 from dnet_tpu_torch.utils.serialization import bytes_to_device, tensor_to_bytes
 
@@ -57,11 +59,6 @@ class ShardCapabilityError(ValueError):
     """A load option this shard does not serve."""
 
 
-# the model families a shard serves (gpt_oss's paired halves and ring
-# caches are not split over shards yet)
-SHARD_MODEL_TYPES = ("llama",)
-
-
 def refuse_model(model_dir: Union[str, Path]) -> None:
     """Raise ShardCapabilityError for a checkpoint whose family this shard
     does not serve; read from its config.json before any weight."""
@@ -69,9 +66,9 @@ def refuse_model(model_dir: Union[str, Path]) -> None:
     if not cfg_path.is_file():
         raise FileNotFoundError(f"no config.json in {model_dir}")
     model_type = json.loads(cfg_path.read_text()).get("model_type")
-    if model_type not in SHARD_MODEL_TYPES:
+    if model_type not in MODEL_TYPES:  # a shard serves every registered family
         raise ShardCapabilityError(
-            f"this shard does not serve model_type {model_type!r} (ring shards serve {SHARD_MODEL_TYPES})"
+            f"this shard does not serve model_type {model_type!r} (ring shards serve {MODEL_TYPES})"
         )
 
 
@@ -90,25 +87,34 @@ def refuse_unsupported(
     **_other,
 ) -> None:
     """Raise ShardCapabilityError for the first load option outside this
-    slice: batched lanes, ring speculation, the ring prefix cache, k-round
-    (non-contiguous) schedules, mesh or tensor parallelism, a kv_bits that
-    is none of 0/16/8/4, a weight_quant_bits that is none of 0/8/4, and the
-    overlapped wire pipeline (None: DNET_WIRE_PIPELINE).  Other keyword
-    arguments are ignored, so a caller can pass its whole load body."""
+    slice, naming the setting it comes from: batched lanes
+    (DNET_API_RING_LANES), ring speculation (DNET_API_SPEC_LOOKAHEAD), the
+    ring prefix cache (DNET_API_PREFIX_CACHE), k-round (non-contiguous)
+    schedules, a mesh-backed shard (DNET_SHARD_MESH_TP / _SP), tensor
+    parallelism (DNET_TP: a tp_degree of 0 takes this shard's own, as the
+    reference's shard resolves it when the mesh is one device), a kv_bits
+    that is none of 0/16/8/4, a weight_quant_bits that is none of 0/8/4,
+    and the overlapped wire pipeline (None: DNET_WIRE_PIPELINE).  Other
+    keyword arguments are ignored, so a caller can pass its whole load
+    body."""
     if wire_pipeline is None:
         wire_pipeline = wire_settings().pipeline
+    if tp_degree == 0 and max(mesh_tp, 1) * max(mesh_sp, 1) == 1:
+        tp_degree = tp_settings().tp
     ls = sorted(int(a) for a in layers)
     if not ls:
         raise ShardCapabilityError("empty layer list")
     refused = [
-        (lanes > 1, f"lanes={lanes}: batched ring lanes are not ported"),
-        (spec_lookahead > 0, f"spec_lookahead={spec_lookahead}: ring speculation is not ported"),
-        (prefix_cache > 0, f"prefix_cache={prefix_cache}: the ring prefix cache is not ported"),
+        (lanes > 1, f"lanes={lanes} (DNET_API_RING_LANES): batched ring lanes are not ported"),
+        (spec_lookahead > 0,
+         f"spec_lookahead={spec_lookahead} (DNET_API_SPEC_LOOKAHEAD): ring speculation is not ported"),
+        (prefix_cache > 0,
+         f"prefix_cache={prefix_cache} (DNET_API_PREFIX_CACHE): the ring prefix cache is not ported"),
         (ls != list(range(ls[0], ls[-1] + 1)),
          f"layers {ls} are not one contiguous range: k-round schedules are not ported"),
-        (mesh_tp not in (0, 1) or mesh_sp not in (0, 1) or tp_degree > 1,
-         f"mesh_tp={mesh_tp} mesh_sp={mesh_sp} tp_degree={tp_degree}: "
-         "mesh and tensor parallelism are not ported"),
+        (mesh_tp not in (0, 1), f"mesh_tp={mesh_tp} (DNET_SHARD_MESH_TP): mesh-backed shards are not ported"),
+        (mesh_sp not in (0, 1), f"mesh_sp={mesh_sp} (DNET_SHARD_MESH_SP): mesh-backed shards are not ported"),
+        (tp_degree > 1, f"tp_degree={tp_degree} (DNET_TP): tensor parallelism is not ported"),
         (kv_bits not in (0, 4, 8, 16), f"kv_bits={kv_bits} (supported: 0/4/8/16)"),
         (weight_quant_bits not in (0, 4, 8), f"weight_quant_bits={weight_quant_bits} (supported: 0/4/8)"),
         (wire_pipeline, "DNET_WIRE_PIPELINE=1: the overlapped wire pipeline is not ported"),

@@ -55,7 +55,10 @@ class Shard:
                 param_dtype=req.param_dtype, wire_dtype=req.wire_dtype, wire_codec=req.wire_codec,
                 window_size=req.window_size, residency_size=req.residency_size,
                 kv_bits=req.kv_bits, weight_quant_bits=req.weight_quant_bits,
-                mesh_tp=req.mesh_tp, mesh_sp=req.mesh_sp, tp_degree=req.tp_degree,
+                # 0 = this shard's own DNET_SHARD_MESH_* default; a tp_degree
+                # of 0 resolves to its own DNET_TP (shard/compute.py)
+                mesh_tp=req.mesh_tp or shard_settings().mesh_tp, mesh_sp=req.mesh_sp or shard_settings().mesh_sp,
+                tp_degree=req.tp_degree,
                 spec_lookahead=req.spec_lookahead, lanes=req.lanes, prefix_cache=req.prefix_cache,
                 # read by the engine only under a streaming plan
                 repack_dir=shard_settings().repack_dir,

@@ -223,13 +223,27 @@ def test_synthetic_checkpoint_round_trip(tmp_path):
 
 def test_flat_layout_is_refused(gpt_oss_dir, tmp_path):
     """Layer kinds that do not pair into one sliding and one full half (an
-    odd layer count here) are refused at load."""
+    odd layer count here) take the flat layout: a single sequence serves
+    the reference's greedy tokens, and the flat layout is refused where no
+    reference path reaches it from a shard (sequence parallelism, batched
+    slots)."""
+    from dnet_tpu_torch.core.batch import BatchedEngine
+    from dnet_tpu_torch.parallel.engine import MeshEngine
     from tests.fakes.checkpoints import make_tiny_gpt_oss
 
     make_tiny_gpt_oss(tmp_path, {"num_hidden_layers": 3,
                                  "layer_types": ["sliding_attention", "full_attention", "sliding_attention"]})
+    eng = LocalEngine(tmp_path, max_seq=MAX_SEQ, param_dtype="float32", device="cpu")
+    assert eng.model.pair_kinds is None and eng.model.layer_kinds == [1, 0, 1]
+    prompt = [256, 72, 101, 108, 108, 111]
+    port = [r.token_id for r in eng.generate(prompt, DecodingParams(temperature=0.0), max_tokens=8, nonce="g")]
+    ref = RefEngine(tmp_path, max_seq=MAX_SEQ, param_dtype="float32")
+    assert port == [r.token_id for r in ref.generate(prompt, RefDecoding(temperature=0.0), max_tokens=8, nonce="g")]
+    mesh = MeshEngine(tmp_path, sp=2, max_seq=MAX_SEQ, param_dtype="float32", device="cpu")
     with pytest.raises(EngineCapabilityError, match="flat layout"):
-        LocalEngine(tmp_path, max_seq=MAX_SEQ, param_dtype="float32", device="cpu")
+        mesh.prefill("s", prompt)
+    with pytest.raises(EngineCapabilityError, match="continuous batching"):
+        BatchedEngine(tmp_path, slots=2, max_seq=MAX_SEQ, param_dtype="float32", device="cpu")
 
 
 def test_unknown_moe_impl_fails_at_load(gpt_oss_dir, monkeypatch):

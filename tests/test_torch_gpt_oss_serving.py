@@ -129,24 +129,38 @@ def test_batched_slots_are_422_at_load(gpt_oss_dir, no_warmup, monkeypatch, env,
 
 
 def test_ring_shard_load_is_422(gpt_oss_dir):
-    """A shard refuses a gpt_oss checkpoint before reading a weight, and a
-    shard with nothing loaded stays empty."""
+    """A ring shard serves a gpt_oss range (every family since the
+    twenty-first slice) and answers 422, before reading a weight, only for
+    an option it does not serve yet (batched lanes here, the setting
+    named); a refused load leaves the shard empty."""
     from dnet_tpu_torch.shard.http import ShardHTTPServer
     from dnet_tpu_torch.shard.runtime import ShardRuntime
     from dnet_tpu_torch.shard.server import Shard
 
+    class Adapter:  # the ring wiring a load resets and configures, not under test
+        async def reset_topology(self):
+            pass
+
+        def configure_topology(self, next_addr):
+            self.next_addr = next_addr
+
     runtime = ShardRuntime("s0", device="cpu")
-    app = ShardHTTPServer(Shard("s0", runtime, adapter=None)).app
+    app = ShardHTTPServer(Shard("s0", runtime, adapter=Adapter())).app
+    body = {"model_path": str(gpt_oss_dir), "layers": [0, 1], "max_seq_len": 64, "param_dtype": "float32"}
 
     async def load():
         client = TestClient(TestServer(app))
         await client.start_server()
         try:
-            r = await client.post("/load_model", json={"model_path": str(gpt_oss_dir), "layers": [0, 1]})
-            return r.status, await r.json()
+            out = []
+            for extra in ({"lanes": 4}, {}):
+                r = await client.post("/load_model", json=dict(body, **extra))
+                out.append((r.status, await r.json(), runtime.compute))
+            return out
         finally:
             await client.close()
 
-    status, body = asyncio.run(load())
-    assert status == 422 and "gpt_oss" in body["message"]
-    assert runtime.compute is None
+    (status, reply, compute), (served, _, loaded) = asyncio.run(load())
+    assert status == 422 and "DNET_API_RING_LANES" in reply["message"] and compute is None
+    assert served == 200 and loaded.layers == [0, 1] and loaded.engine.config.model_type == "gpt_oss"
+    runtime.unload_model_core()

@@ -272,7 +272,7 @@ def test_chaos_shard_fault_mid_decode_resumes_as_the_reference(tiny_llama_dir, r
     so call 5 is s0's half of decode step 2; the request resumes on its rid
     with the same text, usage, finish reason and counter deltas as its
     unfaulted run, on both packages."""
-    from tests.test_torch_ring import MAX_SEQ, Net, _port_shard, _ref_shard
+    from tests.torch_ring_harness import MAX_SEQ, Net, _port_shard, _ref_shard
 
     async def run(name):
         p = _pkg(name)

@@ -94,10 +94,11 @@ class CpuRing:
         self.procs.append(subprocess.Popen([*cmd, *args], cwd=ROOT, env=self.env, stdout=subprocess.PIPE,
                                            stderr=subprocess.STDOUT, text=True))
 
-    def load(self, model_dir) -> None:
+    def load(self, model_dir, split=([0, 1], [2, 3])) -> None:
+        """Prepare the manual topology (s0 and s1 over `split`) and load."""
         r = httpx.post(self.base + "/v1/prepare_topology_manual", timeout=30, json={
             "model": str(model_dir),
-            "assignments": [{"instance": "s0", "layers": [0, 1]}, {"instance": "s1", "layers": [2, 3]}],
+            "assignments": [{"instance": f"s{i}", "layers": list(ls)} for i, ls in enumerate(split)],
         })
         assert r.status_code == 200, r.text
         topo = r.json()["topology"]
