@@ -387,13 +387,13 @@ eleventh path:
                  (loads, hits, evictions), the bytes copied a step (8
                  layers, 973 MB) and the rate against the resident ring's
                  in the same run.
-  stream_step_70b  Llama-3.3-70B-Instruct's widths in bf16 at 24 layers
-                 (41.1 GB page-locked; the line prints the host's memory
+  stream_step_70b  Llama-3.3-70B-Instruct's widths in bf16 at 10 layers
+                 (17.1 GB page-locked; the line prints the host's memory
                  at the phase's start, after the host caches are freed,
                  and once the layers are locked), the card
-                 capped at 40 GB, window 8 and residency 16: a 64-token
-                 prefill and 4 greedy decode steps, 24 prefill launches a
-                 prompt and 24 tensor-core decode launches a step, the
+                 capped at 16.5 GB, window 3 and residency 6: a 64-token
+                 prefill and 4 greedy decode steps, 10 prefill launches a
+                 prompt and 10 tensor-core decode launches a step, the
                  bytes copied a step against a 1 GiB page-locked copy
                  probed in the same run, the device peak under the cap.
 Speculative decoding and the snapshot prefix cache (A4), the twelfth path:
@@ -430,6 +430,24 @@ Speculative decoding and the snapshot prefix cache (A4), the twelfth path:
                  prefill tokens saved, a speculating bf16 engine's greedy
                  tokens against a plain one's in process (reported);
                  exactly one per-lane launch a layer a batched verify block.
+The overlapped wire pipeline (A6.1) and batched ring lanes (A6.2), on the
+ring's path:
+  ring_lanes_pipeline  the serve checkpoint on a shard pair started with
+                 DNET_WIRE_PIPELINE=1, 0-7 / 8-15: ring_serve's lossless
+                 bodies (the same texts, and each shard's wire bytes equal
+                 ring_serve's), its greedy body over qsparse8 (the same
+                 text: the pipelined payloads are the synchronous encode's
+                 bytes; column launches = frames + the load's warm encode),
+                 each with the encode ring's peak within DNET_WIRE_DEPTH and
+                 dnet_wire_overlap_ratio printed; then DNET_API_RING_LANES=4:
+                 four greedy chats of 32 tokens (the serve prompt and the
+                 batch burst's three shortest) streamed alone, then at once,
+                 each equal to its solo stream under the bf16 near-tie
+                 rule, at least 3 members a lane flush on the mean, each
+                 shard exactly one flash_decode launch a layer a lane frame;
+                 aggregate and per-stream tok/s.  Its shard pair and
+                 recover_serve's start beside ring_serve's, whose pair the
+                 family rings reuse.
 The ring's failure handling (A5.1, A6.4, A6.5), on the ring's path:
   recover_serve  the serve checkpoint on two shard processes (s1 armed with
                  DNET_CHAOS=shard_compute:error_at:161) behind the API node
@@ -1937,7 +1955,11 @@ def phase_step(cfg, window, edge, n_prompt: int, kv_quant_bits: int = 0) -> None
     eng.end_session("s")
 
 
-def phase_serve(prompt_text: str, n_prompt: int) -> tuple:
+def phase_serve(prompt_text: str, n_prompt: int, ring_pair: "ShardPair") -> tuple:
+    """The Llama-3.2-1B phases on the card: the step phases, the
+    single-process serves, the Llama ring passes on `ring_pair` (started by
+    the caller, which keeps it for the family rings), ring_lanes_pipeline's
+    and recover_serve's own pairs, then sp, spec and the generate CLI."""
     from dnet_tpu_torch.models import ModelConfig
     from dnet_tpu_torch.models.convert import hf_tensors
     from dnet_tpu_torch.utils.checkpoint import save_checkpoint
@@ -1978,14 +2000,22 @@ def phase_serve(prompt_text: str, n_prompt: int) -> tuple:
         gathered = phase_gather_serve(tmp, port, batched)
         long_body = dict(chat, stream=True, messages=[{"role": "user", "content": _batch_prompts()[-1]}])
         # the Llama ring passes (ring_serve's three, stream_serve's, wq_serve's)
-        # share one pair of shard processes, each load freeing the last
+        # on the caller's pair, each load freeing the last; once their timed
+        # passes are done, ring_lanes_pipeline's pair and recover_serve's
+        # start side by side
+        ring_pair.wait_ready()
+        ring, _, lossless, ring_texts = phase_ring_serve(tmp, bodies, results, row, long_body, quant, ring_pair)
+        phase_stream_serve(tmp, bodies, results, row, lossless, ring_pair)
+        phase_wq_serve(tmp, port, bodies, row, health["engine"]["weight_bytes"], batched, ring_pair)
         logdir = os.path.dirname(tmp)
-        with ShardPair(dict(os.environ, DNET_SHARD_REPACK_DIR=os.path.join(logdir, "repack"), **RING_ENV), logdir,
-                       "llama") as pair:
-            ring, _, lossless = phase_ring_serve(tmp, bodies, results, row, long_body, quant, pair)
-            phase_stream_serve(tmp, bodies, results, row, lossless, pair)
-            phase_wq_serve(tmp, port, bodies, row, health["engine"]["weight_bytes"], batched, pair)
-        phase_recover_serve(tmp, chat)
+        with ShardPair(dict(os.environ, DNET_WIRE_PIPELINE="1", **RING_ENV), logdir, "pipeline") as pipe_pair, \
+                ShardPair(dict(os.environ, DNET_WIRE_CODEC="lossless"), logdir, "recover",
+                          s1_env={"DNET_CHAOS": f"shard_compute:error_at:{RECOVER_FAULT_CALL}"}) as recover_pair:
+            pipe_pair.wait_ready()
+            recover_pair.wait_ready()
+            phase_ring_lanes_pipeline(tmp, bodies, lossless, ring_texts, chat, pipe_pair)
+            pipe_pair.stop()
+            phase_recover_serve(tmp, chat, recover_pair)
         sp_long = dict(chat, stream=True, messages=[{"role": "user", "content": _long_prompt(SP_LONG_TOKENS)}])
         sp_serve = phase_sp_serve(tmp, port, bodies, sp_long, sp_step)
         spec = phase_spec_serve(tmp, port)
@@ -2129,14 +2159,16 @@ def _post_json(url: str, body: dict) -> dict:
 
 async def _drive_ring(args: Namespace, model_dir: str, bodies: list, shard_urls: list, kv_bits: int = 0,
                       windows: Sequence[dict] = ({}, {}), obs: Optional[dict] = None,
-                      layers: Sequence[list] = RING_LAYERS) -> tuple:
+                      layers: Sequence[list] = RING_LAYERS, serve=None) -> tuple:
     """The API node in this process in ring mode: prepare the manual
     topology (s0, s1 over `layers`, each assignment with its `windows`
     entry: window_size / residency_size), fan the load out to the shards,
     send `bodies` in order; returns (results, load seconds, each shard's
     /health after the first request, which warms the shards up).  An `obs`
     dict receives the API's /v1/cluster/metrics ("cluster") and each
-    shard's /metrics ("shards") after the requests."""
+    shard's /metrics ("shards") after the requests.  `serve` (a callable
+    of the chat URL, run in an executor) replaces the bodies: its return
+    is the results, and no warm /health is read."""
     from dnet_tpu_torch.api.server import serve_async
 
     loop = asyncio.get_running_loop()
@@ -2163,6 +2195,8 @@ async def _drive_ring(args: Namespace, model_dir: str, bodies: list, shard_urls:
         await loop.run_in_executor(None, _post_json, base + "/v1/load_model", {"model": model_dir})
         load_s = time.perf_counter() - t_load
         results, warm = [], None
+        if serve is not None:
+            results = await loop.run_in_executor(None, serve, base + "/v1/chat/completions")
         for body in bodies:
             results.append(await loop.run_in_executor(None, _post, base + "/v1/chat/completions", body))
             if warm is None:
@@ -2179,42 +2213,48 @@ async def _drive_ring(args: Namespace, model_dir: str, bodies: list, shard_urls:
 
 class ShardPair:
     """Two shard processes on the card (`dnet_tpu_torch.cli.shard --device
-    cuda`, logs and hostfile named by `tag` under `logdir`), each up with
-    every launch count at 0, started once and loaded with one model after
-    another by the ring passes given them (each load frees the last)."""
+    cuda`, logs and hostfile named by `tag` under `logdir`; s1 with
+    `s1_env` added), each up with every launch count at 0, started once and
+    loaded with one model after another by the ring passes given them (each
+    load frees the last).  The processes start here and `wait_ready` waits
+    for them, so pairs can start side by side."""
 
-    def __init__(self, env: dict, logdir: str, tag: str) -> None:
+    def __init__(self, env: dict, logdir: str, tag: str, s1_env: Optional[dict] = None) -> None:
         self.logdir = logdir
-        shards = [(f"s{i}", _free_port(), _free_port()) for i in range(2)]
+        self.shards = [(f"s{i}", _free_port(), _free_port()) for i in range(2)]
         self.hostfile = os.path.join(logdir, f"hostfile-{tag}")
         with open(self.hostfile, "w") as f:
-            f.writelines(f"{n} 127.0.0.1 {h} {g}\n" for n, h, g in shards)
-        self.urls = [f"http://127.0.0.1:{http}" for _, http, _ in shards]
+            f.writelines(f"{n} 127.0.0.1 {h} {g}\n" for n, h, g in self.shards)
+        self.urls = [f"http://127.0.0.1:{http}" for _, http, _ in self.shards]
         self.procs, self.logs = [], []
         try:
-            for name, http, grpc_port in shards:
+            for i, (name, http, grpc_port) in enumerate(self.shards):
                 self.logs.append(os.path.join(logdir, f"shard-{tag}-{name}.log"))
                 with open(self.logs[-1], "w") as log:
                     self.procs.append(subprocess.Popen(
                         [sys.executable, "-m", "dnet_tpu_torch.cli.shard", "--host", "127.0.0.1",
                          "--http-port", str(http), "--grpc-port", str(grpc_port), "--shard-name", name,
                          "--device", "cuda"],
-                        env=env, stdout=log, stderr=subprocess.STDOUT))
-            t0 = time.perf_counter()
-            for (name, _, _), url, proc in zip(shards, self.urls, self.procs):
-                while True:
-                    check(proc.poll() is None, f"shard {name} exited with {proc.returncode}")
-                    try:
-                        health = _get(url + "/health")
-                        break
-                    except OSError:
-                        check(time.perf_counter() - t0 < 120, f"shard {name} not up within 120 s")
-                        time.sleep(0.3)
-                # a fresh process: every launch count starts at 0
-                check(not any(health["kernels"].values()), f"shard {name} counts not 0: {health['kernels']}")
+                        env=dict(env, **(s1_env or {})) if i == 1 else env, stdout=log, stderr=subprocess.STDOUT))
         except Exception:
             self.stop(failed=True)
             raise
+
+    def wait_ready(self) -> None:
+        """Wait for both shards' /health (120 s), each with every launch
+        count at 0."""
+        t0 = time.perf_counter()
+        for (name, _, _), url, proc in zip(self.shards, self.urls, self.procs):
+            while True:
+                check(proc.poll() is None, f"shard {name} exited with {proc.returncode}")
+                try:
+                    health = _get(url + "/health")
+                    break
+                except OSError:
+                    check(time.perf_counter() - t0 < 120, f"shard {name} not up within 120 s")
+                    time.sleep(0.3)
+            # a fresh process: every launch count starts at 0
+            check(not any(health["kernels"].values()), f"shard {name} counts not 0: {health['kernels']}")
 
     def __enter__(self) -> "ShardPair":
         return self
@@ -2244,7 +2284,7 @@ class ShardPair:
 
 def _ring_pass(pair: ShardPair, model_dir: str, codec: str, bodies: list, kv_bits: int = 0,
                windows: Sequence[dict] = ({}, {}), obs: Optional[dict] = None,
-               layers: Sequence[list] = RING_LAYERS) -> tuple:
+               layers: Sequence[list] = RING_LAYERS, env: Optional[dict] = None, serve=None) -> tuple:
     """Serve `bodies` through the running shard pair `pair` over `layers`
     with the hop codec `codec`, the topology's `kv_bits` and each shard's
     `windows` entry (its weight plan), and read each shard's /health;
@@ -2252,7 +2292,8 @@ def _ring_pass(pair: ShardPair, model_dir: str, codec: str, bodies: list, kv_bit
     pair after the first request), each /health's `kernels` the pass's own
     launches (the counts after the pass less those before it).  `obs` as
     _drive_ring's, with each shard's /metrics before the pass
-    ("shards_before")."""
+    ("shards_before").  `env` joins the API's environment, `serve` as
+    _drive_ring's."""
     args = Namespace(
         host="127.0.0.1", http_port=_free_port(), grpc_port=_free_port(), hostfile=pair.hostfile, model="",
         models_dir="", device="cuda", max_seq_len=S, param_dtype="bfloat16", max_concurrent=8,
@@ -2261,9 +2302,9 @@ def _ring_pass(pair: ShardPair, model_dir: str, codec: str, bodies: list, kv_bit
     before = pair.health()
     if obs is not None:
         obs["shards_before"] = [_scrape(u + "/metrics") for u in pair.urls]
-    with environ({"DNET_WIRE_CODEC": codec, **RING_ENV}):  # the API resolves the hop codec
+    with environ({"DNET_WIRE_CODEC": codec, **RING_ENV, **(env or {})}):  # the API resolves the hop codec
         results, load_s, warm = asyncio.run(_drive_ring(args, model_dir, bodies, pair.urls, kv_bits, windows,
-                                                        obs, layers))
+                                                        obs, layers, serve))
     healths = pair.health()
     for h, b in zip(healths, before):
         h["kernels"] = {k: v - b["kernels"].get(k, 0) for k, v in h["kernels"].items()}
@@ -2288,7 +2329,8 @@ def phase_ring_serve(model_dir: str, bodies: list, serve_results: list, served: 
     """The checkpoint served as a two-shard ring: lossless, qsparse8, then
     lossless with kv_bits 8 in the topology (an int8 cache on each shard);
     returns the qsparse8 pass's column-kernel launches, the kv_bits 8
-    pass's row and the lossless pass's."""
+    pass's row, the lossless pass's, and each kv_bits 0 pass's texts by
+    codec."""
     greedy, sampled = serve_results[0], serve_results[2]
     passes = (
         ("lossless", 0, SERVE_KINDS, bodies),
@@ -2296,7 +2338,7 @@ def phase_ring_serve(model_dir: str, bodies: list, serve_results: list, served: 
         # greedy, streamed and seeded sampled: the q8 single-process serve's
         ("lossless", 8, SERVE_KINDS[:3], bodies[:3]),
     )
-    out, ring_q8, lossless = {}, None, None
+    out, ring_q8, lossless, texts = {}, None, None, {}
     for codec, kv_bits, kinds, reqs in passes:
         obs = {}
         results, (h0, h1), load_s, warm = _ring_pass(pair, model_dir, codec, reqs, kv_bits, obs=obs)
@@ -2370,10 +2412,167 @@ def phase_ring_serve(model_dir: str, bodies: list, serve_results: list, served: 
                    "dequant_scatter_columns": k1["dequant_scatter_columns"]}
         if kv_bits == 8:
             ring_q8 = row
-        elif codec == "lossless":
-            lossless = row
+        else:
+            texts[codec] = [r["content"] for r in results]
+            if codec == "lossless":
+                lossless = row
         emit(row)
-    return out, ring_q8, lossless
+    return out, ring_q8, lossless, texts
+
+
+# ring_lanes_pipeline: one Llama shard pair started with DNET_WIRE_PIPELINE=1
+# over RING_LAYERS: ring_serve's lossless and qsparse8 passes pipelined, then
+# DNET_API_RING_LANES=4 with LANES concurrent greedy chats of LANES_TOKENS
+LANES = 4
+LANES_PROMPTS = 3  # the batch burst's shortest prompts join the serve's chat
+LANES_TOKENS = MAX_TOKENS // 2  # for the script's time
+
+
+def _ring_lane_streams(url: str, bodies: list) -> dict:
+    """Each body streamed alone, then all at once; the streams, the
+    concurrent part's wall and the API's lane flushes (count, members)
+    during it."""
+    from dnet_tpu_torch.obs import metric
+
+    depth = metric("dnet_lane_flush_depth")
+    solo = [_stream_chat(url, b) for b in bodies]
+    n0, m0 = depth.count, depth.sum
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(len(bodies)) as pool:
+        conc = list(pool.map(lambda b: _stream_chat(url, b), bodies))
+    wall = time.perf_counter() - t0
+    return {"solo": solo, "conc": conc, "wall_s": wall, "flushes": depth.count - n0, "members": depth.sum - m0}
+
+
+def _staging_reuse_check(depth: int) -> dict:
+    """In this process, at the decode hop's shape under RING_ENV: encode A,
+    then B, drop B (PendingWirePayload.discard), encode C through the same
+    encode ring and staging; A's and C's packed bytes must still be the
+    synchronous encoders' (a staging set handed to C while A's bytes are
+    unread would give A C's)."""
+    from dnet_tpu_torch.compression import EncodeStaging, compress_tensor, launch_encode
+    from dnet_tpu_torch.transport.wire_pipeline import EncodeRing, PendingWirePayload
+    from dnet_tpu_torch.utils.random_init import LLAMA_3_2_1B_CONFIG
+    from dnet_tpu_torch.utils.serialization import tensor_to_bytes
+
+    frac, gs = float(RING_ENV["DNET_WIRE_QSPARSE_PCT"]), int(RING_ENV["DNET_WIRE_GROUP_SIZE"])
+    ring, staging = EncodeRing(depth), EncodeStaging(depth)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    out = {}
+    for codec in ("lossless", "qsparse8"):
+        qbits, drop = (8, frac) if codec == "qsparse8" else (0, 0.0)
+        xs = [torch.randn((1, 1, LLAMA_3_2_1B_CONFIG["hidden_size"]), device="cuda", generator=gen)
+              .to(torch.bfloat16) for _ in range(3)]
+
+        def launch(x):
+            slot = ring.acquire(max_wait_s=1.0)
+            check(slot is not None, "staging check: encode ring full")
+            enc = launch_encode(x, drop, quant_bits=qbits, group_size=gs, staging=staging, slot=slot)
+            return PendingWirePayload(enc, ring=ring, slot=slot)
+
+        a, b = launch(xs[0]), launch(xs[1])
+        b.discard()
+        c = launch(xs[2])
+        got = [a.finalize(), c.finalize()]
+        want = [compress_tensor(x, drop, quant_bits=qbits, group_size=gs)[0] if qbits
+                else tensor_to_bytes(x, "bfloat16")[0] for x in (xs[0], xs[2])]
+        check(got == want, f"staging check ({codec}): an encode's bytes changed after a later discard")
+        check(ring.inflight == 0, f"staging check ({codec}): {ring.inflight} slots still held")
+        out[codec] = {"payload_bytes": [len(g) for g in got], "equal": True}
+    return out
+
+
+def phase_ring_lanes_pipeline(model_dir: str, bodies: list, lossless: dict, ring_texts: dict, chat: dict,
+                              pair: ShardPair) -> dict:
+    """The overlapped wire pipeline and batched ring lanes on `pair`, shard
+    processes started with DNET_WIRE_PIPELINE=1: the staging check, then
+    ring_serve's lossless bodies (its texts and each shard's wire bytes),
+    its greedy body over qsparse8 (its text: the pipelined payloads are the
+    same bytes) with the encode ring's peak within its depth, the serve
+    prompt streamed at B = 1 (a prefix of ring_serve's greedy text), then
+    DNET_API_RING_LANES=4: LANES chats streamed alone, then at once (each
+    equal to its solo stream, and the serve prompt's to the B = 1 stream,
+    under the bf16 near-tie rule; at least 3 members a flush on the mean),
+    each shard one flash_decode launch a layer a lane frame."""
+    from dnet_tpu_torch.config import wire_settings
+
+    t_phase = time.perf_counter()
+    n_layers = len(RING_LAYERS[0])
+    depth = wire_settings().depth
+    rows = {"staging_check": _staging_reuse_check(depth)}
+    for codec, reqs in (("lossless", bodies), ("qsparse8", bodies[:1])):
+        results, (h0, h1), load_s, _ = _ring_pass(pair, model_dir, codec, reqs)
+        texts = [r["content"] for r in results]
+        check(texts == ring_texts[codec][:len(reqs)], f"pipelined {codec} texts differ from ring_serve's")
+        w0, w1, k0, k1 = h0["wire"], h1["wire"], h0["kernels"], h1["kernels"]
+        steps = sum(r["tokens"] for r in results)
+        check(w0["frames_encoded"] == w1["frames_decoded"] == steps, f"pipelined {codec} frames {w0} {w1}")
+        check(w0["bytes_encoded"] == w1["bytes_decoded"], f"pipelined {codec} bytes {w0} {w1}")
+        if codec == "lossless":
+            base = lossless["wire"]
+            check((w0["bytes_encoded"], w1["bytes_decoded"]) == (base["s0"]["bytes_encoded"],
+                                                                  base["s1"]["bytes_decoded"]),
+                  f"pipelined lossless wire bytes {w0} {w1} differ from ring_serve's {base}")
+        else:
+            warm = w0["warm_encodes"]
+            check(k0["column_sq_norms"] == k0["gather_columns"] == w0["frames_encoded"] + warm,
+                  f"s0 column launches {k0} != encoded frames {w0['frames_encoded']} + {warm} warm")
+            check(k1["dequant_scatter_columns"] == w1["frames_decoded"] + w1["warm_encodes"],
+                  f"s1 dequant_scatter launches {k1} != decoded frames {w1['frames_decoded']} + warm")
+        pipe = [h["wire_pipeline"] for h in (h0, h1)]
+        check(all(p["depth"] == depth and 1 <= p["peak"] <= depth and p["inflight"] == 0 for p in pipe[:1]),
+              f"pipelined {codec}: encode ring {pipe}")
+        for k in (k0, k1):
+            check(k["flash_decode"] == n_layers * (steps - len(results)), f"pipelined {codec} decode launches {k}")
+        rows[codec] = {"load_s": load_s, "texts_equal": True, "wire": {"s0": w0, "s1": w1},
+                       "encode_ring": pipe[0], "overlap_ratio": [p["overlap"]["ratio"] for p in pipe],
+                       "decode_hop_bytes": w0["decode_hop_bytes"],
+                       "launches": {"s0": k0, "s1": k1}}
+        if codec == "lossless":  # its streamed body beside ring_serve's
+            rows[codec].update(streamed_rates(results), ring_serve_streamed_decode_tokens_per_s=lossless.get(
+                "streamed_decode_tokens_per_s"))
+    # four greedy chats with logprobs (the near-tie rule reads them), the
+    # first the serve's prompt: streamed alone on the ring without lanes, it
+    # is the lanes' B = 1 baseline, and a prefix of ring_serve's greedy text
+    prompts = [chat["messages"][0]["content"]] + _batch_prompts()[:LANES_PROMPTS]
+    lane_bodies = [dict(chat, stream=True, logprobs=True, top_logprobs=2, max_tokens=LANES_TOKENS,
+                        messages=[{"role": "user", "content": p}]) for p in prompts]
+    (ring_base,), _, _, _ = _ring_pass(pair, model_dir, "lossless", [],
+                                       serve=lambda url: [_stream_chat(url, lane_bodies[0])])
+    check(ring_base["usage"]["completion_tokens"] == LANES_TOKENS
+          and ring_texts["lossless"][0].startswith(ring_base["content"]),
+          f"B = 1 ring stream {ring_base['content']!r} is not a prefix of ring_serve's greedy text")
+    out, (h0, h1), load_s, _ = _ring_pass(pair, model_dir, "lossless", [], env={"DNET_API_RING_LANES": str(LANES)},
+                                          serve=lambda url: _ring_lane_streams(url, lane_bodies))
+    same = [_same_stream(f"lanes chat {i}", c, s) for i, (c, s) in enumerate(zip(out["conc"], out["solo"]))]
+    same_ring = {k: _same_stream(f"lanes chat 0 ({k}) against the B = 1 ring", out[k][0], ring_base)
+                 for k in ("solo", "conc")}
+    check(all(h["lanes"] == {"slots": LANES, "active": 0} for h in (h0, h1)),
+          f"lane pools {[h.get('lanes') for h in (h0, h1)]}")
+    mean_depth = out["members"] / max(out["flushes"], 1)
+    check(mean_depth >= 3, f"lane flushes of {mean_depth} members on the mean")
+    tokens = [c["usage"]["completion_tokens"] for c in out["conc"]]
+    # one lane frame a flush, solo and concurrent: each shard one decode
+    # launch a layer a frame, and one prefill launch a layer a prompt
+    frames = sum(s["usage"]["completion_tokens"] - 1 for s in out["solo"]) + out["flushes"]
+    for name, h in (("s0", h0), ("s1", h1)):
+        k = h["kernels"]
+        check(k["flash_decode"] == n_layers * frames, f"{name} lane decode launches {k['flash_decode']} != "
+                                                      f"{n_layers} x {frames} frames")
+        check(k["flash_prefill"] == n_layers * 2 * len(lane_bodies), f"{name} lane prefill launches {k}")
+    rows["lanes"] = {
+        "lanes": LANES, "load_s": load_s, "streams": len(lane_bodies), "flushes": out["flushes"],
+        "mean_flush_depth": mean_depth, "frames_per_shard": frames, "decode_launches_per_shard": n_layers * frames,
+        "aggregate_tokens_per_s": sum(tokens) / out["wall_s"], "concurrent_wall_s": out["wall_s"],
+        "per_stream_tokens_per_s": [(c["usage"]["completion_tokens"]) / c["s"] for c in out["conc"]],
+        "solo_tokens_per_s": [(s["usage"]["completion_tokens"]) / s["s"] for s in out["solo"]],
+        "same_stream": same, "same_as_b1_ring": same_ring, "launches": {"s0": h0["kernels"], "s1": h1["kernels"]},
+    }
+    row = {"phase": "ring_lanes_pipeline", "gpu": gpu_line(), "layers": [f"{ls[0]}-{ls[-1]}" for ls in RING_LAYERS],
+           "env": {"DNET_WIRE_PIPELINE": "1", "DNET_WIRE_DEPTH": depth}, **rows,
+           "phase_s": time.perf_counter() - t_phase}
+    emit(row)
+    return row
 
 
 # family_ring_serve: every family on the two ring shards, each at its
@@ -2472,40 +2671,37 @@ def _family_ring_pass(pair: ShardPair, family: str, model_dir: str, model: str, 
     return row
 
 
-def phase_family_rings(prompt_text: str, served: dict) -> dict:
-    """Every family on one pair of ring shards: the gpt_oss, deepseek_v2 and
-    qwen3_moe serve checkpoints (`served`: family -> (dir, model id, config,
-    the serve's greedy text)), then Qwen2.5-7B, Qwen3-4B and Mixtral-8x7B
-    at 2 layers, each written here and held against one in-process
-    single-sequence engine; returns family -> row."""
+def phase_family_rings(prompt_text: str, served: dict, pair: ShardPair) -> dict:
+    """Every family on one pair of ring shards (`pair`: the Llama ring
+    passes'): the gpt_oss, deepseek_v2 and qwen3_moe serve checkpoints
+    (`served`: family -> (dir, model id, config, the serve's greedy
+    text)), then Qwen2.5-7B, Qwen3-4B and Mixtral-8x7B at 2 layers, each
+    written under the pair's log directory (removed after its pass) and held
+    against one in-process single-sequence engine; returns family -> row."""
     from dnet_tpu_torch.models import ModelConfig
     from dnet_tpu_torch.models.convert import hf_tensors
     from dnet_tpu_torch.utils import random_init
     from dnet_tpu_torch.utils.checkpoint import save_checkpoint
 
     t0 = time.perf_counter()
-    logdir = tempfile.mkdtemp(prefix="dnet-torch-smoke-rings-")
+    logdir = pair.logdir
     rows = {}
-    try:
-        with ShardPair(dict(os.environ, **RING_ENV), logdir, "families") as pair:
-            for family, (model_dir, model, config, greedy) in served.items():
-                rows[family] = _family_ring_pass(pair, family, model_dir, model, config, prompt_text, greedy)
-            for family, name, model in FAMILY_RING_WRITTEN:
-                t1 = time.perf_counter()
-                config = dict(getattr(random_init, name), num_hidden_layers=2)
-                window, edge = random_init.random_qwen_params(ModelConfig.from_hf(config), range(2),
-                                                              torch.device("cuda"), torch.bfloat16, seed=0)
-                model_dir = os.path.join(logdir, model)
-                save_checkpoint(model_dir, config, hf_tensors(window, edge, family))
-                del window, edge
-                torch.cuda.empty_cache()
-                write_s = time.perf_counter() - t1
-                baseline = _engine_greedy_text(model_dir, prompt_text)
-                rows[family] = _family_ring_pass(pair, family, model_dir, model, config, prompt_text, baseline,
-                                                 write_s)
-                shutil.rmtree(model_dir, ignore_errors=True)
-    finally:
-        shutil.rmtree(logdir, ignore_errors=True)
+    for family, (model_dir, model, config, greedy) in served.items():
+        rows[family] = _family_ring_pass(pair, family, model_dir, model, config, prompt_text, greedy)
+    for family, name, model in FAMILY_RING_WRITTEN:
+        t1 = time.perf_counter()
+        config = dict(getattr(random_init, name), num_hidden_layers=2)
+        window, edge = random_init.random_qwen_params(ModelConfig.from_hf(config), range(2),
+                                                      torch.device("cuda"), torch.bfloat16, seed=0)
+        model_dir = os.path.join(logdir, model)
+        save_checkpoint(model_dir, config, hf_tensors(window, edge, family))
+        del window, edge
+        torch.cuda.empty_cache()
+        write_s = time.perf_counter() - t1
+        baseline = _engine_greedy_text(model_dir, prompt_text)
+        rows[family] = _family_ring_pass(pair, family, model_dir, model, config, prompt_text, baseline,
+                                         write_s)
+        shutil.rmtree(model_dir, ignore_errors=True)
     emit({"phase": "family_rings", "gpu": gpu_line(), "families": list(rows), "s": time.perf_counter() - t0})
     return rows
 
@@ -2712,61 +2908,21 @@ async def _drive_recover(args: Namespace, model_dir: str, body: dict, shards: li
     return out
 
 
-def phase_recover_serve(model_dir: str, chat: dict) -> dict:
+def phase_recover_serve(model_dir: str, chat: dict, pair: ShardPair) -> dict:
     """The serve checkpoint on a two-shard ring under the ring's failure
     handling: the solver, a chaos fault resumed, a shard killed and the
-    ring recovered over the other, the request resumed (module doc)."""
-    logdir = os.path.dirname(model_dir)
-    shards = [(f"s{i}", _free_port(), _free_port()) for i in range(2)]
-    hostfile = os.path.join(logdir, "hostfile-recover")
-    with open(hostfile, "w") as f:
-        f.writelines(f"{n} 127.0.0.1 {h} {g}\n" for n, h, g in shards)
-    procs, logs = [], []
+    ring recovered over the other, the request resumed (module doc).
+    `pair`: two fresh shard processes, lossless, s1 armed with the fault."""
     body = dict(chat, stream=True, logprobs=True, top_logprobs=2)
-    try:
-        for i, (name, http, grpc_port) in enumerate(shards):
-            env = dict(os.environ, DNET_WIRE_CODEC="lossless")
-            if i == 1:
-                env["DNET_CHAOS"] = f"shard_compute:error_at:{RECOVER_FAULT_CALL}"
-            logs.append(os.path.join(logdir, f"shard-recover-{name}.log"))
-            with open(logs[-1], "w") as log:
-                procs.append(subprocess.Popen(
-                    [sys.executable, "-m", "dnet_tpu_torch.cli.shard", "--host", "127.0.0.1", "--http-port", str(http),
-                     "--grpc-port", str(grpc_port), "--shard-name", name, "--device", "cuda"],
-                    env=env, stdout=log, stderr=subprocess.STDOUT))
-        t0 = time.perf_counter()
-        for (name, http, _), proc in zip(shards, procs):
-            while True:
-                check(proc.poll() is None, f"shard {name} exited with {proc.returncode}")
-                try:
-                    health = _get(f"http://127.0.0.1:{http}/health")
-                    break
-                except OSError:
-                    check(time.perf_counter() - t0 < 120, f"shard {name} not up within 120 s")
-                    time.sleep(0.3)
-        check(health.get("chaos", {}).get("points") == {"shard_compute": "error_at"}, f"s1 chaos {health.get('chaos')}")
-        args = Namespace(
-            host="127.0.0.1", http_port=_free_port(), grpc_port=_free_port(), hostfile=hostfile, model="",
-            models_dir="", device="cuda", max_seq_len=S, param_dtype="bfloat16", max_concurrent=8,
-            request_timeout_s=600.0, auto_recover=True,
-        )
-        with environ({"DNET_WIRE_CODEC": "lossless", **RECOVER_ENV}):
-            out = asyncio.run(_drive_recover(args, model_dir, body, shards, procs))
-    except Exception:
-        for path in logs:
-            with open(path) as f:
-                print(f"--- {path} ---\n{f.read()[-4000:]}", file=sys.stderr)
-        raise
-    finally:
-        for p in procs:
-            if p.poll() is None:
-                p.send_signal(signal.SIGTERM)
-        for p in procs:
-            try:
-                p.wait(timeout=30)
-            except subprocess.TimeoutExpired:
-                p.kill()
-                p.wait()
+    health = _get(pair.urls[1] + "/health")
+    check(health.get("chaos", {}).get("points") == {"shard_compute": "error_at"}, f"s1 chaos {health.get('chaos')}")
+    args = Namespace(
+        host="127.0.0.1", http_port=_free_port(), grpc_port=_free_port(), hostfile=pair.hostfile, model="",
+        models_dir="", device="cuda", max_seq_len=S, param_dtype="bfloat16", max_concurrent=8,
+        request_timeout_s=600.0, auto_recover=True,
+    )
+    with environ({"DNET_WIRE_CODEC": "lossless", **RECOVER_ENV}):
+        out = asyncio.run(_drive_recover(args, model_dir, body, pair.shards, pair.procs))
     row = {"phase": "recover_serve", "gpu": gpu_line(), "layers": [f"{ls[0]}-{ls[-1]}" for ls in RING_LAYERS],
            "env": RECOVER_ENV, "fault": f"s1 shard_compute:error_at:{RECOVER_FAULT_CALL}",
            "kill_at": f"s1 SIGKILL after chunk {RECOVER_KILL_CHUNK}", **out}
@@ -5169,6 +5325,7 @@ LANE_MLA_LENGTHS = [0] + [p + 1 for p in BATCH_POSITIONS[1:]]
 LANE_MLA_LAYERS = 4
 FAMILY_TOKENS = 16
 GATHER_ENV = {"DNET_KV_PAGED": "1"}
+LANE_STREAM_TOKENS = 16  # gather_serve's in-process lane streams (cut from 64 for the script's time)
 
 
 def lane_bound(keys: list, h: int, kvh: int, dqk: int, dv: int, qbits: int, dtype, sinks: bool = False) -> tuple:
@@ -5590,7 +5747,7 @@ def _lane_streams(weights: tuple, env: dict, bits: int) -> tuple:
     """The batch_serve prompts on an in-process BatchedEngine over the
     checkpoint's `weights` (config, per-layer params, edge params; 8 slots,
     bf16) under `env`: every prompt prefilled in 256-token chunks, then
-    MAX_TOKENS - 1 greedy decode steps over all 8 lanes with their budgets,
+    LANE_STREAM_TOKENS - 1 greedy decode steps over all 8 lanes with their budgets,
     a fixed schedule (the HTTP adapter's depends on arrival times, and a
     lane's split plan on the batch's longest lane).  Returns (tokens per
     lane, the engine's stats)."""
@@ -5611,9 +5768,9 @@ def _lane_streams(weights: tuple, env: dict, bits: int) -> tuple:
         for i in range(0, len(ids), PREFILL_CHUNK):
             logits = eng.prefill_chunk(n, ids[i : i + PREFILL_CHUNK])
         toks[n] = [int(eng.adopt_prefilled(n, logits, dec).token[0])]
-    for step in range(1, MAX_TOKENS):
+    for step in range(1, LANE_STREAM_TOKENS):
         out, errs = eng.decode_batch({n: (t[-1], dec) for n, t in toks.items()},
-                                     budgets={n: MAX_TOKENS - step for n in toks})
+                                     budgets={n: LANE_STREAM_TOKENS - step for n in toks})
         check(not errs, f"lane streams {env}: {errs}")
         for n, r in out.items():
             toks[n].append(int(r.token[0]))
@@ -5669,7 +5826,7 @@ def phase_gather_serve(model_dir: str, port: int, batched: dict) -> dict:
         out[what] = _burst_row(
             "gather_serve", what, results, launches, engine, load_s, copies, BATCH_PROMPT_TOKENS,
             pool_blocks=engine["kv_pool_blocks"], kv_blocks_peak=engine["kv_blocks_peak"],
-            lane_streams_equal_dense_slots=f"{len(dense)} lanes x {MAX_TOKENS} tokens",
+            lane_streams_equal_dense_slots=f"{len(dense)} lanes x {LANE_STREAM_TOKENS} tokens",
             paged_ragged_bf16_batch_serve={k: batched[k] for k in ("aggregate_tokens_per_s",
                                                                    "aggregate_decode_tokens_per_s")})
     del weights
@@ -6036,14 +6193,15 @@ def phase_wq_step_70b() -> dict:
 
 # weight streaming (core/weights.py): the parity plans (family, window,
 # residency), the serve's tail shard plan, and Llama-3.3-70B-Instruct's
-# widths in bf16 streamed at a fixed depth: 24 layers of page-locked host
-# memory (41.1 GB at one layer's 1.711 GB), still more than the card's cap
+# widths in bf16 streamed at a fixed depth: 10 layers of page-locked host
+# memory (17.1 GB at one layer's 1.711 GB), still more than the card's cap
 # (38 layers, 60% of the card machine's 108.4 GB MemAvailable, until the
-# script's time limit cut the depth)
+# script's time limit cut the depth: to 24, then to 10, with the cap and
+# the slabs cut in step)
 STREAM_PLANS = [("llama", 2, 4), ("llama", 2, 1), ("llama", 1, 1), ("deepseek_v2", 2, 2), ("gpt_oss", 2, 2)]
 STREAM_SERVE_WINDOWS = ({}, {"window_size": 2, "residency_size": 4})
-STREAM_70B_LAYERS, STREAM_70B_WINDOW, STREAM_70B_RESIDENCY = 24, 8, 16
-STREAM_70B_CAP_BYTES = 40 * 10**9  # the card's allowance: below the 24 layers' 41.1 GB
+STREAM_70B_LAYERS, STREAM_70B_WINDOW, STREAM_70B_RESIDENCY = 10, 3, 6
+STREAM_70B_CAP_BYTES = 16_500_000_000  # the card's allowance: below the 10 layers' 17.1 GB
 STREAM_70B_PROMPT, STREAM_70B_STEPS = 64, 4
 PCIE_GEN5_X16_BYTES_PER_S = 64e9  # the link's nominal rate, one direction
 
@@ -6243,11 +6401,11 @@ def free_host_caches() -> None:
 
 
 def phase_stream_step_70b() -> dict:
-    """Llama-3.3-70B-Instruct's widths in bf16, streamed: 24 layers (41.1
-    GB, more than the card may use here: it is capped at 40 GB with
+    """Llama-3.3-70B-Instruct's widths in bf16, streamed: 10 layers (17.1
+    GB, more than the card may use here: it is capped at 16.5 GB with
     set_per_process_memory_fraction) made from a seed on the card one at a
     time and packed into page-locked host memory, the embedding and the LM
-    head (4.2 GB) resident, window 8 and residency 16 (27.4 GB of slabs).
+    head (4.2 GB) resident, window 3 and residency 6 (10.3 GB of slabs).
     A 64-token prompt and 4 greedy decode steps; reports the host bytes,
     the device peak, the prefill and step walls, the bytes copied a step,
     the rate achieved against a 1 GiB page-locked copy probed in this run
@@ -6842,30 +7000,37 @@ def main() -> int:
     main_path.update(phase_lse_kernels(SP_SERVE_POS))
     main_path.update(phase_lse_form_kernels(SP_SERVE_POS))
     sp_parity = phase_sp_parity()
-    served, batched, quant, ring, sp_served, gathered, spec_served = phase_serve(prompt_text, n_prompt)
-    long_text = _batch_prompts()[BATCH_PROMPT_TOKENS.index(300)]
-    # the gpt_oss, deepseek_v2 and qwen3_moe serve checkpoints stay on disk
-    # for the family rings (writing them again there would add ~30 s)
+    # the Llama ring passes' shard pair, kept for every family's ring; the
+    # gpt_oss, deepseek_v2 and qwen3_moe serve checkpoints stay on disk for
+    # the family rings (writing them again there would add ~30 s)
+    ring_logdir = tempfile.mkdtemp(prefix="dnet-torch-smoke-rings-")
     ckpt_root = tempfile.mkdtemp(prefix="dnet-torch-smoke-served-")
     try:
-        _, oss_served, oss_ring = phase_gpt_oss(prompt_text, long_text, _free_port(), ckpt_root)
-        # deepseek_v2 (after gpt_oss has freed its memory): the MLA-width
-        # kernels at the served prompt's bucket and the step's position,
-        # parity, the 27-layer step, the 2-layer serve
-        main_path.update(phase_mla_kernels(bucket_length(n_prompt)))
-        phase_deepseek_parity()
-        _, ds_served, ds_ring = phase_deepseek(prompt_text, long_text, _free_port(), ckpt_root)
-        # qwen3_moe (after deepseek_v2 has freed its memory): the G = 16
-        # kernel rows at the 235B serve's position and the batch mix, the
-        # qwen family parity, Qwen3-30B-A3B's 48-layer step, the 2-layer
-        # 235B serves
-        main_path.update(phase_wide_kernels(n_prompt + MAX_TOKENS - 2))
-        phase_mma_kernels()
-        phase_qwen_parity()
-        _, qw_served, qw_batched, qw_ring = phase_qwen3_moe(prompt_text, _free_port(), ckpt_root)
-        # every family on one pair of ring shards
-        phase_family_rings(prompt_text, {"gpt_oss": oss_ring, "deepseek_v2": ds_ring, "qwen3_moe": qw_ring})
+        with ShardPair(dict(os.environ, DNET_SHARD_REPACK_DIR=os.path.join(ring_logdir, "repack"), **RING_ENV),
+                       ring_logdir, "llama") as ring_pair:
+            served, batched, quant, ring, sp_served, gathered, spec_served = phase_serve(prompt_text, n_prompt,
+                                                                                          ring_pair)
+            long_text = _batch_prompts()[BATCH_PROMPT_TOKENS.index(300)]
+            _, oss_served, oss_ring = phase_gpt_oss(prompt_text, long_text, _free_port(), ckpt_root)
+            # deepseek_v2 (after gpt_oss has freed its memory): the MLA-width
+            # kernels at the served prompt's bucket and the step's position,
+            # parity, the 27-layer step, the 2-layer serve
+            main_path.update(phase_mla_kernels(bucket_length(n_prompt)))
+            phase_deepseek_parity()
+            _, ds_served, ds_ring = phase_deepseek(prompt_text, long_text, _free_port(), ckpt_root)
+            # qwen3_moe (after deepseek_v2 has freed its memory): the G = 16
+            # kernel rows at the 235B serve's position and the batch mix, the
+            # qwen family parity, Qwen3-30B-A3B's 48-layer step, the 2-layer
+            # 235B serves
+            main_path.update(phase_wide_kernels(n_prompt + MAX_TOKENS - 2))
+            phase_mma_kernels()
+            phase_qwen_parity()
+            _, qw_served, qw_batched, qw_ring = phase_qwen3_moe(prompt_text, _free_port(), ckpt_root)
+            # every family on one pair of ring shards
+            phase_family_rings(prompt_text, {"gpt_oss": oss_ring, "deepseek_v2": ds_ring, "qwen3_moe": qw_ring},
+                               ring_pair)
     finally:
+        shutil.rmtree(ring_logdir, ignore_errors=True)
         shutil.rmtree(ckpt_root, ignore_errors=True)
     # Llama-3.3-70B-Instruct at int8 (after every earlier phase has freed
     # its memory): all 80 layers on the one card; then in bf16, streamed

@@ -115,6 +115,7 @@ class EngineCapabilityError(InferenceError):
 # backpressure
 _BACKPRESSURE_MARKERS = (
     "paged KV pool exhausted",  # kv/paged.py KVPoolExhausted
+    "no free lanes",  # shard/lanes.py lane-pool overflow
     "no free batch slots",  # core/batch.py slot-pool overflow
 )
 

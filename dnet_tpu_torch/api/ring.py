@@ -2,14 +2,25 @@
 sampled tokens back through the API's gRPC servicer.
 
 Counterpart of dnet_tpu/api/ring.py `RingApiAdapter` and `ApiTokenServicer`
-without lane coalescing, the ring prefix cache and epoch NACK handling.
-A token callback minted under another topology epoch than the adapter's
-(a fenced-out shard finishing old work) is dropped and counted in
-dnet_stale_epoch_rejected_total{kind="token_cb"}.
-Decode grants are kept: a frame may let the tail feed up to `auto_steps`
-sampled tokens straight back to the head, so those steps send no frame
-from here; their tokens may arrive before the decode loop awaits them and wait
-in `_early`.
+without the ring prefix cache.  A token callback minted under another
+topology epoch than the adapter's (a fenced-out shard finishing old work)
+is dropped and counted in dnet_stale_epoch_rejected_total{kind="token_cb"};
+a shard's `stale epoch` NACK of one of this adapter's frames fails the
+awaiting step at once (`_on_stream_nack`), so a request whose topology
+changed under it resumes on the new adapter instead of waiting out its
+timeout.
+Decode grants: a frame may let the tail feed up to `auto_steps` sampled
+tokens straight back to the head, so those steps send no frame from here;
+their tokens may arrive before the decode loop awaits them and wait in
+`_early`.  Batched lanes (lanes > 1, DNET_API_RING_LANES): concurrent
+requests' decode steps coalesce into multi-lane frames on the carrier
+stream `LANES_NONCE` (`_flush_lanes`), which each shard serves with one
+batched step (shard/lanes.py); grants are off then.  A batch holds open
+for more members up to an adaptive convergence window (2.5 ring passes,
+0.05-1 s), and a member whose deadline passed is shed at the flush
+(dnet_deadline_exceeded_total{stage="lane_flush"}); each flush observes
+dnet_lane_flush_depth and each member dnet_lane_queue_wait_ms, and each
+resolved frame dnet_ring_hop_rtt_ms.
 """
 
 from __future__ import annotations
@@ -21,9 +32,11 @@ from typing import Callable, Dict, List, Optional
 
 import numpy as np
 
+from dnet_tpu_torch.admission.controller import deadline_expired
 from dnet_tpu_torch.api.strategies import ApiAdapterBase, _TokenFutures
 from dnet_tpu_torch.core.types import DecodingParams, TokenResult
 from dnet_tpu_torch.membership import epoch as epoch_fence
+from dnet_tpu_torch.obs import get_recorder, metric
 from dnet_tpu_torch.transport.protocol import ActivationFrame, Empty, TokenPayload
 from dnet_tpu_torch.transport.stream_manager import StreamManager
 from dnet_tpu_torch.utils.logger import get_logger
@@ -31,8 +44,21 @@ from dnet_tpu_torch.utils.serialization import tensor_to_bytes
 
 log = get_logger()
 
+_HOP_RTT_MS = metric("dnet_ring_hop_rtt_ms")
+_LANE_DEPTH = metric("dnet_lane_flush_depth")
+_LANE_WAIT_MS = metric("dnet_lane_queue_wait_ms")
+
 
 class RingApiAdapter(ApiAdapterBase):
+    LANES_NONCE = "__lanes__"  # carrier stream of coalesced decode frames
+    # bounds of the window a partly filled batch holds open for more
+    # mid-decode members: a convergence cost (members of one batch resolve
+    # and re-send together), scaled by the observed ring pass (the EMA is
+    # stamped at the flush, so it holds no batch's own wait)
+    LANE_CONVERGE_MIN_S = 0.05
+    LANE_CONVERGE_MAX_S = 1.0
+    LANE_CONVERGE_EMA_MULT = 2.5
+
     def __init__(
         self,
         head_addr: str,
@@ -42,6 +68,7 @@ class RingApiAdapter(ApiAdapterBase):
         max_seq_len: Optional[int] = None,
         stream_idle_s: float = 300.0,
         auto_steps: int = 0,
+        lanes: int = 1,
         epoch: int = 0,
     ) -> None:
         if ring_client_factory is None:
@@ -61,16 +88,26 @@ class RingApiAdapter(ApiAdapterBase):
         self._stream_idle_s = stream_idle_s
         self._sweeper: Optional[asyncio.Task] = None
         self._pos_state: Dict[str, int] = {}  # nonce -> prompt length
-        self._auto_steps = max(int(auto_steps), 0)
+        # lanes > 1: decode steps coalesce; a grant would pull its request
+        # out of the batches' shared cadence, so grants are off
+        self._lanes = max(int(lanes), 1)
+        self._auto_steps = 0 if self._lanes > 1 else max(int(auto_steps), 0)
         self._granted: Dict[str, int] = {}  # nonce -> highest granted step
         self._early: Dict[tuple, TokenResult] = {}
+        self._pending: List[dict] = []  # lane entries awaiting a flush
+        self._flush_task: Optional[asyncio.Task] = None
+        self._batch_seq = 0
+        self._step_ema = 0.0  # send -> resolve EMA (s), sizes the lane window
+        self._sent_at: Dict[tuple, float] = {}  # (nonce, step) -> flush time
+        self._active: Dict[str, bool] = {}  # nonces mid-decode (first lane send -> reset)
         # nonce -> absolute wall-clock deadline (epoch s), stamped into every
         # frame of the request: the shards drop expired frames at dequeue
         self._deadlines: Dict[str, float] = {}
 
     async def start(self) -> None:
         self._head_client = self._make_client(self.head_addr)
-        self._streams = StreamManager(self._head_client.open_stream, idle_timeout_s=self._stream_idle_s)
+        self._streams = StreamManager(self._head_client.open_stream, idle_timeout_s=self._stream_idle_s,
+                                      on_nack=self._on_stream_nack)
         # persistent control channels: a reset per request must not pay a
         # channel handshake per shard
         self._shard_clients = {addr: self._make_client(addr) for addr in self.shard_addrs}
@@ -97,14 +134,29 @@ class RingApiAdapter(ApiAdapterBase):
     def max_seq(self) -> Optional[int]:
         return self._max_seq
 
+    def _on_stream_nack(self, ack) -> None:
+        """A shard refused one of this adapter's frames outright: on a
+        `stale epoch` refusal (its topology was re-solved under it) the
+        token can never come, so the awaiting step fails now and the resume
+        controller can replay on the new adapter.  The lanes carrier has no
+        future of its own, and other refusals keep their timeout."""
+        if ack.nonce == self.LANES_NONCE or not str(ack.message).startswith("stale epoch"):
+            return
+        self.resolve_token(TokenResult(nonce=ack.nonce, token_id=-1, step=ack.seq,
+                                       error=f"frame rejected: {ack.message}"))
+
     async def reset_cache(self, nonce: str) -> None:
         """Drop the nonce's state here and its KV on every shard."""
         self._futures.cancel_nonce(nonce)
         self._pos_state.pop(nonce, None)
         self._granted.pop(nonce, None)
         self._deadlines.pop(nonce, None)
-        for key in [k for k in self._early if k[0] == nonce]:
-            self._early.pop(key, None)
+        self._active.pop(nonce, None)
+        if self._pending:
+            self._pending = [e for e in self._pending if e["nonce"] != nonce]
+        for table in (self._early, self._sent_at):
+            for key in [k for k in table if k[0] == nonce]:
+                table.pop(key, None)
         if self._streams is not None:
             await self._streams.end_stream(nonce)
 
@@ -139,6 +191,15 @@ class RingApiAdapter(ApiAdapterBase):
                 self._futures.resolve(early)
             return
         pos = self._pos_for(nonce, step, len(token_ids))
+        if self._lanes > 1 and step > 0:
+            # a decode step joins the next multi-lane frame; a prefill never
+            # counts toward the batch target (it would hold every flush open)
+            self._active[nonce] = True
+            self._pending.append({"nonce": nonce, "seq": step, "pos": pos, "decoding": asdict(decoding),
+                                  "token": int(token_ids[0]), "t_enq": time.monotonic()})
+            if self._flush_task is None or self._flush_task.done():
+                self._flush_task = asyncio.ensure_future(self._flush_lanes())
+            return
         await self._send_token_frame(nonce, token_ids, pos, decoding, step, budget)
 
     async def _send_token_frame(
@@ -171,6 +232,77 @@ class RingApiAdapter(ApiAdapterBase):
             self._granted[nonce] = step + auto
         await self._streams.send(nonce, frame)
 
+    def _converge_window(self) -> float:
+        ema = self._step_ema
+        if ema <= 0:
+            return self.LANE_CONVERGE_MIN_S
+        return min(max(self.LANE_CONVERGE_EMA_MULT * ema, self.LANE_CONVERGE_MIN_S), self.LANE_CONVERGE_MAX_S)
+
+    async def _flush_lanes(self) -> None:
+        """Drain the pending lane entries into multi-lane frames, holding a
+        partly filled batch open (up to the convergence window) while more
+        mid-decode requests could join.  A request never sends step k + 1
+        before step k resolved, so each nonce appears once a batch."""
+        await asyncio.sleep(0)
+        loop = asyncio.get_running_loop()
+        while self._pending:
+            target = min(self._lanes, len(self._active))
+            if len(self._pending) < target:
+                deadline = loop.time() + self._converge_window()
+                while len(self._pending) < target and loop.time() < deadline:
+                    await asyncio.sleep(0.0005)
+            batch, self._pending = self._pending[: self._lanes], self._pending[self._lanes:]
+            # shed expired members here: one late member must not expire the
+            # whole frame at a shard and fail its live batchmates
+            live = []
+            for e in batch:
+                dl = self._deadlines.get(e["nonce"], 0.0)
+                if dl and time.time() >= dl:
+                    deadline_expired("lane_flush")
+                    self.resolve_token(TokenResult(nonce=e["nonce"], token_id=-1, step=e["seq"],
+                                                   error="deadline exceeded at lane flush"))
+                else:
+                    live.append(e)
+            if not live:
+                continue
+            _LANE_DEPTH.observe(len(live))
+            now = time.monotonic()
+            for e in live:
+                wait_ms = (now - e["t_enq"]) * 1000
+                _LANE_WAIT_MS.observe(wait_ms)
+                get_recorder().span(e["nonce"], "lane_queue_wait", wait_ms, step=e["seq"])
+                # the hop RTT (and the window's EMA) measures the ring pass
+                # alone: stamped at the flush, not at the enqueue
+                self._sent_at[(e["nonce"], e["seq"])] = now
+            payload, _dtype, shape = tensor_to_bytes(np.asarray([[e["token"]] for e in live], dtype=np.int32))
+            frame = ActivationFrame(
+                nonce=self.LANES_NONCE,
+                seq=self._batch_seq,
+                layer_id=-1,
+                pos=0,
+                dtype="tokens",
+                shape=shape,
+                payload=payload,
+                callback_url=self.callback_url,
+                decoding={},
+                t_sent=time.time(),
+                t_sent_mono=time.perf_counter(),
+                lanes=[{k: e[k] for k in ("nonce", "seq", "pos", "decoding")} for e in live],
+                epoch=self._epoch,
+            )
+            self._batch_seq += 1
+            log.info("[PROFILE] lane flush: %d member(s), %d active, %d still pending",
+                     len(live), len(self._active), len(self._pending))
+            try:
+                await self._streams.send(self.LANES_NONCE, frame)
+            except Exception as exc:
+                # every member fails alone and fast (a failed send is not a
+                # hop: its stamp must not feed the EMA)
+                for e in live:
+                    self._sent_at.pop((e["nonce"], e["seq"]), None)
+                    self.resolve_token(TokenResult(nonce=e["nonce"], token_id=-1, step=e["seq"],
+                                                   error=f"batch frame send failed: {exc}"))
+
     def _pos_for(self, nonce: str, step: int, n_tokens: int) -> int:
         """Step 0 injects the whole prompt at pos 0; every later step
         appends one token, so pos is derived (prompt length + step - 1)
@@ -190,6 +322,12 @@ class RingApiAdapter(ApiAdapterBase):
             err = epoch_fence.reject("token_cb", self._epoch, result.epoch)
             log.warning("zombie token for %s step %d dropped: %s", result.nonce, result.step, err)
             return
+        sent = self._sent_at.pop((result.nonce, result.step), None)
+        if sent is not None:
+            dt = time.monotonic() - sent
+            _HOP_RTT_MS.observe(dt * 1000)
+            get_recorder().span(result.nonce, "hop_rtt", dt * 1000, step=result.step)
+            self._step_ema = dt if self._step_ema <= 0 else 0.8 * self._step_ema + 0.2 * dt
         if not self._futures.resolve(result):
             if result.step <= self._granted.get(result.nonce, -1):
                 # a granted step raced ahead of the decode loop's await: hold it

@@ -264,6 +264,7 @@ class RingModelManager:
         # load's bodies (another max_seq would make every shard "changed")
         self.max_seq = max_seq = max_seq or self.max_seq
         bodies = self.load_bodies(topo, model_id, max_seq)
+        lanes = next(iter(bodies.values()))["lanes"] if bodies else 0
         changed, unchanged = split_delta(self._last_load, bodies) if delta else (bodies, {})
         timeout = aiohttp.ClientTimeout(total=self.request_timeout_s)
         async with aiohttp.ClientSession(timeout=timeout) as session:
@@ -308,10 +309,14 @@ class RingModelManager:
             ring_client_factory=self._ring_client_factory,
             max_seq_len=max_seq,
             auto_steps=api_settings().ring_auto_steps,
+            lanes=max(lanes, 1),
             epoch=topo.epoch,
         )
         await adapter.start()
         self.inference.adapter = adapter
+        # each shard's lane pool holds exactly `lanes` rows: admission queues
+        # the requests beyond them instead of failing them at a shard
+        self.inference.admission.set_capacity(lanes if lanes > 1 else None)
         self.inference.tokenizer = tokenizer
         self.inference.model_id = model_id
         if old is not None:

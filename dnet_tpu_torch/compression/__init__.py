@@ -1,7 +1,8 @@
 """Hop codec of the ring: column sparsification and the sparse wire formats.
 
-Counterpart of dnet_tpu/compression/ (the synchronous encode; the
-overlapped wire pipeline's `launch_encode`/`DeviceEncode` is not ported).
+Counterpart of dnet_tpu/compression/: the synchronous encode
+(`compress_tensor`) and its two halves for the overlapped wire pipeline
+(`launch_encode`, `DeviceEncode.finalize`).
 """
 
 from dnet_tpu_torch.compression.ops import (
@@ -11,11 +12,14 @@ from dnet_tpu_torch.compression.ops import (
     scatter_columns,
 )
 from dnet_tpu_torch.compression.wire import (
+    DeviceEncode,
+    EncodeStaging,
     codec_name,
     compress_tensor,
     decompress_tensor,
     decompress_tensor_device,
     is_compressed_dtype,
+    launch_encode,
 )
 
 __all__ = [
@@ -23,9 +27,12 @@ __all__ = [
     "column_sparsify",
     "gather_columns",
     "scatter_columns",
+    "DeviceEncode",
+    "EncodeStaging",
     "codec_name",
     "compress_tensor",
     "decompress_tensor",
     "decompress_tensor_device",
     "is_compressed_dtype",
+    "launch_encode",
 ]

@@ -170,7 +170,7 @@ def _norms_topk(op: str, x: torch.Tensor, keep: int):
     )
     if rc != 0:
         raise RuntimeError(f"{op} kernel launch failed (code {rc})")
-    column_sq_norms.launches += 1
+    build.count_launch(column_sq_norms)
     return norms, idx, mask
 
 
@@ -202,7 +202,7 @@ def gather_columns(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     )
     if rc != 0:
         raise RuntimeError(f"gather_columns kernel launch failed (code {rc})")
-    gather_columns.launches += 1
+    build.count_launch(gather_columns)
     return out
 
 
@@ -264,7 +264,7 @@ def dequant_scatter_columns(
     )
     if rc != 0:
         raise RuntimeError(f"dequant_scatter_columns kernel launch failed (code {rc})")
-    dequant_scatter_columns.launches += 1
+    build.count_launch(dequant_scatter_columns)
     return out
 
 

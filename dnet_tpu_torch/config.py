@@ -177,13 +177,16 @@ class WireSettings:
     """The hop codec (DNET_WIRE_*).  `codec`: auto (qsparse8 for hops that
     cross hosts, lossless otherwise), lossless or qsparse8; `qsparse_pct`
     is the fraction of columns qsparse8 drops and `group_size` its quant
-    group.  `pipeline` (the overlapped encode) is not ported: shards
-    refuse it at load."""
+    group.  `pipeline` (DNET_WIRE_PIPELINE=1) overlaps the hop codec's
+    readback and byte packing with the next step (transport/
+    wire_pipeline.py), `depth` bounding the encodes launched but not yet
+    sent (and the frames decoded ahead at ingress)."""
 
     pipeline: bool = False
     codec: str = "auto"
     qsparse_pct: float = 0.5
     group_size: int = 64
+    depth: int = 2
 
 
 @dataclass

@@ -77,11 +77,18 @@ class ActivationMessage:
     cont: Optional[tuple] = None
     drafts: list = field(default_factory=list)
     committed: list = field(default_factory=list)
+    # batched lanes: a coalesced decode frame's members, one {"nonce",
+    # "seq", "pos", "decoding"} each, payload rows in the same order; the
+    # tail answers with `lane_finals`, one TokenResult-shaped dict a member
     lanes: list = field(default_factory=list)
+    lane_finals: Optional[list] = None
     prefix_store: str = ""
     prefix_hit: str = ""
     deadline: float = 0.0  # end-to-end request deadline (epoch s, 0 = none)
     epoch: int = 0
+    # the wire pipeline's receive half: a hidden payload already uploaded
+    # and decoded at ingress (process-local, never on the wire)
+    device_data: Any = None
 
     @property
     def is_tokens(self) -> bool:

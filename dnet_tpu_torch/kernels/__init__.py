@@ -59,5 +59,7 @@ def launch_counts() -> Dict[str, int]:
 
 
 def reset_launch_counts() -> None:
+    from dnet_tpu_torch.kernels.build import reset_counter
+
     for fn, attr in _counters().values():
-        setattr(fn, attr, 0)
+        reset_counter(fn, attr)

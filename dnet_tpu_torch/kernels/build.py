@@ -191,6 +191,22 @@ def entry(name: str, symbol: str, argtypes: Sequence) -> ctypes._CFuncPtr:
     return fn
 
 
+_COUNT_LOCK = threading.Lock()
+
+
+def count_launch(fn, counter: str = "launches") -> None:
+    """One launch on the wrapper's counter `counter`.  Under the wire
+    pipeline the compute thread and the event loop (the receive side's
+    dequant-scatter) both launch kernels, so the increment holds a lock."""
+    with _COUNT_LOCK:
+        setattr(fn, counter, getattr(fn, counter) + 1)
+
+
+def reset_counter(fn, counter: str = "launches") -> None:
+    with _COUNT_LOCK:
+        setattr(fn, counter, 0)
+
+
 def current_stream_handle(device: torch.device) -> int:
     """The raw cudaStream_t of PyTorch's current stream on `device`."""
     return torch.cuda.current_stream(device).cuda_stream

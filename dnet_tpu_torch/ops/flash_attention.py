@@ -219,11 +219,11 @@ def flash_prefill(
     if rc != 0:
         raise RuntimeError(f"flash_prefill kernel launch failed (code {rc})")
     if positions is not None:
-        flash_prefill.launches_lanes += 1
+        build.count_launch(flash_prefill, "launches_lanes")
     elif Dv == D:
-        flash_prefill.launches += 1
+        build.count_launch(flash_prefill)
     else:
-        flash_prefill.launches_mla += 1
+        build.count_launch(flash_prefill, "launches_mla")
     return out
 
 

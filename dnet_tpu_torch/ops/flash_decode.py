@@ -300,7 +300,7 @@ def _count(group: int, counter: str, mma: bool) -> None:
     if group > MAX_ROWS:
         counter = WIDE_COUNTER
     for c in (counter, MMA_COUNTER) if mma else (counter,):
-        setattr(flash_decode_attend, c, getattr(flash_decode_attend, c) + 1)
+        build.count_launch(flash_decode_attend, c)
 
 
 # kernel launches since the last reset, per variant (COUNTERS, WIDE_COUNTER)

@@ -172,11 +172,11 @@ def paged_attend(
     if rc != 0:
         raise RuntimeError(f"paged_attention kernel launch failed (code {rc})")
     if G > MAX_ROWS:
-        paged_attend.launches_wide += 1
+        build.count_launch(paged_attend, "launches_wide")
     else:
-        paged_attend.launches += 1
+        build.count_launch(paged_attend)
     if mma:
-        setattr(paged_attend, MMA_COUNTER, getattr(paged_attend, MMA_COUNTER) + 1)
+        build.count_launch(paged_attend, MMA_COUNTER)
     return out
 
 

@@ -22,8 +22,10 @@ obs off too, unlike the reference, which records only under
 ``preempted`` events.  /v1/embeddings runs on the batched engine's inner
 LocalEngine, on the compute thread.
 
-Not ported: the reference's wire-pipeline tick dispatch (DNET_WIRE_PIPELINE,
-which the port's ring refuses).
+Under the wire pipeline (DNET_WIRE_PIPELINE=1) a tick with prefills hands
+each decode result to the loop as soon as the batched dispatch lands
+(execute_tick's `on_decode`, `_dispatch_decode`), so decode steps resolve
+while the tick's prefill chunks still run; the apply then skips them.
 """
 
 from __future__ import annotations
@@ -38,6 +40,7 @@ from dnet_tpu_torch.config import sched_settings
 from dnet_tpu_torch.core.types import DecodingParams, TokenResult
 from dnet_tpu_torch.obs import metric
 from dnet_tpu_torch.obs.events import log_event
+from dnet_tpu_torch.transport.wire_pipeline import wire_pipeline_enabled
 from dnet_tpu_torch.sched.flight import get_tick_recorder
 from dnet_tpu_torch.sched.kinds import QUEUE_STATES, STATE_DECODING
 from dnet_tpu_torch.sched.policy import SchedulerPolicy, TickPlan
@@ -209,7 +212,14 @@ class SchedulerAdapter(ApiAdapterBase):
                 if plan.empty():
                     continue
                 t0 = time.perf_counter()
-                result = await loop.run_in_executor(self._executor, execute_tick, self.engine, plan, None)
+                on_decode = None
+                if plan.prefills and wire_pipeline_enabled():
+                    # the loop's FIFO runs every early resolve before the
+                    # executor future resumes _apply
+                    on_decode = lambda nonce, sample: loop.call_soon_threadsafe(  # noqa: E731
+                        self._dispatch_decode, plan, nonce, sample
+                    )
+                result = await loop.run_in_executor(self._executor, execute_tick, self.engine, plan, on_decode)
                 tick_ms = (time.perf_counter() - t0) * 1000.0
                 _TICK_MS.observe(tick_ms)
                 _BATCH_TOKENS.labels(kind="prefill").observe(float(result.prefill_tokens))
@@ -249,6 +259,14 @@ class SchedulerAdapter(ApiAdapterBase):
             kv_blocks_free=pool.free if pool is not None else 0,
             kv_pool_blocks=pool.total if pool is not None else 0,
         )
+
+    def _dispatch_decode(self, plan: TickPlan, nonce: str, sample) -> None:
+        """An early decode resolution (the wire pipeline's tick dispatch), on
+        the loop while the tick's prefill chunks run; _apply skips the
+        nonces in TickResult.dispatched, so each resolves once."""
+        step = plan.steps.get(nonce)
+        if step is not None:
+            self._resolve_step(nonce, step, sample=sample)
 
     def _fail_plan(self, plan: TickPlan, error: str) -> None:
         """A tick that died wholesale (executor torn down mid-flight): every

@@ -26,9 +26,10 @@ and store_prefix skips it.
 
 The executor only reads the plan (loop-side snapshots) and the engine; it
 never touches the scheduler queue.  Results flow back as plain data in a
-:class:`TickResult` the loop applies.  The reference's wire-pipeline seam
-(``on_decode``, DNET_WIRE_PIPELINE=1) is kept in the signature; the port's
-adapter passes None.  Preemptions are counted in
+:class:`TickResult` the loop applies.  Under the wire pipeline
+(DNET_WIRE_PIPELINE=1) the adapter passes ``on_decode``, which hands each
+decode result to the loop as soon as the batched dispatch lands, before
+the tick's prefill chunks run.  Preemptions are counted in
 dnet_sched_preemptions_total{reason}, as in the reference.
 """
 

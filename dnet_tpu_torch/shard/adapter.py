@@ -15,7 +15,15 @@ under another topology epoch than the one this shard holds is refused
 (NACK) and counted in dnet_stale_epoch_rejected_total{kind="frame"}, never
 computed or relayed; the chaos point `zombie_frame` marks a frame stale on
 purpose.  Token callbacks run under the `send_token` retry policy with the
-chaos point `token_cb` inside the retried call.
+chaos point `token_cb` inside the retried call; a batch frame's tail
+answers with one callback a member, sent concurrently.
+
+Under the wire pipeline (DNET_WIRE_PIPELINE=1) a hidden hop whose payload
+is still a launched encode is finalized on the `WireTxStage`'s thread
+before its frame is built, so a re-sent frame carries the same bytes and
+seq; and a queued hidden frame is decoded at ingress (the compute's
+`will_predecode` / `predecode`, behind the `wire_decode` chaos point; a
+failure NACKs the frame).
 """
 
 from __future__ import annotations
@@ -36,6 +44,7 @@ from dnet_tpu_torch.resilience import chaos
 from dnet_tpu_torch.resilience.policy import call_with_retry
 from dnet_tpu_torch.transport.protocol import ActivationFrame, TokenPayload
 from dnet_tpu_torch.transport.stream_manager import StreamManager
+from dnet_tpu_torch.transport.wire_pipeline import PendingWirePayload, WireTxStage
 from dnet_tpu_torch.utils.logger import get_logger
 from dnet_tpu_torch.utils.serialization import tensor_to_bytes
 
@@ -79,6 +88,8 @@ class RingAdapter:
         # a sender whose stream broke re-opens it and re-sends the in-flight
         # frame: a frame already admitted is ACKed, not computed twice
         self._seen: "OrderedDict[tuple, bool]" = OrderedDict()
+        # finalizes pipelined encodes off the event loop and the compute thread
+        self._wire_tx = WireTxStage()
 
     # ---- lifecycle ------------------------------------------------------
     async def start(self) -> None:
@@ -92,6 +103,7 @@ class RingAdapter:
             t.cancel()
         await asyncio.gather(*self._tasks, return_exceptions=True)
         self._tasks = []
+        self._wire_tx.shutdown()
         await self.reset_topology()
 
     # ---- topology -------------------------------------------------------
@@ -160,6 +172,16 @@ class RingAdapter:
                 log.info("duplicate frame %s seq=%d deduped", frame.nonce, frame.seq)
                 return True, "duplicate"
             msg = frame.to_message()
+            if compute.will_predecode(msg, self.runtime.queue_depth):
+                # the pipeline's receive half: this frame's upload and
+                # dequant queue on the card now, behind the step being
+                # launched (the async chaos point parks only this frame)
+                try:
+                    await chaos.inject_async("wire_decode")
+                    compute.predecode(msg)
+                except Exception as exc:
+                    log.error("wire decode failed for %s seq=%d: %s", frame.nonce, frame.seq, exc)
+                    return False, f"wire decode failed: {exc}"
             if not self.runtime.submit(msg, timeout=0.0 if self.runtime.queue_depth else 5.0):
                 return False, "backpressure"
             self._seen[key] = True
@@ -189,6 +211,14 @@ class RingAdapter:
 
     async def _send_activation(self, msg: ActivationMessage) -> None:
         t0 = time.perf_counter()
+        if isinstance(msg.data, PendingWirePayload):
+            # a pipelined hop: the tx stage waits for the readback and packs
+            # the bytes while the compute thread launches the next step; the
+            # frame goes out encoded, so a stream re-open re-sends these
+            # bytes with this seq
+            msg.data = await self._wire_tx.finalize(msg.data, nonce=msg.nonce, seq=msg.seq)
+            get_recorder().span(msg.nonce, "wire_encode", (time.perf_counter() - t0) * 1000.0, seq=msg.seq,
+                                bytes=len(msg.data))
         frame = ActivationFrame(
             nonce=msg.nonce,
             seq=msg.seq,
@@ -203,6 +233,7 @@ class RingAdapter:
             t_sent=time.time(),
             t_sent_mono=t0,
             auto_steps=msg.auto_steps,
+            lanes=list(msg.lanes),
             deadline=msg.deadline,
             epoch=msg.epoch,
         )
@@ -211,6 +242,21 @@ class RingAdapter:
                             bytes=len(frame.payload or b""))
 
     async def _send_token(self, msg: ActivationMessage) -> None:
+        if msg.lane_finals:
+            # a batch frame's tail: one callback a member (independent
+            # requests, so concurrently)
+            client = self._cb_client(msg.callback_url)
+            if client is None:
+                log.error("lane finals for %s have no callback", msg.nonce)
+                return
+            await asyncio.gather(*(
+                self._cb_send(client, TokenPayload(
+                    nonce=f["nonce"], step=int(f["step"]), token_id=int(f["token_id"]), logprob=f.get("logprob"),
+                    top_ids=list(f.get("top_ids") or []), top_logprobs=list(f.get("top_logprobs") or []),
+                    error=f.get("error", ""), epoch=msg.epoch))
+                for f in msg.lane_finals
+            ))
+            return
         if msg.cont is not None:
             # decode grant: the sampled token re-enters the ring BEFORE the
             # API callback, so the next step computes while the token is in

@@ -8,26 +8,39 @@ encode seam, `_encode_activation`: the lossless cast to the wire dtype, or
 the qsparse8/sparse_v1 codec, whose column norms, gather and (on the
 receiving shard) dequant + scatter run in the CUDA kernels of
 compression/ops.py.  The chaos points `wire_encode` and `wire_decode` sit
-at the encode and decode seams, as at the reference's synchronous ones.
+at the encode and decode seams, as at the reference's.
+
+Under the overlapped wire pipeline (DNET_WIRE_PIPELINE=1, transport/
+wire_pipeline.py) a decode-step hop (at most `lanes` rows) is only launched
+here and finalized on the adapter's tx thread, through a ring of `depth`
+encode slots and page-locked staging buffers warmed at load; a prompt
+frame encodes synchronously.  The adapter predecodes a queued hidden frame
+at ingress (`will_predecode`, `predecode`) while the compute queue is
+shallower than `depth`.
+
+Batched lanes (`lanes` > 1, DNET_API_RING_LANES): the shard keeps a lane
+pool (shard/lanes.py) and serves a coalesced frame's members with one
+batched step; a tail answers with one final a member, a faulted member
+failing alone.
 
 This slice serves every family the port registers (gpt_oss's range in its
 paired layout, or the flat one where its kinds do not pair; deepseek_v2's
-range as its dense and moe segments), one contiguous layer range per shard,
-one request per ring pass and a synchronous encode; the shard's KV cache takes
-the topology's kv_bits (bf16, int8 or packed int4, as core/kvcache.py
-`resolve_kv_bits` maps it).  The topology's `window_size` /
-`residency_size` give the shard's weight plan (core/weights.py): under
-offload or sliding_fit its layers stream from host memory (the repack
-cache under `repack_dir`), the head shard running embed + the streamed
-layers and the tail the streamed layers + norm + head + sample, as the
-reference's streaming branch does.  Every option
-that would ask for more is refused at load (`ShardCapabilityError`) rather
-than quietly served as something else.
+range as its dense and moe segments), one contiguous layer range per shard;
+the shard's KV cache takes the topology's kv_bits (bf16, int8 or packed
+int4, as core/kvcache.py `resolve_kv_bits` maps it).  The topology's
+`window_size` / `residency_size` give the shard's weight plan
+(core/weights.py): under offload or sliding_fit its layers stream from host
+memory (the repack cache under `repack_dir`), the head shard running embed
++ the streamed layers and the tail the streamed layers + norm + head +
+sample, as the reference's streaming branch does.  Every option that would
+ask for more is refused at load (`ShardCapabilityError`), before a weight
+is read, rather than quietly served as something else.
 """
 
 from __future__ import annotations
 
 import json
+import threading
 import time
 from pathlib import Path
 from typing import Optional, Sequence, Union
@@ -37,17 +50,31 @@ import torch
 import torch.nn.functional as F
 
 from dnet_tpu_torch.compression import (
+    EncodeStaging,
     compress_tensor,
     decompress_tensor_device,
     is_compressed_dtype,
+    launch_encode,
 )
 from dnet_tpu_torch.config import tp_settings, transport_settings, wire_settings
 from dnet_tpu_torch.core.engine import LocalEngine, bucket_length
 from dnet_tpu_torch.core.kvcache import resolve_kv_bits
-from dnet_tpu_torch.core.types import ActivationMessage
+from dnet_tpu_torch.core.types import ActivationMessage, DecodingParams
+from dnet_tpu_torch.core.weights import plan_policy
 from dnet_tpu_torch.models import MODEL_TYPES
 from dnet_tpu_torch.resilience import chaos
+from dnet_tpu_torch.transport.wire_pipeline import (
+    EncodeRing,
+    PendingWirePayload,
+    observe_decode,
+    observe_encode,
+    overlap,
+    wire_pipeline_enabled,
+)
+from dnet_tpu_torch.utils.logger import get_logger
 from dnet_tpu_torch.utils.serialization import bytes_to_device, tensor_to_bytes
+
+log = get_logger()
 
 
 def _rows(shape) -> int:
@@ -59,16 +86,43 @@ class ShardCapabilityError(ValueError):
     """A load option this shard does not serve."""
 
 
-def refuse_model(model_dir: Union[str, Path]) -> None:
+def refuse_model(
+    model_dir: Union[str, Path],
+    layers: Optional[Sequence[int]] = None,
+    *,
+    lanes: int = 0,
+    window_size: int = 0,
+    residency_size: int = 0,
+    **_other,
+) -> None:
     """Raise ShardCapabilityError for a checkpoint whose family this shard
-    does not serve; read from its config.json before any weight."""
+    does not serve, or (lanes > 1) a range batched lanes cannot serve: a
+    streamed plan (window_size / residency_size short of the range) or a
+    model without the lane hook (`supports_kv_commit` false: gpt_oss's flat
+    layout).  Read from its config.json before any weight."""
     cfg_path = Path(model_dir) / "config.json"
     if not cfg_path.is_file():
         raise FileNotFoundError(f"no config.json in {model_dir}")
-    model_type = json.loads(cfg_path.read_text()).get("model_type")
+    raw = json.loads(cfg_path.read_text())
+    model_type = raw.get("model_type")
     if model_type not in MODEL_TYPES:  # a shard serves every registered family
         raise ShardCapabilityError(
             f"this shard does not serve model_type {model_type!r} (ring shards serve {MODEL_TYPES})"
+        )
+    if lanes <= 1 or layers is None:
+        return
+    if plan_policy(len(layers), window_size, residency_size).name != "fit":
+        raise ShardCapabilityError(
+            f"this shard does not serve lanes={lanes} (DNET_API_RING_LANES) on a streamed plan "
+            f"(window_size={window_size}, residency_size={residency_size}): batched lanes need resident weights"
+        )
+    from dnet_tpu_torch.models import ModelConfig, get_ring_model_cls
+
+    cfg = ModelConfig.from_hf(raw)
+    if not get_ring_model_cls(model_type)(cfg, layers, "cpu").supports_kv_commit:
+        raise ShardCapabilityError(
+            f"this shard does not serve lanes={lanes} (DNET_API_RING_LANES) for {model_type} layers "
+            f"{sorted(layers)}: no gated KV writes (gpt_oss's flat layout)"
         )
 
 
@@ -81,31 +135,25 @@ def refuse_unsupported(
     mesh_sp: int = 0,
     tp_degree: int = 0,
     spec_lookahead: int = 0,
-    lanes: int = 0,
     prefix_cache: int = 0,
-    wire_pipeline: Optional[bool] = None,
     **_other,
 ) -> None:
     """Raise ShardCapabilityError for the first load option outside this
-    slice, naming the setting it comes from: batched lanes
-    (DNET_API_RING_LANES), ring speculation (DNET_API_SPEC_LOOKAHEAD), the
-    ring prefix cache (DNET_API_PREFIX_CACHE), k-round (non-contiguous)
-    schedules, a mesh-backed shard (DNET_SHARD_MESH_TP / _SP), tensor
-    parallelism (DNET_TP: a tp_degree of 0 takes this shard's own, as the
-    reference's shard resolves it when the mesh is one device), a kv_bits
-    that is none of 0/16/8/4, a weight_quant_bits that is none of 0/8/4,
-    and the overlapped wire pipeline (None: DNET_WIRE_PIPELINE).  Other
+    slice, naming the setting it comes from: ring speculation
+    (DNET_API_SPEC_LOOKAHEAD), the ring prefix cache
+    (DNET_API_PREFIX_CACHE), k-round (non-contiguous) schedules, a
+    mesh-backed shard (DNET_SHARD_MESH_TP / _SP), tensor parallelism
+    (DNET_TP: a tp_degree of 0 takes this shard's own, as the reference's
+    shard resolves it when the mesh is one device), a kv_bits that is none
+    of 0/16/8/4 and a weight_quant_bits that is none of 0/8/4.  Other
     keyword arguments are ignored, so a caller can pass its whole load
     body."""
-    if wire_pipeline is None:
-        wire_pipeline = wire_settings().pipeline
     if tp_degree == 0 and max(mesh_tp, 1) * max(mesh_sp, 1) == 1:
         tp_degree = tp_settings().tp
     ls = sorted(int(a) for a in layers)
     if not ls:
         raise ShardCapabilityError("empty layer list")
     refused = [
-        (lanes > 1, f"lanes={lanes} (DNET_API_RING_LANES): batched ring lanes are not ported"),
         (spec_lookahead > 0,
          f"spec_lookahead={spec_lookahead} (DNET_API_SPEC_LOOKAHEAD): ring speculation is not ported"),
         (prefix_cache > 0,
@@ -117,7 +165,6 @@ def refuse_unsupported(
         (tp_degree > 1, f"tp_degree={tp_degree} (DNET_TP): tensor parallelism is not ported"),
         (kv_bits not in (0, 4, 8, 16), f"kv_bits={kv_bits} (supported: 0/4/8/16)"),
         (weight_quant_bits not in (0, 4, 8), f"weight_quant_bits={weight_quant_bits} (supported: 0/4/8)"),
-        (wire_pipeline, "DNET_WIRE_PIPELINE=1: the overlapped wire pipeline is not ported"),
     ]
     for cond, why in refused:
         if cond:
@@ -155,10 +202,9 @@ class ShardCompute:
         refuse_unsupported(
             layers, kv_bits=kv_bits,
             weight_quant_bits=weight_quant_bits, mesh_tp=mesh_tp, mesh_sp=mesh_sp,
-            tp_degree=tp_degree, spec_lookahead=spec_lookahead, lanes=lanes,
-            prefix_cache=prefix_cache, wire_pipeline=wire_pipeline,
+            tp_degree=tp_degree, spec_lookahead=spec_lookahead, prefix_cache=prefix_cache,
         )
-        refuse_model(model_dir)
+        refuse_model(model_dir, layers, lanes=lanes, window_size=window_size, residency_size=residency_size)
         # the API resolves "auto" per hop in its load fan-out; a shard loaded
         # without a codec keeps the lossless default
         if not wire_codec:
@@ -191,14 +237,65 @@ class ShardCompute:
         self._wire_pct = w.qsparse_pct
         self._wire_gs = w.group_size
         # hop accounting, read by /health: hidden frames encoded (sent) and
-        # decoded (received), their payload bytes, the last single-row
-        # (decode step) hop's bytes, and the host time of the encode and
-        # the decode, summed apart for single-row hops and prompt frames
+        # decoded (received), their payload bytes, the last decode-step
+        # hop's bytes, and the host time of the encode and the decode on
+        # the compute thread (under the pipeline: the launch, and a decode
+        # not done at ingress), summed apart for decode-step hops (at most
+        # `lanes` rows) and prompt frames; under the pipeline also the
+        # frames decoded at ingress and their time there, and the encodes
+        # run to warm the codec at load (their kernel launches included in
+        # /health's counts).  Updated from the compute thread and, at
+        # ingress, the event loop.
         self.wire_stats = {
             "frames_encoded": 0, "bytes_encoded": 0, "frames_decoded": 0,
             "bytes_decoded": 0, "decode_hop_bytes": 0, "hop_encode_ms": 0.0,
             "prompt_encode_ms": 0.0, "hop_decode_ms": 0.0, "prompt_decode_ms": 0.0,
+            "frames_predecoded": 0, "predecode_ms": 0.0, "warm_encodes": 0,
         }
+        self._stats_lock = threading.Lock()
+        # the overlapped wire pipeline: `depth` encodes in flight at most,
+        # each encode-ring slot with its own page-locked buffers; ingress
+        # decodes ahead while the compute queue is shallower than `depth`
+        self.wire_pipeline = wire_pipeline_enabled() if wire_pipeline is None else bool(wire_pipeline)
+        self._encode_ring = EncodeRing(w.depth) if self.wire_pipeline else None
+        self._staging = EncodeStaging(w.depth) if self.wire_pipeline else None
+        self._rx_depth = max(int(w.depth), 1)
+        # batched lanes: a pool of `lanes` rows serves coalesced frames
+        self.lane_pool = None
+        if lanes > 1:
+            from dnet_tpu_torch.shard.lanes import LanePool
+
+            self.lane_pool = LanePool(self.engine, lanes)
+        # the pipelined encode takes decode-step hops: one row, or a lane
+        # frame's members; a prompt frame encodes synchronously
+        self._wire_jit_rows = max(int(lanes), 1)
+        if self.wire_pipeline:
+            self._warm_wire()
+
+    def _book(self, **deltas) -> None:
+        with self._stats_lock:
+            for k, v in deltas.items():
+                self.wire_stats[k] += v
+
+    def _warm_wire(self) -> None:
+        """Run the pipelined encode once for each row count it takes (and
+        the decode of its payload), at load: the codec's kernels run and
+        the staging buffers are allocated before the first frame, not on
+        the serving path."""
+        frac, qbits = self._wire_params()
+        eng = self.engine
+        t0 = time.perf_counter()
+        for rows in range(1, self._wire_jit_rows + 1):
+            x = torch.zeros((rows, 1, eng.config.hidden_size), dtype=eng.param_dtype, device=eng.device)
+            # slot 0's buffers: no encode is in flight at load
+            enc = launch_encode(x, frac, wire_dtype=self.wire_dtype, quant_bits=qbits, group_size=self._wire_gs,
+                                staging=self._staging, slot=0)
+            payload = enc.finalize()
+            if is_compressed_dtype(enc.dtype):
+                decompress_tensor_device(payload, enc.dtype, enc.shape, eng.device)
+        self._book(warm_encodes=self._wire_jit_rows)
+        log.info("wire encode warmed for %d frame shapes (codec=%s) in %.2fs", self._wire_jit_rows,
+                 self.wire_codec if (frac or qbits) else "lossless", time.perf_counter() - t0)
 
     @property
     def max_layer(self) -> int:
@@ -211,26 +308,58 @@ class ShardCompute:
     def reset(self, nonce: str = "") -> None:
         if nonce:
             self.engine.end_session(nonce)
+            if self.lane_pool is not None:
+                self.lane_pool.release(nonce)
         else:
             self.engine.sessions.clear()
+            if self.lane_pool is not None:
+                self.lane_pool.reset()
 
     # ---- ingress decode ------------------------------------------------
     def _payload_to_device(self, msg: ActivationMessage) -> torch.Tensor:
-        """Hidden payload bytes -> a tensor on the engine's device.  A
-        compressed frame uploads only its compact buffers and is rebuilt by
-        the dequant + scatter kernel."""
-        eng = self.engine
+        """Hidden payload -> a tensor on the engine's device: the one the
+        pipeline decoded at ingress, or decoded here (the compute thread's
+        chaos point first)."""
+        if msg.device_data is not None:
+            return msg.device_data
         chaos.inject("wire_decode")
+        return self._decode_to_device(msg, hidden=False)
+
+    def _decode_to_device(self, msg: ActivationMessage, hidden: bool) -> torch.Tensor:
+        """The one receive body: the payload's buffers uploaded through
+        page-locked memory; a compressed frame uploads only its compact
+        buffers and is rebuilt by the dequant + scatter kernel.  `hidden`:
+        run at ingress, overlapped with the step the compute thread is
+        launching."""
+        eng = self.engine
         t0 = time.perf_counter()
         if is_compressed_dtype(msg.dtype):
             out = decompress_tensor_device(msg.data, msg.dtype, msg.shape, eng.device)
         else:
             out = bytes_to_device(msg.data, msg.dtype, msg.shape, eng.device)
-        s = self.wire_stats
-        s["hop_decode_ms" if _rows(msg.shape) == 1 else "prompt_decode_ms"] += (time.perf_counter() - t0) * 1e3
-        s["frames_decoded"] += 1
-        s["bytes_decoded"] += len(msg.data)
+        ms = (time.perf_counter() - t0) * 1e3
+        observe_decode(ms, hidden=hidden)
+        hop = _rows(msg.shape) <= self._wire_jit_rows
+        self._book(frames_decoded=1, bytes_decoded=len(msg.data),
+                   **({"frames_predecoded": 1, "predecode_ms": ms} if hidden
+                      else {"hop_decode_ms" if hop else "prompt_decode_ms": ms}))
         return out
+
+    def will_predecode(self, msg: ActivationMessage, backlog: int) -> bool:
+        """Decode this frame at ingress?  Only under the pipeline, for a
+        hidden payload, and while the compute queue holds fewer than
+        `depth` frames: each decoded frame holds a whole activation on the
+        card, so a backlog keeps its compact bytes until the compute thread
+        reaches it."""
+        return (self.wire_pipeline and not msg.is_tokens and not msg.is_final and bool(msg.data)
+                and msg.device_data is None and backlog < self._rx_depth)
+
+    def predecode(self, msg: ActivationMessage) -> None:
+        """The pipeline's receive half (event loop, after will_predecode and
+        the caller's `wire_decode` chaos point): queue the frame's upload
+        and dequant + scatter on the card now, behind the step being
+        launched, before the frame joins the compute queue."""
+        msg.device_data = self._decode_to_device(msg, hidden=True)
 
     def _padded_len(self, T: int, pos: int) -> int:
         eng = self.engine
@@ -262,7 +391,7 @@ class ShardCompute:
         """Run this shard's window; returns the outgoing message (a hidden
         hop or the final sampled token)."""
         if msg.lanes:
-            raise ValueError("batch frame arrived but lanes are not enabled on this shard")
+            return self._process_lane_frame(msg)
         if msg.drafts:
             raise ValueError("verify block arrived but this shard cannot speculate")
         if msg.prefix_hit:
@@ -320,9 +449,32 @@ class ShardCompute:
         return 0.0, 0
 
     def _encode_activation(self, x: torch.Tensor):
-        """Every outgoing hidden payload serializes here: (bytes, dtype tag,
-        shape).  The codec runs on x's device; only its output leaves it."""
+        """Every outgoing hidden payload serializes here: (payload, dtype
+        tag, shape).  Under the pipeline a decode-step hop (at most `lanes`
+        rows) is launched into an encode-ring slot and its payload is a
+        PendingWirePayload the tx stage finalizes; a full ring past its
+        wait finalizes here.  Otherwise the codec runs to its bytes here, on
+        x's device; only its output leaves it."""
         frac, qbits = self._wire_params()
+        rows = _rows(x.shape)
+        if self.wire_pipeline and rows <= self._wire_jit_rows:
+            t_acq = time.perf_counter()
+            slot = self._encode_ring.acquire()
+            acquired = slot is not None
+            t0 = time.perf_counter()
+            enc = launch_encode(x, frac, wire_dtype=self.wire_dtype, quant_bits=qbits, group_size=self._wire_gs,
+                                staging=self._staging if acquired else None, slot=slot or 0)
+            pending = PendingWirePayload(enc, ring=self._encode_ring if acquired else None, slot=slot or 0)
+            # serial: the launch; a blocked acquire is backpressure (stall)
+            launch_ms = (time.perf_counter() - t0) * 1e3
+            overlap.add(serial_ms=launch_ms, stall_ms=(t0 - t_acq) * 1e3)
+            nbytes = sum(t.numel() * t.element_size() for t in enc.host)
+            self._book(hop_encode_ms=launch_ms, frames_encoded=1, bytes_encoded=nbytes)
+            with self._stats_lock:
+                self.wire_stats["decode_hop_bytes"] = nbytes
+            if not acquired:
+                return pending.finalize_sync(), enc.dtype, enc.shape
+            return pending, enc.dtype, enc.shape
         if x.is_cuda:
             # the layers' launches finish first, so the time below is the
             # codec's alone (its read-back would wait for them anyway)
@@ -335,14 +487,62 @@ class ShardCompute:
             )
         else:
             payload, dtype, shape = tensor_to_bytes(x, wire_dtype=self.wire_dtype)
-        s = self.wire_stats
-        hop = _rows(shape) == 1
-        s["hop_encode_ms" if hop else "prompt_encode_ms"] += (time.perf_counter() - t0) * 1e3
-        s["frames_encoded"] += 1
-        s["bytes_encoded"] += len(payload)
+        ms = (time.perf_counter() - t0) * 1e3
+        observe_encode(ms, hidden=False)
+        hop = rows <= self._wire_jit_rows
+        self._book(frames_encoded=1, bytes_encoded=len(payload), **{"hop_encode_ms" if hop else "prompt_encode_ms": ms})
         if hop:
-            s["decode_hop_bytes"] = len(payload)
+            with self._stats_lock:
+                self.wire_stats["decode_hop_bytes"] = len(payload)
         return payload, dtype, shape
+
+    # ---- batched lanes -------------------------------------------------
+    def _process_lane_frame(self, msg: ActivationMessage) -> ActivationMessage:
+        """One coalesced decode step for every member (shard/lanes.py);
+        members prefilled on this shard's B=1 sessions are adopted into
+        lanes on their first frame."""
+        pool = self.lane_pool
+        if pool is None:
+            raise ValueError("batch frame arrived but lanes are not enabled on this shard")
+        n = len(msg.lanes)
+        if msg.is_tokens:
+            if not self.is_first:
+                raise ValueError("token batch frame arrived at a non-first shard")
+            out = pool.step_entry(msg, msg.tokens().reshape(n, 1), self.is_last)
+        else:
+            hidden = self._payload_to_device(msg)
+            if hidden.shape[0] != n or hidden.shape[1] != 1:
+                raise ValueError(f"batch frame payload {tuple(hidden.shape)} does not match {n} single-token lanes")
+            out = pool.step_hidden(msg, hidden, self.is_last)
+        if self.is_last:
+            return self._lane_finals_message(msg, out)
+        return self._emit_lanes(msg, out)
+
+    def _emit_lanes(self, msg: ActivationMessage, x: torch.Tensor) -> ActivationMessage:
+        """A batch frame's hidden hop: the members' rows stacked [n, 1, D]."""
+        payload, dtype, shape = self._encode_activation(x)
+        return ActivationMessage(nonce=msg.nonce, layer_id=self.max_layer, seq=msg.seq, dtype=dtype, shape=shape,
+                                 data=payload, pos=msg.pos, callback_url=msg.callback_url, decoding=msg.decoding,
+                                 lanes=list(msg.lanes))
+
+    def _lane_finals_message(self, msg: ActivationMessage, results) -> ActivationMessage:
+        """A batch frame's tail: one TokenResult-shaped dict a member, which
+        the adapter fans out as one token callback each; a faulted member's
+        carries its error."""
+        finals = []
+        for lane, res in zip(msg.lanes, results):
+            if res is None:
+                finals.append({"nonce": lane["nonce"], "step": int(lane["seq"]), "token_id": -1,
+                               "error": lane.get("error") or "lane failed"})
+                continue
+            tr = LocalEngine.token_result(lane["nonce"], res, step=int(lane["seq"]),
+                                          decoding=DecodingParams(**(lane.get("decoding") or {})))
+            finals.append({"nonce": tr.nonce, "step": tr.step, "token_id": tr.token_id, "logprob": tr.logprob,
+                           "top_ids": [t for t, _ in (tr.top_logprobs or [])],
+                           "top_logprobs": [lp for _, lp in (tr.top_logprobs or [])]})
+        return ActivationMessage(nonce=msg.nonce, layer_id=self.max_layer, seq=msg.seq, dtype="token",
+                                 shape=(len(finals),), pos=msg.pos, callback_url=msg.callback_url,
+                                 decoding=msg.decoding, is_final=True, lane_finals=finals)
 
     def _final_message(self, msg: ActivationMessage, res, sess) -> ActivationMessage:
         decoding = msg.decoding
@@ -369,5 +569,21 @@ class ShardCompute:
             out.cont = (tr.token_id, sess.pos, msg.auto_steps - 1, msg.seq + 1)
         return out
 
+    def ring_stats(self) -> dict:
+        """/health's view of the pipeline (the encode ring's depth, slots in
+        flight and peak, and the overlap books) and of the lane pool
+        (slots, lanes held), for those this shard runs."""
+        out = {}
+        if self.wire_pipeline:
+            ring = self._encode_ring
+            out["wire_pipeline"] = {"depth": ring.depth, "inflight": ring.inflight, "peak": ring.peak,
+                                    "overlap": overlap.snapshot()}
+        if self.lane_pool is not None:
+            out["lanes"] = {"slots": self.lane_pool.slots, "active": len(self.lane_pool.slot_of)}
+        return out
+
     def sweep_sessions(self) -> int:
-        return self.engine.sweep_sessions()
+        n = self.engine.sweep_sessions()
+        if self.lane_pool is not None:
+            n += self.lane_pool.sweep(self.engine.KV_TTL_S)
+        return n

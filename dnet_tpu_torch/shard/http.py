@@ -17,7 +17,9 @@ the reference's, so an API node of either package can load this shard;
 the options this slice does not serve answer 422 (shard/compute.py).
 /health carries the kernels' launch counts in this process, the hop
 codec's frame and byte counts, and the engine's weight plan (and, when it
-streams, `engine.weight_cache`: loads, hits, evictions and bytes).
+streams, `engine.weight_cache`: loads, hits, evictions and bytes); under
+the wire pipeline `wire_pipeline` (the encode ring's depth, slots in
+flight and peak, the overlap books), with lanes `lanes` (slots, active).
 """
 
 from __future__ import annotations
@@ -168,6 +170,7 @@ class ShardHTTPServer:
             body["sessions"] = len(compute.engine.sessions)
             body["wire_codec"] = compute.wire_codec
             body["wire"] = dict(compute.wire_stats)
+            body.update(compute.ring_stats())
             # the weights' and the cache's form and bytes on this shard
             body["engine"] = compute.engine.stats()
         return web.json_response(body)

@@ -11,7 +11,11 @@ by its nonce), and a drop counts dnet_deadline_exceeded_total{stage=
 reference's.  The chaos point `shard_compute` sits before each frame's
 compute: an injected fault takes the path a real compute failure takes
 (an error final upstream).  The topology epoch is pinned at load or by a
-delta update (`set_epoch`) and published as dnet_topology_epoch.
+delta update (`set_epoch`) and published as dnet_topology_epoch.  A batch
+frame's failure fails each member with its own error final.  A dropped
+frame whose payload is a pipelined encode (output overflow, stop)
+releases its encode-ring slot without a readback, and an overflow counts
+dnet_shard_outq_dropped_total.
 """
 
 from __future__ import annotations
@@ -31,21 +35,30 @@ from dnet_tpu_torch.obs import get_recorder, metric
 from dnet_tpu_torch.obs.events import bind, log_event
 from dnet_tpu_torch.resilience import chaos
 from dnet_tpu_torch.shard.compute import ShardCompute, refuse_model, refuse_unsupported
+from dnet_tpu_torch.transport.wire_pipeline import PendingWirePayload
 from dnet_tpu_torch.utils.logger import get_logger
 
 log = get_logger()
 
 _DEADLINE_EXCEEDED = metric("dnet_deadline_exceeded_total")
+_OUTQ_DROPPED = metric("dnet_shard_outq_dropped_total")
 
 
-def _error_final(msg: ActivationMessage, error: str) -> ActivationMessage:
+def _error_final(msg: ActivationMessage, error: str, members: Optional[list] = None) -> ActivationMessage:
     """Payload-free error final for `msg`: the one shape every failure path
-    emits upstream (compute failure, deadline drop, output overflow)."""
-    return ActivationMessage(
+    emits upstream (compute failure, deadline drop, output overflow).
+    `members` ({"nonce", "seq"} dicts: a batch frame's) fails each member
+    alone; without it the frame's own nonce carries the error."""
+    out = ActivationMessage(
         nonce=msg.nonce, layer_id=msg.layer_id, seq=msg.seq, dtype="error", shape=(),
-        pos=msg.pos, callback_url=msg.callback_url, is_final=True, token_id=-1,
-        error=error, epoch=msg.epoch,
+        pos=msg.pos, callback_url=msg.callback_url, is_final=True, epoch=msg.epoch,
     )
+    if members:
+        out.lane_finals = [{"nonce": m["nonce"], "step": int(m["seq"]), "token_id": -1, "error": error}
+                           for m in members]
+    else:
+        out.token_id, out.error = -1, error
+    return out
 
 
 class ShardRuntime:
@@ -80,6 +93,14 @@ class ShardRuntime:
             self.recv_q.put_nowait(None)  # wake the worker
         except queue.Full:  # it exits at the next poll
             pass
+        # frames left in out_q may hold encode-ring slots nobody will
+        # finalize now: release them, or a compute thread waiting in the
+        # ring's acquire would outlast the join below
+        if self.out_q is not None:
+            while not self.out_q.empty():
+                out = self.out_q.get_nowait()
+                if isinstance(out.data, PendingWirePayload):
+                    out.data.discard()
         if self._thread:
             self._thread.join(timeout=5)
             if self._thread.is_alive():
@@ -92,7 +113,7 @@ class ShardRuntime:
         option this shard does not serve raises before anything happens,
         and a model already loaded keeps serving."""
         refuse_unsupported(layers, **kwargs)
-        refuse_model(model_dir)
+        refuse_model(model_dir, layers, **kwargs)
         with self._model_lock:
             t0 = time.perf_counter()
             if self.compute is not None:  # reload: free the old engine first
@@ -193,7 +214,8 @@ class ShardRuntime:
             self._emit(out)
         except Exception as exc:
             log.exception("compute failed for nonce %s", msg.nonce)
-            self._emit(_error_final(msg, str(exc)))
+            # a batch frame's carrier has no request: fail every member
+            self._emit(_error_final(msg, str(exc), msg.lanes))
 
     def _drop_expired(self, msg: ActivationMessage) -> None:
         _DEADLINE_EXCEEDED.labels(stage="shard_dequeue").inc()
@@ -203,7 +225,7 @@ class ShardRuntime:
             "dropping expired frame for %s seq=%d (deadline %.3fs past)",
             msg.nonce, msg.seq, time.time() - msg.deadline,
         )
-        self._emit(_error_final(msg, "deadline exceeded at shard dequeue"))
+        self._emit(_error_final(msg, "deadline exceeded at shard dequeue", msg.lanes))
 
     def _emit(self, out: ActivationMessage) -> None:
         if self._loop is None or self.out_q is None:
@@ -216,9 +238,15 @@ class ShardRuntime:
         except asyncio.QueueFull:
             # never lose a token silently: an error final takes its place,
             # through an awaited put that runs when egress frees a slot
+            _OUTQ_DROPPED.inc()
             log.error("output queue full; dropping frame for %s seq=%d", out.nonce, out.seq)
+            if isinstance(out.data, PendingWirePayload):
+                out.data.discard()  # its encode-ring slot, without a readback
+            # a dropped batch frame fails every member (lane finals name
+            # theirs by `step`)
+            members = out.lanes or [{"nonce": f["nonce"], "seq": f["step"]} for f in (out.lane_finals or [])]
             task = asyncio.ensure_future(
-                self.out_q.put(_error_final(out, "shard output queue overflowed; frame dropped"))
+                self.out_q.put(_error_final(out, "shard output queue overflowed; frame dropped", members))
             )
             self._pending_errs.add(task)
             task.add_done_callback(self._pending_errs.discard)

@@ -6,8 +6,11 @@ stream for a backoff; a write failure drops the stream and re-sends the
 frame on a fresh one under the `send_activation` retry policy
 (resilience/policy.py; each re-open counts dnet_stream_reopens_total, and
 the receiving shard dedups on (nonce, seq, layer_id)); idle streams are
-swept.  The chaos point `send_activation` sits before each write.  The channel layer is
-injectable, so tests pass fakes.  Each frame written counts its payload
+swept.  The chaos point `send_activation` sits before each write.  An
+outright refusal (a NACK that is not backpressure, e.g. the epoch fence's
+`stale epoch`) goes to the `on_nack` hook, so the sender can fail the
+awaiting step at once instead of waiting out its timeout.  The channel
+layer is injectable, so tests pass fakes.  Each frame written counts its payload
 bytes (dnet_transport_tx_bytes_total, dnet_wire_bytes_total{dir="tx"})
 and itself (dnet_transport_tx_frames_total).
 """
@@ -54,12 +57,14 @@ class StreamManager:
         open_stream: Callable[[], object],
         backoff_s: float = 0.25,
         idle_timeout_s: float = 30.0,
+        on_nack: Optional[Callable[[StreamAck], None]] = None,
     ) -> None:
         self._open_stream = open_stream
         self._streams: Dict[str, StreamContext] = {}
         self._backoff_s = backoff_s
         self._idle_timeout_s = idle_timeout_s
         self._lock = asyncio.Lock()
+        self._on_nack = on_nack  # observer of outright refusals
 
     async def get_or_create(self, nonce: str) -> StreamContext:
         async with self._lock:
@@ -109,6 +114,11 @@ class StreamManager:
                     log.warning("stream %s backpressure, pausing %.2fs", ctx.nonce, self._backoff_s)
                 elif not ack.ok:
                     log.warning("stream %s NACK seq=%d: %s", ctx.nonce, ack.seq, ack.message)
+                    if self._on_nack is not None:
+                        try:
+                            self._on_nack(ack)
+                        except Exception:
+                            log.exception("on_nack handler failed")
         except asyncio.CancelledError:
             raise
         except Exception as exc:

@@ -99,6 +99,15 @@ def bytes_to_tensor(payload: Union[bytes, memoryview], dtype: str, shape: Sequen
     return t.view(torch.bfloat16) if torch_dtype(dtype) == torch.bfloat16 else t
 
 
+def to_device(t: torch.Tensor, device=None) -> torch.Tensor:
+    """A CPU tensor onto `device`: to a card through page-locked memory, an
+    asynchronous copy on the current stream (a copy from pageable memory
+    would wait for the device); elsewhere the plain move."""
+    if device is not None and torch.device(device).type == "cuda":
+        return t.pin_memory().to(device, non_blocking=True)
+    return t.to(device)
+
+
 def bytes_to_device(payload: bytes, dtype: str, shape: Sequence[int], device=None) -> torch.Tensor:
-    """Deserialize onto `device` (one host-to-device copy)."""
-    return bytes_to_tensor(payload, dtype, shape).to(device)
+    """Deserialize onto `device` (one host-to-device copy, `to_device`)."""
+    return to_device(bytes_to_tensor(payload, dtype, shape), device)

@@ -131,7 +131,8 @@ def test_batched_slots_are_422_at_load(gpt_oss_dir, no_warmup, monkeypatch, env,
 def test_ring_shard_load_is_422(gpt_oss_dir):
     """A ring shard serves a gpt_oss range (every family since the
     twenty-first slice) and answers 422, before reading a weight, only for
-    an option it does not serve yet (batched lanes here, the setting
+    an option it does not serve (batched lanes on a range whose kinds do
+    not pair, the flat layout: lanes serve paired ranges; the setting
     named); a refused load leaves the shard empty."""
     from dnet_tpu_torch.shard.http import ShardHTTPServer
     from dnet_tpu_torch.shard.runtime import ShardRuntime
@@ -153,7 +154,7 @@ def test_ring_shard_load_is_422(gpt_oss_dir):
         await client.start_server()
         try:
             out = []
-            for extra in ({"lanes": 4}, {}):
+            for extra in ({"lanes": 4, "layers": [0]}, {}):
                 r = await client.post("/load_model", json=dict(body, **extra))
                 out.append((r.status, await r.json(), runtime.compute))
             return out

@@ -134,19 +134,35 @@ REFUSED = [
     dict(mesh_tp=2), dict(mesh_tp=-1), dict(mesh_sp=2), dict(tp_degree=2), dict(kv_bits=3),
     dict(weight_quant_bits=3), dict(wire_pipeline=True),
 ]
+# refused until lanes and the wire pipeline were ported, served since (the
+# case ids are kept): lanes=2 loads a two-lane pool, wire_pipeline=True the
+# encode ring
+SERVED_NOW = ("lanes=2", "wire_pipeline=True")
 # once refused, now served: a window streams the tail shard's weights
 # (offload over its 2 layers); a residency of all its layers alone is fit
 STREAMING = [(dict(window_size=1), "offload"), (dict(residency_size=2), "fit")]
 
 
-@pytest.mark.parametrize("option", REFUSED, ids=lambda o: "-".join(f"{k}={v}" for k, v in o.items()))
+def _option_id(option: dict) -> str:
+    return "-".join(f"{k}={v}" for k, v in option.items())
+
+
+@pytest.mark.parametrize("option", REFUSED, ids=_option_id)
 def test_refused_load_options_raise(tiny_llama_dir, option):
+    """Each option this slice does not serve raises at load, naming itself,
+    and leaves the shard empty; the options served since (SERVED_NOW) load."""
     from dnet_tpu_torch.shard.compute import ShardCapabilityError
     from dnet_tpu_torch.shard.runtime import ShardRuntime
 
     rt = ShardRuntime("s", device="cpu")
     kwargs = dict(option)
     layers = kwargs.pop("layers", [0, 1])
+    if _option_id(option) in SERVED_NOW:
+        rt.load_model_core(str(tiny_llama_dir), layers, max_seq=MAX_SEQ, param_dtype="float32", **kwargs)
+        assert rt.compute.wire_pipeline == bool(option.get("wire_pipeline"))
+        assert (rt.compute.lane_pool.slots if rt.compute.lane_pool else 0) == option.get("lanes", 0)
+        rt.unload_model_core()
+        return
     with pytest.raises(ShardCapabilityError, match="does not serve"):
         rt.load_model_core(str(tiny_llama_dir), layers, max_seq=MAX_SEQ, param_dtype="float32", **kwargs)
     assert rt.compute is None
@@ -185,11 +201,15 @@ def test_weight_quant_load_option_serves(tiny_llama_dir, weight_quant_bits):
 
 
 def test_wire_pipeline_env_is_refused(tiny_llama_dir, monkeypatch):
-    from dnet_tpu_torch.shard.compute import ShardCapabilityError, ShardCompute
+    """Refused until the wire pipeline was ported (the name is kept): the
+    environment's DNET_WIRE_PIPELINE=1 now turns the shard's pipeline on,
+    with DNET_WIRE_DEPTH slots, warmed at load."""
+    from dnet_tpu_torch.shard.compute import ShardCompute
 
     monkeypatch.setenv("DNET_WIRE_PIPELINE", "1")
-    with pytest.raises(ShardCapabilityError, match="wire pipeline"):
-        ShardCompute(tiny_llama_dir, [0, 1], max_seq=MAX_SEQ, param_dtype="float32", device="cpu")
+    monkeypatch.setenv("DNET_WIRE_DEPTH", "3")
+    sc = ShardCompute(tiny_llama_dir, [0, 1], max_seq=MAX_SEQ, param_dtype="float32", device="cpu")
+    assert sc.wire_pipeline and sc._encode_ring.depth == 3 and sc.wire_stats["warm_encodes"] == 1
 
 
 def test_relay_and_stale_frames(tiny_llama_dir):

@@ -7,10 +7,14 @@ packages' API stacks prepare the same manual topology over recording
 shards (in-process HTTP apps that keep each body and answer 200), and the
 bodies must carry equal values, including the cases the rules turn off (a
 streaming assignment, lanes > 1 turning speculation off, gpt_oss's
-rotating cache turning speculation off).  A port shard then refuses a
-value above 0 at load, naming the setting (422 through the port's API).
-On the shard side DNET_SHARD_MESH_TP / _SP and DNET_TP are read as the
-reference's shard reads them, and refused at load with the setting named.
+rotating cache turning speculation off).  A port shard refuses a
+spec_lookahead or prefix_cache above 0 at load, naming the setting (422
+through the port's API); since lanes were ported it serves them
+(a lane pool of that many rows), and refuses them, naming the setting,
+only where the reference's lane pool cannot serve: gpt_oss's flat layout
+(no gated KV writes) and a streamed shard.  On the shard side
+DNET_SHARD_MESH_TP / _SP and DNET_TP are read as the reference's shard
+reads them, and refused at load with the setting named.
 """
 
 import asyncio
@@ -169,6 +173,9 @@ def _port_body(tiny_llama_dir) -> dict:
                                          ("DNET_API_SPEC_LOOKAHEAD", "spec_lookahead"),
                                          ("DNET_API_PREFIX_CACHE", "prefix_cache")])
 def test_port_shard_refuses_the_shipped_setting_by_name(tiny_llama_dir, env, setting, key):
+    """The shipped value reaches the shard's load: spec_lookahead and
+    prefix_cache are refused naming their setting; lanes (served since they
+    were ported, the case kept) load a pool of that many lanes."""
     from dnet_tpu_torch.shard.compute import ShardCapabilityError
     from dnet_tpu_torch.shard.runtime import ShardRuntime
 
@@ -177,8 +184,32 @@ def test_port_shard_refuses_the_shipped_setting_by_name(tiny_llama_dir, env, set
     assert body[key] == 4
     opts = {k: body[k] for k in ("kv_bits", "weight_quant_bits", "mesh_tp", "mesh_sp", "tp_degree", *SETTINGS)}
     rt = ShardRuntime("s0", device="cpu")
+    if key == "lanes":
+        rt.load_model_core(str(tiny_llama_dir), body["layers"], max_seq=64, param_dtype="float32", **opts)
+        assert rt.compute.lane_pool.slots == 4
+        rt.unload_model_core()
+        return
     with pytest.raises(ShardCapabilityError, match=setting):
         rt.load_model_core(str(tiny_llama_dir), body["layers"], max_seq=64, param_dtype="float32", **opts)
+    assert rt.compute is None
+
+
+@pytest.mark.parametrize("case", ["gpt_oss-flat", "streamed"])
+def test_port_shard_refuses_lanes_it_cannot_serve(tiny_llama_dir, tiny_gpt_oss_dir, case):
+    """lanes=4 on a gpt_oss range whose kinds do not pair (the flat layout:
+    no gated KV writes) or on a shard whose weights stream: refused before
+    any weight is read, naming DNET_API_RING_LANES and why."""
+    from dnet_tpu_torch.shard.compute import ShardCapabilityError
+    from dnet_tpu_torch.shard.runtime import ShardRuntime
+
+    model_dir, layers, opts, why = {
+        "gpt_oss-flat": (tiny_gpt_oss_dir, [0], {}, "no gated KV writes"),
+        "streamed": (tiny_llama_dir, [2, 3], {"window_size": 1}, "resident weights"),
+    }[case]
+    rt = ShardRuntime("s1", device="cpu")
+    with pytest.raises(ShardCapabilityError, match="DNET_API_RING_LANES") as exc:
+        rt.load_model_core(str(model_dir), layers, max_seq=64, param_dtype="float32", lanes=4, **opts)
+    assert why in str(exc.value) and "lanes=4" in str(exc.value)
     assert rt.compute is None
 
 
@@ -204,24 +235,24 @@ async def _port_shards():
 
 def test_port_api_answers_422_naming_ring_lanes(tiny_llama_dir, env):
     """DNET_API_RING_LANES=4 on a port ring of two port shards: the API
-    ships lanes 4 and answers 422 with the shard's reason, which names the
-    setting; no shard keeps a model."""
+    ships lanes 4.  Refused (422 naming the setting) until lanes were
+    ported, which it checks now (the name kept): the load answers 200 and
+    each shard holds a pool of 4 lanes."""
     env({"DNET_API_RING_LANES": "4"})
 
     async def go():
         shards, servers = await _port_shards()
         try:
             status, text = await _api_load("dnet_tpu_torch", tiny_llama_dir, servers)
-            return status, text, [s.runtime.compute for s in shards]
+            return status, text, [s.runtime.compute.lane_pool.slots for s in shards]
         finally:
             for shard, (_, srv) in zip(shards, servers):
                 await srv.close()
                 await shard.stop()
 
-    status, text, computes = asyncio.run(go())
-    assert status == 422, text
-    assert "DNET_API_RING_LANES" in text and "lanes=4" in text
-    assert computes == [None, None]
+    status, text, slots = asyncio.run(go())
+    assert status == 200, text
+    assert slots == [4, 4]
 
 
 @pytest.mark.parametrize("setting", ["DNET_SHARD_MESH_TP", "DNET_SHARD_MESH_SP", "DNET_TP"])

@@ -1,11 +1,14 @@
 """The in-process, byte-crossing ring harness of the port's ring tests: an
 API adapter and two shards wired through fake ring clients that pass the
 packed frame, ACK and token bytes across, so either package's node can
-sit at either end of a hop (`_run_ring`), and the port's single-process
-greedy streams to hold a ring against (`_local_streams`).
+sit at either end of a hop (`_run_ring`); either package's whole API stack
+(ring manager, cluster manager, HTTP server) over two of its shards whose
+control planes run on local test servers (`HttpRing`); and the port's
+single-process greedy streams to hold a ring against (`_local_streams`).
 """
 
 import asyncio
+import importlib
 
 import dnet_tpu.transport.protocol as ref_proto
 import dnet_tpu_torch.transport.protocol as port_proto
@@ -191,3 +194,103 @@ def _local_streams(model_dir, decoding=None, prompts=PROMPTS, steps=STEPS, kv_bi
     dec = decoding or DecodingParams(temperature=0.0)
     return [[r.token_id for r in eng.generate(p, dec, max_tokens=steps, nonce=f"l{i}")]
             for i, p in enumerate(prompts)]
+
+
+class _Peers:
+    def __init__(self, devices):
+        self.devices = devices
+
+    def peers(self):
+        return self.devices
+
+
+class HttpRing:
+    """Package `pkg`'s API stack over two of its shards (s0, s1): each
+    shard's HTTP control plane on a local test server, the frames through
+    `net` (at "127.0.0.1:1" and ":2"), token callbacks to the API's current
+    adapter, and the API's HTTP server behind `client`.  `start` prepares
+    the manual topology `split` and loads `model_dir` through the API, as an
+    operator would, so the ring manager ships the environment's settings."""
+
+    def __init__(self, pkg: str, model_dir, net=None, request_timeout_s: float = 60.0):
+        self.pkg, self.model_dir = pkg, str(model_dir)
+        self.net = net if net is not None else Net()
+        self.request_timeout_s = request_timeout_s
+        self.mod = lambda m: importlib.import_module(f"{pkg}.{m}")  # noqa: E731
+        self.proto = self.mod("transport.protocol")
+        self.shards, self.servers, self.devices = {}, [], []
+        self.client = None
+
+    async def setup(self):
+        """The shards, their servers and the API stack, with no topology."""
+        from aiohttp.test_utils import TestClient, TestServer
+
+        mod, proto, net = self.mod, self.proto, self.net
+        self.inference = mod("api.inference").InferenceManager(adapter=None,
+                                                                request_timeout_s=self.request_timeout_s)
+        inference = self.inference
+
+        class Callback:  # the API's token servicer: tokens go to the current adapter
+            def __init__(self, addr):
+                pass
+
+            async def send_token(self, payload, timeout=3.0):
+                inference.adapter.resolve_token(proto.TokenPayload.from_bytes(payload.to_bytes()).to_result())
+                return proto.Empty()
+
+            async def close(self):
+                pass
+
+        for i, name in enumerate(("s0", "s1")):
+            runtime = mod("shard.runtime")
+            rt = runtime.ShardRuntime(name, device="cpu") if self.pkg == "dnet_tpu_torch" else runtime.ShardRuntime(name)
+            adapter = mod("shard.adapter").RingAdapter(rt, ring_client_factory=net.ring_client(proto),
+                                                       callback_client_factory=Callback)
+            shard = mod("shard.server").Shard(name, rt, adapter)
+            await shard.start()
+            srv = TestServer(mod("shard.http").ShardHTTPServer(shard).app)
+            await srv.start_server()
+            net.add_shard(f"127.0.0.1:{i + 1}", adapter, proto)
+            self.shards[name] = shard
+            self.servers.append(srv)
+            self.devices.append(mod("core.types").DeviceInfo(instance=name, host="127.0.0.1", http_port=srv.port,
+                                                             grpc_port=i + 1))
+        self.cluster = mod("api.cluster").ClusterManager(_Peers(self.devices))
+        self.manager = mod("api.ring_manager").RingModelManager(
+            inference, self.cluster, api_callback_addr="127.0.0.1:9", max_seq=MAX_SEQ, param_dtype="float32",
+            request_timeout_s=self.request_timeout_s, ring_client_factory=net.ring_client(proto))
+        app = mod("api.http").ApiHTTPServer(inference, self.manager, self.cluster).app
+        self.client = TestClient(TestServer(app))
+        await self.client.start_server()
+
+    async def start(self, split=SPLIT):
+        await self.setup()
+        assignments = [{"instance": f"s{i}", "layers": ls} for i, ls in enumerate(split) if ls]
+        r = await self.client.post("/v1/prepare_topology_manual",
+                                   json={"model": self.model_dir, "assignments": assignments})
+        assert r.status == 200, await r.text()
+        r = await self.client.post("/v1/load_model", json={"model": self.model_dir})
+        return r.status, await r.text()
+
+    async def chat(self, content: str, max_tokens: int = 8, stream: bool = True, **extra):
+        """(status, the raw SSE text or the JSON body's text) of one chat."""
+        r = await self.client.post("/v1/chat/completions", json={
+            "model": self.model_dir, "messages": [{"role": "user", "content": content}],
+            "max_tokens": max_tokens, "temperature": 0, "stream": stream, **extra})
+        if stream:
+            return r.status, (await r.read()).decode()
+        body = await r.json()
+        return r.status, body["choices"][0]["message"]["content"] if r.status == 200 else body
+
+    async def stop(self):
+        if self.client is not None:
+            await self.client.close()
+        if self.inference.adapter is not None:
+            await self.inference.adapter.shutdown()
+        for srv in self.servers:
+            await srv.close()
+        for shard in self.shards.values():
+            await shard.stop()
+            if shard.runtime.compute is not None:
+                shard.runtime.compute.engine.close()
+                shard.runtime.compute = None
