@@ -153,7 +153,8 @@ sequence, dense batched slots and the ring's shards:
                 CPU, as parity and batch_parity.
   quant_serve   DNET_KV_BITS=8 and =4 with the serve phase's requests, then
                 DNET_KV_BITS=8 --batch-slots 8 over dense slots with the
-                batch_serve burst: the q8 / q4 decode kernel 16 times per
+                batch_serve burst's prompts (32 tokens a request: the
+                cut that pays for ring_spec_prefix_rounds): the q8 / q4 decode kernel 16 times per
                 decode step, no other decode kernel, and the allocated KV
                 bytes equal to cache_nbytes (71,303,168 B q8 and 37,748,736 B
                 q4 per sequence; 8x over 8 slots).
@@ -330,7 +331,8 @@ what the ragged kernel refuses), gpt_oss and deepseek_v2 on batched slots:
   gather_serve   batch_serve's checkpoint and burst with DNET_KV_PAGED=1
                  (bf16), then DNET_KV_BITS=8 DNET_KV_PAGED=1
                  DNET_KV_RAGGED=1 (the ragged kernel refuses the pool): every
-                 request 200 with 64 tokens, 16 decode launches of the
+                 request 200 with 32 tokens (64 before the cut that pays for
+                 ring_spec_prefix_rounds), 16 decode launches of the
                  cache's form a step, no paged launch, no block held after;
                  the gather's and scatter's device ms per decode step; then
                  each form's lanes on in-process engines, dense slots against
@@ -506,6 +508,37 @@ Every family on ring shards, the ring settings and offline generation
                    device memory in use within its weights + 512 MiB after
                    the reload (the last family freed).  family_rings: the
                    phase's seconds.
+Ring speculation, the ring prefix cache and k-round schedules (A6.3):
+  ring_spec_prefix_rounds  on the Llama ring's shard pair after spec_serve,
+                 two loads of the serve checkpoint.  First 0-7 / 8-15 with
+                 DNET_API_SPEC_LOOKAHEAD=4 (grants on) and
+                 DNET_API_PREFIX_CACHE=4.  Speculation: spec_serve's
+                 unbiased greedy chat streamed to 64 tokens, held by
+                 _same_stream against spec_serve's plain single-process
+                 stream of it (logprobs on there), its greedy token ids (read
+                 at the API) against the in-process plain and speculating
+                 engines'; verify blocks (head widened = tail verified > 0),
+                 tokens a block and a lap; then the serve's biased chat
+                 streamed with logprobs: no block widened, its text
+                 ring_serve's lossless greedy text; over the two streams
+                 each shard the prefill kernel a layer a prompt and a block
+                 (T = 5) and the decode kernel a layer a plain step.
+                 Prefix: a ~300-token turn 2 (turn 1 + its answer + a new
+                 question) after turn 1, on its snapshot (a hit: each
+                 shard's /health prefix_cache.hits + 1), then after every
+                 shard's full reset (the snapshots gone: 200,
+                 dnet_prefix_refill_total + 1), then cold (no hit, no
+                 refill); the hit and the refilled turn held to the cold
+                 one by _same_stream (logprobs on), the refilled text equal;
+                 turn 2's TTFT cold, on the hit and refilled.  Then k-round:
+                 s0 = 0-3 + 8-11 resident, s1 = 4-7 + 12-15 streamed a window
+                 of 2 layers: the biased stream held by _same_stream against
+                 the first load's (the contiguous ring's), its text
+                 ring_serve's; each shard 8 decode launches a step (two
+                 rounds of 4 layers) and 8 prefill launches a prompt; its
+                 decode rate beside the contiguous ring's.  Paid for by
+                 gather_serve's and quant_serve's dense-slot bursts, cut to
+                 32 tokens a request (BURST_CUT_TOKENS).
 Every decode row also counts its device kernels per wrapper call
 (torch.profiler), which must be exactly 1: the splits and row groups of a
 (lane, KV head) merge inside the one launch.  Then the kernels summary line (every row
@@ -1842,10 +1875,11 @@ def _post(url: str, body: dict) -> dict:
 
 
 async def _drive(args: Namespace, requests: list, concurrent: bool = False, then: Sequence = (),
-                 sched: bool = False, metrics: bool = False) -> list:
+                 sched: bool = False, metrics: bool = False, streams: Sequence = ()) -> list:
     """Serve args' model in this process and send `requests` (in order, or
     all at once), then the `then` requests in order (a callable there is
-    called with the results so far and returns its body); returns the
+    called with the results so far and returns its body), then the
+    `streams` bodies through _stream_chat (their results last); returns the
     results, the kernels' launches during the requests, the load time and
     /health after them (with `sched`, /v1/debug/sched under "sched"; with
     `metrics`, the metrics zeroed before the requests and /metrics after
@@ -1889,6 +1923,8 @@ async def _drive(args: Namespace, requests: list, concurrent: bool = False, then
         for body in then:
             body = body(results) if callable(body) else body
             results.append(await loop.run_in_executor(None, _post, url, body))
+        for body in streams:
+            results.append(await loop.run_in_executor(None, _stream_chat, url, body))
         torch.cuda.synchronize()
         launches = launch_counts()
         health = await loop.run_in_executor(
@@ -1959,7 +1995,8 @@ def phase_serve(prompt_text: str, n_prompt: int, ring_pair: "ShardPair") -> tupl
     """The Llama-3.2-1B phases on the card: the step phases, the
     single-process serves, the Llama ring passes on `ring_pair` (started by
     the caller, which keeps it for the family rings), ring_lanes_pipeline's
-    and recover_serve's own pairs, then sp, spec and the generate CLI."""
+    and recover_serve's own pairs, then sp, spec, ring speculation / prefix
+    / k-round on `ring_pair` again, and the generate CLI."""
     from dnet_tpu_torch.models import ModelConfig
     from dnet_tpu_torch.models.convert import hf_tensors
     from dnet_tpu_torch.utils.checkpoint import save_checkpoint
@@ -2019,6 +2056,7 @@ def phase_serve(prompt_text: str, n_prompt: int, ring_pair: "ShardPair") -> tupl
         sp_long = dict(chat, stream=True, messages=[{"role": "user", "content": _long_prompt(SP_LONG_TOKENS)}])
         sp_serve = phase_sp_serve(tmp, port, bodies, sp_long, sp_step)
         spec = phase_spec_serve(tmp, port)
+        phase_ring_spec_prefix_rounds(tmp, chat, ring_texts, lossless, spec, ring_pair)
         phase_generate_cli(tmp, prompt_text)
     finally:
         shutil.rmtree(os.path.dirname(tmp), ignore_errors=True)
@@ -2575,6 +2613,188 @@ def phase_ring_lanes_pipeline(model_dir: str, bodies: list, lossless: dict, ring
     return row
 
 
+# ring_spec_prefix_rounds: ring speculation, the ring prefix cache with its
+# refill, and a k-round schedule on the Llama ring's shard pair
+RING_PREFIX_CAPACITY = 4  # DNET_API_PREFIX_CACHE
+RING_PREFIX_TOKENS = 300  # turn 2's prompt, about
+RING_PREFIX_REPLY = 16  # turn 1's tokens
+RING_K2_LAYERS = ([*range(0, 4), *range(8, 12)], [*range(4, 8), *range(12, 16)])
+RING_K2_WINDOWS = ({}, {"window_size": 2})  # s1's layers stream, two a window
+
+
+@contextlib.contextmanager
+def _ring_tokens(into: dict):
+    """Record every token the ring API in this process resolves, by nonce
+    and step (ring speculation's tokens come as callbacks, not frames)."""
+    from dnet_tpu_torch.api.ring import RingApiAdapter
+
+    resolve = RingApiAdapter.resolve_token
+
+    def recording(self, result):
+        if not result.error:
+            into.setdefault(result.nonce, {})[result.step] = result.token_id
+        return resolve(self, result)
+
+    RingApiAdapter.resolve_token = recording
+    try:
+        yield
+    finally:
+        RingApiAdapter.resolve_token = resolve
+
+
+def _full_reset(pair: ShardPair) -> None:
+    """Every shard's unfenced ResetCache with no nonce (every session and
+    every prefix snapshot dropped), over a blocking gRPC channel: the ring
+    API's asyncio gRPC runs on its own loop in this process."""
+    import grpc
+
+    from dnet_tpu_torch.transport import protocol as proto
+
+    for _, _, grpc_port in pair.shards:
+        with grpc.insecure_channel(f"127.0.0.1:{grpc_port}") as channel:
+            reset = channel.unary_unary(proto.M_RESET_CACHE, request_serializer=lambda m: m.to_bytes(),
+                                        response_deserializer=proto.Empty.from_bytes)
+            reset(proto.ResetCacheRequest(nonce="", epoch=0), timeout=10.0)
+
+
+def phase_ring_spec_prefix_rounds(model_dir: str, chat: dict, ring_texts: dict, lossless: dict, spec: dict,
+                                  pair: ShardPair) -> dict:
+    """Ring speculation, the ring prefix cache and a k-round schedule on
+    `pair` (the module doc's ring_spec_prefix_rounds)."""
+    from dnet_tpu_torch.obs import metric
+
+    t_phase = time.perf_counter()
+    n = len(RING_LAYERS[0])
+    biased = dict(chat, stream=True, logprobs=True, top_logprobs=2)
+    unbiased = dict(spec["chat"], stream=True)
+    row = {"phase": "ring_spec_prefix_rounds", "gpu": gpu_line(), "model": "Llama-3.2-1B (synthetic bf16, seed 0)"}
+
+    # one load with speculation and the prefix cache: the unbiased greedy
+    # chat speculates, the biased one (the contiguous ring's stream) not;
+    # then turn 1, turn 2 on its snapshot (a hit), every snapshot dropped
+    # and turn 2 again (a miss at the head: the refill), then turn 2 once
+    # more, cold (the refill's clear left the index only turn 2's own
+    # prompt, no strict prefix of itself); biased requests never speculate
+    tokens: dict = {}
+    turn1_text = _long_prompt(RING_PREFIX_TOKENS - 40)
+    refills = metric("dnet_prefix_refill_total")
+
+    def serve(url):
+        out = {"pre": pair.health(), "spec": _stream_chat(url, unbiased)}
+        (by_step,) = tokens.values()  # the one request so far
+        out["ids"] = [by_step.get(i) for i in range(MAX_TOKENS)]
+        out["mid"] = pair.health()
+        out["biased"] = _stream_chat(url, biased)
+        out["post"] = pair.health()
+        turn1 = dict(chat, max_tokens=RING_PREFIX_REPLY, messages=[{"role": "user", "content": turn1_text}])
+        reply = _post(url, turn1)
+        turn2 = dict(biased, max_tokens=MAX_TOKENS // 2, messages=[
+            {"role": "user", "content": turn1_text}, {"role": "assistant", "content": reply["content"]},
+            {"role": "user", "content": "Say that again in other words."}])
+        before = pair.health()
+        out["hit"] = _stream_chat(url, turn2)
+        after = pair.health()
+        _full_reset(pair)
+        r0 = refills.value
+        out["refilled"] = _stream_chat(url, turn2)
+        r1 = refills.value
+        out["cold"] = _stream_chat(url, turn2)
+        out.update(before=[h["prefix_cache"] for h in before], after=[h["prefix_cache"] for h in after],
+                   refills=r1 - r0, cold_refills=refills.value - r1, turn1_tokens=len(_template_ids(turn1_text)))
+        return out
+
+    with _ring_tokens(tokens):
+        out, (h0, h1), load_s, _ = _ring_pass(pair, model_dir, "lossless", [], serve=serve, env={
+            "DNET_API_SPEC_LOOKAHEAD": str(SPEC_L), "DNET_API_PREFIX_CACHE": str(RING_PREFIX_CAPACITY)})
+    ring_ids = out["ids"]
+    same = _same_stream("ring speculation against the plain single process", out["spec"], spec["plain_stream"])
+    mid0, mid1 = out["mid"][0]["spec"], out["mid"][1]["spec"]
+    s0, s1 = h0["spec"], h1["spec"]
+    check(mid0["widened"] == mid1["blocks"] > 0, f"ring speculation: widened {mid0} != verified {mid1}, or none")
+    check((s0["widened"], s1["blocks"]) == (mid0["widened"], mid1["blocks"]),
+          f"a biased request speculated: {mid0} -> {s0}, {mid1} -> {s1}")
+    check(out["biased"]["content"] == ring_texts["lossless"][0], "the biased ring stream differs from ring_serve's")
+    blocks, emitted = mid1["blocks"], mid1["emitted"]
+    # the head's frames during the speculating stream: the prompt's and
+    # each later lap's entry
+    laps = out["mid"][0]["compute"]["frames"] - out["pre"][0]["compute"]["frames"]
+    # over the two streams, each shard: a prefill launch a layer a prompt
+    # (2) and a verify block; a decode launch a layer a plain step (the
+    # unbiased stream's non-widened entries, the biased stream's steps)
+    plain_steps = (MAX_TOKENS - 1 - emitted) + (MAX_TOKENS - 1)
+    spec_launches = {}
+    for i, name in enumerate(("s0", "s1")):
+        k = {c: v - out["pre"][i]["kernels"][c] for c, v in out["post"][i]["kernels"].items()}
+        spec_launches[name] = {c: v for c, v in k.items() if v}
+        check(k["flash_prefill"] == n * (2 + blocks), f"{name} prefill launches {k['flash_prefill']} != {n} x "
+                                                      f"(2 prompts + {blocks} blocks)")
+        check(k["flash_decode"] == n * plain_steps, f"{name} decode launches {k['flash_decode']} != {n} x "
+                                                    f"{plain_steps} plain steps")
+    plain_ids, spec_ids = spec["tokens"]["plain"], spec["tokens"]["spec"]
+    row["speculation"] = {
+        "lookahead": SPEC_L, "load_s": load_s, "verify_blocks": blocks, "tokens_emitted_by_blocks": emitted,
+        "tokens_per_block": emitted / blocks, "laps": laps, "tokens_per_lap": MAX_TOKENS / laps,
+        "same_stream": same, "biased_speculated": False,
+        "ring_tokens_vs_single_process": {
+            "plain": {"agree": sum(a == b for a, b in zip(ring_ids, plain_ids)),
+                      "first_divergence": _first_divergence(ring_ids, plain_ids)},
+            "speculating": {"agree": sum(a == b for a, b in zip(ring_ids, spec_ids)),
+                            "first_divergence": _first_divergence(ring_ids, spec_ids)}},
+        "spec_s": out["spec"]["s"], "spec_tokens_per_s": MAX_TOKENS / out["spec"]["s"],
+        "plain_single_process_tokens_per_s": MAX_TOKENS / spec["plain_stream"]["s"],
+        "biased_decode_tokens_per_s": (MAX_TOKENS - 1) / out["biased"]["decode_s"],
+        "launches": spec_launches,
+    }
+    base = out["biased"]  # the contiguous ring's biased stream
+
+    cold, hit, refilled = out["cold"], out["hit"], out["refilled"]
+    check(cold["usage"]["completion_tokens"] == MAX_TOKENS // 2, f"prefix turn 2 (cold): {cold['usage']}")
+    # the hit prefills only the suffix over turn 1's cached rows (a bf16
+    # near tie may round apart: the near-tie rule); the refill is the cold
+    # turn's own whole-prompt prefill
+    same_hit = _same_stream("turn 2 on the prefix hit against the cold turn 2", hit, cold)
+    same_refill = _same_stream("turn 2 after the refill against the cold turn 2", refilled, cold)
+    check(refilled["content"] == cold["content"], "turn 2 after the refill differs from the cold turn 2")
+    hits = [a["hits"] - b["hits"] for a, b in zip(out["after"], out["before"])]
+    check(hits == [1, 1], f"prefix hits on the shards {hits} (each must read 1)")
+    check(out["refills"] == 1, f"dnet_prefix_refill_total moved by {out['refills']}")
+    # the refill and the cold turn prefilled the whole prompt: no more hits
+    check(out["cold_refills"] == 0 and [h["prefix_cache"]["hits"] for h in (h0, h1)] == [a["hits"] for a in out["after"]],
+          f"the cold turn 2 refilled ({out['cold_refills']}) or hit ({h0['prefix_cache']}, {h1['prefix_cache']})")
+    row["prefix"] = {
+        "capacity": RING_PREFIX_CAPACITY, "turn1_prompt_tokens": out["turn1_tokens"], "shard_hits": hits,
+        "turn2_ttft_s_cold": cold["ttft_s"], "turn2_ttft_s_hit": hit["ttft_s"],
+        "turn2_ttft_s_refilled": refilled["ttft_s"], "refills": out["refills"],
+        "same_stream": {"hit": same_hit, "refilled": same_refill},
+        "prefix_cache": {"s0": h0["prefix_cache"], "s1": h1["prefix_cache"]},
+    }
+
+    # k-round: two rounds a shard, s1's layers streamed
+    (kround,), (h0, h1), load_s, _ = _ring_pass(pair, model_dir, "lossless", [], windows=RING_K2_WINDOWS,
+                                                layers=RING_K2_LAYERS, serve=lambda url: [_stream_chat(url, biased)])
+    same_k = _same_stream("k-round ring against the contiguous ring", kround, base)
+    check(kround["content"] == ring_texts["lossless"][0], "the k-round ring's text differs from ring_serve's")
+    check([h["rounds"] for h in (h0, h1)] == [[ls[:4], ls[4:]] for ls in RING_K2_LAYERS],
+          f"rounds {[h['rounds'] for h in (h0, h1)]}")
+    check(h1["engine"]["weight_policy"] == "offload" and h0["engine"]["weight_policy"] == "fit",
+          f"weight plans {h0['engine']['weight_policy']} / {h1['engine']['weight_policy']}")
+    steps = kround["usage"]["completion_tokens"] - 1
+    for name, k in (("s0", h0["kernels"]), ("s1", h1["kernels"])):
+        check(k["flash_decode"] == n * steps, f"{name} k-round decode launches {k['flash_decode']} != {n} x {steps}")
+        check(k["flash_prefill"] == n, f"{name} k-round prefill launches {k['flash_prefill']} != {n}")
+    row["k_round"] = {
+        "layers": [[f"{r[0]}-{r[-1]}" for r in (ls[:4], ls[4:])] for ls in RING_K2_LAYERS],
+        "windows": list(RING_K2_WINDOWS), "load_s": load_s, "same_stream": same_k,
+        "ttft_s": kround["ttft_s"], "decode_tokens_per_s": steps / kround["decode_s"],
+        "contiguous_decode_tokens_per_s": row["speculation"]["biased_decode_tokens_per_s"],
+        "ring_serve_streamed_decode_tokens_per_s": lossless.get("streamed_decode_tokens_per_s"),
+        "weight_cache": h1["engine"].get("weight_cache"), "launches": {"s0": h0["kernels"], "s1": h1["kernels"]},
+    }
+    row["phase_s"] = time.perf_counter() - t_phase
+    emit(row)
+    return row
+
+
 # family_ring_serve: every family on the two ring shards, each at its
 # published widths cut to 2 layers (gpt_oss: the serve's 4-layer
 # checkpoint, one sliding / full pair a shard), one greedy and one streamed
@@ -2744,7 +2964,9 @@ def _stream_chat(url: str, body: dict, on_chunk=None) -> dict:
             usage = ev.get("usage") or usage
     gaps = [b - a for a, b in zip(arrivals, arrivals[1:])]
     return {"content": "".join(content), "usage": usage, "finish": finish, "ids": ids, "entries": entries,
-            "s": time.perf_counter() - t0, "gap_median_s": statistics.median(gaps), "gap_max_s": max(gaps)}
+            "s": time.perf_counter() - t0, "gap_median_s": statistics.median(gaps) if gaps else None,
+            "gap_max_s": max(gaps) if gaps else None, "ttft_s": (arrivals[0] - t0) if arrivals else None,
+            "decode_s": (arrivals[-1] - arrivals[0]) if arrivals else None}
 
 
 def _same_stream(what: str, got: dict, base: dict) -> dict:
@@ -2938,11 +3160,16 @@ def _batch_args(model_dir: str, port: int) -> Namespace:
     )
 
 
-def _batch_bodies() -> list:
-    """The batched burst: 8 streamed requests of BATCH_PROMPT_TOKENS, one
-    sampled with a seed."""
+# the tokens a request of gather_serve's and quant_serve's dense-slot
+# bursts: half of MAX_TOKENS, for the script's time
+BURST_CUT_TOKENS = MAX_TOKENS // 2
+
+
+def _batch_bodies(n_tokens: int = MAX_TOKENS) -> list:
+    """The batched burst: 8 streamed requests of BATCH_PROMPT_TOKENS,
+    `n_tokens` each, one sampled with a seed."""
     bodies = [
-        {"model": "llama-3.2-1b-synthetic", "max_tokens": MAX_TOKENS, "temperature": 0, "stream": True,
+        {"model": "llama-3.2-1b-synthetic", "max_tokens": n_tokens, "temperature": 0, "stream": True,
          "messages": [{"role": "user", "content": c}], "logit_bias": TEXT_BIAS}
         for c in _batch_prompts()
     ]
@@ -3015,10 +3242,11 @@ def phase_quant_serve(model_dir: str, port: int, bodies: list, served: dict, bat
     # dense batched slots with an int8 cache
     with environ({"DNET_KV_BITS": "8"}):
         results, launches, load_s, health = asyncio.run(
-            _drive(_batch_args(model_dir, port), _batch_bodies(), concurrent=True))
+            _drive(_batch_args(model_dir, port), _batch_bodies(BURST_CUT_TOKENS), concurrent=True))
     for i, r in enumerate(results):
         check(r["status"] == 200, f"dense q8 batched request {i}: HTTP {r['status']}")
-        check(bool(r["content"]) and r["tokens"] == MAX_TOKENS, f"dense q8 batched request {i}: {r['tokens']} tokens")
+        check(bool(r["content"]) and r["tokens"] == BURST_CUT_TOKENS,
+              f"dense q8 batched request {i}: {r['tokens']} tokens")
     engine = health["engine"]
     steps = engine["decode_steps"]
     chunks = sum(-(-n // PREFILL_CHUNK) for n in BATCH_PROMPT_TOKENS)
@@ -5798,7 +6026,7 @@ def phase_gather_serve(model_dir: str, port: int, batched: dict) -> dict:
     from dnet_tpu_torch.core.engine import LocalEngine
 
     args = _batch_args(model_dir, port)
-    bodies = _batch_bodies()
+    bodies = _batch_bodies(BURST_CUT_TOKENS)
     chunks = sum(-(-n // PREFILL_CHUNK) for n in BATCH_PROMPT_TOKENS)
     loaded = LocalEngine(model_dir, max_seq=S, param_dtype="bfloat16", device="cuda", kv_paged=False)
     weights = (loaded.config, loaded.window_params, loaded.edge_params)  # read once for the lane streams
@@ -5808,7 +6036,7 @@ def phase_gather_serve(model_dir: str, port: int, batched: dict) -> dict:
         ("gather bf16", GATHER_ENV, "flash_decode", 0),
         ("gather q8 (ragged refused)", dict(GATHER_ENV, DNET_KV_RAGGED="1", DNET_KV_BITS="8"), "flash_decode_q8", 8),
     ):
-        results, launches, engine, load_s, copies = _burst_pass(what, args, bodies, env, MAX_TOKENS)
+        results, launches, engine, load_s, copies = _burst_pass(what, args, bodies, env, BURST_CUT_TOKENS)
         steps = engine["decode_steps"]
         check(engine["kv_mode"] == "paged" and engine["kv_ragged"] is False, f"{what}: {engine}")
         dense, dense_stats = _lane_streams(weights, {}, bits)
@@ -6849,7 +7077,10 @@ def phase_spec_serve(model_dir: str, port: int) -> dict:
 
     row = {"phase": "spec_serve", "gpu": gpu_line(), "model": "Llama-3.2-1B (synthetic bf16 weights, seed 0)",
            "lookahead": SPEC_L}
-    plain_res, launches, load_s, health = asyncio.run(_drive(args, requests, then=then))
+    # the greedy chat streamed with logprobs too: the plain stream the
+    # speculating ring is held to (ring_spec_prefix_rounds)
+    plain_stream = dict(chat, stream=True, logprobs=True, top_logprobs=2)
+    plain_res, launches, load_s, health = asyncio.run(_drive(args, requests, then=then, streams=[plain_stream]))
     row["plain"] = summary(plain_res, launches, load_s, health, kinds)
     with environ({"DNET_API_SPEC_LOOKAHEAD": str(SPEC_L), "DNET_API_PREFIX_CACHE": "4"}):
         spec_res, launches, load_s, health = asyncio.run(_drive(args, requests, then=then))
@@ -6906,7 +7137,7 @@ def phase_spec_serve(model_dir: str, port: int) -> dict:
                           "of": MAX_TOKENS, "first_divergence": _first_divergence(streams["plain"], streams["spec"])}
     emit(row)
     torch.cuda.empty_cache()
-    return {"launches": lanes_launches}
+    return {"launches": lanes_launches, "chat": chat, "plain_stream": plain_res[-1], "tokens": streams}
 
 
 def lane_summary(rows: dict, paths: dict) -> dict:

@@ -1,8 +1,8 @@
 """Ring strategy on the API node: token frames out to the head shard, the
 sampled tokens back through the API's gRPC servicer.
 
-Counterpart of dnet_tpu/api/ring.py `RingApiAdapter` and `ApiTokenServicer`
-without the ring prefix cache.  A token callback minted under another
+Counterpart of dnet_tpu/api/ring.py `RingApiAdapter` and `ApiTokenServicer`.
+A token callback minted under another
 topology epoch than the adapter's (a fenced-out shard finishing old work)
 is dropped and counted in dnet_stale_epoch_rejected_total{kind="token_cb"};
 a shard's `stale epoch` NACK of one of this adapter's frames fails the
@@ -21,11 +21,26 @@ for more members up to an adaptive convergence window (2.5 ring passes,
 (dnet_deadline_exceeded_total{stage="lane_flush"}); each flush observes
 dnet_lane_flush_depth and each member dnet_lane_queue_wait_ms, and each
 resolved frame dnet_ring_hop_rtt_ms.
+
+The ring prefix cache (`prefix_cache` entries, DNET_API_PREFIX_CACHE):
+this node alone sees token ids, so it matches prompts in a `PrefixIndex`
+whose values are snapshot keys (the sha1 of the prompt, as the
+reference's) and sends them in step-0 frames: `prefix_store` asks every
+shard to snapshot its window after the prompt, `prefix_hit` sends only
+the suffix at pos = the prefix length (a `prefix_cache_hit` span).  A
+shard that holds no such snapshot answers `prefix-miss:<key>`; the index
+is cleared and, once a request, the whole prompt is sent again after a
+reset of the nonce on every shard (`_refill_prefill`, a `prefix_refill`
+span, dnet_prefix_refill_total).  As in the reference, a key is indexed
+when its frame is sent, before any shard has stored it: a request that
+extends a prompt still in flight may hit that key and miss at a shard,
+and the refill is what answers it.
 """
 
 from __future__ import annotations
 
 import asyncio
+import hashlib
 import time
 from dataclasses import asdict
 from typing import Callable, Dict, List, Optional
@@ -34,6 +49,7 @@ import numpy as np
 
 from dnet_tpu_torch.admission.controller import deadline_expired
 from dnet_tpu_torch.api.strategies import ApiAdapterBase, _TokenFutures
+from dnet_tpu_torch.core.prefix_cache import PrefixIndex
 from dnet_tpu_torch.core.types import DecodingParams, TokenResult
 from dnet_tpu_torch.membership import epoch as epoch_fence
 from dnet_tpu_torch.obs import get_recorder, metric
@@ -47,6 +63,7 @@ log = get_logger()
 _HOP_RTT_MS = metric("dnet_ring_hop_rtt_ms")
 _LANE_DEPTH = metric("dnet_lane_flush_depth")
 _LANE_WAIT_MS = metric("dnet_lane_queue_wait_ms")
+_PREFIX_REFILL = metric("dnet_prefix_refill_total")
 
 
 class RingApiAdapter(ApiAdapterBase):
@@ -58,6 +75,7 @@ class RingApiAdapter(ApiAdapterBase):
     LANE_CONVERGE_MIN_S = 0.05
     LANE_CONVERGE_MAX_S = 1.0
     LANE_CONVERGE_EMA_MULT = 2.5
+    PREFIX_MIN_TOKENS = 16  # shorter prompts are not worth a snapshot
 
     def __init__(
         self,
@@ -69,6 +87,7 @@ class RingApiAdapter(ApiAdapterBase):
         stream_idle_s: float = 300.0,
         auto_steps: int = 0,
         lanes: int = 1,
+        prefix_cache: int = 0,
         epoch: int = 0,
     ) -> None:
         if ring_client_factory is None:
@@ -103,6 +122,13 @@ class RingApiAdapter(ApiAdapterBase):
         # nonce -> absolute wall-clock deadline (epoch s), stamped into every
         # frame of the request: the shards drop expired frames at dequeue
         self._deadlines: Dict[str, float] = {}
+        # the ring prefix cache: prompts -> snapshot keys, the same capacity
+        # as each shard's store; while a suffix-only prefill is in flight the
+        # whole prompt waits in `_refill_state` for a shard's prefix-miss
+        self._prefix_cap = max(int(prefix_cache), 0)
+        self._prefix_index = PrefixIndex(max(self._prefix_cap, 1), self.PREFIX_MIN_TOKENS)
+        self._refill_state: Dict[str, dict] = {}
+        self._refill_tasks: set = set()  # strong references to running refills
 
     async def start(self) -> None:
         self._head_client = self._make_client(self.head_addr)
@@ -152,6 +178,7 @@ class RingApiAdapter(ApiAdapterBase):
         self._granted.pop(nonce, None)
         self._deadlines.pop(nonce, None)
         self._active.pop(nonce, None)
+        self._refill_state.pop(nonce, None)
         if self._pending:
             self._pending = [e for e in self._pending if e["nonce"] != nonce]
         for table in (self._early, self._sent_at):
@@ -200,14 +227,28 @@ class RingApiAdapter(ApiAdapterBase):
             if self._flush_task is None or self._flush_task.done():
                 self._flush_task = asyncio.ensure_future(self._flush_lanes())
             return
-        await self._send_token_frame(nonce, token_ids, pos, decoding, step, budget)
+        send_ids, prefix_hit, prefix_store = token_ids, "", ""
+        if step == 0 and self._prefix_cap > 0:
+            ids = tuple(token_ids)
+            hit = self._prefix_lookup(ids)
+            if hit is not None:
+                pos, prefix_hit = hit
+                get_recorder().span(nonce, "prefix_cache_hit", 0.0, tokens=pos)
+                send_ids = token_ids[pos:]  # only the new suffix prefills
+                # a shard's prefix-miss re-sends the whole prompt
+                self._refill_state[nonce] = {"token_ids": list(token_ids), "decoding": decoding, "budget": budget}
+            if len(ids) >= self.PREFIX_MIN_TOKENS:
+                prefix_store = self._prefix_put(ids)
+        await self._send_token_frame(nonce, send_ids, pos, decoding, step, budget,
+                                     prefix_hit=prefix_hit, prefix_store=prefix_store)
 
     async def _send_token_frame(
         self, nonce: str, send_ids: List[int], pos: int, decoding: DecodingParams, step: int,
-        budget: Optional[int],
+        budget: Optional[int], prefix_hit: str = "", prefix_store: str = "",
     ) -> None:
         """One token frame, with its decode grant sized from the remaining
-        budget (and registered here)."""
+        budget (and registered here), and the prefix keys of a step 0: the
+        one frame path of a send and of a prefix refill."""
         auto = 0
         if self._auto_steps > 0 and budget is not None and budget > 1:
             auto = min(self._auto_steps, budget - 1)
@@ -225,6 +266,8 @@ class RingApiAdapter(ApiAdapterBase):
             t_sent=time.time(),
             t_sent_mono=time.perf_counter(),
             auto_steps=auto,
+            prefix_hit=prefix_hit,
+            prefix_store=prefix_store,
             epoch=self._epoch,
             deadline=self._deadlines.get(nonce, 0.0),
         )
@@ -303,6 +346,20 @@ class RingApiAdapter(ApiAdapterBase):
                     self.resolve_token(TokenResult(nonce=e["nonce"], token_id=-1, step=e["seq"],
                                                    error=f"batch frame send failed: {exc}"))
 
+    def _prefix_lookup(self, ids: tuple):
+        """The longest indexed strict prefix of `ids` (PrefixIndex's rules,
+        counted there): (n_tokens, key) or None."""
+        return self._prefix_index.lookup(ids)
+
+    def _prefix_put(self, ids: tuple) -> str:
+        """Index the whole prompt and return its key, under which every
+        shard snapshots its window as the prompt frame passes."""
+        key = self._prefix_index.get_exact(ids)
+        if key is None:
+            key = hashlib.sha1(np.asarray(ids, dtype=np.int64).tobytes()).hexdigest()[:16]
+            self._prefix_index.put(ids, key)
+        return key
+
     def _pos_for(self, nonce: str, step: int, n_tokens: int) -> int:
         """Step 0 injects the whole prompt at pos 0; every later step
         appends one token, so pos is derived (prompt length + step - 1)
@@ -328,6 +385,25 @@ class RingApiAdapter(ApiAdapterBase):
             _HOP_RTT_MS.observe(dt * 1000)
             get_recorder().span(result.nonce, "hop_rtt", dt * 1000, step=result.step)
             self._step_ema = dt if self._step_ema <= 0 else 0.8 * self._step_ema + 0.2 * dt
+        if result.error and result.error.startswith("prefix-miss:"):
+            # a shard that lost one snapshot (a restart, a full reset) lost
+            # them all: clear the whole index, and re-send this request's
+            # whole prompt once; a second miss, with no stash left, fails
+            self._prefix_index.clear()
+            state = self._refill_state.pop(result.nonce, None)
+            if state is not None and result.step == 0:
+                try:
+                    task = asyncio.ensure_future(self._refill_prefill(result.nonce, state))
+                except RuntimeError:  # no running loop: surface the error
+                    log.warning("prefix refill skipped: no event loop")
+                else:
+                    self._refill_tasks.add(task)
+                    task.add_done_callback(self._refill_tasks.discard)
+                    _PREFIX_REFILL.inc()
+                    log.warning("prefix refill for %s: %s", result.nonce, result.error)
+                    return  # the step-0 future waits for the refill
+        elif result.step == 0:
+            self._refill_state.pop(result.nonce, None)  # the suffix prefill answered
         if not self._futures.resolve(result):
             if result.step <= self._granted.get(result.nonce, -1):
                 # a granted step raced ahead of the decode loop's await: hold it
@@ -335,6 +411,28 @@ class RingApiAdapter(ApiAdapterBase):
                 self._early[(result.nonce, result.step)] = result
                 return
             log.warning("unmatched token for nonce %s step %d", result.nonce, result.step)
+
+    async def _refill_prefill(self, nonce: str, state: dict) -> None:
+        """Step 0 again as a whole-prompt prefill after a shard's
+        prefix-miss: the nonce is reset on every shard first (a shard that
+        seeded its session at the prefix length must not extend it from pos
+        0), then the stashed prompt goes out on the one frame path,
+        re-indexed so that every shard stores it again.  A failure answers
+        the waiting step 0 with an error."""
+        try:
+            token_ids = state["token_ids"]
+            await asyncio.gather(*(c.reset_cache(nonce, epoch=self._epoch) for c in self._shard_clients.values()),
+                                 return_exceptions=True)
+            pos = self._pos_for(nonce, 0, len(token_ids))
+            prefix_store = ""
+            if self._prefix_cap > 0 and len(token_ids) >= self.PREFIX_MIN_TOKENS:
+                prefix_store = self._prefix_put(tuple(token_ids))
+            get_recorder().span(nonce, "prefix_refill", 0.0, tokens=len(token_ids))
+            await self._send_token_frame(nonce, token_ids, pos, state["decoding"], 0, state["budget"],
+                                         prefix_store=prefix_store)
+        except Exception as exc:
+            log.exception("prefix refill for %s failed", nonce)
+            self._futures.resolve(TokenResult(nonce=nonce, token_id=-1, step=0, error=f"prefix refill failed: {exc}"))
 
     async def _idle_sweep(self) -> None:
         while True:

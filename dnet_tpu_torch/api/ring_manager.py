@@ -1,19 +1,21 @@
 """Ring-mode model lifecycle: the manual topology, the per-shard
 /load_model fan-out, and the ring adapter.
 
-Counterpart of dnet_tpu/api/ring_manager.py for single-round contiguous
-rings: `build_manual_topology` orders the assignments into a ring and wires
-the next pointers; `RingModelManager.load_model` ships each shard its load
-body concurrently and then serves through a `RingApiAdapter`.  The body
-carries weight_quant_bits as DNET_API_WEIGHT_QUANT_BITS says (or a
-`<id>:int8` / `<id>:int4` model id's bits, with the base checkpoint as the
-model path), and lanes, spec_lookahead and prefix_cache as the reference's
-rules work them out from DNET_API_RING_LANES, DNET_API_SPEC_LOOKAHEAD and
+Counterpart of dnet_tpu/api/ring_manager.py: `build_manual_topology`
+orders the assignments into a ring, wires the next pointers and splits
+each assignment into its rounds (a non-contiguous one is a k-round
+schedule: each contiguous run is one visit of the activation a token);
+`RingModelManager.load_model` ships each shard its load body concurrently
+and then serves through a `RingApiAdapter` (with the ring prefix cache
+when the bodies carry one).  The body carries weight_quant_bits as
+DNET_API_WEIGHT_QUANT_BITS says (or a `<id>:int8` / `<id>:int4` model id's
+bits, with the base checkpoint as the model path), and lanes,
+spec_lookahead and prefix_cache as the reference's rules work them out
+from DNET_API_RING_LANES, DNET_API_SPEC_LOOKAHEAD and
 DNET_API_PREFIX_CACHE (`_lanes_for`, `_spec_lookahead_for`, `_prefix_for`:
 each needs a single-round resident topology, lanes a model with gated KV
 writes, speculation a rewindable cache and no lanes; every setting they
-turn off is logged); the shards refuse a value above 0 (422, the setting
-named) until those features are ported.  `_hop_codec` resolves
+turn off is logged).  `_hop_codec` resolves
 DNET_WIRE_CODEC=auto per hop.  A failed shard load answers with the
 shard's own status (422 for an option the shard does not serve).  An
 assignment's `window_size` / `residency_size` ride its body: that shard
@@ -43,6 +45,7 @@ from dnet_tpu_torch.api.model_manager import resolve_model_dir, weight_quant
 from dnet_tpu_torch.config import api_settings, wire_settings
 from dnet_tpu_torch.core.types import DeviceInfo, LayerAssignment, TopologyInfo
 from dnet_tpu_torch.membership import body_signature, split_delta
+from dnet_tpu_torch.shard.compute import contiguous_runs
 from dnet_tpu_torch.utils.logger import get_logger
 from dnet_tpu_torch.utils.tokenizer import load_tokenizer
 
@@ -66,9 +69,9 @@ def build_manual_topology(
     devices: List[DeviceInfo],
     kv_bits: int = 0,
 ) -> TopologyInfo:
-    """Order assignments into a ring by min layer, set next pointers, and
-    check that they cover every layer exactly once (a shard refuses a
-    non-contiguous range at load)."""
+    """Order assignments into a ring by min layer, set next pointers and
+    each assignment's rounds, and check that they cover every layer
+    exactly once."""
     by_instance = {d.instance: d for d in devices}
     las: List[LayerAssignment] = []
     for a in assignments:
@@ -91,6 +94,10 @@ def build_manual_topology(
     covered = sorted(layer for a in las for layer in a.layers)
     if covered != list(range(num_layers)):
         raise ValueError(f"assignments must cover layers 0..{num_layers - 1} exactly once; got {covered}")
+    # a frame for a layer a shard does not own relays along the next
+    # pointers, so exact coverage is all a k-round schedule needs
+    for a in las:
+        a.rounds = contiguous_runs(a.layers)
     for i, a in enumerate(las):
         a.next_instance = las[(i + 1) % len(las)].instance
     return TopologyInfo(
@@ -264,7 +271,8 @@ class RingModelManager:
         # load's bodies (another max_seq would make every shard "changed")
         self.max_seq = max_seq = max_seq or self.max_seq
         bodies = self.load_bodies(topo, model_id, max_seq)
-        lanes = next(iter(bodies.values()))["lanes"] if bodies else 0
+        first = next(iter(bodies.values()), {})
+        lanes, prefix = first.get("lanes", 0), first.get("prefix_cache", 0)
         changed, unchanged = split_delta(self._last_load, bodies) if delta else (bodies, {})
         timeout = aiohttp.ClientTimeout(total=self.request_timeout_s)
         async with aiohttp.ClientSession(timeout=timeout) as session:
@@ -310,6 +318,7 @@ class RingModelManager:
             max_seq_len=max_seq,
             auto_steps=api_settings().ring_auto_steps,
             lanes=max(lanes, 1),
+            prefix_cache=prefix,
             epoch=topo.epoch,
         )
         await adapter.start()

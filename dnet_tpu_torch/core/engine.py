@@ -25,7 +25,14 @@ ledger, with the reference's warning.
 In shard mode (`layers=`, `shard_mode=True`) the engine holds one ring
 shard's layer range and serves hidden states in and out: `embed_window`
 on the head, `run_layers` in the middle, `hidden_tail` / `sample_hidden`
-on the tail (shard/compute.py drives them).
+on the tail (shard/compute.py drives them).  A k-round shard runs one
+contiguous run of its layers at a time (`apply_round`): resident, the
+run's slice of the layer list over its slice of the stacked cache, which
+in PyTorch is a view, so the writes land in the session's cache where the
+reference scatters them back; streamed, the run's windows, the next
+round's first window prefetched after the last (`_stream_windows`'s
+`prefetch_after`).  Layers that are not one flat list (gpt_oss's paired
+layout, the segmented stacks) are refused (`round_refusal`).
 
 Weight streaming (`window_size` / `residency_size`, the reference's
 plan: core/weights.py `plan_policy`): under an offload or sliding_fit plan
@@ -115,6 +122,20 @@ _DECODE_STEP_MS = metric("dnet_decode_step_ms")
 _PREFILL_MS = metric("dnet_prefill_ms")
 _LAYER_MS = metric("dnet_layer_compute_ms")
 _SESS_EVICTED = metric("dnet_kv_sessions_evicted_total")
+
+
+def round_refusal(model, streams_weights: bool) -> Optional[str]:
+    """Why a ring model's resident layers cannot run one round at a time
+    (the reference's apply_round refusal), or None: gpt_oss's paired
+    layout and the segmented stacks (deepseek_v2, a mixed qwen3_moe) are
+    not one flat layer list.  Streamed layers always can."""
+    if streams_weights:
+        return None
+    if getattr(model, "pair_kinds", None):
+        return f"{model.model_type}'s paired layout"
+    if model.segmented_stack:
+        return f"{model.model_type}'s segmented layer stack"
+    return None
 
 
 def bucket_length(n: int, min_bucket: int = 16) -> int:
@@ -503,16 +524,26 @@ class LocalEngine:
             return x
         return self._stream_windows(x, kv, pos, t_real)
 
-    def _stream_windows(self, x: torch.Tensor, kv: list, pos: int, t_real: Optional[int]) -> torch.Tensor:
-        """The weight-streaming loop: prefetch the next window (window 0
-        after the last, for the next token) while this one runs, each layer
-        over its own cache; release each layer as it is done (sliding_fit:
-        evict it at once) and evict the window behind."""
-        m, wc, windows = self.model, self.weight_cache, self._windows
+    def _stream_windows(
+        self, x: torch.Tensor, kv: list, pos: int, t_real: Optional[int],
+        windows: Optional[List[List[int]]] = None, prefetch_after: Optional[List[int]] = None,
+    ) -> torch.Tensor:
+        """The weight-streaming loop over `windows` (default: every window of
+        the plan): prefetch the next window while this one runs, after the
+        last one `prefetch_after` (a k-round ring's next round) or else
+        window 0 (for the next token); each layer over its own cache;
+        release each layer as it is done (sliding_fit: evict it at once)
+        and evict the window behind."""
+        m, wc = self.model, self.weight_cache
+        windows = self._windows if windows is None else windows
         sliding = self.plan.name == "sliding_fit"
+        ahead = len(windows) > 1 or prefetch_after is not None
         for wi, window in enumerate(windows):
-            if len(windows) > 1:
-                wc.prefetch(windows[wi + 1] if wi + 1 < len(windows) else windows[0])
+            if ahead:
+                if wi + 1 < len(windows):
+                    wc.prefetch(windows[wi + 1])
+                else:
+                    wc.prefetch(prefetch_after if prefetch_after is not None else windows[0])
             for layer in window:
                 p = wc.get(layer)
                 t0 = time.perf_counter() if self._sync_per_layer else 0.0
@@ -525,9 +556,40 @@ class LocalEngine:
                 wc.release([layer])
                 if sliding:
                     wc.evict([layer])
-            if len(windows) > 1 and not sliding:
+            if ahead and not sliding:
                 wc.evict(window)  # room for what comes next
         return x
+
+    def apply_round(
+        self, sess: Session, x: torch.Tensor, pos: int, run: Sequence[int], t_real: Optional[int] = None,
+        prefetch_next: Optional[Sequence[int]] = None,
+    ) -> torch.Tensor:
+        """ONE contiguous round (`run`) of this engine's layers, the k-round
+        ring schedule: a device's layers are dealt in k contiguous runs and
+        the activation visits it k times a token.  Resident: the run's
+        slice of the layer list over its slice of the stacked cache (views,
+        so the writes land in the session's cache); gpt_oss's flat layout
+        takes its layers one at a time under their own kinds.  Streamed:
+        the run's windows, the next round's first window (`prefetch_next`)
+        prefetched after the last one, while the other shards compute."""
+        m = self.model
+        why = round_refusal(m, self.plan.streams_weights)
+        if why is not None:
+            raise NotImplementedError(f"multi-round rings need a flat layer stack, not {why}")
+        if self.weight_cache is None:
+            lo, hi = m.abs_to_local[run[0]], m.abs_to_local[run[-1]] + 1
+            if getattr(m, "layer_kinds", None) is not None:  # gpt_oss flat: a kind a layer
+                for li in range(lo, hi):
+                    kv = {k: v[li : li + 1] for k, v in sess.kv.items()}
+                    x, _ = m.apply_window(m.wrap_offload_layer(self.window_params[li], m.layers[li]), x, kv, pos,
+                                          t_real=t_real)
+                return x
+            kv = {k: v[lo:hi] for k, v in sess.kv.items()}
+            x, _ = m.apply_window(self.window_params[lo:hi], x, kv, pos, t_real=t_real)
+            return x
+        w = self.plan.window_size or len(run)
+        windows = [list(run[i : i + w]) for i in range(0, len(run), w)]
+        return self._stream_windows(x, sess.kv, pos, t_real, windows, list(prefetch_next or [])[:w] or None)
 
     # ---- shard paths (a ring shard's hidden states in and out) ---------
     def run_layers(self, sess: Session, x: torch.Tensor, pos: int, t_real: Optional[int] = None) -> torch.Tensor:

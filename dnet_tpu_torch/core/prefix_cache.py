@@ -8,11 +8,14 @@ exact-prefix over full stored prompts, so the win is multi-turn chat: a
 follow-up request resends the grown history, hits the previous turn's
 entry and prefills only the new turn.  Snapshots are clones both in and
 out: the engine writes its caches in place, so a shared tensor would
-change under the entry at the borrowing session's next step.  The
-shard-side `SnapshotStore` is not ported (ring prefix caching, ROADMAP
-A6.3).  `PrefixIndex` counts its hits, misses, stores and evictions in
+change under the entry at the borrowing session's next step.
+`SnapshotStore` is the shard's half of ring prefix caching: the API keys
+each snapshot through the prompt frames (it alone sees token ids), and a
+shard keeps its own window's KV under that key, cloned in and out as
+well.  `PrefixIndex` counts its hits, misses, stores and evictions in
 the reference's dnet_kv_cache_*_total{cache} families (`cache` = its
-`kind`, "prefix" for both caches, as the reference's) and in `stats`.
+`kind`, "prefix" for both caches, as the reference's) and in `stats`;
+`SnapshotStore` counts under `cache="snapshot"`.
 """
 
 from __future__ import annotations
@@ -186,3 +189,54 @@ class PrefixCache:
 
     def clear(self) -> None:
         self._index.clear()
+
+
+class SnapshotStore:
+    """String-keyed LRU of (pos, KV snapshot), `capacity` entries: the shard
+    side of ring prefix caching.  A snapshot is a clone of the session's
+    cache when stored and again when handed out, so neither the storing
+    session's later decode nor a seeded session's writes reach it."""
+
+    def __init__(self, capacity: int) -> None:
+        self.capacity = capacity
+        self._lock = threading.Lock()
+        self._entries: "OrderedDict[str, Tuple[int, object]]" = OrderedDict()
+        self.stats = {"hits": 0, "misses": 0, "stores": 0}
+
+    def __len__(self) -> int:
+        with self._lock:
+            return len(self._entries)
+
+    def get(self, key: str) -> Optional[Tuple[int, object]]:
+        """(pos, a private copy of the snapshot) or None; counts the hit or
+        miss and LRU-bumps a hit."""
+        with self._lock:
+            hit = self._entries.get(key)
+            if hit is None:
+                self.stats["misses"] += 1
+                _MISSES.labels(cache="snapshot").inc()
+                return None
+            self._entries.move_to_end(key)
+            self.stats["hits"] += 1
+            _HITS.labels(cache="snapshot").inc()
+            n, kv = hit
+        return n, clone_tree(kv)
+
+    def put(self, key: str, pos: int, kv) -> None:
+        """Store a copy of `kv` (covering `pos` tokens) under `key`, unless
+        the key is held already (then only LRU-bumped); evicts the oldest
+        past capacity."""
+        with self._lock:
+            if key in self._entries:
+                self._entries.move_to_end(key)
+                return
+            self._entries[key] = (pos, clone_tree(kv))
+            self.stats["stores"] += 1
+            _STORES.labels(cache="snapshot").inc()
+            while len(self._entries) > self.capacity:
+                self._entries.popitem(last=False)
+                _EVICTIONS.labels(cache="snapshot").inc()
+
+    def clear(self) -> None:
+        with self._lock:
+            self._entries.clear()

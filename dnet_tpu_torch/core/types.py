@@ -75,8 +75,13 @@ class ActivationMessage:
     # next_seq) continuation the adapter injects at the head
     auto_steps: int = 0
     cont: Optional[tuple] = None
+    # ring speculation: `drafts` ride a verify block head -> tail,
+    # `committed` (the block's accepted tokens) the continuation tail ->
+    # head, and `extra_finals` [(seq, token_id), ...] are a verify block's
+    # tokens after the first, one API callback each
     drafts: list = field(default_factory=list)
     committed: list = field(default_factory=list)
+    extra_finals: Optional[list] = None
     # batched lanes: a coalesced decode frame's members, one {"nonce",
     # "seq", "pos", "decoding"} each, payload rows in the same order; the
     # tail answers with `lane_finals`, one TokenResult-shaped dict a member

@@ -108,6 +108,10 @@ class RingModel(abc.ABC):
     supports_paged_attend: bool = False
     # apply_window takes an sp group (sequence-parallel KV shards)
     supports_sp: bool = False
+    # the window is not one flat layer list in layer order (deepseek_v2's
+    # segments; a mixed qwen3_moe, which the reference stacks in segments):
+    # a k-round shard cannot serve its resident layers a round at a time
+    segmented_stack: bool = False
 
     def __init__(self, config: ModelConfig, layers: Sequence[int], device: torch.device):
         self.config = config

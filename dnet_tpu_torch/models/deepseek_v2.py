@@ -51,6 +51,7 @@ from dnet_tpu_torch.ops.rope import apply_rope_interleaved, rope_frequencies
 class DeepseekV2RingModel(TwoSegmentStackMixin, RingModel):
     model_type = "deepseek_v2"
     supports_sp = True
+    segmented_stack = True  # {"dense": [...], "moe": [...]}
     # the reference's set: the MLA projections, the dense MLP, the routed
     # and shared experts (the router gate_w stays f32: routing decisions are
     # precision-sensitive)

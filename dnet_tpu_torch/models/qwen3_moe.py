@@ -54,6 +54,10 @@ class Qwen3MoeRingModel(MixtralRingModel, Qwen3RingModel):
         super().__init__(config, layers, device)
         self.norm_topk_prob = bool(config.extra.get("norm_topk_prob", False))
         self._kinds = moe_layer_kinds(config.extra, config.num_hidden_layers)
+        # a mixed layout runs as one list here, but the reference's segmented
+        # stack cannot serve a k-round shard's resident rounds; neither does
+        # the port's, so that both rings answer alike
+        self.segmented_stack = any(self._kinds) and not all(self._kinds)
 
     def is_moe_layer(self, abs_layer: int) -> bool:
         return self._kinds[abs_layer]

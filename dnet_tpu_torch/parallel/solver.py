@@ -5,8 +5,9 @@ model, the greedy and the scipy HiGHS MILP solves, the k-round dealing and
 the mesh-slice placement, so the same devices and model give the same
 `TopologyInfo`.  `model_profile_from_checkpoint` reads the checkpoint's
 safetensors headers itself (utils/checkpoint.py `tensor_headers`).  The
-port's shards still refuse at load what they do not serve (a mesh_tp or
-tp_degree above 1, k > 1 rounds: shard/compute.py `refuse_unsupported`).
+port's shards serve the k > 1 rounds it deals (shard/compute.py
+`_process_round`) and still refuse at load what they do not serve (a
+mesh_tp or tp_degree above 1: shard/compute.py `refuse_unsupported`).
 
 - cost model per device i and layer count w_i, resident n_i:
     t_i(w) = w * t_compute_i                      (memory-bound decode compute)

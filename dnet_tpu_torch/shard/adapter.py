@@ -16,7 +16,11 @@ under another topology epoch than the one this shard holds is refused
 computed or relayed; the chaos point `zombie_frame` marks a frame stale on
 purpose.  Token callbacks run under the `send_token` retry policy with the
 chaos point `token_cb` inside the retried call; a batch frame's tail
-answers with one callback a member, sent concurrently.
+answers with one callback a member, sent concurrently; a verify block's
+tail with one callback a token it emitted, in step order, and its
+continuation carries the accepted tokens (`committed`) back to the head.
+A hidden hop carries the decode grant, the drafts and the prefix keys on
+to the next shard.
 
 Under the wire pipeline (DNET_WIRE_PIPELINE=1) a hidden hop whose payload
 is still a launched encode is finalized on the `WireTxStage`'s thread
@@ -233,7 +237,10 @@ class RingAdapter:
             t_sent=time.time(),
             t_sent_mono=t0,
             auto_steps=msg.auto_steps,
+            drafts=list(msg.drafts),
             lanes=list(msg.lanes),
+            prefix_store=msg.prefix_store,
+            prefix_hit=msg.prefix_hit,
             deadline=msg.deadline,
             epoch=msg.epoch,
         )
@@ -283,6 +290,11 @@ class RingAdapter:
             epoch=msg.epoch,
         )
         await self._cb_send(client, payload)
+        # a verify block's further accepted tokens: one callback a step, in
+        # step order behind the first (one token stream, so not concurrent)
+        for step, token_id in msg.extra_finals or ():
+            await self._cb_send(client, TokenPayload(nonce=msg.nonce, step=step, token_id=int(token_id),
+                                                     epoch=msg.epoch))
 
     async def _cb_send(self, client, payload: TokenPayload):
         """One token callback under the send_token retry policy; the chaos
@@ -322,6 +334,7 @@ class RingAdapter:
             callback_url=msg.callback_url,
             decoding=asdict(msg.decoding),
             auto_steps=steps,
+            committed=list(msg.committed),
             t_sent=time.time(),
             t_sent_mono=time.perf_counter(),
             deadline=msg.deadline,

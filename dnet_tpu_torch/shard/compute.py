@@ -23,18 +23,38 @@ pool (shard/lanes.py) and serves a coalesced frame's members with one
 batched step; a tail answers with one final a member, a faulted member
 failing alone.
 
+Ring speculation (`spec_lookahead` L, DNET_API_SPEC_LOOKAHEAD): the head
+widens a granted continuation into a [tok, d_1..d_L] verify block of
+prompt-lookup drafts, and the tail runs it as one (L+1)-row forward and
+emits the agreeing prefix plus the first correction, 1..L+1 tokens a lap
+(`extra_finals`), handing the accepted tokens back to the head's history
+(`committed`).  The ring prefix cache (`prefix_cache`,
+DNET_API_PREFIX_CACHE): the API keys each prompt frame; a shard stores
+its window's KV after the prompt under `prefix_store` and seeds a new
+session from the snapshot under `prefix_hit`, or fails the frame with a
+parseable `prefix-miss:<key>` error.  A non-contiguous range is a k-round
+schedule: each contiguous run is one visit of the activation a token
+(`_process_round`, core/engine.py `apply_round`), and only the round
+ending at the model's last layer samples.  Both features need one round
+and resident weights, speculation a cache that can rewind; otherwise the
+shard serves without them, as the reference's does.
+
 This slice serves every family the port registers (gpt_oss's range in its
 paired layout, or the flat one where its kinds do not pair; deepseek_v2's
-range as its dense and moe segments), one contiguous layer range per shard;
-the shard's KV cache takes the topology's kv_bits (bf16, int8 or packed
-int4, as core/kvcache.py `resolve_kv_bits` maps it).  The topology's
-`window_size` / `residency_size` give the shard's weight plan
-(core/weights.py): under offload or sliding_fit its layers stream from host
-memory (the repack cache under `repack_dir`), the head shard running embed
-+ the streamed layers and the tail the streamed layers + norm + head +
-sample, as the reference's streaming branch does.  Every option that would
-ask for more is refused at load (`ShardCapabilityError`), before a weight
-is read, rather than quietly served as something else.
+range as its dense and moe segments); the shard's KV cache takes the
+topology's kv_bits (bf16, int8 or packed int4, as core/kvcache.py
+`resolve_kv_bits` maps it).  The topology's `window_size` /
+`residency_size` give the shard's weight plan (core/weights.py): under
+offload or sliding_fit its layers stream from host memory (the repack
+cache under `repack_dir`), the head shard running embed + the streamed
+layers and the tail the streamed layers + norm + head + sample, as the
+reference's streaming branch does.  Every option that would ask for more
+is refused at load (`ShardCapabilityError`), before a weight is read,
+rather than quietly served as something else: a mesh-backed shard,
+tensor parallelism, lanes on a k-round range, and a k-round range of
+resident layers that are not one flat stack (gpt_oss's paired layout,
+deepseek_v2's segments, a mixed qwen3_moe), which the reference refuses
+on the first frame instead.
 """
 
 from __future__ import annotations
@@ -57,8 +77,9 @@ from dnet_tpu_torch.compression import (
     launch_encode,
 )
 from dnet_tpu_torch.config import tp_settings, transport_settings, wire_settings
-from dnet_tpu_torch.core.engine import LocalEngine, bucket_length
+from dnet_tpu_torch.core.engine import LocalEngine, bucket_length, round_refusal
 from dnet_tpu_torch.core.kvcache import resolve_kv_bits
+from dnet_tpu_torch.core.spec import ngram_draft_np
 from dnet_tpu_torch.core.types import ActivationMessage, DecodingParams
 from dnet_tpu_torch.core.weights import plan_policy
 from dnet_tpu_torch.models import MODEL_TYPES
@@ -96,10 +117,14 @@ def refuse_model(
     **_other,
 ) -> None:
     """Raise ShardCapabilityError for a checkpoint whose family this shard
-    does not serve, or (lanes > 1) a range batched lanes cannot serve: a
-    streamed plan (window_size / residency_size short of the range) or a
-    model without the lane hook (`supports_kv_commit` false: gpt_oss's flat
-    layout).  Read from its config.json before any weight."""
+    does not serve; for a k-round (non-contiguous) range whose resident
+    layers are not one flat stack (gpt_oss's paired layout, deepseek_v2's
+    segments, a mixed qwen3_moe: the reference's apply_round refuses them
+    on the first frame, this shard at load); or (lanes > 1) a range batched
+    lanes cannot serve: a k-round range, a streamed plan (window_size /
+    residency_size short of the range) or a model without the lane hook
+    (`supports_kv_commit` false: gpt_oss's flat layout).  Read from its
+    config.json before any weight."""
     cfg_path = Path(model_dir) / "config.json"
     if not cfg_path.is_file():
         raise FileNotFoundError(f"no config.json in {model_dir}")
@@ -109,21 +134,49 @@ def refuse_model(
         raise ShardCapabilityError(
             f"this shard does not serve model_type {model_type!r} (ring shards serve {MODEL_TYPES})"
         )
-    if lanes <= 1 or layers is None:
+    if layers is None:
         return
-    if plan_policy(len(layers), window_size, residency_size).name != "fit":
+    ls = sorted(int(a) for a in layers)
+    k_round = len(contiguous_runs(ls)) > 1
+    streamed = plan_policy(len(ls), window_size, residency_size).name != "fit"
+    if lanes > 1 and k_round:
+        raise ShardCapabilityError(
+            f"this shard does not serve lanes={lanes} (DNET_API_RING_LANES) on k-round layers {ls}: batched lanes "
+            "need a single-round (contiguous) assignment; k-round schedules serve batch=1"
+        )
+    if lanes > 1 and streamed:
         raise ShardCapabilityError(
             f"this shard does not serve lanes={lanes} (DNET_API_RING_LANES) on a streamed plan "
             f"(window_size={window_size}, residency_size={residency_size}): batched lanes need resident weights"
         )
+    if lanes <= 1 and not k_round:
+        return
     from dnet_tpu_torch.models import ModelConfig, get_ring_model_cls
 
-    cfg = ModelConfig.from_hf(raw)
-    if not get_ring_model_cls(model_type)(cfg, layers, "cpu").supports_kv_commit:
+    model = get_ring_model_cls(model_type)(ModelConfig.from_hf(raw), ls, "cpu")
+    why = round_refusal(model, streamed) if k_round else None
+    if why is not None:
+        raise ShardCapabilityError(
+            f"this shard does not serve k-round layers {ls} ({len(contiguous_runs(ls))} rounds) with resident "
+            f"weights for {model_type}: multi-round rings need a flat layer stack, not {why}"
+        )
+    if lanes > 1 and not model.supports_kv_commit:
         raise ShardCapabilityError(
             f"this shard does not serve lanes={lanes} (DNET_API_RING_LANES) for {model_type} layers "
-            f"{sorted(layers)}: no gated KV writes (gpt_oss's flat layout)"
+            f"{ls}: no gated KV writes (gpt_oss's flat layout)"
         )
+
+
+def contiguous_runs(layers: Sequence[int]) -> list:
+    """A sorted layer list as its contiguous runs: a k-round assignment's
+    rounds, each one visit of the activation a token."""
+    runs: list = []
+    for a in layers:
+        if runs and a == runs[-1][-1] + 1:
+            runs[-1].append(a)
+        else:
+            runs.append([a])
+    return runs
 
 
 def refuse_unsupported(
@@ -134,32 +187,20 @@ def refuse_unsupported(
     mesh_tp: int = 0,
     mesh_sp: int = 0,
     tp_degree: int = 0,
-    spec_lookahead: int = 0,
-    prefix_cache: int = 0,
     **_other,
 ) -> None:
     """Raise ShardCapabilityError for the first load option outside this
-    slice, naming the setting it comes from: ring speculation
-    (DNET_API_SPEC_LOOKAHEAD), the ring prefix cache
-    (DNET_API_PREFIX_CACHE), k-round (non-contiguous) schedules, a
-    mesh-backed shard (DNET_SHARD_MESH_TP / _SP), tensor parallelism
-    (DNET_TP: a tp_degree of 0 takes this shard's own, as the reference's
-    shard resolves it when the mesh is one device), a kv_bits that is none
-    of 0/16/8/4 and a weight_quant_bits that is none of 0/8/4.  Other
-    keyword arguments are ignored, so a caller can pass its whole load
-    body."""
+    slice, naming the setting it comes from: a mesh-backed shard
+    (DNET_SHARD_MESH_TP / _SP), tensor parallelism (DNET_TP: a tp_degree of
+    0 takes this shard's own, as the reference's shard resolves it when
+    the mesh is one device), a kv_bits that is none of 0/16/8/4 and a
+    weight_quant_bits that is none of 0/8/4.  Other keyword arguments are
+    ignored, so a caller can pass its whole load body."""
     if tp_degree == 0 and max(mesh_tp, 1) * max(mesh_sp, 1) == 1:
         tp_degree = tp_settings().tp
-    ls = sorted(int(a) for a in layers)
-    if not ls:
+    if not list(layers):
         raise ShardCapabilityError("empty layer list")
     refused = [
-        (spec_lookahead > 0,
-         f"spec_lookahead={spec_lookahead} (DNET_API_SPEC_LOOKAHEAD): ring speculation is not ported"),
-        (prefix_cache > 0,
-         f"prefix_cache={prefix_cache} (DNET_API_PREFIX_CACHE): the ring prefix cache is not ported"),
-        (ls != list(range(ls[0], ls[-1] + 1)),
-         f"layers {ls} are not one contiguous range: k-round schedules are not ported"),
         (mesh_tp not in (0, 1), f"mesh_tp={mesh_tp} (DNET_SHARD_MESH_TP): mesh-backed shards are not ported"),
         (mesh_sp not in (0, 1), f"mesh_sp={mesh_sp} (DNET_SHARD_MESH_SP): mesh-backed shards are not ported"),
         (tp_degree > 1, f"tp_degree={tp_degree} (DNET_TP): tensor parallelism is not ported"),
@@ -202,7 +243,7 @@ class ShardCompute:
         refuse_unsupported(
             layers, kv_bits=kv_bits,
             weight_quant_bits=weight_quant_bits, mesh_tp=mesh_tp, mesh_sp=mesh_sp,
-            tp_degree=tp_degree, spec_lookahead=spec_lookahead, prefix_cache=prefix_cache,
+            tp_degree=tp_degree,
         )
         refuse_model(model_dir, layers, lanes=lanes, window_size=window_size, residency_size=residency_size)
         # the API resolves "auto" per hop in its load fan-out; a shard loaded
@@ -225,6 +266,28 @@ class ShardCompute:
         self.layers = list(self.engine.model.layers)
         self.is_first = self.engine.model.is_first
         self.is_last = self.engine.model.is_last
+        # the k-round schedule: a non-contiguous range is its rounds, each
+        # contiguous run one visit of the activation a token
+        self.rounds = contiguous_runs(self.layers)
+        streams = self.engine.plan.streams_weights
+        # ring speculation: the head widens a granted continuation into a
+        # [tok, d_1..d_L] verify block (prompt lookup over the host-side
+        # history `_hist`), the tail verifies it and emits 1..L+1 tokens a
+        # lap.  One round, resident weights and a cache that can rewind.
+        self.spec_lookahead = int(spec_lookahead)
+        self._spec_ok = (self.spec_lookahead > 0 and len(self.rounds) == 1 and not streams
+                         and self.engine.model.kv_rewindable(self.engine.max_seq))
+        self._hist: dict = {}  # head: nonce -> int64 [max_seq] input history
+        # verify blocks widened (head) and verified (tail), and the tokens
+        # the tail emitted from them, for /health
+        self.spec_stats = {"widened": 0, "blocks": 0, "emitted": 0}
+        # the ring prefix cache: this window's KV snapshots under the keys
+        # the API sends in the prompt frames (one round, resident weights)
+        self.prefix_snaps = None
+        if prefix_cache > 0 and len(self.rounds) == 1 and not streams:
+            from dnet_tpu_torch.core.prefix_cache import SnapshotStore
+
+            self.prefix_snaps = SnapshotStore(prefix_cache)
         self.wire_dtype = wire_dtype
         self.wire_codec = wire_codec
         # column-sparsify hidden hops (DNET_TRANSPORT_COMPRESS*): an explicit
@@ -266,9 +329,10 @@ class ShardCompute:
             from dnet_tpu_torch.shard.lanes import LanePool
 
             self.lane_pool = LanePool(self.engine, lanes)
-        # the pipelined encode takes decode-step hops: one row, or a lane
-        # frame's members; a prompt frame encodes synchronously
-        self._wire_jit_rows = max(int(lanes), 1)
+        # the pipelined encode takes decode-step hops: one row, a lane
+        # frame's members, or a verify block's 1 + L rows; a prompt frame
+        # encodes synchronously
+        self._wire_jit_rows = max(int(lanes), 1 + self.spec_lookahead if self._spec_ok else 1, 1)
         if self.wire_pipeline:
             self._warm_wire()
 
@@ -306,14 +370,20 @@ class ShardCompute:
         return (layer_id + 1) in self.engine.model.abs_to_local
 
     def reset(self, nonce: str = "") -> None:
+        """Drop one nonce's session (and draft history, and lane), or with
+        no nonce every session and every prefix snapshot."""
         if nonce:
             self.engine.end_session(nonce)
+            self._hist.pop(nonce, None)
             if self.lane_pool is not None:
                 self.lane_pool.release(nonce)
         else:
             self.engine.sessions.clear()
+            self._hist.clear()
             if self.lane_pool is not None:
                 self.lane_pool.reset()
+            if self.prefix_snaps is not None:
+                self.prefix_snaps.clear()
 
     # ---- ingress decode ------------------------------------------------
     def _payload_to_device(self, msg: ActivationMessage) -> torch.Tensor:
@@ -361,18 +431,21 @@ class ShardCompute:
         launched, before the frame joins the compute queue."""
         msg.device_data = self._decode_to_device(msg, hidden=True)
 
-    def _padded_len(self, T: int, pos: int) -> int:
+    def _padded_len(self, msg: ActivationMessage, T: int, pos: int) -> int:
+        """A prompt frame's rows padded to the power-of-two bucket (never
+        past max_seq); a decode step and a verify block (as the single
+        process runs its L + 1 rows) unpadded."""
         eng = self.engine
         if pos + T > eng.max_seq:
             raise ValueError(f"sequence {pos + T} exceeds max_seq {eng.max_seq}")
-        return 1 if T == 1 else min(bucket_length(T), eng.max_seq - pos)
+        return T if T == 1 or msg.drafts else min(bucket_length(T), eng.max_seq - pos)
 
     def _decode_payload(self, msg: ActivationMessage, pos: int):
         """Incoming hidden frame -> (padded [B, Tpad, D] in the param
         dtype, real length T)."""
         hidden = self._payload_to_device(msg)
         T = hidden.shape[1]
-        Tpad = self._padded_len(T, pos)
+        Tpad = self._padded_len(msg, T, pos)
         if Tpad != T:
             hidden = F.pad(hidden, (0, 0, 0, Tpad - T))
         return hidden.to(self.engine.param_dtype), T
@@ -381,31 +454,44 @@ class ShardCompute:
         eng = self.engine
         ids = msg.tokens()
         T = ids.shape[-1]
-        Tpad = self._padded_len(T, pos)
+        Tpad = self._padded_len(msg, T, pos)
         tokens = np.zeros((eng.batch, Tpad), dtype=np.int64)
         tokens[:, :T] = ids.reshape(1, -1)
         return torch.from_numpy(tokens).to(eng.device), T
 
     # ---- compute -------------------------------------------------------
     def process(self, msg: ActivationMessage) -> ActivationMessage:
-        """Run this shard's window; returns the outgoing message (a hidden
-        hop or the final sampled token)."""
+        """Run this shard's window (or the round the frame enters); returns
+        the outgoing message (a hidden hop or the final sampled token).
+        The reference's order: lanes, then the session (seeded from a
+        prefix snapshot on a hit), the head's widen, the tail's verify, the
+        round path, the single-round path."""
         if msg.lanes:
             return self._process_lane_frame(msg)
-        if msg.drafts:
-            raise ValueError("verify block arrived but this shard cannot speculate")
-        if msg.prefix_hit:
-            raise ValueError(f"prefix-miss:{msg.prefix_hit}: prefix caching disabled on this shard")
         eng = self.engine
         nonce, pos = msg.nonce, msg.pos
         sess = eng.sessions.get(nonce)
         if sess is None:
-            if pos > 0:
+            if msg.prefix_hit:
+                # a prompt frame continuing a cached prefix: pos is the
+                # prefix length, the payload the suffix only
+                sess = self._seed_prefix_session(msg)
+            elif pos > 0:
                 # a mid-stream frame with no session is stale (a grant still
                 # circulating after a reset, or a swept request): recreating
                 # the session would compute garbage
                 raise ValueError(f"no session for {nonce!r} at pos {pos} (reset or expired); dropping frame")
-            sess = eng.new_session(nonce, msg.decoding.seed)
+            else:
+                sess = eng.new_session(nonce, msg.decoding.seed)
+        if msg.is_tokens and self.is_first and self._spec_ok:
+            msg = self._spec_widen(msg)
+        if msg.drafts and self.is_last:
+            if not self._spec_ok:
+                raise ValueError("verify block arrived but this shard cannot speculate "
+                                 "(k rounds, streaming weights, or a rotating cache)")
+            return self._spec_verify(msg, sess)
+        if len(self.rounds) > 1:
+            return self._process_round(msg, sess)
         if msg.is_tokens:
             if not self.is_first:
                 raise ValueError("token frame arrived at a non-first shard")
@@ -416,23 +502,153 @@ class ShardCompute:
             x = eng.run_layers(sess, x, pos, t_real=T)
         sess.pos = pos + T
         sess.last_used = time.time()
-        if self.is_last:
-            res = eng.sample_hidden(sess, x, T - 1, msg.decoding)
+        if msg.prefix_store and self.prefix_snaps is not None:
+            self.prefix_snaps.put(msg.prefix_store, sess.pos, sess.kv)
+        return self._emit(msg, sess, x, T, self.is_last, self.max_layer)
+
+    def _process_round(self, msg: ActivationMessage, sess) -> ActivationMessage:
+        """The k-round path: only the round that starts at the frame's next
+        layer, the next round's first window prefetched while the rest of
+        the ring computes.  Only the round that ends at the model's last
+        layer samples; every other round hands its hidden state on."""
+        eng = self.engine
+        pos = msg.pos
+        target = 0 if msg.is_tokens else msg.layer_id + 1
+        ridx = next((i for i, r in enumerate(self.rounds) if r[0] == target), None)
+        if ridx is None:
+            raise ValueError(f"no round of {self.rounds} starts at layer {target}")
+        run = self.rounds[ridx]
+        if msg.is_tokens:
+            tokens, T = self._embed_tokens(msg, pos)
+            x = eng.model.embed(eng.edge_params, tokens)
+        else:
+            x, T = self._decode_payload(msg, pos)
+        x = eng.apply_round(sess, x, pos, run, t_real=T, prefetch_next=self.rounds[(ridx + 1) % len(self.rounds)])
+        sess.pos = pos + T
+        sess.last_used = time.time()
+        return self._emit(msg, sess, x, T, run[-1] == eng.config.num_hidden_layers - 1, run[-1])
+
+    def _emit(self, msg: ActivationMessage, sess, x: torch.Tensor, T: int, is_tail: bool,
+              out_layer: int) -> ActivationMessage:
+        """The tail samples at the last real row; any other shard (or round)
+        encodes the real rows as a hidden hop, which carries the decode
+        grant, the drafts and the prefix keys on toward the tail (every
+        shard snapshots or seeds its own window)."""
+        if is_tail:
+            res = self.engine.sample_hidden(sess, x, T - 1, msg.decoding)
             return self._final_message(msg, res, sess)
         payload, dtype, shape = self._encode_activation(x[:, :T])
         return ActivationMessage(
-            nonce=nonce,
-            layer_id=self.max_layer,
+            nonce=msg.nonce,
+            layer_id=out_layer,
             seq=msg.seq,
             dtype=dtype,
             shape=shape,
             data=payload,
-            pos=pos,
+            pos=msg.pos,
             callback_url=msg.callback_url,
             decoding=msg.decoding,
-            # the decode grant must reach the tail: it rides every hop
             auto_steps=msg.auto_steps,
+            drafts=list(msg.drafts),
+            prefix_store=msg.prefix_store,
+            prefix_hit=msg.prefix_hit,
         )
+
+    # ---- the ring prefix cache ------------------------------------------
+    def _seed_prefix_session(self, msg: ActivationMessage):
+        """The nonce's session from this shard's snapshot under the frame's
+        key.  A snapshot that is missing or covers another length fails
+        with a parseable `prefix-miss:<key>` error: the API clears its index
+        and re-sends the whole prompt (a shard never half-serves a
+        prefix)."""
+        if self.prefix_snaps is None:
+            raise ValueError(f"prefix-miss:{msg.prefix_hit}: prefix caching disabled on "
+                             "this shard (streaming, k-round, or capacity 0)")
+        hit = self.prefix_snaps.get(msg.prefix_hit)
+        if hit is None:
+            raise ValueError(f"prefix-miss:{msg.prefix_hit}: no snapshot on this shard")
+        n, kv = hit
+        if n != msg.pos:
+            raise ValueError(f"prefix-miss:{msg.prefix_hit}: snapshot covers {n} tokens "
+                             f"but the frame resumes at pos {msg.pos}")
+        return self.engine.new_session(msg.nonce, msg.decoding.seed, kv=kv, pos=n)
+
+    # ---- ring speculation -----------------------------------------------
+    def _spec_widen(self, msg: ActivationMessage) -> ActivationMessage:
+        """Head: record the frame's tokens (and the previous block's
+        accepted ones, `committed`) in the nonce's history; an eligible
+        granted continuation (one greedy token mid-stream, no logprobs,
+        penalty or bias, room for the block) becomes a [tok, d_1..d_L]
+        verify block of prompt-lookup drafts."""
+        ids = msg.tokens().reshape(-1)
+        pos = msg.pos
+        hist = self._hist.get(msg.nonce)
+        if hist is None or pos == 0:
+            hist = self._hist[msg.nonce] = np.zeros(self.engine.max_seq, dtype=np.int64)
+        k = len(msg.committed)
+        if k:  # input positions pos - k + 1 .. pos
+            hist[pos - k + 1 : pos + 1] = msg.committed
+        end = min(pos + len(ids), len(hist))
+        hist[pos:end] = ids[: end - pos]
+        dec = msg.decoding
+        L = self.spec_lookahead
+        if not (msg.auto_steps > 0 and len(ids) == 1 and pos > 0 and dec.temperature == 0.0 and not dec.logprobs
+                and dec.repetition_penalty == 1.0 and not dec.logit_bias and pos + L + 1 <= self.engine.max_seq):
+            return msg
+        drafts = ngram_draft_np(hist, pos + 1, L)
+        hist[pos + 1 : pos + 1 + L] = drafts  # speculative: commits overwrite
+        block = np.concatenate([ids, drafts]).astype(np.int32)[None, :]
+        msg.data = block.tobytes()
+        msg.shape = block.shape
+        msg.drafts = [int(d) for d in drafts]
+        self.spec_stats["widened"] += 1
+        return msg
+
+    def _spec_verify(self, msg: ActivationMessage, sess) -> ActivationMessage:
+        """Tail: the verify block through this window (the prefill kernel at
+        pos > 0), the argmax at every real row, and the agreeing prefix
+        plus the first correction emitted, clamped to the grant and cut
+        after a stop token.  The accepted tokens go back to the head in the
+        continuation (`committed`) for its history."""
+        eng = self.engine
+        m = eng.model
+        pos = msg.pos
+        if msg.is_tokens:  # a one-shard ring verifies its own widened block
+            tokens, T = self._embed_tokens(msg, pos)
+            x = m.embed(eng.edge_params, tokens)
+        else:
+            x, T = self._decode_payload(msg, pos)
+        x = eng.run_layers(sess, x, pos, t_real=T)
+        logits = m.lm_project(eng.edge_params, m.normalize(eng.edge_params, x[:, :T]))  # [1, T, V]
+        preds = logits.argmax(dim=-1)[0].cpu().numpy().astype(np.int64)
+        drafts = np.asarray(msg.drafts, dtype=np.int64)
+        agree = preds[: len(drafts)] == drafts
+        n_accept = int(np.argmin(np.concatenate([agree, [False]]).astype(np.int32)))
+        # the frame's own token (step seq) is free: the frame that injected
+        # it granted it; only the extras spend the running grant
+        toks = [int(t) for t in preds[: min(n_accept + 1, msg.auto_steps + 1)]]
+        stops = tuple(msg.decoding.stop_token_ids or ())
+        for i, t in enumerate(toks):  # past a stop token nothing counts
+            if t in stops:
+                toks = toks[: i + 1]
+                break
+        emitted = len(toks)
+        sess.pos = pos + emitted
+        sess.last_used = time.time()
+        self.spec_stats["blocks"] += 1
+        self.spec_stats["emitted"] += emitted
+        out = ActivationMessage(
+            nonce=msg.nonce, layer_id=self.max_layer, seq=msg.seq, dtype="token", shape=(1,), pos=pos,
+            callback_url=msg.callback_url, decoding=msg.decoding, is_final=True, token_id=toks[0],
+            extra_finals=[(msg.seq + i, toks[i]) for i in range(1, emitted)],
+        )
+        # the extras, then the next continuation's own token, come out of
+        # this grant
+        remaining = msg.auto_steps - (emitted - 1) - 1
+        if remaining >= 0 and toks[-1] not in stops and sess.pos < eng.max_seq:
+            out.cont = (toks[-1], sess.pos, remaining, msg.seq + emitted)
+            out.committed = toks  # input positions pos + 1 .. pos + emitted
+        return out
 
     # ---- wire encode (the single egress seam) --------------------------
     def _wire_params(self) -> tuple:
@@ -586,4 +802,20 @@ class ShardCompute:
         n = self.engine.sweep_sessions()
         if self.lane_pool is not None:
             n += self.lane_pool.sweep(self.engine.KV_TTL_S)
+        # a draft history whose session died (TTL sweep, a failed reset)
+        # would pin its max_seq array
+        for nonce in [k for k in self._hist if k not in self.engine.sessions]:
+            self._hist.pop(nonce, None)
         return n
+
+    def health(self) -> dict:
+        """/health's view of this shard's compute: its layers and rounds,
+        the live sessions, the prefix snapshots' counters and, when it
+        speculates, the verify blocks."""
+        out = {"layers": list(self.layers), "rounds": [list(r) for r in self.rounds],
+               "sessions": len(self.engine.sessions)}
+        if self.prefix_snaps is not None:
+            out["prefix_cache"] = dict(self.prefix_snaps.stats, entries=len(self.prefix_snaps))
+        if self._spec_ok:
+            out["spec"] = dict(self.spec_stats, lookahead=self.spec_lookahead)
+        return out

@@ -17,7 +17,10 @@ the reference's, so an API node of either package can load this shard;
 the options this slice does not serve answer 422 (shard/compute.py).
 /health carries the kernels' launch counts in this process, the hop
 codec's frame and byte counts, and the engine's weight plan (and, when it
-streams, `engine.weight_cache`: loads, hits, evictions and bytes); under
+streams, `engine.weight_cache`: loads, hits, evictions and bytes), the
+shard's rounds, its prefix snapshots' counters (`prefix_cache`: hits,
+misses, stores, entries) and, when it speculates, `spec` (verify blocks
+widened, verified and the tokens they emitted); under
 the wire pipeline `wire_pipeline` (the encode ring's depth, slots in
 flight and peak, the overlap books), with lanes `lanes` (slots, active).
 """
@@ -155,7 +158,7 @@ class ShardHTTPServer:
             "role": "shard",
             "shard_id": rt.shard_id,
             "model": rt.model_path or None,
-            "layers": list(compute.layers) if compute else [],
+            "layers": [],
             "queue_depth": rt.queue_depth,
             "epoch": rt.epoch,
             "device": str(rt.device),
@@ -167,7 +170,9 @@ class ShardHTTPServer:
             # an injected fault must never pass for a real one
             body["chaos"] = chaos
         if compute is not None:
-            body["sessions"] = len(compute.engine.sessions)
+            # layers, rounds, sessions, the prefix snapshots' counters and
+            # the verify blocks
+            body.update(compute.health())
             body["wire_codec"] = compute.wire_codec
             body["wire"] = dict(compute.wire_stats)
             body.update(compute.ring_stats())

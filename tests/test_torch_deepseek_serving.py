@@ -144,8 +144,9 @@ def test_batched_slots_are_422_at_load(deepseek_dir, no_warmup, monkeypatch, env
 def test_ring_shard_load_is_422(deepseek_dir):
     """A ring shard serves a deepseek_v2 range (every family since the
     twenty-first slice) and answers 422, before reading a weight, only for
-    an option it does not serve yet (ring speculation here: batched lanes
-    serve; the setting named); a refused load leaves the shard empty."""
+    an option it does not serve (a k-round range of its resident segments
+    here: batched lanes and ring speculation serve; the reason named); a
+    refused load leaves the shard empty."""
     from dnet_tpu_torch.shard.http import ShardHTTPServer
     from dnet_tpu_torch.shard.runtime import ShardRuntime
     from dnet_tpu_torch.shard.server import Shard
@@ -166,7 +167,7 @@ def test_ring_shard_load_is_422(deepseek_dir):
         await client.start_server()
         try:
             out = []
-            for extra in ({"spec_lookahead": 4}, {}):
+            for extra in ({"layers": [0, 2]}, {}):
                 r = await client.post("/load_model", json=dict(body, **extra))
                 out.append((r.status, await r.json(), runtime.compute))
             return out
@@ -174,6 +175,6 @@ def test_ring_shard_load_is_422(deepseek_dir):
             await client.close()
 
     (status, reply, compute), (served, _, loaded) = asyncio.run(load())
-    assert status == 422 and "DNET_API_SPEC_LOOKAHEAD" in reply["message"] and compute is None
+    assert status == 422 and "segmented layer stack" in reply["message"] and compute is None
     assert served == 200 and loaded.layers == [0, 1] and loaded.engine.config.model_type == "deepseek_v2"
     runtime.unload_model_core()

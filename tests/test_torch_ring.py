@@ -134,10 +134,12 @@ REFUSED = [
     dict(mesh_tp=2), dict(mesh_tp=-1), dict(mesh_sp=2), dict(tp_degree=2), dict(kv_bits=3),
     dict(weight_quant_bits=3), dict(wire_pipeline=True),
 ]
-# refused until lanes and the wire pipeline were ported, served since (the
-# case ids are kept): lanes=2 loads a two-lane pool, wire_pipeline=True the
-# encode ring
-SERVED_NOW = ("lanes=2", "wire_pipeline=True")
+# refused until lanes, the wire pipeline, ring speculation, the ring prefix
+# cache and k-round schedules were ported, served since (the case ids are
+# kept): lanes=2 loads a two-lane pool, wire_pipeline=True the encode ring,
+# spec_lookahead=4 a speculating shard, prefix_cache=4 a 4-entry snapshot
+# store, layers=[0, 2] two rounds
+SERVED_NOW = ("lanes=2", "wire_pipeline=True", "spec_lookahead=4", "prefix_cache=4", "layers=[0, 2]")
 # once refused, now served: a window streams the tail shard's weights
 # (offload over its 2 layers); a residency of all its layers alone is fit
 STREAMING = [(dict(window_size=1), "offload"), (dict(residency_size=2), "fit")]
@@ -150,7 +152,8 @@ def _option_id(option: dict) -> str:
 @pytest.mark.parametrize("option", REFUSED, ids=_option_id)
 def test_refused_load_options_raise(tiny_llama_dir, option):
     """Each option this slice does not serve raises at load, naming itself,
-    and leaves the shard empty; the options served since (SERVED_NOW) load."""
+    and leaves the shard empty; the options served since (SERVED_NOW) load
+    as what they ask for."""
     from dnet_tpu_torch.shard.compute import ShardCapabilityError
     from dnet_tpu_torch.shard.runtime import ShardRuntime
 
@@ -159,8 +162,12 @@ def test_refused_load_options_raise(tiny_llama_dir, option):
     layers = kwargs.pop("layers", [0, 1])
     if _option_id(option) in SERVED_NOW:
         rt.load_model_core(str(tiny_llama_dir), layers, max_seq=MAX_SEQ, param_dtype="float32", **kwargs)
-        assert rt.compute.wire_pipeline == bool(option.get("wire_pipeline"))
-        assert (rt.compute.lane_pool.slots if rt.compute.lane_pool else 0) == option.get("lanes", 0)
+        c = rt.compute
+        assert c.wire_pipeline == bool(option.get("wire_pipeline"))
+        assert (c.lane_pool.slots if c.lane_pool else 0) == option.get("lanes", 0)
+        assert (c.spec_lookahead, c._spec_ok) == (option.get("spec_lookahead", 0), "spec_lookahead" in option)
+        assert (c.prefix_snaps.capacity if c.prefix_snaps is not None else 0) == option.get("prefix_cache", 0)
+        assert c.rounds == ([[0], [2]] if "layers" in option else [[0, 1]])
         rt.unload_model_core()
         return
     with pytest.raises(ShardCapabilityError, match="does not serve"):

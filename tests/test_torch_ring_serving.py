@@ -218,8 +218,9 @@ def test_topology_and_load_errors(ring, tiny_llama_dir):
     r = httpx.post(ring.base + "/v1/prepare_topology_manual", timeout=30, json={
         "model": str(tiny_llama_dir), "assignments": [{"instance": "nope", "layers": [0, 1, 2, 3]}]})
     assert r.status_code == 400 and "unknown instance" in r.text
-    # a refused shard option answers 422 from the shard itself (ring
-    # speculation; lanes, refused here until they were ported, serve)
+    # a refused shard option answers 422 from the shard itself (a mesh-backed
+    # shard; lanes and ring speculation, refused here until they were
+    # ported, serve)
     r = httpx.post(f"http://127.0.0.1:{ring.shards[0][1]}/load_model", timeout=60,
-                   json={"model_path": str(tiny_llama_dir), "layers": [0, 1], "spec_lookahead": 4})
-    assert r.status_code == 422 and "spec_lookahead" in r.text
+                   json={"model_path": str(tiny_llama_dir), "layers": [0, 1], "mesh_tp": 2})
+    assert r.status_code == 422 and "mesh_tp" in r.text

@@ -7,12 +7,12 @@ packages' API stacks prepare the same manual topology over recording
 shards (in-process HTTP apps that keep each body and answer 200), and the
 bodies must carry equal values, including the cases the rules turn off (a
 streaming assignment, lanes > 1 turning speculation off, gpt_oss's
-rotating cache turning speculation off).  A port shard refuses a
-spec_lookahead or prefix_cache above 0 at load, naming the setting (422
-through the port's API); since lanes were ported it serves them
-(a lane pool of that many rows), and refuses them, naming the setting,
-only where the reference's lane pool cannot serve: gpt_oss's flat layout
-(no gated KV writes) and a streamed shard.  On the shard side
+rotating cache turning speculation off).  A port shard serves each
+shipped setting (lanes: a lane pool of that many rows; spec_lookahead: a
+speculating shard; prefix_cache: a snapshot store of that many entries),
+and refuses lanes, naming the setting, only where the reference's lane
+pool cannot serve: gpt_oss's flat layout (no gated KV writes) and a
+streamed shard.  On the shard side
 DNET_SHARD_MESH_TP / _SP and DNET_TP are read as the reference's shard
 reads them, and refused at load with the setting named.
 """
@@ -173,10 +173,10 @@ def _port_body(tiny_llama_dir) -> dict:
                                          ("DNET_API_SPEC_LOOKAHEAD", "spec_lookahead"),
                                          ("DNET_API_PREFIX_CACHE", "prefix_cache")])
 def test_port_shard_refuses_the_shipped_setting_by_name(tiny_llama_dir, env, setting, key):
-    """The shipped value reaches the shard's load: spec_lookahead and
-    prefix_cache are refused naming their setting; lanes (served since they
-    were ported, the case kept) load a pool of that many lanes."""
-    from dnet_tpu_torch.shard.compute import ShardCapabilityError
+    """The shipped value reaches the shard's load.  Each was refused naming
+    its setting until it was ported (the case names kept); now lanes load a
+    pool of that many lanes, spec_lookahead a shard that speculates
+    (`_spec_ok`), prefix_cache a store of that many snapshots."""
     from dnet_tpu_torch.shard.runtime import ShardRuntime
 
     env({setting: "4"})
@@ -184,14 +184,13 @@ def test_port_shard_refuses_the_shipped_setting_by_name(tiny_llama_dir, env, set
     assert body[key] == 4
     opts = {k: body[k] for k in ("kv_bits", "weight_quant_bits", "mesh_tp", "mesh_sp", "tp_degree", *SETTINGS)}
     rt = ShardRuntime("s0", device="cpu")
-    if key == "lanes":
-        rt.load_model_core(str(tiny_llama_dir), body["layers"], max_seq=64, param_dtype="float32", **opts)
-        assert rt.compute.lane_pool.slots == 4
-        rt.unload_model_core()
-        return
-    with pytest.raises(ShardCapabilityError, match=setting):
-        rt.load_model_core(str(tiny_llama_dir), body["layers"], max_seq=64, param_dtype="float32", **opts)
-    assert rt.compute is None
+    rt.load_model_core(str(tiny_llama_dir), body["layers"], max_seq=64, param_dtype="float32", **opts)
+    c = rt.compute
+    served = {"lanes": c.lane_pool.slots if c.lane_pool else 0,
+              "spec_lookahead": c.spec_lookahead if c._spec_ok else 0,
+              "prefix_cache": c.prefix_snaps.capacity if c.prefix_snaps is not None else 0}
+    assert served == {k: 4 if k == key else 0 for k in SETTINGS}
+    rt.unload_model_core()
 
 
 @pytest.mark.parametrize("case", ["gpt_oss-flat", "streamed"])

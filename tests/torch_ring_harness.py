@@ -46,13 +46,27 @@ class Net:
         self.api = None  # (api adapter, its protocol module)
         self.bytes_to = {}  # addr -> hidden payload bytes received
         self.token_frames = []  # (addr, seq, auto_steps) of every token frame
+        self.continuations = []  # (sender, seq) of every token frame a shard sent (a tail's continuation)
+        self.hold = {}  # (addr, nonce, seq) -> asyncio.Event a frame's delivery waits for
 
     def add_shard(self, addr, adapter, proto):
         self.nodes[addr] = (adapter, proto)
 
+    async def send(self, sender: str, sender_proto, addr, data: bytes) -> bytes:
+        """A frame from `sender` (a shard's name, or "" for the API) to
+        `addr`."""
+        if sender:
+            frame = sender_proto.ActivationFrame.from_bytes(data)
+            if frame.dtype == "tokens":
+                self.continuations.append((sender, frame.seq))
+        return await self.deliver(addr, data)
+
     async def deliver(self, addr, data: bytes) -> bytes:
         adapter, proto = self.nodes[addr]
         frame = proto.ActivationFrame.from_bytes(data)
+        gate = self.hold.get((addr, frame.nonce, frame.seq))
+        if gate is not None:
+            await gate.wait()
         if frame.dtype == "tokens":
             self.token_frames.append((addr, frame.seq, frame.auto_steps))
         else:
@@ -61,7 +75,9 @@ class Net:
         return proto.StreamAck(nonce=frame.nonce, seq=frame.seq, ok=ok,
                                backpressure=msg == "backpressure", message=msg).to_bytes()
 
-    def ring_client(self, sender_proto):
+    def ring_client(self, sender_proto, sender: str = ""):
+        """A ring client class of the sender's package; `sender` names a
+        shard (the API's clients have none)."""
         net = self
 
         class Client:
@@ -69,7 +85,7 @@ class Net:
                 self.addr = addr
 
             def open_stream(self):
-                return BytesStreamCall(lambda b: net.deliver(self.addr, b), sender_proto.StreamAck)
+                return BytesStreamCall(lambda b: net.send(sender, sender_proto, self.addr, b), sender_proto.StreamAck)
 
             async def reset_cache(self, nonce="", timeout=10.0, epoch=0):
                 await net.nodes[self.addr][0].reset_cache(nonce)
@@ -103,7 +119,7 @@ def _port_shard(net, name):
     from dnet_tpu_torch.shard.runtime import ShardRuntime
 
     rt = ShardRuntime(name, device="cpu")
-    adapter = RingAdapter(rt, ring_client_factory=net.ring_client(port_proto),
+    adapter = RingAdapter(rt, ring_client_factory=net.ring_client(port_proto, sender=name),
                           callback_client_factory=net.callback_client(port_proto))
     net.add_shard(name, adapter, port_proto)
     return rt, adapter
@@ -114,13 +130,13 @@ def _ref_shard(net, name):
     from dnet_tpu.shard.runtime import ShardRuntime
 
     rt = ShardRuntime(name)
-    adapter = RingAdapter(rt, ring_client_factory=net.ring_client(ref_proto),
+    adapter = RingAdapter(rt, ring_client_factory=net.ring_client(ref_proto, sender=name),
                           callback_client_factory=net.callback_client(ref_proto))
     net.add_shard(name, adapter, ref_proto)
     return rt, adapter
 
 
-def _api(net, kind, auto_steps):
+def _api(net, kind, auto_steps, prefix_cache=0, max_seq=MAX_SEQ):
     if kind == "port":
         from dnet_tpu_torch.api.ring import RingApiAdapter
 
@@ -130,18 +146,20 @@ def _api(net, kind, auto_steps):
 
         proto = ref_proto
     api = RingApiAdapter(head_addr="s0", callback_url="grpc://api:1", shard_grpc_addrs=["s0", "s1"],
-                         ring_client_factory=net.ring_client(proto), max_seq_len=MAX_SEQ,
-                         auto_steps=auto_steps)
+                         ring_client_factory=net.ring_client(proto), max_seq_len=max_seq,
+                         auto_steps=auto_steps, prefix_cache=prefix_cache)
     net.api = (api, proto)
     return api
 
 
 async def _run_ring(model_dir, kinds=("port", "port"), api_kind="port", auto_steps=16, codec="lossless",
                     prompts=PROMPTS, steps=STEPS, decoding=None, kv_bits=0, weight_quant_bits=0,
-                    shard_opts=({}, {}), split=SPLIT):
+                    shard_opts=({}, {}), split=SPLIT, prefix_cache=0, drive=None):
     """Serve each prompt for `steps` tokens through a two-shard ring of the
     given kinds over the layer ranges `split` (`shard_opts`: each shard's
-    extra load options); returns (streams, net, shard runtimes)."""
+    extra load options; `prefix_cache`: the API adapter's), or, with
+    `drive`, whatever `await drive(api, net, shard runtimes)` serves;
+    returns (streams, net, shard runtimes)."""
     net = Net()
     make = {"port": _port_shard, "ref": _ref_shard}
     nodes = [make[k](net, f"s{i}") for i, k in enumerate(kinds)]
@@ -158,23 +176,14 @@ async def _run_ring(model_dir, kinds=("port", "port"), api_kind="port", auto_ste
         ))
         nodes[0][1].configure_topology("s1")
         nodes[1][1].configure_topology("s0")  # the tail's next is the head
-        api = _api(net, api_kind, auto_steps)
+        api = _api(net, api_kind, auto_steps, prefix_cache)
         await api.start()
-        streams = []
         dec = decoding or DecodingParams(temperature=0.0)
         try:
-            for i, prompt in enumerate(prompts):
-                nonce = f"r{i}"
-                await api.reset_cache(nonce)
-                got, send = [], list(prompt)
-                for step in range(steps):
-                    await api.send_tokens(nonce, send, dec, step, budget=steps - step)
-                    res = await api.await_token(nonce, step, timeout=60.0)
-                    assert not res.error, res.error
-                    got.append(res.token_id)
-                    send = [res.token_id]
-                await api.reset_cache(nonce)
-                streams.append(got)
+            if drive is not None:
+                streams = await drive(api, net, [rt for rt, _ in nodes])
+            else:
+                streams = [await _serve(api, f"r{i}", prompt, steps, dec) for i, prompt in enumerate(prompts)]
         finally:
             await api.shutdown()
         return streams, net, [rt for rt, _ in nodes]
@@ -182,6 +191,22 @@ async def _run_ring(model_dir, kinds=("port", "port"), api_kind="port", auto_ste
         for rt, adapter in nodes:
             await adapter.shutdown()
             rt.stop()
+
+
+async def _serve(api, nonce, prompt, steps, dec):
+    """One request through an API adapter: the prompt, then each sampled
+    token fed back, `steps` tokens in all (the nonce reset before and
+    after)."""
+    await api.reset_cache(nonce)
+    got, send = [], list(prompt)
+    for step in range(steps):
+        await api.send_tokens(nonce, send, dec, step, budget=steps - step)
+        res = await api.await_token(nonce, step, timeout=60.0)
+        assert not res.error, res.error
+        got.append(res.token_id)
+        send = [res.token_id]
+    await api.reset_cache(nonce)
+    return got
 
 
 def _local_streams(model_dir, decoding=None, prompts=PROMPTS, steps=STEPS, kv_bits=0, weight_quant_bits=0):
