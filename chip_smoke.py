@@ -242,7 +242,7 @@ the seventh path, for llama, deepseek_v2 and gpt_oss and under DNET_KV_BITS:
              DeepSeek-V2-Lite layers (the deepseek_step's params).
   sp_serve   the serve phase's checkpoint served with mesh sp = 2 on
              ["cuda:0", "cuda:0"]: its requests plus a ~2,100-token prompt
-             whose KV crosses the shard boundary at 2,048, 32 tokens each;
+             whose KV crosses the shard boundary at 2,048, 16 tokens each;
              in f32 the greedy text equal to a single-device f32 serve,
              bf16 served once (no single-device bf16 pass); 2 x 16 LSE
              launches per decode step and no other kernel;
@@ -425,7 +425,7 @@ Speculative decoding and the snapshot prefix cache (A4), the twelfth path:
                  and a two-turn chat, plain and with
                  DNET_API_SPEC_LOOKAHEAD=4 DNET_API_PREFIX_CACHE=4, a
                  self-draft (DNET_API_DRAFT_MODEL), and the batch_serve
-                 prompts (greedy, concurrent, 32 tokens) with --batch-slots 8 plain and
+                 prompts (greedy, concurrent, 16 tokens) with --batch-slots 8 plain and
                  speculating: tok/s, the first token's time, tokens a
                  verify block, visible-text agreement (reported), turn 2's
                  first token on a hit against the cold server and the
@@ -539,6 +539,35 @@ Ring speculation, the ring prefix cache and k-round schedules (A6.3):
                  decode rate beside the contiguous ring's.  Paid for by
                  gather_serve's and quant_serve's dense-slot bursts, cut to
                  32 tokens a request (BURST_CUT_TOKENS).
+UDP discovery (A6.5) and pipeline parallelism on the mesh engine (A7.4):
+  pp_parity      after sp_parity: the pp = 2 mesh engine with both stages on
+                 cuda:0 against the same engine on the CPU (plain versions),
+                 f32, max_seq 128: llama (4 layers) at pp 2 and pp 2 x sp 2,
+                 deepseek_v2 (3 layers, two laps) and gpt_oss (4 layers, a
+                 sliding / full pair a stage) at pp 2; a 69-token prompt's
+                 logits within 2e-3, 16 equal greedy tokens, and the exact
+                 launches of that generate in all and on each stage.
+  discovery_serve  after ring_spec_prefix_rounds: the Llama ring's shard
+                 pair announces over UDP from its start (loopback broadcast
+                 127.255.255.255, a private port and cluster); an API node
+                 with --discovery udp and no hostfile lists both shards on
+                 /v1/devices, solves the topology over them
+                 (/v1/prepare_topology), loads it and serves the serve's
+                 greedy chat, its text ring_serve's lossless text; both
+                 shards exit 0 when the pair stops.
+  pp_serve       after discovery_serve: the serve's streamed request on a
+                 single process (the rate's baseline), then the serve
+                 checkpoint with --mesh pp=2, both stages on cuda:0: the
+                 serve's greedy and
+                 streamed requests (the serve's texts), spec_serve's
+                 unbiased chat streamed with logprobs (_same_stream against
+                 the single process's); then with DNET_API_SPEC_LOOKAHEAD=4
+                 and DNET_API_PREFIX_CACHE=4 the unbiased chat (verify
+                 blocks) and a turn 2 that hits its snapshot.  Each stage's
+                 launches from /health (8 prefill launches a prompt and a
+                 verify block, 8 decode launches a plain step), its KV
+                 bytes, and the streamed decode rate beside the single
+                 process's.
 Every decode row also counts its device kernels per wrapper call
 (torch.profiler), which must be exactly 1: the splits and row groups of a
 (lane, KV head) merge inside the one launch.  Then the kernels summary line (every row
@@ -2057,6 +2086,8 @@ def phase_serve(prompt_text: str, n_prompt: int, ring_pair: "ShardPair") -> tupl
         sp_serve = phase_sp_serve(tmp, port, bodies, sp_long, sp_step)
         spec = phase_spec_serve(tmp, port)
         phase_ring_spec_prefix_rounds(tmp, chat, ring_texts, lossless, spec, ring_pair)
+        phase_discovery_serve(tmp, chat, ring_texts["lossless"][0], ring_pair)
+        phase_pp_serve(tmp, port, bodies, results, spec)
         phase_generate_cli(tmp, prompt_text)
     finally:
         shutil.rmtree(os.path.dirname(tmp), ignore_errors=True)
@@ -2185,6 +2216,12 @@ def _free_port() -> int:
         return s.getsockname()[1]
 
 
+def _free_udp_port() -> int:
+    with socket.socket(socket.AF_INET, socket.SOCK_DGRAM) as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
 def _get(url: str) -> dict:
     return json.loads(urllib.request.urlopen(url, timeout=10).read())
 
@@ -2255,10 +2292,19 @@ class ShardPair:
     `s1_env` added), each up with every launch count at 0, started once and
     loaded with one model after another by the ring passes given them (each
     load frees the last).  The processes start here and `wait_ready` waits
-    for them, so pairs can start side by side."""
+    for them, so pairs can start side by side.  With `announce` both also
+    announce themselves over UDP (loopback broadcast, on `udp_port` with
+    the `cluster` token, both private to the pair), else --discovery none.
+    `codes`: the processes' exit codes once stopped."""
 
-    def __init__(self, env: dict, logdir: str, tag: str, s1_env: Optional[dict] = None) -> None:
+    def __init__(self, env: dict, logdir: str, tag: str, s1_env: Optional[dict] = None,
+                 announce: bool = False) -> None:
         self.logdir = logdir
+        self.codes: list = []
+        self.udp_port = _free_udp_port()
+        self.cluster = f"smoke-{tag}-{os.getpid()}"
+        discovery = (["--discovery", "udp", "--udp-port", str(self.udp_port), "--udp-target", "127.255.255.255",
+                      "--cluster", self.cluster] if announce else ["--discovery", "none"])
         self.shards = [(f"s{i}", _free_port(), _free_port()) for i in range(2)]
         self.hostfile = os.path.join(logdir, f"hostfile-{tag}")
         with open(self.hostfile, "w") as f:
@@ -2272,7 +2318,7 @@ class ShardPair:
                     self.procs.append(subprocess.Popen(
                         [sys.executable, "-m", "dnet_tpu_torch.cli.shard", "--host", "127.0.0.1",
                          "--http-port", str(http), "--grpc-port", str(grpc_port), "--shard-name", name,
-                         "--device", "cuda"],
+                         "--device", "cuda", *discovery],
                         env=dict(env, **(s1_env or {})) if i == 1 else env, stdout=log, stderr=subprocess.STDOUT))
         except Exception:
             self.stop(failed=True)
@@ -2318,6 +2364,7 @@ class ShardPair:
             except subprocess.TimeoutExpired:
                 p.kill()
                 p.wait()
+        self.codes = [p.returncode for p in self.procs]
 
 
 def _ring_pass(pair: ShardPair, model_dir: str, codec: str, bodies: list, kv_bits: int = 0,
@@ -4474,9 +4521,10 @@ def phase_sp_family_serve(family: str, model_dir: str, port: int, model: str, pr
 SP_RANKS = (2, 4)
 LSE_POSITIONS = [0, 1023, 1024, 2047, 2048, 4095]
 SP_LONG_TOKENS = 2100
-# sp_serve's completions: 32 tokens, half the serve phase's, for the script's time
-SP_SERVE_TOKENS = 32
-SP_SERVE_POS = SP_LONG_TOKENS + SP_SERVE_TOKENS // 2  # the long request half-way through its output
+# sp_serve's completions: 16 tokens, a quarter of the serve phase's, for the
+# script's time (32 until the pp and discovery phases took their place)
+SP_SERVE_TOKENS = 16
+SP_SERVE_POS = SP_LONG_TOKENS + 16  # the LSE rows' position: the long request 16 tokens into its output
 SP_DEVICES = ["cuda:0", "cuda:0"]  # the script needs one card: both ranks share it
 
 
@@ -4904,7 +4952,7 @@ def phase_sp_serve(model_dir: str, port: int, bodies: list, long_body: dict, sp_
     """The serve phase's checkpoint served by the port's HTTP server through
     the model manager with a mesh of sp = 2 on ["cuda:0", "cuda:0"]: the
     serve phase's requests plus one streamed prompt of ~2,100 tokens,
-    SP_SERVE_TOKENS (32) tokens each.  In f32 the greedy text must equal a single-device f32
+    SP_SERVE_TOKENS (16) tokens each.  In f32 the greedy text must equal a single-device f32
     serve of the same checkpoint; in bf16 it is served once (sp prefill is
     the reference's dense path, the single device's the prefill kernel, so
     their texts part).  Every decode step
@@ -6742,6 +6790,8 @@ SPEC_LANE_T = (SPEC_L + 1, 8)
 SPEC_SCALAR_POS = (113, 2048)  # the single-sequence verify's shape (T = L + 1)
 SPEC_KERNEL_LAYERS = 3  # caches rotated per timed call: each > the 50 MB L2 at B = 8
 SPEC_TURN_TOKENS = PREFILL_CHUNK
+# spec_serve's batched bursts: 16 tokens a request (32 until the pp and discovery phases took their place)
+SPEC_BURST_TOKENS = MAX_TOKENS // 4
 
 
 def _spec_widths() -> list:
@@ -7099,14 +7149,14 @@ def phase_spec_serve(model_dir: str, port: int) -> dict:
     row["self_draft"] = summary(draft_res, launches, load_s, health, kinds[:3])
     row["self_draft"]["visible_text_agrees"] = draft_res[1]["content"] == plain_res[1]["content"]
     check(health["engine"].get("spec_draft") is True, "spec_serve: the draft model did not load")
-    # half of batch_serve's tokens a request: the script's time limit
-    burst = [{"model": model, "max_tokens": MAX_TOKENS // 2, "temperature": 0, "messages": b["messages"]}
+    # a quarter of batch_serve's tokens a request: the script's time limit
+    burst = [{"model": model, "max_tokens": SPEC_BURST_TOKENS, "temperature": 0, "messages": b["messages"]}
              for b in _batch_bodies()]
     bargs = _batch_args(model_dir, port)
 
     def burst_row(results, load_s):
         for i, r in enumerate(results):
-            check(r["status"] == 200 and r["tokens"] == MAX_TOKENS // 2, f"spec_serve burst {i}: {r['status']}")
+            check(r["status"] == 200 and r["tokens"] == SPEC_BURST_TOKENS, f"spec_serve burst {i}: {r['status']}")
         wall = max(r["s"] for r in results)  # the requests start together
         return {"load_s": load_s, "burst_s": wall, "aggregate_tokens_per_s": sum(r["tokens"] for r in results) / wall}
 
@@ -7138,6 +7188,241 @@ def phase_spec_serve(model_dir: str, port: int) -> dict:
     emit(row)
     torch.cuda.empty_cache()
     return {"launches": lanes_launches, "chat": chat, "plain_stream": plain_res[-1], "tokens": streams}
+
+
+# pp: the mesh engine's pipeline stages (A7.4), both on the one card
+PP_DEVICES = ["cuda:0", "cuda:0"]  # the script needs one card: both stages share it
+PP_PARITY_CASES = [("llama", 1), ("llama", 2), ("deepseek_v2", 1), ("gpt_oss", 1)]
+# /health engine.kv_bytes_per_stage at pp = 2, bf16, max_seq 4096: 8 layers x 4096 slots x 8 KV heads x (k 64 +
+# v 64) x 2 B
+PP_STAGE_KV_BYTES = 67_108_864
+
+
+def phase_pp_parity() -> dict:
+    """The pp = 2 mesh engine on the card (both stages on cuda:0; at sp = 2
+    four ranks there) against the same engine with every rank on the CPU
+    (plain versions), same f32 weights, max_seq 128: a 69-token prompt,
+    prefill logits within 2e-3, 16 equal greedy tokens, and the exact
+    launches of that generate, in all and on each stage: llama (4 layers)
+    at pp 2 (the prefill and decode kernels, 2 layers a stage) and pp 2 x
+    sp 2 (the LSE form, 2 ranks x 2 layers a stage), deepseek_v2 (3 layers,
+    its two laps: 0 dense and 1 moe on stage 0, 2 on stage 1; the MLA-width
+    kernels) and gpt_oss (4 layers: a sliding / full pair a stage, the
+    rotating and plain decode kernels) at pp 2.  Returns the launches by
+    kernel-line name, summed."""
+    from dnet_tpu_torch.core.types import DecodingParams
+    from dnet_tpu_torch.kernels import launch_counts, reset_launch_counts
+    from dnet_tpu_torch.parallel.engine import MeshEngine
+
+    models = {"llama": _small_model(layers=4), "deepseek_v2": _ds_small(), "gpt_oss": _oss_small(layers=4)}
+    prompt = [(13 * i) % 500 + 1 for i in range(69)]
+    steps, total = 15, {}
+    for family, sp in PP_PARITY_CASES:
+        cfg, window, edge = models[family]
+        kw = dict(pp=2, sp=sp, max_seq=128, param_dtype="float32")
+        engines = {dev: MeshEngine.from_params(cfg, window, edge, devices=[dev] * (2 * sp), **kw)
+                   for dev in ("cuda:0", "cpu")}
+        ranges = engines["cuda:0"].stages.stage_ranges()
+        logits = {dev: e.prefill("p", prompt).float().cpu() for dev, e in engines.items()}
+        err = (logits["cuda:0"] - logits["cpu"]).abs().max().item()
+        check(bool(torch.isfinite(logits["cuda:0"]).all()) and err <= 2e-3, f"pp parity {family} sp{sp} logits {err}")
+        streams, launches, stages = {}, None, None
+        for dev, e in engines.items():
+            e.end_session("p")
+            torch.cuda.synchronize()
+            reset_launch_counts()
+            before = e.stages.stage_launches()
+            streams[dev] = [r.token_id for r in e.generate(prompt, DecodingParams(), max_tokens=16, nonce="g")]
+            torch.cuda.synchronize()
+            if dev == "cuda:0":
+                launches = {k: v for k, v in launch_counts().items() if v}
+                stages = [{k: v - b.get(k, 0) for k, v in a.items() if v != b.get(k, 0)}
+                          for a, b in zip(e.stages.stage_launches(), before)]
+        check(streams["cuda:0"] == streams["cpu"], f"pp {family} sp{sp} greedy streams differ: {streams}")
+        # each stage's kernels: a decode launch a layer a step (at sp 2 one a rank), a prefill launch a layer
+        # a prompt at sp 1 (gpt_oss: its full layer's; under sp the prompt takes the dense sp attention)
+        want_stages = []
+        for layers in ranges:
+            n = len(layers)
+            want = {"llama": {"flash_prefill": n, "flash_decode": n * steps},
+                    "deepseek_v2": {"flash_prefill_mla": n, "flash_decode_mla": n * steps},
+                    "gpt_oss": {"flash_prefill": n // 2, "flash_decode": n // 2 * steps,
+                                "flash_decode_rotating": n // 2 * steps}}[family]
+            want_stages.append(want if sp == 1 else {"flash_decode_lse": sp * n * steps})
+        want_total = {}
+        for want in want_stages:
+            for k, v in want.items():
+                want_total[k] = want_total.get(k, 0) + v
+        check(stages == want_stages and launches == want_total,
+              f"pp parity {family} sp{sp} launches {launches} by stage {stages} != {want_stages}")
+        for k, v in launches.items():
+            total[k] = total.get(k, 0) + v
+        emit({"phase": "pp_parity", "family": family, "pp": 2, "sp": sp, "devices": ["cuda:0"] * (2 * sp),
+              "layers": cfg.num_hidden_layers, "stages": ranges, "max_seq": 128, "prompt_tokens": len(prompt),
+              "logits_max_err": err, "tol": 2e-3, "greedy_tokens": len(streams["cuda:0"]), "greedy_equal": True,
+              "launches": launches, "launches_by_stage": stages, "decode_steps": steps})
+        del engines
+    return total
+
+
+def phase_pp_serve(model_dir: str, port: int, bodies: list, serve_results: list, spec: dict) -> dict:
+    """The serve checkpoint (full-width Llama-3.2-1B, bf16) served with
+    --mesh pp=2, both stages on cuda:0 (layers 0-7 and 8-15).  Plain: the
+    serve's greedy and streamed requests, their texts the serve's, and
+    spec_serve's unbiased chat streamed with logprobs, held by _same_stream
+    to the single process's plain stream of it.  Then with
+    DNET_API_SPEC_LOOKAHEAD=4 and DNET_API_PREFIX_CACHE=4: the unbiased chat
+    (it speculates: verify blocks counted, tokens a block) and a 1-token
+    turn 2 resending it with its reply (a hit on its snapshot).  Each pass
+    reads its launches (counts reset before it) and each stage's from
+    /health: every stage the prefill kernel 8 times a prompt (and a verify
+    block) and the decode kernel 8 times a plain step, nothing else, the two
+    stages alike; /health's KV bytes per stage.  Reports the streamed
+    request's decode rate beside the single process's, served in this phase
+    just before."""
+    args = Namespace(host="127.0.0.1", http_port=port, model=model_dir, models_dir="", device="cuda",
+                     max_seq_len=S, param_dtype="bfloat16", max_concurrent=8, request_timeout_s=600.0,
+                     mesh="pp=2", mesh_devices=PP_DEVICES)
+    chat = spec["chat"]
+    row = {"phase": "pp_serve", "gpu": gpu_line(), "model": "Llama-3.2-1B (synthetic bf16 weights, seed 0)",
+           "pp": 2, "devices": PP_DEVICES}
+
+    def stage_checks(what: str, launches: dict, health: dict, prefills: int) -> dict:
+        engine = health["engine"]
+        stages = engine["stages"]
+        check(engine["pp"] == 2 and [s["layers"] for s in stages] == [list(RING_LAYERS[0]), list(RING_LAYERS[1])]
+              and engine["kv_bytes_per_stage"] == [PP_STAGE_KV_BYTES] * 2, f"pp_serve {what} /health {engine}")
+        by_stage = [{k: v for k, v in s["launches"].items() if v} for s in stages]
+        plain_steps = launches["flash_decode"] // LAYERS
+        want = {"flash_prefill": len(RING_LAYERS[0]) * prefills, "flash_decode": len(RING_LAYERS[0]) * plain_steps}
+        check({k: v for k, v in launches.items() if v} == {k: 2 * v for k, v in want.items()}
+              and by_stage == [want, want], f"pp_serve {what} launches {launches} by stage {by_stage} != {want} each")
+        return {"launches": {k: v for k, v in launches.items() if v}, "launches_by_stage": by_stage,
+                "plain_steps": plain_steps}
+
+    # the single process's streamed rate, in this phase (the serve phase's ran on a colder process)
+    single = asyncio.run(_drive(Namespace(**dict(vars(args), mesh="", mesh_devices=None)), bodies[1:2]))[0][0]
+    plain_stream = dict(chat, stream=True, logprobs=True, top_logprobs=2)
+    results, launches, load_s, health = asyncio.run(_drive(args, bodies[:2], streams=[plain_stream]))
+    for k, r, base in zip(SERVE_KINDS[:2], results, serve_results):
+        check(r["status"] == 200 and r["tokens"] == MAX_TOKENS and r["content"] == base["content"],
+              f"pp_serve {k}: {r['status']}, {r['tokens']} tokens, text equal {r['content'] == base['content']}")
+    check(single["content"] == serve_results[1]["content"], "pp_serve: the single process's streamed text moved")
+    streamed = results[1]
+    rate = (streamed["tokens"] - 1) / streamed["decode_s"]
+    single_rate = (single["tokens"] - 1) / single["decode_s"]
+    row["plain"] = {"load_s": load_s, "greedy_text_equal_single_process": True,
+                    "streamed_ttft_s": streamed["ttft_s"], "streamed_decode_tokens_per_s": rate,
+                    "single_process_streamed_decode_tokens_per_s": single_rate, "x_single_process": rate / single_rate,
+                    "unbiased_stream": _same_stream("pp_serve unbiased chat", results[2], spec["plain_stream"]),
+                    "kv_bytes_per_stage": health["engine"]["kv_bytes_per_stage"],
+                    **stage_checks("plain", launches, health, prefills=3)}
+    check(row["plain"]["plain_steps"] == 3 * (MAX_TOKENS - 1), f"pp_serve plain steps {row['plain']['plain_steps']}")
+
+    def turn2(results):
+        return dict(chat, max_tokens=1, messages=chat["messages"] + [
+            {"role": "assistant", "content": results[-1]["content"]},
+            {"role": "user", "content": "Say that again in other words."}])
+
+    with environ({"DNET_API_SPEC_LOOKAHEAD": str(SPEC_L), "DNET_API_PREFIX_CACHE": "4"}):
+        results, launches, load_s, health = asyncio.run(_drive(args, [chat], then=[turn2]))
+    check([(r["status"], r["tokens"]) for r in results] == [(200, MAX_TOKENS), (200, 1)],
+          f"pp_serve spec: {[(r['status'], r['tokens']) for r in results]}")
+    engine = health["engine"]
+    blocks, cache = engine["spec_blocks"], engine["prefix_cache"]
+    check(blocks > 0 and cache["hits"] == 1 and cache["stores"] >= 1, f"pp_serve spec / prefix: {engine}")
+    # every verify block is one prefill launch a layer, beside the two prompts (turn 2 prefills its suffix)
+    checks = stage_checks("spec", launches, health, prefills=2 + blocks)
+    check(checks["plain_steps"] + engine["spec_emitted"] == MAX_TOKENS - 1,
+          f"pp_serve spec: {checks['plain_steps']} plain steps + {engine['spec_emitted']} tokens from blocks")
+    row["spec_prefix"] = {"load_s": load_s, "lookahead": SPEC_L, "verify_blocks": blocks,
+                          "tokens_per_block": engine["spec_emitted"] / blocks, "prefix_cache": cache,
+                          "turn2_first_token_s": results[1]["s"], "chat_s": results[0]["s"],
+                          "chat_tokens_per_s": MAX_TOKENS / results[0]["s"],
+                          "text_agrees_with_plain": results[0]["content"] == spec["plain_stream"]["content"], **checks}
+    emit(row)
+    return row
+
+
+def _drive_discovery(args: Namespace, model_dir: str, body: dict, shard_urls: list) -> dict:
+    """The API node in this process under --discovery udp: wait until
+    /v1/devices lists both shards, solve the topology over them
+    (/v1/prepare_topology), load it and send `body`; returns the devices,
+    the solve, the result and each shard's launches over the request."""
+    from dnet_tpu_torch.api.server import serve_async
+
+    async def go() -> dict:
+        loop = asyncio.get_running_loop()
+        run = lambda fn, *a: loop.run_in_executor(None, fn, *a)  # noqa: E731
+        server = asyncio.ensure_future(serve_async(args))
+        base = f"http://127.0.0.1:{args.http_port}"
+        out: dict = {}
+        try:
+            t0 = time.perf_counter()
+            while True:
+                check(not server.done(), "discovery API exited during start-up")
+                try:
+                    devices = (await run(_get, base + "/v1/devices"))["devices"]
+                    if {d["instance"] for d in devices} >= {"s0", "s1"}:
+                        break
+                except OSError:
+                    pass
+                check(time.perf_counter() - t0 < 60, "the discovery API did not list both shards within 60 s")
+                await asyncio.sleep(0.2)
+            out["discover_s"] = time.perf_counter() - t0
+            out["devices"] = devices
+            t0 = time.perf_counter()
+            out["topology"] = (await run(_post_json, base + "/v1/prepare_topology", {"model": model_dir}))["topology"]
+            out["prepare_topology_s"] = time.perf_counter() - t0
+            await run(_post_json, base + "/v1/load_model", {"model": model_dir})
+            before = [(await run(_get, u + "/health"))["kernels"] for u in shard_urls]
+            out["result"] = await run(_post, base + "/v1/chat/completions", body)
+            after = [(await run(_get, u + "/health"))["kernels"] for u in shard_urls]
+            out["launches"] = [{k: v - b.get(k, 0) for k, v in a.items() if v != b.get(k, 0)}
+                               for a, b in zip(after, before)]
+        finally:
+            if not server.done():
+                signal.raise_signal(signal.SIGTERM)  # the server's own shutdown path
+            await server
+        return out
+
+    return asyncio.run(go())
+
+
+def phase_discovery_serve(model_dir: str, body: dict, ring_text: str, pair: "ShardPair") -> dict:
+    """The Llama ring's shard pair, announcing over UDP since it started
+    (loopback broadcast 127.255.255.255 on a private port, a cluster token
+    of its own), and an API node in this process with --discovery udp and
+    no hostfile: /v1/devices lists both shards (not the API, a manager),
+    /v1/prepare_topology solves over them (every layer once), the solved
+    ring loads and serves ring_serve's greedy body, whose text must equal
+    ring_serve's lossless text (bf16 hops carry the hidden state as it is,
+    so the split does not change it).  The shards' exit codes are checked
+    when the pair stops (main): 0 each."""
+    args = Namespace(
+        host="127.0.0.1", http_port=_free_port(), grpc_port=_free_port(), hostfile="", discovery="udp",
+        udp_port=pair.udp_port, udp_target="127.255.255.255", cluster=pair.cluster, model="", models_dir="",
+        device="cuda", max_seq_len=S, param_dtype="bfloat16", max_concurrent=8, request_timeout_s=600.0,
+    )
+    with environ({"DNET_WIRE_CODEC": "lossless", **RING_ENV}):
+        out = _drive_discovery(args, model_dir, body, pair.urls)
+    listed = {d["instance"]: d for d in out["devices"]}
+    check(set(listed) == {"s0", "s1"} and all(listed[n]["http_port"] == h and listed[n]["grpc_port"] == g
+                                              for n, h, g in pair.shards), f"discovery: /v1/devices {out['devices']}")
+    layers = [a["layers"] for a in out["topology"]["assignments"]]
+    check(sorted(x for ls in layers for x in ls) == list(range(LAYERS)), f"discovery: solved layers {layers}")
+    r = out["result"]
+    check(r["status"] == 200 and r["tokens"] == MAX_TOKENS and r["content"] == ring_text,
+          f"discovery: {r['status']}, {r['tokens']} tokens, text equal to ring_serve's {r['content'] == ring_text}")
+    decode = [k.get("flash_decode", 0) for k in out["launches"]]
+    check(sum(decode) == LAYERS * (MAX_TOKENS - 1), f"discovery: decode launches {out['launches']}")
+    row = {"phase": "discovery_serve", "gpu": gpu_line(), "udp_target": "127.255.255.255",
+           "udp_port": pair.udp_port, "cluster": pair.cluster, "discover_s": out["discover_s"],
+           "devices": sorted(listed), "prepare_topology_s": out["prepare_topology_s"],
+           "split": {a["instance"]: a["layers"] for a in out["topology"]["assignments"]},
+           "text_equal_ring_serve": True, "s": r["s"], "launches": out["launches"]}
+    emit(row)
+    return row
 
 
 def lane_summary(rows: dict, paths: dict) -> dict:
@@ -7231,6 +7516,8 @@ def main() -> int:
     main_path.update(phase_lse_kernels(SP_SERVE_POS))
     main_path.update(phase_lse_form_kernels(SP_SERVE_POS))
     sp_parity = phase_sp_parity()
+    # pipeline parallelism: both stages on cuda:0, GPU against CPU
+    phase_pp_parity()
     # the Llama ring passes' shard pair, kept for every family's ring; the
     # gpt_oss, deepseek_v2 and qwen3_moe serve checkpoints stay on disk for
     # the family rings (writing them again there would add ~30 s)
@@ -7238,7 +7525,7 @@ def main() -> int:
     ckpt_root = tempfile.mkdtemp(prefix="dnet-torch-smoke-served-")
     try:
         with ShardPair(dict(os.environ, DNET_SHARD_REPACK_DIR=os.path.join(ring_logdir, "repack"), **RING_ENV),
-                       ring_logdir, "llama") as ring_pair:
+                       ring_logdir, "llama", announce=True) as ring_pair:
             served, batched, quant, ring, sp_served, gathered, spec_served = phase_serve(prompt_text, n_prompt,
                                                                                           ring_pair)
             long_text = _batch_prompts()[BATCH_PROMPT_TOKENS.index(300)]
@@ -7260,6 +7547,8 @@ def main() -> int:
             # every family on one pair of ring shards
             phase_family_rings(prompt_text, {"gpt_oss": oss_ring, "deepseek_v2": ds_ring, "qwen3_moe": qw_ring},
                                ring_pair)
+        # the announcing shards (discovery_serve) shut down cleanly
+        check(ring_pair.codes == [0, 0], f"the Llama ring's shards exited with {ring_pair.codes}")
     finally:
         shutil.rmtree(ring_logdir, ignore_errors=True)
         shutil.rmtree(ckpt_root, ignore_errors=True)

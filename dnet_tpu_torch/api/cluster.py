@@ -1,9 +1,10 @@
 """ClusterManager: the shard table, profiling, and the current topology.
 
-Counterpart of dnet_tpu/api/cluster.py for hostfile rings: discovery's
-peers, parallel health checks, `profile_cluster` (each healthy shard's
-POST /profile, then each one's POST /measure_latency to its ring
-neighbour: the solver's inputs), and the installed topology.  Every
+Counterpart of dnet_tpu/api/cluster.py: discovery's peers (a hostfile's
+table, or UDP discovery's live one: utils/p2p.py), parallel health
+checks, `profile_cluster` (each healthy shard's POST /profile, then each
+one's POST /measure_latency to its ring neighbour: the solver's inputs),
+and the installed topology.  Every
 installed topology gets a strictly larger epoch from the `EpochClock`
 (membership/epoch.py), shipped to every shard in its load body: the fence
 against the shards a re-solve leaves out.

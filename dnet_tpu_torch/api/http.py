@@ -383,7 +383,7 @@ class ApiHTTPServer:
         (parallel/solver.py) and install it under a new epoch.  A shard
         whose profile failed stops the solve (502)."""
         if self.cluster_manager is None:
-            return _json_error(400, "not in ring mode (start with --hostfile)")
+            return _json_error(400, "not in ring mode (start with --hostfile or --discovery udp)")
         try:
             req = PrepareTopologyRequest.model_validate(await request.json())
         except (json.JSONDecodeError, ValidationError) as exc:
@@ -432,9 +432,9 @@ class ApiHTTPServer:
         ]})
 
     async def prepare_topology_manual(self, request: web.Request) -> web.Response:
-        """Manual layer assignment -> the ring topology (needs a hostfile)."""
+        """Manual layer assignment -> the ring topology (ring mode only)."""
         if self.cluster_manager is None:
-            return _json_error(400, "not in ring mode (start with --hostfile)")
+            return _json_error(400, "not in ring mode (start with --hostfile or --discovery udp)")
         try:
             req = PrepareTopologyManualRequest.model_validate(await request.json())
         except (json.JSONDecodeError, ValidationError) as exc:

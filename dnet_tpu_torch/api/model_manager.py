@@ -17,17 +17,19 @@ sequence and dense slots; off on paged slots and for rotating caches,
 with the reference's warnings) and DNET_API_DRAFT_MODEL, resolved as a
 model id is, its draft model (single sequence only; a draft that is not
 found logs a warning and the engine drafts by prompt lookup); a mesh
-(--mesh or DNET_MESH_*) with sp > 1 a sequence-parallel `MeshEngine` (parallel/engine.py) behind a
-`LocalAdapter`, its ranks on `mesh_devices` when the caller names them
-(else one CUDA card per rank, or the CPU under device 'cpu').  `kv_bits` (DNET_KV_BITS: 0, 16, 8 or 4)
+(--mesh or DNET_MESH_*) with pp or sp > 1 a `MeshEngine` (parallel/engine.py: pipeline
+stages of sequence-parallel ranks, with the prefix cache and prompt-lookup
+speculation as the single device has them) behind a `LocalAdapter`, its
+ranks on `mesh_devices` when the caller names them (else one CUDA card per
+rank, or the CPU under device 'cpu').  `kv_bits` (DNET_KV_BITS: 0, 16, 8 or 4)
 picks the KV cache's form for every engine, and DNET_API_WEIGHT_QUANT_BITS
 (8 / 4, groups of DNET_API_WEIGHT_QUANT_GROUP) its weights' form; a model
 id `<id>:int8` / `<id>:int4` (api/catalog.py `split_variant`) loads the
 base checkpoint at those bits (`<id>:bf16` at none), with the bits'
 default group unless one is set.  What is not ported is
 refused at load with `EngineCapabilityError` (HTTP 422), the setting named,
-instead of being dropped: under a mesh, --batch-slots > 1, the pp / tp / dp
-axes, and the prefix cache or speculation (ROADMAP A7.4).  A
+instead of being dropped: under a mesh, --batch-slots > 1 (ROADMAP A7.5)
+and the tp / dp axes.  A
 model id is a filesystem path or a subdirectory of `models_dir` (repo id
 slashes replaced by `--`, HF-cache style); nothing is downloaded.
 """
@@ -93,25 +95,13 @@ def active_mesh(mesh: Optional[dict]) -> Optional[dict]:
 
 def refuse_unported(settings: ApiSettings, batch_slots: int, mesh: Optional[dict] = None) -> None:
     """Raise EngineCapabilityError for the first setting that changes what
-    the reference serves and that the port does not serve yet (under a
-    mesh: batching, the prefix cache and speculation, ROADMAP A7.4; the
-    mesh's own axes and its family: parallel/engine.py check_mesh).
-    `batch_slots` is the load's, widened by the scheduler where it
-    serves."""
-    refused = [
-        (mesh is not None and batch_slots > 1,
-         f"--batch-slots {batch_slots} with mesh {mesh}: continuous batching on the mesh engine is not ported"),
-        (mesh is not None and settings.prefix_cache > 0,
-         f"DNET_API_PREFIX_CACHE={settings.prefix_cache} with mesh {mesh}: the mesh engine's sharded prefix "
-         "snapshots are not ported (ROADMAP A7.4)"),
-        (mesh is not None and settings.spec_lookahead > 0,
-         f"DNET_API_SPEC_LOOKAHEAD={settings.spec_lookahead}"
-         + (f" (DNET_API_DRAFT_MODEL={settings.draft_model!r})" if settings.draft_model else "")
-         + f" with mesh {mesh}: the mesh engine's ring verify block is not ported (ROADMAP A7.4)"),
-    ]
-    for cond, why in refused:
-        if cond:
-            raise EngineCapabilityError(f"{why}; unset it to serve")
+    the reference serves and that the port does not serve yet: under a
+    mesh, continuous batching (ROADMAP A7.5; the mesh's own axes and its
+    family: parallel/engine.py check_mesh).  `batch_slots` is the load's,
+    widened by the scheduler where it serves."""
+    if mesh is not None and batch_slots > 1:
+        raise EngineCapabilityError(f"--batch-slots {batch_slots} with mesh {mesh}: continuous batching on the "
+                                    "mesh engine is not ported; unset it to serve")
 
 
 class LocalModelManager:
@@ -170,8 +160,9 @@ class LocalModelManager:
                       kv_dtype=kv_dtype, kv_quant_bits=kv_quant_bits, weight_quant_bits=wq_bits,
                       weight_quant_group=wq_group)
         features = dict(prefix_cache_size=settings.prefix_cache, spec_lookahead=settings.spec_lookahead)
-        # the draft model: single-sequence serving only (batched engines
-        # draft by prompt lookup), resolved as a model id is
+        # the draft model: single-device, single-sequence serving only
+        # (batched and mesh engines draft by prompt lookup, as the
+        # reference's manager resolves them), resolved as a model id is
         draft_dir = None
         if settings.draft_model and settings.spec_lookahead > 0 and self.mesh is None and batch_slots <= 1:
             draft_dir = resolve_model_dir(settings.draft_model, self.models_dir)
@@ -183,7 +174,7 @@ class LocalModelManager:
             if self.mesh is not None:
                 engine = MeshEngine(
                     model_dir, sp=self.mesh.get("sp", 1), pp=self.mesh.get("pp", 0), tp=self.mesh.get("tp", 1),
-                    dp=self.mesh.get("dp", 1), devices=self.mesh_devices, **kwargs,
+                    dp=self.mesh.get("dp", 1), devices=self.mesh_devices, **features, **kwargs,
                 )
             elif batch_slots > 1:
                 engine = BatchedEngine(model_dir, slots=batch_slots, **features, **kwargs)

@@ -47,6 +47,7 @@ from dnet_tpu_torch.core.types import DeviceInfo, LayerAssignment, TopologyInfo
 from dnet_tpu_torch.membership import body_signature, split_delta
 from dnet_tpu_torch.shard.compute import contiguous_runs
 from dnet_tpu_torch.utils.logger import get_logger
+from dnet_tpu_torch.utils.network import primary_ip
 from dnet_tpu_torch.utils.tokenizer import load_tokenizer
 
 log = get_logger()
@@ -128,6 +129,7 @@ class RingModelManager:
         cluster_manager,
         models_dir: Optional[str] = None,
         api_callback_addr: str = "",
+        callback_port: int = 0,
         max_seq: int = 4096,
         param_dtype: str = "bfloat16",
         request_timeout_s: float = 600.0,
@@ -136,7 +138,10 @@ class RingModelManager:
         self.inference = inference
         self.cluster = cluster_manager
         self.models_dir = models_dir
-        self.api_callback_addr = api_callback_addr  # host:grpc_port for SendToken
+        # host:grpc_port the shards dial for SendToken; empty: this host's
+        # address facing each load's shards, on callback_port
+        self.api_callback_addr = api_callback_addr
+        self.callback_port = callback_port
         self.max_seq = max_seq
         self.param_dtype = param_dtype
         self.request_timeout_s = request_timeout_s
@@ -155,6 +160,15 @@ class RingModelManager:
         memory model)."""
         return weight_quant(self.inference.model_id or "", api_settings())[1]
 
+    def callback_address(self, topo: TopologyInfo) -> str:
+        """host:port of the API's token callback: the address set, else the
+        interface facing the topology's shards.  Resolved at each load, not
+        at start-up: a discovered peer table is still empty then, and an
+        empty table resolves to loopback, which no other host reaches."""
+        if self.api_callback_addr:
+            return self.api_callback_addr
+        return f"{primary_ip(d.host for d in topo.devices)}:{self.callback_port}"
+
     def load_bodies(self, topo: TopologyInfo, model_id: str, max_seq: int) -> dict:
         """instance -> its /load_model body; a quant variant's model path
         is its base checkpoint's, its bits the shards' weight_quant_bits."""
@@ -164,6 +178,7 @@ class RingModelManager:
         lanes = self._lanes_for(topo, model_dir)
         spec = 0 if lanes > 1 else self._spec_lookahead_for(topo, model_dir, max_seq)
         prefix = self._prefix_for(topo)
+        callback = self.callback_address(topo)
         bodies = {}
         for a in topo.assignments:
             dev, nxt = by_instance[a.instance], by_instance.get(a.next_instance)
@@ -177,7 +192,7 @@ class RingModelManager:
                 "residency_size": a.residency_size,
                 "kv_bits": topo.kv_bits,
                 "max_seq_len": max_seq,
-                "api_callback_address": f"grpc://{self.api_callback_addr}",
+                "api_callback_address": f"grpc://{callback}",
                 "param_dtype": self.param_dtype,
                 "weight_quant_bits": wq,
                 "mesh_tp": a.mesh_tp,
@@ -310,7 +325,7 @@ class RingModelManager:
         old = self.inference.adapter
         adapter = RingApiAdapter(
             head_addr=f"{head.host}:{head.grpc_port}",
-            callback_url=f"grpc://{self.api_callback_addr}",
+            callback_url=f"grpc://{self.callback_address(topo)}",
             shard_grpc_addrs=[
                 f"{by_instance[a.instance].host}:{by_instance[a.instance].grpc_port}" for a in topo.assignments
             ],

@@ -1,9 +1,12 @@
 """API-node process wiring: inference manager, model manager, HTTP server.
 
 Counterpart of dnet_tpu/api/server.py for single-process serving (on one
-device, or over sequence-parallel ranks with --mesh sp=N or DNET_MESH_SP)
-and, with --hostfile, for a ring of shards (no UDP discovery, fleet or
-TUI).
+device, or over pipeline stages and sequence-parallel ranks with --mesh
+pp=P,sp=N or DNET_MESH_PP / _SP) and, with --hostfile or --discovery udp,
+for a ring of shards (no fleet or TUI).  Under --discovery udp the API
+announces itself as a manager (utils/p2p.py `UdpDiscovery`, scoped by
+--cluster) and its ClusterManager reads the live peer table, as the
+reference's does; discovery stops at shutdown.
 In ring mode the API also listens on gRPC for the tail shard's token
 callbacks and runs the `RingFailureMonitor` (api/failure.py): health
 probes every DNET_API_HEALTH_INTERVAL_S, fast-fail and 503 once a shard
@@ -58,9 +61,10 @@ async def serve_async(args) -> None:
         request_timeout_s=args.request_timeout_s,
         max_concurrent=max_concurrent,
     )
-    cluster_manager = grpc_server = monitor = None
-    if getattr(args, "hostfile", ""):
+    cluster_manager = grpc_server = monitor = discovery = None
+    if getattr(args, "hostfile", "") or getattr(args, "discovery", "none") == "udp":
         model_manager, cluster_manager, grpc_server = await _ring_mode(args, inference)
+        discovery = cluster_manager.discovery
         from dnet_tpu_torch.api.failure import RingFailureMonitor
         from dnet_tpu_torch.config import api_settings
 
@@ -105,6 +109,8 @@ async def serve_async(args) -> None:
         else:
             log.warning("drain deadline hit; shutting down with work in flight")
     finally:
+        if hasattr(discovery, "stop"):  # UdpDiscovery (a hostfile's table has nothing to stop)
+            discovery.stop()
         await http.stop()
         if monitor is not None:
             await monitor.stop()
@@ -114,27 +120,43 @@ async def serve_async(args) -> None:
             await inference.adapter.shutdown()
 
 
+def _ring_discovery(args):
+    """The ring's peer table: the hostfile's, else (--discovery udp) a
+    manager-side UdpDiscovery of the --cluster's shards."""
+    from dnet_tpu_torch.utils.hostfile import StaticDiscovery
+    from dnet_tpu_torch.utils.p2p import DEFAULT_TARGET, DEFAULT_UDP_PORT, UdpDiscovery
+
+    if getattr(args, "hostfile", ""):
+        return StaticDiscovery.from_hostfile(args.hostfile)
+    discovery = UdpDiscovery(
+        "api", args.http_port, args.grpc_port, is_manager=True,
+        udp_port=getattr(args, "udp_port", DEFAULT_UDP_PORT),
+        target_addr=getattr(args, "udp_target", DEFAULT_TARGET), cluster=getattr(args, "cluster", "default"),
+    )
+    log.info("UDP discovery active (manager)")
+    return discovery
+
+
 async def _ring_mode(args, inference):
-    """The hostfile's shards, the ring model manager, and the gRPC server
-    the tail shard calls back with each sampled token."""
+    """The ring's shards (a hostfile's, or those UDP discovery hears), the
+    ring model manager, and the gRPC server the tail shard calls back with
+    each sampled token."""
     from dnet_tpu_torch.api.cluster import ClusterManager
     from dnet_tpu_torch.api.ring import ApiTokenServicer
     from dnet_tpu_torch.api.ring_manager import RingModelManager
     from dnet_tpu_torch.config import api_settings
     from dnet_tpu_torch.transport.grpc_transport import api_service_handlers, start_grpc_server
-    from dnet_tpu_torch.utils.hostfile import StaticDiscovery
-    from dnet_tpu_torch.utils.network import primary_ip
 
-    discovery = StaticDiscovery.from_hostfile(args.hostfile)
+    discovery = _ring_discovery(args)
     cluster_manager = ClusterManager(discovery)
-    callback_addr = api_settings().callback_addr or (
-        f"{primary_ip(d.host for d in discovery.peers())}:{args.grpc_port}"
-    )
+    # unset: each load resolves the address facing its shards
+    callback_addr = api_settings().callback_addr
     model_manager = RingModelManager(
         inference,
         cluster_manager,
         models_dir=args.models_dir,
         api_callback_addr=callback_addr,
+        callback_port=args.grpc_port,
         max_seq=args.max_seq_len,
         param_dtype=args.param_dtype,
         request_timeout_s=args.request_timeout_s,
@@ -149,8 +171,8 @@ async def _ring_mode(args, inference):
     grpc_server = await start_grpc_server(
         args.host, args.grpc_port, api_service_handlers(ApiTokenServicer(resolve))
     )
-    log.info("ring mode: %d shard(s) from %s, callbacks on %s", len(discovery.peers()), args.hostfile,
-             callback_addr)
+    log.info("ring mode: %d shard(s) from %s, callbacks on %s", len(discovery.peers()),
+             args.hostfile or "udp discovery", callback_addr or f"port {args.grpc_port}, host resolved at load")
     return model_manager, cluster_manager, grpc_server
 
 

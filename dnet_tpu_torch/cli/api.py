@@ -5,7 +5,9 @@
     DNET_KV_PAGED=1 DNET_KV_RAGGED=1 python -m dnet_tpu_torch.cli.api --model <dir> --batch-slots 8
     DNET_KV_BITS=8 python -m dnet_tpu_torch.cli.api --model <dir>    # int8 KV cache (4: int4)
     python -m dnet_tpu_torch.cli.api --hostfile <f>    # a ring of dnet-torch-shard nodes
+    python -m dnet_tpu_torch.cli.api --discovery udp --cluster T    # a ring of the shards announcing T
     python -m dnet_tpu_torch.cli.api --model <dir> --mesh sp=2    # KV sharded over 2 cards
+    python -m dnet_tpu_torch.cli.api --model <dir> --mesh pp=2    # the layers in 2 stages, one card each
 
 Runs on CUDA unless --device cpu is given, and refuses to start when CUDA
 is absent.  Every flag but --model, --device and --hostfile defaults to its
@@ -25,12 +27,19 @@ after DNET_API_HEALTH_FAIL_THRESHOLD failed probes, one every
 DNET_API_HEALTH_INTERVAL_S; --auto-recover then re-solves and reloads the
 ring over the healthy shards, DNET_REJOIN=1 lets a quarantined shard back
 in, and DNET_RESILIENCE_RESUME=1 resumes the requests a failure cut.
---mesh sp=N (default: DNET_MESH_PP/TP/DP/SP) serves over N sequence-parallel
-ranks, each holding max_seq / N KV slots: on CUDA one card per rank
-(cuda:0 .. cuda:N-1; the server refuses to start with fewer cards), with
---device cpu every rank on the CPU; llama, gpt_oss and deepseek_v2, and
-DNET_KV_BITS 8 / 4, serve under it.  The pp / tp / dp axes and
---batch-slots > 1 are refused (422) under a mesh.
+--discovery udp (without --hostfile) builds the ring from the shards that
+announce themselves over UDP (`dnet-torch-shard --cluster T`, the same
+--cluster token, --udp-port and --udp-target): /v1/devices,
+/v1/prepare_topology, the failure monitor and membership read the live
+peer table.
+--mesh pp=P,sp=N (default: DNET_MESH_PP/TP/DP/SP) serves the layers in P
+pipeline stages, each stage's KV cache sharded over N sequence-parallel
+ranks (max_seq / N slots each): on CUDA one card per rank (cuda:0 ..
+cuda:P*N-1, stage-major; the server refuses to start with fewer cards;
+pp=0 takes the cards there are), with --device cpu every rank on the CPU.
+Every family and DNET_KV_BITS 8 / 4 serve under it, and so do
+DNET_API_SPEC_LOOKAHEAD (prompt lookup) and DNET_API_PREFIX_CACHE.  The
+tp / dp axes and --batch-slots > 1 are refused (422) under a mesh.
 """
 
 from __future__ import annotations
@@ -40,6 +49,7 @@ import sys
 
 from dnet_tpu_torch.config import api_settings
 from dnet_tpu_torch.utils.logger import setup_logger
+from dnet_tpu_torch.utils.p2p import DEFAULT_TARGET, DEFAULT_UDP_PORT
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -66,7 +76,14 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--auto-recover", action="store_true",
                    help="ring mode: re-solve and reload over the healthy shards when one goes down")
     p.add_argument("--mesh", default="",
-                   help="sequence-parallel serving, e.g. 'sp=2' (default: DNET_MESH_PP/TP/DP/SP)")
+                   help="pipeline / sequence-parallel serving, e.g. 'pp=2', 'sp=2', 'pp=2,sp=2' "
+                   "(default: DNET_MESH_PP/TP/DP/SP)")
+    p.add_argument("--discovery", choices=["udp", "none"], default="none",
+                   help="discover shards over UDP broadcast instead of a hostfile")
+    p.add_argument("--udp-port", type=int, default=DEFAULT_UDP_PORT)
+    p.add_argument("--udp-target", default=DEFAULT_TARGET,
+                   help="announce target (loopback broadcast for single-host)")
+    p.add_argument("--cluster", default="default", help="cluster token scoping UDP discovery membership")
     return p
 
 
@@ -83,10 +100,12 @@ def main(argv: list[str] | None = None) -> int:
     try:
         mesh = active_mesh(resolve_mesh(args))
         if mesh is not None:
-            if args.hostfile:
-                raise ValueError("--mesh with --hostfile: shard-local meshes are not ported")
-            # one card per sp rank: refuse to start on a machine with fewer
-            rank_devices(mesh.get("sp", 1), args.device)
+            if args.hostfile or args.discovery == "udp":
+                raise ValueError("--mesh with a ring (--hostfile, --discovery udp): shard-local meshes are not "
+                                 "ported")
+            # one card per rank: refuse to start on a machine with fewer
+            # (pp = 0, "infer", takes the cards there are)
+            rank_devices((mesh.get("pp", 0) or 1) * mesh.get("sp", 1), args.device)
     except ValueError as exc:
         log.error("%s", exc)
         return 2

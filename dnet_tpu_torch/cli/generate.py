@@ -3,19 +3,20 @@
     python -m dnet_tpu_torch.cli.generate --model <dir> --prompts prompts.txt
     python -m dnet_tpu_torch.cli.generate --model <dir> --raw --max-tokens 32 < prompts.txt
     python -m dnet_tpu_torch.cli.generate --model <dir> --mesh sp=2    # KV over 2 sp ranks
+    python -m dnet_tpu_torch.cli.generate --model <dir> --mesh pp=2 --spec 4    # 2 stages, prompt lookup
     python -m dnet_tpu_torch.cli.generate --model <dir> --spec 4 --draft <draft dir>
 
 The counterpart of dnet_tpu/cli/generate.py (`dnet-generate`), over the
-port's single-sequence engine, or its sequence-parallel mesh engine for
---mesh sp=N.  Input: one prompt per line (a text file, or - for stdin),
+port's single-sequence engine, or its mesh engine for --mesh pp=P,sp=N
+(pipeline stages of sequence-parallel ranks; --spec drafts there by prompt
+lookup).  Input: one prompt per line (a text file, or - for stdin),
 wrapped in the chat template unless --raw.  Output: one JSONL row
 {"prompt", "text", "tokens", "tok_s"} per prompt.  Runs on CUDA unless
 --device cpu is given.  Refused with exit 2, as the reference refuses
 them: a model or draft model that is not found, --draft without --spec,
 and --draft with --mesh; and, where the reference would serve and the port
-does not yet: the pp / tp / dp mesh axes, --spec under a mesh, and a
-multi-process pod (DNET_MESH_NUM_PROCESSES > 1: the distributed runtime
-is ROADMAP A7).
+does not yet: the tp / dp mesh axes and a multi-process pod
+(DNET_MESH_NUM_PROCESSES > 1: the distributed runtime is ROADMAP A7).
 """
 
 from __future__ import annotations
@@ -42,10 +43,11 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--top-p", type=float, default=1.0)
     p.add_argument("--seed", type=int, default=None)
     p.add_argument("--param-dtype", default=s.param_dtype)
-    p.add_argument("--mesh", default="", help="sequence-parallel ranks, e.g. 'sp=2'")
+    p.add_argument("--mesh", default="", help="pipeline stages / sequence-parallel ranks, e.g. 'pp=2,sp=2'")
     p.add_argument("--raw", action="store_true", help="feed prompts verbatim (no chat template)")
     p.add_argument("--spec", type=int, default=0, metavar="L",
-                   help="speculative decoding lookahead (greedy only; 0 = off; single device only)")
+                   help="speculative decoding lookahead (greedy only; 0 = off) — works on the local engine and "
+                        "on --mesh engines alike")
     p.add_argument("--draft", default="", metavar="MODEL",
                    help="draft MODEL for speculation (checkpoint path or catalog id; needs --spec; without it "
                         "drafts come from prompt lookup)")
@@ -71,15 +73,12 @@ def _engine(args, model_dir, draft_dir):
                            spec_lookahead=args.spec, draft_dir=draft_dir)
     if draft_dir is not None:
         return "--draft is local-engine only; mesh engines draft by prompt-lookup"
-    if args.spec > 0:
-        return (f"--spec {args.spec} with --mesh {args.mesh}: speculation on the mesh engine is not ported "
-                "(ROADMAP A7.4)")
     from dnet_tpu_torch.parallel.engine import MeshEngine
 
     try:
         return MeshEngine(model_dir, pp=mesh.get("pp", 0), tp=mesh.get("tp", 1), dp=mesh.get("dp", 1),
                           sp=mesh.get("sp", 1), max_seq=args.max_seq, param_dtype=args.param_dtype,
-                          device=args.device)
+                          device=args.device, spec_lookahead=args.spec)
     except EngineCapabilityError as exc:
         return str(exc)
 

@@ -1,11 +1,17 @@
 """`dnet-torch-shard`: a ring shard of the port, serving a layer range.
 
     python -m dnet_tpu_torch.cli.shard --http-port 8081 --grpc-port 58081 [--device cpu]
+    python -m dnet_tpu_torch.cli.shard ... --cluster T --udp-target 127.255.255.255
 
-The API node (`dnet-torch-api --hostfile <f>`) assigns its layers and next
-hop through POST /load_model.  Runs on CUDA unless --device cpu is given,
-and refuses to start when CUDA is absent.  The other flags default to their
-DNET_SHARD_* settings, as the reference's.
+The API node (`dnet-torch-api --hostfile <f>`, or `--discovery udp` with
+the same --cluster) assigns its layers and next hop through POST
+/load_model.  By default (--discovery udp, as the reference's) the shard
+announces its name and ports over UDP broadcast to --udp-target on
+--udp-port, scoped by the --cluster token; when discovery cannot start
+(its library does not build or load, or the port cannot be bound) it logs
+a warning and serves hostfile rings only.  Runs on CUDA unless
+--device cpu is given, and refuses to start when CUDA is absent.  The
+other flags default to their DNET_SHARD_* settings, as the reference's.
 """
 
 from __future__ import annotations
@@ -15,6 +21,7 @@ import sys
 
 from dnet_tpu_torch.config import shard_settings
 from dnet_tpu_torch.utils.logger import setup_logger
+from dnet_tpu_torch.utils.p2p import DEFAULT_TARGET, DEFAULT_UDP_PORT
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -31,6 +38,12 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--shard-name", default=s.name, help="instance name (default shard-<host>-<grpc port>)")
     p.add_argument("--models-dir", default=s.models_dir, help="where model ids resolve")
     p.add_argument("--device", default="cuda", help="torch device (default cuda; 'cpu' to run there)")
+    p.add_argument("--discovery", choices=["udp", "none"], default="udp",
+                   help="announce this shard over UDP broadcast (native lib)")
+    p.add_argument("--udp-port", type=int, default=DEFAULT_UDP_PORT)
+    p.add_argument("--udp-target", default=DEFAULT_TARGET,
+                   help="announce target (loopback broadcast for single-host)")
+    p.add_argument("--cluster", default="default", help="cluster token scoping UDP discovery membership")
     return p
 
 

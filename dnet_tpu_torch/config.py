@@ -7,8 +7,7 @@ API node's host, ports, timeout, admission, models dir, max_seq_len,
 param dtype and batch slots, which its CLI takes as defaults; the ring's
 auto steps, lanes and callback address; the weight quantization and its
 group; and the prefix cache, speculation and draft model, which a ring
-ships to its shards and the port refuses where it does not serve them
-yet),
+ships to its shards),
 `AdmissionSettings` (DNET_ADMIT_QUEUE_DEPTH, DNET_ADMIT_QUEUE_TIMEOUT_S,
 DNET_REQUEST_DEADLINE_S, DNET_DRAIN_DEADLINE_S: the bounded admission
 queue, the default request deadline and the shutdown drain),
@@ -107,10 +106,11 @@ class ApiSettings:
     # >1 = continuous batching over that many slots (core/batch.py)
     batch_slots: int = 1
     # >0 = a prefix cache of that many entries (core/prefix_cache.py; under
-    # a mesh refused at load)
+    # a mesh each stage's and rank's snapshot on its own device)
     prefix_cache: int = 0
     # >0 = speculative decoding with that many drafted tokens, and a draft
-    # model's checkpoint for it (core/spec.py; under a mesh refused at load)
+    # model's checkpoint for it (core/spec.py; under a mesh prompt lookup
+    # drafts and the draft model is not read, as in the reference)
     spec_lookahead: int = 0
     draft_model: str = ""
     # decode grants on a ring: tokens the tail may feed straight back to
@@ -120,7 +120,8 @@ class ApiSettings:
     # off; the ring manager ships it where the topology and model allow,
     # and the shards refuse it until ring lanes are ported)
     ring_lanes: int = 0
-    # host:port the shards dial for token callbacks ("" = derived)
+    # host:port the shards dial for token callbacks ("" = the interface
+    # facing each load's shards, resolved at load)
     callback_addr: str = ""
     # ring failure monitor (api/failure.py): seconds between gRPC health
     # probes of every shard, and consecutive failed probes that mark a

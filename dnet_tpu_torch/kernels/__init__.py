@@ -58,6 +58,12 @@ def launch_counts() -> Dict[str, int]:
     return {name: getattr(fn, attr) for name, (fn, attr) in _counters().items()}
 
 
+def scope_counts(into: dict) -> Dict[str, int]:
+    """A launch scope's counts (kernels/build.py `launch_scope`) by kernel
+    name."""
+    return {name: into[key] for name, key in _counters().items() if key in into}
+
+
 def reset_launch_counts() -> None:
     from dnet_tpu_torch.kernels.build import reset_counter
 

@@ -20,6 +20,7 @@ runs, and nothing else would report it.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -192,14 +193,31 @@ def entry(name: str, symbol: str, argtypes: Sequence) -> ctypes._CFuncPtr:
 
 
 _COUNT_LOCK = threading.Lock()
+_SCOPE = threading.local()
 
 
 def count_launch(fn, counter: str = "launches") -> None:
-    """One launch on the wrapper's counter `counter`.  Under the wire
-    pipeline the compute thread and the event loop (the receive side's
-    dequant-scatter) both launch kernels, so the increment holds a lock."""
+    """One launch on the wrapper's counter `counter`, and in this thread's
+    open `launch_scope`, if any.  Under the wire pipeline the compute
+    thread and the event loop (the receive side's dequant-scatter) both
+    launch kernels, so the increment holds a lock."""
     with _COUNT_LOCK:
         setattr(fn, counter, getattr(fn, counter) + 1)
+        into = getattr(_SCOPE, "into", None)
+        if into is not None:
+            into[(fn, counter)] = into.get((fn, counter), 0) + 1
+
+
+@contextlib.contextmanager
+def launch_scope(into: dict):
+    """Count this thread's launches within the block in `into` too, by
+    (wrapper, counter) (kernels/__init__.py `scope_counts` names them):
+    the mesh engine's per-stage launches, one scope a stage's run."""
+    _SCOPE.into = into
+    try:
+        yield
+    finally:
+        _SCOPE.into = None
 
 
 def reset_counter(fn, counter: str = "launches") -> None:

@@ -9,9 +9,10 @@ is the model's layer order whenever every dense layer precedes every MoE
 layer, as the owning model guarantees.  The cache stays one flat stack:
 rows [:Ld] belong to the dense segment, rows [Ld:] to the moe segment.
 
-Left out, with the pipeline-parallel mesh they belong to (ROADMAP A7): the
-multi-lap `phase` that runs one segment per ring lap and
-`pad_mesh_segments`.  A streamed layer (`wrap_offload_layer`) is a window
+On a pipeline-parallel mesh the reference runs one segment per ring lap
+(`phase`) over stacks padded to a multiple of pp (`pad_mesh_segments`);
+the port places each lap's real layers as a stage run of their own
+(parallel/ring.py `stage_layers`), whose window is one segment.  A streamed layer (`wrap_offload_layer`) is a window
 of one segment holding one layer over its own one-layer cache.
 Weight quantization needs nothing of the layout: the engine quantizes each
 layer's params before `stack_layers` sorts them into segments.

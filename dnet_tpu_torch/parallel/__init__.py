@@ -1,1 +1,1 @@
-"""Sequence-parallel serving: the mesh spec, the sp ranks and MeshEngine."""
+"""Mesh serving: the mesh spec, the pipeline stages, the sp ranks and MeshEngine."""

@@ -1,43 +1,60 @@
-"""MeshEngine: one model served with its KV cache sharded over sequence-
-parallel (sp) ranks.
+"""MeshEngine: one model served over a pp x sp mesh of ranks: its layers in
+pipeline stages, each stage's KV cache sharded over sequence-parallel
+ranks.
 
-Counterpart of dnet_tpu/parallel/engine.py `MeshEngine` on its sp axis.
-The reference compiles the per-token program over a JAX mesh; the port
-keeps one controller over an sp group (parallel/mesh.py): the weights and
-everything outside attention run once on rank 0's device, each rank holds
-max_seq / sp KV slots on its own device, and each layer's attention runs
-per rank and merges with one log-sum-exp combine (ops/ring_attention.py).
-A decode row goes through the decode kernel's LSE form on every rank (over
-the cache's own codes when DNET_KV_BITS is 8 / 4); a prompt chunk through
-the dense sp attention, as in the reference.  The families whose models
-take an sp group (`supports_sp`: llama and the families derived from it,
-qwen2, qwen3, mixtral and qwen3_moe; gpt_oss; deepseek_v2) build their
-per-rank caches through their `init_kv_sp` hook: gpt_oss's paired cache
-with both halves flat (no ring, as the reference's `rotating=(sp == 1)`),
-deepseek_v2's asymmetric MLA cache.
+Counterpart of dnet_tpu/parallel/engine.py `MeshEngine` on its pp and sp
+axes.  The reference compiles the per-token program over a JAX mesh; the
+port keeps one controller (parallel/ring.py `StagePlan`): stage r holds the
+layers the reference's rank r holds, its weights on its first device, and
+a token's hidden state visits the stages in the reference's order, one
+`.to(device)` a hop; within a stage each sp rank holds max_seq / sp KV
+slots on its own device, and each layer's attention runs per rank and
+merges with one log-sum-exp combine (ops/ring_attention.py).  A decode row
+goes through the decode kernel on each stage (its LSE form on every rank
+under sp, over the cache's own codes when DNET_KV_BITS is 8 / 4); a prompt
+chunk or a verify block through the prefill kernel at sp = 1 and the dense
+sp attention under sp, as in the reference.  The embedding, the final norm
+and the LM head run on stage 0's first device (the home), where the
+sampler and the sessions' state live.  Every family serves: the families
+whose models take an sp group (`supports_sp`) under sp, and each stage
+builds its cache in its model's layout (`init_kv`, or `init_kv_sp` under
+sp: gpt_oss's paired cache with both halves flat, as the reference's
+`rotating=(sp == 1)`; deepseek_v2's asymmetric MLA cache).
 
 It keeps LocalEngine's session surface (new_session, prefill,
-decode_step, prefill_and_sample, the chunked decode, generate,
-token_result), which the serving adapter drives unchanged: those drivers
-are LocalEngine's own methods, borrowed as the reference borrows them;
-only the cache's construction and the forward pass differ.
+decode_step, prefill_and_sample, the chunked decode, decode_spec, generate,
+hidden_states, token_result), which the serving adapter calls unchanged:
+the class is a LocalEngine whose `_layers` is the stage walk and whose
+`_init_kv` builds a session's cache stage by stage.  So the prefix cache
+(`prefix_cache_size`) keeps each snapshot's every stage and rank on its
+own device and restores it there (core/prefix_cache.py clones in place),
+and speculation (`spec_lookahead`) drafts by prompt lookup and runs one
+[tok, drafts] verify block through the stages (core/spec.py
+`make_spec_step` over the walk, the reference's `make_ring_spec_fn`); a
+draft model never serves under a mesh, as in the reference.
 
-Not ported, and refused with EngineCapabilityError (HTTP 422) before any
-weight loads: pp > 1 (pp = 0, "infer", resolves to 1 here), tp > 1, dp > 1,
-and every family without `supports_sp`.
+pp = 0 ("infer") takes the devices the caller names, else the cards there
+are, over sp, and walks down to a divisor of a flat stack's layers (the
+reference's rule); a flat stack that pp does not divide raises the
+reference's ValueError.  Not ported, and refused with
+EngineCapabilityError (HTTP 422) before any weight loads: tp > 1, dp > 1,
+and sp > 1 for a family without `supports_sp`.
 """
 
 from __future__ import annotations
 
+import time
 from pathlib import Path
-from typing import List, Optional, Sequence, Union
+from typing import Iterable, List, Optional, Sequence, Union
 
 import torch
 
-from dnet_tpu_torch.core.engine import LocalEngine, tensor_bytes
+from dnet_tpu_torch.core.engine import LocalEngine
 from dnet_tpu_torch.models import ModelConfig, get_ring_model_cls
-from dnet_tpu_torch.parallel.mesh import SpGroup, rank_devices
+from dnet_tpu_torch.parallel.mesh import device_count, rank_devices
+from dnet_tpu_torch.parallel.ring import StagePlan, resolve_pp
 from dnet_tpu_torch.utils.checkpoint import Checkpoint
+from dnet_tpu_torch.utils.device import resolve_device
 from dnet_tpu_torch.utils.logger import get_logger
 
 log = get_logger()
@@ -52,10 +69,9 @@ def check_mesh(config: ModelConfig, pp: int, tp: int, dp: int, sp: int, max_seq:
 
     ported = sorted(name for name, cls in _REGISTRY.items() if cls.supports_sp)
     refused = [
-        (pp > 1, f"mesh pp={pp}: pipeline parallelism on the mesh engine is not ported"),
         (tp > 1, f"mesh tp={tp}: tensor parallelism on the mesh engine is not ported"),
         (dp > 1, f"mesh dp={dp}: data parallelism on the mesh engine is not ported"),
-        (not get_ring_model_cls(config.model_type).supports_sp,
+        (sp > 1 and not get_ring_model_cls(config.model_type).supports_sp,
          f"mesh sp={sp} for {config.model_type}: sequence parallelism is ported for {', '.join(ported)} only"),
     ]
     for cond, why in refused:
@@ -65,46 +81,13 @@ def check_mesh(config: ModelConfig, pp: int, tp: int, dp: int, sp: int, max_seq:
         raise ValueError(f"sp={sp} must divide max_seq={max_seq}")
 
 
-class MeshEngine:
-    """LocalEngine's serving surface over R sequence-parallel ranks."""
-
-    batch = 1
-    KV_TTL_S = LocalEngine.KV_TTL_S
-    DECODE_CHUNK_BUCKETS = LocalEngine.DECODE_CHUNK_BUCKETS
-    # the session, sampling and decode drivers are LocalEngine's: they call
-    # new_session, _forward and _init_kv, the three this class defines
-    _setup = LocalEngine._setup
-    _cast = LocalEngine._cast
-    _on_device = LocalEngine._on_device
-    _place = LocalEngine._place
-    _place_edge = LocalEngine._place_edge
-    weight_stats = LocalEngine.weight_stats
-    _build_kernels = LocalEngine._build_kernels
-    new_session = LocalEngine.new_session
-    _paged_ensure = LocalEngine._paged_ensure  # no ledger under a mesh (kv_pool stays None)
-    _paged_release = LocalEngine._paged_release
-    end_session = LocalEngine.end_session
-    sweep_sessions = LocalEngine.sweep_sessions
-    prefill = LocalEngine.prefill
-    _tokens = LocalEngine._tokens
-    # no prefix cache, speculation or draft under a mesh (the model
-    # manager refuses them: ROADMAP A7.4); prefill and generate ask
-    _init_features = LocalEngine._init_features
-    _commit_prompt_hist = LocalEngine._commit_prompt_hist
-    _advance_draft = LocalEngine._advance_draft
-    spec_eligible = LocalEngine.spec_eligible
-    _sample_with_counts = LocalEngine._sample_with_counts
-    prefill_and_sample = LocalEngine.prefill_and_sample
-    decode_step = LocalEngine.decode_step
-    decode_chunk_dispatch = LocalEngine.decode_chunk_dispatch
-    pending_chunks = LocalEngine.pending_chunks
-    pending_width = LocalEngine.pending_width
-    decode_chunk_read = LocalEngine.decode_chunk_read
-    decode_chunk = LocalEngine.decode_chunk
-    generate = LocalEngine.generate
-    hidden_states = LocalEngine.hidden_states
-    token_result = staticmethod(LocalEngine.token_result)
-    close = LocalEngine.close
+class MeshEngine(LocalEngine):
+    """LocalEngine's serving surface over pp pipeline stages of sp
+    sequence-parallel ranks each.  Its session, sampling, speculation and
+    decode methods are LocalEngine's, which reach the model through the
+    ones this class overrides: construction, `_init_kv`, `_layers` and
+    `stats`.  It runs no streamed weights, draft model or paged pool
+    (kv_pool stays None), so LocalEngine's paths for those stay idle."""
 
     def __init__(
         self,
@@ -121,27 +104,35 @@ class MeshEngine:
         devices: Optional[Sequence[Union[str, torch.device]]] = None,
         weight_quant_bits: int = 0,
         weight_quant_group: int = 0,
+        prefix_cache_size: int = 0,
+        spec_lookahead: int = 0,
     ):
-        """`devices`: the ranks' devices, one per rank (a device may repeat:
-        ranks then share it); by default parallel/mesh.py `rank_devices`
-        over `device` (CUDA: one card per rank, refused with fewer cards;
-        'cpu': every rank on the CPU).  Weights (quantized under
-        `weight_quant_bits`, as LocalEngine's) live on the home device: the
-        ranks split the cache, not the weights, so every rank reads the same
-        codes."""
-        config = ModelConfig.from_hf(Checkpoint(model_dir).config)
-        group = _group(config, pp, tp, dp, sp, max_seq, device, devices)
-        # no paged ledger: mesh caches are sharded, as in the reference
-        LocalEngine.__init__(self, model_dir, max_seq=max_seq, param_dtype=param_dtype, device=group.home,
-                             kv_dtype=kv_dtype, kv_quant_bits=kv_quant_bits, kv_paged=False,
-                             weight_quant_bits=weight_quant_bits, weight_quant_group=weight_quant_group)
-        self._mesh_ready(group)
+        """`devices`: the ranks' devices, pp x sp of them, stage-major (a
+        device may repeat: ranks then share it); by default
+        parallel/mesh.py `rank_devices` over `device` (CUDA: one card per
+        rank, refused with fewer cards; 'cpu': every rank on the CPU).  Each
+        stage's weights (quantized under `weight_quant_bits`, as
+        LocalEngine's) live on its first device; the sp ranks split the
+        cache, not the weights.  `prefix_cache_size` / `spec_lookahead` as
+        LocalEngine's (prompt lookup: no draft model under a mesh)."""
+        self.ckpt = Checkpoint(model_dir)
+        self.config = ModelConfig.from_hf(self.ckpt.config)
+        devs = self._start(pp, tp, dp, sp, max_seq, param_dtype, kv_dtype, kv_quant_bits, device, devices,
+                           weight_quant_bits, weight_quant_group, prefix_cache_size, spec_lookahead)
+        t0 = time.perf_counter()
+        m = self.model
+        self._place_stages(m.map_layer(self._on_device(self.ckpt.load_layer_raw(a))) for a in m.layers)
+        self.edge_params = self._place_edge(m.map_edge(self._on_device(self.ckpt.load_edge_raw())))
+        self.ckpt.close()
+        log.info("[PROFILE] loaded %d layers (%s, pp=%d) in %.2fs", len(m.layers), self.config.model_type,
+                 self.pp, time.perf_counter() - t0)
+        self._mesh_ready(devs)
 
     @classmethod
     def from_params(
         cls,
         config: ModelConfig,
-        window_params: List[dict],
+        window_params: Iterable[dict],
         edge_params: dict,
         *,
         sp: int = 2,
@@ -156,64 +147,103 @@ class MeshEngine:
         devices: Optional[Sequence[Union[str, torch.device]]] = None,
         weight_quant_bits: int = 0,
         weight_quant_group: int = 0,
+        prefix_cache_size: int = 0,
+        spec_lookahead: int = 0,
     ) -> "MeshEngine":
         """A mesh engine around parameters already in the port's form (one
-        dict per layer, e.g. from models/convert.py `from_jax_params`)."""
-        group = _group(config, pp, tp, dp, sp, max_seq, device, devices)
-        self = LocalEngine.from_params.__func__(
-            cls, config, window_params, edge_params, max_seq=max_seq, param_dtype=param_dtype,
-            device=group.home, kv_dtype=kv_dtype, kv_quant_bits=kv_quant_bits, kv_paged=False,
-            weight_quant_bits=weight_quant_bits, weight_quant_group=weight_quant_group,
-        )
-        self._mesh_ready(group)
+        dict per layer, in layer order, e.g. from models/convert.py
+        `from_jax_params`; a generator places each layer as it comes)."""
+        self = cls.__new__(cls)
+        self.ckpt = None
+        self.config = config
+        devs = self._start(pp, tp, dp, sp, max_seq, param_dtype, kv_dtype, kv_quant_bits, device, devices,
+                           weight_quant_bits, weight_quant_group, prefix_cache_size, spec_lookahead)
+        self._place_stages(window_params)
+        self.edge_params = self._place_edge(edge_params)
+        self._mesh_ready(devs)
         return self
 
-    def _mesh_ready(self, group: SpGroup) -> None:
-        self.sp_group = group
-        self.sp = group.size
-        self.kv_bytes_per_rank = [0] * group.size
-        log.info("MeshEngine: %s over sp=%d (%s), %d KV slots per rank", self.config.model_type, self.sp,
-                 ", ".join(str(d) for d in group.devices), self.max_seq // self.sp)
+    def _start(self, pp, tp, dp, sp, max_seq, param_dtype, kv_dtype, kv_quant_bits, device, devices,
+               weight_quant_bits, weight_quant_group, prefix_cache_size, spec_lookahead) -> list:
+        """Check the mesh (before any weight loads), resolve pp and the
+        ranks' devices, and set up LocalEngine's state on the home device
+        with the whole model's ring model (the edge ops, the sampler) and
+        the stage plan; returns the ranks' devices."""
+        check_mesh(self.config, pp, tp, dp, sp, max_seq)
+        whole = get_ring_model_cls(self.config.model_type)(self.config, range(self.config.num_hidden_layers),
+                                                           torch.device("cpu"))
+        named = None if devices is None else [torch.device(d) for d in devices]
+        pp = resolve_pp(pp, sp, len(named) if named is not None else device_count(), whole)
+        # the first pp x sp of the named devices, as the reference's build_mesh takes them
+        devs = named[: pp * sp] if named is not None else rank_devices(pp * sp, device)
+        if any(d.type == "cuda" for d in devs) and not torch.cuda.is_available():
+            raise RuntimeError("CUDA is not available; pass CPU devices to run the mesh's ranks there")
+        self.device = resolve_device(devs[0]) if devs else torch.device("cpu")
+        self.stages = StagePlan(self.config, whole, pp, sp, devs)
+        self.pp, self.sp = pp, sp
+        self._setup(max_seq, param_dtype, None, kv_dtype, kv_quant_bits, weight_quant_bits, weight_quant_group)
+        self.spec_lookahead = int(spec_lookahead)
+        self._init_features(prefix_cache_size, False)
+        return devs
+
+    def _place_stages(self, per_layer: Iterable[dict]) -> None:
+        """Each layer's params (in layer order, as mapped) placed as
+        LocalEngine places them (quantized, cast) on the home device, then
+        moved to its stage's device; each run's window stacked by its own
+        model."""
+        runs = self.stages.runs
+        placed: List[list] = [[] for _ in runs]
+        for a, p in zip(self.model.layers, per_layer):
+            i = self.stages.run_of[a]
+            placed[i].append(_move(self._place(p), runs[i].device))
+        self.window_params = [run.model.stack_layers(ps) for run, ps in zip(runs, placed)]
+
+    def _mesh_ready(self, devs: list) -> None:
+        self.devices = devs
+        # /health's bytes of one session's cache, by stage and by rank (set
+        # by each new session's cache)
+        self.kv_bytes_per_stage = [0] * self.pp
+        self.kv_bytes_per_rank = [0] * (self.pp * self.sp)
+        self._build_kernels()
+        log.info("MeshEngine: %s over pp=%d sp=%d (%s), stages %s, %d KV slots per rank", self.config.model_type,
+                 self.pp, self.sp, ", ".join(str(d) for d in devs), self.stages.stage_ranges(),
+                 self.max_seq // self.sp)
 
     def _init_kv(self) -> list:
-        """One session's cache: a shard of max_seq / sp slots per rank, in
-        the model's layout (`init_kv_sp`)."""
-        kv = self.model.init_kv_sp(len(self.model.layers), self.batch, self.max_seq, self.kv_dtype,
-                                   self.kv_quant_bits, self.sp_group.devices)
-        self.kv_bytes_per_rank = [tensor_bytes(c) for c in kv]
-        return kv
+        """One session's cache: each run's on its stage (under sp a shard of
+        max_seq / sp slots per rank), in its model's layout; a one-run plan's
+        cache is that run's own (the sp ranks' list)."""
+        kv = self.stages.init_kv(self.batch, self.max_seq, self.kv_dtype, self.kv_quant_bits)
+        per_rank = self.kv_bytes_per_rank = self.stages.kv_bytes_per_rank(kv)
+        self.kv_bytes_per_stage = [sum(per_rank[r * self.sp : (r + 1) * self.sp]) for r in range(self.pp)]
+        return kv[0] if len(kv) == 1 else kv
 
-    def _forward(self, tokens: torch.Tensor, kv: list, pos: int, last_idx: int) -> torch.Tensor:
-        """LocalEngine._forward with the sp group threaded to the layers."""
-        m = self.model
-        x = m.embed(self.edge_params, tokens)
-        x, _ = m.apply_window(self.window_params, x, kv, pos, t_real=last_idx + 1, sp=self.sp_group)
-        x_last = m.normalize(self.edge_params, x[:, last_idx : last_idx + 1])
-        return m.lm_project(self.edge_params, x_last)[:, 0]
-
-    def _final_hidden(self, tokens: torch.Tensor, kv: list, t_real: int) -> torch.Tensor:
-        """LocalEngine._final_hidden with the sp group threaded to the layers."""
-        m = self.model
-        x, _ = m.apply_window(self.window_params, m.embed(self.edge_params, tokens), kv, 0, t_real=t_real,
-                              sp=self.sp_group)
-        return m.normalize(self.edge_params, x)
+    def _layers(self, x: torch.Tensor, kv, pos, t_real: Optional[int]) -> torch.Tensor:
+        """Every layer, stage by stage (parallel/ring.py `StagePlan.walk`);
+        x comes back on the home device."""
+        kv = [kv] if len(self.stages.runs) == 1 else kv
+        return self.stages.walk(self.window_params, x, kv, pos, t_real, self.device)
 
     def stats(self) -> dict:
-        """The weights' and the KV cache's form, the sp ranks' devices, the
-        weights' bytes and the bytes one session's cache holds, in all and
-        per rank (for /health)."""
-        return {"kv_dtype": self.kv_dtype, "kv_quant_bits": self.kv_quant_bits, "kv_bytes": self.kv_bytes,
-                "sp": self.sp, "devices": [str(d) for d in self.sp_group.devices],
-                "kv_bytes_per_rank": list(self.kv_bytes_per_rank), **self.weight_stats()}
+        """LocalEngine's /health block (the weights' and the cache's forms,
+        the bytes they hold, the prefix cache's and speculation's counters)
+        with the mesh: pp, sp, the ranks' devices, each stage's layers (in
+        the order they run there), devices, KV bytes and kernel launches
+        (by counter, since load), and each rank's KV bytes (stage-major)."""
+        out = super().stats()
+        out.update(pp=self.pp, sp=self.sp, devices=[str(d) for d in self.devices],
+                   kv_bytes_per_rank=list(self.kv_bytes_per_rank), kv_bytes_per_stage=list(self.kv_bytes_per_stage),
+                   stages=[{"layers": layers, "devices": [str(d) for d in devs], "kv_bytes": nbytes,
+                            "launches": launches}
+                           for layers, devs, nbytes, launches in zip(self.stages.stage_ranges(),
+                                                                     self.stages.stage_devices,
+                                                                     self.kv_bytes_per_stage, self.stages.stage_launches())])
+        return out
 
 
-def _group(config, pp, tp, dp, sp, max_seq, device, devices) -> SpGroup:
-    """Check the mesh (before any weight loads), then its sp group."""
-    check_mesh(config, pp, tp, dp, sp, max_seq)
-    devs = list(devices) if devices is not None else rank_devices(sp, device)
-    if len(devs) != sp:
-        raise ValueError(f"mesh sp={sp} needs {sp} rank devices, got {len(devs)}")
-    group = SpGroup(devs)
-    if any(d.type == "cuda" for d in group.devices) and not torch.cuda.is_available():
-        raise RuntimeError("CUDA is not available; pass CPU devices to run the sp ranks there")
-    return group
+def _move(tree, device: torch.device):
+    """A layer's params (tensors, quantized {"q" | "q4", "s"} dicts) on
+    `device`; no copy where they lie there already."""
+    if isinstance(tree, torch.Tensor):
+        return tree.to(device)
+    return {k: _move(v, device) for k, v in tree.items()}

@@ -1,13 +1,15 @@
-"""The serving mesh: the --mesh spec, the sequence-parallel ranks' devices
-and the reductions of their cross-rank combine.
+"""The serving mesh: the --mesh spec, the devices of a pp x sp mesh's
+ranks, and the reductions of the sequence-parallel cross-rank combine.
 
-Counterpart of dnet_tpu/parallel/mesh.py for sequence parallelism (sp)
-only.  The reference runs one program over a JAX `Mesh`; the port keeps
-its single controller: an sp group is a list of R torch devices, one per
-rank, and rank r owns KV slots [r * S_local, (r + 1) * S_local) on its own
-device (S_local = max_seq / R).  Everything outside attention runs once,
-on rank 0's device (the reference replicates it over sp; the result is
-the same).  Per layer, q goes to each rank's device, each rank computes
+Counterpart of dnet_tpu/parallel/mesh.py for the pipeline (pp) and
+sequence-parallel (sp) axes.  The reference runs one program over a JAX
+`Mesh`; the port keeps its single controller: a mesh is a list of pp x sp
+torch devices, stage-major (parallel/ring.py places pipeline stage r's
+layers on its first), and within a stage an sp group is its R = sp
+devices, one per rank, where rank r owns KV slots [r * S_local,
+(r + 1) * S_local) on its own device (S_local = max_seq / R).  Everything
+outside attention runs once, on rank 0's device (the reference replicates
+it over sp; the result is the same).  Per layer, q goes to each rank's device, each rank computes
 its attention partials there, and the partials come back to rank 0 for
 the combine, where the reference's `lax.pmax` / `lax.psum` become a max
 and sums over the gathered per-rank tensors (`SpGroup.pmax`,
@@ -48,21 +50,29 @@ def parse_mesh(spec: str) -> Optional[Dict[str, int]]:
     return out
 
 
-def rank_devices(sp: int, device: Optional[Union[str, torch.device]] = None) -> List[torch.device]:
-    """The sp ranks' devices when the caller names none: on CUDA (the
-    default) one card per rank, cuda:0 .. cuda:sp-1, refusing a machine
-    with fewer cards as the reference's build_mesh does; on the CPU
-    (device 'cpu') every rank on the CPU.  Ranks are never co-located on
-    one card here: a caller that wants that passes the list itself."""
+def rank_devices(n: int, device: Optional[Union[str, torch.device]] = None) -> List[torch.device]:
+    """The devices of a mesh's n = pp x sp ranks when the caller names
+    none, stage-major (stage r's sp ranks are entries r * sp .. r * sp +
+    sp - 1): on CUDA (the default) one card per rank, cuda:0 .. cuda:n-1,
+    refusing a machine with fewer cards as the reference's build_mesh
+    does; on the CPU (device 'cpu') every rank on the CPU.  Ranks are never
+    co-located on one card here: a caller that wants that passes the list
+    itself (a device may repeat there)."""
     dev = torch.device("cuda" if device is None else device)
     if dev.type == "cpu":
-        return [torch.device("cpu")] * sp
+        return [torch.device("cpu")] * n
     if dev.type != "cuda":
-        raise ValueError(f"sp ranks run on CUDA or the CPU, not {dev}")
-    have = torch.cuda.device_count() if torch.cuda.is_available() else 0
-    if sp > have:
-        raise ValueError(f"mesh needs {sp} devices, have {have}")
-    return [torch.device("cuda", i) for i in range(sp)]
+        raise ValueError(f"mesh ranks run on CUDA or the CPU, not {dev}")
+    have = device_count()
+    if n > have:
+        raise ValueError(f"mesh needs {n} devices, have {have}")
+    return [torch.device("cuda", i) for i in range(n)]
+
+
+def device_count() -> int:
+    """The cards a mesh may take when the caller names no devices (none
+    without CUDA): pp = 0 ("infer") counts them."""
+    return torch.cuda.device_count() if torch.cuda.is_available() else 0
 
 
 class SpGroup:

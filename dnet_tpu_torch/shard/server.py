@@ -1,11 +1,14 @@
 """Shard-node process wiring: ShardRuntime + RingAdapter + gRPC + HTTP.
 
-Counterpart of dnet_tpu/shard/server.py for hostfile rings (no UDP
-discovery or TUI).  A malformed DNET_CHAOS stops the shard at start
-(resilience/chaos.py `validate_startup`).  `update_topology` is a delta
+Counterpart of dnet_tpu/shard/server.py (no TUI).  A malformed DNET_CHAOS
+stops the shard at start (resilience/chaos.py `validate_startup`).  With
+--discovery udp (the default) the shard announces its id and ports over
+UDP (utils/p2p.py `UdpDiscovery`) once it serves; when the socket cannot
+bind it warns and serves hostfile rings only, as the reference's does.  `update_topology` is a delta
 reload's shard half: the weights stay, the per-request state goes, the new
 epoch is pinned and the next hop rewired.  `serve_async` runs until
-SIGINT/SIGTERM and shuts down in order: HTTP, gRPC, adapter, runtime.
+SIGINT/SIGTERM and shuts down in order: discovery, HTTP, gRPC, adapter,
+runtime.
 """
 
 from __future__ import annotations
@@ -119,6 +122,7 @@ async def serve_async(args) -> None:
     )
     http = ShardHTTPServer(shard)
     await http.start(args.host, args.http_port)
+    discovery = _announce(args, shard_id)
     sweeper = asyncio.ensure_future(runtime.sweeper())
     stop = asyncio.Event()
     loop = asyncio.get_running_loop()
@@ -130,12 +134,34 @@ async def serve_async(args) -> None:
         await stop.wait()
         log.info("shard shutting down")
     finally:
+        if discovery is not None:
+            discovery.stop()
         sweeper.cancel()
         with contextlib.suppress(asyncio.CancelledError):
             await sweeper
         await http.stop()
         await grpc_server.stop(grace=2)
         await shard.stop()
+
+
+def _announce(args, shard_id: str):
+    """The shard's UdpDiscovery under --discovery udp, or None (off, or
+    discovery could not start: the library did not build or load, or the
+    socket could not bind; hostfile rings still reach the shard)."""
+    if getattr(args, "discovery", "none") != "udp":
+        return None
+    from dnet_tpu_torch.utils.p2p import DEFAULT_TARGET, DEFAULT_UDP_PORT, UdpDiscovery
+
+    try:
+        discovery = UdpDiscovery(
+            shard_id, args.http_port, args.grpc_port, udp_port=getattr(args, "udp_port", DEFAULT_UDP_PORT),
+            target_addr=getattr(args, "udp_target", DEFAULT_TARGET), cluster=getattr(args, "cluster", "default"),
+        )
+    except Exception as exc:
+        log.warning("UDP discovery unavailable (%s); hostfile mode only", exc)
+        return None
+    log.info("UDP discovery announcing as %s", shard_id)
+    return discovery
 
 
 def serve(args) -> None:

@@ -127,7 +127,7 @@ def test_no_jax_or_reference_imports_in_source():
                    "resilience/__init__.py", "resilience/chaos.py", "resilience/policy.py",
                    "resilience/checkpoint.py", "membership/__init__.py", "membership/epoch.py",
                    "membership/delta.py", "membership/quarantine.py", "parallel/profiler.py",
-                   "parallel/solver.py", "api/failure.py"):
+                   "parallel/solver.py", "api/failure.py", "utils/p2p.py", "parallel/ring.py"):
         assert PORT_PKG / module in files
     offenders = [
         f"{f.relative_to(ROOT)}: {m.group(0).strip()}"
@@ -278,6 +278,18 @@ def test_serves_speculation_and_prefix_cache_with_jax_and_reference_blocked(tmp_
     engine = health["engine"]
     assert engine["spec_lookahead"] == 3 and engine["spec_blocks"] >= 1
     assert engine["prefix_cache"]["stores"] == 1
+
+
+def test_serves_a_pipeline_mesh_with_speculation_and_prefix_cache_with_jax_and_reference_blocked(tmp_path):
+    """The guarded serve under --mesh pp=2 (a layer a stage) with
+    DNET_API_SPEC_LOOKAHEAD=3 and DNET_API_PREFIX_CACHE=2: the greedy
+    request runs verify blocks through both stages, and its prompt's
+    snapshot is stored."""
+    health = _serve_one_guarded(tmp_path, ["--mesh", "pp=2"],
+                                {"DNET_API_SPEC_LOOKAHEAD": "3", "DNET_API_PREFIX_CACHE": "2"})
+    engine = health["engine"]
+    assert engine["pp"] == 2 and [s["layers"] for s in engine["stages"]] == [[0], [1]]
+    assert engine["spec_blocks"] >= 1 and engine["prefix_cache"]["stores"] == 1
 
 
 @pytest.fixture

@@ -179,7 +179,8 @@ class FaultRing:
         name, http, grpc_port = self.shards[i]
         env = dict(self.env, DNET_CHAOS="shard_compute:delay:50ms") if i == 1 else self.env
         self._spawn(name, env, "dnet_tpu_torch.cli.shard", "--device", "cpu", "--host", "127.0.0.1",
-                    "--http-port", str(http), "--grpc-port", str(grpc_port), "--shard-name", name)
+                    "--http-port", str(http), "--grpc-port", str(grpc_port), "--shard-name", name,
+                    "--discovery", "none")
 
     def post(self, path, body, timeout=60):
         return httpx.post(self.base + path, json=body, timeout=timeout)

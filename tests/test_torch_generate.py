@@ -5,8 +5,8 @@ On the tiny Llama with f32 params, both CLIs read the same prompts file
 and write JSONL rows to a file: each row's prompt, text and token count
 must be equal (tok_s is each run's own rate), with the chat template and
 with --raw.  The refusals exit 2 with the reference's messages; --mesh
-sp=2 on the CPU gives the local engine's rows; a multi-process pod exits
-2.
+sp=2 on the CPU gives the local engine's rows, and with --spec the
+reference's; a multi-process pod exits 2.
 """
 
 import json
@@ -94,11 +94,19 @@ def test_sp_mesh_gives_the_local_rows(tiny_llama_dir, prompts_file, tmp_path):
 
 @pytest.mark.parametrize("argv,env_values,needle", [
     (["--mesh", "tp=2"], {}, "mesh tp=2"),
-    (["--mesh", "sp=2", "--spec", "2"], {}, "ROADMAP A7.4"),
+    (["--mesh", "sp=2", "--spec", "2"], {}, None),
     ([], {"DNET_MESH_NUM_PROCESSES": "2"}, "ROADMAP A7"),
 ], ids=["tp-mesh", "spec-under-mesh", "multi-process-pod"])
-def test_port_refuses_what_it_does_not_serve(tiny_llama_dir, prompts_file, capsys, env, argv, env_values, needle):
+def test_port_refuses_what_it_does_not_serve(tiny_llama_dir, prompts_file, tmp_path, capsys, env, argv, env_values,
+                                             needle):
+    """The refusals exit 2 naming what is not ported; --spec under a mesh
+    (needle None) serves now, as the reference's does: prompt lookup under
+    sp = 2 gives the reference's rows."""
     env(env_values)
+    if needle is None:
+        got = _rows(_port_main, tiny_llama_dir, prompts_file, tmp_path / "port.jsonl", "--device", "cpu", *argv)
+        assert got == _rows(_ref_main, tiny_llama_dir, prompts_file, tmp_path / "ref.jsonl", *argv)
+        return
     assert _port_main(["--model", str(tiny_llama_dir), "--prompts", str(prompts_file), "--device", "cpu", *COMMON,
                        *argv]) == 2
     assert needle in capsys.readouterr().err

@@ -377,7 +377,8 @@ class RecoveringRing:
         name, http, grpc_port = self.shards[i]
         env = dict(self.env, DNET_CHAOS="shard_compute:delay:30ms") if i == 1 else self.env
         self._spawn(name, env, "dnet_tpu_torch.cli.shard", "--device", "cpu", "--host", "127.0.0.1",
-                    "--http-port", str(http), "--grpc-port", str(grpc_port), "--shard-name", name)
+                    "--http-port", str(http), "--grpc-port", str(grpc_port), "--shard-name", name,
+                    "--discovery", "none")
 
     def get(self, path, base=None):
         return httpx.get((base or self.base) + path, timeout=10)

@@ -66,28 +66,48 @@ def _wait_health(base: str, proc, key: str = "status", timeout: float = 90.0) ->
 
 class CpuRing:
     """Two shards and an API node as processes; `guarded` blocks jax and
-    dnet_tpu imports in all three."""
+    dnet_tpu imports in all three.  The shards take `shard_args` (default:
+    no UDP discovery), the API `api_args` (default: --hostfile over the
+    shards)."""
 
-    def __init__(self, tmp_path: Path, guarded: bool = False):
+    def __init__(self, tmp_path: Path, guarded: bool = False, shard_args=("--discovery", "none"), api_args=None):
         self.procs = []
         self.guarded = guarded
         env = {k: v for k, v in os.environ.items() if not k.startswith(("JAX_", "XLA_", "DNET_"))}
         env["PYTHONPATH"] = str(ROOT)
         self.env = env
         self.shards = [(f"s{i}", _free_port(), _free_port()) for i in range(2)]
-        hostfile = tmp_path / "hostfile"
-        hostfile.write_text("".join(f"{n} 127.0.0.1 {h} {g}\n" for n, h, g in self.shards))
+        self.hostfile = tmp_path / "hostfile"
+        self.hostfile.write_text("".join(f"{n} 127.0.0.1 {h} {g}\n" for n, h, g in self.shards))
         for name, http, grpc_port in self.shards:
             self._spawn("dnet_tpu_torch.cli.shard", "--device", "cpu", "--host", "127.0.0.1",
-                        "--http-port", str(http), "--grpc-port", str(grpc_port), "--shard-name", name)
+                        "--http-port", str(http), "--grpc-port", str(grpc_port), "--shard-name", name,
+                        *shard_args)
+        for (_, http, _), proc in zip(self.shards, self.procs):
+            _wait_health(f"http://127.0.0.1:{http}", proc)
+        self.start_api(api_args)
+
+    def start_api(self, api_args=None) -> None:
+        """Spawn the API node (`api_args`, default --hostfile) and wait for
+        it; it is the last process."""
         self.http = _free_port()
         self._spawn("dnet_tpu_torch.cli.api", "--device", "cpu", "--host", "127.0.0.1",
                     "--http-port", str(self.http), "--grpc-port", str(_free_port()),
-                    "--hostfile", str(hostfile), "--max-seq-len", str(MAX_SEQ), "--param-dtype", "bfloat16")
+                    *(api_args or ["--hostfile", str(self.hostfile)]), "--max-seq-len", str(MAX_SEQ),
+                    "--param-dtype", "bfloat16")
         self.base = f"http://127.0.0.1:{self.http}"
-        for (_, http, _), proc in zip(self.shards, self.procs):
-            _wait_health(f"http://127.0.0.1:{http}", proc)
         _wait_health(self.base, self.procs[-1])
+
+    def stop_api(self) -> tuple:
+        """SIGTERM the API node; its (exit code, output)."""
+        proc = self.procs.pop()
+        proc.send_signal(signal.SIGTERM)
+        try:
+            text, _ = proc.communicate(timeout=30)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            text, _ = proc.communicate()
+        return proc.returncode, text
 
     def _spawn(self, module: str, *args: str) -> None:
         cmd = ([sys.executable, "-c", _GUARDED, module] if self.guarded else [sys.executable, "-m", module])

@@ -170,15 +170,22 @@ def _load(model_dir, mesh=None, slots=1, chat=None):
     ("DNET_API_DRAFT_MODEL", "/srv/models/draft"),
 ])
 def test_unported_setting_is_422_at_load(llama_dir, env, name, value):
-    """Under a mesh (sp = 2) the prefix cache and speculation stay refused
-    (ROADMAP A7.4), the message naming the setting (a draft model needs a
-    lookahead, and the refusal names both)."""
+    """Under a mesh (sp = 2) the prefix cache and speculation, once refused
+    with 422 (ROADMAP A7.4), now load and serve a greedy chat; a draft model
+    (given with a lookahead) is not resolved under a mesh, as the
+    reference's manager does not resolve it there: prompt lookup drafts."""
     env({name: value, **({"DNET_API_SPEC_LOOKAHEAD": "3"} if name == "DNET_API_DRAFT_MODEL" else {})})
-    (status, body), manager = _load(llama_dir, mesh={"sp": 2})
-    assert status == 422, body
-    assert body["error"]["type"] == "invalid_request_error" and name in body["error"]["message"]
-    assert "mesh" in body["error"]["message"]
-    assert manager.engine is None
+    chat = {"model": "m", "messages": [{"role": "user", "content": "abcabc"}], "max_tokens": 8,
+            "temperature": 0.0}
+    (status, body), manager = _load(llama_dir, mesh={"sp": 2}, chat=chat)
+    assert status == 200, body
+    assert body["usage"]["completion_tokens"] == 8
+    engine = manager.engine
+    assert type(engine).__name__ == "MeshEngine" and engine.sp == 2 and engine.draft is None
+    if name == "DNET_API_PREFIX_CACHE":
+        assert engine.prefix_cache is not None and engine.prefix_cache.stats["misses"] == 1
+    else:
+        assert engine.spec_lookahead == 3 and engine.spec_blocks >= 1
 
 
 @pytest.mark.parametrize("slots", [1, 4])

@@ -147,11 +147,24 @@ def test_from_params_matches_checkpoint_engine(tiny_llama_dir, mesh):
     [(dict(pp=2), "pp=2"), (dict(tp=2), "tp=2"), (dict(dp=2), "dp=2"), (dict(pp=2, kv_quant_bits=8), "pp=2"),
      (dict(tp=2, kv_quant_bits=4), "tp=2")],
 )
-def test_unported_mesh_refused(tiny_llama_dir, kw, match):
-    """pp / tp / dp stay refused, a quantized cache beside them too (a
-    quantized cache under sp alone serves: tests/test_torch_sp_families.py)."""
+def test_unported_mesh_refused(tiny_llama_dir, local, eight_devices, kw, match):
+    """tp / dp stay refused, a quantized cache beside them too (a
+    quantized cache under sp alone serves: tests/test_torch_sp_families.py).
+    pp, once refused, serves: two stages of two sp ranks give the single
+    device's greedy stream (plain cache), and the reference's MeshEngine's
+    at the same mesh and bits (plain and q8)."""
+    from dnet_tpu.parallel.engine import MeshEngine as RefMesh
     from dnet_tpu_torch.api.inference import EngineCapabilityError
 
+    if "pp" in kw:
+        eng = MeshEngine(tiny_llama_dir, max_seq=MAX_SEQ, param_dtype="float32", device="cpu", **{"sp": 2, **kw})
+        assert (eng.pp, eng.sp) == (2, 2) and eng.stages.stage_ranges() == [[0, 1], [2, 3]]
+        got = [r.token_id for r in eng.generate(LONG, DecodingParams(), max_tokens=16, nonce="g")]
+        ref = RefMesh(tiny_llama_dir, max_seq=MAX_SEQ, param_dtype="float32", **{"sp": 2, **kw})
+        assert got == [r.token_id for r in ref.generate(LONG, RefDecoding(), max_tokens=16, nonce="g")]
+        if not kw.get("kv_quant_bits"):
+            assert got == [r.token_id for r in local.generate(LONG, DecodingParams(), max_tokens=16, nonce="g")]
+        return
     with pytest.raises(EngineCapabilityError, match=match):
         MeshEngine(tiny_llama_dir, max_seq=MAX_SEQ, device="cpu", **{"sp": 2, **kw})
 

@@ -125,9 +125,10 @@ def test_sse_and_aggregate_byte_identical(tiny_llama_dir, no_warmup):
     (dict(model="gpt_oss", batch_slots=2), "--batch-slots 2"),
 ])
 def test_unported_under_a_mesh_is_422(tiny_llama_dir, tmp_path, case, match):
-    """What stays refused under a mesh: pp / tp / dp and --batch-slots > 1,
+    """What stays refused under a mesh: tp / dp and --batch-slots > 1,
     with a quantized cache or another family too (those serve under sp
-    alone: tests/test_torch_sp_families_serving.py)."""
+    alone: tests/test_torch_sp_families_serving.py).  pp, once refused,
+    loads now: two stages of two sp ranks each."""
     model_dir = tiny_llama_dir
     if case.get("model") == "gpt_oss":
         from tests.fakes.checkpoints import make_tiny_gpt_oss
@@ -135,7 +136,14 @@ def test_unported_under_a_mesh_is_422(tiny_llama_dir, tmp_path, case, match):
         make_tiny_gpt_oss(tmp_path)
         model_dir = tmp_path
     app, manager, inference = _port_app(case.get("mesh"), case.get("batch_slots", 1), case.get("kv_bits", 0))
-    [(status, body)] = asyncio.run(_serve(app, model_dir, [], inference))
+    serves = "pp" in case.get("mesh", {})
+    out = asyncio.run(_serve(app, model_dir, [("POST", "/v1/chat/completions", CHAT)] if serves else [], inference))
+    if serves:
+        assert [s for s, _ in out] == [200, 200], out
+        assert json.loads(out[1][1])["usage"]["completion_tokens"] == 12
+        assert (manager.engine.pp, manager.engine.sp) == (2, 2)
+        return
+    [(status, body)] = out
     assert status == 422, body
     err = json.loads(body)["error"]
     assert err["type"] == "invalid_request_error" and match in err["message"], err

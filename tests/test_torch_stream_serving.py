@@ -65,7 +65,7 @@ class Ring:
         device = ["--device", "cpu"] if kind == "port" else []
         for name, http, grpc_port in self.shards:
             self._spawn(env, f"{pkg}.cli.shard", *device, "--host", "127.0.0.1", "--http-port", str(http),
-                        "--grpc-port", str(grpc_port), "--shard-name", name)
+                        "--grpc-port", str(grpc_port), "--shard-name", name, "--discovery", "none")
         self.http = _free_port()
         extra = ["--max-seq-len", str(MAX_SEQ), "--param-dtype", "float32"] if kind == "port" else []
         self._spawn(env, f"{pkg}.cli.api", *device, *extra, "--host", "127.0.0.1", "--http-port", str(self.http),
